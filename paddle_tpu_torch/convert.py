@@ -1,5 +1,5 @@
-"""Weight bridge: a ``paddle_tpu`` state dict, as numpy arrays, into a
-``paddle_tpu_torch`` model.
+"""Weight and training-state bridge: a ``paddle_tpu`` state dict, or a
+``paddle_tpu.jit.TrainStep`` state, as numpy arrays, into the port.
 
 The port keeps the JAX package's parameter names (``gpt.wte.weight``,
 ``gpt.h.{i}.attn.qkv_proj.weight`` of shape (H, 3H), ...) and its
@@ -46,3 +46,23 @@ def load_paddle_tpu_state(model, arrays):
                                  % (name, tuple(t.shape), tuple(dst.shape)))
             dst.copy_(t)
     return model
+
+
+def train_state_from_numpy(state):
+    """A JAX ``TrainStep.state_dict()`` whose arrays the caller turned into
+    numpy, as :meth:`paddle_tpu_torch.jit.TrainStep.set_state_dict` takes
+    it: f32 master ``params`` by name, ``buffers``, the optimizer
+    ``slots`` per name (``moment1`` / ``moment2`` for AdamW), the
+    optimizer ``step`` and the LR scheduler's state (``opt_extra``).
+    Tensors come back on the CPU; the step places them."""
+    opt = state["opt_state"]
+    return {
+        "params": state_dict_from_numpy(state["params"]),
+        "buffers": state_dict_from_numpy(state.get("buffers", {})),
+        "opt_state": {
+            "slots": {name: state_dict_from_numpy(slots)
+                      for name, slots in opt["slots"].items()},
+            "step": int(np.asarray(opt["step"]))},
+        "opt_extra": {k: dict(v) for k, v in
+                      state.get("opt_extra", {}).items()},
+    }

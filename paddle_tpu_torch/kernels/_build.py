@@ -129,6 +129,23 @@ def library():
             lib.paddle_layer_norm_fwd.argtypes = [
                 p, p, p, p, p, p, i, i, f, i, i, p]
             lib.paddle_layer_norm_fwd.restype = i
+            # q, k, v, dout, lse, delta, then the outputs, B S H D, eight
+            # strides, causal, scale, dtype, stream
+            strides = [ll] * 8
+            lib.paddle_flash_bwd.argtypes = [
+                p, p, p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, p]
+            lib.paddle_flash_bwd_dq.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, p]
+            lib.paddle_flash_bwd_dkv.argtypes = [
+                p, p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, p]
+            for fn in (lib.paddle_flash_bwd, lib.paddle_flash_bwd_dq,
+                       lib.paddle_flash_bwd_dkv):
+                fn.restype = i
+            lib.paddle_layer_norm_bwd.argtypes = [
+                p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+            lib.paddle_layer_norm_bwd.restype = i
+            lib.paddle_layer_norm_bwd_parts.argtypes = [i]
+            lib.paddle_layer_norm_bwd_parts.restype = i
             lib.paddle_cuda_error_string.argtypes = [i]
             lib.paddle_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,14 +1,16 @@
-"""GPT-2 (port of ``paddle_tpu/models/gpt.py``), per-layer layout,
-inference only.
+"""GPT-2 (port of ``paddle_tpu/models/gpt.py``), per-layer layout, for
+training and serving.
 
 Pre-LN transformer with a tied LM head (``logits = x @ wte^T``).  Module
 and parameter names are the JAX package's (``gpt.h.{i}.attn.qkv_proj.weight``
 of shape (H, 3H), ...), so its state dict loads by name through
 :mod:`paddle_tpu_torch.convert`.  Attention goes through
-``F.scaled_dot_product_attention`` (the CUDA flash forward on a card) or,
-with a serving cache view, through the view's append-and-attend.
+``F.scaled_dot_product_attention`` (the CUDA flash kernels on a card,
+forward and backward) or, with a serving cache view, through the view's
+append-and-attend.  :class:`GPTPretrainingCriterion` is the training
+loss.
 
-Not ported yet (ROADMAP.md): the loss criterion, activation recompute,
+Not ported yet (ROADMAP.md): activation recompute (``use_recompute``),
 the scan-layers layout, the Megatron pspec annotations and the
 tensor-parallel overlap islands.
 """
@@ -38,6 +40,8 @@ class GPTConfig:
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
+    # activation recompute per block: not ported yet (ROADMAP.md §C)
+    use_recompute: bool = False
 
     @classmethod
     def gpt2_small(cls):
@@ -68,6 +72,9 @@ class GPTAttention(nn.Module):
         self.out_proj = Linear(c.hidden_size, c.hidden_size)
         self.attn_dropout_p = c.attention_dropout_prob
         self.resid_dropout = Dropout(c.hidden_dropout_prob)
+        # draws the attention-probability dropout masks (None: PyTorch's
+        # default generator); jit.TrainStep sets its own
+        self.generator = None
 
     def forward(self, x, cache=None):
         b, s, _ = x.shape
@@ -84,7 +91,7 @@ class GPTAttention(nn.Module):
         else:
             out = F.scaled_dot_product_attention(
                 q, k, v, dropout_p=self.attn_dropout_p, is_causal=True,
-                training=self.training)
+                training=self.training, generator=self.generator)
         out = out.reshape(b, s, h)
         return self.resid_dropout(self.out_proj(out))
 
@@ -119,6 +126,10 @@ class GPTModel(nn.Module):
         super().__init__()
         self.config = config
         c = config
+        if c.use_recompute:
+            raise NotImplementedError(
+                "GPTConfig(use_recompute=True) is not ported yet (ROADMAP.md "
+                "§C)")
         self.wte = Embedding(c.vocab_size, c.hidden_size)
         self.wpe = Embedding(c.max_position_embeddings, c.hidden_size)
         self.drop = Dropout(c.hidden_dropout_prob)
@@ -211,3 +222,27 @@ class GPTForCausalLM(nn.Module):
             c.hidden_size // c.num_attention_heads,
             w.dtype if dtype is None else convert_dtype(dtype),
             w.device if device is None else device)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Shifted causal-LM loss (port of ``paddle_tpu.models.gpt.
+    GPTPretrainingCriterion``).  The shift goes through the labels, not
+    the logits: the labels move left by one with ``-100`` (ignored) at
+    the last position, so no (B, S-1, V) copy of the logits is made; the
+    mean over all B*S positions is then divided by (S-1)/S, which makes
+    it the mean over the S-1 real ones.  With ``loss_mask`` the mask
+    shifts alike and the loss is the masked mean."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        b, s = labels.shape[0], labels.shape[1]
+        targets = torch.cat(
+            [labels[:, 1:], torch.full((b, 1), -100, dtype=labels.dtype,
+                                       device=labels.device)], dim=1)
+        loss = F.cross_entropy(logits, targets, reduction="none",
+                               ignore_index=-100)
+        if loss_mask is not None:
+            mask = torch.cat([loss_mask[:, 1:],
+                              torch.zeros((b, 1), dtype=loss_mask.dtype,
+                                          device=loss_mask.device)], dim=1)
+            return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return loss.mean() / (float(s - 1) / float(s))

@@ -1,8 +1,9 @@
 """Attention functionals (port of ``paddle_tpu/nn/functional/attention.py``).
 
-``scaled_dot_product_attention`` routes to the CUDA flash-attention
-forward when :func:`..kernels.flash_attention.supported` holds (a card,
-square self-attention, aligned shapes) and to :func:`sdpa_reference_raw`
+``scaled_dot_product_attention`` routes to the CUDA flash attention
+(kernel A forward, the backward kernels through its autograd Function)
+when :func:`..kernels.flash_attention.supported` holds (a card, square
+self-attention, aligned shapes) and to :func:`sdpa_reference_raw`
 elsewhere.  The ``'sep'`` sequence-parallel ring is not ported yet.
 """
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 ``layer_norm`` computes its statistics in f32 and casts the output back
 to the input dtype.  Under ``FLAGS_use_pallas_norm`` it routes through the
-CUDA LayerNorm forward (``kernels/norm_cuda.py``) with the JAX package's
+CUDA LayerNorm kernels (``kernels/norm_cuda.py``: the forward, and the
+backward through its autograd Function) with the JAX package's
 shape gate: one normalized axis, weight and bias present, last dim % 128
 == 0 and rows % 8 == 0.  The kernel uses the one-pass variance
 E[x^2] - mean^2 of the TPU kernel, while the default path uses the
@@ -28,10 +29,10 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
             and bias is not None and x.shape[-1] % 128 == 0:
         rows = x.numel() // x.shape[-1]
         if rows % 8 == 0:
-            from ...kernels.norm_cuda import layer_norm_fwd
+            from ...kernels.norm_cuda import layer_norm as kernel_ln
             f = x.shape[-1]
-            out, _mean, _rstd = layer_norm_fwd(
-                x.reshape(-1, f).contiguous(), weight, bias, epsilon)
+            out = kernel_ln(x.reshape(-1, f).contiguous(), weight, bias,
+                            epsilon)
             return out.reshape(x.shape)
     axes = tuple(range(x.dim() - n_axes, x.dim()))
     xf = x.float()

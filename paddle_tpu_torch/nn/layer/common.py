@@ -55,16 +55,22 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Upscale-in-train dropout; the identity in eval mode (the only mode
-    the ported serving path runs)."""
+    """Upscale-in-train dropout; the identity in eval mode.  ``generator``
+    (None: PyTorch's default generator) draws the masks; a
+    ``jit.TrainStep`` sets its own on every module that has the
+    attribute."""
 
     def __init__(self, p=0.5):
         super().__init__()
         self.p = float(p)
+        self.generator = None
 
     def forward(self, x):
-        return torch.nn.functional.dropout(x, p=self.p,
-                                           training=self.training)
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
     def extra_repr(self):
         return "p=%s" % self.p

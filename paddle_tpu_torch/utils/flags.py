@@ -41,5 +41,10 @@ def fast_get(name: str):
 define_flag("use_flash_attention", True, "route attention through the "
             "flash-attention kernel")
 define_flag("use_pallas_norm", False,
-            "route layer_norm through the CUDA LayerNorm forward "
+            "route layer_norm through the CUDA LayerNorm kernels "
             "(kernels/norm_cuda.py); opt-in, as in the JAX package")
+# the cross-entropy kernel routes: their kernels are not ported yet, so a
+# card's logits raise under either (nn/functional/loss.py)
+define_flag("use_pallas_ce", False, "fused softmax cross-entropy kernel")
+define_flag("use_pallas_lse", False, "one-pass logsumexp kernel for the "
+            "cross-entropy statistics")

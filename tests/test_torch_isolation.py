@@ -19,7 +19,9 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "import paddle_tpu_torch, paddle_tpu_torch.serving, "
         "paddle_tpu_torch.models, paddle_tpu_torch.amp, "
         "paddle_tpu_torch.convert, paddle_tpu_torch.kernels.norm_cuda, "
-        "paddle_tpu_torch.kernels.flash_attention_cuda\n"
+        "paddle_tpu_torch.kernels.flash_attention_cuda, "
+        "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
+        "paddle_tpu_torch.regularizer, paddle_tpu_torch.nn.clip\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'paddle_tpu' "
@@ -62,5 +64,11 @@ def test_engine_without_device_raises_on_a_cpu_only_machine():
         generate(m, [[1, 2, 3]], max_new_tokens=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecodeEngine(m, device="cuda")
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainStep(m, GPTPretrainingCriterion(),
+                  AdamW(parameters=m.parameters()))
     # the model stayed where it was: nothing moved on the way to the error
     assert next(m.parameters()).device.type == "cpu"

@@ -1,9 +1,11 @@
-"""paddle_tpu_torch LayerNorm: the plain version of the CUDA kernel held
-against the Pallas ``_ln_fwd_kernel`` (interpret mode: out, mean, rstd),
-the port's ``layer_norm`` against the JAX ``layer_norm_raw`` with the
-kernel flag off and on, the wrapper's input checks and its CPU route.
-The CUDA kernel itself is held against the plain version on the card by
-tests/test_torch_cuda_kernels.py."""
+"""paddle_tpu_torch LayerNorm: the plain versions of the CUDA kernels held
+against the Pallas ``_ln_fwd_kernel`` (interpret mode: out, mean, rstd)
+and, through ``jax.grad``, ``_ln_bwd_kernel`` (dx, dgamma, dbeta); the
+port's ``layer_norm`` against the JAX ``layer_norm_raw`` with the kernel
+flag off and on, its gradients under the flag, the wrappers' input
+checks and their CPU route.  The CUDA kernels themselves are held against
+the plain versions on the card by tests/test_torch_cuda_kernels.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -95,3 +97,67 @@ def test_wrapper_checks_and_cpu_route(monkeypatch):
         norm_cuda.layer_norm_fwd(x, g[:64], b)
     norm_cuda.layer_norm_fwd(x, g, b)
     assert norm_cuda.layer_norm_fwd_launches == 0
+
+
+BWD_SHAPES = [(32, 128), (64, 256)]
+
+
+def _jax_ln_grads(x, g, b, ct):
+    def loss(x_, g_, b_):
+        out = norm_pallas.layer_norm_pallas(
+            x_, g_, b_, 1e-5, norm_pallas.DEFAULT_BLOCK_ROWS, True)
+        return jnp.sum(out * ct)
+    return [np.asarray(a) for a in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_plain_backward_matches_pallas_kernel(shape):
+    """_layer_norm_bwd_reference against jax.grad through the Pallas
+    _ln_bwd_kernel (interpret mode); JAX's own limit for it is 1e-4."""
+    x, g, b = _inputs(shape, seed=5)
+    ct = _inputs(shape, seed=6)[0]
+    want = _jax_ln_grads(x, g, b, ct)
+    xt, gt, bt, ctt = (torch.from_numpy(a) for a in (x, g, b, ct))
+    _out, mean, rstd = norm_cuda.layer_norm_fwd(xt, gt, bt)
+    got = norm_cuda._layer_norm_bwd_reference(xt, gt, mean, rstd, ctt)
+    for name, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-4, rtol=0,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_layer_norm_grads_under_the_flag_match_pallas(shape, monkeypatch):
+    """The flagged route differentiates through the _LayerNorm autograd
+    Function (on the CPU: the plain forward and backward)."""
+    monkeypatch.setitem(flags._REGISTRY, "use_pallas_norm", True)
+    x, g, b = _inputs(shape, seed=7)
+    ct = _inputs(shape, seed=8)[0]
+    want = _jax_ln_grads(x, g, b, ct)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, g, b)]
+    out = layer_norm(leaves[0].reshape(2, -1, shape[1]), [shape[1]],
+                     leaves[1], leaves[2])
+    assert type(out.grad_fn.next_functions[0][0]).__name__ == \
+        "_LayerNormBackward"
+    got = torch.autograd.grad((out.reshape(shape) *
+                               torch.from_numpy(ct)).sum(), leaves)
+    for name, a, w in zip(("dx", "dgamma", "dbeta"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-4, rtol=0,
+                                   err_msg=name)
+
+
+def test_backward_wrapper_checks_and_cpu_route(monkeypatch):
+    def no_library():
+        raise AssertionError("the CPU route loaded the CUDA library")
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(norm_cuda, "layer_norm_bwd_launches", 0)
+    x, g, b = (torch.from_numpy(a) for a in _inputs((8, 128)))
+    _out, mean, rstd = norm_cuda.layer_norm_fwd(x, g, b)
+    with pytest.raises(ValueError, match="dout"):
+        norm_cuda.layer_norm_bwd(x, g, mean, rstd, x[:4])
+    with pytest.raises(ValueError, match="mean"):
+        norm_cuda.layer_norm_bwd(x, g, mean[:4], rstd, x)
+    dx, dg, db = norm_cuda.layer_norm_bwd(x, g.to(torch.bfloat16), mean,
+                                          rstd, x)
+    assert dg.dtype == db.dtype == torch.bfloat16 and dx.dtype == x.dtype
+    assert norm_cuda.layer_norm_bwd_launches == 0
