@@ -12,10 +12,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               library call (``*_ms``, host launch cost included) and
               their device times from a profiler trace (``*_device_ms``).
               ``checks_bwd``: the flash backward kernels C1 (merged), C2
-              and C3 (split) with each route pinned, one case with an lse
-              cotangent, and the LayerNorm backward D.  ``checks_long``:
-              at S=16384 kernel A and C2/C3 against their plain versions
-              (2 heads), and split against merged at 16 heads.
+              and C3 (split) with each route pinned, head dim 64 and 256,
+              one case with an lse cotangent, and the LayerNorm backward
+              D.  ``checks_long``: at S=16384 kernel A and C2/C3 against
+              their plain versions (2 heads), and split against merged at
+              16 heads.  ``checks_ce``: the cross-entropy kernels E1
+              (logsumexp), E2 / E3 (fused softmax-CE forward / backward)
+              and the row softmax F at (8192, 50304) bf16, E1-E3 also at a
+              small shape with out-of-range and ignored labels, F also at
+              (8, 50304) and (8192, 1024).
 3. serve    — GPT-2 345M (seeded random weights, AMP O2 bf16) through the
               slotted DecodeEngine (8 slots, max_len 1024) and the
               continuous-batching scheduler: 12 greedy requests of 128
@@ -40,10 +45,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 9. train_norm — 3 steps with ``use_pallas_norm`` on from the same
               weights: kernels B and D launch 49 times a step; the first
               loss held against the default route's.
-10. train_parity — one step at (1, 256) on the card (bf16, kernels, each
-              LayerNorm route) and on the CPU (f32, plain): the loss and
-              every parameter's gradient held.
-11. train_long — GPT-2 345M at (1, 16384), 2 steps: flash forward, C2
+10. train_ce — 3 steps with ``use_pallas_ce`` on (E2 and E3 once a
+              step), then 3 with ``use_pallas_lse`` (E1 once a step), from
+              the same weights and batch; first losses held against the
+              default route's.
+11. train_flat — 3 steps with ``TrainStep(flat_master=True)``; losses
+              held against the default step's, the optimizer part timed.
+12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
+              LayerNorm route and each cross-entropy route) and on the CPU
+              (f32, plain): the loss and every parameter's gradient held.
+13. train_long — GPT-2 345M at (1, 16384), 2 steps: flash forward, C2
               and C3 launch 24 times a step, C1 never.
 
 Launch counters are set to 0 just before each run of a path and read
@@ -101,6 +112,19 @@ NORM_ROUTE_LOSS_TOL = 0.01
 # limits leave 1.5x room over that bf16 rounding
 PARITY_LOSS_TOL = 0.02
 PARITY_GRAD_REL_TOL = 0.03
+# lse and nll (f32, values ~11): the kernels and the plain versions sum
+# 50304 terms in other orders
+CE_STAT_TOL = 1e-4
+# bf16 dlogits and softmax: both sides round an f32 result to bf16 (one
+# ulp of |ref|), plus 1/64 of the reference's RMS, as the flash checks
+CE_ULP_REL = 2.0 ** -7
+CE_RMS_FRAC = 2.0 ** -6
+# train_ce vs train first loss, same weights and bf16 logits: the CE
+# kernels' f32 arithmetic against the plain route's
+CE_ROUTE_LOSS_TOL = 0.01
+# train_flat vs train losses: the same update over one flat buffer; C1's
+# atomics make any two runs differ in the last bits
+FLAT_LOSS_TOL = 0.01
 
 
 def emit(obj):
@@ -128,14 +152,18 @@ def bound(nbytes, flops, peak_flops):
 class Counters:
     """The kernel wrappers' launch counts, by kernel name."""
 
-    def __init__(self, fac, norm_cuda):
+    def __init__(self, fac, norm_cuda, ce_cuda):
         self.spec = {
             "flash_fwd": (fac, "flash_fwd_launches"),
             "flash_bwd": (fac, "flash_bwd_launches"),
             "flash_bwd_dq": (fac, "flash_bwd_dq_launches"),
             "flash_bwd_dkv": (fac, "flash_bwd_dkv_launches"),
             "layer_norm_fwd": (norm_cuda, "layer_norm_fwd_launches"),
-            "layer_norm_bwd": (norm_cuda, "layer_norm_bwd_launches")}
+            "layer_norm_bwd": (norm_cuda, "layer_norm_bwd_launches"),
+            "ce_lse": (ce_cuda, "ce_lse_launches"),
+            "ce_fwd": (ce_cuda, "ce_fwd_launches"),
+            "ce_bwd": (ce_cuda, "ce_bwd_launches"),
+            "softmax_fwd": (norm_cuda, "softmax_fwd_launches")}
 
     def reset(self):
         for mod, attr in self.spec.values():
@@ -381,13 +409,15 @@ def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
 def check_flash_bwd(torch, fac):
     """C1, C2 and C3 against the plain backward, bf16, B=1 H=16 D=64 at
     S = 128, 1024, 2048, causal or not, each route pinned; then the
-    training shape (8, 1024, 16, 64) causal; then one with-lse case."""
+    training shape (8, 1024, 16, 64) causal and head dim 256 at (1, 1024,
+    4, 256) causal (32-row tiles); then one with-lse case."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     worst = {"flash_bwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     cases = [(1, s, 16, 64, c) for s in (128, 1024, 2048)
-             for c in (True, False)] + [(8, 1024, 16, 64, True)]
+             for c in (True, False)] + [(8, 1024, 16, 64, True),
+                                        (1, 1024, 4, 256, True)]
     for b, s, h, d, causal in cases:
         q, k, v, do, out, lse = flash_case(torch, fac, b, s, h, d, causal,
                                            gen)
@@ -583,20 +613,176 @@ def check_layer_norm_bwd(torch, norm_cuda):
     return rows, worst
 
 
+def ce_bound(nbytes, n_elems, ops_per_elem):
+    """Bound of a cross-entropy or softmax pass: its bytes, and
+    ``ops_per_elem`` f32 operations on each logit (scale, max, subtract,
+    exp2, sum; the backward's one-hot and product)."""
+    return bound(nbytes, ops_per_elem * n_elems, F32_FLOPS)
+
+
+def time_kernel(torch, row, name, fn, pattern, reps=5, inner=10):
+    """``<name>_ms`` (CUDA events around the call) and
+    ``<name>_device_ms`` (profiler: the kernels whose name holds
+    ``pattern``, or every kernel of the call when it is None)."""
+    row[name + "_ms"] = time_ms(fn, torch, reps=reps, inner=inner)
+    times = device_times(fn, torch, n=inner)
+    row[name + "_device_ms"] = (kernel_ms(times, pattern) if pattern
+                                else call_ms(times, inner))
+
+
+def check_ce(torch, ce_cuda, norm_cuda, flags):
+    """E1, E2, E3 and F against their plain versions on the card, bf16.
+    At the training shape (8192, 50304), with the times of each kernel,
+    its plain version and its PyTorch yardstick.  At (64, 1024) with
+    labels out of range: the kernels clamp them as the plain versions'
+    clipped labels read; then ``cross_entropy`` under each flag against
+    the plain route, ignored labels included, loss and gradient.  F also
+    at (8, 50304) and (8192, 1024)."""
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, v = 8192, 50304
+    x = (2.0 * torch.randn((n, v), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    y = torch.randint(0, v, (n, 1), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    g = torch.randn((n,), generator=gen, device="cuda") / n
+    r_nll, r_lse = ce_cuda.softmax_ce_reference(x, y)
+    lse = ce_cuda.lse_fwd(x)
+    nll, lse2 = ce_cuda.ce_fwd(x, y)
+    dx = ce_cuda.ce_bwd(x, y, r_lse, g)
+    r_dx = ce_cuda.softmax_ce_bwd_reference(x, y, r_lse, g)
+    torch.cuda.synchronize()
+    errs = {"ce_lse": float((lse - r_lse).abs().max()),
+            "ce_fwd": max(float((nll - r_nll).abs().max()),
+                          float((lse2 - r_lse).abs().max()))}
+    errs["ce_bwd"], dx_rms, dx_ok = within(dx, r_dx, CE_ULP_REL, CE_RMS_FRAC)
+    if max(errs["ce_lse"], errs["ce_fwd"]) > CE_STAT_TOL or not dx_ok:
+        raise AssertionError("CE kernels at (%d, %d): errors %r (dx ref "
+                             "rms %g)" % (n, v, errs, dx_rms))
+    del dx, r_dx, lse, nll, lse2
+    nbytes_in = n * v * 2
+    y64 = y.long()[:, 0]
+    xr = x.detach().requires_grad_()
+    lib_out = tF.cross_entropy(xr, y64, reduction="none")
+    g16 = g.to(torch.bfloat16)
+    rows = {
+        "ce_lse": {"kernel": lambda: ce_cuda.lse_fwd(x),
+                   "plain": lambda: ce_cuda.logsumexp_reference(x),
+                   "library": lambda: torch.logsumexp(x, -1),
+                   "pattern": "ce_lse_kernel",
+                   "bound": ce_bound(nbytes_in + n * 4, n * v, 5)},
+        "ce_fwd": {"kernel": lambda: ce_cuda.ce_fwd(x, y),
+                   "plain": lambda: ce_cuda.softmax_ce_reference(x, y),
+                   "library": lambda: tF.cross_entropy(x, y64,
+                                                       reduction="none"),
+                   "pattern": "ce_fwd_kernel",
+                   "bound": ce_bound(nbytes_in + n * 12, n * v, 5)},
+        "ce_bwd": {"kernel": lambda: ce_cuda.ce_bwd(x, y, r_lse, g),
+                   "plain": lambda: ce_cuda.softmax_ce_bwd_reference(
+                       x, y, r_lse, g),
+                   "library": lambda: torch.autograd.grad(
+                       lib_out, xr, g16, retain_graph=True),
+                   "pattern": "ce_bwd_kernel",
+                   "bound": ce_bound(2 * nbytes_in + n * 12, n * v, 5)}}
+    out = {}
+    for name, spec in rows.items():
+        row = {"shape": [n, v], "max_abs_err": errs[name]}
+        for part in ("kernel", "plain", "library"):
+            time_kernel(torch, row, part, spec[part],
+                        spec["pattern"] if part == "kernel" else None)
+        row["bound_ms"], row["bound_by"] = spec["bound"]
+        out[name] = row
+    del xr, lib_out
+
+    # small shape: labels out of range (the kernels clamp them) and, through
+    # cross_entropy, ignored ones
+    ns, vs = 64, 1024
+    xs = (2.0 * torch.randn((ns, vs), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    ys = torch.randint(0, vs, (ns, 1), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    ys[:4, 0] = torch.tensor([-100, -1, vs, vs + 7], device="cuda",
+                             dtype=torch.int32)
+    clipped = ys.clamp(0, vs - 1)
+    gs = torch.randn((ns,), generator=gen, device="cuda")
+    s_nll, s_lse = ce_cuda.softmax_ce_reference(xs, clipped)
+    bwd_err, _rms, bwd_ok = within(
+        ce_cuda.ce_bwd(xs, ys, s_lse, gs),
+        ce_cuda.softmax_ce_bwd_reference(xs, clipped, s_lse, gs),
+        CE_ULP_REL, CE_RMS_FRAC)
+    small = {"shape": [ns, vs],
+             "ce_lse_err": float((ce_cuda.lse_fwd(xs) - s_lse).abs().max()),
+             "ce_fwd_err": float((ce_cuda.ce_fwd(xs, ys)[0] - s_nll)
+                                 .abs().max()),
+             "ce_bwd_err": bwd_err}
+    if max(small["ce_lse_err"], small["ce_fwd_err"]) > CE_STAT_TOL or \
+            not bwd_ok:
+        raise AssertionError("CE kernels with out-of-range labels: %r"
+                             % (small,))
+    logits = xs.float().reshape(4, 16, vs).requires_grad_()
+    labels = ys.long().reshape(4, 16).clamp(0, vs - 1)
+    labels[0, :3] = -100
+    want = F.cross_entropy(logits, labels)
+    (want_grad,) = torch.autograd.grad(want, logits)
+    for flag in ("use_pallas_ce", "use_pallas_lse"):
+        flags.set_flags({flag: True})
+        try:
+            got = F.cross_entropy(logits, labels)
+            (got_grad,) = torch.autograd.grad(got, logits)
+        finally:
+            flags.set_flags({flag: False})
+        small[flag + "_loss_err"] = abs(float(got.detach())
+                                        - float(want.detach()))
+        small[flag + "_grad_err"] = float((got_grad - want_grad).abs().max())
+        if small[flag + "_loss_err"] > 1e-5 or \
+                small[flag + "_grad_err"] > 1e-6 or \
+                float(got_grad[0, :3].abs().max()) != 0.0:
+            raise AssertionError("cross_entropy under %s against the plain "
+                                 "route: %r" % (flag, small))
+
+    # F: the training-logits shape, a few long rows, the hidden width
+    soft = []
+    for r, f in ((n, v), (8, v), (n, 1024)):
+        xf = x[:r, :f].contiguous()
+        got = norm_cuda.softmax_pallas(xf)
+        ref = norm_cuda._softmax_reference(xf)
+        torch.cuda.synchronize()
+        err, rms, ok = within(got, ref, CE_ULP_REL, CE_RMS_FRAC)
+        if not ok:
+            raise AssertionError("softmax_fwd (%d, %d): err %g (ref rms %g)"
+                                 % (r, f, err, rms))
+        del got, ref
+        row = {"shape": [r, f], "max_abs_err": err}
+        for part, fn in (("kernel", lambda: norm_cuda.softmax_pallas(xf)),
+                         ("plain",
+                          lambda: norm_cuda._softmax_reference(xf)),
+                         ("library", lambda: torch.softmax(xf, -1))):
+            time_kernel(torch, row, part, fn,
+                        "softmax_fwd_kernel" if part == "kernel" else None)
+        row["bound_ms"], row["bound_by"] = ce_bound(2 * r * f * 2, r * f, 5)
+        soft.append(row)
+    out["softmax_fwd"] = soft
+    out["small"] = small
+    del x, y, g, r_nll, r_lse
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_model(torch, base, amp):
     """A card copy of the f32 CPU model ``base``, AMP O2 bf16."""
     return amp.decorate(copy.deepcopy(base), level="O2",
                         dtype="bfloat16").to("cuda")
 
 
-def make_step(model, lr=1e-4, device="cuda"):
+def make_step(model, lr=1e-4, device="cuda", flat_master=None):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
     opt = AdamW(learning_rate=lr, weight_decay=0.01,
                 parameters=model.parameters())
     return TrainStep(model, GPTPretrainingCriterion(), opt,
-                     device=device)
+                     device=device, flat_master=flat_master)
 
 
 def step_breakdown(torch, step, ids):
@@ -709,7 +895,8 @@ def train(torch, base, amp, counters, flags, steps=10, warmup=3):
     expect_launches(launches, {"flash_fwd": layers * steps,
                                "flash_bwd": layers * steps,
                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                               "layer_norm_fwd": 0, "layer_norm_bwd": 0},
+                               "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+                               "ce_lse": 0, "ce_fwd": 0, "ce_bwd": 0},
                     "train")
     first, last = losses[0], losses[-1]
     if not all(math.isfinite(x) for x in losses):
@@ -724,6 +911,21 @@ def train(torch, base, amp, counters, flags, steps=10, warmup=3):
     return line
 
 
+def run_steps(torch, step, ids, counters, steps):
+    """``steps`` train steps from launch counts set to 0: the losses, the
+    counts, and the host-clock ms per step over all steps but the first
+    (which allocates the step's buffers)."""
+    torch.cuda.synchronize()
+    counters.reset()
+    losses = [step(ids, ids)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step(ids, ids) for _ in range(steps - 1)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+    return [float(x) for x in losses], counters.read(), ms
+
+
 def train_norm(torch, base, amp, counters, flags, first_loss, steps=3):
     """The train step for ``steps`` steps with ``use_pallas_norm`` on, from
     the same weights: kernels B and D, 49 launches each per step."""
@@ -732,19 +934,11 @@ def train_norm(torch, base, amp, counters, flags, first_loss, steps=3):
         step = make_step(train_model(torch, base, amp))
         ids = torch.as_tensor(np.random.default_rng(0).integers(
             0, base.config.vocab_size, (8, 1024)), device="cuda")
-        torch.cuda.synchronize()
-        counters.reset()
-        t0 = time.perf_counter()
-        losses = [step(ids, ids) for _ in range(steps)]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        losses, launches, ms = run_steps(torch, step, ids, counters, steps)
     finally:
         flags.set_flags({"use_pallas_norm": False})
-    launches = counters.read()
-    losses = [float(x) for x in losses]
-    line = {"phase": "train_norm", "steps": steps,
-            "step_ms": wall * 1e3 / steps,
-            "tokens_per_s": 8 * 1024 * steps / wall, "losses": losses,
+    line = {"phase": "train_norm", "steps": steps, "step_ms": ms,
+            "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
             "first_loss_default_route": first_loss,
             "first_loss_diff": abs(losses[0] - first_loss),
             "tolerance": NORM_ROUTE_LOSS_TOL, "launches": launches}
@@ -758,6 +952,85 @@ def train_norm(torch, base, amp, counters, flags, first_loss, steps=3):
             abs(losses[0] - first_loss) > NORM_ROUTE_LOSS_TOL:
         raise AssertionError("train_norm: losses %r against the default "
                              "route's first %g" % (losses, first_loss))
+    return line
+
+
+def train_ce(torch, base, amp, counters, flags, first_loss, steps=3):
+    """The train step for ``steps`` steps under each cross-entropy kernel
+    route, from the same weights and batch: ``use_pallas_ce`` launches E2
+    and E3 once a step, ``use_pallas_lse`` E1 once a step; attention as in
+    train, LayerNorm plain.  First losses held against the default
+    route's."""
+    layers = base.config.num_hidden_layers
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.config.vocab_size, (8, 1024)), device="cuda")
+    lines = []
+    for flag in ("use_pallas_ce", "use_pallas_lse"):
+        flags.set_flags({flag: True})
+        try:
+            step = make_step(train_model(torch, base, amp))
+            losses, launches, ms = run_steps(torch, step, ids, counters,
+                                             steps)
+            breakdown = step_breakdown(torch, step, ids)
+        finally:
+            flags.set_flags({flag: False})
+        del step
+        torch.cuda.empty_cache()
+        line = {"phase": "train_ce", "flag": flag, "steps": steps,
+                "step_ms": ms, "tokens_per_s": 8 * 1024 * 1e3 / ms,
+                "losses": losses,
+                "first_loss_default_route": first_loss,
+                "first_loss_diff": abs(losses[0] - first_loss),
+                "tolerance": CE_ROUTE_LOSS_TOL, "launches": launches,
+                "breakdown": breakdown}
+        emit(line)
+        lines.append(line)
+        ce = flag == "use_pallas_ce"
+        expect_launches(launches, {
+            "flash_fwd": layers * steps, "flash_bwd": layers * steps,
+            "layer_norm_fwd": 0, "layer_norm_bwd": 0,
+            "ce_fwd": steps if ce else 0, "ce_bwd": steps if ce else 0,
+            "ce_lse": 0 if ce else steps}, "train_ce " + flag)
+        if not all(math.isfinite(x) for x in losses) or \
+                abs(losses[0] - first_loss) > CE_ROUTE_LOSS_TOL:
+            raise AssertionError("train_ce (%s): losses %r against the "
+                                 "default route's first %g"
+                                 % (flag, losses, first_loss))
+    return lines
+
+
+def train_flat(torch, base, amp, counters, default_losses, steps=3):
+    """``steps`` steps of the train step with ``flat_master=True`` from the
+    same weights and batch: every master but wte in one f32 buffer.
+    Losses held against the default step's first ones; the step's parts
+    and a 2-step profile beside them."""
+    from paddle_tpu_torch.jit import _FLAT_KEY
+    step = make_step(train_model(torch, base, amp), flat_master=True)
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.config.vocab_size, (8, 1024)), device="cuda")
+    losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+    line = {"phase": "train_flat", "steps": steps, "step_ms": ms,
+            "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
+            "default_losses": default_losses[:steps],
+            "max_loss_diff": max(abs(a - b) for a, b in
+                                 zip(losses, default_losses)),
+            "tolerance": FLAT_LOSS_TOL,
+            "flat_elements": step.params[_FLAT_KEY].numel(),
+            "per_name_masters": sorted(n for n in step.params
+                                       if n != _FLAT_KEY),
+            "launches": launches,
+            "breakdown": step_breakdown(torch, step, ids),
+            "profile": profile_steps(torch, step, ids)}
+    emit(line)
+    del step
+    torch.cuda.empty_cache()
+    layers = base.config.num_hidden_layers
+    expect_launches(launches, {"flash_fwd": layers * steps,
+                               "flash_bwd": layers * steps}, "train_flat")
+    if line["max_loss_diff"] > FLAT_LOSS_TOL or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError("train_flat: losses %r against the default "
+                             "step's %r" % (losses, default_losses[:steps]))
     return line
 
 
@@ -815,18 +1088,23 @@ def step_grads(torch, step, ids):
     return loss, seen
 
 
+PARITY_ROUTES = ({}, {"use_pallas_norm": True}, {"use_pallas_ce": True},
+                 {"use_pallas_lse": True})
+
+
 def train_parity(torch, base, amp, flags, counters, s=256):
     """One train step at (1, 256) from the same weights on the card (bf16,
-    kernels, each LayerNorm route) and on the CPU (f32, plain versions):
-    the loss, and every parameter's gradient by its relative L2 error."""
+    kernels, each LayerNorm and cross-entropy route) and on the CPU (f32,
+    plain versions): the loss, and every parameter's gradient by its
+    relative L2 error."""
     ids = np.random.default_rng(2).integers(0, base.config.vocab_size,
                                             (1, s))
     cpu_loss, cpu_grads = step_grads(
         torch, make_step(copy.deepcopy(base), device="cpu"),
         torch.as_tensor(ids))
     lines = []
-    for use_norm in (False, True):
-        flags.set_flags({"use_pallas_norm": use_norm})
+    for route in PARITY_ROUTES:
+        flags.set_flags(route)
         try:
             counters.reset()
             loss, grads = step_grads(
@@ -834,11 +1112,11 @@ def train_parity(torch, base, amp, flags, counters, s=256):
                 torch.as_tensor(ids, device="cuda"))
             launches = counters.read()
         finally:
-            flags.set_flags({"use_pallas_norm": False})
+            flags.set_flags({k: False for k in route})
         rel = {k: float((grads[k] - g).norm() / g.norm())
                for k, g in cpu_grads.items()}
         worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-        line = {"phase": "train_parity", "use_pallas_norm": use_norm,
+        line = {"phase": "train_parity", "flags": route,
                 "shape": [1, s], "card_loss": loss, "cpu_loss": cpu_loss,
                 "loss_diff": abs(loss - cpu_loss),
                 "loss_tolerance": PARITY_LOSS_TOL,
@@ -849,15 +1127,17 @@ def train_parity(torch, base, amp, flags, counters, s=256):
                 "params": len(rel), "launches": launches}
         emit(line)
         lines.append(line)
-        if launches["flash_bwd"] == 0 or \
-                bool(launches["layer_norm_bwd"]) != use_norm:
-            raise AssertionError("train_parity: kernels not on the path: %r"
-                                 % (launches,))
+        on = {"layer_norm_bwd": "use_pallas_norm", "ce_fwd": "use_pallas_ce",
+              "ce_bwd": "use_pallas_ce", "ce_lse": "use_pallas_lse"}
+        if launches["flash_bwd"] == 0 or any(
+                bool(launches[k]) != (flag in route) for k, flag in
+                on.items()):
+            raise AssertionError("train_parity %r: kernels not on the path: "
+                                 "%r" % (route, launches))
         if abs(loss - cpu_loss) > PARITY_LOSS_TOL or \
                 worst[0][1] > PARITY_GRAD_REL_TOL:
-            raise AssertionError("train_parity (use_pallas_norm=%s): loss "
-                                 "%g vs %g, worst grads %r"
-                                 % (use_norm, loss, cpu_loss, worst))
+            raise AssertionError("train_parity %r: loss %g vs %g, worst "
+                                 "grads %r" % (route, loss, cpu_loss, worst))
     return lines
 
 
@@ -1030,7 +1310,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from paddle_tpu_torch import amp
-    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import _build, ce_cuda
     from paddle_tpu_torch.kernels import flash_attention_cuda as fac
     from paddle_tpu_torch.kernels import norm_cuda
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
@@ -1065,6 +1345,10 @@ def main():
     emit({"phase": "checks_long", "against_plain": long_plain_row,
           "split_vs_merged": long_row})
     seconds["checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ce_rows = check_ce(torch, ce_cuda, norm_cuda, flags)
+    emit({"phase": "checks_ce", **ce_rows})
+    seconds["checks_ce"] = time.perf_counter() - t0
 
     # -- serve: GPT-2 345M, seeded weights, AMP O2 bf16 -------------------
     t0 = time.perf_counter()
@@ -1126,7 +1410,7 @@ def main():
 
     # -- train: bench.py's step, GPT-2 345M, AMP O2 bf16, AdamW -----------
     t0 = time.perf_counter()
-    counters = Counters(fac, norm_cuda)
+    counters = Counters(fac, norm_cuda, ce_cuda)
     train_cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
                                     attention_dropout_prob=0.0)
     # the serve run's seeded weights (same generator, same draw order)
@@ -1141,7 +1425,14 @@ def main():
     torch.cuda.empty_cache()
     seconds["train_norm"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train_parity(torch, base, amp, flags, counters)
+    run_ce, run_lse = train_ce(torch, base, amp, counters, flags,
+                               run_train["losses"][0])
+    seconds["train_ce"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_flat(torch, base, amp, counters, run_train["losses"])
+    seconds["train_flat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parity = train_parity(torch, base, amp, flags, counters)
     del base
     torch.cuda.empty_cache()
     seconds["train_parity"] = time.perf_counter() - t0
@@ -1157,6 +1448,7 @@ def main():
     train_ln_row = ln_rows[-1]             # (8192, 1024)
     train_bwd_row = [r for r in bwd_rows
                      if r["shape"] == [8, 1024, 16, 64]][0]
+    d256_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 4, 256]][0]
     ln_bwd_row = ln_bwd_rows[0]            # (8192, 1024)
     fwd_launches = {"serve": run_default["launches"]["flash_fwd"],
                   "train": run_train["launches"]["flash_fwd"],
@@ -1180,7 +1472,30 @@ def main():
             "bound_ms": src_row[kern + "_bound_ms"],
             "bound_by": src_row[kern + "_bound_by"],
             "library_ms": src_row["library_ms"],
-            "library_device_ms": src_row["library_device_ms"]}
+            "library_device_ms": src_row["library_device_ms"],
+            "at_d256": {k: d256_row[k] for k in (
+                "shape", kern + "_ms", kern + "_device_ms",
+                kern + "_bound_ms", "library_ms", "library_device_ms")}}
+
+    def ce_entry(name, replaces, launches, by_path):
+        row = ce_rows[name]
+        return {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/cross_entropy.cu",
+            "replaces": "paddle_tpu/kernels/ce_pallas.py:%d" % replaces,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": max(row["max_abs_err"],
+                               ce_rows["small"][name + "_err"]),
+            "shape": row["shape"], "ms": row["kernel_ms"],
+            "device_ms": row["kernel_device_ms"],
+            "plain_ms": row["plain_ms"],
+            "plain_device_ms": row["plain_device_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"]}
+    parity_by = {next(iter(line["flags"]), "default"): line["launches"]
+                 for line in parity}
+    soft = ce_rows["softmax_fwd"]
     split_err = max(long_plain_row["split_dq_err"],
                     long_plain_row["split_dk_err"],
                     long_plain_row["split_dv_err"])
@@ -1245,7 +1560,37 @@ def main():
          "plain_ms": ln_bwd_row["plain_ms"],
          "bound_ms": ln_bwd_row["bound_ms"],
          "bound_by": ln_bwd_row["bound_by"],
-         "library_ms": ln_bwd_row["library_ms"]}]})
+         "library_ms": ln_bwd_row["library_ms"]},
+        ce_entry("ce_lse", 188, run_lse["launches"]["ce_lse"],
+                 {"train_ce_use_pallas_lse": run_lse["launches"]["ce_lse"],
+                  "train_parity_use_pallas_lse":
+                      parity_by["use_pallas_lse"]["ce_lse"]}),
+        ce_entry("ce_fwd", 44, run_ce["launches"]["ce_fwd"],
+                 {"train_ce_use_pallas_ce": run_ce["launches"]["ce_fwd"],
+                  "train_parity_use_pallas_ce":
+                      parity_by["use_pallas_ce"]["ce_fwd"]}),
+        ce_entry("ce_bwd", 56, run_ce["launches"]["ce_bwd"],
+                 {"train_ce_use_pallas_ce": run_ce["launches"]["ce_bwd"],
+                  "train_parity_use_pallas_ce":
+                      parity_by["use_pallas_ce"]["ce_bwd"]}),
+        # on no path of either package: only its tests call the JAX
+        # softmax_pallas, so no run launches it
+        {"name": "softmax_fwd", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/softmax_fwd.cu",
+         "replaces": "paddle_tpu/kernels/norm_pallas.py:260",
+         "launches": run_train["launches"]["softmax_fwd"],
+         "launches_by_path": {}, "on_a_path": False,
+         "max_abs_err": max(r["max_abs_err"] for r in soft),
+         "shape": soft[0]["shape"], "ms": soft[0]["kernel_ms"],
+         "device_ms": soft[0]["kernel_device_ms"],
+         "plain_ms": soft[0]["plain_ms"],
+         "plain_device_ms": soft[0]["plain_device_ms"],
+         "bound_ms": soft[0]["bound_ms"], "bound_by": soft[0]["bound_by"],
+         "library_ms": soft[0]["library_ms"],
+         "library_device_ms": soft[0]["library_device_ms"],
+         "at_other_shapes": [{k: r[k] for k in (
+             "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
+             "bound_ms", "library_ms")} for r in soft[1:]]}]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

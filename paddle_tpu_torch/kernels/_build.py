@@ -146,6 +146,14 @@ def library():
             lib.paddle_layer_norm_bwd.restype = i
             lib.paddle_layer_norm_bwd_parts.argtypes = [i]
             lib.paddle_layer_norm_bwd_parts.restype = i
+            # x, [labels], outputs, then N V dtype stream
+            lib.paddle_ce_lse.argtypes = [p, p, i, i, i, p]
+            lib.paddle_ce_fwd.argtypes = [p, p, p, p, i, i, i, p]
+            lib.paddle_ce_bwd.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.paddle_softmax_fwd.argtypes = [p, p, i, i, i, p]
+            for fn in (lib.paddle_ce_lse, lib.paddle_ce_fwd,
+                       lib.paddle_ce_bwd, lib.paddle_softmax_fwd):
+                fn.restype = i
             lib.paddle_cuda_error_string.argtypes = [i]
             lib.paddle_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

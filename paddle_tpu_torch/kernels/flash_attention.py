@@ -53,9 +53,7 @@ def supported(q, k=None) -> bool:
 
     Restricted to square self-attention (s_q == s_k, block-aligned): the
     kernel's causal mask is start-aligned, so cross or cached attention
-    takes the plain path.  The backward kernels take head_dim 64 or 128:
-    differentiating a head_dim-256 attention on a card raises
-    (:func:`.flash_attention_cuda.flash_attention_bwd`)."""
+    takes the plain path."""
     if not q.is_cuda or q.dim() != 4:
         return False
     s, d = q.shape[1], q.shape[3]

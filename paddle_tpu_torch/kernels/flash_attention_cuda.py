@@ -7,9 +7,9 @@ plain PyTorch versions, and the autograd Functions that join them (port of
 ``flash_attention_bshd_with_lse`` and their ``custom_vjp``s).
 
 Tensors are (B, S, H, D), the model's native layout: no transposes.  The
-kernels take float32 and bfloat16, S a multiple of 64, S_q == S_k and a
-start-aligned causal mask; the forward takes D in {64, 128, 256}, the
-backward D in {64, 128}.  q/k/v (and the backward's dO) need dense (H, D)
+kernels take float32 and bfloat16, S a multiple of 64, S_q == S_k, a
+start-aligned causal mask and D in {64, 128, 256} (the backward tiles 32
+rows at D = 256, 64 below).  q/k/v (and the backward's dO) need dense (H, D)
 inner dimensions; their sequence and batch strides are free, so the
 model's q/k/v slices of the fused projection go in without a copy.  A dO
 whose (H, D) dimensions are not dense is made contiguous first.  Kernel A
@@ -40,7 +40,6 @@ flash_bwd_dkv_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
 _BLOCK = 64
 
 
@@ -171,11 +170,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
                                     dlse)
     if q.device.type != "cuda":
         raise ValueError("flash attention: unsupported device %s" % q.device)
-    if d not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            "flash attention backward: head_dim %d on a card is not ported "
-            "yet (the kernels take %s; ROADMAP.md section B)"
-            % (d, BWD_HEAD_DIMS))
     if dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("flash attention backward: dout must be %s and lse "
                         "float32" % q.dtype)

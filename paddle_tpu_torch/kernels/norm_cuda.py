@@ -1,8 +1,10 @@
-"""LayerNorm: the CUDA kernels ``csrc/layer_norm_fwd.cu`` (forward, kernel
-B) and ``csrc/layer_norm_bwd.cu`` (backward, kernel D), their plain
-PyTorch versions and the autograd Function that joins them (port of
-``paddle_tpu/kernels/norm_pallas.py`` ``_ln_fwd_kernel`` /
-``_ln_bwd_kernel`` through ``layer_norm_pallas`` and its ``custom_vjp``).
+"""LayerNorm and row softmax: the CUDA kernels ``csrc/layer_norm_fwd.cu``
+(forward, kernel B), ``csrc/layer_norm_bwd.cu`` (backward, kernel D) and
+``csrc/softmax_fwd.cu`` (kernel F), their plain PyTorch versions and the
+autograd Function that joins B and D (port of
+``paddle_tpu/kernels/norm_pallas.py``: ``_ln_fwd_kernel`` /
+``_ln_bwd_kernel`` through ``layer_norm_pallas`` and its ``custom_vjp``,
+and ``_softmax_kernel`` through ``softmax_pallas``).
 
 Rows of x (R, F) normalise with f32 statistics and the one-pass variance
 E[x^2] - mean^2 of the TPU kernel; the output keeps x's dtype.  The
@@ -14,8 +16,9 @@ A CUDA tensor launches the kernels (or raises); only a CPU tensor takes
 the plain versions :func:`_layer_norm_reference` /
 :func:`_layer_norm_bwd_reference`.  :func:`layer_norm` saves what the JAX
 ``custom_vjp`` saves, (x, gamma, mean, rstd), and only when autograd will
-use it.  ``layer_norm_fwd_launches`` and ``layer_norm_bwd_launches`` count
-kernel launches.
+use it.  :func:`softmax_pallas` is forward-only, as in the JAX package.
+``layer_norm_fwd_launches``, ``layer_norm_bwd_launches`` and
+``softmax_fwd_launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -26,8 +29,11 @@ from . import _build
 #: kernel launches since import (or since a caller reset them)
 layer_norm_fwd_launches = 0
 layer_norm_bwd_launches = 0
+softmax_fwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOFTMAX_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DEFAULT_BLOCK_ROWS = 256
 
 
 def _layer_norm_reference(x, gamma, beta, eps):
@@ -172,3 +178,50 @@ def layer_norm(x, gamma, beta, eps=1e-5):
             t.requires_grad for t in (x, gamma, beta)):
         return _LayerNorm.apply(x, gamma, beta, eps)
     return layer_norm_fwd(x, gamma, beta, eps)[0]
+
+
+def _softmax_reference(x2):
+    """Plain softmax over the rows of x2 (N, F): f32 statistics, the
+    output in x's dtype."""
+    xf = x2.float()
+    e = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).to(x2.dtype)
+
+
+def softmax_pallas(x, block_rows=DEFAULT_BLOCK_ROWS):
+    """Numerically stable softmax over the last dim (f32 statistics), in
+    x's dtype, through kernel F on a card.  Forward only, as the JAX
+    ``softmax_pallas``: with grad enabled and ``x.requires_grad`` it
+    raises rather than return an output without a ``grad_fn``.  It takes
+    the shapes the JAX function takes (the row-block halving and F %
+    128) and raises ``ValueError`` on the others."""
+    f = x.shape[-1]
+    x2 = x.reshape(-1, f)
+    n = x2.shape[0]
+    br = min(block_rows, n)
+    while br > 8 and n % br:
+        br //= 2
+    if n % br or f % 128:
+        raise ValueError("softmax_pallas: shape (%d, %d) not tileable"
+                         % (n, f))
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("softmax_pallas is forward-only (no backward "
+                           "kernel, as in the JAX package); call it under "
+                           "torch.no_grad() or on a detached tensor")
+    if x.dtype not in _SOFTMAX_DTYPES:
+        raise TypeError("softmax_pallas: dtype %s not supported (float32, "
+                        "bfloat16 or float16)" % x.dtype)
+    if x.device.type == "cpu":
+        return _softmax_reference(x2).reshape(x.shape)
+    if x.device.type != "cuda":
+        raise ValueError("softmax_pallas: unsupported device %s" % x.device)
+    global softmax_fwd_launches
+    x2 = x2.contiguous()
+    if x2.data_ptr() % 16:
+        raise ValueError("softmax_pallas: x must be 16-byte aligned")
+    out = torch.empty_like(x2)
+    _build.check(_build.library().paddle_softmax_fwd(
+        x2.data_ptr(), out.data_ptr(), n, f, _SOFTMAX_DTYPES[x.dtype],
+        _build.current_stream(x.device)), "softmax_fwd launch")
+    softmax_fwd_launches += 1
+    return out.reshape(x.shape)

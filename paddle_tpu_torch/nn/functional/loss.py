@@ -1,38 +1,73 @@
 """Loss functionals (port of ``paddle_tpu/nn/functional/loss.py``):
-``cross_entropy`` and ``softmax_with_cross_entropy_raw``.
+``cross_entropy``, ``softmax_with_cross_entropy(_raw)`` and ``nll_loss``.
 
-The default route is the JAX package's XLA route, in plain PyTorch: f32
-softmax statistics over the (possibly bf16) logits, ``nll = lse - x[y]``
-with the row max held out of the gradient, zero at ``ignore_index``, and
-``mean`` over the valid rows.  The JAX package computes it outside any
-Pallas kernel by default.  Its kernel routes, ``FLAGS_use_pallas_ce``
-(fused softmax-CE) and ``FLAGS_use_pallas_lse`` (one-pass logsumexp),
-take effect only on the accelerator; their kernels are not ported yet,
-so with either flag on a card's logits raise ``NotImplementedError``
-(ROADMAP.md §B) rather than take the plain route.
+Hard-label cross entropy takes one of three routes, in the JAX order:
+
+* ``FLAGS_use_pallas_ce``: the fused softmax-CE kernels E2 / E3
+  (:func:`..kernels.ce_cuda.softmax_ce`);
+* ``FLAGS_use_pallas_lse``: the one-pass logsumexp kernel E1
+  (:func:`..kernels.ce_cuda.logsumexp`), the label gather plain;
+* the default, the JAX package's XLA route in plain PyTorch: f32 softmax
+  statistics over the (possibly bf16) logits, ``nll = lse - x[y]`` with
+  the row max held out of the gradient.
+
+A kernel route is taken when its flag is on, the logits lie on a card
+(the JAX gate's "running on a TPU") and the JAX package's own shape
+predicate holds; otherwise the plain route runs.  The JAX gate also asks
+for a single device, because a Mosaic kernel has no GSPMD partitioning
+rule; the port has no sharded logits yet, and the clause comes back with
+``distributed/`` (ROADMAP.md §A).  Every route zeroes the loss where the
+label is ``ignore_index``.
 """
 from __future__ import annotations
 
 import torch
 
+from ...kernels import ce_cuda
 from ...utils.flags import fast_get
 
-_UNPORTED = {
-    "use_pallas_ce": "the fused softmax-CE kernels (ce_pallas.py _fwd_kernel"
-                     " / _bwd_kernel)",
-    "use_pallas_lse": "the one-pass logsumexp kernel (ce_pallas.py "
-                      "_lse_kernel)",
-}
+
+def _pallas_ce_gate(flag_name, logits):
+    """Eligibility of the kernel routes: flag on, logits on a card.
+    Returns (n, v, lead) or None."""
+    if not fast_get(flag_name) or not logits.is_cuda:
+        return None
+    lead = tuple(logits.shape[:-1])
+    n = 1
+    for dim in lead:
+        n *= dim
+    return n, logits.shape[-1], lead
 
 
-def _refuse_unported_routes(logits):
-    if not logits.is_cuda:
-        return
-    for flag, what in _UNPORTED.items():
-        if fast_get(flag):
-            raise NotImplementedError(
-                "FLAGS_%s routes cross entropy through %s, which is not "
-                "ported yet (ROADMAP.md §B); turn the flag off" % (flag, what))
+def _fused_ce_or_none(logits, lbl, ignore_index):
+    """The fused softmax-CE route (``FLAGS_use_pallas_ce``); None takes
+    the plain route."""
+    gate = _pallas_ce_gate("use_pallas_ce", logits)
+    if gate is None:
+        return None
+    n, v, lead = gate
+    if not ce_cuda.supported(n, v):
+        return None
+    idx = lbl.to(torch.int32).clamp(0, v - 1).reshape(n, 1)
+    nll = ce_cuda.softmax_ce(logits.reshape(n, v), idx).reshape(lead)
+    return torch.where(lbl != ignore_index, nll, torch.zeros_like(nll))
+
+
+def _streamed_lse_or_none(logits, axis):
+    """The one-pass logsumexp over the class axis
+    (``FLAGS_use_pallas_lse``); None takes the plain route (not a card,
+    an unsupported shape or dtype, or the class axis is not last)."""
+    if axis not in (-1, logits.dim() - 1):
+        return None
+    if logits.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        return None
+    gate = _pallas_ce_gate("use_pallas_lse", logits)
+    if gate is None:
+        return None
+    n, v, lead = gate
+    if not ce_cuda.lse_supported(n, v, logits.element_size()):
+        return None
+    return ce_cuda.logsumexp(logits.reshape(n, v)).reshape(lead)
 
 
 def _reduce(out, reduction, weight_sum=None):
@@ -62,12 +97,17 @@ def softmax_with_cross_entropy_raw(logits, label, soft_label=False,
         return -(label * logp).sum(axis)
     lbl = _hard(label, logits, axis)
     if axis in (-1, logits.dim() - 1):
-        _refuse_unported_routes(logits)
-    # two streaming reductions over the logits; the max is a constant to
-    # autograd, as in the JAX package (the lse gradient is the softmax)
-    m = logits.detach().amax(dim=axis).float()
-    lse = m + torch.log(torch.exp(logits.float() - m.unsqueeze(axis))
-                        .sum(dim=axis))
+        out = _fused_ce_or_none(logits, lbl, ignore_index)
+        if out is not None:
+            return out
+    lse = _streamed_lse_or_none(logits, axis)
+    if lse is None:
+        # two streaming reductions over the logits; the max is a constant
+        # to autograd, as in the JAX package (the lse gradient is the
+        # softmax)
+        m = logits.detach().amax(dim=axis).float()
+        lse = m + torch.log(torch.exp(logits.float() - m.unsqueeze(axis))
+                            .sum(dim=axis))
     idx = lbl.long().clamp(0, logits.shape[axis] - 1)
     t = torch.gather(logits, axis, idx.unsqueeze(axis)).float()
     nll = lse - t.squeeze(axis)
@@ -108,3 +148,37 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         valid = (lbl != ignore_index).to(out.dtype)
         return out.sum() / torch.clamp(valid.sum(), min=1.0)
     return _reduce(out, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False):
+    """The per-row loss of :func:`softmax_with_cross_entropy_raw` with the
+    class axis kept (size 1); with ``return_softmax`` also the softmax of
+    the logits along ``axis``."""
+    loss = softmax_with_cross_entropy_raw(logits, label, soft_label,
+                                          ignore_index, axis).unsqueeze(axis)
+    if return_softmax:
+        return loss, torch.softmax(logits, dim=axis)
+    return loss
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,
+             reduction="mean"):
+    """Negative log-likelihood of log-probabilities ``input`` (N, C, ...)
+    at class ``label`` (N, ...), 0 where the label is ``ignore_index``
+    (labels are clipped into [0, C) for the gather); ``weight`` (C,)
+    scales each row by its class's weight."""
+    idx = label.long().clamp(0, input.shape[1] - 1)
+    nll = -torch.gather(input, 1, idx.unsqueeze(1)).squeeze(1)
+    mask = label != ignore_index
+    if weight is not None:
+        w = weight[idx]
+        w = torch.where(mask, w, torch.zeros_like(w))
+        nll = nll * w
+        if reduction == "mean":
+            return nll.sum() / torch.clamp(w.sum(), min=1e-12)
+    nll = torch.where(mask, nll, torch.zeros_like(nll))
+    if reduction == "mean":
+        return nll.sum() / torch.clamp(mask.to(nll.dtype).sum(), min=1.0)
+    return _reduce(nll, reduction)

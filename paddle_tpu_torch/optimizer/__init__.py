@@ -1,6 +1,8 @@
 """Optimizers (port of ``paddle_tpu/optimizer``)."""
 from . import lr
 from .optimizer import Optimizer
-from .optimizers import SGD, Adam, AdamW, Momentum
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                         Momentum, RMSProp)
 
-__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "Adadelta", "RMSProp", "Adamax", "Lamb"]

@@ -157,6 +157,10 @@ class Optimizer:
     # decoupled weight decay? (AdamW overrides)
     _decoupled_wd = False
 
+    # the update is uniform elementwise over parameters, so TrainStep may
+    # pack them into one flat buffer (Lamb overrides: per-param trust norms)
+    _flat_safe = True
+
     # -- step-path API -------------------------------------------------------
     def init_state(self, params: Dict[str, torch.Tensor]):
         return {"slots": {k: self._init_slots(p) for k, p in params.items()},

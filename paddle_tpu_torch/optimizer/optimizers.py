@@ -1,9 +1,10 @@
 """Concrete optimizers (port of ``paddle_tpu/optimizer/optimizers.py``):
-SGD, Momentum, Adam and AdamW.  Each defines only the pure update:
-SGD and Momentum per parameter, Adam over a list of parameters with
-multi-tensor ops.  Adam's math runs in f32 whatever the storage dtype
-of the parameter and of its moments.  Adagrad, Adadelta, RMSProp, Adamax and
-Lamb are not ported yet (ROADMAP.md §A)."""
+SGD, Momentum, Adam, AdamW, Adagrad, Adadelta, RMSProp, Adamax and Lamb.
+Each defines only the pure update: Adam over a list of parameters with
+multi-tensor ops, the others per parameter.  Every update except SGD's
+and Momentum's runs its math in f32 whatever the storage dtype of the
+parameter, in the JAX package's order of operations; their slots are
+f32."""
 from __future__ import annotations
 
 import torch
@@ -135,3 +136,138 @@ class AdamW(Adam):
             # the decoupled p *= (1 - lr * wd) is L2-shaped: an L1Decay
             # coefficient goes through the coupled wd * sign(p) term
             self._decoupled_wd = False
+
+
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def init_one(self, p):
+        return {"moment": torch.full(p.shape, self._init_acc,
+                                     dtype=torch.float32, device=p.device)}
+
+    def update_one(self, g, p, slots, lr, step):
+        g = _wd_grad(self, g, p).float()
+        acc = slots["moment"] + g.square()
+        new_p = p.float() - lr * g / (acc.sqrt() + self._epsilon)
+        return new_p.to(p.dtype), {"moment": acc}
+
+
+class Adadelta(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def init_one(self, p):
+        return {"avg_squared_grad": _zeros32(p),
+                "avg_squared_update": _zeros32(p)}
+
+    def update_one(self, g, p, slots, lr, step):
+        g = _wd_grad(self, g, p).float()
+        rho, eps = self._rho, self._epsilon
+        asg = rho * slots["avg_squared_grad"] + (1 - rho) * g.square()
+        upd = g * (slots["avg_squared_update"] + eps).sqrt() \
+            / (asg + eps).sqrt()
+        asu = rho * slots["avg_squared_update"] + (1 - rho) * upd.square()
+        new_p = p.float() - lr * upd
+        return new_p.to(p.dtype), {"avg_squared_grad": asg,
+                                   "avg_squared_update": asu}
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def init_one(self, p):
+        s = {"mean_square": _zeros32(p), "momentum": _zeros32(p)}
+        if self._centered:
+            s["mean_grad"] = _zeros32(p)
+        return s
+
+    def update_one(self, g, p, slots, lr, step):
+        g = _wd_grad(self, g, p).float()
+        rho, eps = self._rho, self._epsilon
+        ms = rho * slots["mean_square"] + (1 - rho) * g.square()
+        if self._centered:
+            mg = rho * slots["mean_grad"] + (1 - rho) * g
+            denom = (ms - mg.square() + eps).sqrt()
+            new_slots = {"mean_square": ms, "mean_grad": mg}
+        else:
+            denom = (ms + eps).sqrt()
+            new_slots = {"mean_square": ms}
+        mom = self._momentum * slots["momentum"] + lr * g / denom
+        new_slots["momentum"] = mom
+        return (p.float() - mom).to(p.dtype), new_slots
+
+
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def init_one(self, p):
+        return {"moment": _zeros32(p), "inf_norm": _zeros32(p)}
+
+    def update_one(self, g, p, slots, lr, step):
+        g = _wd_grad(self, g, p).float()
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * slots["moment"] + (1 - b1) * g
+        u = torch.maximum(b2 * slots["inf_norm"], g.abs())
+        new_p = p.float() - (lr / (1 - b1 ** step)) * m / (u + self._epsilon)
+        return new_p.to(p.dtype), {"moment": m, "inf_norm": u}
+
+
+class Lamb(Optimizer):
+    # per-parameter trust-ratio norms: packing params into one flat buffer
+    # (TrainStep flat_master) would change the math, so it stays per name
+    _flat_safe = False
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lamb_wd = lamb_weight_decay
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def init_one(self, p):
+        return {"moment1": _zeros32(p), "moment2": _zeros32(p)}
+
+    def update_one(self, g, p, slots, lr, step):
+        g32, p32 = g.float(), p.float()
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * slots["moment1"] + (1 - b1) * g32
+        v = b2 * slots["moment2"] + (1 - b2) * g32.square()
+        mhat = m / (1 - b1 ** step)
+        vhat = v / (1 - b2 ** step)
+        r = mhat / (vhat.sqrt() + self._epsilon) + self._lamb_wd * p32
+        w_norm = p32.square().sum().sqrt()
+        r_norm = r.square().sum().sqrt()
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        new_p = p32 - lr * trust * r
+        return new_p.to(p.dtype), {"moment1": m, "moment2": v}
+
+
+def _zeros32(p):
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)

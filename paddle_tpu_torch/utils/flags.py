@@ -43,8 +43,12 @@ define_flag("use_flash_attention", True, "route attention through the "
 define_flag("use_pallas_norm", False,
             "route layer_norm through the CUDA LayerNorm kernels "
             "(kernels/norm_cuda.py); opt-in, as in the JAX package")
-# the cross-entropy kernel routes: their kernels are not ported yet, so a
-# card's logits raise under either (nn/functional/loss.py)
-define_flag("use_pallas_ce", False, "fused softmax cross-entropy kernel")
-define_flag("use_pallas_lse", False, "one-pass logsumexp kernel for the "
-            "cross-entropy statistics")
+define_flag("use_pallas_ce", False,
+            "route hard-label cross_entropy on a card through the fused "
+            "softmax-CE kernels (kernels/ce_cuda.py E2 / E3); opt-in, as in "
+            "the JAX package, where the plain streaming route measured "
+            "faster")
+define_flag("use_pallas_lse", False,
+            "compute hard-label cross_entropy's logsumexp on a card with "
+            "the one-pass kernel (kernels/ce_cuda.py E1) instead of the "
+            "plain route's two reductions; opt-in, as in the JAX package")

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.kernels import ce_cuda
 from paddle_tpu_torch.kernels import flash_attention_cuda as fac
 from paddle_tpu_torch.kernels import norm_cuda
 
@@ -134,21 +135,35 @@ def test_attention_on_the_card_joins_autograd():
 
 
 @pytest.mark.gpu
-def test_head_dim_256_attention_runs_kernel_a_and_its_backward_raises():
-    """The backward kernels take head_dim 64 and 128: at 256 the forward
-    still launches kernel A under autograd, and differentiating it raises
-    rather than taking a plain version."""
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_256_attention_runs_kernel_a_and_its_backward_raises(causal):
+    """Head dim 256 (32-row tiles in the backward kernels): under autograd
+    the forward launches kernel A, and the backward, with each route
+    pinned, matches its plain version (the test's name is from when the
+    backward raised there)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from paddle_tpu_torch.nn import functional as F
+    # the model's route takes S % 128 == 0; the kernels S % 64 == 0
     q, k, v = (torch.from_numpy(a).to("cuda").requires_grad_()
                for a in _qkv((1, 128, 2, 256), seed=17))
     before = fac.flash_fwd_launches
-    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
     assert fac.flash_fwd_launches == before + 1
     assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
-        torch.autograd.grad(out.sum(), (q, k, v))
+    assert len(torch.autograd.grad(out.sum(), (q, k, v))) == 3
+    shape = (1, 192, 2, 256)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.from_numpy(a).to("cuda", dtype)
+                       for a in _qkv(shape, seed=18) + _qkv(shape, seed=19)[:1])
+        out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal=causal)
+        ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal, 0.0625)
+        for route in ("merged", "split"):
+            got = fac.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                          0.0625, route=route)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                _close(g, r, dtype, "d=256 %s %s %s" % (name, route, dtype))
 
 
 @pytest.mark.gpu
@@ -220,3 +235,96 @@ def test_layer_norm_kernel_matches_plain(x_dtype, w_dtype):
                                    rtol=0)
         torch.testing.assert_close(mean, r_mean, atol=1e-5, rtol=0)
         torch.testing.assert_close(rstd, r_rstd, atol=1e-4, rtol=1e-5)
+
+
+def _ce_inputs(n, v, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((3.0 * rng.standard_normal((n, v)))
+                         .astype(np.float32)).to("cuda", dtype)
+    y = torch.from_numpy(rng.integers(0, v, (n, 1)).astype(np.int32)).cuda()
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    return x, y, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_ce_kernels_match_plain(dtype):
+    """E1, E2 and E3 against their plain versions: lse and nll (f32, sums
+    of up to 50304 terms in other orders) within 1e-4; dlogits within one
+    ulp of |ref| in the logits' dtype plus a small share of the RMS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for n, v in [(8, 128), (64, 1024), (16, 50304)]:
+        x, y, g = _ce_inputs(n, v, dtype, seed=20)
+        y[0, 0] = v - 1
+        counts = (ce_cuda.ce_lse_launches, ce_cuda.ce_fwd_launches,
+                  ce_cuda.ce_bwd_launches)
+        lse = ce_cuda.lse_fwd(x)
+        nll, lse2 = ce_cuda.ce_fwd(x, y)
+        dx = ce_cuda.ce_bwd(x, y, lse2, g)
+        torch.cuda.synchronize()
+        assert (ce_cuda.ce_lse_launches - counts[0],
+                ce_cuda.ce_fwd_launches - counts[1],
+                ce_cuda.ce_bwd_launches - counts[2]) == (1, 1, 1)
+        r_nll, r_lse = ce_cuda.softmax_ce_reference(x, y)
+        for got, want in ((lse, r_lse), (lse2, r_lse), (nll, r_nll)):
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        r_dx = ce_cuda.softmax_ce_bwd_reference(x, y, r_lse, g)
+        assert dx.dtype == dtype
+        # f16's ulp is finer than bf16's, which _close allows for both
+        _close(dx, r_dx, torch.float32 if dtype == torch.float32
+               else torch.bfloat16, "dlogits %s %s" % ((n, v), dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_kernel_matches_plain(dtype):
+    """F against its plain version, staged rows (up to 220 KB) and rows
+    read twice (f32 rows of 65536)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    rng = np.random.default_rng(21)
+    for shape in [(8, 128), (64, 1024), (8, 50304), (2, 65536)]:
+        x = torch.from_numpy((3.0 * rng.standard_normal(shape))
+                             .astype(np.float32)).to("cuda", dtype)
+        before = norm_cuda.softmax_fwd_launches
+        got = norm_cuda.softmax_pallas(x)
+        torch.cuda.synchronize()
+        assert norm_cuda.softmax_fwd_launches == before + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        _close(got, norm_cuda._softmax_reference(x), dtype,
+               "softmax %s" % (shape,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flag", ["use_pallas_ce", "use_pallas_lse"])
+def test_cross_entropy_routes_join_autograd_on_the_card(flag, monkeypatch):
+    """Under each flag the GPT criterion's cross entropy launches its
+    kernels and its loss and logits gradient match the plain route's,
+    ignored labels included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.utils import flags
+    # V = 1024: the lse route's chunk must reach 1024 lanes
+    x, y, _g = _ce_inputs(64, 1024, torch.float32, seed=22)
+    assert ce_cuda.supported(64, 1024) and ce_cuda.lse_supported(64, 1024, 4)
+    x = x.reshape(4, 16, 1024).requires_grad_()
+    labels = y.reshape(4, 16).long()
+    labels[1, 3] = labels[2, 15] = -100
+    want = F.cross_entropy(x, labels)
+    (want_grad,) = torch.autograd.grad(want, x)
+    monkeypatch.setitem(flags._REGISTRY, flag, True)
+    counts = (ce_cuda.ce_lse_launches, ce_cuda.ce_fwd_launches,
+              ce_cuda.ce_bwd_launches)
+    got = F.cross_entropy(x, labels)
+    assert got.grad_fn is not None
+    (got_grad,) = torch.autograd.grad(got, x)
+    launched = (ce_cuda.ce_lse_launches - counts[0],
+                ce_cuda.ce_fwd_launches - counts[1],
+                ce_cuda.ce_bwd_launches - counts[2])
+    assert launched == ((0, 1, 1) if flag == "use_pallas_ce" else (1, 0, 0))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got_grad, want_grad, atol=1e-6, rtol=1e-5)
+    assert float(got_grad[1, 3].abs().max()) == 0.0

@@ -85,7 +85,7 @@ def test_plain_backward_with_lse_cotangent_matches_pallas(causal):
 
 def test_router_picks_split_where_jax_does():
     seen = set()
-    for d in (64, 128):
+    for d in (64, 128, 256):
         for h in (2, 4, 12, 16, 32):
             for s in (128, 1024, 2048, 4096, 8192, 16384, 32768):
                 hg_b = fap._pick_head_group(h, d, s)
@@ -170,10 +170,8 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
         fac.flash_attention_bwd(q, k, v, out, lse[:, :64], ct, True, 0.125)
     with pytest.raises(ValueError, match="dout"):
         fac.flash_attention_bwd(q, k, v, out, lse, ct[:, :64], True, 0.125)
-    # the backward kernels take head_dim 64 and 128; on a card a 256 raises
-    # NotImplementedError (the card test holds that), on the CPU it takes
-    # the plain version
-    assert fac.BWD_HEAD_DIMS == (64, 128)
+    # head_dim 256 takes the kernels on a card (the card tests hold them
+    # against the plain version) and the plain version on the CPU
     q, k, v, ct, _ = (torch.from_numpy(a)
                       for a in _arrays((1, 128, 1, 256), seed=6))
     out, lse = fac._flash_reference(q, k, v, True, 0.0625)

@@ -20,6 +20,7 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.models, paddle_tpu_torch.amp, "
         "paddle_tpu_torch.convert, paddle_tpu_torch.kernels.norm_cuda, "
         "paddle_tpu_torch.kernels.flash_attention_cuda, "
+        "paddle_tpu_torch.kernels.ce_cuda, "
         "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
         "paddle_tpu_torch.regularizer, paddle_tpu_torch.nn.clip\n"
         "new = set(sys.modules) - before\n"

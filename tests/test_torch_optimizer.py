@@ -1,7 +1,8 @@
 """paddle_tpu_torch optimizers against paddle_tpu's on the same arrays:
 ``apply_gradients`` of SGD, Momentum, Adam and AdamW over several steps
 (coupled L2 and L1 decay, decoupled decay with ``apply_decay_param_fun``,
-amsgrad, bf16 moments, each grad-clip class), the eager ``step()`` on
+amsgrad, bf16 moments, each grad-clip class) and of Adagrad, Adadelta,
+RMSProp, Adamax and Lamb over five, the eager ``step()`` on
 bf16 parameters with its f32 master slot against the f32-master route,
 the LR schedulers' value sequences, and the fp16 GradScaler."""
 import jax.numpy as jnp
@@ -55,6 +56,22 @@ def _case(name):
         "momentum_value_clip": lambda: both(
             "Momentum", learning_rate=0.1,
             grad_clip=nn.ClipGradByValue(0.2)),
+        "adagrad_l2": lambda: both("Adagrad", learning_rate=0.1,
+                                   weight_decay=0.01,
+                                   initial_accumulator_value=0.1),
+        "adadelta_l1": lambda: both("Adadelta", learning_rate=1.0,
+                                    weight_decay=regularizer.L1Decay(0.01)),
+        "rmsprop": lambda: both("RMSProp", learning_rate=1e-2),
+        "rmsprop_centered_momentum": lambda: both(
+            "RMSProp", learning_rate=1e-2, centered=True, momentum=0.9,
+            weight_decay=0.01),
+        "rmsprop_momentum": lambda: both("RMSProp", learning_rate=1e-2,
+                                         momentum=0.9),
+        "adamax_l2": lambda: both("Adamax", learning_rate=1e-2,
+                                  weight_decay=regularizer.L2Decay(0.01)),
+        "lamb_global_clip": lambda: both(
+            "Lamb", learning_rate=1e-2, lamb_weight_decay=0.01,
+            grad_clip=nn.ClipGradByGlobalNorm(0.5)),
     }[name]()
 
 
@@ -72,17 +89,14 @@ def _jax_twin(v):
     return v
 
 
-@pytest.mark.parametrize("case", [
-    "sgd_l2", "momentum_nesterov", "adam_l1_amsgrad", "adamw_decay_fun",
-    "adamw_l1", "adam_bf16_moments", "adamw_global_clip", "sgd_norm_clip",
-    "momentum_value_clip"])
-def test_apply_gradients_matches_jax(case):
-    jopt, topt = _case(case)
+def _track(jopt, topt, steps):
+    """``steps`` apply_gradients calls on both sides from the same params
+    and grads: params and every slot agree after each."""
     params = _arrays(0)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     jstate, tstate = jopt.init_state(jp), topt.init_state(tp)
-    for step in range(4):
+    for step in range(steps):
         grads = _arrays(10 + step, scale=0.5)
         jp, jstate = jopt.apply_gradients(
             jp, {k: jnp.asarray(v) for k, v in grads.items()}, jstate,
@@ -96,6 +110,7 @@ def test_apply_gradients_matches_jax(case):
             np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
                                        atol=1e-6, rtol=1e-6,
                                        err_msg="%s step %d" % (k, step))
+            assert set(tstate["slots"][k]) == set(jstate["slots"][k])
             for slot, v in tstate["slots"][k].items():
                 w = np.asarray(jnp.asarray(jstate["slots"][k][slot],
                                            jnp.float32))
@@ -103,6 +118,21 @@ def test_apply_gradients_matches_jax(case):
                     str(jstate["slots"][k][slot].dtype)
                 np.testing.assert_allclose(v.float().numpy(), w, atol=1e-6,
                                            rtol=1e-5, err_msg=slot)
+
+
+@pytest.mark.parametrize("case", [
+    "sgd_l2", "momentum_nesterov", "adam_l1_amsgrad", "adamw_decay_fun",
+    "adamw_l1", "adam_bf16_moments", "adamw_global_clip", "sgd_norm_clip",
+    "momentum_value_clip"])
+def test_apply_gradients_matches_jax(case):
+    _track(*_case(case), steps=4)
+
+
+@pytest.mark.parametrize("case", [
+    "adagrad_l2", "adadelta_l1", "rmsprop", "rmsprop_centered_momentum",
+    "rmsprop_momentum", "adamax_l2", "lamb_global_clip"])
+def test_remaining_optimizers_match_jax(case):
+    _track(*_case(case), steps=5)
 
 
 def test_decay_fun_and_l1_change_the_update():

@@ -3,29 +3,32 @@ and the GPT pretraining criterion, and the gate of the training slice —
 ``jit.TrainStep`` with AdamW and a global-norm clip tracks
 ``paddle_tpu.jit.TrainStep`` step by step at the tiny GPT in f32, with
 each LayerNorm route (the flagged one on a config wide enough for the
-kernel's gate, JAX running its Pallas LayerNorm in interpret mode).  Also
-the training-state bridge and an AMP O2 bf16 run.  Weights and batches
-are numpy arrays from a seed, loaded into both."""
+kernel's gate, JAX running its Pallas LayerNorm in interpret mode), and
+with ``flat_master=True`` on both sides.  Also the training-state bridge,
+the flat master's per-name state dicts, and an AMP O2 bf16 run.  Weights
+and batches are numpy arrays from a seed, loaded into both."""
 import jax
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
+import paddle_tpu.jit as jax_jit
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 from paddle_tpu.models.gpt import GPTPretrainingCriterion as JaxCriterion
 from paddle_tpu.nn.functional import cross_entropy as jax_cross_entropy
 from paddle_tpu.utils import flags as jax_flags
-from paddle_tpu_torch import amp
+import paddle_tpu_torch.jit as torch_jit
+from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.convert import (load_paddle_tpu_state,
                                       train_state_from_numpy)
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.kernels import norm_cuda
+from paddle_tpu_torch.kernels import ce_cuda, norm_cuda
 from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
                                          GPTPretrainingCriterion)
-from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ClipGradByNorm
 from paddle_tpu_torch.nn.functional import cross_entropy
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.utils import flags
@@ -57,7 +60,8 @@ def _weights(jm, seed):
     return out
 
 
-def _pair(seed=0, wide=False, o2=False, lr=1e-3, epsilon=1e-6):
+def _pair(seed=0, wide=False, o2=False, lr=1e-3, epsilon=1e-6,
+          flat_master=None):
     jcfg = JaxGPTConfig(**_wide_kwargs()) if wide else JaxGPTConfig.tiny()
     tcfg = GPTConfig(**_wide_kwargs()) if wide else GPTConfig.tiny()
     jm = JaxGPT(jcfg)
@@ -80,8 +84,10 @@ def _pair(seed=0, wide=False, o2=False, lr=1e-3, epsilon=1e-6):
                  weight_decay=0.01, epsilon=epsilon,
                  grad_clip=ClipGradByGlobalNorm(1.0))
     jcrit = JaxCriterion()
-    jstep = JaxTrainStep(jm, lambda lg, lb: jcrit(lg, lb), jopt)
-    tstep = TrainStep(tm, GPTPretrainingCriterion(), topt, device="cpu")
+    jstep = JaxTrainStep(jm, lambda lg, lb: jcrit(lg, lb), jopt,
+                         flat_master=flat_master)
+    tstep = TrainStep(tm, GPTPretrainingCriterion(), topt, device="cpu",
+                      flat_master=flat_master)
     return jstep, tstep
 
 
@@ -162,17 +168,29 @@ def test_criterion_matches_jax_with_and_without_mask():
 
 
 def test_unported_cross_entropy_kernels_refuse_a_card(monkeypatch):
-    """The flag routes raise on a card; on the CPU the JAX package takes
-    its plain route too, and so does the port."""
-    logits = torch.randn(4, 16)
-    labels = torch.randint(0, 16, (4,))
+    """The kernel routes under either flag: a CPU tensor takes the plain
+    route (as the JAX package does off the TPU) and loads no kernel; on a
+    card, the flag's kernels launch and the loss matches the plain
+    route's."""
+    def no_library():
+        raise AssertionError("the CPU route loaded the CUDA library")
+    logits = torch.randn(4, 8, 256, generator=torch.Generator().manual_seed(0))
+    labels = torch.randint(0, 256, (4, 8),
+                           generator=torch.Generator().manual_seed(1))
+    labels[0, 3] = -100
     want = cross_entropy(logits, labels)
-    for flag in ("use_pallas_ce", "use_pallas_lse"):
+    for flag, counters in (("use_pallas_ce", ("ce_fwd_launches",)),
+                           ("use_pallas_lse", ("ce_lse_launches",))):
         monkeypatch.setitem(flags._REGISTRY, flag, True)
-        torch.testing.assert_close(cross_entropy(logits, labels), want)
+        with monkeypatch.context() as m:
+            m.setattr(ce_cuda._build, "library", no_library)
+            torch.testing.assert_close(cross_entropy(logits, labels), want)
         if torch.cuda.is_available():
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                cross_entropy(logits.cuda(), labels.cuda())
+            before = [getattr(ce_cuda, c) for c in counters]
+            got = cross_entropy(logits.cuda(), labels.cuda())
+            assert [getattr(ce_cuda, c) for c in counters] == \
+                [b + 1 for b in before]
+            torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
         monkeypatch.setitem(flags._REGISTRY, flag, False)
 
 
@@ -295,11 +313,94 @@ def test_trainstep_refuses_unported_options():
     tm = GPTForCausalLM(GPTConfig.tiny())
     opt = AdamW(parameters=tm.parameters())
     for kw in ({"zero_stage": 2}, {"stack_layers": True},
-               {"flat_master": True}, {"in_shardings": [None]}):
+               {"in_shardings": [None]}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainStep(tm, GPTPretrainingCriterion(), opt, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTForCausalLM(GPTConfig(**dict(_wide_kwargs(), use_recompute=True)))
+
+
+def test_flat_master_tracks_jax_flat_master(monkeypatch):
+    """flat_master=True on both sides, five AdamW steps with a global-norm
+    clip: losses and params within 1e-5.  The size cap is lowered on both
+    sides so that wte (32768 elements) stays out of the buffer, as
+    GPT-2's does at the real cap."""
+    monkeypatch.setattr(torch_jit, "_FLAT_MAX_ELEMS", 1 << 15)
+    monkeypatch.setattr(jax_jit, "_FLAT_MAX_ELEMS", 1 << 15)
+    jstep, tstep = _pair(seed=11, flat_master=True)
+    flat = tstep.params[torch_jit._FLAT_KEY]
+    assert set(tstep.params) == set(jstep.params) == {
+        torch_jit._FLAT_KEY, "gpt.wte.weight"}
+    assert flat.numel() == jstep.params[jax_jit._FLAT_KEY].size
+    jl, tl = _run(jstep, tstep, (_batches(2, seed=12) * 3)[:5])
+    np.testing.assert_allclose(tl, jl, atol=ATOL, rtol=0)
+    assert tl[-1] < tl[0]
+    want = _jax_params(jstep)
+    got = tstep.state_dict()["params"]
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k], atol=ATOL,
+                                   rtol=0, err_msg=k)
+    for n, p in tstep.model.named_parameters():
+        torch.testing.assert_close(p.detach(), got[n], atol=0, rtol=0)
+
+
+def _o2_step(flat_master, seed=13):
+    tm = GPTForCausalLM(GPTConfig.tiny(),
+                        generator=torch.Generator().manual_seed(seed))
+    tm = amp.decorate(tm, level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=1e-3, parameters=tm.parameters(),
+                weight_decay=0.01)
+    return TrainStep(tm, GPTPretrainingCriterion(), opt, device="cpu",
+                     flat_master=flat_master)
+
+
+def test_flat_master_state_dict_crosses_both_ways():
+    """AMP O2 (a bf16 and an f32 group in the buffer): the flat step takes
+    the per-name step's losses, speaks per-name params and slots in its
+    state dict, and each step resumes from the other's state dict."""
+    flat, per = _o2_step(True), _o2_step(None)
+    assert torch_jit._FLAT_KEY in flat.params
+    assert torch_jit._FLAT_KEY not in per.params
+    assert [buf.dtype for _g0, _g1, buf, _names in flat._flat_groups] == [
+        torch.float32, torch.bfloat16]
+    batches = _batches(4, seed=14)
+    for ids in batches[:3]:
+        a = flat(torch.as_tensor(ids), torch.as_tensor(ids))
+        b = per(torch.as_tensor(ids), torch.as_tensor(ids))
+        # the same elementwise update over the same values
+        assert float(a) == float(b)
+    sd_flat, sd_per = flat.state_dict(), per.state_dict()
+    assert set(sd_flat["params"]) == set(sd_per["params"])
+    assert set(sd_flat["opt_state"]["slots"]) == \
+        set(sd_per["opt_state"]["slots"])
+    for k, v in sd_per["params"].items():
+        torch.testing.assert_close(sd_flat["params"][k], v, atol=0, rtol=0)
+        for slot, w in sd_per["opt_state"]["slots"][k].items():
+            torch.testing.assert_close(
+                sd_flat["opt_state"]["slots"][k][slot], w, atol=0, rtol=0)
+    re_flat, re_per = _o2_step(True, seed=15), _o2_step(None, seed=15)
+    re_flat.set_state_dict(sd_per)
+    re_per.set_state_dict(sd_flat)
+    ids = torch.as_tensor(batches[3])
+    want = float(per(ids, ids))
+    assert float(re_flat(ids, ids)) == want == float(re_per(ids, ids))
+
+
+def test_flat_master_refuses_what_changes_the_math():
+    tm = GPTForCausalLM(GPTConfig.tiny())
+    for opt in (optimizer.Lamb(parameters=tm.parameters()),
+                AdamW(parameters=tm.parameters(),
+                      apply_decay_param_fun=lambda n: "bias" not in n),
+                AdamW(parameters=tm.parameters(),
+                      grad_clip=ClipGradByNorm(1.0))):
+        with pytest.raises(ValueError, match="flat_master"):
+            TrainStep(tm, GPTPretrainingCriterion(), opt, device="cpu",
+                      flat_master=True)
+    with pytest.raises(ValueError, match="flat_master"):
+        TrainStep(tm, GPTPretrainingCriterion(),
+                  AdamW(parameters=tm.parameters()), device="cpu",
+                  flat_master=True, zero_stage=2)
 
 
 def test_train_mode_without_dropout_runs_the_eval_forward():
