@@ -20,7 +20,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (logsumexp), E2 / E3 (fused softmax-CE forward / backward)
               and the row softmax F at (8192, 50304) bf16, E1-E3 also at a
               small shape with out-of-range and ignored labels, F also at
-              (8, 50304) and (8192, 1024).
+              (8, 50304) and (8192, 1024).  ``checks_pipelined``: kernel
+              A' at each of its (block_q, block_k) instantiations against
+              its plain version, lse included, at the serving prefill,
+              the training shape, (1, 16384, 2, 64), one non-causal case,
+              D 128 and 256 and one f32 case, beside kernel A's and SDPA's
+              times; the tiles whose shared memory exceeds a block's are
+              refused by the gate, never launched.
 3. serve    — GPT-2 345M (seeded random weights, AMP O2 bf16) through the
               slotted DecodeEngine (8 slots, max_len 1024) and the
               continuous-batching scheduler: 12 greedy requests of 128
@@ -30,7 +36,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. decode_profile — host and device time of a batched decode step.
 5. parity   — one 128-token prompt: the card's last-position logits
               (kernel path, bf16) against the same weights on the CPU in
-              f32 (plain path).
+              f32 (plain path); ``parity_pinned``: the same prefill under
+              ``FLAGS_autotune_pin="flash_fwd=pipelined"``, A' on every
+              layer.
 6. decode_parity — 8 slots of ragged prompts, a few batched decode steps
               on the card and on the CPU, logits held at every step, for
               each LayerNorm route.
@@ -54,9 +62,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
               LayerNorm route and each cross-entropy route) and on the CPU
               (f32, plain): the loss and every parameter's gradient held.
-13. train_long — GPT-2 345M at (1, 16384), 2 steps: flash forward, C2
+13. autotune — ``autotune.warm()`` over the port's standard keys (the
+              four flash families at the training shape) and flash_fwd at
+              head dim 256, into this run's own cache file: each key's
+              timing table, winner and shared-memory refusals.
+14. train_pipelined — 3 steps under ``flash_fwd=pipelined`` pinned: A'
+              launches 24 times a step, kernel A never; the first loss
+              held against train's.
+15. train_autotune — 3 steps with ``FLAGS_autotune=1`` reading the
+              cache that the autotune phase wrote: the launches are the
+              winners', nothing is timed again, the first loss held.
+16. train_long — GPT-2 345M at (1, 16384), 2 steps: flash forward, C2
               and C3 launch 24 times a step, C1 never.
 
+Every phase but 13-15 runs with tuning off, no pin and an empty cache
+of the run's own (a temporary file under ``paddle_tpu_torch/_build/``,
+removed at the end), so each kernel is the hand-tuned candidate [0].
 Launch counters are set to 0 just before each run of a path and read
 just after.  Then the seconds of each part, the ``{"kernels": [...]}``
 summary, the card's name and power limit, and, last, the device line.
@@ -69,9 +90,11 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -155,6 +178,7 @@ class Counters:
     def __init__(self, fac, norm_cuda, ce_cuda):
         self.spec = {
             "flash_fwd": (fac, "flash_fwd_launches"),
+            "flash_fwd_pipelined": (fac, "flash_fwd_pipelined_launches"),
             "flash_bwd": (fac, "flash_bwd_launches"),
             "flash_bwd_dq": (fac, "flash_bwd_dq_launches"),
             "flash_bwd_dkv": (fac, "flash_bwd_dkv_launches"),
@@ -557,6 +581,91 @@ def check_flash_long(torch, fac):
     return out_row, long_row
 
 
+PIPELINED_CASES = [
+    # (b, s, h, d, causal, dtype name): the serving prefill, the training
+    # shape, S=16384 at 2 heads (where the plain version fits), one
+    # non-causal case, D 128 and 256, one f32 case
+    (1, 128, 16, 64, True, "bfloat16"),
+    (8, 1024, 16, 64, True, "bfloat16"),
+    (1, 16384, 2, 64, True, "bfloat16"),
+    (1, 1024, 16, 64, False, "bfloat16"),
+    (1, 1024, 8, 128, True, "bfloat16"),
+    (1, 1024, 4, 256, True, "bfloat16"),
+    (1, 1024, 16, 64, True, "float32"),
+]
+
+
+def check_pipelined(torch, fac, at, lib):
+    """Kernel A' against its plain version at each (block_q, block_k)
+    instantiation on every PIPELINED_CASES shape, with the lse: the
+    event and device ms of A', of its plain version and of SDPA (a
+    yardstick), kernel A's device ms at the same shape, and the bound.
+    An instantiation whose shared memory exceeds a block's is refused by
+    the gate (its size held against the C side's) and never launched."""
+    import torch.nn.functional as tF
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    limit = at.smem_limit(torch.device("cuda"))
+    rows, worst, refused = [], 0.0, []
+    for b, s, h, d, causal, dname in PIPELINED_CASES:
+        dtype = getattr(torch, dname)
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                          device="cuda").to(dtype)
+        q, k, v = (qkv[:, :, i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
+                   for i in range(3))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        scale = d ** -0.5
+        reps, inner = (3, 2) if s >= 16384 else (5, 10)
+        pairs = s * (s + 1) / 2 if causal else s * s
+        bound_ms, bound_by = bound(
+            4 * b * s * h * d * q.element_size(), 4 * b * h * d * pairs,
+            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        shape_row = {
+            "kernel_a_device_ms": kernel_ms(device_times(
+                lambda: fac._launch(q, k, v, causal, scale, False), torch,
+                n=inner), "flash_fwd_kernel")}
+        time_kernel(torch, shape_row, "library",
+                    lambda: tF.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal), None, reps, inner)
+        for bq, bk in fac._PIPELINED_BLOCKS:
+            need = fac.pipelined_smem_bytes(d, bq, bk, dtype)
+            if lib.paddle_flash_fwd_pipelined_smem(
+                    d, bq, bk, fac._DTYPES[dtype]) != need:
+                raise AssertionError("A' shared memory: the gate's %d bytes "
+                                     "differ from the kernel's" % need)
+            row = {"shape": [b, s, h, d], "causal": causal, "dtype": dname,
+                   "blocks": [bq, bk], "smem_bytes": need}
+            if need > limit:
+                refused.append(row)
+                continue
+            out, lse = fac._launch_pipelined(q, k, v, causal, scale, True,
+                                             bq, bk)
+            ref, ref_lse = fac._flash_pipelined_reference(q, k, v, causal,
+                                                          scale, bq, bk)
+            torch.cuda.synchronize()
+            err, rms, ok = within(out, ref, FLASH_ULP_REL, FLASH_RMS_FRAC)
+            lse_err = float((lse - ref_lse).abs().max())
+            del out, lse, ref, ref_lse
+            if not ok or lse_err > LSE_TOL:
+                raise AssertionError("flash_fwd_pipelined %r: out err %g "
+                                     "(ref rms %g), lse err %g"
+                                     % (row, err, rms, lse_err))
+            worst = max(worst, err)
+            row.update(max_abs_err=err, ref_rms=rms, lse_max_abs_err=lse_err)
+            time_kernel(torch, row, "kernel",
+                        lambda: fac._launch_pipelined(q, k, v, causal, scale,
+                                                      False, bq, bk),
+                        "flash_fwd_pipelined_kernel", reps, inner)
+            time_kernel(torch, row, "plain",
+                        lambda: fac._flash_pipelined_reference(
+                            q, k, v, causal, scale, bq, bk), None, reps,
+                        inner)
+            row.update(shape_row, bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+        del qkv, q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows, worst, refused
+
+
 def check_layer_norm_bwd(torch, norm_cuda):
     """Kernel D against the plain backward at (8192, 1024), the training
     shape, and (128, 1024): bf16 x / dO, f32 gamma."""
@@ -893,6 +1002,7 @@ def train(torch, base, amp, counters, flags, steps=10, warmup=3):
     emit(line)
     layers = base.config.num_hidden_layers
     expect_launches(launches, {"flash_fwd": layers * steps,
+                               "flash_fwd_pipelined": 0,
                                "flash_bwd": layers * steps,
                                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                "layer_norm_fwd": 0, "layer_norm_bwd": 0,
@@ -1031,6 +1141,135 @@ def train_flat(torch, base, amp, counters, default_losses, steps=3):
             not all(math.isfinite(x) for x in losses):
         raise AssertionError("train_flat: losses %r against the default "
                              "step's %r" % (losses, default_losses[:steps]))
+    return line
+
+
+def autotune_warm(torch, at, fac):
+    """``warm()`` over the port's standard keys (the four flash families
+    at the training shape), plus flash_fwd at head dim 256, where the
+    shared-memory gate refuses the A' tiles that do not fit.  Writes the
+    cache that PADDLE_TPU_AUTOTUNE_CACHE names (main() points it at a
+    temporary file).  One line per key: its timing table, the winner and
+    the refused candidates."""
+    limit = at.smem_limit(torch.device("cuda"))
+    pairs = at.standard_keys() + [("flash_fwd", fac.autotune_key(
+        1, 1024, 1024, 4, 256, torch.bfloat16, True, "cuda"))]
+    t0 = time.perf_counter()
+    winners = at.warm(pairs, verbose=False)
+    seconds = time.perf_counter() - t0
+    cache = at._load_cache()["families"]
+    lines = []
+    for (fam, key), won in zip(pairs, winners):
+        entry = cache[fam][at.key_str(key)]
+        timings = entry["timings"]
+        refused = sorted(sig for sig, t in timings.items()
+                         if isinstance(t, str)
+                         and t.startswith("rejected: smem"))
+        family = at.families()[fam]
+        want = sorted(at._cand_sig(c) for c in family.candidates(key)
+                      if at._smem_reject(family, c, key, limit))
+        line = {"phase": "autotune", "family": fam,
+                "key": at.key_str(key), "winner": won, "ms": entry["ms"],
+                "samples": entry["samples"], "timings": timings,
+                "rejected_smem": refused, "smem_limit": limit}
+        emit(line)
+        lines.append(line)
+        failed = [sig for sig, t in timings.items() if isinstance(t, str)
+                  and not t.startswith("rejected: smem")]
+        if refused != want or failed or at._cand_sig(won) in refused:
+            raise AssertionError("autotune %s: refused %r (want %r), failed "
+                                 "%r, winner %r" % (fam, refused, want,
+                                                    failed, won))
+    emit({"phase": "autotune_seconds", "seconds": seconds,
+          "tune_seconds": at.tune_seconds, "keys": len(pairs)})
+    return lines
+
+
+def train_pipelined(torch, base, amp, counters, flags, first_loss, steps=3):
+    """The train step for ``steps`` steps under
+    ``FLAGS_autotune_pin="flash_fwd=pipelined"``, from the same weights
+    and batch: A' (64 x 64 tiles) on every layer, kernel A never; the
+    first loss held against the default route's."""
+    layers = base.config.num_hidden_layers
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.config.vocab_size, (8, 1024)), device="cuda")
+    flags.set_flags({"autotune_pin": "flash_fwd=pipelined"})
+    try:
+        step = make_step(train_model(torch, base, amp))
+        losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+        breakdown = step_breakdown(torch, step, ids)
+        profile = profile_steps(torch, step, ids)
+    finally:
+        flags.set_flags({"autotune_pin": ""})
+    del step
+    torch.cuda.empty_cache()
+    line = {"phase": "train_pipelined", "pin": "flash_fwd=pipelined",
+            "steps": steps, "step_ms": ms,
+            "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
+            "first_loss_default_route": first_loss,
+            "first_loss_diff": abs(losses[0] - first_loss),
+            "tolerance": CE_ROUTE_LOSS_TOL, "launches": launches,
+            "breakdown": breakdown, "profile": profile}
+    emit(line)
+    expect_launches(launches, {"flash_fwd_pipelined": layers * steps,
+                               "flash_fwd": 0, "flash_bwd": layers * steps},
+                    "train_pipelined")
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - first_loss) > CE_ROUTE_LOSS_TOL:
+        raise AssertionError("train_pipelined: losses %r against the default "
+                             "route's first %g" % (losses, first_loss))
+    return line
+
+
+def train_autotune(torch, base, amp, counters, flags, at, fac, first_loss,
+                   steps=3):
+    """The train step for ``steps`` steps with ``FLAGS_autotune=1`` from a
+    cold in-process memo, so every flash call reads the cache that the
+    autotune phase wrote: nothing is timed again, the launches are the
+    winners' and the first loss is held as in train_pipelined."""
+    layers = base.config.num_hidden_layers
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.config.vocab_size, (8, 1024)), device="cuda")
+    for memo in (at._MEMO, at._MEMO_DEFAULT, at._RESOLVED):
+        memo.clear()
+    at._CACHE = None
+    tuned_s = at.tune_seconds
+    flags.set_flags({"autotune": True})
+    try:
+        step = make_step(train_model(torch, base, amp))
+        losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+    finally:
+        flags.set_flags({"autotune": False})
+    del step
+    torch.cuda.empty_cache()
+    report = at.report()
+    ks = at.key_str(fac.autotune_key(8, 1024, 1024, 16, 64, torch.bfloat16,
+                                     True, "cuda"))
+    cache = at._load_cache()["families"]
+    ran = {fam: report[fam][ks] for fam in ("flash_fwd", "flash_bwd")}
+    line = {"phase": "train_autotune", "steps": steps, "step_ms": ms,
+            "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
+            "first_loss_default_route": first_loss,
+            "first_loss_diff": abs(losses[0] - first_loss),
+            "tolerance": CE_ROUTE_LOSS_TOL, "launches": launches,
+            "report": report}
+    emit(line)
+    pipelined = ran["flash_fwd"]["variant"] == "pipelined"
+    expect_launches(launches, {
+        "flash_fwd_pipelined": layers * steps if pipelined else 0,
+        "flash_fwd": 0 if pipelined else layers * steps,
+        "flash_bwd": layers * steps}, "train_autotune")
+    for fam, cand in ran.items():
+        entry = cache[fam][ks]
+        if cand != {"variant": entry["variant"], "config": entry["config"]}:
+            raise AssertionError("train_autotune ran %s %r, the cache holds "
+                                 "%r" % (fam, cand, entry))
+    if at.tune_seconds != tuned_s:
+        raise AssertionError("train_autotune timed candidates again")
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - first_loss) > CE_ROUTE_LOSS_TOL:
+        raise AssertionError("train_autotune: losses %r against the default "
+                             "route's first %g" % (losses, first_loss))
     return line
 
 
@@ -1310,7 +1549,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from paddle_tpu_torch import amp
-    from paddle_tpu_torch.kernels import _build, ce_cuda
+    from paddle_tpu_torch.kernels import _build, autotune, ce_cuda
     from paddle_tpu_torch.kernels import flash_attention_cuda as fac
     from paddle_tpu_torch.kernels import norm_cuda
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
@@ -1330,6 +1569,16 @@ def main():
           "library": str(lib_path.name)})
     if log and "--ptxas" in sys.argv:
         print(log, file=sys.stderr)
+    # every phase but the autotune ones runs with tuning off, no pin and
+    # an autotune cache of this run's own (empty until the autotune phase
+    # fills it), so no file of the user's steers or receives anything
+    tune_dir = tempfile.TemporaryDirectory(prefix="autotune-",
+                                           dir=_build.BUILD_DIR)
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = os.path.join(tune_dir.name,
+                                                           "autotune.json")
+    for var in ("PADDLE_TPU_AUTOTUNE", "PADDLE_TPU_AUTOTUNE_PIN"):
+        os.environ.pop(var, None)
+    flags.set_flags({"autotune": False, "autotune_pin": ""})
 
     seconds = {}
     t0 = time.perf_counter()
@@ -1345,6 +1594,12 @@ def main():
     emit({"phase": "checks_long", "against_plain": long_plain_row,
           "split_vs_merged": long_row})
     seconds["checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe_rows, pipe_err, pipe_refused = check_pipelined(
+        torch, fac, autotune, _build.library())
+    emit({"phase": "checks_pipelined", "rows": pipe_rows,
+          "refused_smem": pipe_refused})
+    seconds["checks_pipelined"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ce_rows = check_ce(torch, ce_cuda, norm_cuda, flags)
     emit({"phase": "checks_ce", **ce_rows})
@@ -1402,6 +1657,31 @@ def main():
     if err > LOGIT_TOL or not (same or margin < LOGIT_TOL):
         raise AssertionError("card vs CPU logits disagree: err %g, same "
                              "token %s, margin %g" % (err, same, margin))
+    # the same prefill with A' pinned on every layer, counts from 0
+    counters = Counters(fac, norm_cuda, ce_cuda)
+    flags.set_flags({"autotune_pin": "flash_fwd=pipelined"})
+    engine.reset()
+    torch.cuda.synchronize()
+    counters.reset()
+    try:
+        _tok, pinned_logits = engine.prefill(0, prompts[0], temperature=0.0)
+    finally:
+        flags.set_flags({"autotune_pin": ""})
+    pinned_logits = pinned_logits.float().cpu()
+    parity_pinned = {k: counters.read()[k]
+                     for k in ("flash_fwd", "flash_fwd_pipelined")}
+    err = float((pinned_logits - cpu_logits).abs().max())
+    same = int(pinned_logits.argmax()) == int(cpu_logits.argmax())
+    emit({"phase": "parity_pinned", "pin": "flash_fwd=pipelined",
+          "max_abs_err": err, "tolerance": LOGIT_TOL,
+          "same_greedy_token": same, "launches": parity_pinned})
+    if parity_pinned != {"flash_fwd": 0,
+                         "flash_fwd_pipelined": cfg.num_hidden_layers}:
+        raise AssertionError("pinned prefill launches %r" % parity_pinned)
+    if not bool(torch.isfinite(pinned_logits).all()) or err > LOGIT_TOL \
+            or not (same or margin < LOGIT_TOL):
+        raise AssertionError("pinned prefill vs CPU logits: err %g, same "
+                             "token %s" % (err, same))
     decode_parity(torch, engine, cpu_model, prompts, flags, norm_cuda)
     serve_compare(torch, cpu_model, prompts, toks_default, toks_norm)
     del engine, model, cpu_model
@@ -1410,7 +1690,6 @@ def main():
 
     # -- train: bench.py's step, GPT-2 345M, AMP O2 bf16, AdamW -----------
     t0 = time.perf_counter()
-    counters = Counters(fac, norm_cuda, ce_cuda)
     train_cfg = dataclasses.replace(cfg, hidden_dropout_prob=0.0,
                                     attention_dropout_prob=0.0)
     # the serve run's seeded weights (same generator, same draw order)
@@ -1433,9 +1712,21 @@ def main():
     seconds["train_flat"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     parity = train_parity(torch, base, amp, flags, counters)
-    del base
     torch.cuda.empty_cache()
     seconds["train_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    autotune_lines = autotune_warm(torch, autotune, fac)
+    seconds["autotune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_pipe = train_pipelined(torch, base, amp, counters, flags,
+                               run_train["losses"][0])
+    seconds["train_pipelined"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_tuned = train_autotune(torch, base, amp, counters, flags, autotune,
+                               fac, run_train["losses"][0])
+    del base
+    torch.cuda.empty_cache()
+    seconds["train_autotune"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_long = train_long(torch, train_cfg, amp, counters, flags)
     torch.cuda.empty_cache()
@@ -1443,6 +1734,9 @@ def main():
     emit({"phase": "seconds", **seconds})
 
     prefill_row = flash_rows[0]            # (1, 128, 16, 64) causal
+    # A' on the main path: train_pipelined's (8, 1024) step, 64 x 64 tiles
+    pipe_train = [r for r in pipe_rows if r["shape"] == [8, 1024, 16, 64]
+                  and r["blocks"] == [64, 64]][0]
     train_fwd_row = flash_rows[-1]         # (8, 1024, 16, 64) causal
     decode_row = ln_rows[0]                # (8, 1024)
     train_ln_row = ln_rows[-1]             # (8192, 1024)
@@ -1526,6 +1820,31 @@ def main():
              "h2_plain_ms": long_plain_row["fwd_plain_ms"],
              "h2_bound_ms": long_plain_row["fwd_bound_ms"],
              "h2_library_ms": long_plain_row["fwd_library_ms"]}},
+        {"name": "flash_fwd_pipelined", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_fwd_pipelined.cu",
+         "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:519",
+         "launches": run_pipe["launches"]["flash_fwd_pipelined"],
+         "launches_by_path": {
+             "train_pipelined": run_pipe["launches"]["flash_fwd_pipelined"],
+             "parity_pinned": parity_pinned["flash_fwd_pipelined"],
+             "train_autotune":
+                 run_tuned["launches"]["flash_fwd_pipelined"]},
+         "max_abs_err": pipe_err, "shape": pipe_train["shape"],
+         "blocks": pipe_train["blocks"], "ms": pipe_train["kernel_ms"],
+         "device_ms": pipe_train["kernel_device_ms"],
+         "plain_ms": pipe_train["plain_ms"],
+         "plain_device_ms": pipe_train["plain_device_ms"],
+         "bound_ms": pipe_train["bound_ms"],
+         "bound_by": pipe_train["bound_by"],
+         "library_ms": pipe_train["library_ms"],
+         "library_device_ms": pipe_train["library_device_ms"],
+         "kernel_a_device_ms": pipe_train["kernel_a_device_ms"],
+         "autotune_winner_at_train": autotune_lines[0]["winner"],
+         "by_shape": [{k: r[k] for k in (
+             "shape", "blocks", "kernel_ms", "kernel_device_ms", "plain_ms",
+             "bound_ms", "library_ms", "kernel_a_device_ms")}
+             for r in pipe_rows if r["shape"] in (
+                 [1, 128, 16, 64], [8, 1024, 16, 64], [1, 16384, 2, 64])]},
         {"name": "layer_norm_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/layer_norm_fwd.cu",
          "replaces": "paddle_tpu/kernels/norm_pallas.py:118",
@@ -1591,6 +1910,7 @@ def main():
          "at_other_shapes": [{k: r[k] for k in (
              "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
              "bound_ms", "library_ms")} for r in soft[1:]]}]})
+    tune_dir.cleanup()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -31,10 +31,12 @@
 // Operands are staged as f32 in shared memory with odd row strides (no
 // bank conflicts on column walks); the products are plain f32 FMAs,
 // register-tiled per thread of a 16 x 16 grid, as in flash_fwd.cu.
-// Tiles have 64 rows up to D = 128 (4 x 4 scores per thread).  At D = 256
-// four 64-row f32 operand tiles alone would need 4 x 64 x 257 x 4 B =
-// 263 KB of shared memory, more than the 227 KB a block may use, so there
-// the tiles have 32 rows (2 x 2 scores per thread, 136 KB in all).
+// The tile rows BM are a template parameter beside D, chosen by the
+// caller (the autotuner's flash_bwd* candidates): 64 (4 x 4 scores per
+// thread) or 32 (2 x 2) up to D = 128, 32 at D = 256, where four 64-row
+// f32 operand tiles alone would need 4 x 64 x 257 x 4 B = 263 KB of
+// shared memory, more than the 227 KB a block may use (136 KB in all at
+// 32 rows).
 // wgmma, TMA and warp specialisation are left for a later change.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at the training
@@ -51,12 +53,9 @@ namespace {
 
 constexpr int kThreads = 256;   // 16 x 16 threads
 
-// rows of every q and k tile at head dim D, and the score rows (and
-// columns) each thread owns
-template <int D>
-constexpr int kBlock = D <= 128 ? 64 : 32;
-template <int D>
-constexpr int kPer = kBlock<D> / 16;
+// the score rows (and columns) each thread owns in a BM-row tile
+template <int BM>
+constexpr int kPer = BM / 16;
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -73,14 +72,13 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Stage rows [row0, row0 + kBlock) of one head into a padded f32 tile.
-// Rows are `row_stride` elements apart; the head's D elements are
-// contiguous.
-template <typename T, int D>
+// Stage rows [row0, row0 + BM) of one head into a padded f32 tile.  Rows
+// are `row_stride` elements apart; the head's D elements are contiguous.
+template <typename T, int D, int BM>
 __device__ __forceinline__ void stage_tile(float* tile, const T* base,
                                            long long row_stride, int row0) {
   constexpr int ld = D + 1;
-  for (int e = threadIdx.x; e < kBlock<D> * D; e += kThreads) {
+  for (int e = threadIdx.x; e < BM * D; e += kThreads) {
     const int r = e / D;
     const int c = e % D;
     tile[r * ld + c] = to_float(base[(long long)(row0 + r) * row_stride + c]);
@@ -89,12 +87,12 @@ __device__ __forceinline__ void stage_tile(float* tile, const T* base,
 
 // The tile rows' base-2 lse and delta of one head from dense (B, S, H)
 // f32.
-template <int D>
+template <int BM>
 __device__ __forceinline__ void stage_rows(float* s_lse2, float* s_delta,
                                            const float* lse,
                                            const float* delta, int b, int S,
                                            int H, int h, int row0) {
-  if (threadIdx.x < kBlock<D>) {
+  if (threadIdx.x < BM) {
     const long long o = ((long long)b * S + row0 + threadIdx.x) * H + h;
     s_lse2[threadIdx.x] = lse[o] * kLog2e;
     s_delta[threadIdx.x] = delta[o];
@@ -102,23 +100,23 @@ __device__ __forceinline__ void stage_rows(float* s_lse2, float* s_delta,
 }
 
 // Shared-memory layout common to all three kernels: four operand tiles
-// (kBlock x (D+1) f32 each), the P / dS tile (kBlock x (kBlock+1)) and the
-// two row vectors.
-template <int D>
+// (BM x (D+1) f32 each), the P / dS tile (BM x (BM+1)) and the two row
+// vectors.
+template <int D, int BM>
 constexpr size_t smem_bytes() {
-  constexpr int bm = kBlock<D>;
+  constexpr int bm = BM;
   return sizeof(float) *
          (size_t)(4 * bm * (D + 1) + bm * (bm + 1) + 2 * bm);
 }
 
 // s[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d]: the thread's register
-// tile of a kBlock x kBlock product of two row-major shared tiles.
-template <int D>
-__device__ __forceinline__ void tile_abt(float (&s)[kPer<D>][kPer<D>],
+// tile of a BM x BM product of two row-major shared tiles.
+template <int D, int BM>
+__device__ __forceinline__ void tile_abt(float (&s)[kPer<BM>][kPer<BM>],
                                          const float* A, const float* B,
                                          int ty, int tx) {
   constexpr int ld = D + 1;
-  constexpr int n = kPer<D>;
+  constexpr int n = kPer<BM>;
 #pragma unroll
   for (int i = 0; i < n; ++i)
 #pragma unroll
@@ -139,16 +137,16 @@ __device__ __forceinline__ void tile_abt(float (&s)[kPer<D>][kPer<D>],
 
 // P from the raw scores: exp2(s * scale2 - lse2), zero where the diagonal
 // tile's mask hides the key (local column j > local row i).
-template <int D>
-__device__ __forceinline__ void probs(float (&s)[kPer<D>][kPer<D>],
+template <int BM>
+__device__ __forceinline__ void probs(float (&s)[kPer<BM>][kPer<BM>],
                                       const float* s_lse2, float scale2,
                                       bool diag, int ty, int tx) {
 #pragma unroll
-  for (int i = 0; i < kPer<D>; ++i) {
+  for (int i = 0; i < kPer<BM>; ++i) {
     const int r = ty + 16 * i;
     const float l2 = s_lse2[r];
 #pragma unroll
-    for (int j = 0; j < kPer<D>; ++j) {
+    for (int j = 0; j < kPer<BM>; ++j) {
       const int c = tx + 16 * j;
       s[i][j] = (diag && c > r) ? 0.f : exp2f(fmaf(s[i][j], scale2, -l2));
     }
@@ -156,17 +154,17 @@ __device__ __forceinline__ void probs(float (&s)[kPer<D>][kPer<D>],
 }
 
 // acc[r][c] += sum_i W[i][ty + 16 r] * X[i][tx + 16 c]: a K-side
-// (kBlock x D) accumulation through a transposed kBlock x kBlock weight
-// tile (P^T dO, dS^T Q).
-template <int D>
-__device__ __forceinline__ void acc_wt_x(float (&acc)[kPer<D>][D / 16],
+// (BM x D) accumulation through a transposed BM x BM weight tile
+// (P^T dO, dS^T Q).
+template <int D, int BM>
+__device__ __forceinline__ void acc_wt_x(float (&acc)[kPer<BM>][D / 16],
                                          const float* W, const float* X,
                                          int ty, int tx) {
   constexpr int ld = D + 1;
-  constexpr int ldp = kBlock<D> + 1;
-  constexpr int n = kPer<D>;
+  constexpr int ldp = BM + 1;
+  constexpr int n = kPer<BM>;
 #pragma unroll 4
-  for (int i = 0; i < kBlock<D>; ++i) {
+  for (int i = 0; i < BM; ++i) {
     float w[n];
 #pragma unroll
     for (int r = 0; r < n; ++r) w[r] = W[i * ldp + ty + 16 * r];
@@ -180,17 +178,16 @@ __device__ __forceinline__ void acc_wt_x(float (&acc)[kPer<D>][D / 16],
 }
 
 // acc[r][c] += sum_j W[ty + 16 r][j] * X[j][tx + 16 c]: a q-side
-// (kBlock x D) product of a kBlock x kBlock weight tile and a kBlock x D
-// operand (dS K).
-template <int D>
-__device__ __forceinline__ void acc_w_x(float (&acc)[kPer<D>][D / 16],
+// (BM x D) product of a BM x BM weight tile and a BM x D operand (dS K).
+template <int D, int BM>
+__device__ __forceinline__ void acc_w_x(float (&acc)[kPer<BM>][D / 16],
                                         const float* W, const float* X,
                                         int ty, int tx) {
   constexpr int ld = D + 1;
-  constexpr int ldp = kBlock<D> + 1;
-  constexpr int n = kPer<D>;
+  constexpr int ldp = BM + 1;
+  constexpr int n = kPer<BM>;
 #pragma unroll 4
-  for (int j = 0; j < kBlock<D>; ++j) {
+  for (int j = 0; j < BM; ++j) {
     float w[n];
 #pragma unroll
     for (int r = 0; r < n; ++r) w[r] = W[(ty + 16 * r) * ldp + j];
@@ -220,15 +217,15 @@ struct Args {
   float scale;
 };
 
-// C1 (kWithDq) and C3: grid (S / kBlock, H, B), one block per K tile.
-template <typename T, int D, bool kWithDq>
+// C1 (kWithDq) and C3: grid (S / BM, H, B), one block per K tile.
+template <typename T, int D, int BM, bool kWithDq>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kv_kernel(const Args a) {
   constexpr int ld = D + 1;
   constexpr int kCols = D / 16;
-  constexpr int bm = kBlock<D>;
+  constexpr int bm = BM;
   constexpr int ldp = bm + 1;
-  constexpr int n = kPer<D>;
+  constexpr int n = kPer<BM>;
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + bm * ld;
@@ -251,8 +248,8 @@ flash_bwd_kv_kernel(const Args a) {
   const T* dout =
       static_cast<const T*>(a.dout) + b * a.o_sb + (long long)h * D;
 
-  stage_tile<T, D>(sK, k, a.k_ss, k0);
-  stage_tile<T, D>(sV, v, a.v_ss, k0);
+  stage_tile<T, D, BM>(sK, k, a.k_ss, k0);
+  stage_tile<T, D, BM>(sV, v, a.v_ss, k0);
 
   float acc_k[n][kCols], acc_v[n][kCols];
 #pragma unroll
@@ -264,22 +261,22 @@ flash_bwd_kv_kernel(const Args a) {
   for (int qt = a.causal ? kt : 0; qt < n_q; ++qt) {
     const int q0 = qt * bm;
     __syncthreads();   // the previous q tile's reads of sQ/sdO/sP are done
-    stage_tile<T, D>(sQ, q, a.q_ss, q0);
-    stage_tile<T, D>(sdO, dout, a.o_ss, q0);
-    stage_rows<D>(s_lse2, s_delta, a.lse, a.delta, b, a.S, a.H, h, q0);
+    stage_tile<T, D, BM>(sQ, q, a.q_ss, q0);
+    stage_tile<T, D, BM>(sdO, dout, a.o_ss, q0);
+    stage_rows<BM>(s_lse2, s_delta, a.lse, a.delta, b, a.S, a.H, h, q0);
     __syncthreads();
 
     float p[n][n], dp[n][n];
-    tile_abt<D>(p, sQ, sK, ty, tx);
-    probs<D>(p, s_lse2, scale2, a.causal && qt == kt, ty, tx);
+    tile_abt<D, BM>(p, sQ, sK, ty, tx);
+    probs<BM>(p, s_lse2, scale2, a.causal && qt == kt, ty, tx);
 #pragma unroll
     for (int i = 0; i < n; ++i)
 #pragma unroll
       for (int j = 0; j < n; ++j) sP[(ty + 16 * i) * ldp + tx + 16 * j] = p[i][j];
-    tile_abt<D>(dp, sdO, sV, ty, tx);
+    tile_abt<D, BM>(dp, sdO, sV, ty, tx);
     __syncthreads();   // sP holds P
 
-    acc_wt_x<D>(acc_v, sP, sdO, ty, tx);   // dV += P^T dO
+    acc_wt_x<D, BM>(acc_v, sP, sdO, ty, tx);   // dV += P^T dO
     __syncthreads();   // every read of P is done
 #pragma unroll
     for (int i = 0; i < n; ++i) {
@@ -290,14 +287,14 @@ flash_bwd_kv_kernel(const Args a) {
     }
     __syncthreads();   // sP holds dS
 
-    acc_wt_x<D>(acc_k, sP, sQ, ty, tx);    // dK += dS^T Q
+    acc_wt_x<D, BM>(acc_k, sP, sQ, ty, tx);    // dK += dS^T Q
     if (kWithDq) {
       float dq[n][kCols];
 #pragma unroll
       for (int r = 0; r < n; ++r)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) dq[r][c] = 0.f;
-      acc_w_x<D>(dq, sP, sK, ty, tx);      // this K tile's share of dS K
+      acc_w_x<D, BM>(dq, sP, sK, ty, tx);      // this K tile's share of dS K
 #pragma unroll
       for (int r = 0; r < n; ++r) {
         float* row = a.dq_acc +
@@ -321,15 +318,15 @@ flash_bwd_kv_kernel(const Args a) {
   }
 }
 
-// C2: grid (S / kBlock, H, B), one block per q tile.
-template <typename T, int D>
+// C2: grid (S / BM, H, B), one block per q tile.
+template <typename T, int D, int BM>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const Args a) {
   constexpr int ld = D + 1;
   constexpr int kCols = D / 16;
-  constexpr int bm = kBlock<D>;
+  constexpr int bm = BM;
   constexpr int ldp = bm + 1;
-  constexpr int n = kPer<D>;
+  constexpr int n = kPer<BM>;
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + bm * ld;
@@ -352,9 +349,9 @@ flash_bwd_dq_kernel(const Args a) {
   const T* dout =
       static_cast<const T*>(a.dout) + b * a.o_sb + (long long)h * D;
 
-  stage_tile<T, D>(sQ, q, a.q_ss, q0);
-  stage_tile<T, D>(sdO, dout, a.o_ss, q0);
-  stage_rows<D>(s_lse2, s_delta, a.lse, a.delta, b, a.S, a.H, h, q0);
+  stage_tile<T, D, BM>(sQ, q, a.q_ss, q0);
+  stage_tile<T, D, BM>(sdO, dout, a.o_ss, q0);
+  stage_rows<BM>(s_lse2, s_delta, a.lse, a.delta, b, a.S, a.H, h, q0);
 
   float acc_q[n][kCols];
 #pragma unroll
@@ -365,14 +362,14 @@ flash_bwd_dq_kernel(const Args a) {
   const int n_k = a.causal ? qt + 1 : a.S / bm;
   for (int kt = 0; kt < n_k; ++kt) {
     __syncthreads();   // the previous K tile's reads of sK/sV/sP are done
-    stage_tile<T, D>(sK, k, a.k_ss, kt * bm);
-    stage_tile<T, D>(sV, v, a.v_ss, kt * bm);
+    stage_tile<T, D, BM>(sK, k, a.k_ss, kt * bm);
+    stage_tile<T, D, BM>(sV, v, a.v_ss, kt * bm);
     __syncthreads();
 
     float p[n][n], dp[n][n];
-    tile_abt<D>(p, sQ, sK, ty, tx);
-    probs<D>(p, s_lse2, scale2, a.causal && qt == kt, ty, tx);
-    tile_abt<D>(dp, sdO, sV, ty, tx);
+    tile_abt<D, BM>(p, sQ, sK, ty, tx);
+    probs<BM>(p, s_lse2, scale2, a.causal && qt == kt, ty, tx);
+    tile_abt<D, BM>(dp, sdO, sV, ty, tx);
 #pragma unroll
     for (int i = 0; i < n; ++i) {
       const float dl = s_delta[ty + 16 * i];
@@ -382,7 +379,7 @@ flash_bwd_dq_kernel(const Args a) {
     }
     __syncthreads();   // sP holds dS
 
-    acc_w_x<D>(acc_q, sP, sK, ty, tx);     // dQ += dS K
+    acc_w_x<D, BM>(acc_q, sP, sK, ty, tx);     // dQ += dS K
   }
 
   T* dq = static_cast<T*>(a.dq);
@@ -412,37 +409,41 @@ int launch(Kernel kernel, bool& smem_set, size_t smem, int block_rows,
 }
 
 // which: 0 = C1 merged, 1 = C2 dq, 2 = C3 dkv
-template <typename T, int D>
+template <typename T, int D, int BM>
 int dispatch_which(int which, const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  constexpr int bm = kBlock<D>;
+  constexpr size_t smem = smem_bytes<D, BM>();
   static bool set_merged = false, set_dq = false, set_dkv = false;
   switch (which) {
     case 0:
-      return launch(flash_bwd_kv_kernel<T, D, true>, set_merged, smem, bm, a,
-                    stream);
+      return launch(flash_bwd_kv_kernel<T, D, BM, true>, set_merged, smem, BM,
+                    a, stream);
     case 1:
-      return launch(flash_bwd_dq_kernel<T, D>, set_dq, smem, bm, a, stream);
-    case 2:
-      return launch(flash_bwd_kv_kernel<T, D, false>, set_dkv, smem, bm, a,
+      return launch(flash_bwd_dq_kernel<T, D, BM>, set_dq, smem, BM, a,
                     stream);
+    case 2:
+      return launch(flash_bwd_kv_kernel<T, D, BM, false>, set_dkv, smem, BM,
+                    a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// the (D, tile rows) pairs instantiated: 64 or 32 rows up to D = 128, 32
+// at D = 256
 template <typename T>
-int dispatch_d(int which, int D, const Args& a, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return dispatch_which<T, 64>(which, a, stream);
-    case 128:
-      return dispatch_which<T, 128>(which, a, stream);
-    case 256:
-      return dispatch_which<T, 256>(which, a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+int dispatch_d(int which, int D, int block, const Args& a,
+               cudaStream_t stream) {
+  if (D == 64 && block == 64)
+    return dispatch_which<T, 64, 64>(which, a, stream);
+  if (D == 64 && block == 32)
+    return dispatch_which<T, 64, 32>(which, a, stream);
+  if (D == 128 && block == 64)
+    return dispatch_which<T, 128, 64>(which, a, stream);
+  if (D == 128 && block == 32)
+    return dispatch_which<T, 128, 32>(which, a, stream);
+  if (D == 256 && block == 32)
+    return dispatch_which<T, 256, 32>(which, a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int run(int which, const void* q, const void* k, const void* v,
@@ -450,15 +451,15 @@ int run(int which, const void* q, const void* k, const void* v,
         float* dq_acc, void* dk, void* dv, int B, int S, int H, int D,
         long long q_sb, long long q_ss, long long k_sb, long long k_ss,
         long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-        int causal, float scale, int dtype, void* stream) {
-  if (S <= 0 || S % 64 != 0 || B <= 0 || H <= 0)
+        int causal, float scale, int dtype, int block, void* stream) {
+  if (S <= 0 || block <= 0 || S % block != 0 || B <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
   const Args a{q,    k,    v,    dout, lse,  delta, dq,   dq_acc, dk,
                dv,   B,    S,    H,    q_sb, q_ss,  k_sb, k_ss,   v_sb,
                v_ss, o_sb, o_ss, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(which, D, a, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, a, st);
+  if (dtype == 0) return dispatch_d<float>(which, D, block, a, st);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, block, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -466,7 +467,8 @@ int run(int which, const void* q, const void* k, const void* v,
 
 // Common arguments: q/k/v/dout (B, S, H, D) with (H, D) dense and the given
 // batch / sequence strides in elements; lse (base-e) and delta dense
-// (B, S, H) f32; D in {64, 128, 256}; S a multiple of 64; dtype 0 = float32,
+// (B, S, H) f32; D in {64, 128, 256}; `block` the tile rows (64 or 32 at
+// D <= 128, 32 at D = 256), S a multiple of it; dtype 0 = float32,
 // 1 = bfloat16; `scale` the base-e softmax scale.  Outputs are dense
 // (B, S, H, D).  Each returns its launch's cudaError_t.
 
@@ -477,10 +479,10 @@ extern "C" int paddle_flash_bwd(
     int B, int S, int H, int D, long long q_sb, long long q_ss,
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     long long o_sb, long long o_ss, int causal, float scale, int dtype,
-    void* stream) {
+    int block, void* stream) {
   return run(0, q, k, v, dout, lse, delta, nullptr, dq_acc, dk, dv, B, S, H,
              D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, scale,
-             dtype, stream);
+             dtype, block, stream);
 }
 
 // C2
@@ -489,10 +491,10 @@ extern "C" int paddle_flash_bwd_dq(
     const float* lse, const float* delta, void* dq, int B, int S, int H,
     int D, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-    int causal, float scale, int dtype, void* stream) {
+    int causal, float scale, int dtype, int block, void* stream) {
   return run(1, q, k, v, dout, lse, delta, dq, nullptr, nullptr, nullptr, B,
              S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal,
-             scale, dtype, stream);
+             scale, dtype, block, stream);
 }
 
 // C3
@@ -501,8 +503,9 @@ extern "C" int paddle_flash_bwd_dkv(
     const float* lse, const float* delta, void* dk, void* dv, int B, int S,
     int H, int D, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, long long o_sb,
-    long long o_ss, int causal, float scale, int dtype, void* stream) {
+    long long o_ss, int causal, float scale, int dtype, int block,
+    void* stream) {
   return run(2, q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, B, S, H,
              D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, scale,
-             dtype, stream);
+             dtype, block, stream);
 }

@@ -126,18 +126,26 @@ def library():
                 p, p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, i, f, i,
                 p]
             lib.paddle_flash_fwd_bshd.restype = i
+            # A': kernel A's arguments, then block_q, block_k, stream
+            lib.paddle_flash_fwd_pipelined.argtypes = [
+                p, p, p, p, p, i, i, i, i, ll, ll, ll, ll, ll, ll, i, f, i,
+                i, i, p]
+            lib.paddle_flash_fwd_pipelined.restype = i
+            lib.paddle_flash_fwd_pipelined_smem.argtypes = [i, i, i, i]
+            lib.paddle_flash_fwd_pipelined_smem.restype = ll
             lib.paddle_layer_norm_fwd.argtypes = [
                 p, p, p, p, p, p, i, i, f, i, i, p]
             lib.paddle_layer_norm_fwd.restype = i
             # q, k, v, dout, lse, delta, then the outputs, B S H D, eight
-            # strides, causal, scale, dtype, stream
+            # strides, causal, scale, dtype, tile rows, stream
             strides = [ll] * 8
             lib.paddle_flash_bwd.argtypes = [
-                p, p, p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, p]
+                p, p, p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, i,
+                p]
             lib.paddle_flash_bwd_dq.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, p]
+                p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, i, p]
             lib.paddle_flash_bwd_dkv.argtypes = [
-                p, p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, p]
+                p, p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, i, p]
             for fn in (lib.paddle_flash_bwd, lib.paddle_flash_bwd_dq,
                        lib.paddle_flash_bwd_dkv):
                 fn.restype = i

@@ -1,13 +1,15 @@
 """Flash-attention dispatch (port of ``paddle_tpu/kernels/flash_attention.py``).
 
-:func:`supported` keeps every shape condition of the JAX gate and
-retargets its platform condition from "running on a TPU" to "q lies on a
-card".  The JAX gate's VMEM budget (``max_supported_seq``) has no
-counterpart: the CUDA kernels stream K/V tiles, so any multiple-of-64
-length fits.  :func:`_bwd_route` picks the backward exactly where the
+:func:`supported` keeps every shape condition of the JAX gate and its
+``PADDLE_TPU_DISABLE_FLASH`` switch, and retargets its platform condition
+from "running on a TPU" to "q lies on a card".  The JAX gate's VMEM
+budget (``max_supported_seq``) has no counterpart: the CUDA kernels
+stream K/V tiles, so any multiple-of-64 length fits.  :func:`_bwd_route` picks the backward exactly where the
 JAX package does (``flash_attention_pallas._resolve_specs``).
 """
 from __future__ import annotations
+
+import os
 
 _DEFAULT_BLOCK_Q = 128
 
@@ -53,7 +55,11 @@ def supported(q, k=None) -> bool:
 
     Restricted to square self-attention (s_q == s_k, block-aligned): the
     kernel's causal mask is start-aligned, so cross or cached attention
-    takes the plain path."""
+    takes the plain path.  ``PADDLE_TPU_DISABLE_FLASH`` ("1", "true",
+    "yes") sends every call to the plain path, as in the JAX gate."""
+    if os.getenv("PADDLE_TPU_DISABLE_FLASH", "").lower() in ("1", "true",
+                                                             "yes"):
+        return False
     if not q.is_cuda or q.dim() != 4:
         return False
     s, d = q.shape[1], q.shape[3]

@@ -1,46 +1,77 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward, kernel
-A) and ``csrc/flash_bwd.cu`` (backward: C1 merged, C2 dQ, C3 dK/dV), their
-plain PyTorch versions, and the autograd Functions that join them (port of
+A), ``csrc/flash_fwd_pipelined.cu`` (forward with pipelined K/V tiles,
+kernel A') and ``csrc/flash_bwd.cu`` (backward: C1 merged, C2 dQ, C3
+dK/dV), their plain PyTorch versions, the autograd Functions that join
+them, and their autotune families (port of
 ``paddle_tpu/kernels/flash_attention_pallas.py``: ``_fwd_kernel`` /
-``_fwd_kernel_streamed`` and ``_bwd_kernel`` / ``_bwd_dq_kernel`` /
-``_bwd_dkv_kernel`` through ``flash_attention_bshd_native`` /
-``flash_attention_bshd_with_lse`` and their ``custom_vjp``s).
+``_fwd_kernel_streamed`` / ``_fwd_kernel_pipelined`` and ``_bwd_kernel`` /
+``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` through
+``flash_attention_bshd_native`` / ``flash_attention_bshd_with_lse``, their
+``custom_vjp``s and the autotune wiring of ``_resolve_specs``).
 
 Tensors are (B, S, H, D), the model's native layout: no transposes.  The
 kernels take float32 and bfloat16, S a multiple of 64, S_q == S_k, a
-start-aligned causal mask and D in {64, 128, 256} (the backward tiles 32
-rows at D = 256, 64 below).  q/k/v (and the backward's dO) need dense (H, D)
-inner dimensions; their sequence and batch strides are free, so the
-model's q/k/v slices of the fused projection go in without a copy.  A dO
-whose (H, D) dimensions are not dense is made contiguous first.  Kernel A
-streams 64-row K/V tiles at any S, so it is also the counterpart of the
-TPU's long-sequence ``_fwd_kernel_streamed``.
+start-aligned causal mask and D in {64, 128, 256}.  q/k/v (and the
+backward's dO) need dense (H, D) inner dimensions; their sequence and
+batch strides are free, so the model's q/k/v slices of the fused
+projection go in without a copy.  A dO whose (H, D) dimensions are not
+dense is made contiguous first.  Kernel A streams 64-row K/V tiles at any
+S, so it is also the counterpart of the TPU's long-sequence
+``_fwd_kernel_streamed``.
+
+Every call resolves its kernels' variant and tile shape through
+:mod:`.autotune` (families ``flash_fwd``, ``flash_bwd``, ``flash_bwd_dq``,
+``flash_bwd_dkv``); with tuning off, no pin and no cache entry that is
+candidate [0], the hand-tuned kernels: A with 64 x 64 tiles, C1 or C2 + C3
+with 64-row tiles (32 at D = 256).  The ``pipelined`` variant selects A'
+at one of its (block_q, block_k) instantiations, which needs every q/k/v
+row 16-byte aligned (the unit of its async copies).  ``iotafree`` and
+``parq`` are accepted and change nothing here: the first is a bit-identical
+rewrite of the TPU's mask arithmetic, the second a TPU lse block layout.
+``bf16chain`` changes the numerics and has no kernel yet: it raises.  A
+resolved candidate that the kernels cannot take (a stale cache entry, a
+pin) falls back to candidate [0], as in the JAX package.
 
 A CUDA tensor launches the kernels (or raises); only a CPU tensor takes
-the plain versions :func:`_flash_reference` / :func:`_flash_bwd_reference`.
-The forward saves what the JAX ``custom_vjp`` saves, (q, k, v, out, lse),
-and only when autograd will use it.  ``flash_fwd_launches``,
-``flash_bwd_launches``, ``flash_bwd_dq_launches`` and
-``flash_bwd_dkv_launches`` count kernel launches.
+the plain versions :func:`_flash_reference` /
+:func:`_flash_pipelined_reference` / :func:`_flash_bwd_reference`.  The
+forward saves what the JAX ``custom_vjp`` saves, (q, k, v, out, lse), and
+only when autograd will use it.  ``flash_fwd_launches``,
+``flash_fwd_pipelined_launches``, ``flash_bwd_launches``,
+``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import _build
+from . import autotune as _at
 from .flash_attention import _bwd_route
 
 #: kernel launches since import (or since a caller reset them)
 flash_fwd_launches = 0
+flash_fwd_pipelined_launches = 0
 flash_bwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_BY_NAME = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _HEAD_DIMS = (64, 128, 256)
 _BLOCK = 64
+_LOG2E = 1.4426950408889634
+
+#: kernel A's fixed (block_q, block_k), and the instantiations of A'
+_BASE_BLOCKS = (64, 64)
+_PIPELINED_BLOCKS = ((64, 32), (64, 64), (128, 64), (128, 128))
+
+#: variant features understood by the forward / backward (the JAX sets)
+_FWD_FEATURES = frozenset({"bf16chain", "iotafree", "parq", "pipelined"})
+_BWD_FEATURES = frozenset({"bf16chain", "iotafree"})
 
 
 def _flash_reference(q, k, v, causal, scale):
@@ -58,6 +89,43 @@ def _flash_reference(q, k, v, causal, scale):
     p = torch.exp(logits - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
     return out, lse.transpose(1, 2).contiguous()
+
+
+def _flash_pipelined_reference(q, k, v, causal, scale, block_q, block_k):
+    """Plain version of kernel A': it walks the K/V tiles of ``block_k``
+    rows as A' does, with the online softmax in f32 (base 2, log2(e)
+    folded into the scale applied to q.k), stops each q tile of
+    ``block_q`` rows after its causal band and masks every visited tile.
+    Returns (out in q's dtype, base-e row logsumexp (B, S, H) f32)."""
+    b, s, h, d = q.shape
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B,H,S,D)
+    scale2 = float(scale) * _LOG2E
+    m = torch.full((b, h, s), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    rows = torch.arange(s, device=q.device)
+    for c0 in range(0, k.shape[1], block_k):
+        # the q tiles whose band reaches this K tile: tile qt visits it iff
+        # c0 < (qt + 1) * block_q
+        r0 = (c0 // block_q) * block_q if causal else 0
+        logits = torch.einsum("bhqd,bhkd->bhqk", qf[:, :, r0:],
+                              kf[:, :, c0:c0 + block_k]) * scale2
+        if causal:
+            cols = torch.arange(c0, c0 + block_k, device=q.device)
+            vis = cols[None, :] <= rows[r0:, None]
+            logits = logits.masked_fill(~vis, -1e30)
+        m_old = m[:, :, r0:]
+        m_new = torch.maximum(m_old, logits.amax(-1))
+        p = torch.exp2(logits - m_new[..., None])
+        corr = torch.exp2(m_old - m_new)
+        l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(-1)
+        acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p, vf[:, :, c0:c0 + block_k])
+        m[:, :, r0:] = m_new
+    l_safe = l.clamp_min(1e-30)
+    out = (acc / l_safe[..., None]).to(q.dtype).transpose(1, 2)
+    lse2 = m + torch.log(l_safe) * _LOG2E          # base 2, as the kernels
+    return out.contiguous(), (lse2 / _LOG2E).transpose(1, 2).contiguous()
 
 
 def _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, dlse=None):
@@ -116,12 +184,165 @@ def _dense_head(t):
     return t.stride(3) == 1 and t.stride(2) == t.shape[3]
 
 
-def _launch(q, k, v, causal, scale, want_lse):
-    global flash_fwd_launches
+def _aligned(*ts):
+    """Whether every (batch, position) row of each tensor starts on 16
+    bytes, the unit of A''s async copies: base pointer and the batch and
+    sequence strides (the dense head's own offsets are multiples of 128
+    bytes)."""
+    for t in ts:
+        esz = t.element_size()
+        if t.data_ptr() % 16 or (t.stride(0) * esz) % 16 or \
+                (t.stride(1) * esz) % 16:
+            return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# variants and candidate checks (flash_attention_pallas.py:110-135, 1139-1189)
+# ---------------------------------------------------------------------------
+
+def variant_features(variant, allowed=_FWD_FEATURES):
+    """'iotafree+pipelined' -> frozenset, validated against ``allowed``
+    ('base' or '' is the empty set)."""
+    if not variant or variant == "base":
+        return frozenset()
+    feats = frozenset(variant.split("+"))
+    bad = feats - allowed
+    if bad:
+        raise ValueError("unknown flash variant feature(s) %s in %r "
+                         "(allowed: %s)" % (sorted(bad), variant,
+                                            sorted(allowed)))
+    return feats
+
+
+def canon_variant(feats) -> str:
+    return "+".join(sorted(feats)) if feats else "base"
+
+
+def bwd_variant_of(variant: str) -> str:
+    """Strip forward-only features (parq/pipelined) for the backward."""
+    return canon_variant(variant_features(variant) & _BWD_FEATURES)
+
+
+def _refuse_bf16chain(feats):
+    if "bf16chain" in feats:
+        raise NotImplementedError(
+            "flash variant 'bf16chain' (the bf16 softmax chain) changes the "
+            "numerics and has no CUDA kernel yet (ROADMAP §C); pin or cache "
+            "another variant")
+
+
+def _bwd_blocks(d):
+    """Tile rows of C1/C2/C3 instantiated at head dim ``d``, the default
+    first (32 at D = 256, where 64-row f32 tiles do not fit)."""
+    return (64, 32) if d <= 128 else (32,)
+
+
+def _valid_blocks(bq, bk, s, sk, causal):
+    if not (isinstance(bq, int) and isinstance(bk, int)):
+        return False
+    if bq < 16 or bk < 16 or s % bq or sk % bk:
+        return False
+    if causal and (bk > bq or bq % bk):
+        return False
+    return True
+
+
+def pipelined_smem_bytes(d, block_q, block_k, dtype):
+    """Dynamic shared memory of one A' launch (``smem_bytes`` of
+    ``csrc/flash_fwd_pipelined.cu``): the q tile and two stages of K and V
+    in the input dtype, rows padded by 16 bytes, then the f32 P tile."""
+    esz = 4 if dtype == torch.float32 else 2
+    return ((block_q + 4 * block_k) * (d + 16 // esz) * esz
+            + block_q * (block_k + 1) * 4)
+
+
+def _sane_fwd_spec(cand, s, sk, d, dtype, causal, aligned, smem_limit):
+    """(variant, block_q, block_k) that the forward kernels take for a
+    resolved/pinned flash_fwd candidate; anything they cannot take
+    (unknown features, blocks that are not instantiated or do not divide
+    S, unaligned rows for A', more shared memory than a block may use)
+    falls back to candidate [0].  ``hg`` has no meaning here and is
+    ignored."""
+    default = ("base",) + _BASE_BLOCKS
+    try:
+        feats = variant_features(cand.get("variant", "base"), _FWD_FEATURES)
+    except ValueError:
+        return default
+    _refuse_bf16chain(feats)
+    cfg = cand.get("config", {})
+    bq, bk = cfg.get("block_q"), cfg.get("block_k")
+    if not _valid_blocks(bq, bk, s, sk, causal):
+        return default
+    if "pipelined" not in feats:
+        return (canon_variant(feats), bq, bk) if (bq, bk) == _BASE_BLOCKS \
+            else default
+    if (bq, bk) not in _PIPELINED_BLOCKS or not aligned or (
+            smem_limit is not None
+            and pipelined_smem_bytes(d, bq, bk, dtype) > smem_limit):
+        return default
+    return (canon_variant(feats), bq, bk)
+
+
+def _sane_bwd_blocks(cand, s, d, causal):
+    """(variant, tile rows) that C1/C2/C3 take for a resolved/pinned
+    backward candidate (square tiles: block_q == block_k); anything else
+    falls back to candidate [0].  The merged and split families share it:
+    the JAX merged check's head group has no meaning here."""
+    default = ("base", _bwd_blocks(d)[0])
+    try:
+        feats = variant_features(cand.get("variant", "base"), _BWD_FEATURES)
+    except ValueError:
+        return default
+    _refuse_bf16chain(feats)
+    cfg = cand.get("config", {})
+    bq, bk = cfg.get("block_q"), cfg.get("block_k")
+    if bq != bk or bq not in _bwd_blocks(d) or \
+            not _valid_blocks(bq, bk, s, s, causal):
+        return default
+    return (canon_variant(feats), bq)
+
+
+def autotune_key(b, s, sk, h, d, dtype, causal, device=None):
+    """The autotune key of one call; ``platform`` follows the tensors'
+    device ("gpu" for a card)."""
+    return {"b": int(b), "s": int(s), "sk": int(sk), "h": int(h),
+            "d": int(d), "dtype": str(dtype).replace("torch.", ""),
+            "causal": bool(causal), "platform": _at.platform(device)}
+
+
+def _resolve_fwd(q, k, v, causal):
+    b, s, h, d = q.shape
+    key = autotune_key(b, s, k.shape[1], h, d, q.dtype, causal, q.device)
+    return _sane_fwd_spec(_at.resolve("flash_fwd", key), s, k.shape[1], d,
+                          q.dtype, causal, _aligned(q, k, v),
+                          _at.smem_limit(q.device))
+
+
+def _resolve_bwd(q, causal, family):
+    """Tile rows of the backward kernel of ``family``."""
+    b, s, h, d = q.shape
+    key = autotune_key(b, s, s, h, d, q.dtype, causal, q.device)
+    return _sane_bwd_blocks(_at.resolve(family, key), s, d, causal)[1]
+
+
+# ---------------------------------------------------------------------------
+# launches
+# ---------------------------------------------------------------------------
+
+def _outputs(q, want_lse):
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, s, h), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    return out, lse
+
+
+def _launch(q, k, v, causal, scale, want_lse):
+    """Kernel A."""
+    global flash_fwd_launches
+    b, s, h, d = q.shape
+    out, lse = _outputs(q, want_lse)
     err = _build.library().paddle_flash_fwd_bshd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, s, h, d,
@@ -133,15 +354,54 @@ def _launch(q, k, v, causal, scale, want_lse):
     return out, lse
 
 
-def _forward(q, k, v, causal, scale, want_lse):
-    """(out, lse or None) from kernel A on a card, the plain version on
-    the CPU."""
+def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k):
+    """Kernel A' at one of its (block_q, block_k) instantiations."""
+    global flash_fwd_pipelined_launches
+    b, s, h, d = q.shape
+    if (block_q, block_k) not in _PIPELINED_BLOCKS or s % block_q:
+        raise ValueError("flash_fwd_pipelined: blocks (%r, %r) at S=%d; "
+                         "instantiated: %s, S a multiple of block_q"
+                         % (block_q, block_k, s, _PIPELINED_BLOCKS))
+    if not _aligned(q, k, v):
+        raise ValueError("flash_fwd_pipelined: q/k/v rows must start on 16 "
+                         "bytes (pointers and batch / sequence strides), "
+                         "the unit of the kernel's async copies")
+    out, lse = _outputs(q, want_lse)
+    err = _build.library().paddle_flash_fwd_pipelined(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, s, h, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), int(bool(causal)), float(scale),
+        _DTYPES[q.dtype], block_q, block_k, _build.current_stream(q.device))
+    _build.check(err, "flash_fwd_pipelined launch")
+    flash_fwd_pipelined_launches += 1
+    return out, lse
+
+
+def _run_fwd(q, k, v, causal, scale, want_lse, spec):
+    """(out, lse or None) of the forward ``spec`` = (variant, block_q,
+    block_k): kernel A or A' on a card, their plain versions on the CPU."""
+    variant, bq, bk = spec
+    pipelined = "pipelined" in variant_features(variant)
     if q.device.type == "cpu":
-        out, lse = _flash_reference(q, k, v, causal, scale)
+        if pipelined:
+            out, lse = _flash_pipelined_reference(q, k, v, causal, scale,
+                                                  bq, bk)
+        else:
+            out, lse = _flash_reference(q, k, v, causal, scale)
         return out, (lse if want_lse else None)
     if q.device.type != "cuda":
         raise ValueError("flash attention: unsupported device %s" % q.device)
+    if pipelined:
+        return _launch_pipelined(q, k, v, causal, scale, want_lse, bq, bk)
     return _launch(q, k, v, causal, scale, want_lse)
+
+
+def _forward(q, k, v, causal, scale, want_lse):
+    """(out, lse or None) through the forward that the autotuner resolves
+    for this call."""
+    return _run_fwd(q, k, v, causal, scale, want_lse,
+                    _resolve_fwd(q, k, v, causal))
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
@@ -152,8 +412,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
 
     On a card: ``route=None`` takes the route the JAX package takes at
     this shape (:func:`..flash_attention._bwd_route`): ``"merged"``
-    launches C1, ``"split"`` C2 then C3.  A given ``route`` pins it (for
-    the kernel checks); it is not a user setting."""
+    launches C1, ``"split"`` C2 then C3, each with the tile rows its
+    autotune family resolves.  A given ``route`` pins it (for the kernel
+    checks); it is not a user setting."""
     _check(q, k, v)
     b, s, h, d = q.shape
     given = [("out", out, (b, s, h, d)), ("dout", dout, (b, s, h, d)),
@@ -165,6 +426,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
             raise ValueError("flash attention backward: %s must be %s on "
                              "%s, got %s on %s" % (name, shape, q.device,
                                                    tuple(t.shape), t.device))
+    if route is None:
+        route = _bwd_route(s, h, d)
+    if route not in ("merged", "split"):
+        raise ValueError("flash attention backward: route %r is not "
+                         "'merged' or 'split'" % (route,))
+    blocks = ([_resolve_bwd(q, causal, "flash_bwd")] if route == "merged"
+              else [_resolve_bwd(q, causal, "flash_bwd_dq"),
+                    _resolve_bwd(q, causal, "flash_bwd_dkv")])
     if q.device.type == "cpu":
         return _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale,
                                     dlse)
@@ -173,11 +442,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
     if dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("flash attention backward: dout must be %s and lse "
                         "float32" % q.dtype)
-    if route is None:
-        route = _bwd_route(s, h, d)
-    if route not in ("merged", "split"):
-        raise ValueError("flash attention backward: route %r is not "
-                         "'merged' or 'split'" % (route,))
     if not _dense_head(dout):
         dout = dout.contiguous()
     # delta = rowsum(dO * O) in f32, outside the kernels as in the JAX
@@ -187,26 +451,30 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
         delta = delta - dlse.float()
     args = (q, k, v, dout, lse.contiguous(), delta, causal, scale)
     if route == "merged":
-        return _launch_bwd_merged(*args)
-    return (_launch_bwd_dq(*args),) + _launch_bwd_dkv(*args)
+        return _launch_bwd_merged(*args, block=blocks[0])
+    return (_launch_bwd_dq(*args, block=blocks[0]),) + \
+        _launch_bwd_dkv(*args, block=blocks[1])
 
 
-def _bwd_args(q, k, v, dout, lse, delta, causal, scale):
-    """The C entry points' (inputs, shape-and-strides tail) arguments."""
+def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block):
+    """The C entry points' (inputs, shape-and-strides tail) arguments;
+    ``block`` None is the default tile rows at this head dim."""
     b, s, h, d = q.shape
+    if block is None:
+        block = _bwd_blocks(d)[0]
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
     tail = (b, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
-            int(bool(causal)), float(scale), _DTYPES[q.dtype],
+            int(bool(causal)), float(scale), _DTYPES[q.dtype], int(block),
             _build.current_stream(q.device))
     return common, tail
 
 
-def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale):
+def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None):
     """C1: (dq, dk, dv); dq summed by atomics in an f32 workspace."""
     global flash_bwd_launches
-    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale)
+    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale, block)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -217,10 +485,10 @@ def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale):
     return dq_acc.mul_(float(scale)).to(q.dtype), dk, dv
 
 
-def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale):
+def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, block=None):
     """C2: dq."""
     global flash_bwd_dq_launches
-    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale)
+    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale, block)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _build.check(_build.library().paddle_flash_bwd_dq(
         *common, dq.data_ptr(), *tail), "flash_bwd_dq launch")
@@ -228,10 +496,10 @@ def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale):
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale):
+def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, block=None):
     """C3: (dk, dv)."""
     global flash_bwd_dkv_launches
-    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale)
+    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale, block)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _build.check(_build.library().paddle_flash_bwd_dkv(
@@ -303,3 +571,122 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None):
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, scale)
     return _forward(q, k, v, causal, scale, False)[0]
+
+
+# ---------------------------------------------------------------------------
+# autotune families: candidates, runners, shared-memory hooks
+# (flash_attention_pallas.py:1238-1467)
+# ---------------------------------------------------------------------------
+
+def _fwd_candidates(key):
+    """[0] kernel A (its fixed 64 x 64 tiles), then A' at each of its
+    instantiations that divides the key's lengths."""
+    s, sk, causal = key["s"], key["sk"], key["causal"]
+    cands = [{"variant": "base",
+              "config": {"block_q": _BASE_BLOCKS[0],
+                         "block_k": _BASE_BLOCKS[1]}}]
+    for bq, bk in _PIPELINED_BLOCKS:
+        if _valid_blocks(bq, bk, s, sk, causal):
+            cands.append({"variant": "pipelined",
+                          "config": {"block_q": bq, "block_k": bk}})
+    return cands
+
+
+def _bwd_candidates(key):
+    """[0] the default tile rows at the key's head dim, then the other
+    instantiation (32 rows at D 64 and 128)."""
+    return [{"variant": "base", "config": {"block_q": bm, "block_k": bm}}
+            for bm in _bwd_blocks(key["d"])]
+
+
+def _fwd_smem(cand, key):
+    """A''s shared memory for the tune() gate; None (no gate) for kernel
+    A, whose fixed tiles fit a block at every head dim (as do the
+    backward's, which register no hook)."""
+    if "pipelined" not in variant_features(cand["variant"]):
+        return None
+    cfg = cand["config"]
+    return pipelined_smem_bytes(key["d"], cfg["block_q"], cfg["block_k"],
+                                _DTYPE_BY_NAME[key["dtype"]])
+
+
+#: per-key synthetic operands shared by the runners (the backward runners
+#: also reuse the default forward's (out, lse) residuals)
+_RUNNER_DATA: dict = {}
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _runner_data(key):
+    ks = _at.key_str(key)
+    hit = _RUNNER_DATA.get(ks)
+    if hit is not None:
+        return hit
+    b, s, sk, h, d = (key[n] for n in ("b", "s", "sk", "h", "d"))
+    dtype = _DTYPE_BY_NAME[key["dtype"]]
+    device = torch.device("cuda" if key["platform"] == "gpu" else "cpu")
+    rng = np.random.RandomState(0)
+
+    def draw(n):
+        return torch.from_numpy(rng.standard_normal((b, n, h, d))
+                                .astype(np.float32)).to(device, dtype)
+    q, k, v, do = draw(s), draw(sk), draw(sk), draw(s)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = _run_fwd(q, k, v, key["causal"], scale, True,
+                        ("base",) + _BASE_BLOCKS)
+    delta = (do.float() * out.float()).sum(-1)
+    _sync(device)
+    data = {"q": q, "k": k, "v": v, "do": do, "out": out, "lse": lse,
+            "delta": delta, "scale": scale}
+    _RUNNER_DATA[ks] = data
+    return data
+
+
+def _fwd_runner(cand, key):
+    data = _runner_data(key)
+    cfg = cand["config"]
+    spec = (cand["variant"], cfg["block_q"], cfg["block_k"])
+    q, k, v = data["q"], data["k"], data["v"]
+
+    def run():
+        _run_fwd(q, k, v, key["causal"], data["scale"], True, spec)
+        _sync(q.device)
+    return run
+
+
+def _bwd_runner(launch):
+    def make(cand, key):
+        data = _runner_data(key)
+        q, block = data["q"], cand["config"]["block_q"]
+        args = (q, data["k"], data["v"], data["do"], data["lse"],
+                data["delta"], key["causal"], data["scale"])
+
+        def run():
+            if q.device.type == "cpu":
+                _flash_bwd_reference(*args[:3], data["out"], data["lse"],
+                                     data["do"], *args[6:])
+            else:
+                launch(*args, block=block)
+            _sync(q.device)
+        return run
+    return make
+
+
+def _runner_cleanup(key):
+    _RUNNER_DATA.pop(_at.key_str(key), None)
+
+
+def _register_families():
+    _at.register_family("flash_fwd", _fwd_candidates, _fwd_runner,
+                        cleanup=_runner_cleanup, smem_bytes=_fwd_smem)
+    for name, launch in (("flash_bwd", _launch_bwd_merged),
+                         ("flash_bwd_dq", _launch_bwd_dq),
+                         ("flash_bwd_dkv", _launch_bwd_dkv)):
+        _at.register_family(name, _bwd_candidates, _bwd_runner(launch),
+                            cleanup=_runner_cleanup)
+
+
+_register_families()

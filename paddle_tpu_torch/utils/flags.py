@@ -52,3 +52,14 @@ define_flag("use_pallas_lse", False,
             "compute hard-label cross_entropy's logsumexp on a card with "
             "the one-pass kernel (kernels/ce_cuda.py E1) instead of the "
             "plain route's two reductions; opt-in, as in the JAX package")
+define_flag("autotune", False,
+            "time kernel variant/config candidates on first call per "
+            "(shape, dtype, platform) key and pick the fastest "
+            "(kernels/autotune.py); off = hand-tuned defaults / cached "
+            "picks only.  Also settable via PADDLE_TPU_AUTOTUNE=1")
+define_flag("autotune_samples", 5,
+            "timing samples per autotune candidate (median is taken)")
+define_flag("autotune_pin", "",
+            "pin autotune candidates: 'family=variant[:k=v,...];...', "
+            "e.g. 'flash_fwd=pipelined:block_q=128,block_k=64'; wins over "
+            "cache and tuning (env: PADDLE_TPU_AUTOTUNE_PIN)")

@@ -328,3 +328,180 @@ def test_cross_entropy_routes_join_autograd_on_the_card(flag, monkeypatch):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     torch.testing.assert_close(got_grad, want_grad, atol=1e-6, rtol=1e-5)
     assert float(got_grad[1, 3].abs().max()) == 0.0
+
+
+@pytest.fixture
+def _tune_cache(tmp_path, monkeypatch):
+    """An autotune cache of the test's own, clean memos, no pins and
+    tuning off: nothing reads or writes the user's default cache."""
+    from paddle_tpu_torch.kernels import autotune as at
+    from paddle_tpu_torch.utils import flags
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.delenv("PADDLE_TPU_AUTOTUNE", raising=False)
+    monkeypatch.delenv("PADDLE_TPU_AUTOTUNE_PIN", raising=False)
+    monkeypatch.setitem(flags._REGISTRY, "autotune", False)
+    monkeypatch.setitem(flags._REGISTRY, "autotune_pin", "")
+    monkeypatch.setattr(at, "_MEMO", {})
+    monkeypatch.setattr(at, "_MEMO_DEFAULT", {})
+    monkeypatch.setattr(at, "_RESOLVED", {})
+    monkeypatch.setattr(at, "_CACHE", None)
+    monkeypatch.setattr(at, "_CACHE_LOADED_FROM", None)
+    return at
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(64, 32), (64, 64), (128, 64),
+                                    (128, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pipelined_kernel_matches_plain(dtype, blocks):
+    """Kernel A' at each of its instantiations, causal and not, D 64, 128
+    and 256, against its plain version (out and lse); a configuration
+    whose shared memory exceeds a block's is refused by the gate and
+    never launched, and the C side's size agrees with the gate's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import autotune as at
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bq, bk = blocks
+    limit = at.smem_limit(torch.device("cuda"))
+    for shape in [(1, 256, 4, 64), (2, 256, 2, 128), (1, 128, 2, 256)]:
+        d = shape[-1]
+        need = fac.pipelined_smem_bytes(d, bq, bk, dtype)
+        assert _build.library().paddle_flash_fwd_pipelined_smem(
+            d, bq, bk, fac._DTYPES[dtype]) == need
+        if need > limit:
+            cand = {"variant": "pipelined",
+                    "config": {"block_q": bq, "block_k": bk}}
+            assert fac._sane_fwd_spec(cand, shape[1], shape[1], d, dtype,
+                                      True, True, limit) == ("base", 64, 64)
+            continue
+        q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+                   for a in _qkv(shape, seed=30))
+        scale = 1.0 / d ** 0.5
+        for causal in (False, True):
+            before = fac.flash_fwd_pipelined_launches
+            out, lse = fac._launch_pipelined(q, k, v, causal, scale, True,
+                                             bq, bk)
+            torch.cuda.synchronize()
+            assert fac.flash_fwd_pipelined_launches == before + 1
+            ref, ref_lse = fac._flash_pipelined_reference(q, k, v, causal,
+                                                          scale, bq, bk)
+            what = "A' %s %s %s causal=%s" % (blocks, shape, dtype, causal)
+            _close(out, ref, dtype, what)
+            torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0,
+                                       msg=what)
+
+
+@pytest.mark.gpu
+def test_pipelined_refuses_unaligned_rows(_tune_cache, monkeypatch):
+    """A' raises on rows that do not start on 16 bytes; under the pin the
+    autotuner's check sends such a call to kernel A instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.utils import flags
+    n = 256 * 2 * 64
+    flat = torch.randn(3 * n + 1, device="cuda")
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(1, 256, 2, 64)
+               for i in range(3))
+    assert not fac._aligned(q, k, v)
+    with pytest.raises(ValueError, match="16"):
+        fac._launch_pipelined(q, k, v, True, 0.125, True, 64, 64)
+    monkeypatch.setitem(flags._REGISTRY, "autotune_pin",
+                        "flash_fwd=pipelined")
+    counts = (fac.flash_fwd_launches, fac.flash_fwd_pipelined_launches)
+    out = fac.flash_attention_bshd(q, k, v, causal=True)
+    assert (fac.flash_fwd_launches - counts[0],
+            fac.flash_fwd_pipelined_launches - counts[1]) == (1, 0)
+    ref, _ = fac._flash_reference(q, k, v, True, 0.125)
+    _close(out, ref, torch.float32, "unaligned under the pin")
+
+
+@pytest.mark.gpu
+def test_pinned_pipelined_attention_joins_autograd(_tune_cache, monkeypatch):
+    """Under ``flash_fwd=pipelined:block_q=128,block_k=64`` the model's
+    attention launches A' (not A), and its gradients match the plain
+    route's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.utils import flags
+    monkeypatch.setitem(flags._REGISTRY, "autotune_pin",
+                        "flash_fwd=pipelined:block_q=128,block_k=64")
+    q, k, v = (torch.from_numpy(a).to("cuda").requires_grad_()
+               for a in _qkv((2, 256, 4, 64), seed=31))
+    ct = torch.from_numpy(_qkv((2, 256, 4, 64), seed=32)[0]).to("cuda")
+    counts = (fac.flash_fwd_launches, fac.flash_fwd_pipelined_launches)
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert (fac.flash_fwd_launches - counts[0],
+            fac.flash_fwd_pipelined_launches - counts[1]) == (0, 1)
+    got = torch.autograd.grad((out * ct).sum(), (q, k, v))
+    want = torch.autograd.grad(
+        (F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                        use_flash=False) * ct).sum(),
+        (q, k, v))
+    for g, w in zip(got, want):
+        _close(g, w, torch.float32, "pinned A' grad")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["merged", "split"])
+def test_flash_bwd_32_row_tiles_match_plain(route, _tune_cache,
+                                            monkeypatch):
+    """The backward kernels' 32-row candidates at D 64 and 128, pinned
+    through their autotune families."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.utils import flags
+    monkeypatch.setitem(flags._REGISTRY, "autotune_pin", ";".join(
+        "%s=base:block_q=32,block_k=32" % f
+        for f in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")))
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in [(1, 256, 4, 64), (2, 128, 2, 128)]:
+            q, k, v, do = (torch.from_numpy(a).to("cuda", dtype)
+                           for a in _qkv(shape, seed=33)
+                           + _qkv(shape, seed=34)[:1])
+            assert fac._resolve_bwd(q, True, "flash_bwd") == 32
+            scale = 1.0 / shape[-1] ** 0.5
+            out, lse = fac.flash_attention_bshd_with_lse(q, k, v, True)
+            got = fac.flash_attention_bwd(q, k, v, out, lse, do, True, scale,
+                                          route=route)
+            torch.cuda.synchronize()
+            ref = fac._flash_bwd_reference(q, k, v, out, lse, do, True,
+                                           scale)
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                _close(g, r, dtype, "32 rows %s %s %s %s"
+                       % (route, name, shape, dtype))
+
+
+@pytest.mark.gpu
+def test_tune_flash_fwd_on_the_card(_tune_cache):
+    """A real timed selection of flash_fwd at a small key, into the
+    test's own cache file: every candidate timed or refused by the
+    shared-memory gate, the winner one of them; at an f32 D=256 key the
+    gate refuses the A' instantiations that do not fit, and the winner
+    is one that does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import json
+    at = _tune_cache
+    for key, want_rejected in (
+            (fac.autotune_key(1, 256, 256, 4, 64, torch.bfloat16, True,
+                              "cuda"), 0),
+            (fac.autotune_key(1, 256, 256, 2, 256, torch.float32, True,
+                              "cuda"), 3)):
+        cands = fac._fwd_candidates(key)
+        chosen = at.tune("flash_fwd", key)
+        assert chosen in cands
+        with open(at.cache_path()) as f:
+            entry = json.load(f)["families"]["flash_fwd"][at.key_str(key)]
+        timings = entry["timings"]
+        assert sorted(timings) == sorted(at._cand_sig(c) for c in cands)
+        rejected = [s for s, t in timings.items()
+                    if isinstance(t, str) and t.startswith("rejected: smem")]
+        assert len(rejected) == want_rejected, timings
+        assert all(isinstance(t, float) for s, t in timings.items()
+                   if s not in rejected), timings
+        assert at._cand_sig(chosen) not in rejected
+        assert at.resolve("flash_fwd", key) == chosen

@@ -2,6 +2,7 @@
 ``paddle_tpu`` module, no file of the package imports either, and its
 entry points refuse to fall back to the CPU when no card is present."""
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -20,6 +21,7 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.models, paddle_tpu_torch.amp, "
         "paddle_tpu_torch.convert, paddle_tpu_torch.kernels.norm_cuda, "
         "paddle_tpu_torch.kernels.flash_attention_cuda, "
+        "paddle_tpu_torch.kernels.autotune, "
         "paddle_tpu_torch.kernels.ce_cuda, "
         "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
         "paddle_tpu_torch.regularizer, paddle_tpu_torch.nn.clip\n"
@@ -32,6 +34,38 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
                          text=True, cwd=str(PKG.parent), timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+
+
+def test_autotune_and_its_cli_load_no_jax_and_no_paddle_tpu(tmp_path):
+    """Importing the autotuner, and its CLI's ``table`` on an empty cache
+    (run as ``python -m``, and in-process with the modules it loads
+    listed), loads neither JAX nor paddle_tpu."""
+    env = dict(os.environ,
+               PADDLE_TPU_AUTOTUNE_CACHE=str(tmp_path / "autotune.json"))
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "from paddle_tpu_torch.kernels import autotune\n"
+        "autotune._cli_main(['table'])\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
+        "or m.startswith('jaxlib') or m == 'paddle_tpu' "
+        "or m.startswith('paddle_tpu.'))\n"
+        "print('BAD=' + ','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=str(PKG.parent), env=env,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "autotune cache empty" in out.stdout
+    assert out.stdout.strip().endswith("BAD=")
+    cli = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.kernels.autotune", "table"],
+        capture_output=True, text=True, cwd=str(PKG.parent), env=env,
+        timeout=120)
+    assert cli.returncode == 0, cli.stderr
+    assert "autotune cache empty (%s)" % (tmp_path / "autotune.json") \
+        in cli.stdout
+    assert not (tmp_path / "autotune.json").exists()
 
 
 def _imported_modules(path):
