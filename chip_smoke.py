@@ -12,13 +12,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               library call (``*_ms``, host launch cost included) and
               their device times from a profiler trace (``*_device_ms``).
               ``checks_bwd``: the flash backward kernels C1 (merged), C2
-              and C3 (split) with each route pinned, head dim 64 and 256,
-              one case with an lse cotangent, and the LayerNorm backward
-              D.  ``checks_long``: at S=16384 kernel A and C2/C3 against
-              their plain versions (2 heads), and split against merged at
-              16 heads.  ``checks_ce``: the cross-entropy kernels E1
-              (logsumexp), E2 / E3 (fused softmax-CE forward / backward)
-              and the row softmax F at (8192, 50304) bf16, E1-E3 also at a
+              and C3 (split; bf16 on the tensor cores) with each route
+              pinned, head dim 64, 128 and 256, one case with an lse
+              cotangent, and the LayerNorm backward D.  ``checks_long``:
+              at S=16384 kernel A and C2/C3 against their plain versions
+              (2 heads), and split against merged at 16 heads, the split
+              pair run twice for identical bits.  ``checks_ce``: the
+              cross-entropy kernels E1 (logsumexp), E2 / E3 (fused
+              softmax-CE forward / backward) and the row softmax F at
+              (8192, 50304) bf16, E1-E3 also at a
               small shape with out-of-range and ignored labels, F also at
               (8, 50304) and (8192, 1024).  ``checks_pipelined``: kernel
               A' at each of its (block_q, block_k) instantiations against
@@ -72,8 +74,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 15. train_autotune — 3 steps with ``FLAGS_autotune=1`` reading the
               cache that the autotune phase wrote: the launches are the
               winners', nothing is timed again, the first loss held.
-16. train_long — GPT-2 345M at (1, 16384), 2 steps: flash forward, C2
-              and C3 launch 24 times a step, C1 never.
+16. train_long — GPT-2 345M at (1, 16384), 3 steps (ms over steps 2-3)
+              and the stream time of each part of one more step: flash
+              forward, C2 and C3 launch 24 times a step, C1 never.
 
 Every phase but 13-15 runs with tuning off, no pin and an empty cache
 of the run's own (a temporary file under ``paddle_tpu_torch/_build/``,
@@ -220,7 +223,7 @@ def device_times(fn, torch, n=20):
 def kernel_ms(times, pattern):
     """Mean device ms per launch of the kernels whose name holds
     ``pattern`` (each launched once per call): a launch missing from the
-    trace does not halve it."""
+    trace does not halve it.  None when no kernel's name holds it."""
     hit = [v for name, v in times.items() if pattern in name]
     if not hit:
         return None
@@ -399,7 +402,10 @@ def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
              plain=True):
     """Times of C1 (through the wrapper), C2 and C3 (each launched alone),
     the plain backward and the library's (SDPA's backward through
-    autograd), CUDA-event and device."""
+    autograd), CUDA-event and device.  The device times are those of the
+    kernel each run should launch: C2 and C3 on the tensor cores in bf16,
+    else the FMA kernels, whose C3 shares C1's template (each run launches
+    one of them)."""
     scale = q.shape[-1] ** -0.5
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta, causal, scale)
@@ -408,9 +414,12 @@ def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
             q, k, v, out, lse, do, causal, scale, route="merged"),
         "flash_bwd_dq": lambda: fac._launch_bwd_dq(*args),
         "flash_bwd_dkv": lambda: fac._launch_bwd_dkv(*args)}
+    tc = fac._tc_split(q.dtype, "flash_bwd_dq")
     patterns = {"flash_bwd": "flash_bwd_kv_kernel",
-                "flash_bwd_dq": "flash_bwd_dq_kernel",
-                "flash_bwd_dkv": "flash_bwd_kv_kernel"}
+                "flash_bwd_dq": ("flash_bwd_dq_tc_kernel" if tc
+                                 else "flash_bwd_dq_kernel"),
+                "flash_bwd_dkv": ("flash_bwd_dkv_tc_kernel" if tc
+                                  else "flash_bwd_kv_kernel")}
     if plain:
         runs["plain"] = lambda: fac._flash_bwd_reference(
             q, k, v, out, lse, do, causal, scale)
@@ -433,14 +442,16 @@ def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
 def check_flash_bwd(torch, fac):
     """C1, C2 and C3 against the plain backward, bf16, B=1 H=16 D=64 at
     S = 128, 1024, 2048, causal or not, each route pinned; then the
-    training shape (8, 1024, 16, 64) causal and head dim 256 at (1, 1024,
-    4, 256) causal (32-row tiles); then one with-lse case."""
+    training shape (8, 1024, 16, 64) causal, head dim 128 at (1, 1024, 8,
+    128) causal and head dim 256 at (1, 1024, 4, 256) causal (C1 with
+    32-row FMA tiles); then one with-lse case."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     worst = {"flash_bwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     cases = [(1, s, 16, 64, c) for s in (128, 1024, 2048)
              for c in (True, False)] + [(8, 1024, 16, 64, True),
+                                        (1, 1024, 8, 128, True),
                                         (1, 1024, 4, 256, True)]
     for b, s, h, d, causal in cases:
         q, k, v, do, out, lse = flash_case(torch, fac, b, s, h, d, causal,
@@ -498,7 +509,8 @@ def check_flash_long(torch, fac):
     against their plain versions at H=2, where each (S, S) f32 array of
     the plain versions is 2.1 GB; then, at the train_long shape
     (1, 16384, 16, 64), split (C2 + C3) against merged (C1) on the card,
-    with the times of kernel A, C1, C2, C3 and the library calls."""
+    a second split run held bit-identical to the first, and the times of
+    kernel A, C1, C2, C3 and the library calls."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(3)
     s, d, scale = 16384, 64, 0.125
@@ -553,7 +565,15 @@ def check_flash_long(torch, fac):
         if not ok:
             raise AssertionError("split vs merged at (1, 16384, 16, 64) "
                                  "(%s): err %g (rms %g)" % (name, e, rms))
-    del merged, split
+    del merged
+    again = fac.flash_attention_bwd(q, k, v, out, lse, do, True, scale,
+                                    route="split")
+    long_row["split_bit_identical"] = all(
+        bool(torch.equal(a, b)) for a, b in zip(split, again))
+    if not long_row["split_bit_identical"]:
+        raise AssertionError("split backward at (1, 16384, 16, 64): two "
+                             "runs differ")
+    del split, again
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     for name, fn in (("flash_fwd",
                       lambda: fac.flash_attention_bshd(q, k, v, True)),
@@ -1273,10 +1293,12 @@ def train_autotune(torch, base, amp, counters, flags, at, fac, first_loss,
     return line
 
 
-def train_long(torch, cfg, amp, counters, flags, steps=2):
+def train_long(torch, cfg, amp, counters, flags, steps=3):
     """The long-context shape of the JAX package's long-sequence run:
     GPT-2 345M at full width, max_position_embeddings 16384, B=1,
-    S=16384: kernel A, C2 and C3 on every layer, C1 never."""
+    S=16384: kernel A, C2 and C3 on every layer, C1 never.  ``steps``
+    steps (ms over all but the first), then one more step timed part by
+    part on the stream."""
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     flags.set_flags({"use_pallas_norm": False})
     s = 16384
@@ -1287,18 +1309,12 @@ def train_long(torch, cfg, amp, counters, flags, steps=2):
     ids = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, s)), device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    counters.reset()
-    t0 = time.perf_counter()
-    losses = [step(ids, ids) for _ in range(steps)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = counters.read()
-    losses = [float(x) for x in losses]
+    losses, launches, ms = run_steps(torch, step, ids, counters, steps)
     line = {"phase": "train_long", "shape": [1, s], "steps": steps,
-            "step_ms": wall * 1e3 / steps, "tokens_per_s": s * steps / wall,
+            "step_ms": ms, "tokens_per_s": s * 1e3 / ms,
             "losses": losses, "launches": launches,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "breakdown": step_breakdown(torch, step, ids)}
     emit(line)
     layers = cfg.num_hidden_layers
     expect_launches(launches, {"flash_fwd": layers * steps,
@@ -1742,6 +1758,7 @@ def main():
     train_ln_row = ln_rows[-1]             # (8192, 1024)
     train_bwd_row = [r for r in bwd_rows
                      if r["shape"] == [8, 1024, 16, 64]][0]
+    d128_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 8, 128]][0]
     d256_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 4, 256]][0]
     ln_bwd_row = ln_bwd_rows[0]            # (8192, 1024)
     fwd_launches = {"serve": run_default["launches"]["flash_fwd"],
@@ -1749,9 +1766,11 @@ def main():
                   "train_long": run_long["launches"]["flash_fwd"]}
 
     def bwd_entry(kern, src_row, plain_row, launches, err):
-        return {
+        entry = {
             "name": kern, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+            "source": ("paddle_tpu_torch/csrc/flash_bwd.cu"
+                       if kern == "flash_bwd"
+                       else "paddle_tpu_torch/csrc/flash_bwd_tc.cu"),
             "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:%d"
                         % {"flash_bwd": 736, "flash_bwd_dq": 790,
                            "flash_bwd_dkv": 828}[kern],
@@ -1770,6 +1789,13 @@ def main():
             "at_d256": {k: d256_row[k] for k in (
                 "shape", kern + "_ms", kern + "_device_ms",
                 kern + "_bound_ms", "library_ms", "library_device_ms")}}
+        if kern != "flash_bwd":
+            for name, row in (("at_train", train_bwd_row),
+                              ("at_d128", d128_row)):
+                entry[name] = {k: row[k] for k in (
+                    "shape", kern + "_ms", kern + "_device_ms",
+                    kern + "_bound_ms", "library_ms", "library_device_ms")}
+        return entry
 
     def ce_entry(name, replaces, launches, by_path):
         row = ce_rows[name]

@@ -5,12 +5,16 @@
 //   C1 paddle_flash_bwd      <- _bwd_kernel      (merged dQ/dK/dV)
 //   C2 paddle_flash_bwd_dq   <- _bwd_dq_kernel   (split backward, dQ)
 //   C3 paddle_flash_bwd_dkv  <- _bwd_dkv_kernel  (split backward, dK/dV)
+// This file holds the f32-FMA kernels: C1 in both dtypes, C2 and C3 in
+// float32.  bf16 C2 and C3 run on the tensor cores (flash_bwd_tc.cu).
 // Per (batch, head) they compute, from q, k, v, dO, the base-e row
 // logsumexp that the forward saved and delta = rowsum(dO * O) (minus the
 // lse cotangent, folded in by the caller):
 //   P  = exp2(scale * log2e * Q K^T - lse * log2e)   (P recomputed, base 2)
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta),
 //   dK = scale * dS^T Q,  dQ = scale * dS K
+// with P rounded to the inputs' dtype before dV and dS before dK and dQ,
+// where _bwd_head_math rounds them for its MXU products (a no-op in f32),
 // with the start-aligned causal mask when asked: tiles strictly in the
 // future are never visited and only the diagonal tile masks.  The base-e
 // lse becomes base 2 in one place, as it is staged (stage_rows).
@@ -37,7 +41,7 @@
 // f32 operand tiles alone would need 4 x 64 x 257 x 4 B = 263 KB of
 // shared memory, more than the 227 KB a block may use (136 KB in all at
 // 32 rows).
-// wgmma, TMA and warp specialisation are left for a later change.
+// C1 on the tensor cores, reusing flash_bwd_tc.cu's core, is a later change.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at the training
 // shape B=8, S=1024, H=16, D=64 causal bf16 the five products need
@@ -48,6 +52,18 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+// flash_bwd_tc.cu: bf16 C2 (dkv false) / C3 (dkv true)
+int flash_bwd_tc_launch(bool dkv, const void* q, const void* k,
+                        const void* v, const void* dout, const float* lse,
+                        const float* delta, void* dq, void* dk, void* dv,
+                        int B, int S, int H, int D, long long q_sb,
+                        long long q_ss, long long k_sb, long long k_ss,
+                        long long v_sb, long long v_ss, long long o_sb,
+                        long long o_ss, int causal, float scale, int block,
+                        void* stream);
 
 namespace {
 
@@ -70,6 +86,13 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// x rounded to T and back: how _bwd_head_math rounds P and dS to the
+// inputs' dtype before the products that take them (exact for f32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
 }
 
 // Stage rows [row0, row0 + BM) of one head into a padded f32 tile.  Rows
@@ -272,7 +295,8 @@ flash_bwd_kv_kernel(const Args a) {
 #pragma unroll
     for (int i = 0; i < n; ++i)
 #pragma unroll
-      for (int j = 0; j < n; ++j) sP[(ty + 16 * i) * ldp + tx + 16 * j] = p[i][j];
+      for (int j = 0; j < n; ++j)
+        sP[(ty + 16 * i) * ldp + tx + 16 * j] = round_to<T>(p[i][j]);
     tile_abt<D, BM>(dp, sdO, sV, ty, tx);
     __syncthreads();   // sP holds P
 
@@ -283,7 +307,8 @@ flash_bwd_kv_kernel(const Args a) {
       const float dl = s_delta[ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < n; ++j)
-        sP[(ty + 16 * i) * ldp + tx + 16 * j] = p[i][j] * (dp[i][j] - dl);
+        sP[(ty + 16 * i) * ldp + tx + 16 * j] =
+            round_to<T>(p[i][j] * (dp[i][j] - dl));
     }
     __syncthreads();   // sP holds dS
 
@@ -408,24 +433,24 @@ int launch(Kernel kernel, bool& smem_set, size_t smem, int block_rows,
   return (int)cudaGetLastError();
 }
 
-// which: 0 = C1 merged, 1 = C2 dq, 2 = C3 dkv
+// which: 0 = C1 merged, 1 = C2 dq, 2 = C3 dkv.  The split pair is
+// instantiated here in f32 only (the tensor-core kernels take bf16).
 template <typename T, int D, int BM>
 int dispatch_which(int which, const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, BM>();
   static bool set_merged = false, set_dq = false, set_dkv = false;
-  switch (which) {
-    case 0:
-      return launch(flash_bwd_kv_kernel<T, D, BM, true>, set_merged, smem, BM,
-                    a, stream);
-    case 1:
+  if (which == 0)
+    return launch(flash_bwd_kv_kernel<T, D, BM, true>, set_merged, smem, BM,
+                  a, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    if (which == 1)
       return launch(flash_bwd_dq_kernel<T, D, BM>, set_dq, smem, BM, a,
                     stream);
-    case 2:
+    if (which == 2)
       return launch(flash_bwd_kv_kernel<T, D, BM, false>, set_dkv, smem, BM,
                     a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 // the (D, tile rows) pairs instantiated: 64 or 32 rows up to D = 128, 32
@@ -458,6 +483,11 @@ int run(int which, const void* q, const void* k, const void* v,
                dv,   B,    S,    H,    q_sb, q_ss,  k_sb, k_ss,   v_sb,
                v_ss, o_sb, o_ss, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && which != 0)
+    return flash_bwd_tc_launch(which == 2, q, k, v, dout, lse, delta, dq, dk,
+                               dv, B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb,
+                               v_ss, o_sb, o_ss, causal, scale, block,
+                               stream);
   if (dtype == 0) return dispatch_d<float>(which, D, block, a, st);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, block, a, st);
   return (int)cudaErrorInvalidValue;
@@ -468,7 +498,8 @@ int run(int which, const void* q, const void* k, const void* v,
 // Common arguments: q/k/v/dout (B, S, H, D) with (H, D) dense and the given
 // batch / sequence strides in elements; lse (base-e) and delta dense
 // (B, S, H) f32; D in {64, 128, 256}; `block` the tile rows (64 or 32 at
-// D <= 128, 32 at D = 256), S a multiple of it; dtype 0 = float32,
+// D <= 128, 32 at D = 256; bf16 C2 and C3: 64 or 128 at D = 64, 64 at
+// D = 128 and 256, rows 16-byte aligned), S a multiple of it; dtype 0 = float32,
 // 1 = bfloat16; `scale` the base-e softmax scale.  Outputs are dense
 // (B, S, H, D).  Each returns its launch's cudaError_t.
 

@@ -149,6 +149,8 @@ def library():
             for fn in (lib.paddle_flash_bwd, lib.paddle_flash_bwd_dq,
                        lib.paddle_flash_bwd_dkv):
                 fn.restype = i
+            lib.paddle_flash_bwd_tc_smem.argtypes = [i, i]
+            lib.paddle_flash_bwd_tc_smem.restype = ll
             lib.paddle_layer_norm_bwd.argtypes = [
                 p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
             lib.paddle_layer_norm_bwd.restype = i

@@ -1,7 +1,8 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward, kernel
 A), ``csrc/flash_fwd_pipelined.cu`` (forward with pipelined K/V tiles,
-kernel A') and ``csrc/flash_bwd.cu`` (backward: C1 merged, C2 dQ, C3
-dK/dV), their plain PyTorch versions, the autograd Functions that join
+kernel A'), ``csrc/flash_bwd.cu`` (backward: C1 merged, C2 dQ, C3 dK/dV
+on f32 FMAs) and ``csrc/flash_bwd_tc.cu`` (C2 and C3 on the tensor cores
+for bf16), their plain PyTorch versions, the autograd Functions that join
 them, and their autotune families (port of
 ``paddle_tpu/kernels/flash_attention_pallas.py``: ``_fwd_kernel`` /
 ``_fwd_kernel_streamed`` / ``_fwd_kernel_pipelined`` and ``_bwd_kernel`` /
@@ -23,10 +24,15 @@ Every call resolves its kernels' variant and tile shape through
 :mod:`.autotune` (families ``flash_fwd``, ``flash_bwd``, ``flash_bwd_dq``,
 ``flash_bwd_dkv``); with tuning off, no pin and no cache entry that is
 candidate [0], the hand-tuned kernels: A with 64 x 64 tiles, C1 or C2 + C3
-with 64-row tiles (32 at D = 256).  The ``pipelined`` variant selects A'
-at one of its (block_q, block_k) instantiations, which needs every q/k/v
-row 16-byte aligned (the unit of its async copies).  ``iotafree`` and
-``parq`` are accepted and change nothing here: the first is a bit-identical
+with 64-row tiles (32 at D = 256 but for bf16 C2 + C3).  The
+``pipelined`` variant selects A' at one of its (block_q, block_k)
+instantiations, which needs every q/k/v row 16-byte aligned (the unit
+of its async copies).  The split pair's tiles depend on the dtype: bf16
+takes the tensor-core tiles, 64 or 128 at D 64 and 64 at D 128 and 256;
+f32 the FMA kernels' 64 or 32 rows (32 at D 256).  The tensor-core
+kernels copy 16-byte rows too: an input whose rows are not 16-byte
+aligned is copied to an aligned one first.  ``iotafree`` and ``parq``
+are accepted and change nothing here: the first is a bit-identical
 rewrite of the TPU's mask arithmetic, the second a TPU lse block layout.
 ``bf16chain`` changes the numerics and has no kernel yet: it raises.  A
 resolved candidate that the kernels cannot take (a stale cache entry, a
@@ -43,6 +49,7 @@ launches.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -130,8 +137,9 @@ def _flash_pipelined_reference(q, k, v, causal, scale, block_q, block_k):
 
 def _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, dlse=None):
     """Plain f32 backward of :func:`_flash_reference`, P recomputed from the
-    saved base-e lse (B, S, H) as the kernels do: returns (dq, dk, dv) in
-    q/k/v's dtypes.  ``dlse`` is the lse output's cotangent, folded in as
+    saved base-e lse (B, S, H) as the kernels do, P and dS rounded to the
+    inputs' dtype before the products that take them: returns (dq, dk, dv)
+    in q/k/v's dtypes.  ``dlse`` is the lse output's cotangent, folded in as
     ``delta - dlse``."""
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * float(scale)
@@ -144,9 +152,12 @@ def _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, dlse=None):
     delta = (gf * of).sum(-1)                              # (B, S, H)
     if dlse is not None:
         delta = delta - dlse.float()
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    # P is rounded to dO's dtype before dV and dS to q's before dK and dQ,
+    # where the TPU kernels round them for their MXU products
+    # (_bwd_head_math); in f32 both roundings are exact
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(), gf)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
-    ds = p * (dp - delta.transpose(1, 2)[..., None])
+    ds = (p * (dp - delta.transpose(1, 2)[..., None])).to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * float(scale)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * float(scale)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -232,10 +243,39 @@ def _refuse_bf16chain(feats):
             "another variant")
 
 
-def _bwd_blocks(d):
-    """Tile rows of C1/C2/C3 instantiated at head dim ``d``, the default
-    first (32 at D = 256, where 64-row f32 tiles do not fit)."""
+#: bf16 C2 / C3 on the tensor cores: square tiles by head dim, the default
+#: first (128-row tiles at D 128 would need 256 accumulator registers a
+#: thread in C3; at D 256 two 64-row tiles' operands alone exceed shared
+#: memory)
+_TC_BLOCKS = {64: (64, 128), 128: (64,), 256: (64,)}
+_SPLIT_FAMILIES = ("flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _tc_split(dtype, family):
+    """Whether ``family``'s kernel at ``dtype`` is the tensor-core C2 / C3
+    of ``csrc/flash_bwd_tc.cu``."""
+    return family in _SPLIT_FAMILIES and dtype == torch.bfloat16
+
+
+def _bwd_blocks(d, dtype=torch.float32, family="flash_bwd"):
+    """Tile rows of ``family``'s kernel instantiated at head dim ``d`` and
+    ``dtype``, the default first: the tensor-core tiles for bf16 C2 / C3;
+    else the FMA kernels' 64 or 32 rows (32 alone at D = 256, where 64-row
+    f32 tiles do not fit)."""
+    if _tc_split(dtype, family):
+        return _TC_BLOCKS[d]
     return (64, 32) if d <= 128 else (32,)
+
+
+def split_tc_smem_bytes(d, block):
+    """Dynamic shared memory of one tensor-core C2 or C3 launch
+    (``tc_smem_bytes`` of ``csrc/flash_bwd_tc.cu``): 1024 bytes to align
+    the tiles to the 128-byte swizzle's 1024-byte period, six bf16
+    ``block`` x ``d`` tiles (two resident, two stages of two streamed),
+    four f32 rows of ``block`` (lse and delta) and, at D 256, two f32
+    ``block`` x ``block`` score tiles that the warpgroups exchange."""
+    xchg = 2 * block * block * 4 if d == 256 else 0
+    return 1024 + 6 * block * d * 2 + 4 * block * 4 + xchg
 
 
 def _valid_blocks(bq, bk, s, sk, causal):
@@ -284,12 +324,16 @@ def _sane_fwd_spec(cand, s, sk, d, dtype, causal, aligned, smem_limit):
     return (canon_variant(feats), bq, bk)
 
 
-def _sane_bwd_blocks(cand, s, d, causal):
-    """(variant, tile rows) that C1/C2/C3 take for a resolved/pinned
-    backward candidate (square tiles: block_q == block_k); anything else
-    falls back to candidate [0].  The merged and split families share it:
-    the JAX merged check's head group has no meaning here."""
-    default = ("base", _bwd_blocks(d)[0])
+def _sane_bwd_blocks(cand, s, d, causal, dtype=torch.float32,
+                     family="flash_bwd"):
+    """(variant, tile rows) that ``family``'s kernel (C1, C2 or C3) takes
+    at ``dtype`` for a resolved/pinned backward candidate (square tiles:
+    block_q == block_k); anything else, such as a 32-row tile pinned or
+    cached for a bf16 split family, falls back to candidate [0].  The
+    merged and split families share it: the JAX merged check's head group
+    has no meaning here."""
+    blocks = _bwd_blocks(d, dtype, family)
+    default = ("base", blocks[0])
     try:
         feats = variant_features(cand.get("variant", "base"), _BWD_FEATURES)
     except ValueError:
@@ -297,7 +341,7 @@ def _sane_bwd_blocks(cand, s, d, causal):
     _refuse_bf16chain(feats)
     cfg = cand.get("config", {})
     bq, bk = cfg.get("block_q"), cfg.get("block_k")
-    if bq != bk or bq not in _bwd_blocks(d) or \
+    if bq != bk or bq not in blocks or \
             not _valid_blocks(bq, bk, s, s, causal):
         return default
     return (canon_variant(feats), bq)
@@ -323,7 +367,8 @@ def _resolve_bwd(q, causal, family):
     """Tile rows of the backward kernel of ``family``."""
     b, s, h, d = q.shape
     key = autotune_key(b, s, s, h, d, q.dtype, causal, q.device)
-    return _sane_bwd_blocks(_at.resolve(family, key), s, d, causal)[1]
+    return _sane_bwd_blocks(_at.resolve(family, key), s, d, causal,
+                            q.dtype, family)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -456,25 +501,39 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
         _launch_bwd_dkv(*args, block=blocks[1])
 
 
-def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block):
-    """The C entry points' (inputs, shape-and-strides tail) arguments;
-    ``block`` None is the default tile rows at this head dim."""
+def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block, family):
+    """The C entry points' (inputs, shape-and-strides tail) arguments for
+    ``family``'s kernel, and the tensors they point into, which the caller
+    holds until the launch is queued; ``block`` None is the kernel's
+    default tile rows at this head dim and dtype.  Raises on a tile the
+    kernel does not take; the tensor-core kernels get q/k/v/dout rows
+    16-byte aligned (an unaligned input is copied first)."""
     b, s, h, d = q.shape
+    blocks = _bwd_blocks(d, q.dtype, family)
     if block is None:
-        block = _bwd_blocks(d)[0]
+        block = blocks[0]
+    if block not in blocks or s % block:
+        raise ValueError("%s: tile %r at D=%d %s, S=%d; instantiated: %s, "
+                         "S a multiple of it" % (family, block, d, q.dtype,
+                                                 s, blocks))
+    if _tc_split(q.dtype, family):
+        q, k, v, dout = (t if _aligned(t) else
+                         t.clone(memory_format=torch.contiguous_format)
+                         for t in (q, k, v, dout))
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
     tail = (b, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), dout.stride(0), dout.stride(1),
             int(bool(causal)), float(scale), _DTYPES[q.dtype], int(block),
             _build.current_stream(q.device))
-    return common, tail
+    return common, tail, (q, k, v, dout)
 
 
 def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None):
     """C1: (dq, dk, dv); dq summed by atomics in an f32 workspace."""
     global flash_bwd_launches
-    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale, block)
+    common, tail, _held = _bwd_args(q, k, v, dout, lse, delta, causal, scale,
+                                    block, "flash_bwd")
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -488,7 +547,8 @@ def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None):
 def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, block=None):
     """C2: dq."""
     global flash_bwd_dq_launches
-    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale, block)
+    common, tail, _held = _bwd_args(q, k, v, dout, lse, delta, causal, scale,
+                                    block, "flash_bwd_dq")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _build.check(_build.library().paddle_flash_bwd_dq(
         *common, dq.data_ptr(), *tail), "flash_bwd_dq launch")
@@ -499,7 +559,8 @@ def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, block=None):
 def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, block=None):
     """C3: (dk, dv)."""
     global flash_bwd_dkv_launches
-    common, tail = _bwd_args(q, k, v, dout, lse, delta, causal, scale, block)
+    common, tail, _held = _bwd_args(q, k, v, dout, lse, delta, causal, scale,
+                                    block, "flash_bwd_dkv")
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _build.check(_build.library().paddle_flash_bwd_dkv(
@@ -592,11 +653,14 @@ def _fwd_candidates(key):
     return cands
 
 
-def _bwd_candidates(key):
-    """[0] the default tile rows at the key's head dim, then the other
-    instantiation (32 rows at D 64 and 128)."""
+def _bwd_candidates(key, family="flash_bwd"):
+    """[0] the default tile rows of ``family``'s kernel at the key's head
+    dim and dtype, then the other instantiations: C1, and f32 C2 / C3, 64
+    then 32 rows (32 alone at D 256); bf16 C2 / C3 the tensor-core tiles
+    (64 then 128 at D 64, 64 at D 128 and 256)."""
+    blocks = _bwd_blocks(key["d"], _DTYPE_BY_NAME[key["dtype"]], family)
     return [{"variant": "base", "config": {"block_q": bm, "block_k": bm}}
-            for bm in _bwd_blocks(key["d"])]
+            for bm in blocks]
 
 
 def _fwd_smem(cand, key):
@@ -685,8 +749,9 @@ def _register_families():
     for name, launch in (("flash_bwd", _launch_bwd_merged),
                          ("flash_bwd_dq", _launch_bwd_dq),
                          ("flash_bwd_dkv", _launch_bwd_dkv)):
-        _at.register_family(name, _bwd_candidates, _bwd_runner(launch),
-                            cleanup=_runner_cleanup)
+        _at.register_family(
+            name, functools.partial(_bwd_candidates, family=name),
+            _bwd_runner(launch), cleanup=_runner_cleanup)
 
 
 _register_families()

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import resolve_device
+
 __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "is_cache_view"]
 
 
@@ -40,7 +42,11 @@ class SlottedKVCache:
 
     @classmethod
     def create(cls, num_slots, num_layers, max_len, num_heads, head_dim,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device=None):
+        """Zeroed buffers on ``device``; ``None`` is the first card
+        (``core.device.resolve_device``), so a caller wanting the CPU
+        says ``device="cpu"``."""
+        device = resolve_device(device)
         shape = (int(num_slots), int(num_layers), int(max_len),
                  int(num_heads), int(head_dim))
         return cls(torch.zeros(shape, dtype=dtype, device=device),

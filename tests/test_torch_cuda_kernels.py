@@ -136,11 +136,10 @@ def test_attention_on_the_card_joins_autograd():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-def test_head_dim_256_attention_runs_kernel_a_and_its_backward_raises(causal):
-    """Head dim 256 (32-row tiles in the backward kernels): under autograd
-    the forward launches kernel A, and the backward, with each route
-    pinned, matches its plain version (the test's name is from when the
-    backward raised there)."""
+def test_head_dim_256_forward_and_both_backward_routes_match_plain(causal):
+    """Head dim 256 (C1 on 32-row FMA tiles, C2 and C3 on the tensor
+    cores): under autograd the forward launches kernel A, and the
+    backward, with each route pinned, matches its plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from paddle_tpu_torch.nn import functional as F
@@ -505,3 +504,132 @@ def test_tune_flash_fwd_on_the_card(_tune_cache):
                    if s not in rejected), timings
         assert at._cand_sig(chosen) not in rejected
         assert at.resolve("flash_fwd", key) == chosen
+
+
+def _split_case(shape, seed, causal, dtype=torch.bfloat16):
+    """bf16 q/k/v, a cotangent, kernel A's (out, lse) and delta."""
+    arrays = _qkv(shape, seed=seed) + _qkv(shape, seed=seed + 1)[:1]
+    q, k, v, do = (torch.from_numpy(a).to("cuda", dtype) for a in arrays)
+    out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal=causal)
+    delta = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, out, lse, delta
+
+
+def _split_launch(q, k, v, do, lse, delta, causal, scale, block=None):
+    """C2 then C3, each launch counted once: (dq, dk, dv)."""
+    counts = (fac.flash_bwd_dq_launches, fac.flash_bwd_dkv_launches)
+    dq = fac._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale,
+                            block=block)
+    dk, dv = fac._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
+                                 block=block)
+    torch.cuda.synchronize()
+    assert (fac.flash_bwd_dq_launches - counts[0],
+            fac.flash_bwd_dkv_launches - counts[1]) == (1, 1)
+    return dq, dk, dv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_split_bf16_kernels_match_plain(d, causal):
+    """bf16 C2 and C3 on the tensor cores against the plain backward,
+    which rounds P and dS to bf16 where they do; at S 192 the 64-row
+    tiles divide S and 128-row ones do not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for shape in [(2, 256, 4, d), (1, 192, 2, d)]:
+        q, k, v, do, out, lse, delta = _split_case(shape, 40, causal)
+        scale = d ** -0.5
+        got = _split_launch(q, k, v, do, lse, delta, causal, scale)
+        ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal, scale)
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert g.dtype == torch.bfloat16 and g.shape == q.shape
+            _close(g, r, torch.bfloat16, "split %s %s causal=%s"
+                   % (name, shape, causal))
+
+
+@pytest.mark.gpu
+def test_split_bf16_kernels_with_lse_cotangent():
+    """The lse cotangent folds into delta; the split route in bf16 holds
+    against the plain backward with it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for d in (64, 128, 256):
+        shape = (1, 256, 4, d)
+        q, k, v, do, out, lse, _delta = _split_case(shape, 42, True)
+        dlse = torch.from_numpy(_qkv(shape[:3], seed=44)[0]).to("cuda")
+        got = fac.flash_attention_bwd(q, k, v, out, lse, do, True, d ** -0.5,
+                                      dlse=dlse, route="split")
+        ref = fac._flash_bwd_reference(q, k, v, out, lse, do, True,
+                                       d ** -0.5, dlse=dlse)
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            _close(g, r, torch.bfloat16, "with-lse %s d=%d" % (name, d))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,block", [(64, 64), (64, 128), (128, 64),
+                                     (256, 64)])
+def test_split_bf16_each_tile_pinned(d, block, _tune_cache, monkeypatch):
+    """Each tensor-core tile candidate, pinned through the flash_bwd_dq
+    and flash_bwd_dkv families, causal or not; the C side's shared memory
+    agrees with the Python count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.utils import flags
+    assert _build.library().paddle_flash_bwd_tc_smem(d, block) == \
+        fac.split_tc_smem_bytes(d, block)
+    monkeypatch.setitem(flags._REGISTRY, "autotune_pin", ";".join(
+        "%s=base:block_q=%d,block_k=%d" % (f, block, block)
+        for f in ("flash_bwd_dq", "flash_bwd_dkv")))
+    for causal in (False, True):
+        shape = (2, 256, 2, d)
+        q, k, v, do, out, lse, _delta = _split_case(shape, 46, causal)
+        for fam in ("flash_bwd_dq", "flash_bwd_dkv"):
+            assert fac._resolve_bwd(q, causal, fam) == block
+        got = fac.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                      d ** -0.5, route="split")
+        torch.cuda.synchronize()
+        ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal,
+                                       d ** -0.5)
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            _close(g, r, torch.bfloat16, "tile %d %s d=%d causal=%s"
+                   % (block, name, d, causal))
+
+
+@pytest.mark.gpu
+def test_split_bf16_unaligned_rows_are_copied():
+    """q/k/v/dO rows that do not start on 16 bytes: the wrapper hands the
+    tensor-core kernels aligned copies, and the result matches plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shape = (1, 256, 2, 64)
+    n = 256 * 2 * 64
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(1, np.float32)] + [a.ravel() for a in
+                                     _qkv(shape, seed=48)
+                                     + _qkv(shape, seed=49)[:1]])).to(
+        "cuda", torch.bfloat16)
+    q, k, v, do = (flat[1 + i * n:1 + (i + 1) * n].view(shape)
+                   for i in range(4))
+    assert not fac._aligned(q)
+    out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1)
+    got = _split_launch(q, k, v, do, lse, delta, True, 0.125)
+    ref = fac._flash_bwd_reference(q, k, v, out, lse, do, True, 0.125)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _close(g, r, torch.bfloat16, "unaligned %s" % name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_split_bf16_runs_are_bit_identical(d):
+    """No atomics: two runs of C2 and C3 on the same inputs give the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, k, v, do, _out, lse, delta = _split_case((2, 512, 4, d), 50, True)
+    first = _split_launch(q, k, v, do, lse, delta, True, d ** -0.5)
+    again = _split_launch(q, k, v, do, lse, delta, True, d ** -0.5)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

@@ -179,3 +179,137 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
     want = fac._flash_bwd_reference(q, k, v, out, lse, ct, True, 0.0625)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _bf16_close(got, want, what):
+    """bf16 gradients: one bf16 ulp of |ref| (both sides round an f32
+    result to bf16, and P and dS to bf16 before their products) plus 1/64
+    of the reference's RMS (the two sum in other orders)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    rms = float(np.sqrt(np.mean(want ** 2)))
+    err = np.abs(got - want)
+    bad = err > 2.0 ** -7 * np.abs(want) + 2.0 ** -6 * rms
+    assert not bad.any(), "%s: max err %g (ref rms %g)" % (
+        what, float(err.max()), rms)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_pallas_in_bf16(shape, causal, split):
+    """bf16 inputs: the plain backward rounds P and dS to bf16 where
+    _bwd_head_math does, and holds against jax.grad through the Pallas
+    kernels in bf16 (merged, and split as in the f32 test).  Both
+    backwards take the JAX forward's residuals (out, lse): the forwards
+    round differently (the Pallas forward rounds P to bf16 before P V)."""
+    q, k, v, ct, _ = _arrays(shape, seed=7)
+    q, k, v, ct = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, ct))
+
+    def fwd(q_, k_, v_):
+        return fap.flash_attention_bshd_with_lse(q_, k_, v_, causal=causal,
+                                                 interpret=True)
+
+    def loss(q_, k_, v_):
+        old = fap._DQ_SCRATCH_BUDGET
+        if split:
+            fap._DQ_SCRATCH_BUDGET = 1
+        try:
+            out, _lse = fwd(q_, k_, v_)
+            return jnp.sum(out.astype(jnp.float32) * ct.astype(jnp.float32))
+        finally:
+            fap._DQ_SCRATCH_BUDGET = old
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    out, lse = fwd(q, k, v)
+
+    def to_torch(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32)))
+    tq, tk, tv, tct, tout = (to_torch(a).to(torch.bfloat16)
+                             for a in (q, k, v, ct, out))
+    got = fac._flash_bwd_reference(tq, tk, tv, tout, to_torch(lse), tct,
+                                   causal, shape[-1] ** -0.5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16
+        _bf16_close(g.float().numpy(), to_torch(w).numpy(),
+                    "%s %s causal=%s split=%s" % (name, shape, causal, split))
+
+
+def test_split_candidates_follow_the_dtype():
+    """bf16 keys list the tensor-core tiles for flash_bwd_dq / flash_bwd_dkv
+    (64 then 128 at D 64, 64 at D 128 and 256); f32 keys and the merged
+    family keep the FMA kernels' (64, 32), 32 alone at D 256."""
+    def blocks(family, d, dtype):
+        key = fac.autotune_key(8, 1024, 1024, 16, d, dtype, True, "cpu")
+        return [c["config"]["block_q"]
+                for c in fac._at.families()[family].candidates(key)]
+    for fam in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert blocks(fam, 64, torch.bfloat16) == [64, 128]
+        assert blocks(fam, 128, torch.bfloat16) == [64]
+        assert blocks(fam, 256, torch.bfloat16) == [64]
+        assert blocks(fam, 64, torch.float32) == [64, 32]
+        assert blocks(fam, 128, torch.float32) == [64, 32]
+        assert blocks(fam, 256, torch.float32) == [32]
+    assert blocks("flash_bwd", 64, torch.bfloat16) == [64, 32]
+    assert blocks("flash_bwd", 256, torch.bfloat16) == [32]
+
+
+@pytest.mark.parametrize("family", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_sane_bwd_blocks_is_dtype_aware(family):
+    """A stale 32-row pin or cache entry for a bf16 split family resolves
+    to candidate [0] (the 64 tensor-core tile); f32 keeps taking it, and
+    the merged family's checks are unchanged."""
+    def cand(bm):
+        return {"variant": "base", "config": {"block_q": bm, "block_k": bm}}
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert fac._sane_bwd_blocks(cand(32), 1024, 64, True, bf16,
+                                family) == ("base", 64)
+    assert fac._sane_bwd_blocks(cand(128), 1024, 64, True, bf16,
+                                family) == ("base", 128)
+    assert fac._sane_bwd_blocks(cand(128), 1024, 128, True, bf16,
+                                family) == ("base", 64)
+    assert fac._sane_bwd_blocks(cand(128), 192, 64, True, bf16,
+                                family) == ("base", 64)
+    assert fac._sane_bwd_blocks(cand(32), 1024, 64, True, f32,
+                                family) == ("base", 32)
+    assert fac._sane_bwd_blocks(cand(128), 1024, 64, True, f32,
+                                family) == ("base", 64)
+    assert fac._sane_bwd_blocks(cand(32), 1024, 256, True, bf16,
+                                family) == ("base", 64)
+    assert fac._sane_bwd_blocks(cand(64), 1024, 256, True, f32,
+                                family) == ("base", 32)
+    assert fac._sane_bwd_blocks(cand(32), 1024, 64, True, bf16,
+                                "flash_bwd") == ("base", 32)
+
+
+def test_split_bf16_pin_of_32_rows_resolves_to_candidate_0(monkeypatch):
+    """Through the autotuner: a 32-row pin for the split families gives
+    the bf16 tensor-core kernels their 64 tile, f32 its 32 rows."""
+    from paddle_tpu_torch.kernels import autotune as at
+    from paddle_tpu_torch.utils import flags
+    for name in ("_MEMO", "_MEMO_DEFAULT", "_RESOLVED"):
+        monkeypatch.setattr(at, name, {})
+    monkeypatch.setitem(flags._REGISTRY, "autotune", False)
+    monkeypatch.setitem(flags._REGISTRY, "autotune_pin", ";".join(
+        "%s=base:block_q=32,block_k=32" % f
+        for f in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")))
+    q = torch.zeros((1, 256, 2, 64))
+    for fam in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fac._resolve_bwd(q.to(torch.bfloat16), True, fam) == 64
+        assert fac._resolve_bwd(q, True, fam) == 32
+    assert fac._resolve_bwd(q.to(torch.bfloat16), True, "flash_bwd") == 32
+
+
+def test_split_tc_smem_bytes_by_hand():
+    """The tensor-core kernels' shared memory: 1024 bytes of alignment
+    slack, six bf16 tiles, four f32 rows and, at D 256, two f32 score
+    tiles."""
+    # D 64, 64 rows: 6 tiles of 64 x 64 x 2 B = 49152, rows 4 x 64 x 4
+    assert fac.split_tc_smem_bytes(64, 64) == 1024 + 49152 + 1024
+    # D 64, 128 rows: 6 x 16384 = 98304, rows 4 x 128 x 4 = 2048
+    assert fac.split_tc_smem_bytes(64, 128) == 1024 + 98304 + 2048
+    # D 128, 64 rows: 6 x 16384 = 98304, rows 1024
+    assert fac.split_tc_smem_bytes(128, 64) == 1024 + 98304 + 1024
+    # D 256, 64 rows: 6 x 32768 = 196608, rows 1024, two 64 x 64 x 4 B
+    # score tiles 32768: 231424, within the 232448 bytes a block may use
+    assert fac.split_tc_smem_bytes(256, 64) == 1024 + 196608 + 1024 + 32768
+    assert fac.split_tc_smem_bytes(256, 64) <= 232448

@@ -155,7 +155,7 @@ def test_multi_token_append_past_capacity_keeps_the_last_real_row():
     drops the rest; the dropped rows must not clobber the last real one."""
     from paddle_tpu_torch.serving import DecodeView, SlottedKVCache
     rng = np.random.default_rng(6)
-    cache = SlottedKVCache.create(2, 1, 8, 2, 4)
+    cache = SlottedKVCache.create(2, 1, 8, 2, 4, device="cpu")
     cache.lengths[0] = 6
     k_old = torch.as_tensor(rng.standard_normal((2, 1, 8, 2, 4)),
                             dtype=torch.float32)

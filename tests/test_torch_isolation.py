@@ -107,3 +107,18 @@ def test_engine_without_device_raises_on_a_cpu_only_machine():
                   AdamW(parameters=m.parameters()))
     # the model stayed where it was: nothing moved on the way to the error
     assert next(m.parameters()).device.type == "cpu"
+
+
+def test_cache_create_without_device_raises_on_a_cpu_only_machine():
+    """``SlottedKVCache.create`` runs on the card unless the caller asks
+    for the CPU: without a card and without ``device="cpu"`` it raises,
+    and with ``device="cpu"`` it builds zeroed CPU buffers."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from paddle_tpu_torch.serving import SlottedKVCache
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SlottedKVCache.create(2, 1, 16, 2, 8)
+    cache = SlottedKVCache.create(2, 1, 16, 2, 8, device="cpu")
+    assert cache.k.device.type == cache.lengths.device.type == "cpu"
+    assert cache.k.shape == (2, 1, 16, 2, 8)
+    assert int(cache.lengths.abs().sum()) == 0
