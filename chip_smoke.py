@@ -6,40 +6,47 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. build    — compile the CUDA kernels from ``paddle_tpu_torch/csrc``.
-2. checks   — every kernel against its plain PyTorch version on the card
-              (bf16, the serving and training shapes), with CUDA-event
-              times of the kernel, the plain version and one PyTorch
-              library call (``*_ms``, host launch cost included) and
-              their device times from a profiler trace (``*_device_ms``).
-              ``checks_bwd``: the flash backward kernels C1 (merged), C2
-              and C3 (split; bf16 on the tensor cores) with each route
-              pinned, head dim 64, 128 and 256, one case with an lse
-              cotangent, and the LayerNorm backward D.  ``checks_long``:
-              at S=16384 kernel A and C2/C3 against their plain versions
-              (2 heads), and split against merged at 16 heads, the split
-              pair run twice for identical bits.  ``checks_ce``: the
-              cross-entropy kernels E1 (logsumexp), E2 / E3 (fused
-              softmax-CE forward / backward) and the row softmax F at
-              (8192, 50304) bf16, E1-E3 also at a
-              small shape with out-of-range and ignored labels, F also at
-              (8, 50304) and (8192, 1024).  ``checks_pipelined``: kernel
-              A' at each of its (block_q, block_k) instantiations against
-              its plain version, lse included, at the serving prefill,
-              the training shape, (1, 16384, 2, 64), one non-causal case,
-              D 128 and 256 and one f32 case, beside kernel A's and SDPA's
-              times; the tiles whose shared memory exceeds a block's are
-              refused by the gate, never launched.
+2. checks   — every kernel against its plain PyTorch version on the card,
+              with CUDA-event times of the kernel, the plain version and
+              one PyTorch library call (``*_ms``, host launch cost
+              included) and their device times from a profiler trace
+              (``*_device_ms``).  ``checks``: the tensor-core flash
+              forward in bf16 and fp16 at the serving prefill, the
+              training shape, one non-causal case and head dims 128 and
+              256, held against its plain version at the tiles it
+              resolves; kernel A in f32; the LayerNorm forward B in bf16
+              and fp16.  ``checks_bwd``: the flash backward kernels C1
+              (merged), C2 and C3 (split; bf16 and fp16 on the tensor
+              cores) with each route pinned, head dim 64, 128 and 256, f32
+              and fp16 cases, one case with an lse cotangent, and the
+              LayerNorm backward D in bf16 and fp16.  ``checks_long``: at
+              S=16384 the tensor-core forward (bf16 and fp16) and C2/C3
+              against their plain versions (2 heads), then at 16 heads the
+              forward again and split against merged, the split pair run
+              twice for identical bits.  ``checks_ce``: the cross-entropy
+              kernels E1 (logsumexp), E2 / E3 (fused softmax-CE forward /
+              backward) and the row softmax F at (8192, 50304) bf16, E1-E3
+              also at a small shape with out-of-range and ignored labels,
+              F also at (8, 50304) and (8192, 1024).  ``checks_pipelined``:
+              kernel A' at each of its (block_q, block_k) instantiations
+              against its plain version, lse included, at the serving
+              prefill, the training shape, (1, 16384, 2, 64), one
+              non-causal case, D 128 and 256 and one f32 case, beside the
+              dtype's default forward's and SDPA's times; the tiles whose
+              shared memory exceeds a block's are refused by the gate,
+              never launched.
 3. serve    — GPT-2 345M (seeded random weights, AMP O2 bf16) through the
               slotted DecodeEngine (8 slots, max_len 1024) and the
               continuous-batching scheduler: 12 greedy requests of 128
               prompt tokens and 32 new tokens, once with the default
-              flags and once with ``use_pallas_norm`` on.  Launch
-              counters are reset just before each run and read after.
+              flags and once with ``use_pallas_norm`` on; the tensor-core
+              forward on every prefill.  Launch counters are reset just
+              before each run and read after.
 4. decode_profile — host and device time of a batched decode step.
 5. parity   — one 128-token prompt: the card's last-position logits
               (kernel path, bf16) against the same weights on the CPU in
               f32 (plain path); ``parity_pinned``: the same prefill under
-              ``FLAGS_autotune_pin="flash_fwd=pipelined"``, A' on every
+              ``FLAGS_autotune_pin=PIN_A_PRIME``, A' (64 x 64) on every
               layer.
 6. decode_parity — 8 slots of ragged prompts, a few batched decode steps
               on the card and on the CPU, logits held at every step, for
@@ -50,8 +57,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               345M (the serve run's weights, dropout 0), AMP O2 bf16,
               AdamW, the label-shift criterion, one seeded (8, 1024)
               batch; 3 warm-up and 10 timed steps, the stream time of
-              each part of a step and a profile of 2 steps.  Flash
-              forward and C1 launch 24 times a step.
+              each part of a step and a profile of 2 steps.  The
+              tensor-core forward, C2 and C3 launch 24 times a step;
+              kernel A and C1 never.
 9. train_norm — 3 steps with ``use_pallas_norm`` on from the same
               weights: kernels B and D launch 49 times a step; the first
               loss held against the default route's.
@@ -62,23 +70,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 11. train_flat — 3 steps with ``TrainStep(flat_master=True)``; losses
               held against the default step's, the optimizer part timed.
 12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
-              LayerNorm route and each cross-entropy route) and on the CPU
-              (f32, plain): the loss and every parameter's gradient held.
-13. autotune — ``autotune.warm()`` over the port's standard keys (the
+              LayerNorm route and each cross-entropy route; then f32,
+              kernel A and C1) and on the CPU (f32, plain): the loss and
+              every parameter's gradient held.
+13. train_fp16 — 3 eager steps of the same model under
+              ``amp.decorate(level="O2", dtype="float16")`` and a
+              ``GradScaler``, each LayerNorm route: the tensor-core
+              forward, C2 and C3 (and B, D) on fp16, a finite first loss
+              near the bf16 one, no step skipped.
+14. autotune — ``autotune.warm()`` over the port's standard keys (the
               four flash families at the training shape) and flash_fwd at
               head dim 256, into this run's own cache file: each key's
               timing table, winner and shared-memory refusals.
-14. train_pipelined — 3 steps under ``flash_fwd=pipelined`` pinned: A'
-              launches 24 times a step, kernel A never; the first loss
-              held against train's.
-15. train_autotune — 3 steps with ``FLAGS_autotune=1`` reading the
+15. train_pipelined — 3 steps under PIN_A_PRIME: A' (64 x 64)
+              launches 24 times a step, the tensor-core forward never;
+              the first loss held against train's.
+16. train_autotune — 3 steps with ``FLAGS_autotune=1`` reading the
               cache that the autotune phase wrote: the launches are the
               winners', nothing is timed again, the first loss held.
-16. train_long — GPT-2 345M at (1, 16384), 3 steps (ms over steps 2-3)
-              and the stream time of each part of one more step: flash
-              forward, C2 and C3 launch 24 times a step, C1 never.
+17. train_long — GPT-2 345M at (1, 16384), 3 steps (ms over steps 2-3)
+              and the stream time of each part of one more step: the
+              tensor-core forward, C2 and C3 launch 24 times a step.
 
-Every phase but 13-15 runs with tuning off, no pin and an empty cache
+Every phase but 14-16 runs with tuning off, no pin and an empty cache
 of the run's own (a temporary file under ``paddle_tpu_torch/_build/``,
 removed at the end), so each kernel is the hand-tuned candidate [0].
 Launch counters are set to 0 just before each run of a path and read
@@ -108,21 +122,19 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
-# bf16 flash out: kernel and plain version both round an f32 result to
-# bf16, so an element may differ by one bf16 ulp of |ref| (<= 2^-7 |ref|);
-# on top, 1/64 of the reference's RMS at that shape (about 8e-4 at S=1024
-# non-causal, where |out| ~ 0.05), far below what a misweighted V
-# accumulation would leave
-FLASH_ULP_REL = 2.0 ** -7
-FLASH_RMS_FRAC = 2.0 ** -6
+# flash out and dq/dk/dv, by dtype: kernel and plain version both round
+# an f32 result to the dtype, so an element may differ by one ulp of |ref|
+# (bf16 2^-7, fp16 2^-10 relative); on top, 1/64 of the reference's RMS at
+# that shape (about 8e-4 at S=1024 non-causal, where |out| ~ 0.05), far
+# below what a misweighted V accumulation would leave, for sums in other
+# orders (C1's dQ by atomics).  f32 results differ by summation order
+# alone: 1e-5 relative, and 1e-4 of the RMS
+ULP_REL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10, "float32": 1e-5}
+RMS_FRAC = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -6, "float32": 1e-4}
+FLASH_ULP_REL, FLASH_RMS_FRAC = ULP_REL["bfloat16"], RMS_FRAC["bfloat16"]
 LSE_TOL = 1e-3          # f32 lse
 LN_TOL = 1e-2           # bf16 out: abs, plus one bf16 half-ulp of |ref|
 LOGIT_TOL = 0.1         # card bf16 vs CPU f32 last-position logits
-# bf16 flash dq/dk/dv: the kernels and the plain version both round an f32
-# result to bf16 (one ulp of |ref|, 2^-7), and sum in other orders (C1's
-# dQ by atomics); on top, 1/64 of the reference's RMS at that shape
-FLASH_BWD_ULP_REL = 2.0 ** -7
-FLASH_BWD_RMS_FRAC = 2.0 ** -6
 # LayerNorm backward: bf16 dx as the flash grads; f32 dgamma / dbeta are
 # sums over all rows in another order (1e-5 relative plus 1e-4 of RMS)
 LN_BWD_F32_REL = 1e-5
@@ -138,6 +150,11 @@ NORM_ROUTE_LOSS_TOL = 0.01
 # limits leave 1.5x room over that bf16 rounding
 PARITY_LOSS_TOL = 0.02
 PARITY_GRAD_REL_TOL = 0.03
+# train_parity's f32 card step (kernel A, C1) against the CPU's f32 one:
+# the same f32 arithmetic in other summation orders (C1's dQ by atomics),
+# ~1e-6 relative an operation over 24 layers; 1e-4 of the ~11 loss
+PARITY_F32_LOSS_TOL = 1e-3
+PARITY_F32_GRAD_REL_TOL = 1e-3
 # lse and nll (f32, values ~11): the kernels and the plain versions sum
 # 50304 terms in other orders
 CE_STAT_TOL = 1e-4
@@ -151,6 +168,12 @@ CE_ROUTE_LOSS_TOL = 0.01
 # train_flat vs train losses: the same update over one flat buffer; C1's
 # atomics make any two runs differ in the last bits
 FLAT_LOSS_TOL = 0.01
+
+
+# A' pinned at 64 x 64, the tile of its earlier measurements (a bare
+# "flash_fwd=pipelined" takes the tiles of candidate [0], the tensor-core
+# forward's 128 x 128)
+PIN_A_PRIME = "flash_fwd=pipelined:block_q=64,block_k=64"
 
 
 def emit(obj):
@@ -180,6 +203,7 @@ class Counters:
 
     def __init__(self, fac, norm_cuda, ce_cuda):
         self.spec = {
+            "flash_fwd_tc": (fac, "flash_fwd_tc_launches"),
             "flash_fwd": (fac, "flash_fwd_launches"),
             "flash_fwd_pipelined": (fac, "flash_fwd_pipelined_launches"),
             "flash_bwd": (fac, "flash_bwd_launches"),
@@ -268,93 +292,165 @@ def bf16_err(got, ref, atol):
     return float(d.max()), ok
 
 
-def check_flash(torch, fac):
-    import torch.nn.functional as tF
-    h, d = 16, 64
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, worst = [], 0.0
-    # the serving prefill shapes at B=1, then the training shape
-    cases = [(1, s, c) for s in (128, 256, 512, 1024) for c in (True, False)]
-    for b, s, causal in cases + [(8, 1024, True)]:
-        # q/k/v as slices of one fused projection, as the model has them
-        qkv = torch.randn((b, s, 3 * h * d), generator=gen,
-                          device="cuda").to(torch.bfloat16)
-        q, k, v = (qkv[:, :, i * h * d:(i + 1) * h * d]
-                   .reshape(b, s, h, d) for i in range(3))
-        scale = 1.0 / math.sqrt(d)
-        out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal)
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def fused_qkv(torch, b, s, h, d, dtype, gen):
+    """q/k/v as slices of one fused projection, as the model has them."""
+    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                      device="cuda").to(dtype)
+    return [qkv[:, :, i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
+            for i in range(3)]
+
+
+def fwd_bound(b, s, h, d, causal, dtype):
+    """Bound of a flash forward: q, k, v read and out written once, and
+    the two products over the visible (query, key) pairs, at the rate of
+    the dtype (the tensor cores for bf16 and fp16, FMAs for f32)."""
+    esz = 4 if dtype_name(dtype) == "float32" else 2
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return bound(4 * b * s * h * d * esz, 4 * b * h * d * pairs,
+                 F32_FLOPS if esz == 4 else BF16_FLOPS)
+
+
+# the tensor-core forward's rows: the serving prefill, the training shape,
+# one non-causal case, head dims 128 and 256 (S=16384: check_flash_long)
+TC_FWD_CASES = [(1, 128, 16, 64, True), (1, 128, 16, 64, False),
+                (1, 1024, 16, 64, False), (8, 1024, 16, 64, True),
+                (1, 1024, 8, 128, True), (1, 1024, 4, 256, True)]
+# kernel A, f32: the serving prefill and the training shape
+A_FWD_CASES = [(1, 128, 16, 64, True), (8, 1024, 16, 64, True)]
+
+
+def tc_tiles_device_ms(torch, fac, q, k, v, causal, scale, n):
+    """Device ms of the tensor-core forward at each of its tiles that
+    divides S: what the autotuner chooses among."""
+    out = {}
+    for bq, bk in fac._TC_FWD_BLOCKS[q.shape[-1]]:
+        if q.shape[1] % bq == 0:
+            out["%dx%d" % (bq, bk)] = kernel_ms(device_times(
+                lambda: fac._launch_tc(q, k, v, causal, scale, False, bq, bk),
+                torch, n=n), "flash_fwd_tc_kernel")
+    return out
+
+
+def check_fwd_case(torch, fac, tF, b, s, h, d, causal, dtype, gen,
+                   reps=7, inner=20, plain=True):
+    """One forward row: the default route (the tensor-core forward for
+    bf16 and fp16, kernel A for f32) launched once through
+    ``flash_attention_bshd_with_lse`` and held against its plain version
+    at the tiles it resolved, lse included; then the kernel's event and
+    device ms (in bf16 at every tile too), the plain version's (when
+    ``plain``), SDPA's, and the bound."""
+    q, k, v = fused_qkv(torch, b, s, h, d, dtype, gen)
+    scale = 1.0 / math.sqrt(d)
+    tc = dtype in fac._TC_DTYPES
+    spec = fac._resolve_fwd(q, k, v, causal)
+    counter = "flash_fwd_tc_launches" if tc else "flash_fwd_launches"
+    before = getattr(fac, counter)
+    out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal)
+    launched = getattr(fac, counter) - before
+    if tc:
+        ref, ref_lse = fac._flash_tc_reference(q, k, v, causal, scale,
+                                               spec[1], spec[2])
+    else:
         ref, ref_lse = fac._flash_reference(q, k, v, causal, scale)
-        torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        rms = float(ref.float().pow(2).mean().sqrt())
-        err = float(diff.max())
-        ok = bool((diff <= FLASH_ULP_REL * ref.float().abs()
-                   + FLASH_RMS_FRAC * rms).all())
-        lse_err = float((lse - ref_lse).abs().max())
-        if not ok or lse_err > LSE_TOL:
-            raise AssertionError("flash_fwd S=%d causal=%s: out err %g "
-                                 "(ref rms %g) lse err %g"
-                                 % (s, causal, err, rms, lse_err))
-        worst = max(worst, err)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        nbytes = 4 * b * s * h * d * 2
-        pairs = s * (s + 1) / 2 if causal else s * s
-        flops = 4 * b * h * d * pairs
-        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
-        rows.append({
-            "shape": [b, s, h, d], "causal": causal, "max_abs_err": err,
-            "ref_rms": rms, "tol_abs_part": FLASH_RMS_FRAC * rms,
-            "lse_max_abs_err": lse_err,
-            "kernel_ms": time_ms(
+    torch.cuda.synchronize()
+    name = dtype_name(dtype)
+    err, rms, ok = within(out, ref, ULP_REL[name], RMS_FRAC[name])
+    lse_err = float((lse - ref_lse).abs().max())
+    del out, lse, ref, ref_lse
+    if launched != 1 or not ok or lse_err > LSE_TOL:
+        raise AssertionError("flash forward %s %s causal=%s tiles %s: "
+                             "launches %d, out err %g (ref rms %g), lse err "
+                             "%g" % (name, (b, s, h, d), causal, spec[1:],
+                                     launched, err, rms, lse_err))
+    row = {"shape": [b, s, h, d], "causal": causal, "dtype": name,
+           "kernel": "flash_fwd_tc" if tc else "flash_fwd",
+           "blocks": list(spec[1:]), "max_abs_err": err, "ref_rms": rms,
+           "tol_abs_part": RMS_FRAC[name] * rms, "lse_max_abs_err": lse_err}
+    time_kernel(torch, row, "kernel",
                 lambda: fac.flash_attention_bshd(q, k, v, causal),
-                torch),
-            "kernel_device_ms": device_ms(
-                lambda: fac.flash_attention_bshd(q, k, v, causal),
-                torch),
-            "plain_device_ms": device_ms(
-                lambda: fac._flash_reference(q, k, v, causal, scale),
-                torch),
-            "library_device_ms": device_ms(
-                lambda: tF.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal), torch),
-            "plain_ms": time_ms(
-                lambda: fac._flash_reference(q, k, v, causal, scale),
-                torch),
-            "library_ms": time_ms(
-                lambda: tF.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal), torch),
-            "bound_ms": bound_ms, "bound_by": bound_by})
-    return rows, worst
+                "flash_fwd_tc_kernel" if tc else "flash_fwd_kernel", reps,
+                inner)
+    if dtype == torch.bfloat16:
+        row["tiles_device_ms"] = tc_tiles_device_ms(torch, fac, q, k, v,
+                                                    causal, scale, inner)
+    if plain:
+        time_kernel(torch, row, "plain",
+                    (lambda: fac._flash_tc_reference(q, k, v, causal, scale,
+                                                     spec[1], spec[2]))
+                    if tc else
+                    (lambda: fac._flash_reference(q, k, v, causal, scale)),
+                    None, reps, inner)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    time_kernel(torch, row, "library",
+                lambda: tF.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=causal),
+                None, reps, inner)
+    row["bound_ms"], row["bound_by"] = fwd_bound(b, s, h, d, causal, dtype)
+    return row
 
 
-def check_layer_norm(torch, norm_cuda):
+def check_flash(torch, fac):
+    """The tensor-core forward in bf16 and fp16 at TC_FWD_CASES, and
+    kernel A in f32 at A_FWD_CASES, each against its plain version."""
     import torch.nn.functional as tF
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float16):
+        for b, s, h, d, causal in TC_FWD_CASES:
+            rows.append(check_fwd_case(torch, fac, tF, b, s, h, d, causal,
+                                       dtype, gen,
+                                       plain=dtype == torch.bfloat16))
+    for b, s, h, d, causal in A_FWD_CASES:
+        rows.append(check_fwd_case(torch, fac, tF, b, s, h, d, causal,
+                                   torch.float32, gen))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fwd_row(rows, kernel, shape, dtype="bfloat16", causal=True):
+    return [r for r in rows if r["kernel"] == kernel and r["shape"] == shape
+            and r["dtype"] == dtype and r["causal"] == causal][0]
+
+
+def check_layer_norm(torch, norm_cuda, dtype=None, sizes=(8, 128, 8192)):
+    """Kernel B against its plain version, bf16 x (or ``dtype``) and f32
+    gamma / beta, at the decode, prefill and training (8 x 1024) rows."""
+    import torch.nn.functional as tF
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows, worst = [], 0.0
-    for r in (8, 128, 8192):    # decode, prefill, training (8 x 1024)
+    for r in sizes:
         f = 1024
-        x = torch.randn((r, f), generator=gen, device="cuda").to(
-            torch.bfloat16)
+        x = torch.randn((r, f), generator=gen, device="cuda").to(dtype)
         g = 1 + 0.1 * torch.randn((f,), generator=gen, device="cuda")
         bta = 0.1 * torch.randn((f,), generator=gen, device="cuda")
         out, mean, rstd = norm_cuda.layer_norm_fwd(x, g, bta)
         r_out, r_mean, r_rstd = norm_cuda._layer_norm_reference(x, g, bta,
                                                                 1e-5)
         torch.cuda.synchronize()
-        err, ok = bf16_err(out, r_out, LN_TOL)
+        if dtype == torch.bfloat16:
+            err, ok = bf16_err(out, r_out, LN_TOL)
+        else:
+            err, _rms, ok = within(out, r_out, ULP_REL[dtype_name(dtype)],
+                                   RMS_FRAC[dtype_name(dtype)])
         stat_err = max(float((mean - r_mean).abs().max()),
                        float(((rstd - r_rstd) / r_rstd).abs().max()))
         if not ok or stat_err > 1e-4:
-            raise AssertionError("layer_norm_fwd (%d, %d): out err %g, stat "
-                                 "err %g" % (r, f, err, stat_err))
+            raise AssertionError("layer_norm_fwd (%d, %d) %s: out err %g, "
+                                 "stat err %g" % (r, f, dtype, err, stat_err))
         worst = max(worst, err)
         nbytes = 2 * r * f * 2 + 2 * f * 4 + 2 * r * 4
         flops = 8 * r * f
-        # F.layer_norm takes no f32 gamma/beta with bf16 x: the yardstick
-        # gets bf16 copies, made outside the timed calls
-        g16, b16 = g.to(torch.bfloat16), bta.to(torch.bfloat16)
+        # F.layer_norm takes no f32 gamma/beta with 16-bit x: the
+        # yardstick gets copies in x's dtype, made outside the timed calls
+        g16, b16 = g.to(dtype), bta.to(dtype)
         rows.append({
-            "shape": [r, f], "max_abs_err": err, "stat_err": stat_err,
+            "shape": [r, f], "dtype": dtype_name(dtype), "max_abs_err": err,
+            "stat_err": stat_err,
             "kernel_ms": time_ms(
                 lambda: norm_cuda.layer_norm_fwd(x, g, bta), torch),
             "kernel_device_ms": device_ms(
@@ -375,15 +471,12 @@ def check_layer_norm(torch, norm_cuda):
     return rows, worst
 
 
-def flash_case(torch, fac, b, s, h, d, causal, gen):
-    """bf16 q/k/v (slices of one fused projection), a cotangent, and
-    kernel A's (out, lse) on them."""
-    qkv = torch.randn((b, s, 3 * h * d), generator=gen,
-                      device="cuda").to(torch.bfloat16)
-    q, k, v = (qkv[:, :, i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
-               for i in range(3))
-    do = torch.randn((b, s, h, d), generator=gen,
-                     device="cuda").to(torch.bfloat16)
+def flash_case(torch, fac, b, s, h, d, causal, gen, dtype=None):
+    """bf16 (or ``dtype``) q/k/v (slices of one fused projection), a
+    cotangent, and the default forward's (out, lse) on them."""
+    dtype = dtype or torch.bfloat16
+    q, k, v = fused_qkv(torch, b, s, h, d, dtype, gen)
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
     out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal)
     return q, k, v, do, out, lse
 
@@ -444,38 +537,53 @@ def check_flash_bwd(torch, fac):
     S = 128, 1024, 2048, causal or not, each route pinned; then the
     training shape (8, 1024, 16, 64) causal, head dim 128 at (1, 1024, 8,
     128) causal and head dim 256 at (1, 1024, 4, 256) causal (C1 with
-    32-row FMA tiles); then one with-lse case."""
+    32-row FMA tiles), all timed; then f32 (C1 and the FMA C2 / C3, each
+    route) and fp16 (the tensor-core C2 / C3) cases, untimed; then one
+    with-lse case."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
     worst = {"flash_bwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    cases = [(1, s, 16, 64, c) for s in (128, 1024, 2048)
-             for c in (True, False)] + [(8, 1024, 16, 64, True),
-                                        (1, 1024, 8, 128, True),
-                                        (1, 1024, 4, 256, True)]
-    for b, s, h, d, causal in cases:
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    cases = [(1, s, 16, 64, c, bf16) for s in (128, 1024, 2048)
+             for c in (True, False)] + [(8, 1024, 16, 64, True, bf16),
+                                        (1, 1024, 8, 128, True, bf16),
+                                        (1, 1024, 4, 256, True, bf16),
+                                        (1, 1024, 16, 64, True, f32),
+                                        (1, 256, 4, 256, False, f32),
+                                        (8, 1024, 16, 64, True, f16),
+                                        (1, 1024, 8, 128, False, f16),
+                                        (1, 1024, 4, 256, True, f16)]
+    for b, s, h, d, causal, dtype in cases:
         q, k, v, do, out, lse = flash_case(torch, fac, b, s, h, d, causal,
-                                           gen)
+                                           gen, dtype)
         scale = d ** -0.5
+        name16 = dtype_name(dtype)
         ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal, scale)
-        row = {"shape": [b, s, h, d], "causal": causal}
-        for route, kernels in (("merged", ("flash_bwd",) * 3),
-                               ("split", ("flash_bwd_dq", "flash_bwd_dkv",
-                                          "flash_bwd_dkv"))):
+        row = {"shape": [b, s, h, d], "causal": causal, "dtype": name16}
+        # C1 takes no fp16
+        routes = ((("merged", ("flash_bwd",) * 3),) if dtype != f16
+                  else ()) + (("split", ("flash_bwd_dq", "flash_bwd_dkv",
+                                         "flash_bwd_dkv")),)
+        for route, kernels in routes:
             got = fac.flash_attention_bwd(q, k, v, out, lse, do, causal,
                                           scale, route=route)
             torch.cuda.synchronize()
             for name, g, r, kern in zip(("dq", "dk", "dv"), got, ref,
                                         kernels):
-                err, rms, ok = within(g, r, FLASH_BWD_ULP_REL,
-                                      FLASH_BWD_RMS_FRAC)
+                err, rms, ok = within(g, r, ULP_REL[name16],
+                                      RMS_FRAC[name16])
                 row["%s_%s_err" % (route, name)] = err
                 row["%s_rms" % name] = rms
                 if not ok:
                     raise AssertionError(
-                        "%s %s %s causal=%s: err %g (ref rms %g)"
-                        % (kern, name, (b, s, h, d), causal, err, rms))
+                        "%s %s %s %s causal=%s: err %g (ref rms %g)"
+                        % (kern, name, name16, (b, s, h, d), causal, err,
+                           rms))
                 worst[kern] = max(worst[kern], err)
+        if dtype != bf16:
+            rows.append(row)
+            continue
         row.update(time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal,
                             reps=5, inner=10))
         for kern, products, tensors in (("flash_bwd", 5, 7),
@@ -494,7 +602,7 @@ def check_flash_bwd(torch, fac):
     for route in ("merged", "split"):
         got = fac.flash_attention_bwd(q, k, v, out, lse, do, True, 0.125,
                                       dlse=dlse, route=route)
-        errs = [within(g, r, FLASH_BWD_ULP_REL, FLASH_BWD_RMS_FRAC)
+        errs = [within(g, r, FLASH_ULP_REL, FLASH_RMS_FRAC)
                 for g, r in zip(got, ref)]
         lse_row[route + "_err"] = max(e[0] for e in errs)
         if not all(e[2] for e in errs):
@@ -504,63 +612,91 @@ def check_flash_bwd(torch, fac):
     return rows, worst
 
 
+def hold_tc_long(torch, fac, tF, q, k, v, scale, row, plain):
+    """At S = 16384, causal: the tensor-core forward in bf16 (q, k, v) and
+    fp16 (their fp16 copies) against its plain version at the tiles it
+    resolves, lse included, then its event and device ms in both dtypes,
+    SDPA's in bf16 and (when ``plain``) the plain version's in bf16."""
+    for dtype in (torch.bfloat16, torch.float16):
+        name16 = dtype_name(dtype)
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        spec = fac._resolve_fwd(qq, kk, vv, True)
+        out, lse = fac.flash_attention_bshd_with_lse(qq, kk, vv, True)
+        ref, ref_lse = fac._flash_tc_reference(qq, kk, vv, True, scale,
+                                               spec[1], spec[2])
+        torch.cuda.synchronize()
+        err, rms, ok = within(out, ref, ULP_REL[name16], RMS_FRAC[name16])
+        lse_err = float((lse - ref_lse).abs().max())
+        del out, lse, ref, ref_lse
+        if not ok or lse_err > LSE_TOL:
+            raise AssertionError("flash_fwd_tc %s at %s: out err %g (rms "
+                                 "%g), lse err %g" % (name16, row["shape"],
+                                                      err, rms, lse_err))
+        tag = "" if dtype == torch.bfloat16 else "_f16"
+        row.update({"flash_fwd_tc%s_err" % tag: err,
+                    "flash_fwd_tc%s_lse_err" % tag: lse_err,
+                    "flash_fwd_tc%s_blocks" % tag: list(spec[1:])})
+        time_kernel(torch, row, "fwd_flash_fwd_tc" + tag,
+                    lambda: fac.flash_attention_bshd(qq, kk, vv, True),
+                    "flash_fwd_tc_kernel", reps=3, inner=2)
+        if dtype == torch.bfloat16:
+            row["fwd_tiles_device_ms"] = tc_tiles_device_ms(
+                torch, fac, qq, kk, vv, True, scale, 2)
+        if dtype == torch.bfloat16 and plain:
+            time_kernel(torch, row, "fwd_plain",
+                        lambda: fac._flash_tc_reference(
+                            qq, kk, vv, True, scale, spec[1], spec[2]),
+                        None, reps=3, inner=2)
+        del qq, kk, vv
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    time_kernel(torch, row, "fwd_library",
+                lambda: tF.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True),
+                None, reps=3, inner=2)
+    b, s, h, d = q.shape
+    row["fwd_bound_ms"], row["fwd_bound_by"] = fwd_bound(
+        b, s, h, d, True, torch.bfloat16)
+
+
 def check_flash_long(torch, fac):
-    """S = 16384: kernel A (the TPU's streamed-forward regime) and C2/C3
-    against their plain versions at H=2, where each (S, S) f32 array of
-    the plain versions is 2.1 GB; then, at the train_long shape
-    (1, 16384, 16, 64), split (C2 + C3) against merged (C1) on the card,
-    a second split run held bit-identical to the first, and the times of
-    kernel A, C1, C2, C3 and the library calls."""
+    """S = 16384 (the TPU's streamed-forward regime): at H=2, where each
+    (S, S) f32 array of the plain backward is 2.1 GB, the tensor-core
+    forward (bf16 and fp16) and C2/C3 against their plain versions; then,
+    at the train_long shape (1, 16384, 16, 64), the forward again, split
+    (C2 + C3) against merged (C1) on the card, a second split run held
+    bit-identical to the first, and the times of the forward, C1, C2, C3
+    and the library calls."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(3)
     s, d, scale = 16384, 64, 0.125
     out_row = {"shape": [1, s, 2, d], "causal": True}
     q, k, v, do, out, lse = flash_case(torch, fac, 1, s, 2, d, True, gen)
-    ref, ref_lse = fac._flash_reference(q, k, v, True, scale)
-    err, rms, ok = within(out, ref, FLASH_ULP_REL, FLASH_RMS_FRAC)
-    lse_err = float((lse - ref_lse).abs().max())
-    del ref, ref_lse
-    if not ok or lse_err > LSE_TOL:
-        raise AssertionError("flash_fwd at S=16384: out err %g (rms %g), "
-                             "lse err %g" % (err, rms, lse_err))
-    out_row.update(flash_fwd_err=err, flash_fwd_lse_err=lse_err)
+    hold_tc_long(torch, fac, tF, q, k, v, scale, out_row, plain=True)
     ref = fac._flash_bwd_reference(q, k, v, out, lse, do, True, scale)
     got = fac.flash_attention_bwd(q, k, v, out, lse, do, True, scale,
                                   route="split")
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
-        e, rms, ok = within(g, r, FLASH_BWD_ULP_REL, FLASH_BWD_RMS_FRAC)
+        e, rms, ok = within(g, r, FLASH_ULP_REL, FLASH_RMS_FRAC)
         out_row["split_%s_err" % name] = e
         if not ok:
             raise AssertionError("split backward at S=16384 (%s): err %g "
                                  "(rms %g)" % (name, e, rms))
     del ref, got
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fwd = {"flash_fwd": lambda: fac.flash_attention_bshd(q, k, v, True),
-           "plain": lambda: fac._flash_reference(q, k, v, True, scale),
-           "library": lambda: tF.scaled_dot_product_attention(
-               qt, kt, vt, is_causal=True)}
-    for name, fn in fwd.items():
-        out_row["fwd_%s_ms" % name] = time_ms(fn, torch, reps=3, inner=2)
-        times = device_times(fn, torch, n=2)
-        out_row["fwd_%s_device_ms" % name] = (
-            kernel_ms(times, "flash_fwd_kernel") if name == "flash_fwd"
-            else call_ms(times, 2))
     out_row.update(time_bwd(torch, fac, tF, q, k, v, do, out, lse, True,
                             reps=3, inner=2))
-    out_row["fwd_bound_ms"], out_row["fwd_bound_by"] = bound(
-        4 * s * 2 * d * 2, 4 * 2 * d * s * (s + 1) / 2, BF16_FLOPS)
-    del q, k, v, do, out, lse, qt, kt, vt
+    del q, k, v, do, out, lse
     torch.cuda.empty_cache()
 
     h = 16
     long_row = {"shape": [1, s, h, d], "causal": True}
     q, k, v, do, out, lse = flash_case(torch, fac, 1, s, h, d, True, gen)
+    hold_tc_long(torch, fac, tF, q, k, v, scale, long_row, plain=False)
     merged = fac.flash_attention_bwd(q, k, v, out, lse, do, True, scale,
                                      route="merged")
     split = fac.flash_attention_bwd(q, k, v, out, lse, do, True, scale,
                                     route="split")
     for name, a, r in zip(("dq", "dk", "dv"), split, merged):
-        e, rms, ok = within(a, r, FLASH_BWD_ULP_REL, FLASH_BWD_RMS_FRAC)
+        e, rms, ok = within(a, r, FLASH_ULP_REL, FLASH_RMS_FRAC)
         long_row["split_vs_merged_%s_err" % name] = e
         if not ok:
             raise AssertionError("split vs merged at (1, 16384, 16, 64) "
@@ -574,20 +710,8 @@ def check_flash_long(torch, fac):
         raise AssertionError("split backward at (1, 16384, 16, 64): two "
                              "runs differ")
     del split, again
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    for name, fn in (("flash_fwd",
-                      lambda: fac.flash_attention_bshd(q, k, v, True)),
-                     ("library", lambda: tF.scaled_dot_product_attention(
-                         qt, kt, vt, is_causal=True))):
-        long_row["fwd_%s_ms" % name] = time_ms(fn, torch, reps=3, inner=2)
-        times = device_times(fn, torch, n=2)
-        long_row["fwd_%s_device_ms" % name] = (
-            kernel_ms(times, "flash_fwd_kernel") if name == "flash_fwd"
-            else call_ms(times, 2))
     long_row.update(time_bwd(torch, fac, tF, q, k, v, do, out, lse, True,
                              reps=3, inner=2, plain=False))
-    long_row["fwd_bound_ms"], long_row["fwd_bound_by"] = bound(
-        4 * s * h * d * 2, 4 * h * d * s * (s + 1) / 2, BF16_FLOPS)
     for kern, products, tensors in (("flash_bwd", 5, 7),
                                     ("flash_bwd_dq", 3, 5),
                                     ("flash_bwd_dkv", 4, 6)):
@@ -596,7 +720,7 @@ def check_flash_long(torch, fac):
     # the split pair's bound counts the five products the backward needs;
     # C2 and C3 recompute QK^T and dP, so the pair does seven
     long_row["split_pair_bound_ms"], _ = bwd_bound(1, s, h, d, True, 5, 7)
-    del q, k, v, do, out, lse, qt, kt, vt
+    del q, k, v, do, out, lse
     torch.cuda.empty_cache()
     return out_row, long_row
 
@@ -619,7 +743,9 @@ def check_pipelined(torch, fac, at, lib):
     """Kernel A' against its plain version at each (block_q, block_k)
     instantiation on every PIPELINED_CASES shape, with the lse: the
     event and device ms of A', of its plain version and of SDPA (a
-    yardstick), kernel A's device ms at the same shape, and the bound.
+    yardstick), the device ms of the dtype's candidate [0] at the same
+    shape (the tensor-core forward in bf16, kernel A in f32), and the
+    bound.
     An instantiation whose shared memory exceeds a block's is refused by
     the gate (its size held against the C side's) and never launched."""
     import torch.nn.functional as tF
@@ -639,10 +765,14 @@ def check_pipelined(torch, fac, at, lib):
         bound_ms, bound_by = bound(
             4 * b * s * h * d * q.element_size(), 4 * b * h * d * pairs,
             BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        default = fac._fwd_specs(s, s, d, dtype, causal)[0]
         shape_row = {
-            "kernel_a_device_ms": kernel_ms(device_times(
-                lambda: fac._launch(q, k, v, causal, scale, False), torch,
-                n=inner), "flash_fwd_kernel")}
+            "default_fwd_blocks": list(default[1:]),
+            "default_fwd_device_ms": kernel_ms(device_times(
+                lambda: fac._run_fwd(q, k, v, causal, scale, False, default),
+                torch, n=inner),
+                "flash_fwd_tc_kernel" if dtype in fac._TC_DTYPES
+                else "flash_fwd_kernel")}
         time_kernel(torch, shape_row, "library",
                     lambda: tF.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal), None, reps, inner)
@@ -686,26 +816,27 @@ def check_pipelined(torch, fac, at, lib):
     return rows, worst, refused
 
 
-def check_layer_norm_bwd(torch, norm_cuda):
+def check_layer_norm_bwd(torch, norm_cuda, dtype=None, sizes=(8192, 128)):
     """Kernel D against the plain backward at (8192, 1024), the training
-    shape, and (128, 1024): bf16 x / dO, f32 gamma."""
+    shape, and (128, 1024): bf16 x / dO (or ``dtype``), f32 gamma."""
     import torch.nn.functional as tF
+    dtype = dtype or torch.bfloat16
+    name16 = dtype_name(dtype)
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows, worst = [], 0.0
-    for r in (8192, 128):
+    for r in sizes:
         f = 1024
         x, do = (torch.randn((r, f), generator=gen, device="cuda")
-                 .to(torch.bfloat16) for _ in range(2))
+                 .to(dtype) for _ in range(2))
         g = 1 + 0.1 * torch.randn((f,), generator=gen, device="cuda")
         bta = 0.1 * torch.randn((f,), generator=gen, device="cuda")
         _o, mean, rstd = norm_cuda.layer_norm_fwd(x, g, bta)
         got = norm_cuda.layer_norm_bwd(x, g, mean, rstd, do)
         ref = norm_cuda._layer_norm_bwd_reference(x, g, mean, rstd, do)
         torch.cuda.synchronize()
-        row = {"shape": [r, f]}
+        row = {"shape": [r, f], "dtype": name16}
         for name, a, w, tol in (
-                ("dx", got[0], ref[0], (FLASH_BWD_ULP_REL,
-                                        FLASH_BWD_RMS_FRAC)),
+                ("dx", got[0], ref[0], (ULP_REL[name16], RMS_FRAC[name16])),
                 ("dgamma", got[1], ref[1], (LN_BWD_F32_REL,
                                             LN_BWD_F32_RMS_FRAC)),
                 ("dbeta", got[2], ref[2], (LN_BWD_F32_REL,
@@ -713,12 +844,13 @@ def check_layer_norm_bwd(torch, norm_cuda):
             err, rms, ok = within(a, w, *tol)
             row[name + "_err"] = err
             if not ok:
-                raise AssertionError("layer_norm_bwd (%d, %d) %s: err %g "
-                                     "(rms %g)" % (r, f, name, err, rms))
+                raise AssertionError("layer_norm_bwd (%d, %d) %s %s: err %g "
+                                     "(rms %g)" % (r, f, name16, name, err,
+                                                   rms))
             worst = max(worst, err)
-        # the library yardstick takes bf16 gamma / beta with bf16 x
+        # the library yardstick takes gamma / beta in x's dtype
         xr = x.detach().requires_grad_()
-        g16, b16 = (t.to(torch.bfloat16).requires_grad_() for t in (g, bta))
+        g16, b16 = (t.to(dtype).requires_grad_() for t in (g, bta))
         lib_out = tF.layer_norm(xr, (f,), g16, b16, 1e-5)
         runs = {
             "kernel": lambda: norm_cuda.layer_norm_bwd(x, g, mean, rstd, do),
@@ -1021,10 +1153,11 @@ def train(torch, base, amp, counters, flags, steps=10, warmup=3):
     line["profile"] = profile_steps(torch, step, ids)
     emit(line)
     layers = base.config.num_hidden_layers
-    expect_launches(launches, {"flash_fwd": layers * steps,
-                               "flash_fwd_pipelined": 0,
-                               "flash_bwd": layers * steps,
-                               "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    expect_launches(launches, {"flash_fwd_tc": layers * steps,
+                               "flash_fwd": 0, "flash_fwd_pipelined": 0,
+                               "flash_bwd": 0,
+                               "flash_bwd_dq": layers * steps,
+                               "flash_bwd_dkv": layers * steps,
                                "layer_norm_fwd": 0, "layer_norm_bwd": 0,
                                "ce_lse": 0, "ce_fwd": 0, "ce_bwd": 0},
                     "train")
@@ -1058,7 +1191,8 @@ def run_steps(torch, step, ids, counters, steps):
 
 def train_norm(torch, base, amp, counters, flags, first_loss, steps=3):
     """The train step for ``steps`` steps with ``use_pallas_norm`` on, from
-    the same weights: kernels B and D, 49 launches each per step."""
+    the same weights: kernels B and D, 49 launches each per step; the
+    attention kernels as in train."""
     flags.set_flags({"use_pallas_norm": True})
     try:
         step = make_step(train_model(torch, base, amp))
@@ -1074,10 +1208,14 @@ def train_norm(torch, base, amp, counters, flags, first_loss, steps=3):
             "tolerance": NORM_ROUTE_LOSS_TOL, "launches": launches}
     emit(line)
     n_ln = 2 * base.config.num_hidden_layers + 1
+    layers = base.config.num_hidden_layers
     expect_launches(launches, {"layer_norm_fwd": n_ln * steps,
                                "layer_norm_bwd": n_ln * steps,
-                               "flash_bwd": base.config.num_hidden_layers
-                               * steps}, "train_norm")
+                               "flash_fwd_tc": layers * steps,
+                               "flash_bwd": 0,
+                               "flash_bwd_dq": layers * steps,
+                               "flash_bwd_dkv": layers * steps},
+                    "train_norm")
     if not all(math.isfinite(x) for x in losses) or \
             abs(losses[0] - first_loss) > NORM_ROUTE_LOSS_TOL:
         raise AssertionError("train_norm: losses %r against the default "
@@ -1117,7 +1255,8 @@ def train_ce(torch, base, amp, counters, flags, first_loss, steps=3):
         lines.append(line)
         ce = flag == "use_pallas_ce"
         expect_launches(launches, {
-            "flash_fwd": layers * steps, "flash_bwd": layers * steps,
+            "flash_fwd_tc": layers * steps, "flash_fwd": 0, "flash_bwd": 0,
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
             "layer_norm_fwd": 0, "layer_norm_bwd": 0,
             "ce_fwd": steps if ce else 0, "ce_bwd": steps if ce else 0,
             "ce_lse": 0 if ce else steps}, "train_ce " + flag)
@@ -1155,8 +1294,11 @@ def train_flat(torch, base, amp, counters, default_losses, steps=3):
     del step
     torch.cuda.empty_cache()
     layers = base.config.num_hidden_layers
-    expect_launches(launches, {"flash_fwd": layers * steps,
-                               "flash_bwd": layers * steps}, "train_flat")
+    expect_launches(launches, {"flash_fwd_tc": layers * steps,
+                               "flash_fwd": 0, "flash_bwd": 0,
+                               "flash_bwd_dq": layers * steps,
+                               "flash_bwd_dkv": layers * steps},
+                    "train_flat")
     if line["max_loss_diff"] > FLAT_LOSS_TOL or \
             not all(math.isfinite(x) for x in losses):
         raise AssertionError("train_flat: losses %r against the default "
@@ -1207,13 +1349,14 @@ def autotune_warm(torch, at, fac):
 
 def train_pipelined(torch, base, amp, counters, flags, first_loss, steps=3):
     """The train step for ``steps`` steps under
-    ``FLAGS_autotune_pin="flash_fwd=pipelined"``, from the same weights
-    and batch: A' (64 x 64 tiles) on every layer, kernel A never; the
-    first loss held against the default route's."""
+    ``FLAGS_autotune_pin=PIN_A_PRIME``, from the same weights
+    and batch: A' (64 x 64 tiles) on every layer, the tensor-core forward
+    and kernel A never, C2 and C3 in the backward; the first loss held
+    against the default route's."""
     layers = base.config.num_hidden_layers
     ids = torch.as_tensor(np.random.default_rng(0).integers(
         0, base.config.vocab_size, (8, 1024)), device="cuda")
-    flags.set_flags({"autotune_pin": "flash_fwd=pipelined"})
+    flags.set_flags({"autotune_pin": PIN_A_PRIME})
     try:
         step = make_step(train_model(torch, base, amp))
         losses, launches, ms = run_steps(torch, step, ids, counters, steps)
@@ -1223,7 +1366,7 @@ def train_pipelined(torch, base, amp, counters, flags, first_loss, steps=3):
         flags.set_flags({"autotune_pin": ""})
     del step
     torch.cuda.empty_cache()
-    line = {"phase": "train_pipelined", "pin": "flash_fwd=pipelined",
+    line = {"phase": "train_pipelined", "pin": PIN_A_PRIME,
             "steps": steps, "step_ms": ms,
             "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
             "first_loss_default_route": first_loss,
@@ -1232,7 +1375,10 @@ def train_pipelined(torch, base, amp, counters, flags, first_loss, steps=3):
             "breakdown": breakdown, "profile": profile}
     emit(line)
     expect_launches(launches, {"flash_fwd_pipelined": layers * steps,
-                               "flash_fwd": 0, "flash_bwd": layers * steps},
+                               "flash_fwd_tc": 0, "flash_fwd": 0,
+                               "flash_bwd": 0,
+                               "flash_bwd_dq": layers * steps,
+                               "flash_bwd_dkv": layers * steps},
                     "train_pipelined")
     if not all(math.isfinite(x) for x in losses) or \
             abs(losses[0] - first_loss) > CE_ROUTE_LOSS_TOL:
@@ -1266,7 +1412,8 @@ def train_autotune(torch, base, amp, counters, flags, at, fac, first_loss,
     ks = at.key_str(fac.autotune_key(8, 1024, 1024, 16, 64, torch.bfloat16,
                                      True, "cuda"))
     cache = at._load_cache()["families"]
-    ran = {fam: report[fam][ks] for fam in ("flash_fwd", "flash_bwd")}
+    ran = {fam: report[fam][ks] for fam in ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv")}
     line = {"phase": "train_autotune", "steps": steps, "step_ms": ms,
             "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
             "first_loss_default_route": first_loss,
@@ -1274,11 +1421,15 @@ def train_autotune(torch, base, amp, counters, flags, at, fac, first_loss,
             "tolerance": CE_ROUTE_LOSS_TOL, "launches": launches,
             "report": report}
     emit(line)
+    # the forward's winner: A' or the tensor-core forward (at one of its
+    # tiles); the backward: C2 and C3 at their winners' tiles
     pipelined = ran["flash_fwd"]["variant"] == "pipelined"
     expect_launches(launches, {
         "flash_fwd_pipelined": layers * steps if pipelined else 0,
-        "flash_fwd": 0 if pipelined else layers * steps,
-        "flash_bwd": layers * steps}, "train_autotune")
+        "flash_fwd_tc": 0 if pipelined else layers * steps,
+        "flash_fwd": 0, "flash_bwd": 0,
+        "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps},
+        "train_autotune")
     for fam, cand in ran.items():
         entry = cache[fam][ks]
         if cand != {"variant": entry["variant"], "config": entry["config"]}:
@@ -1296,7 +1447,8 @@ def train_autotune(torch, base, amp, counters, flags, at, fac, first_loss,
 def train_long(torch, cfg, amp, counters, flags, steps=3):
     """The long-context shape of the JAX package's long-sequence run:
     GPT-2 345M at full width, max_position_embeddings 16384, B=1,
-    S=16384: kernel A, C2 and C3 on every layer, C1 never.  ``steps``
+    S=16384: the tensor-core forward, C2 and C3 on every layer, kernel A
+    and C1 never.  ``steps``
     steps (ms over all but the first), then one more step timed part by
     part on the stream."""
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
@@ -1317,13 +1469,83 @@ def train_long(torch, cfg, amp, counters, flags, steps=3):
             "breakdown": step_breakdown(torch, step, ids)}
     emit(line)
     layers = cfg.num_hidden_layers
-    expect_launches(launches, {"flash_fwd": layers * steps,
+    expect_launches(launches, {"flash_fwd_tc": layers * steps,
+                               "flash_fwd": 0,
                                "flash_bwd_dq": layers * steps,
                                "flash_bwd_dkv": layers * steps,
                                "flash_bwd": 0}, "train_long")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("train_long: non-finite loss %r" % (losses,))
     return line
+
+
+def train_fp16(torch, base, amp, counters, flags, first_loss, steps=3):
+    """The fp16 route: GPT-2 345M from the same weights under
+    ``amp.decorate(level="O2", dtype="float16")``, ``steps`` eager AdamW
+    steps under a ``GradScaler`` on the train batch, once per LayerNorm
+    route: the tensor-core forward, C2 and C3 on every layer (kernel A
+    and C1 never), B and D under ``use_pallas_norm``; the first loss
+    finite and within FIRST_LOSS_TOL of the bf16 step's, no step
+    skipped (every gradient finite), ms over steps 2..N."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    layers = base.config.num_hidden_layers
+    n_ln = 2 * layers + 1
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.config.vocab_size, (8, 1024)), device="cuda")
+    crit = GPTPretrainingCriterion()
+    lines = []
+    for use_norm in (False, True):
+        flags.set_flags({"use_pallas_norm": use_norm})
+        try:
+            model = amp.decorate(copy.deepcopy(base), level="O2",
+                                 dtype="float16").to("cuda")
+            opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                        parameters=model.parameters())
+            scaler = GradScaler(init_loss_scaling=2.0 ** 12)
+            losses, skipped = [], []
+            torch.cuda.synchronize()
+            counters.reset()
+            for i in range(steps):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                loss = crit(model(ids), ids)
+                scaler.scale(loss).backward()
+                scaler.step(opt)
+                opt.clear_grad()
+                losses.append(float(loss.detach()))
+                skipped.append(scaler.last_step_skipped)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / (steps - 1)
+            launches = counters.read()
+        finally:
+            flags.set_flags({"use_pallas_norm": False})
+        del model, opt
+        torch.cuda.empty_cache()
+        line = {"phase": "train_fp16", "use_pallas_norm": use_norm,
+                "shape": [8, 1024], "steps": steps, "step_ms": ms,
+                "losses": losses, "skipped": skipped,
+                "loss_scale": scaler.get_loss_scaling(),
+                "first_loss_bf16": first_loss,
+                "first_loss_diff": abs(losses[0] - first_loss),
+                "tolerance": FIRST_LOSS_TOL, "launches": launches}
+        emit(line)
+        lines.append(line)
+        expect_launches(launches, {
+            "flash_fwd_tc": layers * steps, "flash_fwd": 0,
+            "flash_fwd_pipelined": 0, "flash_bwd": 0,
+            "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps,
+            "layer_norm_fwd": n_ln * steps if use_norm else 0,
+            "layer_norm_bwd": n_ln * steps if use_norm else 0},
+            "train_fp16 use_pallas_norm=%s" % use_norm)
+        if not all(math.isfinite(x) for x in losses) or any(skipped) or \
+                abs(losses[0] - first_loss) > FIRST_LOSS_TOL:
+            raise AssertionError("train_fp16 (use_pallas_norm=%s): losses "
+                                 "%r, skipped %r, bf16 first loss %g"
+                                 % (use_norm, losses, skipped, first_loss))
+    return lines
 
 
 def step_grads(torch, step, ids):
@@ -1347,11 +1569,26 @@ PARITY_ROUTES = ({}, {"use_pallas_norm": True}, {"use_pallas_ce": True},
                  {"use_pallas_lse": True})
 
 
+def parity_line(route, loss, grads, cpu_loss, cpu_grads, launches, s,
+                loss_tol, grad_tol):
+    rel = {k: float((grads[k] - g).norm() / g.norm())
+           for k, g in cpu_grads.items()}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    return {"phase": "train_parity", "flags": route,
+            "shape": [1, s], "card_loss": loss, "cpu_loss": cpu_loss,
+            "loss_diff": abs(loss - cpu_loss), "loss_tolerance": loss_tol,
+            "grad_rel_l2_max": worst[0][1],
+            "grad_rel_l2_median": statistics.median(rel.values()),
+            "grad_rel_l2_worst": worst, "grad_rel_tolerance": grad_tol,
+            "params": len(rel), "launches": launches}
+
+
 def train_parity(torch, base, amp, flags, counters, s=256):
     """One train step at (1, 256) from the same weights on the card (bf16,
-    kernels, each LayerNorm and cross-entropy route) and on the CPU (f32,
-    plain versions): the loss, and every parameter's gradient by its
-    relative L2 error."""
+    kernels, each LayerNorm and cross-entropy route; then f32, where the
+    forward is kernel A and the backward C1) and on the CPU (f32, plain
+    versions): the loss, and every parameter's gradient by its relative
+    L2 error."""
     ids = np.random.default_rng(2).integers(0, base.config.vocab_size,
                                             (1, s))
     cpu_loss, cpu_grads = step_grads(
@@ -1368,31 +1605,43 @@ def train_parity(torch, base, amp, flags, counters, s=256):
             launches = counters.read()
         finally:
             flags.set_flags({k: False for k in route})
-        rel = {k: float((grads[k] - g).norm() / g.norm())
-               for k, g in cpu_grads.items()}
-        worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-        line = {"phase": "train_parity", "flags": route,
-                "shape": [1, s], "card_loss": loss, "cpu_loss": cpu_loss,
-                "loss_diff": abs(loss - cpu_loss),
-                "loss_tolerance": PARITY_LOSS_TOL,
-                "grad_rel_l2_max": worst[0][1],
-                "grad_rel_l2_median": statistics.median(rel.values()),
-                "grad_rel_l2_worst": worst,
-                "grad_rel_tolerance": PARITY_GRAD_REL_TOL,
-                "params": len(rel), "launches": launches}
+        line = parity_line(route, loss, grads, cpu_loss, cpu_grads, launches,
+                           s, PARITY_LOSS_TOL, PARITY_GRAD_REL_TOL)
         emit(line)
         lines.append(line)
         on = {"layer_norm_bwd": "use_pallas_norm", "ce_fwd": "use_pallas_ce",
               "ce_bwd": "use_pallas_ce", "ce_lse": "use_pallas_lse"}
-        if launches["flash_bwd"] == 0 or any(
-                bool(launches[k]) != (flag in route) for k, flag in
-                on.items()):
+        if launches["flash_fwd_tc"] == 0 or launches["flash_bwd_dq"] == 0 \
+                or launches["flash_bwd"] or any(
+                    bool(launches[k]) != (flag in route) for k, flag in
+                    on.items()):
             raise AssertionError("train_parity %r: kernels not on the path: "
                                  "%r" % (route, launches))
         if abs(loss - cpu_loss) > PARITY_LOSS_TOL or \
-                worst[0][1] > PARITY_GRAD_REL_TOL:
+                line["grad_rel_l2_max"] > PARITY_GRAD_REL_TOL:
             raise AssertionError("train_parity %r: loss %g vs %g, worst "
-                                 "grads %r" % (route, loss, cpu_loss, worst))
+                                 "grads %r" % (route, loss, cpu_loss,
+                                               line["grad_rel_l2_worst"]))
+    # f32 on the card: kernel A forward, C1 backward (the JAX rule at
+    # S = 256), held to f32 summation-order limits
+    counters.reset()
+    loss, grads = step_grads(torch, make_step(copy.deepcopy(base).cuda()),
+                             torch.as_tensor(ids, device="cuda"))
+    launches = counters.read()
+    line = parity_line({"dtype": "float32"}, loss, grads, cpu_loss,
+                       cpu_grads, launches, s, PARITY_F32_LOSS_TOL,
+                       PARITY_F32_GRAD_REL_TOL)
+    emit(line)
+    lines.append(line)
+    layers = base.config.num_hidden_layers
+    expect_launches(launches, {"flash_fwd": layers, "flash_bwd": layers,
+                               "flash_fwd_tc": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}, "train_parity f32")
+    if line["loss_diff"] > PARITY_F32_LOSS_TOL or \
+            line["grad_rel_l2_max"] > PARITY_F32_GRAD_REL_TOL:
+        raise AssertionError("train_parity f32: loss %g vs %g, worst grads "
+                             "%r" % (loss, cpu_loss,
+                                     line["grad_rel_l2_worst"]))
     return lines
 
 
@@ -1405,13 +1654,15 @@ def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags):
     for p in prompts:
         sched.submit(Request(prompt=p, max_new_tokens=32, temperature=0.0))
     torch.cuda.synchronize()
+    fac.flash_fwd_tc_launches = 0
     fac.flash_fwd_launches = 0
     norm_cuda.layer_norm_fwd_launches = 0
     t0 = time.perf_counter()
     results = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fac.flash_fwd_launches,
+    launches = {"flash_fwd_tc": fac.flash_fwd_tc_launches,
+                "flash_fwd": fac.flash_fwd_launches,
                 "layer_norm_fwd": norm_cuda.layer_norm_fwd_launches}
     flags.set_flags({"use_pallas_norm": False})
     toks = sum(len(r.tokens) for r in results.values())
@@ -1423,9 +1674,12 @@ def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags):
              for k, r in results.items()},))
     layers = engine.model.config.num_hidden_layers
     admissions = len(prompts)
-    if launches["flash_fwd"] != layers * admissions:
-        raise AssertionError("flash_fwd launched %d times, want %d x %d"
-                             % (launches["flash_fwd"], layers, admissions))
+    if launches["flash_fwd_tc"] != layers * admissions or \
+            launches["flash_fwd"]:
+        raise AssertionError("flash_fwd_tc launched %d times, want %d x %d "
+                             "(kernel A %d, want 0)"
+                             % (launches["flash_fwd_tc"], layers, admissions,
+                                launches["flash_fwd"]))
     forwards = admissions + sched.decode_steps_total
     want_ln = (2 * layers + 1) * forwards if use_norm_kernel else 0
     if launches["layer_norm_fwd"] != want_ln:
@@ -1598,14 +1852,19 @@ def main():
 
     seconds = {}
     t0 = time.perf_counter()
-    flash_rows, flash_err = check_flash(torch, fac)
+    flash_rows = check_flash(torch, fac)
     ln_rows, ln_err = check_layer_norm(torch, norm_cuda)
+    ln16_rows, ln16_err = check_layer_norm(torch, norm_cuda, torch.float16,
+                                           sizes=(8192,))
     emit({"phase": "checks", "flash_fwd": flash_rows,
-          "layer_norm_fwd": ln_rows})
+          "layer_norm_fwd": ln_rows, "layer_norm_fwd_fp16": ln16_rows})
     bwd_rows, bwd_err = check_flash_bwd(torch, fac)
     ln_bwd_rows, ln_bwd_err = check_layer_norm_bwd(torch, norm_cuda)
+    ln16_bwd_rows, ln16_bwd_err = check_layer_norm_bwd(
+        torch, norm_cuda, torch.float16, sizes=(8192,))
     emit({"phase": "checks_bwd", "flash_bwd": bwd_rows,
-          "layer_norm_bwd": ln_bwd_rows})
+          "layer_norm_bwd": ln_bwd_rows,
+          "layer_norm_bwd_fp16": ln16_bwd_rows})
     long_plain_row, long_row = check_flash_long(torch, fac)
     emit({"phase": "checks_long", "against_plain": long_plain_row,
           "split_vs_merged": long_row})
@@ -1652,10 +1911,10 @@ def main():
     # -- parity: card (kernels, bf16) vs CPU (plain, f32) -----------------
     flags.set_flags({"use_pallas_norm": True})
     engine.reset()
-    before = (fac.flash_fwd_launches, norm_cuda.layer_norm_fwd_launches)
+    before = (fac.flash_fwd_tc_launches, norm_cuda.layer_norm_fwd_launches)
     _tok, card_logits = engine.prefill(0, prompts[0], temperature=0.0)
     card_logits = card_logits.float().cpu()
-    if (fac.flash_fwd_launches == before[0]
+    if (fac.flash_fwd_tc_launches == before[0]
             or norm_cuda.layer_norm_fwd_launches == before[1]):
         raise AssertionError("parity prefill did not run both kernels")
     flags.set_flags({"use_pallas_norm": False})
@@ -1675,7 +1934,7 @@ def main():
                              "token %s, margin %g" % (err, same, margin))
     # the same prefill with A' pinned on every layer, counts from 0
     counters = Counters(fac, norm_cuda, ce_cuda)
-    flags.set_flags({"autotune_pin": "flash_fwd=pipelined"})
+    flags.set_flags({"autotune_pin": PIN_A_PRIME})
     engine.reset()
     torch.cuda.synchronize()
     counters.reset()
@@ -1685,13 +1944,14 @@ def main():
         flags.set_flags({"autotune_pin": ""})
     pinned_logits = pinned_logits.float().cpu()
     parity_pinned = {k: counters.read()[k]
-                     for k in ("flash_fwd", "flash_fwd_pipelined")}
+                     for k in ("flash_fwd_tc", "flash_fwd",
+                               "flash_fwd_pipelined")}
     err = float((pinned_logits - cpu_logits).abs().max())
     same = int(pinned_logits.argmax()) == int(cpu_logits.argmax())
-    emit({"phase": "parity_pinned", "pin": "flash_fwd=pipelined",
+    emit({"phase": "parity_pinned", "pin": PIN_A_PRIME,
           "max_abs_err": err, "tolerance": LOGIT_TOL,
           "same_greedy_token": same, "launches": parity_pinned})
-    if parity_pinned != {"flash_fwd": 0,
+    if parity_pinned != {"flash_fwd_tc": 0, "flash_fwd": 0,
                          "flash_fwd_pipelined": cfg.num_hidden_layers}:
         raise AssertionError("pinned prefill launches %r" % parity_pinned)
     if not bool(torch.isfinite(pinned_logits).all()) or err > LOGIT_TOL \
@@ -1731,6 +1991,10 @@ def main():
     torch.cuda.empty_cache()
     seconds["train_parity"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    run_fp16 = train_fp16(torch, base, amp, counters, flags,
+                          run_train["losses"][0])
+    seconds["train_fp16"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     autotune_lines = autotune_warm(torch, autotune, fac)
     seconds["autotune"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1749,23 +2013,41 @@ def main():
     seconds["train_long"] = time.perf_counter() - t0
     emit({"phase": "seconds", **seconds})
 
-    prefill_row = flash_rows[0]            # (1, 128, 16, 64) causal
+    tc_prefill = fwd_row(flash_rows, "flash_fwd_tc", [1, 128, 16, 64])
+    tc_train = fwd_row(flash_rows, "flash_fwd_tc", [8, 1024, 16, 64])
+    a_prefill = fwd_row(flash_rows, "flash_fwd", [1, 128, 16, 64],
+                        "float32")
+    a_train = fwd_row(flash_rows, "flash_fwd", [8, 1024, 16, 64],
+                      "float32")
     # A' on the main path: train_pipelined's (8, 1024) step, 64 x 64 tiles
     pipe_train = [r for r in pipe_rows if r["shape"] == [8, 1024, 16, 64]
                   and r["blocks"] == [64, 64]][0]
-    train_fwd_row = flash_rows[-1]         # (8, 1024, 16, 64) causal
     decode_row = ln_rows[0]                # (8, 1024)
     train_ln_row = ln_rows[-1]             # (8192, 1024)
     train_bwd_row = [r for r in bwd_rows
-                     if r["shape"] == [8, 1024, 16, 64]][0]
-    d128_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 8, 128]][0]
-    d256_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 4, 256]][0]
+                     if r["shape"] == [8, 1024, 16, 64]
+                     and r["dtype"] == "bfloat16"][0]
+    d128_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 8, 128]
+                and r["dtype"] == "bfloat16"][0]
+    d256_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 4, 256]
+                and r["dtype"] == "bfloat16"][0]
     ln_bwd_row = ln_bwd_rows[0]            # (8192, 1024)
-    fwd_launches = {"serve": run_default["launches"]["flash_fwd"],
-                  "train": run_train["launches"]["flash_fwd"],
-                  "train_long": run_long["launches"]["flash_fwd"]}
+    parity_by = {next(iter(line["flags"]), "default"): line["launches"]
+                 for line in parity}
+    tc_launches = {"serve": run_default["launches"]["flash_fwd_tc"],
+                   "train": run_train["launches"]["flash_fwd_tc"],
+                   "train_long": run_long["launches"]["flash_fwd_tc"],
+                   "train_fp16": run_fp16[0]["launches"]["flash_fwd_tc"]}
+    # kernel A and C1 run on the f32 path: train_parity's f32 card step
+    f32_path = parity_by["dtype"]
 
-    def bwd_entry(kern, src_row, plain_row, launches, err):
+    def fwd_cols(row):
+        return {k: row[k] for k in (
+            "shape", "dtype", "blocks", "kernel_ms", "kernel_device_ms",
+            "tiles_device_ms", "library_ms", "library_device_ms", "bound_ms",
+            "bound_by") if k in row}
+
+    def bwd_entry(kern, src_row, plain_row, launches, by_path, err):
         entry = {
             "name": kern, "route": "cuda",
             "source": ("paddle_tpu_torch/csrc/flash_bwd.cu"
@@ -1774,14 +2056,19 @@ def main():
             "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:%d"
                         % {"flash_bwd": 736, "flash_bwd_dq": 790,
                            "flash_bwd_dkv": 828}[kern],
-            "launches": launches, "max_abs_err": err,
+            "launches": launches, "launches_by_path": by_path,
+            "max_abs_err": err,
             "shape": src_row["shape"], "ms": src_row[kern + "_ms"],
             "device_ms": src_row[kern + "_device_ms"],
             "plain_ms": plain_row["plain_ms"],
             "plain_device_ms": plain_row["plain_device_ms"],
             "plain_shape": plain_row["shape"],
-            # the kernel at the plain version's shape, to compare with it
+            # the kernel and SDPA's backward at the plain version's shape,
+            # to compare with it
             "ms_at_plain_shape": plain_row[kern + "_ms"],
+            "device_ms_at_plain_shape": plain_row[kern + "_device_ms"],
+            "library_device_ms_at_plain_shape":
+                plain_row["library_device_ms"],
             "bound_ms": src_row[kern + "_bound_ms"],
             "bound_by": src_row[kern + "_bound_by"],
             "library_ms": src_row["library_ms"],
@@ -1813,39 +2100,68 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"]}
-    parity_by = {next(iter(line["flags"]), "default"): line["launches"]
-                 for line in parity}
     soft = ce_rows["softmax_fwd"]
     split_err = max(long_plain_row["split_dq_err"],
                     long_plain_row["split_dk_err"],
                     long_plain_row["split_dv_err"])
+    tc_err = max([r["max_abs_err"] for r in flash_rows
+                  if r["kernel"] == "flash_fwd_tc"]
+                 + [row[k] for row in (long_plain_row, long_row)
+                    for k in ("flash_fwd_tc_err", "flash_fwd_tc_f16_err")])
+    split_launches = {
+        "train": run_train["launches"]["flash_bwd_dq"],
+        "train_long": run_long["launches"]["flash_bwd_dq"],
+        "train_fp16": run_fp16[0]["launches"]["flash_bwd_dq"]}
     emit({"kernels": [
+        {"name": "flash_fwd_tc", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/flash_fwd_tc.cu",
+         "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:382, "
+                     ":450 and :519 (bf16 and fp16)",
+         "launches": run_train["launches"]["flash_fwd_tc"],
+         "launches_by_path": tc_launches,
+         "max_abs_err": tc_err, "shape": tc_prefill["shape"],
+         "blocks": tc_prefill["blocks"], "ms": tc_prefill["kernel_ms"],
+         "device_ms": tc_prefill["kernel_device_ms"],
+         "plain_ms": tc_prefill["plain_ms"],
+         "plain_device_ms": tc_prefill["plain_device_ms"],
+         "bound_ms": tc_prefill["bound_ms"],
+         "bound_by": tc_prefill["bound_by"],
+         "library_ms": tc_prefill["library_ms"],
+         "library_device_ms": tc_prefill["library_device_ms"],
+         "at_train": dict(fwd_cols(tc_train),
+                          plain_ms=tc_train["plain_ms"],
+                          plain_device_ms=tc_train["plain_device_ms"]),
+         "at_s16384": {k: long_row[k] for k in (
+             "shape", "flash_fwd_tc_blocks", "fwd_flash_fwd_tc_ms",
+             "fwd_flash_fwd_tc_device_ms", "fwd_flash_fwd_tc_f16_device_ms",
+             "fwd_tiles_device_ms", "fwd_library_ms",
+             "fwd_library_device_ms", "fwd_bound_ms", "fwd_bound_by")},
+         "at_s16384_h2": {k: long_plain_row[k] for k in (
+             "shape", "fwd_flash_fwd_tc_ms", "fwd_flash_fwd_tc_device_ms",
+             "fwd_flash_fwd_tc_f16_device_ms", "fwd_plain_ms",
+             "fwd_plain_device_ms", "fwd_library_ms",
+             "fwd_library_device_ms", "fwd_bound_ms")},
+         "other_rows": [fwd_cols(r) for r in flash_rows
+                        if r["kernel"] == "flash_fwd_tc"
+                        and r not in (tc_prefill, tc_train)]},
         {"name": "flash_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:382 "
-                     "and :450",
-         "launches": run_train["launches"]["flash_fwd"],
-         "launches_by_path": fwd_launches,
-         "max_abs_err": max(flash_err, long_plain_row["flash_fwd_err"]),
-         "ms": prefill_row["kernel_ms"],
-         "device_ms": prefill_row["kernel_device_ms"],
-         "plain_ms": prefill_row["plain_ms"],
-         "bound_ms": prefill_row["bound_ms"],
-         "bound_by": prefill_row["bound_by"],
-         "library_ms": prefill_row["library_ms"],
-         "at_train": {k: train_fwd_row[k] for k in (
-             "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
-             "bound_ms", "library_ms")},
-         "at_s16384": {
-             "shape": long_row["shape"],
-             "ms": long_row["fwd_flash_fwd_ms"],
-             "device_ms": long_row["fwd_flash_fwd_device_ms"],
-             "bound_ms": long_row["fwd_bound_ms"],
-             "library_ms": long_row["fwd_library_ms"],
-             "h2_ms": long_plain_row["fwd_flash_fwd_ms"],
-             "h2_plain_ms": long_plain_row["fwd_plain_ms"],
-             "h2_bound_ms": long_plain_row["fwd_bound_ms"],
-             "h2_library_ms": long_plain_row["fwd_library_ms"]}},
+                     "and :450 (f32)",
+         "launches": f32_path["flash_fwd"],
+         "launches_by_path": {"train_parity_f32": f32_path["flash_fwd"],
+                              "train": run_train["launches"]["flash_fwd"]},
+         "max_abs_err": max(a_prefill["max_abs_err"],
+                            a_train["max_abs_err"]),
+         "dtype": "float32", "shape": a_prefill["shape"],
+         "ms": a_prefill["kernel_ms"],
+         "device_ms": a_prefill["kernel_device_ms"],
+         "plain_ms": a_prefill["plain_ms"],
+         "bound_ms": a_prefill["bound_ms"],
+         "bound_by": a_prefill["bound_by"],
+         "library_ms": a_prefill["library_ms"],
+         "library_device_ms": a_prefill["library_device_ms"],
+         "at_train": dict(fwd_cols(a_train), plain_ms=a_train["plain_ms"])},
         {"name": "flash_fwd_pipelined", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd_pipelined.cu",
          "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:519",
@@ -1864,11 +2180,12 @@ def main():
          "bound_by": pipe_train["bound_by"],
          "library_ms": pipe_train["library_ms"],
          "library_device_ms": pipe_train["library_device_ms"],
-         "kernel_a_device_ms": pipe_train["kernel_a_device_ms"],
+         "default_fwd_device_ms": pipe_train["default_fwd_device_ms"],
          "autotune_winner_at_train": autotune_lines[0]["winner"],
          "by_shape": [{k: r[k] for k in (
-             "shape", "blocks", "kernel_ms", "kernel_device_ms", "plain_ms",
-             "bound_ms", "library_ms", "kernel_a_device_ms")}
+             "shape", "dtype", "blocks", "kernel_ms", "kernel_device_ms",
+             "plain_ms", "bound_ms", "library_ms", "default_fwd_blocks",
+             "default_fwd_device_ms")}
              for r in pipe_rows if r["shape"] in (
                  [1, 128, 16, 64], [8, 1024, 16, 64], [1, 16384, 2, 64])]},
         {"name": "layer_norm_fwd", "route": "cuda",
@@ -1877,8 +2194,10 @@ def main():
          "launches": run_train_norm["launches"]["layer_norm_fwd"],
          "launches_by_path": {
              "serve_use_pallas_norm": run_norm["launches"]["layer_norm_fwd"],
-             "train_norm": run_train_norm["launches"]["layer_norm_fwd"]},
-         "max_abs_err": ln_err, "ms": decode_row["kernel_ms"],
+             "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
+             "train_fp16_use_pallas_norm":
+                 run_fp16[1]["launches"]["layer_norm_fwd"]},
+         "max_abs_err": max(ln_err, ln16_err), "ms": decode_row["kernel_ms"],
          "device_ms": decode_row["kernel_device_ms"],
          "plain_ms": decode_row["plain_ms"],
          "bound_ms": decode_row["bound_ms"],
@@ -1886,26 +2205,42 @@ def main():
          "library_ms": decode_row["library_ms"],
          "at_train": {k: train_ln_row[k] for k in (
              "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
+             "bound_ms", "library_ms")},
+         "at_train_fp16": {k: ln16_rows[0][k] for k in (
+             "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
              "bound_ms", "library_ms")}},
         bwd_entry("flash_bwd", train_bwd_row, train_bwd_row,
-                  run_train["launches"]["flash_bwd"], bwd_err["flash_bwd"]),
+                  f32_path["flash_bwd"],
+                  {"train_parity_f32": f32_path["flash_bwd"],
+                   "train": run_train["launches"]["flash_bwd"]},
+                  bwd_err["flash_bwd"]),
         bwd_entry("flash_bwd_dq", long_row, long_plain_row,
-                  run_long["launches"]["flash_bwd_dq"],
+                  run_train["launches"]["flash_bwd_dq"], split_launches,
                   max(bwd_err["flash_bwd_dq"], split_err)),
         bwd_entry("flash_bwd_dkv", long_row, long_plain_row,
-                  run_long["launches"]["flash_bwd_dkv"],
+                  run_train["launches"]["flash_bwd_dkv"],
+                  dict(split_launches,
+                       train=run_train["launches"]["flash_bwd_dkv"]),
                   max(bwd_err["flash_bwd_dkv"], split_err)),
         {"name": "layer_norm_bwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
          "replaces": "paddle_tpu/kernels/norm_pallas.py:132",
          "launches": run_train_norm["launches"]["layer_norm_bwd"],
-         "max_abs_err": ln_bwd_err, "shape": ln_bwd_row["shape"],
+         "launches_by_path": {
+             "train_norm": run_train_norm["launches"]["layer_norm_bwd"],
+             "train_fp16_use_pallas_norm":
+                 run_fp16[1]["launches"]["layer_norm_bwd"]},
+         "max_abs_err": max(ln_bwd_err, ln16_bwd_err),
+         "shape": ln_bwd_row["shape"],
          "ms": ln_bwd_row["kernel_ms"],
          "device_ms": ln_bwd_row["kernel_device_ms"],
          "plain_ms": ln_bwd_row["plain_ms"],
          "bound_ms": ln_bwd_row["bound_ms"],
          "bound_by": ln_bwd_row["bound_by"],
-         "library_ms": ln_bwd_row["library_ms"]},
+         "library_ms": ln_bwd_row["library_ms"],
+         "at_train_fp16": {k: ln16_bwd_rows[0][k] for k in (
+             "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
+             "bound_ms", "library_ms")}},
         ce_entry("ce_lse", 188, run_lse["launches"]["ce_lse"],
                  {"train_ce_use_pallas_lse": run_lse["launches"]["ce_lse"],
                   "train_parity_use_pallas_lse":

@@ -5,8 +5,9 @@
 //   C1 paddle_flash_bwd      <- _bwd_kernel      (merged dQ/dK/dV)
 //   C2 paddle_flash_bwd_dq   <- _bwd_dq_kernel   (split backward, dQ)
 //   C3 paddle_flash_bwd_dkv  <- _bwd_dkv_kernel  (split backward, dK/dV)
-// This file holds the f32-FMA kernels: C1 in both dtypes, C2 and C3 in
-// float32.  bf16 C2 and C3 run on the tensor cores (flash_bwd_tc.cu).
+// This file holds the f32-FMA kernels: C1 in float32 and bfloat16, C2 and
+// C3 in float32.  bf16 and fp16 C2 and C3 run on the tensor cores
+// (flash_bwd_tc.cu); C1 takes no fp16.
 // Per (batch, head) they compute, from q, k, v, dO, the base-e row
 // logsumexp that the forward saved and delta = rowsum(dO * O) (minus the
 // lse cotangent, folded in by the caller):
@@ -55,15 +56,15 @@
 
 #include <type_traits>
 
-// flash_bwd_tc.cu: bf16 C2 (dkv false) / C3 (dkv true)
+// flash_bwd_tc.cu: bf16 / fp16 C2 (dkv false) / C3 (dkv true)
 int flash_bwd_tc_launch(bool dkv, const void* q, const void* k,
                         const void* v, const void* dout, const float* lse,
                         const float* delta, void* dq, void* dk, void* dv,
                         int B, int S, int H, int D, long long q_sb,
                         long long q_ss, long long k_sb, long long k_ss,
                         long long v_sb, long long v_ss, long long o_sb,
-                        long long o_ss, int causal, float scale, int block,
-                        void* stream);
+                        long long o_ss, int causal, float scale, int dtype,
+                        int block, void* stream);
 
 namespace {
 
@@ -434,7 +435,8 @@ int launch(Kernel kernel, bool& smem_set, size_t smem, int block_rows,
 }
 
 // which: 0 = C1 merged, 1 = C2 dq, 2 = C3 dkv.  The split pair is
-// instantiated here in f32 only (the tensor-core kernels take bf16).
+// instantiated here in f32 only (the tensor-core kernels take bf16 and
+// fp16).
 template <typename T, int D, int BM>
 int dispatch_which(int which, const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, BM>();
@@ -483,10 +485,10 @@ int run(int which, const void* q, const void* k, const void* v,
                dv,   B,    S,    H,    q_sb, q_ss,  k_sb, k_ss,   v_sb,
                v_ss, o_sb, o_ss, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && which != 0)
+  if ((dtype == 1 || dtype == 2) && which != 0)
     return flash_bwd_tc_launch(which == 2, q, k, v, dout, lse, delta, dq, dk,
                                dv, B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb,
-                               v_ss, o_sb, o_ss, causal, scale, block,
+                               v_ss, o_sb, o_ss, causal, scale, dtype, block,
                                stream);
   if (dtype == 0) return dispatch_d<float>(which, D, block, a, st);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, block, a, st);
@@ -498,9 +500,10 @@ int run(int which, const void* q, const void* k, const void* v,
 // Common arguments: q/k/v/dout (B, S, H, D) with (H, D) dense and the given
 // batch / sequence strides in elements; lse (base-e) and delta dense
 // (B, S, H) f32; D in {64, 128, 256}; `block` the tile rows (64 or 32 at
-// D <= 128, 32 at D = 256; bf16 C2 and C3: 64 or 128 at D = 64, 64 at
-// D = 128 and 256, rows 16-byte aligned), S a multiple of it; dtype 0 = float32,
-// 1 = bfloat16; `scale` the base-e softmax scale.  Outputs are dense
+// D <= 128, 32 at D = 256; bf16 and fp16 C2 and C3: 64 or 128 at D = 64,
+// 64 at D = 128 and 256, rows 16-byte aligned), S a multiple of it; dtype
+// 0 = float32, 1 = bfloat16, 2 = float16 (C2 and C3 only); `scale` the
+// base-e softmax scale.  Outputs are dense
 // (B, S, H, D).  Each returns its launch's cudaError_t.
 
 // C1: dq_acc is an f32 workspace the caller zeroes, scales and casts.

@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes:
+// kernel A, the float32 forward.  bf16 and fp16 run on the tensor cores
+// (flash_fwd_tc.cu).
 //
 // Replaces paddle_tpu/kernels/flash_attention_pallas.py:_fwd_kernel (the
 // resident FA2 forward reached through flash_attention_bshd_native).  It
@@ -19,14 +21,13 @@
 // operands (register-tiled 4x4 per thread); wgmma, TMA and warp
 // specialisation are left for a later change.
 //
-// Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the serving
-// prefill shape B=1, S=128, H=16, D=64 bf16 the kernel must move 1 MiB of
-// q/k/v/out (~0.31 us) for ~34 MFLOP causal (~0.03 us), so it is memory-
-// and launch-bound there; at S=1024 it moves 8 MiB (~2.5 us) against
-// ~2.1 GFLOP causal (~2.2 us).  The FMA path cannot reach the tensor-core
-// rate; its measured times stand in PERF.md beside these bounds.
+// Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores): at B=1, S=128, H=16, D=64 f32 the kernel must move 2 MiB of
+// q/k/v/out (~0.63 us) for ~34 MFLOP causal (~0.5 us); at the training
+// shape (8, 1024, 16, 64) causal 32 MiB (~10 us) against ~17 GFLOP
+// (~0.26 ms), bound by operations.  Its measured times stand in PERF.md
+// beside these bounds.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -39,18 +40,11 @@ constexpr float kNegBig = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Stage rows [row0, row0 + 64) of one head into a padded f32 tile.  Rows
 // are `row_stride` elements apart; the head's D elements are contiguous.
@@ -243,7 +237,8 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out,
 
 // q/k/v: (B, S, H, D) with (H, D) dense and the given batch / sequence
 // strides in elements; out: dense (B, S, H, D); lse: dense (B, S, H) f32 or
-// NULL.  dtype 0 = float32, 1 = bfloat16.  S must be a multiple of 64.
+// NULL.  dtype 0 = float32 (the only one instantiated: bf16 and fp16 take
+// the tensor-core forward of flash_fwd_tc.cu).  S must be a multiple of 64.
 // `scale` is the base-e softmax scale.  Returns the launch's cudaError_t.
 extern "C" int paddle_flash_fwd_bshd(
     const void* q, const void* k, const void* v, void* out, float* lse,
@@ -257,10 +252,6 @@ extern "C" int paddle_flash_fwd_bshd(
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, out, lse, B, S, H, D, q_sb, q_ss, k_sb,
                              k_ss, v_sb, v_ss, causal, scale2, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, lse, B, S, H, D, q_sb,
-                                     q_ss, k_sb, k_ss, v_sb, v_ss, causal,
-                                     scale2, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -25,6 +25,7 @@
 // (~15 us); the partials add 2 MB each way.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,6 +40,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -47,6 +49,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
 }
 
 template <typename TX>
@@ -213,6 +219,9 @@ int dispatch_w(const void* x, const void* g, const float* mean,
     return launch<TX, __nv_bfloat16>(x, g, mean, rstd, dout, dx, part_g,
                                      part_b, dg, db, rows, cols, parts,
                                      stream);
+  if (w_dtype == 2)
+    return launch<TX, __half>(x, g, mean, rstd, dout, dx, part_g, part_b,
+                              dg, db, rows, cols, parts, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -227,7 +236,7 @@ extern "C" int paddle_layer_norm_bwd_parts(int rows) {
 // one dtype; gamma, dgamma, dbeta: dense (cols,) in gamma's dtype; mean,
 // rstd: dense (rows,) f32; part_g, part_b: f32 workspaces of
 // paddle_layer_norm_bwd_parts(rows) x cols.  dtype codes: 0 = float32,
-// 1 = bfloat16.  Returns the first failing launch's cudaError_t.
+// 1 = bfloat16, 2 = float16.  Returns the first failing launch's cudaError_t.
 extern "C" int paddle_layer_norm_bwd(const void* x, const void* gamma,
                                      const float* mean, const float* rstd,
                                      const void* dout, void* dx,
@@ -246,5 +255,8 @@ extern "C" int paddle_layer_norm_bwd(const void* x, const void* gamma,
     return dispatch_w<__nv_bfloat16>(x, gamma, mean, rstd, dout, dx, part_g,
                                      part_b, dgamma, dbeta, rows, cols, parts,
                                      w_dtype, st);
+  if (x_dtype == 2)
+    return dispatch_w<__half>(x, gamma, mean, rstd, dout, dx, part_g, part_b,
+                              dgamma, dbeta, rows, cols, parts, w_dtype, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,6 +18,7 @@
 // memory, dominates both.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,6 +31,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -38,6 +40,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
 }
 
 template <typename TX, typename TW>
@@ -114,6 +120,9 @@ int dispatch_w(const void* x, const void* g, const void* b, void* out,
   if (w_dtype == 1)
     return launch<TX, __nv_bfloat16>(x, g, b, out, mean, rstd, rows, cols,
                                      eps, stream);
+  if (w_dtype == 2)
+    return launch<TX, __half>(x, g, b, out, mean, rstd, rows, cols, eps,
+                              stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -121,7 +130,7 @@ int dispatch_w(const void* x, const void* g, const void* b, void* out,
 
 // x, out: dense (rows, cols), 16-byte aligned, cols a multiple of 8;
 // gamma, beta: dense (cols,); mean, rstd: dense (rows,) f32.  dtype codes:
-// 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// 0 = float32, 1 = bfloat16, 2 = float16.  Returns the launch's cudaError_t.
 extern "C" int paddle_layer_norm_fwd(const void* x, const void* gamma,
                                      const void* beta, void* out,
                                      float* mean, float* rstd, int rows,
@@ -136,5 +145,8 @@ extern "C" int paddle_layer_norm_fwd(const void* x, const void* gamma,
   if (x_dtype == 1)
     return dispatch_w<__nv_bfloat16>(x, gamma, beta, out, mean, rstd, rows,
                                      cols, eps, w_dtype, st);
+  if (x_dtype == 2)
+    return dispatch_w<__half>(x, gamma, beta, out, mean, rstd, rows, cols,
+                              eps, w_dtype, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,9 @@ object, all sources at once in parallel processes; the objects link into
 one shared library with a plain C interface, which the kernel wrappers
 load through ``ctypes``.  Sources include no PyTorch headers, so a build
 takes seconds.  Outputs land in ``paddle_tpu_torch/_build/`` (git-ignored)
-under names carrying the sources' content hash: a changed source builds a
-new library, an unchanged one is loaded as it is.  A missing ``nvcc`` or a
+under names carrying the content hash of the sources and of the headers
+they share (``csrc/*.cuh``): a changed source or header builds a new
+library, an unchanged one is loaded as it is.  A missing ``nvcc`` or a
 failed compile raises with the compiler's output.
 """
 from __future__ import annotations
@@ -35,6 +36,18 @@ class BuildError(RuntimeError):
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers():
+    """The headers the sources include (``#include "x.cuh"``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def library_path():
+    """Where the library of the current sources and headers lives: its
+    name carries their content hash."""
+    return BUILD_DIR / ("libpaddle_tpu_torch_kernels-%s.so"
+                        % _digest(sources() + headers()))
 
 
 def _digest(paths):
@@ -86,8 +99,7 @@ def build(ptxas_info=False):
     srcs = sources()
     if not srcs:
         raise BuildError("no CUDA sources under %s" % CSRC)
-    lib_path = BUILD_DIR / ("libpaddle_tpu_torch_kernels-%s.so"
-                            % _digest(srcs))
+    lib_path = library_path()
     if lib_path.is_file() and not ptxas_info:
         return lib_path, ""
     nvcc = find_nvcc()
@@ -133,6 +145,12 @@ def library():
             lib.paddle_flash_fwd_pipelined.restype = i
             lib.paddle_flash_fwd_pipelined_smem.argtypes = [i, i, i, i]
             lib.paddle_flash_fwd_pipelined_smem.restype = ll
+            # the tensor-core forward: A''s arguments
+            lib.paddle_flash_fwd_tc.argtypes = \
+                lib.paddle_flash_fwd_pipelined.argtypes
+            lib.paddle_flash_fwd_tc.restype = i
+            lib.paddle_flash_fwd_tc_smem.argtypes = [i, i, i]
+            lib.paddle_flash_fwd_tc_smem.restype = ll
             lib.paddle_layer_norm_fwd.argtypes = [
                 p, p, p, p, p, p, i, i, f, i, i, p]
             lib.paddle_layer_norm_fwd.restype = i

@@ -4,12 +4,17 @@
 ``PADDLE_TPU_DISABLE_FLASH`` switch, and retargets its platform condition
 from "running on a TPU" to "q lies on a card".  The JAX gate's VMEM
 budget (``max_supported_seq``) has no counterpart: the CUDA kernels
-stream K/V tiles, so any multiple-of-64 length fits.  :func:`_bwd_route` picks the backward exactly where the
-JAX package does (``flash_attention_pallas._resolve_specs``).
+stream K/V tiles, so any multiple-of-64 length fits.
+:func:`_card_bwd_route` picks the backward on a card: bf16 and fp16 take
+the split pair (the tensor-core C2 + C3) at every length; f32 takes
+:func:`_bwd_route`, which picks it exactly where the JAX package does
+(``flash_attention_pallas._resolve_specs``).
 """
 from __future__ import annotations
 
 import os
+
+import torch
 
 _DEFAULT_BLOCK_Q = 128
 
@@ -48,6 +53,16 @@ def _bwd_route(s: int, h: int, d: int) -> str:
     same shape."""
     hg = _pick_head_group(h, d, s)
     return "split" if s * hg * d * 4 > _DQ_SCRATCH_BUDGET else "merged"
+
+
+def _card_bwd_route(s: int, h: int, d: int, dtype) -> str:
+    """The backward route of a call with ``route=None``: ``"split"`` for
+    bf16 and fp16, whose C2 + C3 run on the tensor cores and have no VMEM
+    budget to respect (and sum dQ without atomics); f32 keeps the JAX
+    package's rule, :func:`_bwd_route`."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return "split"
+    return _bwd_route(s, h, d)
 
 
 def supported(q, k=None) -> bool:

@@ -1,8 +1,10 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_fwd.cu`` (forward, kernel
-A), ``csrc/flash_fwd_pipelined.cu`` (forward with pipelined K/V tiles,
-kernel A'), ``csrc/flash_bwd.cu`` (backward: C1 merged, C2 dQ, C3 dK/dV
-on f32 FMAs) and ``csrc/flash_bwd_tc.cu`` (C2 and C3 on the tensor cores
-for bf16), their plain PyTorch versions, the autograd Functions that join
+"""Flash attention: the CUDA kernels ``csrc/flash_fwd_tc.cu`` (forward on
+the tensor cores, bf16 and fp16), ``csrc/flash_fwd.cu`` (forward, kernel
+A, f32), ``csrc/flash_fwd_pipelined.cu`` (forward with pipelined K/V
+tiles, kernel A', f32 and bf16), ``csrc/flash_bwd.cu`` (backward: C1
+merged, f32 and bf16, and C2 dQ / C3 dK/dV in f32, on FMAs) and
+``csrc/flash_bwd_tc.cu`` (C2 and C3 on the tensor cores for bf16 and
+fp16), their plain PyTorch versions, the autograd Functions that join
 them, and their autotune families (port of
 ``paddle_tpu/kernels/flash_attention_pallas.py``: ``_fwd_kernel`` /
 ``_fwd_kernel_streamed`` / ``_fwd_kernel_pipelined`` and ``_bwd_kernel`` /
@@ -11,38 +13,46 @@ them, and their autotune families (port of
 ``custom_vjp``s and the autotune wiring of ``_resolve_specs``).
 
 Tensors are (B, S, H, D), the model's native layout: no transposes.  The
-kernels take float32 and bfloat16, S a multiple of 64, S_q == S_k, a
-start-aligned causal mask and D in {64, 128, 256}.  q/k/v (and the
+kernels take float32, bfloat16 and float16, S a multiple of 64, S_q ==
+S_k, a start-aligned causal mask and D in {64, 128, 256}.  q/k/v (and the
 backward's dO) need dense (H, D) inner dimensions; their sequence and
 batch strides are free, so the model's q/k/v slices of the fused
 projection go in without a copy.  A dO whose (H, D) dimensions are not
-dense is made contiguous first.  Kernel A streams 64-row K/V tiles at any
-S, so it is also the counterpart of the TPU's long-sequence
+dense is made contiguous first.  Every forward streams K/V tiles at any
+S, so each is also the counterpart of the TPU's long-sequence
 ``_fwd_kernel_streamed``.
 
 Every call resolves its kernels' variant and tile shape through
 :mod:`.autotune` (families ``flash_fwd``, ``flash_bwd``, ``flash_bwd_dq``,
 ``flash_bwd_dkv``); with tuning off, no pin and no cache entry that is
-candidate [0], the hand-tuned kernels: A with 64 x 64 tiles, C1 or C2 + C3
-with 64-row tiles (32 at D = 256 but for bf16 C2 + C3).  The
-``pipelined`` variant selects A' at one of its (block_q, block_k)
-instantiations, which needs every q/k/v row 16-byte aligned (the unit
-of its async copies).  The split pair's tiles depend on the dtype: bf16
-takes the tensor-core tiles, 64 or 128 at D 64 and 64 at D 128 and 256;
-f32 the FMA kernels' 64 or 32 rows (32 at D 256).  The tensor-core
-kernels copy 16-byte rows too: an input whose rows are not 16-byte
-aligned is copied to an aligned one first.  ``iotafree`` and ``parq``
-are accepted and change nothing here: the first is a bit-identical
-rewrite of the TPU's mask arithmetic, the second a TPU lse block layout.
-``bf16chain`` changes the numerics and has no kernel yet: it raises.  A
-resolved candidate that the kernels cannot take (a stale cache entry, a
-pin) falls back to candidate [0], as in the JAX package.
+candidate [0].  The forward's ``"base"`` variant depends on the dtype:
+bf16 and fp16 take the tensor-core forward at one of its (block_q,
+block_k) instantiations (candidate [0]: 128 x 128 at D 64, 128 x 64 at
+D 128, 64 x 64 at D 256); f32 takes kernel A with its fixed 64 x 64
+tiles.  The ``pipelined`` variant selects A' (f32 and bf16) at one of its
+instantiations, which needs every q/k/v row 16-byte aligned (the unit of
+its async copies); it is reached by a pin or a tuned pick.  The backward
+route is :func:`..flash_attention._card_bwd_route`'s: bf16 and fp16 take
+the split pair C2 + C3 at every length, f32 the JAX package's choice
+between C1 and the pair.  The split pair's tiles depend on the dtype:
+bf16 and fp16 take the tensor-core tiles, 64 or 128 at D 64 and 64 at D
+128 and 256; f32 the FMA kernels' 64 or 32 rows (32 at D 256); C1 takes
+64 or 32 rows and no fp16.  The tensor-core kernels copy 16-byte rows
+too: an input whose rows are not 16-byte aligned is copied to an aligned
+one first.  ``iotafree`` and ``parq`` are accepted and change nothing
+here: the first is a bit-identical rewrite of the TPU's mask arithmetic,
+the second a TPU lse block layout.  ``bf16chain`` changes the numerics
+and has no kernel yet: it raises.  A resolved candidate that the kernels
+cannot take (a stale cache entry, a pin, a tile or variant not
+instantiated for the dtype) falls back to candidate [0], as in the JAX
+package.
 
 A CUDA tensor launches the kernels (or raises); only a CPU tensor takes
-the plain versions :func:`_flash_reference` /
-:func:`_flash_pipelined_reference` / :func:`_flash_bwd_reference`.  The
-forward saves what the JAX ``custom_vjp`` saves, (q, k, v, out, lse), and
-only when autograd will use it.  ``flash_fwd_launches``,
+the plain versions :func:`_flash_tc_reference` /
+:func:`_flash_reference` / :func:`_flash_pipelined_reference` /
+:func:`_flash_bwd_reference`.  The forward saves what the JAX
+``custom_vjp`` saves, (q, k, v, out, lse), and only when autograd will
+use it.  ``flash_fwd_tc_launches``, ``flash_fwd_launches``,
 ``flash_fwd_pipelined_launches``, ``flash_bwd_launches``,
 ``flash_bwd_dq_launches`` and ``flash_bwd_dkv_launches`` count kernel
 launches.
@@ -57,17 +67,21 @@ import torch
 
 from . import _build
 from . import autotune as _at
-from .flash_attention import _bwd_route
+from .flash_attention import _card_bwd_route
 
 #: kernel launches since import (or since a caller reset them)
+flash_fwd_tc_launches = 0
 flash_fwd_launches = 0
 flash_fwd_pipelined_launches = 0
 flash_bwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_DTYPE_BY_NAME = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_BY_NAME = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
+#: the 16-bit types, which the tensor-core kernels take
+_TC_DTYPES = (torch.bfloat16, torch.float16)
 _HEAD_DIMS = (64, 128, 256)
 _BLOCK = 64
 _LOG2E = 1.4426950408889634
@@ -75,6 +89,11 @@ _LOG2E = 1.4426950408889634
 #: kernel A's fixed (block_q, block_k), and the instantiations of A'
 _BASE_BLOCKS = (64, 64)
 _PIPELINED_BLOCKS = ((64, 32), (64, 64), (128, 64), (128, 128))
+#: the tensor-core forward's (block_q, block_k) instantiations by head
+#: dim, the default first (csrc/flash_fwd_tc.cu, dispatch_tiles)
+_TC_FWD_BLOCKS = {64: ((128, 128), (128, 64), (64, 64)),
+                  128: ((128, 64), (64, 64)),
+                  256: ((64, 64), (128, 64))}
 
 #: variant features understood by the forward / backward (the JAX sets)
 _FWD_FEATURES = frozenset({"bf16chain", "iotafree", "parq", "pipelined"})
@@ -98,12 +117,14 @@ def _flash_reference(q, k, v, causal, scale):
     return out, lse.transpose(1, 2).contiguous()
 
 
-def _flash_pipelined_reference(q, k, v, causal, scale, block_q, block_k):
-    """Plain version of kernel A': it walks the K/V tiles of ``block_k``
-    rows as A' does, with the online softmax in f32 (base 2, log2(e)
-    folded into the scale applied to q.k), stops each q tile of
-    ``block_q`` rows after its causal band and masks every visited tile.
-    Returns (out in q's dtype, base-e row logsumexp (B, S, H) f32)."""
+def _flash_tile_walk(q, k, v, causal, scale, block_q, block_k, round_p):
+    """The tile walk of the forward kernels: over the K/V tiles of
+    ``block_k`` rows, with the online softmax in f32 (base 2, the scale
+    times log2(e) applied to q.k in f32), each q tile of ``block_q`` rows
+    stopping after its causal band and every visited tile masked.
+    ``round_p`` rounds p to v's dtype before the p.v product (the sum l
+    takes the unrounded p).  Returns (out in q's dtype, base-e row
+    logsumexp (B, S, H) f32)."""
     b, s, h, d = q.shape
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B,H,S,D)
     scale2 = float(scale) * _LOG2E
@@ -126,6 +147,8 @@ def _flash_pipelined_reference(q, k, v, causal, scale, block_q, block_k):
         p = torch.exp2(logits - m_new[..., None])
         corr = torch.exp2(m_old - m_new)
         l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(-1)
+        if round_p:
+            p = p.to(v.dtype).float()
         acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + torch.einsum(
             "bhqk,bhkd->bhqd", p, vf[:, :, c0:c0 + block_k])
         m[:, :, r0:] = m_new
@@ -135,15 +158,35 @@ def _flash_pipelined_reference(q, k, v, causal, scale, block_q, block_k):
     return out.contiguous(), (lse2 / _LOG2E).transpose(1, 2).contiguous()
 
 
+def _flash_pipelined_reference(q, k, v, causal, scale, block_q, block_k):
+    """Plain version of kernel A': the forward kernels' tile walk
+    (:func:`_flash_tile_walk`) with p kept in f32, as A' keeps it."""
+    return _flash_tile_walk(q, k, v, causal, scale, block_q, block_k,
+                            round_p=False)
+
+
+def _flash_tc_reference(q, k, v, causal, scale, block_q, block_k):
+    """Plain version of the tensor-core forward: the tile walk of
+    :func:`_flash_pipelined_reference` with p rounded to v's dtype before
+    the p.v product, as the TPU's ``_online_step`` rounds it
+    (``p.astype(v.dtype)``), and l summed from the unrounded p.  Returns
+    (out in q's dtype, base-e row logsumexp (B, S, H) f32)."""
+    return _flash_tile_walk(q, k, v, causal, scale, block_q, block_k,
+                            round_p=True)
+
+
 def _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, dlse=None):
     """Plain f32 backward of :func:`_flash_reference`, P recomputed from the
-    saved base-e lse (B, S, H) as the kernels do, P and dS rounded to the
-    inputs' dtype before the products that take them: returns (dq, dk, dv)
-    in q/k/v's dtypes.  ``dlse`` is the lse output's cotangent, folded in as
+    saved base-e lse (B, S, H) as the TPU's ``_bwd_head_math`` and the
+    kernels form it, in base 2: exp2(scale log2(e) q.k - lse log2(e)), the
+    scale applied to q.k in f32.  P and dS are rounded to the inputs'
+    dtype before the products that take them: returns (dq, dk, dv) in
+    q/k/v's dtypes.  ``dlse`` is the lse output's cotangent, folded in as
     ``delta - dlse``."""
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
-    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * float(scale)
-    p = torch.exp(logits - lse.float().transpose(1, 2)[..., None])
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (float(scale)
+                                                       * _LOG2E)
+    p = torch.exp2(logits - (lse.float() * _LOG2E).transpose(1, 2)[..., None])
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
         vis = torch.ones((sq, sk), dtype=torch.bool,
@@ -170,7 +213,8 @@ def _check(q, k, v):
                              " tensor" % name)
         if t.dtype not in _DTYPES:
             raise TypeError("flash attention: %s dtype %s not supported "
-                            "(float32 or bfloat16)" % (name, t.dtype))
+                            "(float32, bfloat16 or float16)"
+                            % (name, t.dtype))
         if not _dense_head(t):
             raise ValueError("flash attention: %s needs dense (H, D) inner "
                              "dimensions, got strides %s"
@@ -197,9 +241,9 @@ def _dense_head(t):
 
 def _aligned(*ts):
     """Whether every (batch, position) row of each tensor starts on 16
-    bytes, the unit of A''s async copies: base pointer and the batch and
-    sequence strides (the dense head's own offsets are multiples of 128
-    bytes)."""
+    bytes, the unit of the async copies of A' and the tensor-core
+    kernels: base pointer and the batch and sequence strides (the dense
+    head's own offsets are multiples of 128 bytes)."""
     for t in ts:
         esz = t.element_size()
         if t.data_ptr() % 16 or (t.stride(0) * esz) % 16 or \
@@ -254,16 +298,18 @@ _SPLIT_FAMILIES = ("flash_bwd_dq", "flash_bwd_dkv")
 def _tc_split(dtype, family):
     """Whether ``family``'s kernel at ``dtype`` is the tensor-core C2 / C3
     of ``csrc/flash_bwd_tc.cu``."""
-    return family in _SPLIT_FAMILIES and dtype == torch.bfloat16
+    return family in _SPLIT_FAMILIES and dtype in _TC_DTYPES
 
 
 def _bwd_blocks(d, dtype=torch.float32, family="flash_bwd"):
     """Tile rows of ``family``'s kernel instantiated at head dim ``d`` and
-    ``dtype``, the default first: the tensor-core tiles for bf16 C2 / C3;
-    else the FMA kernels' 64 or 32 rows (32 alone at D = 256, where 64-row
-    f32 tiles do not fit)."""
+    ``dtype``, the default first: the tensor-core tiles for bf16 and fp16
+    C2 / C3; else the FMA kernels' 64 or 32 rows (32 alone at D = 256,
+    where 64-row f32 tiles do not fit); none for C1 in fp16."""
     if _tc_split(dtype, family):
         return _TC_BLOCKS[d]
+    if dtype == torch.float16:
+        return ()
     return (64, 32) if d <= 128 else (32,)
 
 
@@ -276,6 +322,15 @@ def split_tc_smem_bytes(d, block):
     ``block`` x ``block`` score tiles that the warpgroups exchange."""
     xchg = 2 * block * block * 4 if d == 256 else 0
     return 1024 + 6 * block * d * 2 + 4 * block * 4 + xchg
+
+
+def fwd_tc_smem_bytes(d, block_q, block_k):
+    """Dynamic shared memory of one tensor-core forward launch
+    (``fwd_tc_smem_bytes`` of ``csrc/flash_fwd_tc.cu``): 1024 bytes to
+    align the tiles to the 128-byte swizzle's 1024-byte period, the
+    16-bit ``block_q`` x ``d`` q tile and two stages of the ``block_k`` x
+    ``d`` K and V tiles."""
+    return 1024 + block_q * d * 2 + 4 * block_k * d * 2
 
 
 def _valid_blocks(bq, bk, s, sk, causal):
@@ -297,14 +352,39 @@ def pipelined_smem_bytes(d, block_q, block_k, dtype):
             + block_q * (block_k + 1) * 4)
 
 
+def _fwd_specs(s, sk, d, dtype, causal):
+    """Every forward (variant, block_q, block_k) instantiated for ``dtype``
+    at head dim ``d`` that divides these lengths, candidate [0] first:
+    bf16 and fp16 the tensor-core forward's tiles (its default first),
+    f32 kernel A; then A' at each of its tiles, for f32 and bf16."""
+    if dtype in _TC_DTYPES:
+        specs = [("base",) + bs for bs in _TC_FWD_BLOCKS[d]]
+    else:
+        specs = [("base",) + _BASE_BLOCKS]
+    if dtype != torch.float16:
+        specs += [("pipelined",) + bs for bs in _PIPELINED_BLOCKS]
+    return [sp for sp in specs if _valid_blocks(sp[1], sp[2], s, sk, causal)]
+
+
+def _fwd_smem_need(variant, d, bq, bk, dtype):
+    """Dynamic shared memory of the forward (variant, bq, bk) at ``dtype``:
+    A''s or the tensor-core forward's; None for kernel A, whose fixed
+    tiles fit a block at every head dim."""
+    if variant == "pipelined":
+        return pipelined_smem_bytes(d, bq, bk, dtype)
+    if dtype in _TC_DTYPES:
+        return fwd_tc_smem_bytes(d, bq, bk)
+    return None
+
+
 def _sane_fwd_spec(cand, s, sk, d, dtype, causal, aligned, smem_limit):
     """(variant, block_q, block_k) that the forward kernels take for a
     resolved/pinned flash_fwd candidate; anything they cannot take
-    (unknown features, blocks that are not instantiated or do not divide
-    S, unaligned rows for A', more shared memory than a block may use)
-    falls back to candidate [0].  ``hg`` has no meaning here and is
-    ignored."""
-    default = ("base",) + _BASE_BLOCKS
+    (unknown features, a variant or tile not instantiated for the dtype
+    or not dividing S, unaligned rows for A', more shared memory than a
+    block may use) falls back to candidate [0].  ``hg`` has no meaning
+    here and is ignored."""
+    default = _fwd_specs(s, sk, d, dtype, causal)[0]
     try:
         feats = variant_features(cand.get("variant", "base"), _FWD_FEATURES)
     except ValueError:
@@ -312,14 +392,13 @@ def _sane_fwd_spec(cand, s, sk, d, dtype, causal, aligned, smem_limit):
     _refuse_bf16chain(feats)
     cfg = cand.get("config", {})
     bq, bk = cfg.get("block_q"), cfg.get("block_k")
-    if not _valid_blocks(bq, bk, s, sk, causal):
+    kind = "pipelined" if "pipelined" in feats else "base"
+    if (kind, bq, bk) not in _fwd_specs(s, sk, d, dtype, causal):
         return default
-    if "pipelined" not in feats:
-        return (canon_variant(feats), bq, bk) if (bq, bk) == _BASE_BLOCKS \
-            else default
-    if (bq, bk) not in _PIPELINED_BLOCKS or not aligned or (
-            smem_limit is not None
-            and pipelined_smem_bytes(d, bq, bk, dtype) > smem_limit):
+    if kind == "pipelined" and not aligned:
+        return default
+    need = _fwd_smem_need(kind, d, bq, bk, dtype)
+    if smem_limit is not None and need is not None and need > smem_limit:
         return default
     return (canon_variant(feats), bq, bk)
 
@@ -383,10 +462,43 @@ def _outputs(q, want_lse):
     return out, lse
 
 
+def _launch_tc(q, k, v, causal, scale, want_lse, block_q, block_k):
+    """The tensor-core forward at one of its (block_q, block_k)
+    instantiations; q/k/v rows that are not 16-byte aligned are copied to
+    aligned ones first."""
+    global flash_fwd_tc_launches
+    b, s, h, d = q.shape
+    if q.dtype not in _TC_DTYPES:
+        raise TypeError("flash_fwd_tc: dtype %s; the tensor-core forward "
+                        "takes bfloat16 and float16" % q.dtype)
+    if (block_q, block_k) not in _TC_FWD_BLOCKS[d] or s % block_q \
+            or s % block_k:
+        raise ValueError("flash_fwd_tc: blocks (%r, %r) at D=%d, S=%d; "
+                         "instantiated: %s, S a multiple of both"
+                         % (block_q, block_k, d, s, _TC_FWD_BLOCKS[d]))
+    q, k, v = (t if _aligned(t) else
+               t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    out, lse = _outputs(q, want_lse)
+    err = _build.library().paddle_flash_fwd_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, s, h, d,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), int(bool(causal)), float(scale),
+        _DTYPES[q.dtype], block_q, block_k, _build.current_stream(q.device))
+    _build.check(err, "flash_fwd_tc launch")
+    flash_fwd_tc_launches += 1
+    return out, lse
+
+
 def _launch(q, k, v, causal, scale, want_lse):
-    """Kernel A."""
+    """Kernel A (float32)."""
     global flash_fwd_launches
     b, s, h, d = q.shape
+    if q.dtype != torch.float32:
+        raise TypeError("flash_fwd: dtype %s; kernel A takes float32 "
+                        "(bfloat16 and float16 take the tensor-core "
+                        "forward)" % q.dtype)
     out, lse = _outputs(q, want_lse)
     err = _build.library().paddle_flash_fwd_bshd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -403,6 +515,9 @@ def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k):
     """Kernel A' at one of its (block_q, block_k) instantiations."""
     global flash_fwd_pipelined_launches
     b, s, h, d = q.shape
+    if q.dtype == torch.float16:
+        raise TypeError("flash_fwd_pipelined: A' takes float32 and "
+                        "bfloat16, not float16")
     if (block_q, block_k) not in _PIPELINED_BLOCKS or s % block_q:
         raise ValueError("flash_fwd_pipelined: blocks (%r, %r) at S=%d; "
                          "instantiated: %s, S a multiple of block_q"
@@ -425,13 +540,18 @@ def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k):
 
 def _run_fwd(q, k, v, causal, scale, want_lse, spec):
     """(out, lse or None) of the forward ``spec`` = (variant, block_q,
-    block_k): kernel A or A' on a card, their plain versions on the CPU."""
+    block_k): A' for ``pipelined``, else the tensor-core forward (bf16,
+    fp16) or kernel A (f32) on a card; their plain versions on the
+    CPU."""
     variant, bq, bk = spec
     pipelined = "pipelined" in variant_features(variant)
+    tc = not pipelined and q.dtype in _TC_DTYPES
     if q.device.type == "cpu":
         if pipelined:
             out, lse = _flash_pipelined_reference(q, k, v, causal, scale,
                                                   bq, bk)
+        elif tc:
+            out, lse = _flash_tc_reference(q, k, v, causal, scale, bq, bk)
         else:
             out, lse = _flash_reference(q, k, v, causal, scale)
         return out, (lse if want_lse else None)
@@ -439,6 +559,8 @@ def _run_fwd(q, k, v, causal, scale, want_lse, spec):
         raise ValueError("flash attention: unsupported device %s" % q.device)
     if pipelined:
         return _launch_pipelined(q, k, v, causal, scale, want_lse, bq, bk)
+    if tc:
+        return _launch_tc(q, k, v, causal, scale, want_lse, bq, bk)
     return _launch(q, k, v, causal, scale, want_lse)
 
 
@@ -455,11 +577,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
     (out, lse) for the cotangents ``dout`` and ``dlse`` (None: zero).
     ``lse`` is the forward's base-e (B, S, H) f32 row logsumexp.
 
-    On a card: ``route=None`` takes the route the JAX package takes at
-    this shape (:func:`..flash_attention._bwd_route`): ``"merged"``
-    launches C1, ``"split"`` C2 then C3, each with the tile rows its
-    autotune family resolves.  A given ``route`` pins it (for the kernel
-    checks); it is not a user setting."""
+    On a card: ``route=None`` takes
+    :func:`..flash_attention._card_bwd_route`'s route: ``"split"`` (C2
+    then C3 on the tensor cores) for bf16 and fp16 at every length, and
+    for f32 the route the JAX package takes at this shape
+    (:func:`..flash_attention._bwd_route`), ``"merged"`` launching C1.
+    Each kernel takes the tile rows its autotune family resolves.  A
+    given ``route`` pins it (for the kernel checks); it is not a user
+    setting.  C1 takes no fp16: ``route="merged"`` in fp16 raises
+    ``TypeError``."""
     _check(q, k, v)
     b, s, h, d = q.shape
     given = [("out", out, (b, s, h, d)), ("dout", dout, (b, s, h, d)),
@@ -472,10 +598,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
                              "%s, got %s on %s" % (name, shape, q.device,
                                                    tuple(t.shape), t.device))
     if route is None:
-        route = _bwd_route(s, h, d)
+        route = _card_bwd_route(s, h, d, q.dtype)
     if route not in ("merged", "split"):
         raise ValueError("flash attention backward: route %r is not "
                          "'merged' or 'split'" % (route,))
+    if route == "merged" and q.dtype == torch.float16:
+        raise TypeError("flash attention backward: the merged kernel C1 "
+                        "takes float32 and bfloat16; float16 takes the "
+                        "split route (route=None or 'split')")
     blocks = ([_resolve_bwd(q, causal, "flash_bwd")] if route == "merged"
               else [_resolve_bwd(q, causal, "flash_bwd_dq"),
                     _resolve_bwd(q, causal, "flash_bwd_dkv")])
@@ -640,17 +770,15 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None):
 # ---------------------------------------------------------------------------
 
 def _fwd_candidates(key):
-    """[0] kernel A (its fixed 64 x 64 tiles), then A' at each of its
-    instantiations that divides the key's lengths."""
-    s, sk, causal = key["s"], key["sk"], key["causal"]
-    cands = [{"variant": "base",
-              "config": {"block_q": _BASE_BLOCKS[0],
-                         "block_k": _BASE_BLOCKS[1]}}]
-    for bq, bk in _PIPELINED_BLOCKS:
-        if _valid_blocks(bq, bk, s, sk, causal):
-            cands.append({"variant": "pipelined",
-                          "config": {"block_q": bq, "block_k": bk}})
-    return cands
+    """Each forward instantiated for the key's dtype and head dim that
+    divides its lengths (:func:`_fwd_specs`): bf16 and fp16 [0] the
+    tensor-core forward at its default tiles, then its other tiles, then
+    (bf16) A' at each of its instantiations; f32 [0] kernel A (its fixed
+    64 x 64 tiles), then A'."""
+    return [{"variant": v, "config": {"block_q": bq, "block_k": bk}}
+            for v, bq, bk in _fwd_specs(key["s"], key["sk"], key["d"],
+                                        _DTYPE_BY_NAME[key["dtype"]],
+                                        key["causal"])]
 
 
 def _bwd_candidates(key, family="flash_bwd"):
@@ -664,14 +792,15 @@ def _bwd_candidates(key, family="flash_bwd"):
 
 
 def _fwd_smem(cand, key):
-    """A''s shared memory for the tune() gate; None (no gate) for kernel
-    A, whose fixed tiles fit a block at every head dim (as do the
-    backward's, which register no hook)."""
-    if "pipelined" not in variant_features(cand["variant"]):
-        return None
+    """The shared memory of A' or of the tensor-core forward for the
+    tune() gate; None (no gate) for kernel A, whose fixed tiles fit a
+    block at every head dim (as do the backward's, which register no
+    hook)."""
     cfg = cand["config"]
-    return pipelined_smem_bytes(key["d"], cfg["block_q"], cfg["block_k"],
-                                _DTYPE_BY_NAME[key["dtype"]])
+    kind = ("pipelined" if "pipelined" in variant_features(cand["variant"])
+            else "base")
+    return _fwd_smem_need(kind, key["d"], cfg["block_q"], cfg["block_k"],
+                          _DTYPE_BY_NAME[key["dtype"]])
 
 
 #: per-key synthetic operands shared by the runners (the backward runners
@@ -700,7 +829,7 @@ def _runner_data(key):
     q, k, v, do = draw(s), draw(sk), draw(sk), draw(s)
     scale = 1.0 / math.sqrt(d)
     out, lse = _run_fwd(q, k, v, key["causal"], scale, True,
-                        ("base",) + _BASE_BLOCKS)
+                        _fwd_specs(s, sk, d, dtype, key["causal"])[0])
     delta = (do.float() * out.float()).sum(-1)
     _sync(device)
     data = {"q": q, "k": k, "v": v, "do": do, "out": out, "lse": lse,

@@ -8,8 +8,8 @@ and ``_softmax_kernel`` through ``softmax_pallas``).
 
 Rows of x (R, F) normalise with f32 statistics and the one-pass variance
 E[x^2] - mean^2 of the TPU kernel; the output keeps x's dtype.  The
-kernels take float32 and bfloat16 x (and dO, of x's dtype), float32 or
-bfloat16 gamma/beta, a dense x and F a multiple of 8 (the JAX gate asks
+kernels take float32, bfloat16 and float16 x (and dO, of x's dtype),
+gamma/beta in any of the three, a dense x and F a multiple of 8 (the JAX gate asks
 F % 128 == 0).  The backward returns dgamma / dbeta in gamma's dtype.
 
 A CUDA tensor launches the kernels (or raises); only a CPU tensor takes
@@ -31,8 +31,7 @@ layer_norm_fwd_launches = 0
 layer_norm_bwd_launches = 0
 softmax_fwd_launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SOFTMAX_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DEFAULT_BLOCK_ROWS = 256
 
 
@@ -66,8 +65,8 @@ def _check(what, x, gamma, beta=None):
     if not isinstance(x, torch.Tensor) or x.dim() != 2:
         raise ValueError("%s: x must be a 2-D (rows, F) tensor" % what)
     if x.dtype not in _DTYPES:
-        raise TypeError("%s: x dtype %s not supported (float32 or "
-                        "bfloat16)" % (what, x.dtype))
+        raise TypeError("%s: x dtype %s not supported (float32, bfloat16 "
+                        "or float16)" % (what, x.dtype))
     if not x.is_contiguous():
         raise ValueError("%s: x must be contiguous" % what)
     f = x.shape[1]
@@ -208,7 +207,7 @@ def softmax_pallas(x, block_rows=DEFAULT_BLOCK_ROWS):
         raise RuntimeError("softmax_pallas is forward-only (no backward "
                            "kernel, as in the JAX package); call it under "
                            "torch.no_grad() or on a detached tensor")
-    if x.dtype not in _SOFTMAX_DTYPES:
+    if x.dtype not in _DTYPES:
         raise TypeError("softmax_pallas: dtype %s not supported (float32, "
                         "bfloat16 or float16)" % x.dtype)
     if x.device.type == "cpu":
@@ -221,7 +220,7 @@ def softmax_pallas(x, block_rows=DEFAULT_BLOCK_ROWS):
         raise ValueError("softmax_pallas: x must be 16-byte aligned")
     out = torch.empty_like(x2)
     _build.check(_build.library().paddle_softmax_fwd(
-        x2.data_ptr(), out.data_ptr(), n, f, _SOFTMAX_DTYPES[x.dtype],
+        x2.data_ptr(), out.data_ptr(), n, f, _DTYPES[x.dtype],
         _build.current_stream(x.device)), "softmax_fwd launch")
     softmax_fwd_launches += 1
     return out.reshape(x.shape)

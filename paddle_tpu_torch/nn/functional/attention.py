@@ -1,9 +1,9 @@
 """Attention functionals (port of ``paddle_tpu/nn/functional/attention.py``).
 
 ``scaled_dot_product_attention`` routes to the CUDA flash attention
-(kernel A forward, the backward kernels through its autograd Function)
-when :func:`..kernels.flash_attention.supported` holds (a card, square
-self-attention, aligned shapes) and to :func:`sdpa_reference_raw`
+(the flash forward kernels, the backward kernels through its autograd
+Function) when :func:`..kernels.flash_attention.supported` holds (a card,
+square self-attention, aligned shapes) and to :func:`sdpa_reference_raw`
 elsewhere.  The ``'sep'`` sequence-parallel ring is not ported yet.
 """
 from __future__ import annotations
@@ -18,7 +18,9 @@ def sdpa_reference_raw(q, k, v, attn_mask=None, dropout_p=0.0,
     """Plain attention over (B, S, H, D).  The products run in the input
     dtype and the softmax in f32, as in the JAX version; the causal mask
     is end-aligned (``tril`` offset ``sk - sq``), which equals the
-    start-aligned mask when ``sq == sk``."""
+    start-aligned mask when ``sq == sk``.  Masked logits take -1e30 in
+    the logits' dtype, as ``jnp.asarray(-1e30, logits.dtype)`` does: -inf
+    in fp16."""
     q_, k_, v_ = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     d = q_.shape[-1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -27,10 +29,10 @@ def sdpa_reference_raw(q, k, v, attn_mask=None, dropout_p=0.0,
         sq, sk = logits.shape[-2], logits.shape[-1]
         causal = torch.ones((sq, sk), dtype=torch.bool,
                             device=q.device).tril(sk - sq)
-        logits = logits.masked_fill(~causal, -1e30)
+        logits = logits.masked_fill(~causal, logits.new_tensor(-1e30))
     if attn_mask is not None:
         if attn_mask.dtype == torch.bool:
-            logits = logits.masked_fill(~attn_mask, -1e30)
+            logits = logits.masked_fill(~attn_mask, logits.new_tensor(-1e30))
         else:
             logits = logits + attn_mask
     probs = torch.softmax(logits.float(), dim=-1).to(q_.dtype)

@@ -263,11 +263,12 @@ def test_invalid_cached_flash_config_is_sanitized(monkeypatch):
 
 
 def test_flash_candidates_and_smem_hooks():
-    """flash_fwd: [0] kernel A, then A' at each instantiation that divides
-    S; the backward families: 64 then 32 rows (32 alone at D = 256).  A''s
+    """flash_fwd: f32 [0] kernel A, then A' at each instantiation that
+    divides S; bf16 [0] the tensor-core forward at its tiles, then A'; the
+    backward families: 64 then 32 rows (32 alone at D = 256).  A''s
     shared memory matches its source's layout, and at f32 D = 256 only
     (64, 32) fits a block's 227 KB."""
-    key = fac.autotune_key(8, 1024, 1024, 16, 64, torch.bfloat16, True,
+    key = fac.autotune_key(8, 1024, 1024, 16, 64, torch.float32, True,
                            "cpu")
     cands = fac._fwd_candidates(key)
     assert cands[0] == {"variant": "base",
@@ -277,6 +278,11 @@ def test_flash_candidates_and_smem_hooks():
     assert all(c["variant"] == "pipelined" for c in cands[1:])
     short = dict(key, s=64, sk=64)
     assert len(fac._fwd_candidates(short)) == 3      # 128-row tiles drop
+    bf16 = dict(key, dtype="bfloat16")
+    assert [(c["variant"], tuple(c["config"].values()))
+            for c in fac._fwd_candidates(bf16)] == \
+        [("base", bs) for bs in fac._TC_FWD_BLOCKS[64]] + \
+        [("pipelined", bs) for bs in fac._PIPELINED_BLOCKS]
     assert [c["config"]["block_q"] for c in fac._bwd_candidates(key)] == \
         [64, 32]
     assert [c["config"]["block_q"] for c in

@@ -37,10 +37,13 @@ def test_flash_kernel_matches_plain(dtype, causal):
     for shape in [(1, 128, 16, 64), (2, 256, 4, 128), (1, 192, 2, 256)]:
         q, k, v = (torch.from_numpy(a).to("cuda", dtype)
                    for a in _qkv(shape, seed=5))
-        before = fac.flash_fwd_launches
+        # f32 takes kernel A, bf16 the tensor-core forward
+        counter = ("flash_fwd_launches" if dtype == torch.float32
+                   else "flash_fwd_tc_launches")
+        before = getattr(fac, counter)
         out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        assert fac.flash_fwd_launches == before + 1
+        assert getattr(fac, counter) == before + 1
         ref, ref_lse = fac._flash_reference(q, k, v, causal,
                                             1.0 / shape[-1] ** 0.5)
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
@@ -56,8 +59,9 @@ def _close(got, ref, dtype, what):
     orders, and C1 adds dQ with atomics)."""
     ref = ref.float()
     rms = float(ref.pow(2).mean().sqrt())
-    ulp, share = (2.0 ** -7, 2.0 ** -6) if dtype == torch.bfloat16 \
-        else (1e-5, 1e-4)
+    ulp, share = {torch.bfloat16: (2.0 ** -7, 2.0 ** -6),
+                  torch.float16: (2.0 ** -10, 2.0 ** -6)}.get(dtype,
+                                                             (1e-5, 1e-4))
     err = (got.float() - ref).abs()
     bad = err > ulp * ref.abs() + share * rms
     assert not bool(bad.any()), "%s: max err %g (ref rms %g)" % (
@@ -373,8 +377,11 @@ def test_pipelined_kernel_matches_plain(dtype, blocks):
         if need > limit:
             cand = {"variant": "pipelined",
                     "config": {"block_q": bq, "block_k": bk}}
-            assert fac._sane_fwd_spec(cand, shape[1], shape[1], d, dtype,
-                                      True, True, limit) == ("base", 64, 64)
+            # candidate [0]: the tensor-core forward in bf16, A in f32
+            assert fac._sane_fwd_spec(
+                cand, shape[1], shape[1], d, dtype, True, True,
+                limit) == fac._fwd_specs(shape[1], shape[1], d, dtype,
+                                         True)[0]
             continue
         q, k, v = (torch.from_numpy(a).to("cuda", dtype)
                    for a in _qkv(shape, seed=30))
@@ -632,4 +639,226 @@ def test_split_bf16_runs_are_bit_identical(d):
     first = _split_launch(q, k, v, do, lse, delta, True, d ** -0.5)
     again = _split_launch(q, k, v, do, lse, delta, True, d ** -0.5)
     for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def _fused_qkv(shape, dtype, seed):
+    """q, k, v as (B, S, H, D) slices of one fused (B, S, 3 H D) projection,
+    as the model hands them over: dense heads, sequence stride 3 H D."""
+    b, s, h, d = shape
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * d))
+                           .astype(np.float32)).to("cuda", dtype)
+    return [qkv[:, :, i * h * d:(i + 1) * h * d].view(b, s, h, d)
+            for i in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tc_forward_matches_plain(d, dtype, causal):
+    """The tensor-core forward at each of its tiles against its plain
+    version (p rounded to the input dtype before p.v, at the same tiles):
+    out within one ulp of |ref| plus 1/64 of the RMS, lse within 1e-3;
+    q/k/v strided slices of one fused projection and contiguous ones; S
+    384 takes every tile, S 192 only the 64-row ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for shape in [(2, 384, 3, d), (1, 192, 2, d)]:
+        fused = _fused_qkv(shape, dtype, seed=60 + d)
+        for q, k, v in (fused, [t.contiguous() for t in fused]):
+            for bq, bk in fac._TC_FWD_BLOCKS[d]:
+                if shape[1] % bq:
+                    continue
+                before = fac.flash_fwd_tc_launches
+                out, lse = fac._launch_tc(q, k, v, causal, d ** -0.5, True,
+                                          bq, bk)
+                torch.cuda.synchronize()
+                assert fac.flash_fwd_tc_launches == before + 1
+                ref, ref_lse = fac._flash_tc_reference(q, k, v, causal,
+                                                       d ** -0.5, bq, bk)
+                assert out.dtype == dtype and out.shape == q.shape
+                _close(out, ref, dtype, "tc fwd %s %s tiles %s"
+                       % (shape, dtype, (bq, bk)))
+                torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_tc_forward_default_route_and_unaligned_rows():
+    """A bf16 call with no pin takes the tensor-core forward at candidate
+    [0] (never kernel A, which has no bf16); rows that do not start on 16
+    bytes are copied to aligned ones first; out=None without lse."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shape = (1, 256, 2, 64)
+    n = 256 * 2 * 64
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(1, np.float32)] + [a.ravel() for a in
+                                     _qkv(shape, seed=70)])).to(
+        "cuda", torch.bfloat16)
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(shape)
+               for i in range(3))
+    assert not fac._aligned(q)
+    counts = (fac.flash_fwd_launches, fac.flash_fwd_tc_launches)
+    out = fac.flash_attention_bshd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (fac.flash_fwd_launches - counts[0],
+            fac.flash_fwd_tc_launches - counts[1]) == (0, 1)
+    ref, _ = fac._flash_tc_reference(q, k, v, True, 0.125, 128, 128)
+    _close(out, ref, torch.bfloat16, "unaligned tc fwd")
+    with pytest.raises(TypeError, match="float32"):
+        fac._launch(q, k, v, True, 0.125, False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_split_fp16_kernels_match_plain(d, causal):
+    """fp16 C2 and C3 on the tensor cores (f32.f16.f16 products) against
+    the plain backward, which rounds P and dS to fp16 where they do, each
+    tile pinned; the default route of an fp16 backward is the split one,
+    and C1 refuses fp16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for shape in [(2, 256, 4, d), (1, 192, 2, d)]:
+        q, k, v, do, out, lse, delta = _split_case(shape, 80, causal,
+                                                   dtype=torch.float16)
+        scale = d ** -0.5
+        ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal, scale)
+        for block in fac._TC_BLOCKS[d]:
+            if shape[1] % block:
+                continue
+            got = _split_launch(q, k, v, do, lse, delta, causal, scale,
+                                block=block)
+            for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+                assert g.dtype == torch.float16 and g.shape == q.shape
+                _close(g, r, torch.float16, "fp16 split %s %s tile %d"
+                       % (name, shape, block))
+        counts = (fac.flash_bwd_launches, fac.flash_bwd_dq_launches)
+        fac.flash_attention_bwd(q, k, v, out, lse, do, causal, scale)
+        assert (fac.flash_bwd_launches - counts[0],
+                fac.flash_bwd_dq_launches - counts[1]) == (0, 1)
+        with pytest.raises(TypeError, match="merged"):
+            fac.flash_attention_bwd(q, k, v, out, lse, do, causal, scale,
+                                    route="merged")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.float16])
+def test_layer_norm_kernels_fp16_match_plain(w_dtype):
+    """Kernels B and D on fp16 x (fp16 or f32 gamma / beta) against their
+    plain versions: out and dx within one fp16 ulp of |ref| plus a small
+    share of the RMS, the f32 statistics as in bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for shape in [(8, 1024), (200, 1024), (24, 136)]:
+        x, g, b = _ln_inputs(shape, seed=90)
+        do = _ln_inputs(shape, seed=91)[0]
+        x, do = (torch.from_numpy(a).to("cuda", torch.float16)
+                 for a in (x, do))
+        g, b = (torch.from_numpy(a).to("cuda", w_dtype) for a in (g, b))
+        counts = (norm_cuda.layer_norm_fwd_launches,
+                  norm_cuda.layer_norm_bwd_launches)
+        out, mean, rstd = norm_cuda.layer_norm_fwd(x, g, b)
+        got = norm_cuda.layer_norm_bwd(x, g, mean, rstd, do)
+        torch.cuda.synchronize()
+        assert (norm_cuda.layer_norm_fwd_launches - counts[0],
+                norm_cuda.layer_norm_bwd_launches - counts[1]) == (1, 1)
+        r_out, r_mean, r_rstd = norm_cuda._layer_norm_reference(x, g, b,
+                                                                1e-5)
+        _close(out, r_out, torch.float16, "fp16 ln out %s" % (shape,))
+        torch.testing.assert_close(mean, r_mean, atol=1e-5, rtol=0)
+        torch.testing.assert_close(rstd, r_rstd, atol=1e-4, rtol=1e-5)
+        ref = norm_cuda._layer_norm_bwd_reference(x, g, mean, rstd, do)
+        for name, a, r in zip(("dx", "dgamma", "dbeta"), got, ref):
+            assert a.dtype == r.dtype
+            _close(a, r, a.dtype, "fp16 ln %s %s" % (name, shape))
+
+
+def _fp16_steps(model, ids, steps):
+    """``steps`` eager AdamW steps of an AMP O2 fp16 GPT under a
+    GradScaler: the losses, and whether any step was skipped."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 12)
+    crit = GPTPretrainingCriterion()
+    losses, skipped = [], []
+    for _ in range(steps):
+        loss = crit(model(ids), ids)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        skipped.append(scaler.last_step_skipped)
+    return losses, skipped
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_norm", [False, True])
+def test_fp16_gpt_steps_on_the_tensor_core_kernels(use_norm, monkeypatch):
+    """The open fault's case: a GPT under amp.decorate(level="O2",
+    dtype="float16") trains on the card through the flash route (the
+    tensor-core forward, C2 and C3; never kernel A or C1), with
+    use_pallas_norm both ways (B and D on fp16 activations).  Its first
+    loss is finite and within 0.5 (chip_smoke.py's FIRST_LOSS_TOL) of the
+    bf16 model's from the same weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import copy
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.utils import flags
+    monkeypatch.setitem(flags._REGISTRY, "use_pallas_norm", use_norm)
+    cfg = GPTConfig(vocab_size=1024, max_position_embeddings=256,
+                    hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=512,
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    base = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(3))
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 256))).cuda()
+    with torch.no_grad():
+        bf16 = amp.decorate(copy.deepcopy(base), level="O2",
+                            dtype="bfloat16").cuda()
+        from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+        bf16_loss = float(GPTPretrainingCriterion()(bf16(ids), ids))
+    model = amp.decorate(copy.deepcopy(base), level="O2",
+                         dtype="float16").cuda()
+    names = ("flash_fwd_launches", "flash_fwd_tc_launches",
+             "flash_bwd_launches", "flash_bwd_dq_launches",
+             "flash_bwd_dkv_launches")
+    before = [getattr(fac, n) for n in names]
+    ln_before = (norm_cuda.layer_norm_fwd_launches,
+                 norm_cuda.layer_norm_bwd_launches)
+    losses, skipped = _fp16_steps(model, ids, 3)
+    torch.cuda.synchronize()
+    launched = [getattr(fac, n) - b for n, b in zip(names, before)]
+    layers = cfg.num_hidden_layers
+    assert launched == [0, 3 * layers, 0, 3 * layers, 3 * layers], launched
+    n_ln = (2 * layers + 1) * 3 if use_norm else 0
+    assert (norm_cuda.layer_norm_fwd_launches - ln_before[0],
+            norm_cuda.layer_norm_bwd_launches - ln_before[1]) == (n_ln, n_ln)
+    assert all(np.isfinite(losses)) and not any(skipped), (losses, skipped)
+    assert abs(losses[0] - bf16_loss) < 0.5, (losses[0], bf16_loss)
+
+
+@pytest.mark.gpu
+def test_bf16_default_backward_is_bit_identical():
+    """The default bf16 backward is the split pair, which sums without
+    atomics: two runs through autograd give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shape = (2, 512, 4, 64)
+    q, k, v = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+               for a in _qkv(shape, seed=95))
+    ct = torch.from_numpy(_qkv(shape, seed=96)[0]).to("cuda", torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fac.flash_attention_bshd(*leaves, causal=True)
+        runs.append(torch.autograd.grad(out, leaves, ct))
+    for a, b in zip(*runs):
         assert torch.equal(a, b)

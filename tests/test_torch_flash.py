@@ -64,8 +64,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     bhsd = q.transpose(1, 2).contiguous().transpose(1, 2)  # (H, D) not dense
     with pytest.raises(ValueError, match="dense"):
         fac.flash_attention_bshd(bhsd, k, v)
+    # float16 is taken since the tensor-core forward; float64 never is
     with pytest.raises(TypeError, match="dtype"):
-        fac.flash_attention_bshd(q.half(), k.half(), v.half())
+        fac.flash_attention_bshd(q.double(), k.double(), v.double())
     with pytest.raises(TypeError, match="dtypes differ"):
         fac.flash_attention_bshd(q, k.to(torch.bfloat16), v)
     d32 = torch.zeros(1, 128, 2, 32)

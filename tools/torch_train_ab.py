@@ -10,9 +10,8 @@ process builds that checkout's CUDA kernels and trains through that
 checkout's ``jit.TrainStep``: GPT-2 345M at full width (24 layers,
 hidden 1024, 16 heads of 64), max_position_embeddings at least S,
 seeded random weights, dropout 0, AMP O2 bf16, AdamW, one seeded (B, S)
-batch.  The default shape (1, 16384) is chip_smoke.py's train_long, whose
-backward takes the split flash kernels; (8, 1024) is its train, which
-takes the merged one.  It takes N steps (default 3; ms over steps 2..N
+batch.  The default shape (1, 16384) is chip_smoke.py's train_long;
+(8, 1024) is its train.  It takes N steps (default 3; ms over steps 2..N
 on the host clock, the launch counts of all N), then one more step timed
 part by part on the stream.  Tuning is off, with no pin and an autotune
 cache of the run's own.  One JSON line per run, then the card's name and
