@@ -62,7 +62,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               kernel A and C1 never.
 9. train_norm — 3 steps with ``use_pallas_norm`` on from the same
               weights: kernels B and D launch 49 times a step; the first
-              loss held against the default route's.
+              loss held against the default route's; a profile of 2
+              steps.
 10. train_ce — 3 steps with ``use_pallas_ce`` on (E2 and E3 once a
               step), then 3 with ``use_pallas_lse`` (E1 once a step), from
               the same weights and batch; first losses held against the
@@ -108,6 +109,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -296,6 +299,36 @@ def dtype_name(dtype):
     return str(dtype).replace("torch.", "")
 
 
+def ptxas_usage(log, pattern):
+    """[{kernel, registers, spill_stores, spill_loads}] of every kernel
+    whose name holds ``pattern``, from the ``-Xptxas -v`` lines of a
+    build log (names demangled where ``c++filt`` is found)."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)} if pattern in m.group(1) else None
+            if cur:
+                rows.append(cur)
+            continue
+        m = cur and re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = cur and re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    filt = shutil.which("c++filt")
+    if rows and filt:
+        names = subprocess.run(
+            [filt], input="\n".join(r["kernel"] for r in rows),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        for r, name in zip(rows, names):
+            m = re.search(r"(\w+<[^()]*>)\(", name)
+            r["kernel"] = m.group(1) if m else name
+    return rows
+
+
 def fused_qkv(torch, b, s, h, d, dtype, gen):
     """q/k/v as slices of one fused projection, as the model has them."""
     qkv = torch.randn((b, s, 3 * h * d), generator=gen,
@@ -416,9 +449,11 @@ def fwd_row(rows, kernel, shape, dtype="bfloat16", causal=True):
             and r["dtype"] == dtype and r["causal"] == causal][0]
 
 
-def check_layer_norm(torch, norm_cuda, dtype=None, sizes=(8, 128, 8192)):
+def check_layer_norm(torch, norm_cuda, dtype=None,
+                     sizes=(8, 128, 8192, 16384)):
     """Kernel B against its plain version, bf16 x (or ``dtype``) and f32
-    gamma / beta, at the decode, prefill and training (8 x 1024) rows."""
+    gamma / beta, at the decode, prefill, training (8 x 1024) and
+    train_long (16384) rows."""
     import torch.nn.functional as tF
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -481,14 +516,16 @@ def flash_case(torch, fac, b, s, h, d, causal, gen, dtype=None):
     return q, k, v, do, out, lse
 
 
-def bwd_bound(b, s, h, d, causal, products, n_tensors):
+def bwd_bound(b, s, h, d, causal, products, n_tensors, f32=False):
     """Bound of a backward kernel: ``products`` (S x S x D) products and
-    ``n_tensors`` bf16 (B, S, H, D) tensors read or written (q, k, v, dO
-    in; dq and/or dk, dv out), plus the f32 lse and delta rows."""
+    ``n_tensors`` bf16 (f32 when ``f32``) (B, S, H, D) tensors read or
+    written (q, k, v, dO in; dq and/or dk, dv out), plus the f32 lse and
+    delta rows; products at the tensor cores' bf16 rate, or the FMAs' f32
+    one."""
     pairs = s * (s + 1) / 2 if causal else s * s
     flops = products * 2 * b * h * d * pairs
-    nbytes = n_tensors * b * s * h * d * 2 + 2 * b * s * h * 4
-    return bound(nbytes, flops, BF16_FLOPS)
+    nbytes = n_tensors * b * s * h * d * (4 if f32 else 2) + 2 * b * s * h * 4
+    return bound(nbytes, flops, F32_FLOPS if f32 else BF16_FLOPS)
 
 
 def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
@@ -538,8 +575,9 @@ def check_flash_bwd(torch, fac):
     training shape (8, 1024, 16, 64) causal, head dim 128 at (1, 1024, 8,
     128) causal and head dim 256 at (1, 1024, 4, 256) causal (C1 with
     32-row FMA tiles), all timed; then f32 (C1 and the FMA C2 / C3, each
-    route) and fp16 (the tensor-core C2 / C3) cases, untimed; then one
-    with-lse case."""
+    route) and fp16 (the tensor-core C2 / C3) cases, untimed but for f32
+    at the training shape (C1 and the FMA C2 / C3 against SDPA's f32
+    backward); then one with-lse case."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -550,6 +588,7 @@ def check_flash_bwd(torch, fac):
                                         (1, 1024, 8, 128, True, bf16),
                                         (1, 1024, 4, 256, True, bf16),
                                         (1, 1024, 16, 64, True, f32),
+                                        (8, 1024, 16, 64, True, f32),
                                         (1, 256, 4, 256, False, f32),
                                         (8, 1024, 16, 64, True, f16),
                                         (1, 1024, 8, 128, False, f16),
@@ -581,7 +620,7 @@ def check_flash_bwd(torch, fac):
                         % (kern, name, name16, (b, s, h, d), causal, err,
                            rms))
                 worst[kern] = max(worst[kern], err)
-        if dtype != bf16:
+        if dtype == f16 or dtype == f32 and b == 1:
             rows.append(row)
             continue
         row.update(time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal,
@@ -590,7 +629,7 @@ def check_flash_bwd(torch, fac):
                                         ("flash_bwd_dq", 3, 5),
                                         ("flash_bwd_dkv", 4, 6)):
             row[kern + "_bound_ms"], row[kern + "_bound_by"] = bwd_bound(
-                b, s, h, d, causal, products, tensors)
+                b, s, h, d, causal, products, tensors, dtype == f32)
         rows.append(row)
     # with lse: a nonzero lse cotangent folds in as delta - dlse
     q, k, v, do, out, lse = flash_case(torch, fac, 1, 256, 16, 64, True,
@@ -725,10 +764,39 @@ def check_flash_long(torch, fac):
     return out_row, long_row
 
 
+def check_f32_long(torch, fac):
+    """Kernel A in f32 at S = 16384: against its plain version at 2 heads,
+    with its times, the plain version's and SDPA's; then the times of A
+    and SDPA at train_long's 16 heads, where the plain version would not
+    fit."""
+    import torch.nn.functional as tF
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f32 = torch.float32
+    rows = [check_fwd_case(torch, fac, tF, 1, 16384, 2, 64, True, f32, gen,
+                           reps=3, inner=2)]
+    torch.cuda.empty_cache()
+    q, k, v = fused_qkv(torch, 1, 16384, 16, 64, f32, gen)
+    row = {"shape": [1, 16384, 16, 64], "causal": True, "dtype": "float32",
+           "kernel": "flash_fwd"}
+    time_kernel(torch, row, "kernel",
+                lambda: fac.flash_attention_bshd(q, k, v, True),
+                "flash_fwd_kernel", reps=3, inner=2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    time_kernel(torch, row, "library",
+                lambda: tF.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True),
+                None, reps=3, inner=2)
+    row["bound_ms"], row["bound_by"] = fwd_bound(1, 16384, 16, 64, True, f32)
+    rows.append(row)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
 PIPELINED_CASES = [
     # (b, s, h, d, causal, dtype name): the serving prefill, the training
     # shape, S=16384 at 2 heads (where the plain version fits), one
-    # non-causal case, D 128 and 256, one f32 case
+    # non-causal case, D 128 and 256, f32 at S=1024 and the training shape
     (1, 128, 16, 64, True, "bfloat16"),
     (8, 1024, 16, 64, True, "bfloat16"),
     (1, 16384, 2, 64, True, "bfloat16"),
@@ -736,6 +804,7 @@ PIPELINED_CASES = [
     (1, 1024, 8, 128, True, "bfloat16"),
     (1, 1024, 4, 256, True, "bfloat16"),
     (1, 1024, 16, 64, True, "float32"),
+    (8, 1024, 16, 64, True, "float32"),
 ]
 
 
@@ -816,9 +885,13 @@ def check_pipelined(torch, fac, at, lib):
     return rows, worst, refused
 
 
-def check_layer_norm_bwd(torch, norm_cuda, dtype=None, sizes=(8192, 128)):
+def check_layer_norm_bwd(torch, norm_cuda, dtype=None,
+                         sizes=(8192, 16384, 128)):
     """Kernel D against the plain backward at (8192, 1024), the training
-    shape, and (128, 1024): bf16 x / dO (or ``dtype``), f32 gamma."""
+    shape, (16384, 1024), train_long's rows, and (128, 1024): bf16 x / dO
+    (or ``dtype``), f32 gamma.  D is two launches, the rows pass
+    (``layer_norm_bwd_kernel``) and the reduction of its partial sums
+    (``layer_norm_bwd_reduce_kernel``), each timed on its own too."""
     import torch.nn.functional as tF
     dtype = dtype or torch.bfloat16
     name16 = dtype_name(dtype)
@@ -861,7 +934,6 @@ def check_layer_norm_bwd(torch, norm_cuda, dtype=None, sizes=(8192, 128)):
         for name, fn in runs.items():
             row[name + "_ms"] = time_ms(fn, torch)
             row[name + "_device_ms"] = device_ms(fn, torch)
-        # D is two launches: the rows' pass and the partials' reduction
         times = device_times(runs["kernel"], torch)
         row["rows_pass_device_ms"] = kernel_ms(times,
                                                "layer_norm_bwd_kernel")
@@ -1199,13 +1271,17 @@ def train_norm(torch, base, amp, counters, flags, first_loss, steps=3):
         ids = torch.as_tensor(np.random.default_rng(0).integers(
             0, base.config.vocab_size, (8, 1024)), device="cuda")
         losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+        # device time a step, which a host stall in the 2 timed steps
+        # does not move
+        profile = profile_steps(torch, step, ids)
     finally:
         flags.set_flags({"use_pallas_norm": False})
     line = {"phase": "train_norm", "steps": steps, "step_ms": ms,
             "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
             "first_loss_default_route": first_loss,
             "first_loss_diff": abs(losses[0] - first_loss),
-            "tolerance": NORM_ROUTE_LOSS_TOL, "launches": launches}
+            "tolerance": NORM_ROUTE_LOSS_TOL, "launches": launches,
+            "profile": profile}
     emit(line)
     n_ln = 2 * base.config.num_hidden_layers + 1
     layers = base.config.num_hidden_layers
@@ -1833,12 +1909,20 @@ def main():
     kind = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
-    lib_path, log = _build.build(ptxas_info="--ptxas" in sys.argv)
+    # a fresh build reports every kernel's registers and spills
+    lib_path, log = _build.build(
+        ptxas_info="--ptxas" in sys.argv
+        or not _build.library_path().is_file())
     _build.library()
+    ln_ptxas = ptxas_usage(log, "layer_norm")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib_path.name)})
+          "library": str(lib_path.name), "layer_norm_ptxas": ln_ptxas})
     if log and "--ptxas" in sys.argv:
         print(log, file=sys.stderr)
+    spilled = [r for r in ln_ptxas if r.get("spill_stores")
+               or r.get("spill_loads")]
+    if spilled:
+        raise AssertionError("LayerNorm kernels spill: %r" % spilled)
     # every phase but the autotune ones runs with tuning off, no pin and
     # an autotune cache of this run's own (empty until the autotune phase
     # fills it), so no file of the user's steers or receives anything
@@ -1866,8 +1950,9 @@ def main():
           "layer_norm_bwd": ln_bwd_rows,
           "layer_norm_bwd_fp16": ln16_bwd_rows})
     long_plain_row, long_row = check_flash_long(torch, fac)
+    f32_long_rows = check_f32_long(torch, fac)
     emit({"phase": "checks_long", "against_plain": long_plain_row,
-          "split_vs_merged": long_row})
+          "split_vs_merged": long_row, "flash_fwd_f32": f32_long_rows})
     seconds["checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pipe_rows, pipe_err, pipe_refused = check_pipelined(
@@ -2021,17 +2106,23 @@ def main():
                       "float32")
     # A' on the main path: train_pipelined's (8, 1024) step, 64 x 64 tiles
     pipe_train = [r for r in pipe_rows if r["shape"] == [8, 1024, 16, 64]
-                  and r["blocks"] == [64, 64]][0]
+                  and r["blocks"] == [64, 64] and r["dtype"] == "bfloat16"][0]
     decode_row = ln_rows[0]                # (8, 1024)
-    train_ln_row = ln_rows[-1]             # (8192, 1024)
     train_bwd_row = [r for r in bwd_rows
                      if r["shape"] == [8, 1024, 16, 64]
                      and r["dtype"] == "bfloat16"][0]
+    train_bwd_f32_row = [r for r in bwd_rows
+                         if r["shape"] == [8, 1024, 16, 64]
+                         and r["dtype"] == "float32"][0]
     d128_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 8, 128]
                 and r["dtype"] == "bfloat16"][0]
     d256_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 4, 256]
                 and r["dtype"] == "bfloat16"][0]
     ln_bwd_row = ln_bwd_rows[0]            # (8192, 1024)
+    ln_cols = ("shape", "kernel_ms", "kernel_device_ms", "plain_ms",
+               "plain_device_ms", "bound_ms", "library_ms",
+               "library_device_ms")
+    ln_bwd_cols = ln_cols + ("rows_pass_device_ms", "reduce_device_ms")
     parity_by = {next(iter(line["flags"]), "default"): line["launches"]
                  for line in parity}
     tc_launches = {"serve": run_default["launches"]["flash_fwd_tc"],
@@ -2075,7 +2166,12 @@ def main():
             "library_device_ms": src_row["library_device_ms"],
             "at_d256": {k: d256_row[k] for k in (
                 "shape", kern + "_ms", kern + "_device_ms",
-                kern + "_bound_ms", "library_ms", "library_device_ms")}}
+                kern + "_bound_ms", "library_ms", "library_device_ms")},
+            # f32: C1 and the FMA C2 / C3 of csrc/flash_bwd.cu
+            "at_train_f32": {k: train_bwd_f32_row[k] for k in (
+                "shape", "dtype", kern + "_ms", kern + "_device_ms",
+                kern + "_bound_ms", kern + "_bound_by", "plain_ms",
+                "plain_device_ms", "library_ms", "library_device_ms")}}
         if kern != "flash_bwd":
             for name, row in (("at_train", train_bwd_row),
                               ("at_d128", d128_row)):
@@ -2161,7 +2257,10 @@ def main():
          "bound_by": a_prefill["bound_by"],
          "library_ms": a_prefill["library_ms"],
          "library_device_ms": a_prefill["library_device_ms"],
-         "at_train": dict(fwd_cols(a_train), plain_ms=a_train["plain_ms"])},
+         "at_train": dict(fwd_cols(a_train), plain_ms=a_train["plain_ms"]),
+         "at_s16384": [dict(fwd_cols(r), plain_ms=r.get("plain_ms"),
+                            plain_device_ms=r.get("plain_device_ms"))
+                       for r in f32_long_rows]},
         {"name": "flash_fwd_pipelined", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd_pipelined.cu",
          "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:519",
@@ -2203,12 +2302,12 @@ def main():
          "bound_ms": decode_row["bound_ms"],
          "bound_by": decode_row["bound_by"],
          "library_ms": decode_row["library_ms"],
-         "at_train": {k: train_ln_row[k] for k in (
-             "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
-             "bound_ms", "library_ms")},
-         "at_train_fp16": {k: ln16_rows[0][k] for k in (
-             "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
-             "bound_ms", "library_ms")}},
+         "shape": decode_row["shape"],
+         "library_device_ms": decode_row["library_device_ms"],
+         "at_other_rows": [{k: r[k] for k in ln_cols}
+                           for r in ln_rows if r is not decode_row],
+         "at_train_fp16": {k: ln16_rows[0][k] for k in ln_cols},
+         "ptxas": [r for r in ln_ptxas if "fwd" in r["kernel"]]},
         bwd_entry("flash_bwd", train_bwd_row, train_bwd_row,
                   f32_path["flash_bwd"],
                   {"train_parity_f32": f32_path["flash_bwd"],
@@ -2238,9 +2337,13 @@ def main():
          "bound_ms": ln_bwd_row["bound_ms"],
          "bound_by": ln_bwd_row["bound_by"],
          "library_ms": ln_bwd_row["library_ms"],
-         "at_train_fp16": {k: ln16_bwd_rows[0][k] for k in (
-             "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
-             "bound_ms", "library_ms")}},
+         "library_device_ms": ln_bwd_row["library_device_ms"],
+         "rows_pass_device_ms": ln_bwd_row["rows_pass_device_ms"],
+         "reduce_device_ms": ln_bwd_row["reduce_device_ms"],
+         "at_other_rows": [{k: r[k] for k in ln_bwd_cols}
+                           for r in ln_bwd_rows if r is not ln_bwd_row],
+         "at_train_fp16": {k: ln16_bwd_rows[0][k] for k in ln_bwd_cols},
+         "ptxas": [r for r in ln_ptxas if "bwd" in r["kernel"]]},
         ce_entry("ce_lse", 188, run_lse["launches"]["ce_lse"],
                  {"train_ce_use_pallas_lse": run_lse["launches"]["ce_lse"],
                   "train_parity_use_pallas_lse":

@@ -3,19 +3,35 @@
 // Replaces paddle_tpu/kernels/norm_pallas.py:_ln_fwd_kernel: for each row
 // of x (R, F) it writes out = (x - mean) * rstd * gamma + beta in x's
 // dtype, and the f32 row statistics mean and rstd, with the one-pass
-// variance E[x^2] - mean^2 of the TPU kernel.
+// variance E[x^2] - mean^2 of the TPU kernel and f32 arithmetic.
 //
-// Design.  The TPU kernel normalises a (block_rows, F) tile per grid step
-// out of VMEM.  Here one warp owns one row: every lane reads 16 bytes at a
-// time (8 bf16 or 4 f32 values, neighbouring lanes on neighbouring
-// addresses), the two f32 sums reduce through warp shuffles, and a second
-// sweep over the row (served from L1/L2) writes the output with 16-byte
-// stores.  Eight rows per 256-thread block.
+// Bound on the H100 SXM (3.35 TB/s): the kernel must read x once and
+// write out once, plus gamma, beta and the statistics.  At the training
+// shape (8192, 1024) bf16 with f32 gamma / beta that is 33.6 MB, 10.0 us;
+// at the decode shape (8, 1024) 41 KB, 0.012 us, so there the launch and
+// one round trip to memory are all that is left.
 //
-// Bound on the H100 SXM (3.35 TB/s): at the decode shape (8, 1024) bf16
-// with f32 gamma/beta the kernel must move ~41 KB (~0.01 us), and at the
-// prefill shape (128, 1024) ~0.53 MB (~0.16 us); launch overhead, not the
-// memory, dominates both.
+// Design.  A row is cut into packs of 8 columns (16 bytes of a 16-bit x,
+// two 16-byte words of f32), and a group of G threads owns a row: thread t
+// holds packs t, t + G, ... in registers, NP of them at most (a template
+// parameter).  Every 16-byte load of the row's x, gamma and beta is issued
+// before the first sum; mean and rstd come from those registers (warp
+// shuffles, then a few shared-memory words across the group's warps), and
+// out is written from them with 16-byte stores.  So x is read from device
+// memory once, and gamma / beta are read with 16-byte vector loads.  The
+// launch plan (host side, below): with many rows (>= kManyRows) and F <=
+// 1024 one warp owns a row (G = 32, NP <= 4, 4 rows a block); with few
+// rows, as at decode (8) and prefill (128), or wider rows, a row gets 128
+// threads (G = 128: one pack a thread at F = 1024, so the 8 decode rows
+// sit on 8 SMs and a call is one load round, one reduction and one store)
+// or, above F = 4096, 256.  The register plan ends at F = kPlanMaxCols =
+// 8192 (NP = 4 at G = 256); wider rows take layer_norm_fwd_stream_kernel,
+// one warp a row sweeping it twice (the second read from L1/L2).
+//
+// What this design does about the first port's faults: x was read twice
+// (a statistics sweep and an output sweep) with about one 16-byte load in
+// flight per sweep and lane, gamma / beta were read one element at a time,
+// and the decode shape ran as one block on one SM.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -25,7 +41,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = kThreads / 32;
+constexpr int kPack = 8;             // columns of one pack
+constexpr int kMaxNP = 4;            // packs a thread holds at most
+constexpr int kManyRows = 1024;      // rows from which a warp owns a row
+constexpr int kPlanMaxCols = kPack * kMaxNP * kThreads;   // 8192
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -46,51 +65,158 @@ __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half(x);
 }
 
-template <typename TX, typename TW>
+// 8 consecutive elements of T, moved with 16-byte loads and stores (one
+// for a 16-bit T, two for f32)
+template <typename T>
+struct Pack {
+  static constexpr int kWords = sizeof(T) * kPack / 16;
+  alignas(16) T v[kPack];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i)
+      reinterpret_cast<uint4*>(v)[i] = reinterpret_cast<const uint4*>(p)[i];
+  }
+  __device__ __forceinline__ void store(T* p) const {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i)
+      reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(v)[i];
+  }
+  __device__ __forceinline__ float operator[](int e) const {
+    return to_float(v[e]);
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Grid: one block per 4 rows when WPR == 1 (a warp each), else one block
+// of 32 * WPR threads per row.
+template <typename TX, typename TW, int WPR, int NP>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ gamma,
                       const TW* __restrict__ beta, TX* __restrict__ out,
                       float* __restrict__ mean, float* __restrict__ rstd,
                       int rows, int cols, float eps) {
-  constexpr int V = 16 / sizeof(TX);
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  constexpr int G = 32 * WPR;
+  __shared__ float red[WPR][2];
+  const int t = threadIdx.x % G;
+  const int row = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  // a row's threads leave together: with WPR > 1 the block is one row
   if (row >= rows) return;
-  const TX* xr = x + (long long)row * cols;
-  TX* orow = out + (long long)row * cols;
+  const int packs = cols / kPack;
+  const long long base = (long long)row * cols;
 
-  float sum = 0.f, sq = 0.f;
-  for (int c = lane * V; c < cols; c += 32 * V) {
-    alignas(16) TX vx[V];
-    *reinterpret_cast<uint4*>(vx) = *reinterpret_cast<const uint4*>(xr + c);
+  Pack<TX> xv[NP];
+  Pack<TW> gv[NP], bv[NP];
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const float f = to_float(vx[e]);
-      sum += f;
-      sq = fmaf(f, f, sq);
+  for (int i = 0; i < NP; ++i) {
+    const int p = t + i * G;
+    if (p < packs) {
+      xv[i].load(x + base + p * kPack);
+      gv[i].load(gamma + p * kPack);
+      bv[i].load(beta + p * kPack);
     }
   }
+  float sum = 0.f, sq = 0.f;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  for (int i = 0; i < NP; ++i) {
+    if (t + i * G < packs) {
+#pragma unroll
+      for (int e = 0; e < kPack; ++e) {
+        const float f = xv[i][e];
+        sum += f;
+        sq = fmaf(f, f, sq);
+      }
+    }
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  if (WPR > 1) {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      red[warp][0] = sum;
+      red[warp][1] = sq;
+    }
+    __syncthreads();
+    sum = sq = 0.f;
+#pragma unroll
+    for (int w = 0; w < WPR; ++w) {
+      sum += red[w][0];
+      sq += red[w][1];
+    }
   }
   const float inv_n = 1.f / (float)cols;
   const float mu = sum * inv_n;
   const float var = sq * inv_n - mu * mu;
   const float rs = rsqrtf(var + eps);
 
-  for (int c = lane * V; c < cols; c += 32 * V) {
-    alignas(16) TX vx[V];
-    alignas(16) TX vo[V];
-    *reinterpret_cast<uint4*>(vx) = *reinterpret_cast<const uint4*>(xr + c);
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const float xh = (to_float(vx[e]) - mu) * rs;
-      vo[e] = from_float<TX>(xh * to_float(gamma[c + e]) +
-                             to_float(beta[c + e]));
+  for (int i = 0; i < NP; ++i) {
+    const int p = t + i * G;
+    if (p < packs) {
+      Pack<TX> o;
+#pragma unroll
+      for (int e = 0; e < kPack; ++e) {
+        const float xh = (xv[i][e] - mu) * rs;
+        o.v[e] = from_float<TX>(xh * gv[i][e] + bv[i][e]);
+      }
+      o.store(out + base + p * kPack);
     }
-    *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<const uint4*>(vo);
+  }
+  if (t == 0) {
+    mean[row] = mu;
+    rstd[row] = rs;
+  }
+}
+
+// Rows wider than the register plan: one warp per row, a statistics sweep
+// and an output sweep over its packs.  8 rows a block.
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_fwd_stream_kernel(const TX* __restrict__ x,
+                             const TW* __restrict__ gamma,
+                             const TW* __restrict__ beta, TX* __restrict__ out,
+                             float* __restrict__ mean,
+                             float* __restrict__ rstd, int rows, int cols,
+                             float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int packs = cols / kPack;
+  const long long base = (long long)row * cols;
+  float sum = 0.f, sq = 0.f;
+  for (int p = lane; p < packs; p += 32) {
+    Pack<TX> xv;
+    xv.load(x + base + p * kPack);
+#pragma unroll
+    for (int e = 0; e < kPack; ++e) {
+      const float f = xv[e];
+      sum += f;
+      sq = fmaf(f, f, sq);
+    }
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  const float inv_n = 1.f / (float)cols;
+  const float mu = sum * inv_n;
+  const float var = sq * inv_n - mu * mu;
+  const float rs = rsqrtf(var + eps);
+  for (int p = lane; p < packs; p += 32) {
+    Pack<TX> xv, o;
+    Pack<TW> gv, bv;
+    xv.load(x + base + p * kPack);
+    gv.load(gamma + p * kPack);
+    bv.load(beta + p * kPack);
+#pragma unroll
+    for (int e = 0; e < kPack; ++e) {
+      const float xh = (xv[e] - mu) * rs;
+      o.v[e] = from_float<TX>(xh * gv[e] + bv[e]);
+    }
+    o.store(out + base + p * kPack);
   }
   if (lane == 0) {
     mean[row] = mu;
@@ -98,55 +224,78 @@ layer_norm_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ gamma,
   }
 }
 
+struct Args {
+  const void* x;
+  const void* g;
+  const void* b;
+  void* out;
+  float* mean;
+  float* rstd;
+  int rows, cols;
+  float eps;
+  cudaStream_t stream;
+};
+
+template <typename TX, typename TW, int WPR, int NP>
+int launch_reg(const Args& a) {
+  const int rows_per_block = WPR == 1 ? 4 : 1;
+  const int blocks = (a.rows + rows_per_block - 1) / rows_per_block;
+  layer_norm_fwd_kernel<TX, TW, WPR, NP>
+      <<<blocks, 32 * WPR * rows_per_block, 0, a.stream>>>(
+          static_cast<const TX*>(a.x), static_cast<const TW*>(a.g),
+          static_cast<const TW*>(a.b), static_cast<TX*>(a.out), a.mean,
+          a.rstd, a.rows, a.cols, a.eps);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan of the head note: threads per row and packs a thread.
 template <typename TX, typename TW>
-int launch(const void* x, const void* g, const void* b, void* out,
-           float* mean, float* rstd, int rows, int cols, float eps,
-           cudaStream_t stream) {
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  layer_norm_fwd_kernel<TX, TW><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(g),
-      static_cast<const TW*>(b), static_cast<TX*>(out), mean, rstd, rows,
-      cols, eps);
+int launch(const Args& a) {
+  const int packs = a.cols / kPack;
+  if (packs <= 32 * kMaxNP && (a.rows >= kManyRows || packs <= 32)) {
+    if (packs <= 32) return launch_reg<TX, TW, 1, 1>(a);
+    if (packs <= 64) return launch_reg<TX, TW, 1, 2>(a);
+    return launch_reg<TX, TW, 1, 4>(a);
+  }
+  if (packs <= 128 * kMaxNP) {
+    if (packs <= 128) return launch_reg<TX, TW, 4, 1>(a);
+    if (packs <= 256) return launch_reg<TX, TW, 4, 2>(a);
+    return launch_reg<TX, TW, 4, 4>(a);
+  }
+  if (a.cols <= kPlanMaxCols) return launch_reg<TX, TW, 8, 4>(a);
+  const int blocks = (a.rows + kThreads / 32 - 1) / (kThreads / 32);
+  layer_norm_fwd_stream_kernel<TX, TW><<<blocks, kThreads, 0, a.stream>>>(
+      static_cast<const TX*>(a.x), static_cast<const TW*>(a.g),
+      static_cast<const TW*>(a.b), static_cast<TX*>(a.out), a.mean, a.rstd,
+      a.rows, a.cols, a.eps);
   return (int)cudaGetLastError();
 }
 
 template <typename TX>
-int dispatch_w(const void* x, const void* g, const void* b, void* out,
-               float* mean, float* rstd, int rows, int cols, float eps,
-               int w_dtype, cudaStream_t stream) {
-  if (w_dtype == 0)
-    return launch<TX, float>(x, g, b, out, mean, rstd, rows, cols, eps,
-                             stream);
-  if (w_dtype == 1)
-    return launch<TX, __nv_bfloat16>(x, g, b, out, mean, rstd, rows, cols,
-                                     eps, stream);
-  if (w_dtype == 2)
-    return launch<TX, __half>(x, g, b, out, mean, rstd, rows, cols, eps,
-                              stream);
+int dispatch_w(const Args& a, int w_dtype) {
+  if (w_dtype == 0) return launch<TX, float>(a);
+  if (w_dtype == 1) return launch<TX, __nv_bfloat16>(a);
+  if (w_dtype == 2) return launch<TX, __half>(a);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x, out: dense (rows, cols), 16-byte aligned, cols a multiple of 8;
-// gamma, beta: dense (cols,); mean, rstd: dense (rows,) f32.  dtype codes:
-// 0 = float32, 1 = bfloat16, 2 = float16.  Returns the launch's cudaError_t.
+// gamma, beta: dense (cols,), 16-byte aligned; mean, rstd: dense (rows,)
+// f32.  dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  Returns the
+// launch's cudaError_t.
 extern "C" int paddle_layer_norm_fwd(const void* x, const void* gamma,
                                      const void* beta, void* out,
                                      float* mean, float* rstd, int rows,
                                      int cols, float eps, int x_dtype,
                                      int w_dtype, void* stream) {
-  if (rows <= 0 || cols <= 0 || cols % 8 != 0)
+  if (rows <= 0 || cols <= 0 || cols % kPack != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0)
-    return dispatch_w<float>(x, gamma, beta, out, mean, rstd, rows, cols,
-                             eps, w_dtype, st);
-  if (x_dtype == 1)
-    return dispatch_w<__nv_bfloat16>(x, gamma, beta, out, mean, rstd, rows,
-                                     cols, eps, w_dtype, st);
-  if (x_dtype == 2)
-    return dispatch_w<__half>(x, gamma, beta, out, mean, rstd, rows, cols,
-                              eps, w_dtype, st);
+  const Args a{x, gamma, beta, out, mean, rstd, rows, cols, eps,
+               static_cast<cudaStream_t>(stream)};
+  if (x_dtype == 0) return dispatch_w<float>(a, w_dtype);
+  if (x_dtype == 1) return dispatch_w<__nv_bfloat16>(a, w_dtype);
+  if (x_dtype == 2) return dispatch_w<__half>(a, w_dtype);
   return (int)cudaErrorInvalidValue;
 }

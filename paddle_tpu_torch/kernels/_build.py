@@ -172,7 +172,7 @@ def library():
             lib.paddle_layer_norm_bwd.argtypes = [
                 p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
             lib.paddle_layer_norm_bwd.restype = i
-            lib.paddle_layer_norm_bwd_parts.argtypes = [i]
+            lib.paddle_layer_norm_bwd_parts.argtypes = [i, i, i, i]
             lib.paddle_layer_norm_bwd_parts.restype = i
             # x, [labels], outputs, then N V dtype stream
             lib.paddle_ce_lse.argtypes = [p, p, i, i, i, p]

@@ -10,7 +10,8 @@ Rows of x (R, F) normalise with f32 statistics and the one-pass variance
 E[x^2] - mean^2 of the TPU kernel; the output keeps x's dtype.  The
 kernels take float32, bfloat16 and float16 x (and dO, of x's dtype),
 gamma/beta in any of the three, a dense x and F a multiple of 8 (the JAX gate asks
-F % 128 == 0).  The backward returns dgamma / dbeta in gamma's dtype.
+F % 128 == 0).  The backward returns dgamma / dbeta in gamma's dtype,
+summed in a fixed order (no atomics), so two calls give the same bits.
 
 A CUDA tensor launches the kernels (or raises); only a CPU tensor takes
 the plain versions :func:`_layer_norm_reference` /
@@ -88,6 +89,14 @@ def _check(what, x, gamma, beta=None):
         raise TypeError("%s: gamma and beta dtypes differ" % what)
 
 
+def _aligned(t):
+    """``t``, or a copy of it in a fresh (16-byte aligned) allocation when
+    its data is not 16-byte aligned: the kernels read gamma / beta with
+    16-byte loads, and a parameter may be a view at any offset of a flat
+    buffer (``TrainStep(flat_master=True)``)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     """x (R, F), gamma/beta (F,) -> (out (R, F), mean (R,), rstd (R,))."""
     global layer_norm_fwd_launches
@@ -99,6 +108,7 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     if x.data_ptr() % 16:
         raise ValueError("layer_norm_fwd: x must be 16-byte aligned")
     r, f = x.shape
+    gamma, beta = _aligned(gamma), _aligned(beta)
     out = torch.empty_like(x)
     mean = torch.empty((r,), dtype=torch.float32, device=x.device)
     rstd = torch.empty((r,), dtype=torch.float32, device=x.device)
@@ -136,7 +146,9 @@ def layer_norm_bwd(x, gamma, mean, rstd, dout):
         raise ValueError("layer_norm_bwd: x and dout must be 16-byte "
                          "aligned")
     lib = _build.library()
-    parts = lib.paddle_layer_norm_bwd_parts(r)
+    parts = lib.paddle_layer_norm_bwd_parts(r, f, _DTYPES[x.dtype],
+                                            _DTYPES[gamma.dtype])
+    gamma = _aligned(gamma)
     part_g = torch.empty((parts, f), dtype=torch.float32, device=x.device)
     part_b = torch.empty_like(part_g)
     dx = torch.empty_like(x)

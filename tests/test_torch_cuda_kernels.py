@@ -240,6 +240,98 @@ def test_layer_norm_kernel_matches_plain(x_dtype, w_dtype):
         torch.testing.assert_close(rstd, r_rstd, atol=1e-4, rtol=1e-5)
 
 
+# Kernels B and D at every launch plan: a warp a row (rows >= 1024, F <=
+# 1024; or F <= 256), 128 threads a row (few rows at F <= 1024, or F <=
+# 4096), 256 (F <= 8192), each with 1, 2 or 4 packs a thread, and F = 8200
+# just past the register plan, where both take their streaming kernels
+LN_PLAN_SHAPES = [(8, 128), (8192, 128), (200, 136), (8192, 512),
+                  (8, 1024), (128, 1024), (200, 1024), (8192, 1024),
+                  (128, 1280), (8192, 1280), (8, 4096), (200, 4096),
+                  (8, 8192), (8, 8200), (200, 8200)]
+# x's dtype, then gamma / beta in f32 or in a 16-bit dtype
+LN_DTYPES = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+             (torch.float16, torch.float32), (torch.float16, torch.float16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,w_dtype", LN_DTYPES)
+def test_layer_norm_kernels_match_plain_at_every_plan(x_dtype, w_dtype):
+    """B and D against their plain versions at every row count and width
+    of LN_PLAN_SHAPES: out, dx, dgamma and dbeta within one ulp of |ref|
+    in their dtype plus a small share of the RMS (other summation
+    orders), the f32 statistics as the other LayerNorm tests hold them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for shape in LN_PLAN_SHAPES:
+        x, g, b = _ln_inputs(shape, seed=31)
+        do = _ln_inputs(shape, seed=32)[0]
+        x, do = (torch.from_numpy(a).to("cuda", x_dtype) for a in (x, do))
+        g, b = (torch.from_numpy(a).to("cuda", w_dtype) for a in (g, b))
+        counts = (norm_cuda.layer_norm_fwd_launches,
+                  norm_cuda.layer_norm_bwd_launches)
+        out, mean, rstd = norm_cuda.layer_norm_fwd(x, g, b)
+        got = norm_cuda.layer_norm_bwd(x, g, mean, rstd, do)
+        torch.cuda.synchronize()
+        assert (norm_cuda.layer_norm_fwd_launches - counts[0],
+                norm_cuda.layer_norm_bwd_launches - counts[1]) == (1, 1)
+        r_out, r_mean, r_rstd = norm_cuda._layer_norm_reference(x, g, b,
+                                                                1e-5)
+        assert out.dtype == x_dtype
+        _close(out, r_out, x_dtype, "ln out %s %s" % (shape, x_dtype))
+        torch.testing.assert_close(mean, r_mean, atol=1e-5, rtol=0)
+        torch.testing.assert_close(rstd, r_rstd, atol=1e-4, rtol=1e-5)
+        ref = norm_cuda._layer_norm_bwd_reference(x, g, mean, rstd, do)
+        for name, a, r in zip(("dx", "dgamma", "dbeta"), got, ref):
+            assert a.dtype == r.dtype
+            _close(a, r, a.dtype, "ln %s %s %s" % (name, shape, x_dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8192, 1024), (200, 4096), (64, 8200)])
+def test_layer_norm_bwd_runs_are_bit_identical(shape):
+    """D sums dgamma / dbeta in a fixed order, without atomics: two calls
+    on the same inputs give the same bits (dx too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    x, g, b = _ln_inputs(shape, seed=33)
+    do = _ln_inputs(shape, seed=34)[0]
+    x, do = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (x, do))
+    g, b = (torch.from_numpy(a).to("cuda") for a in (g, b))
+    _out, mean, rstd = norm_cuda.layer_norm_fwd(x, g, b)
+    first = norm_cuda.layer_norm_bwd(x, g, mean, rstd, do)
+    again = norm_cuda.layer_norm_bwd(x, g, mean, rstd, do)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dx", "dgamma", "dbeta"), first, again):
+        assert torch.equal(a, r), "%s differs between two runs" % name
+
+
+@pytest.mark.gpu
+def test_layer_norm_kernels_take_unaligned_parameter_views():
+    """gamma / beta as views at a 4-byte offset of one buffer (as a flat
+    parameter buffer may hold them): the kernels read them with 16-byte
+    loads, so the wrapper hands them a copy, and the results equal those
+    of aligned parameters to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    x, g, b = _ln_inputs((256, 1024), seed=35)
+    do = _ln_inputs((256, 1024), seed=36)[0]
+    x, do = (torch.from_numpy(a).to("cuda", torch.bfloat16) for a in (x, do))
+    g, b = (torch.from_numpy(a).to("cuda") for a in (g, b))
+    buf = torch.empty(2 * 1024 + 1, device="cuda")
+    gv, bv = buf[1:1025], buf[1025:]
+    gv.copy_(g)
+    bv.copy_(b)
+    assert gv.data_ptr() % 16 and bv.data_ptr() % 16
+    want = norm_cuda.layer_norm_fwd(x, g, b)
+    got = norm_cuda.layer_norm_fwd(x, gv, bv)
+    want_bwd = norm_cuda.layer_norm_bwd(x, g, want[1], want[2], do)
+    got_bwd = norm_cuda.layer_norm_bwd(x, gv, got[1], got[2], do)
+    torch.cuda.synchronize()
+    for a, w in zip(got + got_bwd, want + want_bwd):
+        assert torch.equal(a, w)
+
+
 def _ce_inputs(n, v, dtype, seed):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy((3.0 * rng.standard_normal((n, v)))

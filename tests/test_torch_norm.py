@@ -162,3 +162,17 @@ def test_backward_wrapper_checks_and_cpu_route(monkeypatch):
                                           rstd, x)
     assert dg.dtype == db.dtype == torch.bfloat16 and dx.dtype == x.dtype
     assert norm_cuda.layer_norm_bwd_launches == 0
+
+
+@pytest.mark.parametrize("f", [128, 136, 1024, 1280, 4096, 8200])
+def test_unaligned_parameters_are_handed_over_as_aligned_copies(f):
+    """The kernels read gamma / beta with 16-byte loads: ``_aligned``
+    keeps a 16-byte aligned tensor as it is and copies a view at another
+    offset (a parameter in a flat buffer) into a fresh allocation."""
+    buf = torch.arange(2 * f + 1, dtype=torch.float32)
+    view = buf[1:f + 1]
+    assert view.data_ptr() % 16
+    copy = norm_cuda._aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    whole = buf[:f]
+    assert whole.data_ptr() % 16 == 0 and norm_cuda._aligned(whole) is whole
