@@ -19,22 +19,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (merged), C2 and C3 (split; bf16 and fp16 on the tensor
               cores) with each route pinned, head dim 64, 128 and 256, f32
               and fp16 cases, one case with an lse cotangent, and the
-              LayerNorm backward D in bf16 and fp16.  ``checks_long``: at
-              S=16384 the tensor-core forward (bf16 and fp16) and C2/C3
-              against their plain versions (2 heads), then at 16 heads the
-              forward again and split against merged, the split pair run
-              twice for identical bits.  ``checks_ce``: the cross-entropy
-              kernels E1 (logsumexp), E2 / E3 (fused softmax-CE forward /
-              backward) and the row softmax F at (8192, 50304) bf16, E1-E3
+              LayerNorm backward D in bf16 and fp16; C1 timed as a whole
+              call beside the split route's and at each of its tiles.
+              ``checks_long``: at S=16384 the tensor-core forward (bf16
+              and fp16) and C2/C3 against their plain versions (2 heads),
+              then at 16 heads the forward again and split against merged
+              (both timed), the split pair run twice for identical bits.
+              ``checks_ce``: the cross-entropy kernels E1 (logsumexp), E2
+              / E3 (fused softmax-CE forward / backward) and the row
+              softmax F at (8192, 50304) bf16, E1-E3
               also at a small shape with out-of-range and ignored labels,
               F also at (8, 50304) and (8192, 1024).  ``checks_pipelined``:
-              kernel A' at each of its (block_q, block_k) instantiations
-              against its plain version, lse included, at the serving
-              prefill, the training shape, (1, 16384, 2, 64), one
-              non-causal case, D 128 and 256 and one f32 case, beside the
-              dtype's default forward's and SDPA's times; the tiles whose
-              shared memory exceeds a block's are refused by the gate,
-              never launched.
+              kernel A' (the TMA-fed tensor-core kernel in bf16 and fp16,
+              FMAs in f32) at each of its (block_q, block_k)
+              instantiations against its plain version, lse included, at
+              the serving prefill, the training shape, (1, 16384, 2, 64)
+              and (1, 16384, 16, 64), one non-causal case, D 128 and 256,
+              fp16 and f32 cases, beside the dtype's default forward's and
+              SDPA's times; the
+              tiles whose shared memory exceeds a block's are refused by
+              the gate, never launched; then the 16-bit A' at
+              (1, 16384, 16, 64), every tile, bf16 and fp16, three runs
+              on one input that must be bit-identical
+              (``check_pipelined_repeats``).
 3. serve    — GPT-2 345M (seeded random weights, AMP O2 bf16) through the
               slotted DecodeEngine (8 slots, max_len 1024) and the
               continuous-batching scheduler: 12 greedy requests of 128
@@ -228,22 +235,28 @@ class Counters:
                 self.spec.items()}
 
 
-def device_times(fn, torch, n=20):
+def device_times(fn, torch, n=20, pattern=None):
     """{kernel name: (device ms summed over the trace, launches)} over
-    ``n`` calls in a ``torch.profiler`` trace."""
+    ``n`` calls in a ``torch.profiler`` trace.  A trace that holds no
+    kernel (none whose name holds ``pattern``, when given) is taken again,
+    up to three times in all: the profiler now and then returns one
+    without the device events."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        t = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
-        if t > 0:
-            ms, count = out.get(e.key, (0.0, 0))
-            out[e.key] = (ms + t / 1e3, count + int(e.count))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            t = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+            if t > 0:
+                ms, count = out.get(e.key, (0.0, 0))
+                out[e.key] = (ms + t / 1e3, count + int(e.count))
+        if any(pattern is None or pattern in key for key in out):
+            break
     return out
 
 
@@ -364,7 +377,8 @@ def tc_tiles_device_ms(torch, fac, q, k, v, causal, scale, n):
         if q.shape[1] % bq == 0:
             out["%dx%d" % (bq, bk)] = kernel_ms(device_times(
                 lambda: fac._launch_tc(q, k, v, causal, scale, False, bq, bk),
-                torch, n=n), "flash_fwd_tc_kernel")
+                torch, n=n, pattern="flash_fwd_tc_kernel"),
+                "flash_fwd_tc_kernel")
     return out
 
 
@@ -531,11 +545,15 @@ def bwd_bound(b, s, h, d, causal, products, n_tensors, f32=False):
 def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
              plain=True):
     """Times of C1 (through the wrapper), C2 and C3 (each launched alone),
-    the plain backward and the library's (SDPA's backward through
-    autograd), CUDA-event and device.  The device times are those of the
-    kernel each run should launch: C2 and C3 on the tensor cores in bf16,
-    else the FMA kernels, whose C3 shares C1's template (each run launches
-    one of them)."""
+    the split route through the wrapper, the plain backward and the
+    library's (SDPA's backward through autograd), CUDA-event and device.
+    The device times are those of the kernel each run should launch: C1,
+    C2 and C3 on the tensor cores in bf16 and fp16, else the FMA kernels,
+    whose C3 shares C1's template (each run launches one of them); beside
+    them the device ms of C1's launch as a whole (``c1_call``: the
+    workspace's zeroing, the kernel and the cast), of the whole merged and
+    split routes (``_call``, delta included), and in 16-bit C1's kernel at
+    each of its tiles."""
     scale = q.shape[-1] ** -0.5
     delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta, causal, scale)
@@ -543,9 +561,13 @@ def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
         "flash_bwd": lambda: fac.flash_attention_bwd(
             q, k, v, out, lse, do, causal, scale, route="merged"),
         "flash_bwd_dq": lambda: fac._launch_bwd_dq(*args),
-        "flash_bwd_dkv": lambda: fac._launch_bwd_dkv(*args)}
-    tc = fac._tc_split(q.dtype, "flash_bwd_dq")
-    patterns = {"flash_bwd": "flash_bwd_kv_kernel",
+        "flash_bwd_dkv": lambda: fac._launch_bwd_dkv(*args),
+        "split": lambda: fac.flash_attention_bwd(
+            q, k, v, out, lse, do, causal, scale, route="split"),
+        "c1_call": lambda: fac._launch_bwd_merged(*args)}
+    tc = q.dtype in fac._TC_DTYPES
+    patterns = {"flash_bwd": ("flash_bwd_merged_tc_kernel" if tc
+                              else "flash_bwd_kv_kernel"),
                 "flash_bwd_dq": ("flash_bwd_dq_tc_kernel" if tc
                                  else "flash_bwd_dq_kernel"),
                 "flash_bwd_dkv": ("flash_bwd_dkv_tc_kernel" if tc
@@ -562,10 +584,18 @@ def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
     res = {}
     for name, fn in runs.items():
         res[name + "_ms"] = time_ms(fn, torch, reps=reps, inner=inner)
-        times = device_times(fn, torch, n=inner)
+        times = device_times(fn, torch, n=inner, pattern=patterns.get(name))
         res[name + "_device_ms"] = (kernel_ms(times, patterns[name])
                                     if name in patterns
                                     else call_ms(times, inner))
+        if name in ("flash_bwd", "split"):
+            res[name + "_call_device_ms"] = call_ms(times, inner)
+    if tc:
+        res["flash_bwd_tiles_device_ms"] = {
+            str(bm): kernel_ms(device_times(
+                lambda: fac._launch_bwd_merged(*args, block=bm), torch,
+                n=inner, pattern=patterns["flash_bwd"]), patterns["flash_bwd"])
+            for bm in fac._TC_BLOCKS[q.shape[-1]] if q.shape[1] % bm == 0}
     return res
 
 
@@ -573,11 +603,12 @@ def check_flash_bwd(torch, fac):
     """C1, C2 and C3 against the plain backward, bf16, B=1 H=16 D=64 at
     S = 128, 1024, 2048, causal or not, each route pinned; then the
     training shape (8, 1024, 16, 64) causal, head dim 128 at (1, 1024, 8,
-    128) causal and head dim 256 at (1, 1024, 4, 256) causal (C1 with
-    32-row FMA tiles), all timed; then f32 (C1 and the FMA C2 / C3, each
-    route) and fp16 (the tensor-core C2 / C3) cases, untimed but for f32
-    at the training shape (C1 and the FMA C2 / C3 against SDPA's f32
-    backward); then one with-lse case."""
+    128) causal and head dim 256 at (1, 1024, 4, 256) causal, all timed;
+    then f32 (C1 and the FMA C2 / C3, each route) and fp16 (C1, C2 and C3
+    on the tensor cores, each route) cases, untimed but for f32 at the
+    training shape (C1 and the FMA C2 / C3 against SDPA's f32 backward)
+    and fp16 at the training shape and at head dim 256 (without the
+    plain version's time); then one with-lse case."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -600,10 +631,9 @@ def check_flash_bwd(torch, fac):
         name16 = dtype_name(dtype)
         ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal, scale)
         row = {"shape": [b, s, h, d], "causal": causal, "dtype": name16}
-        # C1 takes no fp16
-        routes = ((("merged", ("flash_bwd",) * 3),) if dtype != f16
-                  else ()) + (("split", ("flash_bwd_dq", "flash_bwd_dkv",
-                                         "flash_bwd_dkv")),)
+        routes = (("merged", ("flash_bwd",) * 3),
+                  ("split", ("flash_bwd_dq", "flash_bwd_dkv",
+                             "flash_bwd_dkv")))
         for route, kernels in routes:
             got = fac.flash_attention_bwd(q, k, v, out, lse, do, causal,
                                           scale, route=route)
@@ -620,11 +650,11 @@ def check_flash_bwd(torch, fac):
                         % (kern, name, name16, (b, s, h, d), causal, err,
                            rms))
                 worst[kern] = max(worst[kern], err)
-        if dtype == f16 or dtype == f32 and b == 1:
+        if dtype == f32 and b == 1 or dtype == f16 and not causal:
             rows.append(row)
             continue
         row.update(time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal,
-                            reps=5, inner=10))
+                            reps=5, inner=10, plain=dtype != f16))
         for kern, products, tensors in (("flash_bwd", 5, 7),
                                         ("flash_bwd_dq", 3, 5),
                                         ("flash_bwd_dkv", 4, 6)):
@@ -759,6 +789,8 @@ def check_flash_long(torch, fac):
     # the split pair's bound counts the five products the backward needs;
     # C2 and C3 recompute QK^T and dP, so the pair does seven
     long_row["split_pair_bound_ms"], _ = bwd_bound(1, s, h, d, True, 5, 7)
+    long_row["merged_over_split"] = (long_row["flash_bwd_call_device_ms"]
+                                     / long_row["split_call_device_ms"])
     del q, k, v, do, out, lse
     torch.cuda.empty_cache()
     return out_row, long_row
@@ -795,62 +827,75 @@ def check_f32_long(torch, fac):
 
 PIPELINED_CASES = [
     # (b, s, h, d, causal, dtype name): the serving prefill, the training
-    # shape, S=16384 at 2 heads (where the plain version fits), one
-    # non-causal case, D 128 and 256, f32 at S=1024 and the training shape
+    # shape, S=16384 at 2 heads and at train_long's 16 heads (there the
+    # plain version's time is not taken), one non-causal case, D 128 and
+    # 256, fp16 at the prefill, training and S=16384 shapes (untimed
+    # plain), f32 at S=1024 and the training shape
     (1, 128, 16, 64, True, "bfloat16"),
     (8, 1024, 16, 64, True, "bfloat16"),
     (1, 16384, 2, 64, True, "bfloat16"),
+    (1, 16384, 16, 64, True, "bfloat16"),
     (1, 1024, 16, 64, False, "bfloat16"),
     (1, 1024, 8, 128, True, "bfloat16"),
     (1, 1024, 4, 256, True, "bfloat16"),
+    (1, 128, 16, 64, True, "float16"),
+    (8, 1024, 16, 64, True, "float16"),
+    (1, 16384, 2, 64, True, "float16"),
     (1, 1024, 16, 64, True, "float32"),
     (8, 1024, 16, 64, True, "float32"),
 ]
 
 
-def check_pipelined(torch, fac, at, lib):
-    """Kernel A' against its plain version at each (block_q, block_k)
-    instantiation on every PIPELINED_CASES shape, with the lse: the
-    event and device ms of A', of its plain version and of SDPA (a
-    yardstick), the device ms of the dtype's candidate [0] at the same
-    shape (the tensor-core forward in bf16, kernel A in f32), and the
-    bound.
+def check_pipelined(torch, fac, at, lib, cases=None):
+    """Kernel A' at each (block_q, block_k) instantiation on every
+    PIPELINED_CASES shape, with the lse, held against its plain version
+    (the tile walk at the same tiles): the event and device ms of A', of
+    its plain version (bf16 and f32 up to 2 heads at S = 16384) and of
+    SDPA (a yardstick), the device ms of the dtype's candidate [0] at the
+    same shape, and the bound.  16-bit inputs take the tensor-core A'
+    (csrc/flash_fwd_pipelined_tc.cu), f32 the FMA one.
     An instantiation whose shared memory exceeds a block's is refused by
-    the gate (its size held against the C side's) and never launched."""
+    the gate (its size held against the C side's) and never launched.
+    ``cases``: indices into PIPELINED_CASES to run (all by default); the
+    inputs are drawn for every case all the same, so a case's input does
+    not depend on which others run."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(6)
     limit = at.smem_limit(torch.device("cuda"))
     rows, worst, refused = [], 0.0, []
-    for b, s, h, d, causal, dname in PIPELINED_CASES:
+    for i, (b, s, h, d, causal, dname) in enumerate(PIPELINED_CASES):
         dtype = getattr(torch, dname)
-        qkv = torch.randn((b, s, 3 * h * d), generator=gen,
-                          device="cuda").to(dtype)
-        q, k, v = (qkv[:, :, i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
-                   for i in range(3))
+        tc = dtype in fac._TC_DTYPES
+        q, k, v = fused_qkv(torch, b, s, h, d, dtype, gen)
+        if cases is not None and i not in cases:
+            del q, k, v
+            continue
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         scale = d ** -0.5
         reps, inner = (3, 2) if s >= 16384 else (5, 10)
-        pairs = s * (s + 1) / 2 if causal else s * s
-        bound_ms, bound_by = bound(
-            4 * b * s * h * d * q.element_size(), 4 * b * h * d * pairs,
-            BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+        time_plain = dtype != torch.float16 and s * h <= 16384 * 2
+        ulp, frac = ((ULP_REL[dname], RMS_FRAC[dname]) if tc
+                     else (FLASH_ULP_REL, FLASH_RMS_FRAC))
+        bound_ms, bound_by = fwd_bound(b, s, h, d, causal, dtype)
         default = fac._fwd_specs(s, s, d, dtype, causal)[0]
+        default_kernel = "flash_fwd_tc_kernel" if tc else "flash_fwd_kernel"
         shape_row = {
             "default_fwd_blocks": list(default[1:]),
             "default_fwd_device_ms": kernel_ms(device_times(
                 lambda: fac._run_fwd(q, k, v, causal, scale, False, default),
-                torch, n=inner),
-                "flash_fwd_tc_kernel" if dtype in fac._TC_DTYPES
-                else "flash_fwd_kernel")}
+                torch, n=inner, pattern=default_kernel), default_kernel)}
         time_kernel(torch, shape_row, "library",
                     lambda: tF.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal), None, reps, inner)
         for bq, bk in fac._PIPELINED_BLOCKS:
             need = fac.pipelined_smem_bytes(d, bq, bk, dtype)
-            if lib.paddle_flash_fwd_pipelined_smem(
-                    d, bq, bk, fac._DTYPES[dtype]) != need:
+            c_need = (lib.paddle_flash_fwd_pipelined_tc_smem(d, bq, bk) if tc
+                      else lib.paddle_flash_fwd_pipelined_smem(
+                          d, bq, bk, fac._DTYPES[dtype]))
+            if c_need != need:
                 raise AssertionError("A' shared memory: the gate's %d bytes "
-                                     "differ from the kernel's" % need)
+                                     "differ from the kernel's %d"
+                                     % (need, c_need))
             row = {"shape": [b, s, h, d], "causal": causal, "dtype": dname,
                    "blocks": [bq, bk], "smem_bytes": need}
             if need > limit:
@@ -858,10 +903,10 @@ def check_pipelined(torch, fac, at, lib):
                 continue
             out, lse = fac._launch_pipelined(q, k, v, causal, scale, True,
                                              bq, bk)
-            ref, ref_lse = fac._flash_pipelined_reference(q, k, v, causal,
-                                                          scale, bq, bk)
+            ref, ref_lse = fac._flash_tc_reference(q, k, v, causal,
+                                                   scale, bq, bk)
             torch.cuda.synchronize()
-            err, rms, ok = within(out, ref, FLASH_ULP_REL, FLASH_RMS_FRAC)
+            err, rms, ok = within(out, ref, ulp, frac)
             lse_err = float((lse - ref_lse).abs().max())
             del out, lse, ref, ref_lse
             if not ok or lse_err > LSE_TOL:
@@ -873,16 +918,118 @@ def check_pipelined(torch, fac, at, lib):
             time_kernel(torch, row, "kernel",
                         lambda: fac._launch_pipelined(q, k, v, causal, scale,
                                                       False, bq, bk),
-                        "flash_fwd_pipelined_kernel", reps, inner)
-            time_kernel(torch, row, "plain",
-                        lambda: fac._flash_pipelined_reference(
-                            q, k, v, causal, scale, bq, bk), None, reps,
-                        inner)
+                        "flash_fwd_pipelined_tc_kernel" if tc
+                        else "flash_fwd_pipelined_kernel", reps, inner)
+            if time_plain:
+                time_kernel(torch, row, "plain",
+                            lambda: fac._flash_tc_reference(
+                                q, k, v, causal, scale, bq, bk), None, reps,
+                            inner)
             row.update(shape_row, bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
-        del qkv, q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return rows, worst, refused
+
+
+def check_pipelined_repeats(torch, fac, repeats=3, strict=True, seed=None,
+                            contend=False):
+    """The 16-bit kernel A' at train_long's attention shape (1, 16384, 16,
+    64) causal, at every tile, bf16 and fp16, run ``repeats`` times on one
+    input: check_pipelined's own input at that shape (its generator drawn
+    as far), or with ``seed`` one drawn from that seed; in fp16 the same
+    values.  Each run must equal the first bit
+    for bit (a K/V ring that let a slot be read before its copies landed,
+    or refilled before its last product retired, shows as a difference)
+    and hold the plain version's bar; the plain version is computed twice
+    and must repeat too.  A row holds the runs that differed and the first
+    (s, h) rows where they did, the worst error over all runs, where it
+    lies, and the first run's error against the tile walk that keeps p in
+    f32 (``unrounded_*``, the plain version of PRs 4-7, which the bar
+    tells apart).  ``contend`` keeps a second stream busy with 1 GB
+    copies through the runs (the copies' blocks share the SMs and HBM, so
+    the ring's copies land later and in other orders).  ``strict`` raises
+    on any fault once every row is taken."""
+    b, s, h, d = 1, 16384, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(
+        6 if seed is None else seed)
+    # check_pipelined draws an input for each case before this one
+    mine = PIPELINED_CASES.index((b, s, h, d, True, "bfloat16"))
+    for case in PIPELINED_CASES[:mine] if seed is None else ():
+        fused_qkv(torch, *case[:4], torch.bfloat16, gen)
+    qkv = fused_qkv(torch, b, s, h, d, torch.bfloat16, gen)
+    scale = d ** -0.5
+    rows, faults = [], []
+    side = torch.cuda.Stream() if contend else None
+    if side is not None:
+        src = torch.empty(1 << 29, dtype=torch.float16, device="cuda")
+        dst = torch.empty_like(src)
+    for dname in ("bfloat16", "float16"):
+        ulp, frac = ULP_REL[dname], RMS_FRAC[dname]
+        q, k, v = (t.to(getattr(torch, dname)) for t in qkv)
+        for bq, bk in fac._PIPELINED_BLOCKS:
+            ref, ref_lse = fac._flash_tc_reference(q, k, v, True, scale, bq,
+                                                   bk)
+            again, again_lse = fac._flash_tc_reference(q, k, v, True, scale,
+                                                       bq, bk)
+            row = {"shape": [b, s, h, d], "dtype": dname, "blocks": [bq, bk],
+                   "seed": seed, "runs": repeats,
+                   "plain_repeats": bool(torch.equal(ref, again)
+                                         and torch.equal(ref_lse, again_lse)),
+                   "differing_runs": [], "differing_rows": [],
+                   "max_abs_err": 0.0, "over_bar": 0, "lse_max_abs_err": 0.0}
+            del again, again_lse
+            first = None
+            for i in range(repeats):
+                if side is not None and i % 50 == 0:
+                    with torch.cuda.stream(side):
+                        for _ in range(100):
+                            dst.copy_(src)
+                out, lse = fac._launch_pipelined(q, k, v, True, scale, True,
+                                                 bq, bk)
+                if first is None:
+                    first = (out, lse)
+                elif not (torch.equal(out, first[0])
+                          and torch.equal(lse, first[1])):
+                    row["differing_runs"].append(i)
+                    if not row["differing_rows"]:
+                        where = ((out != first[0]).any(-1)
+                                 | (lse != first[1])).nonzero()[:8]
+                        row["differing_rows"] = where[:, 1:].tolist()
+                diff = (out.float() - ref.float()).abs()
+                err, rms, _ok = within(out, ref, ulp, frac)
+                bar = ulp * ref.float().abs() + frac * rms
+                row["over_bar"] = max(row["over_bar"],
+                                      int((diff > bar).sum()))
+                row["lse_max_abs_err"] = max(
+                    row["lse_max_abs_err"],
+                    float((lse - ref_lse).abs().max()))
+                if err > row["max_abs_err"] or i == 0:
+                    at = np.unravel_index(int(diff.argmax()), diff.shape)
+                    row.update(max_abs_err=err, ref_rms=rms,
+                               worst_at=[int(x) for x in at],
+                               worst_ref=float(ref[at]),
+                               worst_got=float(out[at]))
+                del out, lse, diff, bar
+            del ref, ref_lse
+            # v in f32: the same walk with p unrounded
+            flat, _lse = fac._flash_tc_reference(q, k, v.float(), True,
+                                                 scale, bq, bk)
+            err, rms, ok = within(first[0], flat, ulp, frac)
+            row.update(unrounded_max_abs_err=err, unrounded_within_bar=ok)
+            del first, flat, _lse
+            if (row["differing_runs"] or row["over_bar"]
+                    or row["lse_max_abs_err"] > LSE_TOL
+                    or not row["plain_repeats"]):
+                faults.append(row)
+            rows.append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
+    if side is not None:
+        torch.cuda.synchronize()
+    if strict and faults:
+        raise AssertionError("flash_fwd_pipelined repeats: %r" % faults)
+    return rows
 
 
 def check_layer_norm_bwd(torch, norm_cuda, dtype=None,
@@ -958,7 +1105,7 @@ def time_kernel(torch, row, name, fn, pattern, reps=5, inner=10):
     ``<name>_device_ms`` (profiler: the kernels whose name holds
     ``pattern``, or every kernel of the call when it is None)."""
     row[name + "_ms"] = time_ms(fn, torch, reps=reps, inner=inner)
-    times = device_times(fn, torch, n=inner)
+    times = device_times(fn, torch, n=inner, pattern=pattern)
     row[name + "_device_ms"] = (kernel_ms(times, pattern) if pattern
                                 else call_ms(times, inner))
 
@@ -1915,8 +2062,13 @@ def main():
         or not _build.library_path().is_file())
     _build.library()
     ln_ptxas = ptxas_usage(log, "layer_norm")
+    # the 16-bit A' and C1 (registers and spills: PERF.md records them)
+    pipe_ptxas = ptxas_usage(log, "pipelined_tc")
+    merged_ptxas = ptxas_usage(log, "merged_tc")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib_path.name), "layer_norm_ptxas": ln_ptxas})
+          "library": str(lib_path.name), "layer_norm_ptxas": ln_ptxas,
+          "flash_fwd_pipelined_tc_ptxas": pipe_ptxas,
+          "flash_bwd_merged_tc_ptxas": merged_ptxas})
     if log and "--ptxas" in sys.argv:
         print(log, file=sys.stderr)
     spilled = [r for r in ln_ptxas if r.get("spill_stores")
@@ -1957,8 +2109,9 @@ def main():
     t0 = time.perf_counter()
     pipe_rows, pipe_err, pipe_refused = check_pipelined(
         torch, fac, autotune, _build.library())
+    pipe_repeat_rows = check_pipelined_repeats(torch, fac)
     emit({"phase": "checks_pipelined", "rows": pipe_rows,
-          "refused_smem": pipe_refused})
+          "refused_smem": pipe_refused, "repeats": pipe_repeat_rows})
     seconds["checks_pipelined"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ce_rows = check_ce(torch, ce_cuda, norm_cuda, flags)
@@ -2141,9 +2294,8 @@ def main():
     def bwd_entry(kern, src_row, plain_row, launches, by_path, err):
         entry = {
             "name": kern, "route": "cuda",
-            "source": ("paddle_tpu_torch/csrc/flash_bwd.cu"
-                       if kern == "flash_bwd"
-                       else "paddle_tpu_torch/csrc/flash_bwd_tc.cu"),
+            "source": "paddle_tpu_torch/csrc/flash_bwd_tc.cu",
+            "source_f32": "paddle_tpu_torch/csrc/flash_bwd.cu",
             "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:%d"
                         % {"flash_bwd": 736, "flash_bwd_dq": 790,
                            "flash_bwd_dkv": 828}[kern],
@@ -2178,6 +2330,25 @@ def main():
                 entry[name] = {k: row[k] for k in (
                     "shape", kern + "_ms", kern + "_device_ms",
                     kern + "_bound_ms", "library_ms", "library_device_ms")}
+        else:
+            # C1 on the tensor cores: its whole call beside the split
+            # route's, its tiles, and fp16, at each timed shape
+            cols = ("shape", "dtype", "flash_bwd_ms", "flash_bwd_device_ms",
+                    "c1_call_device_ms", "flash_bwd_call_device_ms",
+                    "flash_bwd_tiles_device_ms",
+                    "split_call_device_ms", "flash_bwd_dq_device_ms",
+                    "flash_bwd_dkv_device_ms", "flash_bwd_bound_ms",
+                    "library_device_ms")
+            entry["by_shape"] = [{k: r[k] for k in cols if k in r}
+                                 for r in bwd_rows + [long_row]
+                                 if "flash_bwd_call_device_ms" in r
+                                 and r.get("dtype", "bfloat16") != "float32"]
+            entry["ptxas"] = merged_ptxas
+            entry["c1_call_device_ms"] = src_row["c1_call_device_ms"]
+            entry["launches_of"] = (
+                "the f32 C1 (source_f32) on train_parity's f32 step; bf16 "
+                "and fp16 take the split pair on every path, so the 16-bit "
+                "C1 runs only where route='merged' is pinned (the checks)")
         return entry
 
     def ce_entry(name, replaces, launches, by_path):
@@ -2262,7 +2433,8 @@ def main():
                             plain_device_ms=r.get("plain_device_ms"))
                        for r in f32_long_rows]},
         {"name": "flash_fwd_pipelined", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_fwd_pipelined.cu",
+         "source": "paddle_tpu_torch/csrc/flash_fwd_pipelined_tc.cu",
+         "source_f32": "paddle_tpu_torch/csrc/flash_fwd_pipelined.cu",
          "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:519",
          "launches": run_pipe["launches"]["flash_fwd_pipelined"],
          "launches_by_path": {
@@ -2283,10 +2455,12 @@ def main():
          "autotune_winner_at_train": autotune_lines[0]["winner"],
          "by_shape": [{k: r[k] for k in (
              "shape", "dtype", "blocks", "kernel_ms", "kernel_device_ms",
-             "plain_ms", "bound_ms", "library_ms", "default_fwd_blocks",
-             "default_fwd_device_ms")}
+             "plain_ms", "bound_ms", "library_ms", "library_device_ms",
+             "default_fwd_blocks", "default_fwd_device_ms") if k in r}
              for r in pipe_rows if r["shape"] in (
-                 [1, 128, 16, 64], [8, 1024, 16, 64], [1, 16384, 2, 64])]},
+                 [1, 128, 16, 64], [8, 1024, 16, 64], [1, 16384, 2, 64],
+                 [1, 16384, 16, 64])],
+         "ptxas": pipe_ptxas},
         {"name": "layer_norm_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/layer_norm_fwd.cu",
          "replaces": "paddle_tpu/kernels/norm_pallas.py:118",

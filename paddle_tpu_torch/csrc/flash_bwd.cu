@@ -5,17 +5,15 @@
 //   C1 paddle_flash_bwd      <- _bwd_kernel      (merged dQ/dK/dV)
 //   C2 paddle_flash_bwd_dq   <- _bwd_dq_kernel   (split backward, dQ)
 //   C3 paddle_flash_bwd_dkv  <- _bwd_dkv_kernel  (split backward, dK/dV)
-// This file holds the f32-FMA kernels: C1 in float32 and bfloat16, C2 and
-// C3 in float32.  bf16 and fp16 C2 and C3 run on the tensor cores
-// (flash_bwd_tc.cu); C1 takes no fp16.
+// This file holds the entry points and the float32 kernels, on FMAs (f32
+// on the tensor cores would be TF32, other numerics); bf16 and fp16 calls
+// of all three go to the tensor-core kernels of flash_bwd_tc.cu.
 // Per (batch, head) they compute, from q, k, v, dO, the base-e row
 // logsumexp that the forward saved and delta = rowsum(dO * O) (minus the
 // lse cotangent, folded in by the caller):
 //   P  = exp2(scale * log2e * Q K^T - lse * log2e)   (P recomputed, base 2)
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta),
 //   dK = scale * dS^T Q,  dQ = scale * dS K
-// with P rounded to the inputs' dtype before dV and dS before dK and dQ,
-// where _bwd_head_math rounds them for its MXU products (a no-op in f32),
 // with the start-aligned causal mask when asked: tiles strictly in the
 // future are never visited and only the diagonal tile masks.  The base-e
 // lse becomes base 2 in one place, as it is staged (stage_rows).
@@ -28,13 +26,13 @@
 //          memory and dK/dV in f32 registers, and loops over the q tiles
 //          that can see the K tile.  C1 also forms the tile's dQ share
 //          (dS K) and adds it with f32 atomicAdd into an f32 (B, S, H, D)
-//          workspace that the caller scales and casts: the order of those
+//          workspace that the caller scales: the order of those
 //          additions, and so the last bits of dQ, vary from run to run.
 //   C2:    one block per (batch, head, 64-row q tile) holds Q, dO in shared
 //          memory and dQ in f32 registers, and loops over the K tiles up to
 //          the diagonal.  C2 and C3 are deterministic.
-// Operands are staged as f32 in shared memory with odd row strides (no
-// bank conflicts on column walks); the products are plain f32 FMAs,
+// Operands are staged in shared memory with odd row strides (no bank
+// conflicts on column walks); the products are plain f32 FMAs,
 // register-tiled per thread of a 16 x 16 grid, as in flash_fwd.cu.
 // The tile rows BM are a template parameter beside D, chosen by the
 // caller (the autotuner's flash_bwd* candidates): 64 (4 x 4 scores per
@@ -42,24 +40,21 @@
 // f32 operand tiles alone would need 4 x 64 x 257 x 4 B = 263 KB of
 // shared memory, more than the 227 KB a block may use (136 KB in all at
 // 32 rows).
-// C1 on the tensor cores, reusing flash_bwd_tc.cu's core, is a later change.
 //
-// Bound on the H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): at the training
-// shape B=8, S=1024, H=16, D=64 causal bf16 the five products need
-// 5 * 2 S^2 D * B H / 2 = 4.3e10 FLOP (~44 us) against ~118 MB of
-// operands (q, k, v, dO in, dq, dk, dv out, the f32 lse and delta rows;
-// ~35 us), so the merged backward is compute-bound.  The FMA path cannot
-// reach the tensor-core rate; the measured times stand in PERF.md.
+// Bound on the H100 SXM (67 TFLOP/s f32 outside the tensor cores, 3.35
+// TB/s): at the training shape B=8, S=1024, H=16, D=64 causal f32 C1's
+// five products need 5 * 2 S^2 D * B H / 2 = 4.3e10 FLOP (0.642 ms)
+// against ~235 MB of operands (q, k, v, dO in, dq, dk, dv out, the f32 lse
+// and delta rows; 0.070 ms): compute-bound.  The measured times stand in
+// PERF.md.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
-// flash_bwd_tc.cu: bf16 / fp16 C2 (dkv false) / C3 (dkv true)
-int flash_bwd_tc_launch(bool dkv, const void* q, const void* k,
+// flash_bwd_tc.cu: bf16 / fp16 C1 (which 0), C2 (1), C3 (2)
+int flash_bwd_tc_launch(int which, const void* q, const void* k,
                         const void* v, const void* dout, const float* lse,
-                        const float* delta, void* dq, void* dk, void* dv,
+                        const float* delta, void* dq, float* dq_acc,
+                        void* dk, void* dv,
                         int B, int S, int H, int D, long long q_sb,
                         long long q_ss, long long k_sb, long long k_ss,
                         long long v_sb, long long v_ss, long long o_sb,
@@ -75,37 +70,16 @@ template <int BM>
 constexpr int kPer = BM / 16;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: how _bwd_head_math rounds P and dS to the
-// inputs' dtype before the products that take them (exact for f32)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
 // Stage rows [row0, row0 + BM) of one head into a padded f32 tile.  Rows
 // are `row_stride` elements apart; the head's D elements are contiguous.
-template <typename T, int D, int BM>
-__device__ __forceinline__ void stage_tile(float* tile, const T* base,
+template <int D, int BM>
+__device__ __forceinline__ void stage_tile(float* tile, const float* base,
                                            long long row_stride, int row0) {
   constexpr int ld = D + 1;
   for (int e = threadIdx.x; e < BM * D; e += kThreads) {
     const int r = e / D;
     const int c = e % D;
-    tile[r * ld + c] = to_float(base[(long long)(row0 + r) * row_stride + c]);
+    tile[r * ld + c] = base[(long long)(row0 + r) * row_stride + c];
   }
 }
 
@@ -231,9 +205,9 @@ struct Args {
   const void* dout;
   const float* lse;     // (B, S, H) base-e
   const float* delta;   // (B, S, H)
-  void* dq;             // (B, S, H, D) in T (C2)
+  void* dq;             // (B, S, H, D) (C2)
   float* dq_acc;        // (B, S, H, D) f32 workspace (C1)
-  void* dk;             // (B, S, H, D) in T (C1, C3)
+  void* dk;             // (B, S, H, D) (C1, C3)
   void* dv;
   int B, S, H;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;
@@ -242,7 +216,7 @@ struct Args {
 };
 
 // C1 (kWithDq) and C3: grid (S / BM, H, B), one block per K tile.
-template <typename T, int D, int BM, bool kWithDq>
+template <int D, int BM, bool kWithDq>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kv_kernel(const Args a) {
   constexpr int ld = D + 1;
@@ -266,14 +240,17 @@ flash_bwd_kv_kernel(const Args a) {
   const int ty = threadIdx.x >> 4;
   const int k0 = kt * bm;
   const float scale2 = a.scale * kLog2e;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)h * D;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + (long long)h * D;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + (long long)h * D;
-  const T* dout =
-      static_cast<const T*>(a.dout) + b * a.o_sb + (long long)h * D;
+  const float* q =
+      static_cast<const float*>(a.q) + b * a.q_sb + (long long)h * D;
+  const float* k =
+      static_cast<const float*>(a.k) + b * a.k_sb + (long long)h * D;
+  const float* v =
+      static_cast<const float*>(a.v) + b * a.v_sb + (long long)h * D;
+  const float* dout =
+      static_cast<const float*>(a.dout) + b * a.o_sb + (long long)h * D;
 
-  stage_tile<T, D, BM>(sK, k, a.k_ss, k0);
-  stage_tile<T, D, BM>(sV, v, a.v_ss, k0);
+  stage_tile<D, BM>(sK, k, a.k_ss, k0);
+  stage_tile<D, BM>(sV, v, a.v_ss, k0);
 
   float acc_k[n][kCols], acc_v[n][kCols];
 #pragma unroll
@@ -285,8 +262,8 @@ flash_bwd_kv_kernel(const Args a) {
   for (int qt = a.causal ? kt : 0; qt < n_q; ++qt) {
     const int q0 = qt * bm;
     __syncthreads();   // the previous q tile's reads of sQ/sdO/sP are done
-    stage_tile<T, D, BM>(sQ, q, a.q_ss, q0);
-    stage_tile<T, D, BM>(sdO, dout, a.o_ss, q0);
+    stage_tile<D, BM>(sQ, q, a.q_ss, q0);
+    stage_tile<D, BM>(sdO, dout, a.o_ss, q0);
     stage_rows<BM>(s_lse2, s_delta, a.lse, a.delta, b, a.S, a.H, h, q0);
     __syncthreads();
 
@@ -297,7 +274,7 @@ flash_bwd_kv_kernel(const Args a) {
     for (int i = 0; i < n; ++i)
 #pragma unroll
       for (int j = 0; j < n; ++j)
-        sP[(ty + 16 * i) * ldp + tx + 16 * j] = round_to<T>(p[i][j]);
+        sP[(ty + 16 * i) * ldp + tx + 16 * j] = p[i][j];
     tile_abt<D, BM>(dp, sdO, sV, ty, tx);
     __syncthreads();   // sP holds P
 
@@ -308,8 +285,7 @@ flash_bwd_kv_kernel(const Args a) {
       const float dl = s_delta[ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < n; ++j)
-        sP[(ty + 16 * i) * ldp + tx + 16 * j] =
-            round_to<T>(p[i][j] * (dp[i][j] - dl));
+        sP[(ty + 16 * i) * ldp + tx + 16 * j] = p[i][j] * (dp[i][j] - dl);
     }
     __syncthreads();   // sP holds dS
 
@@ -331,21 +307,21 @@ flash_bwd_kv_kernel(const Args a) {
     }
   }
 
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
+  float* dk = static_cast<float*>(a.dk);
+  float* dv = static_cast<float*>(a.dv);
 #pragma unroll
   for (int r = 0; r < n; ++r) {
     const long long o = (((long long)b * a.S + k0 + ty + 16 * r) * a.H + h) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      dk[o + tx + 16 * c] = from_float<T>(acc_k[r][c] * a.scale);
-      dv[o + tx + 16 * c] = from_float<T>(acc_v[r][c]);
+      dk[o + tx + 16 * c] = acc_k[r][c] * a.scale;
+      dv[o + tx + 16 * c] = acc_v[r][c];
     }
   }
 }
 
 // C2: grid (S / BM, H, B), one block per q tile.
-template <typename T, int D, int BM>
+template <int D, int BM>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const Args a) {
   constexpr int ld = D + 1;
@@ -369,14 +345,17 @@ flash_bwd_dq_kernel(const Args a) {
   const int ty = threadIdx.x >> 4;
   const int q0 = qt * bm;
   const float scale2 = a.scale * kLog2e;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)h * D;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + (long long)h * D;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + (long long)h * D;
-  const T* dout =
-      static_cast<const T*>(a.dout) + b * a.o_sb + (long long)h * D;
+  const float* q =
+      static_cast<const float*>(a.q) + b * a.q_sb + (long long)h * D;
+  const float* k =
+      static_cast<const float*>(a.k) + b * a.k_sb + (long long)h * D;
+  const float* v =
+      static_cast<const float*>(a.v) + b * a.v_sb + (long long)h * D;
+  const float* dout =
+      static_cast<const float*>(a.dout) + b * a.o_sb + (long long)h * D;
 
-  stage_tile<T, D, BM>(sQ, q, a.q_ss, q0);
-  stage_tile<T, D, BM>(sdO, dout, a.o_ss, q0);
+  stage_tile<D, BM>(sQ, q, a.q_ss, q0);
+  stage_tile<D, BM>(sdO, dout, a.o_ss, q0);
   stage_rows<BM>(s_lse2, s_delta, a.lse, a.delta, b, a.S, a.H, h, q0);
 
   float acc_q[n][kCols];
@@ -388,8 +367,8 @@ flash_bwd_dq_kernel(const Args a) {
   const int n_k = a.causal ? qt + 1 : a.S / bm;
   for (int kt = 0; kt < n_k; ++kt) {
     __syncthreads();   // the previous K tile's reads of sK/sV/sP are done
-    stage_tile<T, D, BM>(sK, k, a.k_ss, kt * bm);
-    stage_tile<T, D, BM>(sV, v, a.v_ss, kt * bm);
+    stage_tile<D, BM>(sK, k, a.k_ss, kt * bm);
+    stage_tile<D, BM>(sV, v, a.v_ss, kt * bm);
     __syncthreads();
 
     float p[n][n], dp[n][n];
@@ -408,13 +387,13 @@ flash_bwd_dq_kernel(const Args a) {
     acc_w_x<D, BM>(acc_q, sP, sK, ty, tx);     // dQ += dS K
   }
 
-  T* dq = static_cast<T*>(a.dq);
+  float* dq = static_cast<float*>(a.dq);
 #pragma unroll
   for (int r = 0; r < n; ++r) {
     const long long o = (((long long)b * a.S + q0 + ty + 16 * r) * a.H + h) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      dq[o + tx + 16 * c] = from_float<T>(acc_q[r][c] * a.scale);
+      dq[o + tx + 16 * c] = acc_q[r][c] * a.scale;
   }
 }
 
@@ -434,42 +413,35 @@ int launch(Kernel kernel, bool& smem_set, size_t smem, int block_rows,
   return (int)cudaGetLastError();
 }
 
-// which: 0 = C1 merged, 1 = C2 dq, 2 = C3 dkv.  The split pair is
-// instantiated here in f32 only (the tensor-core kernels take bf16 and
-// fp16).
-template <typename T, int D, int BM>
+// which: 0 = C1 merged, 1 = C2 dq, 2 = C3 dkv; float32 (the tensor-core
+// kernels take bf16 and fp16).
+template <int D, int BM>
 int dispatch_which(int which, const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, BM>();
   static bool set_merged = false, set_dq = false, set_dkv = false;
   if (which == 0)
-    return launch(flash_bwd_kv_kernel<T, D, BM, true>, set_merged, smem, BM,
-                  a, stream);
-  if constexpr (std::is_same<T, float>::value) {
-    if (which == 1)
-      return launch(flash_bwd_dq_kernel<T, D, BM>, set_dq, smem, BM, a,
-                    stream);
-    if (which == 2)
-      return launch(flash_bwd_kv_kernel<T, D, BM, false>, set_dkv, smem, BM,
-                    a, stream);
-  }
+    return launch(flash_bwd_kv_kernel<D, BM, true>, set_merged, smem, BM, a,
+                  stream);
+  if (which == 1)
+    return launch(flash_bwd_dq_kernel<D, BM>, set_dq, smem, BM, a, stream);
+  if (which == 2)
+    return launch(flash_bwd_kv_kernel<D, BM, false>, set_dkv, smem, BM, a,
+                  stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // the (D, tile rows) pairs instantiated: 64 or 32 rows up to D = 128, 32
 // at D = 256
-template <typename T>
 int dispatch_d(int which, int D, int block, const Args& a,
                cudaStream_t stream) {
-  if (D == 64 && block == 64)
-    return dispatch_which<T, 64, 64>(which, a, stream);
-  if (D == 64 && block == 32)
-    return dispatch_which<T, 64, 32>(which, a, stream);
+  if (D == 64 && block == 64) return dispatch_which<64, 64>(which, a, stream);
+  if (D == 64 && block == 32) return dispatch_which<64, 32>(which, a, stream);
   if (D == 128 && block == 64)
-    return dispatch_which<T, 128, 64>(which, a, stream);
+    return dispatch_which<128, 64>(which, a, stream);
   if (D == 128 && block == 32)
-    return dispatch_which<T, 128, 32>(which, a, stream);
+    return dispatch_which<128, 32>(which, a, stream);
   if (D == 256 && block == 32)
-    return dispatch_which<T, 256, 32>(which, a, stream);
+    return dispatch_which<256, 32>(which, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -485,13 +457,12 @@ int run(int which, const void* q, const void* k, const void* v,
                dv,   B,    S,    H,    q_sb, q_ss,  k_sb, k_ss,   v_sb,
                v_ss, o_sb, o_ss, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype == 1 || dtype == 2) && which != 0)
-    return flash_bwd_tc_launch(which == 2, q, k, v, dout, lse, delta, dq, dk,
-                               dv, B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb,
-                               v_ss, o_sb, o_ss, causal, scale, dtype, block,
-                               stream);
-  if (dtype == 0) return dispatch_d<float>(which, D, block, a, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, D, block, a, st);
+  if (dtype == 1 || dtype == 2)
+    return flash_bwd_tc_launch(which, q, k, v, dout, lse, delta, dq, dq_acc,
+                               dk, dv, B, S, H, D, q_sb, q_ss, k_sb, k_ss,
+                               v_sb, v_ss, o_sb, o_ss, causal, scale, dtype,
+                               block, stream);
+  if (dtype == 0) return dispatch_d(which, D, block, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -499,14 +470,14 @@ int run(int which, const void* q, const void* k, const void* v,
 
 // Common arguments: q/k/v/dout (B, S, H, D) with (H, D) dense and the given
 // batch / sequence strides in elements; lse (base-e) and delta dense
-// (B, S, H) f32; D in {64, 128, 256}; `block` the tile rows (64 or 32 at
-// D <= 128, 32 at D = 256; bf16 and fp16 C2 and C3: 64 or 128 at D = 64,
-// 64 at D = 128 and 256, rows 16-byte aligned), S a multiple of it; dtype
-// 0 = float32, 1 = bfloat16, 2 = float16 (C2 and C3 only); `scale` the
-// base-e softmax scale.  Outputs are dense
-// (B, S, H, D).  Each returns its launch's cudaError_t.
+// (B, S, H) f32; D in {64, 128, 256}; `block` the tile rows (f32: 64 or 32
+// at D <= 128, 32 at D = 256; bf16 and fp16: 64 or 128 at D = 64, 64 at D
+// = 128 and 256, rows 16-byte aligned), S a multiple of it; dtype 0 =
+// float32, 1 = bfloat16, 2 = float16; `scale` the base-e softmax scale.
+// Outputs are dense (B, S, H, D).  Each returns its launch's cudaError_t.
 
-// C1: dq_acc is an f32 workspace the caller zeroes, scales and casts.
+// C1: dq_acc is an f32 workspace the caller zeroes and casts; in f32 the
+// caller also scales it, in bf16 and fp16 the kernel folds the scale in.
 extern "C" int paddle_flash_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,

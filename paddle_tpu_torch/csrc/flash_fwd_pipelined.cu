@@ -1,5 +1,7 @@
 // Flash-attention forward with pipelined K/V tiles for Hopper (sm_90a),
-// plain C interface for ctypes: kernel A'.
+// plain C interface for ctypes: kernel A' for float32 inputs (bf16 and
+// fp16 take flash_fwd_pipelined_tc.cu, on the tensor cores; f32 there
+// would be TF32, other numerics).
 //
 // Replaces paddle_tpu/kernels/flash_attention_pallas.py:_fwd_kernel_pipelined
 // (the `pipelined` variant of the flash_fwd autotune family).  It computes
@@ -16,26 +18,24 @@
 // shared memory through cp.async 16-byte copies, one commit group per tile:
 // the copy of tile kt+1 is issued, then `cp.async.wait_group 1` waits for
 // tile kt alone, and the products of tile kt run while kt+1 is in flight.
-// Tiles are kept in the input dtype (bf16 halves the shared memory of a
-// stage against A's f32 staging), rows padded by 16 bytes so every row
-// stays 16-byte aligned; operands are read 16 bytes at a time, which keeps
-// the padded rows free of bank conflicts.  As at :541, under `causal` the
+// Rows are padded by 16 bytes so every row stays 16-byte aligned;
+// operands are read 16 bytes at a time, which keeps the padded rows free
+// of bank conflicts.  As at :541, under `causal` the
 // scan stops after the diagonal band, kend = (qt + 1) * BQ / BK, and every
 // visited tile applies the mask (a compare per score, no separate
 // mask-free loop).  The statistics are A's: f32 (m, l, acc) in registers,
 // the softmax in base 2 with log2(e) folded into the scale applied to the
 // raw q.k product (the TPU kernel's order), and the base-e lse.  Products
-// are plain f32 FMAs (wgmma is a later change).  The tile shape is a
+// are plain f32 FMAs.  The tile shape is a
 // template parameter; 4 * BQ threads, each owning 4 q rows, BK / 16 score
 // columns and D / 16 output columns.
 //
-// Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): as kernel A, it must
-// read q, k, v and write out once (8 MiB at B=8, S=1024, H=16, D=64 bf16,
-// ~2.5 us) and do 4 S^2 D / 2 FLOP per (batch, head) causal (~2.2 us
-// there); the FMA path cannot reach the tensor-core rate.  Its measured
-// times stand in PERF.md beside the bound.
+// Bound on the H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores): as kernel A, it must read q, k, v and write out once (16 MiB at
+// B=8, S=1024, H=16, D=64 f32, 5 us) and do 4 S^2 D / 2 FLOP per (batch,
+// head) causal (0.257 ms there): bound by operations.  Its measured times
+// stand in PERF.md beside the bound.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,18 +56,11 @@ constexpr size_t smem_bytes(int elem, int D, int BQ, int BK) {
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // 16 bytes of shared memory as floats
 __device__ __forceinline__ void load_vec(const float* p, float (&o)[4]) {
@@ -77,18 +70,6 @@ __device__ __forceinline__ void load_vec(const float* p, float (&o)[4]) {
   o[2] = x.z;
   o[3] = x.w;
 }
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&o)[8]) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const float2 f = __bfloat1622float2(h[t]);
-    o[2 * t] = f.x;
-    o[2 * t + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
@@ -350,7 +331,7 @@ bool instantiated(int D, int bq, int bk) {
 // q/k/v: (B, S, H, D) with (H, D) dense and the given batch / sequence
 // strides in elements, every row 16-byte aligned (base pointers and
 // strides: the caller checks); out: dense (B, S, H, D); lse: dense
-// (B, S, H) f32 or NULL.  dtype 0 = float32, 1 = bfloat16.  (block_q,
+// (B, S, H) f32 or NULL.  dtype 0 = float32.  (block_q,
 // block_k) one of (64, 32), (64, 64), (128, 64), (128, 128), S a multiple
 // of block_q.  `scale` is the base-e softmax scale.  Returns the launch's
 // cudaError_t.
@@ -367,17 +348,15 @@ extern "C" int paddle_flash_fwd_pipelined(
                causal, scale * 1.4426950408889634f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(D, block_q, block_k, a, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, block_q, block_k, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The dynamic shared memory a launch of that configuration asks for, or -1
-// when it is not instantiated: the wrapper's smem_bytes hook is held to it.
+// when it is not instantiated (dtype 0 = float32 only): the wrapper's
+// smem_bytes hook is held to it.
 extern "C" long long paddle_flash_fwd_pipelined_smem(int D, int block_q,
                                                      int block_k,
                                                      int dtype) {
-  if (!instantiated(D, block_q, block_k) || (dtype != 0 && dtype != 1))
-    return -1;
-  return (long long)smem_bytes(dtype == 0 ? 4 : 2, D, block_q, block_k);
+  if (!instantiated(D, block_q, block_k) || dtype != 0) return -1;
+  return (long long)smem_bytes(4, D, block_q, block_k);
 }

@@ -41,19 +41,19 @@
 // 256 O is two m64n128 accumulators (128 registers a thread).  Under
 // causal the q tiles with the most K tiles start first (the block index
 // runs the tiles in reverse), and a warpgroup whose 64 rows all lie
-// before a tile skips that tile's products.  (BQ, BK) are template
+// before a tile skips that tile's products.  The per-tile step and the
+// epilogue are FwdRows (wgmma_common.cuh), which A' shares.  (BQ, BK) are template
 // parameters, the autotuner's flash_fwd "base" candidates for these
-// dtypes (_TC_FWD_BLOCKS in kernels/flash_attention_cuda.py).  Warp
-// specialisation, TMA with mbarriers and overlapping one tile's softmax
-// with the next tile's S product are left for a later change.
+// dtypes (_TC_FWD_BLOCKS in kernels/flash_attention_cuda.py).  Kernel A'
+// (flash_fwd_pipelined_tc.cu) computes the same with TMA copies into an
+// mbarrier ring that a producer of its own keeps full; overlapping one
+// tile's softmax with another tile's products was tried there and lost.
 
 #include <math.h>
 
 #include "wgmma_common.cuh"
 
 namespace {
-
-constexpr float kLn2 = 0.6931471805599453f;
 
 // Dynamic shared memory of one launch: 1024 bytes of slack to align the
 // tiles to the swizzle's 1024-byte period, the BQ x D q tile and two
@@ -82,10 +82,6 @@ flash_fwd_tc_kernel(const FwdArgs a) {
   constexpr int NT = 2 * BQ;
   constexpr int QTILE = BQ * D * 2;   // bytes of the q tile
   constexpr int KTILE = BK * D * 2;   // bytes of one K or V tile
-  constexpr int NS = BK / 2;          // score accumulators a thread
-  constexpr int KS = BK / 16;         // k16 steps of P V
-  constexpr int NH = D == 256 ? 2 : 1;   // m64n(D / NH) output accumulators
-  constexpr int NO = D / 2 / NH;
   static_assert(BQ % BK == 0, "the causal band is whole K tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -95,10 +91,7 @@ flash_fwd_tc_kernel(const FwdArgs a) {
   const int qt = n_t - 1 - (int)blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int t = threadIdx.x & 127;
   const int wg = threadIdx.x >> 7;
-  const int w = t >> 5;
-  const int l = t & 31;
   const int q0 = qt * BQ;
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb + (long long)h * D;
   const T* k = static_cast<const T*>(a.k) + b * a.k_sb + (long long)h * D;
@@ -118,17 +111,8 @@ flash_fwd_tc_kernel(const FwdArgs a) {
   issue_kv(0, 0);
   cp_async_commit();
 
-  float o[NH][NO], s[NS];
-#pragma unroll
-  for (int j = 0; j < NH; ++j)
-#pragma unroll
-    for (int i = 0; i < NO; ++i) o[j][i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) s[i] = 0.f;
-  // this thread's two q rows (local to the tile): r_lo and r_lo + 8; the
-  // running max and this thread's share of the running sum of each
-  const int r_lo = 64 * wg + 16 * w + (l >> 2);
-  float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+  FwdRows<T, D, BQ, BK> f;
+  f.init();
 
   for (int it = 0; it < n_it; ++it) {
     const int st = it & 1;
@@ -144,94 +128,12 @@ flash_fwd_tc_kernel(const FwdArgs a) {
     const bool active = !a.causal || c0 <= q0 + 64 * wg + 63;
     if (active) {
       const uint32_t sK = sKV + st * 2 * KTILE;
-      const uint32_t sV = sK + KTILE;
-
-      // S = Q K^T for this warpgroup's 64 q rows
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<T, BK>(s, desc_k<BQ>(sQ, 64 * wg, kk), desc_k<BK>(sK, 0, kk),
-                        kk > 0);
-      wg_commit();
-      wg_wait0();
-      fence_regs(s);
-
-      // accumulator i: q row r_lo + 8 ((i >> 1) & 1), K column
-      // c0 + 8 (i >> 2) + 2 (l & 3) + (i & 1)
-      const bool diag = a.causal && c0 + BK - 1 > q0 + 64 * wg;
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const int hh = (i >> 1) & 1;
-        const int c = c0 + 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
-        float x = s[i] * a.scale2;
-        if (diag && c > q0 + r_lo + 8 * hh) x = -INFINITY;
-        s[i] = x;
-        mx[hh] = fmaxf(mx[hh], x);
-      }
-      float corr[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-        // the first tile holds key 0, visible to every row: mx is finite
-        corr[hh] = exp2f(m[hh] - mx[hh]);
-        m[hh] = mx[hh];
-      }
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const int hh = (i >> 1) & 1;
-        s[i] = exp2f(s[i] - mx[hh]);
-        ps[hh] += s[i];
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) lsum[hh] = lsum[hh] * corr[hh] + ps[hh];
-#pragma unroll
-      for (int j = 0; j < NH; ++j)
-#pragma unroll
-        for (int i = 0; i < NO; ++i) o[j][i] *= corr[(i >> 1) & 1];
-      uint32_t fp[KS][4];
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-        for (int mm = 0; mm < 4; ++mm)
-          fp[kk][mm] = pack2<T>(s[8 * kk + 2 * mm], s[8 * kk + 2 * mm + 1]);
-
-      // O += P V (V read transposed: the keys are the depth), D / NH
-      // columns (one or two 64-column atoms) a product
-      wg_fence();
-#pragma unroll
-      for (int j = 0; j < NH; ++j)
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          wgmma_rs<T, D / NH>(o[j], fp[kk],
-                              desc_t<BK>(sV + j * (D / NH / 64) * BK * 128,
-                                         kk));
-      wg_commit();
-      wg_wait0();
-#pragma unroll
-      for (int j = 0; j < NH; ++j) fence_regs(o[j]);
+      f.tile(sQ, wg, sK, sK + KTILE, c0, q0 + 64 * wg, a.causal, a.scale2);
     }
     __syncthreads();   // the stage is free for the copies of tile it + 2
   }
 
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    lsum[hh] += __shfl_xor_sync(0xffffffffu, lsum[hh], 1);
-    lsum[hh] += __shfl_xor_sync(0xffffffffu, lsum[hh], 2);
-    lsum[hh] = fmaxf(lsum[hh], 1e-30f);
-  }
-  T* out = static_cast<T*>(a.out);
-#pragma unroll
-  for (int j = 0; j < NH; ++j)
-    store_rows<D, D / NH>(out, o[j], 1.f / lsum[0], 1.f / lsum[1], b, a.S,
-                          a.H, h, q0 + 64 * wg, j * (D / NH));
-  if (a.lse != nullptr && (l & 3) == 0) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-      a.lse[((long long)b * a.S + q0 + r_lo + 8 * hh) * a.H + h] =
-          (m[hh] + log2f(lsum[hh])) * kLn2;
-  }
+  f.finish(static_cast<T*>(a.out), a.lse, b, a.S, a.H, h, q0 + 64 * wg);
 }
 
 template <typename T, int D, int BQ, int BK>

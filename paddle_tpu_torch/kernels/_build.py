@@ -145,6 +145,12 @@ def library():
             lib.paddle_flash_fwd_pipelined.restype = i
             lib.paddle_flash_fwd_pipelined_smem.argtypes = [i, i, i, i]
             lib.paddle_flash_fwd_pipelined_smem.restype = ll
+            # the 16-bit A' (tensor maps, tensor cores): A''s arguments
+            lib.paddle_flash_fwd_pipelined_tc.argtypes = \
+                lib.paddle_flash_fwd_pipelined.argtypes
+            lib.paddle_flash_fwd_pipelined_tc.restype = i
+            lib.paddle_flash_fwd_pipelined_tc_smem.argtypes = [i, i, i]
+            lib.paddle_flash_fwd_pipelined_tc_smem.restype = ll
             # the tensor-core forward: A''s arguments
             lib.paddle_flash_fwd_tc.argtypes = \
                 lib.paddle_flash_fwd_pipelined.argtypes
@@ -167,8 +173,10 @@ def library():
             for fn in (lib.paddle_flash_bwd, lib.paddle_flash_bwd_dq,
                        lib.paddle_flash_bwd_dkv):
                 fn.restype = i
-            lib.paddle_flash_bwd_tc_smem.argtypes = [i, i]
-            lib.paddle_flash_bwd_tc_smem.restype = ll
+            for fn in (lib.paddle_flash_bwd_tc_smem,
+                       lib.paddle_flash_bwd_merged_tc_smem):
+                fn.argtypes = [i, i]
+                fn.restype = ll
             lib.paddle_layer_norm_bwd.argtypes = [
                 p, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
             lib.paddle_layer_norm_bwd.restype = i

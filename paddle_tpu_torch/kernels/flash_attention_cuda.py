@@ -1,10 +1,12 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd_tc.cu`` (forward on
 the tensor cores, bf16 and fp16), ``csrc/flash_fwd.cu`` (forward, kernel
-A, f32), ``csrc/flash_fwd_pipelined.cu`` (forward with pipelined K/V
-tiles, kernel A', f32 and bf16), ``csrc/flash_bwd.cu`` (backward: C1
-merged, f32 and bf16, and C2 dQ / C3 dK/dV in f32, on FMAs) and
-``csrc/flash_bwd_tc.cu`` (C2 and C3 on the tensor cores for bf16 and
-fp16), their plain PyTorch versions, the autograd Functions that join
+A, f32), kernel A' (forward with pipelined K/V tiles: for bf16 and fp16
+``csrc/flash_fwd_pipelined_tc.cu``, TMA-fed and warp-specialised on the
+tensor cores; for f32 ``csrc/flash_fwd_pipelined.cu``, on FMAs),
+``csrc/flash_bwd.cu`` (backward entry points and the f32 kernels: C1
+merged, C2 dQ, C3 dK/dV, on FMAs) and ``csrc/flash_bwd_tc.cu`` (C1, C2
+and C3 on the tensor cores for bf16 and fp16), their plain PyTorch
+versions, the autograd Functions that join
 them, and their autotune families (port of
 ``paddle_tpu/kernels/flash_attention_pallas.py``: ``_fwd_kernel`` /
 ``_fwd_kernel_streamed`` / ``_fwd_kernel_pipelined`` and ``_bwd_kernel`` /
@@ -29,27 +31,28 @@ candidate [0].  The forward's ``"base"`` variant depends on the dtype:
 bf16 and fp16 take the tensor-core forward at one of its (block_q,
 block_k) instantiations (candidate [0]: 128 x 128 at D 64, 128 x 64 at
 D 128, 64 x 64 at D 256); f32 takes kernel A with its fixed 64 x 64
-tiles.  The ``pipelined`` variant selects A' (f32 and bf16) at one of its
-instantiations, which needs every q/k/v row 16-byte aligned (the unit of
-its async copies); it is reached by a pin or a tuned pick.  The backward
+tiles.  The ``pipelined`` variant selects A' at one of its
+instantiations; it is reached by a pin or a tuned pick, which the
+autotuner makes only for q/k/v rows that start on 16 bytes.  The backward
 route is :func:`..flash_attention._card_bwd_route`'s: bf16 and fp16 take
 the split pair C2 + C3 at every length, f32 the JAX package's choice
-between C1 and the pair.  The split pair's tiles depend on the dtype:
+between C1 and the pair.  The backward's tiles depend on the dtype:
 bf16 and fp16 take the tensor-core tiles, 64 or 128 at D 64 and 64 at D
-128 and 256; f32 the FMA kernels' 64 or 32 rows (32 at D 256); C1 takes
-64 or 32 rows and no fp16.  The tensor-core kernels copy 16-byte rows
-too: an input whose rows are not 16-byte aligned is copied to an aligned
-one first.  ``iotafree`` and ``parq`` are accepted and change nothing
-here: the first is a bit-identical rewrite of the TPU's mask arithmetic,
-the second a TPU lse block layout.  ``bf16chain`` changes the numerics
+128 and 256; f32 the FMA kernels' 64 or 32 rows (32 at D 256).  The
+16-bit kernels read 16-byte rows (A' through tensor maps, which want
+16-byte bases and strides): an input whose rows are not 16-byte aligned
+is copied to an aligned one first.  f32 A' raises on such rows.
+``iotafree`` and ``parq`` are accepted and change nothing here: the
+first is a bit-identical rewrite of the TPU's mask arithmetic, the
+second a TPU lse block layout.  ``bf16chain`` changes the numerics
 and has no kernel yet: it raises.  A resolved candidate that the kernels
 cannot take (a stale cache entry, a pin, a tile or variant not
 instantiated for the dtype) falls back to candidate [0], as in the JAX
 package.
 
 A CUDA tensor launches the kernels (or raises); only a CPU tensor takes
-the plain versions :func:`_flash_tc_reference` /
-:func:`_flash_reference` / :func:`_flash_pipelined_reference` /
+the plain versions :func:`_flash_tc_reference` (the tensor-core
+forward's and kernel A''s) / :func:`_flash_reference` /
 :func:`_flash_bwd_reference`.  The forward saves what the JAX
 ``custom_vjp`` saves, (q, k, v, out, lse), and only when autograd will
 use it.  ``flash_fwd_tc_launches``, ``flash_fwd_launches``,
@@ -117,14 +120,15 @@ def _flash_reference(q, k, v, causal, scale):
     return out, lse.transpose(1, 2).contiguous()
 
 
-def _flash_tile_walk(q, k, v, causal, scale, block_q, block_k, round_p):
-    """The tile walk of the forward kernels: over the K/V tiles of
-    ``block_k`` rows, with the online softmax in f32 (base 2, the scale
-    times log2(e) applied to q.k in f32), each q tile of ``block_q`` rows
-    stopping after its causal band and every visited tile masked.
-    ``round_p`` rounds p to v's dtype before the p.v product (the sum l
-    takes the unrounded p).  Returns (out in q's dtype, base-e row
-    logsumexp (B, S, H) f32)."""
+def _flash_tc_reference(q, k, v, causal, scale, block_q, block_k):
+    """Plain version of the tensor-core forward and of kernel A': the
+    forward kernels' tile walk over the K/V tiles of ``block_k`` rows,
+    with the online softmax in f32 (base 2, the scale times log2(e)
+    applied to q.k in f32), each q tile of ``block_q`` rows stopping after
+    its causal band and every visited tile masked; p is rounded to v's
+    dtype before the p.v product, as the TPU's ``_online_step`` rounds it
+    (``p.astype(v.dtype)``), and l summed from the unrounded p.  Returns
+    (out in q's dtype, base-e row logsumexp (B, S, H) f32)."""
     b, s, h, d = q.shape
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B,H,S,D)
     scale2 = float(scale) * _LOG2E
@@ -147,8 +151,7 @@ def _flash_tile_walk(q, k, v, causal, scale, block_q, block_k, round_p):
         p = torch.exp2(logits - m_new[..., None])
         corr = torch.exp2(m_old - m_new)
         l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(-1)
-        if round_p:
-            p = p.to(v.dtype).float()
+        p = p.to(v.dtype).float()
         acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + torch.einsum(
             "bhqk,bhkd->bhqd", p, vf[:, :, c0:c0 + block_k])
         m[:, :, r0:] = m_new
@@ -156,23 +159,6 @@ def _flash_tile_walk(q, k, v, causal, scale, block_q, block_k, round_p):
     out = (acc / l_safe[..., None]).to(q.dtype).transpose(1, 2)
     lse2 = m + torch.log(l_safe) * _LOG2E          # base 2, as the kernels
     return out.contiguous(), (lse2 / _LOG2E).transpose(1, 2).contiguous()
-
-
-def _flash_pipelined_reference(q, k, v, causal, scale, block_q, block_k):
-    """Plain version of kernel A': the forward kernels' tile walk
-    (:func:`_flash_tile_walk`) with p kept in f32, as A' keeps it."""
-    return _flash_tile_walk(q, k, v, causal, scale, block_q, block_k,
-                            round_p=False)
-
-
-def _flash_tc_reference(q, k, v, causal, scale, block_q, block_k):
-    """Plain version of the tensor-core forward: the tile walk of
-    :func:`_flash_pipelined_reference` with p rounded to v's dtype before
-    the p.v product, as the TPU's ``_online_step`` rounds it
-    (``p.astype(v.dtype)``), and l summed from the unrounded p.  Returns
-    (out in q's dtype, base-e row logsumexp (B, S, H) f32)."""
-    return _flash_tile_walk(q, k, v, causal, scale, block_q, block_k,
-                            round_p=True)
 
 
 def _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, dlse=None):
@@ -287,29 +273,21 @@ def _refuse_bf16chain(feats):
             "another variant")
 
 
-#: bf16 C2 / C3 on the tensor cores: square tiles by head dim, the default
-#: first (128-row tiles at D 128 would need 256 accumulator registers a
-#: thread in C3; at D 256 two 64-row tiles' operands alone exceed shared
-#: memory)
+#: 16-bit C1 / C2 / C3 on the tensor cores: square tiles by head dim, the
+#: default first (128-row tiles at D 128 would need 256 accumulator
+#: registers a thread in C3; at D 256 two 64-row tiles' operands alone
+#: exceed shared memory)
 _TC_BLOCKS = {64: (64, 128), 128: (64,), 256: (64,)}
-_SPLIT_FAMILIES = ("flash_bwd_dq", "flash_bwd_dkv")
-
-
-def _tc_split(dtype, family):
-    """Whether ``family``'s kernel at ``dtype`` is the tensor-core C2 / C3
-    of ``csrc/flash_bwd_tc.cu``."""
-    return family in _SPLIT_FAMILIES and dtype in _TC_DTYPES
 
 
 def _bwd_blocks(d, dtype=torch.float32, family="flash_bwd"):
-    """Tile rows of ``family``'s kernel instantiated at head dim ``d`` and
-    ``dtype``, the default first: the tensor-core tiles for bf16 and fp16
-    C2 / C3; else the FMA kernels' 64 or 32 rows (32 alone at D = 256,
-    where 64-row f32 tiles do not fit); none for C1 in fp16."""
-    if _tc_split(dtype, family):
+    """Tile rows of ``family``'s kernel (C1, C2 or C3) instantiated at
+    head dim ``d`` and ``dtype``, the default first: the tensor-core tiles
+    of ``csrc/flash_bwd_tc.cu`` for bf16 and fp16; the FMA kernels' 64 or
+    32 rows for f32 (32 alone at D = 256, where 64-row f32 tiles do not
+    fit).  The three families share them."""
+    if dtype in _TC_DTYPES:
         return _TC_BLOCKS[d]
-    if dtype == torch.float16:
-        return ()
     return (64, 32) if d <= 128 else (32,)
 
 
@@ -322,6 +300,18 @@ def split_tc_smem_bytes(d, block):
     ``block`` x ``block`` score tiles that the warpgroups exchange."""
     xchg = 2 * block * block * 4 if d == 256 else 0
     return 1024 + 6 * block * d * 2 + 4 * block * 4 + xchg
+
+
+def merged_tc_smem_bytes(d, block):
+    """Dynamic shared memory of one tensor-core C1 launch
+    (``merged_tc_smem_bytes`` of ``csrc/flash_bwd_tc.cu``): at D 64 C3's
+    and the 16-bit ``block`` x ``block`` dS^T tile that dQ reads; at D 128
+    and 256, where two warpgroups share the tile, the layout of C3 at D
+    256: six tiles, four row vectors and the two f32 score tiles of the
+    exchange, whose unused half holds the dS^T tile."""
+    if d == 64:
+        return split_tc_smem_bytes(d, block) + block * block * 2
+    return 1024 + 6 * block * d * 2 + 4 * block * 4 + 2 * block * block * 4
 
 
 def fwd_tc_smem_bytes(d, block_q, block_k):
@@ -344,25 +334,32 @@ def _valid_blocks(bq, bk, s, sk, causal):
 
 
 def pipelined_smem_bytes(d, block_q, block_k, dtype):
-    """Dynamic shared memory of one A' launch (``smem_bytes`` of
-    ``csrc/flash_fwd_pipelined.cu``): the q tile and two stages of K and V
-    in the input dtype, rows padded by 16 bytes, then the f32 P tile."""
-    esz = 4 if dtype == torch.float32 else 2
-    return ((block_q + 4 * block_k) * (d + 16 // esz) * esz
-            + block_q * (block_k + 1) * 4)
+    """Dynamic shared memory of one A' launch.  16-bit
+    (``pipelined_tc_smem_bytes`` of ``csrc/flash_fwd_pipelined_tc.cu``,
+    which the card tests hold this to): 1024 bytes to align the tiles to
+    the swizzle's 1024-byte period, the q tile, the ring's slots of the K
+    and V tiles and 256 bytes of barriers; the ring has as many slots as
+    fit the H100's 232448 bytes a block, at most 4 and at least 2 (a tile
+    that does not fit two is refused).  f32 (``smem_bytes`` of
+    ``csrc/flash_fwd_pipelined.cu``): the q tile and two stages of K and
+    V, rows padded by 16 bytes, then the f32 P tile."""
+    if dtype in _TC_DTYPES:
+        fixed = 1024 + block_q * d * 2 + 256
+        slot = 4 * block_k * d
+        return fixed + max(2, min(4, (232448 - fixed) // slot)) * slot
+    return (block_q + 4 * block_k) * (d + 4) * 4 + block_q * (block_k + 1) * 4
 
 
 def _fwd_specs(s, sk, d, dtype, causal):
     """Every forward (variant, block_q, block_k) instantiated for ``dtype``
     at head dim ``d`` that divides these lengths, candidate [0] first:
     bf16 and fp16 the tensor-core forward's tiles (its default first),
-    f32 kernel A; then A' at each of its tiles, for f32 and bf16."""
+    f32 kernel A; then A' at each of its tiles."""
     if dtype in _TC_DTYPES:
         specs = [("base",) + bs for bs in _TC_FWD_BLOCKS[d]]
     else:
         specs = [("base",) + _BASE_BLOCKS]
-    if dtype != torch.float16:
-        specs += [("pipelined",) + bs for bs in _PIPELINED_BLOCKS]
+    specs += [("pipelined",) + bs for bs in _PIPELINED_BLOCKS]
     return [sp for sp in specs if _valid_blocks(sp[1], sp[2], s, sk, causal)]
 
 
@@ -512,22 +509,30 @@ def _launch(q, k, v, causal, scale, want_lse):
 
 
 def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k):
-    """Kernel A' at one of its (block_q, block_k) instantiations."""
+    """Kernel A' at one of its (block_q, block_k) instantiations: the
+    tensor-core kernel for bf16 and fp16 (q/k/v rows that are not 16-byte
+    aligned are copied to aligned ones first), the FMA kernel for f32
+    (which raises on such rows)."""
     global flash_fwd_pipelined_launches
     b, s, h, d = q.shape
-    if q.dtype == torch.float16:
-        raise TypeError("flash_fwd_pipelined: A' takes float32 and "
-                        "bfloat16, not float16")
     if (block_q, block_k) not in _PIPELINED_BLOCKS or s % block_q:
         raise ValueError("flash_fwd_pipelined: blocks (%r, %r) at S=%d; "
                          "instantiated: %s, S a multiple of block_q"
                          % (block_q, block_k, s, _PIPELINED_BLOCKS))
-    if not _aligned(q, k, v):
+    tc = q.dtype in _TC_DTYPES
+    if tc:
+        q, k, v = (t if _aligned(t) else
+                   t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
+    elif not _aligned(q, k, v):
         raise ValueError("flash_fwd_pipelined: q/k/v rows must start on 16 "
                          "bytes (pointers and batch / sequence strides), "
                          "the unit of the kernel's async copies")
     out, lse = _outputs(q, want_lse)
-    err = _build.library().paddle_flash_fwd_pipelined(
+    lib = _build.library()
+    entry = (lib.paddle_flash_fwd_pipelined_tc if tc
+             else lib.paddle_flash_fwd_pipelined)
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, s, h, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -547,10 +552,7 @@ def _run_fwd(q, k, v, causal, scale, want_lse, spec):
     pipelined = "pipelined" in variant_features(variant)
     tc = not pipelined and q.dtype in _TC_DTYPES
     if q.device.type == "cpu":
-        if pipelined:
-            out, lse = _flash_pipelined_reference(q, k, v, causal, scale,
-                                                  bq, bk)
-        elif tc:
+        if pipelined or tc:
             out, lse = _flash_tc_reference(q, k, v, causal, scale, bq, bk)
         else:
             out, lse = _flash_reference(q, k, v, causal, scale)
@@ -584,8 +586,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
     (:func:`..flash_attention._bwd_route`), ``"merged"`` launching C1.
     Each kernel takes the tile rows its autotune family resolves.  A
     given ``route`` pins it (for the kernel checks); it is not a user
-    setting.  C1 takes no fp16: ``route="merged"`` in fp16 raises
-    ``TypeError``."""
+    setting."""
     _check(q, k, v)
     b, s, h, d = q.shape
     given = [("out", out, (b, s, h, d)), ("dout", dout, (b, s, h, d)),
@@ -602,10 +603,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
     if route not in ("merged", "split"):
         raise ValueError("flash attention backward: route %r is not "
                          "'merged' or 'split'" % (route,))
-    if route == "merged" and q.dtype == torch.float16:
-        raise TypeError("flash attention backward: the merged kernel C1 "
-                        "takes float32 and bfloat16; float16 takes the "
-                        "split route (route=None or 'split')")
     blocks = ([_resolve_bwd(q, causal, "flash_bwd")] if route == "merged"
               else [_resolve_bwd(q, causal, "flash_bwd_dq"),
                     _resolve_bwd(q, causal, "flash_bwd_dkv")])
@@ -646,7 +643,7 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block, family):
         raise ValueError("%s: tile %r at D=%d %s, S=%d; instantiated: %s, "
                          "S a multiple of it" % (family, block, d, q.dtype,
                                                  s, blocks))
-    if _tc_split(q.dtype, family):
+    if q.dtype in _TC_DTYPES:
         q, k, v, dout = (t if _aligned(t) else
                          t.clone(memory_format=torch.contiguous_format)
                          for t in (q, k, v, dout))
@@ -660,7 +657,8 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block, family):
 
 
 def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None):
-    """C1: (dq, dk, dv); dq summed by atomics in an f32 workspace."""
+    """C1: (dq, dk, dv); dq summed by atomics in an f32 workspace, which
+    the 16-bit kernel adds scaled (the f32 one leaves the scale here)."""
     global flash_bwd_launches
     common, tail, _held = _bwd_args(q, k, v, dout, lse, delta, causal, scale,
                                     block, "flash_bwd")
@@ -671,7 +669,9 @@ def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None):
         *common, dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail),
         "flash_bwd launch")
     flash_bwd_launches += 1
-    return dq_acc.mul_(float(scale)).to(q.dtype), dk, dv
+    if q.dtype in _TC_DTYPES:
+        return dq_acc.to(q.dtype), dk, dv
+    return dq_acc.mul_(float(scale)), dk, dv
 
 
 def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, block=None):
@@ -773,8 +773,8 @@ def _fwd_candidates(key):
     """Each forward instantiated for the key's dtype and head dim that
     divides its lengths (:func:`_fwd_specs`): bf16 and fp16 [0] the
     tensor-core forward at its default tiles, then its other tiles, then
-    (bf16) A' at each of its instantiations; f32 [0] kernel A (its fixed
-    64 x 64 tiles), then A'."""
+    A' at each of its instantiations; f32 [0] kernel A (its fixed 64 x 64
+    tiles), then A'."""
     return [{"variant": v, "config": {"block_q": bq, "block_k": bk}}
             for v, bq, bk in _fwd_specs(key["s"], key["sk"], key["d"],
                                         _DTYPE_BY_NAME[key["dtype"]],
@@ -783,9 +783,9 @@ def _fwd_candidates(key):
 
 def _bwd_candidates(key, family="flash_bwd"):
     """[0] the default tile rows of ``family``'s kernel at the key's head
-    dim and dtype, then the other instantiations: C1, and f32 C2 / C3, 64
-    then 32 rows (32 alone at D 256); bf16 C2 / C3 the tensor-core tiles
-    (64 then 128 at D 64, 64 at D 128 and 256)."""
+    dim and dtype, then the other instantiations: f32 64 then 32 rows (32
+    alone at D 256); bf16 and fp16 the tensor-core tiles (64 then 128 at D
+    64, 64 at D 128 and 256)."""
     blocks = _bwd_blocks(key["d"], _DTYPE_BY_NAME[key["dtype"]], family)
     return [{"variant": "base", "config": {"block_q": bm, "block_k": bm}}
             for bm in blocks]

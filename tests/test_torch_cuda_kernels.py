@@ -141,9 +141,10 @@ def test_attention_on_the_card_joins_autograd():
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_256_forward_and_both_backward_routes_match_plain(causal):
-    """Head dim 256 (C1 on 32-row FMA tiles, C2 and C3 on the tensor
-    cores): under autograd the forward launches kernel A, and the
-    backward, with each route pinned, matches its plain version."""
+    """Head dim 256 (in f32 C1 on 32-row FMA tiles; in bf16 C1, C2 and C3
+    on the tensor cores): under autograd the forward launches kernel A,
+    and the backward, with each route pinned, matches its plain
+    version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from paddle_tpu_torch.nn import functional as F
@@ -445,18 +446,30 @@ def _tune_cache(tmp_path, monkeypatch):
     return at
 
 
+def _pipelined_smem_c(d, bq, bk, dtype):
+    """A''s shared memory as the C side counts it: the tensor-core kernel's
+    for 16-bit inputs, the FMA kernel's for f32."""
+    from paddle_tpu_torch.kernels import _build
+    lib = _build.library()
+    if dtype in fac._TC_DTYPES:
+        return lib.paddle_flash_fwd_pipelined_tc_smem(d, bq, bk)
+    return lib.paddle_flash_fwd_pipelined_smem(d, bq, bk, fac._DTYPES[dtype])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("blocks", [(64, 32), (64, 64), (128, 64),
                                     (128, 128)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_pipelined_kernel_matches_plain(dtype, blocks):
     """Kernel A' at each of its instantiations, causal and not, D 64, 128
-    and 256, against its plain version (out and lse); a configuration
-    whose shared memory exceeds a block's is refused by the gate and
-    never launched, and the C side's size agrees with the gate's."""
+    and 256, against its plain version (out and lse): the TMA-fed
+    tensor-core kernel in bf16 and fp16, the FMA kernel in f32; a
+    configuration whose shared memory exceeds a block's is refused by the
+    gate and never launched, and the C side's size agrees with the
+    gate's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import autotune as at
     torch.backends.cuda.matmul.allow_tf32 = False
     bq, bk = blocks
@@ -464,12 +477,11 @@ def test_pipelined_kernel_matches_plain(dtype, blocks):
     for shape in [(1, 256, 4, 64), (2, 256, 2, 128), (1, 128, 2, 256)]:
         d = shape[-1]
         need = fac.pipelined_smem_bytes(d, bq, bk, dtype)
-        assert _build.library().paddle_flash_fwd_pipelined_smem(
-            d, bq, bk, fac._DTYPES[dtype]) == need
+        assert _pipelined_smem_c(d, bq, bk, dtype) == need
         if need > limit:
             cand = {"variant": "pipelined",
                     "config": {"block_q": bq, "block_k": bk}}
-            # candidate [0]: the tensor-core forward in bf16, A in f32
+            # candidate [0]: the tensor-core forward in 16-bit, A in f32
             assert fac._sane_fwd_spec(
                 cand, shape[1], shape[1], d, dtype, True, True,
                 limit) == fac._fwd_specs(shape[1], shape[1], d, dtype,
@@ -484,12 +496,86 @@ def test_pipelined_kernel_matches_plain(dtype, blocks):
                                              bq, bk)
             torch.cuda.synchronize()
             assert fac.flash_fwd_pipelined_launches == before + 1
-            ref, ref_lse = fac._flash_pipelined_reference(q, k, v, causal,
-                                                          scale, bq, bk)
+            ref, ref_lse = fac._flash_tc_reference(q, k, v, causal,
+                                                   scale, bq, bk)
             what = "A' %s %s %s causal=%s" % (blocks, shape, dtype, causal)
             _close(out, ref, dtype, what)
             torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0,
                                        msg=what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_pipelined_tc_kernel_on_fused_and_unaligned_views(d, dtype):
+    """The 16-bit A' reads q/k/v through 4-D tensor maps with the tensors'
+    own strides: slices of one fused projection (sequence stride 3 H D)
+    match the plain version at every tile that fits, causal and not, with
+    the lse asked for or not (out the same either way); views whose rows
+    do not start on 16 bytes are copied to aligned ones first, one launch
+    each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels import autotune as at
+    limit = at.smem_limit(torch.device("cuda"))
+    shape = (2, 384, 3, d)
+    q, k, v = _fused_qkv(shape, dtype, seed=100 + d)
+    scale = d ** -0.5
+    for bq, bk in fac._PIPELINED_BLOCKS:
+        if fac.pipelined_smem_bytes(d, bq, bk, dtype) > limit:
+            continue
+        for causal in (False, True):
+            ref, ref_lse = fac._flash_tc_reference(q, k, v, causal,
+                                                   scale, bq, bk)
+            before = fac.flash_fwd_pipelined_launches
+            out, lse = fac._launch_pipelined(q, k, v, causal, scale, True,
+                                             bq, bk)
+            bare, none = fac._launch_pipelined(q, k, v, causal, scale,
+                                               False, bq, bk)
+            torch.cuda.synchronize()
+            assert fac.flash_fwd_pipelined_launches == before + 2
+            assert none is None and out.dtype == dtype
+            what = "A' fused %s d=%d %s causal=%s" % (dtype, d, (bq, bk),
+                                                      causal)
+            _close(out, ref, dtype, what)
+            torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0,
+                                       msg=what)
+            assert torch.equal(out, bare), what
+    n = 256 * 2 * d
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(1, np.float32)] + [a.ravel() for a in
+                                     _qkv((1, 256, 2, d), seed=110)])).to(
+        "cuda", dtype)
+    uq, uk, uv = (flat[1 + i * n:1 + (i + 1) * n].view(1, 256, 2, d)
+                  for i in range(3))
+    assert not fac._aligned(uq)
+    before = fac.flash_fwd_pipelined_launches
+    out, lse = fac._launch_pipelined(uq, uk, uv, True, scale, True, 64, 64)
+    torch.cuda.synchronize()
+    assert fac.flash_fwd_pipelined_launches == before + 1
+    ref, ref_lse = fac._flash_tc_reference(uq, uk, uv, True, scale,
+                                           64, 64)
+    _close(out, ref, dtype, "A' unaligned %s d=%d" % (dtype, d))
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_pipelined_tc_runs_are_bit_identical(dtype):
+    """The 16-bit A' at every tile, 8 runs on one input at (2, 4096, 8,
+    64) causal: out and lse equal the first run's bit for bit.  A K/V
+    ring that let a slot be read before its copies landed, or refilled
+    before its last product retired, would make some run differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, k, v = _fused_qkv((2, 4096, 8, 64), dtype, seed=120)
+    for bq, bk in fac._PIPELINED_BLOCKS:
+        first = fac._launch_pipelined(q, k, v, True, 0.125, True, bq, bk)
+        for _ in range(7):
+            out, lse = fac._launch_pipelined(q, k, v, True, 0.125, True, bq,
+                                             bk)
+            assert torch.equal(out, first[0]) and torch.equal(lse, first[1]),\
+                "A' %s %s: a run differs" % (dtype, (bq, bk))
 
 
 @pytest.mark.gpu
@@ -548,7 +634,8 @@ def test_pinned_pipelined_attention_joins_autograd(_tune_cache, monkeypatch):
 def test_flash_bwd_32_row_tiles_match_plain(route, _tune_cache,
                                             monkeypatch):
     """The backward kernels' 32-row candidates at D 64 and 128, pinned
-    through their autotune families."""
+    through their autotune families (f32; in bf16 the pin resolves to
+    the tensor-core kernels' 64-row tile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     from paddle_tpu_torch.utils import flags
@@ -560,7 +647,10 @@ def test_flash_bwd_32_row_tiles_match_plain(route, _tune_cache,
             q, k, v, do = (torch.from_numpy(a).to("cuda", dtype)
                            for a in _qkv(shape, seed=33)
                            + _qkv(shape, seed=34)[:1])
-            assert fac._resolve_bwd(q, True, "flash_bwd") == 32
+            # 16-bit C1 runs on the tensor cores, which have no 32-row
+            # tile: the pin falls back to candidate [0]
+            assert fac._resolve_bwd(q, True, "flash_bwd") == (
+                32 if dtype == torch.float32 else 64)
             scale = 1.0 / shape[-1] ** 0.5
             out, lse = fac.flash_attention_bshd_with_lse(q, k, v, True)
             got = fac.flash_attention_bwd(q, k, v, out, lse, do, True, scale,
@@ -810,7 +900,8 @@ def test_split_fp16_kernels_match_plain(d, causal):
     """fp16 C2 and C3 on the tensor cores (f32.f16.f16 products) against
     the plain backward, which rounds P and dS to fp16 where they do, each
     tile pinned; the default route of an fp16 backward is the split one,
-    and C1 refuses fp16."""
+    and the merged route (C1, on the tensor cores in fp16 too) matches the
+    plain backward as well."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     for shape in [(2, 256, 4, d), (1, 192, 2, d)]:
@@ -831,9 +922,13 @@ def test_split_fp16_kernels_match_plain(d, causal):
         fac.flash_attention_bwd(q, k, v, out, lse, do, causal, scale)
         assert (fac.flash_bwd_launches - counts[0],
                 fac.flash_bwd_dq_launches - counts[1]) == (0, 1)
-        with pytest.raises(TypeError, match="merged"):
-            fac.flash_attention_bwd(q, k, v, out, lse, do, causal, scale,
-                                    route="merged")
+        got = fac.flash_attention_bwd(q, k, v, out, lse, do, causal, scale,
+                                      route="merged")
+        torch.cuda.synchronize()
+        assert fac.flash_bwd_launches - counts[0] == 1
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert g.dtype == torch.float16
+            _close(g, r, torch.float16, "fp16 merged %s %s" % (name, shape))
 
 
 @pytest.mark.gpu
@@ -954,3 +1049,42 @@ def test_bf16_default_backward_is_bit_identical():
         runs.append(torch.autograd.grad(out, leaves, ct))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_merged_tc_kernel_matches_plain(d, dtype):
+    """C1 on the tensor cores at each of its tiles, causal and not,
+    against the plain backward (which rounds P and dS where it does);
+    q/k/v slices of one fused projection; its dK and dV bit-identical
+    across two calls (dQ's atomics may reorder); the C side's shared
+    memory agrees with the Python count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels import _build
+    b, s, h = 2, 256, 2
+    q, k, v = _fused_qkv((b, s, h, d), dtype, seed=120 + d)
+    do = torch.from_numpy(_qkv((b, s, h, d), seed=121)[0]).to("cuda", dtype)
+    scale = d ** -0.5
+    for block in fac._TC_BLOCKS[d]:
+        assert _build.library().paddle_flash_bwd_merged_tc_smem(d, block) \
+            == fac.merged_tc_smem_bytes(d, block)
+        for causal in (False, True):
+            out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal)
+            delta = (do.float() * out.float()).sum(-1)
+            ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal,
+                                           scale)
+            before = fac.flash_bwd_launches
+            first = fac._launch_bwd_merged(q, k, v, do, lse, delta, causal,
+                                           scale, block=block)
+            again = fac._launch_bwd_merged(q, k, v, do, lse, delta, causal,
+                                           scale, block=block)
+            torch.cuda.synchronize()
+            assert fac.flash_bwd_launches == before + 2
+            for name, g, r in zip(("dq", "dk", "dv"), first, ref):
+                assert g.dtype == dtype and g.shape == q.shape
+                _close(g, r, dtype, "C1 %s d=%d tile %d %s causal=%s"
+                       % (name, d, block, dtype, causal))
+            assert torch.equal(first[1], again[1])
+            assert torch.equal(first[2], again[2])

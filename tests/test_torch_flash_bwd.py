@@ -181,30 +181,27 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-def _bf16_close(got, want, what):
+def _bf16_close(got, want, what, ulp=2.0 ** -7):
     """bf16 gradients: one bf16 ulp of |ref| (both sides round an f32
     result to bf16, and P and dS to bf16 before their products) plus 1/64
-    of the reference's RMS (the two sum in other orders)."""
+    of the reference's RMS (the two sum in other orders); fp16 ones with
+    ``ulp`` one fp16 ulp (2^-10)."""
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     rms = float(np.sqrt(np.mean(want ** 2)))
     err = np.abs(got - want)
-    bad = err > 2.0 ** -7 * np.abs(want) + 2.0 ** -6 * rms
+    bad = err > ulp * np.abs(want) + 2.0 ** -6 * rms
     assert not bad.any(), "%s: max err %g (ref rms %g)" % (
         what, float(err.max()), rms)
 
 
-@pytest.mark.parametrize("split", [False, True])
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_plain_backward_matches_pallas_in_bf16(shape, causal, split):
-    """bf16 inputs: the plain backward rounds P and dS to bf16 where
-    _bwd_head_math does, and holds against jax.grad through the Pallas
-    kernels in bf16 (merged, and split as in the f32 test).  Both
+def _plain_against_pallas_16bit(shape, causal, split, jdt, tdt, ulp):
+    """The plain backward in ``tdt`` against jax.grad through the Pallas
+    kernels in ``jdt`` (merged, or split as in the f32 test).  Both
     backwards take the JAX forward's residuals (out, lse): the forwards
-    round differently (the Pallas forward rounds P to bf16 before P V)."""
+    round differently (the Pallas forward rounds P before P V)."""
     q, k, v, ct, _ = _arrays(shape, seed=7)
-    q, k, v, ct = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, ct))
+    q, k, v, ct = (jnp.asarray(a).astype(jdt) for a in (q, k, v, ct))
 
     def fwd(q_, k_, v_):
         return fap.flash_attention_bshd_with_lse(q_, k_, v_, causal=causal,
@@ -224,40 +221,86 @@ def test_plain_backward_matches_pallas_in_bf16(shape, causal, split):
 
     def to_torch(a):
         return torch.from_numpy(np.array(a.astype(jnp.float32)))
-    tq, tk, tv, tct, tout = (to_torch(a).to(torch.bfloat16)
+    tq, tk, tv, tct, tout = (to_torch(a).to(tdt)
                              for a in (q, k, v, ct, out))
     got = fac._flash_bwd_reference(tq, tk, tv, tout, to_torch(lse), tct,
                                    causal, shape[-1] ** -0.5)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        assert g.dtype == torch.bfloat16
+        assert g.dtype == tdt
         _bf16_close(g.float().numpy(), to_torch(w).numpy(),
-                    "%s %s causal=%s split=%s" % (name, shape, causal, split))
+                    "%s %s causal=%s split=%s" % (name, shape, causal, split),
+                    ulp=ulp)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_pallas_in_bf16(shape, causal, split):
+    """bf16 inputs: the plain backward rounds P and dS to bf16 where
+    _bwd_head_math does, and holds against jax.grad through the Pallas
+    kernels in bf16 (merged, and split as in the f32 test)."""
+    _plain_against_pallas_16bit(shape, causal, split, jnp.bfloat16,
+                                torch.bfloat16, 2.0 ** -7)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_pallas_in_fp16(shape, causal, split):
+    """fp16 inputs, which the merged kernel C1 now takes too: the plain
+    backward (the card kernels' reference) rounds P and dS to fp16 where
+    _bwd_head_math does, and holds against jax.grad through the Pallas
+    kernels in fp16, merged and split, within one fp16 ulp of |ref| plus
+    1/64 of the RMS."""
+    _plain_against_pallas_16bit(shape, causal, split, jnp.float16,
+                                torch.float16, 2.0 ** -10)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp16_merged_route_matches_the_f32_plain_backward(causal):
+    """On the CPU the fp16 merged route (C1's plain version) returns fp16
+    gradients within the fp16 tolerance of tests/test_torch_flash_tc.py
+    (4e-3 absolute plus 2^-9 of |ref|) of the f32 plain backward on the
+    same (fp16-representable) inputs, and the same as the split route."""
+    shape = (1, 256, 2, 64)
+    q, k, v, ct, _ = (torch.from_numpy(a).half()
+                      for a in _arrays(shape, seed=9))
+    out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal=causal)
+    got = fac.flash_attention_bwd(q, k, v, out, lse, ct, causal, 0.125,
+                                  route="merged")
+    split = fac.flash_attention_bwd(q, k, v, out, lse, ct, causal, 0.125,
+                                    route="split")
+    want = fac._flash_bwd_reference(*(t.float() for t in (q, k, v, out)),
+                                    lse, ct.float(), causal, 0.125)
+    for g, sp, w in zip(got, split, want):
+        assert g.dtype == torch.float16
+        torch.testing.assert_close(g, sp, atol=0, rtol=0)
+        torch.testing.assert_close(g.float(), w, atol=4e-3, rtol=2.0 ** -9)
 
 
 def test_split_candidates_follow_the_dtype():
-    """bf16 keys list the tensor-core tiles for flash_bwd_dq / flash_bwd_dkv
-    (64 then 128 at D 64, 64 at D 128 and 256); f32 keys and the merged
-    family keep the FMA kernels' (64, 32), 32 alone at D 256."""
+    """bf16 and fp16 keys list the tensor-core tiles for every backward
+    family, the merged one (C1) too (64 then 128 at D 64, 64 at D 128 and
+    256); f32 keys keep the FMA kernels' (64, 32), 32 alone at D 256."""
     def blocks(family, d, dtype):
         key = fac.autotune_key(8, 1024, 1024, 16, d, dtype, True, "cpu")
         return [c["config"]["block_q"]
                 for c in fac._at.families()[family].candidates(key)]
-    for fam in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert blocks(fam, 64, torch.bfloat16) == [64, 128]
-        assert blocks(fam, 128, torch.bfloat16) == [64]
-        assert blocks(fam, 256, torch.bfloat16) == [64]
+    for fam in ("flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for dt in (torch.bfloat16, torch.float16):
+            assert blocks(fam, 64, dt) == [64, 128]
+            assert blocks(fam, 128, dt) == [64]
+            assert blocks(fam, 256, dt) == [64]
         assert blocks(fam, 64, torch.float32) == [64, 32]
         assert blocks(fam, 128, torch.float32) == [64, 32]
         assert blocks(fam, 256, torch.float32) == [32]
-    assert blocks("flash_bwd", 64, torch.bfloat16) == [64, 32]
-    assert blocks("flash_bwd", 256, torch.bfloat16) == [32]
 
 
 @pytest.mark.parametrize("family", ["flash_bwd_dq", "flash_bwd_dkv"])
 def test_sane_bwd_blocks_is_dtype_aware(family):
     """A stale 32-row pin or cache entry for a bf16 split family resolves
     to candidate [0] (the 64 tensor-core tile); f32 keeps taking it, and
-    the merged family's checks are unchanged."""
+    the merged family, on the tensor cores in bf16 too, does the same."""
     def cand(bm):
         return {"variant": "base", "config": {"block_q": bm, "block_k": bm}}
     bf16, f32 = torch.bfloat16, torch.float32
@@ -278,12 +321,17 @@ def test_sane_bwd_blocks_is_dtype_aware(family):
     assert fac._sane_bwd_blocks(cand(64), 1024, 256, True, f32,
                                 family) == ("base", 32)
     assert fac._sane_bwd_blocks(cand(32), 1024, 64, True, bf16,
+                                "flash_bwd") == ("base", 64)
+    assert fac._sane_bwd_blocks(cand(128), 1024, 64, True, bf16,
+                                "flash_bwd") == ("base", 128)
+    assert fac._sane_bwd_blocks(cand(32), 1024, 64, True, f32,
                                 "flash_bwd") == ("base", 32)
 
 
 def test_split_bf16_pin_of_32_rows_resolves_to_candidate_0(monkeypatch):
-    """Through the autotuner: a 32-row pin for the split families gives
-    the bf16 tensor-core kernels their 64 tile, f32 its 32 rows."""
+    """Through the autotuner: a 32-row pin for any backward family gives
+    the bf16 tensor-core kernels (C1 too) their 64 tile, f32 its 32
+    rows."""
     from paddle_tpu_torch.kernels import autotune as at
     from paddle_tpu_torch.utils import flags
     for name in ("_MEMO", "_MEMO_DEFAULT", "_RESOLVED"):
@@ -296,7 +344,8 @@ def test_split_bf16_pin_of_32_rows_resolves_to_candidate_0(monkeypatch):
     for fam in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert fac._resolve_bwd(q.to(torch.bfloat16), True, fam) == 64
         assert fac._resolve_bwd(q, True, fam) == 32
-    assert fac._resolve_bwd(q.to(torch.bfloat16), True, "flash_bwd") == 32
+    assert fac._resolve_bwd(q.to(torch.bfloat16), True, "flash_bwd") == 64
+    assert fac._resolve_bwd(q, True, "flash_bwd") == 32
 
 
 def test_split_tc_smem_bytes_by_hand():
@@ -313,3 +362,20 @@ def test_split_tc_smem_bytes_by_hand():
     # score tiles 32768: 231424, within the 232448 bytes a block may use
     assert fac.split_tc_smem_bytes(256, 64) == 1024 + 196608 + 1024 + 32768
     assert fac.split_tc_smem_bytes(256, 64) <= 232448
+
+
+def test_merged_tc_smem_bytes_by_hand():
+    """C1 on the tensor cores: at D 64 C3's shared memory and the 16-bit
+    dS^T tile (block x block) that dQ reads; at D 128 and 256 (two
+    warpgroups share the tile) the f32 exchange of C3 at D 256, whose
+    unused half holds the dS^T tile; every tile fits a block."""
+    assert fac.merged_tc_smem_bytes(64, 64) == \
+        fac.split_tc_smem_bytes(64, 64) + 64 * 64 * 2
+    assert fac.merged_tc_smem_bytes(64, 128) == 1024 + 98304 + 2048 + 32768
+    # D 128: 6 x 16384, rows 1024, exchange 2 x 64 x 64 x 4
+    assert fac.merged_tc_smem_bytes(128, 64) == 1024 + 98304 + 1024 + 32768
+    assert fac.merged_tc_smem_bytes(256, 64) == \
+        fac.split_tc_smem_bytes(256, 64)
+    for d, blocks in fac._TC_BLOCKS.items():
+        for bm in blocks:
+            assert fac.merged_tc_smem_bytes(d, bm) <= 232448

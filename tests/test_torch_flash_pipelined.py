@@ -1,7 +1,7 @@
 """paddle_tpu_torch's pipelined flash forward (kernel A') on the CPU: its
 plain version held against the Pallas ``_fwd_kernel_pipelined``
-(interpret mode, lse included), the autotuner's routing of a flash call
-to it under a pin, the variants the card refuses, the
+(interpret mode, lse included; f32 and bf16), the autotuner's routing
+of a flash call to it under a pin, the variants the card refuses, the
 ``PADDLE_TPU_DISABLE_FLASH`` gate, and five AdamW steps of the tiny GPT
 through the pinned forward against ``paddle_tpu.jit.TrainStep``.  The
 kernel itself is held against the plain version on the card by
@@ -58,8 +58,8 @@ def test_plain_matches_pallas_pipelined_kernel(shape, causal):
     scale = 1.0 / shape[-1] ** 0.5
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     for bq, bk in fac._PIPELINED_BLOCKS:
-        out, lse = fac._flash_pipelined_reference(tq, tk, tv, causal, scale,
-                                                  bq, bk)
+        out, lse = fac._flash_tc_reference(tq, tk, tv, causal, scale,
+                                           bq, bk)
         assert out.shape == shape and lse.shape == shape[:3]
         np.testing.assert_allclose(out.numpy(), np.asarray(want_out),
                                    atol=1e-5, rtol=1e-5,
@@ -69,6 +69,34 @@ def test_plain_matches_pallas_pipelined_kernel(shape, causal):
                                    err_msg=str((bq, bk)))
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(1, 256, 2, 64), (2, 256, 1, 128)])
+def test_plain_matches_pallas_pipelined_kernel_in_bf16(shape, causal):
+    """bf16: the Pallas pipelined forward rounds p to bf16 before p.v
+    (``_online_step``), relative to the running max of its 128-row K
+    tiles; A''s plain version rounds it too, so at the same 128 x 128
+    tiles the two agree within one bf16 ulp of |ref| plus 1/64 of the
+    reference's RMS (tests/test_torch_flash_tc.py's bar), lse within
+    1e-3."""
+    q, k, v = _qkv(shape, seed=9)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want_out, want_lse = jax_fap.flash_attention_bshd_with_lse(
+        jq, jk, jv, causal=causal, block_q=128, block_k=128, interpret=True,
+        variant="pipelined")
+    want = np.asarray(jnp.asarray(want_out, jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out, lse = fac._flash_tc_reference(tq, tk, tv, causal,
+                                       shape[-1] ** -0.5, 128, 128)
+    assert out.dtype == torch.bfloat16
+    got = out.float().numpy()
+    rms = float(np.sqrt(np.mean(want ** 2)))
+    err = np.abs(got - want)
+    assert (err <= 2.0 ** -7 * np.abs(want) + 2.0 ** -6 * rms).all(), \
+        float(err.max())
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-3,
+                               rtol=0)
+
+
 def test_pin_routes_the_cpu_call_to_the_pipelined_plain_version(
         monkeypatch):
     """Without a pin a flash call takes the plain attention; under
@@ -76,12 +104,12 @@ def test_pin_routes_the_cpu_call_to_the_pipelined_plain_version(
     version with the pinned blocks (and gives the same answer); blocks
     that do not divide S fall back to candidate [0]."""
     seen = []
-    real = fac._flash_pipelined_reference
+    real = fac._flash_tc_reference
 
     def spy(q, k, v, causal, scale, block_q, block_k):
         seen.append((block_q, block_k))
         return real(q, k, v, causal, scale, block_q, block_k)
-    monkeypatch.setattr(fac, "_flash_pipelined_reference", spy)
+    monkeypatch.setattr(fac, "_flash_tc_reference", spy)
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 256, 2, 64), seed=4))
     want = fac.flash_attention_bshd(q, k, v, causal=True)
     assert seen == []
@@ -191,12 +219,12 @@ def test_trainstep_through_the_pinned_pipelined_forward_tracks_jax(
     monkeypatch.setitem(flags._REGISTRY, "autotune_pin",
                         "flash_fwd=pipelined:block_q=64,block_k=32")
     seen = []
-    plain = fac._flash_pipelined_reference
+    plain = fac._flash_tc_reference
 
     def spy(*args):
         seen.append(args[-2:])
         return plain(*args)
-    monkeypatch.setattr(fac, "_flash_pipelined_reference", spy)
+    monkeypatch.setattr(fac, "_flash_tc_reference", spy)
     jstep, tstep = _pair(seed=4, wide=True)
     rng = np.random.default_rng(8)
     batches = [rng.integers(0, 512, (2, 128)).astype(np.int32)

@@ -100,16 +100,19 @@ def test_tc_reference_matches_pallas_kernel_bf16(shape, tiles, causal):
 
 
 def test_tc_reference_walks_tiles_as_the_pipelined_one():
-    """In f32 the rounding of p is exact, so the tensor-core forward's
-    plain version is A''s at every tile shape."""
+    """The tensor-core forward's plain version is A''s too, f32 included:
+    there the rounding of p is exact and the FMA A' keeps p in f32, so at
+    every tile shape of either kernel the f32 tile walk is the plain
+    softmax attention up to the order of its f32 sums."""
     q, k, v = (torch.from_numpy(a) for a in _qkv((1, 256, 2, 64), seed=12))
-    for bq, bk in ((128, 128), (128, 64), (64, 64)):
+    tiles = sorted(set(fac._PIPELINED_BLOCKS) | set(fac._TC_FWD_BLOCKS[64]))
+    for bq, bk in tiles:
         for causal in (False, True):
-            a = fac._flash_tc_reference(q, k, v, causal, 0.125, bq, bk)
-            b = fac._flash_pipelined_reference(q, k, v, causal, 0.125, bq,
+            out, lse = fac._flash_tc_reference(q, k, v, causal, 0.125, bq,
                                                bk)
-            for x, y in zip(a, b):
-                torch.testing.assert_close(x, y, atol=0, rtol=0)
+            want, want_lse = fac._flash_reference(q, k, v, causal, 0.125)
+            torch.testing.assert_close(out, want, atol=1e-5, rtol=0)
+            torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=0)
 
 
 def _fwd(dtype, d=64, s=1024, causal=True):
@@ -119,19 +122,21 @@ def _fwd(dtype, d=64, s=1024, causal=True):
 
 
 def test_fwd_candidates_follow_the_dtype():
-    """bf16: the tensor-core tiles (the default first), then A'; fp16: the
-    tensor-core tiles alone (A' has no fp16); f32: kernel A, then A'."""
+    """bf16 and fp16: the tensor-core tiles (the default first), then A'
+    (on the tensor cores for both since it takes fp16); f32: kernel A,
+    then A'."""
     pipe = [("pipelined",) + bs for bs in fac._PIPELINED_BLOCKS]
     assert _fwd(BF16) == [("base", 128, 128), ("base", 128, 64),
                           ("base", 64, 64)] + pipe
     assert _fwd(BF16, d=128)[:2] == [("base", 128, 64), ("base", 64, 64)]
     assert _fwd(BF16, d=256)[:2] == [("base", 64, 64), ("base", 128, 64)]
     assert _fwd(F16) == [("base", 128, 128), ("base", 128, 64),
-                         ("base", 64, 64)]
-    assert _fwd(F16, d=256) == [("base", 64, 64), ("base", 128, 64)]
+                         ("base", 64, 64)] + pipe
+    assert _fwd(F16, d=256) == [("base", 64, 64), ("base", 128, 64)] + pipe
     assert _fwd(F32) == [("base", 64, 64)] + pipe
     # S = 192: no 128-row tile divides it; candidate [0] is 64 x 64
-    assert _fwd(F16, s=192) == [("base", 64, 64)]
+    assert _fwd(F16, s=192) == [("base", 64, 64), ("pipelined", 64, 32),
+                                ("pipelined", 64, 64)]
     assert _fwd(BF16, s=192)[0] == ("base", 64, 64)
 
 
@@ -142,9 +147,13 @@ def _cand(variant, bq, bk):
 def test_sane_fwd_spec_is_dtype_aware():
     def sane(cand, dtype, d=64, s=1024, aligned=True, limit=232448):
         return fac._sane_fwd_spec(cand, s, s, d, dtype, True, aligned, limit)
-    # an A' tile in fp16 (not instantiated): candidate [0]
-    assert sane(_cand("pipelined", 64, 64), F16) == ("base", 128, 128)
-    assert sane(_cand("pipelined", 64, 64), F16, d=256) == ("base", 64, 64)
+    # an A' tile in fp16 is taken where it fits a block; at D 256 128 x
+    # 128 needs two 64 KB K/V slots beside the q tile: candidate [0]
+    assert sane(_cand("pipelined", 64, 64), F16) == ("pipelined", 64, 64)
+    assert sane(_cand("pipelined", 64, 64), F16, d=256) == \
+        ("pipelined", 64, 64)
+    assert sane(_cand("pipelined", 128, 128), F16, d=256) == \
+        ("base", 64, 64)
     # the tensor-core tiles in bf16 and fp16, not in f32 (kernel A's 64 x 64)
     for dt in (BF16, F16):
         assert sane(_cand("base", 128, 64), dt) == ("base", 128, 64)
@@ -167,7 +176,9 @@ def test_sane_fwd_spec_is_dtype_aware():
 
 def test_fp16_pin_of_an_a_prime_tile_resolves_to_candidate_0(monkeypatch):
     """Through the autotuner: ``flash_fwd=pipelined`` pinned reaches A' in
-    f32 and bf16, and candidate [0], the tensor-core forward, in fp16."""
+    f32, bf16 and fp16 (which A' takes since it runs on the tensor
+    cores); a pinned A' tile that does not fit a block resolves to
+    candidate [0], the tensor-core forward, in fp16 as in bf16."""
     monkeypatch.setitem(flags._REGISTRY, "autotune_pin",
                         "flash_fwd=pipelined:block_q=64,block_k=64")
     q = torch.zeros((1, 256, 2, 64))
@@ -175,7 +186,14 @@ def test_fp16_pin_of_an_a_prime_tile_resolves_to_candidate_0(monkeypatch):
     qb = q.to(BF16)
     assert fac._resolve_fwd(qb, qb, qb, True) == ("pipelined", 64, 64)
     qh = q.to(F16)
-    assert fac._resolve_fwd(qh, qh, qh, True) == ("base", 128, 128)
+    assert fac._resolve_fwd(qh, qh, qh, True) == ("pipelined", 64, 64)
+    monkeypatch.setitem(flags._REGISTRY, "autotune_pin",
+                        "flash_fwd=pipelined:block_q=128,block_k=128")
+    # the gate as on an H100 (a CPU device has no shared-memory limit)
+    monkeypatch.setattr(at, "smem_limit", lambda device: 232448)
+    for dt in (BF16, F16):
+        q256 = torch.zeros((1, 256, 2, 256), dtype=dt)
+        assert fac._resolve_fwd(q256, q256, q256, True) == ("base", 64, 64)
 
 
 def test_fwd_tc_smem_bytes_by_hand():
@@ -259,17 +277,22 @@ def test_fp16_flash_calls_take_the_plain_route(causal, monkeypatch):
 
 
 def test_fp16_merged_route_raises():
-    """C1 has no fp16 instantiation: a pinned merged route refuses fp16
-    with a clear message, before anything is resolved or launched."""
+    """C1 used to refuse fp16; it now runs on the tensor cores in fp16, so
+    a pinned merged route no longer raises: on the CPU it returns the
+    plain backward's fp16 result, the same as the split route's, and
+    loads no CUDA library."""
     q, k, v = (torch.from_numpy(a).half()
                for a in _qkv((1, 128, 2, 64), seed=15))
     out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal=True)
-    with pytest.raises(TypeError, match="merged"):
-        fac.flash_attention_bwd(q, k, v, out, lse, out, True, 0.125,
-                                route="merged")
     got = fac.flash_attention_bwd(q, k, v, out, lse, out, True, 0.125,
-                                  route="split")
-    assert all(g.dtype == F16 for g in got)
+                                  route="merged")
+    want = fac._flash_bwd_reference(q, k, v, out, lse, out, True, 0.125)
+    split = fac.flash_attention_bwd(q, k, v, out, lse, out, True, 0.125,
+                                    route="split")
+    for g, w, sp in zip(got, want, split):
+        assert g.dtype == F16
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+        torch.testing.assert_close(g, sp, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("w_dtype", [F32, F16])
