@@ -17,14 +17,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               resolves; kernel A in f32; the LayerNorm forward B in bf16
               and fp16.  ``checks_bwd``: the flash backward kernels C1
               (merged), C2 and C3 (split; bf16 and fp16 on the tensor
-              cores) with each route pinned, head dim 64, 128 and 256, f32
-              and fp16 cases, one case with an lse cotangent, and the
-              LayerNorm backward D in bf16 and fp16; C1 timed as a whole
-              call beside the split route's and at each of its tiles.
+              cores, f32 as 3 x TF32 products) with each route pinned,
+              head dim 64, 128 and 256, f32 and fp16 cases, one case with
+              an lse cotangent, and the LayerNorm backward D in bf16 and
+              fp16; C1 timed as a whole call beside the split route's and
+              at each of its tiles; each f32 kernel beside its 3 x TF32
+              and its FMA bound.
               ``checks_long``: at S=16384 the tensor-core forward (bf16
               and fp16) and C2/C3 against their plain versions (2 heads),
               then at 16 heads the forward again and split against merged
-              (both timed), the split pair run twice for identical bits.
+              (both timed), the split pair run twice for identical bits;
+              kernel A and the f32 backward (the split pair, by the route)
+              against their plain versions at 2 heads, timed at 16.
               ``checks_ce``: the cross-entropy kernels E1 (logsumexp), E2
               / E3 (fused softmax-CE forward / backward) and the row
               softmax F at (8192, 50304) bf16, E1-E3
@@ -81,6 +85,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               LayerNorm route and each cross-entropy route; then f32,
               kernel A and C1) and on the CPU (f32, plain): the loss and
               every parameter's gradient held.
+12a. train_f32 — 3 steps of the train step in f32 (no AMP, TF32 matmuls
+              off): kernel A and the f32 C1 launch 24 times a step; host
+              ms a step, the stream time of each part of one more step and
+              a 2-step profile (device ms a step, and the f32 backward
+              kernels' share of it).
 13. train_fp16 — 3 eager steps of the same model under
               ``amp.decorate(level="O2", dtype="float16")`` and a
               ``GradScaler``, each LayerNorm route: the tensor-core
@@ -126,11 +135,15 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 and f32
-# (non-tensor-core) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16, TF32 and
+# f32 (non-tensor-core) FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
+# the f32 backward's products are 3 x TF32: three tensor-core products
+# for each one of the function
+TF32X3_FLOPS = TF32_FLOPS / 3
 
 # flash out and dq/dk/dv, by dtype: kernel and plain version both round
 # an f32 result to the dtype, so an element may differ by one ulp of |ref|
@@ -138,7 +151,9 @@ F32_FLOPS = 67e12
 # that shape (about 8e-4 at S=1024 non-causal, where |out| ~ 0.05), far
 # below what a misweighted V accumulation would leave, for sums in other
 # orders (C1's dQ by atomics).  f32 results differ by summation order
-# alone: 1e-5 relative, and 1e-4 of the RMS
+# and, in the flash backward, whose products are 3 x TF32 (each operand
+# split into two TF32 parts), by the small x small term it drops, about
+# 2^-22 of each product: 1e-5 relative, and 1e-4 of the RMS
 ULP_REL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10, "float32": 1e-5}
 RMS_FRAC = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -6, "float32": 1e-4}
 FLASH_ULP_REL, FLASH_RMS_FRAC = ULP_REL["bfloat16"], RMS_FRAC["bfloat16"]
@@ -530,16 +545,44 @@ def flash_case(torch, fac, b, s, h, d, causal, gen, dtype=None):
     return q, k, v, do, out, lse
 
 
-def bwd_bound(b, s, h, d, causal, products, n_tensors, f32=False):
+def bwd_bound(b, s, h, d, causal, products, n_tensors, f32=False,
+              peak=None):
     """Bound of a backward kernel: ``products`` (S x S x D) products and
     ``n_tensors`` bf16 (f32 when ``f32``) (B, S, H, D) tensors read or
     written (q, k, v, dO in; dq and/or dk, dv out), plus the f32 lse and
-    delta rows; products at the tensor cores' bf16 rate, or the FMAs' f32
-    one."""
+    delta rows; products at ``peak``, by default the tensor cores' bf16
+    rate, or the FMAs' f32 one when ``f32``."""
     pairs = s * (s + 1) / 2 if causal else s * s
     flops = products * 2 * b * h * d * pairs
     nbytes = n_tensors * b * s * h * d * (4 if f32 else 2) + 2 * b * s * h * 4
-    return bound(nbytes, flops, F32_FLOPS if f32 else BF16_FLOPS)
+    if peak is None:
+        peak = F32_FLOPS if f32 else BF16_FLOPS
+    return bound(nbytes, flops, peak)
+
+
+BWD_WORK = (("flash_bwd", 5, 7), ("flash_bwd_dq", 3, 5),
+            ("flash_bwd_dkv", 4, 6))
+
+
+def bwd_bounds(row, b, s, h, d, causal, f32):
+    """Each backward kernel's bound into ``row``.  f32 rows get two: the
+    3 x TF32 bound that the kernels' design is held to (``*_bound_ms``,
+    three tensor-core products at 495 TFLOP/s for each product), with the
+    share of it that the kernel's device time reaches when timed, and the
+    bound on the f32 FMAs (``*_bound_fma_ms``, 67 TFLOP/s)."""
+    for kern, products, tensors in BWD_WORK:
+        if not f32:
+            row[kern + "_bound_ms"], row[kern + "_bound_by"] = bwd_bound(
+                b, s, h, d, causal, products, tensors)
+            continue
+        row[kern + "_bound_ms"], row[kern + "_bound_by"] = bwd_bound(
+            b, s, h, d, causal, products, tensors, True, TF32X3_FLOPS)
+        row[kern + "_bound_fma_ms"], _ = bwd_bound(
+            b, s, h, d, causal, products, tensors, True)
+        row[kern + "_bound_basis"] = "3xTF32"
+        if row.get(kern + "_device_ms"):
+            row[kern + "_bound_share"] = (row[kern + "_bound_ms"]
+                                          / row[kern + "_device_ms"])
 
 
 def time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal, reps, inner,
@@ -604,11 +647,13 @@ def check_flash_bwd(torch, fac):
     S = 128, 1024, 2048, causal or not, each route pinned; then the
     training shape (8, 1024, 16, 64) causal, head dim 128 at (1, 1024, 8,
     128) causal and head dim 256 at (1, 1024, 4, 256) causal, all timed;
-    then f32 (C1 and the FMA C2 / C3, each route) and fp16 (C1, C2 and C3
-    on the tensor cores, each route) cases, untimed but for f32 at the
-    training shape (C1 and the FMA C2 / C3 against SDPA's f32 backward)
-    and fp16 at the training shape and at head dim 256 (without the
-    plain version's time); then one with-lse case."""
+    then f32 (C1, C2 and C3 as 3 x TF32 products, each route) and fp16
+    (C1, C2 and C3 on the tensor cores, each route) cases, untimed but
+    for f32 at the training shape, at (1, 1024, 8, 128) and at (1, 256,
+    4, 256) (against SDPA's f32 backward, each f32 kernel beside its 3 x
+    TF32 and its FMA bound) and fp16 at the training shape and at head
+    dim 256 (without the plain version's time); then one with-lse
+    case."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -620,6 +665,7 @@ def check_flash_bwd(torch, fac):
                                         (1, 1024, 4, 256, True, bf16),
                                         (1, 1024, 16, 64, True, f32),
                                         (8, 1024, 16, 64, True, f32),
+                                        (1, 1024, 8, 128, True, f32),
                                         (1, 256, 4, 256, False, f32),
                                         (8, 1024, 16, 64, True, f16),
                                         (1, 1024, 8, 128, False, f16),
@@ -650,16 +696,13 @@ def check_flash_bwd(torch, fac):
                         % (kern, name, name16, (b, s, h, d), causal, err,
                            rms))
                 worst[kern] = max(worst[kern], err)
-        if dtype == f32 and b == 1 or dtype == f16 and not causal:
+        if dtype == f32 and (b, s, h) == (1, 1024, 16) \
+                or dtype == f16 and not causal:
             rows.append(row)
             continue
         row.update(time_bwd(torch, fac, tF, q, k, v, do, out, lse, causal,
                             reps=5, inner=10, plain=dtype != f16))
-        for kern, products, tensors in (("flash_bwd", 5, 7),
-                                        ("flash_bwd_dq", 3, 5),
-                                        ("flash_bwd_dkv", 4, 6)):
-            row[kern + "_bound_ms"], row[kern + "_bound_by"] = bwd_bound(
-                b, s, h, d, causal, products, tensors, dtype == f32)
+        bwd_bounds(row, b, s, h, d, causal, dtype == f32)
         rows.append(row)
     # with lse: a nonzero lse cotangent folds in as delta - dlse
     q, k, v, do, out, lse = flash_case(torch, fac, 1, 256, 16, 64, True,
@@ -679,6 +722,46 @@ def check_flash_bwd(torch, fac):
                                  % (route, lse_row[route + "_err"]))
     rows.append(lse_row)
     return rows, worst
+
+
+F32_TILE_CASES = ((8, 1024, 16, 64, True), (1, 1024, 8, 128, True),
+                  (1, 256, 4, 256, False), (1, 16384, 16, 64, True))
+
+
+def check_f32_bwd_tiles(torch, fac, cases=F32_TILE_CASES):
+    """Device ms of the f32 C1 (its whole call), C2 and C3 at each of
+    their tiles (``_bwd_blocks``, the family's default first) at each
+    case (b, s, h, d, causal), or at the one case given: what each
+    family's default rests on."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f32 = torch.float32
+    rows = []
+    if isinstance(cases[0], int):
+        cases = (cases,)
+    for b, s, h, d, causal in cases:
+        causal = bool(causal)
+        q, k, v, do, out, lse = flash_case(torch, fac, b, s, h, d, causal,
+                                           gen, f32)
+        delta = (do * out).sum(-1)
+        args = (q, k, v, do, lse, delta, causal, d ** -0.5)
+        n = 2 if s > 4096 else 10
+        row = {"shape": [b, s, h, d], "causal": causal}
+        for family, launch, pattern in (
+                ("flash_bwd", fac._launch_bwd_merged, None),
+                ("flash_bwd_dq", fac._launch_bwd_dq, "flash_bwd_dq_kernel"),
+                ("flash_bwd_dkv", fac._launch_bwd_dkv,
+                 "flash_bwd_kv_kernel")):
+            row[family] = {}
+            for bm in fac._bwd_blocks(d, f32, family):
+                times = device_times(
+                    lambda: launch(*args, block=bm), torch, n=n,
+                    pattern=pattern)
+                row[family][str(bm)] = (call_ms(times, n) if pattern is None
+                                        else kernel_ms(times, pattern))
+        rows.append(row)
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return rows
 
 
 def hold_tc_long(torch, fac, tF, q, k, v, scale, row, plain):
@@ -781,11 +864,7 @@ def check_flash_long(torch, fac):
     del split, again
     long_row.update(time_bwd(torch, fac, tF, q, k, v, do, out, lse, True,
                              reps=3, inner=2, plain=False))
-    for kern, products, tensors in (("flash_bwd", 5, 7),
-                                    ("flash_bwd_dq", 3, 5),
-                                    ("flash_bwd_dkv", 4, 6)):
-        long_row[kern + "_bound_ms"], long_row[kern + "_bound_by"] = \
-            bwd_bound(1, s, h, d, True, products, tensors)
+    bwd_bounds(long_row, 1, s, h, d, True, False)
     # the split pair's bound counts the five products the backward needs;
     # C2 and C3 recompute QK^T and dP, so the pair does seven
     long_row["split_pair_bound_ms"], _ = bwd_bound(1, s, h, d, True, 5, 7)
@@ -796,11 +875,59 @@ def check_flash_long(torch, fac):
     return out_row, long_row
 
 
+def check_f32_bwd_long(torch, fac, tF, gen, h):
+    """The f32 backward at (1, 16384, h, 64) causal, the route the JAX
+    rule takes there (the split pair C2 + C3): its launches, and at 2
+    heads its result against the plain version's; then the times of C1,
+    C2, C3, the route's call and SDPA's f32 backward (and at 2 heads the
+    plain version's), each beside its 3 x TF32 and FMA bounds."""
+    s, d, scale = 16384, 64, 0.125
+    q, k, v, do, out, lse = flash_case(torch, fac, 1, s, h, d, True, gen,
+                                       torch.float32)
+    row = {"shape": [1, s, h, d], "causal": True, "dtype": "float32",
+           "route": fac._card_bwd_route(s, h, d, torch.float32)}
+    counts = (fac.flash_bwd_launches, fac.flash_bwd_dq_launches,
+              fac.flash_bwd_dkv_launches)
+    got = fac.flash_attention_bwd(q, k, v, out, lse, do, True, scale)
+    torch.cuda.synchronize()
+    row["launches"] = [fac.flash_bwd_launches - counts[0],
+                       fac.flash_bwd_dq_launches - counts[1],
+                       fac.flash_bwd_dkv_launches - counts[2]]
+    if row["launches"] != [0, 1, 1]:
+        raise AssertionError("f32 backward at %s launched (C1, C2, C3) %r, "
+                             "want the split pair" % (row["shape"],
+                                                      row["launches"]))
+    plain = h <= 2
+    if plain:
+        ref = fac._flash_bwd_reference(q, k, v, out, lse, do, True, scale)
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            e, rms, ok = within(g, r, ULP_REL["float32"],
+                                RMS_FRAC["float32"])
+            row["split_%s_err" % name] = e
+            if not ok:
+                raise AssertionError("f32 split backward at %s (%s): err %g "
+                                     "(rms %g)" % (row["shape"], name, e,
+                                                   rms))
+        del ref
+    del got
+    row.update(time_bwd(torch, fac, tF, q, k, v, do, out, lse, True,
+                        reps=3, inner=2, plain=plain))
+    bwd_bounds(row, 1, s, h, d, True, True)
+    row["split_pair_bound_ms"], _ = bwd_bound(1, s, h, d, True, 5, 7, True,
+                                              TF32X3_FLOPS)
+    del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    return row
+
+
 def check_f32_long(torch, fac):
     """Kernel A in f32 at S = 16384: against its plain version at 2 heads,
     with its times, the plain version's and SDPA's; then the times of A
     and SDPA at train_long's 16 heads, where the plain version would not
-    fit."""
+    fit.  Then the f32 backward at S = 16384 (the split pair by the
+    route), at 2 heads against its plain version, at 16 timed against
+    SDPA's f32 backward (:func:`check_f32_bwd_long`).  Returns (forward
+    rows, backward rows)."""
     import torch.nn.functional as tF
     gen = torch.Generator(device="cuda").manual_seed(7)
     f32 = torch.float32
@@ -822,7 +949,8 @@ def check_f32_long(torch, fac):
     rows.append(row)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return rows
+    return rows, [check_f32_bwd_long(torch, fac, tF, gen, h)
+                  for h in (2, 16)]
 
 
 PIPELINED_CASES = [
@@ -1310,9 +1438,11 @@ def step_breakdown(torch, step, ids):
     return out
 
 
-def profile_steps(torch, step, ids, n=2):
+def profile_steps(torch, step, ids, n=2, sums=()):
     """Device-busy share and top kernels over ``n`` steps
-    (``torch.profiler`` trace; host clock around the traced steps)."""
+    (``torch.profiler`` trace; host clock around the traced steps); for
+    each pattern of ``sums`` the device ms a step of the kernels whose
+    name holds it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1330,6 +1460,9 @@ def profile_steps(torch, step, ids, n=2):
     return {"traced_step_wall_ms": wall_ms, "step_device_ms": dev_ms,
             "device_busy_share": dev_ms / wall_ms,
             "device_kernels_per_step": sum(e[1] for e in events) / n,
+            "device_ms_per_step_of": {
+                pat: sum(t for k, _c, t in events if pat in k) / n / 1e3
+                for pat in sums},
             "top_kernels": [{"name": k[:90], "per_step": c / n,
                              "ms_per_step": t / n / 1e3}
                             for k, c, t in events[:12]]}
@@ -1699,6 +1832,48 @@ def train_long(torch, cfg, amp, counters, flags, steps=3):
                                "flash_bwd": 0}, "train_long")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("train_long: non-finite loss %r" % (losses,))
+    return line
+
+
+def train_f32(torch, base, counters, flags, steps=3):
+    """bench.py's step in f32: GPT-2 345M at (8, 1024), f32 weights and
+    activations (no AMP; TF32 matmuls off, as in every phase), AdamW, the
+    seeded batch of train: kernel A and the f32 C1 (the JAX rule's route
+    at S = 1024) on every layer.  ``steps`` steps from counts set to 0
+    (host ms over all but the first), the stream time of each part of one
+    more step, and a profile of 2 steps: device ms a step, and of it the
+    f32 backward kernels' and the forward kernel's."""
+    flags.set_flags({"use_pallas_norm": False})
+    step = make_step(copy.deepcopy(base).cuda())
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.config.vocab_size, (8, 1024)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+    line = {"phase": "train_f32", "shape": [8, 1024], "dtype": "float32",
+            "steps": steps, "step_ms": ms,
+            "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
+            "launches": launches,
+            "launches_per_step": {k: n / steps for k, n in launches.items()},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "breakdown": step_breakdown(torch, step, ids),
+            "profile": profile_steps(torch, step, ids, sums=(
+                "flash_bwd_kv_kernel", "flash_bwd_dq_kernel",
+                "flash_fwd_kernel"))}
+    emit(line)
+    layers = base.config.num_hidden_layers
+    expect_launches(launches, {"flash_fwd": layers * steps,
+                               "flash_bwd": layers * steps,
+                               "flash_fwd_tc": 0, "flash_fwd_pipelined": 0,
+                               "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+                    "train_f32")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("train_f32: non-finite loss %r" % (losses,))
+    if abs(losses[0] - math.log(base.config.vocab_size)) > FIRST_LOSS_TOL:
+        raise AssertionError("train_f32: first loss %g, want ln(%d) +- %g"
+                             % (losses[0], base.config.vocab_size,
+                                FIRST_LOSS_TOL))
+    del step
+    torch.cuda.empty_cache()
     return line
 
 
@@ -2098,13 +2273,16 @@ def main():
     ln_bwd_rows, ln_bwd_err = check_layer_norm_bwd(torch, norm_cuda)
     ln16_bwd_rows, ln16_bwd_err = check_layer_norm_bwd(
         torch, norm_cuda, torch.float16, sizes=(8192,))
+    f32_tile_rows = check_f32_bwd_tiles(torch, fac)
     emit({"phase": "checks_bwd", "flash_bwd": bwd_rows,
+          "flash_bwd_f32_tiles": f32_tile_rows,
           "layer_norm_bwd": ln_bwd_rows,
           "layer_norm_bwd_fp16": ln16_bwd_rows})
     long_plain_row, long_row = check_flash_long(torch, fac)
-    f32_long_rows = check_f32_long(torch, fac)
+    f32_long_rows, f32_bwd_long_rows = check_f32_long(torch, fac)
     emit({"phase": "checks_long", "against_plain": long_plain_row,
-          "split_vs_merged": long_row, "flash_fwd_f32": f32_long_rows})
+          "split_vs_merged": long_row, "flash_fwd_f32": f32_long_rows,
+          "flash_bwd_f32": f32_bwd_long_rows})
     seconds["checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pipe_rows, pipe_err, pipe_refused = check_pipelined(
@@ -2229,6 +2407,9 @@ def main():
     torch.cuda.empty_cache()
     seconds["train_parity"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    run_f32 = train_f32(torch, base, counters, flags)
+    seconds["train_f32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     run_fp16 = train_fp16(torch, base, amp, counters, flags,
                           run_train["losses"][0])
     seconds["train_fp16"] = time.perf_counter() - t0
@@ -2264,9 +2445,10 @@ def main():
     train_bwd_row = [r for r in bwd_rows
                      if r["shape"] == [8, 1024, 16, 64]
                      and r["dtype"] == "bfloat16"][0]
-    train_bwd_f32_row = [r for r in bwd_rows
-                         if r["shape"] == [8, 1024, 16, 64]
-                         and r["dtype"] == "float32"][0]
+    f32_bwd_rows = {tuple(r["shape"]): r for r in bwd_rows
+                    if r.get("dtype") == "float32"
+                    and "flash_bwd_device_ms" in r}
+    train_bwd_f32_row = f32_bwd_rows[(8, 1024, 16, 64)]
     d128_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 8, 128]
                 and r["dtype"] == "bfloat16"][0]
     d256_row = [r for r in bwd_rows if r["shape"] == [1, 1024, 4, 256]
@@ -2282,8 +2464,13 @@ def main():
                    "train": run_train["launches"]["flash_fwd_tc"],
                    "train_long": run_long["launches"]["flash_fwd_tc"],
                    "train_fp16": run_fp16[0]["launches"]["flash_fwd_tc"]}
-    # kernel A and C1 run on the f32 path: train_parity's f32 card step
+    # kernel A and C1 run on the f32 path: train_f32's steps and
+    # train_parity's f32 card step
     f32_path = parity_by["dtype"]
+    f32_launches = {k: {"train_f32": run_f32["launches"][k],
+                        "train_parity_f32": f32_path[k],
+                        "train": run_train["launches"][k]}
+                    for k in ("flash_fwd", "flash_bwd")}
 
     def fwd_cols(row):
         return {k: row[k] for k in (
@@ -2319,11 +2506,23 @@ def main():
             "at_d256": {k: d256_row[k] for k in (
                 "shape", kern + "_ms", kern + "_device_ms",
                 kern + "_bound_ms", "library_ms", "library_device_ms")},
-            # f32: C1 and the FMA C2 / C3 of csrc/flash_bwd.cu
+            # f32: the 3 x TF32 C1, C2 and C3 of csrc/flash_bwd.cu, each
+            # beside its 3 x TF32 bound and its FMA bound
+            "design_f32": "3xTF32 mma.sync m16n8k8, operands split in "
+                          "registers, cp.async ring",
             "at_train_f32": {k: train_bwd_f32_row[k] for k in (
                 "shape", "dtype", kern + "_ms", kern + "_device_ms",
-                kern + "_bound_ms", kern + "_bound_by", "plain_ms",
-                "plain_device_ms", "library_ms", "library_device_ms")}}
+                kern + "_bound_ms", kern + "_bound_by",
+                kern + "_bound_fma_ms", kern + "_bound_basis",
+                kern + "_bound_share", "plain_ms", "plain_device_ms",
+                "library_ms", "library_device_ms", "split_device_ms",
+                "c1_call_device_ms")},
+            "other_f32": [{k: r[k] for k in (
+                "shape", "dtype", "causal", kern + "_device_ms",
+                kern + "_bound_ms", kern + "_bound_fma_ms",
+                kern + "_bound_share", "library_device_ms") if k in r}
+                for r in list(f32_bwd_rows.values()) + f32_bwd_long_rows
+                if r is not train_bwd_f32_row]}
         if kern != "flash_bwd":
             for name, row in (("at_train", train_bwd_row),
                               ("at_d128", d128_row)):
@@ -2346,7 +2545,7 @@ def main():
             entry["ptxas"] = merged_ptxas
             entry["c1_call_device_ms"] = src_row["c1_call_device_ms"]
             entry["launches_of"] = (
-                "the f32 C1 (source_f32) on train_parity's f32 step; bf16 "
+                "the f32 C1 (source_f32) on train_f32's steps; bf16 "
                 "and fp16 take the split pair on every path, so the 16-bit "
                 "C1 runs only where route='merged' is pinned (the checks)")
         return entry
@@ -2415,9 +2614,8 @@ def main():
          "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "paddle_tpu/kernels/flash_attention_pallas.py:382 "
                      "and :450 (f32)",
-         "launches": f32_path["flash_fwd"],
-         "launches_by_path": {"train_parity_f32": f32_path["flash_fwd"],
-                              "train": run_train["launches"]["flash_fwd"]},
+         "launches": run_f32["launches"]["flash_fwd"],
+         "launches_by_path": f32_launches["flash_fwd"],
          "max_abs_err": max(a_prefill["max_abs_err"],
                             a_train["max_abs_err"]),
          "dtype": "float32", "shape": a_prefill["shape"],
@@ -2483,10 +2681,8 @@ def main():
          "at_train_fp16": {k: ln16_rows[0][k] for k in ln_cols},
          "ptxas": [r for r in ln_ptxas if "fwd" in r["kernel"]]},
         bwd_entry("flash_bwd", train_bwd_row, train_bwd_row,
-                  f32_path["flash_bwd"],
-                  {"train_parity_f32": f32_path["flash_bwd"],
-                   "train": run_train["launches"]["flash_bwd"]},
-                  bwd_err["flash_bwd"]),
+                  run_f32["launches"]["flash_bwd"],
+                  f32_launches["flash_bwd"], bwd_err["flash_bwd"]),
         bwd_entry("flash_bwd_dq", long_row, long_plain_row,
                   run_train["launches"]["flash_bwd_dq"], split_launches,
                   max(bwd_err["flash_bwd_dq"], split_err)),

@@ -14,8 +14,7 @@
 // product, P rounded to T before dV and dS before dK and dQ, as the TPU
 // kernels round them before their MXU products; the start-aligned causal
 // mask only on the diagonal tile, whose future keys get P = 0.  f32
-// inputs keep the FMA kernels of flash_bwd.cu (f32 on the tensor cores
-// would be TF32, other numerics).
+// inputs take the 3 x TF32 kernels of flash_bwd.cu.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16, 3.35 TB/s), operands read and
 // results written once: at the training shape B=8, S=1024, H=16, D=64

@@ -173,6 +173,8 @@ def library():
             for fn in (lib.paddle_flash_bwd, lib.paddle_flash_bwd_dq,
                        lib.paddle_flash_bwd_dkv):
                 fn.restype = i
+            lib.paddle_flash_bwd_smem.argtypes = [i, i, i]
+            lib.paddle_flash_bwd_smem.restype = ll
             for fn in (lib.paddle_flash_bwd_tc_smem,
                        lib.paddle_flash_bwd_merged_tc_smem):
                 fn.argtypes = [i, i]

@@ -4,8 +4,9 @@ A, f32), kernel A' (forward with pipelined K/V tiles: for bf16 and fp16
 ``csrc/flash_fwd_pipelined_tc.cu``, TMA-fed and warp-specialised on the
 tensor cores; for f32 ``csrc/flash_fwd_pipelined.cu``, on FMAs),
 ``csrc/flash_bwd.cu`` (backward entry points and the f32 kernels: C1
-merged, C2 dQ, C3 dK/dV, on FMAs) and ``csrc/flash_bwd_tc.cu`` (C1, C2
-and C3 on the tensor cores for bf16 and fp16), their plain PyTorch
+merged, C2 dQ, C3 dK/dV, on the tensor cores as 3 x TF32 products) and
+``csrc/flash_bwd_tc.cu`` (C1, C2 and C3 on the tensor cores for bf16 and
+fp16), their plain PyTorch
 versions, the autograd Functions that join
 them, and their autotune families (port of
 ``paddle_tpu/kernels/flash_attention_pallas.py``: ``_fwd_kernel`` /
@@ -38,10 +39,11 @@ route is :func:`..flash_attention._card_bwd_route`'s: bf16 and fp16 take
 the split pair C2 + C3 at every length, f32 the JAX package's choice
 between C1 and the pair.  The backward's tiles depend on the dtype:
 bf16 and fp16 take the tensor-core tiles, 64 or 128 at D 64 and 64 at D
-128 and 256; f32 the FMA kernels' 64 or 32 rows (32 at D 256).  The
-16-bit kernels read 16-byte rows (A' through tensor maps, which want
-16-byte bases and strides): an input whose rows are not 16-byte aligned
-is copied to an aligned one first.  f32 A' raises on such rows.
+128 and 256; f32 64 or 32 rows (32 at D 256; at D 64 C1 and C3 default
+to 32, C2 to 64).  The 16-bit kernels and the f32 backward read 16-byte
+rows (A' through tensor maps, which want 16-byte bases and strides): an
+input whose rows are not 16-byte aligned is copied to an aligned one
+first.  f32 A' raises on such rows.
 ``iotafree`` and ``parq`` are accepted and change nothing here: the
 first is a bit-identical rewrite of the TPU's mask arithmetic, the
 second a TPU lse block layout.  ``bf16chain`` changes the numerics
@@ -280,15 +282,23 @@ def _refuse_bf16chain(feats):
 _TC_BLOCKS = {64: (64, 128), 128: (64,), 256: (64,)}
 
 
+#: f32 C1 / C2 / C3 (``csrc/flash_bwd.cu``) tile rows by family and head
+#: dim, the default first: 64 and 32 up to D 128, 32 alone at D 256, where
+#: 64-row f32 tiles do not fit (``paddle_flash_bwd_smem``); at D 64 C1 and
+#: C3 run faster on 32 rows, C2 on 64 (PERF.md §6)
+_F32_BLOCKS = {"flash_bwd": {64: (32, 64), 128: (64, 32), 256: (32,)},
+               "flash_bwd_dq": {64: (64, 32), 128: (64, 32), 256: (32,)},
+               "flash_bwd_dkv": {64: (32, 64), 128: (64, 32), 256: (32,)}}
+
+
 def _bwd_blocks(d, dtype=torch.float32, family="flash_bwd"):
     """Tile rows of ``family``'s kernel (C1, C2 or C3) instantiated at
     head dim ``d`` and ``dtype``, the default first: the tensor-core tiles
-    of ``csrc/flash_bwd_tc.cu`` for bf16 and fp16; the FMA kernels' 64 or
-    32 rows for f32 (32 alone at D = 256, where 64-row f32 tiles do not
-    fit).  The three families share them."""
+    of ``csrc/flash_bwd_tc.cu`` for bf16 and fp16, which the three
+    families share; for f32 ``_F32_BLOCKS``."""
     if dtype in _TC_DTYPES:
         return _TC_BLOCKS[d]
-    return (64, 32) if d <= 128 else (32,)
+    return _F32_BLOCKS[family][d]
 
 
 def split_tc_smem_bytes(d, block):
@@ -633,8 +643,9 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block, family):
     ``family``'s kernel, and the tensors they point into, which the caller
     holds until the launch is queued; ``block`` None is the kernel's
     default tile rows at this head dim and dtype.  Raises on a tile the
-    kernel does not take; the tensor-core kernels get q/k/v/dout rows
-    16-byte aligned (an unaligned input is copied first)."""
+    kernel does not take; every kernel gets q/k/v/dout rows 16-byte
+    aligned, the unit of its async copies (an unaligned input is copied
+    first)."""
     b, s, h, d = q.shape
     blocks = _bwd_blocks(d, q.dtype, family)
     if block is None:
@@ -643,10 +654,9 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block, family):
         raise ValueError("%s: tile %r at D=%d %s, S=%d; instantiated: %s, "
                          "S a multiple of it" % (family, block, d, q.dtype,
                                                  s, blocks))
-    if q.dtype in _TC_DTYPES:
-        q, k, v, dout = (t if _aligned(t) else
-                         t.clone(memory_format=torch.contiguous_format)
-                         for t in (q, k, v, dout))
+    q, k, v, dout = (t if _aligned(t) else
+                     t.clone(memory_format=torch.contiguous_format)
+                     for t in (q, k, v, dout))
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
     tail = (b, s, h, d, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -657,8 +667,8 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block, family):
 
 
 def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None):
-    """C1: (dq, dk, dv); dq summed by atomics in an f32 workspace, which
-    the 16-bit kernel adds scaled (the f32 one leaves the scale here)."""
+    """C1: (dq, dk, dv); dq summed, scale folded in, by atomics in an f32
+    workspace, which is dq itself in f32 and is cast in bf16 and fp16."""
     global flash_bwd_launches
     common, tail, _held = _bwd_args(q, k, v, dout, lse, delta, causal, scale,
                                     block, "flash_bwd")
@@ -669,9 +679,7 @@ def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None):
         *common, dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail),
         "flash_bwd launch")
     flash_bwd_launches += 1
-    if q.dtype in _TC_DTYPES:
-        return dq_acc.to(q.dtype), dk, dv
-    return dq_acc.mul_(float(scale)), dk, dv
+    return dq_acc.to(q.dtype), dk, dv
 
 
 def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, block=None):
@@ -783,9 +791,9 @@ def _fwd_candidates(key):
 
 def _bwd_candidates(key, family="flash_bwd"):
     """[0] the default tile rows of ``family``'s kernel at the key's head
-    dim and dtype, then the other instantiations: f32 64 then 32 rows (32
-    alone at D 256); bf16 and fp16 the tensor-core tiles (64 then 128 at D
-    64, 64 at D 128 and 256)."""
+    dim and dtype, then the other instantiations: f32 ``_F32_BLOCKS``;
+    bf16 and fp16 the tensor-core tiles (64 then 128 at D 64, 64 at D 128
+    and 256)."""
     blocks = _bwd_blocks(key["d"], _DTYPE_BY_NAME[key["dtype"]], family)
     return [{"variant": "base", "config": {"block_q": bm, "block_k": bm}}
             for bm in blocks]

@@ -61,12 +61,13 @@ def _times(monkeypatch, seq):
 def test_disabled_resolve_returns_registered_default():
     _fake_family()
     assert at.resolve("fake", KEY) == CANDS[0]
-    # flash too: candidate [0] is kernel A's fixed tiles
+    # flash too: candidate [0] is kernel A's fixed tiles, and the f32
+    # C1's 32-row tile
     fkey = fac.autotune_key(1, 256, 256, 2, 64, torch.float32, True, "cpu")
     assert at.resolve("flash_fwd", fkey) == {
         "variant": "base", "config": {"block_q": 64, "block_k": 64}}
-    assert at.resolve("flash_bwd", fkey)["config"] == {"block_q": 64,
-                                                       "block_k": 64}
+    assert at.resolve("flash_bwd", fkey)["config"] == {"block_q": 32,
+                                                       "block_k": 32}
     with pytest.raises(KeyError):
         at.resolve("ln", KEY)
 
@@ -228,7 +229,7 @@ def test_cache_written_by_the_port_loads_in_the_jax_module(monkeypatch):
     assert fams["flash_fwd"][at.key_str(fkey)]["config"] == {
         "block_q": 64, "block_k": 32}
     assert fams["flash_bwd"][at.key_str(fkey)]["config"] == {
-        "block_q": 32, "block_k": 32}
+        "block_q": 64, "block_k": 64}
     # and the port resolves from it as the JAX module would
     _reset(at, monkeypatch)
     assert at.resolve("flash_fwd", fkey) == {
@@ -256,7 +257,7 @@ def test_invalid_cached_flash_config_is_sanitized(monkeypatch):
         "variant": "base", "config": {"block_q": 48, "block_k": 48}}
     q = torch.randn(1, 256, 2, 64, generator=torch.Generator().manual_seed(0))
     assert fac._resolve_fwd(q, q, q, True) == ("base", 64, 64)
-    assert fac._resolve_bwd(q, True, "flash_bwd") == 64
+    assert fac._resolve_bwd(q, True, "flash_bwd") == 32
     out = fac.flash_attention_bshd(q, q, q, causal=True)
     want, _ = fac._flash_reference(q, q, q, True, 0.125)
     torch.testing.assert_close(out, want, atol=0, rtol=0)
@@ -265,7 +266,7 @@ def test_invalid_cached_flash_config_is_sanitized(monkeypatch):
 def test_flash_candidates_and_smem_hooks():
     """flash_fwd: f32 [0] kernel A, then A' at each instantiation that
     divides S; bf16 [0] the tensor-core forward at its tiles, then A'; the
-    backward families: 64 then 32 rows (32 alone at D = 256).  A''s
+    f32 C1: 32 then 64 rows at D 64 (32 alone at D = 256).  A''s
     shared memory matches its source's layout, and at f32 D = 256 only
     (64, 32) fits a block's 227 KB."""
     key = fac.autotune_key(8, 1024, 1024, 16, 64, torch.float32, True,
@@ -284,7 +285,7 @@ def test_flash_candidates_and_smem_hooks():
         [("base", bs) for bs in fac._TC_FWD_BLOCKS[64]] + \
         [("pipelined", bs) for bs in fac._PIPELINED_BLOCKS]
     assert [c["config"]["block_q"] for c in fac._bwd_candidates(key)] == \
-        [64, 32]
+        [32, 64]
     assert [c["config"]["block_q"] for c in
             fac._bwd_candidates(dict(key, d=256))] == [32]
     # 16-bit A' (TMA ring): 1024 slack + q 64 x 64 x 2 + 4 slots of K and V

@@ -141,8 +141,8 @@ def test_attention_on_the_card_joins_autograd():
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_256_forward_and_both_backward_routes_match_plain(causal):
-    """Head dim 256 (in f32 C1 on 32-row FMA tiles; in bf16 C1, C2 and C3
-    on the tensor cores): under autograd the forward launches kernel A,
+    """Head dim 256 (in f32 C1 on 32-row 3 x TF32 tiles; in bf16 C1, C2
+    and C3 on the tensor cores): under autograd the forward launches kernel A,
     and the backward, with each route pinned, matches its plain
     version."""
     if not torch.cuda.is_available():
@@ -1088,3 +1088,117 @@ def test_merged_tc_kernel_matches_plain(d, dtype):
                        % (name, d, block, dtype, causal))
             assert torch.equal(first[1], again[1])
             assert torch.equal(first[2], again[2])
+
+
+def _f32_launch(which, q, k, v, do, lse, delta, causal, scale, block):
+    """One f32 kernel, its launch counted once: C1 (dq, dk, dv), C2 (dq,)
+    or C3 (dk, dv)."""
+    launch, counter = {
+        "C1": (fac._launch_bwd_merged, "flash_bwd_launches"),
+        "C2": (fac._launch_bwd_dq, "flash_bwd_dq_launches"),
+        "C3": (fac._launch_bwd_dkv, "flash_bwd_dkv_launches")}[which]
+    before = getattr(fac, counter)
+    got = launch(q, k, v, do, lse, delta, causal, scale, block=block)
+    torch.cuda.synchronize()
+    assert getattr(fac, counter) == before + 1
+    return got if isinstance(got, tuple) else (got,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f32_bwd_kernels_match_plain_at_every_tile(d):
+    """The f32 C1, C2 and C3 (3 x TF32 on the tensor cores) at each of
+    their tiles, S 192 and 1024, causal and not, q/k/v slices of one
+    fused projection and a nonzero lse cotangent, against the plain
+    backward at the f32 bars (1e-5 relative plus 1e-4 of the reference's
+    RMS); C2, C3 and C1's dK and dV give the same bits twice; the C side's
+    shared memory fits a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = torch.float32
+    lib = _build.library()
+    for block in fac._bwd_blocks(d, f32):
+        for which in range(3):
+            assert 0 < lib.paddle_flash_bwd_smem(which, d, block) <= 232448
+    assert lib.paddle_flash_bwd_smem(0, 256, 64) == -1
+    for s in (192, 1024):
+        q, k, v = _fused_qkv((1, s, 2, d), f32, seed=130 + d)
+        do, dlse = (torch.from_numpy(a).to("cuda") for a in
+                    (_qkv((1, s, 2, d), seed=131)[0],
+                     _qkv((1, s, 2), seed=132)[0]))
+        scale = d ** -0.5
+        for causal in (False, True):
+            out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal)
+            delta = (do * out).sum(-1) - dlse
+            ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal,
+                                           scale, dlse=dlse)
+            for block in fac._bwd_blocks(d, f32):
+                if s % block:
+                    continue
+                args = (q, k, v, do, lse, delta, causal, scale, block)
+                what = "d=%d s=%d tile %d causal=%s" % (d, s, block, causal)
+                c1 = _f32_launch("C1", *args)
+                c1_again = _f32_launch("C1", *args)
+                split = (_f32_launch("C2", *args)
+                         + _f32_launch("C3", *args))
+                split_again = (_f32_launch("C2", *args)
+                               + _f32_launch("C3", *args))
+                for name, g1, g2, r in zip(("dq", "dk", "dv"), c1, split,
+                                           ref):
+                    assert g1.dtype == f32 and g1.shape == q.shape
+                    _close(g1, r, f32, "C1 %s %s" % (name, what))
+                    _close(g2, r, f32, "split %s %s" % (name, what))
+                assert torch.equal(c1[1], c1_again[1])
+                assert torch.equal(c1[2], c1_again[2])
+                for a, b in zip(split, split_again):
+                    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_f32_bwd_unaligned_rows_are_copied():
+    """f32 q/k/v/dO rows that do not start on 16 bytes: the wrapper hands
+    the kernels (16-byte async copies) aligned copies, and C1, C2 and C3
+    match the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shape = (1, 256, 2, 64)
+    n = 256 * 2 * 64
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(1, np.float32)] + [a.ravel() for a in
+                                     _qkv(shape, seed=134)
+                                     + _qkv(shape, seed=135)[:1]])).to("cuda")
+    q, k, v, do = (flat[1 + i * n:1 + (i + 1) * n].view(shape)
+                   for i in range(4))
+    assert not fac._aligned(q)
+    out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal=True)
+    ref = fac._flash_bwd_reference(q, k, v, out, lse, do, True, 0.125)
+    for route in ("merged", "split"):
+        got = fac.flash_attention_bwd(q, k, v, out, lse, do, True, 0.125,
+                                      route=route)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+            _close(g, r, torch.float32, "unaligned %s %s" % (route, name))
+
+
+@pytest.mark.gpu
+def test_f32_bwd_route_at_s16384():
+    """At S = 16384 (2 heads of 64) f32 takes the JAX package's route, the
+    split pair C2 + C3, and matches the plain backward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shape = (1, 16384, 2, 64)
+    q, k, v = _fused_qkv(shape, torch.float32, seed=136)
+    do = torch.from_numpy(_qkv(shape, seed=137)[0]).to("cuda")
+    out, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal=True)
+    counts = (fac.flash_bwd_launches, fac.flash_bwd_dq_launches,
+              fac.flash_bwd_dkv_launches)
+    got = fac.flash_attention_bwd(q, k, v, out, lse, do, True, 0.125)
+    torch.cuda.synchronize()
+    assert (fac.flash_bwd_launches - counts[0],
+            fac.flash_bwd_dq_launches - counts[1],
+            fac.flash_bwd_dkv_launches - counts[2]) == (0, 1, 1)
+    ref = fac._flash_bwd_reference(q, k, v, out, lse, do, True, 0.125)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        _close(g, r, torch.float32, "S=16384 %s" % name)

@@ -281,7 +281,9 @@ def test_fp16_merged_route_matches_the_f32_plain_backward(causal):
 def test_split_candidates_follow_the_dtype():
     """bf16 and fp16 keys list the tensor-core tiles for every backward
     family, the merged one (C1) too (64 then 128 at D 64, 64 at D 128 and
-    256); f32 keys keep the FMA kernels' (64, 32), 32 alone at D 256."""
+    256); f32 keys list the f32 kernels' 64 and 32 rows, the family's
+    faster first at D 64 (32 for C1 and C3, 64 for C2) and 64 at D 128,
+    and 32 alone at D 256."""
     def blocks(family, d, dtype):
         key = fac.autotune_key(8, 1024, 1024, 16, d, dtype, True, "cpu")
         return [c["config"]["block_q"]
@@ -291,7 +293,8 @@ def test_split_candidates_follow_the_dtype():
             assert blocks(fam, 64, dt) == [64, 128]
             assert blocks(fam, 128, dt) == [64]
             assert blocks(fam, 256, dt) == [64]
-        assert blocks(fam, 64, torch.float32) == [64, 32]
+        assert blocks(fam, 64, torch.float32) == (
+            [64, 32] if fam == "flash_bwd_dq" else [32, 64])
         assert blocks(fam, 128, torch.float32) == [64, 32]
         assert blocks(fam, 256, torch.float32) == [32]
 
@@ -315,7 +318,8 @@ def test_sane_bwd_blocks_is_dtype_aware(family):
     assert fac._sane_bwd_blocks(cand(32), 1024, 64, True, f32,
                                 family) == ("base", 32)
     assert fac._sane_bwd_blocks(cand(128), 1024, 64, True, f32,
-                                family) == ("base", 64)
+                                family) == (
+        "base", 64 if family == "flash_bwd_dq" else 32)
     assert fac._sane_bwd_blocks(cand(32), 1024, 256, True, bf16,
                                 family) == ("base", 64)
     assert fac._sane_bwd_blocks(cand(64), 1024, 256, True, f32,

@@ -158,7 +158,8 @@ def test_iotafree_and_parq_are_accepted_and_change_nothing(monkeypatch):
     monkeypatch.setitem(flags._REGISTRY, "autotune_pin",
                         "flash_fwd=parq+iotafree;flash_bwd=iotafree")
     assert fac._resolve_fwd(q, k, v, True) == ("iotafree+parq", 64, 64)
-    assert fac._resolve_bwd(q, True, "flash_bwd") == 64
+    # the f32 C1's default tile at D 64
+    assert fac._resolve_bwd(q, True, "flash_bwd") == 32
     monkeypatch.setitem(flags._REGISTRY, "autotune_pin",
                         "flash_fwd=iotafree+pipelined:block_q=64,block_k=32")
     assert fac._resolve_fwd(q, k, v, True) == ("iotafree+pipelined", 64, 32)
