@@ -14,8 +14,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               forward in bf16 and fp16 at the serving prefill, the
               training shape, one non-causal case and head dims 128 and
               256, held against its plain version at the tiles it
-              resolves; kernel A in f32; the LayerNorm forward B in bf16
-              and fp16.  ``checks_bwd``: the flash backward kernels C1
+              resolves; kernel A in f32 (3 x TF32 on the tensor cores);
+              the LayerNorm forward B in bf16 and fp16.  ``checks_bwd``:
+              the flash backward kernels C1
               (merged), C2 and C3 (split; bf16 and fp16 on the tensor
               cores, f32 as 3 x TF32 products) with each route pinned,
               head dim 64, 128 and 256, f32 and fp16 cases, one case with
@@ -29,13 +30,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (both timed), the split pair run twice for identical bits;
               kernel A and the f32 backward (the split pair, by the route)
               against their plain versions at 2 heads, timed at 16.
+              ``checks_f32_fwd``: kernel A and the f32 A' at each of its
+              tiles that fits a block, at (8, 1024, 16, 64), (1, 1024, 8,
+              128), (1, 256, 4, 256), (1, 16384, 16 and 2, 64) and (1,
+              128, 16, 64), each held against its plain version (at S =
+              16384 and 16 heads A' against A), with
+              its device ms beside SDPA's f32 one and its 3 x TF32 and FMA
+              bounds (``check_f32_fwd_tiles``).
               ``checks_ce``: the cross-entropy kernels E1 (logsumexp), E2
               / E3 (fused softmax-CE forward / backward) and the row
               softmax F at (8192, 50304) bf16, E1-E3
               also at a small shape with out-of-range and ignored labels,
               F also at (8, 50304) and (8192, 1024).  ``checks_pipelined``:
               kernel A' (the TMA-fed tensor-core kernel in bf16 and fp16,
-              FMAs in f32) at each of its (block_q, block_k)
+              3 x TF32 in f32) at each of its (block_q, block_k)
               instantiations against its plain version, lse included, at
               the serving prefill, the training shape, (1, 16384, 2, 64)
               and (1, 16384, 16, 64), one non-causal case, D 128 and 256,
@@ -141,8 +149,8 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
-# the f32 backward's products are 3 x TF32: three tensor-core products
-# for each one of the function
+# the f32 flash kernels' products are 3 x TF32: three tensor-core
+# products for each one of the function
 TF32X3_FLOPS = TF32_FLOPS / 3
 
 # flash out and dq/dk/dv, by dtype: kernel and plain version both round
@@ -365,14 +373,30 @@ def fused_qkv(torch, b, s, h, d, dtype, gen):
             for i in range(3)]
 
 
-def fwd_bound(b, s, h, d, causal, dtype):
+def fwd_bound(b, s, h, d, causal, dtype, peak=None):
     """Bound of a flash forward: q, k, v read and out written once, and
-    the two products over the visible (query, key) pairs, at the rate of
-    the dtype (the tensor cores for bf16 and fp16, FMAs for f32)."""
+    the two products over the visible (query, key) pairs at ``peak``, by
+    default the rate the dtype's kernels run on: the tensor cores' bf16
+    rate for bf16 and fp16, three TF32 products a product for f32."""
     esz = 4 if dtype_name(dtype) == "float32" else 2
     pairs = s * (s + 1) / 2 if causal else s * s
-    return bound(4 * b * s * h * d * esz, 4 * b * h * d * pairs,
-                 F32_FLOPS if esz == 4 else BF16_FLOPS)
+    if peak is None:
+        peak = TF32X3_FLOPS if esz == 4 else BF16_FLOPS
+    return bound(4 * b * s * h * d * esz, 4 * b * h * d * pairs, peak)
+
+
+def fwd_bounds(row, b, s, h, d, causal, dtype):
+    """A forward row's bound (``bound_ms``, ``bound_by``) at the rate its
+    kernel runs on; f32 rows also get the bound on the f32 FMAs
+    (``bound_fma_ms``, 67 TFLOP/s) and, when the kernel was timed, the
+    share of the 3 x TF32 bound that its device time reaches."""
+    row["bound_ms"], row["bound_by"] = fwd_bound(b, s, h, d, causal, dtype)
+    if dtype_name(dtype) == "float32":
+        row["bound_fma_ms"], _ = fwd_bound(b, s, h, d, causal, dtype,
+                                           F32_FLOPS)
+        row["bound_basis"] = "3xTF32"
+        if row.get("kernel_device_ms"):
+            row["bound_share"] = row["bound_ms"] / row["kernel_device_ms"]
 
 
 # the tensor-core forward's rows: the serving prefill, the training shape,
@@ -451,7 +475,7 @@ def check_fwd_case(torch, fac, tF, b, s, h, d, causal, dtype, gen,
                 lambda: tF.scaled_dot_product_attention(qt, kt, vt,
                                                         is_causal=causal),
                 None, reps, inner)
-    row["bound_ms"], row["bound_by"] = fwd_bound(b, s, h, d, causal, dtype)
+    fwd_bounds(row, b, s, h, d, causal, dtype)
     return row
 
 
@@ -945,12 +969,97 @@ def check_f32_long(torch, fac):
                 lambda: tF.scaled_dot_product_attention(qt, kt, vt,
                                                         is_causal=True),
                 None, reps=3, inner=2)
-    row["bound_ms"], row["bound_by"] = fwd_bound(1, 16384, 16, 64, True, f32)
+    fwd_bounds(row, 1, 16384, 16, 64, True, f32)
     rows.append(row)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return rows, [check_f32_bwd_long(torch, fac, tF, gen, h)
                   for h in (2, 16)]
+
+
+# kernel A and the f32 A' at each tile: the training shape, head dims 128
+# and 256, train_long's S = 16384 at 16 heads and at 2, and the serving
+# prefill (b, s, h, d, causal)
+F32_FWD_TILE_CASES = ((8, 1024, 16, 64, True), (1, 1024, 8, 128, True),
+                      (1, 256, 4, 256, True), (1, 16384, 16, 64, True),
+                      (1, 16384, 2, 64, True), (1, 128, 16, 64, True))
+
+
+def check_f32_fwd_tiles(torch, fac, at, cases=F32_FWD_TILE_CASES):
+    """Kernel A (its tiles at the head dim) and the f32 A' at each of its
+    tiles that fits a block, at each case (b, s, h, d, causal) or at the
+    one case given: each held to the f32 bars against its plain version
+    (A against the plain forward, A' against the tile walk; at S = 16384
+    and 16 heads, where the plain version does not fit, A' against A),
+    lse within LSE_TOL; then each kernel's device ms, SDPA's f32 device
+    ms, the 3 x TF32 and FMA bounds and the share of the first that each
+    kernel reaches."""
+    import torch.nn.functional as tF
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    f32 = torch.float32
+    limit = at.smem_limit(torch.device("cuda"))
+    if isinstance(cases[0], int):
+        cases = (cases,)
+    rows = []
+    for b, s, h, d, causal in cases:
+        causal = bool(causal)
+        q, k, v = fused_qkv(torch, b, s, h, d, f32, gen)
+        scale = d ** -0.5
+        n = 2 if s > 4096 else 10
+        plain = s * h <= 16384 * 2
+        row = {"shape": [b, s, h, d], "causal": causal, "dtype": "float32"}
+        fwd_bounds(row, b, s, h, d, causal, f32)
+        out_a, lse_a = fac._launch(q, k, v, causal, scale, True)
+        runs = [("A", fac._fwd_specs(s, s, d, f32, causal)[0][1:], out_a,
+                 lse_a,
+                 lambda: fac._launch(q, k, v, causal, scale, False),
+                 "flash_fwd_kernel")]
+        for bq, bk in fac._PIPELINED_BLOCKS:
+            if fac.pipelined_smem_bytes(d, bq, bk, f32) > limit:
+                continue
+            out, lse = fac._launch_pipelined(q, k, v, causal, scale, True,
+                                             bq, bk)
+            runs.append(("A'", (bq, bk), out, lse,
+                         lambda bq=bq, bk=bk: fac._launch_pipelined(
+                             q, k, v, causal, scale, False, bq, bk),
+                         "flash_fwd_pipelined_kernel"))
+        tiles = []
+        for kern, blocks, out, lse, fn, pattern in runs:
+            if not plain:
+                ref, ref_lse = out_a, lse_a
+            elif kern == "A":
+                ref, ref_lse = fac._flash_reference(q, k, v, causal, scale)
+            else:
+                ref, ref_lse = fac._flash_tc_reference(q, k, v, causal,
+                                                       scale, *blocks)
+            torch.cuda.synchronize()
+            err, rms, ok = within(out, ref, ULP_REL["float32"],
+                                  RMS_FRAC["float32"])
+            lse_err = float((lse - ref_lse).abs().max())
+            del ref, ref_lse
+            if not ok or lse_err > LSE_TOL:
+                raise AssertionError(
+                    "f32 %s %s at %s causal=%s: out err %g (ref rms %g), "
+                    "lse err %g" % (kern, blocks, row["shape"], causal, err,
+                                    rms, lse_err))
+            ms = kernel_ms(device_times(fn, torch, n=n, pattern=pattern),
+                           pattern)
+            tiles.append({"kernel": kern, "blocks": list(blocks),
+                          "against": "plain" if plain else "A",
+                          "max_abs_err": err, "ref_rms": rms,
+                          "lse_max_abs_err": lse_err, "device_ms": ms,
+                          "bound_share": ms and row["bound_ms"] / ms})
+        del runs, out_a, lse_a
+        row["tiles"] = tiles
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row["library_device_ms"] = call_ms(device_times(
+            lambda: tF.scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=causal),
+            torch, n=n), n)
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
 
 
 PIPELINED_CASES = [
@@ -981,9 +1090,11 @@ def check_pipelined(torch, fac, at, lib, cases=None):
     its plain version (bf16 and f32 up to 2 heads at S = 16384) and of
     SDPA (a yardstick), the device ms of the dtype's candidate [0] at the
     same shape, and the bound.  16-bit inputs take the tensor-core A'
-    (csrc/flash_fwd_pipelined_tc.cu), f32 the FMA one.
-    An instantiation whose shared memory exceeds a block's is refused by
-    the gate (its size held against the C side's) and never launched.
+    (csrc/flash_fwd_pipelined_tc.cu), f32 the 3 x TF32 one.
+    Every dtype is held to its own bars (f32 to 1e-5 relative plus 1e-4
+    of the RMS).  An instantiation whose shared memory exceeds a block's
+    is refused by the gate (its size held against the C side's) and never
+    launched.
     ``cases``: indices into PIPELINED_CASES to run (all by default); the
     inputs are drawn for every case all the same, so a case's input does
     not depend on which others run."""
@@ -1002,9 +1113,7 @@ def check_pipelined(torch, fac, at, lib, cases=None):
         scale = d ** -0.5
         reps, inner = (3, 2) if s >= 16384 else (5, 10)
         time_plain = dtype != torch.float16 and s * h <= 16384 * 2
-        ulp, frac = ((ULP_REL[dname], RMS_FRAC[dname]) if tc
-                     else (FLASH_ULP_REL, FLASH_RMS_FRAC))
-        bound_ms, bound_by = fwd_bound(b, s, h, d, causal, dtype)
+        ulp, frac = ULP_REL[dname], RMS_FRAC[dname]
         default = fac._fwd_specs(s, s, d, dtype, causal)[0]
         default_kernel = "flash_fwd_tc_kernel" if tc else "flash_fwd_kernel"
         shape_row = {
@@ -1053,7 +1162,8 @@ def check_pipelined(torch, fac, at, lib, cases=None):
                             lambda: fac._flash_tc_reference(
                                 q, k, v, causal, scale, bq, bk), None, reps,
                             inner)
-            row.update(shape_row, bound_ms=bound_ms, bound_by=bound_by)
+            row.update(shape_row)
+            fwd_bounds(row, b, s, h, d, causal, dtype)
             rows.append(row)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
@@ -1877,6 +1987,26 @@ def train_f32(torch, base, counters, flags, steps=3):
     return line
 
 
+def check_train_f32(torch, fac, norm_cuda, ce_cuda, flags, steps=3):
+    """:func:`train_f32` alone, on GPT-2 345M with the seeded weights of
+    main()'s train phases, for ``tools/torch_checks_ab.py``: host ms a
+    step, device ms a step and the f32 flash kernels' share of it from the
+    phase's 2-step profile, and the launches a step."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = dataclasses.replace(GPTConfig.gpt2_medium(),
+                              hidden_dropout_prob=0.0,
+                              attention_dropout_prob=0.0)
+    base = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
+    line = train_f32(torch, base, Counters(fac, norm_cuda, ce_cuda), flags,
+                     steps)
+    prof = line["profile"]
+    return {"step_ms": line["step_ms"], "losses": line["losses"],
+            "launches_per_step": line["launches_per_step"],
+            "step_device_ms": prof["step_device_ms"],
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms_per_step_of": prof["device_ms_per_step_of"]}
+
+
 def train_fp16(torch, base, amp, counters, flags, first_loss, steps=3):
     """The fp16 route: GPT-2 345M from the same weights under
     ``amp.decorate(level="O2", dtype="float16")``, ``steps`` eager AdamW
@@ -2240,10 +2370,14 @@ def main():
     # the 16-bit A' and C1 (registers and spills: PERF.md records them)
     pipe_ptxas = ptxas_usage(log, "pipelined_tc")
     merged_ptxas = ptxas_usage(log, "merged_tc")
+    # the f32 forward: kernel A and the f32 A' (3 x TF32)
+    f32_fwd_ptxas = (ptxas_usage(log, "flash_fwd_kernel")
+                     + ptxas_usage(log, "flash_fwd_pipelined_kernel"))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(lib_path.name), "layer_norm_ptxas": ln_ptxas,
           "flash_fwd_pipelined_tc_ptxas": pipe_ptxas,
-          "flash_bwd_merged_tc_ptxas": merged_ptxas})
+          "flash_bwd_merged_tc_ptxas": merged_ptxas,
+          "flash_fwd_f32_ptxas": f32_fwd_ptxas})
     if log and "--ptxas" in sys.argv:
         print(log, file=sys.stderr)
     spilled = [r for r in ln_ptxas if r.get("spill_stores")
@@ -2283,6 +2417,8 @@ def main():
     emit({"phase": "checks_long", "against_plain": long_plain_row,
           "split_vs_merged": long_row, "flash_fwd_f32": f32_long_rows,
           "flash_bwd_f32": f32_bwd_long_rows})
+    f32_fwd_rows = check_f32_fwd_tiles(torch, fac, autotune)
+    emit({"phase": "checks_f32_fwd", "rows": f32_fwd_rows})
     seconds["checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pipe_rows, pipe_err, pipe_refused = check_pipelined(
@@ -2472,11 +2608,25 @@ def main():
                         "train": run_train["launches"][k]}
                     for k in ("flash_fwd", "flash_bwd")}
 
+    f32_fwd_errs = {kern: [t["max_abs_err"] for r in f32_fwd_rows
+                           for t in r["tiles"] if t["kernel"] == kern]
+                    for kern in ("A", "A'")}
+
+    def f32_fwd_summary(kern):
+        """check_f32_fwd_tiles' rows, the tiles of ``kern`` alone."""
+        return [dict({k: r[k] for k in (
+            "shape", "bound_ms", "bound_fma_ms", "library_device_ms")},
+            tiles=[{k: t[k] for k in ("blocks", "device_ms", "bound_share",
+                                      "max_abs_err")}
+                   for t in r["tiles"] if t["kernel"] == kern])
+            for r in f32_fwd_rows]
+
     def fwd_cols(row):
         return {k: row[k] for k in (
             "shape", "dtype", "blocks", "kernel_ms", "kernel_device_ms",
             "tiles_device_ms", "library_ms", "library_device_ms", "bound_ms",
-            "bound_by") if k in row}
+            "bound_by", "bound_fma_ms", "bound_basis", "bound_share")
+            if k in row}
 
     def bwd_entry(kern, src_row, plain_row, launches, by_path, err):
         entry = {
@@ -2616,20 +2766,29 @@ def main():
                      "and :450 (f32)",
          "launches": run_f32["launches"]["flash_fwd"],
          "launches_by_path": f32_launches["flash_fwd"],
-         "max_abs_err": max(a_prefill["max_abs_err"],
-                            a_train["max_abs_err"]),
+         "max_abs_err": max([a_prefill["max_abs_err"],
+                             a_train["max_abs_err"]]
+                            + [r["max_abs_err"] for r in f32_long_rows
+                               if "max_abs_err" in r]
+                            + f32_fwd_errs["A"]),
          "dtype": "float32", "shape": a_prefill["shape"],
          "ms": a_prefill["kernel_ms"],
          "device_ms": a_prefill["kernel_device_ms"],
          "plain_ms": a_prefill["plain_ms"],
          "bound_ms": a_prefill["bound_ms"],
          "bound_by": a_prefill["bound_by"],
+         "bound_fma_ms": a_prefill["bound_fma_ms"],
          "library_ms": a_prefill["library_ms"],
          "library_device_ms": a_prefill["library_device_ms"],
+         "design": "3xTF32 mma.sync m16n8k8; q split once (registers at "
+                   "D 64), K/V by a two-stage cp.async ring",
          "at_train": dict(fwd_cols(a_train), plain_ms=a_train["plain_ms"]),
          "at_s16384": [dict(fwd_cols(r), plain_ms=r.get("plain_ms"),
                             plain_device_ms=r.get("plain_device_ms"))
-                       for r in f32_long_rows]},
+                       for r in f32_long_rows],
+         "by_shape": f32_fwd_summary("A"),
+         "ptxas": [r for r in f32_fwd_ptxas
+                   if "pipelined" not in r["kernel"]]},
         {"name": "flash_fwd_pipelined", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd_pipelined_tc.cu",
          "source_f32": "paddle_tpu_torch/csrc/flash_fwd_pipelined.cu",
@@ -2640,7 +2799,8 @@ def main():
              "parity_pinned": parity_pinned["flash_fwd_pipelined"],
              "train_autotune":
                  run_tuned["launches"]["flash_fwd_pipelined"]},
-         "max_abs_err": pipe_err, "shape": pipe_train["shape"],
+         "max_abs_err": max([pipe_err] + f32_fwd_errs["A'"]),
+         "shape": pipe_train["shape"],
          "blocks": pipe_train["blocks"], "ms": pipe_train["kernel_ms"],
          "device_ms": pipe_train["kernel_device_ms"],
          "plain_ms": pipe_train["plain_ms"],
@@ -2658,7 +2818,11 @@ def main():
              for r in pipe_rows if r["shape"] in (
                  [1, 128, 16, 64], [8, 1024, 16, 64], [1, 16384, 2, 64],
                  [1, 16384, 16, 64])],
-         "ptxas": pipe_ptxas},
+         "ptxas": pipe_ptxas,
+         # f32: kernel A's body behind a ring of three stages where they fit
+         "f32_by_shape": f32_fwd_summary("A'"),
+         "ptxas_f32": [r for r in f32_fwd_ptxas
+                       if "pipelined" in r["kernel"]]},
         {"name": "layer_norm_fwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/layer_norm_fwd.cu",
          "replaces": "paddle_tpu/kernels/norm_pallas.py:118",

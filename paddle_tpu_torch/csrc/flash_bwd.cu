@@ -26,7 +26,8 @@
 // product, and the rounding of the small parts are lost: the results stay
 // within the f32 bars of the plain version, where one TF32 product (about
 // 2^-11) would not.  Operands are split in registers as each fragment is
-// loaded.
+// loaded.  The split, the products and the padded-tile loaders live in
+// tf32x3_common.cuh, which the f32 forward shares.
 //
 // Design.  The TPU kernels walk a sequential grid and carry sums in VMEM
 // scratch from one grid step to the next; Hopper blocks run in parallel
@@ -67,7 +68,7 @@
 // f32 FMAs), against ~235 MB of operands (0.070 ms): bound by the tensor
 // cores.  The measured times stand in PERF.md.
 
-#include "wgmma_common.cuh"
+#include "tf32x3_common.cuh"
 
 // flash_bwd_tc.cu: bf16 / fp16 C1 (which 0), C2 (1), C3 (2)
 int flash_bwd_tc_launch(int which, const void* q, const void* k,
@@ -81,167 +82,6 @@ int flash_bwd_tc_launch(int which, const void* q, const void* k,
                         int block, void* stream);
 
 namespace {
-
-// ---- 3 x TF32 on mma.sync --------------------------------------------------
-
-// TF32 rounding of finite x as cvt.rna.tf32.f32 gives it (10 mantissa
-// bits, to nearest, ties away from zero), in two integer operations where
-// cvt takes more: half an ulp added to the magnitude bits; the TF32
-// products read only the top 19 bits, so the 13 low ones are cleared
-// only where the value itself is used (x - big).
-__device__ __forceinline__ uint32_t tf32_rna_bits(float x) {
-  return __float_as_uint(x) + 0x1000u;
-}
-
-// A fragment (m16 x k8) and B fragment (k8 x n8) of mma.m16n8k8, each
-// value split into its big and small TF32 parts.  Lane l = 4 g + t holds
-// A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) and B (t, g),
-// (t + 4, g) of the k slots; accumulators (g, 2t), (g, 2t + 1),
-// (g + 8, 2t), (g + 8, 2t + 1).
-struct FragA {
-  uint32_t hi[4], lo[4];
-};
-struct FragB {
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna_bits(x) & 0xffffe000u;
-  lo = tf32_rna_bits(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ FragA frag_a(float x0, float x1, float x2,
-                                        float x3) {
-  FragA f;
-  split_tf32(x0, f.hi[0], f.lo[0]);
-  split_tf32(x1, f.hi[1], f.lo[1]);
-  split_tf32(x2, f.hi[2], f.lo[2]);
-  split_tf32(x3, f.hi[3], f.lo[3]);
-  return f;
-}
-__device__ __forceinline__ FragB frag_b(float y0, float y1) {
-  FragB f;
-  split_tf32(y0, f.hi[0], f.lo[0]);
-  split_tf32(y1, f.hi[1], f.lo[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b as 3 x TF32: the cross terms first, then big x big
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// ---- padded f32 tiles ------------------------------------------------------
-
-// Rows of a W-float tile are W + 4 floats apart: 16-byte aligned for the
-// copies, and 4 banks on from the row before (W a multiple of 32), so a
-// fragment read along the rows (lane g, t at row g, column t: bank
-// 4 g + t) or down them in the permuted order (row 2t or 2t + 1, column
-// g: bank 8 t + g or 8 t + 4 + g) touches 32 banks.
-template <int W>
-__device__ __forceinline__ int at(int r, int c) {
-  return r * (W + 4) + c;
-}
-
-// A = rows [r0, r0 + 16) x columns [k0, k0 + 8) of a W-wide tile
-template <int W>
-__device__ __forceinline__ FragA load_a(const float* X, int r0, int k0,
-                                        int g, int t) {
-  return frag_a(X[at<W>(r0 + g, k0 + t)], X[at<W>(r0 + g + 8, k0 + t)],
-                X[at<W>(r0 + g, k0 + t + 4)],
-                X[at<W>(r0 + g + 8, k0 + t + 4)]);
-}
-// B = X^T: B[k][n] = X[n0 + n][k0 + k], rows of a W-wide tile
-template <int W>
-__device__ __forceinline__ FragB load_bt(const float* X, int n0, int k0,
-                                         int g, int t) {
-  return frag_b(X[at<W>(n0 + g, k0 + t)], X[at<W>(n0 + g, k0 + t + 4)]);
-}
-// B[k][n] = X[k0 + k][n0 + n] in the permuted k order of an A taken from
-// an accumulator (slot t is row 2t, slot t + 4 row 2t + 1)
-template <int W>
-__device__ __forceinline__ FragB load_bp(const float* X, int k0, int n0,
-                                         int g, int t) {
-  return frag_b(X[at<W>(k0 + 2 * t, n0 + g)],
-                X[at<W>(k0 + 2 * t + 1, n0 + g)]);
-}
-// A[m][k] = X[k0 + k][m0 + m] in the same permuted k order
-template <int W>
-__device__ __forceinline__ FragA load_ap_t(const float* X, int m0, int k0,
-                                           int g, int t) {
-  return frag_a(X[at<W>(k0 + 2 * t, m0 + g)],
-                X[at<W>(k0 + 2 * t, m0 + g + 8)],
-                X[at<W>(k0 + 2 * t + 1, m0 + g)],
-                X[at<W>(k0 + 2 * t + 1, m0 + g + 8)]);
-}
-// A from an m16 x n8 accumulator, its 8 columns one k step in the
-// permuted order
-__device__ __forceinline__ FragA acc_a(const float (&c)[4]) {
-  return frag_a(c[0], c[2], c[1], c[3]);
-}
-
-// acc[n] += sum_kk A(a[kk]) X[8 kk .., 8 n ..]: an output slab's share of
-// one tile (dV += P^T dO, dK += dS^T Q, dQ += dS K), A from the
-// accumulators a and B read down the rows of the W-wide tile X.  The
-// tensor cores' adds truncate (round toward zero), so the hundreds of
-// products of the whole loop chained into one accumulator would drift
-// (5x the f32 bar at S = 1024); the share of one tile, BM / 8 k steps, is
-// summed in fresh accumulators, 64 columns at a time, and added to acc in
-// f32.
-template <int NJ, int ND, int W>
-__device__ __forceinline__ void acc_tile(float (&acc)[ND][4],
-                                         const float (&a)[NJ][4],
-                                         const float* X, int g, int t) {
-  constexpr int CN = ND < 8 ? ND : 8;
-#pragma unroll
-  for (int c = 0; c < ND; c += CN) {
-    float part[CN][4];
-#pragma unroll
-    for (int n = 0; n < CN; ++n)
-      part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < NJ; ++kk) {
-      const FragA fa = acc_a(a[kk]);
-#pragma unroll
-      for (int n = 0; n < CN; ++n)
-        mma3(part[n], fa, load_bp<W>(X, 8 * kk, 8 * (c + n), g, t));
-    }
-#pragma unroll
-    for (int n = 0; n < CN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c + n][e] += part[n][e];
-  }
-}
-
-// Issue the 16-byte copies of rows [row0, row0 + R) of one head (D
-// contiguous f32, 16-byte aligned, rows `row_stride` elements apart) into
-// a padded R x D tile.
-template <int D, int R, int NT>
-__device__ __forceinline__ void copy_tile(float* tile, const float* g,
-                                          long long row_stride, int row0) {
-  constexpr int CH = D / 4;
-  static_assert((R * CH) % NT == 0, "tile copies split evenly");
-#pragma unroll 4
-  for (int i = 0; i < R * CH / NT; ++i) {
-    const int e = threadIdx.x + i * NT;
-    const int r = e / CH;
-    const int c = e % CH;
-    cp_async16(smem_u32(tile + at<D>(r, 4 * c)),
-               g + (long long)(row0 + r) * row_stride + c * 4);
-  }
-}
 
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");

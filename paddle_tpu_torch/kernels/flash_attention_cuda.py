@@ -1,8 +1,10 @@
 """Flash attention: the CUDA kernels ``csrc/flash_fwd_tc.cu`` (forward on
 the tensor cores, bf16 and fp16), ``csrc/flash_fwd.cu`` (forward, kernel
-A, f32), kernel A' (forward with pipelined K/V tiles: for bf16 and fp16
+A, f32, on the tensor cores as 3 x TF32 products), kernel A' (forward
+with pipelined K/V tiles: for bf16 and fp16
 ``csrc/flash_fwd_pipelined_tc.cu``, TMA-fed and warp-specialised on the
-tensor cores; for f32 ``csrc/flash_fwd_pipelined.cu``, on FMAs),
+tensor cores; for f32 ``csrc/flash_fwd_pipelined.cu``, kernel A's 3 x
+TF32 body behind a deeper ``cp.async`` ring),
 ``csrc/flash_bwd.cu`` (backward entry points and the f32 kernels: C1
 merged, C2 dQ, C3 dK/dV, on the tensor cores as 3 x TF32 products) and
 ``csrc/flash_bwd_tc.cu`` (C1, C2 and C3 on the tensor cores for bf16 and
@@ -31,10 +33,10 @@ Every call resolves its kernels' variant and tile shape through
 candidate [0].  The forward's ``"base"`` variant depends on the dtype:
 bf16 and fp16 take the tensor-core forward at one of its (block_q,
 block_k) instantiations (candidate [0]: 128 x 128 at D 64, 128 x 64 at
-D 128, 64 x 64 at D 256); f32 takes kernel A with its fixed 64 x 64
-tiles.  The ``pipelined`` variant selects A' at one of its
-instantiations; it is reached by a pin or a tuned pick, which the
-autotuner makes only for q/k/v rows that start on 16 bytes.  The backward
+D 128, 64 x 64 at D 256); f32 takes kernel A with its tiles by head
+dim (64 x 64, at D 256 64 x 32).  The ``pipelined`` variant selects A'
+at one of its instantiations; it is reached by a pin or a tuned pick,
+which the autotuner makes only for q/k/v rows that start on 16 bytes.  The backward
 route is :func:`..flash_attention._card_bwd_route`'s: bf16 and fp16 take
 the split pair C2 + C3 at every length, f32 the JAX package's choice
 between C1 and the pair.  The backward's tiles depend on the dtype:
@@ -43,7 +45,7 @@ bf16 and fp16 take the tensor-core tiles, 64 or 128 at D 64 and 64 at D
 to 32, C2 to 64).  The 16-bit kernels and the f32 backward read 16-byte
 rows (A' through tensor maps, which want 16-byte bases and strides): an
 input whose rows are not 16-byte aligned is copied to an aligned one
-first.  f32 A' raises on such rows.
+first, as kernel A does.  f32 A' raises on such rows.
 ``iotafree`` and ``parq`` are accepted and change nothing here: the
 first is a bit-identical rewrite of the TPU's mask arithmetic, the
 second a TPU lse block layout.  ``bf16chain`` changes the numerics
@@ -91,8 +93,10 @@ _HEAD_DIMS = (64, 128, 256)
 _BLOCK = 64
 _LOG2E = 1.4426950408889634
 
-#: kernel A's fixed (block_q, block_k), and the instantiations of A'
-_BASE_BLOCKS = (64, 64)
+#: kernel A's (block_q, block_k) by head dim (``csrc/flash_fwd.cu``: its
+#: two-stage ring of 64-row f32 K/V tiles does not fit a block at D 256),
+#: and the instantiations of A'
+_F32_FWD_BLOCKS = {64: (64, 64), 128: (64, 64), 256: (64, 32)}
 _PIPELINED_BLOCKS = ((64, 32), (64, 64), (128, 64), (128, 128))
 #: the tensor-core forward's (block_q, block_k) instantiations by head
 #: dim, the default first (csrc/flash_fwd_tc.cu, dispatch_tiles)
@@ -350,33 +354,35 @@ def pipelined_smem_bytes(d, block_q, block_k, dtype):
     the swizzle's 1024-byte period, the q tile, the ring's slots of the K
     and V tiles and 256 bytes of barriers; the ring has as many slots as
     fit the H100's 232448 bytes a block, at most 4 and at least 2 (a tile
-    that does not fit two is refused).  f32 (``smem_bytes`` of
-    ``csrc/flash_fwd_pipelined.cu``): the q tile and two stages of K and
-    V, rows padded by 16 bytes, then the f32 P tile."""
+    that does not fit two is refused).  f32 (``pipelined_smem`` of
+    ``csrc/flash_fwd_pipelined.cu``): the q tile and three stages of K and
+    V where they fit, else two, f32 rows padded by 16 bytes."""
     if dtype in _TC_DTYPES:
         fixed = 1024 + block_q * d * 2 + 256
         slot = 4 * block_k * d
         return fixed + max(2, min(4, (232448 - fixed) // slot)) * slot
-    return (block_q + 4 * block_k) * (d + 4) * 4 + block_q * (block_k + 1) * 4
+    row = (d + 4) * 4
+    stages = 3 if (block_q + 6 * block_k) * row <= 232448 else 2
+    return (block_q + 2 * stages * block_k) * row
 
 
 def _fwd_specs(s, sk, d, dtype, causal):
     """Every forward (variant, block_q, block_k) instantiated for ``dtype``
     at head dim ``d`` that divides these lengths, candidate [0] first:
     bf16 and fp16 the tensor-core forward's tiles (its default first),
-    f32 kernel A; then A' at each of its tiles."""
+    f32 kernel A at its tiles; then A' at each of its tiles."""
     if dtype in _TC_DTYPES:
         specs = [("base",) + bs for bs in _TC_FWD_BLOCKS[d]]
     else:
-        specs = [("base",) + _BASE_BLOCKS]
+        specs = [("base",) + _F32_FWD_BLOCKS[d]]
     specs += [("pipelined",) + bs for bs in _PIPELINED_BLOCKS]
     return [sp for sp in specs if _valid_blocks(sp[1], sp[2], s, sk, causal)]
 
 
 def _fwd_smem_need(variant, d, bq, bk, dtype):
     """Dynamic shared memory of the forward (variant, bq, bk) at ``dtype``:
-    A''s or the tensor-core forward's; None for kernel A, whose fixed
-    tiles fit a block at every head dim."""
+    A''s or the tensor-core forward's; None for kernel A, whose tiles
+    fit a block at every head dim (at most 199,680 bytes, at D 256)."""
     if variant == "pipelined":
         return pipelined_smem_bytes(d, bq, bk, dtype)
     if dtype in _TC_DTYPES:
@@ -499,13 +505,17 @@ def _launch_tc(q, k, v, causal, scale, want_lse, block_q, block_k):
 
 
 def _launch(q, k, v, causal, scale, want_lse):
-    """Kernel A (float32)."""
+    """Kernel A (float32); q/k/v rows that are not 16-byte aligned are
+    copied to aligned ones first."""
     global flash_fwd_launches
     b, s, h, d = q.shape
     if q.dtype != torch.float32:
         raise TypeError("flash_fwd: dtype %s; kernel A takes float32 "
                         "(bfloat16 and float16 take the tensor-core "
                         "forward)" % q.dtype)
+    q, k, v = (t if _aligned(t) else
+               t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out, lse = _outputs(q, want_lse)
     err = _build.library().paddle_flash_fwd_bshd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -521,7 +531,7 @@ def _launch(q, k, v, causal, scale, want_lse):
 def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k):
     """Kernel A' at one of its (block_q, block_k) instantiations: the
     tensor-core kernel for bf16 and fp16 (q/k/v rows that are not 16-byte
-    aligned are copied to aligned ones first), the FMA kernel for f32
+    aligned are copied to aligned ones first), the 3 x TF32 kernel for f32
     (which raises on such rows)."""
     global flash_fwd_pipelined_launches
     b, s, h, d = q.shape
@@ -781,8 +791,8 @@ def _fwd_candidates(key):
     """Each forward instantiated for the key's dtype and head dim that
     divides its lengths (:func:`_fwd_specs`): bf16 and fp16 [0] the
     tensor-core forward at its default tiles, then its other tiles, then
-    A' at each of its instantiations; f32 [0] kernel A (its fixed 64 x 64
-    tiles), then A'."""
+    A' at each of its instantiations; f32 [0] kernel A (its tiles at the
+    key's head dim), then A'."""
     return [{"variant": v, "config": {"block_q": bq, "block_k": bk}}
             for v, bq, bk in _fwd_specs(key["s"], key["sk"], key["d"],
                                         _DTYPE_BY_NAME[key["dtype"]],
@@ -801,7 +811,7 @@ def _bwd_candidates(key, family="flash_bwd"):
 
 def _fwd_smem(cand, key):
     """The shared memory of A' or of the tensor-core forward for the
-    tune() gate; None (no gate) for kernel A, whose fixed tiles fit a
+    tune() gate; None (no gate) for kernel A, whose tiles fit a
     block at every head dim (as do the backward's, which register no
     hook)."""
     cfg = cand["config"]

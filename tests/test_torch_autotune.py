@@ -289,13 +289,13 @@ def test_flash_candidates_and_smem_hooks():
     assert [c["config"]["block_q"] for c in
             fac._bwd_candidates(dict(key, d=256))] == [32]
     # 16-bit A' (TMA ring): 1024 slack + q 64 x 64 x 2 + 4 slots of K and V
-    # (4 x 2 x 64 x 64 x 2) + 256 bytes of barriers; f32 A' (FMA): q and two
-    # stages of K and V in rows of 68 floats, then the 64 x 65 P tile
+    # (4 x 2 x 64 x 64 x 2) + 256 bytes of barriers; f32 A' (3 x TF32): q
+    # and three stages of K and V in rows of 68 floats
     assert fac.pipelined_smem_bytes(64, 64, 64, torch.bfloat16) == \
         1024 + 8192 + 65536 + 256
     assert fac.pipelined_smem_bytes(64, 64, 64, torch.float16) == 75008
     assert fac.pipelined_smem_bytes(64, 64, 64, torch.float32) == \
-        (64 + 256) * 68 * 4 + 64 * 65 * 4
+        (64 + 6 * 64) * 68 * 4
     f32 = dict(key, d=256, dtype="float32")
     fits = [c["config"] for c in fac._fwd_candidates(f32)[1:]
             if fac._fwd_smem(c, f32) <= 232448]

@@ -448,7 +448,7 @@ def _tune_cache(tmp_path, monkeypatch):
 
 def _pipelined_smem_c(d, bq, bk, dtype):
     """A''s shared memory as the C side counts it: the tensor-core kernel's
-    for 16-bit inputs, the FMA kernel's for f32."""
+    for 16-bit inputs, the 3 x TF32 kernel's for f32."""
     from paddle_tpu_torch.kernels import _build
     lib = _build.library()
     if dtype in fac._TC_DTYPES:
@@ -464,7 +464,7 @@ def _pipelined_smem_c(d, bq, bk, dtype):
 def test_pipelined_kernel_matches_plain(dtype, blocks):
     """Kernel A' at each of its instantiations, causal and not, D 64, 128
     and 256, against its plain version (out and lse): the TMA-fed
-    tensor-core kernel in bf16 and fp16, the FMA kernel in f32; a
+    tensor-core kernel in bf16 and fp16, the 3 x TF32 kernel in f32; a
     configuration whose shared memory exceeds a block's is refused by the
     gate and never launched, and the C side's size agrees with the
     gate's."""
@@ -1202,3 +1202,86 @@ def test_f32_bwd_route_at_s16384():
     ref = fac._flash_bwd_reference(q, k, v, out, lse, do, True, 0.125)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         _close(g, r, torch.float32, "S=16384 %s" % name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f32_fwd_kernel_matches_plain_on_fused_and_unaligned_views(d):
+    """Kernel A in f32 (3 x TF32 on the tensor cores) at S 192 and 1024,
+    causal and not, on q/k/v slices of one fused projection: against the
+    plain forward at the f32 bars (1e-5 relative plus 1e-4 of the
+    reference's RMS), lse within 1e-3, one launch a call, out the same
+    with the lse asked for or not; two runs give the same bits (the
+    forward has no atomics).  Views whose rows do not start on 16 bytes
+    are copied to aligned ones first, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = torch.float32
+    scale = d ** -0.5
+    for s in (192, 1024):
+        q, k, v = _fused_qkv((2, s, 3, d), f32, seed=160 + d)
+        for causal in (False, True):
+            before = fac.flash_fwd_launches
+            out, lse = fac._launch(q, k, v, causal, scale, True)
+            again, lse_again = fac._launch(q, k, v, causal, scale, True)
+            bare, none = fac._launch(q, k, v, causal, scale, False)
+            torch.cuda.synchronize()
+            assert fac.flash_fwd_launches == before + 3
+            assert none is None and out.dtype == f32
+            what = "A d=%d s=%d causal=%s" % (d, s, causal)
+            ref, ref_lse = fac._flash_reference(q, k, v, causal, scale)
+            _close(out, ref, f32, what)
+            torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0,
+                                       msg=what)
+            assert torch.equal(out, again) and torch.equal(lse, lse_again)
+            assert torch.equal(out, bare), what
+    n = 256 * 2 * d
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(1, np.float32)] + [a.ravel() for a in
+                                     _qkv((1, 256, 2, d), seed=161)])).to(
+        "cuda")
+    uq, uk, uv = (flat[1 + i * n:1 + (i + 1) * n].view(1, 256, 2, d)
+                  for i in range(3))
+    assert not fac._aligned(uq)
+    before = fac.flash_fwd_launches
+    out, lse = fac.flash_attention_bshd_with_lse(uq, uk, uv, causal=True)
+    torch.cuda.synchronize()
+    assert fac.flash_fwd_launches == before + 1
+    ref, ref_lse = fac._flash_reference(uq, uk, uv, True, scale)
+    _close(out, ref, f32, "A unaligned d=%d" % d)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_f32_pipelined_kernel_on_fused_views_is_bit_identical():
+    """The f32 A' (3 x TF32, a ring of three stages where they fit) at
+    every tile that fits a block, D 64, 128 and 256, on slices of one
+    fused projection, causal and not: against its plain version at the
+    f32 bars, lse within 1e-3, and two runs bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels import autotune as at
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = torch.float32
+    limit = at.smem_limit(torch.device("cuda"))
+    for d in (64, 128, 256):
+        q, k, v = _fused_qkv((2, 384, 3, d), f32, seed=170 + d)
+        scale = d ** -0.5
+        for bq, bk in fac._PIPELINED_BLOCKS:
+            if fac.pipelined_smem_bytes(d, bq, bk, f32) > limit:
+                continue
+            for causal in (False, True):
+                out, lse = fac._launch_pipelined(q, k, v, causal, scale,
+                                                 True, bq, bk)
+                again = fac._launch_pipelined(q, k, v, causal, scale, True,
+                                              bq, bk)
+                torch.cuda.synchronize()
+                what = "f32 A' d=%d %s causal=%s" % (d, (bq, bk), causal)
+                ref, ref_lse = fac._flash_tc_reference(q, k, v, causal,
+                                                       scale, bq, bk)
+                _close(out, ref, f32, what)
+                torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0,
+                                           msg=what)
+                assert torch.equal(out, again[0]), what
+                assert torch.equal(lse, again[1]), what
