@@ -38,10 +38,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               its device ms beside SDPA's f32 one and its 3 x TF32 and FMA
               bounds (``check_f32_fwd_tiles``).
               ``checks_ce``: the cross-entropy kernels E1 (logsumexp), E2
-              / E3 (fused softmax-CE forward / backward) and the row
-              softmax F at (8192, 50304) bf16, E1-E3
-              also at a small shape with out-of-range and ignored labels,
-              F also at (8, 50304) and (8192, 1024).  ``checks_pipelined``:
+              / E3 (fused softmax-CE forward / backward) at (8192, 50304)
+              bf16 and at a small shape with out-of-range and ignored
+              labels.  ``checks_softmax``: the row softmax F at (8192,
+              1024), (16384, 1024), (8, 50304) and (8192, 50304) in bf16
+              and at (8192, 1024) in f32 and fp16, three runs of each
+              bit-identical (``check_softmax``).  ``checks_pipelined``:
               kernel A' (the TMA-fed tensor-core kernel in bf16 and fp16,
               3 x TF32 in f32) at each of its (block_q, block_k)
               instantiations against its plain version, lse included, at
@@ -55,23 +57,45 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               on one input that must be bit-identical
               (``check_pipelined_repeats``).
 3. serve    — GPT-2 345M (seeded random weights, AMP O2 bf16) through the
-              slotted DecodeEngine (8 slots, max_len 1024) and the
-              continuous-batching scheduler: 12 greedy requests of 128
-              prompt tokens and 32 new tokens, once with the default
+              slotted DecodeEngine (``paged=False``, 8 slots, max_len
+              1024) and the continuous-batching scheduler: 12 greedy
+              requests of 128 prompt tokens (64 shared by all, 64 of
+              each one's own) and 32 new tokens, once with the default
               flags and once with ``use_pallas_norm`` on; the tensor-core
               forward on every prefill.  Launch counters are reset just
               before each run and read after.
+3a. serve_paged — the same traffic through the paged engine (the
+              default pool: 128 pages of 64 rows, chunks of 64), each
+              LayerNorm route: tokens/s, TTFT and TPOT p50, prefix hits
+              (the second wave of 4 maps the shared page), copies on
+              write, peak pages and decode steps; kernel B (2L + 1) times
+              a forward (chunks and decode steps) under
+              ``use_pallas_norm``, no flash kernel (paged attention is
+              plain torch, as in the JAX package); then decode_profile
+              of the paged decode step, each route.
+3b. serve_paged_tight — the same with a pool of TIGHT_PAGES (17) pages:
+              at least one request is preempted and recomputed, and
+              every request ends by length.
 4. decode_profile — host and device time of a batched decode step.
-5. parity   — one 128-token prompt: the card's last-position logits
-              (kernel path, bf16) against the same weights on the CPU in
-              f32 (plain path); ``parity_pinned``: the same prefill under
+5. parity   — one 128-token prompt (the parity phases take 12 prompts
+              with no tokens in common, not the serve traffic's): the
+              card's last-position logits (kernel path, bf16) against
+              the same weights on the CPU in f32 (plain path);
+              ``parity_pinned``: the same prefill under
               ``FLAGS_autotune_pin=PIN_A_PRIME``, A' (64 x 64) on every
               layer.
 6. decode_parity — 8 slots of ragged prompts, a few batched decode steps
               on the card and on the CPU, logits held at every step, for
               each LayerNorm route.
-7. serve_compare — where the two serve runs' greedy tokens part, the
-              CPU's logit gap between the two tokens, held small.
+6a. paged_parity — the paged engine on the card against the port's
+              CPU f32 paged engine: a prefix-hit admission whose chunk
+              attends a page it did not compute, one copy-on-write of a
+              live tail page, 4 decode steps; logits held at every
+              point, for each LayerNorm route.
+7. serve_compare — where two serve runs' greedy tokens part (the two
+              LayerNorm routes; paged against slotted under each route;
+              the tight pool against the roomy one), the CPU's logit gap
+              between the two tokens, held small.
 8. train    — bench.py's training step through ``jit.TrainStep``: GPT-2
               345M (the serve run's weights, dropout 0), AMP O2 bf16,
               AdamW, the label-shift criterion, one seeded (8, 1024)
@@ -1349,13 +1373,12 @@ def time_kernel(torch, row, name, fn, pattern, reps=5, inner=10):
 
 
 def check_ce(torch, ce_cuda, norm_cuda, flags):
-    """E1, E2, E3 and F against their plain versions on the card, bf16.
+    """E1, E2 and E3 against their plain versions on the card, bf16.
     At the training shape (8192, 50304), with the times of each kernel,
     its plain version and its PyTorch yardstick.  At (64, 1024) with
     labels out of range: the kernels clamp them as the plain versions'
     clipped labels read; then ``cross_entropy`` under each flag against
-    the plain route, ignored labels included, loss and gradient.  F also
-    at (8, 50304) and (8192, 1024)."""
+    the plain route, ignored labels included, loss and gradient."""
     import torch.nn.functional as tF
     from paddle_tpu_torch.nn import functional as F
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1459,32 +1482,84 @@ def check_ce(torch, ce_cuda, norm_cuda, flags):
             raise AssertionError("cross_entropy under %s against the plain "
                                  "route: %r" % (flag, small))
 
-    # F: the training-logits shape, a few long rows, the hidden width
-    soft = []
-    for r, f in ((n, v), (8, v), (n, 1024)):
-        xf = x[:r, :f].contiguous()
-        got = norm_cuda.softmax_pallas(xf)
-        ref = norm_cuda._softmax_reference(xf)
-        torch.cuda.synchronize()
-        err, rms, ok = within(got, ref, CE_ULP_REL, CE_RMS_FRAC)
-        if not ok:
-            raise AssertionError("softmax_fwd (%d, %d): err %g (ref rms %g)"
-                                 % (r, f, err, rms))
-        del got, ref
-        row = {"shape": [r, f], "max_abs_err": err}
-        for part, fn in (("kernel", lambda: norm_cuda.softmax_pallas(xf)),
-                         ("plain",
-                          lambda: norm_cuda._softmax_reference(xf)),
-                         ("library", lambda: torch.softmax(xf, -1))):
-            time_kernel(torch, row, part, fn,
-                        "softmax_fwd_kernel" if part == "kernel" else None)
-        row["bound_ms"], row["bound_by"] = ce_bound(2 * r * f * 2, r * f, 5)
-        soft.append(row)
-    out["softmax_fwd"] = soft
     out["small"] = small
     del x, y, g, r_nll, r_lse
     torch.cuda.empty_cache()
     return out
+
+
+# kernel F's shapes: the hidden width at 8192 and 16384 rows (the
+# register plan, a warp a row), a few and many rows of the training
+# logits (the staged kernel), and the hidden width in f32 and fp16
+SOFTMAX_CASES = (((8192, 1024), "bfloat16"), ((16384, 1024), "bfloat16"),
+                 ((8, 50304), "bfloat16"), ((8192, 50304), "bfloat16"),
+                 ((8192, 1024), "float32"), ((8192, 1024), "float16"))
+
+
+# one turn of a timing ring moves at least this many bytes, four times
+# the H100's 50 MB L2
+L2_COLD_BYTES = 200 * 10**6
+
+
+def cold_ring(fn, x):
+    """A callable that applies ``fn`` to copies of ``x`` in turn and holds
+    the newest outputs, with enough copies that one turn of inputs and
+    outputs moves L2_COLD_BYTES: every call then reads its input from HBM
+    and writes its output to fresh lines, as the bound counts, and none
+    finds them in L2 from an earlier call.  Returns (callable, copies)."""
+    import collections
+    copies = max(1, -(-L2_COLD_BYTES // (2 * x.numel() * x.element_size())))
+    xs = [x] + [x.clone() for _ in range(copies - 1)]
+    outs = collections.deque(maxlen=copies)
+    turn = [0]
+
+    def call():
+        outs.append(fn(xs[turn[0] % copies]))
+        turn[0] += 1
+    return call, copies
+
+
+def check_softmax(torch, norm_cuda, cases=SOFTMAX_CASES, repeats=3):
+    """Kernel F against its plain version on the card at each (shape,
+    dtype) of ``cases`` (x = 2 N(0, 1) from a seeded generator): within
+    one ulp of |ref| in the dtype plus 1/64 of its RMS, ``repeats`` runs
+    on one input bit-identical, and the device and event ms of the
+    kernel, the plain version and ``torch.softmax`` beside the bound
+    (x read once, the output written once; 5 f32 operations an
+    element), each timed over a ``cold_ring`` of copies of x so that no
+    call finds its data in L2."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for (r, f), dt in cases:
+        dtype = getattr(torch, dt)
+        x = (2.0 * torch.randn((r, f), generator=gen, device="cuda")).to(
+            dtype)
+        runs = [norm_cuda.softmax_pallas(x) for _ in range(repeats)]
+        ref = norm_cuda._softmax_reference(x)
+        torch.cuda.synchronize()
+        err, rms, ok = within(runs[0], ref, ULP_REL[dt], CE_RMS_FRAC)
+        same = all(torch.equal(runs[0], o) for o in runs[1:])
+        if not ok or not same:
+            raise AssertionError("softmax_fwd %s %s: err %g (ref rms %g), "
+                                 "%d runs bit-identical: %s"
+                                 % ((r, f), dt, err, rms, repeats, same))
+        del runs, ref
+        row = {"shape": [r, f], "dtype": dt, "max_abs_err": err,
+               "runs_bit_identical": repeats}
+        for part, fn in (("kernel", norm_cuda.softmax_pallas),
+                         ("plain", norm_cuda._softmax_reference),
+                         ("library", lambda t: torch.softmax(t, -1))):
+            call, row["timed_copies"] = cold_ring(fn, x)
+            time_kernel(torch, row, part, call,
+                        "softmax_fwd_kernel" if part == "kernel" else None)
+            del call
+        row["bound_ms"], row["bound_by"] = ce_bound(
+            2 * r * f * x.element_size(), r * f, 5)
+        row["bound_share"] = row["bound_ms"] / row["kernel_device_ms"]
+        rows.append(row)
+        del x
+    torch.cuda.empty_cache()
+    return rows
 
 
 def train_model(torch, base, amp):
@@ -2227,6 +2302,156 @@ def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags):
     return line, [results[k].tokens for k in sorted(results)]
 
 
+# serve_paged_tight's pool: each request reaches 160 tokens (3 pages of
+# 64, the first one shared), so 8 running requests need 17 pages once the
+# shared page is registered; the first wave of 8 admits together and
+# shares nothing, so this pool preempts, and every request still ends by
+# length (smaller pools preempt some requests past max_preemptions)
+TIGHT_PAGES = 17
+
+
+def serve_paged(torch, engine, prompts, use_norm_kernel, counters, flags,
+                phase="serve_paged"):
+    """The serve traffic through the paged engine and the scheduler's
+    chunked prefill: launch counts from 0 just before the run, read just
+    after; B (2L + 1) times a forward (prefill chunks and decode steps)
+    under ``use_pallas_norm``, no flash kernel (paged attention is plain
+    torch, as in the JAX package), every request 32 tokens by length."""
+    from paddle_tpu_torch.serving import ContinuousBatchingScheduler, Request
+    flags.set_flags({"use_pallas_norm": use_norm_kernel})
+    engine.reset()
+    engine.reseed(0)
+    engine.cow_copies = engine.pages_used_peak = 0
+    sched = ContinuousBatchingScheduler(engine)
+    for p in prompts:
+        sched.submit(Request(prompt=p, max_new_tokens=32, temperature=0.0))
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    results = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    flags.set_flags({"use_pallas_norm": False})
+    if len(results) != len(prompts) or any(
+            len(r.tokens) != 32 or r.finish_reason != "length"
+            for r in results.values()):
+        raise AssertionError("%s: unexpected results %r" % (phase, {
+            k: (len(r.tokens), r.finish_reason)
+            for k, r in results.items()}))
+    layers = engine.model.config.num_hidden_layers
+    forwards = sched.prefill_chunks_total + sched.decode_steps_total
+    want = {k: 0 for k in launches}
+    want["layer_norm_fwd"] = ((2 * layers + 1) * forwards
+                              if use_norm_kernel else 0)
+    expect_launches(launches, want, phase)
+    toks = sum(len(r.tokens) for r in results.values())
+    line = {
+        "phase": phase, "use_pallas_norm": use_norm_kernel,
+        "num_pages": engine.num_pages, "page_size": engine.page_size,
+        "prefill_chunk": engine.prefill_chunk,
+        "requests": len(results), "generated_tokens": toks,
+        "decode_steps": sched.decode_steps_total,
+        "prefill_chunks": sched.prefill_chunks_total, "wall_s": wall,
+        "tokens_per_s": toks / wall,
+        "ttft_p50_ms": 1e3 * statistics.median(
+            r.ttft for r in results.values() if r.ttft > 0),
+        "tpot_p50_ms": 1e3 * statistics.median(
+            r.tpot for r in results.values()),
+        "prefix_hit_tokens": sum(r.prefix_hit_tokens
+                                 for r in results.values()),
+        "prefix_hit_pages": sched.prefix_hit_pages,
+        "cow_copies": engine.cow_copies,
+        "peak_pages_used": engine.pages_used_peak,
+        "preemptions": sched.preemptions_total,
+        "kv_pool_bytes": engine.kv_pool_bytes(),
+        "kv_bytes_per_token": engine.kv_bytes_per_token(),
+        "launches": {k: v for k, v in launches.items() if v}}
+    emit(line)
+    return line, [results[k].tokens for k in sorted(results)]
+
+
+def paged_parity(torch, engine, cpu_model, prompt, flags, norm_cuda,
+                 steps=4):
+    """The card's paged engine (bf16, kernels) against the port's CPU f32
+    paged engine on one sequence, logits held within LOGIT_TOL at every
+    point: request A (100 tokens, two chunks) into slot 0; request B,
+    A's first 64 tokens and 40 of its own, into slot 1, whose chunk
+    attends A's page 0, which it did not compute; request C, A again
+    once A's prefill is done, into slot 2: it maps A's full page and its
+    live, partly filled tail page (99 tokens, capped at n - 1), so its
+    one 1-token chunk copies that page first (one copy-on-write); then
+    ``steps`` decode steps of the three, both fed the CPU's greedy
+    tokens.  Once per LayerNorm route."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    own = np.random.default_rng(5).integers(0, 50257, (40,)).astype(np.int32)
+    reqs = [prompt[:100], np.concatenate([prompt[:64], own]), prompt[:100]]
+    n = engine.num_slots
+    active = [i < len(reqs) for i in range(n)]
+    greedy = ([0.0] * n, [0] * n, [1.0] * n)
+
+    def admit(eng):
+        out, shared = [], []
+        for i, ids in enumerate(reqs):
+            task = eng.prefill_begin(i, ids, temperature=0.0)
+            while not eng.prefill_step(task):
+                pass
+            out.append(task.last_logits.float())
+            shared.append(task.shared_tokens)
+        return out, shared
+
+    cpu_engine = DecodeEngine(cpu_model, num_slots=n, max_len=engine.max_len,
+                              num_pages=16, device="cpu")
+    pre, cpu_shared = admit(cpu_engine)
+    cpu_logits = [torch.stack(pre)]
+    toks = np.zeros(n, np.int32)
+    toks[:len(reqs)] = [int(lg.argmax()) for lg in pre]
+    inputs = []
+    for _ in range(steps):
+        inputs.append(toks)
+        toks, lg = cpu_engine.decode(toks, active, *greedy)
+        cpu_logits.append(lg[:len(reqs)].float())
+    if cpu_shared != [0, 64, 99] or cpu_engine.cow_copies != 1:
+        raise AssertionError("paged parity (CPU): shared %r, cow copies %d"
+                             % (cpu_shared, cpu_engine.cow_copies))
+    del cpu_engine
+    lines = []
+    for use_norm in (False, True):
+        flags.set_flags({"use_pallas_norm": use_norm})
+        engine.reset()
+        engine.cow_copies = 0
+        ln_before = norm_cuda.layer_norm_fwd_launches
+        pre, shared = admit(engine)
+        card = [torch.stack(pre)]
+        for t in inputs:
+            card.append(engine.decode(t, active, *greedy)[1][:len(reqs)])
+        errs = [float((c.float().cpu() - r).abs().max())
+                for c, r in zip(card, cpu_logits)]
+        ln_launched = norm_cuda.layer_norm_fwd_launches - ln_before
+        flags.set_flags({"use_pallas_norm": False})
+        line = {"phase": "paged_parity", "use_pallas_norm": use_norm,
+                "prompt_lens": [len(r) for r in reqs],
+                "shared_tokens": shared, "cow_copies": engine.cow_copies,
+                "decode_steps": steps, "max_abs_err_prefill": errs[0],
+                "max_abs_err_per_step": errs[1:], "tolerance": LOGIT_TOL,
+                "layer_norm_fwd_launches": ln_launched}
+        emit(line)
+        lines.append(line)
+        if shared != cpu_shared or engine.cow_copies != 1:
+            raise AssertionError("paged parity: shared %r, cow copies %d"
+                                 % (shared, engine.cow_copies))
+        if max(errs) > LOGIT_TOL:
+            raise AssertionError("paged parity (use_pallas_norm=%s): card "
+                                 "vs CPU logits err %g > %g"
+                                 % (use_norm, max(errs), LOGIT_TOL))
+        if bool(ln_launched) != use_norm:
+            raise AssertionError("paged parity: layer_norm_fwd launched %d "
+                                 "times with use_pallas_norm=%s"
+                                 % (ln_launched, use_norm))
+    engine.reset()
+    return lines
+
+
 def decode_parity(torch, engine, cpu_model, prompts, flags, norm_cuda,
                   steps=4):
     """Every slot prefilled with a prompt of its own length (128 down to
@@ -2239,7 +2464,7 @@ def decode_parity(torch, engine, cpu_model, prompts, flags, norm_cuda,
     ctx = [prompts[i][:128 - 4 * i] for i in range(n)]
     greedy = ([0.0] * n, [0] * n, [1.0] * n)
     cpu_engine = DecodeEngine(cpu_model, num_slots=n, max_len=engine.max_len,
-                              device="cpu")
+                              paged=False, device="cpu")
     first, pre = np.zeros(n, np.int32), []
     for i, c in enumerate(ctx):
         first[i], lg = cpu_engine.prefill(i, c, temperature=0.0)
@@ -2277,12 +2502,15 @@ def decode_parity(torch, engine, cpu_model, prompts, flags, norm_cuda,
                                  % (ln_launched, use_norm))
 
 
-def serve_compare(torch, cpu_model, prompts, toks_a, toks_b):
-    """Where the greedy tokens of the two LayerNorm routes part: for each
-    request that parts, the first step, the two tokens, and the gap
-    between them in the CPU's f32 logits at that step.  Both card routes
-    hold within LOGIT_TOL of the CPU (decode_parity), so rounding can part
-    them only where that gap is below 2 * LOGIT_TOL; a wider gap fails."""
+def serve_compare(torch, cpu_model, prompts, toks_a, toks_b,
+                  what="layer_norm_routes"):
+    """Where the greedy tokens of two card runs of one traffic part (the
+    two LayerNorm routes; paged and slotted; a tight pool and a roomy
+    one): for each request that parts, the first step, the two tokens,
+    and the gap between them in the CPU's f32 logits at that step.  Both
+    runs hold within LOGIT_TOL of the CPU (decode_parity, paged_parity),
+    so rounding can part them only where that gap is below 2 * LOGIT_TOL;
+    a wider gap fails."""
     parts = []
     for i, (a, b) in enumerate(zip(toks_a, toks_b)):
         diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
@@ -2297,18 +2525,20 @@ def serve_compare(torch, cpu_model, prompts, toks_a, toks_b):
                       "tokens": [int(a[j]), int(b[j])],
                       "cpu_gap": abs(float(lg[int(a[j])] - lg[int(b[j])])),
                       "cpu_top2_margin": float(top2[0] - top2[1])})
-    emit({"phase": "serve_compare", "same_greedy_tokens": not parts,
-          "parted": parts, "gap_limit": 2 * LOGIT_TOL})
+    emit({"phase": "serve_compare", "compared": what,
+          "same_greedy_tokens": not parts, "parted": parts,
+          "gap_limit": 2 * LOGIT_TOL})
     wide = [p for p in parts if p["cpu_gap"] >= 2 * LOGIT_TOL]
     if wide:
-        raise AssertionError("the LayerNorm routes part where the CPU's gap "
-                             "is wide: %r" % (wide,))
+        raise AssertionError("%s part where the CPU's gap is wide: %r"
+                             % (what, wide))
 
 
 def decode_profile(torch, engine, use_norm_kernel, flags, steps=5):
     """Wall time of a batched decode step (all 8 slots active, host clock
     around a synchronised step) beside the card's kernel time in it
-    (profiler trace): the device's busy share of a step."""
+    (profiler trace): the device's busy share of a step.  A paged engine
+    maps the pages its appends need as it goes."""
     from torch.profiler import ProfilerActivity, profile
     flags.set_flags({"use_pallas_norm": use_norm_kernel})
     args = (np.zeros(engine.num_slots, np.int32), [True] * engine.num_slots,
@@ -2332,6 +2562,7 @@ def decode_profile(torch, engine, use_norm_kernel, flags, steps=5):
                   if float(getattr(e, "self_device_time_total", 0.0)) > 0)
     flags.set_flags({"use_pallas_norm": False})
     line = {"phase": "decode_profile", "use_pallas_norm": use_norm_kernel,
+            "engine": "paged" if engine.paged else "slotted",
             "step_wall_ms": wall_ms,
             "step_device_ms": dev_us / steps / 1e3 if dev_us else None,
             "device_kernels_per_step": kernels / steps,
@@ -2430,6 +2661,8 @@ def main():
     t0 = time.perf_counter()
     ce_rows = check_ce(torch, ce_cuda, norm_cuda, flags)
     emit({"phase": "checks_ce", **ce_rows})
+    soft = check_softmax(torch, norm_cuda)
+    emit({"phase": "checks_softmax", "rows": soft})
     seconds["checks_ce"] = time.perf_counter() - t0
 
     # -- serve: GPT-2 345M, seeded weights, AMP O2 bf16 -------------------
@@ -2439,10 +2672,19 @@ def main():
     cpu_model.eval()
     model = amp.decorate(copy.deepcopy(cpu_model), level="O2",
                          dtype="bfloat16")
-    engine = DecodeEngine(model, num_slots=8, max_len=1024, seed=0)
+    engine = DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
+                          paged=False)
+    # the parity phases take 128-token prompts with nothing in common, so
+    # a decode that read another slot's rows could not pass by chance
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, 50257, (128,)).astype(np.int32)
-               for _ in range(12)]
+    own_prompts = [rng.integers(0, 50257, (128,)).astype(np.int32)
+                   for _ in range(12)]
+    # the serve traffic: 64 tokens every request shares (one full page of
+    # the paged engine) and 64 of its own
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, 50257, (64,))
+    prompts = [np.concatenate([shared, rng.integers(0, 50257, (64,))])
+               .astype(np.int32) for _ in range(12)]
     # warm-up (library handles, allocator) outside the counted runs
     engine.prefill(0, prompts[0], temperature=0.0)
     engine.decode(np.zeros(8, np.int32), [True] * 8, [0.0] * 8, [0] * 8,
@@ -2450,28 +2692,55 @@ def main():
     torch.cuda.synchronize()
     emit({"phase": "setup", "seconds": time.perf_counter() - t0,
           "params": sum(p.numel() for p in model.parameters())})
+    counters = Counters(fac, norm_cuda, ce_cuda)
     run_default, toks_default = serve(torch, engine, prompts, False, fac,
                                       norm_cuda, flags)
     run_norm, toks_norm = serve(torch, engine, prompts, True, fac,
                                 norm_cuda, flags)
-    for t in toks_default + toks_norm:
-        if not (0 <= int(t.min()) and int(t.max()) < cfg.vocab_size):
-            raise AssertionError("token ids out of range")
     for use_norm in (False, True):
         decode_profile(torch, engine, use_norm, flags)
+
+    # -- serve_paged: the same traffic through the paged engine -----------
+    t1 = time.perf_counter()
+    paged_engine = DecodeEngine(model, num_slots=8, max_len=1024, seed=0)
+    paged_engine.prefill(0, prompts[0], temperature=0.0)
+    paged_engine.decode(np.zeros(8, np.int32), [True] * 8, [0.0] * 8,
+                        [0] * 8, [1.0] * 8)
+    run_paged, toks_paged = serve_paged(torch, paged_engine, prompts, False,
+                                        counters, flags)
+    run_paged_norm, toks_paged_norm = serve_paged(
+        torch, paged_engine, prompts, True, counters, flags)
+    for use_norm in (False, True):
+        decode_profile(torch, paged_engine, use_norm, flags)
+    if min(run_paged["prefix_hit_tokens"],
+           run_paged_norm["prefix_hit_tokens"]) <= 0:
+        raise AssertionError("serve_paged: no prefix hit")
+    tight_engine = DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
+                                num_pages=TIGHT_PAGES)
+    run_tight, toks_tight = serve_paged(torch, tight_engine, prompts, True,
+                                        counters, flags,
+                                        phase="serve_paged_tight")
+    del tight_engine
+    if run_tight["preemptions"] < 1:
+        raise AssertionError("serve_paged_tight: no request was preempted")
+    for t in toks_default + toks_norm + toks_paged + toks_paged_norm + \
+            toks_tight:
+        if not (0 <= int(t.min()) and int(t.max()) < cfg.vocab_size):
+            raise AssertionError("token ids out of range")
+    seconds["serve_paged"] = time.perf_counter() - t1
 
     # -- parity: card (kernels, bf16) vs CPU (plain, f32) -----------------
     flags.set_flags({"use_pallas_norm": True})
     engine.reset()
     before = (fac.flash_fwd_tc_launches, norm_cuda.layer_norm_fwd_launches)
-    _tok, card_logits = engine.prefill(0, prompts[0], temperature=0.0)
+    _tok, card_logits = engine.prefill(0, own_prompts[0], temperature=0.0)
     card_logits = card_logits.float().cpu()
     if (fac.flash_fwd_tc_launches == before[0]
             or norm_cuda.layer_norm_fwd_launches == before[1]):
         raise AssertionError("parity prefill did not run both kernels")
     flags.set_flags({"use_pallas_norm": False})
     with torch.no_grad():
-        cpu_logits = cpu_model(torch.as_tensor(prompts[0][None]))[0, -1]
+        cpu_logits = cpu_model(torch.as_tensor(own_prompts[0][None]))[0, -1]
     if not bool(torch.isfinite(card_logits).all()):
         raise AssertionError("card logits are not finite")
     err = float((card_logits - cpu_logits).abs().max())
@@ -2485,13 +2754,13 @@ def main():
         raise AssertionError("card vs CPU logits disagree: err %g, same "
                              "token %s, margin %g" % (err, same, margin))
     # the same prefill with A' pinned on every layer, counts from 0
-    counters = Counters(fac, norm_cuda, ce_cuda)
     flags.set_flags({"autotune_pin": PIN_A_PRIME})
     engine.reset()
     torch.cuda.synchronize()
     counters.reset()
     try:
-        _tok, pinned_logits = engine.prefill(0, prompts[0], temperature=0.0)
+        _tok, pinned_logits = engine.prefill(0, own_prompts[0],
+                                             temperature=0.0)
     finally:
         flags.set_flags({"autotune_pin": ""})
     pinned_logits = pinned_logits.float().cpu()
@@ -2510,11 +2779,22 @@ def main():
             or not (same or margin < LOGIT_TOL):
         raise AssertionError("pinned prefill vs CPU logits: err %g, same "
                              "token %s" % (err, same))
-    decode_parity(torch, engine, cpu_model, prompts, flags, norm_cuda)
+    decode_parity(torch, engine, cpu_model, own_prompts, flags,
+                  norm_cuda)
     serve_compare(torch, cpu_model, prompts, toks_default, toks_norm)
-    del engine, model, cpu_model
+    t1 = time.perf_counter()
+    paged_parity(torch, paged_engine, cpu_model, own_prompts[0], flags,
+                 norm_cuda)
+    serve_compare(torch, cpu_model, prompts, toks_default, toks_paged,
+                  "paged_vs_slotted")
+    serve_compare(torch, cpu_model, prompts, toks_norm, toks_paged_norm,
+                  "paged_vs_slotted_use_pallas_norm")
+    serve_compare(torch, cpu_model, prompts, toks_paged_norm, toks_tight,
+                  "tight_vs_roomy_pool")
+    seconds["serve_paged"] += time.perf_counter() - t1
+    del engine, paged_engine, model, cpu_model
     torch.cuda.empty_cache()
-    seconds["serve"] = time.perf_counter() - t0
+    seconds["serve"] = time.perf_counter() - t0 - seconds["serve_paged"]
 
     # -- train: bench.py's step, GPT-2 345M, AMP O2 bf16, AdamW -----------
     t0 = time.perf_counter()
@@ -2597,6 +2877,9 @@ def main():
     parity_by = {next(iter(line["flags"]), "default"): line["launches"]
                  for line in parity}
     tc_launches = {"serve": run_default["launches"]["flash_fwd_tc"],
+                   # paged prefill attends through plain paged attention
+                   "serve_paged": run_paged["launches"].get(
+                       "flash_fwd_tc", 0),
                    "train": run_train["launches"]["flash_fwd_tc"],
                    "train_long": run_long["launches"]["flash_fwd_tc"],
                    "train_fp16": run_fp16[0]["launches"]["flash_fwd_tc"]}
@@ -2716,7 +2999,6 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"]}
-    soft = ce_rows["softmax_fwd"]
     split_err = max(long_plain_row["split_dq_err"],
                     long_plain_row["split_dk_err"],
                     long_plain_row["split_dv_err"])
@@ -2829,6 +3111,9 @@ def main():
          "launches": run_train_norm["launches"]["layer_norm_fwd"],
          "launches_by_path": {
              "serve_use_pallas_norm": run_norm["launches"]["layer_norm_fwd"],
+             "serve_paged_use_pallas_norm":
+                 run_paged_norm["launches"]["layer_norm_fwd"],
+             "serve_paged_tight": run_tight["launches"]["layer_norm_fwd"],
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_fwd"]},
@@ -2905,9 +3190,13 @@ def main():
          "bound_ms": soft[0]["bound_ms"], "bound_by": soft[0]["bound_by"],
          "library_ms": soft[0]["library_ms"],
          "library_device_ms": soft[0]["library_device_ms"],
+         "design": "rows in registers (a warp, 128 or 256 threads a row "
+                   "up to F = 8192), one (max, sum) merge; staged rows "
+                   "past that",
          "at_other_shapes": [{k: r[k] for k in (
-             "shape", "kernel_ms", "kernel_device_ms", "plain_ms",
-             "bound_ms", "library_ms")} for r in soft[1:]]}]})
+             "shape", "dtype", "kernel_ms", "kernel_device_ms", "plain_ms",
+             "plain_device_ms", "bound_ms", "bound_share", "library_ms",
+             "library_device_ms")} for r in soft[1:]]}]})
     tune_dir.cleanup()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

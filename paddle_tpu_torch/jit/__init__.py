@@ -43,6 +43,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
 
 from ..core.device import resolve_device
 from ..optimizer.lr import LRScheduler
@@ -217,8 +218,14 @@ class TrainStep:
 
     @torch.no_grad()
     def _write_model_params(self):
-        for g0, g1, buf, _names in self._flat_groups:
+        for g0, g1, buf, names in self._flat_groups:
             buf.copy_(self.params[_FLAT_KEY][g0:g1])
+            # a parameter repointed by ``p.data = view`` keeps its own
+            # version counter, which a write through the buffer leaves
+            # alone: bump it, so readers that key on ``_version`` (the
+            # serving engine's prefix-cache purge) see the step
+            for n in names:
+                increment_version(self._model_params[n])
         for n, p in self._model_params.items():
             if n in self.params:
                 p.copy_(self.params[n])

@@ -3,7 +3,8 @@
 
 - a **registry** of kernel families (here flash_fwd, flash_bwd,
   flash_bwd_dq, flash_bwd_dkv, registered by
-  :mod:`.flash_attention_cuda`), each exposing the per-key candidate list
+  :mod:`.flash_attention_cuda`, and decode_attn_paged, registered by
+  :mod:`.decode_attention`), each exposing the per-key candidate list
   (variant name + config dict; candidate [0] is ALWAYS the hand-tuned
   default), a runner that executes one candidate on synthetic data, and
   optionally ``smem_bytes``, the dynamic shared memory a candidate's
@@ -482,21 +483,29 @@ def report() -> Dict[str, Dict[str, dict]]:
 
 def _import_kernel_families():
     """Family registration happens at kernel-module import."""
+    from . import decode_attention  # noqa: F401
     from . import flash_attention_cuda  # noqa: F401
 
 
 def standard_keys() -> List[tuple]:
     """(family, key) pairs for the GPT-2 345M bench shapes: what the CLI
-    warms by default.  The JAX package's other families (ce_lse, ln,
-    decode_attn, decode_attn_paged, mp_overlap) are not registered here
-    (ROADMAP §C)."""
+    warms by default — the four flash families at the training shape and
+    the paged decode attention at the serving shape (8 slots, pages of
+    64, 16 a slot, a pool for all 8 at full depth).  The JAX package's
+    other families (ce_lse, ln, decode_attn, mp_overlap) and its
+    quantized, speculative and tensor-parallel paged keys are not
+    registered here (ROADMAP §C)."""
     _import_kernel_families()
+    from . import decode_attention as dat
     from . import flash_attention_cuda as fac
     dtype = "bfloat16" if platform() == "gpu" else "float32"
     return [(fam_name, fac.autotune_key(b=8, s=1024, sk=1024, h=16, d=64,
                                         dtype=dtype, causal=True))
             for fam_name in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
-                             "flash_bwd_dkv")]
+                             "flash_bwd_dkv")] + [
+        ("decode_attn_paged", dat.paged_autotune_key(
+            slots=8, pages=128, page_size=64, max_pages=16, h=16, d=64,
+            qlen=1, dtype=dtype))]
 
 
 def warm(pairs=None, verbose: bool = True) -> List[dict]:

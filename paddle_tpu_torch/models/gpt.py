@@ -138,19 +138,22 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(c.hidden_size, c.layer_norm_epsilon)
 
     def forward(self, input_ids, position_ids=None, cache=None):
-        from ..serving.cache import (DecodeView, SlottedKVCache,
+        from ..serving.cache import (DecodeView, PagedDecodeView,
+                                     PagedKVCache, SlottedKVCache,
                                      is_cache_view)
         b, s = input_ids.shape
         view, finalize = None, False
         if cache is not None:
+            # a bare cache means batched decode; the caller gets the
+            # advanced cache back
             if isinstance(cache, SlottedKVCache):
-                # a bare cache means batched decode; the caller gets the
-                # advanced cache back
                 cache, finalize = DecodeView(cache), True
+            elif isinstance(cache, PagedKVCache):
+                cache, finalize = PagedDecodeView(cache), True
             if not is_cache_view(cache):
-                raise TypeError("cache must be a SlottedKVCache or a "
-                                "serving cache view; got %r"
-                                % (type(cache).__name__,))
+                raise TypeError("cache must be a SlottedKVCache, a "
+                                "PagedKVCache or a serving cache view; got "
+                                "%r" % (type(cache).__name__,))
             view = cache
         if position_ids is None:
             if view is not None:
@@ -220,6 +223,27 @@ class GPTForCausalLM(nn.Module):
             batch_size, c.num_hidden_layers,
             max_len or c.max_position_embeddings, c.num_attention_heads,
             c.hidden_size // c.num_attention_heads,
+            w.dtype if dtype is None else convert_dtype(dtype),
+            w.device if device is None else device)
+
+
+    def gen_paged_cache(self, batch_size, dtype=None, max_len=None,
+                        page_size=64, device=None):
+        """A preallocated paged KV cache (``serving.cache.PagedKVCache``)
+        with a DENSE identity page table — slot ``i`` owns its own page
+        run, so model-level use needs no allocator (the serving engine
+        builds the pooled, shared layout through ``serving.pages``).
+        ``model(x, cache=paged)`` decodes through the page-gather
+        attention; capacity matches :meth:`gen_cache`."""
+        from ..core.dtype import convert_dtype
+        from ..serving.cache import PagedKVCache
+        c = self.config
+        w = self.gpt.wte.weight
+        max_len = int(max_len or c.max_position_embeddings)
+        return PagedKVCache.create_dense(
+            batch_size, c.num_hidden_layers, max_len, c.num_attention_heads,
+            c.hidden_size // c.num_attention_heads,
+            min(int(page_size), max_len),
             w.dtype if dtype is None else convert_dtype(dtype),
             w.device if device is None else device)
 

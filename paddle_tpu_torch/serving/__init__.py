@@ -1,24 +1,34 @@
-"""paddle_tpu_torch.serving — the slotted serving engine (port of
-``paddle_tpu.serving``): the slotted KV cache (:mod:`.cache`), the
-bucketed-prefill + batched-decode engine (:mod:`.engine`), the
-synchronous continuous-batching scheduler (:mod:`.scheduler`) and
-per-slot sampling (:mod:`.sampling`)."""
+"""paddle_tpu_torch.serving — the serving engine (port of
+``paddle_tpu.serving``): the slotted and paged KV caches
+(:mod:`.cache`), the page allocator (:mod:`.pages`), the engine with
+chunked prefill, prefix sharing and copy-on-write (:mod:`.engine`), the
+synchronous continuous-batching scheduler with recompute preemption
+(:mod:`.scheduler`) and per-slot sampling (:mod:`.sampling`).
+``engine_for`` and ``generate`` build paged engines unless given
+``paged=False``, as the JAX package's do."""
 from __future__ import annotations
 
 import numpy as np
 
-from .cache import DecodeView, PrefillView, SlottedKVCache, is_cache_view
-from .engine import DecodeEngine, InflightDecode, prefill_buckets_for
+from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
+                    PagedPrefillChunkView, PrefillView, SlottedKVCache,
+                    is_cache_view, paged_scatter)
+from .engine import (DecodeEngine, InflightDecode, PrefillTask,
+                     prefill_buckets_for)
+from .pages import PageAllocator, PagePoolExhausted, prompt_digest_chain
 from .sampling import TOP_K_MAX, sample
 from .scheduler import ContinuousBatchingScheduler, Request, RequestResult
 
-__all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "is_cache_view",
-           "DecodeEngine", "InflightDecode", "prefill_buckets_for",
-           "sample", "TOP_K_MAX", "ContinuousBatchingScheduler", "Request",
-           "RequestResult", "generate", "engine_for"]
+__all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
+           "PagedDecodeView", "PagedPrefillChunkView", "paged_scatter",
+           "is_cache_view", "PageAllocator", "PagePoolExhausted",
+           "prompt_digest_chain", "DecodeEngine", "InflightDecode",
+           "PrefillTask", "prefill_buckets_for", "sample", "TOP_K_MAX",
+           "ContinuousBatchingScheduler", "Request", "RequestResult",
+           "generate", "engine_for"]
 
-#: bound on cached engines per model: each holds two full preallocated
-#: (slots, layers, max_len, heads, head_dim) KV buffers
+#: bound on cached engines per model: each holds a full preallocated KV
+#: pool (two (slots, layers, max_len, heads, head_dim) buffers' worth)
 _MAX_CACHED_ENGINES = 4
 
 
@@ -27,7 +37,9 @@ def engine_for(model, num_slots=4, max_len=None, tp=1, device=None, **kw):
     same geometry reuse one engine (and its cache buffers).  At most
     :data:`_MAX_CACHED_ENGINES` geometries are kept (LRU).  The seed is not
     geometry: callers reseed the cached engine.  The engine reads the
-    model's live parameters, so training between calls is reflected."""
+    model's live parameters, so training between calls is reflected; a
+    reused paged engine drops its prefix cache when a parameter changed
+    (``DecodeEngine.refresh_state``)."""
     dev = str(device) if device is not None else None
     key = (int(num_slots), max_len if max_len is None else int(max_len),
            int(tp), dev, tuple(sorted(kw.items())))
@@ -38,6 +50,8 @@ def engine_for(model, num_slots=4, max_len=None, tp=1, device=None, **kw):
                            tp=tp, device=device, **kw)
         while len(cache) >= _MAX_CACHED_ENGINES:
             cache.pop(next(iter(cache)))
+    else:
+        eng.refresh_state()
     cache[key] = eng
     return eng
 

@@ -1,8 +1,28 @@
-"""The slotted KV cache and its views (port of ``paddle_tpu/serving/cache.py``:
-``SlottedKVCache``, ``DecodeView``, ``PrefillView``; unquantized only).
+"""The KV cache layouts and their views (port of
+``paddle_tpu/serving/cache.py``: ``SlottedKVCache``, ``DecodeView``,
+``PrefillView``, ``PagedKVCache``, ``paged_scatter``,
+``PagedDecodeView``, ``PagedPrefillChunkView``; unquantized only — the
+int8/fp8 pools wait for ``kv_dtype``, ROADMAP.md §A3).
+
+Slotted, per-slot contiguous:
 
     k, v    : (num_slots, layers, max_len, heads, head_dim)
     lengths : (num_slots,) int32            # valid prefix per slot
+
+Paged, a fixed pool of fixed-size pages plus a per-slot page table
+(vLLM's PagedAttention layout; :mod:`.pages` owns the host-side
+allocator):
+
+    k, v       : (num_pages + 1, layers, page_size, heads, head_dim)
+    page_table : (num_slots, max_pages) int64   # page ids per slot
+    lengths    : (num_slots,) int32
+
+**The sink page.**  The JAX scatter routes a write it must drop (chunk
+padding, an inactive decode lane, a row past the declared ``max_len``)
+to page id ``num_pages``, one past the pool, and XLA drops the
+out-of-range write.  PyTorch's index writes raise out of range instead,
+so the port's pool holds one page more: page ``num_pages`` is the sink.
+It is never mapped and never read; every dropped write lands there.
 
 **Updates in place.**  The JAX package donates the cache buffers to each
 compiled step and XLA aliases them input to output.  PyTorch runs
@@ -22,6 +42,10 @@ indices from a cursor.
 * :class:`PrefillView` — one right-padded sequence into one slot; plain
   causal attention over the bucket (nothing precedes it), through the
   CUDA flash-attention forward when the shapes allow.
+* :class:`PagedDecodeView` — batched over the page pool.
+* :class:`PagedPrefillChunkView` — one fixed-size chunk of one slot's
+  prompt, attending the slot's mapped past (shared prefix pages
+  included) and its own causal band through the paged attention.
 """
 from __future__ import annotations
 
@@ -29,7 +53,9 @@ import torch
 
 from ..core.device import resolve_device
 
-__all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "is_cache_view"]
+__all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
+           "PagedDecodeView", "PagedPrefillChunkView", "paged_scatter",
+           "is_cache_view"]
 
 
 class SlottedKVCache:
@@ -58,6 +84,112 @@ class SlottedKVCache:
         return ("SlottedKVCache(slots=%d, layers=%d, max_len=%d, heads=%d, "
                 "head_dim=%d, dtype=%s)" % (tuple(self.k.shape)
                                             + (self.k.dtype,)))
+
+
+class PagedKVCache:
+    """Block-structured cache state: a fixed pool of fixed-size KV pages
+    plus a per-slot page table (plain tensors, updated in place).
+    Unmapped page-table entries hold 0 — they gather page 0's rows,
+    which the length mask discards.  The pool holds ``num_pages`` pages
+    and the sink page after them (module docstring)."""
+
+    def __init__(self, k, v, page_table, lengths, declared_max_len=None):
+        self.k = k
+        self.v = v
+        self.page_table = page_table
+        self.lengths = lengths
+        # the DECLARED length budget, when tighter than the table's
+        # capacity (max_len % page_size != 0 leaves dead rows in the tail
+        # page)
+        self.declared_max_len = (None if declared_max_len is None
+                                 else int(declared_max_len))
+
+    @classmethod
+    def create(cls, num_pages, num_layers, page_size, num_heads, head_dim,
+               num_slots, max_pages, dtype=torch.float32, device=None):
+        """Zeroed buffers on ``device`` (None: the first card)."""
+        device = resolve_device(device)
+        shape = (int(num_pages) + 1, int(num_layers), int(page_size),
+                 int(num_heads), int(head_dim))
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((int(num_slots), int(max_pages)),
+                               dtype=torch.int64, device=device),
+                   torch.zeros((int(num_slots),), dtype=torch.int32,
+                               device=device))
+
+    @classmethod
+    def create_dense(cls, num_slots, num_layers, max_len, num_heads,
+                     head_dim, page_size, dtype=torch.float32, device=None):
+        """A pool with exactly one page set per slot, identity-mapped
+        (slot ``i`` owns pages ``[i*max_pages, (i+1)*max_pages)``) — the
+        allocator-free layout for model-level use (``gen_paged_cache``):
+        capacity matches the slotted cache, only the memory is paged."""
+        max_pages = -(-int(max_len) // int(page_size))
+        cache = cls.create(int(num_slots) * max_pages, num_layers,
+                           page_size, num_heads, head_dim, num_slots,
+                           max_pages, dtype, device)
+        table = torch.arange(int(num_slots) * max_pages, dtype=torch.int64,
+                             device=cache.k.device).reshape(
+                                 int(num_slots), max_pages)
+        return cls(cache.k, cache.v, table, cache.lengths,
+                   declared_max_len=int(max_len))
+
+    @property
+    def num_pages(self):
+        """Pages the allocator may hand out (the sink page excluded)."""
+        return int(self.k.shape[0]) - 1
+
+    @property
+    def page_size(self):
+        return int(self.k.shape[2])
+
+    @property
+    def max_pages(self):
+        return int(self.page_table.shape[1])
+
+    @property
+    def max_len(self):
+        cap = self.max_pages * self.page_size
+        return cap if self.declared_max_len is None \
+            else min(self.declared_max_len, cap)
+
+    def __repr__(self):
+        return ("PagedKVCache(pages=%d, layers=%d, page_size=%d, heads=%d, "
+                "head_dim=%d, slots=%d, max_pages=%d, dtype=%s)"
+                % ((self.num_pages,) + tuple(self.k.shape[1:])
+                   + tuple(self.page_table.shape) + (self.k.dtype,)))
+
+
+def paged_scatter(kc, vc, layer, table, pos, valid, k_new, v_new):
+    """Scatter ``k_new/v_new: (B, s, heads, head_dim)`` into page rows of
+    ``layer``, in place.
+
+    ``table: (B, max_pages)`` maps each lane's pages; ``pos: (B, s)`` are
+    global token positions; entries with ``valid`` False (inactive decode
+    lanes, chunk padding, rows past ``max_len``) — or positions past the
+    table — go to the sink page (module docstring), where the JAX
+    scatter drops them.  Distinct valid lanes never collide: the
+    allocator copy-on-writes any shared page before a write can target
+    it."""
+    page_id, row = _scatter_index(table, pos, valid, int(kc.shape[2]),
+                                  int(kc.shape[0]) - 1)
+    _write_rows(kc, vc, layer, page_id, row, k_new, v_new)
+
+
+def _scatter_index(table, pos, valid, page_size, sink):
+    """(page id, row in the page) of each write of :func:`paged_scatter`:
+    the same for every layer, so the views form it once a step."""
+    max_pages = int(table.shape[1])
+    page_idx = pos.long() // page_size
+    page_id = torch.gather(table, 1, page_idx.clamp(0, max_pages - 1))
+    page_id = torch.where(valid & (page_idx < max_pages), page_id, sink)
+    return page_id, pos.long() % page_size
+
+
+def _write_rows(kc, vc, layer, page_id, row, k_new, v_new):
+    kc[page_id, layer, row] = k_new.to(kc.dtype)
+    vc[page_id, layer, row] = v_new.to(vc.dtype)
 
 
 def is_cache_view(obj) -> bool:
@@ -194,4 +326,126 @@ class PrefillView(_CacheView):
 
     def finalize(self) -> SlottedKVCache:
         self.lengths[self.slot] = self.true_len
+        return self.cache
+
+
+class _PagedView(_CacheView):
+    """A view over the page pool: each layer appends through the sink-
+    page scatter and attends through the paged attention.  The write
+    indices, the attention's pre-append lengths and its variant are the
+    same for every layer, so they are formed once, at the first layer."""
+
+    def __init__(self, cache: PagedKVCache):
+        super().__init__(cache)
+        self.page_table = cache.page_table
+        self._step = None
+
+    def _table(self):
+        raise NotImplementedError
+
+    def _writes(self, s):
+        """(positions, valid mask, pre-append lengths) of ``s`` appends."""
+        raise NotImplementedError
+
+    def _append_attend(self, layer, q, k_new, v_new, scale):
+        from ..kernels.decode_attention import (paged_decode_attention,
+                                                resolve_pages_per_block)
+        table = self._table()
+        if self._step is None or self._step[0].shape[1] != q.shape[1]:
+            pos, valid, lengths = self._writes(int(q.shape[1]))
+            self._step = _scatter_index(
+                table, pos, valid, int(self.k.shape[2]),
+                int(self.k.shape[0]) - 1) + (
+                lengths, resolve_pages_per_block(q, self.k[:, layer], table))
+        page_id, row, lengths, blocks = self._step
+        _write_rows(self.k, self.v, layer, page_id, row, k_new, v_new)
+        return paged_decode_attention(q, self.k[:, layer], self.v[:, layer],
+                                      table, lengths, scale=scale,
+                                      pages_per_block=blocks)
+
+
+class PagedDecodeView(_PagedView):
+    """Batched decode over the paged pool: q/k/v arrive as
+    ``(num_slots, s, heads, head_dim)``; each slot's new tokens scatter
+    into its mapped pages at rows ``lengths[b] + j`` and attention
+    gathers only the slot's page-table row.  Unlike the slotted view,
+    writes from INACTIVE lanes are dropped (routed to the sink page): a
+    retired slot's stale table row may point at pages the allocator has
+    handed to another slot, so its lane must never write.  Appends at or
+    past ``max_len`` drop too, and lengths stop advancing there."""
+
+    def __init__(self, cache: PagedKVCache, active=None, max_len=None):
+        super().__init__(cache)
+        self.active = active
+        self.max_len = (int(max_len) if max_len is not None
+                        else int(cache.max_len))
+        self._steps = 0
+
+    def position_ids(self, batch, seq_len):
+        if batch != int(self.page_table.shape[0]):
+            raise ValueError(
+                "batched paged decode needs batch == num_slots (%d), got "
+                "%d — use PagedPrefillChunkView for single sequences"
+                % (self.page_table.shape[0], batch))
+        return (self.lengths[:, None]
+                + torch.arange(seq_len, dtype=torch.int32,
+                               device=self.lengths.device)[None, :])
+
+    def _table(self):
+        return self.page_table
+
+    def _writes(self, s):
+        self._steps = s
+        pos = self.position_ids(int(self.lengths.shape[0]), s)
+        valid = pos < self.max_len
+        if self.active is not None:
+            valid = valid & self.active[:, None]
+        return pos, valid, self.lengths
+
+    def finalize(self) -> PagedKVCache:
+        adv = torch.full_like(self.lengths, self._steps)
+        if self.active is not None:
+            adv = adv * self.active.to(adv.dtype)
+        torch.minimum(self.lengths + adv,
+                      torch.full_like(self.lengths, self.max_len),
+                      out=self.lengths)
+        return self.cache
+
+
+class PagedPrefillChunkView(_PagedView):
+    """One fixed-size prefill chunk of one slot's prompt: input is
+    ``(1, chunk)`` right-padded tokens, ``n_valid`` of them real, at
+    global positions ``n_before + j``.  Writes land in the slot's mapped
+    pages (the engine maps them on the host before the chunk runs);
+    padding writes go to the sink page.  Attention gathers the slot's
+    page-table row and masks ``t <= n_before + j`` — the full mapped
+    past (shared prefix pages included) plus the chunk's own causal
+    band, so a chunk after a prefix-cache hit attends to pages it never
+    computed."""
+
+    def __init__(self, cache: PagedKVCache, slot, n_before, n_valid):
+        super().__init__(cache)
+        self.slot = int(slot)
+        self.n_before = int(n_before)
+        self.n_valid = int(n_valid)
+
+    def position_ids(self, batch, seq_len):
+        if batch != 1:
+            raise ValueError(
+                "PagedPrefillChunkView is single-sequence (got batch=%d)"
+                % batch)
+        return self.n_before + torch.arange(
+            seq_len, dtype=torch.int32, device=self.lengths.device)[None, :]
+
+    def _table(self):
+        return self.page_table[self.slot:self.slot + 1]
+
+    def _writes(self, c):
+        pos = self.position_ids(1, c)
+        valid = torch.arange(c, device=pos.device)[None, :] < self.n_valid
+        return pos, valid, torch.full((1,), self.n_before, dtype=torch.int32,
+                                      device=pos.device)
+
+    def finalize(self) -> PagedKVCache:
+        self.lengths[self.slot] = self.n_before + self.n_valid
         return self.cache

@@ -13,9 +13,11 @@ import pytest
 import torch
 
 from paddle_tpu.kernels import autotune as jax_at
+from paddle_tpu.kernels import decode_attention as jax_dat
 from paddle_tpu.kernels import flash_attention_pallas as jax_fap
 from paddle_tpu.utils import flags as jax_flags
 from paddle_tpu_torch.kernels import autotune as at
+from paddle_tpu_torch.kernels import decode_attention as dat
 from paddle_tpu_torch.kernels import flash_attention_cuda as fac
 from paddle_tpu_torch.utils import flags
 
@@ -329,11 +331,54 @@ def test_warm_and_cli_smoke(capsys, monkeypatch):
 
 
 def test_standard_keys_are_the_bench_shapes():
+    """The four flash families at the training shape and, since the
+    paged engine, the paged decode attention at the serving shape: the
+    JAX module's keys for them (the CPU: float32)."""
     pairs = at.standard_keys()
     assert [f for f, _ in pairs] == ["flash_fwd", "flash_bwd",
-                                     "flash_bwd_dq", "flash_bwd_dkv"]
+                                     "flash_bwd_dq", "flash_bwd_dkv",
+                                     "decode_attn_paged"]
     want = jax_fap.autotune_key(8, 1024, 1024, 16, 64, jnp.float32, True)
-    assert all(k == want for _, k in pairs)     # the CPU: float32
+    assert all(k == want for _, k in pairs[:4])
+    assert pairs[4][1] == jax_dat.paged_autotune_key(
+        slots=8, pages=128, page_size=64, max_pages=16, h=16, d=64, qlen=1,
+        dtype=jnp.float32)
+    assert pairs[4][1] in [k for f, k in jax_at.standard_keys()
+                           if f == "decode_attn_paged"]
+
+
+def test_paged_decode_family_matches_the_jax_module(monkeypatch):
+    """decode_attn_paged: the JAX module's candidates for a key, the
+    gather as candidate [0]; a pin of the chunked variant is what the
+    paged views run; a pinned config that does not divide max_pages
+    falls back to the gather; tune() times every candidate."""
+    key = dat.paged_autotune_key(8, 128, 64, 16, 16, 64, 1, torch.float32,
+                                 "cpu")
+    jkey = jax_dat.paged_autotune_key(8, 128, 64, 16, 16, 64, 1,
+                                      jnp.float32)
+    assert key == jkey
+    assert at.families()["decode_attn_paged"].candidates(key) == \
+        jax_dat._paged_candidates(jkey)
+    q = torch.zeros(8, 1, 16, 64)
+    kp = torch.zeros(128, 64, 16, 64)
+    table = torch.zeros(8, 16, dtype=torch.int64)
+    assert dat.resolve_pages_per_block(q, kp, table) == 0
+    for pin, want in (("paged_chunked:pages_per_block=4", 4),
+                      ("paged_chunked:pages_per_block=3", 0),
+                      ("paged_gather", 0)):
+        monkeypatch.setitem(flags._REGISTRY, "autotune_pin",
+                            "decode_attn_paged=" + pin)
+        assert dat.resolve_pages_per_block(q, kp, table) == want
+    monkeypatch.setitem(flags._REGISTRY, "autotune_pin", "")
+    small = dat.paged_autotune_key(2, 8, 4, 4, 2, 8, 1, torch.float32,
+                                   "cpu")
+    _times(monkeypatch, [3.0, 1.0, 2.0])
+    assert at.tune("decode_attn_paged", small) == {
+        "variant": "paged_chunked", "config": {"pages_per_block": 1}}
+    # the runner runs each candidate on the CPU
+    for cand in at.families()["decode_attn_paged"].candidates(small):
+        at.families()["decode_attn_paged"].runner(cand, small)()
+
 
 
 def test_enabling_autotune_mid_process_still_tunes(monkeypatch):

@@ -376,8 +376,9 @@ def test_ce_kernels_match_plain(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_softmax_kernel_matches_plain(dtype):
-    """F against its plain version, staged rows (up to 220 KB) and rows
-    read twice (f32 rows of 65536)."""
+    """F against its plain version: rows in registers (8 and 64 rows),
+    staged rows (up to 220 KB) and rows read twice (f32 rows of
+    65536)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     rng = np.random.default_rng(21)
@@ -391,6 +392,69 @@ def test_softmax_kernel_matches_plain(dtype):
         assert got.dtype == dtype and got.shape == x.shape
         _close(got, norm_cuda._softmax_reference(x), dtype,
                "softmax %s" % (shape,))
+
+
+# Kernel F at every launch plan: a warp a row (rows >= 1024 at F <= 1024,
+# or F <= 256), 128 threads a row (few rows at F <= 1024, or F <= 4096),
+# 256 (F <= 8192), with 1, 2 or 4 packs a thread; past the register plan
+# (F = 8320, 50304, 65536) the staged kernel, 1024 threads a row below
+# 132 rows and 256 from there, rows kept in shared memory up to 220 KB
+# (an f32 row of 65536 is read twice)
+SOFTMAX_PLAN_SHAPES = [(8, 128), (16384, 128), (8, 1024), (200, 1024),
+                       (8192, 1024), (16384, 1024), (1024, 512),
+                       (8, 4096), (1024, 4096), (8, 8192), (200, 8192),
+                       (8, 8320), (64, 8320), (200, 8320), (8, 50304),
+                       (64, 50304), (200, 65536)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_softmax_kernel_matches_plain_at_every_plan(dtype):
+    """F against its plain version at every row count and width of
+    SOFTMAX_PLAN_SHAPES: within one ulp of |ref| in the dtype plus a
+    small share of the RMS (f32 statistics summed in other orders), and
+    a second run on the same input gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    rng = np.random.default_rng(22)
+    for shape in SOFTMAX_PLAN_SHAPES:
+        x = torch.from_numpy((3.0 * rng.standard_normal(shape))
+                             .astype(np.float32)).to("cuda", dtype)
+        before = norm_cuda.softmax_fwd_launches
+        got = norm_cuda.softmax_pallas(x)
+        again = norm_cuda.softmax_pallas(x)
+        torch.cuda.synchronize()
+        assert norm_cuda.softmax_fwd_launches == before + 2
+        assert got.dtype == dtype and got.shape == x.shape
+        _close(got, norm_cuda._softmax_reference(x), dtype,
+               "softmax %s %s" % (shape, dtype))
+        assert torch.equal(got, again), "softmax %s %s: reruns differ" % (
+            shape, dtype)
+
+
+@pytest.mark.gpu
+def test_softmax_kernel_copies_strided_views_and_refuses_unaligned_rows():
+    """A strided view of x is copied to dense rows first and gives the
+    bits of its dense copy; a dense view that does not start on 16 bytes
+    raises, as the kernel reads rows with 16-byte loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((64, 1024))
+                         .astype(np.float32)).to("cuda", torch.bfloat16)
+    strided = x[::2]
+    assert not strided.is_contiguous()
+    got = norm_cuda.softmax_pallas(strided)
+    want = norm_cuda.softmax_pallas(strided.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    buf = torch.empty(32 * 1024 + 1, device="cuda", dtype=torch.bfloat16)
+    view = buf[1:].view(32, 1024)
+    view.copy_(x[:32])
+    assert view.is_contiguous() and view.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        norm_cuda.softmax_pallas(view)
 
 
 @pytest.mark.gpu

@@ -90,7 +90,8 @@ def test_full_forward_logits_match_jax_every_position():
 def test_slotted_prefill_decode_matches_full_forward_and_jax():
     jm, tm, _ = _pair(seed=2)
     je = JaxEngine(jm, num_slots=2, max_len=64, paged=False, seed=0)
-    te = DecodeEngine(tm, num_slots=2, max_len=64, device="cpu")
+    te = DecodeEngine(tm, num_slots=2, max_len=64, paged=False,
+                      device="cpu")
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 512, (5,)), rng.integers(0, 512, (19,))]
     seqs = []

@@ -1,5 +1,6 @@
-"""paddle_tpu_torch serving: the slotted engine + synchronous scheduler
-against ``paddle_tpu``'s ``DecodeEngine(paged=False)`` +
+"""paddle_tpu_torch serving: the slotted engine (``paged=False``) and the
+synchronous scheduler against ``paddle_tpu``'s
+``DecodeEngine(paged=False)`` and
 ``ContinuousBatchingScheduler(overlap=False)`` at the tiny config in f32
 (greedy tokens identical through slot churn and an EOS), the sampling
 filters against the JAX ones on the same logits, and what the slice
@@ -59,7 +60,8 @@ def _run_jax(jm, prompts, eos):
 
 def _run_torch(tm, prompts, eos):
     sched = ContinuousBatchingScheduler(
-        DecodeEngine(tm, num_slots=2, max_len=64, device="cpu"))
+        DecodeEngine(tm, num_slots=2, max_len=64, paged=False,
+                     device="cpu"))
     rids = [sched.submit(Request(prompt=p, max_new_tokens=16,
                                  temperature=0.0, eos_token_id=e))
             for p, e in zip(prompts, eos)]
@@ -90,10 +92,16 @@ def test_greedy_tokens_identical_to_jax_through_slot_churn():
 
 
 def test_generate_entry_point_matches_scheduler():
+    """``generate`` builds the default (paged) engine: its tokens are
+    those of the scheduler over a paged engine of the same geometry, and
+    ``paged=False`` passes through to a slotted one."""
     _jm, tm = _pair(seed=1)
     prompts = _prompts()[:3]
     out = generate(tm, prompts, max_new_tokens=4, temperature=0.0,
                    device="cpu")
+    slotted = generate(tm, prompts, max_new_tokens=4, temperature=0.0,
+                       device="cpu", paged=False)
+    assert [o.tolist() for o in slotted] == [o.tolist() for o in out]
     sched = ContinuousBatchingScheduler(
         DecodeEngine(tm, num_slots=4, max_len=128, device="cpu"))
     rids = [sched.submit(Request(prompt=p, max_new_tokens=4,
@@ -106,7 +114,8 @@ def test_generate_entry_point_matches_scheduler():
 def test_cache_full_retires_the_request():
     _jm, tm = _pair(seed=2)
     sched = ContinuousBatchingScheduler(
-        DecodeEngine(tm, num_slots=1, max_len=16, device="cpu"))
+        DecodeEngine(tm, num_slots=1, max_len=16, paged=False,
+                     device="cpu"))
     rid = sched.submit(Request(prompt=np.arange(12), max_new_tokens=50,
                                temperature=0.0))
     res = sched.run()[rid]
@@ -169,7 +178,8 @@ def test_seeded_generator_reproduces():
 
 def test_engine_reseed_reproduces_sampled_output():
     _jm, tm = _pair(seed=3)
-    eng = DecodeEngine(tm, num_slots=1, max_len=64, seed=5, device="cpu")
+    eng = DecodeEngine(tm, num_slots=1, max_len=64, seed=5, paged=False,
+                       device="cpu")
     runs = []
     for _ in range(2):
         eng.reseed(5)
@@ -180,8 +190,9 @@ def test_engine_reseed_reproduces_sampled_output():
     assert runs[0] == runs[1]
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True), dict(spec_k=2),
-                                dict(kv_dtype="int8"), dict(tp=2)])
+@pytest.mark.parametrize("kw", [dict(paged=False, spec_k=2),
+                                dict(spec_k=2), dict(kv_dtype="int8"),
+                                dict(tp=2)])
 def test_unported_modes_raise(kw):
     tm = GPTForCausalLM(GPTConfig.tiny())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -189,6 +200,7 @@ def test_unported_modes_raise(kw):
 
 
 def test_overlapped_loop_raises():
-    eng = DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu")
+    eng = DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), paged=False,
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousBatchingScheduler(eng, overlap=True)
