@@ -76,6 +76,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3b. serve_paged_tight — the same with a pool of TIGHT_PAGES (17) pages:
               at least one request is preempted and recomputed, and
               every request ends by length.
+3c. serve_spec — the paged engine with SPEC_K (4) drafts a verify step
+              (prompt lookup over each request's own tokens), each
+              LayerNorm route, on the serve traffic and on 12 prompts
+              that each say a random 32-token span four times (the plain
+              paged engine runs that traffic too): serve_paged's figures
+              plus verify steps and drafts proposed and accepted; B
+              (2L + 1) times a prefill chunk or verify step under
+              ``use_pallas_norm``; greedy tokens against the plain paged
+              engine's through serve_compare; the span traffic must accept
+              a draft.  ``serve_spec_profile``: wall and device ms of one
+              verify step beside a plain paged decode step, each route.
+3d. serve_quant — the serve traffic under ``use_pallas_norm`` through
+              the paged int8, paged fp8 (e4m3), slotted int8 (the
+              tensor-core forward on every prefill: the slotted prefill
+              attends the exact K/V) and paged int8 + 4-draft engines:
+              pool bytes and bytes a token, TTFT and TPOT; a 1-byte row
+              is (64 + 4) / (2 x 64) of the bf16 row; token ids in range.
 4. decode_profile — host and device time of a batched decode step.
 5. parity   — one 128-token prompt (the parity phases take 12 prompts
               with no tokens in common, not the serve traffic's): the
@@ -92,6 +109,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               attends a page it did not compute, one copy-on-write of a
               live tail page, 4 decode steps; logits held at every
               point, for each LayerNorm route.
+6b. quant_parity — paged_parity's script through the card's paged int8
+              and fp8 engines, and decode_parity's through its slotted
+              int8 engine, against the CPU f32 engine of the same layout
+              and ``kv_dtype``, all fed the unquantized CPU engine's
+              tokens: logits held within LOGIT_TOL at every point, each
+              LayerNorm route; and the card's quantized logits at least
+              QUANT_SHIFT_FLOOR of the CPU's quantization shift away from
+              the card's unquantized ones (the control an engine that
+              kept bf16 K/V fails).  serve_quant checks the pools on the
+              card themselves: 1-byte codes, f32 scales, their bytes.
+6c. spec_parity — the verify step's logits at each of its 5 positions
+              against 5 sequential paged decode steps fed the same tokens,
+              on the card, within LOGIT_TOL, each LayerNorm route; B once
+              a LayerNorm of the verify step under ``use_pallas_norm``.
 7. serve_compare — where two serve runs' greedy tokens part (the two
               LayerNorm routes; paged against slotted under each route;
               the tight pool against the roomy one), the CPU's logit gap
@@ -128,9 +159,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               forward, C2 and C3 (and B, D) on fp16, a finite first loss
               near the bf16 one, no step skipped.
 14. autotune — ``autotune.warm()`` over the port's standard keys (the
-              four flash families at the training shape) and flash_fwd at
-              head dim 256, into this run's own cache file: each key's
-              timing table, winner and shared-memory refusals.
+              four flash families at the training shape; the slotted and
+              paged decode attention at the serving shape, the paged one
+              over the int8 pool and at the verify step's 5 positions too)
+              and flash_fwd at head dim 256, into this run's own cache
+              file: each key's timing table, winner and shared-memory
+              refusals.
 15. train_pipelined — 3 steps under PIN_A_PRIME: A' (64 x 64)
               launches 24 times a step, the tensor-core forward never;
               the first loss held against train's.
@@ -1849,7 +1883,8 @@ def train_flat(torch, base, amp, counters, default_losses, steps=3):
 
 def autotune_warm(torch, at, fac):
     """``warm()`` over the port's standard keys (the four flash families
-    at the training shape), plus flash_fwd at head dim 256, where the
+    at the training shape, the decode attention at the serving shape),
+    plus flash_fwd at head dim 256, where the
     shared-memory gate refuses the A' tiles that do not fit.  Writes the
     cache that PADDLE_TPU_AUTOTUNE_CACHE names (main() points it at a
     temporary file).  One line per key: its timing table, the winner and
@@ -2248,7 +2283,11 @@ def train_parity(torch, base, amp, flags, counters, s=256):
     return lines
 
 
-def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags):
+def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags,
+          phase="serve", extra=None):
+    """The serve traffic through the slotted engine: the tensor-core
+    forward once a layer an admission, B (2L + 1) times a forward under
+    ``use_pallas_norm``, every request 32 tokens by length."""
     from paddle_tpu_torch.serving import ContinuousBatchingScheduler, Request
     flags.set_flags({"use_pallas_norm": use_norm_kernel})
     engine.reset()
@@ -2272,9 +2311,9 @@ def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags):
     if len(results) != len(prompts) or any(
             len(r.tokens) != 32 or r.finish_reason != "length"
             for r in results.values()):
-        raise AssertionError("serve: unexpected results %r" % (
-            {k: (len(r.tokens), r.finish_reason)
-             for k, r in results.items()},))
+        raise AssertionError("%s: unexpected results %r" % (phase, {
+            k: (len(r.tokens), r.finish_reason)
+            for k, r in results.items()}))
     layers = engine.model.config.num_hidden_layers
     admissions = len(prompts)
     if launches["flash_fwd_tc"] != layers * admissions or \
@@ -2289,7 +2328,8 @@ def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags):
         raise AssertionError("layer_norm_fwd launched %d times, want %d"
                              % (launches["layer_norm_fwd"], want_ln))
     line = {
-        "phase": "serve", "use_pallas_norm": use_norm_kernel,
+        "phase": phase, "use_pallas_norm": use_norm_kernel,
+        "kv_dtype": kv_name(engine),
         "requests": len(results), "generated_tokens": toks,
         "decode_steps": sched.decode_steps_total, "wall_s": wall,
         "tokens_per_s": toks / wall,
@@ -2297,7 +2337,9 @@ def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags):
             r.ttft for r in results.values()),
         "tpot_p50_ms": 1e3 * statistics.median(
             r.tpot for r in results.values()),
-        "launches": launches}
+        "kv_pool_bytes": engine.kv_pool_bytes(),
+        "kv_bytes_per_token": engine.kv_bytes_per_token(),
+        "launches": launches, **(extra or {})}
     emit(line)
     return line, [results[k].tokens for k in sorted(results)]
 
@@ -2311,12 +2353,15 @@ TIGHT_PAGES = 17
 
 
 def serve_paged(torch, engine, prompts, use_norm_kernel, counters, flags,
-                phase="serve_paged"):
-    """The serve traffic through the paged engine and the scheduler's
-    chunked prefill: launch counts from 0 just before the run, read just
-    after; B (2L + 1) times a forward (prefill chunks and decode steps)
-    under ``use_pallas_norm``, no flash kernel (paged attention is plain
-    torch, as in the JAX package), every request 32 tokens by length."""
+                phase="serve_paged", traffic="serve", extra=None):
+    """The serve traffic (or another, named by ``traffic``) through the
+    paged engine and the scheduler's chunked prefill: launch counts from
+    0 just before the run, read just after; B (2L + 1) times a forward
+    (prefill chunks and decode or verify steps) under
+    ``use_pallas_norm``, no flash kernel (paged attention is plain torch,
+    as in the JAX package), every request 32 tokens by length.  A
+    speculative engine's line adds its drafts proposed and accepted,
+    which must equal the requests' sums (the synchronous loop)."""
     from paddle_tpu_torch.serving import ContinuousBatchingScheduler, Request
     flags.set_flags({"use_pallas_norm": use_norm_kernel})
     engine.reset()
@@ -2347,7 +2392,9 @@ def serve_paged(torch, engine, prompts, use_norm_kernel, counters, flags,
     expect_launches(launches, want, phase)
     toks = sum(len(r.tokens) for r in results.values())
     line = {
-        "phase": phase, "use_pallas_norm": use_norm_kernel,
+        "phase": phase, "traffic": traffic,
+        "use_pallas_norm": use_norm_kernel,
+        "kv_dtype": kv_name(engine), "spec_k": engine.spec_k,
         "num_pages": engine.num_pages, "page_size": engine.page_size,
         "prefill_chunk": engine.prefill_chunk,
         "requests": len(results), "generated_tokens": toks,
@@ -2367,139 +2414,178 @@ def serve_paged(torch, engine, prompts, use_norm_kernel, counters, flags,
         "kv_pool_bytes": engine.kv_pool_bytes(),
         "kv_bytes_per_token": engine.kv_bytes_per_token(),
         "launches": {k: v for k, v in launches.items() if v}}
+    if engine.spec_k:
+        st = engine.spec_stats
+        line.update(verify_steps=st["steps"],
+                    drafts_proposed=st["proposed"],
+                    drafts_accepted=st["accepted"],
+                    accept_rate=st["accepted"] / max(st["proposed"], 1),
+                    accepted_per_step=st["accepted"] / max(st["steps"], 1))
+        sums = (sum(r.spec_proposed for r in results.values()),
+                sum(r.spec_accepted for r in results.values()))
+        if sums != (st["proposed"], st["accepted"]) or \
+                st["steps"] != sched.decode_steps_total:
+            raise AssertionError("%s: requests' draft counts %r, engine's "
+                                 "%r" % (phase, sums, st))
+    line.update(extra or {})
     emit(line)
     return line, [results[k].tokens for k in sorted(results)]
 
 
-def paged_parity(torch, engine, cpu_model, prompt, flags, norm_cuda,
-                 steps=4):
-    """The card's paged engine (bf16, kernels) against the port's CPU f32
-    paged engine on one sequence, logits held within LOGIT_TOL at every
-    point: request A (100 tokens, two chunks) into slot 0; request B,
-    A's first 64 tokens and 40 of its own, into slot 1, whose chunk
-    attends A's page 0, which it did not compute; request C, A again
-    once A's prefill is done, into slot 2: it maps A's full page and its
-    live, partly filled tail page (99 tokens, capped at n - 1), so its
-    one 1-token chunk copies that page first (one copy-on-write); then
-    ``steps`` decode steps of the three, both fed the CPU's greedy
-    tokens.  Once per LayerNorm route."""
-    from paddle_tpu_torch.serving import DecodeEngine
+def kv_name(engine):
+    """The engine's code dtype by name ("int8", "float8_e4m3fn"), or None
+    for an unquantized pool."""
+    return None if engine.kv_dtype is None else \
+        str(engine.kv_dtype).replace("torch.", "")
+
+
+def max_err(a, b):
+    """The largest absolute difference over two lists of logits."""
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def paged_script(prompt, steps=4):
+    """paged_parity's script for an engine: request A (100 tokens, two
+    chunks) into slot 0; request B, A's first 64 tokens and 40 of its
+    own, into slot 1, whose chunk attends A's page 0, which it did not
+    compute; request C, A again once A's prefill is done, into slot 2: it
+    maps A's full page and its live, partly filled tail page (99 tokens,
+    capped at n - 1), so its one 1-token chunk copies that page first (one
+    copy-on-write); then ``steps`` decode steps of the three, fed
+    ``inputs`` or, where None, the engine's own greedy tokens.  Returns
+    (logits at each point on the host, the tokens fed, what the
+    admissions shared)."""
     own = np.random.default_rng(5).integers(0, 50257, (40,)).astype(np.int32)
     reqs = [prompt[:100], np.concatenate([prompt[:64], own]), prompt[:100]]
-    n = engine.num_slots
-    active = [i < len(reqs) for i in range(n)]
-    greedy = ([0.0] * n, [0] * n, [1.0] * n)
 
-    def admit(eng):
-        out, shared = [], []
+    def run(torch, eng, inputs=None):
+        n = eng.num_slots
+        active = [i < len(reqs) for i in range(n)]
+        eng.reset()
+        eng.cow_copies = 0
+        pre, shared = [], []
         for i, ids in enumerate(reqs):
             task = eng.prefill_begin(i, ids, temperature=0.0)
             while not eng.prefill_step(task):
                 pass
-            out.append(task.last_logits.float())
+            pre.append(task.last_logits.float())
             shared.append(task.shared_tokens)
-        return out, shared
+        toks = np.zeros(n, np.int32)
+        toks[:len(reqs)] = [int(lg.argmax()) for lg in pre]
+        logits, fed = [torch.stack(pre).cpu()], []
+        for s in range(steps):
+            feed = toks if inputs is None else inputs[s]
+            fed.append(feed)
+            toks, lg = eng.decode(feed, active, [0.0] * n, [0] * n,
+                                  [1.0] * n)
+            logits.append(lg[:len(reqs)].float().cpu())
+        if shared != [0, 64, 99] or eng.cow_copies != 1:
+            raise AssertionError("paged script: shared %r, cow copies %d"
+                                 % (shared, eng.cow_copies))
+        return logits, fed, {"prompt_lens": [len(r) for r in reqs],
+                             "shared_tokens": shared,
+                             "cow_copies": eng.cow_copies}
+    return run
 
-    cpu_engine = DecodeEngine(cpu_model, num_slots=n, max_len=engine.max_len,
-                              num_pages=16, device="cpu")
-    pre, cpu_shared = admit(cpu_engine)
-    cpu_logits = [torch.stack(pre)]
-    toks = np.zeros(n, np.int32)
-    toks[:len(reqs)] = [int(lg.argmax()) for lg in pre]
-    inputs = []
-    for _ in range(steps):
-        inputs.append(toks)
-        toks, lg = cpu_engine.decode(toks, active, *greedy)
-        cpu_logits.append(lg[:len(reqs)].float())
-    if cpu_shared != [0, 64, 99] or cpu_engine.cow_copies != 1:
-        raise AssertionError("paged parity (CPU): shared %r, cow copies %d"
-                             % (cpu_shared, cpu_engine.cow_copies))
+
+def slotted_script(prompts, steps=4):
+    """decode_parity's script for a slotted engine: every slot prefilled
+    with a prompt of its own length (128 down to 100 tokens), then
+    ``steps`` batched decode steps fed ``inputs`` or, where None, the
+    engine's own greedy tokens."""
+    def run(torch, eng, inputs=None):
+        n = eng.num_slots
+        ctx = [prompts[i][:128 - 4 * i] for i in range(n)]
+        eng.reset()
+        toks, pre = np.zeros(n, np.int32), []
+        for i, c in enumerate(ctx):
+            toks[i], lg = eng.prefill(i, c, temperature=0.0)
+            pre.append(lg.float())
+        logits, fed = [torch.stack(pre).cpu()], []
+        for s in range(steps):
+            feed = toks if inputs is None else inputs[s]
+            fed.append(feed)
+            toks, lg = eng.decode(feed, [True] * n, [0.0] * n, [0] * n,
+                                  [1.0] * n)
+            logits.append(lg.float().cpu())
+        return logits, fed, {"prompt_lens": [len(c) for c in ctx]}
+    return run
+
+
+# quant_parity's floor: the card's quantized engine must move the logits
+# away from the card's unquantized one by at least this share of what
+# quantization moves them on the CPU in f32 (both fed the same tokens).
+# An engine that kept bf16 K/V would move them by 0, while the bar on
+# logits alone cannot tell it: quantization moves them by less than the
+# card's bf16 error does; see PERF.md
+QUANT_SHIFT_FLOOR = 0.5
+
+
+def card_vs_cpu(torch, engine, cpu_model, script, flags, norm_cuda, phase,
+                cpu_kw, exact=None):
+    """``script`` on the port's CPU f32 engine (the card engine's layout
+    and ``kv_dtype``, ``cpu_kw`` for the rest), then on the card's
+    engine (bf16, kernels) fed the CPU's greedy tokens, once per
+    LayerNorm route: logits held within LOGIT_TOL at every point, B
+    launched under ``use_pallas_norm`` and only there.  ``exact`` is
+    what this returned for the same script on the unquantized engines:
+    then the CPU engine is fed the same tokens, and the card's quantized
+    logits must lie at least QUANT_SHIFT_FLOOR of the CPU's quantization
+    shift away from the card's unquantized ones.  Returns {"cpu": logits,
+    "inputs": tokens fed, "card": {route: logits}}."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    cpu_engine = DecodeEngine(cpu_model, num_slots=engine.num_slots,
+                              max_len=engine.max_len, device="cpu",
+                              kv_dtype=engine.kv_dtype, **cpu_kw)
+    cpu, inputs, _ = script(torch, cpu_engine,
+                            None if exact is None else exact["inputs"])
     del cpu_engine
-    lines = []
+    out = {"cpu": cpu, "inputs": inputs, "card": {}}
     for use_norm in (False, True):
         flags.set_flags({"use_pallas_norm": use_norm})
-        engine.reset()
-        engine.cow_copies = 0
         ln_before = norm_cuda.layer_norm_fwd_launches
-        pre, shared = admit(engine)
-        card = [torch.stack(pre)]
-        for t in inputs:
-            card.append(engine.decode(t, active, *greedy)[1][:len(reqs)])
-        errs = [float((c.float().cpu() - r).abs().max())
-                for c, r in zip(card, cpu_logits)]
+        try:
+            card, _, info = script(torch, engine, inputs)
+        finally:
+            flags.set_flags({"use_pallas_norm": False})
         ln_launched = norm_cuda.layer_norm_fwd_launches - ln_before
-        flags.set_flags({"use_pallas_norm": False})
-        line = {"phase": "paged_parity", "use_pallas_norm": use_norm,
-                "prompt_lens": [len(r) for r in reqs],
-                "shared_tokens": shared, "cow_copies": engine.cow_copies,
-                "decode_steps": steps, "max_abs_err_prefill": errs[0],
+        errs = [float((c - r).abs().max()) for c, r in zip(card, cpu)]
+        line = {"phase": phase, "use_pallas_norm": use_norm,
+                "engine": "paged" if engine.paged else "slotted",
+                "kv_dtype": kv_name(engine), **info,
+                "decode_steps": len(inputs), "max_abs_err_prefill": errs[0],
                 "max_abs_err_per_step": errs[1:], "tolerance": LOGIT_TOL,
                 "layer_norm_fwd_launches": ln_launched}
+        floor = None
+        if exact is not None:
+            cpu_shift = max_err(cpu, exact["cpu"])
+            floor = QUANT_SHIFT_FLOOR * cpu_shift
+            line.update(
+                quant_shift_cpu=cpu_shift,
+                quant_shift_card=max_err(card, exact["card"][use_norm]),
+                quant_shift_floor=floor,
+                # the control: the card's unquantized engine held against
+                # this CPU quantized one, by the bar on logits alone
+                control_unquantized_card_err=max_err(
+                    exact["card"][use_norm], cpu))
         emit(line)
-        lines.append(line)
-        if shared != cpu_shared or engine.cow_copies != 1:
-            raise AssertionError("paged parity: shared %r, cow copies %d"
-                                 % (shared, engine.cow_copies))
         if max(errs) > LOGIT_TOL:
-            raise AssertionError("paged parity (use_pallas_norm=%s): card "
-                                 "vs CPU logits err %g > %g"
-                                 % (use_norm, max(errs), LOGIT_TOL))
+            raise AssertionError("%s %s (use_pallas_norm=%s): card vs CPU "
+                                 "logits err %g > %g"
+                                 % (phase, line["engine"], use_norm,
+                                    max(errs), LOGIT_TOL))
         if bool(ln_launched) != use_norm:
-            raise AssertionError("paged parity: layer_norm_fwd launched %d "
-                                 "times with use_pallas_norm=%s"
-                                 % (ln_launched, use_norm))
+            raise AssertionError("%s: layer_norm_fwd launched %d times with "
+                                 "use_pallas_norm=%s"
+                                 % (phase, ln_launched, use_norm))
+        if floor is not None and not line["quant_shift_card"] >= floor > 0:
+            raise AssertionError("%s %s %s: quantization moved the card's "
+                                 "logits by %g, the CPU's by %g"
+                                 % (phase, line["engine"], line["kv_dtype"],
+                                    line["quant_shift_card"], cpu_shift))
+        out["card"][use_norm] = card
     engine.reset()
-    return lines
-
-
-def decode_parity(torch, engine, cpu_model, prompts, flags, norm_cuda,
-                  steps=4):
-    """Every slot prefilled with a prompt of its own length (128 down to
-    100 tokens), then ``steps`` batched decode steps on the card (bf16,
-    kernels) and on the CPU (f32, plain versions), both fed the CPU's
-    greedy tokens; once per LayerNorm route.  Holds every slot's logits
-    at every step within LOGIT_TOL."""
-    from paddle_tpu_torch.serving import DecodeEngine
-    n = engine.num_slots
-    ctx = [prompts[i][:128 - 4 * i] for i in range(n)]
-    greedy = ([0.0] * n, [0] * n, [1.0] * n)
-    cpu_engine = DecodeEngine(cpu_model, num_slots=n, max_len=engine.max_len,
-                              paged=False, device="cpu")
-    first, pre = np.zeros(n, np.int32), []
-    for i, c in enumerate(ctx):
-        first[i], lg = cpu_engine.prefill(i, c, temperature=0.0)
-        pre.append(lg)
-    cpu_logits, inputs, toks = [torch.stack(pre)], [], first
-    for _ in range(steps):
-        inputs.append(toks)
-        toks, lg = cpu_engine.decode(toks, [True] * n, *greedy)
-        cpu_logits.append(lg.float())
-    del cpu_engine
-    for use_norm in (False, True):
-        flags.set_flags({"use_pallas_norm": use_norm})
-        engine.reset()
-        ln_before = norm_cuda.layer_norm_fwd_launches
-        card = [torch.stack([engine.prefill(i, c, temperature=0.0)[1]
-                             for i, c in enumerate(ctx)])]
-        for t in inputs:
-            card.append(engine.decode(t, [True] * n, *greedy)[1])
-        errs = [float((c.float().cpu() - r).abs().max())
-                for c, r in zip(card, cpu_logits)]
-        ln_launched = norm_cuda.layer_norm_fwd_launches - ln_before
-        flags.set_flags({"use_pallas_norm": False})
-        emit({"phase": "decode_parity", "use_pallas_norm": use_norm,
-              "prompt_lens": [len(c) for c in ctx], "decode_steps": steps,
-              "max_abs_err_prefill": errs[0],
-              "max_abs_err_per_step": errs[1:], "tolerance": LOGIT_TOL,
-              "layer_norm_fwd_launches": ln_launched})
-        if max(errs) > LOGIT_TOL:
-            raise AssertionError("decode parity (use_pallas_norm=%s): card "
-                                 "vs CPU logits err %g > %g"
-                                 % (use_norm, max(errs), LOGIT_TOL))
-        if bool(ln_launched) != use_norm:
-            raise AssertionError("decode parity: layer_norm_fwd launched %d "
-                                 "times with use_pallas_norm=%s"
-                                 % (ln_launched, use_norm))
+    return out
 
 
 def serve_compare(torch, cpu_model, prompts, toks_a, toks_b,
@@ -2534,26 +2620,35 @@ def serve_compare(torch, cpu_model, prompts, toks_a, toks_b,
                              % (what, wide))
 
 
-def decode_profile(torch, engine, use_norm_kernel, flags, steps=5):
+def decode_profile(torch, engine, use_norm_kernel, flags, steps=5,
+                   emit_line=True):
     """Wall time of a batched decode step (all 8 slots active, host clock
     around a synchronised step) beside the card's kernel time in it
     (profiler trace): the device's busy share of a step.  A paged engine
-    maps the pages its appends need as it goes."""
+    maps the pages its appends need as it goes; a speculative one runs
+    verify steps (``spec_k`` drafts a slot)."""
     from torch.profiler import ProfilerActivity, profile
     flags.set_flags({"use_pallas_norm": use_norm_kernel})
-    args = (np.zeros(engine.num_slots, np.int32), [True] * engine.num_slots,
-            [0.0] * engine.num_slots, [0] * engine.num_slots,
-            [1.0] * engine.num_slots)
-    engine.decode(*args)
+    n = engine.num_slots
+    args = (np.zeros(n, np.int32), [True] * n, [0.0] * n, [0] * n,
+            [1.0] * n)
+    drafts = np.ones((n, engine.spec_k), np.int32)
+
+    def step():
+        if engine.spec_k:
+            engine.decode_spec(args[0], drafts, *args[1:])
+        else:
+            engine.decode(*args)
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        engine.decode(*args)
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            engine.decode(*args)
+            step()
         torch.cuda.synchronize()
     events = prof.key_averages()
     dev_us = sum(float(getattr(e, "self_device_time_total", 0.0))
@@ -2563,13 +2658,192 @@ def decode_profile(torch, engine, use_norm_kernel, flags, steps=5):
     flags.set_flags({"use_pallas_norm": False})
     line = {"phase": "decode_profile", "use_pallas_norm": use_norm_kernel,
             "engine": "paged" if engine.paged else "slotted",
-            "step_wall_ms": wall_ms,
+            "step": "verify" if engine.spec_k else "decode",
+            "spec_k": engine.spec_k, "step_wall_ms": wall_ms,
             "step_device_ms": dev_us / steps / 1e3 if dev_us else None,
             "device_kernels_per_step": kernels / steps,
             "device_busy_share": (dev_us / steps / 1e3 / wall_ms
                                   if dev_us else None)}
-    emit(line)
+    if emit_line:
+        emit(line)
     return line
+
+
+# drafts a verify step in the speculative phases
+SPEC_K = 4
+
+
+def span_prompts(vocab, n=12, span=32, times=4, seed=2):
+    """The repeated-span traffic: ``n`` prompts of ``span * times`` tokens,
+    each a random ``span``-token span said ``times`` times, so that
+    prompt lookup finds drafts in every prompt."""
+    rng = np.random.default_rng(seed)
+    return [np.tile(rng.integers(0, vocab, (span,)), times).astype(np.int32)
+            for _ in range(n)]
+
+
+def serve_spec(torch, spec_engine, paged_engine, cpu_model, traffic,
+               plain_runs, counters, flags):
+    """The paged engine with ``spec_k`` drafts through the scheduler, each
+    LayerNorm route, on each traffic of ``traffic`` ({name: prompts}):
+    ``serve_paged``'s counts and checks (B (2L + 1) times a prefill chunk
+    or verify step under ``use_pallas_norm``) plus drafts proposed and
+    accepted.  ``plain_runs[(name, route)]`` holds the plain paged
+    engine's tokens on that traffic (run here for traffic it lacks);
+    where spec and plain greedy tokens part, the CPU's logit gap must be
+    small (``serve_compare``).  Then the wall and device ms of one verify
+    step beside a plain paged decode step, each route.  Fails if the
+    repeated-span traffic accepted no draft."""
+    lines = {}
+    for name, prompts in traffic.items():
+        for use_norm in (False, True):
+            if (name, use_norm) not in plain_runs:
+                plain_runs[(name, use_norm)] = serve_paged(
+                    torch, paged_engine, prompts, use_norm, counters, flags,
+                    phase="serve_paged_" + name, traffic=name)[1]
+            line, toks = serve_paged(torch, spec_engine, prompts, use_norm,
+                                     counters, flags, phase="serve_spec",
+                                     traffic=name)
+            lines[(name, use_norm)] = line
+            serve_compare(torch, cpu_model, prompts,
+                          plain_runs[(name, use_norm)], toks,
+                          "spec_vs_plain_paged_%s%s" % (
+                              name, "_use_pallas_norm" if use_norm else ""))
+    if min(lines[("span", r)]["drafts_accepted"] for r in (False, True)) < 1:
+        raise AssertionError("serve_spec: no draft accepted on the "
+                             "repeated-span traffic")
+    for use_norm in (False, True):
+        plain = decode_profile(torch, paged_engine, use_norm, flags,
+                               emit_line=False)
+        verify = decode_profile(torch, spec_engine, use_norm, flags,
+                                emit_line=False)
+        emit({"phase": "serve_spec_profile", "use_pallas_norm": use_norm,
+              "spec_k": spec_engine.spec_k, "verify_step": verify,
+              "plain_paged_step": plain})
+    paged_engine.reset()
+    spec_engine.reset()
+    return lines
+
+
+def spec_parity(torch, spec_engine, paged_engine, prompts, flags, counters,
+                steps=SPEC_K + 1):
+    """The verify step's logits at each of its ``spec_k + 1`` positions
+    against sequential paged decode steps fed the same tokens, on the
+    card (bf16 both), within LOGIT_TOL; once per LayerNorm route.  Every
+    slot holds a prompt of its own length (128 down to 100 tokens); the
+    drafts are the sequential engine's greedy tokens.  B must launch on
+    the verify step under ``use_pallas_norm``."""
+    n = spec_engine.num_slots
+    ctx = [prompts[i][:128 - 4 * i] for i in range(n)]
+    greedy = ([True] * n, [0.0] * n, [0] * n, [1.0] * n)
+    lines = []
+    for use_norm in (False, True):
+        flags.set_flags({"use_pallas_norm": use_norm})
+        paged_engine.reset()
+        spec_engine.reset()
+        first = np.asarray([paged_engine.prefill(i, c, temperature=0.0)[0]
+                            for i, c in enumerate(ctx)], np.int32)
+        fed, seq = [first], []
+        for _ in range(steps):
+            toks, lg = paged_engine.decode(fed[-1], *greedy)
+            seq.append(lg.float())
+            fed.append(np.asarray(toks, np.int32))
+        for i, c in enumerate(ctx):
+            spec_engine.prefill(i, c, temperature=0.0)
+        drafts = np.stack(fed[1:steps], axis=1)
+        torch.cuda.synchronize()
+        counters.reset()
+        _e, counts, lg = spec_engine.decode_spec(first, drafts, *greedy)
+        torch.cuda.synchronize()
+        launched = counters.read()
+        flags.set_flags({"use_pallas_norm": False})
+        errs = [float((lg[:, j].float() - seq[j]).abs().max())
+                for j in range(steps)]
+        layers = spec_engine.model.config.num_hidden_layers
+        want = {k: 0 for k in launched}
+        want["layer_norm_fwd"] = 2 * layers + 1 if use_norm else 0
+        expect_launches(launched, want, "spec_parity")
+        line = {"phase": "spec_parity", "use_pallas_norm": use_norm,
+                "spec_k": spec_engine.spec_k,
+                "prompt_lens": [len(c) for c in ctx],
+                "max_abs_err_per_position": errs, "tolerance": LOGIT_TOL,
+                "counts": counts.tolist(),
+                "launches": {k: v for k, v in launched.items() if v}}
+        emit(line)
+        lines.append(line)
+        if max(errs) > LOGIT_TOL:
+            raise AssertionError("spec_parity (use_pallas_norm=%s): verify "
+                                 "vs sequential logits err %g > %g"
+                                 % (use_norm, max(errs), LOGIT_TOL))
+    paged_engine.reset()
+    spec_engine.reset()
+    return lines
+
+
+def serve_quant(torch, model, prompts, bf16_row_bytes, vocab, counters,
+                fac, norm_cuda, flags, seed=0):
+    """The serve traffic under ``use_pallas_norm`` through the paged int8,
+    paged fp8, slotted int8 and paged int8 + ``SPEC_K`` drafts engines:
+    pool bytes, bytes a token, TTFT and TPOT, then the wall and device
+    ms of one decode (or verify) step; a 1-byte row is (D + 4) / (2 D)
+    of the bf16 one, and the pools on the card hold it: 1-byte codes of
+    the engine's ``kv_dtype``, f32 scale pools of one scale a (row,
+    head), their bytes the row's times the rows allocated; every token id
+    in range.  Returns the lines and the paged int8, paged fp8 and
+    slotted int8 engines (for quant_parity)."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    cases = (("paged_int8", dict(kv_dtype="int8")),
+             ("paged_fp8", dict(kv_dtype="fp8")),
+             ("slotted_int8", dict(kv_dtype="int8", paged=False)),
+             ("paged_int8_spec", dict(kv_dtype="int8", spec_k=SPEC_K)))
+    lines, keep = {}, {}
+    d = model.config.hidden_size // model.config.num_attention_heads
+    for name, kw in cases:
+        eng = DecodeEngine(model, num_slots=8, max_len=1024, seed=seed,
+                           **kw)
+        if eng.kv_row_bytes() * 2 * d != bf16_row_bytes * (d + 4):
+            raise AssertionError("serve_quant %s: row %d bytes, bf16 %d"
+                                 % (name, eng.kv_row_bytes(),
+                                    bf16_row_bytes))
+        c = eng.cache
+        pools = (c.k, c.v, c.k_scale, c.v_scale)
+        resident = sum(t.numel() * t.element_size() for t in pools)
+        rows = int(c.k.shape[0]) * int(c.k.shape[2])
+        if (c.k.dtype, c.v.dtype) != (eng.kv_dtype,) * 2 or \
+                c.k.element_size() != 1 or \
+                {t.dtype for t in pools[2:]} != {torch.float32} or \
+                any(t.shape != c.k.shape[:-1] for t in pools[2:]) or \
+                resident != rows * eng.kv_row_bytes():
+            raise AssertionError("serve_quant %s: pools %r, %d bytes for %d "
+                                 "rows of %d" % (name, [
+                                     (t.dtype, tuple(t.shape)) for t in pools],
+                                     resident, rows, eng.kv_row_bytes()))
+        eng.prefill(0, prompts[0], temperature=0.0)
+        eng.reset()
+        extra = {"engine": name, "row_bytes": eng.kv_row_bytes(),
+                 "row_share_of_bf16": eng.kv_row_bytes() / bf16_row_bytes,
+                 # the pools on the card, the sink page included
+                 "pool_bytes_allocated": resident}
+        if eng.paged:
+            line, toks = serve_paged(torch, eng, prompts, True, counters,
+                                     flags, phase="serve_quant", extra=extra)
+        else:
+            line, toks = serve(torch, eng, prompts, True, fac, norm_cuda,
+                               flags, phase="serve_quant", extra=extra)
+        lines[name] = line
+        for t in toks:
+            if not (0 <= int(t.min()) and int(t.max()) < vocab):
+                raise AssertionError("serve_quant %s: token ids out of "
+                                     "range" % name)
+        emit({"phase": "serve_quant_profile", "engine": name,
+              "step": decode_profile(torch, eng, True, flags,
+                                     emit_line=False)})
+        if name != "paged_int8_spec":
+            eng.reset()
+            keep[name] = eng
+        del eng
+        torch.cuda.empty_cache()
+    return lines, keep
 
 
 def main():
@@ -2779,12 +3053,16 @@ def main():
             or not (same or margin < LOGIT_TOL):
         raise AssertionError("pinned prefill vs CPU logits: err %g, same "
                              "token %s" % (err, same))
-    decode_parity(torch, engine, cpu_model, own_prompts, flags,
-                  norm_cuda)
+    exact = {"slotted": card_vs_cpu(torch, engine, cpu_model,
+                                    slotted_script(own_prompts), flags,
+                                    norm_cuda, "decode_parity",
+                                    dict(paged=False))}
     serve_compare(torch, cpu_model, prompts, toks_default, toks_norm)
     t1 = time.perf_counter()
-    paged_parity(torch, paged_engine, cpu_model, own_prompts[0], flags,
-                 norm_cuda)
+    exact["paged"] = card_vs_cpu(torch, paged_engine, cpu_model,
+                                 paged_script(own_prompts[0]), flags,
+                                 norm_cuda, "paged_parity",
+                                 dict(num_pages=16))
     serve_compare(torch, cpu_model, prompts, toks_default, toks_paged,
                   "paged_vs_slotted")
     serve_compare(torch, cpu_model, prompts, toks_norm, toks_paged_norm,
@@ -2792,9 +3070,46 @@ def main():
     serve_compare(torch, cpu_model, prompts, toks_paged_norm, toks_tight,
                   "tight_vs_roomy_pool")
     seconds["serve_paged"] += time.perf_counter() - t1
+
+    # -- serve_spec: the paged engine with SPEC_K drafts a verify step ----
+    t1 = time.perf_counter()
+    spec_engine = DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
+                               spec_k=SPEC_K)
+    spec_engine.prefill(0, prompts[0], temperature=0.0)
+    spec_engine.decode_spec(np.zeros(8, np.int32),
+                            np.zeros((8, SPEC_K), np.int32), [True] * 8,
+                            [0.0] * 8, [0] * 8, [1.0] * 8)
+    spans = span_prompts(cfg.vocab_size)
+    spec_runs = serve_spec(
+        torch, spec_engine, paged_engine, cpu_model,
+        {"serve": prompts, "span": spans},
+        {("serve", False): toks_paged, ("serve", True): toks_paged_norm},
+        counters, flags)
+    spec_parity(torch, spec_engine, paged_engine, own_prompts, flags,
+                counters)
+    del spec_engine
+    torch.cuda.empty_cache()
+    seconds["serve_spec"] = time.perf_counter() - t1
+
+    # -- serve_quant / quant_parity: the int8 and fp8 KV pools ------------
+    t1 = time.perf_counter()
+    quant_runs, quant_engines = serve_quant(
+        torch, model, prompts, paged_engine.kv_row_bytes(), cfg.vocab_size,
+        counters, fac, norm_cuda, flags)
+    for name, eng in quant_engines.items():
+        card_vs_cpu(torch, eng, cpu_model,
+                    paged_script(own_prompts[0]) if eng.paged
+                    else slotted_script(own_prompts), flags, norm_cuda,
+                    "quant_parity",
+                    dict(num_pages=16) if eng.paged else dict(paged=False),
+                    exact=exact["paged" if eng.paged else "slotted"])
+    del quant_engines, eng, exact
+    torch.cuda.empty_cache()
+    seconds["serve_quant"] = time.perf_counter() - t1
     del engine, paged_engine, model, cpu_model
     torch.cuda.empty_cache()
-    seconds["serve"] = time.perf_counter() - t0 - seconds["serve_paged"]
+    seconds["serve"] = (time.perf_counter() - t0 - seconds["serve_paged"]
+                        - seconds["serve_spec"] - seconds["serve_quant"])
 
     # -- train: bench.py's step, GPT-2 345M, AMP O2 bf16, AdamW -----------
     t0 = time.perf_counter()
@@ -2882,7 +3197,10 @@ def main():
                        "flash_fwd_tc", 0),
                    "train": run_train["launches"]["flash_fwd_tc"],
                    "train_long": run_long["launches"]["flash_fwd_tc"],
-                   "train_fp16": run_fp16[0]["launches"]["flash_fwd_tc"]}
+                   "train_fp16": run_fp16[0]["launches"]["flash_fwd_tc"],
+                   # the slotted int8 prefill attends the exact K/V
+                   "serve_quant_slotted_int8":
+                       quant_runs["slotted_int8"]["launches"]["flash_fwd_tc"]}
     # kernel A and C1 run on the f32 path: train_f32's steps and
     # train_parity's f32 card step
     f32_path = parity_by["dtype"]
@@ -3114,6 +3432,11 @@ def main():
              "serve_paged_use_pallas_norm":
                  run_paged_norm["launches"]["layer_norm_fwd"],
              "serve_paged_tight": run_tight["launches"]["layer_norm_fwd"],
+             **{"serve_spec_%s_use_pallas_norm" % name:
+                spec_runs[(name, True)]["launches"]["layer_norm_fwd"]
+                for name in ("serve", "span")},
+             **{"serve_quant_" + name: run["launches"]["layer_norm_fwd"]
+                for name, run in quant_runs.items()},
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_fwd"]},

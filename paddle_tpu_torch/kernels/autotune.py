@@ -3,8 +3,8 @@
 
 - a **registry** of kernel families (here flash_fwd, flash_bwd,
   flash_bwd_dq, flash_bwd_dkv, registered by
-  :mod:`.flash_attention_cuda`, and decode_attn_paged, registered by
-  :mod:`.decode_attention`), each exposing the per-key candidate list
+  :mod:`.flash_attention_cuda`, and decode_attn and decode_attn_paged,
+  registered by :mod:`.decode_attention`), each exposing the per-key candidate list
   (variant name + config dict; candidate [0] is ALWAYS the hand-tuned
   default), a runner that executes one candidate on synthetic data, and
   optionally ``smem_bytes``, the dynamic shared memory a candidate's
@@ -489,23 +489,29 @@ def _import_kernel_families():
 
 def standard_keys() -> List[tuple]:
     """(family, key) pairs for the GPT-2 345M bench shapes: what the CLI
-    warms by default — the four flash families at the training shape and
-    the paged decode attention at the serving shape (8 slots, pages of
-    64, 16 a slot, a pool for all 8 at full depth).  The JAX package's
-    other families (ce_lse, ln, decode_attn, mp_overlap) and its
-    quantized, speculative and tensor-parallel paged keys are not
-    registered here (ROADMAP §C)."""
+    warms by default — the four flash families at the training shape,
+    the slotted decode attention at the serving shape (8 slots, a
+    1024-token cache) and the paged one there (pages of 64, 16 a slot, a
+    pool for all 8 at full depth): one token a step, the int8 pool, and
+    the speculative verify step (``qlen`` 5, four drafts), as the JAX
+    package's keys.  Its other families (ce_lse, ln, mp_overlap) and the
+    tensor-parallel paged key are not registered here (ROADMAP §C)."""
     _import_kernel_families()
     from . import decode_attention as dat
     from . import flash_attention_cuda as fac
     dtype = "bfloat16" if platform() == "gpu" else "float32"
+
+    def paged(qlen, kv_dtype=None):
+        return ("decode_attn_paged", dat.paged_autotune_key(
+            slots=8, pages=128, page_size=64, max_pages=16, h=16, d=64,
+            qlen=qlen, dtype=dtype, kv_dtype=kv_dtype))
     return [(fam_name, fac.autotune_key(b=8, s=1024, sk=1024, h=16, d=64,
                                         dtype=dtype, causal=True))
             for fam_name in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
                              "flash_bwd_dkv")] + [
-        ("decode_attn_paged", dat.paged_autotune_key(
-            slots=8, pages=128, page_size=64, max_pages=16, h=16, d=64,
-            qlen=1, dtype=dtype))]
+        ("decode_attn", dat.autotune_key(slots=8, t=1024, h=16, d=64,
+                                         qlen=1, dtype=dtype)),
+        paged(1), paged(1, "int8"), paged(5)]
 
 
 def warm(pairs=None, verbose: bool = True) -> List[dict]:

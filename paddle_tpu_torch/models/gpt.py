@@ -211,10 +211,12 @@ class GPTForCausalLM(nn.Module):
             return logits, cache
         return logits
 
-    def gen_cache(self, batch_size, dtype=None, max_len=None, device=None):
+    def gen_cache(self, batch_size, dtype=None, max_len=None, device=None,
+                  kv_dtype=None):
         """A preallocated slotted KV cache (``serving.cache.SlottedKVCache``)
         with ``batch_size`` slots, on the model's device and in its
-        embedding dtype unless given."""
+        embedding dtype unless given; ``kv_dtype`` ("int8", "fp8")
+        quantizes it."""
         from ..core.dtype import convert_dtype
         from ..serving.cache import SlottedKVCache
         c = self.config
@@ -224,17 +226,17 @@ class GPTForCausalLM(nn.Module):
             max_len or c.max_position_embeddings, c.num_attention_heads,
             c.hidden_size // c.num_attention_heads,
             w.dtype if dtype is None else convert_dtype(dtype),
-            w.device if device is None else device)
-
+            w.device if device is None else device, kv_dtype=kv_dtype)
 
     def gen_paged_cache(self, batch_size, dtype=None, max_len=None,
-                        page_size=64, device=None):
+                        page_size=64, device=None, kv_dtype=None):
         """A preallocated paged KV cache (``serving.cache.PagedKVCache``)
         with a DENSE identity page table — slot ``i`` owns its own page
         run, so model-level use needs no allocator (the serving engine
         builds the pooled, shared layout through ``serving.pages``).
         ``model(x, cache=paged)`` decodes through the page-gather
-        attention; capacity matches :meth:`gen_cache`."""
+        attention; capacity matches :meth:`gen_cache`; ``kv_dtype``
+        quantizes it."""
         from ..core.dtype import convert_dtype
         from ..serving.cache import PagedKVCache
         c = self.config
@@ -245,7 +247,7 @@ class GPTForCausalLM(nn.Module):
             c.hidden_size // c.num_attention_heads,
             min(int(page_size), max_len),
             w.dtype if dtype is None else convert_dtype(dtype),
-            w.device if device is None else device)
+            w.device if device is None else device, kv_dtype=kv_dtype)
 
 
 class GPTPretrainingCriterion(nn.Module):

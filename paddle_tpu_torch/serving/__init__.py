@@ -3,9 +3,11 @@
 (:mod:`.cache`), the page allocator (:mod:`.pages`), the engine with
 chunked prefill, prefix sharing and copy-on-write (:mod:`.engine`), the
 synchronous continuous-batching scheduler with recompute preemption
-(:mod:`.scheduler`) and per-slot sampling (:mod:`.sampling`).
+(:mod:`.scheduler`), per-slot sampling and the speculative accept rule
+(:mod:`.sampling`), and prompt-lookup drafting (:mod:`.spec`).
 ``engine_for`` and ``generate`` build paged engines unless given
-``paged=False``, as the JAX package's do."""
+``paged=False``, as the JAX package's do; both pass ``spec_k`` and
+``kv_dtype`` through."""
 from __future__ import annotations
 
 import numpy as np
@@ -16,14 +18,17 @@ from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
 from .engine import (DecodeEngine, InflightDecode, PrefillTask,
                      prefill_buckets_for)
 from .pages import PageAllocator, PagePoolExhausted, prompt_digest_chain
-from .sampling import TOP_K_MAX, sample
+from .cache import _as_kv_dtypes
+from .sampling import TOP_K_MAX, sample, spec_accept
 from .scheduler import ContinuousBatchingScheduler, Request, RequestResult
+from .spec import propose
 
 __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
            "PagedDecodeView", "PagedPrefillChunkView", "paged_scatter",
            "is_cache_view", "PageAllocator", "PagePoolExhausted",
            "prompt_digest_chain", "DecodeEngine", "InflightDecode",
-           "PrefillTask", "prefill_buckets_for", "sample", "TOP_K_MAX",
+           "PrefillTask", "prefill_buckets_for", "sample", "spec_accept",
+           "propose", "TOP_K_MAX",
            "ContinuousBatchingScheduler", "Request", "RequestResult",
            "generate", "engine_for"]
 
@@ -39,8 +44,12 @@ def engine_for(model, num_slots=4, max_len=None, tp=1, device=None, **kw):
     geometry: callers reseed the cached engine.  The engine reads the
     model's live parameters, so training between calls is reflected; a
     reused paged engine drops its prefix cache when a parameter changed
-    (``DecodeEngine.refresh_state``)."""
+    (``DecodeEngine.refresh_state``).  ``spec_k`` and ``kv_dtype`` are
+    geometry, keyed canonically: ``spec_k=0`` spelled or defaulted, and
+    ``"fp8"`` or ``"float8_e4m3fn"``, each map to one engine."""
     dev = str(device) if device is not None else None
+    kw["kv_dtype"], _ = _as_kv_dtypes(kw.get("kv_dtype"))
+    kw["spec_k"] = int(kw.get("spec_k", 0))
     key = (int(num_slots), max_len if max_len is None else int(max_len),
            int(tp), dev, tuple(sorted(kw.items())))
     cache = model.__dict__.setdefault("_serving_engines", {})

@@ -1,8 +1,8 @@
 """The KV cache layouts and their views (port of
 ``paddle_tpu/serving/cache.py``: ``SlottedKVCache``, ``DecodeView``,
 ``PrefillView``, ``PagedKVCache``, ``paged_scatter``,
-``PagedDecodeView``, ``PagedPrefillChunkView``; unquantized only — the
-int8/fp8 pools wait for ``kv_dtype``, ROADMAP.md §A3).
+``PagedDecodeView``, ``PagedPrefillChunkView``, each unquantized or
+quantized).
 
 Slotted, per-slot contiguous:
 
@@ -23,6 +23,21 @@ to page id ``num_pages``, one past the pool, and XLA drops the
 out-of-range write.  PyTorch's index writes raise out of range instead,
 so the port's pool holds one page more: page ``num_pages`` is the sink.
 It is never mapped and never read; every dropped write lands there.
+
+**Quantized pools** (``kv_dtype="int8"`` or ``"fp8"``, float8 e4m3, at
+``create``): ``k``/``v`` hold 1-byte codes and the scale pools hold one
+f32 scale per (row, head), in the pool's page or slot structure (the
+paged ones with the sink page too):
+
+    k_scale, v_scale : (num_pages + 1, layers, page_size, heads)  (paged)
+    k_scale, v_scale : (num_slots, layers, max_len, heads)        (slotted)
+
+Appends quantize (``kernels.decode_attention.quantize_kv``) and the q8
+attention variants dequantize what they read.  ``PrefillView`` writes
+quantized rows but attends the exact K/V (nothing precedes its block);
+``PagedPrefillChunkView`` attends its own quantized rows, the values
+every later step reads, as in the JAX package.  An fp8 pool is indexed
+through its bytes (``raw_bytes``).
 
 **Updates in place.**  The JAX package donates the cache buffers to each
 compiled step and XLA aliases them input to output.  PyTorch runs
@@ -49,36 +64,80 @@ indices from a cursor.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..kernels.decode_attention import dequantize_kv, quantize_kv, raw_bytes
 
 __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
            "PagedDecodeView", "PagedPrefillChunkView", "paged_scatter",
-           "is_cache_view"]
+           "is_cache_view", "quantize_kv", "dequantize_kv"]
+
+
+def _as_kv_dtypes(kv_dtype):
+    """(code dtype, scale dtype), or (None, None) for an unquantized
+    pool.  Takes ``"int8"``, ``"float8_e4m3fn"``, the ``"fp8"``
+    shorthand, or the torch dtypes; anything else raises ValueError."""
+    if kv_dtype is None:
+        return None, None
+    dt = kv_dtype
+    if not isinstance(dt, torch.dtype):
+        try:
+            name = (kv_dtype.strip().lower() if isinstance(kv_dtype, str)
+                    else np.dtype(kv_dtype).name)
+        except TypeError:
+            name = None
+        if name == "fp8":
+            name = "float8_e4m3fn"
+        dt = getattr(torch, name, None) if name else None
+    if dt not in (torch.int8, torch.float8_e4m3fn):
+        raise ValueError("kv_dtype %r unsupported (int8 or fp8/"
+                         "float8_e4m3fn)" % (kv_dtype,))
+    return dt, torch.float32
+
+
+def _pools(shape, dtype, kv_dtype, device):
+    """(k, v, k_scale, v_scale) zeroed: the scale pools are None for an
+    unquantized pool."""
+    code_dt, scale_dt = _as_kv_dtypes(kv_dtype)
+    pool_dt = dtype if code_dt is None else code_dt
+    k, v = (torch.zeros(shape, dtype=pool_dt, device=device)
+            for _ in range(2))
+    if scale_dt is None:
+        return k, v, None, None
+    return (k, v) + tuple(torch.zeros(shape[:-1], dtype=scale_dt,
+                                      device=device) for _ in range(2))
 
 
 class SlottedKVCache:
-    """The preallocated cache state (plain tensors, updated in place)."""
+    """The preallocated cache state (plain tensors, updated in place).
+    ``k_scale``/``v_scale`` are the per-(row, head) f32 scale pools of a
+    quantized cache (None for an unquantized one)."""
 
-    def __init__(self, k, v, lengths):
+    def __init__(self, k, v, lengths, k_scale=None, v_scale=None):
         self.k = k
         self.v = v
         self.lengths = lengths
+        self.k_scale = k_scale
+        self.v_scale = v_scale
 
     @classmethod
     def create(cls, num_slots, num_layers, max_len, num_heads, head_dim,
-               dtype=torch.float32, device=None):
+               dtype=torch.float32, device=None, kv_dtype=None):
         """Zeroed buffers on ``device``; ``None`` is the first card
         (``core.device.resolve_device``), so a caller wanting the CPU
         says ``device="cpu"``."""
         device = resolve_device(device)
         shape = (int(num_slots), int(num_layers), int(max_len),
                  int(num_heads), int(head_dim))
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros((int(num_slots),), dtype=torch.int32,
-                               device=device))
+        k, v, ks, vs = _pools(shape, dtype, kv_dtype, device)
+        return cls(k, v, torch.zeros((int(num_slots),), dtype=torch.int32,
+                                     device=device), k_scale=ks, v_scale=vs)
+
+    @property
+    def quantized(self):
+        return self.k_scale is not None
 
     def __repr__(self):
         return ("SlottedKVCache(slots=%d, layers=%d, max_len=%d, heads=%d, "
@@ -93,11 +152,14 @@ class PagedKVCache:
     which the length mask discards.  The pool holds ``num_pages`` pages
     and the sink page after them (module docstring)."""
 
-    def __init__(self, k, v, page_table, lengths, declared_max_len=None):
+    def __init__(self, k, v, page_table, lengths, declared_max_len=None,
+                 k_scale=None, v_scale=None):
         self.k = k
         self.v = v
         self.page_table = page_table
         self.lengths = lengths
+        self.k_scale = k_scale
+        self.v_scale = v_scale
         # the DECLARED length budget, when tighter than the table's
         # capacity (max_len % page_size != 0 leaves dead rows in the tail
         # page)
@@ -106,21 +168,23 @@ class PagedKVCache:
 
     @classmethod
     def create(cls, num_pages, num_layers, page_size, num_heads, head_dim,
-               num_slots, max_pages, dtype=torch.float32, device=None):
-        """Zeroed buffers on ``device`` (None: the first card)."""
+               num_slots, max_pages, dtype=torch.float32, device=None,
+               kv_dtype=None):
+        """Zeroed buffers on ``device`` (None: the first card); the scale
+        pools, when quantized, hold the sink page too."""
         device = resolve_device(device)
         shape = (int(num_pages) + 1, int(num_layers), int(page_size),
                  int(num_heads), int(head_dim))
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros((int(num_slots), int(max_pages)),
-                               dtype=torch.int64, device=device),
+        k, v, ks, vs = _pools(shape, dtype, kv_dtype, device)
+        return cls(k, v, torch.zeros((int(num_slots), int(max_pages)),
+                                     dtype=torch.int64, device=device),
                    torch.zeros((int(num_slots),), dtype=torch.int32,
-                               device=device))
+                               device=device), k_scale=ks, v_scale=vs)
 
     @classmethod
     def create_dense(cls, num_slots, num_layers, max_len, num_heads,
-                     head_dim, page_size, dtype=torch.float32, device=None):
+                     head_dim, page_size, dtype=torch.float32, device=None,
+                     kv_dtype=None):
         """A pool with exactly one page set per slot, identity-mapped
         (slot ``i`` owns pages ``[i*max_pages, (i+1)*max_pages)``) — the
         allocator-free layout for model-level use (``gen_paged_cache``):
@@ -128,12 +192,17 @@ class PagedKVCache:
         max_pages = -(-int(max_len) // int(page_size))
         cache = cls.create(int(num_slots) * max_pages, num_layers,
                            page_size, num_heads, head_dim, num_slots,
-                           max_pages, dtype, device)
+                           max_pages, dtype, device, kv_dtype)
         table = torch.arange(int(num_slots) * max_pages, dtype=torch.int64,
                              device=cache.k.device).reshape(
                                  int(num_slots), max_pages)
         return cls(cache.k, cache.v, table, cache.lengths,
-                   declared_max_len=int(max_len))
+                   declared_max_len=int(max_len), k_scale=cache.k_scale,
+                   v_scale=cache.v_scale)
+
+    @property
+    def quantized(self):
+        return self.k_scale is not None
 
     @property
     def num_pages(self):
@@ -161,9 +230,13 @@ class PagedKVCache:
                    + tuple(self.page_table.shape) + (self.k.dtype,)))
 
 
-def paged_scatter(kc, vc, layer, table, pos, valid, k_new, v_new):
+def paged_scatter(kc, vc, layer, table, pos, valid, k_new, v_new, ksc=None,
+                  vsc=None, ks_new=None, vs_new=None):
     """Scatter ``k_new/v_new: (B, s, heads, head_dim)`` into page rows of
-    ``layer``, in place.
+    ``layer``, in place.  For a quantized pool, ``k_new/v_new`` are the
+    codes and ``ks_new/vs_new: (B, s, heads)`` the scale rows, written
+    into the scale pools ``ksc/vsc`` through the same indices (the sink
+    page included).
 
     ``table: (B, max_pages)`` maps each lane's pages; ``pos: (B, s)`` are
     global token positions; entries with ``valid`` False (inactive decode
@@ -174,7 +247,8 @@ def paged_scatter(kc, vc, layer, table, pos, valid, k_new, v_new):
     it."""
     page_id, row = _scatter_index(table, pos, valid, int(kc.shape[2]),
                                   int(kc.shape[0]) - 1)
-    _write_rows(kc, vc, layer, page_id, row, k_new, v_new)
+    _write_rows(((kc, k_new), (vc, v_new), (ksc, ks_new), (vsc, vs_new)),
+                layer, page_id, row)
 
 
 def _scatter_index(table, pos, valid, page_size, sink):
@@ -187,9 +261,12 @@ def _scatter_index(table, pos, valid, page_size, sink):
     return page_id, pos.long() % page_size
 
 
-def _write_rows(kc, vc, layer, page_id, row, k_new, v_new):
-    kc[page_id, layer, row] = k_new.to(kc.dtype)
-    vc[page_id, layer, row] = v_new.to(vc.dtype)
+def _write_rows(pairs, layer, page_id, row):
+    """Index-write each (pool, new rows) pair; a None pool is skipped."""
+    for pool, new in pairs:
+        if pool is not None:
+            raw_bytes(pool)[page_id, layer, row] = raw_bytes(
+                new.to(pool.dtype))
 
 
 def is_cache_view(obj) -> bool:
@@ -203,8 +280,33 @@ class _CacheView:
         self.cache = cache
         self.k = cache.k
         self.v = cache.v
+        self.k_scale = cache.k_scale
+        self.v_scale = cache.v_scale
         self.lengths = cache.lengths
         self._layer = 0
+
+    @property
+    def quantized(self):
+        return self.k_scale is not None
+
+    def _new_rows(self, k_new, v_new):
+        """This layer's (pool, new rows) pairs: K and V, and for a
+        quantized cache the codes and the scale rows (the pool's dtype
+        picks the grid)."""
+        if not self.quantized:
+            return ((self.k, k_new), (self.v, v_new))
+        kq, ks = quantize_kv(k_new, self.k.dtype)
+        vq, vs = quantize_kv(v_new, self.v.dtype)
+        return ((self.k, kq), (self.v, vq), (self.k_scale, ks),
+                (self.v_scale, vs))
+
+    def _scales(self, layer):
+        """The q8 attention's scale keywords for ``layer`` (none for an
+        unquantized cache)."""
+        if not self.quantized:
+            return {}
+        return {"k_scales": self.k_scale[:, layer],
+                "v_scales": self.v_scale[:, layer]}
 
     def _alloc_layer(self) -> int:
         i = self._layer
@@ -237,6 +339,7 @@ class DecodeView(_CacheView):
         self.active = active
         self._steps = 0
         self._rows = None
+        self._block_t = None
 
     def position_ids(self, batch, seq_len):
         if batch != int(self.k.shape[0]):
@@ -272,17 +375,23 @@ class DecodeView(_CacheView):
         return self._rows
 
     def _append_attend(self, layer, q, k_new, v_new, scale):
-        from ..kernels.decode_attention import decode_attention
+        from ..kernels.decode_attention import (decode_attention,
+                                                resolve_block_t)
         s = int(q.shape[1])
         self._steps = s
         b_idx, rows, src, write = self._write_rows(s)
-        kl, vl = self.k[:, layer], self.v[:, layer]
-        write4 = write[..., None, None]
-        kl[b_idx, rows] = torch.where(write4, k_new[b_idx, src].to(kl.dtype),
-                                      kl[b_idx, rows])
-        vl[b_idx, rows] = torch.where(write4, v_new[b_idx, src].to(vl.dtype),
-                                      vl[b_idx, rows])
-        return decode_attention(q, kl, vl, self.lengths, scale=scale)
+        for pool, new in self._new_rows(k_new, v_new):
+            dst = raw_bytes(pool[:, layer])
+            keep = write.reshape(write.shape + (1,) * (dst.dim() - 2))
+            dst[b_idx, rows] = torch.where(
+                keep, raw_bytes(new.to(pool.dtype))[b_idx, src],
+                dst[b_idx, rows])
+        if self._block_t is None:
+            self._block_t = resolve_block_t(
+                q, self.k[:, layer], self.k.dtype if self.quantized else None)
+        return decode_attention(q, self.k[:, layer], self.v[:, layer],
+                                self.lengths, scale=scale,
+                                block_t=self._block_t, **self._scales(layer))
 
     def finalize(self) -> SlottedKVCache:
         adv = torch.full_like(self.lengths, self._steps)
@@ -315,10 +424,11 @@ class PrefillView(_CacheView):
         from ..kernels import flash_attention as fa
         from ..nn.functional.attention import sdpa_reference_raw
         s = int(k_new.shape[1])
-        self.k[self.slot, layer, :s] = k_new[0]
-        self.v[self.slot, layer, :s] = v_new[0]
+        for pool, new in self._new_rows(k_new, v_new):
+            raw_bytes(pool)[self.slot, layer, :s] = raw_bytes(new[0])
         # fresh slot: nothing precedes the block — plain causal attention
-        # over the bucket, through the CUDA flash kernel when it applies
+        # over the bucket's exact K/V, through the CUDA flash kernel when
+        # it applies
         if fa.supported(q, k_new):
             return fa.flash_attention_bshd(q, k_new, v_new, causal=True,
                                            scale=scale)
@@ -356,12 +466,15 @@ class _PagedView(_CacheView):
             self._step = _scatter_index(
                 table, pos, valid, int(self.k.shape[2]),
                 int(self.k.shape[0]) - 1) + (
-                lengths, resolve_pages_per_block(q, self.k[:, layer], table))
+                lengths, resolve_pages_per_block(
+                    q, self.k[:, layer], table,
+                    self.k.dtype if self.quantized else None))
         page_id, row, lengths, blocks = self._step
-        _write_rows(self.k, self.v, layer, page_id, row, k_new, v_new)
+        _write_rows(self._new_rows(k_new, v_new), layer, page_id, row)
         return paged_decode_attention(q, self.k[:, layer], self.v[:, layer],
                                       table, lengths, scale=scale,
-                                      pages_per_block=blocks)
+                                      pages_per_block=blocks,
+                                      **self._scales(layer))
 
 
 class PagedDecodeView(_PagedView):
@@ -402,8 +515,13 @@ class PagedDecodeView(_PagedView):
             valid = valid & self.active[:, None]
         return pos, valid, self.lengths
 
-    def finalize(self) -> PagedKVCache:
-        adv = torch.full_like(self.lengths, self._steps)
+    def finalize(self, advance=None) -> PagedKVCache:
+        """``advance`` (per-slot, optional) replaces the uniform advance
+        of ``s`` rows a slot: the speculative verify passes the accepted
+        count + 1, so a rejected draft moves no length (its rows stay
+        written past the length, and the next step overwrites them)."""
+        adv = (torch.full_like(self.lengths, self._steps) if advance is None
+               else advance.to(self.lengths.dtype))
         if self.active is not None:
             adv = adv * self.active.to(adv.dtype)
         torch.minimum(self.lengths + adv,

@@ -27,6 +27,15 @@ package:
     append needs are mapped first (``ensure_decode_ready``), and a dry
     pool raises :class:`~.pages.PagePoolExhausted` for the scheduler to
     evict a slot.
+  - **Speculative verify** (``spec_k > 0``, paged only, as in JAX):
+    ``decode_spec_submit`` / ``decode_spec_fetch`` / ``decode_spec``
+    run ONE forward over each slot's ``[last token, k drafts]``
+    (drafts from :func:`.spec.propose`), accept a prefix and sample one
+    token (:func:`.sampling.spec_accept`, capped at ``max_len - 1 -
+    length``), and advance each length by the accepted count + 1; a
+    rejected draft's rows stay written past the length and the next
+    step overwrites them.  The host length mirror advances at fetch,
+    the step's one sync.
 
 * **Slotted** (``paged=False``) — per-slot contiguous ``max_len``
   buffers, bucketed whole-prompt prefill (the CUDA flash forward on a
@@ -43,10 +52,15 @@ parameters; a paged engine drops its prefix cache when a parameter
 changed since the cache was filled (``refresh_state``, checked at every
 admission), so a prefix hit never serves K/V of older weights.
 
+**Quantized KV** (``kv_dtype="int8"``, ``"fp8"`` or
+``"float8_e4m3fn"``, either layout): the pools hold 1-byte codes and an
+f32 scale per (row, head) (:mod:`.cache`); ``kv_row_bytes`` and what is
+derived from it price codes plus scales.
+
 The engine runs on the card unless ``device="cpu"`` is given, and moves
 the model there.  Not ported yet, and raising ``NotImplementedError``
-instead of running something else (ROADMAP.md §A3, §A5): speculative
-decode, quantized KV and tensor parallelism.
+instead of running something else (ROADMAP.md §A5): tensor
+parallelism.
 """
 from __future__ import annotations
 
@@ -58,16 +72,15 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
+from ..kernels.decode_attention import raw_bytes
 from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
-                    PagedPrefillChunkView, PrefillView, SlottedKVCache)
+                    PagedPrefillChunkView, PrefillView, SlottedKVCache,
+                    _as_kv_dtypes)
 from .pages import PageAllocator, PagePoolExhausted
-from .sampling import TOP_K_MAX, sample
+from .sampling import TOP_K_MAX, sample, spec_accept
 
 __all__ = ["DecodeEngine", "InflightDecode", "PagePoolExhausted",
            "PrefillTask", "prefill_buckets_for"]
-
-_NOT_PORTED = "%s is not ported to paddle_tpu_torch yet (ROADMAP.md §A3)"
-
 
 def prefill_buckets_for(max_len, min_bucket=16):
     """Power-of-two prefill buckets up to ``max_len``; a non-power-of-two
@@ -97,10 +110,15 @@ def _eval_scope(model):
 
 @dataclasses.dataclass
 class InflightDecode:
-    """One launched decode step whose tokens are not fetched yet: the
-    device tensors of the sampled tokens and the last-position logits."""
-    tok: object                           # (S,) int32 device tensor
-    logits: object                        # (S, vocab) device tensor
+    """One launched decode (or speculative verify) step whose results
+    are not fetched yet: device tensors only."""
+    kind: str                             # "decode" | "spec"
+    active: "np.ndarray"                  # (S,) bool, the step's lanes
+    logits: object                        # (S, vocab) | (S, k+1, vocab)
+    tok: object = None                    # (S,) int32 (decode)
+    emitted: object = None                # (S, k+1) int32 (spec)
+    counts: object = None                 # (S,) int32 accepted+1 (spec)
+    paged_rows: int = 0                   # mapped rows at launch (spec)
 
 
 @dataclasses.dataclass
@@ -127,20 +145,9 @@ class DecodeEngine:
     def __init__(self, model, num_slots=4, max_len=None, cache_dtype=None,
                  min_bucket=16, seed=0, top_k_max=TOP_K_MAX, paged=True,
                  page_size=64, num_pages=None, prefill_chunk=None,
-                 kv_dtype=None, spec_k=0, tp=1, device=None):
-        if spec_k:
-            raise NotImplementedError(_NOT_PORTED % "speculative decode")
-        if kv_dtype is not None:
-            raise NotImplementedError(_NOT_PORTED % "quantized KV")
-        if int(tp) != 1:
-            raise NotImplementedError(
-                "tensor parallelism is not ported to paddle_tpu_torch yet "
-                "(ROADMAP.md §A5)")
+                 kv_dtype=None, spec_k=0, spec_ngram=3, tp=1, device=None):
         cfg = model.config
-        self.device = resolve_device(device)
-        self.model = model.to(self.device)
         self.paged = bool(paged)
-        self.spec_k = 0
         self.num_slots = int(num_slots)
         self.max_len = int(max_len or cfg.max_position_embeddings)
         if self.max_len > cfg.max_position_embeddings:
@@ -156,10 +163,34 @@ class DecodeEngine:
         self._heads = cfg.num_attention_heads
         self._head_dim = cfg.hidden_size // cfg.num_attention_heads
         self._cache_dtype = convert_dtype(cache_dtype)
-        # decode KV-read accounting: per decode step, `paged_rows` adds
-        # the rows a length-aware paged schedule reads (mapped pages) and
-        # `flat_rows` the slotted slots * max_len sweep
+        # the cache's own gate canonicalizes kv_dtype ("fp8" included)
+        self._kv_code_dtype, _ = _as_kv_dtypes(kv_dtype)
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        if self.spec_k < 0:
+            raise ValueError("spec_k must be >= 0")
+        if self.spec_k and not self.paged:
+            raise ValueError(
+                "speculative decode runs on the paged engine (spec_k "
+                "with paged=False is not supported — the slotted layout "
+                "is the A/B baseline)")
+        if self.spec_k >= self.max_len:
+            raise ValueError("spec_k %d must be < max_len %d"
+                             % (self.spec_k, self.max_len))
+        if int(tp) != 1:
+            raise NotImplementedError(
+                "tensor parallelism is not ported to paddle_tpu_torch yet "
+                "(ROADMAP.md §A5)")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        # decode KV-read accounting: per decode or verify step,
+        # `paged_rows` adds the rows a length-aware paged schedule reads
+        # (mapped pages, one sweep a step however many tokens it commits)
+        # and `flat_rows` the slotted slots * max_len sweep a token
         self.kv_stats = {"tokens": 0, "paged_rows": 0, "flat_rows": 0}
+        # speculative accounting: verify steps, drafts proposed (k an
+        # active lane) and accepted
+        self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0}
         if self.paged:
             self._init_paged(page_size, num_pages, prefill_chunk)
         else:
@@ -167,7 +198,8 @@ class DecodeEngine:
             self.prompt_cap = self.buckets[-1]
             self.cache = SlottedKVCache.create(
                 self.num_slots, self._layers, self.max_len, self._heads,
-                self._head_dim, self._cache_dtype, self.device)
+                self._head_dim, self._cache_dtype, self.device,
+                kv_dtype=self.kv_dtype)
         self._state_versions = self._param_versions()
         self._generator = torch.Generator(device=self.device)
         self.reseed(seed)
@@ -189,9 +221,15 @@ class DecodeEngine:
         self.cache = PagedKVCache.create(
             self.num_pages, self._layers, self.page_size, self._heads,
             self._head_dim, self.num_slots, self.max_pages,
-            self._cache_dtype, self.device)
+            self._cache_dtype, self.device, kv_dtype=self.kv_dtype)
         self.cow_copies = 0               # pages copied on write
         self.pages_used_peak = 0          # most pages mapped at once
+
+    @property
+    def kv_dtype(self):
+        """The pools' code dtype (``torch.int8`` or
+        ``torch.float8_e4m3fn``), or None for an unquantized pool."""
+        return self._kv_code_dtype
 
     # -- host-side API -----------------------------------------------------
 
@@ -220,6 +258,7 @@ class DecodeEngine:
         """Free every slot (paged: pages return to the pool and the prefix
         cache is dropped; slot contents are overwritten lazily)."""
         self.kv_stats = {"tokens": 0, "paged_rows": 0, "flat_rows": 0}
+        self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0}
         if self.paged:
             self._alloc.reset()
             self._len_host[:] = 0
@@ -259,6 +298,14 @@ class DecodeEngine:
                 torch.as_tensor(np.asarray(top_p, np.float32),
                                 device=dev).reshape(-1))
 
+    def _token_column(self, tokens):
+        """The per-slot last committed tokens (host array or device
+        tensor) as an (S, 1) int32 tensor on the engine's device."""
+        toks = torch.as_tensor(np.asarray(tokens, np.int32)
+                               if not isinstance(tokens, torch.Tensor)
+                               else tokens, device=self.device)
+        return toks.to(torch.int32).reshape(self.num_slots, 1)
+
     # -- paged page bookkeeping (host side) --------------------------------
 
     def _note_pool(self):
@@ -297,12 +344,14 @@ class DecodeEngine:
     @torch.inference_mode()
     def _cow_page(self, slot, idx):
         """Copy-on-write ``slot``'s page-table entry ``idx`` to a fresh
-        private page, every layer (raises PagePoolExhausted when the pool
-        is dry)."""
+        private page, every layer, the scale rows of a quantized pool
+        with it (raises PagePoolExhausted when the pool is dry)."""
         new_pid = self._alloc.alloc()
         old_pid = int(self._alloc.table[int(slot), int(idx)])
-        self.cache.k[new_pid] = self.cache.k[old_pid]
-        self.cache.v[new_pid] = self.cache.v[old_pid]
+        c = self.cache
+        for pool in (c.k, c.v, c.k_scale, c.v_scale):
+            if pool is not None:
+                raw_bytes(pool)[new_pid] = raw_bytes(pool)[old_pid]
         self._alloc.remap(int(slot), int(idx), new_pid)
         self.cow_copies += 1
 
@@ -320,8 +369,9 @@ class DecodeEngine:
         self._note_pool()
 
     def ensure_decode_ready(self, active, steps=1):
-        """Pre-step page bookkeeping for one batched decode: every active
-        slot's append range must land in mapped, PRIVATE pages.  Returns
+        """Pre-step page bookkeeping for one batched decode (or verify:
+        ``steps = spec_k + 1`` appends a slot): every active slot's
+        append range must land in mapped, PRIVATE pages.  Returns
         the first slot index that could not get a page (pool dry — evict
         and retry), or None when ready."""
         if not self.paged:
@@ -470,10 +520,7 @@ class DecodeEngine:
                 raise PagePoolExhausted(
                     "no free page for slot %d's append — evict a slot "
                     "(the scheduler does this refcount-aware)" % blocked)
-        toks = torch.as_tensor(np.asarray(tokens, np.int32)
-                               if not isinstance(tokens, torch.Tensor)
-                               else tokens, device=self.device)
-        toks = toks.to(torch.int32).reshape(self.num_slots, 1)
+        toks = self._token_column(tokens)
         active_dev = torch.as_tensor(active_np, device=self.device)
         if self.paged:
             self._sync_table()
@@ -496,11 +543,15 @@ class DecodeEngine:
             self._len_host[active_np] += 1
             np.minimum(self._len_host, self.max_len, out=self._len_host)
             self.kv_stats["paged_rows"] += self._alloc.mapped_rows_total()
-        return InflightDecode(tok=tok, logits=logits)
+        return InflightDecode(kind="decode", active=active_np, tok=tok,
+                              logits=logits)
 
     def decode_fetch(self, step: InflightDecode):
         """Consume a launched step: returns (next tokens as an np array,
         logits as a device tensor)."""
+        if step.kind != "decode":
+            raise ValueError("decode_fetch() consumes decode steps; got a "
+                             "%r step (use decode_spec_fetch)" % step.kind)
         return step.tok.cpu().numpy(), step.logits
 
     def decode(self, tokens, active, temperature, top_k, top_p,
@@ -511,12 +562,114 @@ class DecodeEngine:
             tokens, active, temperature, top_k, top_p,
             pages_ready=pages_ready))
 
+    # -- speculative verify (paged engines with spec_k) --------------------
+
+    @torch.inference_mode()
+    def decode_spec_submit(self, tokens, drafts, active, temperature,
+                           top_k, top_p,
+                           pages_ready=False) -> InflightDecode:
+        """Launch one speculative verify step without fetching its
+        results.  ``tokens``: the per-slot last committed tokens (host
+        array or an (S,) device tensor); ``drafts``: (num_slots, spec_k)
+        proposals.  One forward scores the ``spec_k + 1`` positions of
+        every slot; :func:`.sampling.spec_accept` accepts a prefix
+        (capped so that no length passes ``max_len``) and the device
+        lengths advance by the accepted count + 1.  The host length
+        mirror and the accounting wait for :meth:`decode_spec_fetch`,
+        since the advance depends on the data."""
+        if not self.spec_k:
+            raise RuntimeError("decode_spec needs an engine built with "
+                               "spec_k > 0")
+        S, k = self.num_slots, self.spec_k
+        drafts_np = np.asarray(drafts, np.int32).reshape(S, k)
+        vocab = int(self.model.config.vocab_size)
+        if drafts_np.size and (drafts_np.min() < 0
+                               or drafts_np.max() >= vocab):
+            raise ValueError("draft token ids must lie in [0, %d)" % vocab)
+        active_np = np.asarray(active, bool).reshape(S)
+        if not pages_ready:
+            blocked = self.ensure_decode_ready(active_np, steps=k + 1)
+            if blocked is not None:
+                raise PagePoolExhausted(
+                    "no free page for slot %d's speculative appends — "
+                    "evict a slot (the scheduler does this "
+                    "refcount-aware)" % blocked)
+        step_toks = torch.cat([self._token_column(tokens),
+                               torch.as_tensor(drafts_np,
+                                               device=self.device)], dim=1)
+        active_dev = torch.as_tensor(active_np, device=self.device)
+        self._sync_table()
+        # acceptance never reaches past the cache's room: position j's
+        # logits hold only while length + j < max_len
+        a_cap = self.max_len - 1 - self.cache.lengths
+        view = PagedDecodeView(self.cache, active=active_dev,
+                               max_len=self.max_len)
+        with _eval_scope(self.model):
+            logits, _ = self.model(step_toks, cache=view)
+        logits = logits.float()                         # (S, k+1, V)
+        emitted, counts = spec_accept(
+            logits, step_toks, self._generator,
+            *self._params(temperature, top_k, top_p), self.top_k_max,
+            max_accept=a_cap)
+        view.finalize(advance=counts)
+        return InflightDecode(kind="spec", active=active_np,
+                              logits=logits, emitted=emitted,
+                              counts=counts,
+                              paged_rows=self._alloc.mapped_rows_total())
+
+    def decode_spec_fetch(self, step: InflightDecode):
+        """Consume a launched verify step: fetch ``counts`` and
+        ``emitted`` (the step's one sync), advance the host length mirror
+        by the in-place commit and settle the spec and KV accounting.
+        Returns ``(emitted, counts, logits)`` as :meth:`decode_spec`."""
+        if step.kind != "spec":
+            raise ValueError("decode_spec_fetch() consumes spec steps; got "
+                             "a %r step (use decode_fetch)" % step.kind)
+        active_np = step.active
+        counts_np = step.counts.cpu().numpy().astype(np.int64)
+        # mirror the view's finalize: active lanes advance by the
+        # accepted count + 1, clamped at max_len
+        self._len_host[active_np] += counts_np[active_np]
+        np.minimum(self._len_host, self.max_len, out=self._len_host)
+        n_active = int(active_np.sum())
+        emitted_total = int(counts_np[active_np].sum())
+        self.spec_stats["steps"] += 1
+        self.spec_stats["proposed"] += self.spec_k * n_active
+        self.spec_stats["accepted"] += emitted_total - n_active
+        # one mapped-pages sweep serves every token the step commits; the
+        # flat bound is one slots * max_len sweep a single-token step,
+        # n_active tokens a sweep (the plain decode's normalization)
+        self.kv_stats["tokens"] += emitted_total
+        if n_active:
+            self.kv_stats["flat_rows"] += (self.num_slots * self.max_len
+                                           * emitted_total) / n_active
+        self.kv_stats["paged_rows"] += step.paged_rows
+        return step.emitted.cpu().numpy(), counts_np, step.logits
+
+    def decode_spec(self, tokens, drafts, active, temperature, top_k,
+                    top_p, pages_ready=False):
+        """One speculative verify step.  Returns ``(emitted, counts,
+        logits)``: emitted (num_slots, spec_k + 1) int32 whose row ``b``
+        holds ``counts[b]`` usable tokens, the accepted drafts and one
+        sampled or corrected token; logits (slots, k + 1, vocab) stay on
+        the device.  Each slot's length advanced by ``counts[b]`` (the
+        last emitted token is appended by the NEXT step, as in
+        :meth:`decode`)."""
+        return self.decode_spec_fetch(self.decode_spec_submit(
+            tokens, drafts, active, temperature, top_k, top_p,
+            pages_ready=pages_ready))
+
     # -- KV accounting -----------------------------------------------------
 
     def kv_row_bytes(self):
-        """Bytes one K+V row costs a decode read: every layer and head."""
-        itemsize = torch.empty((), dtype=self._cache_dtype).element_size()
-        return self._layers * self._heads * self._head_dim * itemsize * 2
+        """Bytes one K+V row costs a decode read: every layer and head.
+        A quantized row is its 1-byte codes plus the f32 scale of each
+        head."""
+        if self.kv_dtype is not None:
+            per_head = self._head_dim * self.kv_dtype.itemsize + 4
+        else:
+            per_head = self._head_dim * self._cache_dtype.itemsize
+        return self._layers * self._heads * per_head * 2
 
     def kv_pool_bytes(self):
         """Bytes of KV the engine holds resident: paged pools price every

@@ -30,9 +30,19 @@ preemption), mostly prefix-hitting its own still-cached pages.  A
 request evicted more than ``max_preemptions`` times, or one whose
 sequence the pool cannot hold alone, finishes ``"cache_full"``.
 
+**Speculative decode** (engines with ``spec_k > 0``): the decode
+iteration becomes a verify iteration.  Each active slot drafts
+``spec_k`` tokens by prompt lookup over its own ``prompt + generated``
+(:func:`.spec.propose`, host-side), one verify step scores every
+position, and the scheduler commits the emitted run, cut at EOS and at
+``max_new_tokens`` (a cut always retires the slot).  TPOT stays seconds
+per committed token: a verify step's wall time is shared by every token
+it emitted.  Per request, ``spec_proposed`` and ``spec_accepted`` land
+on the :class:`RequestResult` and survive preemption.
+
 Not ported yet (ROADMAP.md §A3, §A6): the overlapped loop
-(``overlap=True`` raises), speculative verify, tracing, metrics,
-host-tier fetches and the requeue transfer.
+(``overlap=True`` raises), tracing, metrics, host-tier fetches and the
+requeue transfer.
 """
 from __future__ import annotations
 
@@ -44,6 +54,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .pages import PagePoolExhausted
+from .spec import propose
 
 __all__ = ["Request", "RequestResult", "ContinuousBatchingScheduler"]
 
@@ -71,12 +82,17 @@ class RequestResult:
     prefix_hit_tokens: int = 0           # tokens served from the prefix
                                          # cache, over all admissions
     preemptions: int = 0                 # times evicted and requeued
+    spec_proposed: int = 0               # draft tokens proposed for this
+                                         # request (spec_k a verify step)
+    spec_accepted: int = 0               # drafts the verify steps
+                                         # accepted; 0/0 with spec off
 
 
 class _ActiveSlot:
     __slots__ = ("req", "generated", "submit_t", "first_tok_t", "decode_s",
                  "decode_steps", "queue_wait", "prefill_task",
-                 "admit_order", "prefix_hit_tokens", "cache_len")
+                 "admit_order", "prefix_hit_tokens", "spec_proposed",
+                 "spec_accepted", "cache_len")
 
     def __init__(self, req, submit_t, queue_wait, admit_order,
                  prefill_task=None):
@@ -91,6 +107,8 @@ class _ActiveSlot:
         self.admit_order = admit_order     # FIFO tie-break for eviction
         self.prefix_hit_tokens = (prefill_task.shared_tokens
                                   if prefill_task is not None else 0)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self.cache_len = 0               # committed cache rows
 
     def first_token(self, tok, now):
@@ -164,7 +182,9 @@ class ContinuousBatchingScheduler:
             finish_reason=reason, ttft=ttft, tpot=tpot,
             queue_wait=act.queue_wait,
             prefix_hit_tokens=act.prefix_hit_tokens,
-            preemptions=self._preempt_count.pop(act.req.rid, 0))
+            preemptions=self._preempt_count.pop(act.req.rid, 0),
+            spec_proposed=act.spec_proposed,
+            spec_accepted=act.spec_accepted)
 
     def _check_finished(self, idx: int):
         """Retire the slot if its latest token ended the request.  The
@@ -325,16 +345,19 @@ class ContinuousBatchingScheduler:
                 for a in self.slots]
 
     def decode_once(self) -> int:
-        """One batched decode over the slots whose prefill is done;
-        returns the number of tokens appended.  A paged engine first maps
-        every append's page, evicting refcount-aware while the pool is
-        dry."""
+        """One batched decode (or speculative verify) over the slots
+        whose prefill is done; returns the number of tokens appended.  A
+        paged engine first maps every append's page (``spec_k + 1`` a
+        slot for a verify step), evicting refcount-aware while the pool
+        is dry."""
+        spec_k = int(self.engine.spec_k)
         active = self._active_mask()
         if not any(active):
             return 0
         if self.engine.paged:
             while True:
-                blocked = self.engine.ensure_decode_ready(active)
+                blocked = self.engine.ensure_decode_ready(
+                    active, steps=spec_k + 1)
                 if blocked is None:
                     break
                 self._evict_for_pages(blocked)
@@ -346,6 +369,7 @@ class ContinuousBatchingScheduler:
         temps = np.ones((S,), np.float32)
         top_ks = np.zeros((S,), np.int32)
         top_ps = np.ones((S,), np.float32)
+        drafts = np.zeros((S, spec_k), np.int32)
         for i, act in enumerate(self.slots):
             if not active[i]:
                 continue
@@ -353,21 +377,52 @@ class ContinuousBatchingScheduler:
             temps[i] = act.req.temperature
             top_ks[i] = act.req.top_k
             top_ps[i] = act.req.top_p
+            if spec_k:
+                # prompt lookup over the slot's own history: a miss pads,
+                # and the verify step then emits one token, as decode
+                hist = np.concatenate(
+                    [act.req.prompt, np.asarray(act.generated, np.int32)])
+                drafts[i], _hit = propose(hist, spec_k,
+                                          self.engine.spec_ngram)
         t0 = time.perf_counter()
-        next_tok, _logits = self.engine.decode(tokens, active, temps,
-                                               top_ks, top_ps,
-                                               pages_ready=True)
+        if spec_k:
+            emitted, counts, _logits = self.engine.decode_spec(
+                tokens, drafts, active, temps, top_ks, top_ps,
+                pages_ready=True)
+        else:
+            next_tok, _logits = self.engine.decode(tokens, active, temps,
+                                                   top_ks, top_ps,
+                                                   pages_ready=True)
         step_s = time.perf_counter() - t0
         self.decode_steps_total += 1
         n = 0
         for i, act in enumerate(self.slots):
             if not active[i]:
                 continue
-            act.generated.append(int(next_tok[i]))
-            act.cache_len = min(act.cache_len + 1, self.engine.max_len)
+            if spec_k:
+                raw = int(counts[i])
+                emit = [int(t) for t in emitted[i, :raw]]
+                act.spec_proposed += spec_k
+                act.spec_accepted += raw - 1
+                # the device committed `raw` rows (clamped at max_len)
+                act.cache_len = min(act.cache_len + raw,
+                                    self.engine.max_len)
+                # cut at the budget and at EOS: both retire the slot in
+                # _check_finished, so a cut token list never belongs to
+                # a slot that keeps decoding
+                emit = emit[:max(act.req.max_new_tokens
+                                 - len(act.generated), 0)]
+                eos = act.req.eos_token_id
+                if eos is not None and int(eos) in emit:
+                    emit = emit[:emit.index(int(eos)) + 1]
+            else:
+                emit = [int(next_tok[i])]
+                act.cache_len = min(act.cache_len + 1,
+                                    self.engine.max_len)
+            act.generated.extend(emit)
             act.decode_s += step_s
-            act.decode_steps += 1
-            n += 1
+            act.decode_steps += len(emit)     # TPOT: seconds a token
+            n += len(emit)
             self._check_finished(i)
         return n
 

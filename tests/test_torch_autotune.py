@@ -331,20 +331,27 @@ def test_warm_and_cli_smoke(capsys, monkeypatch):
 
 
 def test_standard_keys_are_the_bench_shapes():
-    """The four flash families at the training shape and, since the
-    paged engine, the paged decode attention at the serving shape: the
+    """The four flash families at the training shape and the decode
+    attention at the serving shape: slotted, and paged at one token a
+    step, over the int8 pool and at the speculative verify's five: the
     JAX module's keys for them (the CPU: float32)."""
     pairs = at.standard_keys()
     assert [f for f, _ in pairs] == ["flash_fwd", "flash_bwd",
                                      "flash_bwd_dq", "flash_bwd_dkv",
-                                     "decode_attn_paged"]
+                                     "decode_attn"] + \
+        ["decode_attn_paged"] * 3
     want = jax_fap.autotune_key(8, 1024, 1024, 16, 64, jnp.float32, True)
     assert all(k == want for _, k in pairs[:4])
-    assert pairs[4][1] == jax_dat.paged_autotune_key(
-        slots=8, pages=128, page_size=64, max_pages=16, h=16, d=64, qlen=1,
-        dtype=jnp.float32)
-    assert pairs[4][1] in [k for f, k in jax_at.standard_keys()
-                           if f == "decode_attn_paged"]
+    assert pairs[4][1] == jax_dat.autotune_key(
+        slots=8, t=1024, h=16, d=64, qlen=1, dtype=jnp.float32)
+    paged = dict(slots=8, pages=128, page_size=64, max_pages=16, h=16, d=64,
+                 dtype=jnp.float32)
+    assert [k for _, k in pairs[5:]] == [
+        jax_dat.paged_autotune_key(qlen=1, **paged),
+        jax_dat.paged_autotune_key(qlen=1, kv_dtype="int8", **paged),
+        jax_dat.paged_autotune_key(qlen=5, **paged)]
+    jax_pairs = jax_at.standard_keys()
+    assert all((f, k) in jax_pairs for f, k in pairs[4:])
 
 
 def test_paged_decode_family_matches_the_jax_module(monkeypatch):

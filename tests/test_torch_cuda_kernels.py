@@ -1349,3 +1349,221 @@ def test_f32_pipelined_kernel_on_fused_views_is_bit_identical():
                                            msg=what)
                 assert torch.equal(out, again[0]), what
                 assert torch.equal(lse, again[1]), what
+
+
+# ---------------------------------------------------------------------------
+# the quantized KV cache on the card (int8 and fp8 e4m3), against the CPU
+# ---------------------------------------------------------------------------
+
+def _bytes_of(t):
+    """A tensor's bytes on the host, for bitwise comparison."""
+    from paddle_tpu_torch.kernels.decode_attention import raw_bytes
+    t = t.detach().cpu()
+    return raw_bytes(t).numpy() if t.dtype.itemsize == 1 \
+        else t.view(torch.int32).numpy()
+
+
+_CODES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+def test_quantize_kv_on_the_card_is_the_cpu_grid(code):
+    """Codes and scales bit-identical to the CPU's on the same f32 rows
+    (a row of zeros, values past 448 included), and the dequantized
+    rows too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels import decode_attention as da
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((8, 24, 16, 64)) * 5).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[1, 2] *= 1e3
+    cpu = da.quantize_kv(torch.from_numpy(x), _CODES[code])
+    card = da.quantize_kv(torch.from_numpy(x).cuda(), _CODES[code])
+    for c, g in zip(cpu, card):
+        np.testing.assert_array_equal(_bytes_of(g), _bytes_of(c))
+    np.testing.assert_array_equal(
+        _bytes_of(da.dequantize_kv(*card, torch.float32)),
+        _bytes_of(da.dequantize_kv(*cpu, torch.float32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+def test_quantized_paged_writes_and_cow_on_the_card(code):
+    """The quantized scatter (invalid lanes and padding into the sink
+    page) and a copy-on-write of a page, codes and scale rows: the card's
+    pools end bit-identical to the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels.decode_attention import (quantize_kv,
+                                                           raw_bytes)
+    from paddle_tpu_torch.serving import PagedKVCache, paged_scatter
+    rng = np.random.default_rng(1)
+    table = torch.tensor([[2, 5], [0, 3]])
+    pos = torch.tensor([[1, 5, 9], [3, 4, 7]], dtype=torch.int32)
+    valid = torch.tensor([[True, True, True], [False, True, True]])
+    new = [torch.from_numpy(rng.standard_normal((2, 3, 4, 64)).astype(
+        np.float32)) for _ in range(2)]
+    pools = []
+    for dev in ("cpu", "cuda"):
+        c = PagedKVCache.create(6, 2, 4, 4, 64, 2, 2, device=dev,
+                                kv_dtype=code)
+        (kq, ks), (vq, vs) = (quantize_kv(n.to(dev), c.k.dtype)
+                              for n in new)
+        paged_scatter(c.k, c.v, 1, table.to(dev), pos.to(dev),
+                      valid.to(dev), kq, vq, c.k_scale, c.v_scale, ks, vs)
+        for pool in (c.k, c.v, c.k_scale, c.v_scale):
+            raw_bytes(pool)[4] = raw_bytes(pool)[5]        # one CoW
+        pools.append((c.k, c.v, c.k_scale, c.v_scale))
+    for c, g in zip(*pools):
+        np.testing.assert_array_equal(_bytes_of(g), _bytes_of(c))
+    assert bool(raw_bytes(pools[1][0])[6].any())            # the sink
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages_per_block", [0, 2])
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+def test_q8_attention_on_the_card_matches_the_cpu(code, pages_per_block):
+    """The paged q8 gather (one-shot and chunked) and the slotted q8
+    attention in f32 on the card against the CPU on identical codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from paddle_tpu_torch.kernels import decode_attention as da
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    B, H, D, P, MP, NP = 8, 16, 64, 64, 4, 40
+    q = torch.from_numpy(rng.standard_normal((B, 5, H, D)).astype(np.float32))
+    (kp, ks), (vp, vs) = (da.quantize_kv(torch.from_numpy(
+        rng.standard_normal((NP, P, H, D)).astype(np.float32)), _CODES[code])
+        for _ in range(2))
+    table = torch.from_numpy(rng.permutation(NP)[:B * MP].reshape(B, MP))
+    pos = torch.tensor([0, 17, 64, 100, 150, 200, 230, 251],
+                       dtype=torch.int32)
+    ops = (q, kp, vp, table, pos)
+    want = da.paged_decode_attention(*ops, pages_per_block=pages_per_block,
+                                     k_scales=ks, v_scales=vs)
+    got = da.paged_decode_attention(*(t.cuda() for t in ops),
+                                    pages_per_block=pages_per_block,
+                                    k_scales=ks.cuda(), v_scales=vs.cuda())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    k8, v8 = (p[table].reshape(B, MP * P, H, D) for p in (kp, vp))
+    k8s, v8s = (s[table].reshape(B, MP * P, H) for s in (ks, vs))
+    bt = 128 if pages_per_block else 0
+    want = da.decode_attention(q, k8, v8, pos, k_scales=k8s, v_scales=v8s,
+                               block_t=bt)
+    got = da.decode_attention(q.cuda(), k8.cuda(), v8.cuda(), pos.cuda(),
+                              k_scales=k8s.cuda(), v_scales=v8s.cuda(),
+                              block_t=bt)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+def test_quantized_engine_on_the_card_matches_the_cpu(code):
+    """A small GPT in f32, quantized paged engine with four drafts a
+    verify step: two sharers of a 40-token prompt (a prefix hit, one
+    copy-on-write of the tail page with its scale rows), three decode
+    steps and one verify step, both engines fed the CPU's tokens; logits
+    within 5e-3 of the CPU engine's at every point (a code may round the
+    other way where the card's f32 K/V differ in the last bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import copy
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=1024, max_position_embeddings=256,
+                    hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=512,
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    base = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(5))
+    prompt = np.random.default_rng(6).integers(0, 1024, (40,))
+    args = ([True, True], [0.0] * 2, [0] * 2, [1.0] * 2)
+    runs, fed = [], None
+    for dev in ("cpu", "cuda"):
+        eng = DecodeEngine(copy.deepcopy(base), num_slots=2, max_len=128,
+                           page_size=16, kv_dtype=code, spec_k=4,
+                           device=dev)
+        t0, l0 = eng.prefill(0, prompt, temperature=0.0)
+        _t1, l1 = eng.prefill(1, prompt, temperature=0.0)
+        logits, toks, inputs = [l0, l1], [t0, t0], []
+        for i in range(3):
+            toks = toks if fed is None else fed[i]
+            inputs.append(toks)
+            nt, lg = eng.decode(toks, *args)
+            toks = [int(t) for t in nt]
+            logits.append(lg)
+        toks = toks if fed is None else fed[3]
+        inputs.append(toks)
+        _e, c, lg = eng.decode_spec(toks, np.asarray([toks * 2] * 2),
+                                    *args)
+        logits.append(lg.reshape(-1, lg.shape[-1]))
+        assert eng.cow_copies == 1 and 1 <= min(c) <= max(c) <= 5
+        runs.append([x.float().cpu() for x in logits])
+        fed = inputs
+    for c, g in zip(*runs):
+        torch.testing.assert_close(g, c, atol=5e-3, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code", ["int8", "fp8"])
+def test_slotted_quantized_engine_on_the_card_matches_the_cpu(code):
+    """A small GPT in f32, quantized slotted engine: two prompts of two
+    buckets (the prefill writes codes and scales, and attends the exact
+    K/V), then four decode steps, slot 1 idle at the second (its row is
+    written past its frozen length) and at ``max_len`` at the last (the
+    append dropped: the last row keeps its value), both engines fed the
+    CPU's tokens.  Lengths equal; layer 0's scales within 1e-5 (its rows
+    come from the tokens through f32 products alone); codes equal but
+    where a card's f32 K/V row differs in the last bit (under 1% of
+    them); logits within 5e-3 of the CPU's at every point.  Later
+    layers' scales hold within 1e-3: their rows attend codes that may
+    round the other way, and one e4m3 step is 1/16 to 1/8 of a value,
+    so their amax moves by more than f32 rounding (2.6e-5 read on an
+    H100)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    import copy
+    from paddle_tpu_torch.kernels.decode_attention import raw_bytes
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import DecodeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=1024, max_position_embeddings=256,
+                    hidden_size=256, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=512,
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    base = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 1024, (n,)) for n in (20, 62)]
+    params = ([0.0] * 2, [0] * 2, [1.0] * 2)
+    active = [[True, True], [True, False], [True, True], [True, True]]
+    runs, fed = [], None
+    for dev in ("cpu", "cuda"):
+        eng = DecodeEngine(copy.deepcopy(base), num_slots=2, max_len=64,
+                           paged=False, kv_dtype=code, device=dev)
+        firsts = [eng.prefill(i, p, temperature=0.0) for i, p in
+                  enumerate(prompts)]
+        logits = [f[1] for f in firsts]
+        toks, inputs = [int(f[0]) for f in firsts], []
+        for i, act in enumerate(active):
+            toks = toks if fed is None else fed[i]
+            inputs.append(toks)
+            nt, lg = eng.decode(toks, act, *params)
+            toks = [int(t) for t in nt]
+            logits.append(lg)
+        c = eng.cache
+        runs.append(([x.float().cpu() for x in logits],
+                     [p.cpu() for p in (c.k, c.v, c.k_scale, c.v_scale)],
+                     c.lengths.cpu()))
+        fed = inputs
+    (cpu_lg, cpu_pools, cpu_len), (lg, pools, lens) = runs
+    assert cpu_len.tolist() == lens.tolist() == [24, 65]
+    for c, g in zip(cpu_lg, lg):
+        torch.testing.assert_close(g, c, atol=5e-3, rtol=0)
+    for c, g in zip(cpu_pools[2:], pools[2:]):
+        torch.testing.assert_close(g[:, 0], c[:, 0], atol=0, rtol=1e-5)
+        torch.testing.assert_close(g, c, atol=0, rtol=1e-3)
+    for c, g in zip(cpu_pools[:2], pools[:2]):
+        assert g.dtype == _CODES[code]
+        assert (raw_bytes(g) != raw_bytes(c)).float().mean() < 0.01

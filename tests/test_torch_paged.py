@@ -9,8 +9,9 @@ tight that requests are preempted, and the append cap at ``max_len``
 Then what the port shows alone: paged and slotted greedy tokens are
 identical, ``generate(seed=...)`` repeats through the prefix cache, a
 training step between two ``generate`` calls never serves stale K/V,
-dropped writes land in the sink page, and what the slice leaves
-raising."""
+dropped writes land in the sink page, and what the port leaves
+raising.  Speculative decoding and the quantized pools are held against
+the JAX package in ``tests/test_torch_spec_quant.py``."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -766,8 +767,7 @@ def test_kv_bytes_accounting_scales_with_true_lengths():
     assert eng.kv_pool_bytes() == 16 * 8 * eng.kv_row_bytes()
 
 
-@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(kv_dtype="int8"),
-                                dict(kv_dtype="fp8"), dict(tp=2)])
+@pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_paged_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu", **kw)

@@ -190,13 +190,19 @@ def test_engine_reseed_reproduces_sampled_output():
     assert runs[0] == runs[1]
 
 
-@pytest.mark.parametrize("kw", [dict(paged=False, spec_k=2),
-                                dict(spec_k=2), dict(kv_dtype="int8"),
-                                dict(tp=2)])
+@pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_modes_raise(kw):
     tm = GPTForCausalLM(GPTConfig.tiny())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(tm, device="cpu", **kw)
+
+
+def test_spec_on_the_slotted_engine_raises_value_error():
+    """Speculative decoding runs on the paged engine only, as in the
+    JAX package."""
+    tm = GPTForCausalLM(GPTConfig.tiny())
+    with pytest.raises(ValueError, match="paged"):
+        DecodeEngine(tm, device="cpu", paged=False, spec_k=2)
 
 
 def test_overlapped_loop_raises():
