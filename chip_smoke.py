@@ -179,8 +179,19 @@ Every phase but 14-16 runs with tuning off, no pin and an empty cache
 of the run's own (a temporary file under ``paddle_tpu_torch/_build/``,
 removed at the end), so each kernel is the hand-tuned candidate [0].
 Launch counters are set to 0 just before each run of a path and read
-just after.  Then the seconds of each part, the ``{"kernels": [...]}``
-summary, the card's name and power limit, and, last, the device line.
+just after.  The serve phases (3, 3a-3d) run their traffic through the
+default loop (overlapped, every decode and verify step replayed from
+its captured CUDA graph) and again through the eager synchronous one
+(``*_loops`` lines side by side; identical greedy tokens required).  A
+replay launches B without its wrapper, so B's launches in a run are the
+kernel's own count on the card (``layer_norm_fwd_device_launches``),
+which must exceed the wrapper's by 2L + 1 a replay under
+``use_pallas_norm``; ``decode_profile`` counts B in a profiler trace of
+the captured step as well.  ``overlap_parity``: both loops' greedy
+tokens on the parity prompts, the eager step held to the CPU, the
+captured step's logits against the eager step's; ``captured_steps``:
+graph pool bytes beside the KV pools.  Then the seconds of each part,
+the ``{"kernels": [...]}`` summary, the card's name and power limit, and, last, the device line.
 Without a card (or without the repository beside this file) it exits
 non-zero and prints no result.
 """
@@ -188,6 +199,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -310,6 +322,14 @@ class Counters:
     def reset(self):
         for mod, attr in self.spec.values():
             setattr(mod, attr, 0)
+        self.spec["layer_norm_fwd"][0].layer_norm_fwd_device_launches(
+            reset=True)
+
+    def b_on_device(self):
+        """Kernel B's launches since the last reset as the kernel counted
+        them on the card: a launch replayed from a CUDA graph never
+        reaches the wrapper's count, but it reaches this one."""
+        return self.spec["layer_norm_fwd"][0].layer_norm_fwd_device_launches()
 
     def read(self):
         return {k: getattr(mod, attr) for k, (mod, attr) in
@@ -2283,37 +2303,109 @@ def train_parity(torch, base, amp, flags, counters, s=256):
     return lines
 
 
-def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags,
-          phase="serve", extra=None):
-    """The serve traffic through the slotted engine: the tensor-core
-    forward once a layer an admission, B (2L + 1) times a forward under
-    ``use_pallas_norm``, every request 32 tokens by length."""
+# the serving loops each serve phase drives its traffic through: the
+# default one (overlapped, each decode or verify step replayed from its
+# captured CUDA graph) and the eager synchronous one, the A/B baseline
+LOOPS = ("overlapped_captured", "sync_eager")
+
+
+def run_loop(torch, engine, prompts, use_norm_kernel, counters, flags, loop,
+             max_new=32):
+    """``prompts`` through ``engine`` and the scheduler in ``loop``, greedy,
+    ``max_new`` tokens each; launch counts from 0 just before the run,
+    read just after.  In the captured loop the step is captured before
+    the counts start (a capture inside the run fails).  B's launches are
+    the kernel's own count on the card (eager and replayed); the
+    wrapper's count holds the eager ones, so the replays' share is their
+    difference.  Returns (results, scheduler, wall seconds, launches,
+    the loop's fields of the phase's line)."""
     from paddle_tpu_torch.serving import ContinuousBatchingScheduler, Request
     flags.set_flags({"use_pallas_norm": use_norm_kernel})
+    captured = loop == LOOPS[0]
+    engine._capture = captured
+    if captured:
+        engine.capture_steps()
     engine.reset()
     engine.reseed(0)
-    sched = ContinuousBatchingScheduler(engine)
+    if engine.paged:
+        engine.cow_copies = engine.pages_used_peak = 0
+    sched = ContinuousBatchingScheduler(engine, overlap=captured)
     for p in prompts:
-        sched.submit(Request(prompt=p, max_new_tokens=32, temperature=0.0))
+        sched.submit(Request(prompt=p, max_new_tokens=max_new,
+                             temperature=0.0))
     torch.cuda.synchronize()
-    fac.flash_fwd_tc_launches = 0
-    fac.flash_fwd_launches = 0
-    norm_cuda.layer_norm_fwd_launches = 0
+    g0 = engine.graph_stats()
+    counters.reset()
     t0 = time.perf_counter()
     results = sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd_tc": fac.flash_fwd_tc_launches,
-                "flash_fwd": fac.flash_fwd_launches,
-                "layer_norm_fwd": norm_cuda.layer_norm_fwd_launches}
+    launches = counters.read()
+    on_device = counters.b_on_device()
+    g1 = engine.graph_stats()
     flags.set_flags({"use_pallas_norm": False})
-    toks = sum(len(r.tokens) for r in results.values())
+    engine._capture = True
+    steps = sched.decode_steps_total
+    replays = g1["replays"] - g0["replays"]
+    by_wrapper = launches["layer_norm_fwd"]
+    launches["layer_norm_fwd"] = on_device
+    layers = engine.model.config.num_hidden_layers
+    want_replayed = ((2 * layers + 1) * replays
+                     if captured and use_norm_kernel else 0)
+    if on_device - by_wrapper != want_replayed:
+        raise AssertionError("%s: B counted %d launches on the card, %d "
+                             "through its wrapper; %d replays want %d "
+                             "more" % (loop, on_device, by_wrapper, replays,
+                                       want_replayed))
+    info = {"loop": loop, "overlap": sched.overlap,
+            "host_gap_s": sched.host_gap_seconds,
+            "host_gap_ms_per_step": 1e3 * sched.host_gap_seconds
+            / max(steps, 1),
+            "layer_norm_fwd_launches_by_wrapper": by_wrapper}
+    if captured:
+        if g1["captures"] != g0["captures"] or replays != steps:
+            raise AssertionError("%s: %d captures inside the run, %d "
+                                 "replays for %d steps" % (
+                                     loop, g1["captures"] - g0["captures"],
+                                     replays, steps))
+        info.update(graph_replays=replays,
+                    layer_norm_fwd_launches_note=(
+                        "launches: B's own count on the card, eager and "
+                        "replayed; by_wrapper: the eager ones"),
+                    graph_captures=g1["captures"], graphs=g1["graphs"],
+                    graph_pool_bytes=g1["pool_bytes"])
+    return results, sched, wall, launches, info
+
+
+def check_results(phase, results, prompts, max_new=32):
     if len(results) != len(prompts) or any(
-            len(r.tokens) != 32 or r.finish_reason != "length"
+            len(r.tokens) != max_new or r.finish_reason != "length"
             for r in results.values()):
         raise AssertionError("%s: unexpected results %r" % (phase, {
             k: (len(r.tokens), r.finish_reason)
             for k, r in results.items()}))
+
+
+def latency_fields(results, wall):
+    toks = sum(len(r.tokens) for r in results.values())
+    return {"requests": len(results), "generated_tokens": toks,
+            "wall_s": wall, "tokens_per_s": toks / wall,
+            "ttft_p50_ms": 1e3 * statistics.median(
+                r.ttft for r in results.values() if r.ttft > 0),
+            "tpot_p50_ms": 1e3 * statistics.median(
+                r.tpot for r in results.values())}
+
+
+def serve(torch, engine, prompts, use_norm_kernel, counters, flags,
+          phase="serve", extra=None, loop=LOOPS[0]):
+    """The serve traffic through the slotted engine: the tensor-core
+    forward once a layer an admission, B (2L + 1) times a forward under
+    ``use_pallas_norm``, every request 32 tokens by length."""
+    results, sched, wall, launches, info = run_loop(
+        torch, engine, prompts, use_norm_kernel, counters, flags, loop)
+    launches = {k: launches[k]
+                for k in ("flash_fwd_tc", "flash_fwd", "layer_norm_fwd")}
+    check_results(phase, results, prompts)
     layers = engine.model.config.num_hidden_layers
     admissions = len(prompts)
     if launches["flash_fwd_tc"] != layers * admissions or \
@@ -2330,18 +2422,36 @@ def serve(torch, engine, prompts, use_norm_kernel, fac, norm_cuda, flags,
     line = {
         "phase": phase, "use_pallas_norm": use_norm_kernel,
         "kv_dtype": kv_name(engine),
-        "requests": len(results), "generated_tokens": toks,
-        "decode_steps": sched.decode_steps_total, "wall_s": wall,
-        "tokens_per_s": toks / wall,
-        "ttft_p50_ms": 1e3 * statistics.median(
-            r.ttft for r in results.values()),
-        "tpot_p50_ms": 1e3 * statistics.median(
-            r.tpot for r in results.values()),
+        "decode_steps": sched.decode_steps_total,
+        **latency_fields(results, wall),
         "kv_pool_bytes": engine.kv_pool_bytes(),
         "kv_bytes_per_token": engine.kv_bytes_per_token(),
-        "launches": launches, **(extra or {})}
+        "launches": launches, **info, **(extra or {})}
     emit(line)
     return line, [results[k].tokens for k in sorted(results)]
+
+
+def both_loops(fn, *args, **kw):
+    """``fn`` (serve or serve_paged) in the default loop, then in the eager
+    synchronous one on the same traffic; emits the two side by side.
+    Returns the default loop's (line, tokens)."""
+    runs = {loop: fn(*args, loop=loop, **kw) for loop in LOOPS}
+    (cap, cap_toks), (eager, eager_toks) = runs[LOOPS[0]], runs[LOOPS[1]]
+    keys = ("tpot_p50_ms", "ttft_p50_ms", "tokens_per_s", "host_gap_s",
+            "host_gap_ms_per_step", "decode_steps", "wall_s")
+    emit({"phase": cap["phase"] + "_loops",
+          "use_pallas_norm": cap["use_pallas_norm"],
+          "kv_dtype": cap["kv_dtype"],
+          "engine": cap.get("engine",
+                            "paged" if "num_pages" in cap else "slotted"),
+          "traffic": cap.get("traffic", "serve"),
+          **{k: {loop: runs[loop][0][k] for loop in LOOPS} for k in keys},
+          "layer_norm_fwd_launches": {
+              loop: runs[loop][0]["launches"].get("layer_norm_fwd", 0)
+              for loop in LOOPS},
+          "same_greedy_tokens": all(
+              np.array_equal(a, b) for a, b in zip(cap_toks, eager_toks))})
+    return cap, cap_toks
 
 
 # serve_paged_tight's pool: each request reaches 160 tokens (3 pages of
@@ -2353,58 +2463,34 @@ TIGHT_PAGES = 17
 
 
 def serve_paged(torch, engine, prompts, use_norm_kernel, counters, flags,
-                phase="serve_paged", traffic="serve", extra=None):
+                phase="serve_paged", traffic="serve", extra=None,
+                loop=LOOPS[0]):
     """The serve traffic (or another, named by ``traffic``) through the
-    paged engine and the scheduler's chunked prefill: launch counts from
-    0 just before the run, read just after; B (2L + 1) times a forward
-    (prefill chunks and decode or verify steps) under
-    ``use_pallas_norm``, no flash kernel (paged attention is plain torch,
-    as in the JAX package), every request 32 tokens by length.  A
-    speculative engine's line adds its drafts proposed and accepted,
-    which must equal the requests' sums (the synchronous loop)."""
-    from paddle_tpu_torch.serving import ContinuousBatchingScheduler, Request
-    flags.set_flags({"use_pallas_norm": use_norm_kernel})
-    engine.reset()
-    engine.reseed(0)
-    engine.cow_copies = engine.pages_used_peak = 0
-    sched = ContinuousBatchingScheduler(engine)
-    for p in prompts:
-        sched.submit(Request(prompt=p, max_new_tokens=32, temperature=0.0))
-    torch.cuda.synchronize()
-    counters.reset()
-    t0 = time.perf_counter()
-    results = sched.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = counters.read()
-    flags.set_flags({"use_pallas_norm": False})
-    if len(results) != len(prompts) or any(
-            len(r.tokens) != 32 or r.finish_reason != "length"
-            for r in results.values()):
-        raise AssertionError("%s: unexpected results %r" % (phase, {
-            k: (len(r.tokens), r.finish_reason)
-            for k, r in results.items()}))
+    paged engine and the scheduler's chunked prefill in ``loop``: B
+    (2L + 1) times a forward (prefill chunks and decode or verify steps)
+    under ``use_pallas_norm``, no flash kernel (paged attention is plain
+    torch, as in the JAX package), every request 32 tokens by length.  A
+    speculative engine's line adds its drafts proposed and accepted; in
+    the synchronous loop they equal the requests' sums, in the
+    overlapped one the engine's count the stale steps too."""
+    results, sched, wall, launches, info = run_loop(
+        torch, engine, prompts, use_norm_kernel, counters, flags, loop)
+    check_results(phase, results, prompts)
     layers = engine.model.config.num_hidden_layers
     forwards = sched.prefill_chunks_total + sched.decode_steps_total
     want = {k: 0 for k in launches}
     want["layer_norm_fwd"] = ((2 * layers + 1) * forwards
                               if use_norm_kernel else 0)
     expect_launches(launches, want, phase)
-    toks = sum(len(r.tokens) for r in results.values())
     line = {
         "phase": phase, "traffic": traffic,
         "use_pallas_norm": use_norm_kernel,
         "kv_dtype": kv_name(engine), "spec_k": engine.spec_k,
         "num_pages": engine.num_pages, "page_size": engine.page_size,
         "prefill_chunk": engine.prefill_chunk,
-        "requests": len(results), "generated_tokens": toks,
         "decode_steps": sched.decode_steps_total,
-        "prefill_chunks": sched.prefill_chunks_total, "wall_s": wall,
-        "tokens_per_s": toks / wall,
-        "ttft_p50_ms": 1e3 * statistics.median(
-            r.ttft for r in results.values() if r.ttft > 0),
-        "tpot_p50_ms": 1e3 * statistics.median(
-            r.tpot for r in results.values()),
+        "prefill_chunks": sched.prefill_chunks_total,
+        **latency_fields(results, wall),
         "prefix_hit_tokens": sum(r.prefix_hit_tokens
                                  for r in results.values()),
         "prefix_hit_pages": sched.prefix_hit_pages,
@@ -2413,7 +2499,7 @@ def serve_paged(torch, engine, prompts, use_norm_kernel, counters, flags,
         "preemptions": sched.preemptions_total,
         "kv_pool_bytes": engine.kv_pool_bytes(),
         "kv_bytes_per_token": engine.kv_bytes_per_token(),
-        "launches": {k: v for k, v in launches.items() if v}}
+        "launches": {k: v for k, v in launches.items() if v}, **info}
     if engine.spec_k:
         st = engine.spec_stats
         line.update(verify_steps=st["steps"],
@@ -2423,8 +2509,10 @@ def serve_paged(torch, engine, prompts, use_norm_kernel, counters, flags,
                     accepted_per_step=st["accepted"] / max(st["steps"], 1))
         sums = (sum(r.spec_proposed for r in results.values()),
                 sum(r.spec_accepted for r in results.values()))
-        if sums != (st["proposed"], st["accepted"]) or \
-                st["steps"] != sched.decode_steps_total:
+        exact = not sched.overlap
+        if st["steps"] != sched.decode_steps_total or (
+                sums != (st["proposed"], st["accepted"]) if exact
+                else sums[0] > st["proposed"]):
             raise AssertionError("%s: requests' draft counts %r, engine's "
                                  "%r" % (phase, sums, st))
     line.update(extra or {})
@@ -2522,7 +2610,7 @@ QUANT_SHIFT_FLOOR = 0.5
 
 
 def card_vs_cpu(torch, engine, cpu_model, script, flags, norm_cuda, phase,
-                cpu_kw, exact=None):
+                cpu_kw, exact=None, reuse=None):
     """``script`` on the port's CPU f32 engine (the card engine's layout
     and ``kv_dtype``, ``cpu_kw`` for the rest), then on the card's
     engine (bf16, kernels) fed the CPU's greedy tokens, once per
@@ -2531,15 +2619,20 @@ def card_vs_cpu(torch, engine, cpu_model, script, flags, norm_cuda, phase,
     what this returned for the same script on the unquantized engines:
     then the CPU engine is fed the same tokens, and the card's quantized
     logits must lie at least QUANT_SHIFT_FLOOR of the CPU's quantization
-    shift away from the card's unquantized ones.  Returns {"cpu": logits,
+    shift away from the card's unquantized ones.  ``reuse``, what this
+    returned for the same script and engine layout, spares the CPU run:
+    its CPU logits and tokens are taken.  Returns {"cpu": logits,
     "inputs": tokens fed, "card": {route: logits}}."""
     from paddle_tpu_torch.serving import DecodeEngine
-    cpu_engine = DecodeEngine(cpu_model, num_slots=engine.num_slots,
-                              max_len=engine.max_len, device="cpu",
-                              kv_dtype=engine.kv_dtype, **cpu_kw)
-    cpu, inputs, _ = script(torch, cpu_engine,
-                            None if exact is None else exact["inputs"])
-    del cpu_engine
+    if reuse is not None:
+        cpu, inputs = reuse["cpu"], reuse["inputs"]
+    else:
+        cpu_engine = DecodeEngine(cpu_model, num_slots=engine.num_slots,
+                                  max_len=engine.max_len, device="cpu",
+                                  kv_dtype=engine.kv_dtype, **cpu_kw)
+        cpu, inputs, _ = script(torch, cpu_engine,
+                                None if exact is None else exact["inputs"])
+        del cpu_engine
     out = {"cpu": cpu, "inputs": inputs, "card": {}}
     for use_norm in (False, True):
         flags.set_flags({"use_pallas_norm": use_norm})
@@ -2552,6 +2645,7 @@ def card_vs_cpu(torch, engine, cpu_model, script, flags, norm_cuda, phase,
         errs = [float((c - r).abs().max()) for c, r in zip(card, cpu)]
         line = {"phase": phase, "use_pallas_norm": use_norm,
                 "engine": "paged" if engine.paged else "slotted",
+                "step": "captured" if engine._capture else "eager",
                 "kv_dtype": kv_name(engine), **info,
                 "decode_steps": len(inputs), "max_abs_err_prefill": errs[0],
                 "max_abs_err_per_step": errs[1:], "tolerance": LOGIT_TOL,
@@ -2620,15 +2714,46 @@ def serve_compare(torch, cpu_model, prompts, toks_a, toks_b,
                              % (what, wide))
 
 
+# the mark kernel of a trace (``torch.cuda._sleep``, ~5 us)
+TRACE_MARK_CYCLES = 10_000
+
+
+def traced_after_mark(torch, prof):
+    """The device events of a ``torch.profiler`` trace that start after
+    its one mark kernel (``torch.cuda._sleep``'s ``spin_kernel``), or
+    None when the trace lost the mark.  On the H100 machine a trace can
+    lose the records of the first kernels it sees, more of them the
+    longer the process has run (none at 19 s, 3 at 61 s, 10 at 151 s, now
+    and then a whole step), while the later steps of the same trace come
+    whole (``tools/torch_trace_loss_probe.py``).  So a counted trace runs
+    one step before its mark and reads only what follows it."""
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e.time_range.start for e in dev if "spin_kernel" in e.name]
+    if len(marks) != 1:
+        return None
+    return [e for e in dev if e.time_range.start > marks[0]]
+
+
 def decode_profile(torch, engine, use_norm_kernel, flags, steps=5,
                    emit_line=True):
     """Wall time of a batched decode step (all 8 slots active, host clock
     around a synchronised step) beside the card's kernel time in it
-    (profiler trace): the device's busy share of a step.  A paged engine
-    maps the pages its appends need as it goes; a speculative one runs
-    verify steps (``spec_k`` drafts a slot)."""
+    (profiler trace): the device's busy share of a step, for the step
+    replayed from its captured graph (the line's top-level fields) and
+    for the eager step (``eager``).  A paged engine maps the pages its
+    appends need as it goes; a speculative one runs verify steps
+    (``spec_k`` drafts a slot).  B's launches a traced step, by the
+    trace and by the kernel's own count on the card: 2L + 1 under
+    ``use_pallas_norm``, else 0 (the trace's count is held when the trace
+    holds kernels at all).  Only the steps after the trace's mark are
+    read (``traced_after_mark``)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.kernels import norm_cuda
     flags.set_flags({"use_pallas_norm": use_norm_kernel})
+    layers = engine.model.config.num_hidden_layers
+    want_b = 2 * layers + 1 if use_norm_kernel else 0
     n = engine.num_slots
     args = (np.zeros(n, np.int32), [True] * n, [0.0] * n, [0] * n,
             [1.0] * n)
@@ -2639,31 +2764,57 @@ def decode_profile(torch, engine, use_norm_kernel, flags, steps=5,
             engine.decode_spec(args[0], drafts, *args[1:])
         else:
             engine.decode(*args)
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def measure():
+        step()                 # a first captured call captures the step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    events = prof.key_averages()
-    dev_us = sum(float(getattr(e, "self_device_time_total", 0.0))
-                 for e in events)
-    kernels = sum(int(e.count) for e in events
-                  if float(getattr(e, "self_device_time_total", 0.0)) > 0)
-    flags.set_flags({"use_pallas_norm": False})
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step()         # the lead-in, before the mark: not counted
+                torch.cuda.synchronize()
+                norm_cuda.layer_norm_fwd_device_launches(reset=True)
+                torch.cuda._sleep(TRACE_MARK_CYCLES)
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+            b_device = norm_cuda.layer_norm_fwd_device_launches() / steps
+            ran = traced_after_mark(torch, prof)
+            if ran is not None:
+                break
+        dev_us = sum(e.time_range.elapsed_us() for e in ran or ())
+        kernels = len(ran or ())
+        b_traced = (sum("layer_norm_fwd" in e.name for e in ran) / steps
+                    if kernels else None)
+        if b_device != want_b or b_traced not in (None, want_b):
+            raise AssertionError("decode_profile: B %r a step by the trace, "
+                                 "%r on the card, want %d" % (
+                                     b_traced, b_device, want_b))
+        return {"layer_norm_fwd_per_step_by_profiler": b_traced,
+                "layer_norm_fwd_per_step_on_device": b_device,
+                "step_wall_ms": wall_ms,
+                "step_device_ms": dev_us / steps / 1e3 if dev_us else None,
+                "device_kernels_per_step": kernels / steps,
+                "device_busy_share": (dev_us / steps / 1e3 / wall_ms
+                                      if dev_us else None)}
+    try:
+        captured = measure()
+        engine._capture = False
+        eager = measure()
+    finally:
+        engine._capture = True
+        flags.set_flags({"use_pallas_norm": False})
     line = {"phase": "decode_profile", "use_pallas_norm": use_norm_kernel,
             "engine": "paged" if engine.paged else "slotted",
             "step": "verify" if engine.spec_k else "decode",
-            "spec_k": engine.spec_k, "step_wall_ms": wall_ms,
-            "step_device_ms": dev_us / steps / 1e3 if dev_us else None,
-            "device_kernels_per_step": kernels / steps,
-            "device_busy_share": (dev_us / steps / 1e3 / wall_ms
-                                  if dev_us else None)}
+            "spec_k": engine.spec_k, "loop": "captured", **captured,
+            "eager": eager,
+            "captured_wall_share_of_eager": (captured["step_wall_ms"]
+                                             / eager["step_wall_ms"])}
     if emit_line:
         emit(line)
     return line
@@ -2688,8 +2839,9 @@ def serve_spec(torch, spec_engine, paged_engine, cpu_model, traffic,
     LayerNorm route, on each traffic of ``traffic`` ({name: prompts}):
     ``serve_paged``'s counts and checks (B (2L + 1) times a prefill chunk
     or verify step under ``use_pallas_norm``) plus drafts proposed and
-    accepted.  ``plain_runs[(name, route)]`` holds the plain paged
-    engine's tokens on that traffic (run here for traffic it lacks);
+    accepted, in the default loop and the eager synchronous one.
+    ``plain_runs[(name, route)]`` holds the plain paged engine's tokens
+    on that traffic (run here, default loop, for traffic it lacks);
     where spec and plain greedy tokens part, the CPU's logit gap must be
     small (``serve_compare``).  Then the wall and device ms of one verify
     step beside a plain paged decode step, each route.  Fails if the
@@ -2701,9 +2853,9 @@ def serve_spec(torch, spec_engine, paged_engine, cpu_model, traffic,
                 plain_runs[(name, use_norm)] = serve_paged(
                     torch, paged_engine, prompts, use_norm, counters, flags,
                     phase="serve_paged_" + name, traffic=name)[1]
-            line, toks = serve_paged(torch, spec_engine, prompts, use_norm,
-                                     counters, flags, phase="serve_spec",
-                                     traffic=name)
+            line, toks = both_loops(serve_paged, torch, spec_engine,
+                                    prompts, use_norm, counters, flags,
+                                    phase="serve_spec", traffic=name)
             lines[(name, use_norm)] = line
             serve_compare(torch, cpu_model, prompts,
                           plain_runs[(name, use_norm)], toks,
@@ -2732,13 +2884,16 @@ def spec_parity(torch, spec_engine, paged_engine, prompts, flags, counters,
     card (bf16 both), within LOGIT_TOL; once per LayerNorm route.  Every
     slot holds a prompt of its own length (128 down to 100 tokens); the
     drafts are the sequential engine's greedy tokens.  B must launch on
-    the verify step under ``use_pallas_norm``."""
+    the verify step under ``use_pallas_norm``: 2L + 1 times in the
+    replay of its captured graph, by the kernel's own count on the
+    card."""
     n = spec_engine.num_slots
     ctx = [prompts[i][:128 - 4 * i] for i in range(n)]
     greedy = ([True] * n, [0.0] * n, [0] * n, [1.0] * n)
     lines = []
     for use_norm in (False, True):
         flags.set_flags({"use_pallas_norm": use_norm})
+        spec_engine.capture_steps()
         paged_engine.reset()
         spec_engine.reset()
         first = np.asarray([paged_engine.prefill(i, c, temperature=0.0)[0]
@@ -2752,10 +2907,24 @@ def spec_parity(torch, spec_engine, paged_engine, prompts, flags, counters,
             spec_engine.prefill(i, c, temperature=0.0)
         drafts = np.stack(fed[1:steps], axis=1)
         torch.cuda.synchronize()
+        g0 = spec_engine.graph_stats()
         counters.reset()
         _e, counts, lg = spec_engine.decode_spec(first, drafts, *greedy)
         torch.cuda.synchronize()
         launched = counters.read()
+        on_device = counters.b_on_device()
+        g1 = spec_engine.graph_stats()
+        replays = g1["replays"] - g0["replays"]
+        # the verify step replays its graph: the wrapper sees none of its
+        # B launches, the kernel's own count on the card sees them all
+        if replays != 1 or g1["captures"] != g0["captures"] or \
+                launched["layer_norm_fwd"]:
+            raise AssertionError("spec_parity: %d replays, %d captures, %d "
+                                 "B launches through the wrapper" % (
+                                     replays, g1["captures"] -
+                                     g0["captures"],
+                                     launched["layer_norm_fwd"]))
+        launched["layer_norm_fwd"] = on_device
         flags.set_flags({"use_pallas_norm": False})
         errs = [float((lg[:, j].float() - seq[j]).abs().max())
                 for j in range(steps)]
@@ -2767,7 +2936,7 @@ def spec_parity(torch, spec_engine, paged_engine, prompts, flags, counters,
                 "spec_k": spec_engine.spec_k,
                 "prompt_lens": [len(c) for c in ctx],
                 "max_abs_err_per_position": errs, "tolerance": LOGIT_TOL,
-                "counts": counts.tolist(),
+                "counts": counts.tolist(), "graph_replays": replays,
                 "launches": {k: v for k, v in launched.items() if v}}
         emit(line)
         lines.append(line)
@@ -2781,11 +2950,12 @@ def spec_parity(torch, spec_engine, paged_engine, prompts, flags, counters,
 
 
 def serve_quant(torch, model, prompts, bf16_row_bytes, vocab, counters,
-                fac, norm_cuda, flags, seed=0):
+                flags, seed=0):
     """The serve traffic under ``use_pallas_norm`` through the paged int8,
-    paged fp8, slotted int8 and paged int8 + ``SPEC_K`` drafts engines:
-    pool bytes, bytes a token, TTFT and TPOT, then the wall and device
-    ms of one decode (or verify) step; a 1-byte row is (D + 4) / (2 D)
+    paged fp8, slotted int8 and paged int8 + ``SPEC_K`` drafts engines,
+    in the default loop and the eager synchronous one: pool bytes, bytes
+    a token, TTFT and TPOT, then the wall and device ms of one decode (or
+    verify) step, captured and eager; a 1-byte row is (D + 4) / (2 D)
     of the bf16 one, and the pools on the card hold it: 1-byte codes of
     the engine's ``kv_dtype``, f32 scale pools of one scale a (row,
     head), their bytes the row's times the rows allocated; every token id
@@ -2824,12 +2994,9 @@ def serve_quant(torch, model, prompts, bf16_row_bytes, vocab, counters,
                  "row_share_of_bf16": eng.kv_row_bytes() / bf16_row_bytes,
                  # the pools on the card, the sink page included
                  "pool_bytes_allocated": resident}
-        if eng.paged:
-            line, toks = serve_paged(torch, eng, prompts, True, counters,
-                                     flags, phase="serve_quant", extra=extra)
-        else:
-            line, toks = serve(torch, eng, prompts, True, fac, norm_cuda,
-                               flags, phase="serve_quant", extra=extra)
+        line, toks = both_loops(serve_paged if eng.paged else serve, torch,
+                                eng, prompts, True, counters, flags,
+                                phase="serve_quant", extra=extra)
         lines[name] = line
         for t in toks:
             if not (0 <= int(t.min()) and int(t.max()) < vocab):
@@ -2846,7 +3013,53 @@ def serve_quant(torch, model, prompts, bf16_row_bytes, vocab, counters,
     return lines, keep
 
 
+def overlap_parity(torch, engine, cpu_model, script, prompts, parity, flags,
+                   norm_cuda, counters):
+    """The captured overlapped loop against the eager synchronous one on
+    the card, both engines' own prompts (12 of 128 unrelated tokens, 32
+    new each), each LayerNorm route: identical greedy tokens, or the
+    phase fails.  Then both steps against the CPU: ``parity`` is what
+    card_vs_cpu returned for ``script`` on this engine, its steps
+    captured (decode_parity, paged_parity); the script runs again with
+    the eager step, held to the same CPU logits within LOGIT_TOL, and
+    the two card runs' logits are compared (0: the captured step is the
+    eager step bit for bit)."""
+    toks = {}
+    for use_norm in (False, True):
+        for loop in LOOPS:
+            results = run_loop(torch, engine, prompts, use_norm, counters,
+                               flags, loop)[0]
+            toks[(use_norm, loop)] = [results[k].tokens.tolist()
+                                      for k in sorted(results)]
+    engine._capture = False
+    try:
+        eager = card_vs_cpu(torch, engine, cpu_model, script, flags,
+                            norm_cuda, "overlap_parity", {}, reuse=parity)
+    finally:
+        engine._capture = True
+    line = {"phase": "overlap_parity",
+            "engine": "paged" if engine.paged else "slotted",
+            "requests": len(prompts),
+            "same_greedy_tokens": {
+                "use_pallas_norm" if r else "default":
+                    toks[(r, LOOPS[0])] == toks[(r, LOOPS[1])]
+                for r in (False, True)},
+            "captured_vs_eager_logits_max_abs_diff": {
+                "use_pallas_norm" if r else "default": max_err(
+                    parity["card"][r], eager["card"][r])
+                for r in (False, True)},
+            "tolerance_vs_cpu": LOGIT_TOL}
+    emit(line)
+    if not all(line["same_greedy_tokens"].values()):
+        raise AssertionError("overlap_parity %s: the captured overlapped "
+                             "loop's greedy tokens differ from the eager "
+                             "synchronous loop's" % line["engine"])
+    return line
+
+
 def main():
+    # a fault in native code prints the Python stack of every thread
+    faulthandler.enable(all_threads=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2967,10 +3180,10 @@ def main():
     emit({"phase": "setup", "seconds": time.perf_counter() - t0,
           "params": sum(p.numel() for p in model.parameters())})
     counters = Counters(fac, norm_cuda, ce_cuda)
-    run_default, toks_default = serve(torch, engine, prompts, False, fac,
-                                      norm_cuda, flags)
-    run_norm, toks_norm = serve(torch, engine, prompts, True, fac,
-                                norm_cuda, flags)
+    run_default, toks_default = both_loops(serve, torch, engine, prompts,
+                                           False, counters, flags)
+    run_norm, toks_norm = both_loops(serve, torch, engine, prompts, True,
+                                     counters, flags)
     for use_norm in (False, True):
         decode_profile(torch, engine, use_norm, flags)
 
@@ -2980,10 +3193,10 @@ def main():
     paged_engine.prefill(0, prompts[0], temperature=0.0)
     paged_engine.decode(np.zeros(8, np.int32), [True] * 8, [0.0] * 8,
                         [0] * 8, [1.0] * 8)
-    run_paged, toks_paged = serve_paged(torch, paged_engine, prompts, False,
-                                        counters, flags)
-    run_paged_norm, toks_paged_norm = serve_paged(
-        torch, paged_engine, prompts, True, counters, flags)
+    run_paged, toks_paged = both_loops(serve_paged, torch, paged_engine,
+                                       prompts, False, counters, flags)
+    run_paged_norm, toks_paged_norm = both_loops(
+        serve_paged, torch, paged_engine, prompts, True, counters, flags)
     for use_norm in (False, True):
         decode_profile(torch, paged_engine, use_norm, flags)
     if min(run_paged["prefix_hit_tokens"],
@@ -2991,9 +3204,9 @@ def main():
         raise AssertionError("serve_paged: no prefix hit")
     tight_engine = DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
                                 num_pages=TIGHT_PAGES)
-    run_tight, toks_tight = serve_paged(torch, tight_engine, prompts, True,
-                                        counters, flags,
-                                        phase="serve_paged_tight")
+    run_tight, toks_tight = both_loops(serve_paged, torch, tight_engine,
+                                       prompts, True, counters, flags,
+                                       phase="serve_paged_tight")
     del tight_engine
     if run_tight["preemptions"] < 1:
         raise AssertionError("serve_paged_tight: no request was preempted")
@@ -3071,6 +3284,16 @@ def main():
                   "tight_vs_roomy_pool")
     seconds["serve_paged"] += time.perf_counter() - t1
 
+    # -- overlap_parity: captured overlapped loop vs eager synchronous ----
+    t1 = time.perf_counter()
+    overlap_parity(torch, engine, cpu_model, slotted_script(own_prompts),
+                   own_prompts, exact["slotted"], flags, norm_cuda,
+                   counters)
+    overlap_parity(torch, paged_engine, cpu_model,
+                   paged_script(own_prompts[0]), own_prompts,
+                   exact["paged"], flags, norm_cuda, counters)
+    seconds["overlap_parity"] = time.perf_counter() - t1
+
     # -- serve_spec: the paged engine with SPEC_K drafts a verify step ----
     t1 = time.perf_counter()
     spec_engine = DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
@@ -3087,6 +3310,9 @@ def main():
         counters, flags)
     spec_parity(torch, spec_engine, paged_engine, own_prompts, flags,
                 counters)
+    graph_lines = {"slotted_decode": engine.graph_stats(),
+                   "paged_decode": paged_engine.graph_stats(),
+                   "paged_verify": spec_engine.graph_stats()}
     del spec_engine
     torch.cuda.empty_cache()
     seconds["serve_spec"] = time.perf_counter() - t1
@@ -3095,7 +3321,7 @@ def main():
     t1 = time.perf_counter()
     quant_runs, quant_engines = serve_quant(
         torch, model, prompts, paged_engine.kv_row_bytes(), cfg.vocab_size,
-        counters, fac, norm_cuda, flags)
+        counters, flags)
     for name, eng in quant_engines.items():
         card_vs_cpu(torch, eng, cpu_model,
                     paged_script(own_prompts[0]) if eng.paged
@@ -3106,10 +3332,16 @@ def main():
     del quant_engines, eng, exact
     torch.cuda.empty_cache()
     seconds["serve_quant"] = time.perf_counter() - t1
+    # the pools of the three captured steps (their graphs for each
+    # LayerNorm route) beside the KV pools they serve
+    emit({"phase": "captured_steps", "graphs": graph_lines,
+          "kv_pool_bytes": {"slotted": engine.kv_pool_bytes(),
+                            "paged": paged_engine.kv_pool_bytes()}})
     del engine, paged_engine, model, cpu_model
     torch.cuda.empty_cache()
     seconds["serve"] = (time.perf_counter() - t0 - seconds["serve_paged"]
-                        - seconds["serve_spec"] - seconds["serve_quant"])
+                        - seconds["overlap_parity"] - seconds["serve_spec"]
+                        - seconds["serve_quant"])
 
     # -- train: bench.py's step, GPT-2 345M, AMP O2 bf16, AdamW -----------
     t0 = time.perf_counter()

@@ -100,7 +100,9 @@ __global__ void __launch_bounds__(kThreads)
 layer_norm_fwd_kernel(const TX* __restrict__ x, const TW* __restrict__ gamma,
                       const TW* __restrict__ beta, TX* __restrict__ out,
                       float* __restrict__ mean, float* __restrict__ rstd,
-                      int rows, int cols, float eps) {
+                      int rows, int cols, float eps,
+                      unsigned int* __restrict__ launches) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1u);
   constexpr int G = 32 * WPR;
   __shared__ float red[WPR][2];
   const int t = threadIdx.x % G;
@@ -182,7 +184,8 @@ layer_norm_fwd_stream_kernel(const TX* __restrict__ x,
                              const TW* __restrict__ beta, TX* __restrict__ out,
                              float* __restrict__ mean,
                              float* __restrict__ rstd, int rows, int cols,
-                             float eps) {
+                             float eps, unsigned int* __restrict__ launches) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(launches, 1u);
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -233,6 +236,7 @@ struct Args {
   float* rstd;
   int rows, cols;
   float eps;
+  unsigned int* launches;
   cudaStream_t stream;
 };
 
@@ -244,7 +248,7 @@ int launch_reg(const Args& a) {
       <<<blocks, 32 * WPR * rows_per_block, 0, a.stream>>>(
           static_cast<const TX*>(a.x), static_cast<const TW*>(a.g),
           static_cast<const TW*>(a.b), static_cast<TX*>(a.out), a.mean,
-          a.rstd, a.rows, a.cols, a.eps);
+          a.rstd, a.rows, a.cols, a.eps, a.launches);
   return (int)cudaGetLastError();
 }
 
@@ -267,7 +271,7 @@ int launch(const Args& a) {
   layer_norm_fwd_stream_kernel<TX, TW><<<blocks, kThreads, 0, a.stream>>>(
       static_cast<const TX*>(a.x), static_cast<const TW*>(a.g),
       static_cast<const TW*>(a.b), static_cast<TX*>(a.out), a.mean, a.rstd,
-      a.rows, a.cols, a.eps);
+      a.rows, a.cols, a.eps, a.launches);
   return (int)cudaGetLastError();
 }
 
@@ -283,16 +287,19 @@ int dispatch_w(const Args& a, int w_dtype) {
 
 // x, out: dense (rows, cols), 16-byte aligned, cols a multiple of 8;
 // gamma, beta: dense (cols,), 16-byte aligned; mean, rstd: dense (rows,)
-// f32.  dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  Returns the
+// f32.  dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.  launches:
+// a device counter the kernel adds one to (block 0, thread 0), so that
+// launches replayed from a CUDA graph are counted too.  Returns the
 // launch's cudaError_t.
 extern "C" int paddle_layer_norm_fwd(const void* x, const void* gamma,
                                      const void* beta, void* out,
                                      float* mean, float* rstd, int rows,
                                      int cols, float eps, int x_dtype,
-                                     int w_dtype, void* stream) {
-  if (rows <= 0 || cols <= 0 || cols % kPack != 0)
+                                     int w_dtype, unsigned int* launches,
+                                     void* stream) {
+  if (rows <= 0 || cols <= 0 || cols % kPack != 0 || launches == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Args a{x, gamma, beta, out, mean, rstd, rows, cols, eps,
+  const Args a{x, gamma, beta, out, mean, rstd, rows, cols, eps, launches,
                static_cast<cudaStream_t>(stream)};
   if (x_dtype == 0) return dispatch_w<float>(a, w_dtype);
   if (x_dtype == 1) return dispatch_w<__nv_bfloat16>(a, w_dtype);

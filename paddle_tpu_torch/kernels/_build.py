@@ -158,7 +158,7 @@ def library():
             lib.paddle_flash_fwd_tc_smem.argtypes = [i, i, i]
             lib.paddle_flash_fwd_tc_smem.restype = ll
             lib.paddle_layer_norm_fwd.argtypes = [
-                p, p, p, p, p, p, i, i, f, i, i, p]
+                p, p, p, p, p, p, i, i, f, i, i, p, p]
             lib.paddle_layer_norm_fwd.restype = i
             # q, k, v, dout, lse, delta, then the outputs, B S H D, eight
             # strides, causal, scale, dtype, tile rows, stream

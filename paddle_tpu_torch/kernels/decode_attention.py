@@ -94,8 +94,11 @@ def quantize_kv(x, code_dtype=torch.int8):
     xf = x.float()
     amax = xf.abs().amax(dim=-1)
     # divide by a tensor: PyTorch's CUDA division by a Python scalar
-    # multiplies by its reciprocal, one ulp off the JAX package's scale
-    scale = amax.clamp(min=1e-30) / amax.new_tensor(qmax)
+    # multiplies by its reciprocal, one ulp off the JAX package's scale.
+    # The divisor is filled on the device: a tensor made from a Python
+    # number would be a host-to-device copy that waits for the stream
+    # (and cannot run inside a captured step)
+    scale = amax.clamp(min=1e-30) / torch.full_like(amax, qmax)
     scaled = xf / scale[..., None]
     if dt == torch.int8:
         q = torch.round(scaled).clamp(-qmax, qmax)

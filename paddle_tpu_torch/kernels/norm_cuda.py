@@ -19,7 +19,9 @@ the plain versions :func:`_layer_norm_reference` /
 ``custom_vjp`` saves, (x, gamma, mean, rstd), and only when autograd will
 use it.  :func:`softmax_pallas` is forward-only, as in the JAX package.
 ``layer_norm_fwd_launches``, ``layer_norm_bwd_launches`` and
-``softmax_fwd_launches`` count kernel launches.
+``softmax_fwd_launches`` count kernel launches.  Kernel B also counts
+itself on the card (:func:`layer_norm_fwd_device_launches`): a launch
+replayed from a CUDA graph never passes through its wrapper.
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ from . import _build
 layer_norm_fwd_launches = 0
 layer_norm_bwd_launches = 0
 softmax_fwd_launches = 0
+
+#: device index -> kernel B's own launch counter (int32, one element)
+_B_COUNTERS = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DEFAULT_BLOCK_ROWS = 256
@@ -97,6 +102,35 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _b_counter(device):
+    """Kernel B's launch counter on ``device``, made at its first eager
+    launch: made inside a capture, its zeroing would be a node that every
+    replay runs."""
+    counter = _B_COUNTERS.get(device.index)
+    if counter is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("layer_norm_fwd: launch it once outside a "
+                               "CUDA graph capture before capturing it")
+        # a normal tensor even under inference mode (the serving engine's
+        # steps), so that a reset outside it may zero it in place
+        with torch.inference_mode(False):
+            counter = torch.zeros((1,), dtype=torch.int32, device=device)
+        _B_COUNTERS[device.index] = counter
+    return counter
+
+
+def layer_norm_fwd_device_launches(reset=False):
+    """Kernel B's launches as the kernel itself counted them on every
+    card it ran on, eager or replayed from a CUDA graph (a host sync);
+    ``reset`` sets the counts to 0 afterwards."""
+    total = 0
+    for counter in _B_COUNTERS.values():
+        total += int(counter.item())
+        if reset:
+            counter.zero_()
+    return total
+
+
 def layer_norm_fwd(x, gamma, beta, eps=1e-5):
     """x (R, F), gamma/beta (F,) -> (out (R, F), mean (R,), rstd (R,))."""
     global layer_norm_fwd_launches
@@ -116,7 +150,7 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), r, f, float(eps),
         _DTYPES[x.dtype], _DTYPES[gamma.dtype],
-        _build.current_stream(x.device))
+        _b_counter(x.device).data_ptr(), _build.current_stream(x.device))
     _build.check(err, "layer_norm_fwd launch")
     layer_norm_fwd_launches += 1
     return out, mean, rstd

@@ -1,12 +1,15 @@
 """paddle_tpu_torch.serving — the serving engine (port of
 ``paddle_tpu.serving``): the slotted and paged KV caches
 (:mod:`.cache`), the page allocator (:mod:`.pages`), the engine with
-chunked prefill, prefix sharing and copy-on-write (:mod:`.engine`), the
-synchronous continuous-batching scheduler with recompute preemption
+chunked prefill, prefix sharing and copy-on-write (:mod:`.engine`), whose
+decode and verify steps run on a card as CUDA graphs captured once
+(:mod:`.graphs`), the continuous-batching scheduler with its overlapped
+loop (one step in flight, the default) and recompute preemption
 (:mod:`.scheduler`), per-slot sampling and the speculative accept rule
 (:mod:`.sampling`), and prompt-lookup drafting (:mod:`.spec`).
 ``engine_for`` and ``generate`` build paged engines unless given
-``paged=False``, as the JAX package's do; both pass ``spec_k`` and
+``paged=False``, and ``generate`` drives the default (overlapped)
+scheduler, as the JAX package's do; both pass ``spec_k`` and
 ``kv_dtype`` through."""
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
                     PagedPrefillChunkView, PrefillView, SlottedKVCache,
                     is_cache_view, paged_scatter)
 from .engine import (DecodeEngine, InflightDecode, PrefillTask,
-                     prefill_buckets_for)
+                     ThreadedTokens, prefill_buckets_for)
 from .pages import PageAllocator, PagePoolExhausted, prompt_digest_chain
 from .cache import _as_kv_dtypes
 from .sampling import TOP_K_MAX, sample, spec_accept
@@ -27,7 +30,8 @@ __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
            "PagedDecodeView", "PagedPrefillChunkView", "paged_scatter",
            "is_cache_view", "PageAllocator", "PagePoolExhausted",
            "prompt_digest_chain", "DecodeEngine", "InflightDecode",
-           "PrefillTask", "prefill_buckets_for", "sample", "spec_accept",
+           "PrefillTask", "ThreadedTokens", "prefill_buckets_for",
+           "sample", "spec_accept",
            "propose", "TOP_K_MAX",
            "ContinuousBatchingScheduler", "Request", "RequestResult",
            "generate", "engine_for"]
@@ -69,10 +73,10 @@ def generate(model, prompts, max_new_tokens=20, temperature=1.0, top_k=0,
              top_p=1.0, eos_token_id=None, seed=0, num_slots=None,
              max_len=None, **engine_kw):
     """Generate continuations for ``prompts`` through the engine and the
-    continuous-batching scheduler.  ``prompts``: a 2-D int array (one
-    prompt per row), ONE 1-D prompt, or a list of 1-D prompts of ragged
-    lengths.  Returns a list of 1-D int32 np arrays of generated ids, in
-    submission order."""
+    continuous-batching scheduler's default (overlapped) loop.
+    ``prompts``: a 2-D int array (one prompt per row), ONE 1-D prompt,
+    or a list of 1-D prompts of ragged lengths.  Returns a list of 1-D
+    int32 np arrays of generated ids, in submission order."""
     if isinstance(prompts, np.ndarray) and prompts.dtype != object:
         arr = prompts
     else:

@@ -35,22 +35,46 @@ package:
     length``), and advance each length by the accepted count + 1; a
     rejected draft's rows stay written past the length and the next
     step overwrites them.  The host length mirror advances at fetch,
-    the step's one sync.
+    the step's one sync, and only for lanes not freed since the launch
+    (``_slot_epoch``: the overlapped loop's stale step for a retired
+    slot must not revive its length).
 
 * **Slotted** (``paged=False``) — per-slot contiguous ``max_len``
   buffers, bucketed whole-prompt prefill (the CUDA flash forward on a
   card, one launch per layer).
 
-The JAX engine compiles each entry once and donates the cache; PyTorch
-runs the same model eagerly and the views update the cache buffers in
-place.  The host keeps the page table and a mirror of the lengths: the
-table is uploaded only when it changed, and ``slot_lengths`` reads the
+**Captured steps.**  The JAX engine compiles each step once and
+dispatches it asynchronously.  On a card the port captures the decode
+step (slotted or paged) and the verify step once each as a CUDA graph
+(:mod:`.graphs`) and replays it; on the CPU it runs the same step
+function eagerly.  A step reads its operands from static buffers
+(``_StepIO``): ``decode_submit`` / ``decode_spec_submit`` write the
+host's tokens, drafts, lane mask and sampling parameters into one pinned
+block and copy it over without waiting for the stream, thread the
+previous step's device-side tokens in (:class:`ThreadedTokens`), and
+draw the step's uniforms from the engine's generator into a static
+buffer, in the order the eager sampling draws them, so the captured
+step holds no random-number state of its own.  The step's integer
+outputs are copied into pinned host memory behind it, and
+a CUDA event marks the copy: the fetch waits on that event alone, so
+fetching step t-1 never waits for step t (the overlapped scheduler loop
+keeps one step in flight).  A failed capture raises; the engine never
+carries on eagerly behind the caller's back (``_capture`` is False on
+the CPU; setting it False on a card runs the eager step, the A/B
+baseline of ``chip_smoke.py``).
+
+The views update the cache buffers in place.  The host keeps the page
+table and a mirror of the lengths: the table is copied into its one
+device tensor only when it changed, and ``slot_lengths`` reads the
 mirror, so a scheduler iteration makes no extra device sync.  Sampling
 noise comes from one ``torch.Generator`` per engine on the engine's
 device; ``reseed(s)`` restarts it.  The engine reads the model's live
 parameters; a paged engine drops its prefix cache when a parameter
-changed since the cache was filled (``refresh_state``, checked at every
-admission), so a prefix hit never serves K/V of older weights.
+changed since the cache was filled, and a card engine its captured steps
+when a parameter was replaced by another tensor (``refresh_state``,
+checked at every admission and every captured step), so a prefix hit
+never serves K/V of older weights and a replay never reads a dropped
+tensor.
 
 **Quantized KV** (``kv_dtype="int8"``, ``"fp8"`` or
 ``"float8_e4m3fn"``, either layout): the pools hold 1-byte codes and an
@@ -73,14 +97,16 @@ import torch
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..kernels.decode_attention import raw_bytes
+from ..utils.flags import fast_get
 from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
                     PagedPrefillChunkView, PrefillView, SlottedKVCache,
                     _as_kv_dtypes)
+from .graphs import capture
 from .pages import PageAllocator, PagePoolExhausted
-from .sampling import TOP_K_MAX, sample, spec_accept
+from .sampling import TOP_K_MAX, draw_sample_noise, sample, spec_accept
 
 __all__ = ["DecodeEngine", "InflightDecode", "PagePoolExhausted",
-           "PrefillTask", "prefill_buckets_for"]
+           "PrefillTask", "ThreadedTokens", "prefill_buckets_for"]
 
 def prefill_buckets_for(max_len, min_bucket=16):
     """Power-of-two prefill buckets up to ``max_len``; a non-power-of-two
@@ -111,7 +137,11 @@ def _eval_scope(model):
 @dataclasses.dataclass
 class InflightDecode:
     """One launched decode (or speculative verify) step whose results
-    are not fetched yet: device tensors only."""
+    are not fetched yet.  ``tok`` / ``emitted`` / ``counts`` and
+    ``logits`` are device tensors of this step alone (a later step does
+    not overwrite them); ``host`` receives the integer outputs (pinned
+    on a card) behind the ``ready`` event (None on the CPU, where the
+    copy is done at launch).  The fetch sets ``consumed``."""
     kind: str                             # "decode" | "spec"
     active: "np.ndarray"                  # (S,) bool, the step's lanes
     logits: object                        # (S, vocab) | (S, k+1, vocab)
@@ -119,6 +149,57 @@ class InflightDecode:
     emitted: object = None                # (S, k+1) int32 (spec)
     counts: object = None                 # (S,) int32 accepted+1 (spec)
     paged_rows: int = 0                   # mapped rows at launch (spec)
+    host: object = None                   # host copy of the int outputs
+    ready: object = None                  # CUDA event after that copy
+    consumed: bool = False                # set by the fetch
+    slot_epoch: object = None             # per-slot free epoch at launch
+                                          # (spec): the fetch advances
+                                          # the length mirror only for
+                                          # lanes not freed since
+
+
+@dataclasses.dataclass
+class ThreadedTokens:
+    """The tokens of a step whose previous step is still in flight: lane
+    ``i`` feeds ``tokens[i]`` where ``fresh[i]`` (a host-known token: a
+    fresh prefill, a drained lane), else the last token ``prev``
+    committed, which stays on the device (``emitted[i, counts[i] - 1]``
+    for a verify step).  The engine merges the two with one ``where``
+    on the device, so the host never waits for ``prev``."""
+    prev: InflightDecode
+    fresh: "np.ndarray"                   # (S,) bool
+    tokens: "np.ndarray"                  # (S,) int32
+
+
+class _StepIO:
+    """The static operands of one step kind: what a captured step reads
+    and writes, at addresses that never change.  ``inp`` is one int32
+    block that one copy fills each step: tokens (S, k1) (column 0 the
+    last committed token, then the drafts of a verify step), ``fresh``
+    and ``active`` lane masks, ``top_k``, then ``temperature`` and
+    ``top_p`` as f32 bits.  ``noise`` holds the step's uniforms, drawn
+    from the engine's generator before each step (a decode step's
+    (S, vocab); a verify step's (S, k), then (S, vocab)), so the captured
+    step itself draws nothing.  ``out`` holds the step's tokens ((S,
+    k1): the decode step's column 0, or a verify step's emitted run) and
+    then the verify step's counts."""
+
+    def __init__(self, num_slots, k1, vocab, device, spec=False):
+        S, n = int(num_slots), int(num_slots) * int(k1)
+        self.inp = torch.zeros((n + 5 * S,), dtype=torch.int32,
+                               device=device)
+        self.tokens = self.inp[:n].view(S, k1)
+        self.fresh = self.inp[n:n + S]
+        self.active = self.inp[n + S:n + 2 * S]
+        self.top_k = self.inp[n + 2 * S:n + 3 * S]
+        self.temperature = self.inp[n + 3 * S:n + 4 * S].view(torch.float32)
+        self.top_p = self.inp[n + 4 * S:].view(torch.float32)
+        shapes = ((S, k1 - 1), (S, vocab)) if spec else ((S, vocab),)
+        self.noise = tuple(torch.zeros(shape, dtype=torch.float32,
+                                       device=device) for shape in shapes)
+        self.out = torch.zeros((n + S,), dtype=torch.int32, device=device)
+        self.out_tokens = self.out[:n].view(S, k1)
+        self.out_counts = self.out[n:]
 
 
 @dataclasses.dataclass
@@ -191,6 +272,10 @@ class DecodeEngine:
         # speculative accounting: verify steps, drafts proposed (k an
         # active lane) and accepted
         self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0}
+        # host mirror of the device lengths (no sync to read them) and the
+        # per-slot free epoch (bumped by free_slot; see decode_spec_fetch)
+        self._len_host = np.zeros((self.num_slots,), np.int64)
+        self._slot_epoch = np.zeros((self.num_slots,), np.int64)
         if self.paged:
             self._init_paged(page_size, num_pages, prefill_chunk)
         else:
@@ -203,6 +288,17 @@ class DecodeEngine:
         self._state_versions = self._param_versions()
         self._generator = torch.Generator(device=self.device)
         self.reseed(seed)
+        # the step operands (module docstring), one set per step kind
+        vocab = int(cfg.vocab_size)
+        self._io = {"decode": _StepIO(self.num_slots, 1, vocab,
+                                      self.device)}
+        if self.spec_k:
+            self._io["spec"] = _StepIO(self.num_slots, self.spec_k + 1,
+                                       vocab, self.device, spec=True)
+        # captured steps (on a card): key -> graphs.CapturedStep
+        self._capture = self.device.type == "cuda"
+        self._graphs = {}
+        self.graph_captures = 0
 
     def _init_paged(self, page_size, num_pages, prefill_chunk):
         self.page_size = min(int(page_size), self.max_len)
@@ -217,11 +313,12 @@ class DecodeEngine:
         self.prompt_cap = self.max_len
         self._alloc = PageAllocator(self.num_pages, self.num_slots,
                                     self.max_pages, self.page_size)
-        self._len_host = np.zeros((self.num_slots,), np.int64)
         self.cache = PagedKVCache.create(
             self.num_pages, self._layers, self.page_size, self._heads,
             self._head_dim, self.num_slots, self.max_pages,
             self._cache_dtype, self.device, kv_dtype=self.kv_dtype)
+        # the allocator's one device table becomes the cache's
+        self._sync_table()
         self.cow_copies = 0               # pages copied on write
         self.pages_used_peak = 0          # most pages mapped at once
 
@@ -234,21 +331,39 @@ class DecodeEngine:
     # -- host-side API -----------------------------------------------------
 
     def _param_versions(self):
-        """Each parameter's identity and in-place version counter: the
-        port's optimizers update parameters in place, so identity alone
-        (the JAX package's change test) would never see a step."""
-        return tuple((id(p), p._version) for p in self.model.parameters())
+        """Each parameter's identity, storage and in-place version
+        counter: the port's optimizers update parameters in place, so
+        identity alone (the JAX package's change test) would never see a
+        step."""
+        return tuple((id(p), p.data_ptr(), p._version)
+                     for p in self.model.parameters())
+
+    @staticmethod
+    def _graph_identity(versions):
+        """What a captured step holds fixed of the parameters: each
+        one's identity and storage.  A replay reads every parameter at
+        its address, so one updated in place is read live; a copy made
+        inside the step (the LayerNorm wrapper's of a gamma / beta that
+        is not 16-byte aligned) is a node of the graph that every replay
+        runs again."""
+        return tuple((i, ptr) for i, ptr, _v in versions)
 
     def refresh_state(self):
         """Drop the prefix cache when any parameter changed since it was
         filled: its pages hold K/V computed under the old parameters, and
         a hash hit would splice stale cache into a fresh prompt.  Pages
-        still mapped by live slots keep decoding.  Returns whether a
-        change was seen.  Checked at every paged admission and on every
-        cached-engine reuse (``engine_for``)."""
+        still mapped by live slots keep decoding.  Drop the captured
+        steps when a parameter was replaced by another tensor (one
+        updated in place is read live by a replay).  Returns whether a
+        change was seen.  Checked at every paged admission, on every
+        cached-engine reuse (``engine_for``) and before every captured
+        step."""
         versions = self._param_versions()
         if versions == self._state_versions:
             return False
+        if self._graph_identity(versions) != \
+                self._graph_identity(self._state_versions):
+            self._graphs.clear()
         self._state_versions = versions
         if self.paged:
             self._alloc.drop_prefix_cache()
@@ -261,13 +376,15 @@ class DecodeEngine:
         self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0}
         if self.paged:
             self._alloc.reset()
-            self._len_host[:] = 0
+        self._len_host[:] = 0
+        self._slot_epoch += 1
         self.cache.lengths.zero_()
 
     def reseed(self, seed):
         """Restart the sampling stream: after ``reseed(s)`` the next
         prefill/decode sequence reproduces a fresh engine built with
-        ``seed=s``."""
+        ``seed=s``, captured steps or not (a step's uniforms are drawn
+        from this generator just before the step)."""
         self._generator.manual_seed(int(seed))
 
     def bucket_for(self, n):
@@ -282,29 +399,26 @@ class DecodeEngine:
             "(max_len=%d)" % (n, self.buckets[-1], self.max_len))
 
     def slot_lengths(self):
-        """Per-slot valid lengths.  Paged engines serve the host mirror
-        (no device-to-host sync); slotted ones copy from the device."""
-        if self.paged:
-            return self._len_host.copy()
-        return self.cache.lengths.cpu().numpy()
+        """Per-slot valid lengths, from the host mirror (no device sync,
+        so the overlapped loop never stalls on it)."""
+        return self._len_host.copy()
+
+    def _to_device(self, arr):
+        """A host array as a tensor on the engine's device.  On a card
+        the copy goes through pinned memory and does not wait for the
+        stream (a copy from pageable memory would wait for every step
+        queued before it)."""
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def _params(self, temperature, top_k, top_p):
-        dev = self.device
-        return (torch.as_tensor(np.asarray(temperature, np.float32),
-                                device=dev).reshape(-1),
-                torch.as_tensor(np.minimum(np.asarray(top_k, np.int32),
-                                           self.top_k_max),
-                                device=dev).reshape(-1),
-                torch.as_tensor(np.asarray(top_p, np.float32),
-                                device=dev).reshape(-1))
-
-    def _token_column(self, tokens):
-        """The per-slot last committed tokens (host array or device
-        tensor) as an (S, 1) int32 tensor on the engine's device."""
-        toks = torch.as_tensor(np.asarray(tokens, np.int32)
-                               if not isinstance(tokens, torch.Tensor)
-                               else tokens, device=self.device)
-        return toks.to(torch.int32).reshape(self.num_slots, 1)
+        return (self._to_device(np.asarray(temperature,
+                                           np.float32).reshape(-1)),
+                self._to_device(np.minimum(np.asarray(top_k, np.int32),
+                                           self.top_k_max).reshape(-1)),
+                self._to_device(np.asarray(top_p, np.float32).reshape(-1)))
 
     # -- paged page bookkeeping (host side) --------------------------------
 
@@ -319,8 +433,9 @@ class DecodeEngine:
         self.cache.lengths[int(slot)] = int(n)
 
     def _sync_table(self):
-        """Point the cache at the allocator's uploaded page table (a
-        host-to-device copy only when the table changed)."""
+        """Point the cache at the allocator's device page table (one
+        tensor for the engine's life, refreshed from the host table only
+        when it changed)."""
         self.cache.page_table = self._alloc.device_table(self.device)
 
     def free_slot(self, slot):
@@ -331,6 +446,7 @@ class DecodeEngine:
             return
         self._alloc.free_slot(int(slot))
         self._set_length(int(slot), 0)
+        self._slot_epoch[int(slot)] += 1
 
     def unshared_pages(self, slot):
         """Pages ONLY this slot maps — the scheduler's refcount-aware
@@ -445,9 +561,7 @@ class DecodeEngine:
         view = PagedPrefillChunkView(self.cache, task.slot, task.pos,
                                      n_valid)
         with _eval_scope(self.model):
-            logits, _ = self.model(torch.as_tensor(padded,
-                                                   device=self.device),
-                                   cache=view)
+            logits, _ = self.model(self._to_device(padded), cache=view)
         view.finalize()
         task.pos += n_valid
         task.chunks_run += 1
@@ -492,15 +606,224 @@ class DecodeEngine:
         padded[0, :n] = ids
         view = PrefillView(self.cache, slot, n)
         with _eval_scope(self.model):
-            logits, _ = self.model(torch.as_tensor(padded,
-                                                   device=self.device),
-                                   cache=view)
+            logits, _ = self.model(self._to_device(padded), cache=view)
         last = logits[:, n - 1, :]
         tok = sample(last, self._generator,
                      *self._params([temperature], [top_k], [top_p]),
                      self.top_k_max)[0]
         view.finalize()
+        self._len_host[int(slot)] = n
         return int(tok), last[0]
+
+    # -- the step (eager function, or its captured graph) ------------------
+
+    def _decode_step(self):
+        """One batched decode step over the static operands: the model,
+        sampling (from the uniforms drawn for the step) and the view's
+        finalize.  Returns the last-position logits; the tokens land in
+        the step's ``out`` buffer."""
+        io = self._io["decode"]
+        active = io.active.bool()
+        if self.paged:
+            view = PagedDecodeView(self.cache, active=active,
+                                   max_len=self.max_len)
+        else:
+            view = DecodeView(self.cache, active=active)
+        with _eval_scope(self.model):
+            logits, _ = self.model(io.tokens, cache=view)
+        logits = logits[:, -1, :]
+        tok = sample(logits, self._generator, io.temperature, io.top_k,
+                     io.top_p, self.top_k_max, noise=io.noise[0])
+        view.finalize()
+        io.out_tokens[:, 0].copy_(tok)
+        return logits
+
+    def _verify_step(self):
+        """One speculative verify step over the static operands: one
+        forward over each slot's ``[last token, drafts]``, the accept
+        rule (capped so that no length passes ``max_len``: position
+        ``j``'s logits hold only while ``length + j < max_len``) and the
+        advance by the accepted count + 1."""
+        io = self._io["spec"]
+        active = io.active.bool()
+        a_cap = self.max_len - 1 - self.cache.lengths
+        view = PagedDecodeView(self.cache, active=active,
+                               max_len=self.max_len)
+        with _eval_scope(self.model):
+            logits, _ = self.model(io.tokens, cache=view)
+        logits = logits.float()                         # (S, k+1, V)
+        emitted, counts = spec_accept(
+            logits, io.tokens, self._generator, io.temperature, io.top_k,
+            io.top_p, self.top_k_max, max_accept=a_cap, noise=io.noise)
+        view.finalize(advance=counts)
+        io.out_tokens.copy_(emitted)
+        io.out_counts.copy_(counts)
+        return logits
+
+    def _step_fn(self, kind):
+        """The step function of ``kind`` (looked up per call: an engine
+        holding its own bound methods would be a reference cycle, and its
+        graphs would then be freed at some later garbage collection
+        instead of when the engine is dropped)."""
+        return self._verify_step if kind == "spec" else self._decode_step
+
+    def _attn_pick(self, qlen):
+        """The decode attention's autotune pick for a step of ``qlen``
+        tokens a slot, resolved as the step's view resolves it (the
+        ``decode_attn`` / ``decode_attn_paged`` key of its operands)."""
+        from ..kernels import autotune as at
+        from ..kernels import decode_attention as da
+        dt = self.model.gpt.wte.weight.dtype      # q's dtype
+        S, h, d = self.num_slots, self._heads, self._head_dim
+        if self.paged:
+            fam, key = "decode_attn_paged", da.paged_autotune_key(
+                S, self.num_pages + 1, self.page_size, self.max_pages, h,
+                d, qlen, dt, self.device, self.kv_dtype)
+        else:
+            fam, key = "decode_attn", da.autotune_key(
+                S, self.max_len, h, d, qlen, dt, self.device,
+                self.kv_dtype)
+        cand = at.resolve(fam, key)
+        return cand["variant"], tuple(sorted(cand["config"].items()))
+
+    def _step_graph(self, kind):
+        """The captured step of ``kind`` for the current routing, captured
+        now if there is none.  The key holds what a replay cannot see
+        change: the LayerNorm route (``use_pallas_norm``, read while the
+        step runs) and the decode attention's pick; the engine's geometry
+        (slots, ``max_len``, ``spec_k``, ``kv_dtype``) is fixed for its
+        life, and ``refresh_state`` drops every graph once a parameter is
+        replaced by another tensor.  The capture's warm-up runs with
+        every lane inactive, so it commits no KV rows and no lengths."""
+        self.refresh_state()
+        qlen = self._io[kind].tokens.shape[1]
+        key = (kind, bool(fast_get("use_pallas_norm")),
+               self._attn_pick(qlen))
+        graph = self._graphs.get(key)
+        if graph is None:
+            self._io[kind].active.zero_()
+            graph = capture(self._step_fn(kind))
+            self._graphs[key] = graph
+            self.graph_captures += 1
+        return graph
+
+    @torch.inference_mode()
+    def capture_steps(self):
+        """Capture now, on a card, the step the scheduler runs (decode,
+        or verify with ``spec_k``) under the current routing, as the JAX
+        engine compiles at its first call: a server calls this before it
+        takes traffic, so that no capture falls inside a request.  A
+        no-op on the CPU.  Returns :meth:`graph_stats`."""
+        if self._capture:
+            self._step_graph("spec" if self.spec_k else "decode")
+        return self.graph_stats()
+
+    def graph_stats(self):
+        """Captured steps: captures made, graphs held, their replays
+        and the device bytes their pools reserved."""
+        graphs = self._graphs.values()
+        return {"captures": self.graph_captures,
+                "graphs": len(self._graphs),
+                "replays": sum(g.replays for g in graphs),
+                "pool_bytes": sum(g.pool_bytes for g in graphs)}
+
+    def _stage(self, io, tokens, active_np, temperature, top_k, top_p,
+               drafts=None):
+        """Write one step's host operands into ``io.inp`` by ONE copy
+        from pinned memory that does not wait for the stream, then
+        thread device-side tokens into column 0 (``tokens`` a device
+        tensor, or :class:`ThreadedTokens`)."""
+        S, k1 = io.tokens.shape
+        n = S * k1
+        host = torch.empty(io.inp.shape, dtype=torch.int32,
+                           pin_memory=self.device.type == "cuda")
+        h = host.numpy()
+        tok = h[:n].reshape(S, k1)
+        fresh = np.zeros((S,), bool)
+        if isinstance(tokens, ThreadedTokens):
+            fresh[:] = np.asarray(tokens.fresh, bool).reshape(S)
+            tok[:, 0] = np.where(fresh, np.asarray(tokens.tokens,
+                                                   np.int32).reshape(S), 0)
+        elif isinstance(tokens, torch.Tensor):
+            tok[:, 0] = 0
+        else:
+            fresh[:] = True
+            tok[:, 0] = np.asarray(tokens, np.int32).reshape(S)
+        if drafts is not None:
+            tok[:, 1:] = drafts
+        h[n:n + S] = fresh
+        h[n + S:n + 2 * S] = active_np
+        h[n + 2 * S:n + 3 * S] = np.minimum(
+            np.asarray(top_k, np.int32).reshape(-1), self.top_k_max)
+        h[n + 3 * S:n + 4 * S].view(np.float32)[:] = np.asarray(
+            temperature, np.float32).reshape(-1)
+        h[n + 4 * S:].view(np.float32)[:] = np.asarray(
+            top_p, np.float32).reshape(-1)
+        io.inp.copy_(host, non_blocking=True)
+        col = io.tokens[:, 0]
+        if isinstance(tokens, ThreadedTokens):
+            col.copy_(torch.where(io.fresh.bool(), col,
+                                  self._last_tokens(tokens.prev)))
+        elif isinstance(tokens, torch.Tensor):
+            col.copy_(tokens.reshape(S))
+
+    @staticmethod
+    def _last_tokens(step: InflightDecode):
+        """The last token ``step`` committed a lane, on the device:
+        ``tok``, or a verify step's ``emitted[i, counts[i] - 1]``."""
+        if step.kind == "spec":
+            idx = (step.counts.clamp(min=1) - 1).long()[:, None]
+            return step.emitted.gather(1, idx)[:, 0]
+        return step.tok
+
+    def _launch(self, kind, tokens, active_np, temperature, top_k, top_p,
+                drafts=None) -> InflightDecode:
+        """Stage the operands, draw the step's uniforms from the engine's
+        generator, run the step (its captured graph on a card, the eager
+        function on the CPU or with ``_capture`` off),
+        then take the step's outputs out of the static buffers: a device
+        copy of its integers and logits, and a host copy of its integers
+        behind the ``ready`` event."""
+        graph = self._step_graph(kind) if self._capture else None
+        io = self._io[kind]
+        self._stage(io, tokens, active_np, temperature, top_k, top_p,
+                    drafts)
+        if self.paged:
+            self._sync_table()
+        # the step's draws, in the order the eager sampling makes them
+        S, V = io.noise[-1].shape
+        draw_sample_noise(self._generator, S, V,
+                          self.spec_k if kind == "spec" else None,
+                          out=io.noise)
+        if graph is not None:
+            logits = graph.replay().clone()
+        else:
+            logits = self._step_fn(kind)()
+        out = io.out.clone()
+        host, ready = out, None
+        if self.device.type == "cuda":
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        S, k1 = io.tokens.shape
+        rec = InflightDecode(kind=kind, active=active_np, logits=logits,
+                             host=host, ready=ready)
+        if kind == "spec":
+            rec.emitted = out[:S * k1].view(S, k1)
+            rec.counts = out[S * k1:]
+        else:
+            rec.tok = out[:S]
+        return rec
+
+    @staticmethod
+    def _host_ints(step: InflightDecode):
+        """The step's integer outputs on the host: waits for the step's
+        own copy event, never for work queued after it."""
+        if step.ready is not None:
+            step.ready.synchronize()
+        step.consumed = True
+        return step.host.numpy()
 
     # -- decode ------------------------------------------------------------
 
@@ -508,11 +831,13 @@ class DecodeEngine:
     def decode_submit(self, tokens, active, temperature, top_k,
                       top_p, pages_ready=False) -> InflightDecode:
         """Launch one batched decode step without fetching its tokens.
-        ``tokens``: the per-slot last committed tokens (host array or an
-        (S,) device tensor).  A paged engine first maps the pages the
-        appends need (raising PagePoolExhausted when the pool is dry),
-        unless the caller did so this step (``pages_ready=True``, the
-        scheduler)."""
+        ``tokens``: the per-slot last committed tokens (a host array, an
+        (S,) device tensor, or :class:`ThreadedTokens`).  A paged engine
+        first maps the pages the appends need (raising
+        PagePoolExhausted when the pool is dry), unless the caller did so
+        this step (``pages_ready=True``, the scheduler).  The host length
+        mirror and the read accounting advance here: a decode step's
+        advance does not depend on the data."""
         active_np = np.asarray(active, bool).reshape(self.num_slots)
         if self.paged and not pages_ready:
             blocked = self.ensure_decode_ready(active_np)
@@ -520,39 +845,26 @@ class DecodeEngine:
                 raise PagePoolExhausted(
                     "no free page for slot %d's append — evict a slot "
                     "(the scheduler does this refcount-aware)" % blocked)
-        toks = self._token_column(tokens)
-        active_dev = torch.as_tensor(active_np, device=self.device)
-        if self.paged:
-            self._sync_table()
-            view = PagedDecodeView(self.cache, active=active_dev,
-                                   max_len=self.max_len)
-        else:
-            view = DecodeView(self.cache, active=active_dev)
-        with _eval_scope(self.model):
-            logits, _ = self.model(toks, cache=view)
-        logits = logits[:, -1, :]
-        tok = sample(logits, self._generator,
-                     *self._params(temperature, top_k, top_p),
-                     self.top_k_max)
-        view.finalize()
+        rec = self._launch("decode", tokens, active_np, temperature, top_k,
+                           top_p)
         self.kv_stats["tokens"] += int(active_np.sum())
         self.kv_stats["flat_rows"] += self.num_slots * self.max_len
+        # mirror the view's finalize: active lanes advance (paged: clamped
+        # at max_len, where an append was dropped)
+        self._len_host[active_np] += 1
         if self.paged:
-            # mirror the view's finalize: active lanes advance, clamped
-            # at max_len (an append there was dropped)
-            self._len_host[active_np] += 1
             np.minimum(self._len_host, self.max_len, out=self._len_host)
             self.kv_stats["paged_rows"] += self._alloc.mapped_rows_total()
-        return InflightDecode(kind="decode", active=active_np, tok=tok,
-                              logits=logits)
+        return rec
 
     def decode_fetch(self, step: InflightDecode):
         """Consume a launched step: returns (next tokens as an np array,
-        logits as a device tensor)."""
+        logits as a device tensor).  Waits for this step's outputs only,
+        not for steps launched after it."""
         if step.kind != "decode":
             raise ValueError("decode_fetch() consumes decode steps; got a "
                              "%r step (use decode_spec_fetch)" % step.kind)
-        return step.tok.cpu().numpy(), step.logits
+        return self._host_ints(step)[:self.num_slots].copy(), step.logits
 
     def decode(self, tokens, active, temperature, top_k, top_p,
                pages_ready=False):
@@ -569,14 +881,16 @@ class DecodeEngine:
                            top_k, top_p,
                            pages_ready=False) -> InflightDecode:
         """Launch one speculative verify step without fetching its
-        results.  ``tokens``: the per-slot last committed tokens (host
-        array or an (S,) device tensor); ``drafts``: (num_slots, spec_k)
-        proposals.  One forward scores the ``spec_k + 1`` positions of
-        every slot; :func:`.sampling.spec_accept` accepts a prefix
-        (capped so that no length passes ``max_len``) and the device
-        lengths advance by the accepted count + 1.  The host length
-        mirror and the accounting wait for :meth:`decode_spec_fetch`,
-        since the advance depends on the data."""
+        results.  ``tokens``: the per-slot last committed tokens (a host
+        array, an (S,) device tensor, or :class:`ThreadedTokens`);
+        ``drafts``: (num_slots, spec_k) proposals.  One forward scores
+        the ``spec_k + 1`` positions of every slot;
+        :func:`.sampling.spec_accept` accepts a prefix (capped so that no
+        length passes ``max_len``) and the device lengths advance by the
+        accepted count + 1.  The host length mirror and the accounting
+        wait for :meth:`decode_spec_fetch`, since the advance depends on
+        the data: a caller with a verify step in flight maps pages for
+        both steps' worst case."""
         if not self.spec_k:
             raise RuntimeError("decode_spec needs an engine built with "
                                "spec_k > 0")
@@ -594,42 +908,34 @@ class DecodeEngine:
                     "no free page for slot %d's speculative appends — "
                     "evict a slot (the scheduler does this "
                     "refcount-aware)" % blocked)
-        step_toks = torch.cat([self._token_column(tokens),
-                               torch.as_tensor(drafts_np,
-                                               device=self.device)], dim=1)
-        active_dev = torch.as_tensor(active_np, device=self.device)
-        self._sync_table()
-        # acceptance never reaches past the cache's room: position j's
-        # logits hold only while length + j < max_len
-        a_cap = self.max_len - 1 - self.cache.lengths
-        view = PagedDecodeView(self.cache, active=active_dev,
-                               max_len=self.max_len)
-        with _eval_scope(self.model):
-            logits, _ = self.model(step_toks, cache=view)
-        logits = logits.float()                         # (S, k+1, V)
-        emitted, counts = spec_accept(
-            logits, step_toks, self._generator,
-            *self._params(temperature, top_k, top_p), self.top_k_max,
-            max_accept=a_cap)
-        view.finalize(advance=counts)
-        return InflightDecode(kind="spec", active=active_np,
-                              logits=logits, emitted=emitted,
-                              counts=counts,
-                              paged_rows=self._alloc.mapped_rows_total())
+        rec = self._launch("spec", tokens, active_np, temperature, top_k,
+                           top_p, drafts=drafts_np)
+        rec.paged_rows = self._alloc.mapped_rows_total()
+        rec.slot_epoch = self._slot_epoch.copy()
+        return rec
 
     def decode_spec_fetch(self, step: InflightDecode):
         """Consume a launched verify step: fetch ``counts`` and
         ``emitted`` (the step's one sync), advance the host length mirror
         by the in-place commit and settle the spec and KV accounting.
-        Returns ``(emitted, counts, logits)`` as :meth:`decode_spec`."""
+        Returns ``(emitted, counts, logits)`` as :meth:`decode_spec`.
+
+        ``spec_stats`` meter device work: an overlapped loop's stale
+        verify step for a since-retired slot counts here, while the
+        scheduler credits its tokens to no request."""
         if step.kind != "spec":
             raise ValueError("decode_spec_fetch() consumes spec steps; got "
                              "a %r step (use decode_fetch)" % step.kind)
+        ints = self._host_ints(step)
+        S, k1 = self.num_slots, self.spec_k + 1
+        emitted = ints[:S * k1].reshape(S, k1).copy()
+        counts_np = ints[S * k1:].astype(np.int64)
         active_np = step.active
-        counts_np = step.counts.cpu().numpy().astype(np.int64)
         # mirror the view's finalize: active lanes advance by the
-        # accepted count + 1, clamped at max_len
-        self._len_host[active_np] += counts_np[active_np]
+        # accepted count + 1, clamped at max_len; a lane freed (and
+        # perhaps admitted again) since the launch does not advance
+        adv = active_np & (self._slot_epoch == step.slot_epoch)
+        self._len_host[adv] += counts_np[adv]
         np.minimum(self._len_host, self.max_len, out=self._len_host)
         n_active = int(active_np.sum())
         emitted_total = int(counts_np[active_np].sum())
@@ -644,7 +950,7 @@ class DecodeEngine:
             self.kv_stats["flat_rows"] += (self.num_slots * self.max_len
                                            * emitted_total) / n_active
         self.kv_stats["paged_rows"] += step.paged_rows
-        return step.emitted.cpu().numpy(), counts_np, step.logits
+        return emitted, counts_np, step.logits
 
     def decode_spec(self, tokens, drafts, active, temperature, top_k,
                     top_p, pages_ready=False):

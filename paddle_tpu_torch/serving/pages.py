@@ -3,9 +3,11 @@
 and copy-on-write decisions.
 
 Everything here is host/numpy state; the device only ever sees the
-``(num_slots, max_pages)`` page table (:meth:`PageAllocator.device_table`
-keeps the uploaded copy until the table changes).  The allocator is the
-single source of truth for what a page means:
+``(num_slots, max_pages)`` page table: :meth:`PageAllocator.device_table`
+keeps ONE device tensor for the allocator's life (a captured decode step
+holds its address) and copies the host table into it only when the
+table changed.  The allocator is the single source of truth for what a
+page means:
 
 * **Ownership** — ``refcount[p]`` counts the SLOTS mapping page ``p``.
   A page with refcount 1 is private to its slot and may be appended
@@ -91,7 +93,8 @@ class PageAllocator:
         self._cached: Dict[int, None] = {}
         self._hash_to_page: Dict[bytes, int] = {}
         self._page_hashes: Dict[int, Set[bytes]] = {}
-        self._device_table = None     # uploaded copy; None = dirty
+        self._device_table = None     # the one device copy
+        self._table_dirty = True      # host table changed since upload
 
     # -- pool accounting ---------------------------------------------------
 
@@ -146,7 +149,7 @@ class PageAllocator:
                              % (slot, idx))
         self.table[slot, idx] = pid
         self.mapped[slot, idx] = True
-        self._device_table = None
+        self._table_dirty = True
 
     def share(self, slot: int, idx: int, pid: int):
         """Map an EXISTING page into a slot (prefix hit): refcount++.
@@ -172,7 +175,7 @@ class PageAllocator:
             self._release(int(self.table[slot, idx]))
         self.table[slot] = 0
         self.mapped[slot] = False
-        self._device_table = None
+        self._table_dirty = True
 
     def reset(self):
         """Free every slot AND drop the prefix cache (a hard reset —
@@ -210,7 +213,7 @@ class PageAllocator:
         old = int(self.table[slot, idx])
         self.table[slot, idx] = new_pid
         self._release(old)
-        self._device_table = None
+        self._table_dirty = True
         return old
 
     # -- prefix hashing ----------------------------------------------------
@@ -276,10 +279,21 @@ class PageAllocator:
 
     def device_table(self, device):
         """The page table as an int64 tensor on ``device`` (the index
-        dtype torch's gathers take), uploaded only when the host table
-        changed since the last call."""
+        dtype torch's gathers take).  The same tensor every call: the
+        host table is copied into it only when it changed since the last
+        call.  On a card the copy goes through pinned memory without
+        waiting for the stream, so work queued before it (a decode step
+        in flight) reads the table it was launched with."""
+        dev = torch.device(device)
         t = self._device_table
-        if t is None or t.device != torch.device(device):
-            t = torch.as_tensor(self.table.astype(np.int64), device=device)
+        if t is None or t.device != dev:
+            t = torch.zeros(self.table.shape, dtype=torch.int64, device=dev)
             self._device_table = t
+            self._table_dirty = True
+        if self._table_dirty:
+            host = torch.from_numpy(self.table.astype(np.int64))
+            if dev.type == "cuda":
+                host = host.pin_memory()
+            t.copy_(host, non_blocking=True)
+            self._table_dirty = False
         return t

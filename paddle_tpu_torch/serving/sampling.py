@@ -11,15 +11,18 @@ top-k / top-p, vectorised over slots with per-slot parameters.
   ``p == 0`` still emits the top token.
 * The Gumbel-max draw takes its noise from an explicit
   ``torch.Generator`` (the engine owns one per instance), never from the
-  global stream.  It gives other numbers than the JAX key for the same
-  seed: compare sampled output by distribution, greedy output exactly.
+  global stream, or takes uniforms the caller drew from it beforehand
+  (``noise=``: a captured step reads them from a static buffer).  It
+  gives other numbers than the JAX key for the same seed: compare
+  sampled output by distribution, greedy output exactly.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sample", "spec_accept", "apply_temperature", "apply_top_k",
-           "apply_top_p", "filter_logits", "TOP_K_MAX"]
+__all__ = ["sample", "spec_accept", "draw_sample_noise",
+           "apply_temperature", "apply_top_k", "apply_top_p",
+           "filter_logits", "TOP_K_MAX"]
 
 #: static cap for per-slot top-k (requests are clamped host-side)
 TOP_K_MAX = 64
@@ -66,24 +69,40 @@ def filter_logits(logits, temperature, top_k, top_p, k_max=TOP_K_MAX):
     return apply_top_p(apply_top_k(scaled, top_k, k_max), top_p)
 
 
-def sample(logits, generator, temperature, top_k, top_p, k_max=TOP_K_MAX):
+def sample(logits, generator, temperature, top_k, top_p, k_max=TOP_K_MAX,
+           noise=None):
     """One sampled (or greedy) token per slot.
 
     logits: (slots, vocab); generator: a ``torch.Generator`` on the
     logits' device; temperature/top_p: (slots,) float; top_k: (slots,)
-    int (<= 0 disables).  Returns (slots,) int32 token ids."""
+    int (<= 0 disables).  ``noise``: (slots, vocab) f32 uniforms already
+    drawn from ``generator`` (:func:`draw_sample_noise`), else drawn here.
+    Returns (slots,) int32 token ids."""
     greedy_tok = torch.argmax(logits, dim=-1)
     filtered = filter_logits(logits, temperature, top_k, top_p, k_max)
-    u = torch.rand(filtered.shape, generator=generator,
-                   device=filtered.device, dtype=torch.float32)
+    u = (noise if noise is not None
+         else draw_sample_noise(generator, *filtered.shape)[0])
     g = -torch.log(-torch.log(u))          # Gumbel(0, 1); u = 0 gives -inf
     sampled_tok = torch.argmax(filtered + g, dim=-1)
     greedy = temperature <= 0.0
     return torch.where(greedy, greedy_tok, sampled_tok).to(torch.int32)
 
 
+def draw_sample_noise(generator, slots, vocab, k=None, out=None):
+    """The uniforms one :func:`sample` (``k`` None: (slots, vocab)) or
+    one :func:`spec_accept` (``k`` drafts: (slots, k), then (slots,
+    vocab)) draws, in its order, from ``generator``; into ``out`` (the
+    same shapes) when given."""
+    shapes = (((slots, vocab),) if k is None
+              else ((slots, k), (slots, vocab)))
+    out = out or [None] * len(shapes)
+    return tuple(torch.rand(shape, generator=generator,
+                            device=generator.device, dtype=torch.float32,
+                            out=o) for shape, o in zip(shapes, out))
+
+
 def spec_accept(logits, tokens, generator, temperature, top_k, top_p,
-                k_max=TOP_K_MAX, max_accept=None):
+                k_max=TOP_K_MAX, max_accept=None, noise=None):
     """Accept or resample for the batched speculative verify step (port
     of ``paddle_tpu.serving.sampling.spec_accept``).
 
@@ -106,7 +125,8 @@ def spec_accept(logits, tokens, generator, temperature, top_k, top_p,
     distribution with ``d_j`` masked out.  A stop forced by the cap is
     not a rejection and masks nothing.  The generator gives two draws
     in this order on every call, whatever the accept count: uniforms
-    (slots, k), then Gumbel noise (slots, vocab)."""
+    (slots, k), then Gumbel noise (slots, vocab); ``noise``, the pair
+    already drawn (:func:`draw_sample_noise`), replaces them."""
     S, K1, V = logits.shape
     k = K1 - 1
     dev = logits.device
@@ -120,8 +140,9 @@ def spec_accept(logits, tokens, generator, temperature, top_k, top_p,
     tokens = tokens.long()
     draft = tokens[:, 1:]                                       # (S, k)
     greedy = temperature <= 0.0
-    u = torch.rand((S, k), generator=generator, device=dev,
-                   dtype=torch.float32)
+    if noise is None:
+        noise = draw_sample_noise(generator, S, V, k)
+    u, gumbel_u = noise
     if k:
         probs = torch.softmax(filtered[:, :k, :], dim=-1)
         p_draft = torch.gather(probs, -1, draft[..., None])[..., 0]
@@ -143,9 +164,7 @@ def spec_accept(logits, tokens, generator, temperature, top_k, top_p,
     rejected_here = (a == a0) & (a0 < k)
     mask_rej = rejected_here[:, None] & (vocab[None, :] == d_rej[:, None])
     f_resid = f_a.masked_fill(mask_rej, _NEG)
-    noise = torch.rand(f_resid.shape, generator=generator, device=dev,
-                       dtype=torch.float32)
-    sampled_next = torch.argmax(f_resid - torch.log(-torch.log(noise)),
+    sampled_next = torch.argmax(f_resid - torch.log(-torch.log(gumbel_u)),
                                 dim=-1)
     greedy_next = torch.gather(greedy_tok, 1, a[:, None])[:, 0]
     next_tok = torch.where(greedy, greedy_next, sampled_next)

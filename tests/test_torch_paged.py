@@ -5,7 +5,9 @@ attention variants, model-level paged decode, and greedy tokens through
 slot churn and EOS, prefix hits that map pages instead of recomputing
 them, a fully cached prompt, copy-on-write, chunked prefill, a pool so
 tight that requests are preempted, and the append cap at ``max_len``
-(the JAX schedulers run their synchronous loop, ``overlap=False``).
+(the JAX schedulers run their synchronous loop, ``overlap=False``, the
+port's its default, overlapped one: greedy tokens do not depend on the
+loop).
 Then what the port shows alone: paged and slotted greedy tokens are
 identical, ``generate(seed=...)`` repeats through the prefix cache, a
 training step between two ``generate`` calls never serves stale K/V,
@@ -183,13 +185,19 @@ def test_allocators_agree_operation_by_operation():
 
 
 def test_device_table_uploads_only_when_the_table_changed():
+    """One device tensor for the allocator's life (a captured step holds
+    its address), refreshed from the host table only when that changed:
+    a mark written into it survives a call with the table unchanged."""
     al = PageAllocator(num_pages=4, num_slots=2, max_pages=2, page_size=4)
     t0 = al.device_table("cpu")
     assert t0.dtype == torch.int64 and al.device_table("cpu") is t0
+    t0.fill_(7)
+    assert al.device_table("cpu").tolist() == [[7, 7], [7, 7]]
     al.map(0, 0, al.alloc())
     t1 = al.device_table("cpu")
-    assert t1 is not t0 and t1.tolist() == al.table.tolist()
-    assert al.device_table("cpu") is t1
+    assert t1 is t0 and t1.tolist() == al.table.tolist()
+    al.free_slot(0)
+    assert al.device_table("cpu") is t0 and t0.tolist() == [[0, 0], [0, 0]]
 
 
 # ---------------------------------------------------------------------------
@@ -771,10 +779,3 @@ def test_kv_bytes_accounting_scales_with_true_lengths():
 def test_unported_paged_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu", **kw)
-
-
-def test_overlapped_loop_still_raises_on_a_paged_engine():
-    eng = DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu")
-    assert eng.paged
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatchingScheduler(eng, overlap=True)

@@ -1,5 +1,5 @@
 """paddle_tpu_torch serving: the slotted engine (``paged=False``) and the
-synchronous scheduler against ``paddle_tpu``'s
+scheduler's default (overlapped) loop against ``paddle_tpu``'s
 ``DecodeEngine(paged=False)`` and
 ``ContinuousBatchingScheduler(overlap=False)`` at the tiny config in f32
 (greedy tokens identical through slot churn and an EOS), the sampling
@@ -204,9 +204,3 @@ def test_spec_on_the_slotted_engine_raises_value_error():
     with pytest.raises(ValueError, match="paged"):
         DecodeEngine(tm, device="cpu", paged=False, spec_k=2)
 
-
-def test_overlapped_loop_raises():
-    eng = DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), paged=False,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatchingScheduler(eng, overlap=True)

@@ -1,7 +1,9 @@
 """paddle_tpu_torch's speculative decoding and int8/fp8 KV cache against
 ``paddle_tpu`` at the tiny config in f32, on one set of numpy weights
-(``_pair`` of ``tests/test_torch_paged.py``); the JAX schedulers run
-their synchronous loop (``overlap=False``).
+(``_pair`` of ``tests/test_torch_paged.py``); both packages' schedulers
+run their synchronous loop here (``overlap=False``), where the
+per-request draft counts equal the engine's (the overlapped loop drafts
+from one-step-stale history: ``tests/test_torch_overlap.py``).
 
 Quantization: ``quantize_kv``'s codes and scales bit-identical to the
 JAX package's (rows at +-amax, a row of zeros, values past 448), the
@@ -505,11 +507,11 @@ def _spec_both(jm, tm, prompts, max_new=10, **kw):
     want, _ = _run(JaxScheduler, JaxRequest, je, prompts, max_new=max_new,
                    overlap=False)
     got, sched = _run(ContinuousBatchingScheduler, Request, te, prompts,
-                      max_new=max_new)
+                      max_new=max_new, overlap=False)
     plain_kw = {k: v for k, v in kw.items() if k != "spec_k"}
     plain, _ = _run(ContinuousBatchingScheduler, Request,
                     _engines(jm, tm, **plain_kw)[1], prompts,
-                    max_new=max_new)
+                    max_new=max_new, overlap=False)
     return want, got, plain, je, te, sched
 
 
@@ -558,7 +560,7 @@ def test_spec_greedy_through_preemption_matches_jax():
     roomy, _ = _run(ContinuousBatchingScheduler, Request,
                     _engines(jm, tm, max_len=48, page_size=8,
                              prefill_chunk=8, num_pages=12)[1],
-                    prompts, max_new=8)
+                    prompts, max_new=8, overlap=False)
     _same_spec_results(want, got, roomy)
     assert sched.preemptions_total > 0
     assert te._alloc.table.tolist() == je._alloc.table.tolist()
@@ -572,15 +574,17 @@ def test_spec_eos_inside_an_accepted_run_matches_jax():
     span = _prompt(7, 5)
     prompt = np.tile(span, 3)
     base, _ = _run(ContinuousBatchingScheduler, Request,
-                   _engines(jm, tm)[1], [prompt], max_new=40)
+                   _engines(jm, tm)[1], [prompt], max_new=40,
+                   overlap=False)
     eos = int(base[0].tokens[6])
     je, te = _engines(jm, tm, spec_k=4)
     want, _ = _run(JaxScheduler, JaxRequest, je, [prompt], max_new=40,
                    eos=[eos], overlap=False)
     got, _ = _run(ContinuousBatchingScheduler, Request, te, [prompt],
-                  max_new=40, eos=[eos])
+                  max_new=40, eos=[eos], overlap=False)
     plain, _ = _run(ContinuousBatchingScheduler, Request,
-                    _engines(jm, tm)[1], [prompt], max_new=40, eos=[eos])
+                    _engines(jm, tm)[1], [prompt], max_new=40, eos=[eos],
+                    overlap=False)
     _same_spec_results(want, got, plain)
     assert got[0].finish_reason == "eos"
     assert got[0].tokens.tolist() == list(base[0].tokens[:list(
