@@ -93,6 +93,29 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               attends the exact K/V) and paged int8 + 4-draft engines:
               pool bytes and bytes a token, TTFT and TPOT; a 1-byte row
               is (64 + 4) / (2 x 64) of the bf16 row; token ids in range.
+3e. serve_http — GPT-2 345M under ``use_pallas_norm`` behind the HTTP
+              front end (``serving.ServingFrontend`` on 127.0.0.1, the
+              default overlapped loop on captured steps, a live tracer,
+              metrics and liveness on), on a fresh paged engine (the
+              default pool) and a fresh slotted one: the serve traffic
+              POSTed at once and streamed, every ``done`` event's tokens
+              against the in-process default-loop run of the same
+              prompts on the same engine (serve_compare where they part),
+              every status 200, ``serving.goodput_tokens`` up by 12 x
+              32, B's count on the card its wrapper's plus 2L + 1 a
+              replay, no engine-lane span after the first request with a
+              capture, ``/healthz`` ok with the three beacons; then
+              ``loadgen.run_load_sync`` (32 requests, seed 0, 4 a
+              second, prompts of 64-512 and 16-64 new tokens: goodput,
+              shed rate, client TTFT and TPOT p50 and p99, host gap a
+              step and step wall beside the in-process run's); a burst
+              of 8 over ``queue_limit=2`` (429s, each counted by
+              ``serving.shed_total``, and only the admitted requests in
+              the scheduler); a ``SocketReset`` at the 4th SSE event
+              (one stream cut, its slot and pages back refcount-exact,
+              the others' tokens unchanged); a preemption guard fired
+              while requests stream (every request finishes, then 503,
+              and ``wait_drained``).
 4. decode_profile — host and device time of a batched decode step.
 5. parity   — one 128-token prompt (the parity phases take 12 prompts
               with no tokens in common, not the serve traffic's): the
@@ -2321,7 +2344,11 @@ def run_loop(torch, engine, prompts, use_norm_kernel, counters, flags, loop,
     the loop's fields of the phase's line)."""
     from paddle_tpu_torch.serving import ContinuousBatchingScheduler, Request
     flags.set_flags({"use_pallas_norm": use_norm_kernel})
-    captured = loop == LOOPS[0]
+    overlapped = loop == LOOPS[0]
+    # an engine captures only on a card (a CPU engine runs eagerly in
+    # either loop: the CPU rehearsal of the serve phases)
+    can_capture = engine._capture
+    captured = overlapped and can_capture
     engine._capture = captured
     if captured:
         engine.capture_steps()
@@ -2329,7 +2356,7 @@ def run_loop(torch, engine, prompts, use_norm_kernel, counters, flags, loop,
     engine.reseed(0)
     if engine.paged:
         engine.cow_copies = engine.pages_used_peak = 0
-    sched = ContinuousBatchingScheduler(engine, overlap=captured)
+    sched = ContinuousBatchingScheduler(engine, overlap=overlapped)
     for p in prompts:
         sched.submit(Request(prompt=p, max_new_tokens=max_new,
                              temperature=0.0))
@@ -2344,7 +2371,7 @@ def run_loop(torch, engine, prompts, use_norm_kernel, counters, flags, loop,
     on_device = counters.b_on_device()
     g1 = engine.graph_stats()
     flags.set_flags({"use_pallas_norm": False})
-    engine._capture = True
+    engine._capture = can_capture
     steps = sched.decode_steps_total
     replays = g1["replays"] - g0["replays"]
     by_wrapper = launches["layer_norm_fwd"]
@@ -3057,6 +3084,371 @@ def overlap_parity(torch, engine, cpu_model, script, prompts, parity, flags,
     return line
 
 
+# the serve_http phase: the HTTP front end (serving.frontend) and the
+# load harness (serving.loadgen) over each engine, the default loop
+HTTP_TIMEOUT = 120.0          # seconds: every socket and wait of the phase
+HTTP_LOAD = {"qps": 4.0, "n_requests": 32, "seed": 0,
+             "mix": ((64, 512), (16, 64))}
+HTTP_SHED_LIMIT, HTTP_SHED_BURST = 2, 8
+HTTP_CUT_AT = 3               # the SSE event the disconnect check cuts
+
+
+def http_request(host, port, method, path, payload=None, on_event=None,
+                 timeout=HTTP_TIMEOUT):
+    """One HTTP/1.1 request over a fresh socket, read to the server's
+    close.  Returns (status, body): SSE events (a list of dicts) for an
+    event stream, else the JSON document.  ``on_event`` sees each SSE
+    event as it arrives."""
+    import socket
+    body = b"" if payload is None else json.dumps(payload).encode()
+    with socket.create_connection((host, port), timeout=timeout) as s:
+        s.sendall(b"%s %s HTTP/1.1\r\nHost: smoke\r\n"
+                  b"Content-Type: application/json\r\n"
+                  b"Content-Length: %d\r\n\r\n"
+                  % (method.encode(), path.encode(), len(body)) + body)
+        buf = b""
+        while True:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+            if on_event is not None and b"\n\n" in buf:
+                on_event()
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    status = int(head.split()[1])
+    if b"text/event-stream" in head:
+        return status, sse_events(rest)
+    return status, json.loads(rest) if rest else None
+
+
+def sse_events(body):
+    """The ``data:`` events of an SSE body, in order."""
+    return [json.loads(line[6:]) for line in body.split(b"\n\n")
+            if line.startswith(b"data: ")]
+
+
+def done_event(events):
+    """The stream's final ``done`` event, or None for a cut stream."""
+    done = [e for e in events if e.get("done")]
+    return done[0] if done else None
+
+
+def post_all(host, port, payloads, on_event=None):
+    """POST every payload at once (a thread each), streamed; returns
+    [(status, events)] in payload order."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(payloads)) as pool:
+        futures = [pool.submit(http_request, host, port, "POST",
+                               "/v1/generate", dict(p, stream=True),
+                               on_event) for p in payloads]
+        return [f.result(timeout=HTTP_TIMEOUT) for f in futures]
+
+
+def greedy_payloads(prompts, max_new):
+    return [{"prompt": [int(t) for t in p], "max_new_tokens": max_new,
+             "temperature": 0.0} for p in prompts]
+
+
+def wait_until(pred, what, timeout=HTTP_TIMEOUT):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError("serve_http: timed out waiting for %s"
+                                 % what)
+        time.sleep(0.01)
+
+
+def idle_pool(engine, sched):
+    """(slots occupied, pages mapped, pages with a reference) once the
+    scheduler holds nothing: all zero when every slot and page came back
+    refcount-exact."""
+    pages = ((engine._alloc.pages_used(),
+              int((engine._alloc.refcount != 0).sum()))
+             if engine.paged else (0, 0))
+    return (sum(a is not None for a in sched.slots),) + pages
+
+
+def http_frontend(engine, tracer, **kw):
+    """A started front end over ``engine``, reset first: an earlier run's
+    prefix cache would turn a full prompt into a 1-token chunk, whose
+    bf16 logits may part from the in-process run's 64-token chunk."""
+    from paddle_tpu_torch.serving import ServingFrontend
+    engine.reset()
+    fe = ServingFrontend(engine, tracer=tracer, **kw)
+    fe.start()
+    return fe
+
+
+def http_shed(engine, tracer, prompts, registry):
+    """A burst over ``queue_limit``: 429s, each counted by
+    ``serving.shed_total``, and only the admitted requests reach the
+    scheduler."""
+    shed0 = registry.counter("serving.shed_total").value
+    fe = http_frontend(engine, tracer, queue_limit=HTTP_SHED_LIMIT)
+    try:
+        replies = post_all(fe.host, fe.port, greedy_payloads(
+            prompts[:HTTP_SHED_BURST], 8))
+    finally:
+        fe.stop()
+    statuses = [st for st, _ in replies]
+    admitted = statuses.count(200)
+    out = {"queue_limit": HTTP_SHED_LIMIT, "burst": HTTP_SHED_BURST,
+           "status_429": statuses.count(429), "status_200": admitted,
+           "shed_total": registry.counter("serving.shed_total").value
+           - shed0,
+           "scheduler_requests": len(fe.scheduler.finished)}
+    if (out["status_429"] < 1 or admitted + out["status_429"]
+            != HTTP_SHED_BURST or out["shed_total"] != out["status_429"]
+            or out["scheduler_requests"] != admitted
+            or any(done_event(ev) is None for st, ev in replies
+                   if st == 200)):
+        raise AssertionError("serve_http shed: %r" % out)
+    return out
+
+
+def http_disconnect(engine, tracer, prompts, ref, registry, max_new):
+    """A ``SocketReset`` at the ``serve.stream`` site cuts one stream:
+    its slot and pages come back refcount-exact, counted 499, and the
+    other requests' tokens are the in-process run's."""
+    from paddle_tpu_torch.robustness import FaultPlan, chaos
+    from paddle_tpu_torch.robustness.faultpoints import SocketReset
+    c499 = registry.counter("serving.http_requests",
+                            ("code",)).labels(code="499")
+    before = c499.value
+    fe = http_frontend(engine, tracer)
+    base = idle_pool(engine, fe.scheduler)
+    plan = FaultPlan(seed=0).inject("serve.stream", SocketReset(),
+                                    at=HTTP_CUT_AT)
+    try:
+        with chaos(plan):
+            replies = post_all(fe.host, fe.port,
+                               greedy_payloads(prompts[:4], max_new))
+            wait_until(lambda: not fe.scheduler.has_work(),
+                       "the scheduler to go idle")
+        after = idle_pool(engine, fe.scheduler)
+    finally:
+        fe.stop()
+    plan.assert_all_fired()
+    done = [done_event(ev) for _st, ev in replies]
+    cut = [i for i, d in enumerate(done) if d is None]
+    kept_same = all(d["tokens"] == [int(t) for t in ref[i]]
+                    for i, d in enumerate(done) if d is not None)
+    cancelled = [r.rid for r in fe.scheduler.finished.values()
+                 if r.finish_reason == "cancelled"]
+    out = {"cut_at_event": HTTP_CUT_AT, "cut_requests": cut,
+           "status_499": c499.value - before, "cancelled": cancelled,
+           "slots_pages_refs_before": list(base),
+           "slots_pages_refs_after": list(after),
+           "others_same_tokens": kept_same}
+    if (len(cut) != 1 or out["status_499"] != 1 or len(cancelled) != 1
+            or after != base or base != (0, 0, 0) or not kept_same):
+        raise AssertionError("serve_http disconnect: %r" % out)
+    return out
+
+
+def http_drain(engine, tracer, prompts, ref, max_new):
+    """The preemption guard fires with every request accepted and some
+    streaming: each in-flight and queued request finishes with its done
+    event (the in-process tokens), the next POST gets 503, and
+    ``wait_drained`` returns True."""
+    import threading
+    from paddle_tpu_torch.robustness import PreemptionGuard
+    guard = PreemptionGuard(install=False)
+    fe = http_frontend(engine, tracer, guard=guard)
+    streaming = threading.Event()
+    try:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(post_all, fe.host, fe.port,
+                              greedy_payloads(prompts, max_new),
+                              streaming.set)
+            # accepted: outstanding now, or finished already
+            wait_until(lambda: http_request(
+                fe.host, fe.port, "GET", "/healthz")[1]["outstanding"]
+                + len(fe.scheduler.finished) >= len(prompts),
+                "every request accepted")
+            if not streaming.wait(HTTP_TIMEOUT):
+                raise AssertionError("serve_http drain: no token streamed")
+            health = http_request(fe.host, fe.port, "GET", "/healthz")[1]
+            guard.set()
+            replies = fut.result(timeout=HTTP_TIMEOUT)
+        drained = fe.wait_drained(HTTP_TIMEOUT)
+        late, _doc = http_request(fe.host, fe.port, "POST", "/v1/generate",
+                                  greedy_payloads(prompts[:1], 1)[0])
+    finally:
+        fe.stop()
+        guard.clear()
+    done = [done_event(ev) for _st, ev in replies]
+    out = {"requests": len(prompts),
+           "outstanding_at_fire": health["outstanding"],
+           "slots_active_at_fire": health["slots_active"],
+           "finished": sum(d is not None and d["finish_reason"] == "length"
+                           for d in done),
+           "same_tokens": all(d is not None and d["tokens"]
+                              == [int(t) for t in ref[i]]
+                              for i, d in enumerate(done)),
+           "late_status": late, "wait_drained": drained}
+    if (out["finished"] != len(prompts) or not out["same_tokens"]
+            or late != 503 or not drained
+            or out["outstanding_at_fire"] < 1):
+        raise AssertionError("serve_http drain: %r" % out)
+    return out
+
+
+def serve_http(torch, engine, tracer, prompts, counters, flags, cpu_model,
+               max_new=32, load=None):
+    """The serve traffic over HTTP through a :class:`ServingFrontend` on
+    ``engine`` (built with ``tracer``; liveness armed by the caller),
+    under ``use_pallas_norm``, in the default loop; then the load, shed,
+    disconnect and drain checks and ``/healthz``.  Returns the phase's
+    line."""
+    from paddle_tpu_torch.observability import registry
+    from paddle_tpu_torch.serving import loadgen
+    t_phase = time.perf_counter()
+    name = "paged" if engine.paged else "slotted"
+    load = HTTP_LOAD if load is None else load
+    # the in-process default loop on the same prompts and engine
+    registry.default_registry().reset()
+    results, sched, wall, _l, info = run_loop(
+        torch, engine, prompts, True, counters, flags, LOOPS[0],
+        max_new=max_new)
+    check_results("serve_http " + name, results, prompts, max_new)
+    ref = [results[k].tokens for k in sorted(results)]
+    step_wall = registry.histogram("serving.decode_step_seconds")
+    in_process = dict(
+        latency_fields(results, wall),
+        host_gap_ms_per_step=info["host_gap_ms_per_step"],
+        decode_step_wall_p50_ms=1e3 * step_wall.percentile(0.5))
+
+    # -- parity, /healthz and load through one front end ------------------
+    flags.set_flags({"use_pallas_norm": True})
+    engine.reset()
+    engine.reseed(0)
+    engine.capture_steps()    # no capture inside the counted run
+    tracer.reset()
+    registry.default_registry().reset()
+    goodput = registry.counter("serving.goodput_tokens")
+    torch.cuda.synchronize()
+    g0 = engine.graph_stats()
+    counters.reset()
+    fe = http_frontend(engine, tracer)
+    try:
+        t0 = time.perf_counter()
+        replies = post_all(fe.host, fe.port,
+                           greedy_payloads(prompts, max_new))
+        http_wall = time.perf_counter() - t0
+        goodput_parity = goodput.value
+        _st, health = http_request(fe.host, fe.port, "GET", "/healthz")
+        # the parity run's step wall and host gap, beside the in-process
+        # run's: what the loop thread's SSE fan-out costs the card
+        steps0 = fe.scheduler.decode_steps_total
+        gap0 = fe.scheduler.host_gap_seconds
+        http_step_wall = step_wall.percentile(0.5)
+        registry.default_registry().reset()
+        summary = loadgen.run_load_sync(
+            fe.host, fe.port, load["qps"], load["n_requests"],
+            mix=load["mix"], seed=load["seed"],
+            vocab=int(engine.model.config.vocab_size), temperature=0.0)
+        load_steps = fe.scheduler.decode_steps_total - steps0
+        load_gap = fe.scheduler.host_gap_seconds - gap0
+    finally:
+        fe.stop()
+    torch.cuda.synchronize()
+    launches = counters.read()
+    on_device = counters.b_on_device()
+    g1 = engine.graph_stats()
+    replays = g1["replays"] - g0["replays"]
+    layers = engine.model.config.num_hidden_layers
+    by_wrapper = launches["layer_norm_fwd"]
+    if g1["captures"] != g0["captures"] or \
+            on_device - by_wrapper != (2 * layers + 1) * replays:
+        raise AssertionError(
+            "serve_http %s: %d captures while serving; B counted %d on the "
+            "card, %d through its wrapper, for %d replays"
+            % (name, g1["captures"] - g0["captures"], on_device,
+               by_wrapper, replays))
+    statuses = [st for st, _ev in replies]
+    done = [done_event(ev) for _st, ev in replies]
+    toks = [np.asarray(d["tokens"] if d else [], np.int32) for d in done]
+    same = all(np.array_equal(a, b) for a, b in zip(ref, toks))
+    if statuses != [200] * len(prompts) or any(
+            d is None or d["finish_reason"] != "length"
+            or len(d["tokens"]) != max_new for d in done):
+        raise AssertionError("serve_http %s: statuses %r, done events %r"
+                             % (name, statuses, done))
+    if not same:
+        serve_compare(torch, cpu_model, prompts, ref, toks,
+                      "http_vs_in_process_" + name)
+    if goodput_parity != len(prompts) * max_new:
+        raise AssertionError("serve_http %s: goodput rose by %g, want %d"
+                             % (name, goodput_parity,
+                                len(prompts) * max_new))
+    spans = tracer.spans()
+    first = min(s["start_ns"] for s in spans if s["name"] == "request")
+    recaptures = [s for s in spans if s["trace_id"] == 0
+                  and s["start_ns"] >= first
+                  and s["attrs"].get("captures", 0) > 0]
+    beacons = set(health["beacons"])
+    want_beacons = {"serve.frontend_sched", "serve.frontend_loop",
+                    "serve.scheduler_step"}
+    if recaptures or health["status"] != "ok" or \
+            not want_beacons <= beacons:
+        raise AssertionError("serve_http %s: %d engine spans with a "
+                             "capture, healthz %r"
+                             % (name, len(recaptures), health))
+    if (summary["completed"] != summary["sent"] or summary["shed"]
+            or summary["errors"] or summary["dropped_streams"]):
+        raise AssertionError("serve_http %s load: %r" % (name, summary))
+    # on a card every slotted admission of a 128-aligned bucket runs the
+    # forward once a layer (the parity run's 12 at least); paged prefill
+    # never (a CPU engine launches nothing)
+    flash = launches["flash_fwd_tc"]
+    flash_ok = (flash == 0 if engine.paged or engine.device.type != "cuda"
+                else flash >= layers * len(prompts) and flash % layers == 0)
+    if not flash_ok:
+        raise AssertionError("serve_http %s: the tensor-core forward "
+                             "launched %d times" % (name, flash))
+    line = {
+        "phase": "serve_http", "engine": name, "use_pallas_norm": True,
+        "loop": LOOPS[0], "requests": len(prompts), "max_new": max_new,
+        "statuses": sorted(set(statuses)),
+        "same_greedy_tokens": same, "wall_s": http_wall,
+        "tokens_per_s": len(prompts) * max_new / http_wall,
+        "ttft_p50_ms": statistics.median(d["ttft_ms"] for d in done),
+        "tpot_p50_ms": statistics.median(d["tpot_ms"] for d in done),
+        "host_gap_ms_per_step": 1e3 * gap0 / max(steps0, 1),
+        "decode_step_wall_p50_ms": 1e3 * http_step_wall,
+        "goodput_tokens": goodput_parity,
+        "in_process": in_process,
+        "load": dict(summary, offered={
+            "qps": load["qps"], "requests": load["n_requests"],
+            "seed": load["seed"], "mix": load["mix"]}),
+        "load_host_gap_ms_per_step": 1e3 * load_gap / max(load_steps, 1),
+        "load_decode_steps": load_steps,
+        "load_decode_step_wall_p50_ms": 1e3 * step_wall.percentile(0.5),
+        "graph_replays": replays,
+        "launches": {"layer_norm_fwd": on_device,
+                     "layer_norm_fwd_by_wrapper": by_wrapper,
+                     "flash_fwd_tc": flash},
+        "engine_spans_with_captures": len(recaptures),
+        "healthz": {"status": health["status"], "beacons": sorted(beacons)},
+    }
+    # the checks below compare tokens with the in-process run: the same
+    # LayerNorm route
+    try:
+        line["shed"] = http_shed(engine, tracer, prompts,
+                                 registry.default_registry())
+        line["disconnect"] = http_disconnect(
+            engine, tracer, prompts, ref, registry.default_registry(),
+            max_new)
+        line["drain"] = http_drain(engine, tracer, prompts, ref, max_new)
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
+
+
 def main():
     # a fault in native code prints the Python stack of every thread
     faulthandler.enable(all_threads=True)
@@ -3332,6 +3724,25 @@ def main():
     del quant_engines, eng, exact
     torch.cuda.empty_cache()
     seconds["serve_quant"] = time.perf_counter() - t1
+
+    # -- serve_http: the front end and the load harness on each engine ----
+    t1 = time.perf_counter()
+    from paddle_tpu_torch.observability import Tracer, liveness
+    http_runs = {}
+    liveness.enable()
+    try:
+        for paged in (True, False):
+            tracer = Tracer()
+            http_engine = DecodeEngine(model, num_slots=8, max_len=1024,
+                                       seed=0, paged=paged, tracer=tracer)
+            http_runs["paged" if paged else "slotted"] = serve_http(
+                torch, http_engine, tracer, prompts, counters, flags,
+                cpu_model)
+            del http_engine
+    finally:
+        liveness.disable()
+    torch.cuda.empty_cache()
+    seconds["serve_http"] = time.perf_counter() - t1
     # the pools of the three captured steps (their graphs for each
     # LayerNorm route) beside the KV pools they serve
     emit({"phase": "captured_steps", "graphs": graph_lines,
@@ -3341,7 +3752,7 @@ def main():
     torch.cuda.empty_cache()
     seconds["serve"] = (time.perf_counter() - t0 - seconds["serve_paged"]
                         - seconds["overlap_parity"] - seconds["serve_spec"]
-                        - seconds["serve_quant"])
+                        - seconds["serve_quant"] - seconds["serve_http"])
 
     # -- train: bench.py's step, GPT-2 345M, AMP O2 bf16, AdamW -----------
     t0 = time.perf_counter()
@@ -3432,7 +3843,9 @@ def main():
                    "train_fp16": run_fp16[0]["launches"]["flash_fwd_tc"],
                    # the slotted int8 prefill attends the exact K/V
                    "serve_quant_slotted_int8":
-                       quant_runs["slotted_int8"]["launches"]["flash_fwd_tc"]}
+                       quant_runs["slotted_int8"]["launches"]["flash_fwd_tc"],
+                   "serve_http_slotted":
+                       http_runs["slotted"]["launches"]["flash_fwd_tc"]}
     # kernel A and C1 run on the f32 path: train_f32's steps and
     # train_parity's f32 card step
     f32_path = parity_by["dtype"]
@@ -3669,6 +4082,8 @@ def main():
                 for name in ("serve", "span")},
              **{"serve_quant_" + name: run["launches"]["layer_norm_fwd"]
                 for name, run in quant_runs.items()},
+             **{"serve_http_" + name: run["launches"]["layer_norm_fwd"]
+                for name, run in http_runs.items()},
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_fwd"]},

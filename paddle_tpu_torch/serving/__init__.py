@@ -4,13 +4,16 @@
 chunked prefill, prefix sharing and copy-on-write (:mod:`.engine`), whose
 decode and verify steps run on a card as CUDA graphs captured once
 (:mod:`.graphs`), the continuous-batching scheduler with its overlapped
-loop (one step in flight, the default) and recompute preemption
-(:mod:`.scheduler`), per-slot sampling and the speculative accept rule
-(:mod:`.sampling`), and prompt-lookup drafting (:mod:`.spec`).
-``engine_for`` and ``generate`` build paged engines unless given
-``paged=False``, and ``generate`` drives the default (overlapped)
-scheduler, as the JAX package's do; both pass ``spec_k`` and
-``kv_dtype`` through."""
+loop (one step in flight, the default), recompute preemption and its
+spans, metrics and liveness beacon (:mod:`.scheduler`), per-slot
+sampling and the speculative accept rule (:mod:`.sampling`),
+prompt-lookup drafting (:mod:`.spec`), the async streaming HTTP front end
+(:mod:`.frontend` — SSE per-token streaming, bounded admission,
+preemption-guard drain, ``/healthz``) and the Poisson load harness
+(:mod:`.loadgen`).  ``engine_for`` and ``generate`` build paged engines
+unless given ``paged=False``, and ``generate`` drives the default
+(overlapped) scheduler, as the JAX package's do; both pass ``spec_k``
+and ``kv_dtype`` through."""
 from __future__ import annotations
 
 import numpy as np
@@ -20,6 +23,7 @@ from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
                     is_cache_view, paged_scatter)
 from .engine import (DecodeEngine, InflightDecode, PrefillTask,
                      ThreadedTokens, prefill_buckets_for)
+from .frontend import ServingFrontend
 from .pages import PageAllocator, PagePoolExhausted, prompt_digest_chain
 from .cache import _as_kv_dtypes
 from .sampling import TOP_K_MAX, sample, spec_accept
@@ -34,7 +38,7 @@ __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
            "sample", "spec_accept",
            "propose", "TOP_K_MAX",
            "ContinuousBatchingScheduler", "Request", "RequestResult",
-           "generate", "engine_for"]
+           "ServingFrontend", "generate", "engine_for"]
 
 #: bound on cached engines per model: each holds a full preallocated KV
 #: pool (two (slots, layers, max_len, heads, head_dim) buffers' worth)

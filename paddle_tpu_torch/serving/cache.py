@@ -37,7 +37,10 @@ attention variants dequantize what they read.  ``PrefillView`` writes
 quantized rows but attends the exact K/V (nothing precedes its block);
 ``PagedPrefillChunkView`` attends its own quantized rows, the values
 every later step reads, as in the JAX package.  An fp8 pool is indexed
-through its bytes (``raw_bytes``).
+through its bytes (``raw_bytes``).  A decode view given ``quant_err`` (a
+one-element f32 tensor) folds the max abs dequantization error of every
+row it quantizes into it, in place, as the JAX views' carried
+``quant_err`` scalar does (the ``serving.kv_quant_error`` gauge).
 
 **Updates in place.**  The JAX package donates the cache buffers to each
 compiled step and XLA aliases them input to output.  PyTorch runs
@@ -276,7 +279,7 @@ def is_cache_view(obj) -> bool:
 class _CacheView:
     """Carrier of the cache through the model's per-layer walk."""
 
-    def __init__(self, cache: SlottedKVCache):
+    def __init__(self, cache: SlottedKVCache, quant_err=None):
         self.cache = cache
         self.k = cache.k
         self.v = cache.v
@@ -284,6 +287,8 @@ class _CacheView:
         self.v_scale = cache.v_scale
         self.lengths = cache.lengths
         self._layer = 0
+        # the opt-in error accumulator, for a quantized cache only
+        self.quant_err = quant_err if self.quantized else None
 
     @property
     def quantized(self):
@@ -297,6 +302,11 @@ class _CacheView:
             return ((self.k, k_new), (self.v, v_new))
         kq, ks = quantize_kv(k_new, self.k.dtype)
         vq, vs = quantize_kv(v_new, self.v.dtype)
+        if self.quant_err is not None:
+            for x, q, sc in ((k_new, kq, ks), (v_new, vq, vs)):
+                err = (dequantize_kv(q, sc, torch.float32)
+                       - x.float()).abs().amax()
+                torch.maximum(self.quant_err, err, out=self.quant_err)
         return ((self.k, kq), (self.v, vq), (self.k_scale, ks),
                 (self.v_scale, vs))
 
@@ -334,8 +344,8 @@ class DecodeView(_CacheView):
     overwrites those rows.  Rows at or past ``max_len`` are dropped, as
     XLA's scatter drops them in the JAX package."""
 
-    def __init__(self, cache: SlottedKVCache, active=None):
-        super().__init__(cache)
+    def __init__(self, cache: SlottedKVCache, active=None, quant_err=None):
+        super().__init__(cache, quant_err=quant_err)
         self.active = active
         self._steps = 0
         self._rows = None
@@ -445,8 +455,8 @@ class _PagedView(_CacheView):
     indices, the attention's pre-append lengths and its variant are the
     same for every layer, so they are formed once, at the first layer."""
 
-    def __init__(self, cache: PagedKVCache):
-        super().__init__(cache)
+    def __init__(self, cache: PagedKVCache, quant_err=None):
+        super().__init__(cache, quant_err=quant_err)
         self.page_table = cache.page_table
         self._step = None
 
@@ -487,8 +497,9 @@ class PagedDecodeView(_PagedView):
     handed to another slot, so its lane must never write.  Appends at or
     past ``max_len`` drop too, and lengths stop advancing there."""
 
-    def __init__(self, cache: PagedKVCache, active=None, max_len=None):
-        super().__init__(cache)
+    def __init__(self, cache: PagedKVCache, active=None, max_len=None,
+                 quant_err=None):
+        super().__init__(cache, quant_err=quant_err)
         self.active = active
         self.max_len = (int(max_len) if max_len is not None
                         else int(cache.max_len))

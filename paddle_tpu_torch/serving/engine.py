@@ -81,6 +81,19 @@ tensor.
 f32 scale per (row, head) (:mod:`.cache`); ``kv_row_bytes`` and what is
 derived from it price codes plus scales.
 
+**Observability** (as in the JAX engine): the ``serving.page_pool_used``
+gauge and the ``serving.cow_copies`` counter; the opt-in
+``serving.kv_quant_error`` gauge (``PADDLE_TPU_METRICS_KV_QUANT_ERROR=1``
+at construction, a quantized pool only), which the decode and verify
+steps fill on the device with the max abs dequantization error of their
+appends and which rides the step's one copy to the host, so it costs
+device work and no extra sync; one engine-lane span a step launch or
+prefill chunk, whose ``captures`` attr counts the graphs captured during
+that call (the JAX spans' ``compiles``: nonzero on a steady-state step is
+a re-capture); and a flight-recorder state summary (``flight_state``)
+read from host state alone, so a dump after a CUDA error never touches
+the device.
+
 The engine runs on the card unless ``device="cpu"`` is given, and moves
 the model there.  Not ported yet, and raising ``NotImplementedError``
 instead of running something else (ROADMAP.md §A5): tensor
@@ -90,11 +103,16 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
+import time
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..observability import flight as _flight
+from ..observability import registry as _metrics
+from ..observability import tracing as _tracing
 from ..core.dtype import convert_dtype
 from ..kernels.decode_attention import raw_bytes
 from ..utils.flags import fast_get
@@ -181,8 +199,9 @@ class _StepIO:
     from the engine's generator before each step (a decode step's
     (S, vocab); a verify step's (S, k), then (S, vocab)), so the captured
     step itself draws nothing.  ``out`` holds the step's tokens ((S,
-    k1): the decode step's column 0, or a verify step's emitted run) and
-    then the verify step's counts."""
+    k1): the decode step's column 0, or a verify step's emitted run), then
+    the verify step's counts, then the f32 bits of the step's
+    quantization error (``out_qerr``, 0 unless the engine tracks it)."""
 
     def __init__(self, num_slots, k1, vocab, device, spec=False):
         S, n = int(num_slots), int(num_slots) * int(k1)
@@ -197,9 +216,11 @@ class _StepIO:
         shapes = ((S, k1 - 1), (S, vocab)) if spec else ((S, vocab),)
         self.noise = tuple(torch.zeros(shape, dtype=torch.float32,
                                        device=device) for shape in shapes)
-        self.out = torch.zeros((n + S,), dtype=torch.int32, device=device)
+        self.out = torch.zeros((n + S + 1,), dtype=torch.int32,
+                               device=device)
         self.out_tokens = self.out[:n].view(S, k1)
-        self.out_counts = self.out[n:]
+        self.out_counts = self.out[n:n + S]
+        self.out_qerr = self.out[n + S:].view(torch.float32)
 
 
 @dataclasses.dataclass
@@ -226,8 +247,13 @@ class DecodeEngine:
     def __init__(self, model, num_slots=4, max_len=None, cache_dtype=None,
                  min_bucket=16, seed=0, top_k_max=TOP_K_MAX, paged=True,
                  page_size=64, num_pages=None, prefill_chunk=None,
-                 kv_dtype=None, spec_k=0, spec_ngram=3, tp=1, device=None):
+                 kv_dtype=None, spec_k=0, spec_ngram=3, tp=1, device=None,
+                 tracer=None):
         cfg = model.config
+        # the engine lane of the request trace: one span a step launch or
+        # prefill chunk, and the allocator's page events
+        self._tracer = (tracer if tracer is not None
+                        else _tracing.default_tracer())
         self.paged = bool(paged)
         self.num_slots = int(num_slots)
         self.max_len = int(max_len or cfg.max_position_embeddings)
@@ -264,6 +290,13 @@ class DecodeEngine:
                 "(ROADMAP.md §A5)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        # metric handles, fetched once (no-op singletons when disabled);
+        # the quant-error flag is read once, here, as in the JAX engine
+        self._m_pool = _metrics.gauge("serving.page_pool_used")
+        self._m_cow = _metrics.counter("serving.cow_copies")
+        self._m_qerr = _metrics.gauge("serving.kv_quant_error")
+        self._track_qerr = bool(self.kv_dtype is not None and os.environ.get(
+            "PADDLE_TPU_METRICS_KV_QUANT_ERROR", "0") == "1")
         # decode KV-read accounting: per decode or verify step,
         # `paged_rows` adds the rows a length-aware paged schedule reads
         # (mapped pages, one sweep a step however many tokens it commits)
@@ -299,6 +332,10 @@ class DecodeEngine:
         self._capture = self.device.type == "cuda"
         self._graphs = {}
         self.graph_captures = 0
+        self.graph_captures_by_kind = {"decode": 0, "spec": 0}
+        # flight dumps collect this engine's state summary (a weak
+        # reference: registration never pins the engine)
+        _flight.register_engine(self)
 
     def _init_paged(self, page_size, num_pages, prefill_chunk):
         self.page_size = min(int(page_size), self.max_len)
@@ -312,7 +349,8 @@ class DecodeEngine:
                                  else min(64, self.max_len))
         self.prompt_cap = self.max_len
         self._alloc = PageAllocator(self.num_pages, self.num_slots,
-                                    self.max_pages, self.page_size)
+                                    self.max_pages, self.page_size,
+                                    tracer=self._tracer)
         self.cache = PagedKVCache.create(
             self.num_pages, self._layers, self.page_size, self._heads,
             self._head_dim, self.num_slots, self.max_pages,
@@ -376,6 +414,7 @@ class DecodeEngine:
         self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0}
         if self.paged:
             self._alloc.reset()
+            self._m_pool.set(0)
         self._len_host[:] = 0
         self._slot_epoch += 1
         self.cache.lengths.zero_()
@@ -423,8 +462,9 @@ class DecodeEngine:
     # -- paged page bookkeeping (host side) --------------------------------
 
     def _note_pool(self):
-        self.pages_used_peak = max(self.pages_used_peak,
-                                   self._alloc.pages_used())
+        used = self._alloc.pages_used()
+        self.pages_used_peak = max(self.pages_used_peak, used)
+        self._m_pool.set(used)
 
     def _set_length(self, slot, n):
         """Host-side length write (admission bookkeeping, off the
@@ -447,6 +487,7 @@ class DecodeEngine:
         self._alloc.free_slot(int(slot))
         self._set_length(int(slot), 0)
         self._slot_epoch[int(slot)] += 1
+        self._m_pool.set(self._alloc.pages_used())
 
     def unshared_pages(self, slot):
         """Pages ONLY this slot maps — the scheduler's refcount-aware
@@ -465,11 +506,17 @@ class DecodeEngine:
         new_pid = self._alloc.alloc()
         old_pid = int(self._alloc.table[int(slot), int(idx)])
         c = self.cache
+        tr_on = self._tracer.enabled
+        if tr_on:
+            c0, t0_ns = self.graph_captures, time.perf_counter_ns()
         for pool in (c.k, c.v, c.k_scale, c.v_scale):
             if pool is not None:
                 raw_bytes(pool)[new_pid] = raw_bytes(pool)[old_pid]
+        if tr_on:
+            self._dispatch_span("engine.cow_copy", t0_ns, c0)
         self._alloc.remap(int(slot), int(idx), new_pid)
         self.cow_copies += 1
+        self._m_cow.inc()
 
     def _ensure_write_range(self, slot, start, stop):
         """Map (allocating) every page covering positions [start, stop)
@@ -558,11 +605,16 @@ class DecodeEngine:
         padded = np.zeros((1, self.prefill_chunk), np.int32)
         padded[0, :n_valid] = task.ids[task.pos:task.pos + n_valid]
         self._sync_table()
+        tr_on = self._tracer.enabled
+        if tr_on:
+            c0, t0_ns = self.graph_captures, time.perf_counter_ns()
         view = PagedPrefillChunkView(self.cache, task.slot, task.pos,
                                      n_valid)
         with _eval_scope(self.model):
             logits, _ = self.model(self._to_device(padded), cache=view)
         view.finalize()
+        if tr_on:
+            self._dispatch_span("engine.prefill_chunk", t0_ns, c0)
         task.pos += n_valid
         task.chunks_run += 1
         self._len_host[task.slot] = task.pos
@@ -604,9 +656,14 @@ class DecodeEngine:
         bucket = self.bucket_for(n)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = ids
+        tr_on = self._tracer.enabled
+        if tr_on:
+            c0, t0_ns = self.graph_captures, time.perf_counter_ns()
         view = PrefillView(self.cache, slot, n)
         with _eval_scope(self.model):
             logits, _ = self.model(self._to_device(padded), cache=view)
+        if tr_on:
+            self._dispatch_span("engine.prefill", t0_ns, c0)
         last = logits[:, n - 1, :]
         tok = sample(last, self._generator,
                      *self._params([temperature], [top_k], [top_p]),
@@ -624,11 +681,12 @@ class DecodeEngine:
         the step's ``out`` buffer."""
         io = self._io["decode"]
         active = io.active.bool()
+        qerr = self._step_qerr(io)
         if self.paged:
             view = PagedDecodeView(self.cache, active=active,
-                                   max_len=self.max_len)
+                                   max_len=self.max_len, quant_err=qerr)
         else:
-            view = DecodeView(self.cache, active=active)
+            view = DecodeView(self.cache, active=active, quant_err=qerr)
         with _eval_scope(self.model):
             logits, _ = self.model(io.tokens, cache=view)
         logits = logits[:, -1, :]
@@ -648,7 +706,8 @@ class DecodeEngine:
         active = io.active.bool()
         a_cap = self.max_len - 1 - self.cache.lengths
         view = PagedDecodeView(self.cache, active=active,
-                               max_len=self.max_len)
+                               max_len=self.max_len,
+                               quant_err=self._step_qerr(io))
         with _eval_scope(self.model):
             logits, _ = self.model(io.tokens, cache=view)
         logits = logits.float()                         # (S, k+1, V)
@@ -659,6 +718,14 @@ class DecodeEngine:
         io.out_tokens.copy_(emitted)
         io.out_counts.copy_(counts)
         return logits
+
+    def _step_qerr(self, io):
+        """The step's quantization-error accumulator, zeroed (None when
+        the engine does not track it)."""
+        if not self._track_qerr:
+            return None
+        io.out_qerr.zero_()
+        return io.out_qerr
 
     def _step_fn(self, kind):
         """The step function of ``kind`` (looked up per call: an engine
@@ -705,6 +772,7 @@ class DecodeEngine:
             graph = capture(self._step_fn(kind))
             self._graphs[key] = graph
             self.graph_captures += 1
+            self.graph_captures_by_kind[kind] += 1
         return graph
 
     @torch.inference_mode()
@@ -811,10 +879,26 @@ class DecodeEngine:
                              host=host, ready=ready)
         if kind == "spec":
             rec.emitted = out[:S * k1].view(S, k1)
-            rec.counts = out[S * k1:]
+            rec.counts = out[S * k1:S * k1 + S]
         else:
             rec.tok = out[:S]
         return rec
+
+    def _set_quant_err(self, ints):
+        """Publish the fetched step's quantization error (its f32 bits
+        ride the end of the step's host copy)."""
+        if self._track_qerr:
+            self._m_qerr.set(float(ints[-1:].view(np.float32)[0]))
+
+    def _dispatch_span(self, name, t0_ns, c0):
+        """Engine-lane span for one step launch or prefill chunk, with
+        the graphs captured during it (``captures``) and in all
+        (``capture_count``): a nonzero ``captures`` on a steady-state
+        step is a re-capture, the bug class the JAX spans' ``compiles``
+        attr exposes."""
+        self._tracer.add_span(name, t0_ns, time.perf_counter_ns(),
+                              capture_count=self.graph_captures,
+                              captures=self.graph_captures - c0)
 
     @staticmethod
     def _host_ints(step: InflightDecode):
@@ -845,6 +929,9 @@ class DecodeEngine:
                 raise PagePoolExhausted(
                     "no free page for slot %d's append — evict a slot "
                     "(the scheduler does this refcount-aware)" % blocked)
+        tr_on = self._tracer.enabled
+        if tr_on:
+            c0, t0_ns = self.graph_captures, time.perf_counter_ns()
         rec = self._launch("decode", tokens, active_np, temperature, top_k,
                            top_p)
         self.kv_stats["tokens"] += int(active_np.sum())
@@ -855,6 +942,8 @@ class DecodeEngine:
         if self.paged:
             np.minimum(self._len_host, self.max_len, out=self._len_host)
             self.kv_stats["paged_rows"] += self._alloc.mapped_rows_total()
+        if tr_on:
+            self._dispatch_span("engine.decode", t0_ns, c0)
         return rec
 
     def decode_fetch(self, step: InflightDecode):
@@ -864,7 +953,9 @@ class DecodeEngine:
         if step.kind != "decode":
             raise ValueError("decode_fetch() consumes decode steps; got a "
                              "%r step (use decode_spec_fetch)" % step.kind)
-        return self._host_ints(step)[:self.num_slots].copy(), step.logits
+        ints = self._host_ints(step)
+        self._set_quant_err(ints)
+        return ints[:self.num_slots].copy(), step.logits
 
     def decode(self, tokens, active, temperature, top_k, top_p,
                pages_ready=False):
@@ -908,10 +999,15 @@ class DecodeEngine:
                     "no free page for slot %d's speculative appends — "
                     "evict a slot (the scheduler does this "
                     "refcount-aware)" % blocked)
+        tr_on = self._tracer.enabled
+        if tr_on:
+            c0, t0_ns = self.graph_captures, time.perf_counter_ns()
         rec = self._launch("spec", tokens, active_np, temperature, top_k,
                            top_p, drafts=drafts_np)
         rec.paged_rows = self._alloc.mapped_rows_total()
         rec.slot_epoch = self._slot_epoch.copy()
+        if tr_on:
+            self._dispatch_span("engine.spec_verify", t0_ns, c0)
         return rec
 
     def decode_spec_fetch(self, step: InflightDecode):
@@ -927,9 +1023,10 @@ class DecodeEngine:
             raise ValueError("decode_spec_fetch() consumes spec steps; got "
                              "a %r step (use decode_fetch)" % step.kind)
         ints = self._host_ints(step)
+        self._set_quant_err(ints)
         S, k1 = self.num_slots, self.spec_k + 1
         emitted = ints[:S * k1].reshape(S, k1).copy()
-        counts_np = ints[S * k1:].astype(np.int64)
+        counts_np = ints[S * k1:S * k1 + S].astype(np.int64)
         active_np = step.active
         # mirror the view's finalize: active lanes advance by the
         # accepted count + 1, clamped at max_len; a lane freed (and
@@ -1002,3 +1099,38 @@ class DecodeEngine:
             out["paged"] = (0.0 if not t
                             else self.kv_stats["paged_rows"] * row / t)
         return out
+
+    # -- flight-recorder state summary -------------------------------------
+
+    def flight_state(self):
+        """JSON-ready engine state for a flight dump, from host state only
+        (the length mirror, the allocator, the capture counts): a dump
+        taken after a CUDA error must not touch the device.  The JAX
+        engine's compile counts are the graph captures by step kind."""
+        st = {
+            "paged": self.paged,
+            "num_slots": self.num_slots,
+            "max_len": self.max_len,
+            "kv_dtype": str(self.kv_dtype or self._cache_dtype).replace(
+                "torch.", ""),
+            "spec_k": self.spec_k,
+            "tp": 1,
+            "slot_lengths": [int(x) for x in self._len_host],
+            "graph_captures": {
+                "decode": self.graph_captures_by_kind["decode"],
+                "verify": self.graph_captures_by_kind["spec"]},
+        }
+        if self.paged:
+            al = self._alloc
+            st.update(
+                num_pages=self.num_pages,
+                page_size=self.page_size,
+                pages_used=al.pages_used(),
+                pages_free=al.pages_free(),
+                pages_cached=al.pages_cached(),
+                slot_pages={
+                    str(i): [int(al.table[i, j])
+                             for j in np.nonzero(al.mapped[i])[0]]
+                    for i in range(self.num_slots)},
+            )
+        return st

@@ -42,6 +42,15 @@ replay inside a ``torch.profiler`` trace segfault on the host;
 ``tools/torch_graph_pool_probe.py`` reproduces it, and the same
 sequence on the shared pool runs and replays bit for bit.
 
+**Threads.**  :func:`capture` uses ``torch.cuda.graph``'s default,
+global capture mode, in which a CUDA call from any other thread during
+the capture (a synchronize, a counter read, a memory statistic) can fail
+or invalidate it.  So a capture runs while no other thread touches the
+card: the HTTP front end (:mod:`.frontend`) captures the engine's step on
+the caller's thread in ``start()``, before its scheduler thread exists,
+and from then on only the scheduler thread calls the engine, which
+replays.  The capture mode is left as it is.
+
 There is no eager retreat: a failed capture or replay raises.
 """
 from __future__ import annotations

@@ -34,9 +34,11 @@ page means:
   list runs dry, oldest first.  A reused page is never reachable under a
   stale digest.
 
-The JAX package's tracer events, host-tier spill hook and the
-``adopt_page`` / ``evict_cached`` entries of its host tier and
-disaggregated handoff are not ported (ROADMAP.md §A3, §A6).
+Page-lifecycle events (``pages.prefix_share``, ``pages.cow_remap``,
+``pages.reclaim``) land as instants on the tracer's engine lane, as in
+the JAX package.  Its host-tier spill hook and the ``adopt_page`` /
+``evict_cached`` entries of its host tier and disaggregated handoff are
+not ported (ROADMAP.md §A3, §A6).
 """
 from __future__ import annotations
 
@@ -45,6 +47,8 @@ from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
+
+from ..observability import tracing as _tracing
 
 __all__ = ["PageAllocator", "PagePoolExhausted", "prompt_digest_chain"]
 
@@ -77,7 +81,11 @@ def prompt_digest_chain(ids: np.ndarray, page_size: int) -> List[bytes]:
 
 class PageAllocator:
     def __init__(self, num_pages: int, num_slots: int, max_pages: int,
-                 page_size: int):
+                 page_size: int, tracer=None):
+        # page-lifecycle events land on the tracer's engine lane; the
+        # no-op tracer costs one empty call an event
+        self._tracer = (tracer if tracer is not None
+                        else _tracing.default_tracer())
         self.num_pages = int(num_pages)
         self.num_slots = int(num_slots)
         self.max_pages = int(max_pages)
@@ -101,6 +109,10 @@ class PageAllocator:
     def pages_free(self) -> int:
         """Allocatable pages: truly free + reclaimable cached."""
         return len(self._free) + len(self._cached)
+
+    def pages_cached(self) -> int:
+        """Free-but-cached pages: refcount 0, still reachable by digest."""
+        return len(self._cached)
 
     def pages_used(self) -> int:
         """Pages mapped by at least one slot (cached pages are free)."""
@@ -136,6 +148,8 @@ class PageAllocator:
             pid = next(iter(self._cached))
             del self._cached[pid]
             self._purge_hashes(pid)
+            self._tracer.instant("pages.reclaim", page=pid,
+                                 cached_left=len(self._cached))
         else:
             raise PagePoolExhausted(
                 "page pool exhausted: all %d pages are mapped"
@@ -158,6 +172,8 @@ class PageAllocator:
             self._cached.pop(pid, None)
         self.refcount[pid] += 1
         self.map(slot, idx, pid)
+        self._tracer.instant("pages.prefix_share", page=pid, slot=slot,
+                             refcount=int(self.refcount[pid]))
 
     def _release(self, pid: int):
         self.refcount[pid] -= 1
@@ -214,6 +230,8 @@ class PageAllocator:
         self.table[slot, idx] = new_pid
         self._release(old)
         self._table_dirty = True
+        self._tracer.instant("pages.cow_remap", slot=slot, old=old,
+                             new=int(new_pid))
         return old
 
     # -- prefix hashing ----------------------------------------------------

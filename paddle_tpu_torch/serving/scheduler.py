@@ -68,9 +68,24 @@ pages (refcount-exact) or drops a waiting or parked one, finishing it
 (first tokens included) and ``on_finish(result)`` every retirement, on
 the scheduler's thread.
 
-Not ported yet (ROADMAP.md §A6): tracing spans, metrics, liveness
-beacons, faultpoints, host-tier fetches (and so ``cancel``'s branch for
-a request whose pages are being fetched back) and the requeue transfer.
+**Observability, as in the JAX scheduler.**  ``submit`` mints a
+``trace_id`` (threaded onto the :class:`RequestResult`) and opens a
+``request`` root span; its ``queue`` child ends at admission, and each
+prefill chunk, decode or verify step, preemption (a ``preempted`` event,
+a ``requeue`` span and ``rework``-tagged recompute chunks), prefix hit
+and finish land on that lane (:meth:`request_span` hands the root to the
+front end's ``http`` span).  Every iteration feeds the metrics registry
+(TTFT, queue wait, TPOT, step and chunk walls, tokens, occupancy, queue
+depth, prefix hits, preemptions, drafts, finish reasons) from host
+values alone: wall clocks and the host length mirror, never a device
+read.  Handles and the tracer are fetched once at construction, so with
+both disabled the hot loop calls empty methods.  :meth:`step` runs
+inside the ``serve.scheduler_step`` liveness beacon, with the
+``serve.step`` faultpoint inside that guard.
+
+Not ported yet (ROADMAP.md §A6): host-tier fetches (and so ``cancel``'s
+branch for a request whose pages are being fetched back), the requeue
+transfer between schedulers and the HBM ledger's iteration sample.
 """
 from __future__ import annotations
 
@@ -82,11 +97,30 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..observability import liveness as _liveness
+from ..observability import registry as _metrics
+from ..observability import tracing as _tracing
+from ..robustness.faultpoints import declare as _declare, faultpoint
 from .engine import ThreadedTokens
 from .pages import PagePoolExhausted
 from .spec import propose
 
 __all__ = ["Request", "RequestResult", "ContinuousBatchingScheduler"]
+
+#: chaos site on the scheduler's iteration, INSIDE the liveness beacon's
+#: guard: a scheduled ``Hang`` here simulates a wedged decode loop and
+#: must trip the watchdog
+STEP_SITE = _declare(
+    "serve.step",
+    "fires at the top of every scheduler iteration (a Hang here "
+    "simulates a wedged decode loop for the liveness watchdog)")
+
+#: liveness beacon over one scheduler iteration; a generous default —
+#: the first iteration may capture graphs
+_liveness.declare_beacon(
+    "serve.scheduler_step",
+    "one continuous-batching scheduler iteration (admit + prefill chunk "
+    "+ batched decode dispatch/consume)", deadline=600.0)
 
 
 @dataclasses.dataclass
@@ -117,6 +151,8 @@ class RequestResult:
                                          # request (spec_k a verify step)
     spec_accepted: int = 0               # drafts the verify steps
                                          # accepted; 0/0 with spec off
+    trace_id: int = 0                    # request lane in the span trace
+                                         # (0: tracing disabled)
 
 
 class _ActiveSlot:
@@ -174,7 +210,7 @@ class ContinuousBatchingScheduler:
     # and keeps run()'s termination argument simple
     max_preemptions = 3
 
-    def __init__(self, engine, overlap=None, on_token=None,
+    def __init__(self, engine, tracer=None, overlap=None, on_token=None,
                  on_finish=None):
         self.engine = engine
         # overlap=None reads PADDLE_TPU_SERVE_OVERLAP (default on), as the
@@ -209,6 +245,39 @@ class ContinuousBatchingScheduler:
         self.prefill_chunks_total = 0    # paged prefill chunks run
         self.prefix_hit_pages = 0        # pages mapped from the cache
         self.preemptions_total = 0       # evictions requeued
+        # request-scoped tracing: with tracing disabled the tracer is the
+        # no-op singleton by identity, and the decode loop's per-slot
+        # spans short-circuit on `_tron`
+        self._tracer = (tracer if tracer is not None
+                        else _tracing.default_tracer())
+        self._tron = bool(self._tracer.enabled)
+        self._trace_ids: Dict[int, int] = {}       # rid -> trace lane
+        self._req_spans: Dict[int, object] = {}    # rid -> root span
+        self._wait_spans: Dict[int, object] = {}   # rid -> queue/requeue
+        # metric handles, fetched once: no-op singletons when disabled
+        self._m_ttft = _metrics.histogram("serving.ttft_seconds")
+        self._m_queue_wait = _metrics.histogram("serving.queue_wait_seconds")
+        self._m_tpot = _metrics.histogram("serving.tpot_seconds")
+        self._m_decode_step = _metrics.histogram(
+            "serving.decode_step_seconds")
+        self._m_prefill_chunk = _metrics.histogram(
+            "serving.prefill_chunk_seconds")
+        self._m_tokens = _metrics.counter("serving.generated_tokens")
+        self._m_bucket_hits = _metrics.counter(
+            "serving.prefill_bucket_hits", ("bucket",))
+        self._m_prefix_hits = _metrics.counter("serving.prefix_hit_pages")
+        self._m_preempt = _metrics.counter("serving.preemptions")
+        self._m_spec_prop = _metrics.counter(
+            "serving.spec_proposed_tokens")
+        self._m_spec_acc = _metrics.counter(
+            "serving.spec_accepted_tokens")
+        self._m_finished = _metrics.counter(
+            "serving.finished_requests", ("reason",))
+        self._m_occupancy = _metrics.gauge("serving.slot_occupancy")
+        self._m_queue_depth = _metrics.gauge("serving.queue_depth")
+        # liveness beacon, fetched once: NOOP_BEACON by identity unless a
+        # monitor was armed before construction
+        self._beacon = _liveness.beacon("serve.scheduler_step")
 
     def submit(self, req: Request) -> int:
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
@@ -226,6 +295,16 @@ class ContinuousBatchingScheduler:
         self._next_rid = max(self._next_rid, rid + 1)
         self._submit_t[rid] = time.perf_counter()
         self.waiting.append(req)
+        # the trace is born here: the root "request" span and its "queue"
+        # child (ended at admission); no-op calls with tracing disabled
+        tid = self._tracer.new_trace()
+        root = self._tracer.span(
+            "request", trace_id=tid, rid=rid, prompt_len=int(prompt.size),
+            max_new_tokens=int(req.max_new_tokens))
+        self._trace_ids[rid] = tid
+        self._req_spans[rid] = root
+        self._wait_spans[rid] = self._tracer.span("queue", parent=root)
+        self._m_queue_depth.set(len(self.waiting))
         return rid
 
     # -- slot lifecycle ----------------------------------------------------
@@ -238,8 +317,13 @@ class ContinuousBatchingScheduler:
             else 0.0
         # a request evicted before producing any token has no first-token
         # time: it reports 0.0, which callers leave out of TTFT figures
-        ttft = (act.first_tok_t - act.submit_t) \
-            if act.first_tok_t is not None else 0.0
+        # (and the histogram never sees)
+        got_first = act.first_tok_t is not None
+        ttft = (act.first_tok_t - act.submit_t) if got_first else 0.0
+        if got_first:
+            self._m_ttft.observe(ttft)
+        if act.decode_steps:
+            self._m_tpot.observe(tpot)
         self._record(RequestResult(
             rid=act.req.rid, tokens=np.asarray(act.generated, np.int32),
             finish_reason=reason, ttft=ttft, tpot=tpot,
@@ -247,10 +331,19 @@ class ContinuousBatchingScheduler:
             prefix_hit_tokens=act.prefix_hit_tokens,
             preemptions=self._preempt_count.pop(act.req.rid, 0),
             spec_proposed=act.spec_proposed,
-            spec_accepted=act.spec_accepted))
+            spec_accepted=act.spec_accepted,
+            trace_id=self._trace_ids.pop(act.req.rid, 0)))
 
     def _record(self, res: RequestResult):
+        """Every retirement's bookkeeping: the result, its spans, the
+        finish-reason counter and the ``on_finish`` hook."""
         self.finished[res.rid] = res
+        ws = self._wait_spans.pop(res.rid, None)
+        if ws is not None:
+            ws.end()
+        self._req_spans.pop(res.rid, _tracing.NOOP_SPAN).end(
+            reason=res.finish_reason, tokens=int(res.tokens.size))
+        self._m_finished.labels(reason=res.finish_reason).inc()
         if self._on_finish is not None:
             self._on_finish(res)
 
@@ -293,6 +386,15 @@ class ContinuousBatchingScheduler:
         self._submit_t[rid] = act.submit_t
         self._preempted[rid] = act
         self.preemptions_total += 1
+        if self._tron:
+            # trace: the eviction on the request lane and the "requeue"
+            # rework wait (ended at re-admission)
+            root = self._req_spans.get(rid, _tracing.NOOP_SPAN)
+            root.event("preempted", slot=idx, generated=len(act.generated))
+            self._wait_spans[rid] = self._tracer.span(
+                "requeue", parent=root, rework=True)
+        self._m_preempt.inc()
+        self._m_queue_depth.set(len(self.waiting))
 
     def _evict_for_pages(self, requester_idx: int) -> bool:
         """Free pages by preempting one slot.  Victim: the occupied slot
@@ -326,7 +428,21 @@ class ContinuousBatchingScheduler:
             idx, ids, temperature=req.temperature, top_k=req.top_k,
             top_p=req.top_p)
         self.prefix_hit_pages += task.shared_pages
+        if task.shared_pages:
+            self._m_prefix_hits.inc(task.shared_pages)
+            self._req_spans.get(req.rid, _tracing.NOOP_SPAN).event(
+                "prefix_hit", pages=task.shared_pages,
+                tokens=task.shared_tokens)
         return task
+
+    def _end_wait(self, rid, idx, resumed):
+        """Close the request's wait span (its "queue", or a preemption's
+        "requeue") and mark the admission on its lane."""
+        ws = self._wait_spans.pop(rid, None)
+        if ws is not None:
+            ws.end()
+        self._req_spans.get(rid, _tracing.NOOP_SPAN).event(
+            "readmitted" if resumed else "admitted", slot=idx)
 
     def _admit_paged(self, idx: int, req: Request):
         """One paged admission (fresh, or a preemption's resume) into slot
@@ -335,6 +451,7 @@ class ContinuousBatchingScheduler:
         resumed = self._preempted.pop(req.rid, None)
         order = self._admit_seq
         self._admit_seq += 1
+        self._end_wait(req.rid, idx, resumed is not None)
         if resumed is not None:
             # re-prefill prompt + generated so that the next sampled token
             # continues the sequence; timing state and the token list
@@ -350,6 +467,7 @@ class ContinuousBatchingScheduler:
             self.slots[idx] = resumed
             return
         queue_wait = time.perf_counter() - submit_t
+        self._m_queue_wait.observe(queue_wait)
         task = self._begin_paged(idx, req, req.prompt)
         self.slots[idx] = _ActiveSlot(req, submit_t, queue_wait, order,
                                       prefill_task=task)
@@ -369,18 +487,29 @@ class ContinuousBatchingScheduler:
                 self._admit_paged(idx, req)
                 continue
             submit_t = self._submit_t.pop(req.rid)
-            queue_wait = time.perf_counter() - submit_t
             order = self._admit_seq
             self._admit_seq += 1
+            self._end_wait(req.rid, idx, False)
+            queue_wait = time.perf_counter() - submit_t
+            self._m_queue_wait.observe(queue_wait)
+            self._m_bucket_hits.labels(
+                bucket=self.engine.bucket_for(req.prompt.size)).inc()
+            root = self._req_spans.get(req.rid, _tracing.NOOP_SPAN)
+            sp = self._tracer.span("prefill", parent=root, slot=idx)
             tok, _logits = self.engine.prefill(
                 idx, req.prompt, temperature=req.temperature,
                 top_k=req.top_k, top_p=req.top_p)
+            sp.end()
+            root.event("first_token")
             act = _ActiveSlot(req, submit_t, queue_wait, order)
             act.cache_len = int(req.prompt.size)
             act.first_token(tok, time.perf_counter())
             self.slots[idx] = act
             self._notify_tokens(req.rid, act.generated[-1:])
             self._check_finished(idx)
+        if n:
+            self._m_queue_depth.set(len(self.waiting))
+            self._m_occupancy.set(sum(a is not None for a in self.slots))
         return n
 
     def prefill_once(self) -> int:
@@ -394,6 +523,15 @@ class ContinuousBatchingScheduler:
             if act is None or act.prefill_task is None:
                 continue
             task = act.prefill_task
+            rid = act.req.rid
+            # recompute chunks after a preemption are tagged rework, so
+            # the report attributes them apart from the first admission's
+            sp = self._tracer.span(
+                "prefill_chunk",
+                parent=self._req_spans.get(rid, _tracing.NOOP_SPAN),
+                pos=task.pos, **({"rework": True}
+                                 if rid in self._preempt_count else {}))
+            t0 = time.perf_counter()
             while True:
                 try:
                     done = self.engine.prefill_step(task)
@@ -404,13 +542,18 @@ class ContinuousBatchingScheduler:
                     if not self._evict_for_pages(idx):
                         done = None
                         break
+            sp.end()
             if done is None:
                 continue
+            self._m_prefill_chunk.observe(time.perf_counter() - t0)
             n += 1
             self.prefill_chunks_total += 1
             if done:
                 act.prefill_task = None
                 act.cache_len = int(task.ids.size)
+                if act.first_tok_t is None:
+                    self._req_spans.get(rid, _tracing.NOOP_SPAN).event(
+                        "first_token")
                 act.first_token(task.first_token, time.perf_counter())
                 self._notify_tokens(act.req.rid, act.generated[-1:])
                 self._check_finished(idx)
@@ -528,6 +671,7 @@ class ContinuousBatchingScheduler:
         step_s = (t1_ns - t0_ns) * 1e-9
         t1 = t1_ns * 1e-9
         n = 0
+        spec_prop = spec_acc = 0       # counter increments an iteration
         for i, act in enumerate(self.slots):
             if (not rec.active[i] or act is None
                     or infl.lane_acts[i] is not act):
@@ -537,6 +681,8 @@ class ContinuousBatchingScheduler:
                 emit = [int(t) for t in emitted[i, :raw]]
                 act.spec_proposed += spec_k
                 act.spec_accepted += raw - 1
+                spec_prop += spec_k
+                spec_acc += raw - 1
                 # the device committed `raw` rows (clamped at max_len)
                 act.cache_len = min(act.cache_len + raw,
                                     self.engine.max_len)
@@ -558,7 +704,22 @@ class ContinuousBatchingScheduler:
             act.last_t = t1
             n += len(emit)
             self._notify_tokens(act.req.rid, emit)
+            if self._tron:
+                # one span per involved request an iteration, stamped
+                # with the shared step interval; `tokens` is the count
+                # committed after the cuts, as the TPOT accounting
+                self._tracer.add_span(
+                    "spec_verify" if spec_k else "decode", t0_ns, t1_ns,
+                    parent=self._req_spans.get(act.req.rid),
+                    tokens=len(emit))
             self._check_finished(i)
+        # metrics an iteration, not a token
+        self._m_decode_step.observe(step_s)
+        self._m_tokens.inc(n)
+        if spec_prop:
+            self._m_spec_prop.inc(spec_prop)
+            self._m_spec_acc.inc(spec_acc)
+        self._m_occupancy.set(sum(a is not None for a in self.slots))
         return n
 
     def _drain_inflight(self) -> bool:
@@ -589,7 +750,17 @@ class ContinuousBatchingScheduler:
         slot by one prefill chunk, then one batched decode.  Overlapped
         (the default): launch step t BEFORE consuming step t-1, so the
         host bookkeeping overlaps the card's work on step t.  Returns the
-        decode tokens produced (first tokens excluded)."""
+        decode tokens produced (first tokens excluded).
+
+        The iteration runs inside the ``serve.scheduler_step`` liveness
+        beacon's guard, the ``serve.step`` faultpoint first: an iteration
+        that wedges is a stall the watchdog attributes, while an idle
+        scheduler is unwatched."""
+        with self._beacon:
+            faultpoint(STEP_SITE, scheduler=self)
+            return self._step_inner()
+
+    def _step_inner(self) -> int:
         self._drained_n = 0
         self.admit()
         self.prefill_once()
@@ -648,17 +819,22 @@ class ContinuousBatchingScheduler:
             if act is not None and act.req.rid == rid:
                 self._finish(idx, "cancelled")
                 return True
-        for req in list(self.waiting):
+        for i, req in enumerate(self.waiting):
             if req.rid != rid:
                 continue
-            self.waiting.remove(req)
+            # by position: deque.remove would compare Request dataclasses
+            # field by field, and two prompt arrays do not compare to a
+            # bool
+            del self.waiting[i]
+            self._m_queue_depth.set(len(self.waiting))
             parked = self._preempted.pop(rid, None)
             self._submit_t.pop(rid, None)
             preemptions = self._preempt_count.pop(rid, 0)
             if parked is None:
                 res = RequestResult(rid=rid, tokens=np.zeros((0,), np.int32),
                                     finish_reason="cancelled", ttft=0.0,
-                                    tpot=0.0)
+                                    tpot=0.0,
+                                    trace_id=self._trace_ids.pop(rid, 0))
             else:
                 res = RequestResult(
                     rid=rid, tokens=np.asarray(parked.generated, np.int32),
@@ -669,7 +845,15 @@ class ContinuousBatchingScheduler:
                           if parked.decode_steps else 0.0),
                     queue_wait=parked.queue_wait,
                     prefix_hit_tokens=parked.prefix_hit_tokens,
-                    preemptions=preemptions)
+                    preemptions=preemptions,
+                    trace_id=self._trace_ids.pop(rid, 0))
             self._record(res)
             return True
         return False
+
+    def request_span(self, rid: int):
+        """The live root span of an unfinished request (the front end
+        parents its ``http`` span here, so the trace tree stays
+        connected); the no-op span when tracing is off or the request
+        already retired."""
+        return self._req_spans.get(rid, _tracing.NOOP_SPAN)

@@ -90,3 +90,55 @@ def test_quant_parity_rejects_an_engine_that_keeps_bf16_pools(setup):
     with pytest.raises(AssertionError, match="quantization moved the card's "
                                              "logits by 0,"):
         hold(eng, "quant_parity", exact[True])
+
+
+class _CpuCounters:
+    """chip_smoke's Counters on the CPU: no kernel launches, so every
+    count is 0 (B's count on the card equals its wrapper's)."""
+
+    def reset(self):
+        pass
+
+    def read(self):
+        return {"layer_norm_fwd": 0, "flash_fwd_tc": 0, "flash_fwd": 0}
+
+    def b_on_device(self):
+        return 0
+
+
+def test_serve_http_rehearsed_on_the_cpu(monkeypatch):
+    """The serve_http phase end to end against CPU engines (paged and
+    slotted, 2 slots so requests queue): its HTTP client and done-event
+    parsing, parity with the in-process run, /healthz, the load harness
+    at a CPU-sized mix, and the shed, disconnect and drain checks."""
+    from paddle_tpu_torch.observability import Tracer, liveness
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cfg = GPTConfig(vocab_size=50304, max_position_embeddings=256,
+                    hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=128,
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, 50257, (64,))
+    prompts = [np.concatenate([shared, rng.integers(0, 50257, (64,))])
+               .astype(np.int32) for _ in range(8)]
+    load = {"qps": 40.0, "n_requests": 8, "seed": 0,
+            "mix": ((8, 64), (4, 8))}
+    liveness.enable(start=False)
+    try:
+        for paged in (True, False):
+            tracer = Tracer()
+            eng = DecodeEngine(model, num_slots=2, max_len=256,
+                               device="cpu", paged=paged, tracer=tracer)
+            line = chip_smoke.serve_http(torch, eng, tracer, prompts,
+                                         _CpuCounters(), flags, model,
+                                         load=load)
+            assert line["same_greedy_tokens"] and line["statuses"] == [200]
+            assert line["goodput_tokens"] == 8 * 32
+            assert line["load"]["completed"] == 8
+            assert line["shed"]["status_429"] >= 1
+            assert len(line["disconnect"]["cut_requests"]) == 1
+            assert line["drain"]["late_status"] == 503
+    finally:
+        liveness.disable()

@@ -1,7 +1,8 @@
 """The serving engine's captured steps on the card: the slotted and paged
 decode steps and the paged verify step, replayed from CUDA graphs, held
-bit for bit against the same engine's eager step; one graph per routing
-through an overlapped run; a new capture when the LayerNorm route flips
+bit for bit against the same engine's eager step, the opt-in
+``serving.kv_quant_error`` gauge of an int8 step included; one graph per
+routing through an overlapped run; a new capture when the LayerNorm route flips
 or a parameter is replaced by another tensor (and none when one is
 updated in place); B counting its launches inside a replay; replays
 after another engine's graph was dropped; and the fetch of step t-1
@@ -104,6 +105,40 @@ def test_captured_step_is_bitwise_the_eager_step(kind, use_norm):
         assert torch.equal(eager[0], captured[0])
         for a, b in zip(eager[1:], captured[1:]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["paged", "slotted", "verify"])
+def test_kv_quant_error_gauge_of_a_replay_is_the_eager_steps(monkeypatch,
+                                                              kind):
+    """The opt-in ``serving.kv_quant_error`` gauge of an int8 engine: a
+    replayed step computes it on the card and its one copy home carries
+    it; every step's value is the eager step's, bit for bit, and
+    positive."""
+    _card()
+    from paddle_tpu_torch.observability import registry
+    monkeypatch.setenv("PADDLE_TPU_METRICS_KV_QUANT_ERROR", "1")
+    kw = {"paged": {}, "slotted": dict(paged=False),
+          "verify": dict(spec_k=3)}[kind]
+    gauge = registry.gauge("serving.kv_quant_error")
+    model = _model()
+    runs = []
+    for capture in (False, True):
+        eng = DecodeEngine(model, num_slots=SLOTS, max_len=96,
+                           page_size=16, kv_dtype="int8", **kw)
+        eng._capture = capture
+        seen = []
+        publish = eng._set_quant_err
+
+        def record(ints, publish=publish, seen=seen):
+            publish(ints)
+            seen.append(gauge.value)
+        eng._set_quant_err = record
+        _script(eng)
+        assert eng.graph_stats()["graphs"] == int(capture)
+        runs.append(seen)
+    assert len(runs[0]) == 6 and min(runs[0]) > 0
+    assert runs[0] == runs[1]
 
 
 @pytest.mark.gpu

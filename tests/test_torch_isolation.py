@@ -25,7 +25,10 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.kernels.ce_cuda, "
         "paddle_tpu_torch.jit, paddle_tpu_torch.optimizer, "
         "paddle_tpu_torch.regularizer, paddle_tpu_torch.nn.clip, "
-        "paddle_tpu_torch.serving.pages, paddle_tpu_torch.nn.initializer\n"
+        "paddle_tpu_torch.serving.pages, paddle_tpu_torch.nn.initializer, "
+        "paddle_tpu_torch.observability, paddle_tpu_torch.robustness, "
+        "paddle_tpu_torch.serving.frontend, "
+        "paddle_tpu_torch.serving.loadgen\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'paddle_tpu' "
