@@ -220,6 +220,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import faulthandler
@@ -304,6 +305,23 @@ PIN_A_PRIME = "flash_fwd=pipelined:block_q=64,block_k=64"
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+_CARD = []
+
+
+def card_line():
+    """The card's name and power limit as ``nvidia-smi`` gives them
+    (asked once; "not measured" where there is no nvidia-smi)."""
+    if not _CARD:
+        try:
+            _CARD.append(subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True, timeout=60).stdout.strip().splitlines()[0])
+        except (OSError, subprocess.SubprocessError):
+            _CARD.append("not measured")
+    return _CARD[0]
 
 
 def within(got, ref, ulp, frac):
@@ -2374,6 +2392,13 @@ def run_loop(torch, engine, prompts, use_norm_kernel, counters, flags, loop,
     engine._capture = can_capture
     steps = sched.decode_steps_total
     replays = g1["replays"] - g0["replays"]
+    kind = "spec" if engine.spec_k else "decode"
+    step_replays = (g1["by_kind"][kind]["replays"]
+                    - g0["by_kind"][kind]["replays"])
+    chunk_replays = (g1["by_kind"]["chunk"]["replays"]
+                     - g0["by_kind"]["chunk"]["replays"])
+    want_chunks = (sched.prefill_chunks_total
+                   if captured and engine._capture_chunk else 0)
     by_wrapper = launches["layer_norm_fwd"]
     launches["layer_norm_fwd"] = on_device
     layers = engine.model.config.num_hidden_layers
@@ -2390,12 +2415,15 @@ def run_loop(torch, engine, prompts, use_norm_kernel, counters, flags, loop,
             / max(steps, 1),
             "layer_norm_fwd_launches_by_wrapper": by_wrapper}
     if captured:
-        if g1["captures"] != g0["captures"] or replays != steps:
+        if g1["captures"] != g0["captures"] or step_replays != steps or \
+                chunk_replays != want_chunks:
             raise AssertionError("%s: %d captures inside the run, %d "
-                                 "replays for %d steps" % (
+                                 "step replays for %d steps, %d chunk "
+                                 "replays for %d chunks" % (
                                      loop, g1["captures"] - g0["captures"],
-                                     replays, steps))
-        info.update(graph_replays=replays,
+                                     step_replays, steps, chunk_replays,
+                                     want_chunks))
+        info.update(graph_replays=replays, chunk_replays=chunk_replays,
                     layer_norm_fwd_launches_note=(
                         "launches: B's own count on the card, eager and "
                         "replayed; by_wrapper: the eager ones"),
@@ -2413,14 +2441,22 @@ def check_results(phase, results, prompts, max_new=32):
             for k, r in results.items()}))
 
 
+def p99(values):
+    """The 99th percentile (nearest rank) of ``values``."""
+    v = sorted(values)
+    return v[min(len(v) - 1, max(0, math.ceil(0.99 * len(v)) - 1))]
+
+
 def latency_fields(results, wall):
     toks = sum(len(r.tokens) for r in results.values())
+    ttft = [r.ttft for r in results.values() if r.ttft > 0]
+    tpot = [r.tpot for r in results.values()]
     return {"requests": len(results), "generated_tokens": toks,
             "wall_s": wall, "tokens_per_s": toks / wall,
-            "ttft_p50_ms": 1e3 * statistics.median(
-                r.ttft for r in results.values() if r.ttft > 0),
-            "tpot_p50_ms": 1e3 * statistics.median(
-                r.tpot for r in results.values())}
+            "ttft_p50_ms": 1e3 * statistics.median(ttft),
+            "ttft_p99_ms": 1e3 * p99(ttft),
+            "tpot_p50_ms": 1e3 * statistics.median(tpot),
+            "tpot_p99_ms": 1e3 * p99(tpot)}
 
 
 def serve(torch, engine, prompts, use_norm_kernel, counters, flags,
@@ -2661,14 +2697,21 @@ def card_vs_cpu(torch, engine, cpu_model, script, flags, norm_cuda, phase,
                                 None if exact is None else exact["inputs"])
         del cpu_engine
     out = {"cpu": cpu, "inputs": inputs, "card": {}}
+
+    def b_count():
+        # on a card B's own count: a captured chunk or step replays B
+        # without its wrapper
+        if engine.device.type == "cuda":
+            return norm_cuda.layer_norm_fwd_device_launches()
+        return norm_cuda.layer_norm_fwd_launches
     for use_norm in (False, True):
         flags.set_flags({"use_pallas_norm": use_norm})
-        ln_before = norm_cuda.layer_norm_fwd_launches
+        ln_before = b_count()
         try:
             card, _, info = script(torch, engine, inputs)
         finally:
             flags.set_flags({"use_pallas_norm": False})
-        ln_launched = norm_cuda.layer_norm_fwd_launches - ln_before
+        ln_launched = b_count() - ln_before
         errs = [float((c - r).abs().max()) for c, r in zip(card, cpu)]
         line = {"phase": phase, "use_pallas_norm": use_norm,
                 "engine": "paged" if engine.paged else "slotted",
@@ -3081,7 +3124,7 @@ def overlap_parity(torch, engine, cpu_model, script, prompts, parity, flags,
         raise AssertionError("overlap_parity %s: the captured overlapped "
                              "loop's greedy tokens differ from the eager "
                              "synchronous loop's" % line["engine"])
-    return line
+    return line, toks
 
 
 # the serve_http phase: the HTTP front end (serving.frontend) and the
@@ -3133,14 +3176,19 @@ def done_event(events):
     return done[0] if done else None
 
 
-def post_all(host, port, payloads, on_event=None):
-    """POST every payload at once (a thread each), streamed; returns
-    [(status, events)] in payload order."""
+def post_all(host, port, payloads, on_event=None, gap=0.0):
+    """POST every payload at once (a thread each; ``gap`` seconds between
+    their starts), streamed; returns [(status, events)] in payload
+    order."""
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(len(payloads)) as pool:
-        futures = [pool.submit(http_request, host, port, "POST",
-                               "/v1/generate", dict(p, stream=True),
-                               on_event) for p in payloads]
+        futures = []
+        for i, p in enumerate(payloads):
+            if gap and i:
+                time.sleep(gap)
+            futures.append(pool.submit(http_request, host, port, "POST",
+                                       "/v1/generate", dict(p, stream=True),
+                                       on_event))
         return [f.result(timeout=HTTP_TIMEOUT) for f in futures]
 
 
@@ -3449,6 +3497,548 @@ def serve_http(torch, engine, tracer, prompts, counters, flags, cpu_model,
     return line
 
 
+# -- the serving tier's phases: the captured chunk, the host KV tier, the
+# disaggregated pair and the fleet -------------------------------------------
+
+def phase_start(torch):
+    """Reset the peak-memory statistic; returns the phase's start time."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter()
+
+
+def phase_end(torch, line, t0):
+    """The card's name and power limit, the phase's peak memory and its
+    seconds, added to ``line``, which is emitted."""
+    torch.cuda.synchronize()
+    line.update(card=card_line(),
+                peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                seconds=time.perf_counter() - t0)
+    emit(line)
+    return line
+
+
+def same_or_close(torch, cpu_model, prompts, ref, got, what):
+    """True when ``got`` holds ``ref``'s greedy tokens; otherwise
+    serve_compare holds each parting to a narrow CPU logit gap (it raises
+    on a wide one) and this returns False."""
+    same = all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(ref, got))
+    if not same:
+        serve_compare(torch, cpu_model, prompts, ref, got, what)
+    return same
+
+
+def b_launches_due(engine, sched):
+    """B's launches a run under ``use_pallas_norm`` owes: 2L + 1 a
+    forward (prefill chunks and decode or verify steps) on a card, none
+    on the CPU (the plain LayerNorm)."""
+    if engine.device.type != "cuda":
+        return 0
+    layers = engine.model.config.num_hidden_layers
+    return (2 * layers + 1) * (sched.prefill_chunks_total
+                               + sched.decode_steps_total)
+
+
+def chunk_admissions(torch, engine, own):
+    """Admissions through the paged chunk: two 128-token prompts (two
+    chunks each), a 100-token prompt hitting the first one's shared page
+    (a partial chunk after a hit), and the first prompt again (a full hit:
+    one 1-token chunk).  Returns each one's first token and last
+    logits."""
+    engine.reset()
+    engine.reseed(0)
+    out = []
+    for slot, p in enumerate((own[0], own[1], own[0][:100], own[0])):
+        tok, last = engine.prefill(slot, p, temperature=0.0)
+        out.append((tok, last.float()))
+    torch.cuda.synchronize()
+    engine.reset()
+    return out
+
+
+def chunk_capture(torch, engine, prompts, own, counters, flags, captured,
+                  slotted):
+    """The paged prefill chunk replayed from its CUDA graph against the
+    eager chunk on the same engine: first tokens and last logits bit for
+    bit through partial chunks, a prefix hit and a full hit, each
+    LayerNorm route; then the serve traffic through the default loop with
+    the chunk eager (decode steps captured), its TTFT and TPOT p50 and
+    p99 beside ``captured`` (serve_paged's run, chunks captured) and
+    ``slotted`` (serve's slotted run), all under ``use_pallas_norm``; the
+    graphs by kind.  Returns the phase's line."""
+    t0 = phase_start(torch)
+    bitwise = {}
+    for use_norm in (False, True):
+        flags.set_flags({"use_pallas_norm": use_norm})
+        runs = []
+        try:
+            for chunk_graph in (True, False):
+                engine._capture_chunk = chunk_graph
+                runs.append(chunk_admissions(torch, engine, own))
+        finally:
+            engine._capture_chunk = True
+            flags.set_flags({"use_pallas_norm": False})
+        diffs = [float((a[1] - b[1]).abs().max())
+                 for a, b in zip(*runs)]
+        same = all(a[0] == b[0] and torch.equal(a[1], b[1])
+                   for a, b in zip(*runs))
+        bitwise["use_pallas_norm" if use_norm else "default"] = {
+            "same_bits": same, "max_abs_diff": max(diffs)}
+        if not same:
+            raise AssertionError("chunk_capture: the captured chunk's "
+                                 "logits differ from the eager chunk's "
+                                 "(use_pallas_norm=%s): %r"
+                                 % (use_norm, diffs))
+    engine._capture_chunk = False
+    try:
+        results, sched, wall, launches, info = run_loop(
+            torch, engine, prompts, True, counters, flags, LOOPS[0])
+    finally:
+        engine._capture_chunk = True
+    check_results("chunk_capture", results, prompts)
+    eager = latency_fields(results, wall)
+    if launches["layer_norm_fwd"] != b_launches_due(engine, sched):
+        raise AssertionError("chunk_capture: B launched %d times for %d "
+                             "forwards" % (launches["layer_norm_fwd"],
+                                           sched.prefill_chunks_total
+                                           + sched.decode_steps_total))
+    keys = ("ttft_p50_ms", "ttft_p99_ms", "tpot_p50_ms", "tpot_p99_ms",
+            "tokens_per_s")
+    line = {"phase": "chunk_capture", "use_pallas_norm": True,
+            "bitwise_captured_vs_eager": bitwise,
+            "serve_traffic": {
+                "paged_chunk_captured": {k: captured[k] for k in keys},
+                "paged_chunk_eager": {k: eager[k] for k in keys},
+                "slotted": {k: slotted[k] for k in keys}},
+            "eager_chunk_run": {
+                "prefill_chunks": sched.prefill_chunks_total,
+                "decode_steps": sched.decode_steps_total,
+                "layer_norm_fwd_launches": launches["layer_norm_fwd"],
+                "host_gap_ms_per_step": info["host_gap_ms_per_step"]},
+            "graphs_by_kind": engine.graph_stats()["by_kind"],
+            "launches": {"layer_norm_fwd": launches["layer_norm_fwd"]}}
+    return phase_end(torch, line, t0)
+
+
+TIER_HOST_BYTES = 256 << 20     # serve_tier's host budget
+
+
+def serve_tier(torch, model, prompts, tight_tokens, roomy_tokens, counters,
+               flags, cpu_model, device=None):
+    """serve_paged_tight's engine (TIGHT_PAGES pages) with a host tier of
+    TIER_HOST_BYTES, under ``use_pallas_norm``, in the default loop:
+    the serve traffic (its reclaims spill to the host), the cached pages
+    spilled and the device cache dropped, the same 12 prompts again
+    (fetched back from the host, one 1-token chunk each), then again with
+    one ``TornFile`` at ``serve.kv_tier`` (that fetch aborts and
+    recomputes).  Each wave's tokens against the tier-off tight run's
+    (``tight_tokens``, serve_paged_tight: the same pool, so the same
+    preemptions where a wave preempts) and the roomy pool's
+    (``roomy_tokens``, serve_paged: no preemption, as a wave whose
+    prompts all come back from the host); a parting from the nearer one
+    is held by serve_compare.  Spills, host hits and fetch seconds from
+    the registry; the digests on a loopback TCPStore through the cluster
+    index.  Returns the phase's line."""
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.observability import registry
+    from paddle_tpu_torch.robustness import faultpoints as fp
+    from paddle_tpu_torch.serving import DecodeEngine, prompt_digest_chain
+    from paddle_tpu_torch.serving.kv_tier import fetch_index
+    t0 = phase_start(torch)
+    engine = DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
+                          num_pages=TIGHT_PAGES, kv_host_bytes=TIER_HOST_BYTES,
+                          device=device)
+    master = TCPStore("127.0.0.1", 0, is_master=True, world_size=1)
+    index = engine.attach_cluster_index(TCPStore("127.0.0.1", master.port),
+                                        host=0, start=False)
+    spilled = registry.counter("serving.kv_host_spilled_pages")
+    hits = registry.counter("serving.kv_host_hits")
+    fetch_s = registry.histogram("serving.kv_tier_fetch_seconds")
+    waves = []
+    for wave in ("churn", "fetch", "torn_fetch"):
+        if wave != "churn":
+            # the explicit cold-page policy: every cached page to the host,
+            # then the device cache dropped (run_loop resets the engine)
+            moved = engine.spill_cached_pages()
+        else:
+            moved = 0
+        s0, h0 = spilled.value, hits.value
+        f0, fs0 = fetch_s.count, fetch_s.sum
+        plan = fp.FaultPlan().inject("serve.kv_tier", fp.TornFile(), at=0)
+        with (fp.chaos(plan) if wave == "torn_fetch"
+              else contextlib.nullcontext()):
+            results, sched, wall, launches, info = run_loop(
+                torch, engine, prompts, True, counters, flags, LOOPS[0])
+        if wave == "torn_fetch":
+            plan.assert_all_fired()
+        check_results("serve_tier " + wave, results, prompts)
+        toks = [results[k].tokens for k in sorted(results)]
+        if launches["layer_norm_fwd"] != b_launches_due(engine, sched):
+            raise AssertionError("serve_tier %s: B launched %d times for "
+                                 "%d forwards" % (
+                                     wave, launches["layer_norm_fwd"],
+                                     sched.prefill_chunks_total
+                                     + sched.decode_steps_total))
+        same = {name: all(np.array_equal(np.asarray(a), np.asarray(b))
+                          for a, b in zip(ref, toks))
+                for name, ref in (("tier_off_tight", tight_tokens),
+                                  ("roomy", roomy_tokens))}
+        if not any(same.values()):
+            near = tight_tokens if sched.preemptions_total else roomy_tokens
+            same_or_close(torch, cpu_model, prompts, near, toks,
+                          "serve_tier_%s" % wave)
+        waves.append({
+            "wave": wave, "spilled_before": moved,
+            "same_greedy_tokens": same,
+            "spilled_pages": spilled.value - s0,
+            "host_hit_pages": hits.value - h0,
+            "fetches": fetch_s.count - f0,
+            "fetch_seconds": fetch_s.sum - fs0,
+            "prefill_chunks": sched.prefill_chunks_total,
+            "preemptions": sched.preemptions_total,
+            "decode_steps": sched.decode_steps_total,
+            **latency_fields(results, wall),
+            "layer_norm_fwd_launches": launches["layer_norm_fwd"],
+            "host_tier": engine._host_tier.state()})
+    churn, fetch, _torn = waves
+    if churn["spilled_pages"] < 1 or fetch["fetches"] < 1 or \
+            fetch["host_hit_pages"] < 2:
+        raise AssertionError("serve_tier: %d pages spilled while churning; "
+                             "%d fetches landed %d pages on the second wave"
+                             % (churn["spilled_pages"], fetch["fetches"],
+                                fetch["host_hit_pages"]))
+    index.publish_once()
+    published = fetch_index(TCPStore("127.0.0.1", master.port), 1)
+    chain = {d.hex() for p in prompts
+             for d in prompt_digest_chain(p, engine.page_size)}
+    covered = len(chain & published.get(0, set()))
+    if covered == 0:
+        raise AssertionError("serve_tier: the cluster index published none "
+                             "of the prompts' digests")
+    line = {"phase": "serve_tier", "use_pallas_norm": True,
+            "num_pages": engine.num_pages, "host_budget_bytes":
+            TIER_HOST_BYTES, "waves": waves,
+            "cluster_index": {"hosts": sorted(published),
+                              "digests_published": len(published.get(0, ())),
+                              "prompt_digests_covered": covered,
+                              "prompt_digests": len(chain)},
+            "graphs_by_kind": engine.graph_stats()["by_kind"],
+            "launches": {"layer_norm_fwd": sum(
+                w["layer_norm_fwd_launches"] for w in waves)}}
+    del engine, index
+    master.close()
+    torch.cuda.empty_cache()
+    return phase_end(torch, line, t0)
+
+
+def disagg_run(torch, de, pe, prompts, counters, flags, via_host=False,
+               plan=None, max_new=32):
+    """``prompts`` through a DisaggScheduler over ``de`` (decode) and
+    ``pe`` (prefill), reset first, under ``use_pallas_norm``, greedy;
+    every graph captured before the counts start.  Returns (tokens,
+    scheduler, wall seconds, B's launches on the card)."""
+    from paddle_tpu_torch.robustness import faultpoints as fp
+    from paddle_tpu_torch.serving import DisaggScheduler, Request
+    flags.set_flags({"use_pallas_norm": True})
+    try:
+        for e in (de, pe):
+            e.capture_steps()
+            e.reset()
+            e.reseed(0)
+        sched = DisaggScheduler(de, pe, via_host=via_host)
+        for p in prompts:
+            sched.submit(Request(prompt=p, max_new_tokens=max_new,
+                                 temperature=0.0))
+        torch.cuda.synchronize()
+        g0 = [e.graph_stats()["captures"] for e in (de, pe)]
+        counters.reset()
+        t0 = time.perf_counter()
+        with (fp.chaos(plan) if plan is not None else contextlib.nullcontext()):
+            results = sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        on_device = counters.b_on_device()
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    if plan is not None:
+        plan.assert_all_fired()
+    if [e.graph_stats()["captures"] for e in (de, pe)] != g0:
+        raise AssertionError("serve_disagg: a capture inside the run")
+    check_results("serve_disagg", results, prompts, max_new)
+    if launches["layer_norm_fwd"] or on_device != b_launches_due(de, sched):
+        raise AssertionError("serve_disagg: B counted %d on the card (%d "
+                             "through its wrapper) for %d forwards"
+                             % (on_device, launches["layer_norm_fwd"],
+                                sched.prefill_chunks_total
+                                + sched.decode_steps_total))
+    return ([results[k].tokens for k in sorted(results)], sched, wall,
+            on_device, results)
+
+
+def serve_disagg(torch, model, prompts, colocated_tokens, counters, flags,
+                 cpu_model, max_new=32, device=None):
+    """A prefill engine and a decode engine (8 slots and the default pool
+    each) on the one card, under ``use_pallas_norm``: the serve traffic
+    through the device handoff, through host staging, and through host
+    staging with one ``TornFile`` at ``serve.handoff`` (that request
+    requeues and recomputes), each against the colocated paged engine's
+    tokens; handoff chunks and bytes; then the traffic as 12 SSE streams
+    through ``ServingFrontend(prefill_engine=)``.  Returns the phase's
+    line."""
+    from paddle_tpu_torch.robustness import faultpoints as fp
+    from paddle_tpu_torch.serving import DecodeEngine, ServingFrontend
+    t0 = phase_start(torch)
+    de = DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
+                      device=device)
+    pe = DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
+                      device=device)
+    runs = {}
+    for name, via_host, plan in (
+            ("device", False, None), ("via_host", True, None),
+            ("torn_handoff", True, fp.FaultPlan().inject(
+                "serve.handoff", fp.TornFile(), at=2))):
+        toks, sched, wall, on_device, results = disagg_run(
+            torch, de, pe, prompts, counters, flags, via_host, plan,
+            max_new)
+        same = same_or_close(torch, cpu_model, prompts, colocated_tokens,
+                             toks, "serve_disagg_%s_vs_colocated" % name)
+        runs[name] = {
+            "same_greedy_tokens": same,
+            "handoffs": sched.handoffs_total,
+            "handoff_chunks": sched.handoff_chunks_total,
+            "handoff_bytes": sched.handoff_bytes_total,
+            "requeued": sched.preemptions_total,
+            "prefill_side_chunks": sched.prefill_side_chunks,
+            "decode_side_chunks": sched.decode_side_chunks,
+            "decode_steps": sched.decode_steps_total,
+            "layer_norm_fwd_launches": on_device,
+            **latency_fields(results, wall)}
+        if name == "torn_handoff" and runs[name]["requeued"] < 1:
+            raise AssertionError("serve_disagg: the torn handoff requeued "
+                                 "nothing")
+        if runs[name]["handoffs"] != len(prompts) or \
+                de._alloc.pages_used() or pe._alloc.pages_used():
+            raise AssertionError("serve_disagg %s: %d handoffs, pages left "
+                                 "%d / %d" % (name, runs[name]["handoffs"],
+                                              de._alloc.pages_used(),
+                                              pe._alloc.pages_used()))
+    # the HTTP front end over the pair
+    flags.set_flags({"use_pallas_norm": True})
+    try:
+        for e in (de, pe):
+            e.reset()
+        fe = ServingFrontend(de, prefill_engine=pe)
+        fe.start()
+        try:
+            tw = time.perf_counter()
+            replies = post_all(fe.host, fe.port,
+                               greedy_payloads(prompts, max_new))
+            http_wall = time.perf_counter() - tw
+            _st, health = http_request(fe.host, fe.port, "GET", "/healthz")
+        finally:
+            fe.stop()
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    done = [done_event(ev) for _st, ev in replies]
+    if [st for st, _ev in replies] != [200] * len(prompts) or any(
+            d is None or d["finish_reason"] != "length" for d in done):
+        raise AssertionError("serve_disagg http: %r" % (replies,))
+    http_toks = [np.asarray(d["tokens"], np.int32) for d in done]
+    http_same = same_or_close(torch, cpu_model, prompts, colocated_tokens,
+                              http_toks, "serve_disagg_http_vs_colocated")
+    line = {"phase": "serve_disagg", "use_pallas_norm": True,
+            "engines": {"prefill_slots": pe.num_slots,
+                        "decode_slots": de.num_slots,
+                        "handoff_pages": de.handoff_pages,
+                        "kv_pool_bytes": de.kv_pool_bytes()},
+            "runs": runs,
+            "http": {"streams": len(prompts), "same_greedy_tokens":
+                     http_same, "wall_s": http_wall,
+                     "ttft_p50_ms": statistics.median(
+                         d["ttft_ms"] for d in done),
+                     "tpot_p50_ms": statistics.median(
+                         d["tpot_ms"] for d in done),
+                     "healthz": {"status": health["status"],
+                                 "handoff_depth": health["handoff_depth"]},
+                     "handoffs": fe.scheduler.handoffs_total},
+            "graphs_by_kind": {"decode_engine":
+                               de.graph_stats()["by_kind"],
+                               "prefill_engine":
+                               pe.graph_stats()["by_kind"]},
+            "launches": {"layer_norm_fwd": sum(
+                r["layer_norm_fwd_launches"] for r in runs.values())}}
+    del de, pe, fe
+    torch.cuda.empty_cache()
+    return phase_end(torch, line, t0)
+
+
+FLEET_GAP_S = 0.15    # serve_fleet's first wave: seconds between arrivals
+
+
+def is_replica_one_decoding(ctx):
+    """The kill predicate of serve_fleet: replica 1 holds a request with
+    at least two generated tokens."""
+    sched = ctx["scheduler"]
+    return ctx["replica"] == 1 and any(
+        a is not None and len(a.generated) >= 2 for a in sched.slots)
+
+
+def serve_fleet(torch, model, prompts, ref_tokens, own, own_ref, counters,
+                flags, cpu_model, max_new=32, device=None):
+    """A Router over 2 replica engines (8 slots and the default pool
+    each) behind ``ServingFrontend(router=)``, under ``use_pallas_norm``:
+    the first 8 serve requests as SSE streams, a probe, the last 4 (their
+    shared prefix routed by affinity to the replica that owns it); then
+    the 12 unrelated prompts ``own`` (no prefix to route by), arriving
+    FLEET_GAP_S apart so least-loaded routing spreads them, with replica 1
+    killed (``HardExit`` at ``serve.replica``) while it decodes.  Every
+    stream completes with the colocated paged engine's tokens
+    (``ref_tokens``, ``own_ref``), the failover requeues are counted, the
+    replica rejoins, and no engine captures again.  Then each replica's
+    telemetry published to a loopback TCPStore and merged.  Returns the
+    phase's line."""
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.observability import aggregate, registry
+    from paddle_tpu_torch.robustness import faultpoints as fp
+    from paddle_tpu_torch.serving import (DecodeEngine, Router,
+                                          ServingFrontend)
+    t0 = phase_start(torch)
+    engines = [DecodeEngine(model, num_slots=8, max_len=1024, seed=0,
+                            device=device) for _ in range(2)]
+    routed = registry.counter("router.routed", ("reason",))
+    failovers = registry.counter("router.failovers")
+    layers = model.config.num_hidden_layers
+
+    def routed_by():
+        return {r: routed.labels(reason=r).value
+                for r in ("affinity", "least_loaded", "failover")}
+
+    class KillWhen(fp.HardExit):
+        def __init__(self):
+            super().__init__()
+            self.killed = False
+
+        def fire(self, ctx, plan):
+            if self.killed or not is_replica_one_decoding(ctx):
+                return
+            self.killed = True
+            super().fire(ctx, plan)
+
+    flags.set_flags({"use_pallas_norm": True})
+    router = Router(engines, respawn_delay=0.05, healthy_interval=0.2,
+                    probe_interval=0.05)
+    fe = ServingFrontend(router=router, queue_limit=64)
+    try:
+        fe.start()                     # captures both engines, then seals
+        captures = [e.graph_captures for e in engines]
+        torch.cuda.synchronize()
+        g0 = [e.graph_stats()["replays"] for e in engines]
+        counters.reset()
+        r0, f0 = routed_by(), failovers.value
+        tw = time.perf_counter()
+        first = post_all(fe.host, fe.port,
+                         greedy_payloads(prompts[:8], max_new))
+        router.probe_once()            # refresh the replicas' views
+        r1 = routed_by()
+        second = post_all(fe.host, fe.port,
+                          greedy_payloads(prompts[8:], max_new))
+        undisturbed_wall = time.perf_counter() - tw
+        r2 = routed_by()
+        kill = KillWhen()
+        plan = fp.FaultPlan().inject("serve.replica", kill, every=1)
+        tk = time.perf_counter()
+        with fp.chaos(plan):
+            # arrivals FLEET_GAP_S apart, so the probe sees each replica's
+            # load between them (a burst would route all to one replica)
+            killed = post_all(fe.host, fe.port,
+                              greedy_payloads(own, max_new),
+                              gap=FLEET_GAP_S)
+        kill_wall = time.perf_counter() - tk
+        r3, f3 = routed_by(), failovers.value
+        wait_until(lambda: router.replica_states() == ["healthy"] * 2,
+                   "replica 1 to rejoin")
+        states = router.replica_states()
+        _st, health = http_request(fe.host, fe.port, "GET", "/healthz")
+        master = TCPStore("127.0.0.1", 0, is_master=True, world_size=2)
+        for host in (0, 1):
+            aggregate.HostPublisher(TCPStore("127.0.0.1", master.port),
+                                    host=host).publish_once()
+        cluster = aggregate.merge_cluster(
+            TCPStore("127.0.0.1", master.port), 2)
+        master.close()
+    finally:
+        fe.stop()
+        flags.set_flags({"use_pallas_norm": False})
+    torch.cuda.synchronize()
+    launches = counters.read()
+    on_device = counters.b_on_device()
+    replays = sum(e.graph_stats()["replays"] for e in engines) - sum(g0)
+    if not kill.killed:
+        raise AssertionError("serve_fleet: replica 1 was never killed")
+    if on_device - launches["layer_norm_fwd"] != \
+            (2 * layers + 1) * replays:
+        raise AssertionError("serve_fleet: B counted %d on the card, %d "
+                             "through its wrapper, for %d replays"
+                             % (on_device, launches["layer_norm_fwd"],
+                                replays))
+    if [e.graph_captures for e in engines] != captures:
+        raise AssertionError("serve_fleet: captures %r became %r"
+                             % (captures, [e.graph_captures
+                                           for e in engines]))
+    out = {}
+    for name, replies, ps, ref in (
+            ("undisturbed", first + second, prompts, ref_tokens),
+            ("replica_1_killed", killed, own, own_ref)):
+        done = [done_event(ev) for _st, ev in replies]
+        if [st for st, _ev in replies] != [200] * len(ps) or any(
+                d is None or d["finish_reason"] != "length"
+                or len(d["tokens"]) != max_new for d in done):
+            raise AssertionError("serve_fleet %s: a stream did not "
+                                 "complete: %r" % (name, replies))
+        toks = [np.asarray(d["tokens"], np.int32) for d in done]
+        out[name] = {"streams": len(ps), "same_greedy_tokens":
+                     same_or_close(torch, cpu_model, ps, ref, toks,
+                                   "serve_fleet_%s_vs_colocated" % name),
+                     "ttft_p50_ms": statistics.median(
+                         d["ttft_ms"] for d in done),
+                     "ttft_p99_ms": p99([d["ttft_ms"] for d in done])}
+    affinity = r2["affinity"] - r1["affinity"]
+    if affinity < len(prompts) - 8:
+        raise AssertionError("serve_fleet: %d of the second wave's %d "
+                             "routed by affinity"
+                             % (affinity, len(prompts) - 8))
+    requeues = r3["failover"] - r2["failover"]
+    if f3 - f0 != 1 or requeues < 1:
+        raise AssertionError("serve_fleet: %d failovers, %d requeues"
+                             % (f3 - f0, requeues))
+    if sorted(cluster["hosts"]) != [0, 1] or cluster["missing"]:
+        raise AssertionError("serve_fleet: cluster view %r" % (cluster,))
+    line = {"phase": "serve_fleet", "use_pallas_norm": True,
+            "replicas": 2, "slots_per_replica": 8, **out,
+            "undisturbed_wall_s": undisturbed_wall,
+            "kill_drive_wall_s": kill_wall,
+            "routed": {"first_wave": {k: r1[k] - r0[k] for k in r0},
+                       "second_wave": {k: r2[k] - r1[k] for k in r0},
+                       "kill_drive": {k: r3[k] - r2[k] for k in r0}},
+            "failovers": f3 - f0, "requeues": requeues,
+            "replica_states": states,
+            "healthz": {"status": health["status"],
+                        "replicas_healthy": health["replicas_healthy"]},
+            "graph_captures": captures,
+            "graph_replays": replays,
+            "cluster": {"hosts": sorted(cluster["hosts"]),
+                        "missing": cluster["missing"],
+                        "stragglers": cluster["stragglers"]},
+            "launches": {"layer_norm_fwd": on_device,
+                         "layer_norm_fwd_by_wrapper":
+                             launches["layer_norm_fwd"]}}
+    del engines, router, fe
+    torch.cuda.empty_cache()
+    return phase_end(torch, line, t0)
+
+
 def main():
     # a fault in native code prints the Python stack of every thread
     faulthandler.enable(all_threads=True)
@@ -3608,6 +4198,12 @@ def main():
             raise AssertionError("token ids out of range")
     seconds["serve_paged"] = time.perf_counter() - t1
 
+    # -- chunk_capture: the paged prefill chunk replayed against eager ----
+    t1 = time.perf_counter()
+    chunk_line = chunk_capture(torch, paged_engine, prompts, own_prompts,
+                               counters, flags, run_paged_norm, run_norm)
+    seconds["chunk_capture"] = time.perf_counter() - t1
+
     # -- parity: card (kernels, bf16) vs CPU (plain, f32) -----------------
     flags.set_flags({"use_pallas_norm": True})
     engine.reset()
@@ -3681,9 +4277,12 @@ def main():
     overlap_parity(torch, engine, cpu_model, slotted_script(own_prompts),
                    own_prompts, exact["slotted"], flags, norm_cuda,
                    counters)
-    overlap_parity(torch, paged_engine, cpu_model,
-                   paged_script(own_prompts[0]), own_prompts,
-                   exact["paged"], flags, norm_cuda, counters)
+    # the paged engine's tokens for the unrelated prompts, default loop
+    # under use_pallas_norm: serve_fleet's reference
+    own_paged_norm = overlap_parity(
+        torch, paged_engine, cpu_model, paged_script(own_prompts[0]),
+        own_prompts, exact["paged"], flags, norm_cuda,
+        counters)[1][(True, LOOPS[0])]
     seconds["overlap_parity"] = time.perf_counter() - t1
 
     # -- serve_spec: the paged engine with SPEC_K drafts a verify step ----
@@ -3743,6 +4342,21 @@ def main():
         liveness.disable()
     torch.cuda.empty_cache()
     seconds["serve_http"] = time.perf_counter() - t1
+
+    # -- the host KV tier, the disaggregated pair and the fleet -----------
+    t1 = time.perf_counter()
+    tier_line = serve_tier(torch, model, prompts, toks_tight,
+                           toks_paged_norm, counters, flags, cpu_model)
+    seconds["serve_tier"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    disagg_line = serve_disagg(torch, model, prompts, toks_paged_norm,
+                               counters, flags, cpu_model)
+    seconds["serve_disagg"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    fleet_line = serve_fleet(torch, model, prompts, toks_paged_norm,
+                             own_prompts, own_paged_norm, counters, flags,
+                             cpu_model)
+    seconds["serve_fleet"] = time.perf_counter() - t1
     # the pools of the three captured steps (their graphs for each
     # LayerNorm route) beside the KV pools they serve
     emit({"phase": "captured_steps", "graphs": graph_lines,
@@ -3752,7 +4366,9 @@ def main():
     torch.cuda.empty_cache()
     seconds["serve"] = (time.perf_counter() - t0 - seconds["serve_paged"]
                         - seconds["overlap_parity"] - seconds["serve_spec"]
-                        - seconds["serve_quant"] - seconds["serve_http"])
+                        - seconds["serve_quant"] - seconds["serve_http"]
+                        - seconds["chunk_capture"] - seconds["serve_tier"]
+                        - seconds["serve_disagg"] - seconds["serve_fleet"])
 
     # -- train: bench.py's step, GPT-2 345M, AMP O2 bf16, AdamW -----------
     t0 = time.perf_counter()
@@ -4084,6 +4700,11 @@ def main():
                 for name, run in quant_runs.items()},
              **{"serve_http_" + name: run["launches"]["layer_norm_fwd"]
                 for name, run in http_runs.items()},
+             "chunk_capture_eager_chunks":
+                 chunk_line["launches"]["layer_norm_fwd"],
+             "serve_tier": tier_line["launches"]["layer_norm_fwd"],
+             "serve_disagg": disagg_line["launches"]["layer_norm_fwd"],
+             "serve_fleet": fleet_line["launches"]["layer_norm_fwd"],
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_fwd"]},

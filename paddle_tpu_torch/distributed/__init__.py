@@ -1,0 +1,12 @@
+"""paddle_tpu_torch.distributed (port of ``paddle_tpu.distributed``).
+
+Ported so far: :mod:`.store`, the TCP key-value store that the host KV
+tier's cluster prefix index, the replicated fleet's routing views and the
+cross-host telemetry publish through.  Collectives, meshes, the model-
+parallel layers, sharding, pipelines and the launcher are ROADMAP.md
+§A5.
+"""
+from . import store  # noqa: F401
+from .store import StoreReplyLostError, TCPStore  # noqa: F401
+
+__all__ = ["store", "TCPStore", "StoreReplyLostError"]

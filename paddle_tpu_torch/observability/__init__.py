@@ -22,15 +22,17 @@
   with per-beacon deadlines; a stall dumps all-thread stacks into a
   ``"stall"`` flight dump and counts ``liveness.stalls{beacon=}``
   (``PADDLE_TPU_LIVENESS=1`` arms it).
+* :mod:`.aggregate` — cross-host telemetry: each host's snapshot
+  published to the TCP store (:class:`~.aggregate.HostPublisher`), and
+  the merged cluster view with straggler flags (``merge_cluster``).
 
 The env knobs are the JAX package's.  Not ported yet (ROADMAP.md §A6):
 the compile watchdog (the port captures graphs instead of compiling;
-engines count their captures), cost reports, the HBM ledger, cross-host
-aggregation and the CLI.
+engines count their captures), cost reports, the HBM ledger and the CLI.
 """
 from __future__ import annotations
 
-from . import flight, liveness
+from . import aggregate, flight, liveness
 from .catalog import CATALOG
 from .registry import (NOOP_COUNTER, NOOP_GAUGE, NOOP_HISTOGRAM, Counter,
                        Gauge, Histogram, Registry, counter, default_registry,
@@ -41,6 +43,6 @@ __all__ = [
     "CATALOG", "Counter", "Gauge", "Histogram", "Registry",
     "NOOP_COUNTER", "NOOP_GAUGE", "NOOP_HISTOGRAM",
     "counter", "gauge", "histogram", "default_registry", "flush",
-    "Tracer", "NOOP_TRACER", "NOOP_SPAN", "default_tracer", "flight",
-    "liveness",
+    "Tracer", "NOOP_TRACER", "NOOP_SPAN", "default_tracer", "aggregate",
+    "flight", "liveness",
 ]

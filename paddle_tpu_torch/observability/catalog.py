@@ -10,10 +10,11 @@ entry never outlives its instrumentation.  Each entry is the JAX
 package's entry of the same name, word for word.
 
 Only the names the port emits are here: the serving scheduler and
-engine, the HTTP front end, the faultpoints and the liveness monitor.
-The JAX catalog's tensor-parallel, collective, handoff, host-tier,
-router, training, checkpoint, autotune, compile-watchdog and HBM-ledger
-names wait for their modules (ROADMAP.md §A).
+engine, the host KV tier, the disaggregated handoff, the router, the
+HTTP front end, the faultpoints, the retry policy, the liveness monitor
+and the cluster merge.  The JAX catalog's tensor-parallel, collective,
+training, checkpoint, autotune, compile-watchdog and HBM-ledger names
+wait for their modules (ROADMAP.md §A).
 
 Naming: dotted ``<subsystem>.<what>_<unit>``; the Prometheus exporter
 rewrites dots to underscores (``serving.ttft_seconds`` ->
@@ -92,6 +93,61 @@ CATALOG = {
         "PADDLE_TPU_METRICS_KV_QUANT_ERROR=1 at engine construction; "
         "forces one device sync per step)"),
 
+    # -- tiered KV host cache (serving/kv_tier.py) --------------------------
+    "serving.kv_host_bytes": _m(
+        "gauge", "host-RAM page-tier occupancy of the most recent spill/"
+        "invalidation (bounded by PADDLE_TPU_KV_HOST_BYTES; 0 = tier "
+        "off or empty)", unit="bytes"),
+    "serving.kv_host_misses": _m(
+        "counter", "admissions whose prompt had uncovered pages at the "
+        "device-coverage boundary and the host tier held none of them "
+        "(counted once per admission attempt, not per poll)"),
+    "serving.kv_host_spilled_pages": _m(
+        "counter", "refcount-0 hash-reachable pages exported to the "
+        "host tier (allocator reclaim spills + explicit cold-page "
+        "spills)"),
+    "serving.kv_host_hits": _m(
+        "counter", "host-tier pages pulled back through kv_import and "
+        "adopted device-side for an admission that missed the device "
+        "prefix cache (a hit is a page that LANDED — torn fetches "
+        "count nothing)"),
+    "serving.kv_tier_fetch_seconds": _m(
+        "histogram", "begin -> last page adopted of one host-tier "
+        "fetch (interleaved between decode steps; the repeat-prompt "
+        "TTFT includes this window)", unit="seconds"),
+
+    # -- disaggregated prefill/decode (serving/disagg.py) -------------------
+    "serving.handoff_bytes": _m(
+        "counter", "KV bytes moved from a prefill engine's pool into a "
+        "decode engine's pool by disaggregated page handoffs (K+V rows "
+        "across all layers, int8 scale rows included — kv_row_bytes "
+        "truth per transferred page)", unit="bytes"),
+    "serving.handoff_seconds": _m(
+        "histogram", "wall time of one handoff chunk (export -> stage "
+        "-> import of up to handoff_pages pages), interleaved between "
+        "decode steps", unit="seconds"),
+    "serving.handoff_queue_depth": _m(
+        "gauge", "requests queued for or mid KV handoff (the bounded "
+        "handoff queue plus in-flight transfers)"),
+
+    # -- replicated fleet (serving/router.py) -------------------------------
+    "router.routed": _m(
+        "counter", "admission routing decisions by ladder rung: "
+        "affinity (prefix-digest view covered a non-empty prompt "
+        "prefix), least_loaded (fresh-snapshot fallback, incl. the "
+        "telemetry-blackout round-robin), failover (an orphaned "
+        "in-flight request re-placed onto a survivor)",
+        labels=("reason",)),
+    "router.replicas_healthy": _m(
+        "gauge", "replicas currently in the routable set (healthy — "
+        "excludes dead, respawn-pending, and joining replicas still "
+        "inside their healthy interval)"),
+    "router.failovers": _m(
+        "counter", "replica deaths the router failed over (crash at "
+        "the serve.replica site, stalled step beacon past the "
+        "deadline, or a dead thread) — each drains that replica's "
+        "in-flight requests onto survivors via recompute requeue"),
+
     # -- serving front-end (serving/frontend.py) ----------------------------
     "serving.http_requests": _m(
         "counter", "HTTP requests by response status code (200 stream/"
@@ -117,6 +173,10 @@ CATALOG = {
         "counter", "injected faults fired by the active FaultPlan",
         labels=("site",)),
 
+    "robustness.retry_attempts": _m(
+        "counter", "retries scheduled by retry_call (first attempts are "
+        "not counted; exhaustion raises RetryError)", labels=("op",)),
+
     # -- liveness watchdog (observability.liveness — armed via
     # PADDLE_TPU_LIVENESS=1) --------------------------------------------------
     "liveness.stalls": _m(
@@ -125,4 +185,9 @@ CATALOG = {
         "deadline (each fire also produced an all-thread-stack flight "
         "dump; label space bounded by the declared beacon registry)",
         labels=("beacon",)),
+    "liveness.straggler": _m(
+        "gauge", "per-host straggler flag from the host-0 cluster merge "
+        "(1 = this host's step-time p50 exceeds the cluster median by "
+        "more than PADDLE_TPU_STRAGGLER_PCT percent, 0 = on pace; label "
+        "space bounded by world size)", labels=("host",)),
 }

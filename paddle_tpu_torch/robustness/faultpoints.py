@@ -21,10 +21,11 @@ process.
 
 Sites are declared with :func:`declare` at import time of the
 instrumented module; :data:`SITES` is the live injection-site registry.
-The actions here are the ones the serving path uses; the JAX package's
-checkpoint and training actions (``DiskFull``, ``TornFile``,
-``BitFlip``, ``NaNBatch``, ``ForceFoundInf``) wait for their sites
-(ROADMAP.md §A6).
+The actions here are the ones the serving path uses: ``TornFile`` and
+``BitFlip`` corrupt the staging file of a host-tier fetch
+(``serve.kv_tier``) or a host-staged handoff (``serve.handoff``).  The
+JAX package's checkpoint and training actions (``DiskFull``,
+``NaNBatch``, ``ForceFoundInf``) wait for their sites (ROADMAP.md §A6).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from typing import Any, Dict, List, Optional, Tuple
 __all__ = [
     "FaultPlan", "FaultAction", "chaos", "faultpoint", "declare",
     "active_plan", "SITES",
-    "Raise", "SocketReset", "Preempt", "HardExit", "Hang",
+    "Raise", "SocketReset", "TornFile", "BitFlip", "Preempt", "HardExit",
+    "Hang",
     "CrashScopeExit", "crash_scope",
 ]
 
@@ -122,6 +124,37 @@ class SocketReset(Raise):
         super().__init__(
             lambda: ConnectionResetError(
                 _errno.ECONNRESET, "Connection reset by peer (injected)"))
+
+
+class TornFile(FaultAction):
+    """Truncate ``ctx['path']`` to ``frac`` of its size: a write that the
+    OS acknowledged but never fully reached the disk."""
+
+    def __init__(self, frac: float = 0.5):
+        self.frac = float(frac)
+
+    def fire(self, ctx, plan):
+        path = ctx["path"]
+        size = os.path.getsize(path)
+        os.truncate(path, max(0, int(size * self.frac)))
+
+
+class BitFlip(FaultAction):
+    """Flip one bit of ``ctx['path']`` at a plan-seeded offset (bit rot, a
+    partial page flush).  Deterministic given the plan seed: the offset
+    and the bit are the JAX package's for the same plan."""
+
+    def fire(self, ctx, plan):
+        path = ctx["path"]
+        size = os.path.getsize(path)
+        if size == 0:
+            return
+        off = plan.rng.randrange(size)
+        with open(path, "r+b") as f:
+            f.seek(off)
+            byte = f.read(1)
+            f.seek(off)
+            f.write(bytes([byte[0] ^ (1 << plan.rng.randrange(8))]))
 
 
 class Preempt(FaultAction):

@@ -7,10 +7,13 @@ decode and verify steps run on a card as CUDA graphs captured once
 loop (one step in flight, the default), recompute preemption and its
 spans, metrics and liveness beacon (:mod:`.scheduler`), per-slot
 sampling and the speculative accept rule (:mod:`.sampling`),
-prompt-lookup drafting (:mod:`.spec`), the async streaming HTTP front end
-(:mod:`.frontend` — SSE per-token streaming, bounded admission,
-preemption-guard drain, ``/healthz``) and the Poisson load harness
-(:mod:`.loadgen`).  ``engine_for`` and ``generate`` build paged engines
+prompt-lookup drafting (:mod:`.spec`), the host-RAM KV tier and the
+cluster prefix index (:mod:`.kv_tier`), disaggregated prefill/decode
+(:mod:`.disagg`), the replicated fleet behind a router (:mod:`.router`),
+the async streaming HTTP front end (:mod:`.frontend` — SSE per-token
+streaming, bounded admission, preemption-guard drain, ``/healthz``, over
+one engine, a disaggregated pair or a fleet) and the Poisson load
+harness (:mod:`.loadgen`).  ``engine_for`` and ``generate`` build paged engines
 unless given ``paged=False``, and ``generate`` drives the default
 (overlapped) scheduler, as the JAX package's do; both pass ``spec_k``
 and ``kv_dtype`` through."""
@@ -27,7 +30,11 @@ from .frontend import ServingFrontend
 from .pages import PageAllocator, PagePoolExhausted, prompt_digest_chain
 from .cache import _as_kv_dtypes
 from .sampling import TOP_K_MAX, sample, spec_accept
-from .scheduler import ContinuousBatchingScheduler, Request, RequestResult
+from .scheduler import (ContinuousBatchingScheduler, Request, RequestResult,
+                        RequeueState)
+from .disagg import DisaggScheduler, HandoffTask
+from .kv_tier import ClusterPrefixIndex, HostPageTier, npz_roundtrip
+from .router import NoHealthyReplicas, RemoteReplicaHandle, Router
 from .spec import propose
 
 __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
@@ -38,6 +45,9 @@ __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
            "sample", "spec_accept",
            "propose", "TOP_K_MAX",
            "ContinuousBatchingScheduler", "Request", "RequestResult",
+           "RequeueState", "DisaggScheduler", "HandoffTask",
+           "HostPageTier", "ClusterPrefixIndex", "npz_roundtrip",
+           "Router", "RemoteReplicaHandle", "NoHealthyReplicas",
            "ServingFrontend", "generate", "engine_for"]
 
 #: bound on cached engines per model: each holds a full preallocated KV

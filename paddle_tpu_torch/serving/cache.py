@@ -550,13 +550,26 @@ class PagedPrefillChunkView(_PagedView):
     page-table row and masks ``t <= n_before + j`` — the full mapped
     past (shared prefix pages included) plus the chunk's own causal
     band, so a chunk after a prefix-cache hit attends to pages it never
-    computed."""
+    computed.
+
+    ``slot``, ``n_before`` and ``n_valid`` are Python ints, or 0-d int32
+    tensors on the pool's device: the operands of the captured chunk
+    (``DecodeEngine._chunk_step``), which a replay reads from static
+    buffers, as the JAX ``prefill_chunk_fn`` takes them as operands.  The
+    two forms run the same arithmetic on the same values, so their
+    logits and writes are bit for bit the same (the int form is the
+    reference ``tests/test_torch_prefill_chunk.py`` holds the operand form
+    against)."""
 
     def __init__(self, cache: PagedKVCache, slot, n_before, n_valid):
         super().__init__(cache)
-        self.slot = int(slot)
-        self.n_before = int(n_before)
-        self.n_valid = int(n_valid)
+        self._operands = isinstance(slot, torch.Tensor)
+        if self._operands:
+            self.slot, self.n_before, self.n_valid = slot, n_before, n_valid
+        else:
+            self.slot = int(slot)
+            self.n_before = int(n_before)
+            self.n_valid = int(n_valid)
 
     def position_ids(self, batch, seq_len):
         if batch != 1:
@@ -567,14 +580,24 @@ class PagedPrefillChunkView(_PagedView):
             seq_len, dtype=torch.int32, device=self.lengths.device)[None, :]
 
     def _table(self):
+        if self._operands:
+            return self.page_table.index_select(0, self.slot.view(1))
         return self.page_table[self.slot:self.slot + 1]
 
     def _writes(self, c):
         pos = self.position_ids(1, c)
         valid = torch.arange(c, device=pos.device)[None, :] < self.n_valid
+        if self._operands:
+            return pos, valid, self.n_before.view(1)
         return pos, valid, torch.full((1,), self.n_before, dtype=torch.int32,
                                       device=pos.device)
 
     def finalize(self) -> PagedKVCache:
-        self.lengths[self.slot] = self.n_before + self.n_valid
+        if self._operands:
+            self.lengths.index_copy_(
+                0, self.slot.view(1).long(),
+                (self.n_before + self.n_valid).view(1).to(
+                    self.lengths.dtype))
+        else:
+            self.lengths[self.slot] = self.n_before + self.n_valid
         return self.cache

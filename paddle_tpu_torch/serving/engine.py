@@ -45,9 +45,13 @@ package:
 
 **Captured steps.**  The JAX engine compiles each step once and
 dispatches it asynchronously.  On a card the port captures the decode
-step (slotted or paged) and the verify step once each as a CUDA graph
-(:mod:`.graphs`) and replays it; on the CPU it runs the same step
-function eagerly.  A step reads its operands from static buffers
+step (slotted or paged), the verify step and the paged prefill chunk
+once each as a CUDA graph (:mod:`.graphs`) and replays it; on the CPU it
+runs the same step function eagerly.  The chunk (``_chunk_step``, the
+JAX ``prefill_chunk_fn``) reads its tokens, ``slot``, ``n_before`` and
+``n_valid`` from one static block (``_ChunkIO``) that one pinned copy
+fills, takes the last real position's logits by a device index, and
+leaves sampling outside the graph, on the final chunk only.  A step reads its operands from static buffers
 (``_StepIO``): ``decode_submit`` / ``decode_spec_submit`` write the
 host's tokens, drafts, lane mask and sampling parameters into one pinned
 block and copy it over without waiting for the stream, thread the
@@ -94,6 +98,20 @@ a re-capture); and a flight-recorder state summary (``flight_state``)
 read from host state alone, so a dump after a CUDA error never touches
 the device.
 
+**Handoff and the host tier** (paged engines, as in the JAX engine):
+``export_pages`` / ``stage_handoff`` / ``import_pages`` move up to
+``handoff_pages`` pool pages a chunk between two engines' pools (the
+disaggregated prefill/decode pair, :mod:`.disagg`): a gather into a
+persistent transfer buffer, a device copy (or host staging), a scatter
+whose padding lands in the sink page; int8 and fp8 codes and their f32
+scales move byte for byte.  With a host budget (``kv_host_bytes`` or
+``PADDLE_TPU_KV_HOST_BYTES``) the allocator's reclaims spill refcount-0
+cached pages into a :class:`~.kv_tier.HostPageTier` through a spill
+buffer of their own (the handoff buffer may be mid-transfer), and
+``host_fetch_plan`` / ``host_fetch_stage`` bring them back for the
+scheduler to import; ``attach_cluster_index`` publishes the servable
+digests to the TCP store.
+
 The engine runs on the card unless ``device="cpu"`` is given, and moves
 the model there.  Not ported yet, and raising ``NotImplementedError``
 instead of running something else (ROADMAP.md §A5): tensor
@@ -105,6 +123,7 @@ import contextlib
 import dataclasses
 import os
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -119,7 +138,7 @@ from ..utils.flags import fast_get
 from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
                     PagedPrefillChunkView, PrefillView, SlottedKVCache,
                     _as_kv_dtypes)
-from .graphs import capture
+from .graphs import REPLAY_LOCK, capture
 from .pages import PageAllocator, PagePoolExhausted
 from .sampling import TOP_K_MAX, draw_sample_noise, sample, spec_accept
 
@@ -189,6 +208,21 @@ class ThreadedTokens:
     tokens: "np.ndarray"                  # (S,) int32
 
 
+class _ChunkIO:
+    """The static operands of the paged prefill chunk: one int32 block
+    that one copy fills a chunk — the chunk's right-padded tokens (1, C),
+    then ``slot``, ``n_before`` and ``n_valid``, each a 0-d view the
+    captured chunk reads (the JAX ``prefill_chunk_fn``'s operands)."""
+
+    def __init__(self, chunk, device):
+        C = int(chunk)
+        self.inp = torch.zeros((C + 3,), dtype=torch.int32, device=device)
+        self.tokens = self.inp[:C].view(1, C)
+        self.slot = self.inp[C]
+        self.n_before = self.inp[C + 1]
+        self.n_valid = self.inp[C + 2]
+
+
 class _StepIO:
     """The static operands of one step kind: what a captured step reads
     and writes, at addresses that never change.  ``inp`` is one int32
@@ -237,6 +271,8 @@ class PrefillTask:
     chunks_run: int = 0
     done: bool = False
     first_token: int = -1                 # sampled by the FINAL chunk
+    first_token_dev: object = None        # () device tensor (sync=False)
+    first_token_ready: object = None      # CUDA event after its copy home
     last_logits: object = None            # (vocab,) device tensor
 
 
@@ -248,7 +284,7 @@ class DecodeEngine:
                  min_bucket=16, seed=0, top_k_max=TOP_K_MAX, paged=True,
                  page_size=64, num_pages=None, prefill_chunk=None,
                  kv_dtype=None, spec_k=0, spec_ngram=3, tp=1, device=None,
-                 tracer=None):
+                 tracer=None, handoff_pages=4, kv_host_bytes=None):
         cfg = model.config
         # the engine lane of the request trace: one span a step launch or
         # prefill chunk, and the allocator's page events
@@ -310,7 +346,8 @@ class DecodeEngine:
         self._len_host = np.zeros((self.num_slots,), np.int64)
         self._slot_epoch = np.zeros((self.num_slots,), np.int64)
         if self.paged:
-            self._init_paged(page_size, num_pages, prefill_chunk)
+            self._init_paged(page_size, num_pages, prefill_chunk,
+                             handoff_pages)
         else:
             self.buckets = prefill_buckets_for(self.max_len, min_bucket)
             self.prompt_cap = self.buckets[-1]
@@ -328,16 +365,51 @@ class DecodeEngine:
         if self.spec_k:
             self._io["spec"] = _StepIO(self.num_slots, self.spec_k + 1,
                                        vocab, self.device, spec=True)
+        if self.paged:
+            self._chunk_io = _ChunkIO(self.prefill_chunk, self.device)
         # captured steps (on a card): key -> graphs.CapturedStep
         self._capture = self.device.type == "cuda"
+        # False runs the prefill chunk eagerly beside captured decode
+        # steps (the A/B baseline of chip_smoke.py's chunk_capture)
+        self._capture_chunk = True
         self._graphs = {}
         self.graph_captures = 0
-        self.graph_captures_by_kind = {"decode": 0, "spec": 0}
+        self.graph_captures_by_kind = {"decode": 0, "spec": 0, "chunk": 0}
+        # the copy event of the latest launched step: reset() waits for
+        # it, so a step left in flight (a replica that died between
+        # iterations) lands before the slots are handed out again
+        self._last_ready = None
+        # the tiered KV host cache: a bounded host-RAM LRU behind the
+        # device pool, off unless a budget is given (the argument wins
+        # over PADDLE_TPU_KV_HOST_BYTES)
+        self._host_tier = None
+        self._kv_index = None     # ClusterPrefixIndex, attach_cluster_index
+        self._m_host_bytes = _metrics.gauge("serving.kv_host_bytes")
+        self._m_host_misses = _metrics.counter("serving.kv_host_misses")
+        self._m_host_spill = _metrics.counter(
+            "serving.kv_host_spilled_pages")
+        if self.paged:
+            from .kv_tier import HostPageTier, host_bytes_default
+            budget = (int(kv_host_bytes) if kv_host_bytes is not None
+                      else host_bytes_default())
+            if budget > 0:
+                self._host_tier = HostPageTier(budget)
+                # through a weak reference: the allocator holding the
+                # engine's bound method would be a reference cycle, and
+                # the engine's graphs would outlive it until a collection
+                spill = weakref.WeakMethod(self._spill_page)
+
+                def hook(pid, digests, spill=spill):
+                    fn = spill()
+                    if fn is not None:
+                        fn(pid, digests)
+                self._alloc.spill_hook = hook
         # flight dumps collect this engine's state summary (a weak
         # reference: registration never pins the engine)
         _flight.register_engine(self)
 
-    def _init_paged(self, page_size, num_pages, prefill_chunk):
+    def _init_paged(self, page_size, num_pages, prefill_chunk,
+                    handoff_pages=4):
         self.page_size = min(int(page_size), self.max_len)
         self.max_pages = -(-self.max_len // self.page_size)
         # default pool: capacity parity with the slotted layout (every
@@ -348,6 +420,13 @@ class DecodeEngine:
         self.prefill_chunk = int(prefill_chunk if prefill_chunk is not None
                                  else min(64, self.max_len))
         self.prompt_cap = self.max_len
+        # the disaggregated handoff and the host tier move pages through
+        # transfer buffers of `handoff_pages` pages, one fixed chunk shape
+        self.handoff_pages = max(1, min(int(handoff_pages), self.max_pages))
+        self._handoff_buf = None          # made at the first export
+        self._spill_buf = None            # the spill's own: the handoff
+                                          # buffer may be mid-transfer when
+                                          # a reclaim spills
         self._alloc = PageAllocator(self.num_pages, self.num_slots,
                                     self.max_pages, self.page_size,
                                     tracer=self._tracer)
@@ -405,11 +484,25 @@ class DecodeEngine:
         self._state_versions = versions
         if self.paged:
             self._alloc.drop_prefix_cache()
+            if self._host_tier is not None:
+                # spilled rows were computed under the old parameters: a
+                # host hit would splice stale cache like the device hit
+                # the drop above prevents
+                if self._kv_index is not None:
+                    self._kv_index.withdraw(self._host_tier.digests())
+                self._host_tier.clear()
+                self._m_host_bytes.set(0)
         return True
 
     def reset(self):
         """Free every slot (paged: pages return to the pool and the prefix
-        cache is dropped; slot contents are overwritten lazily)."""
+        cache is dropped; slot contents are overwritten lazily).  Waits
+        first for the copy of the latest launched step, so a step left in
+        flight has landed before any slot is handed out again; the
+        captured graphs stay (a router's respawn reuses them)."""
+        if self._last_ready is not None:
+            self._last_ready.synchronize()
+            self._last_ready = None
         self.kv_stats = {"tokens": 0, "paged_rows": 0, "flat_rows": 0}
         self.spec_stats = {"steps": 0, "proposed": 0, "accepted": 0}
         if self.paged:
@@ -592,27 +685,29 @@ class DecodeEngine:
                            shared_tokens=covered, shared_pages=n_map)
 
     @torch.inference_mode()
-    def prefill_step(self, task: PrefillTask) -> bool:
+    def prefill_step(self, task: PrefillTask, sync: bool = True) -> bool:
         """Run ONE chunk of an admission; returns True when the prompt
         is fully prefilled (``task.first_token`` / ``task.last_logits``
         are then set).  Raises PagePoolExhausted when the chunk's pages
-        cannot be mapped — the scheduler evicts a victim and retries."""
+        cannot be mapped — the scheduler evicts a victim and retries.
+
+        On a card the chunk replays its captured graph.  ``sync=False``
+        leaves the final chunk's sampled token on the device
+        (``task.first_token_dev``, its copy home behind the CUDA event
+        ``task.first_token_ready``) instead of waiting for it: the
+        disaggregated scheduler polls the event between decode steps, so
+        a prefill-engine chunk never stalls the decode loop."""
         if task.done:
             return True
         n = int(task.ids.size)
         n_valid = min(self.prefill_chunk, n - task.pos)
         self._ensure_write_range(task.slot, task.pos, task.pos + n_valid)
-        padded = np.zeros((1, self.prefill_chunk), np.int32)
-        padded[0, :n_valid] = task.ids[task.pos:task.pos + n_valid]
-        self._sync_table()
+        padded = np.zeros((self.prefill_chunk,), np.int32)
+        padded[:n_valid] = task.ids[task.pos:task.pos + n_valid]
         tr_on = self._tracer.enabled
         if tr_on:
             c0, t0_ns = self.graph_captures, time.perf_counter_ns()
-        view = PagedPrefillChunkView(self.cache, task.slot, task.pos,
-                                     n_valid)
-        with _eval_scope(self.model):
-            logits, _ = self.model(self._to_device(padded), cache=view)
-        view.finalize()
+        last = self._launch_chunk(padded, task.slot, task.pos, n_valid)
         if tr_on:
             self._dispatch_span("engine.prefill_chunk", t0_ns, c0)
         task.pos += n_valid
@@ -621,16 +716,47 @@ class DecodeEngine:
         if task.pos >= n:
             # only the final chunk samples, so only it draws from the
             # generator (the chunk count depends on the prefix cache)
-            last = logits[:, n_valid - 1, :]
             tok = sample(last, self._generator,
                          *self._params([task.temperature], [task.top_k],
                                        [task.top_p]), self.top_k_max)[0]
             task.done = True
-            task.first_token = int(tok)
+            if sync:
+                task.first_token = int(tok)
+            else:
+                task.first_token_dev = tok
+                if self.device.type == "cuda":
+                    host = torch.empty((), dtype=tok.dtype,
+                                       pin_memory=True)
+                    host.copy_(tok, non_blocking=True)
+                    task.first_token_dev = host
+                    task.first_token_ready = torch.cuda.Event()
+                    task.first_token_ready.record()
             task.last_logits = last[0]
             # publish this prompt's pages for later admissions to share
-            self._alloc.register_prefix(task.slot, task.ids)
+            servable = self._alloc.register_prefix(task.slot, task.ids)
+            if self._kv_index is not None and servable:
+                self._kv_index.offer(servable)
         return task.done
+
+    def _launch_chunk(self, padded, slot, n_before, n_valid):
+        """Stage one chunk's operands by one copy, run the chunk (its
+        captured graph on a card, the eager function on the CPU or with
+        ``_capture`` off) and copy the last real position's logits out of
+        the graph's buffers.  Returns them, (1, vocab) on the device."""
+        graph = (self._step_graph("chunk")
+                 if self._capture and self._capture_chunk else None)
+        io = self._chunk_io
+        host = torch.empty(io.inp.shape, dtype=torch.int32,
+                           pin_memory=self.device.type == "cuda")
+        h = host.numpy()
+        h[:-3] = padded
+        h[-3:] = (int(slot), int(n_before), int(n_valid))
+        io.inp.copy_(host, non_blocking=True)
+        self._sync_table()
+        if graph is None:
+            return self._chunk_step()
+        with REPLAY_LOCK:
+            return graph.replay().clone()
 
     @torch.inference_mode()
     def prefill(self, slot, token_ids, temperature=1.0, top_k=0,
@@ -719,6 +845,23 @@ class DecodeEngine:
         io.out_counts.copy_(counts)
         return logits
 
+    def _chunk_step(self):
+        """One paged prefill chunk over the static operands
+        (``_ChunkIO``): the model over the padded chunk through the chunk
+        view, the writes and the slot's length update.  Returns the
+        logits of the chunk's last real position, (1, vocab), taken by a
+        device index (clamped at 0: the capture's warm-up runs with
+        ``n_valid`` 0)."""
+        io = self._chunk_io
+        view = PagedPrefillChunkView(self.cache, io.slot, io.n_before,
+                                     io.n_valid)
+        with _eval_scope(self.model):
+            logits, _ = self.model(io.tokens, cache=view)
+        last = logits.index_select(
+            1, (io.n_valid - 1).clamp(min=0).view(1))[:, 0, :]
+        view.finalize()
+        return last
+
     def _step_qerr(self, io):
         """The step's quantization-error accumulator, zeroed (None when
         the engine does not track it)."""
@@ -732,16 +875,21 @@ class DecodeEngine:
         holding its own bound methods would be a reference cycle, and its
         graphs would then be freed at some later garbage collection
         instead of when the engine is dropped)."""
+        if kind == "chunk":
+            return self._chunk_step
         return self._verify_step if kind == "spec" else self._decode_step
 
-    def _attn_pick(self, qlen):
+    def _attn_pick(self, qlen, slots=None):
         """The decode attention's autotune pick for a step of ``qlen``
-        tokens a slot, resolved as the step's view resolves it (the
-        ``decode_attn`` / ``decode_attn_paged`` key of its operands)."""
+        tokens a slot over ``slots`` slots (all of them by default; one
+        for a prefill chunk), resolved as the step's view resolves it
+        (the ``decode_attn`` / ``decode_attn_paged`` key of its
+        operands)."""
         from ..kernels import autotune as at
         from ..kernels import decode_attention as da
         dt = self.model.gpt.wte.weight.dtype      # q's dtype
-        S, h, d = self.num_slots, self._heads, self._head_dim
+        S = self.num_slots if slots is None else int(slots)
+        h, d = self._heads, self._head_dim
         if self.paged:
             fam, key = "decode_attn_paged", da.paged_autotune_key(
                 S, self.num_pages + 1, self.page_size, self.max_pages, h,
@@ -754,22 +902,35 @@ class DecodeEngine:
         return cand["variant"], tuple(sorted(cand["config"].items()))
 
     def _step_graph(self, kind):
-        """The captured step of ``kind`` for the current routing, captured
-        now if there is none.  The key holds what a replay cannot see
-        change: the LayerNorm route (``use_pallas_norm``, read while the
-        step runs) and the decode attention's pick; the engine's geometry
-        (slots, ``max_len``, ``spec_k``, ``kv_dtype``) is fixed for its
-        life, and ``refresh_state`` drops every graph once a parameter is
-        replaced by another tensor.  The capture's warm-up runs with
-        every lane inactive, so it commits no KV rows and no lengths."""
+        """The captured step of ``kind`` ("decode", "spec" or "chunk")
+        for the current routing, captured now if there is none.  The key
+        holds what a replay cannot see change: the LayerNorm route
+        (``use_pallas_norm``, read while the step runs) and the decode
+        attention's pick; the engine's geometry (slots, ``max_len``,
+        ``spec_k``, ``kv_dtype``, the chunk size) is fixed for its life,
+        and ``refresh_state`` drops every graph once a parameter is
+        replaced by another tensor.  The capture's warm-up commits no KV
+        rows and no lengths: a decode or verify step runs with every lane
+        inactive, a chunk with ``n_valid`` 0 (its writes go to the sink
+        page) and slot 0's own length as ``n_before``, copied on the
+        device, so the length it writes back is the one there."""
         self.refresh_state()
-        qlen = self._io[kind].tokens.shape[1]
-        key = (kind, bool(fast_get("use_pallas_norm")),
-               self._attn_pick(qlen))
+        if kind == "chunk":
+            pick = self._attn_pick(self.prefill_chunk, slots=1)
+        else:
+            pick = self._attn_pick(self._io[kind].tokens.shape[1])
+        key = (kind, bool(fast_get("use_pallas_norm")), pick)
         graph = self._graphs.get(key)
         if graph is None:
-            self._io[kind].active.zero_()
+            if kind == "chunk":
+                io = self._chunk_io
+                io.inp.zero_()
+                io.n_before.copy_(self.cache.lengths[0])
+                self._sync_table()
+            else:
+                self._io[kind].active.zero_()
             graph = capture(self._step_fn(kind))
+            graph.kind = kind
             self._graphs[key] = graph
             self.graph_captures += 1
             self.graph_captures_by_kind[kind] += 1
@@ -777,23 +938,35 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def capture_steps(self):
-        """Capture now, on a card, the step the scheduler runs (decode,
-        or verify with ``spec_k``) under the current routing, as the JAX
-        engine compiles at its first call: a server calls this before it
-        takes traffic, so that no capture falls inside a request.  A
-        no-op on the CPU.  Returns :meth:`graph_stats`."""
+        """Capture now, on a card, every step the scheduler runs under the
+        current routing — the decode step (or the verify step with
+        ``spec_k``) and, on a paged engine, the prefill chunk — as the
+        JAX engine compiles at its first call: a server calls this before
+        it takes traffic, so that no capture falls inside a request and
+        none runs while another thread drives the card.  A no-op on the
+        CPU.  Returns :meth:`graph_stats`."""
         if self._capture:
             self._step_graph("spec" if self.spec_k else "decode")
+            if self.paged and self._capture_chunk:
+                self._step_graph("chunk")
         return self.graph_stats()
 
     def graph_stats(self):
-        """Captured steps: captures made, graphs held, their replays
-        and the device bytes their pools reserved."""
-        graphs = self._graphs.values()
+        """Captured steps: captures made, graphs held, their replays and
+        the device bytes their pools reserved, in all and by step kind
+        (``by_kind``: "decode", "spec", "chunk")."""
+        graphs = list(self._graphs.values())
+        by_kind = {}
+        for kind, n in self.graph_captures_by_kind.items():
+            mine = [g for g in graphs if g.kind == kind]
+            by_kind[kind] = {"captures": n, "graphs": len(mine),
+                             "replays": sum(g.replays for g in mine),
+                             "pool_bytes": sum(g.pool_bytes for g in mine)}
         return {"captures": self.graph_captures,
-                "graphs": len(self._graphs),
+                "graphs": len(graphs),
                 "replays": sum(g.replays for g in graphs),
-                "pool_bytes": sum(g.pool_bytes for g in graphs)}
+                "pool_bytes": sum(g.pool_bytes for g in graphs),
+                "by_kind": by_kind}
 
     def _stage(self, io, tokens, active_np, temperature, top_k, top_p,
                drafts=None):
@@ -864,16 +1037,21 @@ class DecodeEngine:
                           self.spec_k if kind == "spec" else None,
                           out=io.noise)
         if graph is not None:
-            logits = graph.replay().clone()
+            # the replay and the copies of its outputs are queued with no
+            # other engine's replay between them (graphs.REPLAY_LOCK)
+            with REPLAY_LOCK:
+                logits = graph.replay().clone()
+                out = io.out.clone()
         else:
             logits = self._step_fn(kind)()
-        out = io.out.clone()
+            out = io.out.clone()
         host, ready = out, None
         if self.device.type == "cuda":
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             ready = torch.cuda.Event()
             ready.record()
+            self._last_ready = ready
         S, k1 = io.tokens.shape
         rec = InflightDecode(kind=kind, active=active_np, logits=logits,
                              host=host, ready=ready)
@@ -1062,6 +1240,276 @@ class DecodeEngine:
             tokens, drafts, active, temperature, top_k, top_p,
             pages_ready=pages_ready))
 
+    # -- disaggregated prefill/decode handoff -------------------------------
+
+    def _require_paged(self, what):
+        if not self.paged:
+            raise RuntimeError("%s is a paged-engine operation (the "
+                               "slotted layout has no page pool)" % what)
+
+    def _pools(self):
+        """The pool tensors a page carries, as index reads and writes take
+        them (float8 as bytes): k, v, and the scale pools or None."""
+        c = self.cache
+        return tuple(None if t is None else raw_bytes(t)
+                     for t in (c.k, c.v, c.k_scale, c.v_scale))
+
+    def _new_handoff_buf(self):
+        """A fresh transfer buffer (k, v, k_scale, v_scale) of
+        ``handoff_pages`` pages, on the engine's device."""
+        H = self.handoff_pages
+        return [None if t is None else
+                torch.zeros((H,) + tuple(t.shape[1:]), dtype=t.dtype,
+                            device=self.device)
+                for t in self._pools()]
+
+    def _ids(self, page_ids, pad, what):
+        """``page_ids`` padded to ``handoff_pages`` with ``pad``, an int64
+        tensor on the device (one pinned copy)."""
+        n = len(page_ids)
+        if not 0 < n <= self.handoff_pages:
+            raise ValueError("%s moves 1..%d pages per chunk, got %d"
+                             % (what, self.handoff_pages, n))
+        ids = np.full((self.handoff_pages,), int(pad), np.int64)
+        ids[:n] = np.asarray(page_ids, np.int64)
+        return self._to_device(ids)
+
+    @torch.inference_mode()
+    def export_pages(self, page_ids):
+        """Gather up to ``handoff_pages`` pool pages (every layer, the
+        scale rows of a quantized pool included) into the engine's
+        persistent transfer buffer: the prefill side of a handoff.
+        Returns the buffer's ``(k, v, k_scale, v_scale)`` (float8 pools as
+        bytes); rows past ``len(page_ids)`` hold page 0's bytes, which the
+        import drops.  The buffer is reused by the next export: stage it
+        onto the decode engine first (a device copy queued before that
+        export reads what this one wrote)."""
+        return self._export_pages_into("_handoff_buf", page_ids)
+
+    def _export_pages_into(self, buf_attr, page_ids):
+        """The export body, into the persistent buffer named ``buf_attr``:
+        the handoff and the host tier's spill use separate buffers, since
+        a spill can fire from a reclaim while a handoff chunk is staged."""
+        self._require_paged("export_pages")
+        ids = self._ids(page_ids, 0, "export_pages")
+        buf = getattr(self, buf_attr)
+        if buf is None:
+            buf = self._new_handoff_buf()
+            setattr(self, buf_attr, buf)
+        tr_on = self._tracer.enabled
+        if tr_on:
+            c0, t0_ns = self.graph_captures, time.perf_counter_ns()
+        for pool, out in zip(self._pools(), buf):
+            if pool is not None:
+                torch.index_select(pool, 0, ids, out=out)
+        if tr_on:
+            self._dispatch_span("engine.kv_export", t0_ns, c0)
+        return tuple(buf)
+
+    @torch.inference_mode()
+    def stage_handoff(self, bufs):
+        """Place a peer engine's exported buffer (device tensors, or the
+        host tensors of the host-staging transport) on this engine's
+        device.  Tensors already there pass through: on one card the
+        handoff is a device copy, the import's."""
+        self._require_paged("stage_handoff")
+        out = []
+        for a in bufs:
+            if a is None or a.device == self.device:
+                out.append(a)
+            elif a.device.type == "cpu" and self.device.type == "cuda":
+                out.append(a.pin_memory().to(self.device, non_blocking=True))
+            else:
+                out.append(a.to(self.device))
+        return tuple(out)
+
+    @torch.inference_mode()
+    def import_pages(self, bufs, dst_page_ids):
+        """Scatter a staged transfer buffer into THIS pool at
+        ``dst_page_ids`` (freshly allocated pages: the decode side of a
+        handoff; the caller owns the allocator bookkeeping that mapped
+        them).  The padding rows land in the sink page, never in a live
+        one.  Queued on the stream behind any step in flight, with no
+        host sync."""
+        self._require_paged("import_pages")
+        # the padding goes to the sink page
+        ids = self._ids(dst_page_ids, self.num_pages, "import_pages")
+        tr_on = self._tracer.enabled
+        if tr_on:
+            c0, t0_ns = self.graph_captures, time.perf_counter_ns()
+        for pool, src in zip(self._pools(), bufs):
+            if pool is not None:
+                pool.index_copy_(0, ids, src.view(pool.dtype))
+        if tr_on:
+            self._dispatch_span("engine.kv_import", t0_ns, c0)
+
+    def handoff_chunk_bytes(self, n_pages):
+        """Bytes ``n_pages`` transferred pages move (K+V rows, scale rows
+        included), for the handoff accounting."""
+        return int(n_pages) * self.page_size * self.kv_row_bytes()
+
+    # -- the tiered KV host cache: spill, fetch plan, staging --------------
+
+    @torch.inference_mode()
+    def _spill_page(self, pid, digests):
+        """The allocator's spill hook (and the explicit cold-page path):
+        export one refcount-0 page's rows, codes and scales included,
+        through the spill buffer into the host tier under every chained
+        digest it is reachable by, so a host hit implies exact-prefix
+        equality.  The copy to the host waits for the stream: a step in
+        flight lands first (the reclaim that spills is rare)."""
+        tier = self._host_tier
+        if tier is None or not digests:
+            return
+        out = self._export_pages_into("_spill_buf", [pid])
+        arrays = {}
+        for name, a in zip(("k", "v", "ks", "vs"), out):
+            if a is not None:
+                arrays[name] = a[0].to("cpu", copy=True)
+        stored = False
+        for d in digests:
+            stored = tier.put(d, arrays) or stored
+        if stored:
+            self._m_host_spill.inc()
+            self._m_host_bytes.set(tier.bytes_used())
+            if self._kv_index is not None:
+                self._kv_index.offer(digests)
+
+    def spill_cached_pages(self, limit=None):
+        """Explicit cold-page policy: spill up to ``limit`` free-but-cached
+        (refcount-0, hash-reachable) pages to the host tier and return
+        them to the truly-free list.  Returns the pages evicted from the
+        device cache."""
+        self._require_paged("spill_cached_pages")
+        if self._host_tier is None:
+            raise RuntimeError(
+                "spill_cached_pages needs a host tier (kv_host_bytes "
+                "argument or PADDLE_TPU_KV_HOST_BYTES)")
+        pids = list(self._alloc._cached)
+        if limit is not None:
+            pids = pids[:int(limit)]
+        for pid in pids:
+            digests = self._alloc._page_hashes.get(pid)
+            if digests:
+                self._spill_page(pid, frozenset(digests))
+            self._alloc.evict_cached(pid)
+        return len(pids)
+
+    def host_fetch_plan(self, ids):
+        """``[(page_index, digest)]`` of the contiguous host-tier pages
+        that would extend the device-resident coverage of prompt ``ids``:
+        what the scheduler pulls back before admitting the request as a
+        full prefix hit.  Empty when the tier is off or cold or the device
+        cache already covers what the tier could add; counts one
+        ``kv_host_miss`` when the tier was consulted at the coverage
+        boundary and had nothing."""
+        tier = self._host_tier
+        if tier is None or not self.paged:
+            return []
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        full, tail = self._alloc._prompt_digests(ids)
+        entries = list(enumerate(full))
+        if tail is not None:
+            entries.append((len(full), tail))
+        plan = []
+        consulted = False
+        for idx, d in entries:
+            if d in self._alloc._hash_to_page:
+                continue            # device-resident: nothing to fetch
+            consulted = True
+            if d in tier:
+                plan.append((idx, d))
+            else:
+                break               # contiguity: stop at the first hole
+        if consulted and not plan:
+            self._m_host_misses.inc()
+        return plan
+
+    @torch.inference_mode()
+    def host_fetch_stage(self, digests, rid=None, chunk=0):
+        """Stage one fetch chunk (up to ``handoff_pages`` tier entries):
+        assemble a transfer-buffer-shaped host chunk from the tier, push
+        it through the npz staging transport at the ``serve.kv_tier``
+        faultpoint (a torn read surfaces here) and place it on this
+        engine's device.  Raises ``KeyError`` when an entry vanished (an
+        LRU eviction raced the fetch) or one of ``TRANSPORT_ERRORS`` on a
+        torn staging read; the scheduler's abort path owns both."""
+        from .kv_tier import KV_TIER_SITE, npz_roundtrip
+        self._require_paged("host_fetch_stage")
+        n = len(digests)
+        if not 0 < n <= self.handoff_pages:
+            raise ValueError("host_fetch_stage moves 1..%d pages per "
+                             "chunk, got %d" % (self.handoff_pages, n))
+        tier = self._host_tier
+        if tier is None:
+            raise RuntimeError("host_fetch_stage needs a host tier")
+        H = self.handoff_pages
+        bufs = [None if t is None else
+                torch.zeros((H,) + tuple(t.shape[1:]), dtype=t.dtype)
+                for t in self._pools()]
+        for i, d in enumerate(digests):
+            arrays = tier.get(d)
+            if arrays is None:
+                raise KeyError("host-tier entry vanished mid-fetch "
+                               "(LRU eviction raced the fetch)")
+            for name, b in zip(("k", "v", "ks", "vs"), bufs):
+                if b is not None:
+                    b[i] = arrays[name]
+        bufs = npz_roundtrip(tuple(bufs), KV_TIER_SITE, rid=rid,
+                             chunk=chunk)
+        return self.stage_handoff(bufs)
+
+    def kv_host_bytes_used(self):
+        """Host-tier occupancy in bytes (0 with the tier off)."""
+        tier = self._host_tier
+        return 0 if tier is None else tier.bytes_used()
+
+    def prefix_digest_snapshot(self):
+        """Hex digests of every chained page this engine can serve a
+        prefix hit from: the device pool's hash table, the host tier, and
+        what the attached cluster index offers.  The router's affinity
+        probe calls this from its own thread while the replica decodes; a
+        concurrent change yields a slightly stale set (one bounded retry),
+        which is fine for a routing hint: admission re-derives exact
+        coverage."""
+        from .kv_tier import _hex
+        digs = set()
+        if not self.paged:
+            return digs
+        for _ in range(4):
+            try:
+                digs = set(self._alloc._hash_to_page)
+                tier = self._host_tier
+                if tier is not None:
+                    digs.update(tier.digests())
+                break
+            except RuntimeError:   # the dict changed under the iteration
+                digs = set()
+                continue
+        digs = {_hex(d) for d in digs}
+        if self._kv_index is not None:
+            digs.update(self._kv_index.snapshot_digests())
+        return digs
+
+    def attach_cluster_index(self, store, host=None, interval=None,
+                             start=True):
+        """Wire a TCPStore-backed :class:`~.kv_tier.ClusterPrefixIndex`
+        to this engine: every digest that becomes servable (registered on
+        the device or spilled to the host tier) is offered to the
+        publisher, and the tier's LRU evictions withdraw theirs at once.
+        Returns the index (started as a daemon unless ``start=False``)."""
+        from .kv_tier import ClusterPrefixIndex
+        self._kv_index = ClusterPrefixIndex(store, host=host,
+                                            interval=interval)
+        if self._host_tier is not None:
+            # withdraw() only changes the digest set under the index's own
+            # lock (store I/O stays on the publisher thread), so it is
+            # safe from the tier's hook, which runs outside the tier lock
+            self._host_tier.evict_hook = self._kv_index.withdraw
+        if start:
+            self._kv_index.start()
+        return self._kv_index
+
     # -- KV accounting -----------------------------------------------------
 
     def kv_row_bytes(self):
@@ -1118,7 +1566,8 @@ class DecodeEngine:
             "slot_lengths": [int(x) for x in self._len_host],
             "graph_captures": {
                 "decode": self.graph_captures_by_kind["decode"],
-                "verify": self.graph_captures_by_kind["spec"]},
+                "verify": self.graph_captures_by_kind["spec"],
+                "prefill_chunk": self.graph_captures_by_kind["chunk"]},
         }
         if self.paged:
             al = self._alloc
@@ -1133,4 +1582,6 @@ class DecodeEngine:
                              for j in np.nonzero(al.mapped[i])[0]]
                     for i in range(self.num_slots)},
             )
+            if self._host_tier is not None:
+                st["kv_host"] = self._host_tier.state()
         return st

@@ -62,10 +62,20 @@ Metrics: ``serving.http_requests{code}``, ``serving.shed_total``,
 request's lane gains an ``http`` span (child of the scheduler's
 ``request`` root) from submission to finish.
 
-Not ported yet, and raising ``NotImplementedError`` instead of serving
-some other way: the replicated fleet (``router=``, ROADMAP.md §A3) and
-the disaggregated prefill/decode handoff (``prefill_engine=``, ROADMAP.md
-§A3, §A6).
+**Disaggregated prefill/decode** (``prefill_engine=``): the scheduler
+thread drives a :class:`~.disagg.DisaggScheduler`; admissions prefill on
+the prefill engine and their KV hands off into ``engine``'s pool
+(``handoff_limit`` bounds the handoff queue).  :meth:`start` captures
+both engines' graphs before the scheduler thread exists.
+
+**The replicated fleet** (``router=``): the router owns the replicas and
+their threads, and the front end runs no scheduler thread of its own.
+Handlers call ``router.submit`` (digest hashing and a lock-scoped enqueue,
+never a scheduler call) from the event loop, and the token and finish
+callbacks arrive from the replica threads.  :meth:`start` starts the
+router, which captures every replica's graphs first.  A fleet drains
+through :meth:`drain` / :meth:`stop`; a preemption guard is the
+single-scheduler path and is refused here.
 """
 from __future__ import annotations
 
@@ -141,26 +151,39 @@ class ServingFrontend:
 
     def __init__(self, engine=None, host="127.0.0.1", port=0,
                  queue_limit=64, overlap=None, guard=None, tracer=None,
-                 prefill_engine=None, router=None):
-        if router is not None:
-            raise NotImplementedError(
-                "the replicated serving fleet (router=) is not ported to "
-                "paddle_tpu_torch yet (ROADMAP.md §A3)")
-        if prefill_engine is not None:
-            raise NotImplementedError(
-                "disaggregated prefill/decode (prefill_engine=) is not "
-                "ported to paddle_tpu_torch yet (ROADMAP.md §A3, §A6)")
+                 prefill_engine=None, handoff_limit=4, router=None):
         self.engine = engine
+        self.prefill_engine = prefill_engine
         self.host = host
         self.port = int(port)
         self.queue_limit = int(queue_limit)
         self._guard = guard
         self._tracer = (tracer if tracer is not None
                         else _tracing.default_tracer())
-        self.scheduler = ContinuousBatchingScheduler(
-            engine, tracer=tracer, overlap=overlap,
-            on_token=self._on_token, on_finish=self._on_finish)
-        self._prompt_cap = engine.prompt_cap
+        self._router = router
+        if router is not None:
+            if engine is not None or prefill_engine is not None:
+                raise ValueError("pass engines THROUGH the router in "
+                                 "fleet mode, not to the front end")
+            if guard is not None:
+                raise ValueError("preemption guard is not supported in "
+                                 "fleet mode — use drain()")
+            self.scheduler = None
+            self._prompt_cap = router.prompt_cap
+            router.on_token = self._on_token
+            router.on_finish = self._on_finish
+        elif prefill_engine is not None:
+            from .disagg import DisaggScheduler
+            self.scheduler = DisaggScheduler(
+                engine, prefill_engine, handoff_limit=handoff_limit,
+                tracer=tracer, overlap=overlap,
+                on_token=self._on_token, on_finish=self._on_finish)
+            self._prompt_cap = engine.prompt_cap
+        else:
+            self.scheduler = ContinuousBatchingScheduler(
+                engine, tracer=tracer, overlap=overlap,
+                on_token=self._on_token, on_finish=self._on_finish)
+            self._prompt_cap = engine.prompt_cap
         # command queues (handler threads -> scheduler thread)
         self._lock = threading.Lock()
         self._pending = []                # [(Request, _Stream)]
@@ -187,11 +210,15 @@ class ServingFrontend:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self):
-        """Capture the engine's step (on a card), bind the server and
-        start both worker threads; returns ``(host, port)``."""
-        # the capture runs here, before any other thread of this object
-        # exists (module docstring)
-        self.engine.capture_steps()
+        """Capture the engines' steps (on a card), bind the server and
+        start the worker threads (the router's replica threads in fleet
+        mode); returns ``(host, port)``."""
+        # the captures run here, before any other thread of this object
+        # exists (module docstring); the router captures its replicas'
+        if self._router is None:
+            self.engine.capture_steps()
+            if self.prefill_engine is not None:
+                self.prefill_engine.capture_steps()
         self._loop_thread = threading.Thread(
             target=self._loop_main, name="serve-frontend-loop",
             daemon=True)
@@ -199,10 +226,13 @@ class ServingFrontend:
         self._started.wait(10.0)
         if not self._started.is_set():
             raise RuntimeError("frontend event loop failed to start")
-        self._sched_thread = threading.Thread(
-            target=self._sched_main, name="serve-frontend-sched",
-            daemon=True)
-        self._sched_thread.start()
+        if self._router is not None:
+            self._router.start()
+        else:
+            self._sched_thread = threading.Thread(
+                target=self._sched_main, name="serve-frontend-sched",
+                daemon=True)
+            self._sched_thread.start()
         return self.host, self.port
 
     def stop(self, timeout=30.0):
@@ -216,6 +246,8 @@ class ServingFrontend:
             self._draining = True
             self._stop = True
         self._wake.set()
+        if self._router is not None:
+            self._router.stop(timeout)
         if self._sched_thread is not None:
             self._sched_thread.join(timeout)
         if self._loop is not None:
@@ -231,6 +263,11 @@ class ServingFrontend:
         completion."""
         with self._lock:
             self._draining = True
+            drained = self._router is not None and self._outstanding == 0
+        if drained:
+            # fleet mode completes the drain from finish callbacks; an
+            # already idle fleet would never see one
+            self._drained.set()
         self._wake.set()
 
     @property
@@ -362,9 +399,17 @@ class ServingFrontend:
             stream.push(("tokens", list(toks)))
 
     def _on_finish(self, result):
+        # the scheduler thread calls this, or in fleet mode whichever
+        # replica thread owns the rid (_streams is guarded by the lock)
         with self._lock:
             stream = self._streams.pop(result.rid, None)
             self._outstanding -= 1
+            # fleet mode has no scheduler loop to see quiescence: the
+            # drain completes at the last finish callback
+            drained = (self._router is not None and self._draining
+                       and self._outstanding == 0)
+        if drained:
+            self._drained.set()
         if stream is None:
             return
         if stream.http_span is not None:
@@ -452,13 +497,27 @@ class ServingFrontend:
                     "beacons": beacons,
                     "open_streams": self._open_streams,
                     "outstanding": self._outstanding,
-                    "queue_depth": len(self.scheduler.waiting),
-                    "slots_active": sum(
-                        a is not None for a in self.scheduler.slots),
-                    # the JAX body's disaggregated handoff depth: no
-                    # handoff here
-                    "handoff_depth": 0,
                 }
+                if self._router is not None:
+                    # fleet view: depths summed across replicas, and each
+                    # replica's lifecycle state (a respawn in flight)
+                    doc.update({
+                        "queue_depth": self._router.queue_depth(),
+                        "slots_active": self._router.slots_active(),
+                        "handoff_depth": 0,
+                        "replicas": self._router.replica_states(),
+                        "replicas_healthy": self._router.healthy_count(),
+                    })
+                else:
+                    doc.update({
+                        "queue_depth": len(self.scheduler.waiting),
+                        "slots_active": sum(
+                            a is not None for a in self.scheduler.slots),
+                        # a disaggregated scheduler's handoff queue and
+                        # transfers in flight (0 without one)
+                        "handoff_depth": getattr(self.scheduler,
+                                                 "handoff_depth", 0),
+                    })
                 await self._respond_json(writer, 200, doc)
                 return
             if method != "POST" or path != "/v1/generate":
@@ -513,9 +572,35 @@ class ServingFrontend:
             await self._respond_json(writer, 429, {"error": "overloaded"})
             return
         stream = _Stream(asyncio.get_running_loop())
-        with self._lock:
-            self._pending.append((req, stream))
-        self._wake.set()
+        if self._router is not None:
+            # fleet mode: route now, on the loop thread (router.submit is
+            # hashing and a lock-scoped enqueue, never a scheduler call);
+            # on_admit registers the stream before any replica thread can
+            # emit a token for the rid
+            def admitted(rid, root):
+                stream.rid = rid
+                with self._lock:
+                    self._streams[rid] = stream
+                stream.http_span = self._tracer.span("http", parent=root)
+            from .router import NoHealthyReplicas
+            try:
+                self._router.submit(req, on_admit=admitted)
+            except NoHealthyReplicas:
+                with self._lock:
+                    self._outstanding -= 1
+                self._m_shed.inc()
+                await self._respond_json(
+                    writer, 503, {"error": "no healthy replicas"})
+                return
+            except ValueError as e:
+                with self._lock:
+                    self._outstanding -= 1
+                await self._respond_json(writer, 400, {"error": str(e)})
+                return
+        else:
+            with self._lock:
+                self._pending.append((req, stream))
+            self._wake.set()
         if stream_mode:
             await self._stream_response(writer, stream)
         else:
@@ -580,8 +665,12 @@ class ServingFrontend:
         iteration boundary).  Pre-submit, just mark the stream."""
         stream.cancelled = True
         if stream.rid is not None:
-            with self._lock:
-                self._cancels.append(stream.rid)
+            if self._router is not None:
+                # forwarded to the owning replica's command queue
+                self._router.cancel(stream.rid)
+            else:
+                with self._lock:
+                    self._cancels.append(stream.rid)
         self._wake.set()
 
     # -- http plumbing -----------------------------------------------------

@@ -28,10 +28,14 @@ A step function captured here must:
 All captured steps of the process share ONE graph memory pool, a
 ``torch.cuda.MemPool`` held for the process (:func:`_shared_pool`), so
 no graph's memory is ever handed back to CUDA.  Sharing is safe
-because every step replays on one stream, one at a time, and the engine
-copies a step's outputs out of the pool before it queues the next
-replay: a block one graph uses as scratch may be another graph's
-scratch, never a live output.  One allocation outlives the capture that
+because every step replays on one stream and the engine copies a step's
+outputs out of the pool before any other replay is queued: a block one
+graph uses as scratch may be another graph's scratch, never a live
+output.  Several engines replay from several threads (the replicas of a
+:class:`~.router.Router`, the two engines of a disaggregated pair), so
+the engine queues a replay and the copies of its outputs under
+:data:`REPLAY_LOCK`, one process lock: a replay by another engine can
+never be queued between them.  One allocation outlives the capture that
 made it: cuBLAS's cached workspace for the capture stream (32 MiB),
 taken from the pool of the capture that first runs a matmul while that
 cache is empty.  It stays allocated while cached, so no capture is
@@ -49,17 +53,56 @@ or invalidate it.  So a capture runs while no other thread touches the
 card: the HTTP front end (:mod:`.frontend`) captures the engine's step on
 the caller's thread in ``start()``, before its scheduler thread exists,
 and from then on only the scheduler thread calls the engine, which
-replays.  The capture mode is left as it is.
+replays.  The capture mode is left as it is.  Where several threads
+drive engines (the router's replica threads), the owner captures every
+engine's graphs first, then :func:`seal`-s capturing: a capture asked
+for while the seal holds (a replaced parameter, a new autotune pick on a
+replica thread) raises :class:`CaptureSealed`, and never captures under
+another thread.
+
+**Garbage collection.**  A dead reference cycle that holds CUDA objects
+(a dropped engine's graph, a pinned buffer, an event) frees them when
+Python's collector runs, and a collection that runs inside a capture
+destroys a graph while the stream captures, which CUDA refuses and
+which invalidates the capture.  So :func:`capture` collects first and
+keeps the automatic collector off until the capture ends.
 
 There is no eager retreat: a failed capture or replay raises.
 """
 from __future__ import annotations
 
+import gc
+import threading
+
 import torch
 
-__all__ = ["CapturedStep", "capture"]
+__all__ = ["CapturedStep", "CaptureSealed", "REPLAY_LOCK", "capture",
+           "seal", "unseal"]
 
 _POOL = []          # the process's one graph pool, made lazily
+
+#: held while an engine queues a replay and copies its outputs out of
+#: the shared pool (module docstring)
+REPLAY_LOCK = threading.Lock()
+
+_SEALS = set()      # owners that forbid captures while they run threads
+_SEAL_LOCK = threading.Lock()
+
+
+class CaptureSealed(RuntimeError):
+    """A capture was asked for while several threads may touch the card."""
+
+
+def seal(owner):
+    """Forbid captures until :func:`unseal` (``owner``: any hashable
+    token, e.g. the router).  Seals nest by owner."""
+    with _SEAL_LOCK:
+        _SEALS.add(owner)
+
+
+def unseal(owner):
+    with _SEAL_LOCK:
+        _SEALS.discard(owner)
 
 
 def _shared_pool():
@@ -85,6 +128,7 @@ class CapturedStep:
         self.outputs = outputs
         self.pool_bytes = int(pool_bytes)
         self.replays = 0
+        self.kind = None            # the engine's step kind, set by it
 
     def replay(self):
         """Launch the captured step on the current stream; returns
@@ -99,8 +143,15 @@ def capture(fn) -> CapturedStep:
 
     The warm-up runs ``fn`` for real, so the caller sets its inputs to a
     state whose writes are harmless first (the engine marks every lane
-    inactive).
+    inactive).  Raises :class:`CaptureSealed` while a seal holds.
     """
+    with _SEAL_LOCK:
+        if _SEALS:
+            raise CaptureSealed(
+                "a CUDA graph capture was asked for while other threads "
+                "drive engines on the card (sealed by %d owner(s)): capture "
+                "every step before the threads start (capture_steps)"
+                % len(_SEALS))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -109,12 +160,20 @@ def capture(fn) -> CapturedStep:
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=_shared_pool()):
-        outputs = fn()
+    # no collection inside the capture (module docstring)
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=_shared_pool()):
+            outputs = fn()
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize()
     return CapturedStep(graph, outputs,
                         torch.cuda.memory_reserved() - reserved)

@@ -34,15 +34,20 @@ page means:
   list runs dry, oldest first.  A reused page is never reachable under a
   stale digest.
 
+**The host tier** (:mod:`.kv_tier`): a reclaim first offers the page to
+``spill_hook`` (its rows fall to host RAM instead of to recompute),
+:meth:`~PageAllocator.evict_cached` purges a cached page after an
+explicit spill, and :meth:`~PageAllocator.adopt_page` registers a page
+fetched back from the tier as free-but-cached content.
+
 Page-lifecycle events (``pages.prefix_share``, ``pages.cow_remap``,
 ``pages.reclaim``) land as instants on the tracer's engine lane, as in
-the JAX package.  Its host-tier spill hook and the ``adopt_page`` /
-``evict_cached`` entries of its host tier and disaggregated handoff are
-not ported (ROADMAP.md §A3, §A6).
+the JAX package.
 """
 from __future__ import annotations
 
 import hashlib
+import sys
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -103,6 +108,11 @@ class PageAllocator:
         self._page_hashes: Dict[int, Set[bytes]] = {}
         self._device_table = None     # the one device copy
         self._table_dirty = True      # host table changed since upload
+        # host-tier spill hook: called with (pid, frozenset of digests)
+        # just before a reclaim purges a hash-reachable page, so its rows
+        # can fall to host RAM.  None = no tier.  Best-effort: a failed
+        # spill never fails the allocation it rode on.
+        self.spill_hook = None
 
     # -- pool accounting ---------------------------------------------------
 
@@ -147,6 +157,17 @@ class PageAllocator:
             # rewritten page is never reachable under stale content
             pid = next(iter(self._cached))
             del self._cached[pid]
+            # offer it to the host tier first: refcount 0 and
+            # hash-reachable, exactly the page a repeat prompt would hit
+            if self.spill_hook is not None:
+                digests = self._page_hashes.get(pid)
+                if digests:
+                    try:
+                        self.spill_hook(pid, frozenset(digests))
+                    except Exception as e:
+                        sys.stderr.write("[kv_tier] spill of page %d "
+                                         "failed (reclaiming anyway): "
+                                         "%r\n" % (pid, e))
             self._purge_hashes(pid)
             self._tracer.instant("pages.reclaim", page=pid,
                                  cached_left=len(self._cached))
@@ -212,6 +233,36 @@ class PageAllocator:
         self._page_hashes.clear()
         self._free.extend(self._cached)
         self._cached.clear()
+
+    def evict_cached(self, pid: int):
+        """Purge one free-but-cached page to the truly-free list (the
+        explicit cold-page path: the engine spills its rows to the host
+        tier first, then calls this, so the device copy stops being
+        hash-reachable)."""
+        if pid not in self._cached:
+            raise ValueError("page %d is not free-but-cached" % pid)
+        del self._cached[pid]
+        self._purge_hashes(pid)
+        self._free.append(pid)
+        self._table_dirty = True
+
+    def adopt_page(self, pid: int, digests):
+        """Register a freshly imported page (a host-tier fetch landing) as
+        free-but-cached content: reachable under ``digests`` and shareable
+        at once by the admission that asked for it, the state of a
+        released, hash-registered page.  ``pid`` must come from
+        :meth:`alloc` (refcount 1, unmapped); adoption parks it at
+        refcount 0 on the cached list."""
+        if self.refcount[pid] != 1:
+            raise AssertionError("adopt_page expects a fresh alloc "
+                                 "(page %d refcount %d)"
+                                 % (pid, int(self.refcount[pid])))
+        self.refcount[pid] = 0
+        self._cached[pid] = None
+        s = self._page_hashes.setdefault(pid, set())
+        for d in digests:
+            self._hash_to_page[d] = pid
+            s.add(d)
 
     # -- copy-on-write -----------------------------------------------------
 

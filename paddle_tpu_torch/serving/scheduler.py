@@ -83,9 +83,20 @@ both disabled the hot loop calls empty methods.  :meth:`step` runs
 inside the ``serve.scheduler_step`` liveness beacon, with the
 ``serve.step`` faultpoint inside that guard.
 
-Not ported yet (ROADMAP.md §A6): host-tier fetches (and so ``cancel``'s
-branch for a request whose pages are being fetched back), the requeue
-transfer between schedulers and the HBM ledger's iteration sample.
+**Host-tier fetches** (engines with a host KV tier, :mod:`.kv_tier`):
+a queue-head request whose prompt misses the device prefix cache but
+hits the host tier is diverted into the fetch lane: its pages come back
+one chunk an iteration (stage through the ``serve.kv_tier`` site, then
+import and adopt), interleaved with decode steps, and the request
+requeues at the front to admit as a full prefix hit.  A torn chunk
+discards its tier entries and requeues the request for recompute.
+
+**Transfer between schedulers.**  :meth:`export_requeue_state` drains
+every unfinished request into :class:`RequeueState` records, and
+:meth:`import_requeue` feeds one through the recompute-preemption resume
+path: the router's failover and decommission.
+
+Not ported yet (ROADMAP.md §A6): the HBM ledger's iteration sample.
 """
 from __future__ import annotations
 
@@ -97,15 +108,20 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..observability import flight as _flight
 from ..observability import liveness as _liveness
 from ..observability import registry as _metrics
 from ..observability import tracing as _tracing
 from ..robustness.faultpoints import declare as _declare, faultpoint
-from .engine import ThreadedTokens
+from .engine import PrefillTask, ThreadedTokens
+# importing the tier module also declares its faultpoint site and
+# liveness beacon (the scheduler fetches the beacon handle at init)
+from .kv_tier import TRANSPORT_ERRORS as _TIER_ERRORS
 from .pages import PagePoolExhausted
 from .spec import propose
 
-__all__ = ["Request", "RequestResult", "ContinuousBatchingScheduler"]
+__all__ = ["Request", "RequestResult", "RequeueState",
+           "ContinuousBatchingScheduler"]
 
 #: chaos site on the scheduler's iteration, INSIDE the liveness beacon's
 #: guard: a scheduled ``Hang`` here simulates a wedged decode loop and
@@ -155,6 +171,37 @@ class RequestResult:
                                          # (0: tracing disabled)
 
 
+@dataclasses.dataclass
+class RequeueState:
+    """Portable snapshot of ONE unfinished request: the unit of transfer
+    from one scheduler to another (a replica's failover or
+    decommission).  Made by
+    :meth:`ContinuousBatchingScheduler.export_requeue_state`, or by the
+    router from its own admission records when the replica died too hard
+    to export anything; taken by
+    :meth:`ContinuousBatchingScheduler.import_requeue`, which feeds it
+    through the recompute-preemption resume path: the survivor
+    re-prefills ``prompt + generated`` and the stream picks up at the
+    next token."""
+    req: Request                          # rid already assigned
+    generated: List[int] = dataclasses.field(default_factory=list)
+    submit_t: float = 0.0                 # original perf_counter stamp
+    first_tok_t: Optional[float] = None   # kept across the hop
+    requeues: int = 0                     # evictions + failovers so far
+                                          # (seeds _preempt_count: one
+                                          # max_preemptions-style bound
+                                          # covers both)
+    trace_id: int = 0
+    root_span: object = None              # live "request" span, adopted
+    queue_wait: Optional[float] = None    # None: never admitted (the
+                                          # survivor observes it once)
+    decode_s: float = 0.0
+    decode_steps: int = 0
+    prefix_hit_tokens: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+
+
 class _ActiveSlot:
     __slots__ = ("req", "generated", "submit_t", "first_tok_t", "last_t",
                  "decode_s", "decode_steps", "queue_wait", "prefill_task",
@@ -202,6 +249,30 @@ class _Inflight:
         self.rec = rec
         self.lane_acts = lane_acts
         self.t0_ns = t0_ns
+
+
+class _HostFetch:
+    """One host-tier page fetch in progress: the queue-head request's
+    prompt misses the device prefix cache but hits the host tier, so its
+    pages come back chunk by chunk between decode steps.  While the fetch
+    runs the request lives here (not in ``waiting``, not in a slot);
+    completion requeues it at the queue front, where the next admission
+    finds every fetched page on the device.  ``_submit_t`` stays in
+    place: TTFT includes the fetch."""
+
+    __slots__ = ("req", "plan", "pos", "staged", "staged_digests",
+                 "pages_in", "chunk_idx", "span", "t0")
+
+    def __init__(self, req, plan, span, t0):
+        self.req = req
+        self.plan = plan              # [(page_index, digest)] to pull
+        self.pos = 0                  # plan entries imported so far
+        self.staged = None            # staged device tensors, or None
+        self.staged_digests = None    # the digests the staging covers
+        self.pages_in = 0             # pages landed (the hits metric)
+        self.chunk_idx = 0            # faultpoint and trace chunk count
+        self.span = span              # "kv_tier" request child span
+        self.t0 = t0                  # fetch begin, perf_counter
 
 
 class ContinuousBatchingScheduler:
@@ -275,11 +346,24 @@ class ContinuousBatchingScheduler:
             "serving.finished_requests", ("reason",))
         self._m_occupancy = _metrics.gauge("serving.slot_occupancy")
         self._m_queue_depth = _metrics.gauge("serving.queue_depth")
+        # host-tier fetches: rid -> _HostFetch.  The scheduler owns the
+        # hit counter (a hit is a page that landed) and the fetch
+        # histogram; the engine the spill, miss and occupancy side
+        self._fetches: Dict[int, _HostFetch] = {}
+        self._m_host_hits = _metrics.counter("serving.kv_host_hits")
+        self._m_fetch_s = _metrics.histogram(
+            "serving.kv_tier_fetch_seconds")
+        self._kvt_beacon = _liveness.beacon("serve.kv_tier")
         # liveness beacon, fetched once: NOOP_BEACON by identity unless a
         # monitor was armed before construction
         self._beacon = _liveness.beacon("serve.scheduler_step")
 
-    def submit(self, req: Request) -> int:
+    def submit(self, req: Request, trace=None) -> int:
+        """Queue ``req``; returns its rid (``req.rid`` when given: the
+        router mints fleet-unique ids, so a stream keeps its rid through a
+        failover).  ``trace=(trace_id, root_span)`` adopts a request lane
+        the caller already opened (the router's, which outlives any one
+        replica); otherwise the lane is born here."""
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -295,12 +379,19 @@ class ContinuousBatchingScheduler:
         self._next_rid = max(self._next_rid, rid + 1)
         self._submit_t[rid] = time.perf_counter()
         self.waiting.append(req)
-        # the trace is born here: the root "request" span and its "queue"
-        # child (ended at admission); no-op calls with tracing disabled
-        tid = self._tracer.new_trace()
-        root = self._tracer.span(
-            "request", trace_id=tid, rid=rid, prompt_len=int(prompt.size),
-            max_new_tokens=int(req.max_new_tokens))
+        # the trace is born here unless the caller opened it: the root
+        # "request" span and its "queue" child (ended at admission);
+        # no-op calls with tracing disabled
+        if trace is None:
+            tid = self._tracer.new_trace()
+            root = self._tracer.span(
+                "request", trace_id=tid, rid=rid,
+                prompt_len=int(prompt.size),
+                max_new_tokens=int(req.max_new_tokens))
+        else:
+            tid, root = trace
+            if root is None:
+                root = _tracing.NOOP_SPAN
         self._trace_ids[rid] = tid
         self._req_spans[rid] = root
         self._wait_spans[rid] = self._tracer.span("queue", parent=root)
@@ -313,6 +404,12 @@ class ContinuousBatchingScheduler:
         act = self.slots[idx]
         self.slots[idx] = None
         self.engine.free_slot(idx)     # paged: pages back to the pool
+        self._retire(act, reason)
+
+    def _retire(self, act: "_ActiveSlot", reason: str):
+        """The result, metric and span bookkeeping of one retiring
+        request, with no slot list: the disaggregated scheduler's
+        prefill-side retirements build the same RequestResult."""
         tpot = (act.decode_s / act.decode_steps) if act.decode_steps \
             else 0.0
         # a request evicted before producing any token has no first-token
@@ -423,8 +520,12 @@ class ContinuousBatchingScheduler:
 
     # -- admission ---------------------------------------------------------
 
-    def _begin_paged(self, idx: int, req: Request, ids):
-        task = self.engine.prefill_begin(
+    def _begin_paged(self, idx: int, req: Request, ids, engine=None):
+        """Start a chunked-prefill admission of ``ids`` into ``idx`` of
+        ``engine`` (the decode engine by default; the disaggregated
+        scheduler passes its prefill engine)."""
+        engine = self.engine if engine is None else engine
+        task = engine.prefill_begin(
             idx, ids, temperature=req.temperature, top_k=req.top_k,
             top_p=req.top_p)
         self.prefix_hit_pages += task.shared_pages
@@ -444,9 +545,15 @@ class ContinuousBatchingScheduler:
         self._req_spans.get(rid, _tracing.NOOP_SPAN).event(
             "readmitted" if resumed else "admitted", slot=idx)
 
-    def _admit_paged(self, idx: int, req: Request):
+    def _admit_paged(self, idx: int, req: Request, engine=None,
+                     slots=None):
         """One paged admission (fresh, or a preemption's resume) into slot
-        ``idx``: begins its chunked prefill."""
+        ``idx`` of ``slots`` on ``engine`` (the decode engine's by
+        default; the disaggregated scheduler admits into its prefill
+        engine through the same path): begins its chunked prefill.
+        Returns the slot's :class:`_ActiveSlot`."""
+        engine = self.engine if engine is None else engine
+        slots = self.slots if slots is None else slots
         submit_t = self._submit_t.pop(req.rid)
         resumed = self._preempted.pop(req.rid, None)
         order = self._admit_seq
@@ -460,17 +567,19 @@ class ContinuousBatchingScheduler:
             if resumed.generated:
                 ids = np.concatenate(
                     [ids, np.asarray(resumed.generated, np.int32)])
-            task = self._begin_paged(idx, req, ids)
+            task = self._begin_paged(idx, req, ids, engine=engine)
             resumed.prefix_hit_tokens += task.shared_tokens
             resumed.prefill_task = task
             resumed.admit_order = order
-            self.slots[idx] = resumed
-            return
+            slots[idx] = resumed
+            return resumed
         queue_wait = time.perf_counter() - submit_t
         self._m_queue_wait.observe(queue_wait)
-        task = self._begin_paged(idx, req, req.prompt)
-        self.slots[idx] = _ActiveSlot(req, submit_t, queue_wait, order,
-                                      prefill_task=task)
+        task = self._begin_paged(idx, req, req.prompt, engine=engine)
+        act = _ActiveSlot(req, submit_t, queue_wait, order,
+                          prefill_task=task)
+        slots[idx] = act
+        return act
 
     def admit(self) -> int:
         """Fill free slots from the waiting queue (FIFO).  Paged engines
@@ -482,10 +591,16 @@ class ContinuousBatchingScheduler:
             if self.slots[idx] is not None or not self.waiting:
                 continue
             req = self.waiting.popleft()
-            n += 1
             if self.engine.paged:
+                if (req.rid not in self._preempted
+                        and self._begin_host_fetch(req)):
+                    # diverted to the host-tier fetch lane: the slot stays
+                    # free this round (a later request may take it)
+                    continue
                 self._admit_paged(idx, req)
+                n += 1
                 continue
+            n += 1
             submit_t = self._submit_t.pop(req.rid)
             order = self._admit_seq
             self._admit_seq += 1
@@ -512,6 +627,162 @@ class ContinuousBatchingScheduler:
             self._m_occupancy.set(sum(a is not None for a in self.slots))
         return n
 
+    # -- host-tier fetches -------------------------------------------------
+    # One phase a fetch an iteration (stage, then import and adopt),
+    # interleaved between decode steps, so a fetch never blocks a decode
+    # launch.
+
+    def _begin_host_fetch(self, req) -> bool:
+        """Divert the popped queue-head request into the fetch lane when
+        the host tier can extend its device-resident prefix coverage.
+        Preemption resumes never divert (their recompute mostly hits
+        their own still-cached pages)."""
+        plan = self.engine.host_fetch_plan(req.prompt)
+        if not plan:
+            return False
+        root = self._req_spans.get(req.rid, _tracing.NOOP_SPAN)
+        span = self._tracer.span("kv_tier", parent=root, pages=len(plan))
+        self._fetches[req.rid] = _HostFetch(req, plan, span,
+                                            time.perf_counter())
+        self._m_queue_depth.set(len(self.waiting))
+        return True
+
+    def _fetch_advance(self):
+        """Advance every fetch in progress by ONE phase."""
+        for rid in list(self._fetches):
+            f = self._fetches.get(rid)
+            if f is None:
+                continue
+            with self._kvt_beacon:
+                self._fetch_advance_one(rid, f)
+
+    def _fetch_advance_one(self, rid, f):
+        eng = self.engine
+        if f.staged is None:
+            # phase 1: read the tier entries, roundtrip them through the
+            # serve.kv_tier site and queue their copy to the card
+            digs = [d for _i, d in
+                    f.plan[f.pos:f.pos + eng.handoff_pages]]
+            try:
+                f.staged = eng.host_fetch_stage(digs, rid=rid,
+                                                chunk=f.chunk_idx)
+            except (KeyError,) + _TIER_ERRORS as e:
+                self._fetch_abort(rid, f, digs, e)
+                return
+            f.staged_digests = digs
+            f.chunk_idx += 1
+            return
+        # phase 2: allocate the destination pages, scatter the chunk into
+        # them (queued behind any step in flight) and adopt each page as
+        # free-but-cached content reachable under its digest
+        digs = f.staged_digests
+        pids = self._fetch_alloc(rid, f, len(digs))
+        if pids is None:
+            return                 # aborted, or parked for pages
+        try:
+            eng.import_pages(f.staged, pids)
+        except Exception as e:
+            # the scatter tore: the fresh pages were never adopted, so
+            # release them refcount-exactly and fall back to recompute
+            for pid in pids:
+                eng._alloc._release(pid)
+            self._fetch_abort(rid, f, digs, e)
+            return
+        for pid, d in zip(pids, digs):
+            eng._alloc.adopt_page(pid, [d])
+        eng._m_pool.set(eng._alloc.pages_used())
+        f.pages_in += len(digs)
+        f.pos += len(digs)
+        f.staged = None
+        f.staged_digests = None
+        if f.pos >= len(f.plan):
+            self._fetch_complete(rid, f)
+
+    def _fetch_alloc(self, rid, f, n):
+        """Allocate ``n`` destination pages for a fetch chunk.  Pool
+        pressure drains the step in flight first; still dry, the fetch
+        parks (partial allocations released refcount-exactly, the chunk
+        retried next iteration once decodes retire) rather than preempt
+        running requests for one still waiting.  A pool that cannot hold
+        the chunk even when empty aborts the fetch to recompute."""
+        alloc = self.engine._alloc
+        pids = []
+        try:
+            for _ in range(n):
+                pids.append(alloc.alloc())
+            return pids
+        except PagePoolExhausted as e:
+            for pid in pids:
+                alloc._release(pid)
+            if self._drain_inflight():
+                return None        # retry next iteration
+            if any(a is not None for a in self.slots):
+                return None        # parked: decodes will free pages
+            self._fetch_abort(rid, f, f.staged_digests, e)
+            return None
+
+    def _fetch_abort(self, rid, f, digests, exc):
+        """A fetch chunk tore (a transport error at the ``serve.kv_tier``
+        site, a vanished LRU entry, an unservable pool): fall back to
+        recompute.  Earlier chunks' adopted pages stay valid cached
+        content; the torn chunk's digests leave the tier, so the retry's
+        plan is strictly smaller.  The request requeues at the front."""
+        tier = self.engine._host_tier
+        if tier is not None:
+            for d in digests or ():
+                tier.discard(d)
+            self.engine._m_host_bytes.set(tier.bytes_used())
+        _flight.record("kv_tier_abort", rid=rid,
+                       error=type(exc).__name__, chunk=f.chunk_idx,
+                       pages_in=f.pages_in, planned=len(f.plan))
+        _flight.crash_dump({"kind": "kv_tier_abort", "rid": rid,
+                            "error": repr(exc)})
+        f.span.end(aborted=True, error=type(exc).__name__,
+                   pages=f.pages_in)
+        del self._fetches[rid]
+        self.waiting.appendleft(f.req)
+        self._m_queue_depth.set(len(self.waiting))
+
+    def _fetch_complete(self, rid, f):
+        """Every planned page landed: requeue at the front, so the next
+        admission finds the prompt on the device and admits it as a full
+        prefix hit.  ``kv_host_hits`` counts pages that landed."""
+        del self._fetches[rid]
+        self.waiting.appendleft(f.req)
+        self._m_host_hits.inc(f.pages_in)
+        self._m_fetch_s.observe(time.perf_counter() - f.t0)
+        f.span.end(pages=f.pages_in)
+        self._m_queue_depth.set(len(self.waiting))
+
+    def _run_prefill_chunk(self, act, task, engine, evict, sync=True):
+        """ONE chunked-prefill advance: its span (recompute chunks after a
+        preemption are tagged rework), the PagePoolExhausted retry loop
+        and the chunk histogram, shared by the decode side's loop and the
+        disaggregated scheduler's prefill side.  ``evict()`` returns True
+        to retry the chunk after freeing pages, False to give up.
+        Returns ``prefill_step``'s ``done``, or None when evict gave
+        up."""
+        rid = act.req.rid
+        sp = self._tracer.span(
+            "prefill_chunk",
+            parent=self._req_spans.get(rid, _tracing.NOOP_SPAN),
+            pos=task.pos, **({"rework": True}
+                             if rid in self._preempt_count else {}))
+        t0 = time.perf_counter()
+        while True:
+            try:
+                done = engine.prefill_step(task, sync=sync)
+                break
+            except PagePoolExhausted:
+                if not evict():
+                    done = None
+                    break
+        sp.end()
+        if done is not None:
+            self._m_prefill_chunk.observe(time.perf_counter() - t0)
+            self.prefill_chunks_total += 1
+        return done
+
     def prefill_once(self) -> int:
         """Advance every admitting slot by ONE chunk (the chunked-prefill
         interleave).  A chunk that cannot map pages first drains the
@@ -523,36 +794,26 @@ class ContinuousBatchingScheduler:
             if act is None or act.prefill_task is None:
                 continue
             task = act.prefill_task
-            rid = act.req.rid
-            # recompute chunks after a preemption are tagged rework, so
-            # the report attributes them apart from the first admission's
-            sp = self._tracer.span(
-                "prefill_chunk",
-                parent=self._req_spans.get(rid, _tracing.NOOP_SPAN),
-                pos=task.pos, **({"rework": True}
-                                 if rid in self._preempt_count else {}))
-            t0 = time.perf_counter()
-            while True:
-                try:
-                    done = self.engine.prefill_step(task)
-                    break
-                except PagePoolExhausted:
-                    if self._drain_inflight():
-                        continue
-                    if not self._evict_for_pages(idx):
-                        done = None
-                        break
-            sp.end()
+            if not isinstance(task, PrefillTask):
+                # a disaggregated handoff parks its task in this field so
+                # the slot stays out of decode; its scheduler advances it
+                continue
+
+            def evict(idx=idx):
+                if self._drain_inflight():
+                    return True
+                return self._evict_for_pages(idx)
+
+            done = self._run_prefill_chunk(act, task, self.engine, evict)
             if done is None:
                 continue
-            self._m_prefill_chunk.observe(time.perf_counter() - t0)
             n += 1
-            self.prefill_chunks_total += 1
             if done:
                 act.prefill_task = None
                 act.cache_len = int(task.ids.size)
                 if act.first_tok_t is None:
-                    self._req_spans.get(rid, _tracing.NOOP_SPAN).event(
+                    self._req_spans.get(act.req.rid,
+                                        _tracing.NOOP_SPAN).event(
                         "first_token")
                 act.first_token(task.first_token, time.perf_counter())
                 self._notify_tokens(act.req.rid, act.generated[-1:])
@@ -763,6 +1024,7 @@ class ContinuousBatchingScheduler:
     def _step_inner(self) -> int:
         self._drained_n = 0
         self.admit()
+        self._fetch_advance()
         self.prefill_once()
         if self.overlap:
             prev = self._inflight
@@ -781,8 +1043,10 @@ class ContinuousBatchingScheduler:
         return n
 
     def has_work(self) -> bool:
-        """Waiting requests, occupied slots, or an unconsumed step."""
-        return bool(self.waiting or any(a is not None for a in self.slots)
+        """Waiting requests, fetches, occupied slots, or an unconsumed
+        step (the disaggregated scheduler adds its prefill side)."""
+        return bool(self.waiting or self._fetches
+                    or any(a is not None for a in self.slots)
                     or self._inflight is not None)
 
     def run(self) -> Dict[int, RequestResult]:
@@ -805,15 +1069,27 @@ class ContinuousBatchingScheduler:
         preemption parking.  The tokens generated so far ride its
         ``"cancelled"`` :class:`RequestResult`.  Returns False when the
         rid is unknown or already finished.  Runs on the scheduler's
-        thread.  (The JAX package's branch for a request whose pages are
-        being fetched back from the host tier waits for that tier,
-        ROADMAP.md §A6.)"""
+        thread."""
         if rid in self.finished:
             return False
         # a step in flight may hold a lane of this request: drain first,
         # so the consume's identity check stays meaningful
         self._drain_inflight()
         if rid in self.finished:       # the drain itself retired it
+            return True
+        f = self._fetches.pop(rid, None)
+        if f is not None:
+            # mid-fetch: no device pages are held between phases (a staged,
+            # unimported chunk holds only transfer tensors), and pages
+            # already adopted are valid shared cache content that stays.
+            # Fetches never cover preemption resumes: no parked tokens.
+            f.span.end(aborted=True, error="cancelled", pages=f.pages_in)
+            self._submit_t.pop(rid, None)
+            self._record(RequestResult(
+                rid=rid, tokens=np.zeros((0,), np.int32),
+                finish_reason="cancelled", ttft=0.0, tpot=0.0,
+                preemptions=self._preempt_count.pop(rid, 0),
+                trace_id=self._trace_ids.pop(rid, 0)))
             return True
         for idx, act in enumerate(self.slots):
             if act is not None and act.req.rid == rid:
@@ -850,6 +1126,113 @@ class ContinuousBatchingScheduler:
             self._record(res)
             return True
         return False
+
+    # -- transfer between schedulers (replica failover) --------------------
+
+    def import_requeue(self, state: "RequeueState") -> int:
+        """Adopt one transferred request through the recompute-preemption
+        resume path.  It lands at the FRONT of the waiting queue (it
+        already waited on its old replica); with generated tokens, a
+        parked :class:`_ActiveSlot` is rebuilt so that re-admission
+        re-prefills ``prompt + generated`` as a page-pressure resume does,
+        and the stream continues at the next token.  Timing state and the
+        trace lane travel with it; ``state.requeues`` seeds
+        ``_preempt_count`` so failovers and evictions share one
+        ``max_preemptions`` budget.  Runs on the scheduler's thread.
+        Returns the rid."""
+        req = state.req
+        rid = req.rid
+        if rid is None:
+            raise ValueError("RequeueState.req must carry its rid")
+        self._next_rid = max(self._next_rid, rid + 1)
+        self._submit_t[rid] = state.submit_t
+        if state.requeues:
+            self._preempt_count[rid] = state.requeues
+        root = state.root_span
+        if root is None:
+            root = _tracing.NOOP_SPAN
+        self._trace_ids[rid] = state.trace_id
+        self._req_spans[rid] = root
+        if state.queue_wait is not None:
+            # admitted before: park a rebuilt slot so the resume path
+            # restores tokens and timing and queue_wait is not observed
+            # a second time
+            act = _ActiveSlot(req, state.submit_t, state.queue_wait,
+                              admit_order=0)
+            act.generated = list(state.generated)
+            act.first_tok_t = state.first_tok_t
+            act.decode_s = state.decode_s
+            act.decode_steps = state.decode_steps
+            act.prefix_hit_tokens = state.prefix_hit_tokens
+            act.spec_proposed = state.spec_proposed
+            act.spec_accepted = state.spec_accepted
+            self._preempted[rid] = act
+            root.event("failover_import", tokens=len(act.generated))
+            self._wait_spans[rid] = self._tracer.span(
+                "requeue", parent=root, rework=True)
+        else:
+            root.event("failover_import", tokens=0)
+            self._wait_spans[rid] = self._tracer.span("queue",
+                                                      parent=root)
+        self.waiting.appendleft(req)
+        self._m_queue_depth.set(len(self.waiting))
+        return rid
+
+    def export_requeue_state(self) -> List["RequeueState"]:
+        """Drain EVERY unfinished request into :class:`RequeueState`
+        records, leaving this scheduler empty: the graceful half of a
+        replica's failover (decommission); the crash half is rebuilt by
+        the router from its own records.  Slots and fetching requests
+        free their pages refcount-exactly on the way out.  Runs on the
+        scheduler's thread."""
+        self._drain_inflight()
+        out: List[RequeueState] = []
+
+        def carry(req, act, queue_wait):
+            rid = req.rid
+            ws = self._wait_spans.pop(rid, None)
+            if ws is not None:
+                ws.end()
+            root = self._req_spans.pop(rid, None)
+            if root is not None and root is not _tracing.NOOP_SPAN:
+                root.event("exported")
+            st = RequeueState(
+                req=req,
+                submit_t=self._submit_t.pop(rid, 0.0),
+                requeues=self._preempt_count.pop(rid, 0),
+                trace_id=self._trace_ids.pop(rid, 0),
+                root_span=root,
+                queue_wait=queue_wait)
+            if act is not None:
+                st.generated = list(act.generated)
+                st.first_tok_t = act.first_tok_t
+                st.queue_wait = act.queue_wait
+                st.decode_s = act.decode_s
+                st.decode_steps = act.decode_steps
+                st.prefix_hit_tokens = act.prefix_hit_tokens
+                st.spec_proposed = act.spec_proposed
+                st.spec_accepted = act.spec_accepted
+            out.append(st)
+
+        for idx, act in enumerate(self.slots):
+            if act is None:
+                continue
+            self.slots[idx] = None
+            self.engine.free_slot(idx)
+            act.prefill_task = None
+            carry(act.req, act, act.queue_wait)
+        for rid, f in list(self._fetches.items()):
+            del self._fetches[rid]
+            f.span.end(aborted=True, error="exported", pages=f.pages_in)
+            carry(f.req, None, None)
+        for req in list(self.waiting):
+            parked = self._preempted.pop(req.rid, None)
+            carry(req, parked,
+                  parked.queue_wait if parked is not None else None)
+        self.waiting.clear()
+        self._m_queue_depth.set(0)
+        self._m_occupancy.set(0)
+        return out
 
     def request_span(self, rid: int):
         """The live root span of an unfinished request (the front end

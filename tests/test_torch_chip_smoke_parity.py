@@ -142,3 +142,71 @@ def test_serve_http_rehearsed_on_the_cpu(monkeypatch):
             assert line["drain"]["late_status"] == 503
     finally:
         liveness.disable()
+
+
+def test_serving_tier_phases_rehearsed_on_the_cpu(monkeypatch):
+    """chip_smoke.py's chunk_capture, serve_tier, serve_disagg and
+    serve_fleet end to end against CPU engines at a narrow width: the
+    serve traffic's shape (12 prompts of 64 shared and 64 own tokens, 32
+    new each), the tier's three waves with a torn fetch and the cluster
+    index, the disaggregated pair's device, host-staged and torn runs and
+    its HTTP streams, and the fleet's affinity wave, replica kill,
+    rejoin and cluster merge; every wave's tokens equal the colocated
+    engine's (f32 on the CPU, so nothing parts)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    cfg = GPTConfig(vocab_size=50304, max_position_embeddings=1024,
+                    hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, intermediate_size=128,
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, 50257, (64,))
+    prompts = [np.concatenate([shared, rng.integers(0, 50257, (64,))])
+               .astype(np.int32) for _ in range(12)]
+    orng = np.random.default_rng(0)
+    own = [orng.integers(0, 50257, (128,)).astype(np.int32)
+           for _ in range(12)]
+    counters = _CpuCounters()
+
+    def run(engine, ps=prompts):
+        results, _s, wall, _l, _i = chip_smoke.run_loop(
+            torch, engine, ps, True, counters, flags, chip_smoke.LOOPS[0])
+        return ([results[k].tokens for k in sorted(results)],
+                chip_smoke.latency_fields(results, wall))
+
+    paged = DecodeEngine(model, num_slots=8, max_len=1024, device="cpu")
+    toks_paged, paged_line = run(paged)
+    own_ref = [t.tolist() for t in run(paged, own)[0]]
+    toks_tight, _ = run(DecodeEngine(model, num_slots=8, max_len=1024,
+                                     num_pages=chip_smoke.TIGHT_PAGES,
+                                     device="cpu"))
+    _, slotted_line = run(DecodeEngine(model, num_slots=8, max_len=1024,
+                                       paged=False, device="cpu"))
+    line = chip_smoke.chunk_capture(torch, paged, prompts, own, counters,
+                                    flags, paged_line, slotted_line)
+    assert all(v["same_bits"]
+               for v in line["bitwise_captured_vs_eager"].values())
+    line = chip_smoke.serve_tier(torch, model, prompts, toks_tight,
+                                 toks_paged, counters, flags, model,
+                                 device="cpu")
+    assert all(all(w["same_greedy_tokens"].values())
+               for w in line["waves"])
+    assert line["waves"][1]["host_hit_pages"] >= 2
+    assert line["cluster_index"]["prompt_digests_covered"] > 0
+    line = chip_smoke.serve_disagg(torch, model, prompts, toks_paged,
+                                   counters, flags, model, device="cpu")
+    assert all(r["same_greedy_tokens"] for r in line["runs"].values())
+    assert line["runs"]["torn_handoff"]["requeued"] >= 1
+    assert line["http"]["same_greedy_tokens"]
+    line = chip_smoke.serve_fleet(torch, model, prompts, toks_paged, own,
+                                  own_ref, counters, flags, model,
+                                  device="cpu")
+    assert line["undisturbed"]["same_greedy_tokens"]
+    assert line["replica_1_killed"]["same_greedy_tokens"]
+    assert line["failovers"] == 1 and line["requeues"] >= 1
+    assert line["routed"]["second_wave"]["affinity"] == 4
+    assert line["cluster"]["hosts"] == [0, 1]

@@ -1,24 +1,33 @@
 """The serving engine's captured steps on the card: the slotted and paged
-decode steps and the paged verify step, replayed from CUDA graphs, held
-bit for bit against the same engine's eager step, the opt-in
-``serving.kv_quant_error`` gauge of an int8 step included; one graph per
-routing through an overlapped run; a new capture when the LayerNorm route flips
-or a parameter is replaced by another tensor (and none when one is
-updated in place); B counting its launches inside a replay; replays
-after another engine's graph was dropped; and the fetch of step t-1
-returning while step t still runs.  Marked ``gpu``: without an NVIDIA
-card every test skips.  This file imports no JAX:
+decode steps, the paged verify step and the paged prefill chunk,
+replayed from CUDA graphs, held bit for bit against the same engine's
+eager step, the opt-in ``serving.kv_quant_error`` gauge of an int8 step
+included; one graph per step kind and routing through an overlapped run
+(the chunk's through churn, prefix hits, copy-on-write and preemption);
+a new capture when the LayerNorm route flips or a parameter is replaced
+by another tensor (and none when one is updated in place); B counting
+its launches inside a replay; replays after another engine's graph was
+dropped; the fetch of step t-1 returning while step t still runs; two
+engines replaying from two threads giving their single-thread tokens; a
+sealed capture raising; ``reset`` waiting for a step left in flight; a
+handoff moving page bytes exactly on the card, and a fleet's failover
+keeping each engine's captures.  Marked ``gpu``: without an NVIDIA card
+every test skips.  This file imports no JAX:
 
     python -m pytest tests/test_torch_cuda_serving.py -m gpu -q
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.convert import load_paddle_tpu_state
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.robustness import faultpoints as fp
 from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
-                                      DecodeEngine, Request)
+                                      DecodeEngine, DisaggScheduler, Request,
+                                      Router, graphs)
 from paddle_tpu_torch.utils import flags
 
 # eight lanes: a decode step's rows (8) are what the LayerNorm kernel's
@@ -54,6 +63,14 @@ def _prompts(n=SLOTS, seed=3):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 512, (9 + 5 * i,)).astype(np.int32)
             for i in range(n)]
+
+
+def _step_kind(eng):
+    return "spec" if eng.spec_k else "decode"
+
+
+def _kind_stats(eng, kind=None):
+    return eng.graph_stats()["by_kind"][kind or _step_kind(eng)]
 
 
 def _script(eng, steps=6, temps=(0.0, 0.0, 0.8, 1.0) * (SLOTS // 4)):
@@ -98,7 +115,9 @@ def test_captured_step_is_bitwise_the_eager_step(kind, use_norm):
                                page_size=16, **kw)
             eng._capture = capture
             runs.append(_script(eng))
-            assert eng.graph_stats()["graphs"] == int(capture)
+            assert _kind_stats(eng)["graphs"] == int(capture)
+            assert _kind_stats(eng, "chunk")["graphs"] == int(
+                capture and eng.paged)
     finally:
         flags.set_flags({"use_pallas_norm": False})
     for eager, captured in zip(*runs):
@@ -135,7 +154,7 @@ def test_kv_quant_error_gauge_of_a_replay_is_the_eager_steps(monkeypatch,
             seen.append(gauge.value)
         eng._set_quant_err = record
         _script(eng)
-        assert eng.graph_stats()["graphs"] == int(capture)
+        assert _kind_stats(eng)["graphs"] == int(capture)
         runs.append(seen)
     assert len(runs[0]) == 6 and min(runs[0]) > 0
     assert runs[0] == runs[1]
@@ -156,15 +175,17 @@ def test_reseed_then_replay_repeats_the_sampled_tokens():
     for x, y, z in zip(a, b, c):
         np.testing.assert_array_equal(x[1], y[1])
         np.testing.assert_array_equal(x[1], z[1])
-    assert eng.graph_captures == 1
+    assert eng.graph_captures_by_kind == {"decode": 1, "spec": 0,
+                                          "chunk": 1}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("spec_k", [0, 3])
 def test_one_graph_per_geometry_through_an_overlapped_run(spec_k):
     """Twenty-odd steps of the overlapped loop, lanes joining and leaving
-    (host tokens) between threaded ones, capture each step kind once;
-    greedy tokens equal the eager synchronous loop's."""
+    (host tokens) between threaded ones, capture each step kind once,
+    the prefill chunk included; greedy tokens equal the eager synchronous
+    loop's."""
     _card()
     model = _model(seed=2)
     out = []
@@ -180,10 +201,13 @@ def test_one_graph_per_geometry_through_an_overlapped_run(spec_k):
         out.append([res[r].tokens.tolist() for r in rids])
         if capture:
             assert sched.decode_steps_total >= 20 or spec_k
-            stats = eng.graph_stats()
+            stats = _kind_stats(eng)
             assert stats["captures"] == 1 and stats["graphs"] == 1
             # every consumed step was a replay of that one graph
             assert stats["replays"] == sched.decode_steps_total
+            chunk = _kind_stats(eng, "chunk")
+            assert chunk["captures"] == 1 and chunk["graphs"] == 1
+            assert chunk["replays"] == sched.prefill_chunks_total
     assert out[0] == out[1]
 
 
@@ -192,22 +216,28 @@ def test_new_capture_when_the_route_flips_or_a_parameter_is_replaced():
     _card()
     model = _model(seed=5)
     eng = DecodeEngine(model, num_slots=SLOTS, max_len=96, page_size=16)
+
+    def captures():
+        by = eng.graph_captures_by_kind
+        assert by["decode"] == by["chunk"]    # each flip captures both
+        return by["decode"]
+
     _script(eng, steps=2)
-    assert eng.graph_captures == 1
+    assert captures() == 1
     flags.set_flags({"use_pallas_norm": True})
     try:
         _script(eng, steps=2)
     finally:
         flags.set_flags({"use_pallas_norm": False})
-    assert eng.graph_captures == 2
-    _script(eng, steps=2)                     # the first graph again
-    assert eng.graph_captures == 2
+    assert captures() == 2
+    _script(eng, steps=2)                     # the first graphs again
+    assert captures() == 2
     # new weights through the bridge: copied in place, read live
     other = _model(seed=6, dtype=torch.float32).cpu()
     arrays = {k: v.numpy() for k, v in other.state_dict().items()}
     load_paddle_tpu_state(model, arrays)
     got = _script(eng, steps=3)
-    assert eng.graph_captures == 2
+    assert captures() == 2
     fresh = DecodeEngine(model, num_slots=SLOTS, max_len=96, page_size=16)
     fresh._capture = False
     want = _script(fresh, steps=3)
@@ -215,7 +245,7 @@ def test_new_capture_when_the_route_flips_or_a_parameter_is_replaced():
     w = model.gpt.wte.weight
     w.data = w.data.clone() * 1.5
     got2 = _script(eng, steps=3)
-    assert eng.graph_captures == 3 and eng.graph_stats()["graphs"] == 1
+    assert captures() == 3 and eng.graph_stats()["graphs"] == 2
     want2 = _script(fresh, steps=3)
     for g, w_ in zip(got + got2, want + want2):
         np.testing.assert_array_equal(g[1], w_[1])
@@ -276,7 +306,8 @@ def test_unaligned_layer_norm_weight_updated_in_place_is_read_live():
         with torch.no_grad():
             ln.weight.mul_(1.5)
         got = _script(eng, steps=2)
-        assert eng.graph_captures == 1
+        assert eng.graph_captures_by_kind == {"decode": 1, "spec": 0,
+                                              "chunk": 1}
         eng._capture = False
         want = _script(eng, steps=2)
     finally:
@@ -315,7 +346,7 @@ def test_replays_after_another_engines_graph_is_dropped():
             torch.cuda.synchronize()
         eng._capture = False
         want = _script(eng, steps=2)
-        assert eng.graph_captures == 1
+        assert _kind_stats(eng)["captures"] == 1
         for g, t, w in zip(got, traced, want):
             assert torch.equal(g[0], w[0]) and torch.equal(t[0], w[0])
             for x, y, z in zip(g[1:], t[1:], w[1:]):
@@ -344,3 +375,252 @@ def test_fetch_of_the_previous_step_returns_while_the_next_runs():
     assert prev.consumed and not nxt.consumed
     eng.decode_fetch(nxt)
     assert toks.shape == (SLOTS,)
+
+
+# ---------------------------------------------------------------------------
+# the captured prefill chunk, threads, handoff and the fleet
+# ---------------------------------------------------------------------------
+
+def _chunk_script(eng):
+    """Admissions through the chunk: three prompts of 1-3 chunks, then a
+    prefix hit; each one's first token and last logits."""
+    eng.reset()
+    rng = np.random.default_rng(12)
+    out = []
+    prompts = [rng.integers(0, 512, (n,)).astype(np.int32)
+               for n in (40, 16, 7)]
+    for slot, p in enumerate(prompts + [prompts[0]]):
+        if slot == 3:
+            eng.free_slot(0)
+            slot = 0
+        tok, last = eng.prefill(slot, p, temperature=0.0)
+        out.append((tok, last.float().cpu()))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(kv_dtype="int8"),
+                                dict(kv_dtype="fp8")],
+                         ids=["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("use_norm", [False, True])
+def test_captured_chunk_is_bitwise_the_eager_chunk(kw, use_norm):
+    """Each admission's last logits, and the pools afterwards, through
+    the captured chunk and through the eager one: bit for bit."""
+    _card()
+    model = _model(seed=13)
+    runs, pools = [], []
+    flags.set_flags({"use_pallas_norm": use_norm})
+    try:
+        for capture in (False, True):
+            eng = DecodeEngine(model, num_slots=SLOTS, max_len=96,
+                               page_size=16, prefill_chunk=16, **kw)
+            eng._capture = capture
+            runs.append(_chunk_script(eng))
+            torch.cuda.synchronize()
+            pools.append([None if t is None else t.view(torch.uint8).clone()
+                          for t in (eng.cache.k, eng.cache.v,
+                                    eng.cache.k_scale, eng.cache.v_scale)]
+                         + [eng.cache.lengths.clone()])
+            assert _kind_stats(eng, "chunk")["captures"] == int(capture)
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    for (t0, l0), (t1, l1) in zip(*runs):
+        assert t0 == t1 and torch.equal(l0, l1)
+    sink = eng.num_pages
+    for a, b in zip(*pools):
+        if a is not None:
+            assert torch.equal(a[:sink] if a.dim() > 1 else a,
+                               b[:sink] if b.dim() > 1 else b)
+
+
+def _serve_tokens(eng, prompts, max_new=8):
+    sched = ContinuousBatchingScheduler(eng)
+    rids = [sched.submit(Request(prompt=p, max_new_tokens=max_new,
+                                 temperature=0.0)) for p in prompts]
+    res = sched.run()
+    return [res[r].tokens.tolist() for r in rids]
+
+
+@pytest.mark.gpu
+def test_two_engines_replaying_from_two_threads_match():
+    """Two engines on one model, each driven by its own thread through
+    the overlapped loop on captured steps and chunks (replays of both
+    interleave on one stream and one graph pool): each thread's tokens
+    equal the engine's single-thread run."""
+    _card()
+    model = _model(seed=14)
+    engs = [DecodeEngine(model, num_slots=4, max_len=96, page_size=16,
+                         prefill_chunk=16) for _ in range(2)]
+    work = [_prompts(8, seed=20), _prompts(8, seed=21)]
+    want = []
+    for e, ps in zip(engs, work):
+        e.capture_steps()
+        want.append(_serve_tokens(e, ps))
+        e.reset()
+    captures = [e.graph_captures for e in engs]
+    got = [None, None]
+    graphs.seal("test")
+    try:
+        def run(i):
+            torch.cuda.set_device(engs[i].cache.lengths.device)
+            for _ in range(3):
+                got[i] = _serve_tokens(engs[i], work[i])
+                engs[i].reset()
+        ths = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(300)
+    finally:
+        graphs.unseal("test")
+    assert got == want
+    assert [e.graph_captures for e in engs] == captures
+
+
+@pytest.mark.gpu
+def test_a_sealed_capture_raises():
+    _card()
+    eng = DecodeEngine(_model(seed=15), num_slots=SLOTS, max_len=96,
+                       page_size=16)
+    graphs.seal("test")
+    try:
+        with pytest.raises(graphs.CaptureSealed):
+            eng.capture_steps()
+    finally:
+        graphs.unseal("test")
+    eng.capture_steps()
+    assert eng.graph_captures == 2
+
+
+@pytest.mark.gpu
+def test_reset_waits_for_a_step_left_in_flight():
+    _card()
+    eng = DecodeEngine(_model(seed=16), num_slots=SLOTS, max_len=96,
+                       page_size=16)
+    tok = np.zeros(SLOTS, np.int32)
+    args = ([True] * SLOTS, [0.0] * SLOTS, [0] * SLOTS, [1.0] * SLOTS)
+    eng.decode(tok, *args)                    # capture first
+    torch.cuda._sleep(200_000_000)
+    rec = eng.decode_submit(tok, *args)
+    assert not rec.ready.query()
+    eng.reset()
+    assert rec.ready.query()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{}, dict(kv_dtype="int8"),
+                                dict(kv_dtype="fp8")],
+                         ids=["bf16", "int8", "fp8"])
+def test_handoff_is_byte_exact_on_the_card(kw):
+    """Pages exported from one engine's pool and imported into another's
+    on the card carry their bytes exactly (codes and f32 scales); the
+    disaggregated pair's greedy tokens, device and host staging, equal
+    the colocated engine's."""
+    _card()
+    model = _model(seed=17)
+    mk = dict(max_len=96, page_size=16, prefill_chunk=16, **kw)
+    pe = DecodeEngine(model, num_slots=2, **mk)
+    de = DecodeEngine(model, num_slots=4, **mk)
+    pe.prefill(0, np.arange(50, dtype=np.int32), temperature=0.0)
+    src = [int(p) for p in pe._alloc.table[0][pe._alloc.mapped[0]]][:3]
+    de.import_pages(de.stage_handoff(pe.export_pages(src)), [4, 0, 9])
+    torch.cuda.synchronize()
+    for a, b in zip(pe._pools(), de._pools()):
+        if a is not None:
+            for s_, d in zip(src, (4, 0, 9)):
+                assert torch.equal(a[s_].view(torch.uint8),
+                                   b[d].view(torch.uint8))
+    ps = _prompts(6, seed=22)
+    want = _serve_tokens(DecodeEngine(model, num_slots=4, **mk), ps)
+    for via_host in (False, True):
+        de = DecodeEngine(model, num_slots=4, **mk)
+        pe = DecodeEngine(model, num_slots=2, **mk)
+        sched = DisaggScheduler(de, pe, via_host=via_host)
+        rids = [sched.submit(Request(prompt=p, max_new_tokens=8,
+                                     temperature=0.0)) for p in ps]
+        res = sched.run()
+        assert [res[r].tokens.tolist() for r in rids] == want
+        assert sched.handoffs_total == len(ps)
+
+
+@pytest.mark.gpu
+def test_fleet_failover_keeps_each_engines_captures():
+    """A two-replica fleet on one card: a HardExit on a replica in the
+    middle of the drive, every stream finishes with the undisturbed
+    tokens, the replica rejoins, and no engine captured again."""
+    _card()
+    model = _model(seed=18)
+    engs = [DecodeEngine(model, num_slots=4, max_len=96, page_size=16,
+                         prefill_chunk=16) for _ in range(2)]
+    ps = _prompts(8, seed=23)
+    want = _serve_tokens(engs[0], ps)
+    engs[0].reset()
+    router = Router(engs, respawn_delay=0.05, healthy_interval=0.2,
+                    probe_interval=0.05)
+    done = threading.Event()
+    results = {}
+
+    def on_finish(res):
+        results[res.rid] = res
+        if len(results) == len(ps):
+            done.set()
+
+    router.on_finish = on_finish
+    router.start()
+    captures = [e.graph_captures for e in engs]
+    try:
+        plan = fp.FaultPlan().inject("serve.replica", fp.HardExit(), at=10)
+        with fp.chaos(plan):
+            rids = [router.submit(Request(prompt=p, max_new_tokens=8,
+                                          temperature=0.0)) for p in ps]
+            assert done.wait(300)
+        plan.assert_all_fired()
+        import time
+        deadline = time.monotonic() + 30
+        while router.healthy_count() < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert router.replica_states() == ["healthy", "healthy"]
+    finally:
+        router.stop()
+    assert [results[r].tokens.tolist() for r in rids] == want
+    assert [e.graph_captures for e in engs] == captures
+
+
+@pytest.mark.gpu
+def test_a_collection_never_runs_inside_a_capture():
+    """A dead reference cycle holding an earlier engine's graphs becomes
+    garbage while a capture runs, with the collector set to run at every
+    allocation: the capture keeps the collector off, so no graph is
+    destroyed while the stream captures and the capture completes."""
+    import gc
+    _card()
+    model = _model(seed=19)
+    old = DecodeEngine(model, num_slots=SLOTS, max_len=96, page_size=16)
+    old.capture_steps()
+    cycle = {"engine": old}
+    cycle["self"] = cycle
+    holder = [cycle]
+    del old, cycle
+    eng = DecodeEngine(model, num_slots=SLOTS, max_len=96, page_size=16)
+    calls = []
+
+    def step():
+        calls.append(1)
+        if len(calls) == 3:              # the captured call
+            holder.clear()
+            junk = [[] for _ in range(2000)]
+            del junk
+        return eng._decode_step()
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        eng._io["decode"].active.zero_()
+        with torch.inference_mode():
+            graph = graphs.capture(step)
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert len(calls) == 3

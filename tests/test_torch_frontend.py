@@ -358,10 +358,26 @@ def test_scheduler_thread_death_leaves_a_flight_record(engine, tmp_path):
 
 
 def test_router_and_prefill_engine_raise(engine):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A3"):
-        ServingFrontend(engine, router=object())
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §A3, §A6"):
+    """Since the fleet and the disaggregated pair are ported, the front
+    end serves over both (tests/test_torch_router.py,
+    tests/test_torch_disagg.py); what still raises is a misuse of them:
+    an engine beside a router, a guard on a fleet, and one engine as both
+    roles of a pair."""
+    from paddle_tpu_torch.serving import DisaggScheduler, Router
+    router = Router([engine], probe_interval=None)
+    with pytest.raises(ValueError, match="fleet mode"):
+        ServingFrontend(engine, router=router)
+    with pytest.raises(ValueError, match="guard"):
+        ServingFrontend(router=router, guard=object())
+    with pytest.raises(ValueError, match="TWO engines"):
         ServingFrontend(engine, prefill_engine=engine)
+    fe = ServingFrontend(router=router)
+    assert fe.scheduler is None and router.on_finish == fe._on_finish
+    other = DecodeEngine(engine.model, num_slots=engine.num_slots,
+                         max_len=engine.max_len,
+                         page_size=engine.page_size, device="cpu")
+    fe = ServingFrontend(engine, prefill_engine=other)
+    assert isinstance(fe.scheduler, DisaggScheduler)
 
 
 def test_front_end_without_a_device_raises_on_a_cpu_only_machine(pair):

@@ -28,7 +28,13 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.serving.pages, paddle_tpu_torch.nn.initializer, "
         "paddle_tpu_torch.observability, paddle_tpu_torch.robustness, "
         "paddle_tpu_torch.serving.frontend, "
-        "paddle_tpu_torch.serving.loadgen\n"
+        "paddle_tpu_torch.serving.loadgen, "
+        "paddle_tpu_torch.serving.kv_tier, "
+        "paddle_tpu_torch.serving.disagg, "
+        "paddle_tpu_torch.serving.router, "
+        "paddle_tpu_torch.distributed.store, "
+        "paddle_tpu_torch.robustness.retry, "
+        "paddle_tpu_torch.observability.aggregate\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'paddle_tpu' "

@@ -7,7 +7,9 @@ watchdog.
   geometry), and equal Prometheus text;
 * every entry of the port's catalog is the JAX entry of that name, and
   the catalog is two-way: a serving run that drives every instrumented
-  path emits exactly the catalog's names;
+  path (the host tier, a disaggregated handoff, a fleet's failover, a
+  retried op and a cluster merge included) emits exactly the catalog's
+  names;
 * the opt-in ``serving.kv_quant_error`` gauge equals the JAX engine's on
   the same weights and script (1e-5 absolute);
 * a seeded ``FaultPlan`` fires at the same indices in both packages;
@@ -257,6 +259,50 @@ def test_catalog_is_two_way_over_a_serving_run(monkeypatch, tmp_path):
             assert raw.split()[1] == (b"429" if limit == 0 else b"200")
     finally:
         fe.stop()
+    # the host tier: a spill, a fetch that lands, a miss
+    tiered = DecodeEngine(model, num_slots=2, max_len=64, page_size=8,
+                          kv_host_bytes=1 << 20, device="cpu")
+    again = rng.integers(0, 512, (20,))
+    _serve(ContinuousBatchingScheduler(tiered), [again], 2)
+    assert tiered.spill_cached_pages() > 0
+    _serve(ContinuousBatchingScheduler(tiered), [again], 2)
+    assert tiered.host_fetch_plan(rng.integers(0, 512, (20,))) == []
+    # a disaggregated handoff
+    from paddle_tpu_torch.serving import DisaggScheduler, Router
+    de = DecodeEngine(model, num_slots=2, max_len=64, page_size=8,
+                      device="cpu")
+    pe = DecodeEngine(model, num_slots=2, max_len=64, page_size=8,
+                      device="cpu")
+    assert _serve(DisaggScheduler(de, pe), [shared], 2)
+    # a fleet: routed admissions, then a replica crash past the requeue
+    # budget (a failover and a "failover_limit" finish)
+    import threading
+    done = threading.Event()
+    router = Router([de], probe_interval=None, max_requeues=0)
+    router.on_finish = lambda res: done.set()
+    router.start()
+    try:
+        with fp.chaos(fp.FaultPlan().inject("serve.replica",
+                                            fp.HardExit(), at=1)):
+            router.submit(Request(prompt=shared, max_new_tokens=8,
+                                  temperature=0.0))
+            assert done.wait(30)
+    finally:
+        router.stop()
+    # a retried store op and a cluster merge with a straggler
+    from paddle_tpu_torch.observability import aggregate
+    from paddle_tpu_torch.robustness.retry import retry_call
+    flaky = iter([ConnectionResetError("injected"), None])
+
+    def once_flaky():
+        exc = next(flaky)
+        if exc is not None:
+            raise exc
+    retry_call(once_flaky, base_delay=0.0, sleep=lambda d: None)
+    step = {"count": 4, "sum": 0.4, "p95": 0.1, "p99": 0.1}
+    aggregate.merge_docs({h: {"wall_ts": time.time(), "step_times": {
+        "serving.decode_step_seconds": dict(step, p50=p50)}}
+        for h, p50 in ((0, 0.1), (1, 0.1), (2, 0.5))}, 3)
     # a fired faultpoint, and a liveness stall
     with fp.chaos(fp.FaultPlan().inject("serve.step", fp.Hang(0.0))):
         _serve(ContinuousBatchingScheduler(tight), [shared], 1)
