@@ -93,7 +93,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               attends the exact K/V) and paged int8 + 4-draft engines:
               pool bytes and bytes a token, TTFT and TPOT; a 1-byte row
               is (64 + 4) / (2 x 64) of the bf16 row; token ids in range.
-3e. serve_http — GPT-2 345M under ``use_pallas_norm`` behind the HTTP
+3e. serve_scan — the serve traffic under ``use_pallas_norm`` through
+              engines on the scan-layers 345M model (``GPTConfig(
+              scan_layers=True)``, the serve model's weights stacked by
+              ``per_layer_state_to_scan``, AMP O2 bf16): the paged engine
+              in both loops, the slotted engine, the paged engine with
+              SPEC_K drafts and the paged int8 engine; greedy tokens equal
+              to the per-layer engines' on the same traffic, B's own
+              count on the card equal to theirs in the default loop, and
+              a captured paged decode step's wall and device ms beside
+              the per-layer one's (``serve_scan_parity``).
+3f. serve_http — GPT-2 345M under ``use_pallas_norm`` behind the HTTP
               front end (``serving.ServingFrontend`` on 127.0.0.1, the
               default overlapped loop on captured steps, a live tracer,
               metrics and liveness on), on a fresh paged engine (the
@@ -167,6 +177,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               default route's.
 11. train_flat — 3 steps with ``TrainStep(flat_master=True)``; losses
               held against the default step's, the optimizer part timed.
+11a. train_stack — 3 steps with ``TrainStep(stack_layers=True)``: 12
+              stacked templates of 24 layers; every loss equal to the
+              default step's bit for bit; the optimizer and write-back
+              parts beside train's and train_flat's.
+11b. train_scan — 3 steps of the scan-layers model holding the same
+              weights, under each ``scan_mode``: every loss equal to
+              train's bit for bit, the launches train's; the first
+              mode's step parts and device profile.
+11c. train_recompute — 3 steps with ``use_recompute=True``, per layer
+              and scan-layers: the tensor-core forward 48 times a step
+              (each block's forward again in the backward), C2 and C3 24;
+              every loss equal to train's bit for bit; peak memory below train's
+              and device ms a step beside it.
 12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
               LayerNorm route and each cross-entropy route; then f32,
               kernel A and C1) and on the CPU (f32, plain): the loss and
@@ -1657,20 +1680,28 @@ def check_softmax(torch, norm_cuda, cases=SOFTMAX_CASES, repeats=3):
     return rows
 
 
-def train_model(torch, base, amp):
+def train_model(torch, base, amp, device="cuda"):
     """A card copy of the f32 CPU model ``base``, AMP O2 bf16."""
     return amp.decorate(copy.deepcopy(base), level="O2",
-                        dtype="bfloat16").to("cuda")
+                        dtype="bfloat16").to(device)
 
 
-def make_step(model, lr=1e-4, device="cuda", flat_master=None):
+def train_ids(torch, vocab, device="cuda"):
+    """The train step's seeded (8, 1024) batch."""
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, vocab, (8, 1024)), device=device)
+
+
+def make_step(model, lr=1e-4, device="cuda", flat_master=None,
+              stack_layers=False):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
     opt = AdamW(learning_rate=lr, weight_decay=0.01,
                 parameters=model.parameters())
     return TrainStep(model, GPTPretrainingCriterion(), opt,
-                     device=device, flat_master=flat_master)
+                     device=device, flat_master=flat_master,
+                     stack_layers=stack_layers)
 
 
 def step_breakdown(torch, step, ids):
@@ -1940,6 +1971,165 @@ def train_flat(torch, base, amp, counters, default_losses, steps=3):
         raise AssertionError("train_flat: losses %r against the default "
                              "step's %r" % (losses, default_losses[:steps]))
     return line
+
+
+def scan_copy(base, **cfg):
+    """A scan-layers copy of the per-layer f32 CPU model ``base`` (its
+    weights stacked by ``per_layer_state_to_scan``), with ``cfg``'s
+    fields of its config replaced."""
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             per_layer_state_to_scan)
+    model = GPTForCausalLM(dataclasses.replace(base.config, scan_layers=True,
+                                               **cfg))
+    model.load_state_dict(per_layer_state_to_scan(base.state_dict()))
+    model.train(base.training)
+    return model
+
+
+def split_parts(breakdown):
+    """The optimizer and write-back parts of a ``step_breakdown``."""
+    return {k: breakdown[k] for k in ("optimizer_ms", "write_back_ms")}
+
+
+def hold_train_variant(phase, line, want):
+    """Emit ``line`` with its largest loss difference from the default
+    step's (``default_losses``), then raise unless its launches match
+    ``want`` and every loss equals the default step's bit for bit: a
+    layer layout or recompute changes where values are kept, not what is
+    computed (AdamW is elementwise, a stacked grad is a stack of the
+    per-layer ones, a re-run block draws the forward's values again)."""
+    losses, ref = line["losses"], line["default_losses"]
+    line["max_loss_diff"] = max(abs(a - b) for a, b in zip(losses, ref))
+    line["tolerance"] = 0.0
+    emit(line)
+    expect_launches(line["launches"], want, phase)
+    if not all(math.isfinite(x) for x in losses) or losses != ref:
+        raise AssertionError("%s: losses %r, not the default step's %r bit "
+                             "for bit" % (phase, losses, ref))
+
+
+def train_stack(torch, base, amp, counters, default_losses, train_line,
+                flat_line, steps=3, device="cuda"):
+    """``steps`` steps of the train step with ``stack_layers=True`` from
+    the same weights and batch: the masters of each of the 12 per-layer
+    parameter templates in one f32 (24, ...) tensor, the model's
+    parameters views of one bf16 (or f32 LayerNorm) buffer a template.
+    Every loss held to the default step's bit for bit; the optimizer and
+    write-back parts beside train's and train_flat's."""
+    step = make_step(train_model(torch, base, amp, device), device=device,
+                     stack_layers=True)
+    ids = train_ids(torch, base.config.vocab_size, device)
+    losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+    layers = base.config.num_hidden_layers
+    templates = {t: len(names) for t, names in step._stack.items()}
+    breakdown = step_breakdown(torch, step, ids)
+    line = {"phase": "train_stack", "steps": steps, "step_ms": ms,
+            "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
+            "default_losses": default_losses[:steps],
+            "stacked_templates": templates,
+            "stacked_elements": sum(step.params[t].numel()
+                                    for t in templates),
+            "per_name_masters": sorted(n for n in step.params
+                                       if n not in templates),
+            "launches": launches, "breakdown": breakdown,
+            "profile": profile_steps(torch, step, ids),
+            "optimizer_and_write_back_ms": {
+                "train": split_parts(train_line["breakdown"]),
+                "train_flat": split_parts(flat_line["breakdown"]),
+                "train_stack": split_parts(breakdown)}}
+    del step
+    torch.cuda.empty_cache()
+    hold_train_variant("train_stack", line,
+                       {"flash_fwd_tc": layers * steps, "flash_fwd": 0,
+                        "flash_bwd": 0, "flash_bwd_dq": layers * steps,
+                        "flash_bwd_dkv": layers * steps})
+    if len(templates) != 12 or set(templates.values()) != {layers}:
+        raise AssertionError("train_stack: templates %r, want 12 of %d"
+                             % (templates, layers))
+    return line
+
+
+def train_scan(torch, base, amp, counters, default_losses, steps=3,
+               device="cuda"):
+    """``steps`` steps of the train step on the scan-layers model holding
+    the same weights (``per_layer_state_to_scan``), under each
+    ``scan_mode``: every loss equal to the default step's bit for bit,
+    the launches train's.  The first mode's line carries the step's
+    parts and a 2-step profile (both modes run the same code in eager
+    PyTorch, so the second is held, not timed)."""
+    ids = train_ids(torch, base.config.vocab_size, device)
+    layers = base.config.num_hidden_layers
+    scan = scan_copy(base)
+    lines = []
+    for i, mode in enumerate(("scan", "stack_vjp")):
+        scan.config.scan_mode = mode
+        step = make_step(train_model(torch, scan, amp, device), device=device)
+        losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+        line = {"phase": "train_scan", "scan_mode": mode, "steps": steps,
+                "step_ms": ms, "tokens_per_s": 8 * 1024 * 1e3 / ms,
+                "losses": losses, "default_losses": default_losses[:steps],
+                "masters": len(step.params), "launches": launches}
+        if i == 0:
+            line["breakdown"] = step_breakdown(torch, step, ids)
+            line["profile"] = profile_steps(torch, step, ids)
+        del step
+        torch.cuda.empty_cache()
+        hold_train_variant(
+            "train_scan " + mode, line,
+            {"flash_fwd_tc": layers * steps, "flash_fwd": 0, "flash_bwd": 0,
+             "flash_bwd_dq": layers * steps,
+             "flash_bwd_dkv": layers * steps})
+        lines.append(line)
+    return lines
+
+
+def train_recompute(torch, base, amp, counters, default_losses, train_line,
+                    steps=3, device="cuda"):
+    """``steps`` steps with ``use_recompute=True``, per layer and on the
+    scan-layers model (``stack_vjp``), from the same weights and batch:
+    the flash forward launches twice a layer a step (the second run in
+    the backward is the proof that the block was recomputed), the
+    backward once; every loss equal to the default step's bit for bit.  Peak
+    memory over the steps (``max_memory_allocated`` after a reset) and
+    device ms a step beside train's."""
+    ids = train_ids(torch, base.config.vocab_size, device)
+    layers = base.config.num_hidden_layers
+    lines = []
+    for layout in ("per_layer", "scan"):
+        model = (copy.deepcopy(base) if layout == "per_layer"
+                 else scan_copy(base, scan_mode="stack_vjp"))
+        model.config.use_recompute = True
+        step = make_step(train_model(torch, model, amp, device),
+                         device=device)
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        line = {"phase": "train_recompute", "layout": layout,
+                "steps": steps, "step_ms": ms,
+                "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
+                "default_losses": default_losses[:steps],
+                "launches": launches,
+                "peak_memory_gb": peak,
+                "train_peak_memory_gb": train_line["peak_memory_gb"],
+                "profile": profile_steps(torch, step, ids),
+                "train_step_device_ms":
+                    train_line["profile"]["step_device_ms"]}
+        del step
+        torch.cuda.empty_cache()
+        hold_train_variant(
+            "train_recompute " + layout, line,
+            {"flash_fwd_tc": 2 * layers * steps, "flash_fwd": 0,
+             "flash_bwd": 0, "flash_bwd_dq": layers * steps,
+             "flash_bwd_dkv": layers * steps})
+        if not peak < train_line["peak_memory_gb"]:
+            raise AssertionError("train_recompute %s: peak %.3f GB, not "
+                                 "below train's %.3f" % (
+                                     layout, peak,
+                                     train_line["peak_memory_gb"]))
+        lines.append(line)
+    return lines
 
 
 def autotune_warm(torch, at, fac):
@@ -2915,8 +3105,9 @@ def serve_spec(torch, spec_engine, paged_engine, cpu_model, traffic,
     where spec and plain greedy tokens part, the CPU's logit gap must be
     small (``serve_compare``).  Then the wall and device ms of one verify
     step beside a plain paged decode step, each route.  Fails if the
-    repeated-span traffic accepted no draft."""
-    lines = {}
+    repeated-span traffic accepted no draft.  Returns the lines and the
+    default loop's tokens, both by (traffic, route)."""
+    lines, tokens = {}, {}
     for name, prompts in traffic.items():
         for use_norm in (False, True):
             if (name, use_norm) not in plain_runs:
@@ -2927,6 +3118,7 @@ def serve_spec(torch, spec_engine, paged_engine, cpu_model, traffic,
                                     prompts, use_norm, counters, flags,
                                     phase="serve_spec", traffic=name)
             lines[(name, use_norm)] = line
+            tokens[(name, use_norm)] = toks
             serve_compare(torch, cpu_model, prompts,
                           plain_runs[(name, use_norm)], toks,
                           "spec_vs_plain_paged_%s%s" % (
@@ -2944,7 +3136,7 @@ def serve_spec(torch, spec_engine, paged_engine, cpu_model, traffic,
               "plain_paged_step": plain})
     paged_engine.reset()
     spec_engine.reset()
-    return lines
+    return lines, tokens
 
 
 def spec_parity(torch, spec_engine, paged_engine, prompts, flags, counters,
@@ -3029,14 +3221,15 @@ def serve_quant(torch, model, prompts, bf16_row_bytes, vocab, counters,
     of the bf16 one, and the pools on the card hold it: 1-byte codes of
     the engine's ``kv_dtype``, f32 scale pools of one scale a (row,
     head), their bytes the row's times the rows allocated; every token id
-    in range.  Returns the lines and the paged int8, paged fp8 and
-    slotted int8 engines (for quant_parity)."""
+    in range.  Returns the lines, the paged int8, paged fp8 and slotted
+    int8 engines (for quant_parity) and the default loop's tokens, all by
+    engine name."""
     from paddle_tpu_torch.serving import DecodeEngine
     cases = (("paged_int8", dict(kv_dtype="int8")),
              ("paged_fp8", dict(kv_dtype="fp8")),
              ("slotted_int8", dict(kv_dtype="int8", paged=False)),
              ("paged_int8_spec", dict(kv_dtype="int8", spec_k=SPEC_K)))
-    lines, keep = {}, {}
+    lines, keep, tokens = {}, {}, {}
     d = model.config.hidden_size // model.config.num_attention_heads
     for name, kw in cases:
         eng = DecodeEngine(model, num_slots=8, max_len=1024, seed=seed,
@@ -3067,7 +3260,7 @@ def serve_quant(torch, model, prompts, bf16_row_bytes, vocab, counters,
         line, toks = both_loops(serve_paged if eng.paged else serve, torch,
                                 eng, prompts, True, counters, flags,
                                 phase="serve_quant", extra=extra)
-        lines[name] = line
+        lines[name], tokens[name] = line, toks
         for t in toks:
             if not (0 <= int(t.min()) and int(t.max()) < vocab):
                 raise AssertionError("serve_quant %s: token ids out of "
@@ -3080,7 +3273,103 @@ def serve_quant(torch, model, prompts, bf16_row_bytes, vocab, counters,
             keep[name] = eng
         del eng
         torch.cuda.empty_cache()
-    return lines, keep
+    return lines, keep, tokens
+
+
+def first_parting(ref, got):
+    """(request, position) of the first token where two runs' greedy
+    tokens part, or None."""
+    for r, (a, b) in enumerate(zip(ref, got)):
+        diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+        if diff.size:
+            return r, int(diff[0])
+    return None
+
+
+def logit_gap(torch, model_a, model_b, prompt, tokens, pos):
+    """The largest gap between two models' last-position logits (a plain
+    forward on the card) over ``prompt`` and the first ``pos`` tokens
+    the runs agreed on."""
+    ids = torch.as_tensor(np.concatenate([prompt, tokens[:pos]])[None]
+                          .astype(np.int64),
+                          device=next(model_a.parameters()).device)
+    with torch.no_grad():
+        a = model_a(ids)[0, -1].float()
+        b = model_b(ids)[0, -1].float()
+    return float((a - b).abs().max())
+
+
+SCAN_ENGINES = (("paged", {}, LOOPS[0]), ("paged", {}, LOOPS[1]),
+                ("slotted", dict(paged=False), LOOPS[0]),
+                ("spec", dict(spec_k=SPEC_K), LOOPS[0]),
+                ("paged_int8", dict(kv_dtype="int8"), LOOPS[0]))
+
+
+def serve_scan(torch, scan_model, model, prompts, refs, profile_ref,
+               counters, flags, device="cuda"):
+    """The serve traffic under ``use_pallas_norm`` through engines on the
+    scan-layers model ``scan_model`` (the serve model's weights stacked):
+    the paged engine in the default loop and the eager synchronous one,
+    the slotted engine, the paged engine with SPEC_K drafts and the paged
+    int8 engine.  Every run's greedy tokens equal the per-layer engine's
+    on the same traffic (``refs[name]`` = its default loop's (line,
+    tokens)), and in the default loop B's own count on the card equals
+    that run's.  Then the wall and device ms of one captured paged decode
+    step beside the per-layer engine's (``profile_ref``).  Where tokens
+    part, the phase fails naming the first parting step and the largest
+    logit gap there between the two models."""
+    from paddle_tpu_torch.serving import DecodeEngine
+    engines, runs, bad = {}, [], []
+    for name, kw, loop in SCAN_ENGINES:
+        eng = engines.get(name)
+        if eng is None:
+            eng = engines[name] = DecodeEngine(scan_model, num_slots=8,
+                                               max_len=1024, seed=0,
+                                               device=device, **kw)
+            eng.prefill(0, prompts[0], temperature=0.0)
+            eng.reset()
+        line, toks = (serve_paged if eng.paged else serve)(
+            torch, eng, prompts, True, counters, flags, phase="serve_scan",
+            extra={"engine": name + "_scan"}, loop=loop)
+        ref_line, ref_toks = refs[name]
+        part = first_parting(ref_toks, toks)
+        b, b_ref = (line["launches"]["layer_norm_fwd"],
+                    ref_line["launches"]["layer_norm_fwd"])
+        run = {"engine": name, "loop": loop,
+               "same_greedy_tokens": part is None, "first_parting": part,
+               "layer_norm_fwd_launches": b,
+               "per_layer_layer_norm_fwd_launches": b_ref,
+               "flash_fwd_tc_launches": line["launches"].get(
+                   "flash_fwd_tc", 0),
+               "tokens_per_s": line["tokens_per_s"],
+               "per_layer_tokens_per_s": ref_line["tokens_per_s"],
+               "tpot_p50_ms": line["tpot_p50_ms"],
+               "per_layer_tpot_p50_ms": ref_line["tpot_p50_ms"]}
+        if part is not None:
+            r, pos = part
+            run["logit_gap"] = logit_gap(torch, scan_model, model,
+                                         prompts[r], ref_toks[r], pos)
+            bad.append(run)
+        elif loop == LOOPS[0] and b != b_ref:
+            bad.append(run)
+        runs.append(run)
+    profile = decode_profile(torch, engines["paged"], True, flags,
+                             emit_line=False)
+    keys = ("step_wall_ms", "step_device_ms", "device_busy_share")
+    line = {"phase": "serve_scan_parity", "runs": runs,
+            "decode_step": {
+                "scan": {k: profile[k] for k in keys},
+                "per_layer": {k: profile_ref[k] for k in keys},
+                "scan_eager": {k: profile["eager"][k] for k in keys},
+                "per_layer_eager": {k: profile_ref["eager"][k]
+                                    for k in keys}}}
+    emit(line)
+    del engines
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("serve_scan: runs part from the per-layer "
+                             "engines' %r" % (bad,))
+    return line
 
 
 def overlap_parity(torch, engine, cpu_model, script, prompts, parity, flags,
@@ -4179,8 +4468,9 @@ def main():
                                        prompts, False, counters, flags)
     run_paged_norm, toks_paged_norm = both_loops(
         serve_paged, torch, paged_engine, prompts, True, counters, flags)
-    for use_norm in (False, True):
-        decode_profile(torch, paged_engine, use_norm, flags)
+    paged_profiles = {use_norm: decode_profile(torch, paged_engine,
+                                               use_norm, flags)
+                      for use_norm in (False, True)}
     if min(run_paged["prefix_hit_tokens"],
            run_paged_norm["prefix_hit_tokens"]) <= 0:
         raise AssertionError("serve_paged: no prefix hit")
@@ -4294,7 +4584,7 @@ def main():
                             np.zeros((8, SPEC_K), np.int32), [True] * 8,
                             [0.0] * 8, [0] * 8, [1.0] * 8)
     spans = span_prompts(cfg.vocab_size)
-    spec_runs = serve_spec(
+    spec_runs, spec_toks = serve_spec(
         torch, spec_engine, paged_engine, cpu_model,
         {"serve": prompts, "span": spans},
         {("serve", False): toks_paged, ("serve", True): toks_paged_norm},
@@ -4310,7 +4600,7 @@ def main():
 
     # -- serve_quant / quant_parity: the int8 and fp8 KV pools ------------
     t1 = time.perf_counter()
-    quant_runs, quant_engines = serve_quant(
+    quant_runs, quant_engines, quant_toks = serve_quant(
         torch, model, prompts, paged_engine.kv_row_bytes(), cfg.vocab_size,
         counters, flags)
     for name, eng in quant_engines.items():
@@ -4323,6 +4613,21 @@ def main():
     del quant_engines, eng, exact
     torch.cuda.empty_cache()
     seconds["serve_quant"] = time.perf_counter() - t1
+
+    # -- serve_scan: the scan-layers model on every serving route ---------
+    t1 = time.perf_counter()
+    scan_model = amp.decorate(scan_copy(cpu_model), level="O2",
+                              dtype="bfloat16")
+    scan_line = serve_scan(
+        torch, scan_model, model, prompts,
+        {"paged": (run_paged_norm, toks_paged_norm),
+         "slotted": (run_norm, toks_norm),
+         "spec": (spec_runs[("serve", True)], spec_toks[("serve", True)]),
+         "paged_int8": (quant_runs["paged_int8"], quant_toks["paged_int8"])},
+        paged_profiles[True], counters, flags)
+    del scan_model
+    torch.cuda.empty_cache()
+    seconds["serve_scan"] = time.perf_counter() - t1
 
     # -- serve_http: the front end and the load harness on each engine ----
     t1 = time.perf_counter()
@@ -4366,7 +4671,8 @@ def main():
     torch.cuda.empty_cache()
     seconds["serve"] = (time.perf_counter() - t0 - seconds["serve_paged"]
                         - seconds["overlap_parity"] - seconds["serve_spec"]
-                        - seconds["serve_quant"] - seconds["serve_http"]
+                        - seconds["serve_quant"] - seconds["serve_scan"]
+                        - seconds["serve_http"]
                         - seconds["chunk_capture"] - seconds["serve_tier"]
                         - seconds["serve_disagg"] - seconds["serve_fleet"])
 
@@ -4390,8 +4696,19 @@ def main():
                                run_train["losses"][0])
     seconds["train_ce"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    train_flat(torch, base, amp, counters, run_train["losses"])
+    run_flat = train_flat(torch, base, amp, counters, run_train["losses"])
     seconds["train_flat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_stack = train_stack(torch, base, amp, counters, run_train["losses"],
+                            run_train, run_flat)
+    seconds["train_stack"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_scan = train_scan(torch, base, amp, counters, run_train["losses"])
+    seconds["train_scan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_rc = train_recompute(torch, base, amp, counters, run_train["losses"],
+                             run_train)
+    seconds["train_recompute"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     parity = train_parity(torch, base, amp, flags, counters)
     torch.cuda.empty_cache()
@@ -4450,6 +4767,18 @@ def main():
     ln_bwd_cols = ln_cols + ("rows_pass_device_ms", "reduce_device_ms")
     parity_by = {next(iter(line["flags"]), "default"): line["launches"]
                  for line in parity}
+    def layout_launches(kern):
+        """``kern``'s launches in the stacked-layout and recompute phases
+        (3 steps each; the slotted scan engine's admissions)."""
+        out = {"train_stack": run_stack["launches"][kern]}
+        out["train_scan"] = run_scan[0]["launches"][kern]
+        out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
+                    for r in run_rc})
+        if kern == "flash_fwd_tc":
+            out["serve_scan_slotted"] = sum(
+                r["flash_fwd_tc_launches"] for r in scan_line["runs"]
+                if r["engine"] == "slotted")
+        return out
     tc_launches = {"serve": run_default["launches"]["flash_fwd_tc"],
                    # paged prefill attends through plain paged attention
                    "serve_paged": run_paged["launches"].get(
@@ -4461,7 +4790,8 @@ def main():
                    "serve_quant_slotted_int8":
                        quant_runs["slotted_int8"]["launches"]["flash_fwd_tc"],
                    "serve_http_slotted":
-                       http_runs["slotted"]["launches"]["flash_fwd_tc"]}
+                       http_runs["slotted"]["launches"]["flash_fwd_tc"],
+                   **layout_launches("flash_fwd_tc")}
     # kernel A and C1 run on the f32 path: train_f32's steps and
     # train_parity's f32 card step
     f32_path = parity_by["dtype"]
@@ -4588,7 +4918,8 @@ def main():
     split_launches = {
         "train": run_train["launches"]["flash_bwd_dq"],
         "train_long": run_long["launches"]["flash_bwd_dq"],
-        "train_fp16": run_fp16[0]["launches"]["flash_bwd_dq"]}
+        "train_fp16": run_fp16[0]["launches"]["flash_bwd_dq"],
+        **layout_launches("flash_bwd_dq")}
     emit({"kernels": [
         {"name": "flash_fwd_tc", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_fwd_tc.cu",
@@ -4705,6 +5036,8 @@ def main():
              "serve_tier": tier_line["launches"]["layer_norm_fwd"],
              "serve_disagg": disagg_line["launches"]["layer_norm_fwd"],
              "serve_fleet": fleet_line["launches"]["layer_norm_fwd"],
+             **{"serve_scan_%s_%s" % (r["engine"], r["loop"]):
+                r["layer_norm_fwd_launches"] for r in scan_line["runs"]},
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_fwd"]},
@@ -4729,7 +5062,8 @@ def main():
         bwd_entry("flash_bwd_dkv", long_row, long_plain_row,
                   run_train["launches"]["flash_bwd_dkv"],
                   dict(split_launches,
-                       train=run_train["launches"]["flash_bwd_dkv"]),
+                       train=run_train["launches"]["flash_bwd_dkv"],
+                       **layout_launches("flash_bwd_dkv")),
                   max(bwd_err["flash_bwd_dkv"], split_err)),
         {"name": "layer_norm_bwd", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/layer_norm_bwd.cu",

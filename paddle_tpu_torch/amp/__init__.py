@@ -3,7 +3,10 @@ and ``GradScaler``).
 
 ``decorate(model, level="O2", dtype="bfloat16")`` casts every float32
 parameter to the AMP dtype except the LayerNorm parameters, which stay in
-float32 (the reference's keep_batch_norm_fp32).  The LayerNorm math then
+float32 (the reference's keep_batch_norm_fp32): those of a LayerNorm
+module, and those a module holding LayerNorm parameters inline names in
+its ``_amp_keep_fp32_params`` (the scan-layers GPT's stacked
+``ln1_w``, ...).  The LayerNorm math then
 runs its statistics in f32 and returns the activation dtype.
 ``GradScaler`` is dynamic loss scaling for fp16; bf16 needs none, and
 ``enable=False`` makes it a pass-through.
@@ -25,8 +28,9 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16"):
             for layer in m.modules():
                 if isinstance(layer, LayerNorm):
                     continue
-                for p in layer.parameters(recurse=False):
-                    if p.dtype == torch.float32:
+                keep = getattr(layer, "_amp_keep_fp32_params", ())
+                for name, p in layer.named_parameters(recurse=False):
+                    if name not in keep and p.dtype == torch.float32:
                         p.data = p.data.to(dt)
     if optimizers is None:
         return models if single else model_list

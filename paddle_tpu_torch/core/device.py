@@ -7,12 +7,18 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the first card."""
+    """``device`` as a ``torch.device``; ``None`` means the first card.
+    A card named without an index ("cuda") gets the current one, so the
+    device of a tensor made there compares equal to it (a buffer kept
+    across calls is then made once: a captured step reads it at its
+    address)."""
     if device is not None:
         dev = torch.device(device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device %r asked for, but no CUDA device is "
                                "available" % (str(dev),))
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         return dev
     if not torch.cuda.is_available():
         raise RuntimeError(

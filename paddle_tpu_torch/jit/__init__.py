@@ -31,14 +31,28 @@ of one contiguous buffer, so the write-back is one cast per group.  It
 is off by default, as in the JAX package, and refuses what would change
 the math (``_flat_eligible``).
 
+``stack_layers=True`` holds the masters of each group of per-layer
+parameters that differ only in their layer index (``gpt.h.{i}.attn.
+qkv_proj.weight``, same shape and dtype: ``_stack_layout``, computed on
+the model's dtypes before the f32 promotion, as in the JAX step) as one
+f32 (L, ...) tensor under the group's template name (``gpt.h.#.attn.
+qkv_proj.weight``): the optimizer and its slots see the stacked names.
+Each group's grads are stacked once and upcast, and the model's
+parameters of a group are views of one (L, ...) buffer in their dtype,
+so the write-back is one cast per group.  A model built with
+``GPTConfig(scan_layers=True)`` needs none of this: its grads arrive
+stacked.
+
 ``state_dict`` / ``set_state_dict`` use the JAX step's layout:
 ``{"params", "buffers", "opt_state": {"slots", "step"}, "opt_extra"}``,
-per parameter name also under ``flat_master``.  The JAX step's options
-``zero_stage``, ``stack_layers`` and ``in_shardings`` are not ported yet
+per parameter name also under ``flat_master`` and ``stack_layers``, so a
+checkpoint loads across the modes.  The JAX step's options
+``zero_stage`` and ``in_shardings`` are not ported yet (ROADMAP.md §A5)
 and raise.
 """
 from __future__ import annotations
 
+import re
 from typing import Callable
 
 import numpy as np
@@ -56,6 +70,34 @@ _FLAT_KEY = "__flat_master__"
 #: masters at or above this element count stay out of the flat buffer
 #: (GPT-2's 51.5M-element wte), as in the JAX step
 _FLAT_MAX_ELEMS = 1 << 25
+
+#: the layer index of a per-layer parameter name (``gpt.h.3.ln1.weight``)
+_LAYER_IDX_RE = re.compile(r"\.(\d+)\.")
+
+
+def _stack_layout(params):
+    """``{template: [names in layer order]}`` for the groups of names that
+    differ only in one numeric segment (the layer index, replaced by ``#``
+    in the template), indexed 0 to L - 1 with L > 1, of one shape and one
+    dtype (the JAX step's ``_stack_layout``)."""
+    groups = {}
+    for name in params:
+        hits = _LAYER_IDX_RE.findall(name)
+        if len(hits) != 1:
+            continue
+        template = _LAYER_IDX_RE.sub(".#.", name)
+        groups.setdefault(template, []).append((int(hits[0]), name))
+    layout = {}
+    for template, members in groups.items():
+        if len(members) < 2:
+            continue
+        members.sort()
+        names = [n for _i, n in members]
+        if [i for i, _n in members] == list(range(len(members))) \
+                and len({tuple(params[n].shape) for n in names}) == 1 \
+                and len({params[n].dtype for n in names}) == 1:
+            layout[template] = names
+    return layout
 
 __all__ = ["TrainStep"]
 
@@ -82,11 +124,10 @@ class TrainStep:
                 "(ZeRO/stack_layers/per-param optimizer semantics — see "
                 "_flat_eligible)")
         for opt_name, asked in (("zero_stage", bool(zero_stage)),
-                                ("stack_layers", bool(stack_layers)),
                                 ("in_shardings", in_shardings is not None)):
             if asked:
                 raise NotImplementedError(
-                    "TrainStep(%s=...) is not ported yet (ROADMAP.md §A)"
+                    "TrainStep(%s=...) is not ported yet (ROADMAP.md §A5)"
                     % opt_name)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -98,6 +139,10 @@ class TrainStep:
         if not self._model_params:
             raise ValueError("TrainStep: the model has no trainable "
                              "parameters")
+        # on the model's dtypes, before the f32 promotion: a group whose
+        # members mix dtypes stays unstacked
+        self._stack = (_stack_layout(self._model_params) if stack_layers
+                       else {})
         multi = getattr(optimizer, "_multi_precision", None) is not False
         self._compute_dtypes = {}
         self.params = {}
@@ -113,6 +158,10 @@ class TrainStep:
         self._flat_groups = []
         if flat_master:
             self._pack_flat()
+        # stack_layers: the model-side (L, ...) buffer of each template
+        self._stack_bufs = {}
+        if self._stack:
+            self._pack_stacked()
         self.opt_state = optimizer.init_state(self.params)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
@@ -151,6 +200,47 @@ class TrainStep:
                 off += size
         self.params[_FLAT_KEY] = torch.cat(
             [self.params.pop(n).reshape(-1) for n in members])
+
+    def _pack_stacked(self):
+        """Each template's masters into one (L, ...) tensor, and its
+        members' model parameters into views of one (L, ...) buffer in
+        their dtype."""
+        with torch.no_grad():
+            for template, names in self._stack.items():
+                members = [self._model_params[n] for n in names]
+                buf = torch.empty((len(names),) + tuple(members[0].shape),
+                                  dtype=members[0].dtype, device=self.device)
+                for i, p in enumerate(members):
+                    buf[i].copy_(p)
+                    p.data = buf[i]
+                self._stack_bufs[template] = buf
+                self.params[template] = torch.stack(
+                    [self.params.pop(n) for n in names])
+                dt = self._compute_dtypes.pop(names[0], None)
+                for n in names[1:]:
+                    self._compute_dtypes.pop(n, None)
+                if dt is not None:
+                    self._compute_dtypes[template] = dt
+
+    def _unstacked(self, tree):
+        """Name-keyed ``tree`` with each stacked template split back into
+        per-layer entries (views)."""
+        tree = dict(tree)
+        for template, names in self._stack.items():
+            if template in tree:
+                stacked = tree.pop(template)
+                for i, n in enumerate(names):
+                    tree[n] = stacked[i]
+        return tree
+
+    def _restacked(self, tree, stack):
+        """Inverse of :meth:`_unstacked` for incoming per-layer entries
+        (``stack`` joins one template's members)."""
+        tree = dict(tree)
+        for template, names in self._stack.items():
+            if template not in tree and all(n in tree for n in names):
+                tree[template] = stack([tree.pop(n) for n in names])
+        return tree
 
     def _flat_grad(self):
         """The flat f32 gradient: each dtype group's member grads
@@ -201,6 +291,13 @@ class TrainStep:
             grads = {}
             if self._flat_groups:
                 grads[_FLAT_KEY] = self._flat_grad()
+            for template, names in self._stack.items():
+                g = torch.stack([
+                    p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in (self._model_params[n] for n in names)])
+                grads[template] = (g.float()
+                                   if template in self._compute_dtypes
+                                   else g)
             for n, p in self._model_params.items():
                 # a parameter the loss does not reach gets a zero gradient,
                 # as jax.grad gives it
@@ -226,6 +323,12 @@ class TrainStep:
             # serving engine's prefix-cache purge) see the step
             for n in names:
                 increment_version(self._model_params[n])
+        for template, names in self._stack.items():
+            # one cast of the (L, ...) master into the members' buffer;
+            # the members are views of it, repointed like the flat ones
+            self._stack_bufs[template].copy_(self.params[template])
+            for n in names:
+                increment_version(self._model_params[n])
         for n, p in self._model_params.items():
             if n in self.params:
                 p.copy_(self.params[n])
@@ -244,12 +347,16 @@ class TrainStep:
         if hasattr(sched, "state_dict"):
             opt_extra["lr_scheduler"] = sched.state_dict()
         slots = {n: dict(s) for n, s in self.opt_state["slots"].items()}
+        for template, names in self._stack.items():
+            grp = slots.pop(template)
+            for i, n in enumerate(names):
+                slots[n] = {k: v[i] for k, v in grp.items()}
         if _FLAT_KEY in slots:
             flat = slots.pop(_FLAT_KEY)
             for n, o, size, shape in self._flat_members():
                 slots[n] = {k: v[o:o + size].view(shape)
                             for k, v in flat.items()}
-        return {"params": self._unflat(self.params),
+        return {"params": self._unstacked(self._unflat(self.params)),
                 "buffers": dict(self.buffers),
                 "opt_state": {
                     "slots": slots,
@@ -265,8 +372,12 @@ class TrainStep:
         def place_like(new, old):
             return torch.as_tensor(new).to(device=old.device,
                                            dtype=old.dtype, copy=True)
-        params = dict(state["params"])
-        in_slots = dict(state["opt_state"]["slots"])
+        def stack(values):
+            return torch.stack([torch.as_tensor(v) for v in values])
+        params = self._restacked(state["params"], stack)
+        in_slots = self._restacked(
+            state["opt_state"]["slots"],
+            lambda per: {k: stack([p[k] for p in per]) for k in per[0]})
         if self._flat_groups and _FLAT_KEY not in params:
             flat = [n for n, *_ in self._flat_members()]
             # incoming per-name entries may carry a compute dtype (bf16);

@@ -1,29 +1,35 @@
-"""GPT-2 (port of ``paddle_tpu/models/gpt.py``), per-layer layout, for
-training and serving.
+"""GPT-2 (port of ``paddle_tpu/models/gpt.py``) for training and serving,
+in either layer layout: per layer (``gpt.h.{i}``) or, with
+``GPTConfig(scan_layers=True)``, the L blocks as twelve stacked (L, ...)
+parameters (``gpt.h_stack``, :class:`GPTScanBlocks`).
 
 Pre-LN transformer with a tied LM head (``logits = x @ wte^T``).  Module
 and parameter names are the JAX package's (``gpt.h.{i}.attn.qkv_proj.weight``
-of shape (H, 3H), ...), so its state dict loads by name through
-:mod:`paddle_tpu_torch.convert`.  Attention goes through
+of shape (H, 3H), ``gpt.h_stack.qkv_w`` of shape (L, H, 3H), ...), so its
+state dict loads by name through :mod:`paddle_tpu_torch.convert`, and
+:func:`scan_state_to_per_layer` / :func:`per_layer_state_to_scan` map a
+state between the layouts.  Attention goes through
 ``F.scaled_dot_product_attention`` (the CUDA flash kernels on a card,
 forward and backward) or, with a serving cache view, through the view's
-append-and-attend.  :class:`GPTPretrainingCriterion` is the training
-loss.
+append-and-attend.  ``use_recompute`` runs each block under
+:func:`paddle_tpu_torch.distributed.recompute` while training.
+:class:`GPTPretrainingCriterion` is the training loss.
 
-Not ported yet (ROADMAP.md): activation recompute (``use_recompute``),
-the scan-layers layout, the Megatron pspec annotations and the
+Not ported yet (ROADMAP.md §A5): the Megatron pspec annotations and the
 tensor-parallel overlap islands.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..nn import functional as F
-from ..nn.layer.common import Dropout, Embedding, Linear
+from ..nn.layer.common import Dropout, Embedding, Linear, upscale_dropout
 from ..nn.layer.norm import LayerNorm
 
 
@@ -40,8 +46,18 @@ class GPTConfig:
     initializer_range: float = 0.02
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
-    # activation recompute per block: not ported yet (ROADMAP.md §C)
+    # activation recompute per block while training: the block's
+    # activations are made again in the backward instead of kept
     use_recompute: bool = False
+    # the L blocks as stacked (L, ...) parameters (GPTScanBlocks); the
+    # optimizer then sees twelve large tensors instead of 12 L small ones
+    scan_layers: bool = False
+    # the JAX package's lax.scan unroll factor and how its stacked grads
+    # accumulate ("scan" or "stack_vjp"); in eager PyTorch both modes are
+    # one loop over unbind views whose backward is one stack a parameter,
+    # and the unroll factor has nothing to unroll (ROADMAP.md §C)
+    scan_unroll: int = 1
+    scan_mode: str = "scan"
 
     @classmethod
     def gpt2_small(cls):
@@ -121,20 +137,172 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
+#: stacked-parameter field -> per-layer submodule path (the state maps)
+_SCAN_FIELD_MAP = {
+    "ln1_w": "ln1.weight", "ln1_b": "ln1.bias",
+    "qkv_w": "attn.qkv_proj.weight", "qkv_b": "attn.qkv_proj.bias",
+    "out_w": "attn.out_proj.weight", "out_b": "attn.out_proj.bias",
+    "ln2_w": "ln2.weight", "ln2_b": "ln2.bias",
+    "fc1_w": "mlp.fc1.weight", "fc1_b": "mlp.fc1.bias",
+    "fc2_w": "mlp.fc2.weight", "fc2_b": "mlp.fc2.bias",
+}
+
+
+def _scan_block_apply(x, p, cfg, training, generator=None, cache=None):
+    """One block over the per-layer tensors ``p`` (views of the stacked
+    parameters).  The same functionals in the same order as
+    :class:`GPTBlock` (``h @ w + b`` as ``Linear``, ``F.layer_norm``,
+    ``F.gelu(approximate=True)``, ``F.scaled_dot_product_attention`` or
+    the cache view's ``attend``, dropout masks drawn from ``generator`` in
+    the per-layer block's order), so both layouts give the same bits."""
+    h_sz = cfg.hidden_size
+    nh = cfg.num_attention_heads
+    hd = h_sz // nh
+    b, s = x.shape[0], x.shape[1]
+    p_drop = cfg.hidden_dropout_prob
+    h = F.layer_norm(x, [h_sz], p["ln1_w"], p["ln1_b"],
+                     cfg.layer_norm_epsilon)
+    qkv = h @ p["qkv_w"] + p["qkv_b"]
+    q = qkv[:, :, :h_sz].reshape(b, s, nh, hd)
+    k = qkv[:, :, h_sz:2 * h_sz].reshape(b, s, nh, hd)
+    v = qkv[:, :, 2 * h_sz:].reshape(b, s, nh, hd)
+    if cache is not None:
+        out = cache.attend(q, k, v)
+    else:
+        out = F.scaled_dot_product_attention(
+            q, k, v, dropout_p=cfg.attention_dropout_prob, is_causal=True,
+            training=training, generator=generator)
+    out = out.reshape(b, s, h_sz)
+    x = x + upscale_dropout(out @ p["out_w"] + p["out_b"], p_drop,
+                            training, generator)
+    h2 = F.layer_norm(x, [h_sz], p["ln2_w"], p["ln2_b"],
+                      cfg.layer_norm_epsilon)
+    m = F.gelu(h2 @ p["fc1_w"] + p["fc1_b"], approximate=True)
+    return x + upscale_dropout(m @ p["fc2_w"] + p["fc2_b"], p_drop,
+                               training, generator)
+
+
+class GPTScanBlocks(nn.Module):
+    """The L transformer blocks as twelve stacked (L, ...) parameters
+    (port of the JAX package's ``GPTScanBlocks``), named as there
+    (``qkv_w`` (L, H, 3H), ``ln1_w`` (L, H), ...).
+
+    The forward slices every stacked parameter once with
+    ``torch.unbind`` and runs the layers in a loop: the backward of the
+    slices is one ``torch.stack`` a parameter, the exact cotangent of
+    disjoint slices and the JAX ``stack_vjp`` contract (indexing
+    ``stacked[i]`` per layer would make autograd write a full-size zero
+    tensor per layer and parameter).  With a serving cache view each
+    layer attends through the view, whose layer cursor advances per
+    ``attend``; in a captured step the slices are views at fixed
+    addresses, so an in-place update is read live."""
+
+    #: amp.decorate(level="O2") keeps these f32 (the LayerNorm parameters,
+    #: which a LayerNorm module would keep by its type)
+    _amp_keep_fp32_params = ("ln1_w", "ln1_b", "ln2_w", "ln2_b")
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        c = config
+        self.config = c
+        L, H, Iz = c.num_hidden_layers, c.hidden_size, c.intermediate_size
+        std = c.initializer_range
+        out_std = std / math.sqrt(2 * L)
+
+        def normal(shape, sd):
+            return nn.Parameter(torch.empty(shape).normal_(0.0, sd))
+        self.ln1_w = nn.Parameter(torch.ones(L, H))
+        self.ln1_b = nn.Parameter(torch.zeros(L, H))
+        self.qkv_w = normal((L, H, 3 * H), std)
+        self.qkv_b = nn.Parameter(torch.zeros(L, 3 * H))
+        self.out_w = normal((L, H, H), out_std)
+        self.out_b = nn.Parameter(torch.zeros(L, H))
+        self.ln2_w = nn.Parameter(torch.ones(L, H))
+        self.ln2_b = nn.Parameter(torch.zeros(L, H))
+        self.fc1_w = normal((L, H, Iz), std)
+        self.fc1_b = nn.Parameter(torch.zeros(L, Iz))
+        self.fc2_w = normal((L, Iz, H), out_std)
+        self.fc2_b = nn.Parameter(torch.zeros(L, H))
+        # draws the dropout masks (None: PyTorch's default generator);
+        # jit.TrainStep sets its own
+        self.generator = None
+
+    def _block(self, x, p, cache=None):
+        return _scan_block_apply(x, p, self.config, self.training,
+                                 self.generator, cache)
+
+    def forward(self, x, cache=None):
+        c = self.config
+        per = {n: torch.unbind(getattr(self, n), 0) for n in _SCAN_FIELD_MAP}
+        rc = c.use_recompute and self.training and cache is None
+        if rc:
+            from ..distributed.recompute import recompute
+        for i in range(c.num_hidden_layers):
+            p = {n: per[n][i] for n in per}
+            x = recompute(self._block, x, p) if rc else self._block(x, p,
+                                                                    cache)
+        return x
+
+
+def _stack(values):
+    if isinstance(values[0], torch.Tensor):
+        return torch.stack(values)
+    return np.stack([np.asarray(v) for v in values])
+
+
+def scan_state_to_per_layer(state):
+    """A scan-layers model's state (``gpt.h_stack.qkv_w``: (L, H, 3H))
+    under per-layer names (``gpt.h.{i}.attn.qkv_proj.weight``), as
+    tensors or numpy arrays; other entries pass through."""
+    out = {}
+    for k, v in state.items():
+        if ".h_stack." in k:
+            prefix, field = k.rsplit(".h_stack.", 1)
+            sub = _SCAN_FIELD_MAP[field]
+            for i in range(int(v.shape[0])):
+                out["%s.h.%d.%s" % (prefix, i, sub)] = v[i]
+        else:
+            out[k] = v
+    return out
+
+
+def per_layer_state_to_scan(state):
+    """Inverse of :func:`scan_state_to_per_layer`: the per-layer entries
+    stacked into the scan model's (L, ...) ones; other entries pass
+    through."""
+    pat = re.compile(r"^(.*)\.h\.(\d+)\.(.+)$")
+    rev = {v: k for k, v in _SCAN_FIELD_MAP.items()}
+    out, groups = {}, {}
+    for k, v in state.items():
+        m = pat.match(k)
+        if m and m.group(3) in rev:
+            key = (m.group(1), rev[m.group(3)])
+            groups.setdefault(key, {})[int(m.group(2))] = v
+        else:
+            out[k] = v
+    for (prefix, field), per in groups.items():
+        idxs = sorted(per)
+        if idxs != list(range(len(idxs))):
+            raise ValueError("per-layer state has gaps for %s.h.*.%s: %r"
+                             % (prefix, _SCAN_FIELD_MAP[field], idxs))
+        out["%s.h_stack.%s" % (prefix, field)] = _stack(
+            [per[i] for i in idxs])
+    return out
+
+
 class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
         c = config
-        if c.use_recompute:
-            raise NotImplementedError(
-                "GPTConfig(use_recompute=True) is not ported yet (ROADMAP.md "
-                "§C)")
         self.wte = Embedding(c.vocab_size, c.hidden_size)
         self.wpe = Embedding(c.max_position_embeddings, c.hidden_size)
         self.drop = Dropout(c.hidden_dropout_prob)
-        self.h = nn.ModuleList([GPTBlock(c)
-                                for _ in range(c.num_hidden_layers)])
+        if c.scan_layers:
+            self.h_stack = GPTScanBlocks(c)
+        else:
+            self.h = nn.ModuleList([GPTBlock(c)
+                                    for _ in range(c.num_hidden_layers)])
         self.ln_f = LayerNorm(c.hidden_size, c.layer_norm_epsilon)
 
     def forward(self, input_ids, position_ids=None, cache=None):
@@ -162,8 +330,14 @@ class GPTModel(nn.Module):
                 position_ids = torch.arange(
                     s, dtype=torch.int32, device=input_ids.device)[None, :]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
-        for block in self.h:
-            x = block(x, view)
+        if self.config.scan_layers:
+            x = self.h_stack(x, view)
+        else:
+            rc = self.config.use_recompute and self.training and view is None
+            if rc:
+                from ..distributed.recompute import recompute
+            for block in self.h:
+                x = recompute(block, x) if rc else block(x, view)
         x = self.ln_f(x)
         if view is None:
             return x
@@ -174,7 +348,7 @@ class GPTForCausalLM(nn.Module):
     """LM head with tied embeddings.  ``generator`` seeds the parameters
     (the JAX package's initializers: normal(0, initializer_range) for the
     projections and embeddings, scaled by 1/sqrt(2 L) for the output
-    projections; LayerNorm weights 1, biases 0)."""
+    projections, stacked or per layer; LayerNorm weights 1, biases 0)."""
 
     def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
@@ -191,9 +365,11 @@ class GPTForCausalLM(nn.Module):
         std = c.initializer_range
         out_std = std / math.sqrt(2 * c.num_hidden_layers)
         for name, p in self.named_parameters():
-            if name.endswith(("out_proj.weight", "fc2.weight")):
+            if name.endswith(("out_proj.weight", "fc2.weight",
+                              "h_stack.out_w", "h_stack.fc2_w")):
                 p.normal_(0.0, out_std, generator=generator)
             elif name.endswith(("qkv_proj.weight", "fc1.weight",
+                                "h_stack.qkv_w", "h_stack.fc1_w",
                                 "wte.weight", "wpe.weight",
                                 "lm_head.weight")):
                 p.normal_(0.0, std, generator=generator)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ...core.random import before_draw
 from .. import initializer as I
 
 
@@ -72,6 +73,20 @@ class Embedding(nn.Module):
         return "%d, %d%s" % (self.num_embeddings, self.embedding_dim, pad)
 
 
+def upscale_dropout(x, p, training, generator=None):
+    """Upscale-in-train dropout of ``x`` with its mask drawn from
+    ``generator`` (None: PyTorch's default generator); ``x`` itself when
+    not training or at ``p`` 0.  :class:`Dropout` and the scan-layers
+    GPT block both draw through it, so the two layouts take the same
+    masks from one stream."""
+    if not training or p == 0.0:
+        return x
+    if generator is not None:
+        before_draw(generator)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class Dropout(nn.Module):
     """Upscale-in-train dropout; the identity in eval mode.  ``generator``
     (None: PyTorch's default generator) draws the masks; a
@@ -84,11 +99,7 @@ class Dropout(nn.Module):
         self.generator = None
 
     def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        return upscale_dropout(x, self.p, self.training, self.generator)
 
     def extra_repr(self):
         return "p=%s" % self.p

@@ -23,7 +23,8 @@ import numpy as np
 
 from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
                     PagedPrefillChunkView, PrefillView, SlottedKVCache,
-                    is_cache_view, paged_scatter)
+                    dequantize_kv, is_cache_view, paged_scatter,
+                    quantize_kv)
 from .engine import (DecodeEngine, InflightDecode, PrefillTask,
                      ThreadedTokens, prefill_buckets_for)
 from .frontend import ServingFrontend
@@ -39,7 +40,8 @@ from .spec import propose
 
 __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
            "PagedDecodeView", "PagedPrefillChunkView", "paged_scatter",
-           "is_cache_view", "PageAllocator", "PagePoolExhausted",
+           "is_cache_view", "quantize_kv", "dequantize_kv",
+           "PageAllocator", "PagePoolExhausted",
            "prompt_digest_chain", "DecodeEngine", "InflightDecode",
            "PrefillTask", "ThreadedTokens", "prefill_buckets_for",
            "sample", "spec_accept",

@@ -465,7 +465,7 @@ class DecodeEngine:
         runs again."""
         return tuple((i, ptr) for i, ptr, _v in versions)
 
-    def refresh_state(self):
+    def refresh_state(self, state=None):
         """Drop the prefix cache when any parameter changed since it was
         filled: its pages hold K/V computed under the old parameters, and
         a hash hit would splice stale cache into a fresh prompt.  Pages
@@ -474,7 +474,30 @@ class DecodeEngine:
         updated in place is read live by a replay).  Returns whether a
         change was seen.  Checked at every paged admission, on every
         cached-engine reuse (``engine_for``) and before every captured
-        step."""
+        step.
+
+        ``state`` (``{name: tensor}``, the model's parameter and buffer
+        names, as the JAX engine's ``refresh_state(state)`` takes its
+        tree) is first copied in place into the live tensors, so the
+        captured steps keep their addresses and read it at their next
+        replay."""
+        if state is not None:
+            live = dict(self.model.named_parameters())
+            live.update(self.model.named_buffers())
+            unknown = sorted(set(state) - set(live))
+            if unknown:
+                raise KeyError("refresh_state: the model has no %s"
+                               % unknown)
+            with torch.no_grad():
+                for name, value in state.items():
+                    dst = live[name]
+                    value = torch.as_tensor(value)
+                    if tuple(value.shape) != tuple(dst.shape):
+                        raise ValueError(
+                            "refresh_state: %s has shape %s, the model's "
+                            "%s" % (name, tuple(value.shape),
+                                    tuple(dst.shape)))
+                    dst.copy_(value)
         versions = self._param_versions()
         if versions == self._state_versions:
             return False

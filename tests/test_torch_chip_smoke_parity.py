@@ -210,3 +210,155 @@ def test_serving_tier_phases_rehearsed_on_the_cpu(monkeypatch):
     assert line["failovers"] == 1 and line["requeues"] >= 1
     assert line["routed"]["second_wave"]["affinity"] == 4
     assert line["cluster"]["hosts"] == [0, 1]
+
+
+class _PlainCounters:
+    """chip_smoke's Counters on the CPU, with the flash route forced on:
+    the calls of the attention's forward and backward and of the
+    LayerNorm wrapper (their plain versions) in place of the kernels'
+    launches; eager runs only, so B's count on the card is the
+    wrapper's."""
+
+    def __init__(self, monkeypatch):
+        from paddle_tpu_torch.kernels import flash_attention as fa
+        from paddle_tpu_torch.kernels import flash_attention_cuda as fac
+        from paddle_tpu_torch.kernels import norm_cuda
+        self.calls = dict.fromkeys(("fwd", "bwd", "ln"), 0)
+        for mod, name, key in ((fac, "_forward", "fwd"),
+                               (fac, "flash_attention_bwd", "bwd"),
+                               (norm_cuda, "layer_norm", "ln")):
+            monkeypatch.setattr(mod, name, self._counted(getattr(mod, name),
+                                                         key))
+        # the card gate's shape conditions, without its device one
+        monkeypatch.setattr(fa, "supported",
+                            lambda q, k=None: q.dim() == 4
+                            and q.shape[1] % 128 == 0
+                            and q.shape[3] in (64, 128, 256)
+                            and (k is None or k.shape[1] == q.shape[1]))
+
+    def _counted(self, fn, key):
+        def run(*a, **kw):
+            self.calls[key] += 1
+            return fn(*a, **kw)
+        return run
+
+    def reset(self):
+        self.calls = dict.fromkeys(self.calls, 0)
+
+    def read(self):
+        out = dict.fromkeys(("flash_fwd", "flash_fwd_pipelined",
+                             "flash_bwd", "layer_norm_bwd", "ce_lse",
+                             "ce_fwd", "ce_bwd", "softmax_fwd"), 0)
+        out.update(flash_fwd_tc=self.calls["fwd"],
+                   flash_bwd_dq=self.calls["bwd"],
+                   flash_bwd_dkv=self.calls["bwd"],
+                   layer_norm_fwd=self.calls["ln"])
+        return out
+
+    def b_on_device(self):
+        return self.calls["ln"]
+
+
+def test_layout_train_phases_rehearsed_on_the_cpu(monkeypatch):
+    """chip_smoke.py's train_stack, train_scan and train_recompute at the
+    train shape (8, 1024) on a narrow 2-layer model (two heads of 64),
+    AMP O2 bf16 on the CPU, the flash route through its plain versions:
+    the stacked templates, every loss equal to the default step's bit for
+    bit (a default whose last loss moved by one ulp fails each phase),
+    train_scan's profile, and the attention run twice a layer a step
+    under recompute (once without)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    parts = {"optimizer_ms": 1.0, "write_back_ms": 1.0}
+    monkeypatch.setattr(chip_smoke, "step_breakdown",
+                        lambda *a, **k: dict(parts))
+    monkeypatch.setattr(chip_smoke, "profile_steps",
+                        lambda *a, **k: {"step_device_ms": 1.0})
+    counters = _PlainCounters(monkeypatch)
+    cfg = GPTConfig(vocab_size=512, max_position_embeddings=1024,
+                    hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, intermediate_size=256,
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    base = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
+    ids = chip_smoke.train_ids(torch, cfg.vocab_size, "cpu")
+    default, launches, _ms = chip_smoke.run_steps(
+        torch, chip_smoke.make_step(
+            chip_smoke.train_model(torch, base, amp, "cpu"), device="cpu"),
+        ids, counters, 3)
+    assert launches["flash_fwd_tc"] == launches["flash_bwd_dq"] == 2 * 3
+    train_line = {"breakdown": parts, "peak_memory_gb": 1.0,
+                  "profile": {"step_device_ms": 1.0}}
+    line = chip_smoke.train_stack(torch, base, amp, counters, default,
+                                  train_line, train_line, device="cpu")
+    assert set(line["stacked_templates"].values()) == {2}
+    assert line["losses"] == default
+    lines = chip_smoke.train_scan(torch, base, amp, counters, default,
+                                  device="cpu")
+    assert [line["scan_mode"] for line in lines] == ["scan", "stack_vjp"]
+    assert all(line["losses"] == default for line in lines)
+    assert "profile" in lines[0]
+    lines = chip_smoke.train_recompute(torch, base, amp, counters, default,
+                                       train_line, device="cpu")
+    for line in lines:
+        assert line["launches"]["flash_fwd_tc"] == 2 * 2 * 3
+        assert line["losses"] == default
+    assert not base.config.use_recompute
+    moved = default[:2] + [float(np.nextafter(np.float32(default[2]),
+                                              np.float32(np.inf)))]
+    for phase, args in (
+            (chip_smoke.train_stack, (train_line, train_line)),
+            (chip_smoke.train_scan, ()),
+            (chip_smoke.train_recompute, (train_line,))):
+        with pytest.raises(AssertionError, match="bit for bit"):
+            phase(torch, base, amp, counters, moved, *args, device="cpu")
+
+
+def test_serve_scan_rehearsed_on_the_cpu(monkeypatch):
+    """chip_smoke.py's serve_scan against CPU engines at a narrow width:
+    the per-layer engines' runs of the serve traffic as references, then
+    the scan-layers engines (paged in both loops, slotted, spec, int8)
+    give their tokens; a reference with one token changed makes the
+    phase fail naming the parting and the logit gap."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    profile = {"step_wall_ms": 1.0, "step_device_ms": 1.0,
+               "device_busy_share": 1.0}
+    profile["eager"] = dict(profile)
+    monkeypatch.setattr(chip_smoke, "decode_profile",
+                        lambda *a, **k: dict(profile))
+    cfg = GPTConfig(vocab_size=50304, max_position_embeddings=1024,
+                    hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, intermediate_size=256,
+                    hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, 50257, (64,))
+    prompts = [np.concatenate([shared, rng.integers(0, 50257, (64,))])
+               .astype(np.int32) for _ in range(4)]
+    counters = _PlainCounters(monkeypatch)
+    refs = {}
+    for name, kw, loop in chip_smoke.SCAN_ENGINES:
+        if loop != chip_smoke.LOOPS[0]:
+            continue
+        eng = DecodeEngine(model, num_slots=8, max_len=1024, device="cpu",
+                           **kw)
+        fn = chip_smoke.serve_paged if eng.paged else chip_smoke.serve
+        refs[name] = fn(torch, eng, prompts, True, counters, flags,
+                        phase="ref")
+    scan = chip_smoke.scan_copy(model)
+    assert not scan.training and scan.config.scan_layers
+    line = chip_smoke.serve_scan(torch, scan, model, prompts, refs, profile,
+                                 counters, flags, device="cpu")
+    assert [r["engine"] for r in line["runs"]] == [
+        "paged", "paged", "slotted", "spec", "paged_int8"]
+    assert all(r["same_greedy_tokens"] for r in line["runs"])
+    assert all(r["layer_norm_fwd_launches"] > 0 for r in line["runs"])
+    ref_line, ref_toks = refs["slotted"]
+    bent = [t.copy() for t in ref_toks]
+    bent[2][5] = (bent[2][5] + 1) % cfg.vocab_size
+    refs["slotted"] = (ref_line, bent)
+    with pytest.raises(AssertionError, match=r"'first_parting': \(2, 5\)"):
+        chip_smoke.serve_scan(torch, scan, model, prompts, refs, profile,
+                              counters, flags, device="cpu")

@@ -10,12 +10,15 @@ its launches inside a replay; replays after another engine's graph was
 dropped; the fetch of step t-1 returning while step t still runs; two
 engines replaying from two threads giving their single-thread tokens; a
 sealed capture raising; ``reset`` waiting for a step left in flight; a
-handoff moving page bytes exactly on the card, and a fleet's failover
-keeping each engine's captures.  Marked ``gpu``: without an NVIDIA card
+handoff moving page bytes exactly on the card, a fleet's failover
+keeping each engine's captures, and the scan-layers model giving the
+per-layer model's bits in a prefill and in captured decode steps.
+Marked ``gpu``: without an NVIDIA card
 every test skips.  This file imports no JAX:
 
     python -m pytest tests/test_torch_cuda_serving.py -m gpu -q
 """
+import dataclasses
 import threading
 
 import numpy as np
@@ -23,7 +26,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.convert import load_paddle_tpu_state
-from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                         per_layer_state_to_scan)
 from paddle_tpu_torch.robustness import faultpoints as fp
 from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
                                       DecodeEngine, DisaggScheduler, Request,
@@ -624,3 +628,56 @@ def test_a_collection_never_runs_inside_a_capture():
     graph.replay()
     torch.cuda.synchronize()
     assert len(calls) == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("use_norm", [False, True])
+def test_scan_model_gives_the_per_layer_bits(paged, use_norm):
+    """The scan-layers model on the per-layer model's weights (bf16): a
+    128-token prefill's logits (the tensor-core forward on the slotted
+    engine) and six captured decode steps' logits and tokens, bit for
+    bit, each LayerNorm route."""
+    _card()
+    per = _model()
+    scan = GPTForCausalLM(dataclasses.replace(_cfg(), scan_layers=True))
+    scan = scan.to("cuda", torch.bfloat16).eval()
+    scan.load_state_dict(per_layer_state_to_scan(per.state_dict()))
+    prompt = np.random.default_rng(5).integers(0, 512, (128,)).astype(
+        np.int32)
+    runs = []
+    flags.set_flags({"use_pallas_norm": use_norm})
+    try:
+        for model in (per, scan):
+            eng = DecodeEngine(model, num_slots=SLOTS, max_len=128,
+                               page_size=16, paged=paged)
+            _tok, logits = eng.prefill(0, prompt, temperature=0.0)
+            runs.append([logits.float().cpu()] + _script(eng))
+            assert _kind_stats(eng)["graphs"] == 1
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1:], runs[1][1:]):
+        assert torch.equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_an_engine_named_cuda_keeps_one_page_table():
+    """``device="cuda"`` (no index) resolves to the current card, so the
+    allocator's device page table is made once: a captured chunk or step
+    reads it at its address.  (An unindexed device compared unequal to
+    the table's ``cuda:0``, a new table was made at every sync, and a
+    replay read a freed one: an index out of bounds on the card.)"""
+    _card()
+    from paddle_tpu_torch.core.device import resolve_device
+    assert resolve_device("cuda") == torch.empty(0, device="cuda").device
+    eng = DecodeEngine(_model(), num_slots=SLOTS, max_len=96, page_size=16,
+                       device="cuda")
+    table = eng.cache.page_table
+    prompts = _prompts()
+    for i, p in enumerate(prompts[:2]):
+        eng.prefill(i, p, temperature=0.0)
+    eng.prefill(2, prompts[1], temperature=0.0)      # a prefix hit
+    assert eng.cache.page_table is table
+    assert _kind_stats(eng, "chunk")["graphs"] == 1

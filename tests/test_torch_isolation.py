@@ -33,6 +33,7 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.serving.disagg, "
         "paddle_tpu_torch.serving.router, "
         "paddle_tpu_torch.distributed.store, "
+        "paddle_tpu_torch.distributed.recompute, "
         "paddle_tpu_torch.robustness.retry, "
         "paddle_tpu_torch.observability.aggregate\n"
         "new = set(sys.modules) - before\n"

@@ -14,6 +14,7 @@ training step between two ``generate`` calls never serves stale K/V,
 dropped writes land in the sink page, and what the port leaves
 raising.  Speculative decoding and the quantized pools are held against
 the JAX package in ``tests/test_torch_spec_quant.py``."""
+import copy
 import dataclasses
 
 import jax.numpy as jnp
@@ -779,3 +780,45 @@ def test_kv_bytes_accounting_scales_with_true_lengths():
 def test_unported_paged_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu", **kw)
+
+
+def test_refresh_state_takes_a_state_and_purges_the_prefix_cache():
+    """The JAX check of ``refresh_state`` (``tests/test_paged.py``): an
+    unchanged re-snapshot keeps the prefix cache, so a re-admission maps
+    15 of its 16 tokens; ``refresh_state(perturbed)`` serves the given
+    state, shares no page computed under the old one, and the logits
+    equal a fresh engine's under the same state."""
+    _jm, tm = _pair(seed=29)
+    reference = copy.deepcopy(tm)
+    eng = DecodeEngine(tm, num_slots=1, max_len=64, page_size=8,
+                       device="cpu")
+    prompt = np.random.default_rng(29).integers(0, 512, (16,))
+    _tok, logits0 = eng.prefill(0, prompt, temperature=0.0)
+    ref0 = logits0.clone()
+    eng.free_slot(0)
+    assert not eng.refresh_state()
+    task = eng.prefill_begin(0, prompt, temperature=0.0)
+    assert task.shared_tokens == 15
+    while not eng.prefill_step(task):
+        pass
+    torch.testing.assert_close(task.last_logits, ref0, atol=1e-5, rtol=1e-5)
+    eng.free_slot(0)
+
+    perturbed = {k: v + 0.01 for k, v in tm.state_dict().items()
+                 if v.is_floating_point()}
+    assert eng.refresh_state(perturbed)
+    for k, v in tm.state_dict().items():
+        assert torch.equal(v, perturbed[k]), k
+    task = eng.prefill_begin(0, prompt, temperature=0.0)
+    assert task.shared_tokens == 0, "stale prefix pages served after " \
+                                    "a parameter change"
+    while not eng.prefill_step(task):
+        pass
+    fresh = DecodeEngine(reference, num_slots=1, max_len=64, page_size=8,
+                         device="cpu")
+    fresh.refresh_state(perturbed)
+    _tok, logits_fresh = fresh.prefill(0, prompt, temperature=0.0)
+    torch.testing.assert_close(task.last_logits, logits_fresh, atol=1e-5,
+                               rtol=1e-5)
+    with pytest.raises(KeyError, match="no"):
+        eng.refresh_state({"gpt.nonexistent": torch.zeros(1)})

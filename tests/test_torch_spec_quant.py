@@ -76,6 +76,19 @@ def _kv_input(seed=0):
 # the quantization grid
 # ---------------------------------------------------------------------------
 
+def test_serving_exports_the_quantizers_as_jax_does():
+    """``quantize_kv`` and ``dequantize_kv`` import from the serving
+    package and stand in its ``__all__``, as in ``paddle_tpu.serving``."""
+    import paddle_tpu.serving as jax_serving
+    import paddle_tpu_torch.serving as serving
+    from paddle_tpu_torch.serving import dequantize_kv, quantize_kv
+    for name in ("quantize_kv", "dequantize_kv"):
+        assert name in jax_serving.__all__
+        assert name in serving.__all__
+    assert quantize_kv is da.quantize_kv
+    assert dequantize_kv is da.dequantize_kv
+
+
 @pytest.mark.parametrize("code", ["int8", "fp8"])
 def test_quantize_kv_bit_identical_to_jax(code):
     """Codes and scales bit for bit, and the dequantized rows in f32 and

@@ -310,14 +310,19 @@ def test_trainstep_amp_o2_bf16_tracks_jax():
 
 
 def test_trainstep_refuses_unported_options():
+    """ZeRO and input shardings wait for the distributed port (ROADMAP
+    §A5) and raise; ``stack_layers`` and ``use_recompute`` are ported
+    and build (tests/test_torch_stack_layers.py,
+    tests/test_torch_recompute.py)."""
     tm = GPTForCausalLM(GPTConfig.tiny())
     opt = AdamW(parameters=tm.parameters())
-    for kw in ({"zero_stage": 2}, {"stack_layers": True},
-               {"in_shardings": [None]}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"zero_stage": 2}, {"in_shardings": [None]}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A5"):
             TrainStep(tm, GPTPretrainingCriterion(), opt, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTForCausalLM(GPTConfig(**dict(_wide_kwargs(), use_recompute=True)))
+    assert TrainStep(tm, GPTPretrainingCriterion(), opt, device="cpu",
+                     stack_layers=True)._stack
+    assert GPTForCausalLM(GPTConfig(**dict(
+        _wide_kwargs(), use_recompute=True))).config.use_recompute
 
 
 def test_flat_master_tracks_jax_flat_master(monkeypatch):
