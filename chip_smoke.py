@@ -190,6 +190,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (each block's forward again in the backward), C2 and C3 24;
               every loss equal to train's bit for bit; peak memory below train's
               and device ms a step beside it.
+11d. dist_nccl — ``distributed.init_parallel_env()`` at a world of one
+              on the card, meeting on a free port of 127.0.0.1: the
+              backend is NCCL, the default device the rank's card, and
+              every collective runs once on a CUDA tensor against its
+              value (``collective_checks``); the count of issued ops.
+11e. train_dp — 3 steps of the train step with
+              ``in_shardings=PartitionSpec("dp", None)`` over that one-rank
+              NCCL dp group: two all-reduces a step really issued (the
+              f32 grads, the loss), every loss equal to train's bit for
+              bit, device ms a step beside train's.  Then the world is
+              taken down.
+11f. tp2_gloo — two processes on the one card in a gloo world over CUDA
+              tensors (NCCL takes one rank a card), GPT-2 345M bf16 at 8
+              heads a rank: ``DecodeEngine(tp=2)`` greedy on 8 prompts
+              against the tp=1 engine (tokens equal, or parted only where
+              tp=1's top-2 margin is below 2 * LOGIT_TOL; first-step
+              logits within LOGIT_TOL; B 49 a forward), then 3 train steps
+              at dp1 x mp2 within PARITY_LOSS_TOL of train's losses, the
+              flash forward and split backward 24 a step.  Gloo stages
+              each collective through the host: no time of it is a
+              tensor-parallel speed.
 12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
               LayerNorm route and each cross-entropy route; then f32,
               kernel A and C1) and on the CPU (f32, plain): the loss and
@@ -1693,7 +1714,7 @@ def train_ids(torch, vocab, device="cuda"):
 
 
 def make_step(model, lr=1e-4, device="cuda", flat_master=None,
-              stack_layers=False):
+              stack_layers=False, in_shardings=None):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
@@ -1701,7 +1722,7 @@ def make_step(model, lr=1e-4, device="cuda", flat_master=None,
                 parameters=model.parameters())
     return TrainStep(model, GPTPretrainingCriterion(), opt,
                      device=device, flat_master=flat_master,
-                     stack_layers=stack_layers)
+                     stack_layers=stack_layers, in_shardings=in_shardings)
 
 
 def step_breakdown(torch, step, ids):
@@ -2130,6 +2151,440 @@ def train_recompute(torch, base, amp, counters, default_losses, train_line,
                                      train_line["peak_memory_gb"]))
         lines.append(line)
     return lines
+
+
+def collective_checks(torch, device):
+    """Every collective of ``paddle_tpu_torch.distributed`` once, on
+    tensors of ``device``, over the dp group of the world's mesh (and the
+    in-place checks, the environment's view, DataParallel and
+    parallelize), each against the value that the world's size and this
+    rank give; returns {check: max abs error} and the ops issued, and
+    raises on the first that differs.  Point-to-point runs as a ring at a
+    world of two or more (toward itself a rank's send is the identity)."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec
+    from paddle_tpu_torch.nn import Linear
+    n, r = D.get_world_size("dp"), D.get_rank("dp")
+    errs = {}
+
+    def t(vals):
+        return torch.tensor(vals, dtype=torch.float32, device=device)
+
+    def hold(name, got, want):
+        got = [g.float().cpu() for g in got] if isinstance(got, list) \
+            else got.float().cpu()
+        want = [torch.as_tensor(w, dtype=torch.float32) for w in want] \
+            if isinstance(got, list) else torch.as_tensor(
+                want, dtype=torch.float32)
+        pairs = zip(got, want) if isinstance(got, list) else [(got, want)]
+        err = max(float((g - w).abs().max()) for g, w in pairs)
+        errs[name] = err
+        if err > 1e-6:
+            raise AssertionError("dist %s: got %r, want %r" % (name, got,
+                                                               want))
+
+    mine = [r + 1.0, 2.0 * (r + 1), 0.5]
+    ranks = [[k + 1.0, 2.0 * (k + 1), 0.5] for k in range(n)]
+    C.reset_counts()
+    for op, fn in (("SUM", sum), ("MAX", max), ("MIN", min),
+                   ("PROD", math.prod),
+                   ("AVG", lambda v: sum(v) / len(v))):
+        x = t(mine)
+        if D.all_reduce(x, op=getattr(D.ReduceOp, op)) is not x:
+            raise AssertionError("dist all_reduce: not in place")
+        hold("all_reduce_" + op, x, [fn(c) for c in zip(*ranks)])
+    hold("all_gather", D.all_gather(t(mine)), sum(ranks, []))
+    parts = []
+    D.all_gather(parts, t(mine))
+    hold("all_gather_list", parts, ranks)
+    src = t([float(k + 10 * r) for k in range(2 * n)])
+    hold("reduce_scatter", D.reduce_scatter(src),
+         [sum(float(k + 10 * q) for q in range(n))
+          for k in range(2 * r, 2 * r + 2)])
+    x = t(mine)
+    D.broadcast(x, src=0)
+    hold("broadcast", x, ranks[0])
+    x = t(mine)
+    D.reduce(x, dst=0)
+    hold("reduce", x, [sum(c) for c in zip(*ranks)] if r == 0 else mine)
+    x = t([0.0, 0.0])
+    D.scatter(x, [t([10.0 * k, 1.0]) for k in range(n)], src=0)
+    hold("scatter", x, [10.0 * r, 1.0])
+    got = []
+    D.alltoall([t([10.0 * r + j]) for j in range(n)], got)
+    hold("alltoall", got, [[10.0 * j + r] for j in range(n)])
+    hold("all_to_all", D.all_to_all(t([[10.0 * r + j] for j in range(n)])),
+         [[10.0 * j + r] for j in range(n)])
+    hold("all_to_all_single",
+         D.all_to_all_single(t([10.0 * r + j for j in range(n)])),
+         [10.0 * j + r for j in range(n)])
+    objs = []
+    D.all_gather_object(objs, {"rank": r})
+    if objs != [{"rank": k} for k in range(n)]:
+        raise AssertionError("dist all_gather_object: %r" % (objs,))
+    x = t(mine)
+    nxt, prv = (r + 1) % n, (r - 1) % n
+    if r % 2 == 0:
+        D.send(t(mine), dst=nxt)
+        D.recv(x, src=prv)
+    else:
+        D.recv(x, src=prv)
+        D.send(t(mine), dst=nxt)
+    hold("send_recv", x, ranks[prv])
+    x = t(mine)
+    tasks = [D.isend(t(mine), dst=nxt), D.irecv(x, src=prv)]
+    for task in tasks:
+        task.wait()
+    hold("isend_irecv", x, ranks[prv])
+    D.barrier()
+    D.wait(x)
+    g = D.new_group(axis="dp")
+    x = t(mine)
+    D.all_reduce(x, group=g)
+    hold("new_group", x, [sum(c) for c in zip(*ranks)])
+    if D.get_group(g.id) is not g:
+        raise AssertionError("dist get_group: not the new group")
+    env = D.ParallelEnv()
+    if (env.rank, env.world_size) != (D.get_rank(), D.get_world_size()):
+        raise AssertionError("dist ParallelEnv: %r" % ((env.rank,
+                                                        env.world_size),))
+    lin = Linear(4, 2 * n).to(device)
+    with torch.no_grad():
+        lin.weight.copy_(torch.arange(8.0 * n, device=device).view(4, 2 * n))
+        lin.bias.fill_(float(r))
+    dp = D.DataParallel(lin)
+    hold("data_parallel_broadcast", lin.bias, [0.0] * (2 * n))
+    lin(t([[1.0, 1.0, 1.0, 1.0]]) * (r + 1)).sum().backward()
+    dp.apply_collective_grads()
+    hold("data_parallel_grads", lin.weight.grad[:, 0],
+         [sum(k + 1.0 for k in range(n)) / n] * 4)
+    w = torch.nn.Parameter(t([[float(k)] * 2 for k in range(2 * n)]))
+    D.shard_tensor(w, placement=PartitionSpec("dp", None))
+    hold("shard_tensor", w.detach(), [[2.0 * r + k] * 2 for k in range(2)])
+    return errs, C.issued()
+
+
+def dist_nccl(torch, backend="nccl", device=None):
+    """``init_parallel_env()`` at a world of one, meeting on a free port
+    of 127.0.0.1: the NCCL backend, the rank's card as the default device,
+    and every collective once on that card (``collective_checks``), with
+    the count of the ops issued.  The world stays up for ``train_dp``."""
+    import socket
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.core.device import resolve_device
+    t0 = time.perf_counter()
+    if not dist.is_initialized():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        os.environ.update(PADDLE_MASTER="127.0.0.1:%d" % port,
+                          PADDLE_TRAINER_ID="0", PADDLE_TRAINERS_NUM="1")
+    D.init_parallel_env(backend=backend, device=device)
+    got = dist.get_backend()
+    dev = resolve_device(device)
+    errs, issued = collective_checks(torch, dev)
+    line = {"phase": "dist_nccl", "backend": got,
+            "world_size": D.get_world_size(), "rank": D.get_rank(),
+            "device": str(dev), "max_abs_err": max(errs.values()),
+            "checks": errs, "collectives_issued": issued,
+            "collectives_issued_total": sum(issued.values()),
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if got != backend:
+        raise AssertionError("dist_nccl: backend %r, want %r" % (got,
+                                                                 backend))
+    if backend == "nccl" and dev != torch.device("cuda", 0):
+        raise AssertionError("dist_nccl: default device %s" % dev)
+    return line
+
+
+def train_dp(torch, base, amp, counters, default_losses, train_line,
+             steps=3, device="cuda"):
+    """``steps`` steps of the train step with
+    ``in_shardings=PartitionSpec("dp", None)`` over the world's dp group
+    (one rank on the card): the gradients all-reduced in f32 (one op a
+    step) and the loss averaged (one more), really issued, every loss
+    equal to the default step's bit for bit (a one-rank all-reduce leaves
+    the bits as they are); device ms a step beside train's."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec
+    step = make_step(train_model(torch, base, amp, device), device=device,
+                     in_shardings=PartitionSpec("dp", None))
+    group = step._dp_group
+    if group is None:
+        raise AssertionError("train_dp: no dp group to average over")
+    ids = train_ids(torch, base.config.vocab_size, device)
+    layers = base.config.num_hidden_layers
+    C.reset_counts()
+    losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+    issued = C.issued()
+    line = {"phase": "train_dp", "backend": dist.get_backend(group.pg),
+            "dp_ranks": group.nranks, "steps": steps, "step_ms": ms,
+            "tokens_per_s": 8 * 1024 * 1e3 / ms, "losses": losses,
+            "default_losses": default_losses[:steps],
+            "launches": launches, "collectives_issued": issued,
+            "grad_all_reduce_dtype": "float32",
+            "profile": profile_steps(torch, step, ids),
+            "train_step_device_ms": train_line["profile"]["step_device_ms"]}
+    del step
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    if issued.get("all_reduce", 0) != 2 * steps or len(issued) != 1:
+        raise AssertionError("train_dp: issued %r, want 2 all_reduce a "
+                             "step" % (issued,))
+    hold_train_variant("train_dp", line,
+                       {"flash_fwd_tc": layers * steps, "flash_fwd": 0,
+                        "flash_bwd": 0, "flash_bwd_dq": layers * steps,
+                        "flash_bwd_dkv": layers * steps})
+    return line
+
+
+# tp2_gloo's greedy requests (64 tokens, 16 new), one slot each: 8 slots,
+# so a decode step's rows meet B's gate (rows % 8) as serve's do
+TP2_PROMPTS = 8
+TP2_NEW_TOKENS = 16
+
+
+def greedy_logits(engine, prompts, steps):
+    """Prefill each prompt into its own slot, then ``steps`` greedy decode
+    steps over all: each request's tokens and the f32 logits of every
+    step (on the host)."""
+    n = len(prompts)
+    toks, logits = [], []
+    for i, p in enumerate(prompts):
+        tok, lg = engine.prefill(i, p, temperature=0.0)
+        toks.append([int(tok)])
+        logits.append([lg.float().cpu()])
+    for _ in range(steps):
+        nt, lg = engine.decode([t[-1] for t in toks], [True] * n, [0.0] * n,
+                               [0] * n, [1.0] * n)
+        for b in range(n):
+            toks[b].append(int(nt[b]))
+            logits[b].append(lg[b].float().cpu())
+    return toks, logits
+
+
+def tp2_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``tp2_gloo`` in a world of two that is up:
+    ``spec`` = {"cfg", "seed", "prompts", "new_tokens", "amp",
+    "default_losses", "steps"}.  Serving: ``DecodeEngine(tp=2)`` paged,
+    greedy, under ``use_pallas_norm`` (B counted), and on rank 0 the tp=1
+    engine on the same model, its tokens and its top-2 logit margins.
+    Training: the train step at dp1 x mp2 (``parallelize``, then
+    ``in_shardings``) for ``steps`` steps.  Returns a dict of host
+    values."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.serving import DecodeEngine
+    from paddle_tpu_torch.utils import flags
+    D.init_mesh({"dp": 1, "mp": 2})
+    rank = D.get_rank()
+    base = GPTForCausalLM(spec["cfg"],
+                          generator=torch.Generator().manual_seed(
+                              spec["seed"]))
+    model = copy.deepcopy(base)
+    if spec["amp"]:
+        model = amp.decorate(model, level="O2", dtype="bfloat16")
+    model.eval()
+    prompts = [np.asarray(p, np.int32) for p in spec["prompts"]]
+    out = {"rank": rank, "heads_per_rank": spec["cfg"].num_attention_heads
+           // 2}
+    flags.set_flags({"use_pallas_norm": True})
+    try:
+        eng = DecodeEngine(model, num_slots=len(prompts), max_len=256,
+                           tp=2, device=device)
+        counters.reset()
+        t0 = time.perf_counter()
+        toks, logits = greedy_logits(eng, prompts, spec["new_tokens"])
+        out["serve_seconds"] = time.perf_counter() - t0
+        out["serve_launches"] = counters.read()
+        out["tokens"] = toks
+        out["kv_row_bytes"] = eng.kv_row_bytes()
+        out["uncaptured"] = eng.graph_stats()["uncaptured"]
+        del eng
+        if rank == 0:
+            ref = DecodeEngine(model, num_slots=len(prompts), max_len=256,
+                               device=device)
+            ref_toks, ref_logits = greedy_logits(ref, prompts,
+                                                 spec["new_tokens"])
+            out["tp1_kv_row_bytes"] = ref.kv_row_bytes()
+            del ref
+            out["ref_tokens"] = ref_toks
+            out["first_logit_err"] = max(
+                float((a[0] - b[0]).abs().max())
+                for a, b in zip(logits, ref_logits))
+            parts = []
+            for i, (a, b) in enumerate(zip(toks, ref_toks)):
+                diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+                if diff.size:
+                    j = int(diff[0])
+                    top2 = torch.topk(ref_logits[i][j], 2).values
+                    parts.append({"request": i, "step": j,
+                                  "tokens": [a[j], b[j]],
+                                  "tp1_top2_margin": float(top2[0]
+                                                           - top2[1])})
+            out["parted"] = parts
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    del model
+    tm = train_model(torch, base, amp, device) if spec["amp"] else \
+        copy.deepcopy(base).to(device)
+    del base
+    D.parallelize(tm)
+    step = make_step(tm, device=device,
+                     in_shardings=PartitionSpec("dp", None))
+    ids = train_ids(torch, spec["cfg"].vocab_size, device)
+    losses, launches, ms = run_steps(torch, step, ids, counters,
+                                     spec["steps"])
+    out.update(train_losses=losses, train_launches=launches,
+               train_step_host_ms=ms,
+               masters=len(step.params),
+               sharded_masters=len(step._mp_groups))
+    return out
+
+
+def tp2_rank_main(rank, port, spec, results):
+    """The entry point of a ``tp2_gloo`` process: a gloo world of two on
+    the one card, then :func:`tp2_rank`; the result (or the traceback)
+    goes to ``results``."""
+    import datetime
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from paddle_tpu_torch import distributed as D
+        from paddle_tpu_torch.kernels import _build, ce_cuda, norm_cuda
+        from paddle_tpu_torch.kernels import flash_attention_cuda as fac
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        _build.library()
+        dist.init_process_group(
+            "gloo", init_method="tcp://127.0.0.1:%d" % port, rank=rank,
+            world_size=2, timeout=datetime.timedelta(seconds=300))
+        D.init_parallel_env(backend="gloo", device="cuda")
+        out = tp2_rank(torch, spec, Counters(fac, norm_cuda, ce_cuda))
+        dist.destroy_process_group()
+        results.put((rank, "ok", out))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+
+
+def tp2_hold(outs, spec, steps_forward):
+    """tp2_gloo's checks over both ranks' results: the same tokens on
+    both ranks; where they part from tp=1's, tp=1's top-2 margin there
+    below 2 * LOGIT_TOL (both engines' first-step logits agree within
+    LOGIT_TOL, so rounding can swap the top two only inside that
+    margin); first-step logits within LOGIT_TOL; each rank's KV row half
+    of tp=1's; B 2L + 1 a forward; every train loss within PARITY_LOSS_TOL of
+    the default step's and equal on both ranks; the flash forward and the
+    split backward 24 a step (at heads / 2 a rank).  Returns the line."""
+    r0, r1 = outs
+    layers = spec["cfg"].num_hidden_layers
+    steps = spec["steps"]
+    line = {"phase": "tp2_gloo", "backend": "gloo", "device": "cuda",
+            "ranks": 2, "heads_per_rank": r0["heads_per_rank"],
+            "tokens_equal_tp1": r0["parted"] == [],
+            "parted": r0["parted"], "margin_limit": 2 * LOGIT_TOL,
+            "first_logit_err": r0["first_logit_err"],
+            "logit_tol": LOGIT_TOL,
+            "kv_row_bytes": [r0["kv_row_bytes"], r0["tp1_kv_row_bytes"]],
+            "serve_launches": r0["serve_launches"],
+            "serve_seconds": r0["serve_seconds"],
+            "losses": r0["train_losses"],
+            "default_losses": spec["default_losses"][:steps],
+            "loss_tol": PARITY_LOSS_TOL,
+            "train_launches": r0["train_launches"],
+            "train_step_host_ms_over_gloo": r0["train_step_host_ms"],
+            "masters": r0["masters"],
+            "sharded_masters": r0["sharded_masters"],
+            "uncaptured": r0["uncaptured"]}
+    line["max_loss_diff"] = max(abs(a - b) for a, b in zip(
+        line["losses"], line["default_losses"]))
+    emit(line)
+    if r0["tokens"] != r1["tokens"]:
+        raise AssertionError("tp2_gloo: the ranks sampled different tokens")
+    wide = [p for p in r0["parted"]
+            if p["tp1_top2_margin"] >= 2 * LOGIT_TOL]
+    if wide:
+        raise AssertionError("tp2_gloo: tokens part from tp=1's where its "
+                             "top-2 margin is wide: %r" % (wide,))
+    if not r0["first_logit_err"] <= LOGIT_TOL:
+        raise AssertionError("tp2_gloo: first-step logits %g from tp=1's"
+                             % r0["first_logit_err"])
+    if 2 * r0["kv_row_bytes"] != r0["tp1_kv_row_bytes"]:
+        raise AssertionError("tp2_gloo: KV row %r" % (line["kv_row_bytes"],))
+    expect_launches(r0["serve_launches"],
+                    {"layer_norm_fwd": (2 * layers + 1) * steps_forward,
+                     "flash_fwd_tc": 0}, "tp2_gloo serve")
+    if r0["train_losses"] != r1["train_losses"]:
+        raise AssertionError("tp2_gloo: the ranks' losses differ")
+    if not (all(math.isfinite(x) for x in line["losses"])
+            and line["max_loss_diff"] <= PARITY_LOSS_TOL):
+        raise AssertionError("tp2_gloo: losses %r, default %r"
+                             % (line["losses"], line["default_losses"]))
+    expect_launches(r0["train_launches"],
+                    {"flash_fwd_tc": layers * steps,
+                     "flash_bwd_dq": layers * steps,
+                     "flash_bwd_dkv": layers * steps, "flash_bwd": 0},
+                    "tp2_gloo train")
+    return line
+
+
+def tp2_gloo(torch, cfg, default_losses, steps=3, timeout=600.0):
+    """Two processes on the one card, a gloo world over CUDA tensors: GPT-2
+    345M (``cfg``, the train weights' seed) in bf16, ``DecodeEngine(tp=2)``
+    greedy on TP2_PROMPTS prompts against the tp=1 engine, then ``steps``
+    train steps at dp1 x mp2 against the default step's losses
+    (:func:`tp2_hold`).  Gloo stages every collective through the host:
+    the phase's times are not a tensor-parallel speed."""
+    import socket
+
+    import torch.multiprocessing as mp
+    rng = np.random.default_rng(17)
+    spec = {"cfg": cfg, "seed": 0, "amp": True, "steps": steps,
+            "new_tokens": TP2_NEW_TOKENS, "default_losses": default_losses,
+            "prompts": [rng.integers(0, cfg.vocab_size, 64).tolist()
+                        for _ in range(TP2_PROMPTS)]}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=tp2_rank_main,
+                         args=(r, port, spec, results)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    outs, errors = {}, []
+    try:
+        for _ in procs:
+            rank, status, value = results.get(timeout=timeout)
+            if status == "ok":
+                outs[rank] = value
+            else:
+                errors.append("rank %d:\n%s" % (rank, value))
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    if errors:
+        raise AssertionError("tp2_gloo failed:\n" + "\n".join(errors))
+    # a prefill chunk a prompt, then one decode step a new token
+    line = tp2_hold([outs[0], outs[1]], spec,
+                    TP2_PROMPTS + TP2_NEW_TOKENS)
+    line["seconds"] = time.perf_counter() - t0
+    return line
 
 
 def autotune_warm(torch, at, fac):
@@ -4710,6 +5165,21 @@ def main():
                              run_train)
     seconds["train_recompute"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    dist_nccl(torch)
+    seconds["dist_nccl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_dp = train_dp(torch, base, amp, counters, run_train["losses"],
+                      run_train)
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import mesh as dist_mesh
+    dist.destroy_process_group()
+    dist_mesh.set_mesh(None)
+    seconds["train_dp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    run_tp2 = tp2_gloo(torch, train_cfg, run_train["losses"])
+    seconds["tp2_gloo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     parity = train_parity(torch, base, amp, flags, counters)
     torch.cuda.empty_cache()
     seconds["train_parity"] = time.perf_counter() - t0
@@ -4770,7 +5240,9 @@ def main():
     def layout_launches(kern):
         """``kern``'s launches in the stacked-layout and recompute phases
         (3 steps each; the slotted scan engine's admissions)."""
-        out = {"train_stack": run_stack["launches"][kern]}
+        out = {"train_stack": run_stack["launches"][kern],
+               "train_dp": run_dp["launches"][kern],
+               "tp2_gloo_rank0_train": run_tp2["train_launches"][kern]}
         out["train_scan"] = run_scan[0]["launches"][kern]
         out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
                     for r in run_rc})
@@ -5038,6 +5510,8 @@ def main():
              "serve_fleet": fleet_line["launches"]["layer_norm_fwd"],
              **{"serve_scan_%s_%s" % (r["engine"], r["loop"]):
                 r["layer_norm_fwd_launches"] for r in scan_line["runs"]},
+             "tp2_gloo_rank0_serve":
+                 run_tp2["serve_launches"]["layer_norm_fwd"],
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_fwd"]},

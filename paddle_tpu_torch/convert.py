@@ -3,7 +3,10 @@
 
 The port keeps the JAX package's parameter names (``gpt.wte.weight``,
 ``gpt.h.{i}.attn.qkv_proj.weight`` of shape (H, 3H), ...) and its
-(in, out) Linear layout, so the bridge is a plain copy by name.  Callers
+(in, out) Linear layout, so the bridge is a plain copy by name; a
+tensor-parallel rank's shards of it come from
+:func:`shard_paddle_tpu_state` (and go back through
+:func:`unshard_paddle_tpu_state`).  Callers
 make the arrays on the JAX side (``{k: np.asarray(v) for k, v in
 jax_model.state_dict().items()}``); this module never imports JAX.
 """
@@ -66,3 +69,39 @@ def train_state_from_numpy(state):
         "opt_extra": {k: dict(v) for k, v in
                       state.get("opt_extra", {}).items()},
     }
+
+
+def shard_paddle_tpu_state(arrays, mp_rank, mp_size):
+    """The shards that rank ``mp_rank`` of ``mp_size`` holds, in the port's
+    Megatron layout, of the JAX package's GPT parameters ``arrays``
+    ({name: np.ndarray}): each parameter cut by
+    ``models.gpt.megatron_layout`` with ``distributed.parallel_base.
+    shard_slice``, the rule ``parallelize`` cuts by (the q, k and v
+    columns of the rank's own heads from the fused projection); the
+    replicated ones whole."""
+    from .distributed.parallel_base import shard_slice
+    from .models.gpt import megatron_layout
+    out = {}
+    for name, a in arrays.items():
+        spec, parts = megatron_layout(name)
+        a = np.asarray(a)
+        out[name] = (a if spec is None else shard_slice(
+            a, spec, {"mp": int(mp_rank)}, {"mp": int(mp_size)}, parts))
+    return out
+
+
+def unshard_paddle_tpu_state(shards):
+    """Inverse of :func:`shard_paddle_tpu_state`: ``shards`` is the list
+    of every rank's dict in rank order; returns the full arrays."""
+    from .distributed.parallel_base import unshard_slices
+    from .models.gpt import megatron_layout
+    out = {}
+    for name in shards[0]:
+        spec, parts = megatron_layout(name)
+        parts_of = [np.asarray(s[name]) for s in shards]
+        if spec is None:
+            out[name] = parts_of[0]
+            continue
+        dim = next(d for d, a in enumerate(spec) if a is not None)
+        out[name] = unshard_slices(parts_of, dim, parts)
+    return out

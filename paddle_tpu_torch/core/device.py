@@ -1,6 +1,8 @@
 """Default device resolution: the port runs on the card unless the caller
 asks for the CPU.  There is no silent CPU retreat: without a card and
-without an explicit ``device="cpu"``, :func:`resolve_device` raises."""
+without an explicit ``device="cpu"``, :func:`resolve_device` raises.
+Under an initialized NCCL world the default card is the rank's own,
+``cuda:<local rank>`` (``distributed.init_parallel_env``)."""
 from __future__ import annotations
 
 import torch
@@ -24,4 +26,9 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_backend() == "nccl":
+        from ..distributed.parallel_base import _local_rank
+        return torch.device("cuda", _local_rank(dist.get_rank()))
     return torch.device("cuda", torch.cuda.current_device())

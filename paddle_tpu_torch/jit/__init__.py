@@ -46,9 +46,25 @@ stacked.
 ``state_dict`` / ``set_state_dict`` use the JAX step's layout:
 ``{"params", "buffers", "opt_state": {"slots", "step"}, "opt_extra"}``,
 per parameter name also under ``flat_master`` and ``stack_layers``, so a
-checkpoint loads across the modes.  The JAX step's options
-``zero_stage`` and ``in_shardings`` are not ported yet (ROADMAP.md §A5)
-and raise.
+checkpoint loads across the modes.
+
+``in_shardings`` (a ``PartitionSpec`` for every batch element, or one
+for each, as in the JAX step) shards the batch over the axis its first
+dimension names (``PartitionSpec("dp", None)``): every rank is given the
+global batch and keeps its rows of that axis
+(``distributed.parallel_base.local_rows``).  After the backward the
+gradients are averaged over the axis's group: one all-reduce a dtype
+over the grads concatenated (under ``flat_master``, one more over the
+flat master's gradient buffer as it is), in f32 — under AMP O2 after
+the upcast of the bf16 / f16 grads — and a division by the group's
+size.  The loss returned is
+the average of the ranks' losses, the same on every rank: the global
+batch's mean loss when every rank's rows weigh alike.  A model that
+``distributed.parallelize`` sliced over ``mp`` keeps its shards as
+masters; the global-norm clip sums their squares over ``mp``
+(``nn.clip.global_norm_sq``), and ``flat_master`` packs only the
+replicated ones.  ``zero_stage`` is not ported yet (ROADMAP.md §A5) and
+raises.
 """
 from __future__ import annotations
 
@@ -123,12 +139,18 @@ class TrainStep:
                 "flat_master=True is incompatible with this configuration "
                 "(ZeRO/stack_layers/per-param optimizer semantics — see "
                 "_flat_eligible)")
-        for opt_name, asked in (("zero_stage", bool(zero_stage)),
-                                ("in_shardings", in_shardings is not None)):
-            if asked:
-                raise NotImplementedError(
-                    "TrainStep(%s=...) is not ported yet (ROADMAP.md §A5)"
-                    % opt_name)
+        if zero_stage:
+            raise NotImplementedError(
+                "TrainStep(zero_stage=...) is not ported yet (ROADMAP.md "
+                "§A5)")
+        self._batch_axis, self._in_specs = _batch_axis(in_shardings)
+        self._dp_group = None
+        self._dp_bufs = {}
+        if self._batch_axis is not None:
+            from ..distributed import collective as _coll
+            from ..distributed import mesh as _mesh
+            _mesh.ensure_mesh()
+            self._dp_group = _coll._resolve(self._batch_axis)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -136,6 +158,10 @@ class TrainStep:
         self.num_inputs = num_inputs
         self._model_params = {n: p for n, p in model.named_parameters()
                               if p.requires_grad}
+        # the tensor-parallel shards, by name, with their group
+        self._mp_groups = {n: p.mp_group
+                           for n, p in self._model_params.items()
+                           if getattr(p, "mp_group", None) is not None}
         if not self._model_params:
             raise ValueError("TrainStep: the model has no trainable "
                              "parameters")
@@ -162,6 +188,9 @@ class TrainStep:
         self._stack_bufs = {}
         if self._stack:
             self._pack_stacked()
+            for template, names in self._stack.items():
+                if names[0] in self._mp_groups:
+                    self._mp_groups[template] = self._mp_groups[names[0]]
         self.opt_state = optimizer.init_state(self.params)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
@@ -172,7 +201,8 @@ class TrainStep:
     def _pack_flat(self):
         members = [n for n, v in self.params.items()
                    if v.dtype == torch.float32
-                   and v.numel() < _FLAT_MAX_ELEMS]
+                   and v.numel() < _FLAT_MAX_ELEMS
+                   and n not in self._mp_groups]
         # same-compute-dtype members contiguous, so each group casts once
         members.sort(key=lambda n: (str(self._compute_dtypes.get(n, "")), n))
         if len(members) < 2:
@@ -277,8 +307,59 @@ class TrainStep:
             return x.to(self.device)
         return torch.as_tensor(np.asarray(x), device=self.device)
 
+    def _local_batch(self, batch):
+        """This rank's rows of each batch element whose spec shards its
+        first dimension."""
+        if self._batch_axis is None:
+            return batch
+        from ..distributed.parallel_base import local_rows
+        specs = self._in_specs
+        if len(specs) == 1 and len(batch) > 1:
+            specs = specs * len(batch)
+        return [local_rows(b, self._batch_axis)
+                if s and s[0] is not None else b
+                for b, s in zip(batch, specs)]
+
+    @torch.no_grad()
+    def _average_grads(self, grads):
+        """Average ``grads`` over the batch axis's group in place: the flat
+        master's buffer by itself, the other grads concatenated, one
+        all-reduce a dtype."""
+        from ..distributed import collective as _coll
+        g = self._dp_group
+        groups = [(grads[_FLAT_KEY].dtype, [_FLAT_KEY])] \
+            if _FLAT_KEY in grads else []
+        by_dtype = {}
+        for n in sorted(grads):
+            if n != _FLAT_KEY:
+                by_dtype.setdefault(grads[n].dtype, []).append(n)
+        for dt, names in groups + list(by_dtype.items()):
+            if len(names) == 1:
+                flat = grads[names[0]].reshape(-1)
+            else:
+                # one buffer a dtype, kept across steps: a fresh one each
+                # step would be a fresh allocation each step
+                size = sum(grads[n].numel() for n in names)
+                flat = self._dp_bufs.get(dt)
+                if flat is None or flat.numel() != size:
+                    flat = self._dp_bufs[dt] = torch.empty(
+                        size, dtype=dt, device=self.device)
+                torch.cat([grads[n].reshape(-1) for n in names], out=flat)
+            _coll.all_reduce(flat, group=g)
+            if g.nranks > 1:
+                flat.div_(torch.tensor(float(g.nranks), dtype=flat.dtype,
+                                       device=flat.device))
+            if len(names) == 1:
+                grads[names[0]] = flat.view(grads[names[0]].shape)
+                continue
+            o = 0
+            for n in names:
+                k = grads[n].numel()
+                grads[n] = flat[o:o + k].view(grads[n].shape)
+                o += k
+
     def __call__(self, *batch):
-        batch = [self._as_tensor(b) for b in batch]
+        batch = [self._as_tensor(b) for b in self._local_batch(batch)]
         lr = self.optimizer.get_lr()
         self.model.train()
         for p in self._model_params.values():
@@ -305,13 +386,24 @@ class TrainStep:
                     g = p.grad if p.grad is not None else torch.zeros_like(p)
                     grads[n] = g.float() if n in self._compute_dtypes else g
                 p.grad = None
+            if self._dp_group is not None:
+                self._average_grads(grads)
+            # the shards' groups only where there are shards: the
+            # optimizer's interface is otherwise the JAX step's
+            extra = {"mp_groups": self._mp_groups} if self._mp_groups \
+                else {}
             self.params, self.opt_state = self.optimizer.apply_gradients(
-                self.params, grads, self.opt_state, lr)
+                self.params, grads, self.opt_state, lr, **extra)
             self._write_model_params()
         sched = self.optimizer._learning_rate
         if isinstance(sched, LRScheduler):
             sched.step()
-        return loss.detach()
+        loss = loss.detach()
+        if self._dp_group is not None:
+            from ..distributed import collective as _coll
+            loss = _coll.all_reduce(loss.clone(), op=_coll.ReduceOp.AVG,
+                                    group=self._dp_group)
+        return loss
 
     @torch.no_grad()
     def _write_model_params(self):
@@ -413,6 +505,40 @@ class TrainStep:
         if saved is not None and hasattr(sched, "set_state_dict"):
             sched.set_state_dict(dict(saved))
         self._write_model_params()
+
+
+def _batch_axis(in_shardings):
+    """(the mesh axis that shards the batch's first dimension, the specs
+    as a list), or (None, None) without ``in_shardings``.  A spec may
+    shard only the first dimension, over one axis."""
+    if in_shardings is None:
+        return None, None
+    from ..distributed.mesh import PartitionSpec
+    specs = in_shardings
+    if isinstance(specs, PartitionSpec) or not isinstance(specs,
+                                                          (list, tuple)):
+        specs = [specs]
+
+    def one(s):
+        s = getattr(s, "spec", s)
+        return () if s is None else (s,) if isinstance(s, str) else tuple(s)
+    specs = [one(s) for s in specs]
+    axes = set()
+    for spec in specs:
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            names = axis if isinstance(axis, (tuple, list)) else (axis,)
+            if dim > 0 or len(names) != 1:
+                raise NotImplementedError(
+                    "TrainStep(in_shardings=%r): only the batch's first "
+                    "dimension over one mesh axis is ported (ROADMAP.md "
+                    "§A5)" % (in_shardings,))
+            axes.add(names[0])
+    if len(axes) > 1:
+        raise ValueError("in_shardings shard the batch over several axes: "
+                         "%s" % sorted(axes))
+    return (axes.pop() if axes else None), specs
 
 
 def _flat_eligible(optimizer, zero_stage, stack_layers) -> bool:

@@ -494,24 +494,25 @@ def standard_keys() -> List[tuple]:
     1024-token cache) and the paged one there (pages of 64, 16 a slot, a
     pool for all 8 at full depth): one token a step, the int8 pool, and
     the speculative verify step (``qlen`` 5, four drafts), as the JAX
-    package's keys.  Its other families (ce_lse, ln, mp_overlap) and the
-    tensor-parallel paged key are not registered here (ROADMAP §C)."""
+    package's keys, and the tensor-parallel paged key (tp=2: 8 of the
+    16 heads a rank).  Its other families (ce_lse, ln, mp_overlap) are
+    not registered here (ROADMAP §C)."""
     _import_kernel_families()
     from . import decode_attention as dat
     from . import flash_attention_cuda as fac
     dtype = "bfloat16" if platform() == "gpu" else "float32"
 
-    def paged(qlen, kv_dtype=None):
+    def paged(qlen, kv_dtype=None, tp=1):
         return ("decode_attn_paged", dat.paged_autotune_key(
             slots=8, pages=128, page_size=64, max_pages=16, h=16, d=64,
-            qlen=qlen, dtype=dtype, kv_dtype=kv_dtype))
+            qlen=qlen, dtype=dtype, kv_dtype=kv_dtype, tp=tp))
     return [(fam_name, fac.autotune_key(b=8, s=1024, sk=1024, h=16, d=64,
                                         dtype=dtype, causal=True))
             for fam_name in ("flash_fwd", "flash_bwd", "flash_bwd_dq",
                              "flash_bwd_dkv")] + [
         ("decode_attn", dat.autotune_key(slots=8, t=1024, h=16, d=64,
                                          qlen=1, dtype=dtype)),
-        paged(1), paged(1, "int8"), paged(5)]
+        paged(1), paged(1, "int8"), paged(5), paged(1, tp=2)]
 
 
 def warm(pairs=None, verbose: bool = True) -> List[dict]:

@@ -219,16 +219,34 @@ def supported_block_ts(t):
     return [bt for bt in (128, 256, 512) if t % bt == 0 and bt < t]
 
 
-def autotune_key(slots, t, h, d, qlen, dtype, device=None, kv_dtype=None):
-    """The ``decode_attn`` key of the JAX package (one device);
-    ``platform`` follows the device ("gpu" for a card).  Only quantized
-    keys carry ``kv_dtype``, so unquantized keys stay as they were."""
+def autotune_key(slots, t, h, d, qlen, dtype, device=None, kv_dtype=None,
+                 tp=1):
+    """The ``decode_attn`` key of the JAX package; ``platform`` follows
+    the device ("gpu" for a card).  Only quantized keys carry
+    ``kv_dtype``, so unquantized keys stay as they were.  ``h`` is the
+    model's head count; at ``tp`` > 1 the key holds one rank's ``h / tp``
+    and ``tp`` (:func:`_apply_tp`)."""
     from . import autotune as at
     key = {"slots": int(slots), "t": int(t), "h": int(h), "d": int(d),
            "qlen": int(qlen), "dtype": _dtype_str(dtype),
            "platform": at.platform(device)}
     if kv_dtype is not None:
         key["kv_dtype"] = _dtype_str(_as_dtype(kv_dtype))
+    return _apply_tp(key, tp)
+
+
+def _apply_tp(key, tp):
+    """The JAX package's ``_apply_tp``: a tensor-parallel key prices ONE
+    rank's program, ``h / tp`` heads, and keeps ``tp`` so that a sharded
+    winner never serves (or overwrites) the unsharded shape; tp=1 keys
+    stay as they were."""
+    tp = int(tp)
+    if tp > 1:
+        if key["h"] % tp:
+            raise ValueError("heads %d not divisible by tp %d"
+                             % (key["h"], tp))
+        key["h"] //= tp
+        key["tp"] = tp
     return key
 
 
@@ -244,14 +262,16 @@ def _candidates(key):
     return out
 
 
-def resolve_block_t(q, k, kv_dtype=None):
+def resolve_block_t(q, k, kv_dtype=None, tp=1):
     """The ``decode_attn`` pick for these operands: 0 for the one-shot
     masked softmax, else the chunked variant's ``block_t``.  A cached or
     pinned config that does not divide ``max_len`` falls back to the
-    one-shot variant, as in the JAX package; it never faults."""
+    one-shot variant, as in the JAX package; it never faults.  ``q``
+    holds one rank's heads at ``tp`` > 1."""
     from . import autotune as at
-    key = autotune_key(q.shape[0], k.shape[1], q.shape[2], q.shape[3],
-                       q.shape[1], q.dtype, q.device, kv_dtype)
+    key = autotune_key(q.shape[0], k.shape[1], q.shape[2] * int(tp),
+                       q.shape[3], q.shape[1], q.dtype, q.device, kv_dtype,
+                       tp=tp)
     cand = at.resolve("decode_attn", key)
     if not cand.get("variant", "").startswith("chunked"):
         return 0
@@ -260,7 +280,7 @@ def resolve_block_t(q, k, kv_dtype=None):
 
 
 def decode_attention(q, k, v, lengths, scale=None, k_scales=None,
-                     v_scales=None, block_t=None):
+                     v_scales=None, block_t=None, tp=1):
     """Length-masked attention for the slotted decode step.
 
     q: (slots, s, heads, d); k/v: (slots, max_len, heads, d); lengths:
@@ -270,10 +290,11 @@ def decode_attention(q, k, v, lengths, scale=None, k_scales=None,
     heads)`` f32 select the q8 variants.  ``block_t``: 0 for the one-shot
     variant, a divisor of max_len for the chunked one, None to ask the
     autotuner (:func:`resolve_block_t`; the serving view asks once a
-    step)."""
+    step).  ``tp``: the tensor-parallel degree, for the key (q, k and v
+    hold one rank's heads)."""
     if block_t is None:
         block_t = resolve_block_t(
-            q, k, None if k_scales is None else k.dtype)
+            q, k, None if k_scales is None else k.dtype, tp)
     if block_t and k.shape[1] % int(block_t):
         raise ValueError("block_t %d does not divide max_len %d"
                          % (block_t, k.shape[1]))
@@ -359,10 +380,10 @@ def supported_pages_per_block(max_pages):
 
 
 def paged_autotune_key(slots, pages, page_size, max_pages, h, d, qlen,
-                       dtype, device=None, kv_dtype=None):
-    """The ``decode_attn_paged`` key of the JAX package (one device);
-    ``platform`` follows the device ("gpu" for a card).  Only quantized
-    keys carry ``kv_dtype``."""
+                       dtype, device=None, kv_dtype=None, tp=1):
+    """The ``decode_attn_paged`` key of the JAX package; ``platform``
+    follows the device ("gpu" for a card).  Only quantized keys carry
+    ``kv_dtype``; ``h`` and ``tp`` as in :func:`autotune_key`."""
     from . import autotune as at
     key = {"slots": int(slots), "pages": int(pages),
            "page_size": int(page_size), "max_pages": int(max_pages),
@@ -370,7 +391,7 @@ def paged_autotune_key(slots, pages, page_size, max_pages, h, d, qlen,
            "dtype": _dtype_str(dtype), "platform": at.platform(device)}
     if kv_dtype is not None:
         key["kv_dtype"] = _dtype_str(_as_dtype(kv_dtype))
-    return key
+    return _apply_tp(key, tp)
 
 
 def _paged_candidates(key):
@@ -382,15 +403,16 @@ def _paged_candidates(key):
     return out
 
 
-def resolve_pages_per_block(q, k_pages, page_table, kv_dtype=None):
+def resolve_pages_per_block(q, k_pages, page_table, kv_dtype=None, tp=1):
     """The ``decode_attn_paged`` pick for these operands: 0 for the
     one-shot gather, else the chunked variant's pages a block.  A cached
     or pinned config that does not divide ``max_pages`` falls back to
     the gather, as in the JAX package; it never faults."""
     from . import autotune as at
     key = paged_autotune_key(q.shape[0], k_pages.shape[0], k_pages.shape[1],
-                             page_table.shape[1], q.shape[2], q.shape[3],
-                             q.shape[1], q.dtype, q.device, kv_dtype)
+                             page_table.shape[1], q.shape[2] * int(tp),
+                             q.shape[3], q.shape[1], q.dtype, q.device,
+                             kv_dtype, tp=tp)
     cand = at.resolve("decode_attn_paged", key)
     if not cand.get("variant", "").startswith("paged_chunked"):
         return 0
@@ -400,7 +422,7 @@ def resolve_pages_per_block(q, k_pages, page_table, kv_dtype=None):
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
                            scale=None, pages_per_block=None, k_scales=None,
-                           v_scales=None):
+                           v_scales=None, tp=1):
     """Length-masked attention over one layer's page pool.
 
     q: (slots, s, heads, d); k_pages/v_pages: (pages, page_size, heads,
@@ -413,11 +435,11 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     variants.  ``pages_per_block``: 0 for the one-shot gather, a divisor
     of max_pages for the chunked variant, None to ask the autotuner
     (:func:`resolve_pages_per_block`; the serving views ask once a
-    step)."""
+    step).  ``tp``: the tensor-parallel degree, for the key."""
     if pages_per_block is None:
         pages_per_block = resolve_pages_per_block(
             q, k_pages, page_table,
-            None if k_scales is None else k_pages.dtype)
+            None if k_scales is None else k_pages.dtype, tp)
     m = int(pages_per_block)
     if m and page_table.shape[1] % m:
         raise ValueError("pages_per_block %d does not divide max_pages %d"

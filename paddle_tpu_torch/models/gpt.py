@@ -15,8 +15,21 @@ append-and-attend.  ``use_recompute`` runs each block under
 :func:`paddle_tpu_torch.distributed.recompute` while training.
 :class:`GPTPretrainingCriterion` is the training loss.
 
-Not ported yet (ROADMAP.md §A5): the Megatron pspec annotations and the
-tensor-parallel overlap islands.
+**Megatron layout.**  The parameters carry the JAX package's ``pspec``
+annotations (:data:`MEGATRON`: ``qkv_proj`` and ``fc1`` column-sharded on
+``mp``, ``out_proj`` and ``fc2`` row-sharded, ``wte`` vocab-sharded) and
+``mp_parts`` (3 on the fused q/k/v projection).  After
+:func:`paddle_tpu_torch.distributed.parallelize` over a mesh whose
+``mp`` axis has more than one rank, a rank holds the q, k and v columns
+of its own ``heads / mp`` heads, and the per-layer blocks run the
+Megatron collectives (:mod:`..distributed.mp_layers`): the input of each
+column-parallel matmul passes :func:`copy_to_mp`, the output of each
+row-parallel one :func:`reduce_from_mp` before its (replicated) bias, the
+token lookup is vocab-parallel, and the tied LM head returns the rank's
+vocab shard of the logits, tagged so that the loss takes the
+vocab-parallel softmax-CE.  The stacked layout at ``mp > 1`` raises
+(ROADMAP.md §A5).  Not ported (ROADMAP.md §A5): the tensor-parallel
+overlap islands (``mp_overlap``).
 """
 from __future__ import annotations
 
@@ -28,9 +41,58 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed.mesh import PartitionSpec as P
+from ..distributed.mp_layers import (copy_to_mp, mark_vocab_parallel,
+                                     reduce_from_mp, vocab_parallel_embedding)
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Embedding, Linear, upscale_dropout
 from ..nn.layer.norm import LayerNorm
+
+#: name suffix -> (pspec, mp_parts): the JAX package's Megatron
+#: annotations (gpt.py's qkv/fc1 column-, out/fc2 row-, wte vocab-sharded),
+#: with the fused q/k/v columns dealt in three parts (the module docstring)
+MEGATRON = {
+    "attn.qkv_proj.weight": (P(None, "mp"), 3),
+    "attn.qkv_proj.bias": (P("mp"), 3),
+    "attn.out_proj.weight": (P("mp", None), 1),
+    "mlp.fc1.weight": (P(None, "mp"), 1),
+    "mlp.fc1.bias": (P("mp"), 1),
+    "mlp.fc2.weight": (P("mp", None), 1),
+    "gpt.wte.weight": (P("mp", None), 1),
+    "lm_head.weight": (P(None, "mp"), 1),
+    "h_stack.qkv_w": (P(None, None, "mp"), 3),
+    "h_stack.qkv_b": (P(None, "mp"), 3),
+    "h_stack.out_w": (P(None, "mp", None), 1),
+    "h_stack.fc1_w": (P(None, None, "mp"), 1),
+    "h_stack.fc1_b": (P(None, "mp"), 1),
+    "h_stack.fc2_w": (P(None, "mp", None), 1),
+}
+
+
+def megatron_layout(name):
+    """(pspec, mp_parts) of the parameter ``name``; (None, 1) for a
+    replicated one."""
+    for suffix, layout in MEGATRON.items():
+        if name == suffix or name.endswith("." + suffix):
+            return layout
+    return None, 1
+
+
+def _mp(module):
+    return getattr(module, "_mp_group", None)
+
+
+def _column(x, lin, group):
+    """A column-parallel ``Linear``: its input through ``copy_to_mp``."""
+    return lin(copy_to_mp(x, group))
+
+
+def _row(x, lin, group):
+    """A row-parallel ``Linear``: the partial products summed over
+    ``group``, then the replicated bias."""
+    if group is None:
+        return lin(x)
+    return reduce_from_mp(x @ lin.weight, group) + lin.bias
 
 
 @dataclasses.dataclass
@@ -94,8 +156,12 @@ class GPTAttention(nn.Module):
 
     def forward(self, x, cache=None):
         b, s, _ = x.shape
-        h, nh, hd = self.hidden_size, self.num_heads, self.head_dim
-        qkv = self.qkv_proj(x)
+        g = _mp(self)
+        qkv = _column(x, self.qkv_proj, g)
+        # this rank's width: all heads, or its heads / mp under mp
+        hd = self.head_dim
+        h = qkv.shape[-1] // 3
+        nh = h // hd
         # q/k/v as last-dim slices of the fused projection: views with
         # dense (heads, head_dim) inner dims, which the flash kernel reads
         # in place
@@ -109,7 +175,7 @@ class GPTAttention(nn.Module):
                 q, k, v, dropout_p=self.attn_dropout_p, is_causal=True,
                 training=self.training, generator=self.generator)
         out = out.reshape(b, s, h)
-        return self.resid_dropout(self.out_proj(out))
+        return self.resid_dropout(_row(out, self.out_proj, g))
 
 
 class GPTMLP(nn.Module):
@@ -121,7 +187,9 @@ class GPTMLP(nn.Module):
         self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, x):
-        return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate=True)))
+        g = _mp(self)
+        return self.dropout(_row(F.gelu(_column(x, self.fc1, g),
+                                        approximate=True), self.fc2, g))
 
 
 class GPTBlock(nn.Module):
@@ -329,7 +397,10 @@ class GPTModel(nn.Module):
             else:
                 position_ids = torch.arange(
                     s, dtype=torch.int32, device=input_ids.device)[None, :]
-        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        g = _mp(self)
+        tok = (self.wte(input_ids) if g is None else
+               vocab_parallel_embedding(input_ids, self.wte.weight, g))
+        x = self.drop(tok + self.wpe(position_ids))
         if self.config.scan_layers:
             x = self.h_stack(x, view)
         else:
@@ -358,6 +429,31 @@ class GPTForCausalLM(nn.Module):
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
                                   bias_attr=False)
         self._init_weights(generator)
+        self._tag_layout()
+
+    def _tag_layout(self):
+        """Set each parameter's ``pspec`` and ``mp_parts`` from
+        :data:`MEGATRON` (``parallelize`` calls it again: a parameter's
+        deep copy drops its attributes)."""
+        for name, p in self.named_parameters():
+            spec, parts = megatron_layout(name)
+            if spec is not None:
+                p.pspec, p.mp_parts = spec, parts
+
+    def _check_parallel(self):
+        """Called by ``parallelize``: what the tensor-parallel forward
+        does not run raises here, before any step."""
+        g = _mp(self)
+        if g is None:
+            return
+        c = self.config
+        if c.scan_layers:
+            raise NotImplementedError(
+                "the stacked layer layout (scan_layers) at mp > 1 is not "
+                "ported yet (ROADMAP.md §A5)")
+        if c.num_attention_heads % g.nranks:
+            raise ValueError("mp=%d must divide num_attention_heads=%d"
+                             % (g.nranks, c.num_attention_heads))
 
     @torch.no_grad()
     def _init_weights(self, generator):
@@ -379,13 +475,22 @@ class GPTForCausalLM(nn.Module):
             x, cache = self.gpt(input_ids, position_ids, cache)
         else:
             x = self.gpt(input_ids, position_ids)
+        g = _mp(self)
         if self.config.tie_word_embeddings:
-            logits = x @ self.gpt.wte.weight.t()
+            logits = copy_to_mp(x, g) @ self.gpt.wte.weight.t()
         else:
-            logits = self.lm_head(x)
+            logits = _column(x, self.lm_head, g)
+        # under mp: the rank's vocab shard, for the vocab-parallel CE
+        logits = mark_vocab_parallel(logits, g)
         if cache is not None:
             return logits, cache
         return logits
+
+    def _local_heads(self):
+        """The heads this rank computes: all, or heads / mp under mp."""
+        g = _mp(self)
+        return self.config.num_attention_heads // (1 if g is None
+                                                   else g.nranks)
 
     def gen_cache(self, batch_size, dtype=None, max_len=None, device=None,
                   kv_dtype=None):
@@ -399,7 +504,7 @@ class GPTForCausalLM(nn.Module):
         w = self.gpt.wte.weight
         return SlottedKVCache.create(
             batch_size, c.num_hidden_layers,
-            max_len or c.max_position_embeddings, c.num_attention_heads,
+            max_len or c.max_position_embeddings, self._local_heads(),
             c.hidden_size // c.num_attention_heads,
             w.dtype if dtype is None else convert_dtype(dtype),
             w.device if device is None else device, kv_dtype=kv_dtype)
@@ -419,7 +524,7 @@ class GPTForCausalLM(nn.Module):
         w = self.gpt.wte.weight
         max_len = int(max_len or c.max_position_embeddings)
         return PagedKVCache.create_dense(
-            batch_size, c.num_hidden_layers, max_len, c.num_attention_heads,
+            batch_size, c.num_hidden_layers, max_len, self._local_heads(),
             c.hidden_size // c.num_attention_heads,
             min(int(page_size), max_len),
             w.dtype if dtype is None else convert_dtype(dtype),

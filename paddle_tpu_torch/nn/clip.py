@@ -31,14 +31,42 @@ class ClipGradByValue:
         self.min = -max if min is None else min
 
 
+def global_norm_sq(grads, groups):
+    """The squared global L2 norm over tensor-parallel shards: the squares
+    of the shards (``groups[i]`` the group gradient ``i`` is sliced over)
+    are summed over their group, the replicated gradients (LayerNorms,
+    row-parallel biases, position embeddings: None), which every rank
+    holds whole, counted once.  Equal to the unsharded norm's square."""
+    from ..distributed import collective as _coll
+    repl = [g.float().square().sum() for g, grp in zip(grads, groups)
+            if grp is None]
+    total = torch.stack(repl).sum() if repl else None
+    by_group = {}
+    for g, grp in zip(grads, groups):
+        if grp is not None:
+            by_group.setdefault(id(grp), (grp, []))[1].append(
+                g.float().square().sum())
+    for grp, sq in by_group.values():
+        part = torch.stack(sq).sum()
+        _coll.all_reduce(part, group=grp)
+        total = part if total is None else total + part
+    return total
+
+
 @torch.no_grad()
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0):
     """Global-norm clip of the parameters' ``.grad`` in place; returns the
-    norm before clipping."""
-    grads = [p.grad for p in parameters if p.grad is not None]
+    norm before clipping.  Over tensor-parallel shards (parameters that
+    ``distributed.parallelize`` sliced carry ``mp_group``) the 2-norm is
+    the unsharded one."""
+    parameters = [p for p in parameters if p.grad is not None]
+    grads = [p.grad for p in parameters]
     if not grads:
         return torch.zeros((), dtype=torch.float32)
-    if norm_type == float("inf"):
+    groups = [getattr(p, "mp_group", None) for p in parameters]
+    if norm_type == 2.0 and any(g is not None for g in groups):
+        total = torch.sqrt(global_norm_sq(grads, groups))
+    elif norm_type == float("inf"):
         total = torch.stack([g.abs().max().float() for g in grads]).max()
     else:
         total = torch.stack([(g.abs() ** norm_type).sum().float()

@@ -14,10 +14,13 @@ Hard-label cross entropy takes one of three routes, in the JAX order:
 A kernel route is taken when its flag is on, the logits lie on a card
 (the JAX gate's "running on a TPU") and the JAX package's own shape
 predicate holds; otherwise the plain route runs.  The JAX gate also asks
-for a single device, because a Mosaic kernel has no GSPMD partitioning
-rule; the port has no sharded logits yet, and the clause comes back with
-``distributed/`` (ROADMAP.md §A).  Every route zeroes the loss where the
-label is ``ignore_index``.
+for a single device (a Mosaic kernel has no GSPMD partitioning rule):
+here, logits that are a rank's vocab shard under an ``mp`` group of more
+than one rank (the tensor-parallel GPT's, tagged by
+``distributed.mp_layers.mark_vocab_parallel``) take the vocab-parallel
+softmax-CE (``mp_layers.vocab_parallel_cross_entropy``) whatever the
+flags, never E1-E3.  Every route zeroes the loss where the label is
+``ignore_index``.
 """
 from __future__ import annotations
 
@@ -97,6 +100,11 @@ def softmax_with_cross_entropy_raw(logits, label, soft_label=False,
         return -(label * logp).sum(axis)
     lbl = _hard(label, logits, axis)
     if axis in (-1, logits.dim() - 1):
+        from ...distributed import mp_layers
+        group = mp_layers.vocab_parallel_group(logits)
+        if group is not None:
+            return mp_layers.vocab_parallel_cross_entropy(
+                logits, lbl, group, ignore_index)
         out = _fused_ce_or_none(logits, lbl, ignore_index)
         if out is not None:
             return out
@@ -119,6 +127,13 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
                   use_softmax=True, label_smoothing=0.0):
     logits = input
     nclass = logits.shape[axis]
+    from ...distributed.mp_layers import vocab_parallel_group
+    if vocab_parallel_group(logits) is not None and (
+            soft_label or label_smoothing > 0.0 or not use_softmax
+            or weight is not None):
+        raise NotImplementedError(
+            "cross_entropy over vocab-sharded logits takes hard labels "
+            "without weights or smoothing")
     if label_smoothing > 0.0:
         if not soft_label:
             lbl = _hard(label, logits, axis)

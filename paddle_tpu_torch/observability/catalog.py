@@ -60,6 +60,10 @@ CATALOG = {
         "gauge", "active slots after the latest scheduler iteration"),
     "serving.queue_depth": _m(
         "gauge", "requests waiting for admission"),
+    "serving.tp_degree": _m(
+        "gauge", "tensor-parallel degree of the most recently "
+        "constructed decode engine (1 = single-chip; tp > 1 partitions "
+        "the paged KV pool over heads on an ('mp',) mesh)"),
     "serving.page_pool_used": _m(
         "gauge", "KV pages currently mapped by any slot (paged cache "
         "occupancy; pool size is engine.num_pages)"),

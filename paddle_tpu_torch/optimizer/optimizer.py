@@ -166,14 +166,19 @@ class Optimizer:
         return {"slots": {k: self._init_slots(p) for k, p in params.items()},
                 "step": 0}
 
-    def apply_gradients(self, params, grads, state, lr):
+    def apply_gradients(self, params, grads, state, lr, mp_groups=None):
         """(new_params, new_state) from name-keyed ``params`` and ``grads``
         (a None grad leaves its parameter and slots as they are).  Names
         are visited in sorted order, the order of the JAX tree flatten,
-        which fixes the global-norm clip's summation order."""
+        which fixes the global-norm clip's summation order.
+        ``mp_groups`` ({name: group}) names the tensor-parallel shards,
+        whose squares the global-norm clip sums over their group."""
         step = state["step"] + 1
         names = sorted(params)
-        g_list = self._clip_tree([grads.get(n) for n in names])
+        groups = None
+        if mp_groups:
+            groups = [mp_groups.get(n) for n in names]
+        g_list = self._clip_tree([grads.get(n) for n in names], groups)
         new_p = {n: params[n] for n in names}
         new_slots = {n: state["slots"][n] for n in names}
         live = [(n, g) for n, g in zip(names, g_list) if g is not None]
@@ -185,16 +190,25 @@ class Optimizer:
             new_p[n], new_slots[n] = p, s
         return new_p, {"slots": new_slots, "step": step}
 
-    def _clip_tree(self, g_list):
+    def _clip_tree(self, g_list, groups=None):
+        """The clipped gradients.  ``groups`` (one entry a gradient: the
+        tensor-parallel group a shard is sliced over, or None for a
+        replicated one) makes the global norm the unsharded one
+        (:func:`..nn.clip.global_norm_sq`)."""
         from ..nn.clip import (ClipGradByGlobalNorm, ClipGradByNorm,
-                               ClipGradByValue)
+                               ClipGradByValue, global_norm_sq)
         clip = self._grad_clip
         if clip is None:
             return g_list
         live = [(i, g) for i, g in enumerate(g_list) if g is not None]
         out = list(g_list)
         if isinstance(clip, ClipGradByGlobalNorm):
-            total = torch.sqrt(sum(g.float().square().sum() for _, g in live))
+            if groups is not None and any(x is not None for x in groups):
+                total = torch.sqrt(global_norm_sq(
+                    [g for _, g in live], [groups[i] for i, _ in live]))
+            else:
+                total = torch.sqrt(sum(g.float().square().sum()
+                                       for _, g in live))
             coef = clip.clip_norm / torch.clamp(total, min=clip.clip_norm)
             for i, g in live:
                 out[i] = (g.float() * coef).to(g.dtype)
@@ -225,7 +239,9 @@ class Optimizer:
         for p in params:
             if id(p) not in self._accumulators:
                 self._accumulators[id(p)] = self._init_slots(p)
-        grads = self._clip_tree([p.grad.to(p.dtype) for p in params])
+        grads = self._clip_tree([p.grad.to(p.dtype) for p in params],
+                                [getattr(p, "mp_group", None)
+                                 for p in params])
         new_p, new_s = self._update_leaves(
             [getattr(p, "name", None) for p in params], grads, params,
             [self._accumulators[id(p)] for p in params], self.get_lr(),

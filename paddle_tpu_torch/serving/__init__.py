@@ -15,8 +15,9 @@ streaming, bounded admission, preemption-guard drain, ``/healthz``, over
 one engine, a disaggregated pair or a fleet) and the Poisson load
 harness (:mod:`.loadgen`).  ``engine_for`` and ``generate`` build paged engines
 unless given ``paged=False``, and ``generate`` drives the default
-(overlapped) scheduler, as the JAX package's do; both pass ``spec_k``
-and ``kv_dtype`` through."""
+(overlapped) scheduler, as the JAX package's do; both pass ``spec_k``,
+``kv_dtype`` and ``tp`` through (``engine_for`` keys its cache on them;
+a ``tp`` > 1 engine is built on every rank of the ``mp`` group)."""
 from __future__ import annotations
 
 import numpy as np

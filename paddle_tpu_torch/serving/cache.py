@@ -455,10 +455,14 @@ class _PagedView(_CacheView):
     indices, the attention's pre-append lengths and its variant are the
     same for every layer, so they are formed once, at the first layer."""
 
-    def __init__(self, cache: PagedKVCache, quant_err=None):
+    def __init__(self, cache: PagedKVCache, quant_err=None, tp=1):
         super().__init__(cache, quant_err=quant_err)
         self.page_table = cache.page_table
         self._step = None
+        # the tensor-parallel degree of the engine: the pool holds this
+        # rank's heads / tp, and the attention's autotune key records tp
+        # (the JAX view's per-shard key)
+        self.tp = int(tp)
 
     def _table(self):
         raise NotImplementedError
@@ -478,7 +482,7 @@ class _PagedView(_CacheView):
                 int(self.k.shape[0]) - 1) + (
                 lengths, resolve_pages_per_block(
                     q, self.k[:, layer], table,
-                    self.k.dtype if self.quantized else None))
+                    self.k.dtype if self.quantized else None, tp=self.tp))
         page_id, row, lengths, blocks = self._step
         _write_rows(self._new_rows(k_new, v_new), layer, page_id, row)
         return paged_decode_attention(q, self.k[:, layer], self.v[:, layer],
@@ -498,8 +502,8 @@ class PagedDecodeView(_PagedView):
     past ``max_len`` drop too, and lengths stop advancing there."""
 
     def __init__(self, cache: PagedKVCache, active=None, max_len=None,
-                 quant_err=None):
-        super().__init__(cache, quant_err=quant_err)
+                 quant_err=None, tp=1):
+        super().__init__(cache, quant_err=quant_err, tp=tp)
         self.active = active
         self.max_len = (int(max_len) if max_len is not None
                         else int(cache.max_len))
@@ -561,8 +565,9 @@ class PagedPrefillChunkView(_PagedView):
     reference ``tests/test_torch_prefill_chunk.py`` holds the operand form
     against)."""
 
-    def __init__(self, cache: PagedKVCache, slot, n_before, n_valid):
-        super().__init__(cache)
+    def __init__(self, cache: PagedKVCache, slot, n_before, n_valid,
+                 tp=1):
+        super().__init__(cache, tp=tp)
         self._operands = isinstance(slot, torch.Tensor)
         if self._operands:
             self.slot, self.n_before, self.n_valid = slot, n_before, n_valid

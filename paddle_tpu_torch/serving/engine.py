@@ -112,14 +112,32 @@ buffer of their own (the handoff buffer may be mid-transfer), and
 scheduler to import; ``attach_cluster_index`` publishes the servable
 digests to the TCP store.
 
+**Tensor parallelism** (``tp=N``, paged only, as in the JAX engine):
+every rank of a group of N ranks — the global mesh's ``mp`` axis when it
+has N ranks, else a world of N — builds the engine from the same full
+model and makes the same calls (SPMD).  The engine serves a copy of the
+model holding the rank's Megatron shards
+(``distributed.parallel_base.shard_module``: the q/k/v columns of its
+``heads / N`` heads, the ``fc1`` columns and the ``out_proj`` / ``fc2``
+rows that go with them, its ``vocab / N`` rows of ``wte``), the pool
+holds ``heads / N`` heads (``kv_row_bytes``, ``kv_pool_bytes`` and
+``kv_bytes_per_token`` report one rank's truth: 1/N of tp=1's), and the
+vocab-sharded logits are all-gathered before sampling, so every rank
+samples the same tokens from one seed.  ``refresh_state`` compares the
+full model's parameters and re-slices a changed one into the copy.  A
+tp>1 engine runs its steps uncaptured (``graph_stats()["uncaptured"]``
+says why): a gloo collective cannot be captured in a CUDA graph, and
+NCCL capture at tp >= 2 needs two cards to check.  The scheduler's loops
+need no captured step, so both drive it.  ``overlap_comm=True`` (the JAX ``mp_overlap``
+islands) is not ported yet (ROADMAP.md §A5) and raises.
+
 The engine runs on the card unless ``device="cpu"`` is given, and moves
-the model there.  Not ported yet, and raising ``NotImplementedError``
-instead of running something else (ROADMAP.md §A5): tensor
-parallelism.
+the model there.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import os
 import time
@@ -157,6 +175,22 @@ def prefill_buckets_for(max_len, min_bucket=16):
     if not out or out[-1] < int(max_len):
         out.append(int(max_len))
     return out
+
+
+def _plain_copy(model):
+    """A deep copy of ``model``'s modules and tensors, sharing its
+    ``generator`` attributes and leaving out its cached engines (the
+    copy's parameters lose their ``pspec``: ``shard_module`` has the
+    model tag them again)."""
+    memo = {}
+    engines = model.__dict__.get("_serving_engines")
+    if engines is not None:
+        memo[id(engines)] = {}
+    for m in model.modules():
+        gen = getattr(m, "generator", None)
+        if gen is not None:
+            memo[id(gen)] = gen
+    return copy.deepcopy(model, memo)
 
 
 @contextlib.contextmanager
@@ -284,7 +318,8 @@ class DecodeEngine:
                  min_bucket=16, seed=0, top_k_max=TOP_K_MAX, paged=True,
                  page_size=64, num_pages=None, prefill_chunk=None,
                  kv_dtype=None, spec_k=0, spec_ngram=3, tp=1, device=None,
-                 tracer=None, handoff_pages=4, kv_host_bytes=None):
+                 tracer=None, handoff_pages=4, kv_host_bytes=None,
+                 overlap_comm=None):
         cfg = model.config
         # the engine lane of the request trace: one span a step launch or
         # prefill chunk, and the allocator's page events
@@ -320,12 +355,21 @@ class DecodeEngine:
         if self.spec_k >= self.max_len:
             raise ValueError("spec_k %d must be < max_len %d"
                              % (self.spec_k, self.max_len))
-        if int(tp) != 1:
-            raise NotImplementedError(
-                "tensor parallelism is not ported to paddle_tpu_torch yet "
-                "(ROADMAP.md §A5)")
+        self.tp = int(tp)
+        self._mp = self._tp_group(overlap_comm)
+        self._heads //= self.tp
         self.device = resolve_device(device)
-        self.model = model.to(self.device)
+        # the full model: refresh_state compares its parameters; a tp
+        # engine serves a sharded copy of it
+        self._source = model
+        if self._mp is None:
+            self.model = model.to(self.device)
+        else:
+            from ..distributed.parallel_base import shard_module
+            self.model = shard_module(_plain_copy(model).to(self.device),
+                                      self._mp)
+        self._m_tp = _metrics.gauge("serving.tp_degree")
+        self._m_tp.set(self.tp)
         # metric handles, fetched once (no-op singletons when disabled);
         # the quant-error flag is read once, here, as in the JAX engine
         self._m_pool = _metrics.gauge("serving.page_pool_used")
@@ -367,8 +411,8 @@ class DecodeEngine:
                                        vocab, self.device, spec=True)
         if self.paged:
             self._chunk_io = _ChunkIO(self.prefill_chunk, self.device)
-        # captured steps (on a card): key -> graphs.CapturedStep
-        self._capture = self.device.type == "cuda"
+        # captured steps (on a card, tp=1): key -> graphs.CapturedStep
+        self._capture = self.device.type == "cuda" and self._mp is None
         # False runs the prefill chunk eagerly beside captured decode
         # steps (the A/B baseline of chip_smoke.py's chunk_capture)
         self._capture_chunk = True
@@ -407,6 +451,55 @@ class DecodeEngine:
         # flight dumps collect this engine's state summary (a weak
         # reference: registration never pins the engine)
         _flight.register_engine(self)
+
+    def _tp_group(self, overlap_comm):
+        """The tensor-parallel group (None at tp=1), with the JAX engine's
+        checks in its order: the degree, the layout, then the devices
+        (ranks) and the heads."""
+        if self.tp < 1:
+            raise ValueError("tp must be >= 1")
+        if self.tp == 1:
+            return None
+        if not self.paged:
+            raise ValueError(
+                "tensor-parallel decode runs on the paged engine (tp > 1 "
+                "with paged=False is not supported — the slotted layout "
+                "is the single-card A/B baseline)")
+        if overlap_comm:
+            raise NotImplementedError(
+                "DecodeEngine(overlap_comm=True): the mp_overlap islands "
+                "are not ported yet (ROADMAP.md §A5)")
+        import torch.distributed as dist
+        from ..distributed import mesh as _mesh
+        from ..distributed.collective import Group
+        mesh = _mesh.get_mesh()
+        group, have = None, 1
+        if mesh is not None and mesh.group("mp") is not None:
+            group = mesh.group("mp")
+            have = group.nranks
+        elif dist.is_available() and dist.is_initialized():
+            have = dist.get_world_size()
+            if have == self.tp:
+                group = Group("mp", list(range(have)), dist.group.WORLD)
+        if group is None or group.pg is None or have != self.tp:
+            raise ValueError(
+                "tp=%d needs %d devices, have %d (the ranks of the mesh's "
+                "mp axis, or of the torch.distributed world: "
+                "distributed.init_parallel_env)" % (self.tp, self.tp, have))
+        if self._heads % self.tp:
+            raise ValueError(
+                "tp=%d must divide num_attention_heads=%d (the KV pool is "
+                "partitioned over heads)" % (self.tp, self._heads))
+        return group
+
+    def _full_vocab(self, logits):
+        """The logits over the whole vocabulary: a tp engine's model
+        gives the rank's vocab shard, all-gathered here."""
+        if self._mp is None:
+            return logits
+        from ..distributed import collective as _coll
+        return torch.cat(_coll.all_gather([], logits.contiguous(),
+                                          group=self._mp), dim=-1)
 
     def _init_paged(self, page_size, num_pages, prefill_chunk,
                     handoff_pages=4):
@@ -453,7 +546,7 @@ class DecodeEngine:
         identity alone (the JAX package's change test) would never see a
         step."""
         return tuple((id(p), p.data_ptr(), p._version)
-                     for p in self.model.parameters())
+                     for p in self._source.parameters())
 
     @staticmethod
     def _graph_identity(versions):
@@ -482,8 +575,8 @@ class DecodeEngine:
         captured steps keep their addresses and read it at their next
         replay."""
         if state is not None:
-            live = dict(self.model.named_parameters())
-            live.update(self.model.named_buffers())
+            live = dict(self._source.named_parameters())
+            live.update(self._source.named_buffers())
             unknown = sorted(set(state) - set(live))
             if unknown:
                 raise KeyError("refresh_state: the model has no %s"
@@ -505,6 +598,9 @@ class DecodeEngine:
                 self._graph_identity(self._state_versions):
             self._graphs.clear()
         self._state_versions = versions
+        if self._mp is not None:
+            from ..distributed.parallel_base import reshard_into
+            reshard_into(self.model, self._source, self._mp)
         if self.paged:
             self._alloc.drop_prefix_cache()
             if self._host_tier is not None:
@@ -833,12 +929,13 @@ class DecodeEngine:
         qerr = self._step_qerr(io)
         if self.paged:
             view = PagedDecodeView(self.cache, active=active,
-                                   max_len=self.max_len, quant_err=qerr)
+                                   max_len=self.max_len, quant_err=qerr,
+                                   tp=self.tp)
         else:
             view = DecodeView(self.cache, active=active, quant_err=qerr)
         with _eval_scope(self.model):
             logits, _ = self.model(io.tokens, cache=view)
-        logits = logits[:, -1, :]
+        logits = self._full_vocab(logits[:, -1, :])
         tok = sample(logits, self._generator, io.temperature, io.top_k,
                      io.top_p, self.top_k_max, noise=io.noise[0])
         view.finalize()
@@ -856,10 +953,10 @@ class DecodeEngine:
         a_cap = self.max_len - 1 - self.cache.lengths
         view = PagedDecodeView(self.cache, active=active,
                                max_len=self.max_len,
-                               quant_err=self._step_qerr(io))
+                               quant_err=self._step_qerr(io), tp=self.tp)
         with _eval_scope(self.model):
             logits, _ = self.model(io.tokens, cache=view)
-        logits = logits.float()                         # (S, k+1, V)
+        logits = self._full_vocab(logits).float()       # (S, k+1, V)
         emitted, counts = spec_accept(
             logits, io.tokens, self._generator, io.temperature, io.top_k,
             io.top_p, self.top_k_max, max_accept=a_cap, noise=io.noise)
@@ -877,11 +974,11 @@ class DecodeEngine:
         ``n_valid`` 0)."""
         io = self._chunk_io
         view = PagedPrefillChunkView(self.cache, io.slot, io.n_before,
-                                     io.n_valid)
+                                     io.n_valid, tp=self.tp)
         with _eval_scope(self.model):
             logits, _ = self.model(io.tokens, cache=view)
-        last = logits.index_select(
-            1, (io.n_valid - 1).clamp(min=0).view(1))[:, 0, :]
+        last = self._full_vocab(logits.index_select(
+            1, (io.n_valid - 1).clamp(min=0).view(1))[:, 0, :])
         view.finalize()
         return last
 
@@ -912,11 +1009,11 @@ class DecodeEngine:
         from ..kernels import decode_attention as da
         dt = self.model.gpt.wte.weight.dtype      # q's dtype
         S = self.num_slots if slots is None else int(slots)
-        h, d = self._heads, self._head_dim
+        h, d = self._heads * self.tp, self._head_dim
         if self.paged:
             fam, key = "decode_attn_paged", da.paged_autotune_key(
                 S, self.num_pages + 1, self.page_size, self.max_pages, h,
-                d, qlen, dt, self.device, self.kv_dtype)
+                d, qlen, dt, self.device, self.kv_dtype, tp=self.tp)
         else:
             fam, key = "decode_attn", da.autotune_key(
                 S, self.max_len, h, d, qlen, dt, self.device,
@@ -979,6 +1076,11 @@ class DecodeEngine:
         the device bytes their pools reserved, in all and by step kind
         (``by_kind``: "decode", "spec", "chunk")."""
         graphs = list(self._graphs.values())
+        uncaptured = None
+        if self._mp is not None:
+            uncaptured = ("tp=%d: steps run uncaptured (the collectives of "
+                          "a tensor-parallel step are not captured: "
+                          "ROADMAP.md §A5)" % self.tp)
         by_kind = {}
         for kind, n in self.graph_captures_by_kind.items():
             mine = [g for g in graphs if g.kind == kind]
@@ -989,7 +1091,7 @@ class DecodeEngine:
                 "graphs": len(graphs),
                 "replays": sum(g.replays for g in graphs),
                 "pool_bytes": sum(g.pool_bytes for g in graphs),
-                "by_kind": by_kind}
+                "by_kind": by_kind, "uncaptured": uncaptured}
 
     def _stage(self, io, tokens, active_np, temperature, top_k, top_p,
                drafts=None):
@@ -1585,7 +1687,7 @@ class DecodeEngine:
             "kv_dtype": str(self.kv_dtype or self._cache_dtype).replace(
                 "torch.", ""),
             "spec_k": self.spec_k,
-            "tp": 1,
+            "tp": self.tp,
             "slot_lengths": [int(x) for x in self._len_host],
             "graph_captures": {
                 "decode": self.graph_captures_by_kind["decode"],

@@ -333,13 +333,14 @@ def test_warm_and_cli_smoke(capsys, monkeypatch):
 def test_standard_keys_are_the_bench_shapes():
     """The four flash families at the training shape and the decode
     attention at the serving shape: slotted, and paged at one token a
-    step, over the int8 pool and at the speculative verify's five: the
-    JAX module's keys for them (the CPU: float32)."""
+    step, over the int8 pool, at the speculative verify's five and at
+    tp=2 (one rank's 8 heads): the JAX module's keys for them (the CPU:
+    float32)."""
     pairs = at.standard_keys()
     assert [f for f, _ in pairs] == ["flash_fwd", "flash_bwd",
                                      "flash_bwd_dq", "flash_bwd_dkv",
                                      "decode_attn"] + \
-        ["decode_attn_paged"] * 3
+        ["decode_attn_paged"] * 4
     want = jax_fap.autotune_key(8, 1024, 1024, 16, 64, jnp.float32, True)
     assert all(k == want for _, k in pairs[:4])
     assert pairs[4][1] == jax_dat.autotune_key(
@@ -349,7 +350,8 @@ def test_standard_keys_are_the_bench_shapes():
     assert [k for _, k in pairs[5:]] == [
         jax_dat.paged_autotune_key(qlen=1, **paged),
         jax_dat.paged_autotune_key(qlen=1, kv_dtype="int8", **paged),
-        jax_dat.paged_autotune_key(qlen=5, **paged)]
+        jax_dat.paged_autotune_key(qlen=5, **paged),
+        jax_dat.paged_autotune_key(qlen=1, tp=2, **paged)]
     jax_pairs = jax_at.standard_keys()
     assert all((f, k) in jax_pairs for f, k in pairs[4:])
 

@@ -212,51 +212,9 @@ def test_serving_tier_phases_rehearsed_on_the_cpu(monkeypatch):
     assert line["cluster"]["hosts"] == [0, 1]
 
 
-class _PlainCounters:
-    """chip_smoke's Counters on the CPU, with the flash route forced on:
-    the calls of the attention's forward and backward and of the
-    LayerNorm wrapper (their plain versions) in place of the kernels'
-    launches; eager runs only, so B's count on the card is the
-    wrapper's."""
-
-    def __init__(self, monkeypatch):
-        from paddle_tpu_torch.kernels import flash_attention as fa
-        from paddle_tpu_torch.kernels import flash_attention_cuda as fac
-        from paddle_tpu_torch.kernels import norm_cuda
-        self.calls = dict.fromkeys(("fwd", "bwd", "ln"), 0)
-        for mod, name, key in ((fac, "_forward", "fwd"),
-                               (fac, "flash_attention_bwd", "bwd"),
-                               (norm_cuda, "layer_norm", "ln")):
-            monkeypatch.setattr(mod, name, self._counted(getattr(mod, name),
-                                                         key))
-        # the card gate's shape conditions, without its device one
-        monkeypatch.setattr(fa, "supported",
-                            lambda q, k=None: q.dim() == 4
-                            and q.shape[1] % 128 == 0
-                            and q.shape[3] in (64, 128, 256)
-                            and (k is None or k.shape[1] == q.shape[1]))
-
-    def _counted(self, fn, key):
-        def run(*a, **kw):
-            self.calls[key] += 1
-            return fn(*a, **kw)
-        return run
-
-    def reset(self):
-        self.calls = dict.fromkeys(self.calls, 0)
-
-    def read(self):
-        out = dict.fromkeys(("flash_fwd", "flash_fwd_pipelined",
-                             "flash_bwd", "layer_norm_bwd", "ce_lse",
-                             "ce_fwd", "ce_bwd", "softmax_fwd"), 0)
-        out.update(flash_fwd_tc=self.calls["fwd"],
-                   flash_bwd_dq=self.calls["bwd"],
-                   flash_bwd_dkv=self.calls["bwd"],
-                   layer_norm_fwd=self.calls["ln"])
-        return out
-
-    def b_on_device(self):
-        return self.calls["ln"]
+# chip_smoke's Counters on the CPU (shared with the rehearsal on a gloo
+# world, whose ranks import it from the JAX-free helper)
+from _torch_dist import PlainCounters as _PlainCounters  # noqa: E402
 
 
 def test_layout_train_phases_rehearsed_on_the_cpu(monkeypatch):
@@ -362,3 +320,64 @@ def test_serve_scan_rehearsed_on_the_cpu(monkeypatch):
     with pytest.raises(AssertionError, match=r"'first_parting': \(2, 5\)"):
         chip_smoke.serve_scan(torch, scan, model, prompts, refs, profile,
                               counters, flags, device="cpu")
+
+
+def test_dist_phases_rehearsed_on_a_gloo_world():
+    """chip_smoke.py's dist_nccl and train_dp on a two-rank gloo CPU world
+    (tests/_torch_dist.py's ``job_chip_dist``): every collective right at
+    a world of two (point to point as a ring), the ops counted; train_dp
+    over a one-rank dp axis issuing two all-reduces a step, its losses
+    the default step's bit for bit."""
+    import _torch_dist
+    world = _torch_dist.World(2)
+    try:
+        out = world.run("job_chip_dist")
+    finally:
+        world.close()
+    for dist_line, line, default in out:
+        assert dist_line["backend"] == "gloo"
+        assert dist_line["world_size"] == 2
+        assert dist_line["max_abs_err"] <= 1e-6
+        assert {"all_reduce", "all_gather", "reduce_scatter", "broadcast",
+                "reduce", "scatter", "alltoall", "all_to_all_single",
+                "all_gather_object", "send", "recv", "isend", "irecv",
+                "barrier"} <= set(dist_line["collectives_issued"])
+        assert line["collectives_issued"] == {"all_reduce": 6}
+        assert line["dp_ranks"] == 1 and line["losses"] == default
+        assert line["launches"]["flash_fwd_tc"] == 2 * 3
+
+
+def test_tp2_gloo_rehearsed_on_a_gloo_world(monkeypatch):
+    """chip_smoke.py's tp2_gloo logic on a two-rank gloo CPU world at a
+    narrow width in f32: ``tp2_rank`` on each rank (the tp=2 engine's
+    greedy tokens against tp=1's, B counted under ``use_pallas_norm``,
+    three dp1 x mp2 train steps with the flash route counted), then
+    ``tp2_hold``'s checks against the unsharded step's losses; a rank
+    whose tokens part where tp=1's margin is wide is refused."""
+    import _torch_dist
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    counters = _PlainCounters(monkeypatch)
+    spec = _torch_dist.tp2_spec()
+    base = GPTForCausalLM(spec["cfg"],
+                          generator=torch.Generator().manual_seed(0))
+    ids = chip_smoke.train_ids(torch, spec["cfg"].vocab_size, "cpu")
+    default, _l, _ms = chip_smoke.run_steps(
+        torch, chip_smoke.make_step(copy.deepcopy(base), device="cpu"),
+        ids, counters, 3)
+    world = _torch_dist.World(2)
+    try:
+        outs = world.run("job_tp2_rank", default_losses=default)
+    finally:
+        world.close()
+    spec["default_losses"] = default
+    forwards = chip_smoke.TP2_PROMPTS + chip_smoke.TP2_NEW_TOKENS
+    line = chip_smoke.tp2_hold(outs, spec, forwards)
+    assert line["tokens_equal_tp1"] and line["heads_per_rank"] == 1
+    assert line["sharded_masters"] > 0
+    assert line["max_loss_diff"] < 1e-4
+    assert "uncaptured" in line["uncaptured"]
+    bad = [dict(o) for o in outs]
+    bad[0]["parted"] = [{"request": 0, "step": 3, "tokens": [1, 2],
+                         "tp1_top2_margin": 1.0}]
+    with pytest.raises(AssertionError, match="margin is wide"):
+        chip_smoke.tp2_hold(bad, spec, forwards)

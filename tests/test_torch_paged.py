@@ -778,8 +778,13 @@ def test_kv_bytes_accounting_scales_with_true_lengths():
 
 @pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_paged_features_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """tp=2 without a world of two ranks: the JAX engine's "devices"
+    error; with overlap_comm=True: not ported, NotImplementedError."""
+    with pytest.raises(ValueError, match="devices"):
         DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu",
+                     overlap_comm=True, **kw)
 
 
 def test_refresh_state_takes_a_state_and_purges_the_prefix_cache():

@@ -192,9 +192,14 @@ def test_engine_reseed_reproduces_sampled_output():
 
 @pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_modes_raise(kw):
+    """tp=2 is ported (tests/test_torch_tp_serving.py): without a world of
+    two ranks it raises the JAX engine's "devices" error; the overlapped
+    collective islands at tp=2 are not ported and raise."""
     tm = GPTForCausalLM(GPTConfig.tiny())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="devices"):
         DecodeEngine(tm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DecodeEngine(tm, device="cpu", overlap_comm=True, **kw)
 
 
 def test_spec_on_the_slotted_engine_raises_value_error():

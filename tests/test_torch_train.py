@@ -310,15 +310,16 @@ def test_trainstep_amp_o2_bf16_tracks_jax():
 
 
 def test_trainstep_refuses_unported_options():
-    """ZeRO and input shardings wait for the distributed port (ROADMAP
-    §A5) and raise; ``stack_layers`` and ``use_recompute`` are ported
-    and build (tests/test_torch_stack_layers.py,
-    tests/test_torch_recompute.py)."""
+    """ZeRO waits for the distributed port (ROADMAP §A5) and raises;
+    ``in_shardings`` (tests/test_torch_data_parallel.py),
+    ``stack_layers`` and ``use_recompute`` are ported and build
+    (tests/test_torch_stack_layers.py, tests/test_torch_recompute.py)."""
     tm = GPTForCausalLM(GPTConfig.tiny())
     opt = AdamW(parameters=tm.parameters())
-    for kw in ({"zero_stage": 2}, {"in_shardings": [None]}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A5"):
-            TrainStep(tm, GPTPretrainingCriterion(), opt, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A5"):
+        TrainStep(tm, GPTPretrainingCriterion(), opt, zero_stage=2)
+    assert TrainStep(tm, GPTPretrainingCriterion(), opt, device="cpu",
+                     in_shardings=[None])._dp_group is None
     assert TrainStep(tm, GPTPretrainingCriterion(), opt, device="cpu",
                      stack_layers=True)._stack
     assert GPTForCausalLM(GPTConfig(**dict(
