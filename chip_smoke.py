@@ -199,8 +199,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               ``in_shardings=PartitionSpec("dp", None)`` over that one-rank
               NCCL dp group: two all-reduces a step really issued (the
               f32 grads, the loss), every loss equal to train's bit for
-              bit, device ms a step beside train's.  Then the world is
-              taken down.
+              bit, device ms a step beside train's; then the same steps at
+              ``zero_stage=2``, losses and launches train's bit for bit
+              (at a world of one ZeRO cuts nothing, as in JAX).  Then the
+              world is taken down.
 11f. tp2_gloo — two processes on the one card in a gloo world over CUDA
               tensors (NCCL takes one rank a card), GPT-2 345M bf16 at 8
               heads a rank: ``DecodeEngine(tp=2)`` greedy on 8 prompts
@@ -208,9 +210,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               tp=1's top-2 margin is below 2 * LOGIT_TOL; first-step
               logits within LOGIT_TOL; B 49 a forward), then 3 train steps
               at dp1 x mp2 within PARITY_LOSS_TOL of train's losses, the
-              flash forward and split backward 24 a step.  Gloo stages
-              each collective through the host: no time of it is a
-              tensor-parallel speed.
+              flash forward and split backward 24 a step.  Then
+              ``DecodeEngine(tp=2, overlap_comm=True)`` (the mp_overlap
+              islands: the row matmuls and LM head as permute rings), per
+              layer and scan-layers, on the same requests: tokens equal
+              to the monolithic tp=2 engine's, first-step logits against
+              its, the ppermutes and ``mp.overlap_chunks`` a forward; and
+              one dp1 x mp2 train step with the islands on against the
+              monolithic step's loss.  Gloo stages each collective (each
+              permute) through the host: no time of it is a
+              tensor-parallel or an overlap speed.
+11g. zero_gloo — two processes on the one card over gloo, mesh
+              {"sdp": 2}: the train step (GPT-2 345M, AMP O2, AdamW) at
+              ``zero_stage`` 1, 2 and 3, two steps each with the batch
+              sharded over sdp: losses within PARITY_LOSS_TOL of train's,
+              the AdamW slots a rank holds about half of train's, stage 2
+              and 3 reduce-scattering, stage 3's masters half, and each
+              rank's peak allocation.
+
+``python3 chip_smoke.py --distributed`` runs the train phase and 11d-11g
+alone (the distributed phases without the kernel checks and serving
+phases), then prints the card and the device line.
 12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
               LayerNorm route and each cross-entropy route; then f32,
               kernel A and C1) and on the CPU (f32, plain): the loss and
@@ -1714,7 +1734,7 @@ def train_ids(torch, vocab, device="cuda"):
 
 
 def make_step(model, lr=1e-4, device="cuda", flat_master=None,
-              stack_layers=False, in_shardings=None):
+              stack_layers=False, in_shardings=None, zero_stage=None):
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
@@ -1722,7 +1742,8 @@ def make_step(model, lr=1e-4, device="cuda", flat_master=None,
                 parameters=model.parameters())
     return TrainStep(model, GPTPretrainingCriterion(), opt,
                      device=device, flat_master=flat_master,
-                     stack_layers=stack_layers, in_shardings=in_shardings)
+                     stack_layers=stack_layers, in_shardings=in_shardings,
+                     zero_stage=zero_stage)
 
 
 def step_breakdown(torch, step, ids):
@@ -2309,7 +2330,12 @@ def train_dp(torch, base, amp, counters, default_losses, train_line,
     (one rank on the card): the gradients all-reduced in f32 (one op a
     step) and the loss averaged (one more), really issued, every loss
     equal to the default step's bit for bit (a one-rank all-reduce leaves
-    the bits as they are); device ms a step beside train's."""
+    the bits as they are); device ms a step beside train's.  Then the
+    same steps with ``zero_stage=2``: its losses and launches are the
+    default step's (at a world of one ``_stage_spec_for`` cuts nothing, as
+    in JAX, and the ZeRO step issues what train_dp issues; on a mesh with
+    an ``sdp`` axis of ranks that hold the same batch, the reduce-scatter
+    averages equal values, which leaves them as they are)."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.distributed import collective as C
@@ -2335,6 +2361,18 @@ def train_dp(torch, base, amp, counters, default_losses, train_line,
     del step
     if device != "cpu":
         torch.cuda.empty_cache()
+    zstep = make_step(train_model(torch, base, amp, device), device=device,
+                      in_shardings=PartitionSpec("dp", None), zero_stage=2)
+    C.reset_counts()
+    zlosses, zlaunches, zms = run_steps(torch, zstep, ids, counters, steps)
+    line["zero2"] = {"losses": zlosses, "launches": zlaunches,
+                     "step_ms": zms, "collectives_issued": C.issued(),
+                     "sliced_masters": sum(
+                         d is not None for d in zstep._zero.dims.values()),
+                     "slots_bytes": slots_bytes(zstep.opt_state)}
+    del zstep
+    if device != "cpu":
+        torch.cuda.empty_cache()
     if issued.get("all_reduce", 0) != 2 * steps or len(issued) != 1:
         raise AssertionError("train_dp: issued %r, want 2 all_reduce a "
                              "step" % (issued,))
@@ -2342,6 +2380,10 @@ def train_dp(torch, base, amp, counters, default_losses, train_line,
                        {"flash_fwd_tc": layers * steps, "flash_fwd": 0,
                         "flash_bwd": 0, "flash_bwd_dq": layers * steps,
                         "flash_bwd_dkv": layers * steps})
+    expect_launches(zlaunches, line["launches"], "train_dp zero_stage=2")
+    if zlosses != default_losses[:steps]:
+        raise AssertionError("train_dp: zero_stage=2 losses %r, not the "
+                             "default step's bit for bit" % (zlosses,))
     return line
 
 
@@ -2376,12 +2418,18 @@ def tp2_rank(torch, spec, counters, device="cuda"):
     "default_losses", "steps"}.  Serving: ``DecodeEngine(tp=2)`` paged,
     greedy, under ``use_pallas_norm`` (B counted), and on rank 0 the tp=1
     engine on the same model, its tokens and its top-2 logit margins.
-    Training: the train step at dp1 x mp2 (``parallelize``, then
-    ``in_shardings``) for ``steps`` steps.  Returns a dict of host
-    values."""
+    Then ``DecodeEngine(tp=2, overlap_comm=True)`` (the ``mp_overlap``
+    islands) on the same requests, per layer and scan-layers: its tokens,
+    its first-step logits, and the ppermutes and ``mp.overlap_chunks`` a
+    forward.  Training: the train step at dp1 x mp2 (``parallelize``, then
+    ``in_shardings``) for ``steps`` steps, then one step of a fresh copy
+    with the islands on.  Returns a dict of host values."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mp_overlap as mpo
     from paddle_tpu_torch.distributed.mesh import PartitionSpec
+    from paddle_tpu_torch.observability import registry
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.serving import DecodeEngine
     from paddle_tpu_torch.utils import flags
@@ -2432,28 +2480,72 @@ def tp2_rank(torch, spec, counters, device="cuda"):
                                   "tp1_top2_margin": float(top2[0]
                                                            - top2[1])})
             out["parted"] = parts
+        registry.default_registry().enable()
+        chunks = registry.counter("mp.overlap_chunks")
+        forwards = len(prompts) + spec["new_tokens"]
+        for name, scan in (("per_layer", False), ("scan", True)):
+            src = scan_copy(base) if scan else model
+            if scan and spec["amp"]:
+                src = amp.decorate(src, level="O2", dtype="bfloat16")
+            src.eval()
+            eng = DecodeEngine(src, num_slots=len(prompts), max_len=256,
+                               tp=2, device=device, overlap_comm=True)
+            C.reset_counts()
+            c0 = chunks.value
+            counters.reset()
+            t0 = time.perf_counter()
+            o_toks, o_logits = greedy_logits(eng, prompts,
+                                             spec["new_tokens"])
+            issued = C.issued()
+            out["overlap_" + name] = {
+                "overlap_comm": eng.overlap_comm, "tokens": o_toks,
+                "seconds": time.perf_counter() - t0,
+                "launches": counters.read(),
+                "first_logit_gap_vs_monolithic": max(
+                    float((a[0] - b[0]).abs().max())
+                    for a, b in zip(o_logits, logits)),
+                "ppermute_per_forward": issued.get("ppermute", 0)
+                / forwards,
+                "overlap_chunks_per_forward": (chunks.value - c0)
+                / forwards}
+            del eng, src
     finally:
         flags.set_flags({"use_pallas_norm": False})
     del model
-    tm = train_model(torch, base, amp, device) if spec["amp"] else \
-        copy.deepcopy(base).to(device)
-    del base
-    D.parallelize(tm)
-    step = make_step(tm, device=device,
-                     in_shardings=PartitionSpec("dp", None))
     ids = train_ids(torch, spec["cfg"].vocab_size, device)
+
+    def parallel_step():
+        tm = train_model(torch, base, amp, device) if spec["amp"] else \
+            copy.deepcopy(base).to(device)
+        D.parallelize(tm)
+        return make_step(tm, device=device,
+                         in_shardings=PartitionSpec("dp", None))
+    step = parallel_step()
     losses, launches, ms = run_steps(torch, step, ids, counters,
                                      spec["steps"])
     out.update(train_losses=losses, train_launches=launches,
                train_step_host_ms=ms,
                masters=len(step.params),
                sharded_masters=len(step._mp_groups))
+    del step
+    step = parallel_step()
+    del base
+    C.reset_counts()
+    c0 = chunks.value
+    counters.reset()
+    with mpo.overlap_scope(True):
+        loss = float(step(ids, ids))
+    issued = C.issued()
+    out["overlap_train"] = {"loss": loss, "launches": counters.read(),
+                            "ppermute": issued.get("ppermute", 0),
+                            "overlap_chunks": chunks.value - c0}
     return out
 
 
-def tp2_rank_main(rank, port, spec, results):
-    """The entry point of a ``tp2_gloo`` process: a gloo world of two on
-    the one card, then :func:`tp2_rank`; the result (or the traceback)
+def gloo_rank_main(rank, port, job, spec, results):
+    """The entry point of a ``tp2_gloo`` or ``zero_gloo`` process: a gloo
+    world of two on the one card, then the function ``job`` of this module
+    (:func:`tp2_rank`, :func:`zero_rank`); the result (or the traceback)
     goes to ``results``."""
     import datetime
     import traceback
@@ -2471,7 +2563,7 @@ def tp2_rank_main(rank, port, spec, results):
             "gloo", init_method="tcp://127.0.0.1:%d" % port, rank=rank,
             world_size=2, timeout=datetime.timedelta(seconds=300))
         D.init_parallel_env(backend="gloo", device="cuda")
-        out = tp2_rank(torch, spec, Counters(fac, norm_cuda, ce_cuda))
+        out = globals()[job](torch, spec, Counters(fac, norm_cuda, ce_cuda))
         dist.destroy_process_group()
         results.put((rank, "ok", out))
     except BaseException:
@@ -2506,7 +2598,21 @@ def tp2_hold(outs, spec, steps_forward):
             "train_step_host_ms_over_gloo": r0["train_step_host_ms"],
             "masters": r0["masters"],
             "sharded_masters": r0["sharded_masters"],
-            "uncaptured": r0["uncaptured"]}
+            "uncaptured": r0["uncaptured"],
+            # the mp_overlap islands over gloo, which stages each permute
+            # through the host: no time here is an overlap speed (that
+            # needs two cards and NCCL)
+            "overlap": {name: {k: v for k, v in r0["overlap_" + name].items()
+                               if k != "tokens"}
+                        for name in ("per_layer", "scan")},
+            "overlap_tokens_equal_monolithic": {
+                name: r0["overlap_" + name]["tokens"] == r0["tokens"]
+                for name in ("per_layer", "scan")},
+            "overlap_train": r0["overlap_train"],
+            "overlap_train_loss_diff": abs(r0["overlap_train"]["loss"]
+                                           - r0["train_losses"][0]),
+            "overlap_speed": "not measured: gloo stages every permute "
+                             "through the host (needs two cards and NCCL)"}
     line["max_loss_diff"] = max(abs(a - b) for a, b in zip(
         line["losses"], line["default_losses"]))
     emit(line)
@@ -2536,6 +2642,35 @@ def tp2_hold(outs, spec, steps_forward):
                      "flash_bwd_dq": layers * steps,
                      "flash_bwd_dkv": layers * steps, "flash_bwd": 0},
                     "tp2_gloo train")
+    for name in ("per_layer", "scan"):
+        o0, o1 = r0["overlap_" + name], r1["overlap_" + name]
+        if not (o0["overlap_comm"] and o0["tokens"] == r0["tokens"]
+                and o1["tokens"] == r1["tokens"]):
+            raise AssertionError("tp2_gloo: the overlapped %s engine's "
+                                 "tokens differ from the monolithic tp=2 "
+                                 "engine's" % name)
+        if not o0["first_logit_gap_vs_monolithic"] <= LOGIT_TOL:
+            raise AssertionError("tp2_gloo: overlapped %s first-step logits "
+                                 "%g from the monolithic engine's"
+                                 % (name, o0["first_logit_gap_vs_monolithic"]))
+        if not (o0["ppermute_per_forward"] > 0
+                and o0["overlap_chunks_per_forward"] > 0):
+            raise AssertionError("tp2_gloo: the overlapped %s engine ran no "
+                                 "island: %r" % (name, o0))
+        expect_launches(o0["launches"],
+                        {"layer_norm_fwd": (2 * layers + 1) * steps_forward,
+                         "flash_fwd_tc": 0}, "tp2_gloo serve overlap")
+    ot0, ot1 = r0["overlap_train"], r1["overlap_train"]
+    if ot0["loss"] != ot1["loss"] or not math.isfinite(ot0["loss"]) \
+            or line["overlap_train_loss_diff"] > PARITY_LOSS_TOL \
+            or not ot0["ppermute"] > 0:
+        raise AssertionError("tp2_gloo: overlapped train step %r against "
+                             "the monolithic loss %r"
+                             % ((ot0, ot1), r0["train_losses"][0]))
+    expect_launches(ot0["launches"],
+                    {"flash_fwd_tc": layers, "flash_bwd_dq": layers,
+                     "flash_bwd_dkv": layers, "flash_bwd": 0},
+                    "tp2_gloo train overlap")
     return line
 
 
@@ -2543,25 +2678,40 @@ def tp2_gloo(torch, cfg, default_losses, steps=3, timeout=600.0):
     """Two processes on the one card, a gloo world over CUDA tensors: GPT-2
     345M (``cfg``, the train weights' seed) in bf16, ``DecodeEngine(tp=2)``
     greedy on TP2_PROMPTS prompts against the tp=1 engine, then ``steps``
-    train steps at dp1 x mp2 against the default step's losses
-    (:func:`tp2_hold`).  Gloo stages every collective through the host:
-    the phase's times are not a tensor-parallel speed."""
-    import socket
-
-    import torch.multiprocessing as mp
+    train steps at dp1 x mp2 against the default step's losses, and the
+    overlapped (``mp_overlap``) engines, per layer and scan-layers, and
+    train step against the monolithic ones (:func:`tp2_hold`).  Gloo
+    stages every collective through the host: the phase's times are not
+    a tensor-parallel speed, nor an overlap speed."""
     rng = np.random.default_rng(17)
     spec = {"cfg": cfg, "seed": 0, "amp": True, "steps": steps,
             "new_tokens": TP2_NEW_TOKENS, "default_losses": default_losses,
             "prompts": [rng.integers(0, cfg.vocab_size, 64).tolist()
                         for _ in range(TP2_PROMPTS)]}
+    t0 = time.perf_counter()
+    outs = gloo_pair("tp2_rank", spec, timeout)
+    # a prefill chunk a prompt, then one decode step a new token
+    line = tp2_hold(outs, spec, TP2_PROMPTS + TP2_NEW_TOKENS)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+def gloo_pair(job, spec, timeout):
+    """Run ``job`` (:func:`gloo_rank_main`) in two processes on the one
+    card, a gloo world over CUDA tensors; the ranks' results in rank
+    order, or AssertionError with a failed rank's traceback.  Every
+    process is joined, or killed, before the call returns."""
+    import socket
+
+    import torch.multiprocessing as mp
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=tp2_rank_main,
-                         args=(r, port, spec, results)) for r in range(2)]
-    t0 = time.perf_counter()
+    procs = [ctx.Process(target=gloo_rank_main,
+                         args=(r, port, job, spec, results))
+             for r in range(2)]
     for p in procs:
         p.start()
     outs, errors = {}, []
@@ -2579,10 +2729,140 @@ def tp2_gloo(torch, cfg, default_losses, steps=3, timeout=600.0):
                 p.kill()
                 p.join(10)
     if errors:
-        raise AssertionError("tp2_gloo failed:\n" + "\n".join(errors))
-    # a prefill chunk a prompt, then one decode step a new token
-    line = tp2_hold([outs[0], outs[1]], spec,
-                    TP2_PROMPTS + TP2_NEW_TOKENS)
+        raise AssertionError("%s failed:\n%s" % (job, "\n".join(errors)))
+    return [outs[0], outs[1]]
+
+
+def zero_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``zero_gloo`` in a world of two that is up, on
+    the mesh {"sdp": 2}: for each ZeRO stage, ``spec["steps"]`` steps of
+    the train step (``spec``: "cfg", "seed", "amp", "steps") with the
+    batch sharded over ``sdp`` (4 of the 8 rows a rank) from a fresh copy
+    of the weights: the losses, the launches, the collectives a step, the
+    bytes of AdamW slots and of f32 masters the rank holds, and the
+    peak of the allocator over the stage."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    D.init_mesh({"sdp": 2})
+    base = GPTForCausalLM(spec["cfg"],
+                          generator=torch.Generator().manual_seed(
+                              spec["seed"]))
+    ids = train_ids(torch, spec["cfg"].vocab_size, device)
+    steps = spec["steps"]
+    numel = sum(p.numel() for p in base.parameters())
+    out = {"rank": D.get_rank(), "params": numel,
+           # AdamW's two f32 moments of every parameter, unsharded
+           "full_slots_bytes": 2 * 4 * numel, "stages": {}}
+    for stage in (1, 2, 3):
+        tm = train_model(torch, base, amp, device) if spec["amp"] else \
+            copy.deepcopy(base).to(device)
+        if device != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        step = make_step(tm, device=device, zero_stage=stage,
+                         in_shardings=PartitionSpec("sdp", None))
+        C.reset_counts()
+        losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+        issued = {k: v / steps for k, v in C.issued().items()}
+        z = step._zero
+        out["stages"][stage] = {
+            "losses": losses, "launches": launches,
+            "step_host_ms_over_gloo": ms, "collectives_per_step": issued,
+            "sliced_masters": sum(d is not None for d in z.dims.values()),
+            "masters": len(z.dims),
+            "slots_bytes": slots_bytes(step.opt_state),
+            "masters_bytes": int(sum(t.numel() * t.element_size()
+                                     for t in step.params.values())),
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if device != "cpu" else None)}
+        del step, tm
+    return out
+
+
+def slots_bytes(opt_state):
+    """The bytes of the optimizer slot tensors a step holds."""
+    return int(sum(v.numel() * v.element_size()
+                   for slots in opt_state["slots"].values()
+                   for v in slots.values() if hasattr(v, "element_size")))
+
+
+def zero_hold(outs, spec, default_losses):
+    """zero_gloo's checks over both ranks' results: at every stage the
+    same losses on both ranks, each within PARITY_LOSS_TOL of the default
+    step's (tp2_gloo's train tolerance: the batch's halves summed in
+    another order); the slots a rank holds 45-55% of the unsharded
+    ones; stage 2 and 3 reduce-scatter, stage 1 does not; stage 3's
+    masters about half of stages 1-2's; the flash forward and the split
+    backward once a layer a step.  Returns the line."""
+    r0, r1 = outs
+    layers = spec["cfg"].num_hidden_layers
+    steps = spec["steps"]
+    line = {"phase": "zero_gloo", "backend": "gloo", "device": "cuda",
+            "mesh": {"sdp": 2}, "steps": steps, "params": r0["params"],
+            "full_slots_bytes": r0["full_slots_bytes"],
+            "default_losses": default_losses[:steps],
+            "loss_tol": PARITY_LOSS_TOL, "stages": {}}
+    for stage in (1, 2, 3):
+        a, b = r0["stages"][stage], r1["stages"][stage]
+        line["stages"][stage] = {
+            "losses": a["losses"],
+            "max_loss_diff": max(abs(x - y) for x, y in zip(
+                a["losses"], default_losses)),
+            "slots_bytes": [a["slots_bytes"], b["slots_bytes"]],
+            "slots_share": [x["slots_bytes"] / r0["full_slots_bytes"]
+                            for x in (a, b)],
+            "masters_bytes": [a["masters_bytes"], b["masters_bytes"]],
+            "max_memory_allocated": [a["max_memory_allocated"],
+                                     b["max_memory_allocated"]],
+            "sliced_masters": a["sliced_masters"], "masters": a["masters"],
+            "collectives_per_step": a["collectives_per_step"],
+            "step_host_ms_over_gloo": a["step_host_ms_over_gloo"],
+            "launches": a["launches"]}
+    emit(line)
+    for stage, st in line["stages"].items():
+        a, b = r0["stages"][stage], r1["stages"][stage]
+        if a["losses"] != b["losses"]:
+            raise AssertionError("zero_gloo: stage %d, the ranks' losses "
+                                 "differ" % stage)
+        if not (all(math.isfinite(x) for x in st["losses"])
+                and st["max_loss_diff"] <= PARITY_LOSS_TOL):
+            raise AssertionError("zero_gloo: stage %d losses %r, default %r"
+                                 % (stage, st["losses"], default_losses))
+        if not all(0.45 <= x <= 0.55 for x in st["slots_share"]):
+            raise AssertionError("zero_gloo: stage %d slots %r of %d bytes"
+                                 % (stage, st["slots_bytes"],
+                                    r0["full_slots_bytes"]))
+        rs = st["collectives_per_step"].get("reduce_scatter", 0)
+        if (rs > 0) != (stage >= 2):
+            raise AssertionError("zero_gloo: stage %d issued %r"
+                                 % (stage, st["collectives_per_step"]))
+        expect_launches(st["launches"],
+                        {"flash_fwd_tc": layers * steps,
+                         "flash_bwd_dq": layers * steps,
+                         "flash_bwd_dkv": layers * steps, "flash_bwd": 0},
+                        "zero_gloo stage %d" % stage)
+    m3 = line["stages"][3]["masters_bytes"][0]
+    m2 = line["stages"][2]["masters_bytes"][0]
+    if not 0.45 <= m3 / m2 <= 0.55:
+        raise AssertionError("zero_gloo: stage 3 masters %d bytes against "
+                             "stage 2's %d" % (m3, m2))
+    return line
+
+
+def zero_gloo(torch, cfg, default_losses, steps=2, timeout=600.0):
+    """Two processes on the one card, a gloo world over CUDA tensors on
+    the mesh {"sdp": 2}: the train step (GPT-2 345M, ``cfg``, AMP O2,
+    AdamW) at ZeRO stages 1, 2 and 3, ``steps`` steps each with the
+    batch sharded over ``sdp``, against the default step's losses
+    (:func:`zero_hold`).  Gloo stages every collective through the host:
+    the phase's times are not a ZeRO speed."""
+    spec = {"cfg": cfg, "seed": 0, "amp": True, "steps": steps}
+    t0 = time.perf_counter()
+    line = zero_hold(gloo_pair("zero_rank", spec, timeout), spec,
+                     default_losses)
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -2596,7 +2876,10 @@ def autotune_warm(torch, at, fac):
     temporary file).  One line per key: its timing table, the winner and
     the refused candidates."""
     limit = at.smem_limit(torch.device("cuda"))
-    pairs = at.standard_keys() + [("flash_fwd", fac.autotune_key(
+    # the mp_overlap key times a ring over two ranks: a world of one has
+    # no ring to time
+    pairs = [(f, k) for f, k in at.standard_keys()
+             if f != "mp_overlap"] + [("flash_fwd", fac.autotune_key(
         1, 1024, 1024, 4, 256, torch.bfloat16, True, "cuda"))]
     t0 = time.perf_counter()
     winners = at.warm(pairs, verbose=False)
@@ -4783,6 +5066,66 @@ def serve_fleet(torch, model, prompts, ref_tokens, own, own_ref, counters,
     return phase_end(torch, line, t0)
 
 
+def distributed(torch, base, train_cfg, amp, counters, run_train, seconds):
+    """The distributed phases, timed into ``seconds``: dist_nccl and
+    train_dp on an NCCL world of one, then the two-process gloo phases
+    tp2_gloo and zero_gloo.  Returns their lines (train_dp, tp2_gloo,
+    zero_gloo)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import mesh as dist_mesh
+    t0 = time.perf_counter()
+    dist_nccl(torch)
+    seconds["dist_nccl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_dp = train_dp(torch, base, amp, counters, run_train["losses"],
+                      run_train)
+    dist.destroy_process_group()
+    dist_mesh.set_mesh(None)
+    seconds["train_dp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    run_tp2 = tp2_gloo(torch, train_cfg, run_train["losses"])
+    seconds["tp2_gloo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_zero = zero_gloo(torch, train_cfg, run_train["losses"])
+    seconds["zero_gloo"] = time.perf_counter() - t0
+    return run_dp, run_tp2, run_zero
+
+
+def device_line(torch, kind):
+    """The card's name and power limit, then the device line (the last
+    line of the output)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+def distributed_only(torch, kind, amp, flags, counters):
+    """``--distributed``: the train phase (its losses are the reference)
+    and :func:`distributed`, then the device line — the distributed
+    phases alone, without the kernel checks and serving phases."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    seconds = {}
+    t0 = time.perf_counter()
+    train_cfg = dataclasses.replace(GPTConfig.gpt2_medium(),
+                                    hidden_dropout_prob=0.0,
+                                    attention_dropout_prob=0.0)
+    base = GPTForCausalLM(train_cfg,
+                          generator=torch.Generator().manual_seed(0))
+    run_train = train(torch, base, amp, counters, flags)
+    torch.cuda.empty_cache()
+    seconds["train"] = time.perf_counter() - t0
+    distributed(torch, base, train_cfg, amp, counters, run_train, seconds)
+    emit({"phase": "seconds", **seconds})
+    device_line(torch, kind)
+    return 0
+
+
 def main():
     # a fault in native code prints the Python stack of every thread
     faulthandler.enable(all_threads=True)
@@ -4838,6 +5181,9 @@ def main():
     for var in ("PADDLE_TPU_AUTOTUNE", "PADDLE_TPU_AUTOTUNE_PIN"):
         os.environ.pop(var, None)
     flags.set_flags({"autotune": False, "autotune_pin": ""})
+    if "--distributed" in sys.argv:
+        return distributed_only(torch, kind, amp, flags,
+                                Counters(fac, norm_cuda, ce_cuda))
 
     seconds = {}
     t0 = time.perf_counter()
@@ -5164,21 +5510,8 @@ def main():
     run_rc = train_recompute(torch, base, amp, counters, run_train["losses"],
                              run_train)
     seconds["train_recompute"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dist_nccl(torch)
-    seconds["dist_nccl"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    run_dp = train_dp(torch, base, amp, counters, run_train["losses"],
-                      run_train)
-    import torch.distributed as dist
-    from paddle_tpu_torch.distributed import mesh as dist_mesh
-    dist.destroy_process_group()
-    dist_mesh.set_mesh(None)
-    seconds["train_dp"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    run_tp2 = tp2_gloo(torch, train_cfg, run_train["losses"])
-    seconds["tp2_gloo"] = time.perf_counter() - t0
+    run_dp, run_tp2, run_zero = distributed(torch, base, train_cfg, amp,
+                                            counters, run_train, seconds)
     t0 = time.perf_counter()
     parity = train_parity(torch, base, amp, flags, counters)
     torch.cuda.empty_cache()
@@ -5242,7 +5575,13 @@ def main():
         (3 steps each; the slotted scan engine's admissions)."""
         out = {"train_stack": run_stack["launches"][kern],
                "train_dp": run_dp["launches"][kern],
-               "tp2_gloo_rank0_train": run_tp2["train_launches"][kern]}
+               "train_dp_zero2": run_dp["zero2"]["launches"][kern],
+               "tp2_gloo_rank0_train": run_tp2["train_launches"][kern],
+               "tp2_gloo_rank0_train_overlap":
+                   run_tp2["overlap_train"]["launches"][kern]}
+        out.update({"zero_gloo_rank0_stage%d" % stage:
+                    run_zero["stages"][stage]["launches"][kern]
+                    for stage in (1, 2, 3)})
         out["train_scan"] = run_scan[0]["launches"][kern]
         out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
                     for r in run_rc})
@@ -5512,6 +5851,9 @@ def main():
                 r["layer_norm_fwd_launches"] for r in scan_line["runs"]},
              "tp2_gloo_rank0_serve":
                  run_tp2["serve_launches"]["layer_norm_fwd"],
+             **{"tp2_gloo_rank0_serve_overlap_" + name:
+                run_tp2["overlap"][name]["launches"]["layer_norm_fwd"]
+                for name in ("per_layer", "scan")},
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_fwd"]},
@@ -5597,13 +5939,7 @@ def main():
              "plain_device_ms", "bound_ms", "bound_share", "library_ms",
              "library_device_ms")} for r in soft[1:]]}]})
     tune_dir.cleanup()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+    device_line(torch, kind)
     return 0
 
 

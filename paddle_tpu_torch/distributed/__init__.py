@@ -6,18 +6,21 @@ ranks form a grid with named axes (:mod:`.mesh`), collectives run over the
 process group of a rank's slice along an axis (:mod:`.collective`),
 parameters keep the slice their rank's coordinate names
 (:func:`parallelize`), and the Megatron layers run their collectives by
-hand (:mod:`.mp_layers`).  Also here: :mod:`.store`, the TCP key-value
-store, and :mod:`.recompute`, activation recompute.
+hand (:mod:`.mp_layers`), or, with the overlap switch on, as rings of
+permutes overlapped with the partial matmuls (:mod:`.mp_overlap`).
+ZeRO (:mod:`.sharding`) slices the optimizer state, the gradients and
+the masters over the ``sdp`` axis.  Also here: :mod:`.store`, the TCP
+key-value store, and :mod:`.recompute`, activation recompute.
 
-Not ported yet (ROADMAP.md §A5): the overlapped collective-matmul
-islands (``mp_overlap``), ZeRO sharding, pipelines, ring attention, MoE,
+Not ported yet (ROADMAP.md §A5): pipelines, ring attention, MoE,
 ``auto_parallel``, ``fleet`` and the launcher (``launch`` raises).
 """
 from __future__ import annotations
 
 import os
 
-from . import collective, mesh, mp_layers, store  # noqa: F401
+from . import collective, mesh, mp_layers, mp_overlap, sharding  # noqa
+from . import store  # noqa: F401
 from .collective import (ReduceOp, all_gather, all_gather_object, all_reduce,
                          all_to_all, all_to_all_single, alltoall, barrier,
                          broadcast, get_group, irecv, isend, new_group, recv,
@@ -28,6 +31,8 @@ from .parallel_base import (DataParallel, ParallelEnv, get_rank,
                             get_world_size, init_parallel_env, is_initialized,
                             parallelize, shard_dataloader, shard_tensor)
 from .recompute import recompute, recompute_sequential  # noqa: F401
+from .sharding import (group_sharded_parallel,  # noqa: F401
+                       save_group_sharded_model)
 from .store import StoreReplyLostError, TCPStore  # noqa: F401
 
 __all__ = [

@@ -24,6 +24,9 @@ of a list is one ``all_to_all_single`` over the stacked list (gloo has
 no list form), and ``reduce`` reduces a copy so that the other ranks'
 tensors keep their values, as JAX's ``reduce`` leaves them.
 ``ReduceOp.PROD`` is a real product (JAX's is ``exp(psum(log x))``).
+:func:`ppermute` (``lax.ppermute``) is one ``all_to_all_single`` with
+uneven split sizes, since gloo aborts on ``send`` / ``recv`` of CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from . import mesh as _mesh
 __all__ = ["ReduceOp", "all_reduce", "all_gather", "all_gather_object",
            "reduce_scatter", "broadcast", "reduce", "scatter", "alltoall",
            "all_to_all", "all_to_all_single", "send", "recv", "isend",
-           "irecv", "barrier", "new_group", "get_group", "wait",
+           "irecv", "ppermute", "barrier", "new_group", "get_group", "wait",
            "split_group_axis", "Group", "issued", "reset_counts"]
 
 
@@ -308,6 +311,68 @@ def all_to_all_single(in_tensor, out_tensor=None, in_split_sizes=None,
     dist.all_to_all_single(out_tensor, x, out_split_sizes, in_split_sizes,
                            group=g.pg)
     return out_tensor
+
+
+class _Permuted:
+    """A :func:`ppermute` in flight: ``wait()`` returns the tensor that
+    arrived."""
+
+    def __init__(self, out, work=None):
+        self._out, self._work = out, work
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        return self._out
+
+    def is_completed(self):
+        return self._work is None or self._work.is_completed()
+
+
+def _peers(perm, me, n):
+    """(destination, source) of group rank ``me`` in ``perm`` (None where
+    it sends or receives nothing); ``perm`` must pair each rank at most
+    once on each side, as ``lax.ppermute`` asks."""
+    pairs = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) \
+            or not all(0 <= r < n for r in srcs + dsts):
+        raise ValueError("ppermute: %r is not a permutation of the %d "
+                         "ranks of the group" % (perm, n))
+    dst = next((d for s, d in pairs if s == me), None)
+    src = next((s for s, d in pairs if d == me), None)
+    return dst, src
+
+
+def ppermute(tensor, perm, group=None, async_op=False):
+    """The counterpart of ``lax.ppermute``: ``perm`` lists ``(source,
+    destination)`` pairs of group ranks; this rank sends ``tensor`` to its
+    destination and returns what its source sent (zeros where no rank
+    sends to it, as in JAX).  One ``all_to_all_single`` with uneven split
+    sizes — the whole tensor to the one destination, nothing to the other
+    ranks — which gloo takes on CPU and CUDA tensors (where it aborts on
+    ``send`` / ``recv``) and NCCL on cards.  With ``async_op`` the call
+    returns a handle whose ``wait()`` gives the tensor, so the caller can
+    compute while the transfer runs.  Without a process group the
+    identity permutation returns the tensor itself."""
+    g = _resolve(group)
+    if g is None:
+        dst, src = _peers(perm, 0, 1)
+        out = tensor if src is not None else torch.zeros_like(tensor)
+        return _Permuted(out) if async_op else out
+    dst, src = _peers(perm, g.rank, g.nranks)
+    _issue("ppermute")
+    x = tensor.contiguous().reshape(-1)
+    n = int(x.numel())
+    out = (torch.empty_like(x) if src is not None
+           else torch.zeros_like(x))
+    work = dist.all_to_all_single(
+        out, x, [n if j == src else 0 for j in range(g.nranks)],
+        [n if j == dst else 0 for j in range(g.nranks)], group=g.pg,
+        async_op=async_op)
+    out = out.view(tensor.shape)
+    return _Permuted(out, work) if async_op else out
 
 
 def _p2p_group(group, peer):

@@ -17,7 +17,9 @@ runs the collectives Megatron writes by hand, as autograd functions:
   all-gathered or cut to the rank's piece, and the reverse backward.
 
 Without an ``mp`` group (``_mp_group`` None) every layer is its dense
-self.  ``shard_heads`` and ``with_sharding_constraint`` are layout notes
+self.  With the ``mp_overlap`` switch on, the column layer (without
+``gather_output``) and the row layer run its islands instead, as in the
+JAX package.  ``shard_heads`` and ``with_sharding_constraint`` are layout notes
 for GSPMD: eager PyTorch has nothing to constrain, and they return their
 input.
 """
@@ -194,7 +196,14 @@ class ColumnParallelLinear(nn.Module):
             self.bias = None
 
     def forward(self, x):
+        from . import mp_overlap as _mpo
         g = _group_of(self)
+        if g is not None and not self.gather_output and _mpo.col_viable(
+                self.in_features, self.out_features, group=g):
+            # overlapped: the same local forward, dx's all-reduce as the
+            # permute ring in the backward
+            return _mpo.column_parallel_matmul(x, self.weight, self.bias,
+                                               group=g)
         y = copy_to_mp(x, g) @ self.weight
         if self.bias is not None:
             y = y + self.bias
@@ -222,12 +231,18 @@ class RowParallelLinear(nn.Module):
                      else None)
 
     def forward(self, x):
+        from . import mp_overlap as _mpo
         g = _group_of(self)
         if g is None:
             y = x @ self.weight
         else:
             if not self.input_is_parallel:
                 x = scatter_to_mp(x, g)
+            if _mpo.row_viable(self.in_features, group=g):
+                # overlapped: the all-reduce as the reduce-scatter /
+                # all-gather permute ring, a shard-local backward
+                return _mpo.row_parallel_matmul(x, self.weight, self.bias,
+                                                 group=g)
             y = reduce_from_mp(x @ self.weight, g)
         return y if self.bias is None else y + self.bias
 

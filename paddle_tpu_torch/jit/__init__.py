@@ -63,8 +63,25 @@ batch's mean loss when every rank's rows weigh alike.  A model that
 ``distributed.parallelize`` sliced over ``mp`` keeps its shards as
 masters; the global-norm clip sums their squares over ``mp``
 (``nn.clip.global_norm_sq``), and ``flat_master`` packs only the
-replicated ones.  ``zero_stage`` is not ported yet (ROADMAP.md §A5) and
-raises.
+replicated ones.
+
+``zero_stage`` (1, 2 or 3) shards the step over the ``zero_axis`` group
+of the global mesh (``"sdp"``; :mod:`..distributed.sharding`): each rank
+owns the slice of each master that ``_stage_spec_for`` picks, and keeps
+only its slices of the optimizer slots (stage 1); its gradients are
+reduce-scattered onto those slices where they would be all-reduced
+(stage 2: the batch sharded over ``zero_axis``; with the batch on
+another axis or on none, each rank's gradients are already the global
+ones and the reduce-scatter averages equal values); and the masters rest
+as slices between steps (stage 3), all-gathered, written into the model
+and freed at the start of the next step or at :meth:`sync_to_model`, so
+under stage 3 the model's parameters take an update when the next step
+starts.  Each rank updates its slices, and stages 1 and 2 all-gather the
+updated masters before the write-back.  The global-norm clip sums the
+squares of the slices over the group.  ``state_dict`` gives the full
+masters and slots, and ``set_state_dict`` takes them, so a checkpoint
+is the same with and without ZeRO.  As in the JAX step, a ``zero_axis``
+of size <= 1 on a mesh of more than one rank raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -139,10 +156,6 @@ class TrainStep:
                 "flat_master=True is incompatible with this configuration "
                 "(ZeRO/stack_layers/per-param optimizer semantics — see "
                 "_flat_eligible)")
-        if zero_stage:
-            raise NotImplementedError(
-                "TrainStep(zero_stage=...) is not ported yet (ROADMAP.md "
-                "§A5)")
         self._batch_axis, self._in_specs = _batch_axis(in_shardings)
         self._dp_group = None
         self._dp_bufs = {}
@@ -191,7 +204,20 @@ class TrainStep:
             for template, names in self._stack.items():
                 if names[0] in self._mp_groups:
                     self._mp_groups[template] = self._mp_groups[names[0]]
-        self.opt_state = optimizer.init_state(self.params)
+        # ZeRO: this rank's slices of the masters; the slots are made on
+        # them, and under stage 3 the masters rest as them
+        self._zero = None
+        self._zero_stale = False
+        if zero_stage:
+            from ..distributed.sharding import ZeroPartition
+            self._zero = ZeroPartition(self.params, zero_stage, zero_axis)
+            local = self._zero.cut_all(self.params)
+            self.opt_state = optimizer.init_state(local)
+            if self._zero.stage >= 3:
+                self.params = {n: t.clone() if self._zero.sliced(n) else t
+                               for n, t in local.items()}
+        else:
+            self.opt_state = optimizer.init_state(self.params)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
         for m in model.modules():
@@ -358,7 +384,51 @@ class TrainStep:
                 grads[n] = flat[o:o + k].view(grads[n].shape)
                 o += k
 
+    @torch.no_grad()
+    def _zero_grads(self, grads):
+        """ZeRO's gradients, in place: the averaged gradient of each
+        sliced master as this rank's slice of it — reduce-scattered over
+        the ZeRO group (stage 2 and 3; after the batch axis's all-reduce
+        where the batch is sharded over another axis), or cut from the
+        averaged full gradient (stage 1)."""
+        z = self._zero
+        sliced = [n for n in grads if z.sliced(n)]
+        if z.stage >= 2 and self._batch_axis == z.axis:
+            # the reduce-scatter is the average over the batch axis
+            whole = {n: g for n, g in grads.items() if not z.sliced(n)}
+            if whole:
+                self._average_grads(whole)
+                grads.update(whole)
+        elif self._dp_group is not None:
+            self._average_grads(grads)
+        for n in sliced:
+            grads[n] = (z.reduce_scatter(n, grads[n]) if z.stage >= 2
+                        else z.cut(n, grads[n]))
+
+    def _zero_masters(self):
+        """Stage 3: the full masters gathered from the slices (the
+        write-back's input; freed after it)."""
+        z = self._zero
+        return {n: z.gather(n, t) for n, t in self.params.items()}
+
+    def _shard_groups(self):
+        """{name: group or groups} of every master a rank holds a part
+        of (tensor-parallel shards, ZeRO slices): the global-norm clip sums
+        their squares over them."""
+        out = dict(self._mp_groups)
+        z = self._zero
+        if z is not None:
+            for n in self.params:
+                if z.sliced(n):
+                    mp = out.get(n)
+                    out[n] = z.group if mp is None else (mp, z.group)
+        return out
+
     def __call__(self, *batch):
+        if self._zero_stale:
+            # stage 3: the last step's update reaches the model now
+            self._write_model_params(self._zero_masters())
+            self._zero_stale = False
         batch = [self._as_tensor(b) for b in self._local_batch(batch)]
         lr = self.optimizer.get_lr()
         self.model.train()
@@ -386,15 +456,29 @@ class TrainStep:
                     g = p.grad if p.grad is not None else torch.zeros_like(p)
                     grads[n] = g.float() if n in self._compute_dtypes else g
                 p.grad = None
-            if self._dp_group is not None:
+            if self._zero is not None:
+                self._zero_grads(grads)
+            elif self._dp_group is not None:
                 self._average_grads(grads)
             # the shards' groups only where there are shards: the
             # optimizer's interface is otherwise the JAX step's
-            extra = {"mp_groups": self._mp_groups} if self._mp_groups \
-                else {}
-            self.params, self.opt_state = self.optimizer.apply_gradients(
-                self.params, grads, self.opt_state, lr, **extra)
-            self._write_model_params()
+            groups = self._shard_groups()
+            extra = {"mp_groups": groups} if groups else {}
+            z = self._zero
+            # this rank's slices (stage 3's masters rest as them)
+            params = (self.params if z is None or z.stage >= 3
+                      else z.cut_all(self.params))
+            params, self.opt_state = self.optimizer.apply_gradients(
+                params, grads, self.opt_state, lr, **extra)
+            if z is None:
+                self.params = params
+                self._write_model_params()
+            elif z.stage >= 3:
+                self.params = params
+                self._zero_stale = True
+            else:
+                self.params = {n: z.gather(n, t) for n, t in params.items()}
+                self._write_model_params()
         sched = self.optimizer._learning_rate
         if isinstance(sched, LRScheduler):
             sched.step()
@@ -406,9 +490,12 @@ class TrainStep:
         return loss
 
     @torch.no_grad()
-    def _write_model_params(self):
+    def _write_model_params(self, params=None):
+        """The masters (``params``, default the step's) cast into the
+        model's parameters."""
+        params = self.params if params is None else params
         for g0, g1, buf, names in self._flat_groups:
-            buf.copy_(self.params[_FLAT_KEY][g0:g1])
+            buf.copy_(params[_FLAT_KEY][g0:g1])
             # a parameter repointed by ``p.data = view`` keeps its own
             # version counter, which a write through the buffer leaves
             # alone: bump it, so readers that key on ``_version`` (the
@@ -418,16 +505,22 @@ class TrainStep:
         for template, names in self._stack.items():
             # one cast of the (L, ...) master into the members' buffer;
             # the members are views of it, repointed like the flat ones
-            self._stack_bufs[template].copy_(self.params[template])
+            self._stack_bufs[template].copy_(params[template])
             for n in names:
                 increment_version(self._model_params[n])
         for n, p in self._model_params.items():
-            if n in self.params:
-                p.copy_(self.params[n])
+            if n in params:
+                p.copy_(params[n])
 
     def sync_to_model(self):
         """Write the masters into the model's parameters (each step
-        already does; kept for the JAX step's interface)."""
+        already does, but for ZeRO stage 3, whose masters rest as slices;
+        kept for the JAX step's interface).  A collective under stage 3:
+        every rank of the ZeRO group calls it."""
+        if self._zero is not None and self._zero.stage >= 3:
+            self._write_model_params(self._zero_masters())
+            self._zero_stale = False
+            return
         self._write_model_params()
 
     # -- checkpoint contract ------------------------------------------------
@@ -439,6 +532,14 @@ class TrainStep:
         if hasattr(sched, "state_dict"):
             opt_extra["lr_scheduler"] = sched.state_dict()
         slots = {n: dict(s) for n, s in self.opt_state["slots"].items()}
+        params = self.params
+        z = self._zero
+        if z is not None:
+            # the full slots and masters, gathered from the slices
+            slots = {n: {k: z.gather(n, v) if _sliceable(v) else v
+                         for k, v in s.items()} for n, s in slots.items()}
+            if z.stage >= 3:
+                params = self._zero_masters()
         for template, names in self._stack.items():
             grp = slots.pop(template)
             for i, n in enumerate(names):
@@ -448,7 +549,7 @@ class TrainStep:
             for n, o, size, shape in self._flat_members():
                 slots[n] = {k: v[o:o + size].view(shape)
                             for k, v in flat.items()}
-        return {"params": self._unstacked(self._unflat(self.params)),
+        return {"params": self._unstacked(self._unflat(params)),
                 "buffers": dict(self.buffers),
                 "opt_state": {
                     "slots": slots,
@@ -486,6 +587,15 @@ class TrainStep:
             raise KeyError("state params differ: missing %s, unexpected %s"
                            % (sorted(names - set(params)),
                               sorted(set(params) - names)))
+        z = self._zero
+        if z is not None:
+            # this rank's slices of the full masters and slots
+            if z.stage >= 3:
+                params = {n: z.cut(n, torch.as_tensor(v))
+                          for n, v in params.items()}
+            in_slots = {n: {k: z.cut(n, torch.as_tensor(v))
+                            if _sliceable(v) else v for k, v in s.items()}
+                        for n, s in in_slots.items()}
         self.params = {n: place_like(v, self.params[n])
                        for n, v in params.items()}
         with torch.no_grad():
@@ -504,7 +614,11 @@ class TrainStep:
         saved = state.get("opt_extra", {}).get("lr_scheduler")
         if saved is not None and hasattr(sched, "set_state_dict"):
             sched.set_state_dict(dict(saved))
-        self._write_model_params()
+        self.sync_to_model()
+
+
+def _sliceable(v):
+    return getattr(v, "ndim", 0) > 0
 
 
 def _batch_axis(in_shardings):

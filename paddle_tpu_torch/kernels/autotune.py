@@ -494,10 +494,14 @@ def standard_keys() -> List[tuple]:
     1024-token cache) and the paged one there (pages of 64, 16 a slot, a
     pool for all 8 at full depth): one token a step, the int8 pool, and
     the speculative verify step (``qlen`` 5, four drafts), as the JAX
-    package's keys, and the tensor-parallel paged key (tp=2: 8 of the
-    16 heads a rank).  Its other families (ce_lse, ln, mp_overlap) are
-    not registered here (ROADMAP §C)."""
+    package's keys, the tensor-parallel paged key (tp=2: 8 of the 16
+    heads a rank), and the chunk count of the tp=2 row ring at the
+    projection shape (the ``mp_overlap`` family of
+    :mod:`paddle_tpu_torch.distributed.mp_overlap`, timed over two
+    ranks).  The families ce_lse and ln are not registered (ROADMAP
+    §C)."""
     _import_kernel_families()
+    from ..distributed import mp_overlap as mpo
     from . import decode_attention as dat
     from . import flash_attention_cuda as fac
     dtype = "bfloat16" if platform() == "gpu" else "float32"
@@ -512,7 +516,9 @@ def standard_keys() -> List[tuple]:
                              "flash_bwd_dkv")] + [
         ("decode_attn", dat.autotune_key(slots=8, t=1024, h=16, d=64,
                                          qlen=1, dtype=dtype)),
-        paged(1), paged(1, "int8"), paged(5), paged(1, tp=2)]
+        paged(1), paged(1, "int8"), paged(5), paged(1, tp=2),
+        ("mp_overlap", mpo.autotune_key(kind="row", m=8, k=4096 // 2,
+                                        n=1024, n_dev=2, dtype=dtype))]
 
 
 def warm(pairs=None, verbose: bool = True) -> List[dict]:

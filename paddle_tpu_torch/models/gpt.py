@@ -27,9 +27,23 @@ column-parallel matmul passes :func:`copy_to_mp`, the output of each
 row-parallel one :func:`reduce_from_mp` before its (replicated) bias, the
 token lookup is vocab-parallel, and the tied LM head returns the rank's
 vocab shard of the logits, tagged so that the loss takes the
-vocab-parallel softmax-CE.  The stacked layout at ``mp > 1`` raises
-(ROADMAP.md §A5).  Not ported (ROADMAP.md §A5): the tensor-parallel
-overlap islands (``mp_overlap``).
+vocab-parallel softmax-CE.  The stacked layout runs the same
+collectives at ``mp > 1``: ``parallelize`` deals its (L, ...) parameters
+on the dims of their per-layer counterparts, q/k/v by heads in every
+layer's slice.
+
+**Overlap islands.**  With the ``mp_overlap`` switch on
+(``overlap_comm``; :mod:`..distributed.mp_overlap`), the sites of the
+JAX package's islands run them over the model's ``mp`` group: the
+``out_proj`` and ``fc2`` row matmuls as the reduce-scatter / all-gather
+ring (per layer and in the stacked block) and the tied LM head as the
+rotate-weights ring, whose full logits the loss then takes by the plain
+softmax-CE, as in JAX.  (The vocab-parallel lookup is JAX's
+``vocab_embed`` island with the switch on or off.)  Under a serving
+cache the fused q/k/v projection is the JAX ``qkv_heads`` island's
+place; the rank's projection here is dealt by heads already, so it is
+the local matmul, counted as an island (ROADMAP.md §C).  Off, or on a
+model without an ``mp`` group, every site is the monolithic one.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed import mp_overlap as _mpo
 from ..distributed.mesh import PartitionSpec as P
 from ..distributed.mp_layers import (copy_to_mp, mark_vocab_parallel,
                                      reduce_from_mp, vocab_parallel_embedding)
@@ -87,12 +102,33 @@ def _column(x, lin, group):
     return lin(copy_to_mp(x, group))
 
 
-def _row(x, lin, group):
-    """A row-parallel ``Linear``: the partial products summed over
-    ``group``, then the replicated bias."""
+def _row_raw(x, w, b, group, k_dim):
+    """A row-parallel ``x @ w + b`` over the rank's rows ``w`` of a
+    contraction dim of global size ``k_dim``: the overlapped ring where
+    the switch is on, else the partial products summed over ``group``,
+    then the replicated bias."""
+    if group is None:
+        return x @ w + b
+    if _mpo.row_viable(k_dim, group=group):
+        return _mpo.row_parallel_matmul(x, w, b, group=group)
+    return reduce_from_mp(x @ w, group) + b
+
+
+def _row(x, lin, group, k_dim):
+    """A row-parallel ``Linear`` (:func:`_row_raw`)."""
     if group is None:
         return lin(x)
-    return reduce_from_mp(x @ lin.weight, group) + lin.bias
+    return _row_raw(x, lin.weight, lin.bias, group, k_dim)
+
+
+def _note_qkv_island(num_heads, head_dim, group, cache):
+    """Under a serving cache, the JAX model runs the ``qkv_heads`` island
+    at the fused projection; the port's rank holds the q, k and v columns
+    of its own heads already, so its island is the local projection:
+    counted as JAX counts it."""
+    if cache is not None and group is not None \
+            and _mpo.qkv_viable(num_heads, head_dim, group=group):
+        _mpo._note_chunks(1)
 
 
 @dataclasses.dataclass
@@ -157,6 +193,7 @@ class GPTAttention(nn.Module):
     def forward(self, x, cache=None):
         b, s, _ = x.shape
         g = _mp(self)
+        _note_qkv_island(self.num_heads, self.head_dim, g, cache)
         qkv = _column(x, self.qkv_proj, g)
         # this rank's width: all heads, or its heads / mp under mp
         hd = self.head_dim
@@ -175,7 +212,8 @@ class GPTAttention(nn.Module):
                 q, k, v, dropout_p=self.attn_dropout_p, is_causal=True,
                 training=self.training, generator=self.generator)
         out = out.reshape(b, s, h)
-        return self.resid_dropout(_row(out, self.out_proj, g))
+        return self.resid_dropout(_row(out, self.out_proj, g,
+                                       self.hidden_size))
 
 
 class GPTMLP(nn.Module):
@@ -185,11 +223,13 @@ class GPTMLP(nn.Module):
         self.fc1 = Linear(c.hidden_size, c.intermediate_size)
         self.fc2 = Linear(c.intermediate_size, c.hidden_size)
         self.dropout = Dropout(c.hidden_dropout_prob)
+        self.intermediate_size = c.intermediate_size
 
     def forward(self, x):
         g = _mp(self)
         return self.dropout(_row(F.gelu(_column(x, self.fc1, g),
-                                        approximate=True), self.fc2, g))
+                                        approximate=True), self.fc2, g,
+                                 self.intermediate_size))
 
 
 class GPTBlock(nn.Module):
@@ -216,13 +256,15 @@ _SCAN_FIELD_MAP = {
 }
 
 
-def _scan_block_apply(x, p, cfg, training, generator=None, cache=None):
+def _scan_block_apply(x, p, cfg, training, generator=None, cache=None,
+                      group=None):
     """One block over the per-layer tensors ``p`` (views of the stacked
     parameters).  The same functionals in the same order as
     :class:`GPTBlock` (``h @ w + b`` as ``Linear``, ``F.layer_norm``,
     ``F.gelu(approximate=True)``, ``F.scaled_dot_product_attention`` or
     the cache view's ``attend``, dropout masks drawn from ``generator`` in
-    the per-layer block's order), so both layouts give the same bits."""
+    the per-layer block's order, and under an ``mp`` ``group`` the same
+    collectives and islands), so both layouts give the same bits."""
     h_sz = cfg.hidden_size
     nh = cfg.num_attention_heads
     hd = h_sz // nh
@@ -230,23 +272,29 @@ def _scan_block_apply(x, p, cfg, training, generator=None, cache=None):
     p_drop = cfg.hidden_dropout_prob
     h = F.layer_norm(x, [h_sz], p["ln1_w"], p["ln1_b"],
                      cfg.layer_norm_epsilon)
-    qkv = h @ p["qkv_w"] + p["qkv_b"]
-    q = qkv[:, :, :h_sz].reshape(b, s, nh, hd)
-    k = qkv[:, :, h_sz:2 * h_sz].reshape(b, s, nh, hd)
-    v = qkv[:, :, 2 * h_sz:].reshape(b, s, nh, hd)
+    _note_qkv_island(nh, hd, group, cache)
+    qkv = copy_to_mp(h, group) @ p["qkv_w"] + p["qkv_b"]
+    # this rank's width: all heads, or its heads / mp under mp
+    hl = qkv.shape[-1] // 3
+    nhl = hl // hd
+    q = qkv[:, :, :hl].reshape(b, s, nhl, hd)
+    k = qkv[:, :, hl:2 * hl].reshape(b, s, nhl, hd)
+    v = qkv[:, :, 2 * hl:].reshape(b, s, nhl, hd)
     if cache is not None:
         out = cache.attend(q, k, v)
     else:
         out = F.scaled_dot_product_attention(
             q, k, v, dropout_p=cfg.attention_dropout_prob, is_causal=True,
             training=training, generator=generator)
-    out = out.reshape(b, s, h_sz)
-    x = x + upscale_dropout(out @ p["out_w"] + p["out_b"], p_drop,
-                            training, generator)
+    out = out.reshape(b, s, hl)
+    x = x + upscale_dropout(_row_raw(out, p["out_w"], p["out_b"], group,
+                                     h_sz), p_drop, training, generator)
     h2 = F.layer_norm(x, [h_sz], p["ln2_w"], p["ln2_b"],
                       cfg.layer_norm_epsilon)
-    m = F.gelu(h2 @ p["fc1_w"] + p["fc1_b"], approximate=True)
-    return x + upscale_dropout(m @ p["fc2_w"] + p["fc2_b"], p_drop,
+    m = F.gelu(copy_to_mp(h2, group) @ p["fc1_w"] + p["fc1_b"],
+               approximate=True)
+    return x + upscale_dropout(_row_raw(m, p["fc2_w"], p["fc2_b"], group,
+                                        cfg.intermediate_size), p_drop,
                                training, generator)
 
 
@@ -297,7 +345,7 @@ class GPTScanBlocks(nn.Module):
 
     def _block(self, x, p, cache=None):
         return _scan_block_apply(x, p, self.config, self.training,
-                                 self.generator, cache)
+                                 self.generator, cache, _mp(self))
 
     def forward(self, x, cache=None):
         c = self.config
@@ -398,6 +446,8 @@ class GPTModel(nn.Module):
                 position_ids = torch.arange(
                     s, dtype=torch.int32, device=input_ids.device)[None, :]
         g = _mp(self)
+        # under mp, the masked local gather and one all-reduce: the JAX
+        # package's vocab_embed island, here with the switch on or off
         tok = (self.wte(input_ids) if g is None else
                vocab_parallel_embedding(input_ids, self.wte.weight, g))
         x = self.drop(tok + self.wpe(position_ids))
@@ -447,10 +497,6 @@ class GPTForCausalLM(nn.Module):
         if g is None:
             return
         c = self.config
-        if c.scan_layers:
-            raise NotImplementedError(
-                "the stacked layer layout (scan_layers) at mp > 1 is not "
-                "ported yet (ROADMAP.md §A5)")
         if c.num_attention_heads % g.nranks:
             raise ValueError("mp=%d must divide num_attention_heads=%d"
                              % (g.nranks, c.num_attention_heads))
@@ -476,12 +522,18 @@ class GPTForCausalLM(nn.Module):
         else:
             x = self.gpt(input_ids, position_ids)
         g = _mp(self)
-        if self.config.tie_word_embeddings:
-            logits = copy_to_mp(x, g) @ self.gpt.wte.weight.t()
+        if self.config.tie_word_embeddings and g is not None \
+                and _mpo.lm_viable(self.config.vocab_size, group=g):
+            # the rotate-weights ring: full logits on every rank, for the
+            # plain CE
+            logits = _mpo.lm_head_matmul(x, self.gpt.wte.weight, group=g)
         else:
-            logits = _column(x, self.lm_head, g)
-        # under mp: the rank's vocab shard, for the vocab-parallel CE
-        logits = mark_vocab_parallel(logits, g)
+            if self.config.tie_word_embeddings:
+                logits = copy_to_mp(x, g) @ self.gpt.wte.weight.t()
+            else:
+                logits = _column(x, self.lm_head, g)
+            # under mp: the rank's vocab shard, for the vocab-parallel CE
+            logits = mark_vocab_parallel(logits, g)
         if cache is not None:
             return logits, cache
         return logits

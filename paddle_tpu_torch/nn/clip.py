@@ -32,9 +32,10 @@ class ClipGradByValue:
 
 
 def global_norm_sq(grads, groups):
-    """The squared global L2 norm over tensor-parallel shards: the squares
-    of the shards (``groups[i]`` the group gradient ``i`` is sliced over)
-    are summed over their group, the replicated gradients (LayerNorms,
+    """The squared global L2 norm over sharded gradients: the squares of
+    the shards (``groups[i]`` the group gradient ``i`` is sliced over, or a
+    tuple of groups for a tensor-parallel shard that ZeRO slices again)
+    are summed over their groups, the replicated gradients (LayerNorms,
     row-parallel biases, position embeddings: None), which every rank
     holds whole, counted once.  Equal to the unsharded norm's square."""
     from ..distributed import collective as _coll
@@ -44,11 +45,13 @@ def global_norm_sq(grads, groups):
     by_group = {}
     for g, grp in zip(grads, groups):
         if grp is not None:
-            by_group.setdefault(id(grp), (grp, []))[1].append(
-                g.float().square().sum())
-    for grp, sq in by_group.values():
+            grps = grp if isinstance(grp, tuple) else (grp,)
+            by_group.setdefault(tuple(id(x) for x in grps), (grps, []))[
+                1].append(g.float().square().sum())
+    for grps, sq in by_group.values():
         part = torch.stack(sq).sum()
-        _coll.all_reduce(part, group=grp)
+        for grp in grps:
+            _coll.all_reduce(part, group=grp)
         total = part if total is None else total + part
     return total
 

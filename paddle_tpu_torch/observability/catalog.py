@@ -11,9 +11,9 @@ package's entry of the same name, word for word.
 
 Only the names the port emits are here: the serving scheduler and
 engine, the host KV tier, the disaggregated handoff, the router, the
-HTTP front end, the faultpoints, the retry policy, the liveness monitor
-and the cluster merge.  The JAX catalog's tensor-parallel, collective,
-training, checkpoint, autotune, compile-watchdog and HBM-ledger names
+HTTP front end, the faultpoints, the retry policy, the liveness monitor,
+the cluster merge and the tensor-parallel overlap islands.  The JAX
+catalog's collective, training, checkpoint, autotune, compile-watchdog and HBM-ledger names
 wait for their modules (ROADMAP.md §A).
 
 Naming: dotted ``<subsystem>.<what>_<unit>``; the Prometheus exporter
@@ -171,6 +171,15 @@ CATALOG = {
         "array of a completed non-streaming response) — the goodput "
         "numerator; tokens computed for a disconnected/cancelled "
         "request never count"),
+
+    # -- tensor-parallel collective-matmul overlap (distributed/mp_overlap)
+    "mp.overlap_chunks": _m(
+        "counter", "overlapped collective-matmul islands built at trace "
+        "time, valued at the ring chunk count each resolved (the "
+        "mp_overlap autotune family's knob; single-hop qkv re-deals "
+        "count 1).  Trace-time like compile.count: a compile-once "
+        "program contributes once, so a growing value under steady "
+        "serving is a retrace leak"),
 
     # -- robustness (chaos faultpoints) -------------------------------------
     "robustness.faultpoint_fires": _m(

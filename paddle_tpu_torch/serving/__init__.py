@@ -67,7 +67,15 @@ def engine_for(model, num_slots=4, max_len=None, tp=1, device=None, **kw):
     reused paged engine drops its prefix cache when a parameter changed
     (``DecodeEngine.refresh_state``).  ``spec_k`` and ``kv_dtype`` are
     geometry, keyed canonically: ``spec_k=0`` spelled or defaulted, and
-    ``"fp8"`` or ``"float8_e4m3fn"``, each map to one engine."""
+    ``"fp8"`` or ``"float8_e4m3fn"``, each map to one engine.
+    ``overlap_comm`` is geometry too, keyed as the engine resolves it
+    (argument > scope > ``PADDLE_TPU_MP_OVERLAP``, and only at tp > 1), so
+    ``overlap_comm=None`` under an enabled environment and an explicit
+    ``overlap_comm=True`` share one engine."""
+    from ..distributed import mp_overlap as _mpo
+    if int(tp) > 1 or "overlap_comm" in kw:
+        kw["overlap_comm"] = bool(_mpo.enabled(kw.get("overlap_comm"))
+                                  and int(tp) > 1)
     dev = str(device) if device is not None else None
     kw["kv_dtype"], _ = _as_kv_dtypes(kw.get("kv_dtype"))
     kw["spec_k"] = int(kw.get("spec_k", 0))

@@ -128,8 +128,13 @@ full model's parameters and re-slices a changed one into the copy.  A
 tp>1 engine runs its steps uncaptured (``graph_stats()["uncaptured"]``
 says why): a gloo collective cannot be captured in a CUDA graph, and
 NCCL capture at tp >= 2 needs two cards to check.  The scheduler's loops
-need no captured step, so both drive it.  ``overlap_comm=True`` (the JAX ``mp_overlap``
-islands) is not ported yet (ROADMAP.md §A5) and raises.
+need no captured step, so both drive it.  ``overlap_comm`` turns on the
+``mp_overlap`` islands (:mod:`..distributed.mp_overlap`: the row
+matmuls and the LM head as permute rings, the vocab lookup as one
+all-reduce), resolved once, as in the JAX engine, through the switch
+(argument > scope > ``PADDLE_TPU_MP_OVERLAP``) and only at tp > 1
+(``self.overlap_comm``); every step runs inside ``overlap_scope`` of
+that value, so the environment changing later moves no engine.
 
 The engine runs on the card unless ``device="cpu"`` is given, and moves
 the model there.
@@ -356,12 +361,18 @@ class DecodeEngine:
             raise ValueError("spec_k %d must be < max_len %d"
                              % (self.spec_k, self.max_len))
         self.tp = int(tp)
-        self._mp = self._tp_group(overlap_comm)
+        self._mp = self._tp_group()
+        # resolved once (argument > scope > PADDLE_TPU_MP_OVERLAP), as in
+        # the JAX engine: the rings need a group of two ranks or more
+        from ..distributed import mp_overlap as _mpo
+        self.overlap_comm = bool(_mpo.enabled(overlap_comm)
+                                 and self.tp > 1)
         self._heads //= self.tp
         self.device = resolve_device(device)
         # the full model: refresh_state compares its parameters; a tp
         # engine serves a sharded copy of it
         self._source = model
+        self._vocab = int(cfg.vocab_size)
         if self._mp is None:
             self.model = model.to(self.device)
         else:
@@ -452,7 +463,7 @@ class DecodeEngine:
         # reference: registration never pins the engine)
         _flight.register_engine(self)
 
-    def _tp_group(self, overlap_comm):
+    def _tp_group(self):
         """The tensor-parallel group (None at tp=1), with the JAX engine's
         checks in its order: the degree, the layout, then the devices
         (ranks) and the heads."""
@@ -465,10 +476,6 @@ class DecodeEngine:
                 "tensor-parallel decode runs on the paged engine (tp > 1 "
                 "with paged=False is not supported — the slotted layout "
                 "is the single-card A/B baseline)")
-        if overlap_comm:
-            raise NotImplementedError(
-                "DecodeEngine(overlap_comm=True): the mp_overlap islands "
-                "are not ported yet (ROADMAP.md §A5)")
         import torch.distributed as dist
         from ..distributed import mesh as _mesh
         from ..distributed.collective import Group
@@ -492,10 +499,19 @@ class DecodeEngine:
                 "partitioned over heads)" % (self.tp, self._heads))
         return group
 
+    @contextlib.contextmanager
+    def _model_scope(self):
+        """A step's model call: eval mode, and the overlap switch pinned
+        to the engine's own."""
+        from ..distributed import mp_overlap as _mpo
+        with _eval_scope(self.model), _mpo.overlap_scope(self.overlap_comm):
+            yield
+
     def _full_vocab(self, logits):
         """The logits over the whole vocabulary: a tp engine's model
-        gives the rank's vocab shard, all-gathered here."""
-        if self._mp is None:
+        gives the rank's vocab shard, all-gathered here (the overlapped
+        LM head gives them whole)."""
+        if self._mp is None or logits.shape[-1] == self._vocab:
             return logits
         from ..distributed import collective as _coll
         return torch.cat(_coll.all_gather([], logits.contiguous(),
@@ -905,7 +921,7 @@ class DecodeEngine:
         if tr_on:
             c0, t0_ns = self.graph_captures, time.perf_counter_ns()
         view = PrefillView(self.cache, slot, n)
-        with _eval_scope(self.model):
+        with self._model_scope():
             logits, _ = self.model(self._to_device(padded), cache=view)
         if tr_on:
             self._dispatch_span("engine.prefill", t0_ns, c0)
@@ -933,7 +949,7 @@ class DecodeEngine:
                                    tp=self.tp)
         else:
             view = DecodeView(self.cache, active=active, quant_err=qerr)
-        with _eval_scope(self.model):
+        with self._model_scope():
             logits, _ = self.model(io.tokens, cache=view)
         logits = self._full_vocab(logits[:, -1, :])
         tok = sample(logits, self._generator, io.temperature, io.top_k,
@@ -954,7 +970,7 @@ class DecodeEngine:
         view = PagedDecodeView(self.cache, active=active,
                                max_len=self.max_len,
                                quant_err=self._step_qerr(io), tp=self.tp)
-        with _eval_scope(self.model):
+        with self._model_scope():
             logits, _ = self.model(io.tokens, cache=view)
         logits = self._full_vocab(logits).float()       # (S, k+1, V)
         emitted, counts = spec_accept(
@@ -975,7 +991,7 @@ class DecodeEngine:
         io = self._chunk_io
         view = PagedPrefillChunkView(self.cache, io.slot, io.n_before,
                                      io.n_valid, tp=self.tp)
-        with _eval_scope(self.model):
+        with self._model_scope():
             logits, _ = self.model(io.tokens, cache=view)
         last = self._full_vocab(logits.index_select(
             1, (io.n_valid - 1).clamp(min=0).view(1))[:, 0, :])

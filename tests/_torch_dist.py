@@ -410,11 +410,12 @@ def tiny_gpt(weights, **cfg):
 
 
 def gpt_train(weights, ids, steps, mesh_axes=None, clip=None,
-              flat_master=False):
-    """``steps`` AdamW steps (lr 1e-3, eps 1e-6) of the tiny GPT on the
-    global batch ``ids``; with ``mesh_axes`` the model is parallelized
-    over them and the batch sharded on ``dp``.  Returns the losses, the
-    gathered state after the steps and the rank's shards before them."""
+              flat_master=False, **cfg):
+    """``steps`` AdamW steps (lr 1e-3, eps 1e-6) of the tiny GPT
+    (``cfg``: GPTConfig fields) on the global batch ``ids``; with
+    ``mesh_axes`` the model is parallelized over them and the batch
+    sharded on ``dp``.  Returns the losses, the gathered state after the
+    steps and the rank's shards before them."""
     import torch
 
     from paddle_tpu_torch import distributed as D
@@ -424,7 +425,7 @@ def gpt_train(weights, ids, steps, mesh_axes=None, clip=None,
     from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
-    m = tiny_gpt(weights)
+    m = tiny_gpt(weights, **cfg)
     shards = None
     if mesh_axes:
         D.init_mesh(mesh_axes)
@@ -503,9 +504,9 @@ def greedy_drive(eng, prompts, steps):
     return seqs, logits
 
 
-def tp_engine(weights, tp, **kw):
+def tp_engine(weights, tp, cfg=None, **kw):
     from paddle_tpu_torch.serving.engine import DecodeEngine
-    m = tiny_gpt(weights)
+    m = tiny_gpt(weights, **(cfg or {}))
     m.eval()
     kw.setdefault("num_slots", 2)
     kw.setdefault("max_len", 64)
@@ -548,10 +549,12 @@ def job_tp_accounting(weights, tp=2):
 
 
 def job_tp_errors(weights):
-    """The JAX engine's validation errors, and engine_for's key, at a
-    world of two."""
+    """The JAX engine's validation errors, overlap_comm=True building at
+    tp=2, and engine_for's key (tp, and overlap_comm as the engine
+    resolves it), at a world of two."""
     import pytest
 
+    from paddle_tpu_torch.distributed import mp_overlap as mpo
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.serving import engine_for
     from paddle_tpu_torch.serving.engine import DecodeEngine
@@ -559,12 +562,13 @@ def job_tp_errors(weights):
     got = {}
     for kw, exc, pat in ((dict(paged=False, tp=2), ValueError, "paged"),
                          (dict(tp=0), ValueError, "tp must be >= 1"),
-                         (dict(tp=4), ValueError, "devices"),
-                         (dict(tp=2, overlap_comm=True),
-                          NotImplementedError, "ROADMAP")):
+                         (dict(tp=4), ValueError, "devices")):
         with pytest.raises(exc, match=pat):
             DecodeEngine(m, num_slots=2, max_len=64, device="cpu", **kw)
         got[str(kw)] = True
+    got["overlap"] = DecodeEngine(m, num_slots=2, max_len=64, device="cpu",
+                                  tp=2, overlap_comm=True).overlap_comm
+    assert got["overlap"]
     odd = GPTForCausalLM(GPTConfig(vocab_size=512, max_position_embeddings=64,
                                    hidden_size=48, num_hidden_layers=1,
                                    num_attention_heads=3,
@@ -577,6 +581,13 @@ def job_tp_errors(weights):
     e2 = engine_for(m, tp=2, **kw)
     assert e2 is not e1 and e2.tp == 2
     assert engine_for(m, **kw) is e1 and engine_for(m, tp=2, **kw) is e2
+    # the overlap switch as the engine resolves it: the environment and
+    # an explicit overlap_comm=True share one engine at tp=2
+    e3 = engine_for(m, tp=2, overlap_comm=True, **kw)
+    assert e3 is not e2 and e3.overlap_comm
+    with mpo.overlap_scope(True):
+        assert engine_for(m, tp=2, **kw) is e3
+    assert engine_for(m, tp=2, overlap_comm=False, **kw) is e2
     return got
 
 
@@ -613,10 +624,11 @@ def job_tp_refresh(weights, prompt, delta):
 def job_chip_dist():
     """chip_smoke.py's dist_nccl (over gloo on the CPU: every collective
     at this world's size) and train_dp (a one-rank dp axis of a
-    {"dp": 1, "mp": 2} mesh, so its losses must equal the default step's
+    {"dp": 1, "sdp": 2} mesh, so its losses must equal the default step's
     bit for bit, ``hold_train_variant``, whose refusal of a moved loss
-    the layout rehearsal checks) on a narrow 2-layer model at the train
-    shape, the flash route through its plain versions."""
+    the layout rehearsal checks; its ZeRO stage-2 run slices over the two
+    sdp ranks, which hold the same batch) on a narrow 2-layer model at the
+    train shape, the flash route through its plain versions."""
     import pytest
     import torch
 
@@ -641,7 +653,7 @@ def job_chip_dist():
             torch, chip_smoke.make_step(
                 chip_smoke.train_model(torch, base, amp, "cpu"),
                 device="cpu"), ids, counters, 3)
-        D.init_mesh({"dp": 1, "mp": 2})
+        D.init_mesh({"dp": 1, "sdp": 2})
         train_line = {"profile": {"step_device_ms": 1.0}}
         line = chip_smoke.train_dp(torch, base, amp, counters, default,
                                    train_line, device="cpu")
@@ -667,6 +679,32 @@ def tp2_spec(default_losses=None):
                         for _ in range(chip_smoke.TP2_PROMPTS)]}
 
 
+def short_ids(torch, vocab, device="cuda"):
+    """chip_smoke.train_ids at 128 tokens a row (the CPU rehearsals'
+    batch: (8, 128))."""
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, vocab, (8, 128)), device=device)
+
+
+def job_zero_rank():
+    """chip_smoke.py's zero_rank on this world (gloo, CPU tensors) at
+    tp2_spec's narrow width on :func:`short_ids`, two steps a stage, the
+    flash route through its plain versions, counted."""
+    import pytest
+    import torch
+
+    import chip_smoke
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(torch.cuda, "synchronize", lambda *a: None)
+        mp.setattr(chip_smoke, "train_ids", short_ids)
+        spec = dict(tp2_spec(), steps=2)
+        return chip_smoke.zero_rank(torch, spec, PlainCounters(mp),
+                                    device="cpu")
+    finally:
+        mp.undo()
+
+
 def job_tp2_rank(default_losses):
     """chip_smoke.py's tp2_rank on this world (gloo, CPU tensors), the
     flash route through its plain versions, counted."""
@@ -681,3 +719,308 @@ def job_tp2_rank(default_losses):
                                    PlainCounters(mp), device="cpu")
     finally:
         mp.undo()
+
+
+# ---------------------------------------------------------------------------
+# jobs: tests/test_torch_mp_overlap.py (a world of four)
+# ---------------------------------------------------------------------------
+
+def _mp_of(n):
+    """The ``mp`` group of ``n`` ranks on a world of four: the mesh
+    {"mp": 4}, or {"dp": 2, "mp": 2}."""
+    from paddle_tpu_torch import distributed as D
+    D.init_mesh({"mp": 4} if n == 4 else {"dp": 2, "mp": 2})
+    return D.get_mesh().group("mp")
+
+
+def _piece(a, dim, g, n):
+    """Group rank ``g``'s contiguous piece of ``a`` along ``dim``."""
+    import torch
+    t = torch.from_numpy(np.array(a))
+    size = t.shape[dim] // n
+    return t.narrow(dim, g * size, size).contiguous()
+
+
+def _cot(fn, *args):
+    """The gradients of sum(sin(fn(*args))) (the JAX test's cotangent)."""
+    import torch
+    ts = [a.clone().requires_grad_(True) for a in args]
+    torch.sin(fn(*ts)).sum().backward()
+    return [t.grad.numpy().copy() for t in ts]
+
+
+def job_mpo_islands(fwd, grad, qkv):
+    """Every island at n = 2 and 4 over the rank's shards, at chunks 1 and
+    2: the outputs (``fwd``: row x, w, b; column xc, wc; LM head and
+    embedding wte, ids), the gradients of sum(sin(.)) (``grad``: x, w,
+    wte), the qkv re-deal with and without bias and its dense reference
+    (``qkv``: x, w, b, heads, head_dim), the ppermutes a call issued and
+    the ``mp.overlap_chunks`` increments."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mp_overlap as mpo
+    from paddle_tpu_torch.observability import registry
+    registry.default_registry().enable()
+    counter = registry.counter("mp.overlap_chunks")
+    out = {}
+    for n in (2, 4):
+        group = _mp_of(n)
+        g = group.rank
+        for chunks in (1, 2):
+            with mpo.overlap_scope(True, chunks):
+                C.reset_counts()
+                before = counter.value
+                row = mpo.row_parallel_matmul(
+                    _piece(fwd["x"], 2, g, n), _piece(fwd["w"], 0, g, n),
+                    torch.from_numpy(np.array(fwd["b"])))
+                res = {"row": row.numpy().copy(),
+                       "row_ppermutes": C.issued().get("ppermute", 0),
+                       "row_counted": counter.value - before}
+                res["col"] = mpo.column_parallel_matmul(
+                    torch.from_numpy(np.array(fwd["xc"])),
+                    _piece(fwd["wc"], 1, g, n)).numpy().copy()
+                res["lm"] = mpo.lm_head_matmul(
+                    torch.from_numpy(np.array(fwd["xc"])),
+                    _piece(fwd["wte"], 0, g, n)).numpy().copy()
+                res["emb"] = mpo.vocab_embed(
+                    torch.from_numpy(np.array(fwd["ids"])),
+                    _piece(fwd["wte"], 0, g, n)).numpy().copy()
+                x = torch.from_numpy(np.array(grad["x"]))
+                res["row_grads"] = _cot(
+                    lambda a, b: mpo.row_parallel_matmul(a, b),
+                    _piece(grad["x"], 1, g, n), _piece(grad["w"], 0, g, n))
+                res["col_grads"] = _cot(
+                    lambda a, b: mpo.column_parallel_matmul(a, b), x,
+                    _piece(grad["w"], 1, g, n))
+                res["lm_grads"] = _cot(
+                    lambda a, b: mpo.lm_head_matmul(a, b), x,
+                    _piece(grad["wte"], 0, g, n))
+            out[(n, chunks)] = res
+        with mpo.overlap_scope(True):
+            xq = torch.from_numpy(np.array(qkv["x"]))
+            wq, bq = qkv["w"], qkv["b"]
+            nh, hd = qkv["heads"], qkv["head_dim"]
+            before = counter.value
+            got = mpo.qkv_heads(xq, _piece(wq, 1, g, n), _piece(bq, 0, g, n),
+                                nh, hd)
+            got0 = mpo.qkv_heads(xq, _piece(wq, 1, g, n), None, nh, hd)
+            counted = counter.value - before
+            # the dense reference: every rank's contiguous projection as
+            # the ranks compute it, then slice-then-reshape to this rank's
+            # heads
+            dense = torch.cat([xq @ _piece(wq, 1, s, n) for s in range(n)],
+                              dim=-1)
+            want = []
+            for full in (dense + torch.from_numpy(np.array(bq)), dense):
+                h = nh * hd
+                parts = [full[..., i * h:(i + 1) * h].reshape(
+                    tuple(full.shape[:-1]) + (nh, hd)) for i in range(3)]
+                want.append([t[:, :, g * nh // n:(g + 1) * nh // n]
+                             for t in parts])
+            out[("qkv", n)] = {
+                "exact": all(torch.equal(a, b) for a, b in zip(got, want[0]))
+                and all(torch.equal(a, b) for a, b in zip(got0, want[1])),
+                "shapes": [tuple(t.shape) for t in got], "counted": counted}
+    return out
+
+
+def job_mpo_switch(x, w):
+    """The switch at a world of four over the {"dp": 2, "mp": 2} mesh's
+    mp group: off (no scope, no env) and the per-call argument over an
+    enabling scope give None; a contraction that the group does not
+    divide into output blocks, None."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mp_overlap as mpo
+    _mp_of(2)
+    xt = torch.from_numpy(np.array(x))
+    wt = torch.from_numpy(np.array(w))
+    got = {"off": mpo.row_parallel_matmul(xt, wt) is None}
+    with mpo.overlap_scope(True):
+        got["arg_false"] = mpo.row_parallel_matmul(xt, wt, arg=False) is None
+        got["on"] = mpo.row_parallel_matmul(xt, wt) is not None
+        got["odd_n"] = mpo.row_parallel_matmul(
+            xt, torch.ones(wt.shape[0], 3)) is None
+        got["active_n"] = mpo.active()[1]
+    return got
+
+
+def job_mpo_gpt(weights, scan_weights, ids, prompts, steps=3):
+    """The tiny GPT at dp2 x mp2, per layer and scan-layers: ``steps``
+    train steps with the overlap off and on (losses, and on: the
+    ppermutes and ``mp.overlap_chunks`` a step), and the tp=2 engine's
+    greedy drive off and on (tokens, logits; on: the counter)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mp_overlap as mpo
+    from paddle_tpu_torch.observability import registry
+    registry.default_registry().enable()
+    counter = registry.counter("mp.overlap_chunks")
+    out = {}
+    for scan, w in ((False, weights), (True, scan_weights)):
+        for on in (False, True):
+            C.reset_counts()
+            before = counter.value
+            with mpo.overlap_scope(on):
+                losses, _state, _shards = gpt_train(
+                    w, ids, steps, {"dp": 2, "mp": 2}, scan_layers=scan)
+            out[("train", scan, on)] = {
+                "losses": losses,
+                "ppermute": C.issued().get("ppermute", 0) / steps,
+                "chunks": (counter.value - before) / steps}
+            before = counter.value
+            _m, eng = tp_engine(w, 2, cfg={"scan_layers": scan}, seed=3,
+                                overlap_comm=on)
+            seqs, logits = greedy_drive(eng, prompts, 6)
+            out[("serve", scan, on)] = {
+                "seqs": seqs, "logits": logits,
+                "overlap_comm": eng.overlap_comm,
+                "chunks": counter.value - before}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# jobs: tests/test_torch_zero.py (a world of two)
+# ---------------------------------------------------------------------------
+
+def zero_mlp(weights):
+    """The JAX test's 64-128-64 MLP (Linear, GELU, Linear) with
+    ``weights`` by the JAX names ("0.weight", ...)."""
+    import torch
+
+    from paddle_tpu_torch.nn.layer.common import Linear
+    m = torch.nn.Sequential(Linear(64, 128), torch.nn.GELU(),
+                            Linear(128, 64))
+    with torch.no_grad():
+        for n, p in m.named_parameters():
+            p.copy_(torch.from_numpy(np.array(weights[n])))
+    return m
+
+
+def zero_train(weights, x, y, stage, steps=3, mesh_axes=None, in_sdp=False,
+               clip=None):
+    """``steps`` AdamW (lr 0.01) steps of :func:`zero_mlp` with the mse
+    loss at ``zero_stage=stage`` (None: no ZeRO) on ``mesh_axes``; with
+    ``in_sdp`` the batch is sharded over ``sdp``.  Returns the losses,
+    the step's state_dict (numpy), each rank's slot shapes and the
+    collectives issued a step."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    if mesh_axes:
+        D.init_mesh(mesh_axes)
+    m = zero_mlp(weights)
+    opt = AdamW(learning_rate=0.01, parameters=m.parameters(),
+                grad_clip=None if clip is None else ClipGradByGlobalNorm(clip))
+    step = TrainStep(m, lambda o, t: torch.nn.functional.mse_loss(o, t), opt,
+                     device="cpu", zero_stage=stage,
+                     in_shardings=PartitionSpec("sdp") if in_sdp else None)
+    xt, yt = torch.from_numpy(np.array(x)), torch.from_numpy(np.array(y))
+    C.reset_counts()
+    losses = [float(step(xt, yt)) for _ in range(steps)]
+    issued = {k: v / steps for k, v in C.issued().items()}
+    sd = step.state_dict()
+    state = {"params": np_state(sd["params"]),
+             "slots": {n: np_state(s) for n, s in sd["opt_state"]["slots"]
+                       .items()}}
+    shapes = {n: {k: tuple(v.shape) for k, v in s.items()}
+              for n, s in step.opt_state["slots"].items()}
+    masters = {n: tuple(v.shape) for n, v in step.params.items()}
+    step.sync_to_model()
+    model = np_state(m.state_dict())
+    return {"losses": losses, "state": state, "slot_shapes": shapes,
+            "master_shapes": masters, "issued": issued, "model": model}
+
+
+def job_zero(weights, x, y, steps=3):
+    """Stages 1, 2 and 3 on the {"sdp": 2} mesh against the unsharded
+    step (batch replicated, as the JAX parity test), stage 1 and 2 with
+    the batch sharded over sdp (the reduce-scatter's case), stage 2 with a
+    global-norm clip, and a checkpoint round trip: stage 3's state_dict
+    into a fresh stage-1 step."""
+    import torch
+
+    from paddle_tpu_torch.distributed import sharding
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    axes = {"sdp": 2}
+    out = {"plain": zero_train(weights, x, y, None, steps)}
+    for stage in (1, 2, 3):
+        out[stage] = zero_train(weights, x, y, stage, steps, axes)
+    for stage in (1, 2):
+        out[("sdp", stage)] = zero_train(weights, x, y, stage, steps, axes,
+                                         in_sdp=True)
+    out[("clip", 2)] = zero_train(weights, x, y, 2, steps, axes, clip=0.5)
+    out["plain_clip"] = zero_train(weights, x, y, None, steps, clip=0.5)
+    # a stage-3 checkpoint into a stage-1 step, then one more step each
+    m3, m1 = zero_mlp(weights), zero_mlp(weights)
+
+    def mse(o, t):
+        return torch.nn.functional.mse_loss(o, t)
+    s3 = TrainStep(m3, mse, AdamW(learning_rate=0.01,
+                                  parameters=m3.parameters()),
+                   device="cpu", zero_stage=3)
+    xt, yt = torch.from_numpy(np.array(x)), torch.from_numpy(np.array(y))
+    s3(xt, yt)
+    s1 = TrainStep(m1, mse, AdamW(learning_rate=0.01,
+                                  parameters=m1.parameters()),
+                   device="cpu", zero_stage=1)
+    s1.set_state_dict(s3.state_dict())
+    out["resume"] = (float(s3(xt, yt)), float(s1(xt, yt)))
+    levels = {}
+    for level in ("os", "os_g", "p_g_os"):
+        m = zero_mlp(weights)
+        opt = AdamW(learning_rate=0.01, parameters=m.parameters())
+        got = sharding.group_sharded_parallel(m, opt, level=level)
+        levels[level] = (got[0] is m, got[1] is opt, m._sharding_level,
+                         {n: tuple(getattr(p, "zero_spec", ()) or ())
+                          for n, p in m.named_parameters()})
+    out["levels"] = levels
+    # the placement helpers: slots cut by their picked dim, a stage-3
+    # wrapper recording the specs and passing the forward through
+    cut = sharding.shard_optimizer_state(
+        {"slots": {"w": {"m": torch.ones(128, 64), "v": torch.ones(64, 128)},
+                   "b": {"m": torch.ones(64)}}, "step": 3})
+    out["opt_cut"] = ({n: {k: tuple(v.shape) for k, v in s.items()}
+                       for n, s in cut["slots"].items()}, cut["step"])
+    m = zero_mlp(weights)
+    cfg = type("C", (), {"sharding_configs": type("S", (), {"stage": 3})})
+    wrapped = sharding.ShardingParallel(m, strategy=cfg)
+    xt = torch.from_numpy(np.array(x))
+    out["wrapper"] = (tuple(m[0].weight.zero_spec),
+                      bool(torch.equal(wrapped(xt), m(xt))))
+    specs = {}
+    for shape in ((128, 64), (64, 128), (64,), (4096,), (3, 4096), (96, 96)):
+        specs[shape] = tuple(sharding._stage_spec_for(torch.zeros(shape),
+                                                      "sdp"))
+    out["specs"] = specs
+    return out
+
+
+def job_zero_errors():
+    """The JAX step's refusals at a world of two: ``zero_stage`` on a mesh
+    whose ``sdp`` axis has one rank, and ``flat_master=True`` with ZeRO
+    (checked first, as in JAX)."""
+    import pytest
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    got = []
+    for axes, kw, pat in (({"dp": 2}, {}, "sdp"),
+                          ({"dp": 2}, {"flat_master": True}, "flat_master"),
+                          ({"sdp": 2}, {"flat_master": True},
+                           "flat_master")):
+        D.init_mesh(axes)
+        m = torch.nn.Linear(64, 64)
+        with pytest.raises(ValueError, match=pat):
+            TrainStep(m, lambda o: o.sum(), AdamW(parameters=m.parameters()),
+                      device="cpu", zero_stage=2, **kw)
+        got.append(pat)
+    return got

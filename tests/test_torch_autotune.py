@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from paddle_tpu.distributed import mp_overlap as jax_mpo
 from paddle_tpu.kernels import autotune as jax_at
 from paddle_tpu.kernels import decode_attention as jax_dat
 from paddle_tpu.kernels import flash_attention_pallas as jax_fap
@@ -331,27 +332,30 @@ def test_warm_and_cli_smoke(capsys, monkeypatch):
 
 
 def test_standard_keys_are_the_bench_shapes():
-    """The four flash families at the training shape and the decode
-    attention at the serving shape: slotted, and paged at one token a
+    """The four flash families at the training shape, the decode
+    attention at the serving shape (slotted, and paged at one token a
     step, over the int8 pool, at the speculative verify's five and at
-    tp=2 (one rank's 8 heads): the JAX module's keys for them (the CPU:
-    float32)."""
+    tp=2: one rank's 8 heads) and the mp_overlap ring's tp=2 key: the JAX
+    module's keys for them (the CPU: float32)."""
     pairs = at.standard_keys()
     assert [f for f, _ in pairs] == ["flash_fwd", "flash_bwd",
                                      "flash_bwd_dq", "flash_bwd_dkv",
                                      "decode_attn"] + \
-        ["decode_attn_paged"] * 4
+        ["decode_attn_paged"] * 4 + ["mp_overlap"]
     want = jax_fap.autotune_key(8, 1024, 1024, 16, 64, jnp.float32, True)
     assert all(k == want for _, k in pairs[:4])
     assert pairs[4][1] == jax_dat.autotune_key(
         slots=8, t=1024, h=16, d=64, qlen=1, dtype=jnp.float32)
     paged = dict(slots=8, pages=128, page_size=64, max_pages=16, h=16, d=64,
                  dtype=jnp.float32)
-    assert [k for _, k in pairs[5:]] == [
+    assert [k for _, k in pairs[5:9]] == [
         jax_dat.paged_autotune_key(qlen=1, **paged),
         jax_dat.paged_autotune_key(qlen=1, kv_dtype="int8", **paged),
         jax_dat.paged_autotune_key(qlen=5, **paged),
         jax_dat.paged_autotune_key(qlen=1, tp=2, **paged)]
+    # the tp=2 row ring's chunk count at the projection shape
+    assert pairs[9][1] == jax_mpo.autotune_key(
+        kind="row", m=8, k=4096 // 2, n=1024, n_dev=2, dtype="float32")
     jax_pairs = jax_at.standard_keys()
     assert all((f, k) in jax_pairs for f, k in pairs[4:])
 

@@ -306,6 +306,12 @@ def test_catalog_is_two_way_over_a_serving_run(monkeypatch, tmp_path):
     # a fired faultpoint, and a liveness stall
     with fp.chaos(fp.FaultPlan().inject("serve.step", fp.Hang(0.0))):
         _serve(ContinuousBatchingScheduler(tight), [shared], 1)
+    # the overlap islands' chunk counter (an island's chunk resolve; the
+    # islands themselves need a group of two ranks:
+    # tests/test_torch_mp_overlap.py)
+    from paddle_tpu_torch.distributed import mp_overlap
+    with mp_overlap.overlap_scope(True, 2):
+        mp_overlap._resolve_chunks("row", 8, 64, 32, 2, torch.float32, 16)
     liveness.declare_beacon("test.catalog_stall", "test-local beacon")
     monkeypatch.setenv("PADDLE_TPU_LIVENESS_DEADLINE_TEST_CATALOG_STALL",
                        "0.0")

@@ -779,10 +779,11 @@ def test_kv_bytes_accounting_scales_with_true_lengths():
 @pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_paged_features_raise(kw):
     """tp=2 without a world of two ranks: the JAX engine's "devices"
-    error; with overlap_comm=True: not ported, NotImplementedError."""
+    error, with overlap_comm=True too (the islands are ported:
+    tests/test_torch_mp_overlap.py)."""
     with pytest.raises(ValueError, match="devices"):
         DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="devices"):
         DecodeEngine(GPTForCausalLM(GPTConfig.tiny()), device="cpu",
                      overlap_comm=True, **kw)
 

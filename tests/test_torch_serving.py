@@ -192,14 +192,17 @@ def test_engine_reseed_reproduces_sampled_output():
 
 @pytest.mark.parametrize("kw", [dict(tp=2)])
 def test_unported_modes_raise(kw):
-    """tp=2 is ported (tests/test_torch_tp_serving.py): without a world of
-    two ranks it raises the JAX engine's "devices" error; the overlapped
-    collective islands at tp=2 are not ported and raise."""
+    """tp=2 is ported (tests/test_torch_tp_serving.py), and so are the
+    overlapped collective islands (tests/test_torch_mp_overlap.py):
+    without a world of two ranks either raises the JAX engine's "devices"
+    error; at tp=1, overlap_comm=True builds and resolves to False, as in
+    the JAX engine."""
     tm = GPTForCausalLM(GPTConfig.tiny())
     with pytest.raises(ValueError, match="devices"):
         DecodeEngine(tm, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="devices"):
         DecodeEngine(tm, device="cpu", overlap_comm=True, **kw)
+    assert not DecodeEngine(tm, device="cpu", overlap_comm=True).overlap_comm
 
 
 def test_spec_on_the_slotted_engine_raises_value_error():

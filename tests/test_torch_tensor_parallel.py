@@ -80,10 +80,22 @@ def _jax_layers(inp):
     return weights, ref
 
 
+def _jax_reference(inp):
+    """:func:`_jax_layers` with the JAX package's recording switched on
+    for the call and restored after.  The package keeps one recording
+    switch for all threads (``paddle_tpu/core/grad_mode.py``), which each
+    ``no_grad`` saves and restores, so engines tracing on several threads
+    at once (a fleet's replicas, a front end's scheduler thread beside
+    the test's) can leave it off for the rest of the process; every later
+    eager backward in that process then leaves ``.grad`` unset."""
+    with paddle.set_grad_enabled(True):
+        return _jax_layers(inp)
+
+
 @pytest.fixture(scope="module")
 def layers(world):
     inp = _layer_inputs()
-    weights, ref = _jax_layers(inp)
+    weights, ref = _jax_reference(inp)
     out = world.run("job_mp_layers", weights=weights, emb=weights["emb"],
                     **inp)
     return inp, weights, ref, out
@@ -105,6 +117,20 @@ def _dense_layers(inp, weights, gather):
         "col.bias": col.bias.grad.numpy(),
         "row.weight": row.weight.grad.numpy(),
         "row.bias": row.bias.grad.numpy()}
+
+
+def test_jax_reference_under_a_switch_left_off(monkeypatch):
+    """The reference the layer tests hold against does not depend on the
+    JAX package's recording switch as another test left it: with the
+    switch off it is the same, and the switch is off again after."""
+    from paddle_tpu.core import grad_mode
+    inp = _layer_inputs()
+    _w, want = _jax_reference(inp)
+    monkeypatch.setattr(grad_mode, "_grad_enabled", [False])
+    _w, got = _jax_reference(inp)
+    assert not paddle.is_grad_enabled()
+    for key in ("y", "dx", "emb_grad", "ce_grad"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 @pytest.mark.parametrize("tag", ["parallel", "gather"])
@@ -284,14 +310,37 @@ def test_global_norm_clip_over_shards_matches_unsharded(world):
 
 
 def test_scan_layout_at_mp_raises():
-    """The stacked layout at mp > 1 waits for ROADMAP §A5."""
+    """The stacked layout at mp > 1 builds now: each rank keeps the
+    stacked (L, ...) slices that the per-layer parameters' Megatron cuts
+    give, layer by layer (q/k/v by heads in every layer's slice), as
+    ``convert`` cuts a scan-layout state; a group that does not divide
+    the heads still raises, as in the per-layer layout."""
     from paddle_tpu_torch.distributed.collective import Group
     from paddle_tpu_torch.distributed.parallel_base import shard_module
-    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                             per_layer_state_to_scan,
+                                             scan_state_to_per_layer)
+    _m, weights = _jax_gpt()
+    scan_weights = per_layer_state_to_scan(weights)
     c = GPTConfig.tiny()
     c.scan_layers = True
-    m = GPTForCausalLM(c)
-    fake = Group("mp", [0, 1])
-    fake.rank = 0
-    with pytest.raises(NotImplementedError, match="§A5"):
+    for rank in (0, 1):
+        m = GPTForCausalLM(c)
+        convert.load_paddle_tpu_state(m, scan_weights)
+        fake = Group("mp", [0, 1])
+        fake.rank = rank
         shard_module(m, fake)
+        got = {n: p.detach().numpy() for n, p in m.named_parameters()}
+        per_layer = convert.shard_paddle_tpu_state(weights, rank, 2)
+        for want in (per_layer_state_to_scan(per_layer),
+                     convert.shard_paddle_tpu_state(scan_weights, rank, 2)):
+            assert set(want) == set(got)
+            for n, w in want.items():
+                np.testing.assert_array_equal(got[n], w, err_msg=n)
+        back = scan_state_to_per_layer(got)
+        for n, w in per_layer.items():
+            np.testing.assert_array_equal(back[n], w, err_msg=n)
+    three = Group("mp", [0, 1, 2])
+    three.rank = 0
+    with pytest.raises(ValueError, match="divide"):
+        shard_module(GPTForCausalLM(c), three)

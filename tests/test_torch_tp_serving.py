@@ -133,9 +133,10 @@ def test_kv_accounting_reports_per_rank_truth(world, jax_model):
 
 def test_tp_validation_errors_and_engine_for_key(world, jax_model):
     """The JAX engine's errors ("paged", "tp must be >= 1", "devices",
-    "divide") and overlap_comm's NotImplementedError at a world of two;
+    "divide") and overlap_comm=True building at a world of two;
     engine_for keys tp: tp=1 spelled or defaulted is one engine, tp=2
-    another."""
+    another, and the resolved overlap switch (an enabling scope and an
+    explicit overlap_comm=True share one tp=2 engine)."""
     _model, weights = jax_model
     for got in world.run("job_tp_errors", weights=weights):
         assert len(got) == 4

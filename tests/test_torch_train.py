@@ -310,14 +310,18 @@ def test_trainstep_amp_o2_bf16_tracks_jax():
 
 
 def test_trainstep_refuses_unported_options():
-    """ZeRO waits for the distributed port (ROADMAP §A5) and raises;
-    ``in_shardings`` (tests/test_torch_data_parallel.py),
-    ``stack_layers`` and ``use_recompute`` are ported and build
-    (tests/test_torch_stack_layers.py, tests/test_torch_recompute.py)."""
+    """ZeRO (tests/test_torch_zero.py), ``in_shardings``
+    (tests/test_torch_data_parallel.py), ``stack_layers`` and
+    ``use_recompute`` are ported and build
+    (tests/test_torch_stack_layers.py, tests/test_torch_recompute.py):
+    ``zero_stage`` on a world of one slices nothing, as in the JAX step."""
     tm = GPTForCausalLM(GPTConfig.tiny())
     opt = AdamW(parameters=tm.parameters())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A5"):
-        TrainStep(tm, GPTPretrainingCriterion(), opt, zero_stage=2)
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    with tmesh.mesh_scope(None):
+        zs = TrainStep(tm, GPTPretrainingCriterion(), opt, device="cpu",
+                       zero_stage=2)
+    assert zs._zero.stage == 2 and not any(zs._zero.dims.values())
     assert TrainStep(tm, GPTPretrainingCriterion(), opt, device="cpu",
                      in_shardings=[None])._dp_group is None
     assert TrainStep(tm, GPTPretrainingCriterion(), opt, device="cpu",
