@@ -228,7 +228,41 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               and 3 reduce-scattering, stage 3's masters half, and each
               rank's peak allocation.
 
-``python3 chip_smoke.py --distributed`` runs the train phase and 11d-11g
+11h. serve_http_tp2 — two processes on the one card over gloo, GPT-2 345M
+              bf16, ``DecodeEngine(tp=2)`` paged under ``use_pallas_norm``:
+              rank 0's ``ServingFrontend`` takes 8 greedy requests (64
+              tokens, 32 new), a request whose client leaves mid-stream
+              and a sampled one, then 8 more from ``serving.loadgen``;
+              rank 1 runs ``serving.follow``.  The greedy tokens equal
+              the tp=1 engine's over HTTP in rank 0's process (or part
+              only where tp=1's top-2 margin is below 2 * LOGIT_TOL, as
+              tp2_gloo holds); rank 1 finished every request rank 0 did
+              with the same tokens (the sampled one too) and reasons;
+              the cut request is cancelled on both; B (2L + 1) a forward
+              on each rank; the follower's process exits 0 after
+              ``stop()``.  Client TTFT / TPOT p50 and p99 are gloo's
+              (every collective staged through the host), not a tp speed.
+11i. pp_single — one rank, no pp axis: GPT-2 345M as a ``PipelineLayer``
+              (a ``SharedLayerDesc`` embedding, the 24 port ``GPTBlock``s,
+              the tied head with the final LayerNorm), AMP O2 bf16,
+              AdamW, ``accumulate_steps`` 4 of 2 x 1024 tokens, 3 steps
+              under ``use_pallas_norm`` through ``train_batch``: losses
+              against a plain loop over the same layers with the same
+              microbatching, the flash forward / C2 / C3 / B / D per step
+              against their formula, device ms a step.
+11j. pp2_gloo — two processes on the one card over gloo, pp=2 (12 blocks a
+              stage), the same model, data and optimizer, 3 steps through
+              ``fleet.init`` / ``fleet.distributed_model(...).train_batch``
+              (the 1F1B schedule): losses within PARITY_LOSS_TOL of
+              pp_single's, the tied embedding and a block of each stage
+              after ``sync_to_layers()`` within PP_PARAM_TOL of
+              pp_single's and equal on both ranks, 2 (m + 2 (n - 1))
+              permutes a step, at most 2 (n - 1 - s) + 1 microbatches in
+              flight on stage s, each rank's kernel launches and peak
+              allocation; then an fp16 pipeline under a GradScaler at
+              2^40 skips its overflowing step on both ranks.
+
+``python3 chip_smoke.py --distributed`` runs the train phase and 11d-11j
 alone (the distributed phases without the kernel checks and serving
 phases), then prints the card and the device line.
 12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
@@ -2543,10 +2577,11 @@ def tp2_rank(torch, spec, counters, device="cuda"):
 
 
 def gloo_rank_main(rank, port, job, spec, results):
-    """The entry point of a ``tp2_gloo`` or ``zero_gloo`` process: a gloo
-    world of two on the one card, then the function ``job`` of this module
-    (:func:`tp2_rank`, :func:`zero_rank`); the result (or the traceback)
-    goes to ``results``."""
+    """The entry point of a process of a two-rank phase: a gloo world of
+    two on the one card, then the function ``job`` of this module
+    (:func:`tp2_rank`, :func:`zero_rank`, :func:`serve_tp2_rank`,
+    :func:`pp2_rank`); the result (or the traceback) goes to
+    ``results``."""
     import datetime
     import traceback
     try:
@@ -2730,6 +2765,8 @@ def gloo_pair(job, spec, timeout):
                 p.join(10)
     if errors:
         raise AssertionError("%s failed:\n%s" % (job, "\n".join(errors)))
+    for rank, p in enumerate(procs):
+        outs[rank]["exitcode"] = p.exitcode
     return [outs[0], outs[1]]
 
 
@@ -2863,6 +2900,567 @@ def zero_gloo(torch, cfg, default_losses, steps=2, timeout=600.0):
     t0 = time.perf_counter()
     line = zero_hold(gloo_pair("zero_rank", spec, timeout), spec,
                      default_losses)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# serve_http_tp2's traffic: the greedy requests (64 tokens, 32 new), the
+# load generator's plan (as many requests, the same shape), the cut request
+# (its client leaves after HTTP_CUT_AT events) and the sampled one
+SERVE_TP2 = {"requests": 8, "prompt_len": 64, "new_tokens": 32,
+             "cut_new_tokens": 128, "qps": 8.0, "seed": 23,
+             "temperature": 0.8, "top_k": 40}
+
+
+def cut_stream(host, port, payload, after=None):
+    """POST ``payload`` streamed and close the socket once ``after`` SSE
+    events (HTTP_CUT_AT) arrived (a client that leaves mid-stream);
+    returns the events seen."""
+    import socket
+    after = HTTP_CUT_AT if after is None else after
+    body = json.dumps(dict(payload, stream=True)).encode()
+    with socket.create_connection((host, port), timeout=HTTP_TIMEOUT) as s:
+        s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\n"
+                  b"Content-Type: application/json\r\n"
+                  b"Content-Length: %d\r\n\r\n" % len(body) + body)
+        buf = b""
+        while buf.count(b"data: ") < after:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    return buf.count(b"data: ")
+
+
+def finished_tokens(sched):
+    """{rid: [tokens, finish reason]} of a scheduler's finished requests."""
+    return {int(rid): [[int(t) for t in r.tokens], r.finish_reason]
+            for rid, r in sched.finished.items()}
+
+
+def top2_margin(torch, model, prompt, tokens, pos):
+    """The top-2 gap of ``model``'s last-position logits over ``prompt``
+    and the first ``pos`` generated tokens (a plain forward)."""
+    ids = torch.as_tensor(np.concatenate([np.asarray(prompt),
+                                          np.asarray(tokens[:pos])])[None]
+                          .astype(np.int64),
+                          device=next(model.parameters()).device)
+    with torch.no_grad():
+        top2 = torch.topk(model(ids)[0, -1].float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def serve_tp2_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``serve_http_tp2`` in a world of two that is up
+    (``spec``: "cfg", "seed", "amp", "prompts", "cut", "sampled", and
+    SERVE_TP2's fields): ``DecodeEngine(tp=2)`` under
+    ``use_pallas_norm``; rank 0 serves the traffic through
+    ``ServingFrontend`` and then the tp=1 engine over HTTP on the greedy
+    requests, rank 1 runs ``serving.follow``.  Returns host values."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.serving import (DecodeEngine, ServingFrontend,
+                                          follow, loadgen)
+    from paddle_tpu_torch.utils import flags
+    D.init_mesh({"dp": 1, "mp": 2})
+    rank = D.get_rank()
+    model = GPTForCausalLM(spec["cfg"], generator=torch.Generator()
+                           .manual_seed(spec["seed"]))
+    if spec["amp"]:
+        model = amp.decorate(model, level="O2", dtype="bfloat16")
+    model.eval()
+    prompts = [np.asarray(p, np.int32) for p in spec["prompts"]]
+    new = spec["new_tokens"]
+    out = {"rank": rank}
+    flags.set_flags({"use_pallas_norm": True})
+    try:
+        eng = DecodeEngine(model, num_slots=len(prompts), max_len=256,
+                           tp=2, device=device)
+        counters.reset()
+        t0 = time.perf_counter()
+        if rank != 0:
+            sched = follow(eng)
+            out.update(finished=finished_tokens(sched),
+                       forwards=sched.prefill_chunks_total
+                       + sched.decode_steps_total,
+                       launches=counters.read(), overlap=sched.overlap,
+                       seconds=time.perf_counter() - t0)
+            return out
+        fe = ServingFrontend(eng, queue_limit=64)
+        fe.start()
+        try:
+            replies = post_all(fe.host, fe.port,
+                               greedy_payloads(prompts, new))
+            out["cut_events"] = cut_stream(fe.host, fe.port, {
+                "prompt": spec["cut"], "max_new_tokens":
+                spec["cut_new_tokens"], "temperature": 0.0})
+            _st, events = http_request(fe.host, fe.port, "POST",
+                                       "/v1/generate", {
+                "prompt": spec["sampled"], "max_new_tokens": new,
+                "temperature": spec["temperature"], "top_k": spec["top_k"],
+                "stream": True})
+            out["sampled"] = done_event(events)
+            out["load"] = loadgen.run_load_sync(
+                fe.host, fe.port, spec["qps"], len(prompts),
+                mix=((spec["prompt_len"],) * 2, (new, new)),
+                vocab=spec["cfg"].vocab_size, temperature=0.0,
+                seed=spec["seed"])
+        finally:
+            fe.stop()
+        sched = fe.scheduler
+        out.update(tokens=[done_event(ev)["tokens"] for _st, ev in replies],
+                   finished=finished_tokens(sched),
+                   forwards=sched.prefill_chunks_total
+                   + sched.decode_steps_total,
+                   launches=counters.read(), records=fe._lockstep.records,
+                   uncaptured=eng.graph_stats()["uncaptured"],
+                   captures=eng.graph_stats()["captures"],
+                   seconds=time.perf_counter() - t0)
+        del eng, fe
+        ref = DecodeEngine(model, num_slots=len(prompts), max_len=256,
+                           device=device)
+        fe = ServingFrontend(ref)
+        fe.start()
+        try:
+            replies = post_all(fe.host, fe.port,
+                               greedy_payloads(prompts, new))
+        finally:
+            fe.stop()
+        out["tp1_tokens"] = [done_event(ev)["tokens"] for _st, ev in replies]
+        del ref, fe
+        out["parted"] = []
+        for i, (a, b) in enumerate(zip(out["tokens"], out["tp1_tokens"])):
+            diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+            if diff.size:
+                j = int(diff[0])
+                out["parted"].append({
+                    "request": i, "step": j, "tokens": [a[j], b[j]],
+                    "tp1_top2_margin": top2_margin(torch, model, prompts[i],
+                                                   b, j)})
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    return out
+
+
+def serve_tp2_hold(outs, spec):
+    """serve_http_tp2's checks over both ranks' results (the module
+    docstring, 11h).  Returns the line."""
+    r0, r1 = outs
+    layers = spec["cfg"].num_hidden_layers
+    load = r0["load"]
+    cut = [rid for rid, (_t, why) in r0["finished"].items()
+           if why == "cancelled"]
+    line = {"phase": "serve_http_tp2", "backend": "gloo", "device": "cuda",
+            "ranks": 2, "requests": len(r0["finished"]),
+            "tokens_equal_tp1": r0["parted"] == [], "parted": r0["parted"],
+            "margin_limit": 2 * LOGIT_TOL,
+            "follower_same_results": r1["finished"] == r0["finished"],
+            "sampled_tokens": len(r0["sampled"]["tokens"]),
+            "cut_events_seen": r0["cut_events"], "cancelled_rids": cut,
+            "lockstep_records": r0["records"],
+            "forwards": [r0["forwards"], r1["forwards"]],
+            "launches": [r0["launches"], r1["launches"]],
+            "follower_exitcode": r1.get("exitcode"),
+            "follower_loop_overlapped": r1["overlap"],
+            "uncaptured": r0["uncaptured"], "captures": r0["captures"],
+            "seconds_rank0": r0["seconds"],
+            "load": load,
+            "client_ttft_p50_ms": load["ttft_p50_ms"],
+            "client_ttft_p99_ms": load["ttft_p99_ms"],
+            "client_tpot_p50_ms": load["tpot_p50_ms"],
+            "client_tpot_p99_ms": load["tpot_p99_ms"],
+            "speed": "not a tensor-parallel speed: gloo stages every "
+                     "collective of the tp=2 step through the host"}
+    emit(line)
+    wide = [p for p in r0["parted"]
+            if p["tp1_top2_margin"] >= 2 * LOGIT_TOL]
+    if wide:
+        raise AssertionError("serve_http_tp2: tokens part from tp=1's where "
+                             "its top-2 margin is wide: %r" % (wide,))
+    if r1["finished"] != r0["finished"]:
+        raise AssertionError("serve_http_tp2: the follower's results differ "
+                             "from rank 0's")
+    if r0["finished"][r0["sampled"]["rid"]] != [r0["sampled"]["tokens"],
+                                                "length"]:
+        raise AssertionError("serve_http_tp2: sampled request %r"
+                             % (r0["sampled"],))
+    if len(cut) != 1 or r0["finished"][cut[0]][1] != "cancelled":
+        raise AssertionError("serve_http_tp2: cut request %r" % (cut,))
+    if load["completed"] != spec["requests"] or load["errors"] \
+            or load["shed"]:
+        raise AssertionError("serve_http_tp2: load %r" % (load,))
+    if r1.get("exitcode") != 0:
+        raise AssertionError("serve_http_tp2: the follower exited %r"
+                             % (r1.get("exitcode"),))
+    if r0["captures"] != 0 or r0["forwards"] != r1["forwards"]:
+        raise AssertionError("serve_http_tp2: captures %r, forwards %r"
+                             % (r0["captures"], line["forwards"]))
+    for r in (r0, r1):
+        expect_launches(r["launches"],
+                        {"layer_norm_fwd": (2 * layers + 1) * r["forwards"]},
+                        "serve_http_tp2 rank %d" % r["rank"])
+    return line
+
+
+def serve_http_tp2(torch, cfg, timeout=600.0):
+    """Two processes on the one card, a gloo world over CUDA tensors: the
+    HTTP front end over ``DecodeEngine(tp=2)`` (GPT-2 345M bf16, the
+    serve weights' seed), rank 1 following (:func:`serve_tp2_hold`)."""
+    rng = np.random.default_rng(29)
+    spec = dict(SERVE_TP2, cfg=cfg, seed=0, amp=True,
+                prompts=[rng.integers(0, cfg.vocab_size,
+                                      SERVE_TP2["prompt_len"]).tolist()
+                         for _ in range(SERVE_TP2["requests"])],
+                cut=rng.integers(0, cfg.vocab_size, 64).tolist(),
+                sampled=rng.integers(0, cfg.vocab_size, 64).tolist())
+    t0 = time.perf_counter()
+    line = serve_tp2_hold(gloo_pair("serve_tp2_rank", spec, timeout), spec)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# pp_single / pp2_gloo: 4 microbatches of 2 x 1024 tokens a step, 3 steps
+PP_ACC, PP_STEPS = 4, 3
+# the trained parameters of pp2_gloo against pp_single's: AdamW moves an
+# element about lr a step whatever its gradient, so a gradient that rounds
+# otherwise (the 1F1B step sums microbatch grads in f32, the plain loop in
+# the parameters' bf16) can move it by 2 lr a step: 3 steps x 2e-4, plus
+# a bf16 ulp of |w| <= 0.125 (4.9e-4)
+PP_PARAM_TOL = 1.1e-3
+
+
+def gpt_pipeline_descs(cfg):
+    """GPT (``cfg``) as pipeline descs: a ``SharedLayerDesc`` embedding
+    (wte + wpe), the port's ``GPTBlock``s, and the head (the final
+    LayerNorm, then logits against the tied wte)."""
+    import torch
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.pipeline import (LayerDesc,
+                                                       SharedLayerDesc)
+    from paddle_tpu_torch.models.gpt import GPTBlock
+
+    class GPTEmbedPipe(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+            self.wpe = nn.Embedding(cfg.max_position_embeddings,
+                                    cfg.hidden_size)
+
+        @property
+        def weight(self):
+            return self.wte.weight
+
+        @weight.setter
+        def weight(self, value):
+            self.wte.weight = value
+
+        def forward(self, ids):
+            pos = torch.arange(ids.shape[1], device=ids.device)[None]
+            return self.wte(ids) + self.wpe(pos)
+
+    class GPTHeadPipe(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.ln_f = nn.LayerNorm(cfg.hidden_size,
+                                     cfg.layer_norm_epsilon)
+            # replaced by the embedding's wte (the tie)
+            self.weight = torch.nn.Parameter(torch.empty(0))
+
+        def forward(self, x):
+            return self.ln_f(x) @ self.weight.t()
+
+    return [SharedLayerDesc("wte", GPTEmbedPipe),
+            *[LayerDesc(GPTBlock, cfg)
+              for _ in range(cfg.num_hidden_layers)],
+            SharedLayerDesc("wte", GPTHeadPipe)]
+
+
+def gpt_pipeline(torch, base, num_stages, device="cuda", dtype="bfloat16"):
+    """A ``PipelineLayer`` of :func:`gpt_pipeline_descs` holding ``base``'s
+    weights (``GPTForCausalLM``), AMP O2 in ``dtype``, on ``device``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed.pipeline import PipelineLayer
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    cfg = base.config
+    pl = PipelineLayer(gpt_pipeline_descs(cfg), num_stages=num_stages,
+                       loss_fn=GPTPretrainingCriterion())
+    sd = base.state_dict()
+    layers = pl.run_function
+    with torch.no_grad():
+        layers[0].wte.weight.copy_(sd["gpt.wte.weight"])
+        layers[0].wpe.weight.copy_(sd["gpt.wpe.weight"])
+        layers[-1].shared.ln_f.weight.copy_(sd["gpt.ln_f.weight"])
+        layers[-1].shared.ln_f.bias.copy_(sd["gpt.ln_f.bias"])
+        for i in range(cfg.num_hidden_layers):
+            pre = "gpt.h.%d." % i
+            layers[1 + i].load_state_dict(
+                {k[len(pre):]: v for k, v in sd.items()
+                 if k.startswith(pre)})
+    return amp.decorate(pl, level="O2", dtype=dtype).to(device)
+
+
+def param_sample(t, n=1 << 16):
+    """A parameter's evenly spaced sample of ``n`` elements (all of a
+    smaller one) as f32 on the host, and the f64 sum of all of it."""
+    import torch
+    flat = t.detach().reshape(-1).float()
+    k = min(n, flat.numel())
+    # integer spacing: an f32 linspace rounds past the end of a large one
+    idx = (torch.arange(k, device=flat.device, dtype=torch.int64)
+           * (flat.numel() - 1)) // max(k - 1, 1)
+    return flat[idx].cpu().numpy(), float(flat.double().sum())
+
+
+def pp_snapshot(pl):
+    """The tied wte and one block of each of two stages (block 0 and
+    block L / 2), sampled (:func:`param_sample`)."""
+    layers = pl.run_function
+    half = (len(layers) - 2) // 2
+    out = {"wte": param_sample(layers[0].wte.weight)}
+    for i in (1, 1 + half):
+        for k, v in layers[i].state_dict().items():
+            out["block%d.%s" % (i - 1, k)] = param_sample(v)
+    return out
+
+
+def pp_launches_due(layers_on_stage, head, steps, device="cuda"):
+    """The flash forward, C2 / C3, B and D a stage launches in ``steps``
+    steps of PP_ACC microbatches (the head's final LayerNorm on the last
+    stage); D on a card only (on the CPU the plain LayerNorm's backward
+    is autograd's, which no wrapper counts)."""
+    per_mb = {"flash_fwd_tc": layers_on_stage,
+              "flash_bwd_dq": layers_on_stage,
+              "flash_bwd_dkv": layers_on_stage, "flash_bwd": 0,
+              "flash_fwd": 0,
+              "layer_norm_fwd": 2 * layers_on_stage + int(head)}
+    if device != "cpu":
+        per_mb["layer_norm_bwd"] = per_mb["layer_norm_fwd"]
+    return {k: v * PP_ACC * steps for k, v in per_mb.items()}
+
+
+def pp_single(torch, base, counters, flags, steps=PP_STEPS, device="cuda"):
+    """GPT-2 345M as a ``PipelineLayer`` on one rank (no pp axis; the
+    module docstring, 11i): ``train_batch``'s losses against a plain loop
+    over the same layers with the same microbatching.  Returns the line
+    (with the trained snapshot, for pp2_gloo)."""
+    from paddle_tpu_torch.distributed.pipeline import PipelineParallel
+    from paddle_tpu_torch.optimizer import AdamW
+    layers = base.config.num_hidden_layers
+    ids = train_ids(torch, base.config.vocab_size, device)
+    mb = ids.shape[0] // PP_ACC
+    flags.set_flags({"use_pallas_norm": True})
+    try:
+        ref = gpt_pipeline(torch, base, 1, device)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=ref.parameters())
+        plain = []
+        for _ in range(steps):
+            total = None
+            for i in range(PP_ACC):
+                xi = ids[i * mb:(i + 1) * mb]
+                loss = ref.loss_fn(ref(xi), xi)
+                (loss / PP_ACC).backward()
+                total = loss.detach() if total is None \
+                    else total + loss.detach()
+            opt.step()
+            opt.clear_grad()
+            plain.append(float(total / PP_ACC))
+        del ref, opt
+        if device != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        pl = gpt_pipeline(torch, base, 1, device)
+        model = PipelineParallel(pl)
+        model.accumulate_steps = PP_ACC
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters())
+        torch.cuda.synchronize()
+        counters.reset()
+        t0 = time.perf_counter()
+        losses = [float(model.train_batch((ids, ids), opt))
+                  for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        snapshot = pp_snapshot(pl)
+        peak = (torch.cuda.max_memory_allocated() if device != "cpu"
+                else None)
+        prof = (profile_steps(torch, lambda a, b: model.train_batch(
+            (a, b), opt), ids, n=1) if device != "cpu"
+            else {"step_device_ms": None})
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    line = {"phase": "pp_single", "shape": [8, 1024],
+            "microbatches": PP_ACC, "steps": steps, "losses": losses,
+            "plain_losses": plain,
+            "max_loss_diff": max(abs(a - b) for a, b in zip(losses, plain)),
+            "step_ms": wall * 1e3 / steps,
+            "step_device_ms": prof["step_device_ms"],
+            "device_busy_share": prof.get("device_busy_share"),
+            "peak_memory_gb": None if peak is None else peak / 1e9,
+            "launches": launches}
+    emit(line)
+    expect_launches(launches, pp_launches_due(layers, True, steps, device),
+                    "pp_single")
+    if not (all(math.isfinite(x) for x in losses)
+            and line["max_loss_diff"] <= 1e-5 and losses[-1] < losses[0]):
+        raise AssertionError("pp_single: losses %r, plain loop %r"
+                             % (losses, plain))
+    line["snapshot"] = snapshot
+    return line
+
+
+def pp2_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``pp2_gloo`` in a world of two that is up
+    (``spec``: "cfg", "seed", "steps"): the pp=2 fleet run of
+    pp_single's model, data and optimizer, then the fp16 overflow step.
+    Returns host values."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils import flags
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"pp_degree": 2}
+    strategy.pipeline_configs = {"accumulate_steps": PP_ACC}
+    fleet.init(is_collective=True, strategy=strategy)
+    base = GPTForCausalLM(spec["cfg"], generator=torch.Generator()
+                          .manual_seed(spec["seed"]))
+    ids = train_ids(torch, spec["cfg"].vocab_size, device)
+    steps = spec["steps"]
+    flags.set_flags({"use_pallas_norm": True})
+    try:
+        pl = gpt_pipeline(torch, base, 2, device)
+        model = fleet.distributed_model(pl)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters())
+        if device != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        C.reset_counts()
+        counters.reset()
+        t0 = time.perf_counter()
+        losses = [float(model.train_batch((ids, ids), opt))
+                  for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        issued = C.issued()
+        comp = model._compiled
+        out = {"rank": D.get_rank(), "stage": comp._stage,
+               "losses": losses, "launches": launches,
+               "step_host_ms_over_gloo": wall * 1e3 / steps,
+               "permutes_per_step": issued.get("ppermute", 0) / steps,
+               "step_permutes": comp.last_permutes,
+               "peak_inflight": comp.last_peak_inflight,
+               "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                        if device != "cpu" else None)}
+        model.sync_to_layers()
+        out["snapshot"] = pp_snapshot(pl)
+        del model, pl, opt, comp
+        # fp16 under a GradScaler whose scale overflows the cotangents
+        pl = gpt_pipeline(torch, base, 2, device, "float16")
+        model = fleet.distributed_model(pl)
+        opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                    parameters=model.parameters())
+        scaler = amp.GradScaler(init_loss_scaling=2.0 ** 40,
+                                decr_every_n_nan_or_inf=1)
+        before = {k: p.detach().clone() for k, p in pl.named_parameters()}
+        model.train_batch((ids, ids), opt, scaler=scaler)
+        out["fp16"] = {
+            "skipped": scaler.last_step_skipped,
+            "unchanged": all(torch.equal(before[k], p)
+                             for k, p in pl.named_parameters()),
+            "scale_after": scaler.get_loss_scaling()}
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    return out
+
+
+def pp2_hold(outs, spec, single):
+    """pp2_gloo's checks over both ranks' results against pp_single's line
+    (the module docstring, 11j).  Returns the line."""
+    r0, r1 = outs
+    layers = spec["cfg"].num_hidden_layers
+    steps = spec["steps"]
+    n = 2
+    gaps = {k: float(np.abs(r0["snapshot"][k][0] - v[0]).max())
+            for k, v in single["snapshot"].items()}
+    worst = max(gaps, key=gaps.get)
+    line = {"phase": "pp2_gloo", "backend": "gloo", "device": "cuda",
+            "ranks": 2, "mesh": {"pp": 2}, "blocks_per_stage": layers // n,
+            "microbatches": PP_ACC, "steps": steps,
+            "losses": r0["losses"], "single_losses": single["losses"],
+            "max_loss_diff": max(abs(a - b) for a, b in zip(
+                r0["losses"], single["losses"])),
+            "loss_tol": PARITY_LOSS_TOL,
+            "param_max_diff": gaps[worst], "param_worst": worst,
+            "param_tol": PP_PARAM_TOL,
+            "ranks_same_params": all(
+                np.array_equal(r0["snapshot"][k][0], r1["snapshot"][k][0])
+                for k in r0["snapshot"]),
+            "permutes_per_step": [r0["permutes_per_step"],
+                                  r1["permutes_per_step"]],
+            "permutes_due": 2 * (PP_ACC + 2 * (n - 1)),
+            "peak_inflight": [r0["peak_inflight"], r1["peak_inflight"]],
+            "peak_inflight_bound": [min(PP_ACC, 2 * (n - 1 - s) + 1)
+                                    for s in range(n)],
+            "max_memory_allocated": [r0["max_memory_allocated"],
+                                     r1["max_memory_allocated"]],
+            "launches": [r0["launches"], r1["launches"]],
+            "step_host_ms_over_gloo": [r0["step_host_ms_over_gloo"],
+                                       r1["step_host_ms_over_gloo"]],
+            "fp16_overflow": [r0["fp16"], r1["fp16"]],
+            "speed": "not a pipeline speed: gloo stages every permute "
+                     "through the host, and both stages share one card"}
+    emit(line)
+    if [r0["stage"], r1["stage"]] != [0, 1]:
+        raise AssertionError("pp2_gloo: stages %r" % ([r0["stage"],
+                                                      r1["stage"]],))
+    if r0["losses"] != r1["losses"] or not (
+            all(math.isfinite(x) for x in r0["losses"])
+            and line["max_loss_diff"] <= PARITY_LOSS_TOL):
+        raise AssertionError("pp2_gloo: losses %r / %r, pp_single %r"
+                             % (r0["losses"], r1["losses"],
+                                single["losses"]))
+    if not (line["ranks_same_params"] and gaps[worst] <= PP_PARAM_TOL):
+        raise AssertionError("pp2_gloo: trained parameters %s %g from "
+                             "pp_single's (same on both ranks: %r)"
+                             % (worst, gaps[worst],
+                                line["ranks_same_params"]))
+    for r in (r0, r1):
+        if r["permutes_per_step"] != line["permutes_due"] \
+                or r["step_permutes"] != line["permutes_due"]:
+            raise AssertionError("pp2_gloo: %r permutes a step, due %d"
+                                 % (line["permutes_per_step"],
+                                    line["permutes_due"]))
+        if r["peak_inflight"] != line["peak_inflight_bound"][r["stage"]]:
+            raise AssertionError("pp2_gloo: in flight %r, bound %r"
+                                 % (line["peak_inflight"],
+                                    line["peak_inflight_bound"]))
+        expect_launches(r["launches"],
+                        pp_launches_due(layers // n, r["stage"] == n - 1,
+                                        steps, spec.get("device", "cuda")),
+                        "pp2_gloo stage %d" % r["stage"])
+        f = r["fp16"]
+        if not (f["skipped"] and f["unchanged"]
+                and f["scale_after"] == 2.0 ** 39):
+            raise AssertionError("pp2_gloo: fp16 overflow step %r"
+                                 % (line["fp16_overflow"],))
+    return line
+
+
+def pp2_gloo(torch, cfg, single, timeout=900.0):
+    """Two processes on the one card, a gloo world over CUDA tensors: the
+    1F1B pipeline at pp=2 through the fleet, held to ``single``
+    (pp_single's line; :func:`pp2_hold`)."""
+    spec = {"cfg": cfg, "seed": 0, "steps": single["steps"]}
+    t0 = time.perf_counter()
+    line = pp2_hold(gloo_pair("pp2_rank", spec, timeout), spec, single)
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -5066,11 +5664,13 @@ def serve_fleet(torch, model, prompts, ref_tokens, own, own_ref, counters,
     return phase_end(torch, line, t0)
 
 
-def distributed(torch, base, train_cfg, amp, counters, run_train, seconds):
+def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
+                seconds):
     """The distributed phases, timed into ``seconds``: dist_nccl and
     train_dp on an NCCL world of one, then the two-process gloo phases
-    tp2_gloo and zero_gloo.  Returns their lines (train_dp, tp2_gloo,
-    zero_gloo)."""
+    tp2_gloo, zero_gloo and serve_http_tp2, pp_single on one rank, and
+    the two-process pp2_gloo.  Returns their lines (train_dp, tp2_gloo,
+    zero_gloo, serve_http_tp2, pp_single, pp2_gloo)."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.distributed import mesh as dist_mesh
@@ -5090,7 +5690,18 @@ def distributed(torch, base, train_cfg, amp, counters, run_train, seconds):
     t0 = time.perf_counter()
     run_zero = zero_gloo(torch, train_cfg, run_train["losses"])
     seconds["zero_gloo"] = time.perf_counter() - t0
-    return run_dp, run_tp2, run_zero
+    t0 = time.perf_counter()
+    run_serve_tp2 = serve_http_tp2(torch, train_cfg)
+    seconds["serve_http_tp2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    run_pp = pp_single(torch, base, counters, flags)
+    torch.cuda.empty_cache()
+    seconds["pp_single"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_pp2 = pp2_gloo(torch, train_cfg, run_pp)
+    seconds["pp2_gloo"] = time.perf_counter() - t0
+    return run_dp, run_tp2, run_zero, run_serve_tp2, run_pp, run_pp2
 
 
 def device_line(torch, kind):
@@ -5120,7 +5731,8 @@ def distributed_only(torch, kind, amp, flags, counters):
     run_train = train(torch, base, amp, counters, flags)
     torch.cuda.empty_cache()
     seconds["train"] = time.perf_counter() - t0
-    distributed(torch, base, train_cfg, amp, counters, run_train, seconds)
+    distributed(torch, base, train_cfg, amp, flags, counters, run_train,
+                seconds)
     emit({"phase": "seconds", **seconds})
     device_line(torch, kind)
     return 0
@@ -5510,8 +6122,9 @@ def main():
     run_rc = train_recompute(torch, base, amp, counters, run_train["losses"],
                              run_train)
     seconds["train_recompute"] = time.perf_counter() - t0
-    run_dp, run_tp2, run_zero = distributed(torch, base, train_cfg, amp,
-                                            counters, run_train, seconds)
+    (run_dp, run_tp2, run_zero, run_serve_tp2, run_pp,
+     run_pp2) = distributed(torch, base, train_cfg, amp, flags, counters,
+                            run_train, seconds)
     t0 = time.perf_counter()
     parity = train_parity(torch, base, amp, flags, counters)
     torch.cuda.empty_cache()
@@ -5583,6 +6196,9 @@ def main():
                     run_zero["stages"][stage]["launches"][kern]
                     for stage in (1, 2, 3)})
         out["train_scan"] = run_scan[0]["launches"][kern]
+        out["pp_single"] = run_pp["launches"][kern]
+        out.update({"pp2_gloo_stage%d" % st: run_pp2["launches"][st][kern]
+                    for st in (0, 1)})
         out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
                     for r in run_rc})
         if kern == "flash_fwd_tc":
@@ -5856,7 +6472,13 @@ def main():
                 for name in ("per_layer", "scan")},
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
-                 run_fp16[1]["launches"]["layer_norm_fwd"]},
+                 run_fp16[1]["launches"]["layer_norm_fwd"],
+             **{"serve_http_tp2_rank%d" % r:
+                run_serve_tp2["launches"][r]["layer_norm_fwd"]
+                for r in (0, 1)},
+             "pp_single": run_pp["launches"]["layer_norm_fwd"],
+             **{"pp2_gloo_stage%d" % st:
+                run_pp2["launches"][st]["layer_norm_fwd"] for st in (0, 1)}},
          "max_abs_err": max(ln_err, ln16_err), "ms": decode_row["kernel_ms"],
          "device_ms": decode_row["kernel_device_ms"],
          "plain_ms": decode_row["plain_ms"],
@@ -5888,7 +6510,10 @@ def main():
          "launches_by_path": {
              "train_norm": run_train_norm["launches"]["layer_norm_bwd"],
              "train_fp16_use_pallas_norm":
-                 run_fp16[1]["launches"]["layer_norm_bwd"]},
+                 run_fp16[1]["launches"]["layer_norm_bwd"],
+             "pp_single": run_pp["launches"]["layer_norm_bwd"],
+             **{"pp2_gloo_stage%d" % st:
+                run_pp2["launches"][st]["layer_norm_bwd"] for st in (0, 1)}},
          "max_abs_err": max(ln_bwd_err, ln16_bwd_err),
          "shape": ln_bwd_row["shape"],
          "ms": ln_bwd_row["kernel_ms"],

@@ -33,10 +33,18 @@ def state_dict_from_numpy(arrays):
 def load_paddle_tpu_state(model, arrays):
     """Copy ``arrays`` into ``model``'s parameters by name.  Every name
     and shape must match; each tensor keeps the parameter's dtype and
-    device."""
+    device.  A name the arrays lack is allowed where it names the same
+    tensor as a name they hold: a tied weight, which the JAX package's
+    state dict lists once (a ``PipelineLayer``'s ``SharedLayerDesc``
+    head, ``run_function.<i>.shared...``) and PyTorch's under each
+    name."""
     tensors = state_dict_from_numpy(arrays)
-    own = model.state_dict()
-    missing = sorted(set(own) - set(tensors))
+    own = model.state_dict(keep_vars=True)
+    named = {}
+    for name, t in own.items():
+        named.setdefault(id(t), []).append(name)
+    missing = sorted(k for k in set(own) - set(tensors)
+                     if not any(a in tensors for a in named[id(own[k])]))
     extra = sorted(set(tensors) - set(own))
     if missing or extra:
         raise KeyError("state mismatch: missing %s, unexpected %s"
@@ -47,7 +55,7 @@ def load_paddle_tpu_state(model, arrays):
             if tuple(dst.shape) != tuple(t.shape):
                 raise ValueError("%s: shape %s, model has %s"
                                  % (name, tuple(t.shape), tuple(dst.shape)))
-            dst.copy_(t)
+            dst.detach().copy_(t)
     return model
 
 

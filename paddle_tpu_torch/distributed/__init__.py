@@ -9,18 +9,22 @@ parameters keep the slice their rank's coordinate names
 hand (:mod:`.mp_layers`), or, with the overlap switch on, as rings of
 permutes overlapped with the partial matmuls (:mod:`.mp_overlap`).
 ZeRO (:mod:`.sharding`) slices the optimizer state, the gradients and
-the masters over the ``sdp`` axis.  Also here: :mod:`.store`, the TCP
-key-value store, and :mod:`.recompute`, activation recompute.
+the masters over the ``sdp`` axis.  :mod:`.pipeline` runs the 1F1B
+schedule with one process a stage over the ``pp`` axis, and :mod:`.fleet`
+is the facade that lays the hybrid degrees out and dispatches a model to
+its wrapper.  Also here: :mod:`.store`, the TCP key-value store, and
+:mod:`.recompute`, activation recompute.
 
-Not ported yet (ROADMAP.md §A5): pipelines, ring attention, MoE,
-``auto_parallel``, ``fleet`` and the launcher (``launch`` raises).
+Not ported yet (ROADMAP.md §A5): ring attention, MoE, ``auto_parallel``,
+ZeRO with a pipeline, and the launcher with ``fleet.elastic``
+(``launch`` raises).
 """
 from __future__ import annotations
 
 import os
 
 from . import collective, mesh, mp_layers, mp_overlap, sharding  # noqa
-from . import store  # noqa: F401
+from . import fleet, pipeline, store  # noqa: F401
 from .collective import (ReduceOp, all_gather, all_gather_object, all_reduce,
                          all_to_all, all_to_all_single, alltoall, barrier,
                          broadcast, get_group, irecv, isend, new_group, recv,
@@ -92,8 +96,4 @@ def __getattr__(name):
         raise NotImplementedError(
             "paddle_tpu_torch.distributed.launch: the launcher "
             "(launch_main) is not ported yet (ROADMAP.md §A5)")
-    if name == "fleet":
-        raise NotImplementedError(
-            "paddle_tpu_torch.distributed.fleet is not ported yet "
-            "(ROADMAP.md §A5)")
     raise AttributeError(name)

@@ -365,13 +365,17 @@ def ppermute(tensor, perm, group=None, async_op=False):
     _issue("ppermute")
     x = tensor.contiguous().reshape(-1)
     n = int(x.numel())
-    out = (torch.empty_like(x) if src is not None
-           else torch.zeros_like(x))
+    # a rank that sends nothing (or receives nothing) under a partial
+    # permutation hands the backend an empty input (or output): the split
+    # sizes must add up to the tensors' lengths
+    send = x if dst is not None else x[:0]
+    recv = torch.empty_like(x) if src is not None else x.new_empty((0,))
     work = dist.all_to_all_single(
-        out, x, [n if j == src else 0 for j in range(g.nranks)],
+        recv, send, [n if j == src else 0 for j in range(g.nranks)],
         [n if j == dst else 0 for j in range(g.nranks)], group=g.pg,
         async_op=async_op)
-    out = out.view(tensor.shape)
+    out = (recv.view(tensor.shape) if src is not None
+           else torch.zeros_like(tensor))
     return _Permuted(out, work) if async_op else out
 
 

@@ -28,7 +28,7 @@ from .cache import (DecodeView, PagedDecodeView, PagedKVCache,
                     quantize_kv)
 from .engine import (DecodeEngine, InflightDecode, PrefillTask,
                      ThreadedTokens, prefill_buckets_for)
-from .frontend import ServingFrontend
+from .frontend import LeaderLost, ServingFrontend, follow
 from .pages import PageAllocator, PagePoolExhausted, prompt_digest_chain
 from .cache import _as_kv_dtypes
 from .sampling import TOP_K_MAX, sample, spec_accept
@@ -51,7 +51,8 @@ __all__ = ["SlottedKVCache", "DecodeView", "PrefillView", "PagedKVCache",
            "RequeueState", "DisaggScheduler", "HandoffTask",
            "HostPageTier", "ClusterPrefixIndex", "npz_roundtrip",
            "Router", "RemoteReplicaHandle", "NoHealthyReplicas",
-           "ServingFrontend", "generate", "engine_for"]
+           "ServingFrontend", "follow", "LeaderLost", "generate",
+           "engine_for"]
 
 #: bound on cached engines per model: each holds a full preallocated KV
 #: pool (two (slots, layers, max_len, heads, head_dim) buffers' worth)

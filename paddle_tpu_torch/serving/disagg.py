@@ -118,6 +118,12 @@ class DisaggScheduler(ContinuousBatchingScheduler):
             raise ValueError("disaggregated serving needs TWO engines "
                              "(prefill_engine is the decode engine)")
         for e, role in ((engine, "decode"), (prefill_engine, "prefill")):
+            if getattr(e, "tp", 1) > 1:
+                raise ValueError(
+                    "disaggregated serving with a tensor-parallel %s "
+                    "engine (tp=%d) is not supported: the pair runs in "
+                    "one process, and the engine's other ranks would "
+                    "never step (ROADMAP.md §A5)" % (role, e.tp))
             if not e.paged:
                 raise ValueError("%s engine must be paged (the slotted "
                                  "layout has no page pool to hand off)"

@@ -68,6 +68,27 @@ the prefill engine and their KV hands off into ``engine``'s pool
 (``handoff_limit`` bounds the handoff queue).  :meth:`start` captures
 both engines' graphs before the scheduler thread exists.
 
+**A tensor-parallel engine** (``DecodeEngine(tp=N)``, N > 1): each rank
+of the engine's group is a process, and every rank must make the same
+engine calls.  Rank 0 runs this front end; every other rank runs
+:func:`follow`, which drives its own scheduler over its shard of the
+engine in lockstep with rank 0's.  Before each scheduler step, and only
+on iterations where something happens, rank 0's scheduler thread
+broadcasts one record over the engine's group (:class:`_Lockstep`: its
+length, then its JSON bytes): the submissions of the iteration with
+their rids, the cancels, whether a step runs, and at the end a stop.
+Everything decided by the wall clock or the network (sheds, the queue
+limit, disconnects, a guard's drain, the pre-submit cancelled skip) is
+decided on rank 0 and reaches a follower only as submissions and
+cancels; the scheduler reads the clock for its metrics alone, so the
+followers' scheduling is rank 0's.  The ranks draw the same tokens:
+their engines are seeded alike and sample from the all-gathered logits.
+While idle rank 0 broadcasts an empty record every ``LOCKSTEP_BEAT_S``
+seconds, so no follower waits in a collective longer than that.  A tp
+engine runs uncaptured, so :meth:`start`'s capture is a no-op on every
+rank.  The fleet (``router=``) and the disaggregated pair
+(``prefill_engine=``) refuse a tp engine (ROADMAP.md §A5).
+
 **The replicated fleet** (``router=``): the router owns the replicas and
 their threads, and the front end runs no scheduler thread of its own.
 Handlers call ``router.submit`` (digest hashing and a lock-scoped enqueue,
@@ -88,13 +109,23 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..distributed import collective as _coll
 from ..observability import liveness as _liveness
 from ..observability import registry as _metrics
 from ..observability import tracing as _tracing
 from ..robustness.faultpoints import declare, faultpoint
 from .scheduler import ContinuousBatchingScheduler, Request
 
-__all__ = ["ServingFrontend"]
+__all__ = ["ServingFrontend", "follow", "LeaderLost"]
+
+#: while idle, a tensor-parallel rank 0 broadcasts an empty record this
+#: often (seconds)
+LOCKSTEP_BEAT_S = 1.0
+#: a follower that has waited this long (seconds) for rank 0's next
+#: record ends its process with :data:`LEADER_LOST_EXIT`
+LEADER_TIMEOUT_S = 30.0
+#: the exit code of a follower whose rank 0 went silent
+LEADER_LOST_EXIT = 3
 
 # liveness beacons over the two front-end worker threads: a
 # deadlocked scheduler thread or a wedged event loop keeps sockets
@@ -184,6 +215,16 @@ class ServingFrontend:
                 engine, tracer=tracer, overlap=overlap,
                 on_token=self._on_token, on_finish=self._on_finish)
             self._prompt_cap = engine.prompt_cap
+        # a tensor-parallel engine: rank 0 leads its group's followers
+        self._lockstep = None
+        group = getattr(engine, "_mp", None)
+        if router is None and prefill_engine is None and group is not None:
+            if group.rank != 0:
+                raise ValueError(
+                    "rank %d of a tp=%d engine's group follows rank 0's "
+                    "front end: run serving.follow(engine) there"
+                    % (group.rank, engine.tp))
+            self._lockstep = _Lockstep(engine)
         # command queues (handler threads -> scheduler thread)
         self._lock = threading.Lock()
         self._pending = []                # [(Request, _Stream)]
@@ -289,9 +330,13 @@ class ServingFrontend:
             torch.cuda.set_device(self.engine.cache.lengths.device)
         b = _liveness.beacon("serve.frontend_sched")
         b.begin()     # watched for the thread's whole lifetime
+        ls = self._lockstep
         try:
+            if ls is not None:
+                ls.send({"hello": {"overlap": sched.overlap}})
             while True:
                 b.pulse()
+                ops = []          # this iteration's submits and cancels
                 if (self._guard is not None and self._guard.preempted
                         and not self._draining):
                     # the guard flipped (SIGTERM / chaos Preempt): stop
@@ -324,6 +369,7 @@ class ServingFrontend:
                             "queue_wait_ms": 0.0}))
                         continue
                     stream.rid = rid
+                    ops.append(_submit_op(rid, req))
                     with self._lock:
                         self._streams[rid] = stream
                     # the network-facing lifetime on the request lane:
@@ -341,17 +387,25 @@ class ServingFrontend:
                         # (A post-rid disconnect queues a cancel too;
                         # the second cancel() is a no-op.)
                         sched.cancel(rid)
+                        ops.append(["cancel", rid])
                 for rid in cancels:
                     sched.cancel(rid)
+                    ops.append(["cancel", rid])
                 worked = False
                 if sched.has_work():
                     # has_work() holds while a step is in flight, so the
                     # thread never ends with a step unconsumed (its
                     # pinned output buffer would be reused under a
                     # pending copy)
+                    if ls is not None:
+                        ls.send({"ops": ops, "step": True})
                     sched.step()
                     worked = True
                 else:
+                    if ls is not None and (
+                            ops or ls.idle_for() >= LOCKSTEP_BEAT_S):
+                        # the iteration's cancels, or the idle beat
+                        ls.send({"ops": ops, "step": False})
                     with self._lock:
                         # _outstanding is incremented BEFORE a request
                         # enters _pending, so an accepted-but-not-yet-
@@ -368,6 +422,8 @@ class ServingFrontend:
                     self._wake.clear()
                 if not worked and self._stop:
                     break
+            if ls is not None:
+                ls.send({"stop": True})
         except BaseException as e:        # surfaced by stop()
             self._sched_error = e
             # the black-box record: this catch keeps the death off
@@ -706,3 +762,133 @@ class ServingFrontend:
                       "Connection: close\r\n\r\n"
                       % (code, reason, len(body))).encode() + body)
         await writer.drain()
+
+
+# -- tensor-parallel lockstep --------------------------------------------------
+
+def _submit_op(rid, req):
+    return ["submit", int(rid), [int(t) for t in np.asarray(req.prompt)],
+            int(req.max_new_tokens), float(req.temperature), int(req.top_k),
+            float(req.top_p), req.eos_token_id]
+
+
+class LeaderLost(RuntimeError):
+    """A tensor-parallel follower lost rank 0 of its engine's group."""
+
+
+class _Lockstep:
+    """The record channel of a tensor-parallel engine's group: rank 0
+    broadcasts a record (its byte length, then its JSON bytes) over the
+    engine's group; every other rank receives it.  On the host under
+    gloo, on the engine's card under NCCL."""
+
+    def __init__(self, engine):
+        import torch.distributed as dist
+        self.group = engine._mp
+        nccl = dist.get_backend(self.group.pg) == "nccl"
+        self.device = engine.device if nccl else torch.device("cpu")
+        self.records = 0
+        self._last = time.monotonic()
+        self.waiting_since = None     # a receive in progress (monotonic)
+
+    def idle_for(self):
+        return time.monotonic() - self._last
+
+    def send(self, record):
+        data = json.dumps(record).encode()
+        n = torch.tensor([len(data)], dtype=torch.int64, device=self.device)
+        _coll.broadcast(n, src=0, group=self.group)
+        buf = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        _coll.broadcast(buf.to(self.device), src=0, group=self.group)
+        self.records += 1
+        self._last = time.monotonic()
+
+    def recv(self):
+        self.waiting_since = time.monotonic()
+        try:
+            n = torch.zeros((1,), dtype=torch.int64, device=self.device)
+            _coll.broadcast(n, src=0, group=self.group)
+            buf = torch.empty((int(n.item()),), dtype=torch.uint8,
+                              device=self.device)
+            _coll.broadcast(buf, src=0, group=self.group)
+        except RuntimeError as e:
+            raise LeaderLost("rank 0 of the tp=%d group is gone: %s"
+                             % (self.group.nranks, e)) from e
+        finally:
+            self.waiting_since = None
+        self.records += 1
+        self._last = time.monotonic()
+        return json.loads(bytes(buf.cpu().numpy()).decode())
+
+
+def _watch_leader(ls, timeout, done):
+    """End the process when a receive has waited ``timeout`` seconds: the
+    follower's thread is inside a collective that nothing can
+    interrupt."""
+    import os
+    import sys
+    while not done.wait(0.25):
+        since = ls.waiting_since
+        if since is not None and time.monotonic() - since > timeout:
+            print("serving.follow: no record from rank 0 in %.0f s; "
+                  "exiting %d" % (timeout, LEADER_LOST_EXIT),
+                  file=sys.stderr, flush=True)
+            os._exit(LEADER_LOST_EXIT)
+
+
+def follow(engine, leader_timeout=LEADER_TIMEOUT_S):
+    """Drive rank r > 0 of a tensor-parallel engine's group behind rank
+    0's :class:`ServingFrontend`: receive rank 0's records, apply their
+    submissions (each must get the rid rank 0's did) and cancels to this
+    rank's own scheduler (built with rank 0's loop), step when rank 0
+    steps, and return the scheduler (its ``finished`` results are rank
+    0's) when rank 0's front end stops.
+
+    A follower whose rank 0 is gone does not hang: a receive the backend
+    fails raises :class:`LeaderLost`, and a receive that has waited
+    ``leader_timeout`` seconds (rank 0 sends a record at least every
+    ``LOCKSTEP_BEAT_S`` seconds while it lives) ends the process with
+    exit code :data:`LEADER_LOST_EXIT`.  Start it after the engine is
+    built on every rank, e.g. ``sys.exit(0 if follow(engine) else 1)``
+    in the follower's main."""
+    group = getattr(engine, "_mp", None)
+    if group is None or group.rank == 0:
+        raise ValueError("serving.follow runs on ranks 1.. of a "
+                         "tensor-parallel engine's group (tp > 1); rank 0 "
+                         "runs ServingFrontend")
+    if engine.device.type == "cuda":
+        torch.cuda.set_device(engine.cache.lengths.device)
+    ls = _Lockstep(engine)
+    done = threading.Event()
+    watch = threading.Thread(target=_watch_leader,
+                             args=(ls, float(leader_timeout), done),
+                             name="serve-follow-watch", daemon=True)
+    watch.start()
+    try:
+        hello = ls.recv().get("hello")
+        if hello is None:
+            raise LeaderLost("the first record from rank 0 is not its "
+                             "hello: the follower started late")
+        sched = ContinuousBatchingScheduler(engine,
+                                            overlap=hello["overlap"])
+        while True:
+            rec = ls.recv()
+            if rec.get("stop"):
+                return sched
+            for op in rec["ops"]:
+                if op[0] == "submit":
+                    rid, prompt, max_new, temp, top_k, top_p, eos = op[1:]
+                    got = sched.submit(Request(
+                        prompt=np.asarray(prompt, np.int32),
+                        max_new_tokens=max_new, temperature=temp,
+                        top_k=top_k, top_p=top_p, eos_token_id=eos))
+                    if got != rid:
+                        raise RuntimeError(
+                            "serving.follow: submit gave rid %d, rank 0's "
+                            "was %d: the ranks left lockstep" % (got, rid))
+                else:
+                    sched.cancel(op[1])
+            if rec["step"]:
+                sched.step()
+    finally:
+        done.set()

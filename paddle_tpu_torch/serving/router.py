@@ -317,6 +317,13 @@ class Router:
                  respawn_max_delay=2.0, healthy_interval=1.0):
         if not engines:
             raise ValueError("Router needs at least one replica engine")
+        tp = [getattr(e, "tp", 1) for e in engines]
+        if max(tp) > 1:
+            raise ValueError(
+                "Router over a tensor-parallel engine (tp=%d) is not "
+                "supported: a replica thread drives its engine from one "
+                "process, and the engine's other ranks would never step "
+                "(ROADMAP.md §A5)" % max(tp))
         self.on_token = on_token        # (rid, [ids]) — post-record
         self.on_finish = on_finish      # (RequestResult)
         self.affinity = bool(affinity)

@@ -5,7 +5,8 @@ entry point from here, never load it).
 ``World(n)`` starts ``n`` processes that each call
 ``paddle_tpu_torch.distributed.init_parallel_env(backend="gloo",
 device="cpu")`` and then wait for jobs.  ``world.run(name, **kw)`` runs
-the function ``name`` of this module (a job) on every rank with the same
+the function ``name`` of this module, or ``"module:fn"`` of another
+JAX-free module here (a job), on every rank with the same
 numpy keyword arguments and returns the ranks' results in rank order;
 a job that raises on any rank fails the call with the rank's traceback,
 and the world is then closed (a rank left inside a collective cannot be
@@ -56,10 +57,20 @@ def _rank_main(rank, world, port, conn):
         try:
             from paddle_tpu_torch.distributed import mesh as _mesh
             _mesh.set_mesh(None)
-            conn.send(("ok", getattr(me, name)(**kw)))
+            conn.send(("ok", _job(me, name)(**kw)))
         except BaseException:
             conn.send(("error", traceback.format_exc()))
     dist.destroy_process_group()
+
+
+def _job(me, name):
+    """The job ``name``: a function of this module, or ``"module:fn"``, a
+    function of another JAX-free module of this directory."""
+    mod_name, _, fn = name.rpartition(":")
+    if not mod_name:
+        return getattr(me, fn)
+    import importlib
+    return getattr(importlib.import_module(mod_name), fn)
 
 
 class World:

@@ -425,3 +425,44 @@ def test_zero_gloo_rehearsed_on_a_gloo_world(monkeypatch):
                                slots_bytes=outs[0]["full_slots_bytes"])
     with pytest.raises(AssertionError, match="stage 2 slots"):
         chip_smoke.zero_hold(bad, spec, default)
+
+
+def test_pipeline_and_tp_front_phases_rehearsed_on_the_cpu(monkeypatch):
+    """chip_smoke.py's serve_http_tp2, pp_single and pp2_gloo at tp2_spec's
+    narrow width on the CPU (the flash route through its plain versions,
+    counted; a two-rank gloo world for the two-rank phases), held by the
+    phases' own checks; a follower that parts from rank 0 and a stage
+    that permutes once too often are refused."""
+    import _torch_dist
+    import _torch_pipe
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "train_ids", _torch_dist.short_ids)
+    counters = _PlainCounters(monkeypatch)
+    cfg = _torch_dist.tp2_spec()["cfg"]
+    base = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
+    single = chip_smoke.pp_single(torch, base, counters, flags,
+                                  device="cpu")
+    world = _torch_dist.World(2)
+    try:
+        serve = world.run("_torch_pipe:job_serve_tp2_rank")
+        pp2 = world.run("_torch_pipe:job_pp2_rank")
+    finally:
+        world.close()
+    # the follower's job returned after stop(), as its process would
+    serve[1]["exitcode"] = 0
+    spec = _torch_pipe.serve_tp2_spec()
+    line = chip_smoke.serve_tp2_hold(serve, spec)
+    assert line["tokens_equal_tp1"] and line["follower_same_results"]
+    assert len(line["cancelled_rids"]) == 1
+    assert line["requests"] == spec["requests"] * 2 + 2
+    pline = chip_smoke.pp2_hold(pp2, {"cfg": cfg, "steps": 3, "device": "cpu"}, single)
+    assert pline["max_loss_diff"] < 1e-4 and pline["ranks_same_params"]
+    assert pline["peak_inflight"] == [3, 1]
+    bad = [dict(o) for o in serve]
+    bad[1]["finished"] = dict(bad[1]["finished"], **{"0": [[1], "length"]})
+    with pytest.raises(AssertionError, match="follower's results"):
+        chip_smoke.serve_tp2_hold(bad, spec)
+    bad = [dict(o) for o in pp2]
+    bad[1]["permutes_per_step"] += 2
+    with pytest.raises(AssertionError, match="permutes a step"):
+        chip_smoke.pp2_hold(bad, {"cfg": cfg, "steps": 3, "device": "cpu"}, single)

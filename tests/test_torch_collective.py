@@ -232,14 +232,18 @@ def test_topology_matches_jax():
 
 def test_all_names_match_jax():
     """``__all__`` is the JAX package's plus the names the port had
-    (store, recompute); the unported ones raise, naming ROADMAP §A5."""
+    (store, recompute); the unported one (``launch``) raises, naming
+    ROADMAP §A5, and ``fleet`` is the port's facade module."""
     ported = ["store", "TCPStore", "StoreReplyLostError", "recompute",
               "recompute_sequential"]
     assert tdist.__all__ == jdist.__all__ + ported
     for name in jdist.__all__:
-        if name in ("fleet", "launch"):
+        if name == "launch":
             with pytest.raises(NotImplementedError, match="§A5"):
                 getattr(tdist, name)
+        elif name == "fleet":
+            assert callable(tdist.fleet.init)
+            assert callable(tdist.fleet.distributed_model)
         else:
             assert callable(getattr(tdist, name)) or isinstance(
                 getattr(tdist, name), type)

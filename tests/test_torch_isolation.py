@@ -40,6 +40,10 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.distributed.mp_layers, "
         "paddle_tpu_torch.distributed.mp_overlap, "
         "paddle_tpu_torch.distributed.sharding, "
+        "paddle_tpu_torch.distributed.pipeline, "
+        "paddle_tpu_torch.distributed.fleet, "
+        "paddle_tpu_torch.distributed.fleet.hybrid_optimizer, "
+        "paddle_tpu_torch.parallel, "
         "paddle_tpu_torch.nn.parallel, "
         "paddle_tpu_torch.robustness.retry, "
         "paddle_tpu_torch.observability.aggregate\n"
