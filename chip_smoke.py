@@ -195,6 +195,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               backend is NCCL, the default device the rank's card, and
               every collective runs once on a CUDA tensor against its
               value (``collective_checks``); the count of issued ops.
+              Then, on the mesh {"dp": world, "sep": 1} (a one-rank
+              ``sep`` group on NCCL), ``scaled_dot_product_attention`` at
+              (1, 2048, 16, 64) bf16 causal routes through
+              ``ring_attention``: out and dq / dk / dv equal to
+              ``flash_attention_bshd``'s value for value, and one permute
+              (the ring's dK / dV, to itself).
 11e. train_dp — 3 steps of the train step with
               ``in_shardings=PartitionSpec("dp", None)`` over that one-rank
               NCCL dp group: two all-reduces a step really issued (the
@@ -262,7 +268,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               allocation; then an fp16 pipeline under a GradScaler at
               2^40 skips its overflowing step on both ranks.
 
-``python3 chip_smoke.py --distributed`` runs the train phase and 11d-11j
+11k. ring_gloo — two processes on the one card over gloo, mesh {"sep":
+              2}: (1, 16384, 16, 64) bf16 causal q/k/v (GPT-2 345M's
+              attention width), 8192 rows a rank, through
+              ``scaled_dot_product_attention`` (the ring, the flash
+              kernels as its inner) forward and backward, then through
+              ``ulysses_attention``; every rank's out and dq / dk / dv
+              within the flash rule of one ``flash_attention_bshd`` call
+              over the whole sequence; the ring's launches a rank (rank r
+              r + 1 flash forwards and C2 / C3 pairs: the causal ring
+              skips future shards), Ulysses' one of each; the permutes and
+              all-to-alls; device ms of a traced step and the flash
+              kernels' share.  Gloo stages every transfer through the
+              host: no time here is a sequence-parallel speed.
+11l. moe_gloo — ``MoELayer(1024, [ExpertFFN(1024, 4096) x 8],
+              gate="gshard", top_k=2, capacity_factor=1.25)`` in f32 on
+              (8, 1024) tokens: all experts local on the card against the
+              same weights on the CPU (out, aux_loss, gate and expert
+              grads within 1e-4 relative; tokens at a routing near-tie
+              left out and counted), then two processes over gloo on the
+              mesh {"ep": 2}, 4 experts a rank, against the one-rank run
+              within 1e-5; the all-to-alls and each rank's peak
+              allocation.
+
+``python3 chip_smoke.py --distributed`` runs the train phase and 11d-11l
 alone (the distributed phases without the kernel checks and serving
 phases), then prints the card and the device line.
 12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
@@ -430,6 +459,16 @@ def within(got, ref, ulp, frac):
     rms = float(ref.pow(2).mean().sqrt())
     return float(d.max()), rms, bool((d <= ulp * ref.abs() + frac * rms)
                                      .all())
+
+
+def rule_excess(got, ref, ulp, frac):
+    """(worst ratio of an element's error to its :func:`within` allowance,
+    elements over it): how far outside the rule a result lies."""
+    ref = ref.float()
+    d = (got.float() - ref).abs()
+    allow = ulp * ref.abs() + frac * float(ref.pow(2).mean().sqrt())
+    ratio = d / allow.clamp_min(1e-30)
+    return float(ratio.max()), int((ratio > 1).sum())
 
 
 def bound(nbytes, flops, peak_flops):
@@ -2324,7 +2363,9 @@ def dist_nccl(torch, backend="nccl", device=None):
     """``init_parallel_env()`` at a world of one, meeting on a free port
     of 127.0.0.1: the NCCL backend, the rank's card as the default device,
     and every collective once on that card (``collective_checks``), with
-    the count of the ops issued.  The world stays up for ``train_dp``."""
+    the count of the ops issued; then ``scaled_dot_product_attention``
+    through the one-rank ring (``ring_sep1``).  The world stays up for
+    ``train_dp``."""
     import socket
 
     import torch.distributed as dist
@@ -2347,6 +2388,7 @@ def dist_nccl(torch, backend="nccl", device=None):
             "device": str(dev), "max_abs_err": max(errs.values()),
             "checks": errs, "collectives_issued": issued,
             "collectives_issued_total": sum(issued.values()),
+            "ring_sep1": ring_sep1(torch, dev),
             "seconds": time.perf_counter() - t0}
     emit(line)
     if got != backend:
@@ -2580,8 +2622,8 @@ def gloo_rank_main(rank, port, job, spec, results):
     """The entry point of a process of a two-rank phase: a gloo world of
     two on the one card, then the function ``job`` of this module
     (:func:`tp2_rank`, :func:`zero_rank`, :func:`serve_tp2_rank`,
-    :func:`pp2_rank`); the result (or the traceback) goes to
-    ``results``."""
+    :func:`pp2_rank`, :func:`ring_rank`, :func:`moe_rank`); the result
+    (or the traceback) goes to ``results``."""
     import datetime
     import traceback
     try:
@@ -3461,6 +3503,601 @@ def pp2_gloo(torch, cfg, single, timeout=900.0):
     spec = {"cfg": cfg, "seed": 0, "steps": single["steps"]}
     t0 = time.perf_counter()
     line = pp2_hold(gloo_pair("pp2_rank", spec, timeout), spec, single)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# ring_gloo: GPT-2 345M's attention width (16 heads of 64), bf16, causal,
+# the global sequence train_long trains (16384 rows), 8192 rows a rank
+RING_SHAPE = (1, 16384, 16, 64)
+# dist_nccl's one-rank ring (the sep group of a world of one)
+RING_SEP1_SHAPE = (1, 2048, 16, 64)
+# the CPU's shapes for the same checks (plain versions, narrow)
+RING_CPU_SHAPE = (1, 256, 2, 64)
+
+
+def ring_inputs(torch, shape, seed, device, dtype):
+    """q, k, v and the output's cotangent, (B, S, H, D), from ``seed`` on
+    ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for _ in range(4)]
+
+
+def flash_reference(torch, fa, q, k, v, do):
+    """One flash call over the whole sequence, causal: out and (dq, dk,
+    dv) for ``do``."""
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention_bshd(*ts, causal=True)
+    return out.detach(), torch.autograd.grad(out, ts, do)
+
+
+def traced_calls(torch, fn, n, sums=()):
+    """One untraced call of ``fn``, then exactly ``n`` in a profiler
+    trace (every rank of a collective makes the same calls): the host ms
+    and device ms a call, and for each pattern of ``sums`` the device ms a
+    call of the kernels whose names hold it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    events = [(e.key, float(getattr(e, "self_device_time_total", 0.0)
+                            or 0.0)) for e in prof.key_averages()]
+    out = {"step_host_ms": wall,
+           "step_device_ms": sum(t for _k, t in events) / n / 1e3}
+    for pat in sums:
+        out[pat + "_device_ms"] = sum(t for k, t in events
+                                      if pat in k) / n / 1e3
+    return out
+
+
+def ring_sep1(torch, device):
+    """At the dist_nccl world: the mesh {"dp": world, "sep": 1} binds a
+    one-rank ``sep`` group, so ``scaled_dot_product_attention`` routes
+    through ``ring_attention``; its output and (dq, dk, dv) against
+    ``flash_attention_bshd`` on the same inputs, which they equal value for
+    value where the ring's inner is the flash kernel (a one-step ring's
+    combine multiplies by exactly 1 and 0), else within the flash rule
+    (in f32 on the CPU, where the inner is the blockwise one).
+    The ring's backward permutes its dK/dV accumulators once (to itself):
+    the ppermute counted is the proof that the ring ran."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.distributed import ring_attention as R
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+    # the CPU (a rehearsal) takes the blockwise inner, which rounds
+    # otherwise than the flash kernels' plain versions: f32 there
+    card = device.type == "cuda"
+    shape = RING_SEP1_SHAPE if card else RING_CPU_SHAPE
+    dtype = torch.bfloat16 if card else torch.float32
+    name = dtype_name(dtype)
+    q, k, v, do = ring_inputs(torch, shape, 5, device, dtype)
+    ref, ref_g = flash_reference(torch, fa, q, k, v, do)
+    prev = dmesh.get_mesh()
+    D.init_mesh({"dp": D.get_world_size(), "sep": 1})
+    try:
+        flash = R._flash_inner_ok(q.transpose(1, 2), k.transpose(1, 2), None)
+        ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        C.reset_counts()
+        out = F.scaled_dot_product_attention(*ts, is_causal=True,
+                                             training=False)
+        grads = torch.autograd.grad(out, ts, do)
+        issued = C.issued()
+    finally:
+        dmesh.set_mesh(prev)
+    pairs = [("out", out, ref)] + [(n, g, r) for n, g, r in
+                                   zip(("dq", "dk", "dv"), grads, ref_g)]
+    equal = {n: bool(torch.equal(g, r)) for n, g, r in pairs}
+    errs = {n: within(g, r, ULP_REL[name], RMS_FRAC[name])
+            for n, g, r in pairs}
+    line = {"shape": list(shape), "dtype": name, "flash_inner": flash,
+            "equal_to_flash": equal,
+            "max_abs_err": {n: e[0] for n, e in errs.items()},
+            "ppermutes": issued.get("ppermute", 0)}
+    if issued.get("ppermute", 0) != 1:
+        raise AssertionError("dist_nccl: the sep=1 SDPA issued %r, not the "
+                             "ring's one dK/dV permute" % (issued,))
+    if flash and not all(equal.values()):
+        raise AssertionError("dist_nccl: the one-rank ring differs from "
+                             "flash_attention_bshd: %r" % (line,))
+    if not all(e[2] for e in errs.values()):
+        raise AssertionError("dist_nccl: the one-rank ring outside the flash "
+                             "rule: %r" % (line,))
+    return line
+
+
+def ring_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``ring_gloo`` in a world of two that is up, on
+    the mesh {"sep": 2}: the global (B, S, H, D) q/k/v and cotangent from
+    one seed, this rank's contiguous S / 2 rows through
+    ``scaled_dot_product_attention`` (the ring) forward and backward with
+    the launch counts set to 0 just before and read just after; the same
+    rows through ``ulysses_attention``; each against one flash call over
+    the whole sequence (``flash_reference``) by the flash rule.  Then a
+    profiled step (forward and backward) of each: device ms, the flash
+    kernels' share and the host ms.  Returns host values."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import ring_attention as R
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as F
+    D.init_mesh({"sep": 2})
+    g = D.get_mesh().group("sep")
+    r, n = g.rank, g.nranks
+    shape = tuple(spec["shape"])
+    s = shape[1]
+    lo, hi = r * s // n, (r + 1) * s // n
+    q, k, v, do = ring_inputs(torch, shape, spec["seed"], device,
+                              getattr(torch, spec["dtype"]))
+    ref, ref_g = flash_reference(torch, fa, q, k, v, do)
+    mine = [t[:, lo:hi].contiguous() for t in (q, k, v)]
+    do_l = do[:, lo:hi].contiguous()
+    refs = [ref[:, lo:hi]] + [t[:, lo:hi] for t in ref_g]
+
+    def ring():
+        ts = [t.detach().clone().requires_grad_(True) for t in mine]
+        out = F.scaled_dot_product_attention(*ts, is_causal=True,
+                                             training=False)
+        return [out] + list(torch.autograd.grad(out, ts, do_l))
+
+    def ulysses():
+        ts = [t.detach().clone().requires_grad_(True) for t in mine]
+        out = R.ulysses_attention(*(t.transpose(1, 2) for t in ts), "sep",
+                                  causal=True).transpose(1, 2)
+        return [out] + list(torch.autograd.grad(out, ts, do_l))
+
+    out = {"rank": r, "rows": [lo, hi]}
+    for name, fn in (("ring", ring), ("ulysses", ulysses)):
+        torch.cuda.synchronize()
+        counters.reset()
+        C.reset_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = counters.read()
+        issued = C.issued()
+        got = [t.detach() for t in got]
+        errs = [within(a, b, FLASH_ULP_REL, FLASH_RMS_FRAC)
+                for a, b in zip(got, refs)]
+        out[name] = {
+            "launches": launches, "collectives_issued": issued,
+            "max_abs_err": dict(zip(("out", "dq", "dk", "dv"),
+                                    (e[0] for e in errs))),
+            "ref_rms": dict(zip(("out", "dq", "dk", "dv"),
+                                (e[1] for e in errs))),
+            "rule_excess": dict(zip(("out", "dq", "dk", "dv"), (
+                rule_excess(a, b, FLASH_ULP_REL, FLASH_RMS_FRAC)
+                for a, b in zip(got, refs)))),
+            "within_flash_rule": all(e[2] for e in errs),
+            "equal_to_flash": [bool(torch.equal(a, b))
+                               for a, b in zip(got, refs)],
+            "first_step_host_ms": wall,
+            **traced_calls(torch, fn, 2, ("flash_fwd", "flash_bwd"))}
+    out["flash_inner"] = R._flash_inner_ok(
+        mine[0].transpose(1, 2), mine[1].transpose(1, 2), None)
+    return out
+
+
+def ring_accumulators(torch, spec, device=None):
+    """The kernels' accumulating modes that the ring runs, at its per-rank
+    shape (``spec``'s shape with S / 2 rows), causal (the self shard) and
+    full (a past shard), outside the counted run: the 16-bit forward's f32
+    ``out`` (``out_f32``) rounds to its 16-bit out bit for bit, with the
+    same lse, and holds the plain version's f32 out by the flash rule;
+    C2's ``dq_acc`` and C3's ``dkv_acc`` into zeros hold the plain
+    version's f32 dq, dk and dv by the flash rule and, into a nonzero
+    start, add exactly that (the start plus it, bit for bit).  The plain
+    versions run two heads at a time.  On a card, the device ms of a
+    launch of each in its plain mode and in the ring's.  Returns the
+    line's values."""
+    from paddle_tpu_torch.kernels import flash_attention_cuda as fac
+    device = device if device is not None else torch.device("cuda")
+    b, s, h, d = spec["shape"]
+    shape = (b, s // 2, h, d)
+    dtype = getattr(torch, spec["dtype"])
+    q, k, v, do = ring_inputs(torch, shape, spec["seed"] + 1, device, dtype)
+    gen = torch.Generator(device=device).manual_seed(spec["seed"] + 2)
+    start = torch.randn((3,) + shape, generator=gen, device=device)
+    scale = d ** -0.5
+    line = {"shape": list(shape), "dtype": spec["dtype"]}
+    ok = True
+    for causal in (True, False):
+        o16, lse = fac.flash_attention_bshd_with_lse(q, k, v, causal, scale)
+        o32, lse32 = fac.flash_attention_bshd_with_lse(q, k, v, causal,
+                                                       scale, out_f32=True)
+        acc = torch.zeros((3,) + shape, dtype=torch.float32, device=device)
+        fac.flash_attention_bwd(q, k, v, o16, lse, do, causal, scale,
+                                route="split", dq_acc=acc[0],
+                                dkv_acc=acc[1:])
+        acc2 = start.clone()
+        fac.flash_attention_bwd(q, k, v, o16, lse, do, causal, scale,
+                                route="split", dq_acc=acc2[0],
+                                dkv_acc=acc2[1:])
+        fwd = fac._resolve_fwd(q, k, v, causal)
+        errs = {n: 0.0 for n in ("out", "dq", "dk", "dv")}
+        within_rule = True
+        for h0 in range(0, h, 2):
+            hs = slice(h0, h0 + 2)
+            sl = [t[:, :, hs] for t in (q, k, v, o16, lse, do)]
+            ref_o = fac._flash_tc_reference(*sl[:3], causal, scale,
+                                            fwd[1], fwd[2], out_f32=True)[0]
+            ref_g = fac._flash_bwd_reference(*sl, causal, scale, f32=True)
+            for n, got, ref in zip(errs, (o32[:, :, hs], acc[0][:, :, hs],
+                                          acc[1][:, :, hs],
+                                          acc[2][:, :, hs]),
+                                   (ref_o,) + tuple(ref_g)):
+                e, _rms, good = within(got, ref, FLASH_ULP_REL,
+                                       FLASH_RMS_FRAC)
+                errs[n] = max(errs[n], e)
+                within_rule = within_rule and good
+            del ref_o, ref_g
+        case = {"max_abs_err": errs, "within_flash_rule": within_rule,
+                "out_rounds_to_16bit": bool(torch.equal(o32.to(dtype), o16))
+                and bool(torch.equal(lse32, lse)),
+                "adds_exactly": bool(torch.equal(acc2, start + acc))}
+        if device.type == "cuda":
+            # device ms a launch of each kernel in its plain mode and in
+            # the ring's (f32 out, accumulators)
+            delta = (do.float() * o16.float()).sum(-1)
+            args = (q, k, v, do, lse, delta, causal, scale)
+            case["device_ms"] = {
+                name: kernel_ms(device_times(fn, torch, n=5, pattern=pat),
+                                pat)
+                for name, pat, fn in (
+                    ("fwd", "flash_fwd",
+                     lambda: fac.flash_attention_bshd_with_lse(
+                         q, k, v, causal, scale)),
+                    ("fwd_out_f32", "flash_fwd",
+                     lambda: fac.flash_attention_bshd_with_lse(
+                         q, k, v, causal, scale, out_f32=True)),
+                    ("dq", "flash_bwd_dq",
+                     lambda: fac._launch_bwd_dq(*args)),
+                    ("dq_acc", "flash_bwd_dq",
+                     lambda: fac._launch_bwd_dq(*args, dq_acc=acc[0])),
+                    ("dkv", "flash_bwd_dkv",
+                     lambda: fac._launch_bwd_dkv(*args)),
+                    ("dkv_acc", "flash_bwd_dkv",
+                     lambda: fac._launch_bwd_dkv(*args, dkv_acc=acc[1:])))}
+        line["causal" if causal else "full"] = case
+        ok = ok and within_rule and case["out_rounds_to_16bit"] \
+            and case["adds_exactly"]
+    line["ok"] = ok
+    return line
+
+
+def ring_hold(outs, spec, accumulators=None):
+    """ring_gloo's checks over both ranks' results: each rank's ring and
+    Ulysses outputs and grads within the flash rule of the whole-sequence
+    flash call; the ring's launches (rank r runs r + 1 flash forwards
+    and r + 1 C2 / C3 pairs: the causal ring skips strictly-future
+    shards), Ulysses' one of each a rank; the permutes (1 forward, 3
+    backward at two ranks) and all-to-alls (4) every rank issued alike;
+    and :func:`ring_accumulators`' values where given.  Returns the
+    line."""
+    line = {"phase": "ring_gloo", "backend": "gloo", "ranks": 2,
+            "shape": list(spec["shape"]), "dtype": spec["dtype"],
+            "causal": True, "rule": [FLASH_ULP_REL, FLASH_RMS_FRAC],
+            "flash_inner": [o["flash_inner"] for o in outs]}
+    for name in ("ring", "ulysses"):
+        line[name] = [{k: o[name][k] for k in (
+            "launches", "max_abs_err", "ref_rms", "rule_excess",
+            "within_flash_rule", "equal_to_flash",
+            "collectives_issued", "first_step_host_ms", "step_host_ms",
+            "step_device_ms", "flash_fwd_device_ms", "flash_bwd_device_ms")}
+            for o in outs]
+        for o in line[name]:
+            o["launches"] = {k: o["launches"][k] for k in (
+                "flash_fwd_tc", "flash_fwd", "flash_fwd_pipelined",
+                "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    line["speed"] = ("not measured: gloo stages every permute and "
+                     "all-to-all through the host (needs two cards and "
+                     "NCCL)")
+    line["accumulators"] = accumulators
+    emit(line)
+    if accumulators is not None and not accumulators["ok"]:
+        raise AssertionError("ring_gloo: the kernels' accumulating modes "
+                             "at the ring's shape: %r" % (accumulators,))
+    for o in outs:
+        r = o["rank"]
+        if not o["flash_inner"]:
+            raise AssertionError("ring_gloo: rank %d's ring took the "
+                                 "blockwise inner" % r)
+        for name, due, issued in (
+                ("ring", r + 1, {"ppermute": 4}),
+                ("ulysses", 1, {"all_to_all_single": 4})):
+            got = o[name]
+            if not got["within_flash_rule"]:
+                raise AssertionError("ring_gloo: rank %d's %s outside the "
+                                     "flash rule: %r" % (r, name,
+                                                         got["max_abs_err"]))
+            expect_launches(got["launches"],
+                            {"flash_fwd_tc": due, "flash_fwd": 0,
+                             "flash_fwd_pipelined": 0, "flash_bwd": 0,
+                             "flash_bwd_dq": due, "flash_bwd_dkv": due},
+                            "ring_gloo rank %d %s" % (r, name))
+            if got["collectives_issued"] != issued:
+                raise AssertionError("ring_gloo: rank %d's %s issued %r, "
+                                     "want %r" % (r, name,
+                                                  got["collectives_issued"],
+                                                  issued))
+    return line
+
+
+def ring_gloo(torch, timeout=600.0, spec=None):
+    """The kernels' accumulating modes at the ring's per-rank shape
+    (:func:`ring_accumulators`), then two processes on the one card, a
+    gloo world over CUDA tensors, the mesh {"sep": 2}: the ring and
+    Ulysses at RING_SHAPE bf16 causal against one flash call over the
+    whole sequence (:func:`ring_hold`).
+    Gloo stages the transfers through the host: the phase's times are not
+    a sequence-parallel speed."""
+    spec = spec or {"shape": RING_SHAPE, "dtype": "bfloat16", "seed": 11}
+    t0 = time.perf_counter()
+    acc = ring_accumulators(torch, spec)
+    torch.cuda.empty_cache()
+    line = ring_hold(gloo_pair("ring_rank", spec, timeout), spec, acc)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# moe_gloo: MoELayer at GPT-2 345M's FFN widths (1024 -> 4096 -> 1024),
+# 8 experts, GShard top-2, capacity factor 1.25, f32, on train's step
+# batch of (8, 1024) tokens; each (T, E, C) routing tensor is 8192 x 8 x
+# 2560 f32, 0.67 GB
+MOE_SPEC = {"batch": (8, 1024), "d_model": 1024, "d_hidden": 4096,
+            "experts": 8, "top_k": 2, "capacity_factor": 1.25, "seed": 13}
+# the card's f32 (TF32 off) against the CPU's, and ep=2 against ep=1 on
+# the card: sums in other orders over 8192 tokens and 4096 hidden units
+MOE_CPU_REL = 1e-4
+MOE_EP_REL = 1e-5
+# a token whose top-1 / top-2 (or top-2 / top-3) gate probabilities are
+# closer than this may route differently under f32 noise: it is excluded
+# from the value comparison and counted, never covered by a looser bar
+MOE_MARGIN = 1e-6
+
+
+def moe_state(spec):
+    """The MoE layer's state ({name: np.ndarray}, the JAX package's
+    names) and the input tokens and output cotangent, from the seed."""
+    rng = np.random.default_rng(spec["seed"])
+    d, h, e = spec["d_model"], spec["d_hidden"], spec["experts"]
+
+    def normal(*shape, std=0.02):
+        return (rng.standard_normal(shape, dtype=np.float32) * std)
+    state = {"gate.gate.weight": normal(d, e)}
+    for i in range(e):
+        state.update({"experts.%d.fc1.weight" % i: normal(d, h),
+                      "experts.%d.fc1.bias" % i: normal(h),
+                      "experts.%d.fc2.weight" % i: normal(h, d),
+                      "experts.%d.fc2.bias" % i: normal(d)})
+    b, s = spec["batch"]
+    x = rng.standard_normal((b, s, d), dtype=np.float32)
+    cot = rng.standard_normal((b, s, d), dtype=np.float32)
+    return state, x, cot
+
+
+def moe_run(torch, spec, state, x, cot, n_local, device):
+    """A ``MoELayer`` of ``n_local`` ExpertFFNs holding ``state`` on
+    ``device``: out, aux_loss, the grads of sum(out * cot) + aux_loss by
+    parameter name and for the input (``x``), and each token's top-k
+    experts (host values)."""
+    from paddle_tpu_torch.convert import load_paddle_tpu_state
+    from paddle_tpu_torch.distributed.moe import ExpertFFN, MoELayer
+    layer = MoELayer(spec["d_model"],
+                     [ExpertFFN(spec["d_model"], spec["d_hidden"])
+                      for _ in range(n_local)], gate="gshard",
+                     top_k=spec["top_k"],
+                     capacity_factor=spec["capacity_factor"])
+    load_paddle_tpu_state(layer, state)
+    layer = layer.to(device)
+    xt = torch.from_numpy(x).to(device).requires_grad_(True)
+    out = layer(xt)
+    loss = (out * torch.from_numpy(cot).to(device)).sum() + layer.aux_loss
+    params = dict(layer.named_parameters(), x=xt)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    with torch.no_grad():
+        probs = torch.softmax(layer.gate(xt.reshape(-1, xt.shape[-1])), -1)
+        top = probs.topk(spec["top_k"] + 1, -1)
+    return {"out": out.detach(), "aux": float(layer.aux_loss.detach()),
+            "grads": {k: v.detach() for k, v in grads.items()},
+            "route": top.indices[:, :spec["top_k"]].cpu(),
+            "probs": top.values.cpu()}
+
+
+def rel_err(got, ref):
+    """max |got - ref| over max |ref| (host f32)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def moe_compare(torch, got, ref, names, scale=None):
+    """``got``'s out, aux and grads against ``ref``'s, over the tokens
+    that are not near a routing tie (MOE_MARGIN, from ``ref``'s
+    probabilities) and routed alike; ``names`` maps got's parameter names
+    to ref's, ``scale`` divides got's expert grads (ep).  The out and the
+    input's gradient are held on those tokens' rows; the aux loss and the
+    parameters' grads, which sum over every token, only where every token
+    routed alike (:func:`moe_rank` then runs both sides again over the
+    tokens kept).  Returns (errors, near-tie tokens, tokens routed
+    differently, the two token masks)."""
+    p = ref["probs"]
+    near = ((p[:, :-1] - p[:, 1:]) < MOE_MARGIN).any(-1)
+    differ = (got["route"] != ref["route"]).any(-1)
+    keep = ~(near | differ)
+    d = ref["out"].shape[-1]
+
+    def rows(t):
+        return t.reshape(-1, d).cpu()[keep]
+    errs = {"out": rel_err(rows(got["out"]), rows(ref["out"])),
+            "x": rel_err(rows(got["grads"]["x"]), rows(ref["grads"]["x"]))}
+    if not bool(differ.any()):
+        errs["aux"] = abs(got["aux"] - ref["aux"]) / abs(ref["aux"])
+        for name, g in got["grads"].items():
+            if name == "x":
+                continue
+            if scale and name.startswith("experts."):
+                g = g / scale
+            errs[name] = rel_err(g, ref["grads"][names(name)])
+    return errs, int(near.sum()), int(differ.sum()), differ, near
+
+
+def moe_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``moe_gloo`` in a world of two that is up: the
+    layer with all 8 experts local (``ep`` = 1, no exchange) on
+    ``device``; then the mesh {"ep": 2}, 4 local experts a rank
+    (``convert.shard_moe_state``), held against the ep = 1 run at
+    MOE_EP_REL, its all-to-alls and peak allocation counted; then, on rank
+    0, the same weights on the CPU against the card's ep = 1 run at
+    MOE_CPU_REL.  Returns host values."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.convert import shard_moe_state
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    state, x, cot = moe_state(spec)
+    e = spec["experts"]
+    dmesh.set_mesh(None)
+    C.reset_counts()
+    t0 = time.perf_counter()
+    ep1 = moe_run(torch, spec, state, x, cot, e, device)
+    ep1_a2a = C.issued().get("all_to_all_single", 0)
+    ep1_s = time.perf_counter() - t0
+    D.init_mesh({"ep": 2})
+    g = D.get_mesh().group("ep")
+    r, n = g.rank, g.nranks
+    nle = e // n
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    C.reset_counts()
+    t0 = time.perf_counter()
+    ep2 = moe_run(torch, spec, shard_moe_state(state, r, n), x, cot, nle,
+                  device)
+    issued = C.issued()
+    ep2_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if device != "cpu"
+            else 0.0)
+
+    def global_name(name):
+        if not name.startswith("experts."):
+            return name
+        _, i, rest = name.split(".", 2)
+        return "experts.%d.%s" % (int(i) + r * nle, rest)
+    errs, near, differ, _d, _n = moe_compare(torch, ep2, ep1, global_name,
+                                             scale=n)
+    out = {"rank": r, "ep2_vs_ep1": errs, "ep2_near_ties": near,
+           "ep2_routed_differently": differ,
+           "ep1_all_to_all": ep1_a2a, "ep2_collectives_issued": issued,
+           "ep2_peak_gb": peak, "ep1_seconds": ep1_s,
+           "ep2_seconds": ep2_s}
+    if r == 0:
+        dmesh.set_mesh(None)
+        t0 = time.perf_counter()
+        cpu = moe_run(torch, spec, state, x, cot, e, "cpu")
+        out["cpu_seconds"] = time.perf_counter() - t0
+        errs, near, differ, dmask, nmask = moe_compare(
+            torch, ep1, cpu, lambda name: name)
+        out.update(ep1_vs_cpu=errs, cpu_near_ties=near,
+                   cpu_routed_differently=differ,
+                   differ_not_near=int((dmask & ~nmask).sum()),
+                   rerun_tokens=None)
+        if differ:
+            # the aux loss and the parameters' grads sum over every
+            # token: both sides again over the tokens that route alike
+            # away from a tie, every value held there
+            keep = (~(dmask | nmask)).numpy()
+            d = spec["d_model"]
+            xs, cs = (a.reshape(-1, d)[keep][None] for a in (x, cot))
+            sub = [moe_run(torch, spec, state, xs, cs, e, dev)
+                   for dev in (device, "cpu")]
+            errs, near, differ, _d, _n = moe_compare(
+                torch, sub[0], sub[1], lambda name: name)
+            out.update(ep1_vs_cpu=errs, rerun_tokens=int(keep.sum()),
+                       rerun_near_ties=near,
+                       rerun_routed_differently=differ)
+    return out
+
+
+def moe_hold(outs, spec):
+    """moe_gloo's checks: ep = 2 within MOE_EP_REL of ep = 1 on both ranks
+    (out, aux and every gradient), ep = 1 on the card within MOE_CPU_REL
+    of the CPU; a token may route differently only where it is a near-tie
+    (MOE_MARGIN), and those are left out of the values and counted (the
+    sums over every token held on a second run over the tokens kept); no
+    exchange at ep = 1, and at ep = 2 the dispatch and the combine forward
+    and backward (4 all-to-alls).  Returns the line."""
+    r0 = outs[0]
+    line = {"phase": "moe_gloo", "backend": "gloo", "ranks": 2,
+            "layer": {k: spec[k] for k in (
+                "d_model", "d_hidden", "experts", "top_k",
+                "capacity_factor")},
+            "tokens": spec["batch"][0] * spec["batch"][1], "dtype":
+            "float32", "gate": "gshard",
+            "capacity": max(int(math.ceil(
+                spec["top_k"] * spec["capacity_factor"] * spec["batch"][0]
+                * spec["batch"][1] / spec["experts"])), 4),
+            "tolerance": {"ep2_vs_ep1": MOE_EP_REL,
+                          "card_vs_cpu": MOE_CPU_REL,
+                          "margin": MOE_MARGIN},
+            "ep1_vs_cpu_max": max(r0["ep1_vs_cpu"].values()),
+            "ep1_vs_cpu": r0["ep1_vs_cpu"],
+            "cpu_near_ties": r0["cpu_near_ties"],
+            "cpu_routed_differently": r0["cpu_routed_differently"],
+            "cpu_rerun_tokens": r0["rerun_tokens"],
+            "ep2_vs_ep1_max": [max(o["ep2_vs_ep1"].values()) for o in outs],
+            "ep2_near_ties": [o["ep2_near_ties"] for o in outs],
+            "ep2_routed_differently": [o["ep2_routed_differently"]
+                                       for o in outs],
+            "ep2_collectives_issued": [o["ep2_collectives_issued"]
+                                       for o in outs],
+            "ep2_peak_gb": [o["ep2_peak_gb"] for o in outs],
+            "seconds_by_run": {k: r0[k] for k in (
+                "ep1_seconds", "ep2_seconds", "cpu_seconds")}}
+    t, e = line["tokens"], spec["experts"]
+    line["routing_tensor_gb"] = t * e * line["capacity"] * 4 / 1e9
+    emit(line)
+    if r0["differ_not_near"] or r0.get("rerun_routed_differently"):
+        raise AssertionError("moe_gloo: %d tokens route differently on the "
+                             "card and the CPU away from a near-tie (%r in "
+                             "the run over the tokens kept)"
+                             % (r0["differ_not_near"],
+                                r0.get("rerun_routed_differently")))
+    if not line["ep1_vs_cpu_max"] <= MOE_CPU_REL:
+        raise AssertionError("moe_gloo: ep=1 on the card against the CPU: %r"
+                             % (r0["ep1_vs_cpu"],))
+    for o in outs:
+        if o["ep2_routed_differently"] or \
+                not max(o["ep2_vs_ep1"].values()) <= MOE_EP_REL:
+            raise AssertionError("moe_gloo: rank %d ep=2 against ep=1: %r "
+                                 "(%d routed differently)"
+                                 % (o["rank"], o["ep2_vs_ep1"],
+                                    o["ep2_routed_differently"]))
+        if o["ep1_all_to_all"] or o["ep2_collectives_issued"] != {
+                "all_to_all_single": 4}:
+            raise AssertionError("moe_gloo: rank %d exchanges %r at ep=1, "
+                                 "%r at ep=2" % (o["rank"],
+                                                 o["ep1_all_to_all"],
+                                                 o["ep2_collectives_issued"]))
+    return line
+
+
+def moe_gloo(torch, timeout=600.0, spec=None):
+    """Two processes on the one card, a gloo world over CUDA tensors:
+    ``MoELayer`` at MOE_SPEC, ep = 1 on the card against the CPU and ep = 2
+    against ep = 1 (:func:`moe_hold`).  Gloo stages each all-to-all
+    through the host: no time here is an expert-parallel speed."""
+    spec = spec or MOE_SPEC
+    t0 = time.perf_counter()
+    line = moe_hold(gloo_pair("moe_rank", spec, timeout), spec)
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -5669,13 +6306,14 @@ def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
     """The distributed phases, timed into ``seconds``: dist_nccl and
     train_dp on an NCCL world of one, then the two-process gloo phases
     tp2_gloo, zero_gloo and serve_http_tp2, pp_single on one rank, and
-    the two-process pp2_gloo.  Returns their lines (train_dp, tp2_gloo,
-    zero_gloo, serve_http_tp2, pp_single, pp2_gloo)."""
+    the two-process pp2_gloo, ring_gloo and moe_gloo.  Returns their lines
+    (train_dp, tp2_gloo, zero_gloo, serve_http_tp2, pp_single, pp2_gloo,
+    ring_gloo, moe_gloo)."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.distributed import mesh as dist_mesh
     t0 = time.perf_counter()
-    dist_nccl(torch)
+    run_nccl = dist_nccl(torch)
     seconds["dist_nccl"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_dp = train_dp(torch, base, amp, counters, run_train["losses"],
@@ -5701,7 +6339,16 @@ def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
     t0 = time.perf_counter()
     run_pp2 = pp2_gloo(torch, train_cfg, run_pp)
     seconds["pp2_gloo"] = time.perf_counter() - t0
-    return run_dp, run_tp2, run_zero, run_serve_tp2, run_pp, run_pp2
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ring = ring_gloo(torch)
+    seconds["ring_gloo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_moe = moe_gloo(torch)
+    seconds["moe_gloo"] = time.perf_counter() - t0
+    run_ring["dist_nccl_sep1"] = run_nccl["ring_sep1"]
+    return (run_dp, run_tp2, run_zero, run_serve_tp2, run_pp, run_pp2,
+            run_ring, run_moe)
 
 
 def device_line(torch, kind):
@@ -6122,9 +6769,9 @@ def main():
     run_rc = train_recompute(torch, base, amp, counters, run_train["losses"],
                              run_train)
     seconds["train_recompute"] = time.perf_counter() - t0
-    (run_dp, run_tp2, run_zero, run_serve_tp2, run_pp,
-     run_pp2) = distributed(torch, base, train_cfg, amp, flags, counters,
-                            run_train, seconds)
+    (run_dp, run_tp2, run_zero, run_serve_tp2, run_pp, run_pp2, run_ring,
+     _run_moe) = distributed(torch, base, train_cfg, amp, flags, counters,
+                             run_train, seconds)
     t0 = time.perf_counter()
     parity = train_parity(torch, base, amp, flags, counters)
     torch.cuda.empty_cache()
@@ -6201,6 +6848,14 @@ def main():
                     for st in (0, 1)})
         out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
                     for r in run_rc})
+        # the sequence-parallel paths: the causal ring at two ranks (rank
+        # r runs r + 1 blocks), Ulysses (one a rank), each a forward and
+        # backward
+        out.update({"ring_gloo_rank%d" % r: run_ring["ring"][r]["launches"]
+                    [kern] for r in (0, 1)})
+        out.update({"ulysses_gloo_rank%d" % r:
+                    run_ring["ulysses"][r]["launches"][kern]
+                    for r in (0, 1)})
         if kern == "flash_fwd_tc":
             out["serve_scan_slotted"] = sum(
                 r["flash_fwd_tc_launches"] for r in scan_line["runs"]

@@ -8,9 +8,13 @@ tensor-parallel rank's shards of it come from
 :func:`shard_paddle_tpu_state` (and go back through
 :func:`unshard_paddle_tpu_state`).  Callers
 make the arrays on the JAX side (``{k: np.asarray(v) for k, v in
-jax_model.state_dict().items()}``); this module never imports JAX.
+jax_model.state_dict().items()}``); this module never imports JAX.  An
+MoE layer's experts are dealt over the ``ep`` ranks by
+:func:`shard_moe_state`.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -112,4 +116,32 @@ def unshard_paddle_tpu_state(shards):
             continue
         dim = next(d for d, a in enumerate(spec) if a is not None)
         out[name] = unshard_slices(parts_of, dim, parts)
+    return out
+
+
+_EXPERT = re.compile(r"^(.*?)experts\.(\d+)\.(.+)$")
+
+
+def shard_moe_state(arrays, ep_rank, ep_size):
+    """The share of rank ``ep_rank`` of ``ep_size`` of an MoE layer's state
+    ``arrays`` ({name: np.ndarray}, the JAX package's ``MoELayer`` names:
+    ``gate.gate.weight``, ``experts.{i}.fc1.weight``, ...): the experts
+    ``[r * E / ep, (r + 1) * E / ep)``, renumbered from 0 as the rank's
+    ``MoELayer`` holds them, and every other tensor whole (the gate is
+    replicated over ``ep``)."""
+    experts = {int(m.group(2)) for m in map(_EXPERT.match, arrays) if m}
+    n = len(experts)
+    if n % int(ep_size) or experts != set(range(n)):
+        raise ValueError("shard_moe_state: experts %s over %d ranks"
+                         % (sorted(experts), ep_size))
+    nle = n // int(ep_size)
+    lo = int(ep_rank) * nle
+    out = {}
+    for name, a in arrays.items():
+        m = _EXPERT.match(name)
+        if m is None:
+            out[name] = a
+        elif lo <= int(m.group(2)) < lo + nle:
+            out["%sexperts.%d.%s" % (m.group(1), int(m.group(2)) - lo,
+                                     m.group(3))] = a
     return out

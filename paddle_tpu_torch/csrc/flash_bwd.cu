@@ -580,6 +580,23 @@ extern "C" int paddle_flash_bwd_dq(
              scale, dtype, block, stream);
 }
 
+// C2 adding its dQ into the f32 `dq_acc` in place of writing one in the
+// inputs' dtype (bf16 and fp16, the tensor-core kernel): a caller that
+// sums dQ over several K/V blocks (ring attention) rounds it once.
+extern "C" int paddle_flash_bwd_dq_acc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, float* dq_acc, int B, int S,
+    int H, int D, long long q_sb, long long q_ss, long long k_sb,
+    long long k_ss, long long v_sb, long long v_ss, long long o_sb,
+    long long o_ss, int causal, float scale, int dtype, int block,
+    void* stream) {
+  if (dq_acc == nullptr || (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  return run(1, q, k, v, dout, lse, delta, nullptr, dq_acc, nullptr, nullptr,
+             B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss,
+             causal, scale, dtype, block, stream);
+}
+
 // C3
 extern "C" int paddle_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
@@ -591,6 +608,24 @@ extern "C" int paddle_flash_bwd_dkv(
   return run(2, q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, B, S, H,
              D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, causal, scale,
              dtype, block, stream);
+}
+
+// C3 adding its dK and dV into the f32 `dk_acc` and `dv_acc` in place of
+// writing them in the inputs' dtype (bf16 and fp16, the tensor-core
+// kernel): a caller that sums them over several Q blocks (ring
+// attention) rounds them once.
+extern "C" int paddle_flash_bwd_dkv_acc(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, float* dk_acc, float* dv_acc,
+    int B, int S, int H, int D, long long q_sb, long long q_ss,
+    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+    long long o_sb, long long o_ss, int causal, float scale, int dtype,
+    int block, void* stream) {
+  if (dk_acc == nullptr || dv_acc == nullptr || (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  return run(3, q, k, v, dout, lse, delta, nullptr, nullptr, dk_acc, dv_acc,
+             B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss,
+             causal, scale, dtype, block, stream);
 }
 
 // Dynamic shared memory of one f32 launch of C1 (which 0), C2 (1) or C3

@@ -118,9 +118,12 @@ struct TcArgs {
   const float* lse;     // (B, S, H) base-e
   const float* delta;   // (B, S, H)
   T* dq;                // (B, S, H, D) dense outputs
-  float* dq_acc;        // (B, S, H, D) f32 workspace (C1)
+  float* dq_acc;        // (B, S, H, D) f32 workspace (C1); C2 adds dQ
+                        // into it in place of writing dq when given
   T* dk;
   T* dv;
+  float* dk_acc;        // (B, S, H, D) f32: C3 adds dK and dV into them in
+  float* dv_acc;        // place of writing dk and dv when given
   int S, H;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss;
   int causal;
@@ -198,8 +201,9 @@ __device__ __forceinline__ void dq_add(const TcArgs<T>& a,
 // C3 at D 64 and 128: grid (S / BM, H, B), 2 * BM threads; block kt owns
 // K rows [kt BM, kt BM + BM), warpgroup wg the 64 rows from kt BM + 64 wg.
 // With DQ (C1) each q tile's dS^T also goes to a shared tile, and
-// warpgroup wg adds the tile's dQ share for its 64 q rows.
-template <typename T, int D, int BM, bool DQ>
+// warpgroup wg adds the tile's dQ share for its 64 q rows.  With ACC (C3
+// only) dK and dV are added into the f32 dk_acc and dv_acc.
+template <typename T, int D, int BM, bool DQ, bool ACC = false>
 __device__ __forceinline__ void dkv_by_rows(const TcArgs<T>& a) {
   static_assert(!DQ || D == 64, "C1 takes the rows design at D 64 only");
   constexpr int NT = 2 * BM;
@@ -339,8 +343,16 @@ __device__ __forceinline__ void dkv_by_rows(const TcArgs<T>& a) {
     __syncthreads();   // the stage is free for the copies of tile it + 2
   }
 
-  store_rows<D, D>(a.dk, acc_k, a.scale, a.scale, b, a.S, a.H, h, k0 + 64 * wg, 0);
-  store_rows<D, D>(a.dv, acc_v, 1.f, 1.f, b, a.S, a.H, h, k0 + 64 * wg, 0);
+  if constexpr (ACC) {
+    store_rows_f32<D, D, true>(a.dk_acc, acc_k, a.scale, a.scale, b, a.S,
+                               a.H, h, k0 + 64 * wg, 0);
+    store_rows_f32<D, D, true>(a.dv_acc, acc_v, 1.f, 1.f, b, a.S, a.H, h,
+                               k0 + 64 * wg, 0);
+  } else {
+    store_rows<D, D>(a.dk, acc_k, a.scale, a.scale, b, a.S, a.H, h,
+                     k0 + 64 * wg, 0);
+    store_rows<D, D>(a.dv, acc_v, 1.f, 1.f, b, a.S, a.H, h, k0 + 64 * wg, 0);
+  }
 }
 
 // C2 at D 64 and 128: grid (S / BM, H, B), 2 * BM threads; block x owns
@@ -464,7 +476,12 @@ __device__ __forceinline__ void dq_by_rows(const TcArgs<T>& a) {
     __syncthreads();
   }
 
-  store_rows<D, D>(a.dq, acc_q, a.scale, a.scale, b, a.S, a.H, h, q0 + 64 * wg, 0);
+  if (a.dq_acc != nullptr)
+    store_rows_f32<D, D, true>(a.dq_acc, acc_q, a.scale, a.scale, b, a.S,
+                               a.H, h, q0 + 64 * wg, 0);
+  else
+    store_rows<D, D>(a.dq, acc_q, a.scale, a.scale, b, a.S, a.H, h,
+                     q0 + 64 * wg, 0);
 }
 
 // C3 at D 256, C1 at D 128 and 256: grid (S / 64, H, B), 256 threads;
@@ -474,7 +491,8 @@ __device__ __forceinline__ void dq_by_rows(const TcArgs<T>& a) {
 // and sums dK.  Each holds its sum as D / 128 m64n128 accumulators.  With
 // DQ (C1) warpgroup 1 also writes dS^T to a shared tile, and warpgroup wg
 // adds the q tile's dQ share in D's columns [D / 2 wg, D / 2 (wg + 1)).
-template <typename T, int D, int BM, bool DQ>
+// With ACC (C3 only) dK and dV are added into the f32 dk_acc and dv_acc.
+template <typename T, int D, int BM, bool DQ, bool ACC = false>
 __device__ __forceinline__ void dkv_by_halves(const TcArgs<T>& a) {
   constexpr int NT = 256;
   constexpr int NA = D / 128;   // m64n128 accumulators a thread
@@ -623,11 +641,16 @@ __device__ __forceinline__ void dkv_by_halves(const TcArgs<T>& a) {
     __syncthreads();   // the stage and the P^T exchange are free again
   }
 
-  T* out = wg ? a.dk : a.dv;
   const float mul = wg ? a.scale : 1.f;
 #pragma unroll
-  for (int j = 0; j < NA; ++j)
-    store_rows<D, 128>(out, acc[j], mul, mul, b, a.S, a.H, h, k0, 128 * j);
+  for (int j = 0; j < NA; ++j) {
+    if constexpr (ACC)
+      store_rows_f32<D, 128, true>(wg ? a.dk_acc : a.dv_acc, acc[j], mul,
+                                   mul, b, a.S, a.H, h, k0, 128 * j);
+    else
+      store_rows<D, 128>(wg ? a.dk : a.dv, acc[j], mul, mul, b, a.S, a.H, h,
+                         k0, 128 * j);
+  }
 }
 
 // C2 at D 256: grid (S / 64, H, B), 256 threads; block x owns q rows of
@@ -768,16 +791,23 @@ __device__ __forceinline__ void dq_by_halves(const TcArgs<T>& a) {
     __syncthreads();   // the stage and the exchange are free again
   }
 
-  store_rows<D, 128>(a.dq, acc, a.scale, a.scale, b, a.S, a.H, h, q0, 128 * wg);
+  if (a.dq_acc != nullptr)
+    store_rows_f32<D, 128, true>(a.dq_acc, acc, a.scale, a.scale, b, a.S,
+                                 a.H, h, q0, 128 * wg);
+  else
+    store_rows<D, 128>(a.dq, acc, a.scale, a.scale, b, a.S, a.H, h, q0,
+                       128 * wg);
 }
 
-template <typename T, int D, int BM>
+// C3; ACC (ring attention) adds dK and dV into f32 accumulators, an
+// instantiation of its own, so that the plain C3 keeps its registers
+template <typename T, int D, int BM, bool ACC>
 __global__ void __launch_bounds__(tc_threads(D, BM), 1)
 flash_bwd_dkv_tc_kernel(const TcArgs<T> a) {
   if constexpr (D == 256)
-    dkv_by_halves<T, D, BM, false>(a);
+    dkv_by_halves<T, D, BM, false, ACC>(a);
   else
-    dkv_by_rows<T, D, BM, false>(a);
+    dkv_by_rows<T, D, BM, false, ACC>(a);
 }
 
 // C1: at D 128 the rows design would spill (C3's 255 registers a thread
@@ -813,17 +843,21 @@ int launch(Kernel kernel, bool& smem_set, int smem, int threads, dim3 grid,
   return (int)cudaGetLastError();
 }
 
-// which: 0 = C1 merged, 1 = C2 dq, 2 = C3 dkv
+// which: 0 = C1 merged, 1 = C2 dq, 2 = C3 dkv, 3 = C3 adding into f32
 template <typename T, int D, int BM>
 int dispatch(int which, int B, const TcArgs<T>& a, cudaStream_t stream) {
-  static bool set_merged = false, set_dq = false, set_dkv = false;
+  static bool set_merged = false, set_dq = false, set_dkv = false,
+              set_dkv_acc = false;
   const dim3 grid(a.S / BM, a.H, B);
   if (which == 0)
     return launch(flash_bwd_merged_tc_kernel<T, D, BM>, set_merged,
                   merged_tc_smem_bytes(D, BM), merged_tc_threads(D, BM), grid,
                   a, stream);
   if (which == 2)
-    return launch(flash_bwd_dkv_tc_kernel<T, D, BM>, set_dkv,
+    return launch(flash_bwd_dkv_tc_kernel<T, D, BM, false>, set_dkv,
+                  tc_smem_bytes(D, BM), tc_threads(D, BM), grid, a, stream);
+  if (which == 3)
+    return launch(flash_bwd_dkv_tc_kernel<T, D, BM, true>, set_dkv_acc,
                   tc_smem_bytes(D, BM), tc_threads(D, BM), grid, a, stream);
   return launch(flash_bwd_dq_tc_kernel<T, D, BM>, set_dq,
                 tc_smem_bytes(D, BM), tc_threads(D, BM), grid, a, stream);
@@ -838,6 +872,8 @@ int dispatch_tiles(int which, int B, int D, int block, const void* q,
                    long long k_sb, long long k_ss, long long v_sb,
                    long long v_ss, long long o_sb, long long o_ss,
                    int causal, float scale, cudaStream_t st) {
+  // which 3: C3 with dk / dv the f32 accumulators
+  const bool acc = which == 3;
   const TcArgs<T> a{static_cast<const T*>(q),
                     static_cast<const T*>(k),
                     static_cast<const T*>(v),
@@ -846,8 +882,10 @@ int dispatch_tiles(int which, int B, int D, int block, const void* q,
                     delta,
                     static_cast<T*>(dq),
                     dq_acc,
-                    static_cast<T*>(dk),
-                    static_cast<T*>(dv),
+                    acc ? nullptr : static_cast<T*>(dk),
+                    acc ? nullptr : static_cast<T*>(dv),
+                    acc ? static_cast<float*>(dk) : nullptr,
+                    acc ? static_cast<float*>(dv) : nullptr,
                     S,
                     H,
                     q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss,
@@ -863,7 +901,9 @@ int dispatch_tiles(int which, int B, int D, int block, const void* q,
 }  // namespace
 
 // which: 0 = C1 (dq_acc an f32 workspace the caller zeroes and casts;
-// scale folded in), 1 = C2, 2 = C3.  The instantiated (D, tile) pairs: 64
+// scale folded in), 1 = C2 (into dq, or added into dq_acc when it is
+// given), 2 = C3, 3 = C3 adding into f32 dk and dv.  The instantiated
+// (D, tile) pairs: 64
 // or 128 at D = 64, 64 at D = 128 and 256; dtype 1 = bfloat16, 2 =
 // float16.  Every q/k/v/dout row must start on 16 bytes (the copies'
 // unit).  Returns the launch's cudaError_t.

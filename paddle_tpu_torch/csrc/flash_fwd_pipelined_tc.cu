@@ -107,11 +107,12 @@ __host__ __device__ constexpr int producer_threads(int BQ) {
 }
 
 struct PipeArgs {
-  void* out;       // dense (B, S, H, D)
+  void* out;       // dense (B, S, H, D), T or (out_f32) float
   float* lse;      // dense (B, S, H) f32, or null
   int S, H;
   int causal;
   float scale2;    // scale * log2(e)
+  int out_f32;     // out is float, unrounded
 };
 
 // Grid (S / BQ, H, B), 2 BQ + producer_threads(BQ) threads: warpgroup
@@ -211,7 +212,10 @@ flash_fwd_pipelined_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (l == 0) mbar_arrive(empty(st));
   }
 
-  f.finish(static_cast<T*>(a.out), a.lse, b, a.S, a.H, h, q0 + 64 * wg);
+  if (a.out_f32)
+    f.finish(static_cast<float*>(a.out), a.lse, b, a.S, a.H, h, q0 + 64 * wg);
+  else
+    f.finish(static_cast<T*>(a.out), a.lse, b, a.S, a.H, h, q0 + 64 * wg);
 }
 
 struct Maps {
@@ -266,6 +270,30 @@ bool instantiated(int D, int bq, int bk) {
   return blocks && (D == 64 || D == 128 || D == 256);
 }
 
+int run(const void* q, const void* k, const void* v, void* out, float* lse,
+        int B, int S, int H, int D, long long q_sb, long long q_ss,
+        long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+        int causal, float scale, int dtype, int block_q, int block_k,
+        void* stream, int out_f32) {
+  if (S <= 0 || B <= 0 || H <= 0 || !instantiated(D, block_q, block_k) ||
+      S % block_q != 0 || (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  if ((ptrs & 15) || ((q_sb | q_ss | k_sb | k_ss | v_sb | v_ss) & 7))
+    return (int)cudaErrorMisalignedAddress;
+  Maps mp;
+  int err = encode_rows_map(&mp.q, q, dtype, B, S, H, D, q_ss, q_sb, block_q);
+  if (err == 0)
+    err = encode_rows_map(&mp.k, k, dtype, B, S, H, D, k_ss, k_sb, block_k);
+  if (err == 0)
+    err = encode_rows_map(&mp.v, v, dtype, B, S, H, D, v_ss, v_sb, block_k);
+  if (err != 0) return err;
+  const PipeArgs a{out, lse, S, H, causal, scale * kLog2e, out_f32};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return dispatch_d<bf16>(D, block_q, block_k, mp, a, B, st);
+  return dispatch_d<f16>(D, block_q, block_k, mp, a, B, st);
+}
+
 }  // namespace
 
 // q/k/v: (B, S, H, D) with (H, D) dense and the given batch / sequence
@@ -281,23 +309,20 @@ extern "C" int paddle_flash_fwd_pipelined_tc(
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     int causal, float scale, int dtype, int block_q, int block_k,
     void* stream) {
-  if (S <= 0 || B <= 0 || H <= 0 || !instantiated(D, block_q, block_k) ||
-      S % block_q != 0 || (dtype != 1 && dtype != 2))
-    return (int)cudaErrorInvalidValue;
-  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
-  if ((ptrs & 15) || ((q_sb | q_ss | k_sb | k_ss | v_sb | v_ss) & 7))
-    return (int)cudaErrorMisalignedAddress;
-  Maps mp;
-  int err = encode_rows_map(&mp.q, q, dtype, B, S, H, D, q_ss, q_sb, block_q);
-  if (err == 0)
-    err = encode_rows_map(&mp.k, k, dtype, B, S, H, D, k_ss, k_sb, block_k);
-  if (err == 0)
-    err = encode_rows_map(&mp.v, v, dtype, B, S, H, D, v_ss, v_sb, block_k);
-  if (err != 0) return err;
-  const PipeArgs a{out, lse, S, H, causal, scale * kLog2e};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dispatch_d<bf16>(D, block_q, block_k, mp, a, B, st);
-  return dispatch_d<f16>(D, block_q, block_k, mp, a, B, st);
+  return run(q, k, v, out, lse, B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb,
+             v_ss, causal, scale, dtype, block_q, block_k, stream, 0);
+}
+
+// The same with `out` a dense (B, S, H, D) float32 tensor: O / l
+// unrounded (ring attention combines its blocks before one rounding).
+extern "C" int paddle_flash_fwd_pipelined_tc_f32out(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int B, int S, int H, int D, long long q_sb, long long q_ss,
+    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+    int causal, float scale, int dtype, int block_q, int block_k,
+    void* stream) {
+  return run(q, k, v, out, lse, B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb,
+             v_ss, causal, scale, dtype, block_q, block_k, stream, 1);
 }
 
 // Bytes of dynamic shared memory one launch asks for at head dim D and

@@ -66,12 +66,13 @@ struct FwdArgs {
   const void* q;
   const void* k;
   const void* v;
-  void* out;       // dense (B, S, H, D)
+  void* out;       // dense (B, S, H, D), T or (out_f32) float
   float* lse;      // dense (B, S, H) f32, or null
   int S, H;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;
   int causal;
   float scale2;    // scale * log2(e)
+  int out_f32;     // out is float, unrounded
 };
 
 // Grid (S / BQ, H, B), 2 BQ threads; block x owns q tile S / BQ - 1 - x,
@@ -133,7 +134,10 @@ flash_fwd_tc_kernel(const FwdArgs a) {
     __syncthreads();   // the stage is free for the copies of tile it + 2
   }
 
-  f.finish(static_cast<T*>(a.out), a.lse, b, a.S, a.H, h, q0 + 64 * wg);
+  if (a.out_f32)
+    f.finish(static_cast<float*>(a.out), a.lse, b, a.S, a.H, h, q0 + 64 * wg);
+  else
+    f.finish(static_cast<T*>(a.out), a.lse, b, a.S, a.H, h, q0 + 64 * wg);
 }
 
 template <typename T, int D, int BQ, int BK>
@@ -169,6 +173,26 @@ int dispatch_tiles(int D, int bq, int bk, const FwdArgs& a, int B,
   return (int)cudaErrorInvalidValue;
 }
 
+int run(const void* q, const void* k, const void* v, void* out, float* lse,
+        int B, int S, int H, int D, long long q_sb, long long q_ss,
+        long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+        int causal, float scale, int dtype, int block_q, int block_k,
+        void* stream, int out_f32) {
+  if (S <= 0 || B <= 0 || H <= 0 || block_q <= 0 || block_k <= 0 ||
+      S % block_q != 0 || S % block_k != 0)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  if ((ptrs & 15) || ((q_sb | q_ss | k_sb | k_ss | v_sb | v_ss) & 7))
+    return (int)cudaErrorMisalignedAddress;
+  const FwdArgs a{q,    k,    v,    out,  lse,  S,      H,
+                  q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,   causal,
+                  scale * kLog2e, out_f32};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return dispatch_tiles<bf16>(D, block_q, block_k, a, B, st);
+  if (dtype == 2) return dispatch_tiles<f16>(D, block_q, block_k, a, B, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q/k/v: (B, S, H, D) with (H, D) dense, every row starting on 16 bytes,
@@ -182,19 +206,20 @@ extern "C" int paddle_flash_fwd_tc(
     long long k_sb, long long k_ss, long long v_sb, long long v_ss,
     int causal, float scale, int dtype, int block_q, int block_k,
     void* stream) {
-  if (S <= 0 || B <= 0 || H <= 0 || block_q <= 0 || block_k <= 0 ||
-      S % block_q != 0 || S % block_k != 0)
-    return (int)cudaErrorInvalidValue;
-  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
-  if ((ptrs & 15) || ((q_sb | q_ss | k_sb | k_ss | v_sb | v_ss) & 7))
-    return (int)cudaErrorMisalignedAddress;
-  const FwdArgs a{q,    k,    v,    out,  lse,  S,      H,
-                  q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,   causal,
-                  scale * kLog2e};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dispatch_tiles<bf16>(D, block_q, block_k, a, B, st);
-  if (dtype == 2) return dispatch_tiles<f16>(D, block_q, block_k, a, B, st);
-  return (int)cudaErrorInvalidValue;
+  return run(q, k, v, out, lse, B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb,
+             v_ss, causal, scale, dtype, block_q, block_k, stream, 0);
+}
+
+// The same with `out` a dense (B, S, H, D) float32 tensor: O / l
+// unrounded (ring attention combines its blocks before one rounding).
+extern "C" int paddle_flash_fwd_tc_f32out(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int B, int S, int H, int D, long long q_sb, long long q_ss,
+    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+    int causal, float scale, int dtype, int block_q, int block_k,
+    void* stream) {
+  return run(q, k, v, out, lse, B, S, H, D, q_sb, q_ss, k_sb, k_ss, v_sb,
+             v_ss, causal, scale, dtype, block_q, block_k, stream, 1);
 }
 
 // Bytes of dynamic shared memory one launch asks for at head dim D and

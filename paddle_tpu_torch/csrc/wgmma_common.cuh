@@ -281,6 +281,51 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[N / 2],
   }
 }
 
+// store_rows in f32, unrounded: the same layout and products, written
+// into `out`, or with ADD added into it (a caller that sums a result over
+// several launches and rounds it once).  Each product is rounded before
+// the add (__fmul_rn, no fused multiply-add), so adding into zeros gives
+// the written values bit for bit, and rounding a written value to T gives
+// store_rows' value.  ADD reads eight pairs before it writes them: a load
+// issued after a store to the same tensor would wait for it, and the
+// epilogue would take a trip to memory a pair.
+template <int D, int N, bool ADD>
+__device__ __forceinline__ void store_rows_f32(float* out,
+                                               const float (&acc)[N / 2],
+                                               float mul_lo, float mul_hi,
+                                               int b, int S, int H, int h,
+                                               int row0, int col0) {
+  constexpr int G = 8;   // pairs read before they are written
+  static_assert((N / 4) % G == 0, "whole groups of pairs");
+  const int t = threadIdx.x & 127;
+  const int r = row0 + 16 * (t >> 5) + ((t & 31) >> 2);
+  auto at = [&](int i) {
+    return reinterpret_cast<float2*>(
+        out + (((long long)b * S + r + 8 * ((i >> 1) & 1)) * H + h) * D +
+        col0 + 8 * (i >> 2) + 2 * (t & 3));
+  };
+#pragma unroll
+  for (int i0 = 0; i0 < N / 2; i0 += 2 * G) {
+    [[maybe_unused]] float2 old[G];
+    if constexpr (ADD) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) old[j] = *at(i0 + 2 * j);
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int i = i0 + 2 * j;
+      const float mul = ((i >> 1) & 1) ? mul_hi : mul_lo;
+      float2 v = make_float2(__fmul_rn(acc[i], mul),
+                             __fmul_rn(acc[i + 1], mul));
+      if constexpr (ADD) {
+        v.x += old[j].x;
+        v.y += old[j].y;
+      }
+      *at(i) = v;
+    }
+  }
+}
+
 // The flash forward of one consumer warpgroup over its 64 q rows of a
 // BQ-row tile, one BK-row K/V tile at a time: what the TPU's
 // _online_step computes, shared by flash_fwd_tc.cu and
@@ -391,10 +436,12 @@ struct FwdRows {
     for (int j = 0; j < NH; ++j) fence_regs(o[j]);
   }
 
-  // out = O / l in T into dense (B, S, H, D) `out` at (b, h), rows
-  // [row0, row0 + 64); the base-e f32 lse (m + log2 l) ln 2 into dense
-  // (B, S, H) `lse` unless it is null.
-  __device__ __forceinline__ void finish(T* out, float* lse, int b, int S,
+  // out = O / l into dense (B, S, H, D) `out` at (b, h), rows
+  // [row0, row0 + 64), in T, or unrounded where O is float (ring
+  // attention's blocks, combined before one rounding); the base-e f32 lse
+  // (m + log2 l) ln 2 into dense (B, S, H) `lse` unless it is null.
+  template <typename O>
+  __device__ __forceinline__ void finish(O* out, float* lse, int b, int S,
                                          int H, int h, int row0) {
     const int t = threadIdx.x & 127;
     const int l = t & 31;
@@ -405,9 +452,15 @@ struct FwdRows {
       lsum[hh] = fmaxf(lsum[hh], 1e-30f);
     }
 #pragma unroll
-    for (int j = 0; j < NH; ++j)
-      store_rows<D, D / NH>(out, o[j], 1.f / lsum[0], 1.f / lsum[1], b, S, H,
-                            h, row0, j * (D / NH));
+    for (int j = 0; j < NH; ++j) {
+      if constexpr (sizeof(O) == 4)
+        store_rows_f32<D, D / NH, false>(out, o[j], 1.f / lsum[0],
+                                         1.f / lsum[1], b, S, H, h, row0,
+                                         j * (D / NH));
+      else
+        store_rows<D, D / NH>(out, o[j], 1.f / lsum[0], 1.f / lsum[1], b, S,
+                              H, h, row0, j * (D / NH));
+    }
     if (lse != nullptr && (l & 3) == 0) {
       const int r = row0 + 16 * (t >> 5) + (l >> 2);
 #pragma unroll

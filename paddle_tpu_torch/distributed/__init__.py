@@ -12,12 +12,18 @@ ZeRO (:mod:`.sharding`) slices the optimizer state, the gradients and
 the masters over the ``sdp`` axis.  :mod:`.pipeline` runs the 1F1B
 schedule with one process a stage over the ``pp`` axis, and :mod:`.fleet`
 is the facade that lays the hybrid degrees out and dispatches a model to
-its wrapper.  Also here: :mod:`.store`, the TCP key-value store, and
-:mod:`.recompute`, activation recompute.
+its wrapper.  :mod:`.ring_attention` runs ring and Ulysses attention
+over the ``sep`` axis (``scaled_dot_product_attention`` routes to the
+ring where the mesh has a ``sep`` group), and :mod:`.moe` the
+Mixture-of-Experts layer over ``ep`` (:mod:`.utils` re-exports its
+``global_scatter`` / ``global_gather``).  Also here: :mod:`.store`, the
+TCP key-value store, and :mod:`.recompute`, activation recompute.
 
-Not ported yet (ROADMAP.md §A5): ring attention, MoE, ``auto_parallel``,
-ZeRO with a pipeline, and the launcher with ``fleet.elastic``
-(``launch`` raises).
+Not ported yet (ROADMAP.md §A5): ``auto_parallel``, ZeRO with a
+pipeline, the GSPMD sequence sharding of the GPT's activations over
+``sep`` (the GPT's attention on a mesh whose ``sep`` axis has more than
+one rank raises), and the launcher with ``fleet.elastic`` (``launch``
+raises).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import os
 
 from . import collective, mesh, mp_layers, mp_overlap, sharding  # noqa
 from . import fleet, pipeline, store  # noqa: F401
+from . import moe, ring_attention, utils  # noqa: F401
 from .collective import (ReduceOp, all_gather, all_gather_object, all_reduce,
                          all_to_all, all_to_all_single, alltoall, barrier,
                          broadcast, get_group, irecv, isend, new_group, recv,

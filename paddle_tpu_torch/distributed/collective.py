@@ -27,6 +27,15 @@ tensors keep their values, as JAX's ``reduce`` leaves them.
 :func:`ppermute` (``lax.ppermute``) is one ``all_to_all_single`` with
 uneven split sizes, since gloo aborts on ``send`` / ``recv`` of CUDA
 tensors.
+
+The all-to-all that Ulysses attention and MoE run inside a model's
+forward is differentiable (the JAX primitive is):
+:func:`all_to_all_autograd` (``lax.all_to_all(..., tiled=True)`` on dim
+0) runs the same exchange on the cotangent, which is its own inverse.
+Ring attention's backward is written by hand and permutes with plain
+:func:`ppermute`.  Gloo and NCCL match a group's collectives by the
+order they are issued in, so a caller that moves several tensors stacks
+them into one call, and every rank issues its calls in one order.
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ __all__ = ["ReduceOp", "all_reduce", "all_gather", "all_gather_object",
            "reduce_scatter", "broadcast", "reduce", "scatter", "alltoall",
            "all_to_all", "all_to_all_single", "send", "recv", "isend",
            "irecv", "ppermute", "barrier", "new_group", "get_group", "wait",
-           "split_group_axis", "Group", "issued", "reset_counts"]
+           "split_group_axis", "Group", "issued", "reset_counts",
+           "all_to_all_autograd", "bound_group"]
 
 
 class ReduceOp:
@@ -120,6 +130,20 @@ def _resolve(group):
             return None
         mesh = _mesh.ensure_mesh()
     g = mesh.group(axis)
+    return g if g is not None and g.pg is not None else None
+
+
+def bound_group(axis):
+    """The :class:`Group` of ``axis`` (a name, a :class:`Group` or an
+    object with an ``axis`` attribute) on the installed global mesh when
+    it has a process group, else None: the port's counterpart of "``axis``
+    is bound in this ``shard_map`` trace".  Unlike :func:`_resolve`, it
+    never installs a default mesh."""
+    if isinstance(axis, Group):
+        return axis if axis.pg is not None else None
+    axis = _axis_of(axis)
+    mesh = _mesh.get_mesh()
+    g = mesh.group(axis) if mesh is not None else None
     return g if g is not None and g.pg is not None else None
 
 
@@ -377,6 +401,44 @@ def ppermute(tensor, perm, group=None, async_op=False):
     out = (recv.view(tensor.shape) if src is not None
            else torch.zeros_like(tensor))
     return _Permuted(out, work) if async_op else out
+
+
+def _tiled_all_to_all(x, g):
+    """Dim 0 of ``x`` cut into ``g.nranks`` equal pieces, piece ``j`` to
+    group rank ``j``; what arrives concatenated in rank order."""
+    if x.shape[0] % g.nranks:
+        raise ValueError("all_to_all: dim 0 (%d) is not a multiple of the "
+                         "group's %d ranks" % (x.shape[0], g.nranks))
+    _issue("all_to_all_single")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=g.pg)
+    return out
+
+
+class _AllToAllFn(torch.autograd.Function):
+    """The tiled all-to-all over dim 0; its own inverse, so the backward
+    runs it on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _tiled_all_to_all(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _tiled_all_to_all(grad, ctx.g), None
+
+
+def all_to_all_autograd(tensor, group=None):
+    """``lax.all_to_all(x, axis, 0, 0, tiled=True)``, differentiable: dim 0
+    cut into one piece a rank of the group, piece ``j`` sent to rank
+    ``j``, the pieces that arrive concatenated in rank order.  The
+    identity where no process group resolves."""
+    g = _resolve(group)
+    if g is None:
+        return tensor
+    return _AllToAllFn.apply(tensor, g)
 
 
 def _p2p_group(group, peer):

@@ -145,16 +145,17 @@ def library():
             lib.paddle_flash_fwd_pipelined.restype = i
             lib.paddle_flash_fwd_pipelined_smem.argtypes = [i, i, i, i]
             lib.paddle_flash_fwd_pipelined_smem.restype = ll
-            # the 16-bit A' (tensor maps, tensor cores): A''s arguments
-            lib.paddle_flash_fwd_pipelined_tc.argtypes = \
-                lib.paddle_flash_fwd_pipelined.argtypes
-            lib.paddle_flash_fwd_pipelined_tc.restype = i
+            # the 16-bit A' (tensor maps, tensor cores) and the
+            # tensor-core forward, each also with an f32 `out`: A''s
+            # arguments
+            for fn in (lib.paddle_flash_fwd_pipelined_tc,
+                       lib.paddle_flash_fwd_pipelined_tc_f32out,
+                       lib.paddle_flash_fwd_tc,
+                       lib.paddle_flash_fwd_tc_f32out):
+                fn.argtypes = lib.paddle_flash_fwd_pipelined.argtypes
+                fn.restype = i
             lib.paddle_flash_fwd_pipelined_tc_smem.argtypes = [i, i, i]
             lib.paddle_flash_fwd_pipelined_tc_smem.restype = ll
-            # the tensor-core forward: A''s arguments
-            lib.paddle_flash_fwd_tc.argtypes = \
-                lib.paddle_flash_fwd_pipelined.argtypes
-            lib.paddle_flash_fwd_tc.restype = i
             lib.paddle_flash_fwd_tc_smem.argtypes = [i, i, i]
             lib.paddle_flash_fwd_tc_smem.restype = ll
             lib.paddle_layer_norm_fwd.argtypes = [
@@ -168,10 +169,16 @@ def library():
                 p]
             lib.paddle_flash_bwd_dq.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, i, p]
+            lib.paddle_flash_bwd_dq_acc.argtypes = \
+                lib.paddle_flash_bwd_dq.argtypes
             lib.paddle_flash_bwd_dkv.argtypes = [
                 p, p, p, p, p, p, p, p, i, i, i, i, *strides, i, f, i, i, p]
+            lib.paddle_flash_bwd_dkv_acc.argtypes = \
+                lib.paddle_flash_bwd_dkv.argtypes
             for fn in (lib.paddle_flash_bwd, lib.paddle_flash_bwd_dq,
-                       lib.paddle_flash_bwd_dkv):
+                       lib.paddle_flash_bwd_dq_acc,
+                       lib.paddle_flash_bwd_dkv,
+                       lib.paddle_flash_bwd_dkv_acc):
                 fn.restype = i
             lib.paddle_flash_bwd_smem.argtypes = [i, i, i]
             lib.paddle_flash_bwd_smem.restype = ll

@@ -109,10 +109,11 @@ _FWD_FEATURES = frozenset({"bf16chain", "iotafree", "parq", "pipelined"})
 _BWD_FEATURES = frozenset({"bf16chain", "iotafree"})
 
 
-def _flash_reference(q, k, v, causal, scale):
+def _flash_reference(q, k, v, causal, scale, out_f32=False):
     """Plain f32 softmax attention over (B, S, H, D): returns (out in q's
-    dtype, base-e row logsumexp (B, S, H) f32).  The causal mask is
-    start-aligned (key t is visible to query s iff t <= s)."""
+    dtype, or in f32 with ``out_f32``, base-e row logsumexp (B, S, H)
+    f32).  The causal mask is start-aligned (key t is visible to query s
+    iff t <= s)."""
     qf, kf, vf = q.float(), k.float(), v.float()
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * float(scale)
     if causal:
@@ -122,11 +123,13 @@ def _flash_reference(q, k, v, causal, scale):
         logits = logits.masked_fill(~vis, -1e30)
     lse = torch.logsumexp(logits, dim=-1)                  # (B, H, S)
     p = torch.exp(logits - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
-    return out, lse.transpose(1, 2).contiguous()
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return (out if out_f32 else out.to(q.dtype)), \
+        lse.transpose(1, 2).contiguous()
 
 
-def _flash_tc_reference(q, k, v, causal, scale, block_q, block_k):
+def _flash_tc_reference(q, k, v, causal, scale, block_q, block_k,
+                        out_f32=False):
     """Plain version of the tensor-core forward and of kernel A': the
     forward kernels' tile walk over the K/V tiles of ``block_k`` rows,
     with the online softmax in f32 (base 2, the scale times log2(e)
@@ -134,7 +137,8 @@ def _flash_tc_reference(q, k, v, causal, scale, block_q, block_k):
     its causal band and every visited tile masked; p is rounded to v's
     dtype before the p.v product, as the TPU's ``_online_step`` rounds it
     (``p.astype(v.dtype)``), and l summed from the unrounded p.  Returns
-    (out in q's dtype, base-e row logsumexp (B, S, H) f32)."""
+    (out in q's dtype, or in f32 with ``out_f32``, base-e row logsumexp
+    (B, S, H) f32)."""
     b, s, h, d = q.shape
     qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # (B,H,S,D)
     scale2 = float(scale) * _LOG2E
@@ -162,19 +166,21 @@ def _flash_tc_reference(q, k, v, causal, scale, block_q, block_k):
             "bhqk,bhkd->bhqd", p, vf[:, :, c0:c0 + block_k])
         m[:, :, r0:] = m_new
     l_safe = l.clamp_min(1e-30)
-    out = (acc / l_safe[..., None]).to(q.dtype).transpose(1, 2)
+    out = acc / l_safe[..., None]
+    out = (out if out_f32 else out.to(q.dtype)).transpose(1, 2)
     lse2 = m + torch.log(l_safe) * _LOG2E          # base 2, as the kernels
     return out.contiguous(), (lse2 / _LOG2E).transpose(1, 2).contiguous()
 
 
-def _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, dlse=None):
+def _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, dlse=None,
+                         f32=False):
     """Plain f32 backward of :func:`_flash_reference`, P recomputed from the
     saved base-e lse (B, S, H) as the TPU's ``_bwd_head_math`` and the
     kernels form it, in base 2: exp2(scale log2(e) q.k - lse log2(e)), the
     scale applied to q.k in f32.  P and dS are rounded to the inputs'
     dtype before the products that take them: returns (dq, dk, dv) in
-    q/k/v's dtypes.  ``dlse`` is the lse output's cotangent, folded in as
-    ``delta - dlse``."""
+    q/k/v's dtypes (in f32, unrounded, with ``f32``).  ``dlse`` is
+    the lse output's cotangent, folded in as ``delta - dlse``."""
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, out, dout))
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (float(scale)
                                                        * _LOG2E)
@@ -195,6 +201,8 @@ def _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale, dlse=None):
     ds = (p * (dp - delta.transpose(1, 2)[..., None])).to(q.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * float(scale)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * float(scale)
+    if f32:
+        return dq, dk, dv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -467,18 +475,20 @@ def _resolve_bwd(q, causal, family):
 # launches
 # ---------------------------------------------------------------------------
 
-def _outputs(q, want_lse):
+def _outputs(q, want_lse, out_f32=False):
     b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, h, d), device=q.device,
+                      dtype=torch.float32 if out_f32 else q.dtype)
     lse = (torch.empty((b, s, h), dtype=torch.float32, device=q.device)
            if want_lse else None)
     return out, lse
 
 
-def _launch_tc(q, k, v, causal, scale, want_lse, block_q, block_k):
+def _launch_tc(q, k, v, causal, scale, want_lse, block_q, block_k,
+               out_f32=False):
     """The tensor-core forward at one of its (block_q, block_k)
-    instantiations; q/k/v rows that are not 16-byte aligned are copied to
-    aligned ones first."""
+    instantiations, out in q's dtype or (``out_f32``) unrounded f32; q/k/v
+    rows that are not 16-byte aligned are copied to aligned ones first."""
     global flash_fwd_tc_launches
     b, s, h, d = q.shape
     if q.dtype not in _TC_DTYPES:
@@ -492,8 +502,11 @@ def _launch_tc(q, k, v, causal, scale, want_lse, block_q, block_k):
     q, k, v = (t if _aligned(t) else
                t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
-    out, lse = _outputs(q, want_lse)
-    err = _build.library().paddle_flash_fwd_tc(
+    out, lse = _outputs(q, want_lse, out_f32)
+    lib = _build.library()
+    entry = lib.paddle_flash_fwd_tc_f32out if out_f32 else \
+        lib.paddle_flash_fwd_tc
+    err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, s, h, d,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -528,11 +541,13 @@ def _launch(q, k, v, causal, scale, want_lse):
     return out, lse
 
 
-def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k):
+def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k,
+                      out_f32=False):
     """Kernel A' at one of its (block_q, block_k) instantiations: the
     tensor-core kernel for bf16 and fp16 (q/k/v rows that are not 16-byte
-    aligned are copied to aligned ones first), the 3 x TF32 kernel for f32
-    (which raises on such rows)."""
+    aligned are copied to aligned ones first; out in their dtype or,
+    ``out_f32``, unrounded f32), the 3 x TF32 kernel for f32 (which raises
+    on such rows)."""
     global flash_fwd_pipelined_launches
     b, s, h, d = q.shape
     if (block_q, block_k) not in _PIPELINED_BLOCKS or s % block_q:
@@ -548,10 +563,12 @@ def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k):
         raise ValueError("flash_fwd_pipelined: q/k/v rows must start on 16 "
                          "bytes (pointers and batch / sequence strides), "
                          "the unit of the kernel's async copies")
-    out, lse = _outputs(q, want_lse)
+    out_f32 = out_f32 and tc
+    out, lse = _outputs(q, want_lse, out_f32)
     lib = _build.library()
-    entry = (lib.paddle_flash_fwd_pipelined_tc if tc
-             else lib.paddle_flash_fwd_pipelined)
+    entry = (lib.paddle_flash_fwd_pipelined if not tc
+             else lib.paddle_flash_fwd_pipelined_tc_f32out if out_f32
+             else lib.paddle_flash_fwd_pipelined_tc)
     err = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, s, h, d,
@@ -563,41 +580,54 @@ def _launch_pipelined(q, k, v, causal, scale, want_lse, block_q, block_k):
     return out, lse
 
 
-def _run_fwd(q, k, v, causal, scale, want_lse, spec):
+def _run_fwd(q, k, v, causal, scale, want_lse, spec, out_f32=False):
     """(out, lse or None) of the forward ``spec`` = (variant, block_q,
     block_k): A' for ``pipelined``, else the tensor-core forward (bf16,
-    fp16) or kernel A (f32) on a card; their plain versions on the
-    CPU."""
+    fp16) or kernel A (f32) on a card; their plain versions on the CPU.
+    ``out_f32``: out in f32, unrounded (in f32 every forward's out is)."""
     variant, bq, bk = spec
     pipelined = "pipelined" in variant_features(variant)
     tc = not pipelined and q.dtype in _TC_DTYPES
     if q.device.type == "cpu":
+        kw = {"out_f32": True} if out_f32 else {}
         if pipelined or tc:
-            out, lse = _flash_tc_reference(q, k, v, causal, scale, bq, bk)
+            out, lse = _flash_tc_reference(q, k, v, causal, scale, bq, bk,
+                                           **kw)
         else:
-            out, lse = _flash_reference(q, k, v, causal, scale)
+            out, lse = _flash_reference(q, k, v, causal, scale, **kw)
         return out, (lse if want_lse else None)
     if q.device.type != "cuda":
         raise ValueError("flash attention: unsupported device %s" % q.device)
     if pipelined:
-        return _launch_pipelined(q, k, v, causal, scale, want_lse, bq, bk)
+        return _launch_pipelined(q, k, v, causal, scale, want_lse, bq, bk,
+                                 out_f32)
     if tc:
-        return _launch_tc(q, k, v, causal, scale, want_lse, bq, bk)
+        return _launch_tc(q, k, v, causal, scale, want_lse, bq, bk, out_f32)
     return _launch(q, k, v, causal, scale, want_lse)
 
 
-def _forward(q, k, v, causal, scale, want_lse):
+def _forward(q, k, v, causal, scale, want_lse, out_f32=False):
     """(out, lse or None) through the forward that the autotuner resolves
     for this call."""
     return _run_fwd(q, k, v, causal, scale, want_lse,
-                    _resolve_fwd(q, k, v, causal))
+                    _resolve_fwd(q, k, v, causal), out_f32)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
-                        route=None):
+                        route=None, dq_acc=None, dkv_acc=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention_bshd_with_lse`'s
     (out, lse) for the cotangents ``dout`` and ``dlse`` (None: zero).
     ``lse`` is the forward's base-e (B, S, H) f32 row logsumexp.
+
+    ``dq_acc``, a dense f32 tensor of q's shape, takes dq added into it
+    unrounded, and is returned in dq's place: for a caller that sums dq
+    over several K/V blocks (ring attention) and rounds it once.  In bf16
+    and fp16 C2 adds into it itself (and C1's workspace is it); in f32 the
+    kernel's dq is added; on the CPU the plain version's f32 dq.
+    ``dkv_acc``, a dense f32 (2, B, S, H, D) tensor, does the same for dk
+    (``dkv_acc[0]``) and dv (``dkv_acc[1]``), which come back as those
+    views: C3 adds into it in bf16 and fp16, C1's or the f32 kernels'
+    results are added, on the CPU the plain version's f32 dk and dv.
 
     On a card: ``route=None`` takes
     :func:`..flash_attention._card_bwd_route`'s route: ``"split"`` (C2
@@ -618,6 +648,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
             raise ValueError("flash attention backward: %s must be %s on "
                              "%s, got %s on %s" % (name, shape, q.device,
                                                    tuple(t.shape), t.device))
+    for name, acc, shape in (("dq_acc", dq_acc, (b, s, h, d)),
+                             ("dkv_acc", dkv_acc, (2, b, s, h, d))):
+        if acc is not None and (
+                tuple(acc.shape) != shape or acc.device != q.device
+                or acc.dtype != torch.float32 or not acc.is_contiguous()):
+            raise ValueError("flash attention backward: %s must be a "
+                             "contiguous float32 %s tensor on %s"
+                             % (name, shape, q.device))
     if route is None:
         route = _card_bwd_route(s, h, d, q.dtype)
     if route not in ("merged", "split"):
@@ -627,8 +665,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
               else [_resolve_bwd(q, causal, "flash_bwd_dq"),
                     _resolve_bwd(q, causal, "flash_bwd_dkv")])
     if q.device.type == "cpu":
-        return _flash_bwd_reference(q, k, v, out, lse, dout, causal, scale,
-                                    dlse)
+        dq, dk, dv = _flash_bwd_reference(q, k, v, out, lse, dout, causal,
+                                          scale, dlse, f32=True)
+        return (_accumulate(dq_acc, dq, q.dtype),) + _add_dkv(dkv_acc, dk,
+                                                              dv, k.dtype)
     if q.device.type != "cuda":
         raise ValueError("flash attention: unsupported device %s" % q.device)
     if dout.dtype != q.dtype or lse.dtype != torch.float32:
@@ -643,9 +683,33 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal, scale, dlse=None,
         delta = delta - dlse.float()
     args = (q, k, v, dout, lse.contiguous(), delta, causal, scale)
     if route == "merged":
-        return _launch_bwd_merged(*args, block=blocks[0])
-    return (_launch_bwd_dq(*args, block=blocks[0]),) + \
-        _launch_bwd_dkv(*args, block=blocks[1])
+        dq, dk, dv = _launch_bwd_merged(*args, block=blocks[0],
+                                        dq_acc=dq_acc)
+        return (dq,) + _add_dkv(dkv_acc, dk, dv, k.dtype)
+    tc = q.dtype in _TC_DTYPES
+    if dq_acc is not None and not tc:
+        dq = dq_acc.add_(_launch_bwd_dq(*args, block=blocks[0]))
+    else:
+        dq = _launch_bwd_dq(*args, block=blocks[0], dq_acc=dq_acc)
+    if dkv_acc is not None and tc:
+        return (dq,) + _launch_bwd_dkv(*args, block=blocks[1],
+                                       dkv_acc=dkv_acc)
+    return (dq,) + _add_dkv(dkv_acc, *_launch_bwd_dkv(*args,
+                                                      block=blocks[1]),
+                            k.dtype)
+
+
+def _accumulate(acc, g, dtype):
+    """``g`` added into ``acc`` and returned, or ``g`` in ``dtype`` where
+    there is no accumulator."""
+    return g.to(dtype) if acc is None else acc.add_(g)
+
+
+def _add_dkv(dkv_acc, dk, dv, dtype):
+    """(dk, dv) added into ``dkv_acc``'s two views, or in ``dtype``."""
+    if dkv_acc is None:
+        return dk.to(dtype), dv.to(dtype)
+    return dkv_acc[0].add_(dk), dkv_acc[1].add_(dv)
 
 
 def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block, family):
@@ -676,27 +740,39 @@ def _bwd_args(q, k, v, dout, lse, delta, causal, scale, block, family):
     return common, tail, (q, k, v, dout)
 
 
-def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None):
+def _launch_bwd_merged(q, k, v, dout, lse, delta, causal, scale, block=None,
+                       dq_acc=None):
     """C1: (dq, dk, dv); dq summed, scale folded in, by atomics in an f32
-    workspace, which is dq itself in f32 and is cast in bf16 and fp16."""
+    workspace, which is dq itself in f32 and is cast in bf16 and fp16; a
+    given ``dq_acc`` is the workspace (not zeroed) and is returned as
+    it is."""
     global flash_bwd_launches
     common, tail, _held = _bwd_args(q, k, v, dout, lse, delta, causal, scale,
                                     block, "flash_bwd")
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    given = dq_acc is not None
+    if not given:
+        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _build.check(_build.library().paddle_flash_bwd(
         *common, dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail),
         "flash_bwd launch")
     flash_bwd_launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return (dq_acc if given else dq_acc.to(q.dtype)), dk, dv
 
 
-def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, block=None):
-    """C2: dq."""
+def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, block=None,
+                   dq_acc=None):
+    """C2: dq; with ``dq_acc`` (bf16 and fp16) the kernel adds dq into that
+    f32 tensor in place of writing it, and returns it."""
     global flash_bwd_dq_launches
     common, tail, _held = _bwd_args(q, k, v, dout, lse, delta, causal, scale,
                                     block, "flash_bwd_dq")
+    if dq_acc is not None:
+        _build.check(_build.library().paddle_flash_bwd_dq_acc(
+            *common, dq_acc.data_ptr(), *tail), "flash_bwd_dq launch")
+        flash_bwd_dq_launches += 1
+        return dq_acc
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _build.check(_build.library().paddle_flash_bwd_dq(
         *common, dq.data_ptr(), *tail), "flash_bwd_dq launch")
@@ -704,11 +780,20 @@ def _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale, block=None):
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, block=None):
-    """C3: (dk, dv)."""
+def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, block=None,
+                    dkv_acc=None):
+    """C3: (dk, dv); with ``dkv_acc`` (bf16 and fp16) the kernel adds them
+    into that f32 (2, B, S, H, D) tensor in place of writing them, and
+    returns its two views."""
     global flash_bwd_dkv_launches
     common, tail, _held = _bwd_args(q, k, v, dout, lse, delta, causal, scale,
                                     block, "flash_bwd_dkv")
+    if dkv_acc is not None:
+        _build.check(_build.library().paddle_flash_bwd_dkv_acc(
+            *common, dkv_acc[0].data_ptr(), dkv_acc[1].data_ptr(), *tail),
+            "flash_bwd_dkv launch")
+        flash_bwd_dkv_launches += 1
+        return dkv_acc[0], dkv_acc[1]
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     _build.check(_build.library().paddle_flash_bwd_dkv(
@@ -743,8 +828,8 @@ class _FlashAttentionWithLse(torch.autograd.Function):
     (``_flash_lse_vjp_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = _forward(q, k, v, causal, scale, True)
+    def forward(ctx, q, k, v, causal, scale, out_f32):
+        out, lse = _forward(q, k, v, causal, scale, True, out_f32)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out, lse
@@ -752,24 +837,29 @@ class _FlashAttentionWithLse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
-                                         ctx.causal, ctx.scale, dlse=dlse)
-        return dq, dk, dv, None, None
+        # an f32 out's cotangent enters the kernels in q's dtype
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.to(q.dtype), ctx.causal,
+                                         ctx.scale, dlse=dlse)
+        return dq, dk, dv, None, None, None
 
 
 def _needs_grad(*ts):
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def flash_attention_bshd_with_lse(q, k, v, causal=False, scale=None):
-    """(out, lse): out (B, S, H, D) in q's dtype, lse the base-e row
-    logsumexp (B, S, H) f32; differentiable in both."""
+def flash_attention_bshd_with_lse(q, k, v, causal=False, scale=None,
+                                  out_f32=False):
+    """(out, lse): out (B, S, H, D) in q's dtype, or in f32 unrounded with
+    ``out_f32`` (ring attention's blocks, combined before one rounding),
+    lse the base-e row logsumexp (B, S, H) f32; differentiable in both."""
     _check(q, k, v)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if _needs_grad(q, k, v):
-        return _FlashAttentionWithLse.apply(q, k, v, causal, scale)
-    return _forward(q, k, v, causal, scale, True)
+        return _FlashAttentionWithLse.apply(q, k, v, causal, scale,
+                                            bool(out_f32))
+    return _forward(q, k, v, causal, scale, True, bool(out_f32))
 
 
 def flash_attention_bshd(q, k, v, causal=False, scale=None):

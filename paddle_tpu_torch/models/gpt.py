@@ -11,7 +11,8 @@ state dict loads by name through :mod:`paddle_tpu_torch.convert`, and
 state between the layouts.  Attention goes through
 ``F.scaled_dot_product_attention`` (the CUDA flash kernels on a card,
 forward and backward) or, with a serving cache view, through the view's
-append-and-attend.  ``use_recompute`` runs each block under
+append-and-attend; a mesh whose ``sep`` axis has more than one rank is
+refused (:func:`_attend`).  ``use_recompute`` runs each block under
 :func:`paddle_tpu_torch.distributed.recompute` while training.
 :class:`GPTPretrainingCriterion` is the training loss.
 
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..distributed import collective as _coll
 from ..distributed import mp_overlap as _mpo
 from ..distributed.mesh import PartitionSpec as P
 from ..distributed.mp_layers import (copy_to_mp, mark_vocab_parallel,
@@ -119,6 +121,33 @@ def _row(x, lin, group, k_dim):
     if group is None:
         return lin(x)
     return _row_raw(x, lin.weight, lin.bias, group, k_dim)
+
+
+def _attend(q, k, v, cache, dropout_p, training, generator):
+    """The block's attention over (B, S, heads, D): the serving cache
+    view's append-and-attend, or ``F.scaled_dot_product_attention`` over
+    the rank's whole sequence.  The JAX GPT shards its activations over a
+    ``sep`` mesh axis by GSPMD, so each rank's attention takes its
+    sequence shard round the ring; the port has no such sharding
+    (ROADMAP.md §A5), and the ring would attend over whole sequences as if
+    they were shards.  So a bound ``sep`` group of more than one rank
+    raises here, where every entry point that runs the GPT passes, and
+    attention otherwise keeps the plain route
+    (``sequence_parallel=False``)."""
+    sep = _coll.bound_group("sep")
+    if sep is not None and sep.nranks > 1:
+        raise NotImplementedError(
+            "the GPT on a mesh whose 'sep' axis has %d ranks: the GSPMD "
+            "sequence sharding of its activations over 'sep' is not ported "
+            "(ROADMAP.md §A5), and the ring would attend over whole "
+            "sequences as if they were shards; call ring_attention / "
+            "scaled_dot_product_attention on sequence shards directly"
+            % sep.nranks)
+    if cache is not None:
+        return cache.attend(q, k, v)
+    return F.scaled_dot_product_attention(
+        q, k, v, dropout_p=dropout_p, is_causal=True, training=training,
+        generator=generator, sequence_parallel=False)
 
 
 def _note_qkv_island(num_heads, head_dim, group, cache):
@@ -205,12 +234,8 @@ class GPTAttention(nn.Module):
         q = qkv[:, :, :h].reshape(b, s, nh, hd)
         k = qkv[:, :, h:2 * h].reshape(b, s, nh, hd)
         v = qkv[:, :, 2 * h:].reshape(b, s, nh, hd)
-        if cache is not None:
-            out = cache.attend(q, k, v)
-        else:
-            out = F.scaled_dot_product_attention(
-                q, k, v, dropout_p=self.attn_dropout_p, is_causal=True,
-                training=self.training, generator=self.generator)
+        out = _attend(q, k, v, cache, self.attn_dropout_p, self.training,
+                      self.generator)
         out = out.reshape(b, s, h)
         return self.resid_dropout(_row(out, self.out_proj, g,
                                        self.hidden_size))
@@ -280,12 +305,8 @@ def _scan_block_apply(x, p, cfg, training, generator=None, cache=None,
     q = qkv[:, :, :hl].reshape(b, s, nhl, hd)
     k = qkv[:, :, hl:2 * hl].reshape(b, s, nhl, hd)
     v = qkv[:, :, 2 * hl:].reshape(b, s, nhl, hd)
-    if cache is not None:
-        out = cache.attend(q, k, v)
-    else:
-        out = F.scaled_dot_product_attention(
-            q, k, v, dropout_p=cfg.attention_dropout_prob, is_causal=True,
-            training=training, generator=generator)
+    out = _attend(q, k, v, cache, cfg.attention_dropout_prob, training,
+                  generator)
     out = out.reshape(b, s, hl)
     x = x + upscale_dropout(_row_raw(out, p["out_w"], p["out_b"], group,
                                      h_sz), p_drop, training, generator)

@@ -4,7 +4,10 @@
 (the flash forward kernels, the backward kernels through its autograd
 Function) when :func:`..kernels.flash_attention.supported` holds (a card,
 square self-attention, aligned shapes) and to :func:`sdpa_reference_raw`
-elsewhere.  The ``'sep'`` sequence-parallel ring is not ported yet.
+elsewhere.  Where the global mesh has a ``sep`` group with a process
+group (the port's reading of JAX's "the ``sep`` axis is bound in this
+trace"), q/k/v are the rank's sequence shards and the call runs
+:func:`...distributed.ring_attention.ring_attention` over that group.
 """
 from __future__ import annotations
 
@@ -62,13 +65,61 @@ def sdpa_reference_raw(q, k, v, attn_mask=None, dropout_p=0.0,
     return out.transpose(1, 2) if bshd else out
 
 
+def _sequence_parallel(q, k, v, m, dropout_p, is_causal, scale):
+    """The ``sep`` ring route of :func:`scaled_dot_product_attention`, with
+    the JAX version's refusals: what the ring cannot express raises, since
+    attending shard by shard would be silently wrong."""
+    if dropout_p > 0.0 or q.dim() != 4 or q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            "scaled_dot_product_attention under the 'sep' sequence-parallel "
+            "axis supports only dropout-free self-attention (the ring "
+            "schedule); disable attention dropout under sequence "
+            "parallelism, or pass sequence_parallel=False if the sequence "
+            "was already gathered")
+    if q.shape[2] % k.shape[2]:
+        raise NotImplementedError(
+            "grouped-query attention under the 'sep' ring needs q heads "
+            "(%d) divisible by k/v heads (%d)" % (q.shape[2], k.shape[2]))
+    if m is not None:
+        # the ring's contract: an ADDITIVE mask, local q rows x global keys
+        if m.dtype == torch.bool:
+            raise NotImplementedError(
+                "boolean attn_mask under the 'sep' ring is not supported — "
+                "pass an additive float mask of shape (..., S_local, "
+                "S_global) (its rows are this rank's local q positions)")
+        if m.shape[-2] != q.shape[1]:
+            raise ValueError(
+                "attn_mask rows (%d) must equal the LOCAL sequence shard "
+                "(%d) under the 'sep' ring; columns span the GLOBAL key axis"
+                % (m.shape[-2], q.shape[1]))
+    from ...distributed.ring_attention import ring_attention
+    out = ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2), "sep", causal=is_causal,
+                         scale=scale, attn_mask=m)
+    return out.transpose(1, 2)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None, use_flash=True,
-                                 generator=None):
-    """q/k/v: (batch, seq, heads, head_dim)."""
+                                 generator=None, sequence_parallel="auto"):
+    """q/k/v: (batch, seq, heads, head_dim).
+
+    SEQUENCE PARALLELISM: where the global mesh has a ``sep`` group with
+    a process group, q/k/v are this rank's contiguous sequence shards and
+    attention runs through the ring over that group
+    (``distributed.ring_attention``); a configuration the ring cannot
+    express (active dropout, cached or cross attention, a boolean mask, a
+    mask whose rows are not the local shard) raises.  Pass
+    ``sequence_parallel=False`` where the sequence was already gathered.
+    Without a ``sep`` group the route is unchanged."""
     if not training:
         dropout_p = 0.0
+    if sequence_parallel:
+        from ...distributed.collective import bound_group
+        if bound_group("sep") is not None:
+            return _sequence_parallel(query, key, value, attn_mask,
+                                      dropout_p, is_causal, scale)
     if use_flash and attn_mask is None and dropout_p == 0.0:
         from ...kernels import flash_attention as fa
         if fa.supported(query, key):

@@ -322,111 +322,6 @@ def test_serve_scan_rehearsed_on_the_cpu(monkeypatch):
                               counters, flags, device="cpu")
 
 
-def test_dist_phases_rehearsed_on_a_gloo_world():
-    """chip_smoke.py's dist_nccl and train_dp on a two-rank gloo CPU world
-    (tests/_torch_dist.py's ``job_chip_dist``): every collective right at
-    a world of two (point to point as a ring), the ops counted; train_dp
-    over a one-rank dp axis issuing two all-reduces a step, its losses
-    the default step's bit for bit, and so are those of its ZeRO stage-2
-    run, which slices the masters over two sdp ranks."""
-    import _torch_dist
-    world = _torch_dist.World(2)
-    try:
-        out = world.run("job_chip_dist")
-    finally:
-        world.close()
-    for dist_line, line, default in out:
-        assert dist_line["backend"] == "gloo"
-        assert dist_line["world_size"] == 2
-        assert dist_line["max_abs_err"] <= 1e-6
-        assert {"all_reduce", "all_gather", "reduce_scatter", "broadcast",
-                "reduce", "scatter", "alltoall", "all_to_all_single",
-                "all_gather_object", "send", "recv", "isend", "irecv",
-                "barrier"} <= set(dist_line["collectives_issued"])
-        assert line["collectives_issued"] == {"all_reduce": 6}
-        assert line["dp_ranks"] == 1 and line["losses"] == default
-        assert line["launches"]["flash_fwd_tc"] == 2 * 3
-        zero = line["zero2"]
-        assert zero["losses"] == default and zero["sliced_masters"] > 0
-        assert zero["collectives_issued"]["reduce_scatter"] > 0
-
-
-def test_tp2_gloo_rehearsed_on_a_gloo_world(monkeypatch):
-    """chip_smoke.py's tp2_gloo logic on a two-rank gloo CPU world at a
-    narrow width in f32: ``tp2_rank`` on each rank (the tp=2 engine's
-    greedy tokens against tp=1's, B counted under ``use_pallas_norm``,
-    three dp1 x mp2 train steps with the flash route counted), then
-    ``tp2_hold``'s checks against the unsharded step's losses; a rank
-    whose tokens part where tp=1's margin is wide is refused."""
-    import _torch_dist
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    counters = _PlainCounters(monkeypatch)
-    spec = _torch_dist.tp2_spec()
-    base = GPTForCausalLM(spec["cfg"],
-                          generator=torch.Generator().manual_seed(0))
-    ids = chip_smoke.train_ids(torch, spec["cfg"].vocab_size, "cpu")
-    default, _l, _ms = chip_smoke.run_steps(
-        torch, chip_smoke.make_step(copy.deepcopy(base), device="cpu"),
-        ids, counters, 3)
-    world = _torch_dist.World(2)
-    try:
-        outs = world.run("job_tp2_rank", default_losses=default)
-    finally:
-        world.close()
-    spec["default_losses"] = default
-    forwards = chip_smoke.TP2_PROMPTS + chip_smoke.TP2_NEW_TOKENS
-    line = chip_smoke.tp2_hold(outs, spec, forwards)
-    assert line["tokens_equal_tp1"] and line["heads_per_rank"] == 1
-    # the overlapped engines and train step ran their islands over gloo
-    assert line["overlap_tokens_equal_monolithic"] == {"per_layer": True,
-                                                       "scan": True}
-    for name in ("per_layer", "scan"):
-        assert line["overlap"][name]["ppermute_per_forward"] > 0
-    assert line["overlap_train_loss_diff"] < 1e-4
-    assert line["sharded_masters"] > 0
-    assert line["max_loss_diff"] < 1e-4
-    assert "uncaptured" in line["uncaptured"]
-    bad = [dict(o) for o in outs]
-    bad[0]["parted"] = [{"request": 0, "step": 3, "tokens": [1, 2],
-                         "tp1_top2_margin": 1.0}]
-    with pytest.raises(AssertionError, match="margin is wide"):
-        chip_smoke.tp2_hold(bad, spec, forwards)
-
-
-def test_zero_gloo_rehearsed_on_a_gloo_world(monkeypatch):
-    """chip_smoke.py's zero_gloo logic on a two-rank gloo CPU world at a
-    narrow width in f32: ``zero_rank`` on each rank (stages 1-3, two steps
-    each, the batch sharded over sdp, the flash route counted), then
-    ``zero_hold``'s checks against the unsharded step's losses (slots half
-    a rank's, stage 2-3 reduce-scattering, stage 3's masters half); a
-    rank holding the full slots is refused.  The batch is (8, 128)."""
-    import _torch_dist
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    monkeypatch.setattr(chip_smoke, "train_ids", _torch_dist.short_ids)
-    counters = _PlainCounters(monkeypatch)
-    spec = dict(_torch_dist.tp2_spec(), steps=2)
-    base = GPTForCausalLM(spec["cfg"],
-                          generator=torch.Generator().manual_seed(0))
-    ids = chip_smoke.train_ids(torch, spec["cfg"].vocab_size, "cpu")
-    default, _l, _ms = chip_smoke.run_steps(
-        torch, chip_smoke.make_step(copy.deepcopy(base), device="cpu"),
-        ids, counters, 2)
-    world = _torch_dist.World(2)
-    try:
-        outs = world.run("job_zero_rank")
-    finally:
-        world.close()
-    line = chip_smoke.zero_hold(outs, spec, default)
-    for stage in (1, 2, 3):
-        assert line["stages"][stage]["max_loss_diff"] < 1e-4
-        assert line["stages"][stage]["sliced_masters"] > 0
-    bad = [dict(o, stages=dict(o["stages"])) for o in outs]
-    bad[0]["stages"][2] = dict(bad[0]["stages"][2],
-                               slots_bytes=outs[0]["full_slots_bytes"])
-    with pytest.raises(AssertionError, match="stage 2 slots"):
-        chip_smoke.zero_hold(bad, spec, default)
-
-
 def test_pipeline_and_tp_front_phases_rehearsed_on_the_cpu(monkeypatch):
     """chip_smoke.py's serve_http_tp2, pp_single and pp2_gloo at tp2_spec's
     narrow width on the CPU (the flash route through its plain versions,

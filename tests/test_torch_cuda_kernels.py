@@ -802,6 +802,120 @@ def test_split_bf16_kernels_match_plain(d, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_split_dq_adds_into_an_f32_accumulator(d, dtype):
+    """C2's accumulating mode (``dq_acc``, ring attention's dq over its
+    K/V blocks): into zeros it holds the unrounded f32 dq, which rounds to
+    the bf16 / fp16 C2's dq bit for bit and holds the plain version's f32
+    dq at the dtype's bar (both round dS to the dtype, where an ulp of
+    P's f32 arithmetic can flip it); into a nonzero accumulator it adds
+    exactly that (the kernel rounds its product before the add, no fused
+    multiply-add), the same bits every run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shape = (1, 256, 4, d)
+    for causal in (False, True):
+        q, k, v, do, out, lse, delta = _split_case(shape, 46, causal, dtype)
+        scale = d ** -0.5
+        dq = fac._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        before = fac.flash_bwd_dq_launches
+        acc = torch.zeros(shape, dtype=torch.float32, device="cuda")
+        got = fac._launch_bwd_dq(q, k, v, do, lse, delta, causal, scale,
+                                 dq_acc=acc)
+        torch.cuda.synchronize()
+        assert got is acc and fac.flash_bwd_dq_launches == before + 1
+        assert torch.equal(acc.to(dtype), dq)
+        ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal, scale,
+                                       f32=True)[0]
+        _close(acc, ref, dtype, "dq_acc d=%d causal=%s" % (d, causal))
+        start = torch.from_numpy(_qkv(shape, seed=47)[0]).to("cuda")
+        runs = []
+        for _ in range(2):
+            acc2 = start.clone()
+            fac.flash_attention_bwd(q, k, v, out, lse, do, causal, scale,
+                                    route="split", dq_acc=acc2)
+            runs.append(acc2)
+        assert torch.equal(runs[0], start + acc)
+        assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_split_dkv_adds_into_f32_accumulators(d, dtype):
+    """C3's accumulating mode (``dkv_acc``, ring attention's dK/dV over its
+    Q blocks): into zeros it holds the unrounded f32 dk and dv, which
+    round to the bf16 / fp16 C3's bit for bit and hold the plain
+    version's f32 ones at the dtype's bar; into a nonzero accumulator it
+    adds exactly that, the same bits every run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shape = (1, 256, 4, d)
+    for causal in (False, True):
+        q, k, v, do, out, lse, delta = _split_case(shape, 48, causal, dtype)
+        scale = d ** -0.5
+        dk, dv = fac._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        before = fac.flash_bwd_dkv_launches
+        acc = torch.zeros((2,) + shape, dtype=torch.float32, device="cuda")
+        got = fac._launch_bwd_dkv(q, k, v, do, lse, delta, causal, scale,
+                                  dkv_acc=acc)
+        torch.cuda.synchronize()
+        assert fac.flash_bwd_dkv_launches == before + 1
+        assert got[0].data_ptr() == acc[0].data_ptr()
+        assert got[1].data_ptr() == acc[1].data_ptr()
+        assert torch.equal(acc[0].to(dtype), dk)
+        assert torch.equal(acc[1].to(dtype), dv)
+        ref = fac._flash_bwd_reference(q, k, v, out, lse, do, causal, scale,
+                                       f32=True)
+        for name, g, r in zip(("dk", "dv"), acc, ref[1:]):
+            _close(g, r, dtype, "dkv_acc %s d=%d causal=%s"
+                   % (name, d, causal))
+        start = torch.from_numpy(np.stack(_qkv(shape, seed=49)[:2])).to(
+            "cuda")
+        runs = []
+        for _ in range(2):
+            acc2 = start.clone()
+            fac.flash_attention_bwd(q, k, v, out, lse, do, causal, scale,
+                                    route="split", dkv_acc=acc2)
+            runs.append(acc2)
+        assert torch.equal(runs[0], start + acc)
+        assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tc_forwards_write_an_unrounded_f32_out(d, dtype):
+    """The 16-bit forwards (the tensor-core forward and A') with ``out``
+    in f32 (ring attention's blocks): it rounds to the 16-bit out bit
+    for bit, the lse is the same, and it holds the plain f32 attention
+    at f32's bar less the products' 16-bit operands."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    shape = (1, 256, 2, d)
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype)
+               for a in _qkv(shape, seed=50))
+    scale = d ** -0.5
+    for causal in (False, True):
+        for launch, blocks in ((fac._launch_tc, fac._TC_FWD_BLOCKS[d][0]),
+                               (fac._launch_pipelined, (64, 32))):
+            o16, l16 = launch(q, k, v, causal, scale, True, *blocks)
+            o32, l32 = launch(q, k, v, causal, scale, True, *blocks,
+                              out_f32=True)
+            torch.cuda.synchronize()
+            assert o32.dtype == torch.float32 and o32.shape == q.shape
+            assert torch.equal(o32.to(dtype), o16), (launch, causal)
+            assert torch.equal(l32, l16)
+            ref, _ = fac._flash_tc_reference(q, k, v, causal, scale,
+                                             *blocks, out_f32=True)
+            _close(o32, ref, dtype, "out_f32 d=%d causal=%s" % (d, causal))
+    wrapped, _ = fac.flash_attention_bshd_with_lse(q, k, v, causal=True,
+                                                    out_f32=True)
+    assert wrapped.dtype == torch.float32
+
+
+@pytest.mark.gpu
 def test_split_bf16_kernels_with_lse_cotangent():
     """The lse cotangent folds into delta; the split route in bf16 holds
     against the plain backward with it."""

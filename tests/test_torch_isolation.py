@@ -43,6 +43,10 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.distributed.pipeline, "
         "paddle_tpu_torch.distributed.fleet, "
         "paddle_tpu_torch.distributed.fleet.hybrid_optimizer, "
+        "paddle_tpu_torch.distributed.ring_attention, "
+        "paddle_tpu_torch.distributed.moe, "
+        "paddle_tpu_torch.distributed.utils, "
+        "paddle_tpu_torch.incubate.distributed.models.moe, "
         "paddle_tpu_torch.parallel, "
         "paddle_tpu_torch.nn.parallel, "
         "paddle_tpu_torch.robustness.retry, "
