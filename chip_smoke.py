@@ -291,9 +291,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               within 1e-5; the all-to-alls and each rank's peak
               allocation.
 
-``python3 chip_smoke.py --distributed`` runs the train phase and 11d-11l
-alone (the distributed phases without the kernel checks and serving
-phases), then prints the card and the device line.
+11m. pp2_sdp2_gloo — four processes on the one card over gloo: pp2_gloo's
+              model, data and optimizer (AMP O2 bf16, AdamW, 4
+              microbatches, ``use_pallas_norm``) through the fleet, 2 steps
+              on {"pp": 2, "dp": 2}, then on {"pp": 2, "sdp": 2} at ZeRO
+              stages 1 and 2 (``sharding_configs.stage``): every rank's
+              losses within PP_SDP_LOSS_REL (relative) of the dp run's,
+              a rank's optimizer-slot bytes about half the dp run's
+              (PP_SDP_SLOT_SHARE), stage 2 reduce-scattering its grads
+              and stage 1 not, each stage's launches; peak a rank.
+
+``python3 chip_smoke.py --distributed`` runs the train phase, 11d-11m,
+train_long and sep_train_gloo alone (the distributed phases without the
+kernel checks and serving phases), then prints the card and the device
+line.
 12. train_parity — one step at (1, 256) on the card (bf16, kernels, each
               LayerNorm route and each cross-entropy route; then f32,
               kernel A and C1) and on the CPU (f32, plain): the loss and
@@ -323,7 +334,19 @@ phases), then prints the card and the device line.
               winners', nothing is timed again, the first loss held.
 17. train_long — GPT-2 345M at (1, 16384), 3 steps (ms over steps 2-3)
               and the stream time of each part of one more step: the
-              tensor-core forward, C2 and C3 launch 24 times a step.
+              tensor-core forward, C2 and C3 launch 24 times a step; the
+              first step's gradients of a named set (the tied embedding,
+              the first and last block's qkv and fc2, ln_f) go to a file
+              for 17a.
+17a. sep_train_gloo — two processes on the one card over gloo, the mesh
+              {"sep": 2}: train_long's model, weights and batch, every rank
+              given the global (1, 16384) batch and running its 8192 rows,
+              the ring over 'sep' inside every block's attention (the
+              flash forward in its f32-out mode, C2 and C3 accumulating),
+              2 steps: both losses within SEP_LOSS_TOL of train_long's,
+              the first step's named gradients and their norm within
+              SEP_GRAD_REL_TOL (relative L2) of train_long's, rank r's
+              flash forward and C2 / C3 r + 1 times a layer and step.
 
 Every phase but 14-16 runs with tuning off, no pin and an empty cache
 of the run's own (a temporary file under ``paddle_tpu_torch/_build/``,
@@ -387,6 +410,11 @@ ULP_REL = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10, "float32": 1e-5}
 RMS_FRAC = {"bfloat16": 2.0 ** -6, "float16": 2.0 ** -6, "float32": 1e-4}
 FLASH_ULP_REL, FLASH_RMS_FRAC = ULP_REL["bfloat16"], RMS_FRAC["bfloat16"]
 LSE_TOL = 1e-3          # f32 lse
+# the plain versions' times are yardsticks of slow tile walks (thousands
+# of small launches a call, each traced call parsed by the profiler), so
+# they take fewer calls than the kernels': the median of 3 windows of 3
+# calls, and 3 calls traced
+PLAIN_REPS, PLAIN_INNER = 3, 3
 LN_TOL = 1e-2           # bf16 out: abs, plus one bf16 half-ulp of |ref|
 LOGIT_TOL = 0.1         # card bf16 vs CPU f32 last-position logits
 # LayerNorm backward: bf16 dx as the flash grads; f32 dgamma / dbeta are
@@ -725,7 +753,7 @@ def check_fwd_case(torch, fac, tF, b, s, h, d, causal, dtype, gen,
                                                      spec[1], spec[2]))
                     if tc else
                     (lambda: fac._flash_reference(q, k, v, causal, scale)),
-                    None, reps, inner)
+                    None, PLAIN_REPS, PLAIN_INNER)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     time_kernel(torch, row, "library",
                 lambda: tF.scaled_dot_product_attention(qt, kt, vt,
@@ -1416,8 +1444,8 @@ def check_pipelined(torch, fac, at, lib, cases=None):
             if time_plain:
                 time_kernel(torch, row, "plain",
                             lambda: fac._flash_tc_reference(
-                                q, k, v, causal, scale, bq, bk), None, reps,
-                            inner)
+                                q, k, v, causal, scale, bq, bk), None,
+                            min(reps, PLAIN_REPS), min(inner, PLAIN_INNER))
             row.update(shape_row)
             fwd_bounds(row, b, s, h, d, causal, dtype)
             rows.append(row)
@@ -2618,12 +2646,13 @@ def tp2_rank(torch, spec, counters, device="cuda"):
     return out
 
 
-def gloo_rank_main(rank, port, job, spec, results):
-    """The entry point of a process of a two-rank phase: a gloo world of
-    two on the one card, then the function ``job`` of this module
+def gloo_rank_main(rank, port, job, spec, results, ranks=2):
+    """The entry point of a process of a multi-process phase: a gloo world
+    of ``ranks`` on the one card, then the function ``job`` of this module
     (:func:`tp2_rank`, :func:`zero_rank`, :func:`serve_tp2_rank`,
-    :func:`pp2_rank`, :func:`ring_rank`, :func:`moe_rank`); the result
-    (or the traceback) goes to ``results``."""
+    :func:`pp2_rank`, :func:`ring_rank`, :func:`moe_rank`,
+    :func:`pp2_sdp2_rank`, :func:`sep_train_rank`); the result (or the
+    traceback) goes to ``results``."""
     import datetime
     import traceback
     try:
@@ -2638,7 +2667,7 @@ def gloo_rank_main(rank, port, job, spec, results):
         _build.library()
         dist.init_process_group(
             "gloo", init_method="tcp://127.0.0.1:%d" % port, rank=rank,
-            world_size=2, timeout=datetime.timedelta(seconds=300))
+            world_size=ranks, timeout=datetime.timedelta(seconds=300))
         D.init_parallel_env(backend="gloo", device="cuda")
         out = globals()[job](torch, spec, Counters(fac, norm_cuda, ce_cuda))
         dist.destroy_process_group()
@@ -2766,35 +2795,102 @@ def tp2_gloo(torch, cfg, default_losses, steps=3, timeout=600.0):
             "prompts": [rng.integers(0, cfg.vocab_size, 64).tolist()
                         for _ in range(TP2_PROMPTS)]}
     t0 = time.perf_counter()
-    outs = gloo_pair("tp2_rank", spec, timeout)
+    outs = gloo_world("tp2_rank", spec, timeout)
     # a prefill chunk a prompt, then one decode step a new token
     line = tp2_hold(outs, spec, TP2_PROMPTS + TP2_NEW_TOKENS)
     line["seconds"] = time.perf_counter() - t0
     return line
 
 
-def gloo_pair(job, spec, timeout):
-    """Run ``job`` (:func:`gloo_rank_main`) in two processes on the one
-    card, a gloo world over CUDA tensors; the ranks' results in rank
-    order, or AssertionError with a failed rank's traceback.  Every
-    process is joined, or killed, before the call returns."""
-    import socket
+#: processes started ahead of the multi-process phases, each with torch
+#: imported, the card's context made and the kernel library loaded, each
+#: waiting for the one job :func:`gloo_world` sends it: [(process, pipe)]
+WARM = []
+#: the queue every process of WARM reports its result to (one, made with
+#: the first)
+WARM_RESULTS = []
+#: the most ranks a phase takes (pp2_sdp2_gloo's)
+WARM_RANKS = 4
 
+
+def gloo_warm_main(conn, results):
+    """A process of :data:`WARM`: make ready what every rank needs, then
+    run the job :func:`gloo_world` sends (``(rank, port, job, spec,
+    ranks)`` for :func:`gloo_rank_main`; None: exit)."""
+    import traceback
+    failed = None
+    try:
+        import torch
+
+        from paddle_tpu_torch import distributed  # noqa: F401
+        from paddle_tpu_torch.kernels import _build
+        torch.cuda.set_device(0)
+        torch.cuda.init()
+        _build.library()
+    except BaseException:
+        failed = traceback.format_exc()
+    try:
+        msg = conn.recv()
+    except EOFError:            # the parent is gone
+        return
+    if msg is None:
+        return
+    rank, port, job, spec, ranks = msg
+    if failed is not None:
+        results.put((rank, "error", failed))
+        return
+    gloo_rank_main(rank, port, job, spec, results, ranks)
+
+
+def warm_fill(n=WARM_RANKS):
+    """Start processes until ``n`` wait in :data:`WARM`."""
     import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    if not WARM_RESULTS:
+        WARM_RESULTS.append(ctx.Queue())
+    while len(WARM) < n:
+        here, there = ctx.Pipe()
+        p = ctx.Process(target=gloo_warm_main, args=(there, WARM_RESULTS[0]))
+        p.start()
+        WARM.append((p, here))
+
+
+def warm_stop():
+    """Send every process still waiting in :data:`WARM` away; each is
+    joined, or killed."""
+    while WARM:
+        p, conn = WARM.pop()
+        try:
+            conn.send(None)
+        except OSError:
+            pass
+        p.join(60)
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+
+
+def gloo_world(job, spec, timeout, ranks=2):
+    """Run ``job`` (:func:`gloo_rank_main`) in ``ranks`` processes on the
+    one card, a gloo world over CUDA tensors; the ranks' results in rank
+    order, or AssertionError with a failed rank's traceback.  The ranks
+    are taken from :data:`WARM`, which is then filled again, so that the
+    next phase's processes get ready while this one runs.  Every process
+    of the world is joined, or killed, before the call returns."""
+    import socket
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=gloo_rank_main,
-                         args=(r, port, job, spec, results))
-             for r in range(2)]
-    for p in procs:
-        p.start()
+    warm_fill(ranks)
+    taken, WARM[:ranks] = WARM[:ranks], []
+    procs = [p for p, _ in taken]
+    for rank, (_, conn) in enumerate(taken):
+        conn.send((rank, port, job, spec, ranks))
+    warm_fill()
     outs, errors = {}, []
     try:
         for _ in procs:
-            rank, status, value = results.get(timeout=timeout)
+            rank, status, value = WARM_RESULTS[0].get(timeout=timeout)
             if status == "ok":
                 outs[rank] = value
             else:
@@ -2809,7 +2905,7 @@ def gloo_pair(job, spec, timeout):
         raise AssertionError("%s failed:\n%s" % (job, "\n".join(errors)))
     for rank, p in enumerate(procs):
         outs[rank]["exitcode"] = p.exitcode
-    return [outs[0], outs[1]]
+    return [outs[r] for r in range(ranks)]
 
 
 def zero_rank(torch, spec, counters, device="cuda"):
@@ -2940,7 +3036,7 @@ def zero_gloo(torch, cfg, default_losses, steps=2, timeout=600.0):
     the phase's times are not a ZeRO speed."""
     spec = {"cfg": cfg, "seed": 0, "amp": True, "steps": steps}
     t0 = time.perf_counter()
-    line = zero_hold(gloo_pair("zero_rank", spec, timeout), spec,
+    line = zero_hold(gloo_world("zero_rank", spec, timeout), spec,
                      default_losses)
     line["seconds"] = time.perf_counter() - t0
     return line
@@ -3157,7 +3253,7 @@ def serve_http_tp2(torch, cfg, timeout=600.0):
                 cut=rng.integers(0, cfg.vocab_size, 64).tolist(),
                 sampled=rng.integers(0, cfg.vocab_size, 64).tolist())
     t0 = time.perf_counter()
-    line = serve_tp2_hold(gloo_pair("serve_tp2_rank", spec, timeout), spec)
+    line = serve_tp2_hold(gloo_world("serve_tp2_rank", spec, timeout), spec)
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -3502,7 +3598,176 @@ def pp2_gloo(torch, cfg, single, timeout=900.0):
     (pp_single's line; :func:`pp2_hold`)."""
     spec = {"cfg": cfg, "seed": 0, "steps": single["steps"]}
     t0 = time.perf_counter()
-    line = pp2_hold(gloo_pair("pp2_rank", spec, timeout), spec, single)
+    line = pp2_hold(gloo_world("pp2_rank", spec, timeout), spec, single)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# pp2_sdp2_gloo: ZeRO over 'sdp' inside the 1F1B pipeline against the same
+# program on {"pp": 2, "dp": 2}, which deals each data index the same rows:
+# identical math without ZeRO (a sum of two grads either way, the update
+# elementwise on slices), so the losses agree to f32 rounding
+PP_SDP_LOSS_REL = 1e-5
+# a rank's optimizer-slot bytes over the dp run's: each slot cut in two
+# but the few a rank keeps whole (under 4096 elements on the stacked
+# (stages, blocks, ...) shape: none at 345M's widths)
+PP_SDP_SLOT_SHARE = (0.45, 0.55)
+PP_SDP_STEPS = 2
+
+
+def pp2_sdp2_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``pp2_sdp2_gloo`` in a world of four that is up
+    (``spec``: "cfg", "seed", "steps", "stages"): the fleet's 1F1B run of
+    pp_single's model, data and optimizer under ``use_pallas_norm``, from
+    the same weights, first on {"pp": 2, "dp": 2}, then on {"pp": 2,
+    "sdp": 2} at each ZeRO stage of ``spec["stages"]``
+    (``sharding_configs.stage``).  For each run: the losses, the rank's
+    optimizer-slot bytes, the gradient elements the optimizer took at the
+    first step, the collectives a step, the launches, peak allocation.
+    Returns host values."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils import flags
+    cfg, steps = spec["cfg"], spec["steps"]
+    base = GPTForCausalLM(cfg, generator=torch.Generator()
+                          .manual_seed(spec["seed"]))
+    ids = train_ids(torch, cfg.vocab_size, device)
+    runs = [("dp", {"pp_degree": 2, "dp_degree": 2}, 1)] + [
+        ("sdp_stage%d" % st, {"pp_degree": 2, "sharding_degree": 2}, st)
+        for st in spec["stages"]]
+    out = {}
+    flags.set_flags({"use_pallas_norm": True})
+    try:
+        for name, hybrid, stage in runs:
+            strategy = fleet.DistributedStrategy()
+            strategy.hybrid_configs = hybrid
+            strategy.pipeline_configs = {"accumulate_steps": PP_ACC}
+            strategy.sharding_configs = {"stage": stage}
+            fleet.init(is_collective=True, strategy=strategy)
+            pl = gpt_pipeline(torch, base, 2, device)
+            model = fleet.distributed_model(pl)
+            opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                        parameters=model.parameters())
+            seen = []
+            apply = opt.apply_gradients
+
+            def keep(params, grads, *a, **kw):
+                if not seen:
+                    seen.append(sum(g.numel() for g in grads.values()))
+                return apply(params, grads, *a, **kw)
+            opt.apply_gradients = keep
+            if device != "cpu":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            C.reset_counts()
+            counters.reset()
+            t0 = time.perf_counter()
+            losses = [float(model.train_batch((ids, ids), opt))
+                      for _ in range(steps)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            comp = model._compiled
+            out[name] = {
+                "stage": comp._stage, "zero_stage": stage,
+                "losses": losses, "launches": counters.read(),
+                "slot_bytes": slots_bytes(comp.opt_state),
+                "first_grad_elements": seen[0],
+                "collectives_per_step": {k: v / steps for k, v in
+                                         C.issued().items()},
+                "step_host_ms_over_gloo": wall * 1e3 / steps,
+                "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                         if device != "cpu" else None)}
+            del model, pl, opt, comp
+    finally:
+        flags.set_flags({"use_pallas_norm": False})
+    return out
+
+
+def pp2_sdp2_hold(outs, spec):
+    """pp2_sdp2_gloo's checks over the four ranks' results: every rank's
+    losses of each ZeRO run within PP_SDP_LOSS_REL (relative) of the dp
+    run's; a rank's slot bytes within PP_SDP_SLOT_SHARE of the dp run's;
+    stage 2 reduce-scattering its grads (slices reach the optimizer) and
+    stage 1 not; each stage's launches (pp_launches_due).  Returns the
+    line."""
+    layers = spec["cfg"].num_hidden_layers
+    steps = spec["steps"]
+    runs = ["sdp_stage%d" % st for st in spec["stages"]]
+    line = {"phase": "pp2_sdp2_gloo", "backend": "gloo", "device": "cuda",
+            "ranks": 4, "mesh": {"pp": 2, "sdp": 2},
+            "reference_mesh": {"pp": 2, "dp": 2},
+            "layers": layers, "blocks_per_stage": layers // 2,
+            "microbatches": PP_ACC, "steps": steps,
+            "dp_losses": [o["dp"]["losses"] for o in outs],
+            "dp_step_host_ms_over_gloo": [o["dp"]["step_host_ms_over_gloo"]
+                                          for o in outs],
+            "dp_max_memory_allocated": [o["dp"]["max_memory_allocated"]
+                                        for o in outs],
+            "loss_rel_tol": PP_SDP_LOSS_REL,
+            "slot_share_bounds": list(PP_SDP_SLOT_SHARE),
+            "speed": "not a ZeRO or pipeline speed: gloo stages every "
+                     "collective through the host, and four ranks share "
+                     "one card"}
+    bad = []
+    for name in runs:
+        run = [o[name] for o in outs]
+        rel = max(abs(a - b) / abs(b) for o, r in zip(outs, run)
+                  for a, b in zip(r["losses"], o["dp"]["losses"]))
+        share = [r["slot_bytes"] / o["dp"]["slot_bytes"]
+                 for o, r in zip(outs, run)]
+        rs = [r["collectives_per_step"].get("reduce_scatter", 0)
+              for r in run]
+        line[name] = {
+            "losses": [r["losses"] for r in run], "max_loss_rel": rel,
+            "slot_bytes": [r["slot_bytes"] for r in run],
+            "dp_slot_bytes": [o["dp"]["slot_bytes"] for o in outs],
+            "slot_share": share,
+            "first_grad_elements": [r["first_grad_elements"] for r in run],
+            "dp_first_grad_elements": [o["dp"]["first_grad_elements"]
+                                       for o in outs],
+            "collectives_per_step": [r["collectives_per_step"]
+                                     for r in run],
+            "step_host_ms_over_gloo": [r["step_host_ms_over_gloo"]
+                                       for r in run],
+            "max_memory_allocated": [r["max_memory_allocated"]
+                                     for r in run],
+            "launches": [r["launches"] for r in run]}
+        if not (all(math.isfinite(x) for r in run for x in r["losses"])
+                and rel <= PP_SDP_LOSS_REL):
+            bad.append("%s: losses %r against the dp run's %r"
+                       % (name, line[name]["losses"], line["dp_losses"]))
+        if not all(PP_SDP_SLOT_SHARE[0] <= x <= PP_SDP_SLOT_SHARE[1]
+                   for x in share):
+            bad.append("%s: slot bytes %r of the dp run's" % (name, share))
+        stage = run[0]["zero_stage"]
+        if any((x > 0) != (stage >= 2) for x in rs):
+            bad.append("%s: reduce-scatters a step %r at stage %d"
+                       % (name, rs, stage))
+        for r in run:
+            try:
+                expect_launches(r["launches"], pp_launches_due(
+                    layers // 2, r["stage"] == 1, steps,
+                    spec.get("device", "cuda")),
+                    "pp2_sdp2_gloo %s stage %d" % (name, r["stage"]))
+            except AssertionError as e:
+                bad.append(str(e))
+    emit(line)
+    if bad:
+        raise AssertionError("pp2_sdp2_gloo: " + "; ".join(bad))
+    return line
+
+
+def pp2_sdp2_gloo(torch, cfg, timeout=900.0):
+    """Four processes on the one card, a gloo world over CUDA tensors: the
+    1F1B pipeline at pp=2 with ZeRO stages 1 and 2 over sdp=2 against
+    the same program on {"pp": 2, "dp": 2} (:func:`pp2_sdp2_hold`)."""
+    spec = {"cfg": cfg, "seed": 0, "steps": PP_SDP_STEPS, "stages": (1, 2)}
+    t0 = time.perf_counter()
+    line = pp2_sdp2_hold(gloo_world("pp2_sdp2_rank", spec, timeout,
+                                    ranks=4), spec)
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -3843,7 +4108,7 @@ def ring_gloo(torch, timeout=600.0, spec=None):
     t0 = time.perf_counter()
     acc = ring_accumulators(torch, spec)
     torch.cuda.empty_cache()
-    line = ring_hold(gloo_pair("ring_rank", spec, timeout), spec, acc)
+    line = ring_hold(gloo_world("ring_rank", spec, timeout), spec, acc)
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -4097,7 +4362,7 @@ def moe_gloo(torch, timeout=600.0, spec=None):
     through the host: no time here is an expert-parallel speed."""
     spec = spec or MOE_SPEC
     t0 = time.perf_counter()
-    line = moe_hold(gloo_pair("moe_rank", spec, timeout), spec)
+    line = moe_hold(gloo_world("moe_rank", spec, timeout), spec)
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -4244,24 +4509,64 @@ def train_autotune(torch, base, amp, counters, flags, at, fac, first_loss,
     return line
 
 
-def train_long(torch, cfg, amp, counters, flags, steps=3):
+LONG_S = 16384
+
+
+def long_step(torch, cfg, amp, device="cuda", s=LONG_S):
+    """train_long's step and ids: GPT-2 345M (``cfg``) with
+    max_position_embeddings ``s`` from seed 1, AMP O2 bf16, AdamW, and a
+    seeded (1, ``s``) batch."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    lcfg = dataclasses.replace(cfg, max_position_embeddings=s)
+    base = GPTForCausalLM(lcfg, generator=torch.Generator().manual_seed(1))
+    step = make_step(train_model(torch, base, amp, device), device=device)
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, s)), device=device)
+    return step, ids
+
+
+def sep_grad_names(layers):
+    """The parameters whose first-step gradients sep_train_gloo holds:
+    the tied embedding, the first and last block's qkv and fc2, ln_f."""
+    return ["gpt.wte.weight", "gpt.ln_f.weight"] + [
+        "gpt.h.%d.%s.weight" % (i, m) for i in (0, layers - 1)
+        for m in ("attn.qkv_proj", "mlp.fc2")]
+
+
+def record_grads(step, names):
+    """A dict that the step's first optimizer call fills with the f32
+    gradients of ``names``, copied to the host (so that they take no
+    card memory from a step whose peak is read)."""
+    seen = {}
+    apply = step.optimizer.apply_gradients
+
+    def keep(params, grads, *a, **kw):
+        if not seen:
+            seen.update({n: grads[n].detach().to("cpu", copy=True).float()
+                         for n in names})
+        return apply(params, grads, *a, **kw)
+    step.optimizer.apply_gradients = keep
+    return seen
+
+
+def train_long(torch, cfg, amp, counters, flags, steps=3, grads_to=None):
     """The long-context shape of the JAX package's long-sequence run:
     GPT-2 345M at full width, max_position_embeddings 16384, B=1,
     S=16384: the tensor-core forward, C2 and C3 on every layer, kernel A
     and C1 never.  ``steps``
     steps (ms over all but the first), then one more step timed part by
-    part on the stream."""
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    part on the stream.  ``grads_to``: a file that takes the first step's
+    gradients of :func:`sep_grad_names` (sep_train_gloo's reference)."""
     flags.set_flags({"use_pallas_norm": False})
-    s = 16384
-    lcfg = dataclasses.replace(cfg, max_position_embeddings=s)
-    base = GPTForCausalLM(lcfg, generator=torch.Generator().manual_seed(1))
-    step = make_step(train_model(torch, base, amp))
-    del base
-    ids = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (1, s)), device="cuda")
+    s = LONG_S
+    step, ids = long_step(torch, cfg, amp)
+    seen = record_grads(step, sep_grad_names(cfg.num_hidden_layers))
     torch.cuda.reset_peak_memory_stats()
     losses, launches, ms = run_steps(torch, step, ids, counters, steps)
+    del step.optimizer.apply_gradients        # record_grads' wrapper
+    if grads_to is not None:
+        torch.save(dict(seen), grads_to)
+    seen.clear()
     line = {"phase": "train_long", "shape": [1, s], "steps": steps,
             "step_ms": ms, "tokens_per_s": s * 1e3 / ms,
             "losses": losses, "launches": launches,
@@ -4276,6 +4581,149 @@ def train_long(torch, cfg, amp, counters, flags, steps=3):
                                "flash_bwd": 0}, "train_long")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError("train_long: non-finite loss %r" % (losses,))
+    return line
+
+
+# sep_train_gloo: train_long's step on {"sep": 2}, two processes over
+# gloo, 8192 rows a rank.  Both runs are bf16 with the flash kernels; the
+# ring's out, dq, dk and dv stay within the flash rule of one full call
+# (a bf16 ulp of each element, ring_gloo), the gradient shares are
+# rounded to bf16 a rank and summed in f32; through 24 bf16 layers that
+# stays inside train_parity's bars for bf16 kernels against the f32 CPU
+# (measured there at 0.019 relative L2, limit 0.03; loss 0.02), so the
+# same relative-L2 bar holds here, and the losses train_long's within
+# 0.01, the bar train_norm and train_ce hold two routes of one step to.
+# A mean over 'sep' where a sum is due would be 0.5 relative off.
+SEP_GRAD_REL_TOL = PARITY_GRAD_REL_TOL
+SEP_LOSS_TOL = 0.01
+SEP_STEPS = 2
+
+
+def sep_train_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``sep_train_gloo`` in a world of two that is up,
+    on the mesh {"sep": 2}: train_long's model, weights and ids
+    (:func:`long_step` at ``spec["cfg"]``, ``spec["s"]`` rows), each rank
+    given the global batch and running its S / 2 rows, the ring inside
+    every block's attention; ``spec["steps"]`` steps with the launch
+    counts set to 0 just before and read just after.  The first step's
+    gradients of :func:`sep_grad_names` (summed over 'sep') against the
+    one-rank run's (``spec["ref_grads"]``, a file) as sums the hold
+    turns into relative L2 errors: |g|^2, g . ref and |ref|^2 (f64).
+    Returns host values."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.utils import flags
+    D.init_mesh({"sep": 2})
+    g = D.get_mesh().group("sep")
+    flags.set_flags({"use_pallas_norm": False})
+    step, ids = long_step(torch, spec["cfg"], amp, device, spec["s"])
+    names = sep_grad_names(spec["cfg"].num_hidden_layers)
+    seen = record_grads(step, names)
+    if device != "cpu":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    C.reset_counts()
+    losses, launches, ms = run_steps(torch, step, ids, counters,
+                                     spec["steps"])
+    issued = C.issued()
+    ref = torch.load(spec["ref_grads"])
+    sums = {}
+    for n in names:
+        a = seen[n].double()
+        b = ref[n].double()
+        sums[n] = [float((a * a).sum()), float((a * b).sum()),
+                   float((b * b).sum())]
+    return {"rank": g.rank, "rows": [g.rank * spec["s"] // 2,
+                                     (g.rank + 1) * spec["s"] // 2],
+            "losses": losses, "launches": launches,
+            "collectives_per_step": {k: v / spec["steps"]
+                                     for k, v in issued.items()},
+            "grad_sums": sums, "step_host_ms_over_gloo": ms,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if device != "cpu" else None)}
+
+
+def grad_rel_l2(sums):
+    """|g - ref| / |ref| from (|g|^2, g . ref, |ref|^2)."""
+    gg, gr, rr = sums
+    return math.sqrt(max(gg - 2.0 * gr + rr, 0.0) / rr)
+
+
+def sep_train_hold(outs, spec):
+    """sep_train_gloo's checks over both ranks' results: the same losses
+    on both ranks, each within SEP_LOSS_TOL of train_long's
+    (``spec["ref_losses"]``); on each rank the first step's gradients of
+    every named parameter and their global norm within SEP_GRAD_REL_TOL
+    (relative L2)
+    of train_long's; rank r's ring r + 1 flash forwards and C2 / C3
+    pairs a layer and step (the causal ring skips future shards), never
+    kernel A, A' or C1.  Returns the line."""
+    layers = spec["cfg"].num_hidden_layers
+    steps = spec["steps"]
+    r0 = outs[0]
+    rels = [{n: grad_rel_l2(v) for n, v in o["grad_sums"].items()}
+            for o in outs]
+    norms = [math.sqrt(sum(v[0] for v in o["grad_sums"].values()))
+             for o in outs]
+    ref_norm = math.sqrt(sum(v[2] for v in r0["grad_sums"].values()))
+    line = {"phase": "sep_train_gloo", "backend": "gloo", "device": "cuda",
+            "ranks": 2, "mesh": {"sep": 2}, "shape": [1, spec["s"]],
+            "rows_per_rank": spec["s"] // 2, "layers": layers,
+            "steps": steps, "losses": [o["losses"] for o in outs],
+            "ref_losses": spec["ref_losses"][:steps],
+            "loss_tol": SEP_LOSS_TOL,
+            "max_loss_diff": max(abs(a - b) for o in outs for a, b in zip(
+                o["losses"], spec["ref_losses"])),
+            "grad_rel_l2": rels, "grad_norm": norms,
+            "ref_grad_norm": ref_norm,
+            "grad_norm_rel": max(abs(n - ref_norm) / ref_norm
+                                 for n in norms),
+            "grad_rel_tol": SEP_GRAD_REL_TOL,
+            "launches": [o["launches"] for o in outs],
+            "collectives_per_step": [o["collectives_per_step"]
+                                     for o in outs],
+            "step_host_ms_over_gloo": [o["step_host_ms_over_gloo"]
+                                       for o in outs],
+            "max_memory_allocated": [o["max_memory_allocated"]
+                                     for o in outs],
+            "speed": "not a sequence-parallel speed: gloo stages every "
+                     "permute and all-reduce through the host"}
+    emit(line)
+    if outs[0]["losses"] != outs[1]["losses"] or not (
+            all(math.isfinite(x) for x in r0["losses"])
+            and line["max_loss_diff"] <= SEP_LOSS_TOL):
+        raise AssertionError("sep_train_gloo: losses %r against "
+                             "train_long's %r" % (line["losses"],
+                                                  line["ref_losses"]))
+    err, worst, rank = max((rel[n], n, r) for r, rel in enumerate(rels)
+                           for n in rel)
+    if not (err <= SEP_GRAD_REL_TOL
+            and line["grad_norm_rel"] <= SEP_GRAD_REL_TOL):
+        raise AssertionError("sep_train_gloo: gradients %s %g on rank %d "
+                             "and the norm %g (relative L2) from "
+                             "train_long's" % (worst, err, rank,
+                                               line["grad_norm_rel"]))
+    for o in outs:
+        r = o["rank"]
+        due = layers * (r + 1) * steps
+        expect_launches(o["launches"], {
+            "flash_fwd_tc": due, "flash_bwd_dq": due, "flash_bwd_dkv": due,
+            "flash_fwd": 0, "flash_fwd_pipelined": 0, "flash_bwd": 0},
+            "sep_train_gloo rank %d" % r)
+    return line
+
+
+def sep_train_gloo(torch, cfg, run_long, ref_grads, timeout=900.0):
+    """Two processes on the one card, a gloo world over CUDA tensors, the
+    mesh {"sep": 2}: train_long's step with the GPT's sequence sharding,
+    held to train_long's losses and first-step gradients (``ref_grads``,
+    the file train_long wrote; :func:`sep_train_hold`)."""
+    spec = {"cfg": cfg, "s": LONG_S, "steps": SEP_STEPS,
+            "ref_losses": run_long["losses"], "ref_grads": ref_grads}
+    t0 = time.perf_counter()
+    line = sep_train_hold(gloo_world("sep_train_rank", spec, timeout), spec)
+    line["seconds"] = time.perf_counter() - t0
     return line
 
 
@@ -6305,10 +6753,11 @@ def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
                 seconds):
     """The distributed phases, timed into ``seconds``: dist_nccl and
     train_dp on an NCCL world of one, then the two-process gloo phases
-    tp2_gloo, zero_gloo and serve_http_tp2, pp_single on one rank, and
-    the two-process pp2_gloo, ring_gloo and moe_gloo.  Returns their lines
-    (train_dp, tp2_gloo, zero_gloo, serve_http_tp2, pp_single, pp2_gloo,
-    ring_gloo, moe_gloo)."""
+    tp2_gloo, zero_gloo and serve_http_tp2, pp_single on one rank, the
+    two-process pp2_gloo, the four-process pp2_sdp2_gloo, and the
+    two-process ring_gloo and moe_gloo.  Returns their lines (train_dp,
+    tp2_gloo, zero_gloo, serve_http_tp2, pp_single, pp2_gloo with
+    pp2_sdp2_gloo's under "sdp2", ring_gloo, moe_gloo)."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.distributed import mesh as dist_mesh
@@ -6339,6 +6788,10 @@ def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
     t0 = time.perf_counter()
     run_pp2 = pp2_gloo(torch, train_cfg, run_pp)
     seconds["pp2_gloo"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_pp2["sdp2"] = pp2_sdp2_gloo(torch, train_cfg)
+    seconds["pp2_sdp2_gloo"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     run_ring = ring_gloo(torch)
@@ -6380,9 +6833,30 @@ def distributed_only(torch, kind, amp, flags, counters):
     seconds["train"] = time.perf_counter() - t0
     distributed(torch, base, train_cfg, amp, flags, counters, run_train,
                 seconds)
+    del base
+    long_and_sep(torch, train_cfg, amp, counters, flags, seconds)
     emit({"phase": "seconds", **seconds})
     device_line(torch, kind)
     return 0
+
+
+def long_and_sep(torch, train_cfg, amp, counters, flags, seconds):
+    """train_long, which writes its first step's gradients to a file of
+    the build directory, then sep_train_gloo against it; timed into
+    ``seconds``.  Returns (train_long's line, sep_train_gloo's)."""
+    from paddle_tpu_torch.kernels import _build
+    with tempfile.TemporaryDirectory(prefix="sep-",
+                                     dir=_build.BUILD_DIR) as tmp:
+        ref_grads = os.path.join(tmp, "train_long_grads.pt")
+        t0 = time.perf_counter()
+        run_long = train_long(torch, train_cfg, amp, counters, flags,
+                              grads_to=ref_grads)
+        torch.cuda.empty_cache()
+        seconds["train_long"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_sep = sep_train_gloo(torch, train_cfg, run_long, ref_grads)
+        seconds["sep_train_gloo"] = time.perf_counter() - t0
+    return run_long, run_sep
 
 
 def main():
@@ -6796,10 +7270,8 @@ def main():
     del base
     torch.cuda.empty_cache()
     seconds["train_autotune"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    run_long = train_long(torch, train_cfg, amp, counters, flags)
-    torch.cuda.empty_cache()
-    seconds["train_long"] = time.perf_counter() - t0
+    run_long, run_sep = long_and_sep(torch, train_cfg, amp, counters, flags,
+                                     seconds)
     emit({"phase": "seconds", **seconds})
 
     tc_prefill = fwd_row(flash_rows, "flash_fwd_tc", [1, 128, 16, 64])
@@ -6846,6 +7318,14 @@ def main():
         out["pp_single"] = run_pp["launches"][kern]
         out.update({"pp2_gloo_stage%d" % st: run_pp2["launches"][st][kern]
                     for st in (0, 1)})
+        # ZeRO x pipeline: each ZeRO stage's run, a rank of each pp stage
+        # (ranks 0 and 2 of {"pp": 2, "sdp": 2})
+        out.update({"pp2_sdp2_gloo_%s_rank%d" % (run, r):
+                    run_pp2["sdp2"][run]["launches"][r][kern]
+                    for run in ("sdp_stage1", "sdp_stage2") for r in (0, 2)})
+        # the GPT's sequence sharding: the causal ring inside each block
+        out.update({"sep_train_gloo_rank%d" % r:
+                    run_sep["launches"][r][kern] for r in (0, 1)})
         out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
                     for r in run_rc})
         # the sequence-parallel paths: the causal ring at two ranks (rank
@@ -7133,7 +7613,10 @@ def main():
                 for r in (0, 1)},
              "pp_single": run_pp["launches"]["layer_norm_fwd"],
              **{"pp2_gloo_stage%d" % st:
-                run_pp2["launches"][st]["layer_norm_fwd"] for st in (0, 1)}},
+                run_pp2["launches"][st]["layer_norm_fwd"] for st in (0, 1)},
+             **{"pp2_sdp2_gloo_%s_rank%d" % (run, r):
+                run_pp2["sdp2"][run]["launches"][r]["layer_norm_fwd"]
+                for run in ("sdp_stage1", "sdp_stage2") for r in (0, 2)}},
          "max_abs_err": max(ln_err, ln16_err), "ms": decode_row["kernel_ms"],
          "device_ms": decode_row["kernel_device_ms"],
          "plain_ms": decode_row["plain_ms"],
@@ -7168,7 +7651,10 @@ def main():
                  run_fp16[1]["launches"]["layer_norm_bwd"],
              "pp_single": run_pp["launches"]["layer_norm_bwd"],
              **{"pp2_gloo_stage%d" % st:
-                run_pp2["launches"][st]["layer_norm_bwd"] for st in (0, 1)}},
+                run_pp2["launches"][st]["layer_norm_bwd"] for st in (0, 1)},
+             **{"pp2_sdp2_gloo_%s_rank%d" % (run, r):
+                run_pp2["sdp2"][run]["launches"][r]["layer_norm_bwd"]
+                for run in ("sdp_stage1", "sdp_stage2") for r in (0, 2)}},
          "max_abs_err": max(ln_bwd_err, ln16_bwd_err),
          "shape": ln_bwd_row["shape"],
          "ms": ln_bwd_row["kernel_ms"],
@@ -7224,4 +7710,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        warm_stop()
+    sys.exit(code)

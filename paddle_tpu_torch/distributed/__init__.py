@@ -19,11 +19,11 @@ Mixture-of-Experts layer over ``ep`` (:mod:`.utils` re-exports its
 ``global_scatter`` / ``global_gather``).  Also here: :mod:`.store`, the
 TCP key-value store, and :mod:`.recompute`, activation recompute.
 
-Not ported yet (ROADMAP.md §A5): ``auto_parallel``, ZeRO with a
-pipeline, the GSPMD sequence sharding of the GPT's activations over
-``sep`` (the GPT's attention on a mesh whose ``sep`` axis has more than
-one rank raises), and the launcher with ``fleet.elastic`` (``launch``
-raises).
+On a ``sep`` mesh the GPT shards its sequences itself (each rank runs
+its rows, the ring inside its attention; ``gather_sequence`` joins a
+rank's shard of an output), and ZeRO's ``sdp`` axis runs inside the 1F1B
+pipeline.  Not ported yet (ROADMAP.md §A5): ``auto_parallel`` and the
+launcher with ``fleet.elastic`` (``launch`` raises).
 """
 from __future__ import annotations
 
@@ -38,9 +38,10 @@ from .collective import (ReduceOp, all_gather, all_gather_object, all_reduce,
                          reduce, reduce_scatter, scatter, send, wait)
 from .mesh import (CommunicateTopology, HybridCommunicateGroup, get_mesh,
                    init_hybrid_mesh, init_mesh, named_sharding, set_mesh)
-from .parallel_base import (DataParallel, ParallelEnv, get_rank,
-                            get_world_size, init_parallel_env, is_initialized,
-                            parallelize, shard_dataloader, shard_tensor)
+from .parallel_base import (DataParallel, ParallelEnv,  # noqa: F401
+                            gather_sequence, get_rank, get_world_size,
+                            init_parallel_env, is_initialized, parallelize,
+                            shard_dataloader, shard_tensor)
 from .recompute import recompute, recompute_sequential  # noqa: F401
 from .sharding import (group_sharded_parallel,  # noqa: F401
                        save_group_sharded_model)

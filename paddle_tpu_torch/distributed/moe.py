@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..nn import functional as F
+from ..nn.functional.activation import _softplus0
 from ..nn.layer.common import Linear
 from . import collective as _coll
 from . import mesh as _mesh
@@ -166,10 +167,34 @@ def _capacity(top_k, capacity_factor, tokens, num_experts):
                              / num_experts)), 4)
 
 
-#: ``jax.nn``'s activations by name, as ``moe_apply`` takes them
-_ACTS = {"gelu": lambda t: TF.gelu(t, approximate="tanh"),
-         "relu": torch.relu, "silu": TF.silu, "tanh": torch.tanh,
-         "sigmoid": torch.sigmoid}
+def _standardize(t, eps=1e-5):
+    mean = t.mean(-1, keepdim=True)
+    var = torch.square(t).mean(-1, keepdim=True) - torch.square(mean)
+    return (t - mean) * torch.rsqrt(var + eps)
+
+
+#: ``jax.nn``'s shape-keeping activations by name, with their defaults,
+#: as ``moe_apply`` takes them (``getattr(jax.nn, act)`` in the JAX
+#: package), through the port's ``nn.functional`` where it has the same
+#: function: ``gelu`` is the tanh form there, ``softplus`` log(1 + e^x)
+_ACTS = {
+    "celu": F.celu, "elu": F.elu,
+    "gelu": lambda t: F.gelu(t, approximate=True),
+    "hard_sigmoid": F.hardsigmoid, "hard_silu": F.hardswish,
+    "hard_swish": F.hardswish,
+    "hard_tanh": F.hardtanh, "identity": lambda t: t,
+    "leaky_relu": F.leaky_relu, "log_sigmoid": F.log_sigmoid,
+    "log_softmax": F.log_softmax, "mish": F.mish, "relu": F.relu,
+    "relu6": F.relu6,
+    "selu": F.selu,
+    "sigmoid": F.sigmoid, "silu": F.silu, "soft_sign": F.softsign,
+    "softmax": F.softmax, "softplus": _softplus0,
+    "sparse_plus": lambda t: torch.where(
+        t <= -1.0, torch.zeros_like(t),
+        torch.where(t >= 1.0, t, torch.square(t + 1.0) / 4.0)),
+    "sparse_sigmoid": lambda t: 0.5 * torch.clamp(t + 1.0, 0.0, 2.0),
+    "squareplus": lambda t: (t + torch.sqrt(torch.square(t) + 4.0)) / 2.0,
+    "standardize": _standardize, "swish": F.silu, "tanh": F.tanh}
 
 
 def moe_apply(params, x, *, top_k=1, capacity_factor=2.0, axis=EP_AXIS,
@@ -200,7 +225,11 @@ def moe_apply(params, x, *, top_k=1, capacity_factor=2.0, axis=EP_AXIS,
     expert_in, aux = moe_dispatch(tok, logits, **kw)
     h = torch.einsum("ncd,ndh->nch", expert_in, params["w1"]) \
         + params["b1"][:, None, :]
-    h = _ACTS[act](h) if act in _ACTS else getattr(TF, act)(h)
+    if act not in _ACTS:
+        raise ValueError("moe_apply: act=%r is none of jax.nn's "
+                         "shape-keeping activations %s"
+                         % (act, sorted(_ACTS)))
+    h = _ACTS[act](h)
     eo = torch.einsum("nch,nhd->ncd", h, params["w2"]) \
         + params["b2"][:, None, :]
     out = moe_combine(eo, logits, **kw)

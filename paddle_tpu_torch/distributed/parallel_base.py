@@ -34,7 +34,7 @@ __all__ = ["ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
            "is_initialized", "shard_tensor", "parallelize",
            "shard_dataloader", "shard_slice", "unshard_slices",
            "unshard_state", "local_rows", "shard_module", "reshard_into",
-           "DataParallel"]
+           "gather_sequence", "DataParallel"]
 
 
 class ParallelEnv:
@@ -368,6 +368,21 @@ def local_rows(x, axis="dp", mesh=None):
             return shard_slice(t, spec, coords, sizes)
         return t
     return one(x)
+
+
+@torch.no_grad()
+def gather_sequence(x, dim=1, axis="sep"):
+    """The global sequence from every rank's shard ``x`` along ``dim``
+    (the ranks of ``axis``'s group in order; a collective: every rank of
+    the group calls it).  A GPT on a ``sep`` mesh returns the rank's
+    sequence shard of its output where the JAX model returns a global
+    array; this joins the shards.  Without a group of more than one rank
+    ``x`` comes back as it is."""
+    g = _coll.bound_group(axis)
+    if g is None or g.nranks == 1:
+        return x
+    parts = _coll.all_gather([], x.detach().contiguous(), group=g)
+    return torch.cat(parts, dim)
 
 
 def shard_dataloader(dataloader, mesh=None, axis="dp"):

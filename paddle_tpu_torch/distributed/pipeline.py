@@ -554,9 +554,27 @@ class _CompiledPipelineStep:
     grads summed over ``pp``.  Rank ``s`` of ``pp`` trains blocks ``s *
     N / pp`` to ``(s + 1) * N / pp - 1`` and the embedding and head,
     which every stage holds and updates alike (their grads are summed
-    over ``pp`` first).  Microbatch rows are sharded over ``dp``.  The
-    step updates the layers' parameters in place; :meth:`sync_to_layers`
-    gathers the other stages' blocks."""
+    over ``pp`` first).  Microbatch rows are sharded over ``dp`` and
+    ``sdp`` together (the ``sdp`` group is a data-parallel group with
+    different data on each rank), and the loss and grads are averaged
+    over both.  The step updates the layers' parameters in place;
+    :meth:`sync_to_layers` gathers the other stages' blocks.
+
+    **ZeRO x pipeline** (an ``sdp`` axis of more than one rank), as the
+    JAX program: each ``sdp`` rank keeps only its slice of every optimizer
+    slot (``sharding.ZeroPartition``: a block's cut picked on the JAX
+    program's stacked (stages, blocks, ...) slot, the embedding's and
+    head's by ``shard_optimizer_state``'s rule); at stage 2 (and 3, which
+    the JAX program reads as 2: slots and grads cut, the stage's
+    parameters whole) the grads of the sliced masters are reduce-scattered
+    over ``sdp`` onto the slices, at stage 1 averaged and cut; each rank
+    updates its slices and the updated slices are all-gathered, so the
+    stage's blocks are whole for the next step and ``sync_to_layers``.
+    The scaler's finite check runs over ``sdp`` too.  Gloo and NCCL pair
+    collectives by issue order, so every ``sdp`` collective is issued in
+    the order of the sorted parameter names, the same on every rank (an
+    ``sdp`` group lies within one stage, and every stage holds the same
+    names)."""
 
     def __init__(self, pipeline_layer: "PipelineLayer", optimizer,
                  num_stages: int, num_micro: int,
@@ -597,11 +615,12 @@ class _CompiledPipelineStep:
         self._mesh = _mesh.ensure_mesh()
         self._dp = self._mesh.shape.get("dp", 1)
         self._sdp = self._mesh.shape.get("sdp", 1)
-        if self._sdp > 1:
+        sep = self._mesh.shape.get("sep", 1)
+        if sep > 1:
             raise NotImplementedError(
-                "ZeRO x pipeline (sharding stage %d over an 'sdp' axis of "
-                "%d ranks with pp=%d) is not ported yet (ROADMAP.md §A5)"
-                % (zero_stage, self._sdp, num_stages))
+                "the compiled pipeline on a mesh whose 'sep' axis has %d "
+                "ranks: sequence sharding inside the pipeline is not "
+                "ported (ROADMAP.md §A5)" % sep)
         self._group, self._stage, n = _group_of("pp")
         if n != num_stages:
             raise ValueError("compiled pipeline: the 'pp' axis has %d "
@@ -640,20 +659,55 @@ class _CompiledPipelineStep:
                        "blocks": [k for k in self.params
                                   if k.startswith("blocks/")],
                        "head": ["head/" + k for k in head_p]}
+        # ZeRO over 'sdp': this rank's slices of the masters, the slots
+        # made on them (stage 3 is the JAX program's stage 2)
+        self._zero = None
+        if self._sdp > 1:
+            from .sharding import ZeroPartition
+            self._zero = ZeroPartition(
+                {k: p.detach() for k, p in self.params.items()},
+                min(int(zero_stage), 2), "sdp",
+                stacked={k: (num_stages, bps) for k in self._names["blocks"]})
         # the global-norm clip's groups: a block's squares are summed over
-        # the stages (and over mp for a tensor-parallel shard)
+        # the stages (and over mp for a tensor-parallel shard, over sdp for
+        # a ZeRO slice)
         self._clip_groups = {}
         for name, p in self.params.items():
             grps = tuple(g for g in (
                 getattr(p, "mp_group", None),
-                self._group if name.startswith("blocks/") else None)
+                self._group if name.startswith("blocks/") else None,
+                self._zero.group if self._zero is not None
+                and self._zero.sliced(name) else None)
                 if g is not None)
             if grps:
                 self._clip_groups[name] = grps if len(grps) > 1 else grps[0]
         self.opt_state = optimizer.init_state(
-            {k: p.detach() for k, p in self.params.items()})
+            self._local({k: p.detach() for k, p in self.params.items()}))
         self.last_peak_inflight = 0
         self.last_permutes = 0
+
+    def _local(self, tree):
+        """This rank's ZeRO slices of a name-keyed tree (the tree itself
+        without ZeRO)."""
+        return tree if self._zero is None else self._zero.cut_all(tree)
+
+    @torch.no_grad()
+    def _zero_grads(self, grads):
+        """The grads averaged over ``sdp`` (they are over ``dp`` already),
+        each sliced master's as this rank's slice: reduce-scattered at
+        stage 2, cut from the all-reduced mean at stage 1; in the sorted
+        names' order."""
+        z = self._zero
+        out = {}
+        for name in sorted(grads):
+            g = grads[name]
+            if z.sliced(name) and z.stage >= 2:
+                out[name] = z.reduce_scatter(name, g)
+                continue
+            _coll.all_reduce(g, group=z.group)
+            g = g / z.nranks
+            out[name] = z.cut(name, g) if z.sliced(name) else g
+        return out
 
     # -- one step ----------------------------------------------------------
 
@@ -680,10 +734,13 @@ class _CompiledPipelineStep:
                 "microbatch rows over ('dp', 'sdp')" % (mb, data_par))
         xs = x.reshape((m, mb) + tuple(x.shape[1:]))
         ys = y.reshape((m, mb) + tuple(y.shape[1:]))
-        if self._dp > 1:
-            # this rank's rows of every microbatch
-            rows = mb // self._dp
-            r = self._mesh.axis_rank("dp")
+        if data_par > 1:
+            # this rank's rows of every microbatch, dealt over ('dp',
+            # 'sdp') as the JAX program's P(None, ('dp', 'sdp')): dp major
+            rows = mb // data_par
+            r = (self._mesh.axis_rank("dp") if self._dp > 1 else 0) \
+                * self._sdp + (self._mesh.axis_rank("sdp")
+                               if self._sdp > 1 else 0)
             xs = xs[:, r * rows:(r + 1) * rows]
             ys = ys[:, r * rows:(r + 1) * rows]
         n, s = self._num_stages, self._stage
@@ -714,24 +771,32 @@ class _CompiledPipelineStep:
         # f32 grads, as the JAX step's accumulators are
         grads = dict(zip(names["blocks"] + names["embed"] + names["head"],
                          g_b + g_e + g_h))
+        if self._zero is not None:
+            _coll.all_reduce(loss, group=self._zero.group)
+            loss = loss / self._zero.nranks
+            grads = self._zero_grads(grads)
         finite = True
         if self._use_scaler:
-            # unscale, then one finite check over every rank's grads: all
-            # ranks skip the same step
+            # unscale, then one finite check over every rank's grads (its
+            # slices under ZeRO): all ranks skip the same step
             inv = 1.0 / float(scale)
             grads = {k: g * inv for k, g in grads.items()}
             bad = (~_grads_finite(list(grads.values()))).float().reshape(1)
             bad = bad.to(h_like.device)
-            for axis in ("pp", "dp"):
+            for axis in ("pp", "dp", "sdp"):
                 _coll.all_reduce(bad, op=_coll.ReduceOp.MAX, group=axis)
             finite = not bool(bad.item())
         if finite:
             new_p, self.opt_state = self._optimizer.apply_gradients(
-                {k: t.detach() for k, t in p.items()}, grads,
+                self._local({k: t.detach() for k, t in p.items()}), grads,
                 self.opt_state, self._optimizer.get_lr(),
                 mp_groups=self._clip_groups or None)
             with torch.no_grad():
-                for k, t in new_p.items():
+                for k in sorted(new_p):
+                    t = new_p[k]
+                    if self._zero is not None:
+                        # the updated slices, whole again on every rank
+                        t = self._zero.gather(k, t)
                     p[k].copy_(t)
         return loss.detach(), finite
 
@@ -807,6 +872,13 @@ class PipelineParallel(nn.Module):
         accumulate grads, then ONE optimizer step (the observable
         contract of the reference's 1F1B train_batch)."""
         x, y = data
+        sep = _coll.bound_group("sep")
+        if sep is not None and sep.nranks > 1:
+            raise NotImplementedError(
+                "train_batch on a mesh whose 'sep' axis has %d ranks: the "
+                "pipeline's stages run whole sequences, and sequence "
+                "sharding inside the pipeline is not ported (ROADMAP.md "
+                "§A5)" % sep.nranks)
         acc = max(int(self.accumulate_steps), 1)
         batch = x.shape[0]
         if batch % acc:

@@ -86,9 +86,17 @@ class ZeroPartition:
 
     The JAX step's check comes first: an ``axis`` of size <= 1 on a mesh of
     more than one rank raises ``ValueError`` (the sharding would silently
-    be a no-op).  On a mesh of one rank nothing is cut, as in JAX."""
+    be a no-op).  On a mesh of one rank nothing is cut, as in JAX.
 
-    def __init__(self, params, stage, axis="sdp"):
+    ``stacked`` ({name: (stages, blocks)}) names the pipeline's block
+    masters, which the JAX program holds stacked (stages, blocks, ...)
+    with the stage dimension on ``pp``: the cut is picked on that stacked
+    shape (``fixed=("pp",)``, the element count the stacked one), and a
+    rank keeps the same slice of every block.  A cut the JAX program would
+    put on the block dimension leaves the port's per-block masters
+    whole."""
+
+    def __init__(self, params, stage, axis="sdp", stacked=None):
         mesh = _mesh.ensure_mesh()
         if _mesh.axis_size(axis) <= 1 and mesh.size > 1:
             raise ValueError(
@@ -102,8 +110,17 @@ class ZeroPartition:
         n = self.group.nranks if self.group is not None else 1
         self.rank = self.group.rank if self.group is not None else 0
         self.dims = {}
+        stacked = stacked or {}
         for name, t in params.items():
-            d = _dim_of(_stage_spec_for(t, axis), axis)
+            lead = tuple(stacked.get(name, ()))
+            if lead:
+                probe = torch.empty(lead + tuple(t.shape), device="meta")
+                d = _dim_of(_stage_spec_for(probe, axis, fixed=("pp",)),
+                            axis)
+                d = d - len(lead) if d is not None and d >= len(lead) \
+                    else None
+            else:
+                d = _dim_of(_stage_spec_for(t, axis), axis)
             self.dims[name] = d if self.group is not None and n > 1 else None
         self.nranks = n
 

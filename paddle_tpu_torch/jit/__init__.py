@@ -65,6 +65,19 @@ masters; the global-norm clip sums their squares over ``mp``
 (``nn.clip.global_norm_sq``), and ``flat_master`` packs only the
 replicated ones.
 
+On a mesh whose ``sep`` group has more than one rank, the GPT shards
+its sequences itself (``models/gpt.py``): every rank is given the global
+batch (its ``dp`` rows when the batch is sharded), runs its rows of each
+sequence, and its loss and gradients are its shares of the one-device
+ones.  The step sums the gradients over ``sep`` (one all-reduce a dtype,
+before the average over the batch axis) and the loss too.  So the loss
+must be such a share (``GPTPretrainingCriterion``'s, tagged
+``sep_share``); another raises.
+``in_shardings`` may name ``sep`` on the batch's second dimension
+(``PartitionSpec("dp", "sep")``), which reads the same; any other axis
+past the first dimension raises.  ZeRO on such a mesh raises (ROADMAP.md
+§A5).
+
 ``zero_stage`` (1, 2 or 3) shards the step over the ``zero_axis`` group
 of the global mesh (``"sdp"``; :mod:`..distributed.sharding`): each rank
 owns the slice of each master that ``_stage_spec_for`` picks, and keeps
@@ -164,6 +177,16 @@ class TrainStep:
             from ..distributed import mesh as _mesh
             _mesh.ensure_mesh()
             self._dp_group = _coll._resolve(self._batch_axis)
+        # the sequence-sharded GPT's group: its grads and loss are summed
+        from ..distributed.collective import bound_group
+        self._sep_group = bound_group("sep")
+        if self._sep_group is not None and self._sep_group.nranks < 2:
+            self._sep_group = None
+        if self._sep_group is not None and zero_stage:
+            raise NotImplementedError(
+                "TrainStep(zero_stage=%d) on a mesh whose 'sep' axis has %d "
+                "ranks: ZeRO over sequence shards is not ported (ROADMAP.md "
+                "§A5)" % (zero_stage, self._sep_group.nranks))
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -347,12 +370,13 @@ class TrainStep:
                 for b, s in zip(batch, specs)]
 
     @torch.no_grad()
-    def _average_grads(self, grads):
-        """Average ``grads`` over the batch axis's group in place: the flat
-        master's buffer by itself, the other grads concatenated, one
-        all-reduce a dtype."""
+    def _average_grads(self, grads, group=None, average=True):
+        """Average ``grads`` over the batch axis's group (or sum them over
+        ``group`` with ``average=False``) in place: the flat master's
+        buffer by itself, the other grads concatenated, one all-reduce a
+        dtype."""
         from ..distributed import collective as _coll
-        g = self._dp_group
+        g = self._dp_group if group is None else group
         groups = [(grads[_FLAT_KEY].dtype, [_FLAT_KEY])] \
             if _FLAT_KEY in grads else []
         by_dtype = {}
@@ -366,13 +390,15 @@ class TrainStep:
                 # one buffer a dtype, kept across steps: a fresh one each
                 # step would be a fresh allocation each step
                 size = sum(grads[n].numel() for n in names)
-                flat = self._dp_bufs.get(dt)
+                # a buffer a group: the grads may be views of another's
+                key = (g.axis, dt)
+                flat = self._dp_bufs.get(key)
                 if flat is None or flat.numel() != size:
-                    flat = self._dp_bufs[dt] = torch.empty(
+                    flat = self._dp_bufs[key] = torch.empty(
                         size, dtype=dt, device=self.device)
                 torch.cat([grads[n].reshape(-1) for n in names], out=flat)
             _coll.all_reduce(flat, group=g)
-            if g.nranks > 1:
+            if average and g.nranks > 1:
                 flat.div_(torch.tensor(float(g.nranks), dtype=flat.dtype,
                                        device=flat.device))
             if len(names) == 1:
@@ -437,6 +463,15 @@ class TrainStep:
         out = self.model(*batch[:self.num_inputs])
         outs = out if isinstance(out, tuple) else (out,)
         loss = self.loss_fn(*outs, *batch[self.num_inputs:])
+        if self._sep_group is not None and not getattr(loss, "sep_share",
+                                                       False):
+            # any other loss of the rank's rows (a mean of them, say)
+            # would not sum over 'sep' to the loss of the whole sequences
+            raise NotImplementedError(
+                "TrainStep on a mesh whose 'sep' axis has %d ranks takes a "
+                "loss that is the rank's share of the global one, as "
+                "GPTPretrainingCriterion gives; this loss_fn's is not "
+                "(ROADMAP.md §A5)" % self._sep_group.nranks)
         loss.backward()
         with torch.no_grad():
             grads = {}
@@ -456,6 +491,9 @@ class TrainStep:
                     g = p.grad if p.grad is not None else torch.zeros_like(p)
                     grads[n] = g.float() if n in self._compute_dtypes else g
                 p.grad = None
+            if self._sep_group is not None:
+                # the ranks' shares of the sequence-sharded gradients
+                self._average_grads(grads, self._sep_group, average=False)
             if self._zero is not None:
                 self._zero_grads(grads)
             elif self._dp_group is not None:
@@ -483,8 +521,11 @@ class TrainStep:
         if isinstance(sched, LRScheduler):
             sched.step()
         loss = loss.detach()
+        from ..distributed import collective as _coll
+        if self._sep_group is not None:
+            # the shares' sum
+            loss = _coll.all_reduce(loss.clone(), group=self._sep_group)
         if self._dp_group is not None:
-            from ..distributed import collective as _coll
             loss = _coll.all_reduce(loss.clone(), op=_coll.ReduceOp.AVG,
                                     group=self._dp_group)
         return loss
@@ -624,7 +665,8 @@ def _sliceable(v):
 def _batch_axis(in_shardings):
     """(the mesh axis that shards the batch's first dimension, the specs
     as a list), or (None, None) without ``in_shardings``.  A spec may
-    shard only the first dimension, over one axis."""
+    shard the first dimension over one axis, and the second over
+    ``sep`` (the GPT's sequence sharding, which the model does itself)."""
     if in_shardings is None:
         return None, None
     from ..distributed.mesh import PartitionSpec
@@ -643,11 +685,18 @@ def _batch_axis(in_shardings):
             if axis is None:
                 continue
             names = axis if isinstance(axis, (tuple, list)) else (axis,)
+            if dim == 1 and tuple(names) == ("sep",):
+                continue
             if dim > 0 or len(names) != 1:
                 raise NotImplementedError(
                     "TrainStep(in_shardings=%r): only the batch's first "
-                    "dimension over one mesh axis is ported (ROADMAP.md "
-                    "§A5)" % (in_shardings,))
+                    "dimension over one mesh axis, and its second over "
+                    "'sep', are ported (ROADMAP.md §A5)" % (in_shardings,))
+            if names[0] == "sep":
+                raise ValueError(
+                    "TrainStep(in_shardings=%r): 'sep' shards the "
+                    "sequence, the batch's second dimension"
+                    % (in_shardings,))
             axes.add(names[0])
     if len(axes) > 1:
         raise ValueError("in_shardings shard the batch over several axes: "

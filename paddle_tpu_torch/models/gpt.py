@@ -11,10 +11,22 @@ state dict loads by name through :mod:`paddle_tpu_torch.convert`, and
 state between the layouts.  Attention goes through
 ``F.scaled_dot_product_attention`` (the CUDA flash kernels on a card,
 forward and backward) or, with a serving cache view, through the view's
-append-and-attend; a mesh whose ``sep`` axis has more than one rank is
-refused (:func:`_attend`).  ``use_recompute`` runs each block under
+append-and-attend.  ``use_recompute`` runs each block under
 :func:`paddle_tpu_torch.distributed.recompute` while training.
 :class:`GPTPretrainingCriterion` is the training loss.
+
+**Sequence sharding.**  On a mesh whose bound ``sep`` group has ``n > 1``
+ranks, the JAX model constrains its activations to ``P("dp", "sep",
+None)`` and GSPMD keeps the math of one device.  Here
+:class:`GPTModel` is fed the global ``input_ids`` and runs on the rank's
+contiguous ``S / n`` rows (:func:`sequence_rows`, positions offset
+alike), every block's attention the ring over ``sep``
+(``distributed.ring_attention`` on the flash kernels), so no rank holds
+a whole sequence of activations; the criterion shifts the global labels before
+it takes the rank's rows and divides by the global count, so the ranks'
+losses and parameter gradients are shares that sum over ``sep`` to the
+one-device ones (``jit.TrainStep`` and ``DataParallel`` sum them).  A
+plain forward returns the rank's shard of the logits.
 
 **Megatron layout.**  The parameters carry the JAX package's ``pspec``
 annotations (:data:`MEGATRON`: ``qkv_proj`` and ``fc1`` column-sharded on
@@ -123,31 +135,54 @@ def _row(x, lin, group, k_dim):
     return _row_raw(x, lin.weight, lin.bias, group, k_dim)
 
 
-def _attend(q, k, v, cache, dropout_p, training, generator):
+def _sep_group():
+    """The bound ``sep`` group when it has more than one rank, else None."""
+    g = _coll.bound_group("sep")
+    return g if g is not None and g.nranks > 1 else None
+
+
+def sequence_rows(s, group):
+    """(first row, rows) of this rank's contiguous shard of a sequence of
+    ``s`` rows over ``group`` (the ``sep`` group): rank ``r`` holds
+    ``[r * s / n, (r + 1) * s / n)``.  An ``s`` that the group's size does
+    not divide raises ``ValueError``."""
+    n = group.nranks
+    if s % n:
+        raise ValueError("a sequence of %d rows does not divide over the "
+                         "%d ranks of 'sep'" % (s, n))
+    return group.rank * (s // n), s // n
+
+
+def _attend(q, k, v, cache, dropout_p, training, generator,
+            seq_sharded=False):
     """The block's attention over (B, S, heads, D): the serving cache
-    view's append-and-attend, or ``F.scaled_dot_product_attention`` over
-    the rank's whole sequence.  The JAX GPT shards its activations over a
-    ``sep`` mesh axis by GSPMD, so each rank's attention takes its
-    sequence shard round the ring; the port has no such sharding
-    (ROADMAP.md §A5), and the ring would attend over whole sequences as if
-    they were shards.  So a bound ``sep`` group of more than one rank
-    raises here, where every entry point that runs the GPT passes, and
-    attention otherwise keeps the plain route
-    (``sequence_parallel=False``)."""
+    view's append-and-attend, or ``F.scaled_dot_product_attention``.
+    Where a ``sep`` group is bound attention is the ring over it
+    (``sequence_parallel=True``; at one rank a ring of one, equal to the
+    plain call): with more than one rank q/k/v hold the rank's sequence
+    shard (``seq_sharded``: the block runs inside a :class:`GPTModel`
+    that took the rank's rows).  There a block given whole sequences (run
+    outside the model: the ring would take them for shards) and a serving
+    cache (the engine does not shard sequences, as in the JAX package)
+    raise."""
     sep = _coll.bound_group("sep")
-    if sep is not None and sep.nranks > 1:
-        raise NotImplementedError(
-            "the GPT on a mesh whose 'sep' axis has %d ranks: the GSPMD "
-            "sequence sharding of its activations over 'sep' is not ported "
-            "(ROADMAP.md §A5), and the ring would attend over whole "
-            "sequences as if they were shards; call ring_attention / "
-            "scaled_dot_product_attention on sequence shards directly"
-            % sep.nranks)
+    many = sep is not None and sep.nranks > 1
     if cache is not None:
+        if many:
+            raise NotImplementedError(
+                "serving the GPT on a mesh whose 'sep' axis has %d ranks: "
+                "the engine does not shard sequences, as in the JAX "
+                "package (ROADMAP.md §A5, §C)" % sep.nranks)
         return cache.attend(q, k, v)
+    if many and not seq_sharded:
+        raise NotImplementedError(
+            "a GPT block run outside GPTModel on a mesh whose 'sep' axis "
+            "has %d ranks: its input holds whole sequences, and the ring "
+            "would attend over them as if they were shards; the sequence "
+            "sharding is GPTModel's (ROADMAP.md §A5)" % sep.nranks)
     return F.scaled_dot_product_attention(
         q, k, v, dropout_p=dropout_p, is_causal=True, training=training,
-        generator=generator, sequence_parallel=False)
+        generator=generator, sequence_parallel=sep is not None)
 
 
 def _note_qkv_island(num_heads, head_dim, group, cache):
@@ -218,6 +253,8 @@ class GPTAttention(nn.Module):
         # draws the attention-probability dropout masks (None: PyTorch's
         # default generator); jit.TrainStep sets its own
         self.generator = None
+        # set by GPTModel's forward: x holds the rank's sequence shard
+        self._seq_sharded = False
 
     def forward(self, x, cache=None):
         b, s, _ = x.shape
@@ -235,7 +272,7 @@ class GPTAttention(nn.Module):
         k = qkv[:, :, h:2 * h].reshape(b, s, nh, hd)
         v = qkv[:, :, 2 * h:].reshape(b, s, nh, hd)
         out = _attend(q, k, v, cache, self.attn_dropout_p, self.training,
-                      self.generator)
+                      self.generator, self._seq_sharded)
         out = out.reshape(b, s, h)
         return self.resid_dropout(_row(out, self.out_proj, g,
                                        self.hidden_size))
@@ -282,7 +319,7 @@ _SCAN_FIELD_MAP = {
 
 
 def _scan_block_apply(x, p, cfg, training, generator=None, cache=None,
-                      group=None):
+                      group=None, seq_sharded=False):
     """One block over the per-layer tensors ``p`` (views of the stacked
     parameters).  The same functionals in the same order as
     :class:`GPTBlock` (``h @ w + b`` as ``Linear``, ``F.layer_norm``,
@@ -306,7 +343,7 @@ def _scan_block_apply(x, p, cfg, training, generator=None, cache=None,
     k = qkv[:, :, hl:2 * hl].reshape(b, s, nhl, hd)
     v = qkv[:, :, 2 * hl:].reshape(b, s, nhl, hd)
     out = _attend(q, k, v, cache, cfg.attention_dropout_prob, training,
-                  generator)
+                  generator, seq_sharded)
     out = out.reshape(b, s, hl)
     x = x + upscale_dropout(_row_raw(out, p["out_w"], p["out_b"], group,
                                      h_sz), p_drop, training, generator)
@@ -363,10 +400,13 @@ class GPTScanBlocks(nn.Module):
         # draws the dropout masks (None: PyTorch's default generator);
         # jit.TrainStep sets its own
         self.generator = None
+        # set by GPTModel's forward: x holds the rank's sequence shard
+        self._seq_sharded = False
 
     def _block(self, x, p, cache=None):
         return _scan_block_apply(x, p, self.config, self.training,
-                                 self.generator, cache, _mp(self))
+                                 self.generator, cache, _mp(self),
+                                 self._seq_sharded)
 
     def forward(self, x, cache=None):
         c = self.config
@@ -442,7 +482,24 @@ class GPTModel(nn.Module):
                                     for _ in range(c.num_hidden_layers)])
         self.ln_f = LayerNorm(c.hidden_size, c.layer_norm_epsilon)
 
+    def _mark_seq_sharded(self, on):
+        """Tell the attention modules whether their input is the rank's
+        sequence shard (:func:`_attend`)."""
+        if getattr(self, "_seq_sharded", False) == on:
+            return
+        self._seq_sharded = on
+        for m in self.modules():
+            if isinstance(m, (GPTAttention, GPTScanBlocks)):
+                m._seq_sharded = on
+
     def forward(self, input_ids, position_ids=None, cache=None):
+        """``input_ids`` (B, S).  On a mesh whose bound ``sep`` group has
+        ``n > 1`` ranks (and no cache), ``input_ids`` is the global batch
+        and the model runs on the rank's contiguous ``S / n`` rows (its
+        ``sep`` coordinate's, positions offset alike, global
+        ``position_ids`` sliced the same way), each block's attention the
+        ring over ``sep``: the output is the rank's sequence shard
+        (``distributed.gather_sequence`` joins the shards)."""
         from ..serving.cache import (DecodeView, PagedDecodeView,
                                      PagedKVCache, SlottedKVCache,
                                      is_cache_view)
@@ -460,12 +517,24 @@ class GPTModel(nn.Module):
                                 "PagedKVCache or a serving cache view; got "
                                 "%r" % (type(cache).__name__,))
             view = cache
+        sep = _sep_group() if view is None else None
+        self._mark_seq_sharded(sep is not None)
+        start = 0
+        if sep is not None:
+            # the rank's rows of the global sequence: the JAX model's
+            # P("dp", "sep", None) activations
+            start, s = sequence_rows(s, sep)
+            if position_ids is not None \
+                    and position_ids.shape[-1] == input_ids.shape[1]:
+                position_ids = position_ids[..., start:start + s]
+            input_ids = input_ids[:, start:start + s]
         if position_ids is None:
             if view is not None:
                 position_ids = view.position_ids(b, s)
             else:
                 position_ids = torch.arange(
-                    s, dtype=torch.int32, device=input_ids.device)[None, :]
+                    start, start + s, dtype=torch.int32,
+                    device=input_ids.device)[None, :]
         g = _mp(self)
         # under mp, the masked local gather and one all-reduce: the JAX
         # package's vocab_embed island, here with the switch on or off
@@ -517,6 +586,12 @@ class GPTForCausalLM(nn.Module):
         g = _mp(self)
         if g is None:
             return
+        sep = _sep_group()
+        if sep is not None:
+            raise NotImplementedError(
+                "the GPT over 'mp' on a mesh whose 'sep' axis has %d ranks: "
+                "tensor parallelism over sequence shards is not ported "
+                "(ROADMAP.md §A5)" % sep.nranks)
         c = self.config
         if c.num_attention_heads % g.nranks:
             raise ValueError("mp=%d must divide num_attention_heads=%d"
@@ -603,6 +678,27 @@ class GPTForCausalLM(nn.Module):
             w.dtype if dtype is None else convert_dtype(dtype),
             w.device if device is None else device, kv_dtype=kv_dtype)
 
+    def generate(self, input_ids, max_new_tokens=20, temperature=1.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, seed=0,
+                 num_slots=None, max_len=None, greedy=None, **engine_kw):
+        """Continuations of ``input_ids`` through the serving engine and
+        the continuous-batching scheduler (``serving.generate``), as the
+        JAX model generates.  ``input_ids``: a (batch, prompt_len) int
+        array or tensor, or a list of 1-D prompts of ragged lengths.
+        Returns a list of 1-D int32 numpy arrays of the generated tokens
+        (prompt excluded).  ``greedy=True`` is temperature 0; other keyword
+        arguments reach the engine (``serving.engine_for``: ``tp``,
+        ``kv_dtype``, ``spec_k``, ``device``, ...)."""
+        from ..serving import generate as _generate
+        if greedy:
+            temperature = 0.0
+        if isinstance(input_ids, torch.Tensor):
+            input_ids = input_ids.detach().cpu().numpy()
+        return _generate(self, input_ids, max_new_tokens=max_new_tokens,
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         eos_token_id=eos_token_id, seed=seed,
+                         num_slots=num_slots, max_len=max_len, **engine_kw)
+
 
 class GPTPretrainingCriterion(nn.Module):
     """Shifted causal-LM loss (port of ``paddle_tpu.models.gpt.
@@ -611,18 +707,50 @@ class GPTPretrainingCriterion(nn.Module):
     the last position, so no (B, S-1, V) copy of the logits is made; the
     mean over all B*S positions is then divided by (S-1)/S, which makes
     it the mean over the S-1 real ones.  With ``loss_mask`` the mask
-    shifts alike and the loss is the masked mean."""
+    shifts alike and the loss is the masked mean.
+
+    On a ``sep`` mesh (:class:`GPTModel`'s sequence sharding) ``logits``
+    hold the rank's rows and ``labels`` (and ``loss_mask``) the global
+    sequence: the labels are shifted globally first, so a shard's last row
+    predicts the next shard's first label, then cut to the rank's rows,
+    and the rank's sum is divided by the global count.  The result is
+    the rank's share: the shares sum over ``sep`` to the one-device
+    loss."""
 
     def forward(self, logits, labels, loss_mask=None):
         b, s = labels.shape[0], labels.shape[1]
         targets = torch.cat(
             [labels[:, 1:], torch.full((b, 1), -100, dtype=labels.dtype,
                                        device=labels.device)], dim=1)
+        rows = None
+        sep = _sep_group()
+        if sep is not None and logits.shape[1] != s:
+            start, n = sequence_rows(s, sep)
+            if logits.shape[1] != n:
+                raise ValueError(
+                    "logits of %d rows for labels of %d over %d 'sep' "
+                    "ranks" % (logits.shape[1], s, sep.nranks))
+            rows = slice(start, start + n)
+            targets = targets[:, rows]
         loss = F.cross_entropy(logits, targets, reduction="none",
                                ignore_index=-100)
         if loss_mask is not None:
             mask = torch.cat([loss_mask[:, 1:],
                               torch.zeros((b, 1), dtype=loss_mask.dtype,
                                           device=loss_mask.device)], dim=1)
-            return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+            count = torch.clamp(mask.sum(), min=1.0)
+            if rows is not None:
+                mask = mask[:, rows]
+            return _share((loss * mask).sum() / count, rows)
+        if rows is not None:
+            return _share(loss.sum() / float(b * s)
+                          / (float(s - 1) / float(s)), rows)
         return loss.mean() / (float(s - 1) / float(s))
+
+
+def _share(loss, rows):
+    """Tag a loss that is the rank's share of a sequence-sharded one (what
+    ``jit.TrainStep`` sums over ``sep``)."""
+    if rows is not None:
+        loss.sep_share = True
+    return loss

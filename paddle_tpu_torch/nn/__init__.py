@@ -4,7 +4,8 @@ from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
 from .layer.common import Dropout, Embedding, Linear
 from .layer.norm import LayerNorm
+from .parallel import DataParallel
 
 __all__ = ["functional", "initializer", "ClipGradByGlobalNorm", "ClipGradByNorm",
            "ClipGradByValue", "clip_grad_norm_", "Dropout", "Embedding",
-           "Linear", "LayerNorm"]
+           "Linear", "LayerNorm", "DataParallel"]

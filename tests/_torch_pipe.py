@@ -396,7 +396,8 @@ def gpt_sequential(ids, steps=3, seed=5, acc=2):
 
 def job_contract_errors(weights):
     """The compiled pipeline's contract errors at pp2 (messages of the
-    JAX package's), and ZeRO x pipeline refused naming ROADMAP §A5."""
+    JAX package's), and a step of ZeRO x pipeline (pp2 x sdp2), which
+    runs."""
     import torch
 
     from paddle_tpu_torch import distributed as D
@@ -614,3 +615,110 @@ def job_pp2_rank():
             PlainCounters(mp), device="cpu")
     finally:
         mp.undo()
+
+
+def pp_sdp_spec():
+    """pp2_sdp2_gloo's spec at tp2_spec's narrow width (2 layers, 2 heads
+    of 64) for the CPU rehearsal."""
+    from _torch_dist import tp2_spec
+    return {"cfg": tp2_spec()["cfg"], "seed": 0, "steps": 2,
+            "stages": (1, 2), "device": "cpu"}
+
+
+def job_pp2_sdp2_rank():
+    """chip_smoke.py's pp2_sdp2_rank on this four-rank world at
+    pp_sdp_spec's narrow width on short_ids, the flash route through its
+    plain versions, counted."""
+    import pytest
+    import torch
+
+    import chip_smoke
+    from _torch_dist import PlainCounters, short_ids
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(torch.cuda, "synchronize", lambda *a: None)
+        mp.setattr(chip_smoke, "train_ids", short_ids)
+        return chip_smoke.pp2_sdp2_rank(torch, pp_sdp_spec(),
+                                        PlainCounters(mp), device="cpu")
+    finally:
+        mp.undo()
+
+
+def job_pp_zero(ids, axes, stage=1, steps=3, clip=None, opt="adamw",
+                seed=5):
+    """The tiny GPT pipeline (:func:`gpt_pipeline`, 4 blocks) through the
+    fleet on the mesh ``axes`` ({"pp": 2, "dp": 2} or {"pp": 2, "sdp":
+    2}) at ``sharding_configs.stage`` ``stage``: ``steps`` steps of AdamW
+    (or SGD), with a global-norm clip when given.  Returns the losses, the
+    trained parameters after ``sync_to_layers`` (every stage's), the
+    rank's optimizer-slot elements, the shapes of the gradients the
+    optimizer took at the first step and the parameters' own, and the
+    collectives a step."""
+    import torch
+
+    import chip_smoke
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {{"dp": "dp_degree", "pp": "pp_degree",
+                                "sdp": "sharding_degree"}[a]: n
+                               for a, n in axes.items()}
+    strategy.pipeline_configs = {"accumulate_steps": 2}
+    strategy.sharding_configs = {"stage": stage}
+    fleet.init(is_collective=True, strategy=strategy)
+    pl = gpt_pipeline(seed, 2)
+    model = fleet.distributed_model(pl)
+    clip = None if clip is None else ClipGradByGlobalNorm(clip)
+    o = (SGD(learning_rate=0.5, parameters=model.parameters(),
+             grad_clip=clip) if opt == "sgd" else
+         AdamW(learning_rate=1e-3, parameters=model.parameters(),
+               epsilon=1e-6, grad_clip=clip))
+    first = {}
+    real = o.apply_gradients
+
+    def record(params, grads, *a, **kw):
+        if not first:
+            first.update({k: tuple(g.shape) for k, g in grads.items()})
+        return real(params, grads, *a, **kw)
+    o.apply_gradients = record
+    x = torch.from_numpy(np.array(ids))
+    C.reset_counts()
+    losses = [float(model.train_batch((x, x), o)) for _ in range(steps)]
+    issued = C.issued()
+    comp = model._compiled
+    full = {k: tuple(p.shape) for k, p in comp.params.items()}
+    model.sync_to_layers()
+    slots = sum(v.numel() for s in comp.opt_state["slots"].values()
+                for v in s.values() if hasattr(v, "numel"))
+    return {"losses": losses, "params": np_params(pl),
+            "slot_elements": slots, "first_grads": first, "full": full,
+            "stage": comp._stage,
+            "collectives_per_step": {k: v / steps
+                                     for k, v in issued.items()},
+            "slot_bytes": chip_smoke.slots_bytes(comp.opt_state)}
+
+
+def job_fleet_zero(weights, data, stage):
+    """tests/test_pipeline_fleet.py's ZeRO x pipeline run through the
+    port's fleet: pp2 x sdp2 at ``sharding_configs.stage`` ``stage``, Adam
+    (lr 0.05), 4 microbatches, ``train_batch`` over ``data``.  Returns the
+    losses and the trained parameters (every stage's)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.optimizer import Adam
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"pp_degree": 2, "sharding_degree": 2}
+    strategy.pipeline_configs = {"accumulate_steps": 4}
+    strategy.sharding_configs = {"stage": stage}
+    fleet.init(is_collective=True, strategy=strategy)
+    pl = pipeline_layer(weights, 2)
+    model = fleet.distributed_model(pl)
+    opt = Adam(learning_rate=0.05, parameters=model.parameters())
+    losses = [float(model.train_batch((torch.from_numpy(np.array(x)),
+                                       torch.from_numpy(np.array(y))), opt))
+              for x, y in data]
+    model.sync_to_layers()
+    return losses, np_params(pl)

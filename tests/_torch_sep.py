@@ -185,17 +185,21 @@ def job_sdpa(q, k, v, mask=None, gqa_kv=None):
 
 def job_sep_refusal():
     """A tiny GPT on the mesh {"dp": 2, "sep": 2} through each entry point
-    that runs it: a plain forward, ``TrainStep``, ``DecodeEngine``'s
-    prefill, ``parallelize`` and ``fleet.distributed_model`` (its
-    ``DataParallel``); each refuses in the GPT's attention.  On {"dp": 4}
-    (no ``sep``) each runs.  Returns {entry point and axes: the error
-    message or None}."""
+    that runs it: a plain forward, ``TrainStep`` (with the GPT's
+    criterion), ``DecodeEngine``'s prefill, ``parallelize`` and
+    ``fleet.distributed_model`` (its ``DataParallel``); then on {"dp": 4}
+    (no ``sep``).  Each forward's output, its sequence shards joined by
+    ``gather_sequence``, and the step's loss are held against the same
+    model with no mesh.  Returns {entry point and axes: (the error
+    message or None, the largest difference from the one-process run)}."""
     import torch
 
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch import jit
     from paddle_tpu_torch.distributed import fleet
-    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                             GPTPretrainingCriterion)
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.serving import DecodeEngine
     cfg = GPTConfig(vocab_size=64, max_position_embeddings=32,
@@ -210,34 +214,42 @@ def job_sep_refusal():
     def train_step():
         m = gpt()
         step = jit.TrainStep(
-            m, lambda o, y: o.float().mean(),
+            m, GPTPretrainingCriterion(),
             AdamW(learning_rate=1e-3, parameters=m.parameters()),
             device="cpu")
-        step(ids, ids)
+        return step(ids, ids)
 
     def fleet_model(axes):
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs = {"%s_degree" % a: n
                                    for a, n in axes.items()}
         fleet.init(is_collective=True, strategy=strategy)
-        fleet.distributed_model(gpt())(ids)
+        return fleet.distributed_model(gpt())(ids)
+
+    calls = (("GPT", lambda: gpt()(ids)),
+             ("TrainStep", train_step),
+             ("DecodeEngine", lambda: DecodeEngine(
+                 gpt(), num_slots=2, max_len=16, device="cpu").prefill(
+                     0, ids[0])),
+             ("parallelize", lambda: D.parallelize(gpt())(ids)))
+    with dmesh.mesh_scope(None):
+        ref = {name: call() for name, call in calls
+               if name != "DecodeEngine"}
+    ref["fleet"] = ref["GPT"]
     out = {}
     for axes in ({"dp": 2, "sep": 2}, {"dp": 4}):
         D.init_mesh(axes)
-        for name, call in (
-                ("GPT", lambda: gpt()(ids)),
-                ("TrainStep", train_step),
-                ("DecodeEngine", lambda: DecodeEngine(
-                    gpt(), num_slots=2, max_len=16, device="cpu").prefill(
-                        0, ids[0])),
-                ("parallelize", lambda: D.parallelize(gpt())(ids)),
-                ("fleet", lambda: fleet_model(axes))):
+        for name, call in calls + (("fleet", lambda: fleet_model(axes)),):
             try:
-                call()
+                got = call()
                 msg = None
             except NotImplementedError as e:
-                msg = str(e)
-            out["%s %s" % (name, sorted(axes))] = msg
+                got, msg = None, str(e)
+            diff = None
+            if got is not None and name in ref:
+                got = D.gather_sequence(got) if got.dim() else got
+                diff = float((got - ref[name]).abs().max())
+            out["%s %s" % (name, sorted(axes))] = (msg, diff)
     return out
 
 

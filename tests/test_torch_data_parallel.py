@@ -115,13 +115,17 @@ def test_dp_training_matches_single_device(world, flat_master):
 
 
 def test_in_shardings_specs_are_parsed_as_the_jax_step_takes_them():
-    """One PartitionSpec for every batch element, or one each; only the
-    first dimension over one axis is ported."""
+    """One PartitionSpec for every batch element, or one each; the first
+    dimension over one axis is ported, and the second over 'sep' (the
+    GPT's sequence sharding, which the model does itself); any other axis
+    past the first dimension raises."""
     from paddle_tpu_torch.jit import _batch_axis
     assert _batch_axis(None) == (None, None)
     assert _batch_axis(PartitionSpec("dp", None)) == ("dp", [("dp", None)])
     assert _batch_axis([PartitionSpec("dp"), None]) == ("dp", [("dp",), ()])
+    assert _batch_axis(PartitionSpec("dp", "sep")) == ("dp",
+                                                       [("dp", "sep")])
     with pytest.raises(NotImplementedError, match="§A5"):
-        _batch_axis(PartitionSpec("dp", "sep"))
+        _batch_axis(PartitionSpec("dp", "mp"))
     with pytest.raises(ValueError, match="several"):
         _batch_axis([PartitionSpec("dp"), PartitionSpec("sdp")])

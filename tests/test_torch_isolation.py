@@ -113,6 +113,20 @@ def test_no_file_imports_jax_or_paddle_tpu():
             assert root not in ("jax", "jaxlib", "paddle_tpu"), (f, mod)
 
 
+def test_chip_smoke_and_the_rank_helpers_import_no_jax():
+    """``chip_smoke.py`` and the JAX-free helpers whose jobs the gloo
+    ranks run (``tests/_torch_*.py``) import neither JAX nor
+    ``paddle_tpu``."""
+    here = pathlib.Path(__file__).resolve().parent
+    files = [PKG.parent / "chip_smoke.py"] + [
+        here / ("_torch_%s.py" % n)
+        for n in ("dist", "front", "pipe", "sep", "seq")]
+    for f in files:
+        for mod in _imported_modules(f):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "paddle_tpu"), (f, mod)
+
+
 def test_engine_without_device_raises_on_a_cpu_only_machine():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -123,6 +137,8 @@ def test_engine_without_device_raises_on_a_cpu_only_machine():
         DecodeEngine(m)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate(m, [[1, 2, 3]], max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        m.generate([[1, 2, 3]], max_new_tokens=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecodeEngine(m, device="cuda")
     from paddle_tpu_torch.jit import TrainStep

@@ -127,9 +127,12 @@ def _jax_layer(n_experts=4, d=16, hdim=32, top_k=2, gate="gshard"):
 
 
 def _jax_layer_grads(layer, x, cot):
-    out = layer(paddle.to_tensor(x))
-    loss = (out * paddle.to_tensor(cot)).sum() + layer.aux_loss
-    loss.backward()
+    # the JAX package's one recording switch, on for the call whatever an
+    # earlier test in this process left it at
+    with paddle.set_grad_enabled(True):
+        out = layer(paddle.to_tensor(x))
+        loss = (out * paddle.to_tensor(cot)).sum() + layer.aux_loss
+        loss.backward()
     grads = {n: np.asarray(p.grad.numpy())
              for n, p in layer.named_parameters()}
     return np.asarray(out.numpy()), float(layer.aux_loss), grads
