@@ -5,7 +5,13 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. build    — compile the CUDA kernels from ``paddle_tpu_torch/csrc``.
+1. build    — compile the CUDA kernels from ``paddle_tpu_torch/csrc``
+              (and, beside them, the native host library, g++).
+1a. native_runtime — the port's native library on this machine
+              (``core.native``): a TCPStore master and client on the
+              native backend, a rendezvous of three processes on it, a
+              ShmQueue carrying 64 MB from another process intact
+              (sha256), no ``/dev/shm/ptq_*`` segment left.
 2. checks   — every kernel against its plain PyTorch version on the card,
               with CUDA-event times of the kernel, the plain version and
               one PyTorch library call (``*_ms``, host launch cost
@@ -301,6 +307,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
               (PP_SDP_SLOT_SHARE), stage 2 reduce-scattering its grads
               and stage 1 not, each stage's launches; peak a rank.
 
+11n. launch_elastic — the port's launcher (``Launcher(nproc_per_node=1,
+              elastic=True, max_restarts=2)``) runs
+              ``tools/torch_launch_worker.py`` on the card: GPT-2 345M at
+              full width and LAUNCH_LAYERS (4) blocks, ``train``'s
+              configuration (B = 8, S = 1024, bf16 AMP O2, AdamW, dropout
+              0) under ``use_pallas_norm``, weights from seed 0, ids
+              through ``io.DataLoader(TensorDataset, num_workers=2)`` on
+              the shm route, ``TrainEpochRange`` over a
+              ``CheckpointManager`` (an epoch a step, async saves).  The
+              uninterrupted job twice (at once), then a job whose worker
+              dies (``HardExit``) at ``train.epoch`` of step 4 once its
+              step-3 checkpoint is on disk: one respawn, a resume at step
+              4 from that checkpoint and the data cursor, steps 4-7 equal
+              to the uninterrupted job's bit for bit (or within the two
+              uninterrupted jobs' largest difference); the checkpoint's
+              bytes, save and restore seconds, death to first resumed
+              step, host ms a batch through the loader and by hand, what
+              an async save adds to a step (the saving loop's step and
+              save-call ms; a probe after the second job's last step:
+              LAUNCH_SAVE_PROBE steps without and with a write in
+              flight); the flash forward, C2 and C3 4 a step, B and D 9.
+11o. launch_dp2_gloo — ``Launcher(nproc_per_node=2, master=<free port>)``:
+              two workers on the one card over gloo, each taking its rows
+              through ``DistributedBatchSampler(num_replicas=2)`` and the
+              shm DataLoader, 4 steps over dp = 2
+              (``TrainStep(local_batch=True)``), a synchronous save of
+              both ranks after the second (``host-0`` and ``host-1``
+              written, rank 0 publishing), then a second launch resuming
+              from it: losses within DP2_LOSS_TOL of this process's
+              one-process run on the global batch, both ranks'
+              parameters equal after the last step, the resumed steps
+              equal to the first job's bit for bit, each worker's
+              ``PADDLE_*`` environment as the launcher's contract says.
+              11n and 11o run at once, before the autotune phase (whose
+              cache the workers would read).
+
 ``python3 chip_smoke.py --distributed`` runs the train phase, 11d-11m,
 train_long and sep_train_gloo alone (the distributed phases without the
 kernel checks and serving phases), then prints the card and the device
@@ -347,6 +389,9 @@ line.
               the first step's named gradients and their norm within
               SEP_GRAD_REL_TOL (relative L2) of train_long's, rank r's
               flash forward and C2 / C3 r + 1 times a layer and step.
+
+``python3 chip_smoke.py --launch`` runs the build, native_runtime, 11n
+and 11o alone, then prints the card and the device line.
 
 Every phase but 14-16 runs with tuning off, no pin and an empty cache
 of the run's own (a temporary file under ``paddle_tpu_torch/_build/``,
@@ -6749,6 +6794,559 @@ def serve_fleet(torch, model, prompts, ref_tokens, own, own_ref, counters,
     return phase_end(torch, line, t0)
 
 
+# -- the native runtime, the launcher and elastic restarts -----------------
+
+#: the launched GPT-2 345M: full width (16 heads of 64, hidden 1024), the
+#: depth cut to LAUNCH_LAYERS blocks so that three launched jobs, their
+#: checkpoints (~1.2 GB each: f32 masters and two AdamW slots) and the
+#: dp2 jobs stay within about 150 s and the disk
+LAUNCH_LAYERS = 4
+LAUNCH_STEPS = 8
+LAUNCH_CRASH_AT = 4          # the worker dies after step 3's checkpoint
+LAUNCH_SAVE_PROBE = 5        # steps without and with a write in flight
+DP2_STEPS = 4
+DP2_SAVE_AFTER = 1           # the save after the second step (0-based 1)
+# dp2 against one process: the two sum the same rows' gradients in
+# another order (3.0e-5 apart on the card at 700 W), while a step moves
+# the loss by ~5e-3 there, so a rank that never updates fails
+DP2_LOSS_TOL = 1e-3
+SHM_PAYLOAD_BYTES = 64 << 20
+WORKER = os.path.join("tools", "torch_launch_worker.py")
+
+
+def launch_model_cfg(layers=LAUNCH_LAYERS, **cfg):
+    """GPT-2 345M's published widths at ``layers`` blocks, dropout as
+    ``train`` has it (0); ``cfg`` overrides (the CPU rehearsal's tiny
+    widths)."""
+    base = dict(vocab_size=50304, max_position_embeddings=1024,
+                hidden_size=1024, num_hidden_layers=layers,
+                num_attention_heads=16, intermediate_size=4096,
+                hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    base.update(cfg)
+    return base
+
+
+def launch_spec(workdir, **kw):
+    """Write the worker's spec into ``workdir``; returns its path.  The
+    card's run: ``train``'s configuration (B = 8, S = 1024, bf16 AMP O2,
+    AdamW, ``use_pallas_norm``), weights from seed 0, ids through
+    ``io.DataLoader(num_workers=2)``."""
+    spec = dict(workdir=workdir, device="cuda", model=launch_model_cfg(),
+                seed=0, rows_seed=1, batch=8, seq=1024, steps=LAUNCH_STEPS,
+                lr=1e-4, amp=True, use_pallas_norm=True, num_workers=2,
+                mode="elastic")
+    spec.update(kw)
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return path
+
+
+def launch_job(spec_path, root=".", **launcher_kw):
+    """Run the worker under the port's ``Launcher``; returns (the
+    launcher, {(rank, restart): result}).  A job that does not exit 0
+    raises with the tails of its workers' logs."""
+    from paddle_tpu_torch.distributed.launch_main import Launcher
+    workdir = os.path.dirname(spec_path)
+    launcher_kw.setdefault("log_dir", os.path.join(workdir, "log"))
+    launcher = Launcher(**launcher_kw)
+    rc = launcher.run([sys.executable, os.path.join(root, WORKER),
+                       spec_path])
+    results = {}
+    for name in os.listdir(workdir):
+        m = re.match(r"result-(\d+)-(\d+)\.json$", name)
+        if m:
+            with open(os.path.join(workdir, name)) as f:
+                results[(int(m.group(1)), int(m.group(2)))] = json.load(f)
+    logs = {}
+    for name in sorted(os.listdir(launcher_kw["log_dir"])):
+        with open(os.path.join(launcher_kw["log_dir"], name), "rb") as f:
+            logs[name] = f.read()[-3000:].decode(errors="replace")
+    if rc != 0:
+        raise AssertionError("launched job %s exited %d:\n%s"
+                             % (spec_path, rc, "\n".join(
+                                 "%s:\n%s" % kv for kv in logs.items())))
+    return launcher, results
+
+
+def repeat_bar(a, b):
+    """0.0 when two runs' losses are bit for bit equal, else their largest
+    difference: the bar a resumed run is held to."""
+    if a == b:
+        return 0.0
+    return max(abs(float(a[k]) - float(b[k])) for k in a)
+
+
+def losses_within(got, ref, steps, bar):
+    """The steps of ``got`` whose loss is not ``ref``'s (bit for bit at
+    bar 0, else further than ``bar``)."""
+    bad = {}
+    for s in steps:
+        g, r = got.get(str(s)), ref.get(str(s))
+        if g is None or r is None or (g != r if bar == 0.0
+                                      else abs(float(g) - float(r)) > bar):
+            bad[s] = (g, r)
+    return bad
+
+
+def launches_due(layers, use_norm=True):
+    """A training step's launches at ``layers`` blocks under AMP O2 bf16:
+    the tensor-core forward, C2 and C3 once a block, B and D 2L + 1 under
+    ``use_pallas_norm``."""
+    n = 2 * layers + 1 if use_norm else 0
+    return {"flash_fwd_tc": layers, "flash_fwd": 0, "flash_fwd_pipelined": 0,
+            "flash_bwd": 0, "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+            "layer_norm_fwd": n, "layer_norm_bwd": n, "ce_lse": 0,
+            "ce_fwd": 0, "ce_bwd": 0}
+
+
+def hold_launches(run, due, what):
+    """Every step of ``run`` launched ``due`` (None: not held)."""
+    if due is None:
+        return
+    bad = {s: got for s, got in run["launches"].items() if got != due}
+    if bad:
+        raise AssertionError("%s: launches a step %r, want %r"
+                             % (what, bad, due))
+
+
+def launch_elastic_hold(ref_a, ref_b, first, resumed, backoff_log, crash_at,
+                        steps, due=None):
+    """launch_elastic's checks: one respawn; the restarted worker resumed
+    at ``crash_at`` from the checkpoint of the step before and from the
+    data cursor; its losses equal the uninterrupted job's bit for bit
+    (or within the two uninterrupted jobs' largest difference, when they
+    differ); every run on the shm route.  Returns the phase's figures."""
+    bar = repeat_bar(ref_a["losses"], ref_b["losses"])
+    if len(backoff_log) != 1:
+        raise AssertionError("launch_elastic: %d respawns (%r), want 1"
+                             % (len(backoff_log), backoff_log))
+    if resumed["resumed_at"] != crash_at or \
+            resumed["restored_epoch"] != crash_at - 1:
+        raise AssertionError(
+            "launch_elastic: resumed at step %r from the checkpoint of %r, "
+            "want %d from %d" % (resumed["resumed_at"],
+                                 resumed["restored_epoch"], crash_at,
+                                 crash_at - 1))
+    if resumed["restored_cursor"] != {"epoch": 0, "batch": crash_at}:
+        raise AssertionError("launch_elastic: data cursor %r, want batch %d"
+                             % (resumed["restored_cursor"], crash_at))
+    if sorted(int(s) for s in resumed["losses"]) != list(range(crash_at,
+                                                              steps)):
+        raise AssertionError("launch_elastic: the resumed run's steps %r"
+                             % sorted(resumed["losses"]))
+    bad = losses_within(resumed["losses"], ref_a["losses"],
+                        range(crash_at, steps), bar)
+    if bad:
+        raise AssertionError("launch_elastic: resumed losses against the "
+                             "uninterrupted job's (bar %g): %r" % (bar, bad))
+    if sorted(int(s) for s in first["losses"]) != list(range(crash_at + 1)):
+        raise AssertionError("launch_elastic: the first run's steps %r"
+                             % sorted(first["losses"]))
+    bad = losses_within(first["losses"], ref_a["losses"],
+                        range(crash_at + 1), bar)
+    if bad:
+        raise AssertionError("launch_elastic: the first run's losses "
+                             "against the uninterrupted job's: %r" % bad)
+    for run in (ref_a, ref_b, first, resumed):
+        if run["route"] != "shm":
+            raise AssertionError("launch_elastic: the loader took route %r"
+                                 % run["route"])
+        hold_launches(run, due, "launch_elastic")
+    return {"repeat_bar": bar, "resumed_at": resumed["resumed_at"],
+            "restored_cursor": resumed["restored_cursor"],
+            "respawns": len(backoff_log), "backoff_log": backoff_log}
+
+
+def save_cost(run, probe):
+    """What async saves cost a step: in ``run``'s loop (a save every
+    epoch) the median synced step ms and the median ms a save call held
+    the loop (the fetch to host, and the wait for a slot in the bounded
+    writer queue); from ``probe`` the median step ms with no write in
+    flight and while one is, and the save call's ms alone."""
+    busy = [ms for ms, on in zip(probe["busy_step_ms"], probe["in_flight"])
+            if on]
+    idle = statistics.median(probe["idle_step_ms"])
+    busy_ms = statistics.median(busy) if busy else None
+    return {
+        "loop_step_ms": statistics.median(
+            ms for e, ms in run["step_ms"].items() if e != "0"),
+        "loop_save_call_ms": statistics.median(run["save_call_ms"].values()),
+        "probe_idle_step_ms": idle, "probe_busy_step_ms": busy_ms,
+        "probe_busy_steps": len(busy),
+        "probe_save_call_ms": probe["save_call_ms"],
+        "async_save_adds_ms_a_step": None if busy_ms is None
+        else busy_ms - idle}
+
+
+def launch_elastic(torch, root=".", spec_kw=None, due=None):
+    """Three launched jobs of the worker (``Launcher(nproc_per_node=1,
+    elastic=True, max_restarts=2)``), all at once: the uninterrupted job
+    twice (does the run repeat bit for bit?) and a job whose worker dies
+    at ``train.epoch`` of step LAUNCH_CRASH_AT after its checkpoint of the
+    step before is on disk, once (a marker file).  Held by
+    :func:`launch_elastic_hold`; the line adds the checkpoint's seconds
+    and bytes, the seconds from the death to the first resumed step, and
+    host ms a batch through the loader and by hand, all taken while the
+    three jobs share the card and the host."""
+    import threading
+
+    from paddle_tpu_torch.kernels import _build
+    spec_kw = dict(spec_kw or {})
+    steps = spec_kw.get("steps", LAUNCH_STEPS)
+    crash_at = spec_kw.pop("crash_at", LAUNCH_CRASH_AT)
+    kw = dict(nproc_per_node=1, elastic=True, max_restarts=2,
+              restart_delay=0.05, poll_interval=0.05)
+    t0 = time.perf_counter()
+    jobs = {}
+    with tempfile.TemporaryDirectory(prefix="launch-",
+                                     dir=_build.BUILD_DIR) as tmp:
+        def run(tag, **extra):
+            try:
+                jobs[tag] = launch_job(launch_spec(
+                    os.path.join(tmp, tag), **spec_kw, **extra), root, **kw)
+            except BaseException as e:
+                jobs[tag] = e
+        # ref_b's probe runs after its last recorded step
+        threads = [threading.Thread(target=run, args=(tag,), kwargs=kw)
+                   for tag, kw in (
+                       ("ref_a", {}),
+                       ("ref_b", {"save_probe": LAUNCH_SAVE_PROBE}),
+                       ("crash", {"crash_at": crash_at}))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for tag, got in jobs.items():
+            if isinstance(got, BaseException):
+                raise got
+        # the dying run's result so far, written as it died
+        with open(os.path.join(tmp, "crash", "crashed.json")) as f:
+            first = json.load(f)
+    launcher, results = jobs["crash"]
+    ref_a, ref_b = jobs["ref_a"][1][(0, 0)], jobs["ref_b"][1][(0, 0)]
+    resumed = results[(0, 1)]
+    model = spec_kw.get("model", launch_model_cfg())
+    line = {
+        "phase": "launch_elastic", "layers": model["num_hidden_layers"],
+        "width": {k: model[k] for k in ("hidden_size",
+                                        "num_attention_heads")},
+        "depth_cut": "%d of 24 blocks" % model["num_hidden_layers"],
+        "steps": steps, "crash_at": crash_at,
+        **launch_elastic_hold(ref_a, ref_b, first, resumed,
+                              launcher.backoff_log, crash_at, steps, due),
+        "losses_uninterrupted": ref_a["losses"],
+        "losses_resumed": resumed["losses"],
+        "checkpoint_bytes": resumed["write_bytes"]["sum"]
+        / max(1, resumed["write_bytes"]["count"]),
+        "save_seconds_mean": resumed["write_seconds"]["sum"]
+        / max(1, resumed["write_seconds"]["count"]),
+        "restore_seconds": resumed["restore_seconds"]["sum"],
+        "death_to_first_resumed_step_s":
+            resumed["t_first_step"] - first["t_death"],
+        "worker_start_to_first_step_s":
+            resumed["t_first_step"] - resumed["t_start"],
+        **save_cost(ref_a, ref_b["save_probe"]),
+        "loader_ms_per_batch": statistics.median(resumed["loader_ms"]),
+        "by_hand_ms_per_batch": statistics.median(resumed["by_hand_ms"]),
+        "launches_per_step": resumed["launches"][str(crash_at)],
+        "launches": {k: sum(s[k] for s in resumed["launches"].values())
+                     for k in resumed["launches"][str(crash_at)]},
+        "jobs_concurrent": 3,
+        "seconds_total": time.perf_counter() - t0}
+    if spec_kw.get("device", "cuda") == "cuda":
+        line["card"] = card_line()
+    emit(line)
+    # the holds' inputs, for a rehearsal to perturb (not printed)
+    line["runs"] = dict(ref_a=ref_a, ref_b=ref_b, first=first,
+                        resumed=resumed, backoff_log=launcher.backoff_log,
+                        crash_at=crash_at, steps=steps)
+    return line
+
+
+def launch_dp2_hold(single, job1, job2, save_after, steps, master, bar,
+                    repeat, due=None):
+    """launch_dp2_gloo's checks: the first job's losses within ``bar`` of
+    the one-process run on the global batch; both ranks' host files
+    written and rank 0 published; the second job resumed after
+    ``save_after`` and its steps equal the first job's bit for bit (or
+    within ``repeat``); in each job both ranks' parameters equal bit for
+    bit after the last step (the gradient all-reduce ran); each rank's ``PADDLE_*`` environment as the
+    launcher's contract says; the shm route."""
+    for r, run in enumerate(job1):
+        bad = {s: (run["losses"].get(str(s)), single[s])
+               for s in range(steps)
+               if not abs(float(run["losses"].get(str(s), "nan"))
+                          - single[s]) <= bar}
+        if bad:
+            raise AssertionError("launch_dp2_gloo: rank %d's losses against "
+                                 "one process (bar %g): %r" % (r, bar, bad))
+    for job in (job1, job2):
+        if len({run["params_sha256"] for run in job}) != 1:
+            raise AssertionError("launch_dp2_gloo: the ranks' parameters "
+                                 "differ after the last step: %r"
+                                 % [run["params_sha256"] for run in job])
+    if job1[0].get("host_files") != ["host-0.ckpt", "host-1.ckpt"]:
+        raise AssertionError("launch_dp2_gloo: published files %r"
+                             % (job1[0].get("host_files"),))
+    for r, run in enumerate(job2):
+        if run["resumed_at"] != save_after + 1 or run["restored_cursor"] \
+                != {"epoch": 0, "batch": save_after + 1}:
+            raise AssertionError(
+                "launch_dp2_gloo: rank %d resumed at %r with cursor %r"
+                % (r, run["resumed_at"], run["restored_cursor"]))
+        bad = losses_within(run["losses"], job1[r]["losses"],
+                            range(save_after + 1, steps), repeat)
+        if bad or sorted(int(s) for s in run["losses"]) != list(
+                range(save_after + 1, steps)):
+            raise AssertionError("launch_dp2_gloo: rank %d's resumed losses "
+                                 "against its first job's: %r" % (r, bad))
+    for job in (job1, job2):
+        eps = ",".join("127.0.0.1:%d" % (6170 + r) for r in range(2))
+        for r, run in enumerate(job):
+            want = {"PADDLE_TRAINER_ID": str(r), "PADDLE_TRAINERS_NUM": "2",
+                    "PADDLE_LOCAL_RANK": str(r),
+                    "PADDLE_RANK_IN_NODE": str(r),
+                    "PADDLE_CURRENT_ENDPOINT": "127.0.0.1:%d" % (6170 + r),
+                    "PADDLE_TRAINER_ENDPOINTS": eps,
+                    "PADDLE_RESTART_COUNT": "0"}
+            got = {k: run["env"][k] for k in want}
+            if got != want or run["env"]["PADDLE_MASTER"] not in master:
+                raise AssertionError("launch_dp2_gloo: rank %d's env %r"
+                                     % (r, run["env"]))
+            if run["route"] != "shm":
+                raise AssertionError("launch_dp2_gloo: route %r"
+                                     % run["route"])
+            hold_launches(run, due, "launch_dp2_gloo")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def single_process_losses(torch, spec, root="."):
+    """The worker's model, data and optimizer in this process on the
+    global batch: the one-process losses the dp2 run is held against."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(
+        os.path.join(root, WORKER))))
+    try:
+        import importlib
+        worker = importlib.import_module("torch_launch_worker")
+    finally:
+        sys.path.pop(0)
+    from paddle_tpu_torch.utils import flags
+    # build_step sets the worker's LayerNorm route process-wide: this
+    # process's later phases keep theirs
+    norm = flags.fast_get("use_pallas_norm")
+    try:
+        step = worker.build_step(spec, torch, 1)
+        rows = worker.token_rows(spec)
+        losses = []
+        for e in range(spec["steps"]):
+            ids = torch.as_tensor(
+                rows[e * spec["batch"]:(e + 1) * spec["batch"]],
+                device=spec["device"])
+            losses.append(float(step(ids, ids)))
+    finally:
+        flags.set_flags({"use_pallas_norm": norm})
+    del step
+    return losses
+
+
+def launch_dp2_gloo(torch, root=".", spec_kw=None, due=None):
+    """``Launcher(nproc_per_node=2, master=127.0.0.1:<free port>)``: two
+    workers on the one card over gloo, each taking its rows through
+    ``DistributedBatchSampler(num_replicas=2)`` and the shm DataLoader,
+    DP2_STEPS steps over dp = 2 with a synchronous save of both ranks
+    after step DP2_SAVE_AFTER; then a second launch resumes from it.
+    Held by :func:`launch_dp2_hold` against a one-process run of the same
+    model on the global batch (this process)."""
+    from paddle_tpu_torch.kernels import _build
+    spec_kw = dict(dict(steps=DP2_STEPS, mode="dp",
+                        save_after=DP2_SAVE_AFTER), **(spec_kw or {}))
+    bar = DP2_LOSS_TOL
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dp2-",
+                                     dir=_build.BUILD_DIR) as tmp:
+        spec_path = launch_spec(os.path.join(tmp, "job"), **spec_kw)
+        with open(spec_path) as f:
+            spec = json.load(f)
+        masters = []
+        jobs = []
+        for resume in (False, True):
+            spec["resume"] = resume
+            spec["save_after"] = None if resume else spec_kw["save_after"]
+            with open(spec_path, "w") as f:
+                json.dump(spec, f)
+            for name in os.listdir(spec["workdir"]):
+                if name.startswith("result-"):
+                    os.unlink(os.path.join(spec["workdir"], name))
+            masters.append("127.0.0.1:%d" % free_port())
+            _, results = launch_job(spec_path, root, nproc_per_node=2,
+                                    master=masters[-1], poll_interval=0.05)
+            jobs.append([results[(r, 0)] for r in range(2)])
+        t_jobs = time.perf_counter() - t0
+        spec["device"] = spec_kw.get("device", "cuda")
+        single = single_process_losses(torch, spec, root)
+    launch_dp2_hold(single, jobs[0], jobs[1], spec_kw["save_after"],
+                    spec_kw["steps"], masters, bar, 0.0, due)
+    line = {"phase": "launch_dp2_gloo", "ranks": 2, "backend": "gloo",
+            "steps": spec_kw["steps"], "save_after": spec_kw["save_after"],
+            "loss_bar": bar, "single_process_losses": single,
+            "losses": [run["losses"] for run in jobs[0]],
+            "resumed_losses": [run["losses"] for run in jobs[1]],
+            "host_files": jobs[0][0]["host_files"],
+            "save_wall_s": [run["save_wall_s"] for run in jobs[0]],
+            "restore_wall_s": [run["restore_wall_s"] for run in jobs[1]],
+            "write_bytes": [run["write_bytes"]["sum"] for run in jobs[0]],
+            "launches_per_step": [run["launches"][str(spec_kw["steps"] - 1)]
+                                  for run in jobs[0]],
+            "launches": [{k: sum(s[k] for s in run["launches"].values())
+                          for k in run["launches"]["0"]} for run in jobs[0]],
+            "env": [run["env"] for run in jobs[0]],
+            "jobs_seconds": t_jobs, "seconds_total": time.perf_counter() - t0}
+    if spec_kw.get("device", "cuda") == "cuda":
+        line["card"] = card_line()
+    emit(line)
+    line["runs"] = dict(single=single, job1=jobs[0], job2=jobs[1],
+                        save_after=spec_kw["save_after"],
+                        steps=spec_kw["steps"], master=masters, bar=bar)
+    return line
+
+
+def _store_rank(port, rank, q):
+    from paddle_tpu_torch.distributed.store import TCPStore
+    try:
+        store = TCPStore("127.0.0.1", port, world_size=3)
+        store.set("rank%d" % rank, str(rank))
+        vals = [store.get("rank%d" % r) for r in range(3)]
+        store.barrier("meet", timeout=60)
+        q.put((rank, store.backend, vals))
+        store.close()
+    except BaseException as e:
+        q.put((rank, "error", repr(e)))
+
+
+def _shm_producer(name, nbytes, seed):
+    from paddle_tpu_torch.io.shm_queue import ShmQueue
+    q = ShmQueue.open(name)
+    q.put(np.random.default_rng(seed).integers(0, 256, nbytes,
+                                               dtype=np.uint8))
+    q.destroy()
+
+
+def native_runtime(torch, build_seconds=None):
+    """The port's native library on this machine: a TCPStore master and
+    client on the native backend and a rendezvous of three processes; a
+    ShmQueue carrying SHM_PAYLOAD_BYTES from another process intact; no
+    ``/dev/shm/ptq_*`` segment left behind."""
+    import glob
+    import hashlib
+    import multiprocessing as mp
+
+    from paddle_tpu_torch.core import native
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.io.shm_queue import ShmQueue
+    t0 = time.perf_counter()
+    before = set(glob.glob("/dev/shm/ptq_*"))
+    if not native.available():
+        raise AssertionError("native_runtime: the library did not load: %s"
+                             % native.load_error())
+    master = TCPStore("127.0.0.1", 0, is_master=True, world_size=3)
+    client = TCPStore("127.0.0.1", master.port, world_size=3)
+    if (master.backend, client.backend) != ("native", "native"):
+        raise AssertionError("native_runtime: backends %r"
+                             % ((master.backend, client.backend),))
+    ctx = mp.get_context("fork")
+    q = ctx.Queue()
+    t1 = time.perf_counter()
+    procs = [ctx.Process(target=_store_rank, args=(master.port, r, q))
+             for r in range(3)]
+    for p in procs:
+        p.start()
+    met = sorted(q.get(timeout=60) for _ in procs)
+    for p in procs:
+        p.join(30)
+    rendezvous_s = time.perf_counter() - t1
+    if [m[:2] for m in met] != [(r, "native") for r in range(3)] or any(
+            m[2] != [b"0", b"1", b"2"] for m in met):
+        raise AssertionError("native_runtime: rendezvous %r" % (met,))
+    client.close()
+    master.close()
+    sq = ShmQueue.create(SHM_PAYLOAD_BYTES + (1 << 20))
+    try:
+        t1 = time.perf_counter()
+        p = ctx.Process(target=_shm_producer,
+                        args=(sq.name, SHM_PAYLOAD_BYTES, 5))
+        p.start()
+        got = sq.get()
+        shm_s = time.perf_counter() - t1
+        p.join(30)
+    finally:
+        sq.close()
+        sq.destroy()
+    want = np.random.default_rng(5).integers(0, 256, SHM_PAYLOAD_BYTES,
+                                             dtype=np.uint8)
+    if got.shape != want.shape or hashlib.sha256(got).digest() != \
+            hashlib.sha256(want).digest():
+        raise AssertionError("native_runtime: the shm payload changed")
+    left = sorted(set(glob.glob("/dev/shm/ptq_*")) - before)
+    if left:
+        raise AssertionError("native_runtime: segments left: %r" % left)
+    line = {"phase": "native_runtime", "library": str(
+        native.library_path().name), "build_seconds": build_seconds,
+        "store_backends": [master.backend, client.backend],
+        "rendezvous_processes": 3, "rendezvous_seconds": rendezvous_s,
+        "shm_bytes": SHM_PAYLOAD_BYTES, "shm_seconds": shm_s,
+        "shm_mb_per_s": SHM_PAYLOAD_BYTES / 1e6 / shm_s,
+        "segments_left": left, "seconds": time.perf_counter() - t0}
+    if torch.cuda.is_available():
+        line["card"] = card_line()
+    emit(line)
+    return line
+
+
+def launch_phases(torch, seconds):
+    """launch_elastic and launch_dp2_gloo on the card, at once (five
+    workers and their loaders share the card and the host; their seconds
+    into ``seconds``); then no ``/dev/shm/ptq_*`` segment of their
+    loaders may be left.  Runs before the autotune phase fills this run's
+    cache, so the workers, which read it, take the hand-tuned kernels.
+    Returns their lines."""
+    import glob
+    import threading
+    before = set(glob.glob("/dev/shm/ptq_*"))
+    torch.cuda.empty_cache()
+    due = launches_due(LAUNCH_LAYERS)
+    out = {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn(torch, due=due)
+        except BaseException as e:
+            out[name] = e
+        seconds[name] = time.perf_counter() - t0
+    threads = [threading.Thread(target=run, args=(name, fn)) for name, fn in
+               (("launch_elastic", launch_elastic),
+                ("launch_dp2_gloo", launch_dp2_gloo))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for got in out.values():
+        if isinstance(got, BaseException):
+            raise got
+    left = sorted(set(glob.glob("/dev/shm/ptq_*")) - before)
+    if left:
+        raise AssertionError("launch phases: segments left: %r" % left)
+    return out["launch_elastic"], out["launch_dp2_gloo"]
+
+
 def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
                 seconds):
     """The distributed phases, timed into ``seconds``: dist_nccl and
@@ -6859,6 +7457,27 @@ def long_and_sep(torch, train_cfg, amp, counters, flags, seconds):
     return run_long, run_sep
 
 
+class NativeBuild:
+    """``core.native.load()`` on a thread of its own (g++ beside nvcc);
+    :meth:`join` returns the seconds g++ took (None: a fresh library was
+    there) and raises if the library did not load."""
+
+    def __init__(self):
+        import threading
+
+        from paddle_tpu_torch.core import native
+        self._native = native
+        self._thread = threading.Thread(target=native.load, daemon=True)
+        self._thread.start()
+
+    def join(self):
+        self._thread.join()
+        if not self._native.available():
+            raise AssertionError("the native library did not build: %s"
+                                 % self._native.load_error())
+        return self._native.build_seconds()
+
+
 def main():
     # a fault in native code prints the Python stack of every thread
     faulthandler.enable(all_threads=True)
@@ -6881,6 +7500,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
 
     t0 = time.perf_counter()
+    # the native host library (g++) builds beside the kernels (nvcc)
+    native_build = NativeBuild()
     # a fresh build reports every kernel's registers and spills
     lib_path, log = _build.build(
         ptxas_info="--ptxas" in sys.argv
@@ -6919,6 +7540,15 @@ def main():
                                 Counters(fac, norm_cuda, ce_cuda))
 
     seconds = {}
+    t0 = time.perf_counter()
+    native_runtime(torch, native_build.join())
+    seconds["native_runtime"] = time.perf_counter() - t0
+    if "--launch" in sys.argv:
+        launch_phases(torch, seconds)
+        emit({"phase": "seconds", **seconds})
+        tune_dir.cleanup()
+        device_line(torch, kind)
+        return 0
     t0 = time.perf_counter()
     flash_rows = check_flash(torch, fac)
     ln_rows, ln_err = check_layer_norm(torch, norm_cuda)
@@ -7246,6 +7876,7 @@ def main():
     (run_dp, run_tp2, run_zero, run_serve_tp2, run_pp, run_pp2, run_ring,
      _run_moe) = distributed(torch, base, train_cfg, amp, flags, counters,
                              run_train, seconds)
+    run_elastic, run_dp2 = launch_phases(torch, seconds)
     t0 = time.perf_counter()
     parity = train_parity(torch, base, amp, flags, counters)
     torch.cuda.empty_cache()
@@ -7328,6 +7959,7 @@ def main():
                     run_sep["launches"][r][kern] for r in (0, 1)})
         out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
                     for r in run_rc})
+        out.update(launched_launches(kern))
         # the sequence-parallel paths: the causal ring at two ranks (rank
         # r runs r + 1 blocks), Ulysses (one a rank), each a forward and
         # backward
@@ -7340,6 +7972,14 @@ def main():
             out["serve_scan_slotted"] = sum(
                 r["flash_fwd_tc_launches"] for r in scan_line["runs"]
                 if r["engine"] == "slotted")
+        return out
+    def launched_launches(kern):
+        """``kern``'s launches in the launched workers' runs: the resumed
+        elastic run (steps LAUNCH_CRASH_AT..LAUNCH_STEPS - 1) and each dp2
+        rank's first job."""
+        out = {"launch_elastic_resumed": run_elastic["launches"][kern]}
+        out.update({"launch_dp2_gloo_rank%d" % r: run_dp2["launches"][r][kern]
+                    for r in (0, 1)})
         return out
     tc_launches = {"serve": run_default["launches"]["flash_fwd_tc"],
                    # paged prefill attends through plain paged attention
@@ -7616,7 +8256,8 @@ def main():
                 run_pp2["launches"][st]["layer_norm_fwd"] for st in (0, 1)},
              **{"pp2_sdp2_gloo_%s_rank%d" % (run, r):
                 run_pp2["sdp2"][run]["launches"][r]["layer_norm_fwd"]
-                for run in ("sdp_stage1", "sdp_stage2") for r in (0, 2)}},
+                for run in ("sdp_stage1", "sdp_stage2") for r in (0, 2)},
+             **launched_launches("layer_norm_fwd")},
          "max_abs_err": max(ln_err, ln16_err), "ms": decode_row["kernel_ms"],
          "device_ms": decode_row["kernel_device_ms"],
          "plain_ms": decode_row["plain_ms"],
@@ -7654,7 +8295,8 @@ def main():
                 run_pp2["launches"][st]["layer_norm_bwd"] for st in (0, 1)},
              **{"pp2_sdp2_gloo_%s_rank%d" % (run, r):
                 run_pp2["sdp2"][run]["launches"][r]["layer_norm_bwd"]
-                for run in ("sdp_stage1", "sdp_stage2") for r in (0, 2)}},
+                for run in ("sdp_stage1", "sdp_stage2") for r in (0, 2)},
+             **launched_launches("layer_norm_bwd")},
          "max_abs_err": max(ln_bwd_err, ln16_bwd_err),
          "shape": ln_bwd_row["shape"],
          "ms": ln_bwd_row["kernel_ms"],

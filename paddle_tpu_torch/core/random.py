@@ -16,6 +16,29 @@ def seed(s: int) -> None:
     torch.manual_seed(int(s))
 
 
+def get_rng_state():
+    """The state of the generators the port's draws come from by default:
+    PyTorch's CPU generator and, in a process that uses cards, each
+    card's (JAX's ``paddle_tpu/core/random.py:74-79`` keeps one key and a
+    counter).  Explicit generators a model or a step holds are not in it:
+    a checkpoint saves those itself (``TrainEpochRange
+    .register_train_step``)."""
+    return {"cpu": torch.get_rng_state(),
+            "cuda": (torch.cuda.get_rng_state_all()
+                     if torch.cuda.is_initialized() else [])}
+
+
+def set_rng_state(state):
+    """Restore :func:`get_rng_state`'s output.  Card states are restored
+    when the process has as many cards as were saved from."""
+    torch.set_rng_state(torch.as_tensor(state["cpu"], dtype=torch.uint8))
+    cuda = state.get("cuda") or []
+    if cuda and torch.cuda.is_available() \
+            and len(cuda) == torch.cuda.device_count():
+        torch.cuda.set_rng_state_all(
+            [torch.as_tensor(s, dtype=torch.uint8) for s in cuda])
+
+
 # The dropout of the port draws from explicit generators.  While the
 # forward of a ``distributed.recompute`` runs, each of these draws first
 # notes its generator's state in every open record, so that the second

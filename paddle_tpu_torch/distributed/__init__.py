@@ -17,13 +17,17 @@ over the ``sep`` axis (``scaled_dot_product_attention`` routes to the
 ring where the mesh has a ``sep`` group), and :mod:`.moe` the
 Mixture-of-Experts layer over ``ep`` (:mod:`.utils` re-exports its
 ``global_scatter`` / ``global_gather``).  Also here: :mod:`.store`, the
-TCP key-value store, and :mod:`.recompute`, activation recompute.
+TCP key-value store (on the native library's server and client, or the
+Python pair), and :mod:`.recompute`, activation recompute.
+``distributed.launch`` is the launcher, :mod:`.launch_main` (``python -m
+paddle_tpu_torch.distributed.launch_main``: a node's workers with the
+``PADDLE_*`` environment, per-rank logs, elastic restarts), and
+``fleet.elastic`` its membership manager over the store.
 
 On a ``sep`` mesh the GPT shards its sequences itself (each rank runs
 its rows, the ring inside its attention; ``gather_sequence`` joins a
 rank's shard of an output), and ZeRO's ``sdp`` axis runs inside the 1F1B
-pipeline.  Not ported yet (ROADMAP.md §A5): ``auto_parallel`` and the
-launcher with ``fleet.elastic`` (``launch`` raises).
+pipeline.  Not ported yet (ROADMAP.md §A5): ``auto_parallel``.
 """
 from __future__ import annotations
 
@@ -100,8 +104,10 @@ def _spawn_entry(func, args, env):
 
 
 def __getattr__(name):
+    # lazy, as in the JAX package: ``launch`` is the launcher module,
+    # imported on access so that ``python -m
+    # paddle_tpu_torch.distributed.launch_main`` does not import it twice
     if name == "launch":
-        raise NotImplementedError(
-            "paddle_tpu_torch.distributed.launch: the launcher "
-            "(launch_main) is not ported yet (ROADMAP.md §A5)")
+        from . import launch_main
+        return launch_main
     raise AttributeError(name)

@@ -10,8 +10,8 @@ package); :meth:`_Fleet.init` lays the hybrid degrees over the
 world left over by the named degrees goes to ``dp``), and
 ``distributed_model`` wraps the layer for the active topology
 (PipelineParallel / TensorParallel / ShardingParallel / DataParallel),
-mirroring fleet_base.py:932.  ``fleet.elastic`` goes with the launcher
-and is not ported yet (ROADMAP.md §A5).
+mirroring fleet_base.py:932.  ``fleet.elastic`` is the elastic
+membership manager (:mod:`.elastic`) that goes with the launcher.
 """
 from __future__ import annotations
 
@@ -192,8 +192,8 @@ def worker_index():
 
 
 def __getattr__(name):
+    # the elastic manager (a subpackage), imported on access
     if name == "elastic":
-        raise NotImplementedError(
-            "paddle_tpu_torch.distributed.fleet.elastic goes with the "
-            "launcher, which is not ported yet (ROADMAP.md §A5)")
+        import importlib
+        return importlib.import_module(__name__ + ".elastic")
     raise AttributeError(name)

@@ -2,19 +2,21 @@
 store one process serves and every process of a job reaches over TCP,
 with ``set``, ``get``, ``add``, ``wait`` and ``barrier``.
 
-The server and the client are the JAX package's pure-Python ones
-(``_PyStoreServer``, ``_PyStoreClient``) on the same wire protocol, so a
-port client talks to a JAX package's master and the other way round.
-Each request is one op byte (1 SET, 2 GET, 3 ADD, 4 WAIT), a
+Server and client speak the JAX package's wire protocol, so a port
+client talks to a JAX package's master and the other way round.  Each
+request is one op byte (1 SET, 2 GET, 3 ADD, 4 WAIT), a
 little-endian u32 key length and the key, then for SET a u32 value
 length and the value, for ADD a u32 8 and an i64 increment.  Replies:
 SET one byte; GET and WAIT a u32 length (``0xFFFFFFFF`` for a missing
 key) and the value; ADD the new i64.
 
-The JAX package prefers its native library (``csrc/tcp_store.cpp``,
-loaded through ``paddle_tpu.core.native``) and falls back to these
-Python classes; the port does not build or load that library
-(ROADMAP.md §A5), so it always runs the Python server and client.
+Two backends speak that wire, chosen as the JAX package chooses
+(``paddle_tpu/distributed/store.py:48-160``): the native server and
+client of ``csrc/tcp_store.cpp`` (built and loaded by
+:mod:`..core.native`) when the library loads, else the pure-Python pair
+here.  ``TCPStore.backend`` (``"native"`` or ``"python"``) says which
+runs.  Either side of a connection may run either backend or be the JAX
+package's.
 
 Every client op goes through :func:`..robustness.retry.retry_call`
 inside the ``store.op`` liveness beacon, after the ``store.client_op``
@@ -24,12 +26,15 @@ retries with jittered backoff; an ``add`` whose reply was lost raises
 """
 from __future__ import annotations
 
+import ctypes
+import errno
 import socket
 import struct
 import threading
 import time
 from typing import Optional
 
+from ..core import native as _native
 from ..observability import liveness as _liveness
 from ..robustness import retry as _retry
 from ..robustness.faultpoints import declare as _declare, faultpoint
@@ -62,22 +67,28 @@ def _store_timeout(default: float) -> float:
 class TCPStore:
     """``is_master=True`` starts a server on ``port`` (0: a free port,
     then ``self.port``) and connects to it; otherwise connects to
-    ``host:port``, retrying for ``timeout`` seconds."""
+    ``host:port``, retrying for ``timeout`` seconds.  Server and client
+    run on the native library when it loads, else on the Python pair
+    (``self.backend``)."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  is_master: bool = False, world_size: int = 1,
                  timeout: float = 30.0):
+        lib = _native.load()
+        self.backend = "python" if lib is None else "native"
         self.host = host
         self.is_master = is_master
         self.world_size = world_size
-        self._py_server = None
+        self._server = None
         # fetched once; the NOOP_BEACON singleton when liveness is off
         self._beacon = _liveness.beacon("store.op")
         if is_master:
-            self._py_server = _PyStoreServer(port)
-            port = self._py_server.port
+            self._server = (_PyStoreServer(port) if lib is None
+                            else _NativeStoreServer(lib, port))
+            port = self._server.port
         self.port = port
-        self._client = _PyStoreClient(host, port, timeout)
+        self._client = (_PyStoreClient(host, port, timeout) if lib is None
+                        else _NativeStoreClient(lib, host, port, timeout))
 
     def _op(self, opname: str, fn):
         """One client op through the retry policy: transient socket
@@ -179,9 +190,145 @@ class TCPStore:
     def close(self):
         """Close the client's connection and stop a master's server."""
         self._client.close()
-        if self._py_server is not None:
-            self._py_server.close()
-            self._py_server = None
+        if self._server is not None:
+            self._server.close()
+            self._server = None
+
+
+class _NativeStoreServer:
+    """The server of ``csrc/tcp_store.cpp``: an accept thread and one
+    thread a connection, in C++."""
+
+    def __init__(self, lib, port):
+        self._lib = lib
+        self._h = lib.tcp_store_server_create(port)
+        if not self._h:
+            raise OSError("TCPStore: cannot bind port %d" % port)
+        self.port = lib.tcp_store_server_port(self._h)
+
+    def close(self):
+        if getattr(self, "_h", None):
+            self._lib.tcp_store_server_destroy(self._h)
+            self._h = None
+
+    __del__ = close
+
+
+class _NativeStoreClient:
+    """The client of ``csrc/tcp_store.cpp`` behind the Python client's
+    interface.  A failed op leaves the C++ client disconnected and says
+    whether the request reached the wire whole (error 2) or not (1): an
+    ``add`` of the first kind raises :class:`StoreReplyLostError`, every
+    other failure a ``ConnectionResetError`` that the retry policy
+    retries after :meth:`reconnect`.  :meth:`close` while another thread
+    is inside an op wakes it (the op fails) and frees the C++ client
+    when the last op leaves; an op after ``close`` raises ``EBADF``, as
+    the Python client's closed socket does."""
+
+    _GET_CAP = 1 << 20
+
+    def __init__(self, lib, host, port, timeout):
+        self._lib = lib
+        self._timeout = timeout
+        self._state = threading.Lock()
+        self._busy = 0
+        self._closed = False
+        self._h = lib.tcp_store_client_create_t(
+            host.encode(), port, int(max(timeout, 0.0) * 1000))
+        if not self._h:
+            raise ConnectionRefusedError(
+                "TCPStore: cannot connect to %s:%d within %.1fs"
+                % (host, port, timeout))
+        self._buf_lock = threading.Lock()
+        self._buf = ctypes.create_string_buffer(self._GET_CAP)
+
+    def _call(self, fn):
+        with self._state:
+            if self._closed or not self._h:
+                raise OSError(errno.EBADF, "TCPStore client is closed")
+            self._busy += 1
+        try:
+            return fn(self._h)
+        finally:
+            with self._state:
+                self._busy -= 1
+                if self._closed and not self._busy:
+                    self._free()
+
+    def _free(self):
+        if self._h:
+            self._lib.tcp_store_client_destroy(self._h)
+            self._h = None
+
+    def close(self):
+        with self._state:
+            if self._closed:
+                return
+            self._closed = True
+            if self._busy:
+                self._lib.tcp_store_client_shutdown(self._h)
+            else:
+                self._free()
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.tcp_store_client_destroy(self._h)
+
+    def fileno(self):
+        """The connection's socket (-1 while disconnected)."""
+        return self._call(self._lib.tcp_store_client_fd)
+
+    def _lost(self, h, what):
+        return ConnectionResetError(
+            "TCPStore.%s: the connection failed (%s)" % (
+                what, "reply lost" if self._lib.tcp_store_client_last_error(h)
+                == 2 else "request not sent"))
+
+    def reconnect(self):
+        ms = int(min(self._timeout, 5.0) * 1000)
+        if self._call(lambda h: self._lib.tcp_store_client_reconnect(
+                h, ms)) != 0:
+            raise ConnectionRefusedError("TCPStore: reconnect failed")
+
+    def set(self, key, data):
+        def op(h):
+            if self._lib.tcp_store_set(h, key.encode(), data, len(data)):
+                raise self._lost(h, "set(%r)" % key)
+        self._call(op)
+
+    def get(self, key, wait):
+        if wait:
+            # a blocking get waits on the server until the key exists: it
+            # takes a buffer of its own rather than hold the shared one's
+            # lock while it waits
+            buf = ctypes.create_string_buffer(self._GET_CAP)
+            return self._call(lambda h: self._get(h, key, 1, buf))
+        with self._buf_lock:
+            return self._call(lambda h: self._get(h, key, 0, self._buf))
+
+    def _get(self, h, key, wait, buf):
+        while True:
+            n = self._lib.tcp_store_get(h, key.encode(), buf, len(buf), wait)
+            if n == -1:
+                raise KeyError(key)
+            if n < 0:
+                raise self._lost(h, "get(%r)" % key)
+            if n <= len(buf):
+                return buf.raw[:n]
+            buf = ctypes.create_string_buffer(n)   # again, whole
+
+    def add(self, key, amount):
+        def op(h):
+            out = self._lib.tcp_store_add(h, key.encode(), amount)
+            if out != -(1 << 63):
+                return int(out)
+            if self._lib.tcp_store_client_last_error(h) == 2:
+                raise StoreReplyLostError(
+                    "TCPStore.add(%r, %d): reply lost after the request "
+                    "was sent — the increment may or may not have been "
+                    "applied; not reissuing" % (key, amount))
+            raise self._lost(h, "add(%r)" % key)
+        return self._call(op)
 
 
 class _PyStoreServer:
@@ -259,11 +406,17 @@ class _PyStoreServer:
 
 
 class _PyStoreClient:
+    """After a failed op the stream's state is unknown (a late reply would
+    be read as the next op's), so the client drops it: the next op raises
+    ``ConnectionResetError`` until :meth:`reconnect`, which the retry
+    policy calls."""
+
     def __init__(self, host, port, timeout):
         self._host = host
         self._port = port
         self._timeout = timeout
         self._lock = threading.Lock()
+        self._closed = False
         self._sock = self._connect(timeout)
 
     def _connect(self, timeout):
@@ -281,18 +434,45 @@ class _PyStoreClient:
         """Drop the (possibly broken) stream and dial again: the retry
         policy's hook between attempts after a transient error."""
         with self._lock:
+            if self._closed:
+                raise OSError(errno.EBADF, "TCPStore client is closed")
+            self._drop()
+            self._sock = self._connect(min(self._timeout, 5.0))
+
+    def _drop(self):
+        if self._sock is not None:
             try:
                 self._sock.close()
             except OSError:
                 pass
-            self._sock = self._connect(min(self._timeout, 5.0))
+            self._sock = None
 
     def close(self):
         with self._lock:
+            self._closed = True
+            self._drop()
+
+    def fileno(self):
+        return -1 if self._sock is None else self._sock.fileno()
+
+    def _stream(self):
+        """The connected socket (under ``self._lock``)."""
+        if self._sock is None:
+            if self._closed:
+                raise OSError(errno.EBADF, "TCPStore client is closed")
+            raise ConnectionResetError(errno.ENOTCONN,
+                                       "TCPStore: not connected")
+        return self._sock
+
+    def _io(self, fn):
+        """``fn(sock)`` under the lock; a socket error drops the stream."""
+        with self._lock:
+            sock = self._stream()
             try:
-                self._sock.close()
+                return fn(sock)
             except OSError:
-                pass
+                self._drop()
+                raise
 
     def _read_full(self, n):
         buf = b""
@@ -304,34 +484,40 @@ class _PyStoreClient:
         return buf
 
     def set(self, key, data):
-        with self._lock:
-            kb = key.encode()
-            self._sock.sendall(bytes([1]) + struct.pack("<I", len(kb)) + kb
-                               + struct.pack("<I", len(data)) + data)
+        kb = key.encode()
+
+        def op(sock):
+            sock.sendall(bytes([1]) + struct.pack("<I", len(kb)) + kb
+                         + struct.pack("<I", len(data)) + data)
             self._read_full(1)
+        self._io(op)
 
     def get(self, key, wait):
-        with self._lock:
-            kb = key.encode()
-            self._sock.sendall(bytes([4 if wait else 2])
-                               + struct.pack("<I", len(kb)) + kb)
+        kb = key.encode()
+
+        def op(sock):
+            sock.sendall(bytes([4 if wait else 2])
+                         + struct.pack("<I", len(kb)) + kb)
             ln = struct.unpack("<I", self._read_full(4))[0]
             if ln == 0xFFFFFFFF:
                 raise KeyError(key)
             return self._read_full(ln)
+        return self._io(op)
 
     def add(self, key, amount):
-        with self._lock:
-            kb = key.encode()
-            self._sock.sendall(bytes([3]) + struct.pack("<I", len(kb)) + kb
-                               + struct.pack("<I", 8)
-                               + struct.pack("<q", amount))
+        kb = key.encode()
+
+        def op(sock):
+            sock.sendall(bytes([3]) + struct.pack("<I", len(kb)) + kb
+                         + struct.pack("<I", 8) + struct.pack("<q", amount))
             # the request is on the wire: from here the server may have
             # applied the increment, so a lost reply is not reissued
             try:
                 return struct.unpack("<q", self._read_full(8))[0]
             except (ConnectionError, OSError) as e:
+                self._drop()
                 raise StoreReplyLostError(
                     "TCPStore.add(%r, %d): reply lost after the request "
                     "was sent — the increment may or may not have been "
                     "applied; not reissuing" % (key, amount)) from e
+        return self._io(op)

@@ -1,4 +1,4 @@
-"""``paddle.incubate`` (port of ``paddle_tpu/incubate``): so far only the
-MoE import path, ``incubate.distributed.models.moe`` (ROADMAP.md §A7
-has the rest)."""
-from . import distributed  # noqa: F401
+"""``paddle.incubate`` (port of ``paddle_tpu/incubate``): the MoE import
+path, ``incubate.distributed.models.moe``, and the checkpoint manager,
+``incubate.checkpoint`` (ROADMAP.md §A7 has the rest)."""
+from . import checkpoint, distributed  # noqa: F401

@@ -156,13 +156,18 @@ class TrainStep:
         step = TrainStep(model, loss_fn, opt)
         for x, y in loader:
             loss = step(x, y)
+
+    ``in_shardings=PartitionSpec("dp", None)`` cuts the global batch it is
+    given into the rank's rows; with ``local_batch=True`` each rank passes
+    its own rows (from a ``DistributedBatchSampler``) and the step only
+    averages over ``dp``.
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
                  num_inputs: int = 1, in_shardings=None, donate=True,
                  zero_stage=None, zero_axis: str = "sdp",
                  stack_layers: bool = False, flat_master=None, seed: int = 0,
-                 device=None):
+                 device=None, local_batch: bool = False):
         if flat_master and not _flat_eligible(optimizer, zero_stage,
                                               stack_layers):
             raise ValueError(
@@ -170,6 +175,9 @@ class TrainStep:
                 "(ZeRO/stack_layers/per-param optimizer semantics — see "
                 "_flat_eligible)")
         self._batch_axis, self._in_specs = _batch_axis(in_shardings)
+        # each rank passes its own rows (a DistributedBatchSampler's): the
+        # step averages over the batch axis without cutting the batch
+        self._local_rows_given = bool(local_batch)
         self._dp_group = None
         self._dp_bufs = {}
         if self._batch_axis is not None:
@@ -358,8 +366,8 @@ class TrainStep:
 
     def _local_batch(self, batch):
         """This rank's rows of each batch element whose spec shards its
-        first dimension."""
-        if self._batch_axis is None:
+        first dimension (the batch as it is under ``local_batch=True``)."""
+        if self._batch_axis is None or self._local_rows_given:
             return batch
         from ..distributed.parallel_base import local_rows
         specs = self._in_specs

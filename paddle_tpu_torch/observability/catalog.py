@@ -12,9 +12,10 @@ package's entry of the same name, word for word.
 Only the names the port emits are here: the serving scheduler and
 engine, the host KV tier, the disaggregated handoff, the router, the
 HTTP front end, the faultpoints, the retry policy, the liveness monitor,
-the cluster merge and the tensor-parallel overlap islands.  The JAX
-catalog's collective, training, checkpoint, autotune, compile-watchdog and HBM-ledger names
-wait for their modules (ROADMAP.md §A).
+the cluster merge, the tensor-parallel overlap islands and the
+checkpoint manager.  The JAX catalog's collective, training, autotune,
+compile-watchdog and HBM-ledger names wait for their modules (ROADMAP.md
+§A).
 
 Naming: dotted ``<subsystem>.<what>_<unit>``; the Prometheus exporter
 rewrites dots to underscores (``serving.ttft_seconds`` ->
@@ -171,6 +172,17 @@ CATALOG = {
         "array of a completed non-streaming response) — the goodput "
         "numerator; tokens computed for a disconnected/cancelled "
         "request never count"),
+
+    # -- checkpoint (incubate/checkpoint) -----------------------------------
+    "checkpoint.write_seconds": _m(
+        "histogram", "full checkpoint save (serialize + shard write + "
+        "manifest + publish)", unit="seconds"),
+    "checkpoint.write_bytes": _m(
+        "histogram", "bytes per checkpoint save (manifest-intended bytes)",
+        unit="bytes"),
+    "checkpoint.restore_seconds": _m(
+        "histogram", "checkpoint restore (read + verify + deserialize)",
+        unit="seconds"),
 
     # -- tensor-parallel collective-matmul overlap (distributed/mp_overlap)
     "mp.overlap_chunks": _m(

@@ -2,7 +2,7 @@
 parallelism stack lives in paddle_tpu_torch.distributed (mesh,
 collectives, mp_layers, pipeline, sharding, fleet).  This namespace
 re-exports it under the build plan's `parallel/` name (every name of
-its ``__all__`` but ``launch``, which is not ported yet and raises)."""
+its ``__all__``, the launcher module ``launch`` too)."""
 from .. import distributed as _distributed
 from ..distributed import collective, fleet, mesh, mp_layers, pipeline, sharding  # noqa: F401
 from ..distributed.mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
@@ -15,4 +15,4 @@ from ..distributed.pipeline import (LayerDesc, PipelineLayer, PipelineParallel,
                                     spmd_pipeline)
 
 globals().update({name: getattr(_distributed, name)
-                  for name in _distributed.__all__ if name != "launch"})
+                  for name in _distributed.__all__})

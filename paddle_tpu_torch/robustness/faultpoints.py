@@ -21,11 +21,13 @@ process.
 
 Sites are declared with :func:`declare` at import time of the
 instrumented module; :data:`SITES` is the live injection-site registry.
-The actions here are the ones the serving path uses: ``TornFile`` and
-``BitFlip`` corrupt the staging file of a host-tier fetch
-(``serve.kv_tier``) or a host-staged handoff (``serve.handoff``).  The
-JAX package's checkpoint and training actions (``DiskFull``,
-``NaNBatch``, ``ForceFoundInf``) wait for their sites (ROADMAP.md §A6).
+``TornFile`` and ``BitFlip`` corrupt the staging file of a host-tier
+fetch (``serve.kv_tier``), a host-staged handoff (``serve.handoff``) or
+a checkpoint's shard (``checkpoint.shard_file``,
+``checkpoint.restore_read``); ``DiskFull`` raises ENOSPC where a
+checkpoint's shard is written (``checkpoint.shard_write``).  The JAX
+package's training actions (``NaNBatch``, ``ForceFoundInf``) wait for
+their sites (ROADMAP.md §A6).
 """
 from __future__ import annotations
 
@@ -39,8 +41,8 @@ from typing import Any, Dict, List, Optional, Tuple
 __all__ = [
     "FaultPlan", "FaultAction", "chaos", "faultpoint", "declare",
     "active_plan", "SITES",
-    "Raise", "SocketReset", "TornFile", "BitFlip", "Preempt", "HardExit",
-    "Hang",
+    "Raise", "DiskFull", "SocketReset", "TornFile", "BitFlip", "Preempt",
+    "HardExit", "Hang",
     "CrashScopeExit", "crash_scope",
 ]
 
@@ -114,6 +116,15 @@ class Raise(FaultAction):
     def fire(self, ctx, plan):
         exc = self._exc() if callable(self._exc) else self._exc
         raise exc
+
+
+class DiskFull(Raise):
+    """ENOSPC at the site: a full disk (or quota) under a checkpoint
+    write."""
+
+    def __init__(self):
+        super().__init__(lambda: OSError(
+            _errno.ENOSPC, "No space left on device (injected)"))
 
 
 class SocketReset(Raise):

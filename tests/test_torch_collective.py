@@ -232,15 +232,17 @@ def test_topology_matches_jax():
 
 def test_all_names_match_jax():
     """``__all__`` is the JAX package's plus the names the port had
-    (store, recompute); the unported one (``launch``) raises, naming
-    ROADMAP §A5, and ``fleet`` is the port's facade module."""
+    (store, recompute); ``launch`` is the launcher module, as in the JAX
+    package, and ``fleet`` is the port's facade module."""
     ported = ["store", "TCPStore", "StoreReplyLostError", "recompute",
               "recompute_sequential"]
     assert tdist.__all__ == jdist.__all__ + ported
     for name in jdist.__all__:
         if name == "launch":
-            with pytest.raises(NotImplementedError, match="§A5"):
-                getattr(tdist, name)
+            from paddle_tpu_torch.distributed import launch_main
+            assert getattr(tdist, name) is launch_main
+            assert callable(launch_main.main)
+            assert isinstance(launch_main.Launcher, type)
         elif name == "fleet":
             assert callable(tdist.fleet.init)
             assert callable(tdist.fleet.distributed_model)

@@ -215,9 +215,19 @@ def test_hybrid_optimizer_matches_jax_unsharded():
     assert tl.weight.grad is None
 
 
-def test_fleet_elastic_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="§A5"):
-        tfleet.elastic
+def test_fleet_elastic_and_launch_resolve_to_the_ported_modules():
+    """``fleet.elastic`` is the port's elastic manager module and
+    ``distributed.launch`` its launcher, as in the JAX package."""
+    import paddle_tpu.distributed as jdist
+
+    import paddle_tpu_torch.distributed as tdist
+    from paddle_tpu_torch.distributed import launch_main
+    from paddle_tpu_torch.distributed.fleet import elastic
+    assert tfleet.elastic is elastic
+    assert elastic.__name__ == "paddle_tpu_torch.distributed.fleet.elastic"
+    assert {"ElasticManager", "ElasticStatus"} <= set(dir(tfleet.elastic))
+    assert tdist.launch is launch_main
+    assert set(jdist.launch.__all__) <= set(dir(tdist.launch))
 
 
 def test_module_level_aliases():

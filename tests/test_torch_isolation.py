@@ -50,7 +50,12 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.parallel, "
         "paddle_tpu_torch.nn.parallel, "
         "paddle_tpu_torch.robustness.retry, "
-        "paddle_tpu_torch.observability.aggregate\n"
+        "paddle_tpu_torch.observability.aggregate, "
+        "paddle_tpu_torch.core.native, "
+        "paddle_tpu_torch.io, paddle_tpu_torch.io.shm_queue, "
+        "paddle_tpu_torch.incubate.checkpoint, "
+        "paddle_tpu_torch.distributed.launch_main, "
+        "paddle_tpu_torch.distributed.fleet.elastic\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'paddle_tpu' "
@@ -114,13 +119,15 @@ def test_no_file_imports_jax_or_paddle_tpu():
 
 
 def test_chip_smoke_and_the_rank_helpers_import_no_jax():
-    """``chip_smoke.py`` and the JAX-free helpers whose jobs the gloo
-    ranks run (``tests/_torch_*.py``) import neither JAX nor
+    """``chip_smoke.py``, the worker it launches
+    (``tools/torch_launch_worker.py``) and the JAX-free helpers whose jobs
+    the gloo ranks run (``tests/_torch_*.py``) import neither JAX nor
     ``paddle_tpu``."""
     here = pathlib.Path(__file__).resolve().parent
-    files = [PKG.parent / "chip_smoke.py"] + [
+    files = [PKG.parent / "chip_smoke.py",
+             PKG.parent / "tools" / "torch_launch_worker.py"] + [
         here / ("_torch_%s.py" % n)
-        for n in ("dist", "front", "pipe", "sep", "seq")]
+        for n in ("dist", "front", "pipe", "sep", "seq", "launch")]
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

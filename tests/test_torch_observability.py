@@ -312,6 +312,12 @@ def test_catalog_is_two_way_over_a_serving_run(monkeypatch, tmp_path):
     from paddle_tpu_torch.distributed import mp_overlap
     with mp_overlap.overlap_scope(True, 2):
         mp_overlap._resolve_chunks("row", 8, 64, 32, 2, torch.float32, 16)
+    # a checkpoint saved and restored
+    from paddle_tpu_torch.incubate.checkpoint import CheckpointManager
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), async_save=False)
+    mgr.save(1, {"w": torch.arange(4.0)})
+    assert torch.equal(mgr.restore()["w"], torch.arange(4.0))
+    mgr.close()
     liveness.declare_beacon("test.catalog_stall", "test-local beacon")
     monkeypatch.setenv("PADDLE_TPU_LIVENESS_DEADLINE_TEST_CATALOG_STALL",
                        "0.0")

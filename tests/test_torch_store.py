@@ -1,12 +1,14 @@
 """paddle_tpu_torch's TCPStore against ``paddle_tpu``'s, after the store
-cases of ``tests/test_chaos.py``: the pure-Python server and client on
-the JAX package's wire protocol, a port client against a JAX master and
-a JAX client against a port master (set, get, add, wait, barrier), ops
-surviving injected socket resets at the ``store.client_op`` site, a typed
-exhaustion, an ``add`` whose reply was lost surfacing as
-``StoreReplyLostError`` and never reissued, a reconnect after a real
-socket death, and wait and barrier timeouts that name what they waited
-for."""
+cases of ``tests/test_chaos.py``, each case on both of the port's
+backends (the native server and client of ``csrc/tcp_store.cpp``, and
+the pure-Python pair): the JAX package's wire protocol, a port client
+against a JAX master and a JAX client against a port master (set, get,
+add, wait, barrier), ops surviving injected socket resets at the
+``store.client_op`` site, a typed exhaustion, an ``add`` whose reply was
+lost on the way surfacing as ``StoreReplyLostError`` and never reissued,
+a reconnect after a real socket death, and wait and barrier timeouts
+that name what they waited for."""
+import os
 import socket
 import threading
 import time
@@ -14,6 +16,7 @@ import time
 import pytest
 
 from paddle_tpu.distributed import store as jax_store_mod
+from paddle_tpu_torch.distributed import store as port_store_mod
 from paddle_tpu_torch.distributed.store import (StoreReplyLostError,
                                                 TCPStore)
 from paddle_tpu_torch.observability.liveness import BEACONS
@@ -30,11 +33,74 @@ def jax_py(monkeypatch):
     return jax_store_mod.TCPStore
 
 
+BACKENDS = ("native", "python")
+
+
+@pytest.fixture(params=BACKENDS)
+def backend(request, monkeypatch):
+    """The port's stores of the test on one backend: the native library
+    (it loads here), or the Python pair with the library's loader
+    forced to fail."""
+    if request.param == "python":
+        monkeypatch.setattr(port_store_mod._native, "load", lambda: None)
+    return request.param
+
+
 @pytest.fixture
-def store():
+def store(backend):
     s = TCPStore("127.0.0.1", 0, is_master=True, world_size=1)
+    assert s.backend == backend
     yield s
     s.close()
+
+
+class _ReplyDropProxy:
+    """A TCP relay in front of a store's server that, once armed, lets
+    the next reply from the server die on the way: the server has done
+    the op, the client sees its connection close."""
+
+    def __init__(self, port):
+        self._up = port
+        self.armed = False
+        self._lsock = socket.socket()
+        self._lsock.bind(("127.0.0.1", 0))
+        self._lsock.listen(8)
+        self.port = self._lsock.getsockname()[1]
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self):
+        while True:
+            try:
+                conn, _ = self._lsock.accept()
+            except OSError:
+                return
+            up = socket.create_connection(("127.0.0.1", self._up))
+            threading.Thread(target=self._pump, args=(conn, up, False),
+                             daemon=True).start()
+            threading.Thread(target=self._pump, args=(up, conn, True),
+                             daemon=True).start()
+
+    def _pump(self, src, dst, replies):
+        try:
+            while True:
+                data = src.recv(65536)
+                if not data:
+                    break
+                if replies and self.armed:
+                    self.armed = False
+                    break          # the reply is dropped with the link
+                dst.sendall(data)
+        except OSError:
+            pass
+        for sk in (src, dst):
+            try:
+                sk.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            sk.close()
+
+    def close(self):
+        self._lsock.close()
 
 
 def test_site_and_beacon_declared():
@@ -43,12 +109,14 @@ def test_site_and_beacon_declared():
 
 @pytest.mark.parametrize("master,client", [("torch", "jax"),
                                            ("jax", "torch")])
-def test_interop_both_ways(jax_py, master, client):
+def test_interop_both_ways(jax_py, backend, master, client):
     """One package's master, the other package's client: every op sees
     the other side's writes, byte for byte."""
     cls = {"torch": TCPStore, "jax": jax_py}
     m = cls[master]("127.0.0.1", 0, is_master=True, world_size=2)
     c = cls[client]("127.0.0.1", m.port, world_size=2)
+    assert [s.backend for s in (m, c) if isinstance(s, TCPStore)] == \
+        [backend]
     c.set("k", b"\x00\x01binary\xff")
     assert m.get("k") == b"\x00\x01binary\xff"
     m.set("s", "text")
@@ -68,10 +136,13 @@ def test_interop_both_ways(jax_py, master, client):
     assert done == [1]
 
 
-def test_blocking_get_waits_for_the_key(store):
+def test_blocking_get_waits_for_the_key(store, backend):
     c = TCPStore("127.0.0.1", store.port)
-    threading.Timer(0.2, lambda: store.set("w", b"v")).start()
+    setter = threading.Timer(0.2, lambda: store.set("w", b"v"))
+    setter.start()
     assert c.get("w") == b"v"
+    setter.join()
+    c.close()
 
 
 def test_op_survives_injected_socket_resets(store):
@@ -100,24 +171,27 @@ def test_op_exhaustion_is_typed(store, monkeypatch):
     assert plan.hits("store.client_op") == 3
 
 
-def test_add_lost_reply_is_typed_not_reissued(store):
-    assert store.add("exact", 1) == 1
-    client = store._client
-    orig = client._read_full
-
-    def broken_read(n):
-        client._read_full = orig       # heal after one failure
-        raise ConnectionResetError("reply lost (simulated)")
-
-    client._read_full = broken_read
+def test_add_lost_reply_is_typed_not_reissued(store, backend):
+    """The server applies the add, its reply dies on the way: the client
+    raises ``StoreReplyLostError`` without a second increment, and its
+    next op reconnects."""
+    proxy = _ReplyDropProxy(store.port)
+    c = TCPStore("127.0.0.1", proxy.port)
+    assert c.add("exact", 1) == 1
+    proxy.armed = True
     with pytest.raises(StoreReplyLostError, match="may or may not"):
-        store.add("exact", 1)
+        c.add("exact", 1)
+    assert c.add("exact", 0) == 2
     assert store.add("exact", 0) == 2
+    c.close()
+    proxy.close()
 
 
 def test_reconnect_after_real_socket_death(store):
     store.set("alive", b"1")
-    store._client._sock.shutdown(socket.SHUT_RDWR)
+    sk = socket.socket(fileno=os.dup(store._client.fileno()))
+    sk.shutdown(socket.SHUT_RDWR)
+    sk.close()
     assert store.get("alive") == b"1"
 
 
@@ -152,7 +226,7 @@ def test_barrier_single_participant_meets(store):
     store.barrier("ok", timeout=5.0)
 
 
-def test_connect_to_a_dead_master_times_out():
+def test_connect_to_a_dead_master_times_out(backend):
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
