@@ -2540,6 +2540,11 @@ def train_dp(torch, base, amp, counters, default_losses, train_line,
 # so a decode step's rows meet B's gate (rows % 8) as serve's do
 TP2_PROMPTS = 8
 TP2_NEW_TOKENS = 16
+# the depth of the multi-process phases over gloo (tp2_gloo, zero_gloo,
+# serve_http_tp2, pp_single and pp2_gloo, pp2_sdp2_gloo, sep_train_gloo),
+# each held against one process at that depth: at 24 blocks they held
+# the script to 1083-1224 s of its 1200 s limit on slower machines
+GLOO_LAYERS = 12
 
 
 def greedy_logits(engine, prompts, steps):
@@ -2959,36 +2964,52 @@ def zero_rank(torch, spec, counters, device="cuda"):
     the train step (``spec``: "cfg", "seed", "amp", "steps") with the
     batch sharded over ``sdp`` (4 of the 8 rows a rank) from a fresh copy
     of the weights: the losses, the launches, the collectives a step, the
-    bytes of AdamW slots and of f32 masters the rank holds, and the
-    peak of the allocator over the stage."""
+    bytes of AdamW slots and of f32 masters the rank holds, the peak of
+    the allocator over the stage's steps, and at stage 3 the most bytes
+    of gathered full parameters alive at once (the gather-on-use hooks'
+    count) beside the token table plus one block's.  At each stage of
+    ``spec["save_stages"]``, then, a step of the same width at
+    ``spec["save_layers"]`` blocks (default: the same depth) takes one
+    step, is checkpointed into ``spec["save_dir"]``, and a fresh step is
+    restored from it (:func:`zero_save_restore`)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch import distributed as D
     from paddle_tpu_torch.distributed import collective as C
     from paddle_tpu_torch.distributed.mesh import PartitionSpec
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     D.init_mesh({"sdp": 2})
-    base = GPTForCausalLM(spec["cfg"],
-                          generator=torch.Generator().manual_seed(
-                              spec["seed"]))
+
+    def weights(cfg):
+        return GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+            spec["seed"]))
+    base = weights(spec["cfg"])
     ids = train_ids(torch, spec["cfg"].vocab_size, device)
     steps = spec["steps"]
     numel = sum(p.numel() for p in base.parameters())
+
+    def build(stage, src=base):
+        tm = train_model(torch, src, amp, device) if spec["amp"] else \
+            copy.deepcopy(src).to(device)
+        return make_step(tm, device=device, zero_stage=stage,
+                         in_shardings=PartitionSpec("sdp", None))
+    small = None
+    if spec.get("save_stages"):
+        small = weights(dataclasses.replace(
+            spec["cfg"], num_hidden_layers=spec.get(
+                "save_layers", spec["cfg"].num_hidden_layers)))
     out = {"rank": D.get_rank(), "params": numel,
            # AdamW's two f32 moments of every parameter, unsharded
            "full_slots_bytes": 2 * 4 * numel, "stages": {}}
     for stage in (1, 2, 3):
-        tm = train_model(torch, base, amp, device) if spec["amp"] else \
-            copy.deepcopy(base).to(device)
         if device != "cpu":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-        step = make_step(tm, device=device, zero_stage=stage,
-                         in_shardings=PartitionSpec("sdp", None))
+        step = build(stage)
         C.reset_counts()
         losses, launches, ms = run_steps(torch, step, ids, counters, steps)
         issued = {k: v / steps for k, v in C.issued().items()}
         z = step._zero
-        out["stages"][stage] = {
+        run = out["stages"][stage] = {
             "losses": losses, "launches": launches,
             "step_host_ms_over_gloo": ms, "collectives_per_step": issued,
             "sliced_masters": sum(d is not None for d in z.dims.values()),
@@ -2997,9 +3018,100 @@ def zero_rank(torch, spec, counters, device="cuda"):
             "masters_bytes": int(sum(t.numel() * t.element_size()
                                      for t in step.params.values())),
             "max_memory_allocated": (torch.cuda.max_memory_allocated()
-                                     if device != "cpu" else None)}
-        del step, tm
+                                     if device != "cpu" else None),
+            # the model's parameters, full, in their dtypes
+            "model_param_bytes": int(sum(
+                p.numel() * p.element_size() * (
+                    z.nranks if step._gather is not None
+                    and n in step._gather.params else 1)
+                for n, p in step.model.named_parameters()))}
+        if step._gather is not None:
+            run.update(gather_counts(step, steps))
+        del step
+        if stage in spec.get("save_stages", ()):
+            step = build(stage, small)
+            step(ids, ids)
+            run["save"] = zero_save_restore(
+                torch, step, lambda st: build(st, small), ids, spec, stage)
+            run["save"]["layers"] = small.config.num_hidden_layers
+            del step
     return out
+
+
+def gather_counts(step, steps):
+    """Stage 3's gather-on-use counts: the most bytes of gathered full
+    parameters alive at once, the gathers a step, those alive now, and
+    the bound: the token table's full bytes plus the largest block's."""
+    g, n = step._gather, step._zero.nranks
+    blocks = {}
+    for name, p in g.params.items():
+        if ".h." in name:
+            i = name.split(".h.")[1].split(".")[0]
+            blocks[i] = blocks.get(i, 0) + p.numel() * p.element_size() * n
+    wte = g.params["gpt.wte.weight"]
+    return {"gathered_peak_bytes": g.peak_bytes,
+            "gathered_live_bytes": g.live_bytes,
+            "gathers_per_step": g.gathers / steps,
+            "gather_bound_bytes": (wte.numel() * wte.element_size() * n
+                                   + max(blocks.values()))}
+
+
+def zero_save_restore(torch, step, build, ids, spec, stage):
+    """A checkpoint of the ZeRO ``step`` (every rank of the world calls
+    it): ``CheckpointManager.save`` of the step, whose slices go to disk
+    as sliced leaves, into a directory under ``spec["save_dir"]``; the
+    step's next loss; a fresh step (``build(stage)``) restored from the
+    checkpoint and its next loss.  Returns the bytes of this rank's file,
+    the bytes of the whole state (each rank's file before the sliced
+    save: full masters and slots), those this rank's file should hold
+    (the whole less the other rank's slices), the two losses and the
+    save and restore seconds."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.incubate.checkpoint import CheckpointManager
+    rank = dist.get_rank()
+    z = step._zero
+    directory = os.path.join(spec["save_dir"], "stage%d" % stage)
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+    whole = sum(nbytes(t) * (z.nranks if z.stage >= 3 and z.sliced(n)
+                             else 1) for n, t in step.params.items())
+    cut = sum(nbytes(t) for n, t in step.params.items()
+              if z.stage >= 3 and z.sliced(n))
+    for n, slots in step.opt_state["slots"].items():
+        for v in slots.values():
+            if v.ndim:
+                whole += nbytes(v) * (z.nranks if z.sliced(n) else 1)
+                cut += nbytes(v) if z.sliced(n) else 0
+    whole += sum(nbytes(b) for b in step.buffers.values()) + 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr = CheckpointManager(directory, async_save=False)
+    mgr.save(1, {"train_step": step})
+    mgr.close()
+    # rank 0 publishes the checkpoint after the other ranks' save returns
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(os.path.join(
+        directory, "ckpt-1", "host-%d.ckpt" % rank))
+    next_loss = float(step(ids, ids))
+    fresh = build(stage)
+    t0 = time.perf_counter()
+    restored = CheckpointManager(directory, async_save=False)
+    fresh.set_state_dict(restored.restore()["train_step"])
+    restored.close()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_loss = float(fresh(ids, ids))
+    del fresh
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(directory, ignore_errors=True)
+    return {"file_bytes": file_bytes, "whole_state_bytes": int(whole),
+            "expected_file_bytes": int(whole - cut),
+            "next_loss": next_loss, "restored_next_loss": restored_loss,
+            "save_s": save_s, "restore_s": restore_s}
 
 
 def slots_bytes(opt_state):
@@ -3009,6 +3121,15 @@ def slots_bytes(opt_state):
                    for v in slots.values() if hasattr(v, "element_size")))
 
 
+# a rank's checkpoint file of a ZeRO step against the state it should
+# hold (the whole less the other rank's slices): pickle's framing on top
+ZERO_SAVE_BYTES_REL = 0.01
+# zero_gloo's checkpoint at 345M's width and this depth (the launched
+# worker's, LAUNCH_LAYERS): a 24-block state is 4.26 GB a rank, and its
+# two-rank save and restore took 53 s of the script
+ZERO_SAVE_LAYERS = 4
+
+
 def zero_hold(outs, spec, default_losses):
     """zero_gloo's checks over both ranks' results: at every stage the
     same losses on both ranks, each within PARITY_LOSS_TOL of the default
@@ -3016,7 +3137,13 @@ def zero_hold(outs, spec, default_losses):
     another order); the slots a rank holds 45-55% of the unsharded
     ones; stage 2 and 3 reduce-scatter, stage 1 does not; stage 3's
     masters about half of stages 1-2's; the flash forward and the split
-    backward once a layer a step.  Returns the line."""
+    backward once a layer a step.  Stage 3 gathers on use: its losses
+    are stage 2's bit for bit, its peak a rank below stage 2's, and its
+    gathered bytes alive at once at most the token table plus one
+    block's.  Each saved stage's file holds the rank's share of the
+    state (within ZERO_SAVE_BYTES_REL of the whole less the other rank's
+    slices) and the restored step's next loss is the saved step's, bit
+    for bit.  Returns the line."""
     r0, r1 = outs
     layers = spec["cfg"].num_hidden_layers
     steps = spec["steps"]
@@ -3037,10 +3164,17 @@ def zero_hold(outs, spec, default_losses):
             "masters_bytes": [a["masters_bytes"], b["masters_bytes"]],
             "max_memory_allocated": [a["max_memory_allocated"],
                                      b["max_memory_allocated"]],
+            "model_param_bytes": a["model_param_bytes"],
             "sliced_masters": a["sliced_masters"], "masters": a["masters"],
             "collectives_per_step": a["collectives_per_step"],
             "step_host_ms_over_gloo": a["step_host_ms_over_gloo"],
             "launches": a["launches"]}
+        for key in ("gathered_peak_bytes", "gathered_live_bytes",
+                    "gathers_per_step", "gather_bound_bytes"):
+            if key in a:
+                line["stages"][stage][key] = [a[key], b[key]]
+        if "save" in a:
+            line["stages"][stage]["save"] = [a["save"], b["save"]]
     emit(line)
     for stage, st in line["stages"].items():
         a, b = r0["stages"][stage], r1["stages"][stage]
@@ -3064,11 +3198,40 @@ def zero_hold(outs, spec, default_losses):
                          "flash_bwd_dq": layers * steps,
                          "flash_bwd_dkv": layers * steps, "flash_bwd": 0},
                         "zero_gloo stage %d" % stage)
+        for r, save in enumerate(st.get("save", ())):
+            rel = save["file_bytes"] / save["expected_file_bytes"] - 1.0
+            if not (0.0 <= rel <= ZERO_SAVE_BYTES_REL
+                    and save["restored_next_loss"] == save["next_loss"]):
+                raise AssertionError(
+                    "zero_gloo: stage %d rank %d checkpoint of %d bytes "
+                    "(its share %d of %d), next loss %r restored %r"
+                    % (stage, r, save["file_bytes"],
+                       save["expected_file_bytes"],
+                       save["whole_state_bytes"], save["next_loss"],
+                       save["restored_next_loss"]))
     m3 = line["stages"][3]["masters_bytes"][0]
     m2 = line["stages"][2]["masters_bytes"][0]
     if not 0.45 <= m3 / m2 <= 0.55:
         raise AssertionError("zero_gloo: stage 3 masters %d bytes against "
                              "stage 2's %d" % (m3, m2))
+    three, two = line["stages"][3], line["stages"][2]
+    if three["losses"] != two["losses"]:
+        raise AssertionError("zero_gloo: stage 3 losses %r, stage 2's %r"
+                             % (three["losses"], two["losses"]))
+    if not all(0 < p <= bound and live == 0 for p, bound, live in zip(
+            three["gathered_peak_bytes"], three["gather_bound_bytes"],
+            three["gathered_live_bytes"])):
+        raise AssertionError("zero_gloo: stage 3 gathered %r bytes at "
+                             "once (bound %r), %r left alive"
+                             % (three["gathered_peak_bytes"],
+                                three["gather_bound_bytes"],
+                                three["gathered_live_bytes"]))
+    if None not in two["max_memory_allocated"] and not all(
+            x < y for x, y in zip(three["max_memory_allocated"],
+                                  two["max_memory_allocated"])):
+        raise AssertionError("zero_gloo: stage 3 peak %r, stage 2's %r"
+                             % (three["max_memory_allocated"],
+                                two["max_memory_allocated"]))
     return line
 
 
@@ -3076,13 +3239,20 @@ def zero_gloo(torch, cfg, default_losses, steps=2, timeout=600.0):
     """Two processes on the one card, a gloo world over CUDA tensors on
     the mesh {"sdp": 2}: the train step (GPT-2 345M, ``cfg``, AMP O2,
     AdamW) at ZeRO stages 1, 2 and 3, ``steps`` steps each with the
-    batch sharded over ``sdp``, against the default step's losses
+    batch sharded over ``sdp``, against the default step's losses, stage
+    3 gathering each parameter where it is used; a checkpoint of stages 2
+    and 3 written as each rank's slices and restored
     (:func:`zero_hold`).  Gloo stages every collective through the host:
     the phase's times are not a ZeRO speed."""
-    spec = {"cfg": cfg, "seed": 0, "amp": True, "steps": steps}
-    t0 = time.perf_counter()
-    line = zero_hold(gloo_world("zero_rank", spec, timeout), spec,
-                     default_losses)
+    from paddle_tpu_torch.kernels import _build
+    with tempfile.TemporaryDirectory(prefix="zero-",
+                                     dir=_build.BUILD_DIR) as tmp:
+        spec = {"cfg": cfg, "seed": 0, "amp": True, "steps": steps,
+                "save_stages": (2, 3), "save_dir": tmp,
+                "save_layers": ZERO_SAVE_LAYERS}
+        t0 = time.perf_counter()
+        line = zero_hold(gloo_world("zero_rank", spec, timeout), spec,
+                         default_losses)
     line["seconds"] = time.perf_counter() - t0
     return line
 
@@ -3669,9 +3839,11 @@ def pp2_sdp2_rank(torch, spec, counters, device="cuda"):
     (``sharding_configs.stage``).  For each run: the losses, the rank's
     optimizer-slot bytes, the gradient elements the optimizer took at the
     first step, the collectives a step, the launches, peak allocation.
-    Returns host values."""
+    The embedding-grad accumulator's shapes each run (row-sharded over
+    ``dp``, then ``sdp``).  Returns host values."""
     from paddle_tpu_torch.distributed import collective as C
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import pipeline as tpipe
     from paddle_tpu_torch.models.gpt import GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.utils import flags
@@ -3718,6 +3890,13 @@ def pp2_sdp2_rank(torch, spec, counters, device="cuda"):
             out[name] = {
                 "stage": comp._stage, "zero_stage": stage,
                 "losses": losses, "launches": counters.read(),
+                # the embedding-grad accumulators (row-sharded over the
+                # data axis) beside the embedding's own shapes
+                "embed_acc": dict(comp.last_embed_acc_shapes),
+                "embed_shapes": {k: tuple(comp.params[k].shape)
+                                 for k in comp._names["embed"]},
+                "embed_min": tpipe._EMBED_SHARD_MIN_ELEMS,
+                "embed_scatters_per_step": comp.last_embed_scatters,
                 "slot_bytes": slots_bytes(comp.opt_state),
                 "first_grad_elements": seen[0],
                 "collectives_per_step": {k: v / steps for k, v in
@@ -3731,13 +3910,32 @@ def pp2_sdp2_rank(torch, spec, counters, device="cuda"):
     return out
 
 
+def embed_acc_due(run):
+    """The embedding-grad accumulator shapes a pipeline run should hold:
+    each embedding leaf of at least its threshold's elements whose rows
+    two ranks divide as its half rows (row-sharded over the data axis of
+    two), the others whole."""
+    due = {}
+    for k, shape in run["embed_shapes"].items():
+        numel = int(np.prod(shape))
+        cut = (len(shape) >= 2 and shape[0] % 2 == 0
+               and numel >= run["embed_min"])
+        due[k] = (shape[0] // 2,) + tuple(shape[1:]) if cut else tuple(shape)
+    return due
+
+
+def embed_acc_bytes(shapes):
+    return int(sum(4 * np.prod(s) for s in shapes.values()))
+
+
 def pp2_sdp2_hold(outs, spec):
     """pp2_sdp2_gloo's checks over the four ranks' results: every rank's
     losses of each ZeRO run within PP_SDP_LOSS_REL (relative) of the dp
     run's; a rank's slot bytes within PP_SDP_SLOT_SHARE of the dp run's;
     stage 2 reduce-scattering its grads (slices reach the optimizer) and
-    stage 1 not; each stage's launches (pp_launches_due).  Returns the
-    line."""
+    stage 1 not; each stage's launches (pp_launches_due); in every run
+    the embedding-grad accumulator a rank holds row-sharded over the data
+    axis (:func:`embed_acc_due`).  Returns the line."""
     layers = spec["cfg"].num_hidden_layers
     steps = spec["steps"]
     runs = ["sdp_stage%d" % st for st in spec["stages"]]
@@ -3753,20 +3951,39 @@ def pp2_sdp2_hold(outs, spec):
                                         for o in outs],
             "loss_rel_tol": PP_SDP_LOSS_REL,
             "slot_share_bounds": list(PP_SDP_SLOT_SHARE),
+            # f32 bytes of a rank's embedding-grad accumulators, and of
+            # the whole ones before they were row-sharded
+            "embed_acc_bytes": {
+                name: [embed_acc_bytes(o[name]["embed_acc"]) for o in outs]
+                for name in ["dp"] + ["sdp_stage%d" % st
+                                      for st in spec["stages"]]},
+            "embed_acc_whole_bytes": embed_acc_bytes(
+                outs[0]["dp"]["embed_shapes"]),
             "speed": "not a ZeRO or pipeline speed: gloo stages every "
                      "collective through the host, and four ranks share "
                      "one card"}
     bad = []
+    for name in ["dp"] + runs:
+        for r, o in enumerate(outs):
+            due = embed_acc_due(o[name])
+            if {k: tuple(v) for k, v in o[name]["embed_acc"].items()} \
+                    != due:
+                bad.append("%s rank %d: embedding-grad accumulators %r, "
+                           "due %r" % (name, r, o[name]["embed_acc"], due))
     for name in runs:
         run = [o[name] for o in outs]
         rel = max(abs(a - b) / abs(b) for o, r in zip(outs, run)
                   for a, b in zip(r["losses"], o["dp"]["losses"]))
         share = [r["slot_bytes"] / o["dp"]["slot_bytes"]
                  for o, r in zip(outs, run)]
+        # ZeRO's reduce-scatters: those of the embedding-grad accumulator
+        # (one a microbatch and sharded leaf, at every stage) aside
         rs = [r["collectives_per_step"].get("reduce_scatter", 0)
-              for r in run]
+              - r["embed_scatters_per_step"] for r in run]
         line[name] = {
             "losses": [r["losses"] for r in run], "max_loss_rel": rel,
+            "losses_equal_dp": all(r["losses"] == o["dp"]["losses"]
+                                   for o, r in zip(outs, run)),
             "slot_bytes": [r["slot_bytes"] for r in run],
             "dp_slot_bytes": [o["dp"]["slot_bytes"] for o in outs],
             "slot_share": share,
@@ -4594,24 +4811,18 @@ def record_grads(step, names):
     return seen
 
 
-def train_long(torch, cfg, amp, counters, flags, steps=3, grads_to=None):
+def train_long(torch, cfg, amp, counters, flags, steps=3):
     """The long-context shape of the JAX package's long-sequence run:
     GPT-2 345M at full width, max_position_embeddings 16384, B=1,
     S=16384: the tensor-core forward, C2 and C3 on every layer, kernel A
     and C1 never.  ``steps``
     steps (ms over all but the first), then one more step timed part by
-    part on the stream.  ``grads_to``: a file that takes the first step's
-    gradients of :func:`sep_grad_names` (sep_train_gloo's reference)."""
+    part on the stream."""
     flags.set_flags({"use_pallas_norm": False})
     s = LONG_S
     step, ids = long_step(torch, cfg, amp)
-    seen = record_grads(step, sep_grad_names(cfg.num_hidden_layers))
     torch.cuda.reset_peak_memory_stats()
     losses, launches, ms = run_steps(torch, step, ids, counters, steps)
-    del step.optimizer.apply_gradients        # record_grads' wrapper
-    if grads_to is not None:
-        torch.save(dict(seen), grads_to)
-    seen.clear()
     line = {"phase": "train_long", "shape": [1, s], "steps": steps,
             "step_ms": ms, "tokens_per_s": s * 1e3 / ms,
             "losses": losses, "launches": launches,
@@ -4759,16 +4970,373 @@ def sep_train_hold(outs, spec):
     return line
 
 
-def sep_train_gloo(torch, cfg, run_long, ref_grads, timeout=900.0):
+def sep_reference(torch, cfg, amp, counters, path):
+    """sep_train_gloo's reference: train_long's step (:func:`long_step`)
+    at ``cfg``'s depth, SEP_STEPS steps in one process, its first step's
+    gradients of :func:`sep_grad_names` written to ``path``.  Returns the
+    losses."""
+    step, ids = long_step(torch, cfg, amp)
+    seen = record_grads(step, sep_grad_names(cfg.num_hidden_layers))
+    losses, _launches, _ms = run_steps(torch, step, ids, counters,
+                                       SEP_STEPS)
+    torch.save(dict(seen), path)
+    return losses
+
+
+def sep_train_gloo(torch, cfg, ref_losses, ref_grads, timeout=900.0):
     """Two processes on the one card, a gloo world over CUDA tensors, the
-    mesh {"sep": 2}: train_long's step with the GPT's sequence sharding,
-    held to train_long's losses and first-step gradients (``ref_grads``,
-    the file train_long wrote; :func:`sep_train_hold`)."""
+    mesh {"sep": 2}: train_long's step at ``cfg``'s depth with the GPT's
+    sequence sharding, held to one process's losses and first-step
+    gradients at that depth (``ref_losses``, ``ref_grads``: the file
+    :func:`sep_reference` wrote; :func:`sep_train_hold`)."""
     spec = {"cfg": cfg, "s": LONG_S, "steps": SEP_STEPS,
-            "ref_losses": run_long["losses"], "ref_grads": ref_grads}
+            "ref_losses": ref_losses, "ref_grads": ref_grads}
     t0 = time.perf_counter()
     line = sep_train_hold(gloo_world("sep_train_rank", spec, timeout), spec)
     line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# sep_hybrid_gloo: ZeRO and tensor parallelism beside the GPT's sequence
+# sharding, four processes on the one card at 345M's width, 8 blocks, a
+# global sequence of 8192 rows (4096 a rank): {"sdp": 2, "sep": 2} at
+# ZeRO stage 2 on a (2, 8192) batch (one row a rank), {"mp": 2, "sep": 2}
+# on a (1, 8192) one (8 heads a rank), each against one process at the
+# same depth and batch on the card, to sep_train_gloo's bars
+SEP_HYBRID_LAYERS = 8
+SEP_HYBRID_S = 8192
+SEP_HYBRID_RUNS = {
+    "sdp2_sep2_zero2": {"mesh": {"sdp": 2, "sep": 2}, "batch": 2,
+                        "zero_stage": 2},
+    "mp2_sep2": {"mesh": {"mp": 2, "sep": 2}, "batch": 1,
+                 "zero_stage": None},
+}
+
+
+def sep_hybrid_step(torch, cfg, amp, device, run, on_mesh, s=SEP_HYBRID_S):
+    """A sep_hybrid_gloo run's step and ids: ``cfg``'s width and depth
+    with max_position_embeddings ``s`` from seed 1, AMP O2 bf16, AdamW, a
+    seeded (batch, ``s``) batch.  ``on_mesh``:
+    on the installed mesh, sliced over ``mp`` where it has it
+    (``parallelize``), ZeRO over ``sdp`` with the batch's rows on it."""
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    lcfg = dataclasses.replace(cfg, max_position_embeddings=s)
+    base = GPTForCausalLM(lcfg, generator=torch.Generator().manual_seed(1))
+    model = train_model(torch, base, amp, device)
+    del base
+    kw = {}
+    if on_mesh:
+        if run["mesh"].get("mp", 1) > 1:
+            D.parallelize(model)
+        if run["zero_stage"]:
+            kw = {"zero_stage": run["zero_stage"],
+                  "in_shardings": PartitionSpec("sdp", None)}
+    step = make_step(model, device=device, **kw)
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (run["batch"], s)), device=device)
+    return step, ids
+
+
+def sep_hybrid_reference(torch, cfg, amp, counters, flags, directory,
+                         device="cuda", s=SEP_HYBRID_S):
+    """One process at each run's depth and batch (``s`` rows): its losses, its
+    launches, and its first step's gradients of :func:`sep_grad_names`,
+    written to a file of ``directory`` a run.  Returns {run: (losses,
+    launches, the file)}."""
+    flags.set_flags({"use_pallas_norm": False})
+    out = {}
+    names = sep_grad_names(cfg.num_hidden_layers)
+    for name, run in SEP_HYBRID_RUNS.items():
+        step, ids = sep_hybrid_step(torch, cfg, amp, device, run, False, s)
+        seen = record_grads(step, names)
+        losses, launches, _ms = run_steps(torch, step, ids, counters,
+                                          SEP_STEPS)
+        path = os.path.join(directory, "%s_grads.pt" % name)
+        torch.save(dict(seen), path)
+        out[name] = (losses, launches, path)
+        del step, seen
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def whole_grads(torch, step, grads):
+    """The gradients ``grads`` (host copies, by name, as the optimizer
+    took them) made whole: ZeRO slices all-gathered over ``sdp``,
+    tensor-parallel shards over ``mp`` (collectives: every rank calls it,
+    in the names' order)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.parallel_base import unshard_slices
+    z = step._zero
+    out = {}
+    for n in sorted(grads):
+        g = grads[n]
+        if z is not None and z.sliced(n):
+            g = z.gather(n, g)
+        p = step._model_params[n]
+        if getattr(p, "mp_group", None) is not None:
+            dim = next(d for d, a in enumerate(tuple(p.pspec))
+                       if a is not None)
+            parts = C.all_gather([], g.contiguous(), group=p.mp_group)
+            g = unshard_slices(parts, dim, int(getattr(p, "mp_parts", 1)))
+        out[n] = g
+    return out
+
+
+def sep_hybrid_rank(torch, spec, counters, device="cuda"):
+    """One rank's part of ``sep_hybrid_gloo`` in a world of four that is
+    up: for each run of ``SEP_HYBRID_RUNS`` (``spec``: "cfg", "s",
+    "steps", "refs": {run: (losses, launches, gradient file)}) its mesh,
+    its step
+    (:func:`sep_hybrid_step`), ``spec["steps"]`` steps from launch counts
+    set to 0; the first step's gradients of :func:`sep_grad_names`, made
+    whole, against the one-process run's as sums the hold turns into
+    relative L2 errors.  Returns host values."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.utils import flags
+    flags.set_flags({"use_pallas_norm": False})
+    names = sep_grad_names(spec["cfg"].num_hidden_layers)
+    out = {"rank": D.get_rank(), "runs": {}}
+    for name, run in SEP_HYBRID_RUNS.items():
+        D.init_mesh(dict(run["mesh"]))
+        mesh = D.get_mesh()
+        step, ids = sep_hybrid_step(torch, spec["cfg"], amp, device, run,
+                                    True, spec["s"])
+        seen = record_grads(step, names)
+        if device != "cpu":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        C.reset_counts()
+        losses, launches, ms = run_steps(torch, step, ids, counters,
+                                         spec["steps"])
+        issued = C.issued()
+        grads = whole_grads(torch, step, seen)
+        ref = torch.load(spec["refs"][name][2])
+        sums = {}
+        for n in names:
+            a = grads[n].double()
+            b = ref[n].double()
+            sums[n] = [float((a * a).sum()), float((a * b).sum()),
+                       float((b * b).sum())]
+        out["runs"][name] = {
+            "coord": dict(mesh.coord), "losses": losses,
+            "launches": launches, "grad_sums": sums,
+            "collectives_per_step": {k: v / spec["steps"]
+                                     for k, v in issued.items()},
+            "step_host_ms_over_gloo": ms,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                     if device != "cpu" else None)}
+        del step, seen, grads
+    return out
+
+
+def sep_hybrid_hold(outs, spec):
+    """sep_hybrid_gloo's checks over the four ranks' results, each run:
+    the same losses on every rank, within SEP_LOSS_TOL of the one-process
+    run's; each rank's first-step gradients of every named parameter and
+    their norm within SEP_GRAD_REL_TOL (relative L2) of the one-process
+    run's; a rank at 'sep' coordinate r runs its ring's r + 1 flash
+    forwards and C2 / C3 pairs a layer and step, never kernel A, A' or
+    C1.  Returns the line."""
+    layers = spec["cfg"].num_hidden_layers
+    steps = spec["steps"]
+    line = {"phase": "sep_hybrid_gloo", "backend": "gloo",
+            "device": "cuda", "ranks": 4, "layers": layers,
+            "sequence": spec["s"], "rows_per_rank": spec["s"] // 2,
+            "steps": steps, "loss_tol": SEP_LOSS_TOL,
+            "grad_rel_tol": SEP_GRAD_REL_TOL,
+            "speed": "not a parallel speed: gloo stages every collective "
+                     "through the host, and four ranks share one card"}
+    bad = []
+    for name, run in SEP_HYBRID_RUNS.items():
+        got = [o["runs"][name] for o in outs]
+        ref_losses, ref_launches, _path = spec["refs"][name]
+        rels = [{n: grad_rel_l2(v) for n, v in g["grad_sums"].items()}
+                for g in got]
+        norms = [math.sqrt(sum(v[0] for v in g["grad_sums"].values()))
+                 for g in got]
+        ref_norm = math.sqrt(sum(v[2] for v in
+                                 got[0]["grad_sums"].values()))
+        entry = line[name] = {
+            "mesh": run["mesh"], "shape": [run["batch"], spec["s"]],
+            "zero_stage": run["zero_stage"],
+            "losses": [g["losses"] for g in got],
+            "ref_losses": ref_losses[:steps],
+            "ref_launches": ref_launches,
+            "max_loss_diff": max(abs(a - b) for g in got for a, b in zip(
+                g["losses"], ref_losses)),
+            "grad_rel_l2": rels, "grad_norm": norms,
+            "ref_grad_norm": ref_norm,
+            "grad_norm_rel": max(abs(x - ref_norm) / ref_norm
+                                 for x in norms),
+            "coords": [g["coord"] for g in got],
+            "launches": [g["launches"] for g in got],
+            "collectives_per_step": [g["collectives_per_step"]
+                                     for g in got],
+            "step_host_ms_over_gloo": [g["step_host_ms_over_gloo"]
+                                       for g in got],
+            "max_memory_allocated": [g["max_memory_allocated"]
+                                     for g in got]}
+        if any(g["losses"] != got[0]["losses"] for g in got) or not (
+                all(math.isfinite(x) for x in got[0]["losses"])
+                and entry["max_loss_diff"] <= SEP_LOSS_TOL):
+            bad.append("%s: losses %r against one process's %r"
+                       % (name, entry["losses"], entry["ref_losses"]))
+        err, worst, rank = max((rel[n], n, r) for r, rel in enumerate(rels)
+                               for n in rel)
+        if not (err <= SEP_GRAD_REL_TOL
+                and entry["grad_norm_rel"] <= SEP_GRAD_REL_TOL):
+            bad.append("%s: gradients %s %g on rank %d and the norm %g "
+                       "(relative L2) from one process's"
+                       % (name, worst, err, rank, entry["grad_norm_rel"]))
+        for r, g in enumerate(got):
+            due = layers * (g["coord"]["sep"] + 1) * steps
+            try:
+                expect_launches(g["launches"], {
+                    "flash_fwd_tc": due, "flash_bwd_dq": due,
+                    "flash_bwd_dkv": due, "flash_fwd": 0,
+                    "flash_fwd_pipelined": 0, "flash_bwd": 0},
+                    "sep_hybrid_gloo %s rank %d" % (name, r))
+            except AssertionError as e:
+                bad.append(str(e))
+    emit(line)
+    if bad:
+        raise AssertionError("sep_hybrid_gloo: " + "; ".join(bad))
+    return line
+
+
+def sep_hybrid_gloo(torch, cfg, amp, counters, flags, timeout=900.0):
+    """Four processes on the one card, a gloo world over CUDA tensors:
+    each run of SEP_HYBRID_RUNS at ``cfg``'s width and SEP_HYBRID_LAYERS
+    blocks against one process at the same depth and batch
+    (:func:`sep_hybrid_reference`, :func:`sep_hybrid_hold`)."""
+    from paddle_tpu_torch.kernels import _build
+    hcfg = dataclasses.replace(cfg, num_hidden_layers=SEP_HYBRID_LAYERS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sep-hybrid-",
+                                     dir=_build.BUILD_DIR) as tmp:
+        refs = sep_hybrid_reference(torch, hcfg, amp, counters, flags, tmp)
+        spec = {"cfg": hcfg, "s": SEP_HYBRID_S, "steps": SEP_STEPS,
+                "refs": refs}
+        line = sep_hybrid_hold(gloo_world("sep_hybrid_rank", spec, timeout,
+                                          ranks=4), spec)
+    line["seconds"] = time.perf_counter() - t0
+    return line
+
+
+# auto_engine: the auto-parallel Engine over train's configuration, one
+# process, mesh {"dp": 1}: an epoch of AUTO_STEPS batches of (8, 1024)
+AUTO_STEPS = 3
+
+
+class RecordedStep:
+    """A train step whose calls' losses are kept (the Engine keeps an
+    epoch's mean); every other attribute is the step's."""
+
+    def __init__(self, step):
+        self.step = step
+        self.losses = []
+
+    def __call__(self, *batch):
+        loss = self.step(*batch)
+        self.losses.append(loss)
+        return loss
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
+
+
+def auto_engine(torch, base, amp, counters, flags, device="cuda"):
+    """``distributed.auto_parallel.Engine(model, GPTPretrainingCriterion(),
+    AdamW)`` over train's model (``base``, AMP O2 bf16) and optimizer,
+    ``prepare(mesh_axes={"dp": 1})``: ``fit`` for one epoch over an
+    ``io.DataLoader`` of AUTO_STEPS seeded (8, 1024) batches, ``evaluate``
+    (the loss), ``predict`` of one batch, ``cost``; launch counts set to 0
+    just before each and read just after.  Against it, ``TrainStep`` fed
+    the same batches: the losses bit for bit; the flash forward, C2 and
+    C3 once a layer a step in ``fit``, the forward once a layer a batch
+    in ``evaluate`` and ``predict``."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.distributed import mesh as dist_mesh
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    flags.set_flags({"use_pallas_norm": False})
+    vocab = base.config.vocab_size
+    layers = base.config.num_hidden_layers
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, vocab, (8 * AUTO_STEPS, 1024)))
+    loader = io.DataLoader(io.TensorDataset([tokens, tokens]), batch_size=8,
+                           shuffle=False, drop_last=True, device=device)
+    t0 = time.perf_counter()
+    model = train_model(torch, base, amp, device)
+    engine = Engine(model, GPTPretrainingCriterion(),
+                    AdamW(learning_rate=1e-4, weight_decay=0.01,
+                          parameters=model.parameters()))
+    engine.prepare(mesh_axes={"dp": 1}, device=device)
+    rec = engine._step = RecordedStep(engine._step)
+    runs = {}
+    for what, call in (
+            ("fit", lambda: engine.fit(loader, epochs=1, verbose=0)),
+            ("evaluate", lambda: engine.evaluate(loader)),
+            ("predict", lambda: engine.predict(loader, steps=1))):
+        torch.cuda.synchronize()
+        counters.reset()
+        t1 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        runs[what] = (got, counters.read(), time.perf_counter() - t1)
+    hist, result, preds = (runs[k][0] for k in ("fit", "evaluate",
+                                                "predict"))
+    launches = {k: r[1] for k, r in runs.items()}
+    seconds = {k: r[2] for k, r in runs.items()}
+    logits = preds[0]
+    cost = engine.cost()
+    losses = [float(x) for x in rec.losses]
+    finite_logits = bool(torch.isfinite(logits).all())
+    logits_shape = list(logits.shape)
+    del engine, rec, model, preds, logits, runs
+    dist_mesh.set_mesh(None)
+    torch.cuda.empty_cache()
+    ref = make_step(train_model(torch, base, amp, device), device=device)
+    ref_losses = [float(ref(bx, by)) for bx, by in loader]
+    del ref
+    torch.cuda.empty_cache()
+    line = {"phase": "auto_engine", "mesh": cost["mesh"],
+            "shape": [8, 1024], "steps": AUTO_STEPS, "losses": losses,
+            "step_losses": ref_losses, "history": hist,
+            "evaluate": result, "predict_shape": logits_shape,
+            "launches": launches, "seconds_by_call": seconds,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if losses != ref_losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError("auto_engine: losses %r, TrainStep's %r"
+                             % (losses, ref_losses))
+    if hist[0]["loss"] != sum(losses) / len(losses):
+        raise AssertionError("auto_engine: history %r for losses %r"
+                             % (hist, losses))
+    if cost["mesh"] != {"dp": 1}:
+        raise AssertionError("auto_engine: cost %r" % (cost,))
+    if not (math.isfinite(result["loss"])
+            and abs(result["loss"] - math.log(vocab)) <= FIRST_LOSS_TOL):
+        raise AssertionError("auto_engine: evaluate %r" % (result,))
+    if logits_shape != [8, 1024, vocab] or not finite_logits:
+        raise AssertionError("auto_engine: predict gave %r (finite %s)"
+                             % (logits_shape, finite_logits))
+    n = layers * AUTO_STEPS
+    expect_launches(line["launches"]["fit"], {
+        "flash_fwd_tc": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+        "flash_fwd": 0, "flash_bwd": 0}, "auto_engine fit")
+    expect_launches(line["launches"]["evaluate"], {
+        "flash_fwd_tc": n, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+        "auto_engine evaluate")
+    expect_launches(launches["predict"], {
+        "flash_fwd_tc": layers, "flash_bwd_dq": 0, "flash_bwd_dkv": 0},
+        "auto_engine predict")
     return line
 
 
@@ -7349,16 +7917,23 @@ def launch_phases(torch, seconds):
 
 def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
                 seconds):
-    """The distributed phases, timed into ``seconds``: dist_nccl and
-    train_dp on an NCCL world of one, then the two-process gloo phases
-    tp2_gloo, zero_gloo and serve_http_tp2, pp_single on one rank, the
-    two-process pp2_gloo, the four-process pp2_sdp2_gloo, and the
-    two-process ring_gloo and moe_gloo.  Returns their lines (train_dp,
-    tp2_gloo, zero_gloo, serve_http_tp2, pp_single, pp2_gloo with
-    pp2_sdp2_gloo's under "sdp2", ring_gloo, moe_gloo)."""
+    """The distributed phases, timed into ``seconds``: auto_engine in this
+    process, dist_nccl and train_dp on an NCCL world of one, then the
+    two-process gloo phases tp2_gloo (its one-process reference first),
+    zero_gloo and serve_http_tp2, pp_single on one rank, the two-process
+    pp2_gloo, the four-process pp2_sdp2_gloo, and the two-process
+    ring_gloo and moe_gloo.  Returns
+    their lines (train_dp, tp2_gloo, zero_gloo, serve_http_tp2,
+    pp_single, pp2_gloo with pp2_sdp2_gloo's under "sdp2", ring_gloo,
+    moe_gloo, auto_engine)."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.distributed import mesh as dist_mesh
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    t0 = time.perf_counter()
+    run_auto = auto_engine(torch, base, amp, counters, flags)
+    torch.cuda.empty_cache()
+    seconds["auto_engine"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     run_nccl = dist_nccl(torch)
     seconds["dist_nccl"] = time.perf_counter() - t0
@@ -7370,25 +7945,33 @@ def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
     seconds["train_dp"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    run_tp2 = tp2_gloo(torch, train_cfg, run_train["losses"])
+    # the gloo phases at GLOO_LAYERS blocks: train's weights' seed and
+    # step, in one process at that depth, are the reference of their steps
+    gcfg = dataclasses.replace(train_cfg, num_hidden_layers=GLOO_LAYERS)
+    gbase = GPTForCausalLM(gcfg, generator=torch.Generator().manual_seed(0))
+    g_losses, _l, _ms = run_steps(
+        torch, make_step(train_model(torch, gbase, amp)),
+        train_ids(torch, gcfg.vocab_size), counters, 3)
+    torch.cuda.empty_cache()
+    run_tp2 = tp2_gloo(torch, gcfg, g_losses)
     seconds["tp2_gloo"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run_zero = zero_gloo(torch, train_cfg, run_train["losses"])
+    run_zero = zero_gloo(torch, gcfg, g_losses)
     seconds["zero_gloo"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run_serve_tp2 = serve_http_tp2(torch, train_cfg)
+    run_serve_tp2 = serve_http_tp2(torch, gcfg)
     seconds["serve_http_tp2"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    run_pp = pp_single(torch, base, counters, flags)
+    run_pp = pp_single(torch, gbase, counters, flags)
     torch.cuda.empty_cache()
     seconds["pp_single"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run_pp2 = pp2_gloo(torch, train_cfg, run_pp)
+    run_pp2 = pp2_gloo(torch, gcfg, run_pp)
     seconds["pp2_gloo"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    run_pp2["sdp2"] = pp2_sdp2_gloo(torch, train_cfg)
+    run_pp2["sdp2"] = pp2_sdp2_gloo(torch, gcfg)
     seconds["pp2_sdp2_gloo"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -7399,7 +7982,7 @@ def distributed(torch, base, train_cfg, amp, flags, counters, run_train,
     seconds["moe_gloo"] = time.perf_counter() - t0
     run_ring["dist_nccl_sep1"] = run_nccl["ring_sep1"]
     return (run_dp, run_tp2, run_zero, run_serve_tp2, run_pp, run_pp2,
-            run_ring, run_moe)
+            run_ring, run_moe, run_auto)
 
 
 def device_line(torch, kind):
@@ -7439,22 +8022,30 @@ def distributed_only(torch, kind, amp, flags, counters):
 
 
 def long_and_sep(torch, train_cfg, amp, counters, flags, seconds):
-    """train_long, which writes its first step's gradients to a file of
-    the build directory, then sep_train_gloo against it; timed into
-    ``seconds``.  Returns (train_long's line, sep_train_gloo's)."""
+    """train_long, then sep_train_gloo at GLOO_LAYERS blocks against its
+    one-process reference (whose first step's gradients go to a file of
+    the build directory), then sep_hybrid_gloo; timed into ``seconds``.
+    Returns (train_long's line, sep_train_gloo's, sep_hybrid_gloo's)."""
     from paddle_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    run_long = train_long(torch, train_cfg, amp, counters, flags)
+    torch.cuda.empty_cache()
+    seconds["train_long"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="sep-",
                                      dir=_build.BUILD_DIR) as tmp:
-        ref_grads = os.path.join(tmp, "train_long_grads.pt")
+        ref_grads = os.path.join(tmp, "sep_reference_grads.pt")
         t0 = time.perf_counter()
-        run_long = train_long(torch, train_cfg, amp, counters, flags,
-                              grads_to=ref_grads)
+        sep_cfg = dataclasses.replace(train_cfg,
+                                      num_hidden_layers=GLOO_LAYERS)
+        ref_losses = sep_reference(torch, sep_cfg, amp, counters, ref_grads)
         torch.cuda.empty_cache()
-        seconds["train_long"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        run_sep = sep_train_gloo(torch, train_cfg, run_long, ref_grads)
+        run_sep = sep_train_gloo(torch, sep_cfg, ref_losses, ref_grads)
         seconds["sep_train_gloo"] = time.perf_counter() - t0
-    return run_long, run_sep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_hybrid = sep_hybrid_gloo(torch, train_cfg, amp, counters, flags)
+    seconds["sep_hybrid_gloo"] = time.perf_counter() - t0
+    return run_long, run_sep, run_hybrid
 
 
 class NativeBuild:
@@ -7874,8 +8465,8 @@ def main():
                              run_train)
     seconds["train_recompute"] = time.perf_counter() - t0
     (run_dp, run_tp2, run_zero, run_serve_tp2, run_pp, run_pp2, run_ring,
-     _run_moe) = distributed(torch, base, train_cfg, amp, flags, counters,
-                             run_train, seconds)
+     _run_moe, run_auto) = distributed(torch, base, train_cfg, amp, flags,
+                                       counters, run_train, seconds)
     run_elastic, run_dp2 = launch_phases(torch, seconds)
     t0 = time.perf_counter()
     parity = train_parity(torch, base, amp, flags, counters)
@@ -7901,8 +8492,8 @@ def main():
     del base
     torch.cuda.empty_cache()
     seconds["train_autotune"] = time.perf_counter() - t0
-    run_long, run_sep = long_and_sep(torch, train_cfg, amp, counters, flags,
-                                     seconds)
+    run_long, run_sep, run_hybrid = long_and_sep(
+        torch, train_cfg, amp, counters, flags, seconds)
     emit({"phase": "seconds", **seconds})
 
     tc_prefill = fwd_row(flash_rows, "flash_fwd_tc", [1, 128, 16, 64])
@@ -7957,6 +8548,17 @@ def main():
         # the GPT's sequence sharding: the causal ring inside each block
         out.update({"sep_train_gloo_rank%d" % r:
                     run_sep["launches"][r][kern] for r in (0, 1)})
+        # beside ZeRO over sdp and tensor parallelism over mp: the first
+        # rank at each 'sep' coordinate
+        for name in SEP_HYBRID_RUNS:
+            run = run_hybrid[name]
+            for sep in (0, 1):
+                r = [c["sep"] for c in run["coords"]].index(sep)
+                out["sep_hybrid_gloo_%s_rank%d" % (name, r)] = \
+                    run["launches"][r][kern]
+        # the auto-parallel Engine's fit (its evaluate and predict run
+        # the forward alone)
+        out["auto_engine_fit"] = run_auto["launches"]["fit"][kern]
         out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
                     for r in run_rc})
         out.update(launched_launches(kern))
@@ -7972,6 +8574,9 @@ def main():
             out["serve_scan_slotted"] = sum(
                 r["flash_fwd_tc_launches"] for r in scan_line["runs"]
                 if r["engine"] == "slotted")
+            out.update({"auto_engine_" + call:
+                        run_auto["launches"][call][kern]
+                        for call in ("evaluate", "predict")})
         return out
     def launched_launches(kern):
         """``kern``'s launches in the launched workers' runs: the resumed

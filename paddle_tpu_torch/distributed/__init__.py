@@ -26,8 +26,10 @@ paddle_tpu_torch.distributed.launch_main``: a node's workers with the
 
 On a ``sep`` mesh the GPT shards its sequences itself (each rank runs
 its rows, the ring inside its attention; ``gather_sequence`` joins a
-rank's shard of an output), and ZeRO's ``sdp`` axis runs inside the 1F1B
-pipeline.  Not ported yet (ROADMAP.md §A5): ``auto_parallel``.
+rank's shard of an output), beside ZeRO over ``sdp`` or tensor
+parallelism over ``mp``, and ZeRO's ``sdp`` axis runs inside the 1F1B
+pipeline.  :mod:`.auto_parallel` is the Engine over all of it
+(``ProcessMesh``, ``shard_op``, ``Engine``).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ import os
 
 from . import collective, mesh, mp_layers, mp_overlap, sharding  # noqa
 from . import fleet, pipeline, store  # noqa: F401
-from . import moe, ring_attention, utils  # noqa: F401
+from . import auto_parallel, moe, ring_attention, utils  # noqa: F401
 from .collective import (ReduceOp, all_gather, all_gather_object, all_reduce,
                          all_to_all, all_to_all_single, alltoall, barrier,
                          broadcast, get_group, irecv, isend, new_group, recv,

@@ -59,20 +59,21 @@ class Mesh:
     """The world's ranks as a grid with named axes.  ``shape`` maps each
     axis to its size; ``devices`` holds the ranks in the grid (the JAX
     mesh's device array); ``coord`` is this rank's index on each axis
-    (None when this rank lies outside a mesh smaller than the world)."""
+    (None when this rank lies outside the mesh).  ``devices`` (a rank array
+    of the grid's shape) lays the ranks out as given; by default rank ``r``
+    stands at the ``r``-th position in row-major order."""
 
-    def __init__(self, names, sizes, rank):
+    def __init__(self, names, sizes, rank, devices=None):
         self.axis_names = tuple(names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
         self.size = int(np.prod(sizes)) if len(sizes) else 1
-        self.devices = np.arange(self.size).reshape(
-            tuple(sizes) if len(sizes) else (1,))
+        grid = tuple(sizes) if len(sizes) else (1,)
+        self.devices = (np.arange(self.size).reshape(grid) if devices is None
+                        else np.asarray(devices, dtype=np.int64).reshape(grid))
         self.rank = int(rank)
-        if self.rank < self.size:
-            idx = np.unravel_index(self.rank, self.devices.shape)
-            self.coord = {a: int(i) for a, i in zip(self.axis_names, idx)}
-        else:
-            self.coord = None
+        at = np.argwhere(self.devices == self.rank)
+        self.coord = ({a: int(i) for a, i in zip(self.axis_names, at[0])}
+                      if len(at) else None)
         self._groups = {}
 
     def group(self, axis):
@@ -103,17 +104,18 @@ def _ordered(axes):
     return names
 
 
-def _build(names, sizes):
-    """A mesh over the world's first ``prod(sizes)`` ranks with a group for
-    every slice along every axis.  Every rank of the world makes every
-    group, in one order, as ``torch.distributed.new_group`` asks."""
+def _build(names, sizes, devices=None):
+    """A mesh over the world's first ``prod(sizes)`` ranks (or the ranks
+    of ``devices``, laid out as given) with a group for every slice along
+    every axis.  Every rank of the world makes every group, in one order,
+    as ``torch.distributed.new_group`` asks."""
     from .collective import Group
     rank, world = _world()
     n = int(np.prod(sizes)) if sizes else 1
     if n > world:
         raise ValueError("mesh needs %d devices, have %d (ranks of the "
                          "torch.distributed world)" % (n, world))
-    mesh = Mesh(names or ("dp",), sizes or (1,), rank)
+    mesh = Mesh(names or ("dp",), sizes or (1,), rank, devices)
     grid = mesh.devices
     initialized = dist.is_available() and dist.is_initialized()
     for ax, name in enumerate(mesh.axis_names):
@@ -140,6 +142,40 @@ def init_mesh(axes: Dict[str, int], devices=None) -> Mesh:
                          "over the torch.distributed world's ranks")
     names = _ordered(axes)
     _global_mesh = _build(names, [int(axes[a]) for a in names])
+    return _global_mesh
+
+
+def init_mesh_of_ranks(ranks, dim_names) -> Mesh:
+    """Create and install the global mesh with the user's axis order and
+    rank layout verbatim: ``ranks`` is an array of world ranks whose
+    dimensions are ``dim_names`` (the JAX package builds such a ``Mesh``
+    directly, skipping :func:`init_mesh`'s reordering).  A rank outside
+    the world, or one named twice, raises ``ValueError``."""
+    global _global_mesh
+    arr = np.asarray(ranks)
+    names = tuple(dim_names)
+    if arr.ndim != len(names):
+        raise ValueError("a mesh of %d dimensions for %d names %r"
+                         % (arr.ndim, len(names), names))
+    flat = [int(r) for r in arr.reshape(-1)]
+    world = _world()[1]
+    unknown = sorted({r for r in flat if not 0 <= r < world})
+    if unknown:
+        raise ValueError("the mesh refers to unknown ranks %s (a world of "
+                         "%d)" % (unknown, world))
+    if len(set(flat)) != len(flat):
+        raise ValueError("the mesh names a rank twice: %s" % (flat,))
+    for ax, name in enumerate(names):
+        rows = np.moveaxis(arr, ax, -1).reshape(-1, arr.shape[ax])
+        if any(list(r) != sorted(r) for r in rows.tolist()):
+            # torch.distributed orders a group's ranks ascending, and a
+            # collective's parts follow that order, not the coordinate
+            raise NotImplementedError(
+                "a mesh whose %r groups do not list their ranks in "
+                "ascending order (%s): a collective's parts would follow "
+                "torch.distributed's order, not the coordinates "
+                "(ROADMAP.md §C)" % (name, arr.tolist()))
+    _global_mesh = _build(names, list(arr.shape), arr)
     return _global_mesh
 
 

@@ -269,13 +269,20 @@ class _Schedule:
         a tied head);
     h_like: a tensor of the activation's shape and dtype (the buffers of
         ticks a rank has nothing to send).
-    ``run()`` returns the summed loss (last stage, else 0) and the f32
-    gradient sums of the three parameter lists; ``peak`` is the most
-    microbatches held at once, ``permutes`` the permutes issued."""
+    ``embed_shard`` (a data-parallel group, or None) row-shards the
+    embedding's f32 accumulators of at least ``_EMBED_SHARD_MIN_ELEMS``
+    elements whose rows the group divides: each microbatch's contribution
+    is reduce-scattered (summed) over the group into the rank's rows, so
+    the accumulator is the (rows / n, ...) slice (the JAX package's
+    ``embed_grad_shard``).  ``run()`` returns the summed loss (last stage,
+    else 0) and the f32 gradient sums of the three parameter lists (an
+    embedding sum row-sharded where it is); ``peak`` is the most
+    microbatches held at once, ``permutes`` the permutes issued,
+    ``scatters`` the accumulator's reduce-scatters."""
 
     def __init__(self, group, stage, n, m, first_input, stage_fwd,
                  head_loss, h_like, stage_params, embed_params=(),
-                 head_params=(), loss_in_f32=False):
+                 head_params=(), loss_in_f32=False, embed_shard=None):
         self.group, self.stage, self.n, self.m = group, stage, n, m
         self.first_input = first_input
         self.stage_fwd = stage_fwd
@@ -285,23 +292,34 @@ class _Schedule:
         self.embed_params = list(embed_params)
         self.head_params = list(head_params)
         self.loss_in_f32 = loss_in_f32
+        self.embed_shard = embed_shard
         self.peak = 0
         self.permutes = 0
+        self.scatters = 0
 
     def _zeros(self):
         h = self.h_like
         return torch.zeros(h.shape, dtype=h.dtype, device=h.device)
 
     @staticmethod
-    def _acc(params):
-        return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in params]
+    def _acc(params, shard=None):
+        n = shard.nranks if shard is not None else 1
+        return [torch.zeros(
+            ((p.shape[0] // n,) + tuple(p.shape[1:]))
+            if _embed_shardable(p, n) else p.shape,
+            dtype=torch.float32, device=p.device) for p in params]
 
-    @staticmethod
-    def _add(accs, grads):
+    def _add(self, accs, grads):
         for a, g in zip(accs, grads):
-            if g is not None:
-                a.add_(g.float())
+            if g is None:
+                continue
+            if a.shape != g.shape:
+                # this microbatch's contribution summed over the group,
+                # this rank's rows kept: one collective
+                g = _coll.reduce_scatter(g.float().contiguous(),
+                                         group=self.embed_shard)
+                self.scatters += 1
+            a.add_(g.float())
 
     def run(self):
         n, m, s = self.n, self.m, self.stage
@@ -309,7 +327,7 @@ class _Schedule:
         fwd_perm = [(i, i + 1) for i in range(n - 1)]
         bwd_perm = [(i + 1, i) for i in range(n - 1)]
         g_stage = self._acc(self.stage_params)
-        g_embed = self._acc(self.embed_params)
+        g_embed = self._acc(self.embed_params, self.embed_shard)
         g_head = self._acc(self.head_params)
         loss_acc = torch.zeros((), dtype=torch.float32,
                                device=self.h_like.device)
@@ -453,9 +471,14 @@ def spmd_pipeline_1f1b_hetero(embed_fn: Callable, block_fn: Callable,
     can underflow it; the returned loss is unscaled, the grads stay
     scaled.  ``embed_grad_shard`` (``(axis, size)``, an axis of
     ``batch_axes``) is the JAX package's row-sharded embedding-grad
-    accumulator, a memory layout with the same sums: the port keeps the
-    whole accumulator and one all-reduce (the sharded layout is queued,
-    ROADMAP.md §A5).
+    accumulator: each embedding leaf of at least
+    ``_EMBED_SHARD_MIN_ELEMS`` elements accumulates as the rank's
+    (rows / size, ...) slice, each microbatch's contribution
+    reduce-scattered over ``axis`` (that is the reduction over the axis,
+    so only the division by its size remains), and the rows are
+    all-gathered once at the end.  Each tick is reduced before the ticks
+    are summed, so against the whole accumulator the sums agree to f32
+    rounding, not bit for bit.
 
     Returns (mean_loss, grads) with grads matching the params structure
     (blocks grads with the leading stage dimension of 1)."""
@@ -470,6 +493,8 @@ def spmd_pipeline_1f1b_hetero(embed_fn: Callable, block_fn: Callable,
             "(its per-tick psum_scatter IS the data-axis grad reduction)"
             % (embed_grad_shard[0], batch_axes))
     m, bps = num_micro, blocks_per_stage
+    es_axis = embed_grad_shard[0] if embed_grad_shard is not None else None
+    es_group = _group_of(es_axis)[0] if es_axis is not None else None
 
     def leaf(p):
         return p.detach().requires_grad_(True)
@@ -491,7 +516,7 @@ def spmd_pipeline_1f1b_hetero(embed_fn: Callable, block_fn: Callable,
         head_loss=lambda o, f: head_loss_fn(hp, ep, o, labels[f]) * scale,
         h_like=h_like, stage_params=_leaves(bp),
         embed_params=_leaves(ep), head_params=_leaves(hp),
-        loss_in_f32=True)
+        loss_in_f32=True, embed_shard=es_group)
     loss_acc, g_b, g_e, g_h = sched.run()
     loss = _loss_over_stages(loss_acc, stage, n, m, group)
     if loss_scale is not None:
@@ -502,29 +527,62 @@ def spmd_pipeline_1f1b_hetero(embed_fn: Callable, block_fn: Callable,
     g_h = [g / m for g in g_h]
     g_b = [g / m for g in g_b]
     for a in batch_axes:
-        loss, g_b, g_e, g_h = _average_over(a, loss, g_b, g_e, g_h)
+        loss, g_b, g_e, g_h = _average_over(
+            a, loss, g_b, g_e, g_h, summed=_sharded(g_e, _leaves(ep))
+            if a == es_axis else ())
+    g_e = _rows_gathered(g_e, _leaves(ep), es_group)
     return loss, {"embed": _rebuild(ep, g_e),
                   "blocks": _rebuild(bp, [g[None] for g in g_b]),
                   "head": _rebuild(hp, g_h)}
 
 
-def _average_over(axis, loss, *lists):
+def _average_over(axis, loss, *lists, summed=()):
     """The loss and every grad of ``lists`` averaged over ``axis`` (the
-    fleet's data-parallel semantics)."""
+    fleet's data-parallel semantics); a grad in ``summed`` (by identity:
+    a row-sharded accumulator, summed over the axis already) is only
+    divided."""
     group, _r, na = _group_of(axis)
+    done = {id(g) for g in summed}
     out = [loss]
     _coll.all_reduce(loss, group=group)
     out[0] = loss / na
     for grads in lists:
         for g in grads:
-            _coll.all_reduce(g, group=group)
+            if id(g) not in done:
+                _coll.all_reduce(g, group=group)
         out.append([g / na for g in grads])
     return tuple(out)
+
+
+def _embed_shardable(p, n):
+    """Whether the embedding leaf ``p`` accumulates row-sharded over a
+    group of ``n`` ranks: the big leaves (the token table) whose rows
+    ``n`` divides; small ones stay whole."""
+    return (n > 1 and p.ndim >= 2 and p.shape[0] % n == 0
+            and p.numel() >= _EMBED_SHARD_MIN_ELEMS)
+
+
+def _sharded(grads, params):
+    """The grads of ``grads`` that are row slices of their ``params``."""
+    return [g for g, p in zip(grads, params) if g.shape != p.shape]
+
+
+def _rows_gathered(grads, params, group):
+    """``grads`` with each row slice of its parameter all-gathered over
+    ``group`` into the full rows (one tiled gather a leaf)."""
+    return [_coll.all_gather(g, group=group) if g.shape != p.shape else g
+            for g, p in zip(grads, params)]
 
 
 #: warn when the hetero schedule would replicate more f32 embedding grad
 #: accumulator than this per pipeline stage
 _EMBED_REPLICATION_WARN_BYTES = 512 * 1024 * 1024
+
+#: embedding leaves of at least this many elements accumulate row-sharded
+#: (``embed_grad_shard``): only the big ones (the token table) are worth a
+#: collective a microbatch.  Module-level, so that tests can lower it to
+#: take the sharded path on tiny models, as the JAX package's tests do.
+_EMBED_SHARD_MIN_ELEMS = 1 << 20
 
 
 def _grads_finite(grads):
@@ -636,14 +694,20 @@ class _CompiledPipelineStep:
         self._tied = {hk: embed_by_id[id(t)] for hk, t in head_sd.items()
                       if id(t) in embed_by_id}
         embed_p = dict(self._embed_layer.named_parameters())
-        embed_bytes = sum(p.numel() * 4 for p in embed_p.values())
+        # the embedding-grad accumulator rows sharded over 'sdp', else
+        # 'dp' (the JAX program's embed_grad_shard): None without either
+        self._embed_shard = ("sdp" if self._sdp > 1 else
+                             "dp" if self._dp > 1 else None)
+        shard_n = max(self._sdp, self._dp) if self._embed_shard else 1
+        embed_bytes = sum(p.numel() * 4 // (shard_n if _embed_shardable(
+            p, shard_n) else 1) for p in embed_p.values())
         if embed_bytes > _EMBED_REPLICATION_WARN_BYTES:
             warnings.warn(
-                "compiled pipeline: the embedding tree is %.1f GB (f32 "
-                "grad accumulator) and is REPLICATED per pipeline stage "
-                "by the hetero 1F1B schedule; at this vocab size consider "
-                "tensor-parallel (VocabParallelEmbedding) or a sharded "
-                "embedding before pp" % (embed_bytes / 2 ** 30))
+                "compiled pipeline: the embedding's f32 grad accumulator "
+                "is %.1f GB a rank, REPLICATED per pipeline stage (its "
+                "rows sharded over the data axis where they divide); at "
+                "this vocab size consider tensor-parallel "
+                "(VocabParallelEmbedding) before pp" % (embed_bytes / 2 ** 30))
         tied_ids = {id(t) for t in embed_sd.values()}
         head_p = {k: p for k, p in self._head_layer.named_parameters()
                   if id(p) not in tied_ids}
@@ -685,6 +749,10 @@ class _CompiledPipelineStep:
             self._local({k: p.detach() for k, p in self.params.items()}))
         self.last_peak_inflight = 0
         self.last_permutes = 0
+        #: the last step's embedding-grad accumulator shapes, by name,
+        #: and the reduce-scatters that filled them
+        self.last_embed_acc_shapes = {}
+        self.last_embed_scatters = 0
 
     def _local(self, tree):
         """This rank's ZeRO slices of a name-keyed tree (the tree itself
@@ -692,15 +760,20 @@ class _CompiledPipelineStep:
         return tree if self._zero is None else self._zero.cut_all(tree)
 
     @torch.no_grad()
-    def _zero_grads(self, grads):
+    def _zero_grads(self, grads, summed=()):
         """The grads averaged over ``sdp`` (they are over ``dp`` already),
         each sliced master's as this rank's slice: reduce-scattered at
         stage 2, cut from the all-reduced mean at stage 1; in the sorted
-        names' order."""
+        names' order.  A name in ``summed`` (a row-sharded embedding
+        accumulator's, summed over ``sdp`` already) is only divided."""
         z = self._zero
         out = {}
         for name in sorted(grads):
             g = grads[name]
+            if name in summed:
+                g = g / z.nranks
+                out[name] = z.cut(name, g) if z.sliced(name) else g
+                continue
             if z.sliced(name) and z.stage >= 2:
                 out[name] = z.reduce_scatter(name, g)
                 continue
@@ -756,10 +829,19 @@ class _CompiledPipelineStep:
             h_like=h_like,
             stage_params=[p[k] for k in names["blocks"]],
             embed_params=[p[k] for k in names["embed"]],
-            head_params=[p[k] for k in names["head"]])
+            head_params=[p[k] for k in names["head"]],
+            embed_shard=(_group_of(self._embed_shard)[0]
+                         if self._embed_shard else None))
         loss_acc, g_b, g_e, g_h = sched.run()
         self.last_peak_inflight = sched.peak
         self.last_permutes = sched.permutes
+        self.last_embed_acc_shapes = {k: tuple(g.shape)
+                                      for k, g in zip(names["embed"], g_e)}
+        self.last_embed_scatters = sched.scatters
+        embed_p = [p[k] for k in names["embed"]]
+        # the row-sharded accumulators' names: summed over their axis
+        summed = {k for k, g, e in zip(names["embed"], g_e, embed_p)
+                  if g.shape != e.shape}
         loss = _loss_over_stages(loss_acc, s, n, m, self._group)
         if scale is not None:
             loss = loss / scale
@@ -767,14 +849,18 @@ class _CompiledPipelineStep:
             _coll.all_reduce(g, group=self._group)
         g_b, g_e, g_h = ([g / m for g in lst] for lst in (g_b, g_e, g_h))
         if self._dp > 1:
-            loss, g_b, g_e, g_h = _average_over("dp", loss, g_b, g_e, g_h)
+            loss, g_b, g_e, g_h = _average_over(
+                "dp", loss, g_b, g_e, g_h,
+                summed=_sharded(g_e, embed_p)
+                if self._embed_shard == "dp" else ())
+        g_e = _rows_gathered(g_e, embed_p, self._embed_shard)
         # f32 grads, as the JAX step's accumulators are
         grads = dict(zip(names["blocks"] + names["embed"] + names["head"],
                          g_b + g_e + g_h))
         if self._zero is not None:
             _coll.all_reduce(loss, group=self._zero.group)
             loss = loss / self._zero.nranks
-            grads = self._zero_grads(grads)
+            grads = self._zero_grads(grads, summed)
         finite = True
         if self._use_scaler:
             # unscale, then one finite check over every rank's grads (its

@@ -26,10 +26,14 @@ Restore falls back from a corrupt or torn newest checkpoint to older
 ones (:class:`CheckpointFallbackWarning`).  Auto-resume is
 :class:`TrainEpochRange`: it restores the newest usable checkpoint into
 its registered state holders and fast-forwards the data through
-:class:`ResumableIterator`.  ``TrainStep.state_dict()`` holds whole
-tensors (ZeRO slices gathered), so on a multi-rank run every rank writes
-the whole state where the JAX package writes a ZeRO slot's shards
-(ROADMAP.md §C "Known differences").
+:class:`ResumableIterator`.  A ZeRO ``TrainStep`` registered with
+:meth:`TrainEpochRange.register_train_step`, or given to
+:meth:`CheckpointManager.save` in the tree itself, saves each rank's
+slices as :func:`sliced` leaves (its slots at every stage, its masters
+at stage 3), as the JAX package writes a ZeRO slot's addressable
+shards; restore joins them into whole tensors, which
+``TrainStep.set_state_dict`` takes as it takes ``state_dict()``'s (that
+stays whole).
 """
 from __future__ import annotations
 
@@ -216,9 +220,13 @@ def sliced(t: torch.Tensor, shape, index) -> _ShardedLeaf:
 
 
 def _to_host(obj):
-    """Fetch tensors to host leaves (runs on the caller's thread)."""
+    """Fetch tensors to host leaves (runs on the caller's thread).  A
+    ``jit.TrainStep`` in the tree is saved as its state, with each rank's
+    ZeRO slices as :func:`sliced` leaves."""
     if isinstance(obj, torch.Tensor):
         return _TensorLeaf(obj)
+    if callable(getattr(obj, "_sliced_state", None)):
+        return _to_host(obj._sliced_state())
     if isinstance(obj, _ShardedLeaf):
         return obj
     if isinstance(obj, dict):
@@ -765,9 +773,12 @@ class TrainEpochRange:
 
     def register_train_step(self, step, iterator: Optional[
             ResumableIterator] = None):
-        """Wire a ``jit.TrainStep`` (its state and the explicit generators
-        its dropout draws from) and an optional data iterator."""
-        self.register("train_step", step.state_dict, step.set_state_dict)
+        """Wire a ``jit.TrainStep`` (its state, each rank's ZeRO slices
+        as :func:`sliced` leaves, and the explicit generators its dropout
+        draws from) and an optional data iterator."""
+        self.register("train_step",
+                      getattr(step, "_sliced_state", step.state_dict),
+                      step.set_state_dict)
         gens = step_generators(step)
 
         def set_generators(states):

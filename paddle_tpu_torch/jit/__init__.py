@@ -75,8 +75,11 @@ must be such a share (``GPTPretrainingCriterion``'s, tagged
 ``sep_share``); another raises.
 ``in_shardings`` may name ``sep`` on the batch's second dimension
 (``PartitionSpec("dp", "sep")``), which reads the same; any other axis
-past the first dimension raises.  ZeRO on such a mesh raises (ROADMAP.md
-§A5).
+past the first dimension raises.  Beside ZeRO the sum over ``sep`` comes
+first, then ZeRO's reduce-scatter or average over its axis; beside
+tensor parallelism the ring runs over the ranks that share the rank's
+``mp`` coordinate, and the grads of a rank's shards are summed over
+``sep`` alike.
 
 ``zero_stage`` (1, 2 or 3) shards the step over the ``zero_axis`` group
 of the global mesh (``"sdp"``; :mod:`..distributed.sharding`): each rank
@@ -86,15 +89,24 @@ reduce-scattered onto those slices where they would be all-reduced
 (stage 2: the batch sharded over ``zero_axis``; with the batch on
 another axis or on none, each rank's gradients are already the global
 ones and the reduce-scatter averages equal values); and the masters rest
-as slices between steps (stage 3), all-gathered, written into the model
-and freed at the start of the next step or at :meth:`sync_to_model`, so
-under stage 3 the model's parameters take an update when the next step
-starts.  Each rank updates its slices, and stages 1 and 2 all-gather the
-updated masters before the write-back.  The global-norm clip sums the
-squares of the slices over the group.  ``state_dict`` gives the full
-masters and slots, and ``set_state_dict`` takes them, so a checkpoint
-is the same with and without ZeRO.  As in the JAX step, a ``zero_axis``
-of size <= 1 on a mesh of more than one rank raises ``ValueError``.
+as slices between steps (stage 3), and so do the model's parameters,
+each gathered where it is used (``distributed.sharding.GatherOnUse``:
+a gather unit's forward, again for each saved use in the backward) and
+its gradient reduce-scattered onto the rank's slice as autograd
+produces it (the scan-layers blocks one layer's rows at a time).  Under
+``stack_layers`` stage 3 keeps whole parameters in the model instead:
+the masters are all-gathered, written into it and freed when the next
+step starts (ROADMAP.md §C).  :meth:`sync_to_model` leaves the model
+holding its full current parameters until the next step.  Each rank
+updates its slices, and stages 1 and 2 all-gather the updated masters
+before the write-back.  The global-norm clip sums the squares of the
+slices over the group.  ``state_dict`` gives the full masters and
+slots, and
+``set_state_dict`` takes them, so a checkpoint is the same with and
+without ZeRO (``incubate.checkpoint`` writes each rank's slices, through
+:meth:`_sliced_state`, and restores the whole).  As in the JAX step, a
+``zero_axis`` of size <= 1 on a mesh of more than one rank raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -174,6 +186,8 @@ class TrainStep:
                 "flat_master=True is incompatible with this configuration "
                 "(ZeRO/stack_layers/per-param optimizer semantics — see "
                 "_flat_eligible)")
+        from ..distributed.sharding import GatherOnUse
+        GatherOnUse.release(model)
         self._batch_axis, self._in_specs = _batch_axis(in_shardings)
         # each rank passes its own rows (a DistributedBatchSampler's): the
         # step averages over the batch axis without cutting the batch
@@ -190,11 +204,6 @@ class TrainStep:
         self._sep_group = bound_group("sep")
         if self._sep_group is not None and self._sep_group.nranks < 2:
             self._sep_group = None
-        if self._sep_group is not None and zero_stage:
-            raise NotImplementedError(
-                "TrainStep(zero_stage=%d) on a mesh whose 'sep' axis has %d "
-                "ranks: ZeRO over sequence shards is not ported (ROADMAP.md "
-                "§A5)" % (zero_stage, self._sep_group.nranks))
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loss_fn = loss_fn
@@ -239,6 +248,7 @@ class TrainStep:
         # them, and under stage 3 the masters rest as them
         self._zero = None
         self._zero_stale = False
+        self._gather = None
         if zero_stage:
             from ..distributed.sharding import ZeroPartition
             self._zero = ZeroPartition(self.params, zero_stage, zero_axis)
@@ -247,6 +257,7 @@ class TrainStep:
             if self._zero.stage >= 3:
                 self.params = {n: t.clone() if self._zero.sliced(n) else t
                                for n, t in local.items()}
+                self._gather = self._gather_on_use()
         else:
             self.opt_state = optimizer.init_state(self.params)
         self.generator = torch.Generator(device=self.device)
@@ -254,6 +265,41 @@ class TrainStep:
         for m in model.modules():
             if hasattr(m, "generator"):
                 m.generator = self.generator
+
+    def _gather_on_use(self):
+        """Stage 3's :class:`~..distributed.sharding.GatherOnUse` over the
+        model's sliced parameters, which then rest as this rank's slices;
+        None where the model keeps whole parameters (nothing sliced, the
+        stacked layouts)."""
+        from ..distributed.sharding import GatherOnUse
+        z = self._zero
+        sliced = [n for n in self.params if z.sliced(n)]
+        if not sliced or self._stack:
+            return None
+        gather = GatherOnUse(self.model, z,
+                             {n: self._model_params[n] for n in sliced},
+                             self._reduce_gathered)
+        gather.rest({n: self.params[n] for n in sliced})
+        return gather
+
+    @torch.no_grad()
+    def _reduce_gathered(self, name, grad, dim=None):
+        """A gathered parameter's full gradient (or a stacked one's layer,
+        cut on ``dim``) as its reduced f32 slice, as :meth:`__call__`
+        reduces the others: upcast, summed over ``sep``, averaged over the
+        batch axis where it is not the ZeRO axis, then reduce-scattered
+        (averaged) over the ZeRO group."""
+        from ..distributed import collective as _coll
+        g = grad.float() if name in self._compute_dtypes else grad.clone()
+        if self._sep_group is not None:
+            _coll.all_reduce(g, group=self._sep_group)
+        z = self._zero
+        if self._dp_group is not None and self._batch_axis != z.axis:
+            _coll.all_reduce(g, group=self._dp_group)
+            if self._dp_group.nranks > 1:
+                g.div_(torch.tensor(float(self._dp_group.nranks),
+                                    dtype=g.dtype, device=g.device))
+        return z.reduce_scatter(name, g, dim)
 
     def _pack_flat(self):
         members = [n for n, v in self.params.items()
@@ -459,8 +505,12 @@ class TrainStep:
         return out
 
     def __call__(self, *batch):
+        if self._gather is not None and self._gather.whole:
+            # stage 3 after sync_to_model: the parameters rest again
+            self._gather.rest({n: self.params[n]
+                               for n in self._gather.params})
         if self._zero_stale:
-            # stage 3: the last step's update reaches the model now
+            # stage 3, stacked: the last step's update reaches the model
             self._write_model_params(self._zero_masters())
             self._zero_stale = False
         batch = [self._as_tensor(b) for b in self._local_batch(batch)]
@@ -482,6 +532,13 @@ class TrainStep:
                 "(ROADMAP.md §A5)" % self._sep_group.nranks)
         loss.backward()
         with torch.no_grad():
+            # stage 3's gathered parameters: reduced slices already
+            gathered = {}
+            if self._gather is not None:
+                gathered = self._gather.take_grads()
+                for n in self._gather.params:
+                    if n not in gathered:
+                        gathered[n] = torch.zeros_like(self.params[n])
             grads = {}
             if self._flat_groups:
                 grads[_FLAT_KEY] = self._flat_grad()
@@ -495,17 +552,19 @@ class TrainStep:
             for n, p in self._model_params.items():
                 # a parameter the loss does not reach gets a zero gradient,
                 # as jax.grad gives it
-                if n in self.params:
+                if n in self.params and n not in gathered:
                     g = p.grad if p.grad is not None else torch.zeros_like(p)
                     grads[n] = g.float() if n in self._compute_dtypes else g
                 p.grad = None
             if self._sep_group is not None:
-                # the ranks' shares of the sequence-sharded gradients
+                # the ranks' shares of the sequence-sharded gradients,
+                # summed before ZeRO's or the batch axis's average
                 self._average_grads(grads, self._sep_group, average=False)
             if self._zero is not None:
                 self._zero_grads(grads)
             elif self._dp_group is not None:
                 self._average_grads(grads)
+            grads.update(gathered)
             # the shards' groups only where there are shards: the
             # optimizer's interface is otherwise the JAX step's
             groups = self._shard_groups()
@@ -516,7 +575,8 @@ class TrainStep:
                       else z.cut_all(self.params))
             params, self.opt_state = self.optimizer.apply_gradients(
                 params, grads, self.opt_state, lr, **extra)
-            if z is None:
+            if z is None or self._gather is not None:
+                # (stage 3: the model's resting slices take the update)
                 self.params = params
                 self._write_model_params()
             elif z.stage >= 3:
@@ -563,23 +623,38 @@ class TrainStep:
 
     def sync_to_model(self):
         """Write the masters into the model's parameters (each step
-        already does, but for ZeRO stage 3, whose masters rest as slices;
+        already does, but for ZeRO stage 3, whose masters rest as slices:
+        the model then holds its full parameters until the next step;
         kept for the JAX step's interface).  A collective under stage 3:
         every rank of the ZeRO group calls it."""
         if self._zero is not None and self._zero.stage >= 3:
-            self._write_model_params(self._zero_masters())
+            full = self._zero_masters()
+            if self._gather is not None:
+                self._gather.make_whole(full)
+            self._write_model_params(full)
             self._zero_stale = False
             return
         self._write_model_params()
 
     # -- checkpoint contract ------------------------------------------------
-    def state_dict(self):
-        """Everything needed to resume: f32 master params, buffers,
-        optimizer slots and step, and the LR scheduler's state."""
+    def _state(self, params, slots):
+        """The checkpoint layout around per-name ``params`` and ``slots``:
+        with the buffers, the optimizer step and the LR scheduler's
+        state."""
         opt_extra = {}
         sched = self.optimizer._learning_rate
         if hasattr(sched, "state_dict"):
             opt_extra["lr_scheduler"] = sched.state_dict()
+        return {"params": params, "buffers": dict(self.buffers),
+                "opt_state": {
+                    "slots": slots,
+                    "step": torch.tensor(self.opt_state["step"],
+                                         dtype=torch.int32)},
+                "opt_extra": opt_extra}
+
+    def state_dict(self):
+        """Everything needed to resume: f32 master params, buffers,
+        optimizer slots and step, and the LR scheduler's state."""
         slots = {n: dict(s) for n, s in self.opt_state["slots"].items()}
         params = self.params
         z = self._zero
@@ -598,13 +673,55 @@ class TrainStep:
             for n, o, size, shape in self._flat_members():
                 slots[n] = {k: v[o:o + size].view(shape)
                             for k, v in flat.items()}
-        return {"params": self._unstacked(self._unflat(params)),
-                "buffers": dict(self.buffers),
-                "opt_state": {
-                    "slots": slots,
-                    "step": torch.tensor(self.opt_state["step"],
-                                         dtype=torch.int32)},
-                "opt_extra": opt_extra}
+        return self._state(self._unstacked(self._unflat(params)), slots)
+
+    def _sliced_state(self):
+        """:meth:`state_dict` with each ZeRO slice this rank holds as an
+        ``incubate.checkpoint.sliced`` leaf: the optimizer slots at every
+        stage and, at stage 3, the masters.  So a multi-rank checkpoint
+        file holds only the rank's slices (the JAX package writes a ZeRO
+        slot's addressable shards), and restore joins every rank's into
+        :meth:`state_dict`'s whole tensors.  A collective where a stacked
+        template is cut on its layer dimension (its slices are gathered):
+        every rank of the ZeRO group calls it."""
+        z = self._zero
+        if z is None or z.nranks < 2:
+            return self.state_dict()
+        from ..incubate.checkpoint import sliced
+
+        def leaf(t, d):
+            if d is None or not _sliceable(t):
+                return t
+            shape = list(t.shape)
+            size = shape[d]
+            shape[d] = size * z.nranks
+            index = [(0, n) for n in t.shape]
+            index[d] = (z.rank * size, (z.rank + 1) * size)
+            return sliced(t, shape, index)
+
+        def per_name(name, t):
+            """{per-layer name: leaf} of master or slot ``t``."""
+            d = z.dims.get(name) if _sliceable(t) else None
+            names = self._stack.get(name)
+            if names is None:
+                return {name: leaf(t, d)}
+            if d == 0:
+                # cut on the layer dimension: whole layers, gathered
+                t, d = z.gather(name, t), None
+            return {n: leaf(t[i], None if d is None else d - 1)
+                    for i, n in enumerate(names)}
+
+        # stages 1 and 2 keep the masters whole on every rank
+        params = {}
+        for n, t in self.params.items():
+            params.update(per_name(n, t) if z.stage >= 3
+                          else self._unstacked({n: t}))
+        slots = {}
+        for n, s in self.opt_state["slots"].items():
+            for k, v in s.items():
+                for name, x in per_name(n, v).items():
+                    slots.setdefault(name, {})[k] = x
+        return self._state(params, slots)
 
     def set_state_dict(self, state):
         """Restore from :meth:`state_dict` output (or

@@ -26,7 +26,11 @@ a whole sequence of activations; the criterion shifts the global labels before
 it takes the rank's rows and divides by the global count, so the ranks'
 losses and parameter gradients are shares that sum over ``sep`` to the
 one-device ones (``jit.TrainStep`` and ``DataParallel`` sum them).  A
-plain forward returns the rank's shard of the logits.
+plain forward returns the rank's shard of the logits.  On a mesh with
+``mp`` beside ``sep`` a rank runs its S / n rows of its heads / mp heads:
+the ring runs over the ``sep`` ranks that share its ``mp`` coordinate,
+the Megatron collectives over the sequence shard, and the vocab-parallel
+criterion takes the global shift as the plain one does.
 
 **Megatron layout.**  The parameters carry the JAX package's ``pspec``
 annotations (:data:`MEGATRON`: ``qkv_proj`` and ``fc1`` column-sharded on
@@ -295,6 +299,10 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
+    #: ZeRO stage 3 gathers the block's parameters for its whole forward
+    #: (the tensor-parallel rows read their Linear's weight from here)
+    _zero_gather_unit = True
+
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.ln1 = LayerNorm(config.hidden_size, config.layer_norm_epsilon)
@@ -375,6 +383,12 @@ class GPTScanBlocks(nn.Module):
     #: which a LayerNorm module would keep by its type)
     _amp_keep_fp32_params = ("ln1_w", "ln1_b", "ln2_w", "ln2_b")
 
+    #: ZeRO stage 3 gathers one layer's rows of each stacked parameter at
+    #: a time: while the forward runs, ``_zero_layer`` (None otherwise)
+    #: puts layer i's full rows into its per-layer dict
+    _zero_gather_layers = True
+    _zero_layer = None
+
     def __init__(self, config: GPTConfig):
         super().__init__()
         c = config
@@ -403,21 +417,28 @@ class GPTScanBlocks(nn.Module):
         # set by GPTModel's forward: x holds the rank's sequence shard
         self._seq_sharded = False
 
-    def _block(self, x, p, cache=None):
+    def _block(self, x, p, cache=None, layer=None, i=None):
+        if layer is not None:
+            # ZeRO stage 3: layer i's rows gathered here, so that a
+            # recomputed block gathers them again
+            p = layer(p, i)
         return _scan_block_apply(x, p, self.config, self.training,
                                  self.generator, cache, _mp(self),
                                  self._seq_sharded)
 
     def forward(self, x, cache=None):
         c = self.config
-        per = {n: torch.unbind(getattr(self, n), 0) for n in _SCAN_FIELD_MAP}
+        layer = self._zero_layer
+        gathered = layer.names if layer is not None else ()
+        per = {n: torch.unbind(getattr(self, n), 0) for n in _SCAN_FIELD_MAP
+               if n not in gathered}
         rc = c.use_recompute and self.training and cache is None
         if rc:
             from ..distributed.recompute import recompute
         for i in range(c.num_hidden_layers):
             p = {n: per[n][i] for n in per}
-            x = recompute(self._block, x, p) if rc else self._block(x, p,
-                                                                    cache)
+            x = (recompute(self._block, x, p, None, layer, i) if rc
+                 else self._block(x, p, cache, layer, i))
         return x
 
 
@@ -561,6 +582,11 @@ class GPTForCausalLM(nn.Module):
     projections and embeddings, scaled by 1/sqrt(2 L) for the output
     projections, stacked or per layer; LayerNorm weights 1, biases 0)."""
 
+    #: ZeRO stage 3 gathers the token table for the whole forward: the
+    #: tied LM head and the vocab-parallel lookup read it here and in
+    #: GPTModel, outside the Embedding's own forward
+    _zero_gather_whole = ("gpt.wte.weight",)
+
     def __init__(self, config: GPTConfig, generator=None):
         super().__init__()
         self.config = config
@@ -586,12 +612,6 @@ class GPTForCausalLM(nn.Module):
         g = _mp(self)
         if g is None:
             return
-        sep = _sep_group()
-        if sep is not None:
-            raise NotImplementedError(
-                "the GPT over 'mp' on a mesh whose 'sep' axis has %d ranks: "
-                "tensor parallelism over sequence shards is not ported "
-                "(ROADMAP.md §A5)" % sep.nranks)
         c = self.config
         if c.num_attention_heads % g.nranks:
             raise ValueError("mp=%d must divide num_attention_heads=%d"

@@ -697,10 +697,11 @@ def short_ids(torch, vocab, device="cuda"):
         0, vocab, (8, 128)), device=device)
 
 
-def job_zero_rank():
+def job_zero_rank(save_dir=None):
     """chip_smoke.py's zero_rank on this world (gloo, CPU tensors) at
     tp2_spec's narrow width on :func:`short_ids`, two steps a stage, the
-    flash route through its plain versions, counted."""
+    flash route through its plain versions, counted; with ``save_dir``
+    stages 2 and 3 are saved there and restored."""
     import pytest
     import torch
 
@@ -710,6 +711,8 @@ def job_zero_rank():
         mp.setattr(torch.cuda, "synchronize", lambda *a: None)
         mp.setattr(chip_smoke, "train_ids", short_ids)
         spec = dict(tp2_spec(), steps=2)
+        if save_dir is not None:
+            spec.update(save_stages=(2, 3), save_dir=save_dir)
         return chip_smoke.zero_rank(torch, spec, PlainCounters(mp),
                                     device="cpu")
     finally:

@@ -156,14 +156,23 @@ def job_spmd(params, x, labels, pp):
             {k: v.numpy() for k, v in grads.items()}, permutes)
 
 
-def job_hetero(params, x, labels, pp, loss_scale=None):
+def job_hetero(params, x, labels, pp, loss_scale=None, embed_min=None):
     """spmd_pipeline_1f1b_hetero on tests/test_pipeline_fleet.py's
     embed / block / head functions at pp x dp2 (``batch_axes=("dp",)``,
-    the microbatch rows sharded over dp), whole embed-grad accumulator
-    asked for as the JAX row-sharded one."""
+    the microbatch rows sharded over dp), the embed-grad accumulator
+    asked for row-sharded over dp as in JAX (whole for the 8 x 8 table
+    at the default threshold; ``embed_min`` lowers it)."""
     import torch
 
     from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import pipeline as tpipe
+    if embed_min is not None:
+        kept = tpipe._EMBED_SHARD_MIN_ELEMS
+        tpipe._EMBED_SHARD_MIN_ELEMS = embed_min
+        try:
+            return job_hetero(params, x, labels, pp, loss_scale)
+        finally:
+            tpipe._EMBED_SHARD_MIN_ELEMS = kept
     from paddle_tpu_torch.distributed.parallel_base import local_rows
     from paddle_tpu_torch.distributed.pipeline import (
         spmd_pipeline_1f1b_hetero)
@@ -619,7 +628,8 @@ def job_pp2_rank():
 
 def pp_sdp_spec():
     """pp2_sdp2_gloo's spec at tp2_spec's narrow width (2 layers, 2 heads
-    of 64) for the CPU rehearsal."""
+    of 64) for the CPU rehearsal (whose embedding is row-sharded under a
+    lowered threshold: :func:`job_pp2_sdp2_rank`)."""
     from _torch_dist import tp2_spec
     return {"cfg": tp2_spec()["cfg"], "seed": 0, "steps": 2,
             "stages": (1, 2), "device": "cpu"}
@@ -628,16 +638,20 @@ def pp_sdp_spec():
 def job_pp2_sdp2_rank():
     """chip_smoke.py's pp2_sdp2_rank on this four-rank world at
     pp_sdp_spec's narrow width on short_ids, the flash route through its
-    plain versions, counted."""
+    plain versions, counted, with ``pipeline._EMBED_SHARD_MIN_ELEMS``
+    lowered so that the narrow embedding accumulates row-sharded as
+    345M's does."""
     import pytest
     import torch
 
     import chip_smoke
     from _torch_dist import PlainCounters, short_ids
+    from paddle_tpu_torch.distributed import pipeline as tpipe
     mp = pytest.MonkeyPatch()
     try:
         mp.setattr(torch.cuda, "synchronize", lambda *a: None)
         mp.setattr(chip_smoke, "train_ids", short_ids)
+        mp.setattr(tpipe, "_EMBED_SHARD_MIN_ELEMS", 1 << 14)
         return chip_smoke.pp2_sdp2_rank(torch, pp_sdp_spec(),
                                         PlainCounters(mp), device="cpu")
     finally:
@@ -645,20 +659,30 @@ def job_pp2_sdp2_rank():
 
 
 def job_pp_zero(ids, axes, stage=1, steps=3, clip=None, opt="adamw",
-                seed=5):
+                seed=5, embed_min=None):
     """The tiny GPT pipeline (:func:`gpt_pipeline`, 4 blocks) through the
     fleet on the mesh ``axes`` ({"pp": 2, "dp": 2} or {"pp": 2, "sdp":
     2}) at ``sharding_configs.stage`` ``stage``: ``steps`` steps of AdamW
     (or SGD), with a global-norm clip when given.  Returns the losses, the
     trained parameters after ``sync_to_layers`` (every stage's), the
     rank's optimizer-slot elements, the shapes of the gradients the
-    optimizer took at the first step and the parameters' own, and the
-    collectives a step."""
+    optimizer took at the first step and the parameters' own, the
+    collectives a step and the embedding-grad accumulators' shapes.
+    ``embed_min`` lowers ``pipeline._EMBED_SHARD_MIN_ELEMS`` for the
+    run, so the tiny embedding accumulates row-sharded."""
     import torch
 
     import chip_smoke
     from paddle_tpu_torch.distributed import collective as C
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import pipeline as tpipe
+    if embed_min is not None:
+        kept = tpipe._EMBED_SHARD_MIN_ELEMS
+        tpipe._EMBED_SHARD_MIN_ELEMS = embed_min
+        try:
+            return job_pp_zero(ids, axes, stage, steps, clip, opt, seed)
+        finally:
+            tpipe._EMBED_SHARD_MIN_ELEMS = kept
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import SGD, AdamW
     strategy = fleet.DistributedStrategy()
@@ -697,18 +721,28 @@ def job_pp_zero(ids, axes, stage=1, steps=3, clip=None, opt="adamw",
             "stage": comp._stage,
             "collectives_per_step": {k: v / steps
                                      for k, v in issued.items()},
-            "slot_bytes": chip_smoke.slots_bytes(comp.opt_state)}
+            "slot_bytes": chip_smoke.slots_bytes(comp.opt_state),
+            "embed_acc": comp.last_embed_acc_shapes}
 
 
-def job_fleet_zero(weights, data, stage):
+def job_fleet_zero(weights, data, stage, embed_min=None):
     """tests/test_pipeline_fleet.py's ZeRO x pipeline run through the
     port's fleet: pp2 x sdp2 at ``sharding_configs.stage`` ``stage``, Adam
-    (lr 0.05), 4 microbatches, ``train_batch`` over ``data``.  Returns the
+    (lr 0.05), 4 microbatches, ``train_batch`` over ``data`` (with
+    ``embed_min`` as ``pipeline._EMBED_SHARD_MIN_ELEMS``).  Returns the
     losses and the trained parameters (every stage's)."""
     import torch
 
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import pipeline as tpipe
     from paddle_tpu_torch.optimizer import Adam
+    if embed_min is not None:
+        kept = tpipe._EMBED_SHARD_MIN_ELEMS
+        tpipe._EMBED_SHARD_MIN_ELEMS = embed_min
+        try:
+            return job_fleet_zero(weights, data, stage)
+        finally:
+            tpipe._EMBED_SHARD_MIN_ELEMS = kept
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = {"pp_degree": 2, "sharding_degree": 2}
     strategy.pipeline_configs = {"accumulate_steps": 4}

@@ -181,11 +181,11 @@ def job_dp_sep_guard(weights, ids):
 
 
 def job_seq_refusals(weights, ids):
-    """What raises on a 'sep' mesh, each entry point's message: an S the
-    ranks do not divide (ValueError), mp x sep (parallelize and the
-    forward), ZeRO x sep, pp x sep, the serving engine, a GPT block run
-    outside the model, ``in_shardings`` naming 'sep' on dimension 0 or
-    another axis on dimension 1."""
+    """What raises on a 'sep' mesh, each entry point's message (None:
+    it builds): an S the ranks do not divide (ValueError), mp x sep
+    (parallelize), ZeRO x sep, pp x sep, the serving engine, a GPT block
+    run outside the model, ``in_shardings`` naming 'sep' on dimension 0
+    or another axis on dimension 1."""
     import torch
 
     import _torch_dist
@@ -214,8 +214,6 @@ def job_seq_refusals(weights, ids):
     D.init_mesh({"dp": 2, "sep": 2})
     m = _torch_dist.tiny_gpt(weights)
     attempt("odd_s", lambda: m(x[:, :7]))
-    attempt("zero", lambda: step(_torch_dist.tiny_gpt(weights),
-                                 zero_stage=1))
     attempt("decode_engine", lambda: DecodeEngine(
         _torch_dist.tiny_gpt(weights), num_slots=2, max_len=64,
         device="cpu").prefill(0, x[0]))
@@ -228,6 +226,9 @@ def job_seq_refusals(weights, ids):
     D.init_mesh({"sep": 2, "mp": 2})
     attempt("mp_parallelize", lambda: D.parallelize(
         _torch_dist.tiny_gpt(weights)))
+    D.init_mesh({"sdp": 2, "sep": 2})
+    attempt("zero", lambda: step(_torch_dist.tiny_gpt(weights),
+                                 zero_stage=1))
     D.init_mesh({"pp": 2, "sep": 2})
     attempt("pp", lambda: _pp_sep(x))
     strategy = fleet.DistributedStrategy()
@@ -294,3 +295,60 @@ def job_sep_train_rank(ref_grads, ref_losses):
             device="cpu")
     finally:
         mp.undo()
+
+
+# ---------------------------------------------------------------------------
+# ZeRO and tensor parallelism over sequence shards
+# ---------------------------------------------------------------------------
+
+def job_sep_hybrid(weights, ids, steps, axes, opt="adamw", spec=None,
+                   zero_stage=None, cfg=None):
+    """:func:`seq_train`'s run with ZeRO (``zero_stage`` over ``sdp``) or
+    tensor parallelism (``parallelize`` where the mesh has ``mp``) beside
+    ``sep``: ``spec`` "sdp" is ``in_shardings=P("sdp")``, "sdp_sep"
+    ``P("sdp", "sep")``, None no ``in_shardings``.  Returns the losses
+    and the gradients the optimizer took at the first step, each made
+    whole again (ZeRO slices gathered over ``sdp``, tensor-parallel
+    shards over ``mp``), or None on a rank outside the mesh."""
+    import torch
+
+    import _torch_dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec as P
+    from paddle_tpu_torch.distributed.parallel_base import unshard_slices
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    if not _in_mesh(axes):
+        return None
+    m = _torch_dist.tiny_gpt(weights, **(cfg or {}))
+    if axes.get("mp", 1) > 1:
+        D.parallelize(m)
+    o = optimizer(opt, m.parameters())
+    first = {}
+    real = o.apply_gradients
+
+    def record(params, grads, *a, **kw):
+        if not first:
+            first.update({n: g.detach().clone() for n, g in grads.items()})
+        return real(params, grads, *a, **kw)
+    o.apply_gradients = record
+    shard = {"sdp": P("sdp"), "sdp_sep": P("sdp", "sep"), None: None}[spec]
+    step = TrainStep(m, GPTPretrainingCriterion(), o, device="cpu",
+                     in_shardings=shard, zero_stage=zero_stage)
+    x = torch.from_numpy(np.array(ids))
+    losses = [float(step(x, x)) for _ in range(steps)]
+    z = step._zero
+    whole = {}
+    for n in sorted(first):
+        g = first[n]
+        if z is not None and z.sliced(n):
+            g = z.gather(n, g)
+        p = step._model_params[n]
+        if getattr(p, "mp_group", None) is not None:
+            dim = next(d for d, a in enumerate(tuple(p.pspec))
+                       if a is not None)
+            parts = C.all_gather([], g.contiguous(), group=p.mp_group)
+            g = unshard_slices(parts, dim, int(getattr(p, "mp_parts", 1)))
+        whole[n] = g.float().numpy().copy()
+    return losses, whole

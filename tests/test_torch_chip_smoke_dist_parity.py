@@ -7,6 +7,7 @@ and ep = 2), each held by the phase's own checks, and refused where a
 rank's result is bent."""
 import copy
 
+import numpy as np
 import pytest
 import torch
 
@@ -87,13 +88,18 @@ def test_tp2_gloo_rehearsed_on_a_gloo_world(monkeypatch):
         chip_smoke.tp2_hold(bad, spec, forwards)
 
 
-def test_zero_gloo_rehearsed_on_a_gloo_world(monkeypatch):
+def test_zero_gloo_rehearsed_on_a_gloo_world(monkeypatch, tmp_path):
     """chip_smoke.py's zero_gloo logic on a two-rank gloo CPU world at a
     narrow width in f32: ``zero_rank`` on each rank (stages 1-3, two steps
-    each, the batch sharded over sdp, the flash route counted), then
-    ``zero_hold``'s checks against the unsharded step's losses (slots half
-    a rank's, stage 2-3 reduce-scattering, stage 3's masters half); a
-    rank holding the full slots is refused.  The batch is (8, 128)."""
+    each, the batch sharded over sdp, the flash route counted; stages 2
+    and 3 saved and restored), then ``zero_hold``'s checks against the
+    unsharded step's losses (slots half a rank's, stage 2-3
+    reduce-scattering, stage 3's masters half, its losses stage 2's bit
+    for bit, its gathered bytes at once within the token table plus one
+    block; each rank's file its share, the restored next loss bit for
+    bit); a rank holding the full slots, a stage 3 one ulp off stage 2,
+    a file holding the whole state and a restored loss one ulp off are
+    refused.  The batch is (8, 128)."""
     import _torch_dist
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(chip_smoke, "train_ids", _torch_dist.short_ids)
@@ -107,17 +113,41 @@ def test_zero_gloo_rehearsed_on_a_gloo_world(monkeypatch):
         ids, counters, 2)
     world = _torch_dist.World(2)
     try:
-        outs = world.run("job_zero_rank")
+        outs = world.run("job_zero_rank", save_dir=str(tmp_path))
     finally:
         world.close()
     line = chip_smoke.zero_hold(outs, spec, default)
     for stage in (1, 2, 3):
         assert line["stages"][stage]["max_loss_diff"] < 1e-4
         assert line["stages"][stage]["sliced_masters"] > 0
+    three = line["stages"][3]
+    assert three["losses"] == line["stages"][2]["losses"]
+    assert all(p > 0 for p in three["gathered_peak_bytes"])
+    for stage in (2, 3):
+        for save in line["stages"][stage]["save"]:
+            share = save["file_bytes"] / save["whole_state_bytes"]
+            assert share < (0.75 if stage == 2 else 0.6), share
     bad = [dict(o, stages=dict(o["stages"])) for o in outs]
     bad[0]["stages"][2] = dict(bad[0]["stages"][2],
                                slots_bytes=outs[0]["full_slots_bytes"])
     with pytest.raises(AssertionError, match="stage 2 slots"):
+        chip_smoke.zero_hold(bad, spec, default)
+    bad = copy.deepcopy(outs)
+    for o in bad:
+        o["stages"][3]["losses"][1] = float(np.nextafter(
+            o["stages"][3]["losses"][1], np.inf))
+    with pytest.raises(AssertionError, match="stage 3 losses"):
+        chip_smoke.zero_hold(bad, spec, default)
+    bad = copy.deepcopy(outs)
+    save = bad[1]["stages"][3]["save"]
+    save["file_bytes"] = save["whole_state_bytes"]
+    with pytest.raises(AssertionError, match="rank 1 checkpoint"):
+        chip_smoke.zero_hold(bad, spec, default)
+    bad = copy.deepcopy(outs)
+    save = bad[0]["stages"][2]["save"]
+    save["restored_next_loss"] = float(np.nextafter(save["next_loss"],
+                                                    -np.inf))
+    with pytest.raises(AssertionError, match="rank 0 checkpoint"):
         chip_smoke.zero_hold(bad, spec, default)
 
 

@@ -55,7 +55,9 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.io, paddle_tpu_torch.io.shm_queue, "
         "paddle_tpu_torch.incubate.checkpoint, "
         "paddle_tpu_torch.distributed.launch_main, "
-        "paddle_tpu_torch.distributed.fleet.elastic\n"
+        "paddle_tpu_torch.distributed.fleet.elastic, "
+        "paddle_tpu_torch.distributed.auto_parallel, "
+        "paddle_tpu_torch.metric\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'paddle_tpu' "
@@ -127,7 +129,8 @@ def test_chip_smoke_and_the_rank_helpers_import_no_jax():
     files = [PKG.parent / "chip_smoke.py",
              PKG.parent / "tools" / "torch_launch_worker.py"] + [
         here / ("_torch_%s.py" % n)
-        for n in ("dist", "front", "pipe", "sep", "seq", "launch")]
+        for n in ("dist", "front", "pipe", "sep", "seq", "launch",
+                  "hybrid")]
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
@@ -156,6 +159,29 @@ def test_engine_without_device_raises_on_a_cpu_only_machine():
                   AdamW(parameters=m.parameters()))
     # the model stayed where it was: nothing moved on the way to the error
     assert next(m.parameters()).device.type == "cpu"
+
+
+def test_auto_parallel_engine_without_device_raises_on_a_cpu_only_machine():
+    """The auto-parallel Engine runs on the card unless ``prepare`` is
+    given ``device="cpu"``: without a card it raises before it touches
+    the model."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed.auto_parallel import Engine
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForCausalLM,
+                                             GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    m = GPTForCausalLM(GPTConfig.tiny())
+    engine = Engine(m, GPTPretrainingCriterion(),
+                    AdamW(parameters=m.parameters()))
+    try:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            engine.prepare(mesh_axes={"dp": 1})
+    finally:
+        mesh.set_mesh(None)
+    assert next(m.parameters()).device.type == "cpu"
+    assert getattr(m, "_mp_group", "untouched") == "untouched"
 
 
 def test_cache_create_without_device_raises_on_a_cpu_only_machine():

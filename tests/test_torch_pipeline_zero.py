@@ -16,7 +16,8 @@ four-rank gloo world:
   same mean over the data-parallel ranks), that test's limits;
 * chip_smoke.py's pp2_sdp2_gloo at a narrow width through its hold, and
   the hold refusing a loss one ulp past its bar, a rank whose slots are
-  whole, a stage 2 that did not reduce-scatter."""
+  whole, a stage 2 that did not reduce-scatter, a rank whose
+  embedding-grad accumulator is whole."""
 import copy
 
 import numpy as np
@@ -184,6 +185,16 @@ def test_pp2_sdp2_gloo_rehearsed_on_a_gloo_world(world):
     line = chip_smoke.pp2_sdp2_hold(outs, spec)
     assert line["sdp_stage2"]["max_loss_rel"] <= chip_smoke.PP_SDP_LOSS_REL
     assert all(0.45 <= x <= 0.55 for x in line["sdp_stage1"]["slot_share"])
+    # the row-sharded accumulator: the token table's half rows a rank
+    whole = line["embed_acc_whole_bytes"]
+    for name, per_rank in line["embed_acc_bytes"].items():
+        assert all(0.45 * whole <= b <= 0.55 * whole for b in per_rank), \
+            (name, per_rank, whole)
+    bad = copy.deepcopy(outs)
+    bad[3]["sdp_stage2"]["embed_acc"] = dict(
+        bad[3]["sdp_stage2"]["embed_shapes"])
+    with pytest.raises(AssertionError, match="accumulators"):
+        chip_smoke.pp2_sdp2_hold(bad, spec)
     bad = copy.deepcopy(outs)
     ref = bad[1]["dp"]["losses"][1]
     edge = ref * (1 + chip_smoke.PP_SDP_LOSS_REL)

@@ -19,10 +19,11 @@ batch, on one four-rank gloo world:
   ``parallelize`` sum the gradient shares over 'sep': JAX's gradients;
   ``DataParallel`` refuses a loss that is not a share and averages a
   model that does not shard its sequences over 'dp' alone;
-* what raises: an S the ranks do not divide (ValueError), ZeRO, pp, mp
-  and the serving engine on a 'sep' mesh, a block run outside the model
+* what raises: an S the ranks do not divide (ValueError), pp and the
+  serving engine on a 'sep' mesh, a block run outside the model
   (NotImplementedError naming ROADMAP §A5), ``in_shardings`` with 'sep'
-  on the batch dimension or another axis past it."""
+  on the batch dimension or another axis past it; ZeRO and mp on a
+  'sep' mesh build."""
 import numpy as np
 import pytest
 
@@ -235,16 +236,19 @@ def test_data_parallel_sums_over_sep_only_a_sequence_sharded_share(world):
 
 def test_what_a_sep_mesh_refuses(world):
     """Each raises, NotImplementedError naming ROADMAP §A5 where a module
-    is missing: ZeRO, pp x sep (and through the fleet), mp x sep, the
-    serving engine, a GPT block outside the model; ValueError for an S
-    the ranks do not divide and for ``in_shardings`` with 'sep' on the
-    batch dimension; another axis on dimension 1 names §A5."""
+    is missing: pp x sep (and through the fleet), the serving engine, a
+    GPT block outside the model; ValueError for an S the ranks do not
+    divide and for ``in_shardings`` with 'sep' on the batch dimension;
+    another axis on dimension 1 names §A5.  ZeRO and mp x sep, refused
+    until they were ported, now build (their parity is
+    tests/test_torch_sep_hybrid.py's)."""
     out = world.run("_torch_seq:job_seq_refusals", weights=_weights(),
                     ids=_ids())[0]
     assert out["odd_s"].startswith("ValueError") and "7 rows" in out["odd_s"]
     assert "'sep' shards the sequence" in out["in_shardings_sep_dim0"]
-    for key in ("zero", "decode_engine", "block", "in_shardings_dim1_dp",
-                "mp_parallelize", "pp", "fleet_pp"):
+    assert out["zero"] is None and out["mp_parallelize"] is None, out
+    for key in ("decode_engine", "block", "in_shardings_dim1_dp", "pp",
+                "fleet_pp"):
         assert out[key] is not None and out[key].startswith(
             "NotImplementedError") and "§A5" in out[key], (key, out[key])
 
