@@ -361,6 +361,32 @@ line.
               ``GradScaler``, each LayerNorm route: the tensor-core
               forward, C2 and C3 (and B, D) on fp16, a finite first loss
               near the bf16 one, no step skipped.
+13a. fit_guard — GPT-2 345M at full depth, the train batch, AMP O2 bf16,
+              AdamW, ``use_pallas_norm`` and ``use_pallas_ce``, hidden
+              dropout 0.1 from the step's generator (attention dropout 0,
+              so attention takes the flash kernels).  (a) A
+              ``DivergenceSentinel`` (snapshots every 2 steps, 2 kept)
+              over 12 steps with NaNBatch at ``train.grads`` step 6: one
+              rewind, the replayed losses a clean run's bit for bit; a
+              snapshot's host bytes and ms, the rewind's ms.  (b)
+              ``hapi.Model.fit`` over an ``io.DataLoader`` of 10 batches
+              with ``DivergenceMonitor`` and NaNBatch at batch 5: the
+              first 5 losses a bare TrainStep's bit for bit, one rewind,
+              ``train.divergence_rollbacks`` up by 1, later losses
+              finite, the kernels' launches counted from 0 around the fit
+              (flash forward, C2, C3 24 a batch, B and D 49, E2 and E3
+              1); ``evaluate`` and ``predict`` once.  (c) Under
+              ``hbm.enable()`` each batch's ``hbm.live_bytes{device=
+              cuda:0}`` equals ``torch.cuda.memory_allocated(0)`` at the
+              same boundary; a flight dump embeds the ledger state and
+              the compile counts.  (e) ``profiler.Profiler`` with
+              ``make_scheduler(closed=1, ready=1, record=3)`` over 5
+              steps in RecordEvent spans: the chrome export holds the
+              spans, the hand-written kernels' names and the HBM lanes,
+              and the window every flash forward (taken again once if
+              not).  (d) ``cost_block`` over ``TrainStep.cost_report`` at
+              the window's device seconds a step: flops within 1% of the
+              closed form (``step_flops``), ``mfu`` at most 1.05.
 14. autotune — ``autotune.warm()`` over the port's standard keys (the
               four flash families at the training shape; the slotted and
               paged decode attention at the serving shape, the paged one
@@ -374,6 +400,15 @@ line.
 16. train_autotune — 3 steps with ``FLAGS_autotune=1`` reading the
               cache that the autotune phase wrote: the launches are the
               winners', nothing is timed again, the first loss held.
+16a. serve_watch — the paged 345M engine (8 slots, max_len 1024) under
+              ``PADDLE_TPU_STRICT_COMPILE=1`` and ``use_pallas_norm``, its
+              steps captured, 8 requests of the serve traffic through the
+              scheduler: the watchdog's counts grow by the engine's
+              captures of each kind, nothing raises while serving, a
+              forced second capture raises ``RecompileError``, the ledger's
+              ``hbm.kv_pool_bytes`` equals the pools' tensors' bytes (the
+              sink pages left out), and the ``autotune.*`` metrics of
+              phase 14 are in the registry.
 17. train_long — GPT-2 345M at (1, 16384), 3 steps (ms over steps 2-3)
               and the stream time of each part of one more step: the
               tensor-core forward, C2 and C3 launch 24 times a step; the
@@ -4670,8 +4705,15 @@ def autotune_warm(torch, at, fac):
                                  "%r, winner %r" % (fam, refused, want,
                                                     failed, won))
     emit({"phase": "autotune_seconds", "seconds": seconds,
-          "tune_seconds": at.tune_seconds, "keys": len(pairs)})
+          "tune_seconds": tune_seconds(), "keys": len(pairs)})
     return lines
+
+
+def tune_seconds():
+    """Seconds the autotuner has spent timing candidates in this process
+    (the ``autotune.tune_seconds`` histogram's sum)."""
+    from paddle_tpu_torch.observability import registry
+    return registry.histogram("autotune.tune_seconds").sum
 
 
 def train_pipelined(torch, base, amp, counters, flags, first_loss, steps=3):
@@ -4726,7 +4768,7 @@ def train_autotune(torch, base, amp, counters, flags, at, fac, first_loss,
     for memo in (at._MEMO, at._MEMO_DEFAULT, at._RESOLVED):
         memo.clear()
     at._CACHE = None
-    tuned_s = at.tune_seconds
+    tuned_s = tune_seconds()
     flags.set_flags({"autotune": True})
     try:
         step = make_step(train_model(torch, base, amp))
@@ -4762,7 +4804,7 @@ def train_autotune(torch, base, amp, counters, flags, at, fac, first_loss,
         if cand != {"variant": entry["variant"], "config": entry["config"]}:
             raise AssertionError("train_autotune ran %s %r, the cache holds "
                                  "%r" % (fam, cand, entry))
-    if at.tune_seconds != tuned_s:
+    if tune_seconds() != tuned_s:
         raise AssertionError("train_autotune timed candidates again")
     if not all(math.isfinite(x) for x in losses) or \
             abs(losses[0] - first_loss) > CE_ROUTE_LOSS_TOL:
@@ -8048,6 +8090,468 @@ def long_and_sep(torch, train_cfg, amp, counters, flags, seconds):
     return run_long, run_sep, run_hybrid
 
 
+# -- fit_guard / serve_watch: the training guard, hapi, the HBM ledger,
+# the cost report, the profiler and the capture watchdog ---------------------
+
+GUARD_STEPS = 12        # fit_guard (a): steps a run
+GUARD_NAN_AT = 6        # (a): NaNBatch at train.grads' 7th hit (step 6)
+FIT_BATCHES = 10        # (b): batches of the fit
+FIT_NAN_AT = 5          # (b): NaNBatch at the fit's sixth batch
+GUARD_DROPOUT = 0.1     # hidden dropout, from the step's generator
+COST_FLOPS_REL = 0.01   # (d): the report against the closed form
+MFU_CAP = 1.05          # (d): an mfu past this is a wrong count or clock
+PROFILE_STEPS = 5       # (e): closed 1, ready 1, record 3
+# the hand-written kernels a fit_guard step launches, by trace name
+GUARD_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                 "flash_bwd_dkv_tc_kernel", "layer_norm_fwd_kernel",
+                 "layer_norm_bwd", "ce_fwd_kernel", "ce_bwd_kernel")
+
+
+def sync(torch, device):
+    """Wait for the card (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def guard_model(torch, base, amp, device="cuda", dropout=GUARD_DROPOUT):
+    """``train_model``'s copy of ``base`` with hidden dropout ``dropout``
+    (attention dropout stays 0, so attention takes the flash kernels);
+    the step's generator draws the masks."""
+    from paddle_tpu_torch.nn import Dropout
+    model = train_model(torch, base, amp, device)
+    for mod in model.modules():
+        if isinstance(mod, Dropout):
+            mod.p = float(dropout)
+    return model
+
+
+def guard_batches(torch, vocab, n, shape=(8, 1024), device="cuda", seed=5):
+    """``n`` seeded (ids, labels, f32 loss mask) batches: the mask is the
+    float leaf NaNBatch poisons."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        ids = torch.as_tensor(rng.integers(0, vocab, shape), device=device)
+        out.append((ids, ids.clone(),
+                    torch.ones(shape, dtype=torch.float32, device=device)))
+    return out
+
+
+def guarded_losses(torch, step, batches, plan=None, **sentinel_kw):
+    """Losses of a loop over ``batches`` that rewinds on divergence and
+    replays from the batch after the snapshot (the sentinel's contract);
+    returns (losses by batch, the sentinel or None)."""
+    from paddle_tpu_torch.robustness import faultpoints as fp
+    from paddle_tpu_torch.robustness.sentinel import DivergenceSentinel
+    sentinel = DivergenceSentinel(step, **sentinel_kw) if sentinel_kw \
+        else None
+    losses = {}
+    with (fp.chaos(plan) if plan is not None else contextlib.nullcontext()):
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            i = 0
+            while i < len(batches):
+                loss = float(step(*batches[i]))
+                back = (sentinel.observe(i, loss) if sentinel is not None
+                        else None)
+                if back is not None:
+                    i = back + 1
+                    continue
+                losses[i] = loss
+                i += 1
+    if plan is not None:
+        plan.assert_all_fired()
+    return [losses[i] for i in range(len(batches))], sentinel
+
+
+def replay_hold(clean, replayed, rewinds):
+    """fit_guard (a): one rewind, and the replayed losses the clean run's
+    bit for bit."""
+    if len(rewinds) != 1:
+        raise AssertionError("fit_guard: %d rewinds, want 1: %r"
+                             % (len(rewinds), rewinds))
+    if replayed != clean:
+        raise AssertionError("fit_guard: the replayed losses part from the "
+                             "clean run's: %r against %r" % (replayed, clean))
+
+
+def step_flops(cfg, b, s):
+    """The closed-form work of one train step of the GPT (the count
+    ``tests/test_torch_costs.py`` holds the port's report to exactly): the
+    linears and the tied head 3 x their forward, causal attention (2
+    products over the visible pairs forward, 5 backward), 2L + 1
+    LayerNorms (8 + 12 a normalized element), the softmax CE (5 + 5 a
+    logit)."""
+    h, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_hidden_layers
+    i, heads = cfg.intermediate_size, cfg.num_attention_heads
+    t = b * s
+    dense = L * 2 * t * h * (3 * h + h + 2 * i) + 2 * t * h * v
+    attn = L * 14 * b * heads * (h // heads) * (s * (s + 1) // 2)
+    return 3 * dense + attn + (2 * L + 1) * 20 * t * h + 10 * t * v
+
+
+def cost_hold(block, closed_form, card=True):
+    """fit_guard (d): the report's flops within COST_FLOPS_REL of the
+    closed form, and on a card an mfu that exists and is at most MFU_CAP
+    (the CPU has no device time to divide by)."""
+    rel = abs(block["flops"] - closed_form) / closed_form
+    if rel > COST_FLOPS_REL:
+        raise AssertionError("fit_guard: cost flops %r, closed form %r "
+                             "(%.4f off)" % (block["flops"], closed_form, rel))
+    if card and (block["mfu"] is None or not 0.0 < block["mfu"] <= MFU_CAP):
+        raise AssertionError("fit_guard: mfu %r outside (0, %g]"
+                             % (block["mfu"], MFU_CAP))
+
+
+def ledger_hold(samples):
+    """fit_guard (c): each (ledger's live bytes, the allocator's) pair at a
+    batch boundary equal."""
+    if not samples:
+        raise AssertionError("fit_guard: the ledger sampled no batch")
+    bad = [(i, a, b) for i, (a, b) in enumerate(samples) if a != b]
+    if bad:
+        raise AssertionError("fit_guard: hbm.live_bytes against "
+                             "torch.cuda.memory_allocated: %r" % bad)
+
+
+def trace_hold(events, spans, kernels=GUARD_KERNELS):
+    """fit_guard (e): the exported trace holds the RecordEvent spans (as
+    host spans and as ranges in the torch trace), a kernel of each name in
+    ``kernels``, and the HBM counter lanes."""
+    names = {e.get("name") for e in events}
+    host = {e.get("name") for e in events if e.get("cat") == "host"}
+    ranges = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    missing = [s for s in spans if s not in host or s not in ranges]
+    kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    absent = [k for k in kernels if not any(k in n for n in kern)]
+    lanes = [e for e in events if e.get("cat") == "hbm"
+             and e.get("ph") == "C"]
+    if missing or absent or not lanes or not names:
+        raise AssertionError("fit_guard: the trace lacks spans %r, kernels "
+                             "%r, or HBM lanes (%d)"
+                             % (missing, absent, len(lanes)))
+
+
+class LedgerProbe:
+    """A fit callback that reads the allocator at each batch end, beside
+    the ledger's sample of the same boundary (fit samples, then calls the
+    callbacks; this one first), and records the losses."""
+
+    def __init__(self, torch, base_cls):
+        probe = self
+
+        class Probe(base_cls):
+            def on_train_batch_end(self, step, logs=None):
+                from paddle_tpu_torch.observability import hbm
+                led = hbm.active()
+                if led is not None and led.last:
+                    probe.samples.append(
+                        (led.last["devices"].get("cuda:0"),
+                         float(torch.cuda.memory_allocated(0))
+                         if torch.cuda.is_available() else None))
+                probe.losses.append(logs["loss"])
+        self.samples, self.losses = [], []
+        self.callback = Probe()
+
+
+def fit_guard(torch, base, amp, counters, flags, device="cuda",
+              shape=(8, 1024)):
+    """GPT-2 345M at full depth, the train batch, ``use_pallas_norm`` and
+    ``use_pallas_ce``, hidden dropout 0.1 from the step's generator: the
+    divergence sentinel's replay, ``hapi.Model.fit`` under the
+    DivergenceMonitor, the HBM ledger, the cost report with its mfu and
+    the profiler (module docstring, 13a).  ``device`` and ``shape`` (the
+    batch) let a CPU rehearsal run it at a narrow width."""
+    from paddle_tpu_torch import callbacks, hapi, profiler
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.observability import costs, flight, hbm, registry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.robustness import faultpoints as fp
+    cfg = base.config
+    layers = cfg.num_hidden_layers
+    # kernels, their launches and a card's memory exist on a card only
+    card = torch.device(device).type == "cuda"
+    flags.set_flags({"use_pallas_norm": True, "use_pallas_ce": True})
+    line = {"phase": "fit_guard", "card": card_line(),
+            "dropout": GUARD_DROPOUT}
+    try:
+        # (a) the sentinel: a clean run, then NaNBatch at step 6 rewound
+        # to step 4's snapshot and replayed
+        b, s = shape
+        batches = guard_batches(torch, cfg.vocab_size, GUARD_STEPS, shape,
+                                device)
+        clean, _ = guarded_losses(torch, make_step(guard_model(
+            torch, base, amp, device), device=device), batches)
+        step = make_step(guard_model(torch, base, amp, device), device=device)
+        plan = fp.FaultPlan().inject("train.grads", fp.NaNBatch(),
+                                     at=GUARD_NAN_AT)
+        replayed, sent = guarded_losses(
+            torch, step, batches, plan, snapshot_every=2, max_snapshots=2,
+            min_history=3)
+        line["replay"] = {
+            "losses": replayed, "rewinds": [list(r[:2]) for r in
+                                            sent.rewinds],
+            "snapshot_host_bytes": sent.last_snapshot_bytes,
+            "snapshot_ms": sent.last_snapshot_seconds * 1e3,
+            "rewind_ms": sent.last_rewind_seconds * 1e3}
+        replay_hold(clean, replayed, sent.rewinds)
+        del step, sent
+
+        # (b) + (c) hapi fit over the DataLoader, the ledger armed
+        rows = guard_batches(torch, cfg.vocab_size, 1,
+                             shape=(b * FIT_BATCHES, s), device="cpu",
+                             seed=7)[0]
+        data = TensorDataset([t.numpy() for t in rows])
+        bare = make_step(guard_model(torch, base, amp, device), device=device)
+        ref = [float(bare(*(t[i * b:(i + 1) * b].to(device) for t in rows)))
+               for i in range(FIT_NAN_AT)]
+        model = hapi.Model(guard_model(torch, base, amp, device))
+        model.prepare(AdamW(learning_rate=1e-4, weight_decay=0.01,
+                            parameters=model.parameters()),
+                      GPTPretrainingCriterion(), device=device)
+        probe = LedgerProbe(torch, callbacks.Callback)
+        monitor = callbacks.DivergenceMonitor(snapshot_every=2,
+                                              max_snapshots=2, min_history=3)
+        rollbacks = registry.counter("train.divergence_rollbacks").value
+        hbm.enable()
+        sync(torch, device)
+        counters.reset()
+        try:
+            with fp.chaos(fp.FaultPlan().inject("train.grads", fp.NaNBatch(),
+                                                at=FIT_NAN_AT)):
+                model.fit(data, batch_size=b, epochs=1, shuffle=False,
+                          verbose=0, callbacks=[probe.callback, monitor])
+            sync(torch, device)
+            launches = counters.read()
+        finally:
+            ledger_samples = list(probe.samples)
+        line["fit"] = {"losses": probe.losses, "bare_step_losses": ref,
+                       "rewinds": monitor.rewinds, "launches": launches}
+        if probe.losses[:FIT_NAN_AT] != ref:
+            raise AssertionError("fit_guard: fit losses %r, the bare "
+                                 "TrainStep's %r"
+                                 % (probe.losses[:FIT_NAN_AT], ref))
+        later = probe.losses[FIT_NAN_AT + 1:]
+        if monitor.rewinds != 1 or registry.counter(
+                "train.divergence_rollbacks").value != rollbacks + 1 \
+                or not later or not all(math.isfinite(x) for x in later):
+            raise AssertionError("fit_guard: rewinds %r, later losses %r"
+                                 % (monitor.rewinds, later))
+        expect_launches(launches, {} if not card else {
+            "flash_fwd_tc": layers * FIT_BATCHES,
+            "flash_bwd_dq": layers * FIT_BATCHES,
+            "flash_bwd_dkv": layers * FIT_BATCHES,
+            "layer_norm_fwd": (2 * layers + 1) * FIT_BATCHES,
+            "layer_norm_bwd": (2 * layers + 1) * FIT_BATCHES,
+            "ce_fwd": FIT_BATCHES, "ce_bwd": FIT_BATCHES}, "fit_guard")
+        evals = model.evaluate(TensorDataset([t[:2 * b].numpy()
+                                              for t in rows]), batch_size=b)
+        preds = model.predict(TensorDataset([rows[0][:b].numpy()]),
+                              batch_size=b)
+        line["fit"]["eval_loss"] = evals["eval_loss"]
+        if not math.isfinite(evals["eval_loss"]) or len(preds) != 1 or \
+                tuple(preds[0].shape) != (b, s, cfg.vocab_size) or \
+                not bool(torch.isfinite(preds[0]).all()):
+            raise AssertionError("fit_guard: evaluate %r, predict %r"
+                                 % (evals, [tuple(p.shape) for p in preds]))
+        del preds
+        # (c): the ledger's samples, then a flight dump's ledger state and
+        # compile counts
+        line["ledger"] = {"samples": len(ledger_samples),
+                          "live_bytes": [a for a, _b in ledger_samples]}
+        ledger_hold(ledger_samples)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+            flight.enable(dir=d)
+            try:
+                with open(flight.active().dump({"kind": "fit_guard"})) as f:
+                    dump = json.load(f)
+            finally:
+                flight.disable()
+        hbm_state = dump["hbm"]
+        line["ledger"]["dump"] = {
+            "armed": hbm_state.get("armed"),
+            "devices": hbm_state.get("devices"),
+            "top_arrays": hbm_state.get("top_arrays", [])[:5],
+            "compile_counts": dump["compile_counts"]}
+        if not hbm_state.get("armed") or dump["compile_counts"].get(
+                "jit.train_step", 0) < 1 or card and (
+                "cuda:0" not in hbm_state.get("devices", {})
+                or not hbm_state.get("top_arrays")):
+            raise AssertionError("fit_guard: flight dump %r"
+                                 % line["ledger"]["dump"])
+        del model, monitor
+
+        # (e) the profiler over 5 steps of the bare step, then (d) its
+        # cost report and the mfu at the profiled device seconds a step.
+        # A window that lost kernel records (chip_smoke.traced_after_mark)
+        # would understate the device time: it is taken again, once
+        batch = tuple(t[:b].to(device) for t in rows)
+        line["profile"] = []
+        for _attempt in range(2):
+            events, device_s = profiled_window(torch, profiler, hbm, bare,
+                                               batch, device)
+            kern = [e for e in events if e.get("cat") == "kernel"
+                    and "flash_fwd_tc_kernel" in e.get("name", "")]
+            line["profile"].append({
+                "events": len(events), "device_ms_per_step": device_s * 1e3,
+                "flash_fwd_tc_in_window": len(kern)})
+            if len(kern) == 3 * layers or not card:
+                break
+        trace_hold(events, ["fit_guard.step"],
+                   GUARD_KERNELS if card else ())
+        if card and len(kern) != 3 * layers:
+            raise AssertionError("fit_guard: the window holds %d flash "
+                                 "forwards of %d: the trace lost records"
+                                 % (len(kern), 3 * layers))
+        report = bare.cost_report(batch)
+        block = costs.cost_block(report, device_s)
+        closed = step_flops(cfg, b, s)
+        line["cost"] = dict(block, closed_form_flops=closed,
+                            counted_flops=report.counted_flops,
+                            declared_flops=report.declared_flops,
+                            step_device_ms=device_s * 1e3)
+        cost_hold(block, closed, card)
+    finally:
+        hbm.disable()
+        flags.set_flags({"use_pallas_norm": False, "use_pallas_ce": False})
+        emit(line)
+    return line
+
+
+def profiled_window(torch, profiler, hbm, step, batch, device="cuda"):
+    """(the first export's trace events, device seconds a recorded step)
+    of PROFILE_STEPS steps under ``make_scheduler(closed=1, ready=1,
+    record=3)``, each step in a RecordEvent span and followed by a ledger
+    sample."""
+    from paddle_tpu_torch.kernels import _build
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        prof = profiler.Profiler(
+            scheduler=profiler.make_scheduler(closed=1, ready=1, record=3),
+            on_trace_ready=profiler.export_chrome_tracing(d))
+        prof.start()
+        for _ in range(PROFILE_STEPS):
+            with profiler.RecordEvent("fit_guard.step"):
+                step(*batch)
+                sync(torch, device)
+            hbm.maybe_sample("train.batch")
+            prof.step()
+        prof.stop()
+        first = sorted(os.listdir(d), key=lambda n: os.path.getmtime(
+            os.path.join(d, n)))[0]
+        with open(os.path.join(d, first)) as f:
+            events = json.load(f)["traceEvents"]
+    return events, prof.device_seconds()
+
+
+def watch_hold(before, after, by_kind):
+    """serve_watch: the watchdog's counts grew by the engine's captures of
+    each watched kind."""
+    from paddle_tpu_torch.serving.engine import _WATCHED_KINDS
+    grew = {name: after.get(name, 0) - before.get(name, 0)
+            for name in _WATCHED_KINDS.values()}
+    want = {name: by_kind.get(kind, {}).get("captures", 0)
+            for kind, name in _WATCHED_KINDS.items()}
+    if grew != want:
+        raise AssertionError("serve_watch: compile counts grew %r, the "
+                             "engine captured %r" % (grew, want))
+
+
+def pool_bytes(engine):
+    """The KV pool tensors' bytes, less the sink page of a paged pool."""
+    held = 0
+    for name in ("k", "v", "k_scale", "v_scale"):
+        t = getattr(engine.cache, name, None)
+        for x in (t if isinstance(t, (list, tuple)) else [t]):
+            if x is not None:
+                held += x.numel() * x.element_size()
+    if engine.paged:
+        held = held * engine.num_pages // (engine.num_pages + 1)
+    return held
+
+
+def serve_watch(torch, base, amp, prompts, flags, device="cuda",
+                max_len=1024):
+    """The paged 345M engine under ``PADDLE_TPU_STRICT_COMPILE=1`` and
+    ``use_pallas_norm``: its captures counted by the watchdog, a steady
+    state that raises nothing, a forced extra capture that raises, the
+    ledger's KV-pool bytes, the autotune metrics (module docstring,
+    16a).  ``device`` and ``max_len`` let a CPU rehearsal run it at a
+    narrow width."""
+    import gc
+
+    from paddle_tpu_torch.observability import hbm, registry
+    from paddle_tpu_torch.observability import watchdog as wd
+    from paddle_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                          DecodeEngine, Request)
+    line = {"phase": "serve_watch", "card": card_line()}
+    model = train_model(torch, base, amp, device).eval()
+    os.environ["PADDLE_TPU_STRICT_COMPILE"] = "1"
+    flags.set_flags({"use_pallas_norm": True})
+    hbm.enable()
+    try:
+        gc.collect()
+        before = wd.compile_counts()
+        engine = DecodeEngine(model, num_slots=8, max_len=max_len, seed=0,
+                              device=device)
+        engine.capture_steps()
+        sched = ContinuousBatchingScheduler(engine)
+        for p in prompts[:8]:
+            sched.submit(Request(prompt=p, max_new_tokens=16,
+                                 temperature=0.0))
+        results = sched.run()
+        stats = engine.graph_stats()
+        after = wd.compile_counts()
+        watch_hold(before, after, stats["by_kind"])
+        line["compile_counts"] = after
+        line["graph_stats"] = {k: v["captures"]
+                               for k, v in stats["by_kind"].items()}
+        line["finished"] = len(results)
+        if len(results) != 8 or any(len(r.tokens) != 16
+                                    for r in results.values()):
+            raise AssertionError("serve_watch: results %r"
+                                 % {k: len(r.tokens)
+                                    for k, r in results.items()})
+        # a forced second capture of a routing already captured
+        engine._graphs.clear()
+        try:
+            engine.capture_steps()
+        except wd.RecompileError as e:
+            line["forced_capture"] = str(e)[:200]
+        else:
+            raise AssertionError("serve_watch: a forced second capture "
+                                 "raised nothing")
+        gc.collect()
+        kv = hbm.sample("serve_watch")["kv_pool_bytes"]
+        want = sum(pool_bytes(e) for e in list(hbm._ENGINES))
+        line["kv_pool_bytes"] = {"ledger": kv, "pool_tensors": want,
+                                 "engine": engine.kv_pool_bytes()}
+        if kv != want or engine not in list(hbm._ENGINES):
+            raise AssertionError("serve_watch: hbm.kv_pool_bytes %r, the "
+                                 "pools' tensors %r" % (kv, want))
+        snap = registry.default_registry().snapshot()
+        tuned = {n: snap.get(n) for n in ("autotune.cache_hits",
+                                          "autotune.cache_misses",
+                                          "autotune.tune_seconds")}
+        line["autotune_metrics"] = {
+            n: (s["series"][0].get("value", s["series"][0].get("count"))
+                if s else None) for n, s in tuned.items()}
+        if not all(tuned.values()) or not snap["autotune.tune_seconds"][
+                "series"][0]["count"]:
+            raise AssertionError("serve_watch: autotune metrics %r"
+                                 % line["autotune_metrics"])
+    finally:
+        hbm.disable()
+        os.environ.pop("PADDLE_TPU_STRICT_COMPILE", None)
+        flags.set_flags({"use_pallas_norm": False})
+        emit(line)
+    del engine, model
+    return line
+
+
 class NativeBuild:
     """``core.native.load()`` on a thread of its own (g++ beside nvcc);
     :meth:`join` returns the seconds g++ took (None: a fresh library was
@@ -8479,6 +8983,11 @@ def main():
     run_fp16 = train_fp16(torch, base, amp, counters, flags,
                           run_train["losses"][0])
     seconds["train_fp16"] = time.perf_counter() - t0
+    # before the autotune phase, whose cache would pick A' at this shape
+    t0 = time.perf_counter()
+    run_fit = fit_guard(torch, base, amp, counters, flags)
+    torch.cuda.empty_cache()
+    seconds["fit_guard"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     autotune_lines = autotune_warm(torch, autotune, fac)
     seconds["autotune"] = time.perf_counter() - t0
@@ -8489,9 +8998,13 @@ def main():
     t0 = time.perf_counter()
     run_tuned = train_autotune(torch, base, amp, counters, flags, autotune,
                                fac, run_train["losses"][0])
-    del base
     torch.cuda.empty_cache()
     seconds["train_autotune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_watch(torch, base, amp, prompts, flags)
+    del base
+    torch.cuda.empty_cache()
+    seconds["serve_watch"] = time.perf_counter() - t0
     run_long, run_sep, run_hybrid = long_and_sep(
         torch, train_cfg, amp, counters, flags, seconds)
     emit({"phase": "seconds", **seconds})
@@ -8559,6 +9072,8 @@ def main():
         # the auto-parallel Engine's fit (its evaluate and predict run
         # the forward alone)
         out["auto_engine_fit"] = run_auto["launches"]["fit"][kern]
+        # hapi.Model.fit under the divergence guard
+        out["fit_guard"] = run_fit["fit"]["launches"][kern]
         out.update({"train_recompute_" + r["layout"]: r["launches"][kern]
                     for r in run_rc})
         out.update(launched_launches(kern))
@@ -8851,6 +9366,7 @@ def main():
                 run_tp2["overlap"][name]["launches"]["layer_norm_fwd"]
                 for name in ("per_layer", "scan")},
              "train_norm": run_train_norm["launches"]["layer_norm_fwd"],
+             "fit_guard": run_fit["fit"]["launches"]["layer_norm_fwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_fwd"],
              **{"serve_http_tp2_rank%d" % r:
@@ -8893,6 +9409,7 @@ def main():
          "launches": run_train_norm["launches"]["layer_norm_bwd"],
          "launches_by_path": {
              "train_norm": run_train_norm["launches"]["layer_norm_bwd"],
+             "fit_guard": run_fit["fit"]["launches"]["layer_norm_bwd"],
              "train_fp16_use_pallas_norm":
                  run_fp16[1]["launches"]["layer_norm_bwd"],
              "pp_single": run_pp["launches"]["layer_norm_bwd"],
@@ -8924,11 +9441,13 @@ def main():
         ce_entry("ce_fwd", 44, run_ce["launches"]["ce_fwd"],
                  {"train_ce_use_pallas_ce": run_ce["launches"]["ce_fwd"],
                   "train_parity_use_pallas_ce":
-                      parity_by["use_pallas_ce"]["ce_fwd"]}),
+                      parity_by["use_pallas_ce"]["ce_fwd"],
+                  "fit_guard": run_fit["fit"]["launches"]["ce_fwd"]}),
         ce_entry("ce_bwd", 56, run_ce["launches"]["ce_bwd"],
                  {"train_ce_use_pallas_ce": run_ce["launches"]["ce_bwd"],
                   "train_parity_use_pallas_ce":
-                      parity_by["use_pallas_ce"]["ce_bwd"]}),
+                      parity_by["use_pallas_ce"]["ce_bwd"],
+                  "fit_guard": run_fit["fit"]["launches"]["ce_bwd"]}),
         # on no path of either package: only its tests call the JAX
         # softmax_pallas, so no run launches it
         {"name": "softmax_fwd", "route": "cuda",

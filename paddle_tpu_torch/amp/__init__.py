@@ -9,7 +9,9 @@ its ``_amp_keep_fp32_params`` (the scan-layers GPT's stacked
 ``ln1_w``, ...).  The LayerNorm math then
 runs its statistics in f32 and returns the activation dtype.
 ``GradScaler`` is dynamic loss scaling for fp16; bf16 needs none, and
-``enable=False`` makes it a pass-through.
+``enable=False`` makes it a pass-through.  Its ``step`` fires the
+``amp.found_inf`` faultpoint after the finite check (``ForceFoundInf``
+there simulates an overflow) and counts ``train.amp_skipped_steps``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,12 @@ import torch
 
 from ..core.dtype import convert_dtype
 from ..nn.layer.norm import LayerNorm
+from ..robustness.faultpoints import declare as _declare
+from ..robustness.faultpoints import faultpoint
+
+_declare("amp.found_inf",
+         "override the GradScaler's found-inf verdict (ForceFoundInf "
+         "simulates an fp16 overflow step without overflow-scale grads)")
 
 
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16"):
@@ -90,8 +98,16 @@ class GradScaler:
             self._last_skipped = False
             return
         self.unscale_(optimizer)   # a no-op if the caller already unscaled
+        ctx = faultpoint("amp.found_inf", found_inf=self._found_inf)
+        if ctx is not None:
+            self._found_inf = bool(ctx["found_inf"])
+        # recorded BEFORE _update resets the flag: DivergenceSentinel reads
+        # it to tell a skipped update (parameters intact) from a divergence
         self._last_skipped = self._found_inf
-        if not self._found_inf:
+        if self._found_inf:
+            from ..observability import registry as _metrics
+            _metrics.counter("train.amp_skipped_steps").inc()
+        else:
             optimizer.step()
         self._already_unscaled.discard(id(optimizer))
         self._update()

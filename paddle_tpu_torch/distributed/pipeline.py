@@ -637,6 +637,11 @@ class _CompiledPipelineStep:
     def __init__(self, pipeline_layer: "PipelineLayer", optimizer,
                  num_stages: int, num_micro: int,
                  use_scaler: bool = False, zero_stage: int = 1):
+        # recompile watchdog: the JAX 1F1B step is compile-once; here a
+        # build of this object is its compile (observability.watchdog)
+        from ..observability.watchdog import watch
+        self._watch = watch("pipeline.1f1b_step", expected=1)
+        self._watch.compiled()
         layers = list(pipeline_layer.run_function)
         if len(layers) < num_stages + 2:
             raise ValueError(

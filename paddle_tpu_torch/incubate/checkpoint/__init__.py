@@ -219,6 +219,24 @@ def sliced(t: torch.Tensor, shape, index) -> _ShardedLeaf:
                                                         _host_array(t))])
 
 
+def _host_tree_bytes(obj) -> int:
+    """Bytes the deserialized host-side tree holds (the restore-time
+    transient the HBM ledger reports): numpy leaves, tensor leaves and
+    sharded-leaf pieces; other leaves price 0."""
+    if isinstance(obj, np.ndarray):
+        return int(obj.nbytes)
+    if isinstance(obj, _TensorLeaf):
+        return int(obj.array.nbytes)
+    if isinstance(obj, _ShardedLeaf):
+        return sum(int(a.nbytes) for _idx, a in obj.shards
+                   if isinstance(a, np.ndarray))
+    if isinstance(obj, dict):
+        return sum(_host_tree_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_host_tree_bytes(v) for v in obj)
+    return 0
+
+
 def _to_host(obj):
     """Fetch tensors to host leaves (runs on the caller's thread).  A
     ``jit.TrainStep`` in the tree is saved as its state, with each rank's
@@ -594,10 +612,15 @@ class CheckpointManager:
                 % (self.directory,
                    "; ".join("ckpt-%d: %s: %s" % (s, type(e).__name__, e)
                              for s, e in failures)))
-        # The JAX package notes the host-side tree's bytes in its HBM
-        # ledger here (the restore-time transient); the port's ledger is
-        # not ported yet (ROADMAP.md §A6, observability/hbm.py).
-        out = _from_host(merged, template)
+        # the HBM ledger's restore transient: between read and device
+        # placement the whole deserialized tree lives host-side, the
+        # restore-time spike an OOM post-mortem wants named
+        from ...observability import hbm as _hbm
+        _hbm.note_restore(_host_tree_bytes(merged))
+        try:
+            out = _from_host(merged, template)
+        finally:
+            _hbm.clear_restore()
         _metrics.histogram("checkpoint.restore_seconds").observe(
             time.perf_counter() - t0)
         return out

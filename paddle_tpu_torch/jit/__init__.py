@@ -107,10 +107,24 @@ without ZeRO (``incubate.checkpoint`` writes each rank's slices, through
 :meth:`_sliced_state`, and restores the whole).  As in the JAX step, a
 ``zero_axis`` of size <= 1 on a mesh of more than one rank raises
 ``ValueError``.
+
+Telemetry and chaos, as in the JAX step: each call fires the
+``train.grads`` faultpoint on the host before the forward (``batch``,
+the batch as given, and ``step``, the call's 0-based index; a
+``NaNBatch`` there poisons the batch's first float leaf), runs inside
+the ``train.step`` liveness beacon, and counts ``train.steps`` and
+``train.step_seconds`` (host time of the call, which waits for nothing
+on the card); with ``PADDLE_TPU_METRICS_GRAD_NORM=1`` at construction it
+sets ``train.grad_norm`` to the global norm of the gradients it hands
+the optimizer (one device sync a step).  The compile watchdog's
+``jit.train_step`` entry counts 1 at the first call (the step builds no
+program).  :meth:`cost_report` prices one step
+(:mod:`..observability.costs`).
 """
 from __future__ import annotations
 
 import re
+import time
 from typing import Callable
 
 import numpy as np
@@ -118,7 +132,22 @@ import torch
 from torch.autograd.graph import increment_version
 
 from ..core.device import resolve_device
+from ..observability import liveness as _liveness
+from ..observability import registry as _obs
 from ..optimizer.lr import LRScheduler
+from ..robustness.faultpoints import declare as _declare
+from ..robustness.faultpoints import faultpoint
+
+_declare("train.grads",
+         "mutate the host-side batch before the step (NaNBatch here "
+         "yields NaN loss + NaN grads at a chosen step)")
+
+# liveness beacon over one TrainStep call (forward, backward, update and
+# the opt-in grad-norm sync): a wedged collective inside the step stalls
+# it
+_liveness.declare_beacon(
+    "train.step", "one TrainStep call (forward + backward + optimizer "
+    "dispatch)", deadline=600.0)
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -265,6 +294,16 @@ class TrainStep:
         for m in model.modules():
             if hasattr(m, "generator"):
                 m.generator = self.generator
+        import os
+        self._emit_grad_norm = os.environ.get(
+            "PADDLE_TPU_METRICS_GRAD_NORM", "0") not in ("0", "", "off")
+        self._step_index = -1   # host-side step counter (faultpoint ctx)
+        self._watch = None      # the watchdog entry, at the first call
+        self._m_step_seconds = _obs.histogram("train.step_seconds")
+        self._m_steps = _obs.counter("train.steps")
+        self._m_grad_norm = _obs.gauge("train.grad_norm")
+        # fetched once; the NOOP_BEACON singleton when liveness is off
+        self._beacon = _liveness.beacon("train.step")
 
     def _gather_on_use(self):
         """Stage 3's :class:`~..distributed.sharding.GatherOnUse` over the
@@ -505,6 +544,51 @@ class TrainStep:
         return out
 
     def __call__(self, *batch):
+        # chaos hook, on the host before the forward: a NaNBatch action
+        # poisons one input so the loss and every grad behind it go NaN
+        self._step_index += 1
+        ctx = faultpoint("train.grads", batch=batch, step=self._step_index)
+        if ctx is not None:
+            batch = tuple(ctx["batch"])
+        if self._watch is None:
+            from ..observability.watchdog import watch
+            # an eager step builds nothing: one "compile", the JAX step's
+            # steady state
+            self._watch = watch("jit.train_step", expected=1)
+            self._watch.compiled()
+        t0 = time.perf_counter()
+        with self._beacon:   # liveness: a hang inside the step is a stall
+            loss = self._run(batch)
+        self._m_step_seconds.observe(time.perf_counter() - t0)
+        self._m_steps.inc()
+        return loss
+
+    def cost_report(self, batch):
+        """The cost of one step on ``batch`` (a tuple, as ``step(*batch)``
+        takes it): :func:`..observability.costs.report_step` around one
+        step, whose flops count the aten ops and the kernel-routed
+        functions' declared work and whose ``peak_bytes`` is the
+        allocator's peak across it on a card.  The step's state (masters,
+        optimizer slots and step, buffers, LR scheduler, generators) is
+        copied to the host first and restored after, so the report
+        changes nothing; it fires no faultpoint and counts no step."""
+        from ..incubate.checkpoint import _from_host, _to_host, \
+            step_generators
+        from ..observability import costs as _costs
+        saved = _to_host(self.state_dict())
+        gens = step_generators(self)
+        states = [g.get_state() for g in gens]
+        try:
+            report = _costs.report_step(
+                "jit.train_step", lambda: self._run(tuple(batch)),
+                self.device)
+        finally:
+            self.set_state_dict(_from_host(saved))
+            for g, st in zip(gens, states):
+                g.set_state(st)
+        return report
+
+    def _run(self, batch):
         if self._gather is not None and self._gather.whole:
             # stage 3 after sync_to_model: the parameters rest again
             self._gather.rest({n: self.params[n]
@@ -568,6 +652,12 @@ class TrainStep:
             # the shards' groups only where there are shards: the
             # optimizer's interface is otherwise the JAX step's
             groups = self._shard_groups()
+            if self._emit_grad_norm:
+                from ..nn.clip import global_norm_sq
+                names = sorted(grads)
+                self._m_grad_norm.set(float(global_norm_sq(
+                    [grads[n] for n in names],
+                    [groups.get(n) for n in names]).sqrt()))
             extra = {"mp_groups": groups} if groups else {}
             z = self._zero
             # this rank's slices (stage 3's masters rest as them)

@@ -26,10 +26,11 @@
 The JAX package prices each candidate's VMEM working set before it
 compiles; here a family's ``smem_bytes`` hook is held against the card's
 opt-in shared-memory limit per block, and a candidate above it is
-recorded as ``rejected: smem`` without a launch.  The JAX package's
-liveness beacon and observability registry are not ported:
-:data:`cache_hits`, :data:`cache_misses` and :data:`tune_seconds` count
-in their place.
+recorded as ``rejected: smem`` without a launch.  As in the JAX
+package, ``resolve()`` counts ``autotune.cache_hits`` (a pin, the memo or
+the cache answered) and ``autotune.cache_misses`` in the metrics
+registry, ``tune()`` observes ``autotune.tune_seconds`` and runs inside
+the ``autotune.tune`` liveness beacon.
 
 With tuning disabled, no pin and no cache entry, ``resolve()`` returns
 the registered default, so every kernel launches as the hand-tuned path
@@ -43,6 +44,9 @@ import statistics
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+from ..observability import liveness as _liveness
+from ..observability import registry as _obs
 
 __all__ = [
     "register_family", "resolve", "tune", "warm", "clear_cache",
@@ -68,11 +72,12 @@ _RESOLVED: Dict[tuple, Dict[str, Any]] = {}
 _CACHE: Optional[dict] = None
 _CACHE_LOADED_FROM: Optional[str] = None
 
-#: resolve() calls answered by a pin, the memo or the cache / by neither,
-#: and the seconds spent in tune(), since import (or a caller's reset)
-cache_hits = 0
-cache_misses = 0
-tune_seconds = 0.0
+# liveness beacon over one timed candidate selection: candidates build
+# and run on the card in a loop, and a hung card wedges the warm
+# silently.  900 s default: a full family sweep times every candidate
+_liveness.declare_beacon(
+    "autotune.tune", "one timed autotune selection (compile + time "
+    "every candidate for one key)", deadline=900.0)
 
 
 class KernelFamily:
@@ -342,7 +347,6 @@ def tune(family_name: str, key: dict, persist: bool = True,
     defers the family's operand-cache cleanup to the caller (warm()
     batches several families over the same key).
     """
-    global tune_seconds
     import torch
     fam = _FAMILIES[family_name]
     if fam.runner is None:
@@ -358,8 +362,10 @@ def tune(family_name: str, key: dict, persist: bool = True,
     best, best_ms = None, None
     t_start = time.perf_counter()
     try:
-        with torch.profiler.record_function(
-                "autotune::%s::%s" % (family_name, ks)):
+        # tune() is cold-path: fetching the beacon per call is fine
+        with _liveness.beacon("autotune.tune"), \
+                torch.profiler.record_function(
+                    "autotune::%s::%s" % (family_name, ks)):
             for cand in cands:
                 sig = _cand_sig(cand)
                 rejected = _smem_reject(fam, cand, key, limit)
@@ -382,7 +388,8 @@ def tune(family_name: str, key: dict, persist: bool = True,
                 if best_ms is None or ms < best_ms:
                     best, best_ms = cand, ms
     finally:
-        tune_seconds += time.perf_counter() - t_start
+        _obs.histogram("autotune.tune_seconds").observe(
+            time.perf_counter() - t_start)
         if run_cleanup and fam.cleanup is not None:
             fam.cleanup(key)
     if best is None:
@@ -423,7 +430,6 @@ def resolve(family_name: str, key: dict) -> dict:
     selection (only when autotuning is enabled) > registered default.
     Always returns ``{"variant": str, "config": dict}``.
     """
-    global cache_hits, cache_misses
     fam = _FAMILIES.get(family_name)
     if fam is None:
         raise KeyError("unknown autotune family %r" % family_name)
@@ -437,14 +443,14 @@ def resolve(family_name: str, key: dict) -> dict:
     pin = _pins().get(family_name)
     if pin is not None:
         default = fam.candidates(key)[0]
-        cache_hits += 1
+        _obs.counter("autotune.cache_hits").inc()
         return _log({"variant": pin["variant"] or default["variant"],
                      "config": {**default["config"], **pin["config"]}})
     with _LOCK:
         hit = _MEMO.get((family_name, ks))
         if hit is not None:
             _RESOLVED[(family_name, ks)] = hit
-            cache_hits += 1
+            _obs.counter("autotune.cache_hits").inc()
             return hit
         entry = _load_cache().get("families", {}).get(
             family_name, {}).get(ks)
@@ -453,9 +459,9 @@ def resolve(family_name: str, key: dict) -> dict:
                     "config": dict(entry["config"])}
             _MEMO[(family_name, ks)] = cand
             _RESOLVED[(family_name, ks)] = cand
-            cache_hits += 1
+            _obs.counter("autotune.cache_hits").inc()
             return cand
-        cache_misses += 1
+        _obs.counter("autotune.cache_misses").inc()
     if enabled() and fam.runner is not None and _single_process():
         return _log(tune(family_name, key))
     with _LOCK:

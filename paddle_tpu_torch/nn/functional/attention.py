@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ...core.random import before_draw
+from ...observability import costs as _costs
 
 
 def _default_scale(d, dtype):
@@ -120,10 +121,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         if bound_group("sep") is not None:
             return _sequence_parallel(query, key, value, attn_mask,
                                       dropout_p, is_causal, scale)
-    if use_flash and attn_mask is None and dropout_p == 0.0:
-        from ...kernels import flash_attention as fa
-        if fa.supported(query, key):
-            return fa.flash_attention_bshd(query, key, value,
-                                           causal=is_causal, scale=scale)
-    return sdpa_reference_raw(query, key, value, attn_mask, dropout_p,
-                              is_causal, scale, generator)
+
+    def attend(q, k, v):
+        if use_flash and attn_mask is None and dropout_p == 0.0:
+            from ...kernels import flash_attention as fa
+            if fa.supported(q, k):
+                return fa.flash_attention_bshd(q, k, v, causal=is_causal,
+                                               scale=scale)
+        return sdpa_reference_raw(q, k, v, attn_mask, dropout_p,
+                                  is_causal, scale, generator)
+    if _costs.counting_active() and query.dim() == 4:
+        # the flash kernel's work, whichever route runs (observability.
+        # costs): the plain route forms the whole S x S product
+        b, sq, h, d = query.shape
+        fwd, bwd = _costs.attention_flops(b, h, d, sq, key.shape[1],
+                                          is_causal)
+        return _costs.counted(attend, (query, key, value), fwd, bwd)
+    return attend(query, key, value)

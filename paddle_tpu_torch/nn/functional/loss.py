@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ...kernels import ce_cuda
+from ...observability import costs as _costs
 from ...utils.flags import fast_get
 
 
@@ -95,6 +96,16 @@ def softmax_with_cross_entropy_raw(logits, label, soft_label=False,
     """Per-row loss: ``-sum(label * log_softmax)`` for soft labels, else
     ``logsumexp(logits) - logits[label]`` (0 where the label is
     ``ignore_index``), in f32."""
+    if _costs.counting_active():
+        # kernels E1-E3's work, whichever route runs (observability.costs)
+        fwd, bwd = _costs.cross_entropy_flops(logits.numel())
+        return _costs.counted(
+            lambda x, y: _softmax_ce(x, y, soft_label, ignore_index, axis),
+            (logits, label), fwd, bwd)
+    return _softmax_ce(logits, label, soft_label, ignore_index, axis)
+
+
+def _softmax_ce(logits, label, soft_label, ignore_index, axis):
     if soft_label:
         logp = torch.log_softmax(logits.float(), dim=axis)
         return -(label * logp).sum(axis)

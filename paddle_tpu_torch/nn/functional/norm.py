@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ...observability import costs as _costs
 from ...utils.flags import fast_get
 
 
@@ -24,6 +25,17 @@ def _normalized_axes(normalized_shape):
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    if _costs.counting_active():
+        # kernels B and D's work, whichever route runs (observability.costs)
+        fwd, bwd = _costs.layer_norm_flops(x.numel())
+        return _costs.counted(
+            lambda x_, w_, b_: _layer_norm(x_, normalized_shape, w_, b_,
+                                           epsilon),
+            (x, weight, bias), fwd, bwd)
+    return _layer_norm(x, normalized_shape, weight, bias, epsilon)
+
+
+def _layer_norm(x, normalized_shape, weight, bias, epsilon):
     n_axes = _normalized_axes(normalized_shape)
     if fast_get("use_pallas_norm") and n_axes == 1 and weight is not None \
             and bias is not None and x.shape[-1] % 128 == 0:

@@ -26,13 +26,26 @@
   published to the TCP store (:class:`~.aggregate.HostPublisher`), and
   the merged cluster view with straggler flags (``merge_cluster``).
 
-The env knobs are the JAX package's.  Not ported yet (ROADMAP.md §A6):
-the compile watchdog (the port captures graphs instead of compiling;
-engines count their captures), cost reports, the HBM ledger and the CLI.
+* :mod:`.watchdog` — the recompile watchdog over what the port builds
+  once: a serving step's CUDA-graph capture and a 1F1B pipeline step,
+  under the JAX entry names (``compile_counts``, ``RecompileWarning``,
+  ``RecompileError`` under ``PADDLE_TPU_STRICT_COMPILE=1``).
+* :mod:`.hbm` — the HBM ledger: the caching allocator's live bytes per
+  card, the serving engines' KV pools and the checkpoint-restore
+  transient, sampled at step boundaries (``PADDLE_TPU_HBM=1`` arms it),
+  as chrome counter lanes and in flight dumps.
+* :mod:`.costs` — one step's cost report (``flops``: the flop counter's
+  aten ops plus the kernel-routed functions' declared work;
+  ``peak_bytes``) and the bench ``cost`` block with ``mfu``.
+* ``python -m paddle_tpu_torch.observability`` — the CLI (``dump``,
+  ``tail``, ``serve``, ``trace-report``, ``cluster``).
+
+The env knobs are the JAX package's.  The CLI's ``programs`` prices the
+JAX package's program registry, which waits for ROADMAP.md §A8.
 """
 from __future__ import annotations
 
-from . import aggregate, flight, liveness
+from . import aggregate, costs, flight, hbm, liveness, watchdog
 from .catalog import CATALOG
 from .registry import (NOOP_COUNTER, NOOP_GAUGE, NOOP_HISTOGRAM, Counter,
                        Gauge, Histogram, Registry, counter, default_registry,
@@ -44,5 +57,5 @@ __all__ = [
     "NOOP_COUNTER", "NOOP_GAUGE", "NOOP_HISTOGRAM",
     "counter", "gauge", "histogram", "default_registry", "flush",
     "Tracer", "NOOP_TRACER", "NOOP_SPAN", "default_tracer", "aggregate",
-    "flight", "liveness",
+    "flight", "liveness", "costs", "hbm", "watchdog",
 ]

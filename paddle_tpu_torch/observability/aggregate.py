@@ -22,8 +22,8 @@ Two halves:
   the signal of a wedged worker.
 
 The documents are the JAX package's, key for key, so the two packages'
-hosts read each other's snapshots.  The ``python -m ... cluster`` CLI
-waits with the rest of the CLI (ROADMAP.md §A6).
+hosts read each other's snapshots.  ``python -m
+paddle_tpu_torch.observability cluster`` renders the merged view.
 """
 from __future__ import annotations
 

@@ -12,10 +12,14 @@ package's entry of the same name, word for word.
 Only the names the port emits are here: the serving scheduler and
 engine, the host KV tier, the disaggregated handoff, the router, the
 HTTP front end, the faultpoints, the retry policy, the liveness monitor,
-the cluster merge, the tensor-parallel overlap islands and the
-checkpoint manager.  The JAX catalog's collective, training, autotune,
-compile-watchdog and HBM-ledger names wait for their modules (ROADMAP.md
-§A).
+the cluster merge, the tensor-parallel overlap islands, the checkpoint
+manager, the training step, hapi fit, the GradScaler, the divergence
+sentinel, the autotuner, the compile watchdog (over the port's graph
+captures and pipeline builds) and the HBM ledger.  The JAX catalog's
+``serving.collective_bytes`` prices XLA's partitioned collectives, which
+the port's uncaptured tensor-parallel steps do not have.  The
+``hbm.live_bytes`` entry is JAX's word for word; the port reads the
+caching allocator (:mod:`.hbm`).
 
 Naming: dotted ``<subsystem>.<what>_<unit>``; the Prometheus exporter
 rewrites dots to underscores (``serving.ttft_seconds`` ->
@@ -173,6 +177,27 @@ CATALOG = {
         "numerator; tokens computed for a disconnected/cancelled "
         "request never count"),
 
+    # -- training (TrainStep / hapi fit / amp / divergence sentinel) --------
+    "train.step_seconds": _m(
+        "histogram", "host wall time of one TrainStep call (dispatch; on "
+        "async backends completion is not awaited)", unit="seconds"),
+    "train.batch_seconds": _m(
+        "histogram", "hapi fit per-batch wall time incl. the loss fetch "
+        "(a real device sync)", unit="seconds"),
+    "train.steps": _m("counter", "TrainStep calls"),
+    "train.samples": _m("counter", "leading-dim samples seen by hapi fit"),
+    "train.tokens": _m(
+        "counter", "batch*seq tokens seen by hapi fit (2-D+ inputs only)"),
+    "train.loss": _m("gauge", "last training loss hapi fit observed"),
+    "train.grad_norm": _m(
+        "gauge", "global gradient norm (opt-in: "
+        "PADDLE_TPU_METRICS_GRAD_NORM=1 at TrainStep construction; forces "
+        "one device sync per step)"),
+    "train.amp_skipped_steps": _m(
+        "counter", "optimizer updates the GradScaler skipped on found_inf"),
+    "train.divergence_rollbacks": _m(
+        "counter", "DivergenceSentinel rewinds to a snapshot"),
+
     # -- checkpoint (incubate/checkpoint) -----------------------------------
     "checkpoint.write_seconds": _m(
         "histogram", "full checkpoint save (serialize + shard write + "
@@ -202,6 +227,22 @@ CATALOG = {
         "counter", "retries scheduled by retry_call (first attempts are "
         "not counted; exhaustion raises RetryError)", labels=("op",)),
 
+    # -- kernels / autotune -------------------------------------------------
+    "autotune.cache_hits": _m(
+        "counter", "resolve() served from pin/memo/persistent cache"),
+    "autotune.cache_misses": _m(
+        "counter", "resolve() fell through to timed tuning or the "
+        "registered default"),
+    "autotune.tune_seconds": _m(
+        "histogram", "wall time of one timed candidate selection",
+        unit="seconds"),
+
+    # -- compile watchdog ---------------------------------------------------
+    "compile.count": _m(
+        "counter", "XLA compilations per watched jit entry (the recompile "
+        "watchdog warns/raises when a compile-once entry exceeds its "
+        "budget)", labels=("entry",)),
+
     # -- liveness watchdog (observability.liveness — armed via
     # PADDLE_TPU_LIVENESS=1) --------------------------------------------------
     "liveness.stalls": _m(
@@ -215,4 +256,19 @@ CATALOG = {
         "(1 = this host's step-time p50 exceeds the cluster median by "
         "more than PADDLE_TPU_STRAGGLER_PCT percent, 0 = on pace; label "
         "space bounded by world size)", labels=("host",)),
+
+    # -- HBM ledger (observability.hbm — armed via PADDLE_TPU_HBM=1) --------
+    "hbm.live_bytes": _m(
+        "gauge", "live device bytes per device (summed jax.live_arrays(), "
+        "sampled at step/iteration boundaries by the armed ledger; a "
+        "sharded array's bytes split evenly across its devices)",
+        labels=("device",), unit="bytes"),
+    "hbm.kv_pool_bytes": _m(
+        "gauge", "summed KV-pool bytes of live serving engines (paged or "
+        "slotted, int8-aware: rows * kv_row_bytes() — codes + scales)",
+        unit="bytes"),
+    "hbm.restore_transient_bytes": _m(
+        "gauge", "host-side deserialized checkpoint tree held between "
+        "read and device placement (set for the restore's duration, "
+        "zero otherwise)", unit="bytes"),
 }

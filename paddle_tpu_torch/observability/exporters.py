@@ -92,3 +92,34 @@ class JsonlExporter:
         with open(self.path, "a") as f:
             f.write(line + "\n")
         return line
+
+
+def inject_profiler_marks(reg: Optional["_registry.Registry"] = None,
+                          ts_ns: Optional[int] = None) -> int:
+    """Push every counter/gauge value (and histogram counts) into the host
+    profiler's metric-mark buffer as chrome-trace counter events; returns
+    how many marks were written.  Called by ``Profiler.stop()`` so every
+    trace export carries the metric state alongside the spans."""
+    import time
+
+    from .. import profiler as _prof
+
+    reg = reg or _registry.default_registry()
+    if not reg.enabled:
+        return 0
+    if ts_ns is None:
+        ts_ns = time.perf_counter_ns()
+    n = 0
+    for name, entry in reg.snapshot().items():
+        for series in entry["series"]:
+            labels = series.get("labels", {})
+            suffix = ("{%s}" % ",".join("%s=%s" % kv
+                                        for kv in sorted(labels.items()))
+                      if labels else "")
+            value = (series["count"] if entry["type"] == "histogram"
+                     else series["value"])
+            _prof._metric_marks.append((name + suffix, ts_ns, float(value)))
+            n += 1
+    # backstop: keep only the newest _MARKS_CAP marks if nothing drains
+    del _prof._metric_marks[:-_prof._MARKS_CAP]
+    return n

@@ -41,10 +41,12 @@ Each dump is one JSON file ``flight-<stamp>-<pid>-<seq>.json`` in
 ``PADDLE_TPU_FLIGHT_DIR`` (default: cwd) holding the trigger, the ring,
 the current metrics snapshot (catalog-valid by construction — it is the
 default registry's own), the pre-reset snapshot when noted, and every
-live engine's state summary.  The JAX package's dumps also carry
-compile-watchdog counts and an HBM-ledger snapshot; the port's engines
-report their graph captures in their own summaries, and the HBM ledger
-waits for its module (ROADMAP.md §A6).
+live engine's state summary, the compile watchdog's counts
+(:func:`~.watchdog.compile_counts`: graph captures and pipeline builds
+under the JAX entry names) and the HBM-ledger snapshot
+(:func:`~.hbm.ledger_state`: fresh per-device live bytes, the KV pools
+and the top live tensors, collected whether or not the ledger is
+armed).
 
 Disabled by default (``PADDLE_TPU_FLIGHT=0``): ``record()`` is one
 module-global ``None`` check and dump triggers no-op, so tests and
@@ -138,6 +140,18 @@ class FlightRecorder:
             metrics = _registry.default_registry().snapshot()
         except Exception:
             metrics = {}
+        try:
+            from .watchdog import compile_counts
+            compiles = compile_counts()
+        except Exception:
+            compiles = {}
+        try:
+            # "what held the memory" for an OOM post-mortem; collects
+            # whether or not the ledger is armed and never raises
+            from . import hbm as _hbm
+            hbm_state = _hbm.ledger_state()
+        except Exception as e:
+            hbm_state = {"error": repr(e)}
         with self._lock:    # RLock: record() below re-enters it
             self.record("trigger", detail=dict(trigger))
             ring = list(self.ring)
@@ -153,6 +167,8 @@ class FlightRecorder:
             "metrics": metrics,
             "metrics_pre_reset": pre,
             "engines": self._engine_states(),
+            "compile_counts": compiles,
+            "hbm": hbm_state,
         }
         if path is None:
             global _SEQ

@@ -334,10 +334,14 @@ class Tracer:
                 f.write(json.dumps(doc, sort_keys=True) + "\n")
         return path
 
-    def export_chrome(self, path: str) -> str:
+    def export_chrome(self, path: str, include_profiler: bool = True
+                      ) -> str:
         """Write a chrome://tracing JSON of this tracer's spans (request
-        lanes as named threads)."""
-        return write_chrome(path, self.spans(), self.instants())
+        lanes as named threads); ``include_profiler=True`` merges a COPY
+        of the live profiler's host spans and metric marks (same
+        ``perf_counter_ns`` clock, so everything is time-aligned)."""
+        return write_chrome(path, self.spans(), self.instants(),
+                            include_profiler=include_profiler)
 
     def flush(self, path: Optional[str] = None) -> Optional[str]:
         """Append-export to ``path`` or ``$PADDLE_TPU_TRACE_FILE`` (the
@@ -386,7 +390,9 @@ class NoopTracer:
             "export; enable it or pass a live Tracer to the engine/"
             "scheduler")
 
-    def export_chrome(self, path):
+    def export_chrome(self, path, include_profiler=True):
+        # own def (not an alias): the kwargs must match the live
+        # signature so callers get the explanatory error, not TypeError
         self.export_jsonl(path)
 
     def flush(self, path=None):
@@ -472,11 +478,42 @@ def chrome_events(spans: Iterable[Dict[str, Any]],
     return out
 
 
-def write_chrome(path: str, spans, events=()) -> str:
-    """Write chrome://tracing JSON of span and instant dicts."""
+def write_chrome(path: str, spans, events=(), include_profiler=True
+                 ) -> str:
+    """Write chrome://tracing JSON of span and instant dicts.
+    ``include_profiler=True`` copies (never drains — a live Profiler still
+    owns its stream) the host profiler's RecordEvent spans and metric
+    marks into the same file; the HBM ledger's counter marks always go in
+    as ``"C"`` events (the HBM lanes; none while it is disarmed).  All of
+    them use ``perf_counter_ns``, so Perfetto shows spans, counters and
+    request lanes on one timeline."""
+    all_events = chrome_events(spans, events)
+    pid = os.getpid()
+    if include_profiler:
+        from .. import profiler as _prof
+        with _prof._recorder._lock:
+            host = list(_prof._recorder._events)
+        all_events.extend({
+            "name": name, "ph": "X", "ts": ts / 1000.0,
+            "dur": dur / 1000.0, "pid": pid, "tid": tid, "cat": "host",
+        } for name, ts, dur, tid in host)
+        all_events.extend({
+            "name": name, "ph": "C", "ts": ts / 1000.0, "pid": pid,
+            "cat": "metric", "args": {"value": value},
+        } for name, ts, value in list(_prof._metric_marks))
+    from . import hbm as _hbm
+    all_events.extend(hbm_counter_events(_hbm.counter_marks(), pid))
     with open(path, "w") as f:
-        json.dump({"traceEvents": chrome_events(spans, events)}, f)
+        json.dump({"traceEvents": all_events}, f)
     return path
+
+
+def hbm_counter_events(marks, pid):
+    """The HBM ledger's ``(name, perf_ns, value)`` marks as chrome-trace
+    counter (``"C"``) events."""
+    return [{"name": name, "ph": "C", "ts": ts / 1000.0, "pid": pid,
+             "cat": "hbm", "args": {"value": value}}
+            for name, ts, value in marks]
 
 
 # ---------------------------------------------------------------------------

@@ -25,9 +25,10 @@ instrumented module; :data:`SITES` is the live injection-site registry.
 fetch (``serve.kv_tier``), a host-staged handoff (``serve.handoff``) or
 a checkpoint's shard (``checkpoint.shard_file``,
 ``checkpoint.restore_read``); ``DiskFull`` raises ENOSPC where a
-checkpoint's shard is written (``checkpoint.shard_write``).  The JAX
-package's training actions (``NaNBatch``, ``ForceFoundInf``) wait for
-their sites (ROADMAP.md §A6).
+checkpoint's shard is written (``checkpoint.shard_write``).
+``NaNBatch`` poisons the batch a ``jit.TrainStep`` is handed
+(``train.grads``), and ``ForceFoundInf`` flips the ``GradScaler``'s
+found-inf verdict (``amp.found_inf``).
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ from typing import Any, Dict, List, Optional, Tuple
 __all__ = [
     "FaultPlan", "FaultAction", "chaos", "faultpoint", "declare",
     "active_plan", "SITES",
-    "Raise", "DiskFull", "SocketReset", "TornFile", "BitFlip", "Preempt",
-    "HardExit", "Hang",
+    "Raise", "DiskFull", "SocketReset", "TornFile", "BitFlip", "NaNBatch",
+    "ForceFoundInf", "Preempt", "HardExit", "Hang",
     "CrashScopeExit", "crash_scope",
 ]
 
@@ -166,6 +167,44 @@ class BitFlip(FaultAction):
             byte = f.read(1)
             f.seek(off)
             f.write(bytes([byte[0] ^ (1 << plan.rng.randrange(8))]))
+
+
+class NaNBatch(FaultAction):
+    """Poison the first float leaf of ``ctx['batch']`` with NaN — the
+    upstream producer of "NaN grads at step k" (a NaN input NaN-poisons the
+    loss and every gradient behind it).  A batch without a float leaf (token
+    ids and labels only) passes through unchanged, as in the JAX package."""
+
+    @staticmethod
+    def _is_float(b) -> bool:
+        dt = getattr(b, "dtype", None)
+        if dt is None:
+            return False
+        torch_kind = getattr(dt, "is_floating_point", None)
+        if isinstance(torch_kind, bool):     # a torch dtype
+            return torch_kind
+        # numpy kinds: 'f' float, 'V' covers ml_dtypes bfloat16
+        return getattr(dt, "kind", None) in ("f", "V") \
+            or str(dt).startswith(("float", "bfloat"))
+
+    def fire(self, ctx, plan):
+        batch = ctx["batch"]
+        out, poisoned = [], False
+        for b in batch:
+            if not poisoned and self._is_float(b):
+                out.append(b * float("nan"))
+                poisoned = True
+            else:
+                out.append(b)
+        ctx["batch"] = tuple(out) if isinstance(batch, tuple) else out
+
+
+class ForceFoundInf(FaultAction):
+    """Flip the GradScaler's found-inf verdict to True: a simulated fp16
+    overflow without needing overflow-scale gradients."""
+
+    def fire(self, ctx, plan):
+        ctx["found_inf"] = True
 
 
 class Preempt(FaultAction):

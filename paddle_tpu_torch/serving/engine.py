@@ -315,6 +315,12 @@ class PrefillTask:
     last_logits: object = None            # (vocab,) device tensor
 
 
+#: the step kinds an engine captures, by the JAX engine's watchdog entry
+#: for the same step (observability.watchdog)
+_WATCHED_KINDS = {"decode": "serving.decode", "spec": "serving.spec_verify",
+                  "chunk": "serving.prefill_chunk"}
+
+
 class DecodeEngine:
     """Serving engine for a causal LM with a ``config`` carrying the GPT
     geometry (:class:`paddle_tpu_torch.models.gpt.GPTForCausalLM`)."""
@@ -460,8 +466,19 @@ class DecodeEngine:
                         fn(pid, digests)
                 self._alloc.spill_hook = hook
         # flight dumps collect this engine's state summary (a weak
-        # reference: registration never pins the engine)
+        # reference: registration never pins the engine); the HBM ledger
+        # prices this engine's KV pool the same way
         _flight.register_engine(self)
+        from ..observability import hbm as _hbm
+        _hbm.register_engine(self)
+        # the compile watchdog's entries: a capture of each step kind is
+        # the JAX engine's compile of that entry (observability.watchdog)
+        from ..observability.watchdog import watch
+        self._watched = {kind: watch(name, expected=1)
+                         for kind, name in _WATCHED_KINDS.items()
+                         if kind == "decode"
+                         or (kind == "spec" and self.spec_k)
+                         or (kind == "chunk" and self.paged)}
 
     def _tp_group(self):
         """The tensor-parallel group (None at tp=1), with the JAX engine's
@@ -1058,19 +1075,57 @@ class DecodeEngine:
         key = (kind, bool(fast_get("use_pallas_norm")), pick)
         graph = self._graphs.get(key)
         if graph is None:
-            if kind == "chunk":
-                io = self._chunk_io
-                io.inp.zero_()
-                io.n_before.copy_(self.cache.lengths[0])
-                self._sync_table()
-            else:
-                self._io[kind].active.zero_()
+            self._idle_operands(kind)
             graph = capture(self._step_fn(kind))
             graph.kind = kind
             self._graphs[key] = graph
             self.graph_captures += 1
             self.graph_captures_by_kind[kind] += 1
+            # budget 1 a routing; strict mode raises past it
+            self._watched[kind].compiled(routing=key[1:])
         return graph
+
+    def _idle_operands(self, kind):
+        """Operands under which a step of ``kind`` commits nothing: a
+        decode or verify step with every lane inactive, a chunk with
+        ``n_valid`` 0 (its writes go to the sink page) and slot 0's own
+        length as ``n_before``, copied on the device."""
+        if kind == "chunk":
+            io = self._chunk_io
+            io.inp.zero_()
+            io.n_before.copy_(self.cache.lengths[0])
+            self._sync_table()
+        else:
+            self._io[kind].active.zero_()
+
+    def cost_reports(self, only=None):
+        """{watchdog entry name: ProgramReport} for each step kind this
+        engine captures (``serving.decode``; ``serving.spec_verify`` with
+        ``spec_k``; ``serving.prefill_chunk`` when paged): one eager run
+        of the step under :func:`..observability.costs.report_step`, with
+        idle operands so that it commits nothing.  ``only`` (entry names)
+        restricts the report; a name this engine does not watch raises
+        ``ValueError``.  A cold path: call it while no step is in
+        flight."""
+        from ..observability import costs as _costs
+        entries = [(name, kind) for kind, name in _WATCHED_KINDS.items()
+                   if kind in self._watched]
+        if only is not None:
+            wanted = set(only)
+            unknown = wanted - {name for name, _k in entries}
+            if unknown:
+                raise ValueError(
+                    "cost_reports(only=...) names entries this engine "
+                    "does not watch: %s" % sorted(unknown))
+            entries = [(n, k) for n, k in entries if n in wanted]
+        self.refresh_state()
+        out = {}
+        with torch.inference_mode():
+            for name, kind in entries:
+                self._idle_operands(kind)
+                out[name] = _costs.report_step(name, self._step_fn(kind),
+                                               self.device)
+        return out
 
     @torch.inference_mode()
     def capture_steps(self):

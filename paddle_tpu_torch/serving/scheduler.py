@@ -96,7 +96,9 @@ every unfinished request into :class:`RequeueState` records, and
 :meth:`import_requeue` feeds one through the recompute-preemption resume
 path: the router's failover and decommission.
 
-Not ported yet (ROADMAP.md §A6): the HBM ledger's iteration sample.
+**The HBM ledger.**  Each iteration ends with the ledger's sample
+(``observability.hbm.maybe_sample("serving.iteration")``), one global
+check while the ledger is disarmed.
 """
 from __future__ import annotations
 
@@ -109,6 +111,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..observability import flight as _flight
+from ..observability import hbm as _hbm
 from ..observability import liveness as _liveness
 from ..observability import registry as _metrics
 from ..observability import tracing as _tracing
@@ -1040,6 +1043,10 @@ class ContinuousBatchingScheduler:
             # idle with no backlog: the wait for the next request is
             # arrival time, not host work
             self._last_fetch_ns = None
+        # HBM ledger sample at the ITERATION boundary (host-side, after
+        # the batched step was queued).  One module-global None check
+        # while the ledger is disarmed, the default
+        _hbm.maybe_sample("serving.iteration")
         return n
 
     def has_work(self) -> bool:

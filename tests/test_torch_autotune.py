@@ -425,14 +425,19 @@ def test_single_process_without_torch_distributed():
 
 
 def test_report_includes_pins_and_counts_hits(monkeypatch):
+    from paddle_tpu_torch.observability import registry
     _fake_family()
-    hits, misses = at.cache_hits, at.cache_misses
+
+    def counts():
+        return (registry.counter("autotune.cache_hits").value,
+                registry.counter("autotune.cache_misses").value)
+    hits, misses = counts()
     at.resolve("fake", KEY)
-    assert (at.cache_hits, at.cache_misses) == (hits, misses + 1)
+    assert counts() == (hits, misses + 1)
     assert at.report()["fake"][at.key_str(KEY)]["config"] == {"rows": 8}
     monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_PIN", "fake=base:rows=16")
     at.resolve("fake", KEY)
-    assert at.cache_hits == hits + 1
+    assert counts()[0] == hits + 1
     assert at.report()["fake"][at.key_str(KEY)]["config"] == {"rows": 16}
 
 

@@ -57,7 +57,13 @@ def test_import_loads_no_jax_and_no_paddle_tpu():
         "paddle_tpu_torch.distributed.launch_main, "
         "paddle_tpu_torch.distributed.fleet.elastic, "
         "paddle_tpu_torch.distributed.auto_parallel, "
-        "paddle_tpu_torch.metric\n"
+        "paddle_tpu_torch.metric, paddle_tpu_torch.hapi, "
+        "paddle_tpu_torch.callbacks, paddle_tpu_torch.framework, "
+        "paddle_tpu_torch.profiler, paddle_tpu_torch.robustness.sentinel, "
+        "paddle_tpu_torch.observability.costs, "
+        "paddle_tpu_torch.observability.hbm, "
+        "paddle_tpu_torch.observability.watchdog, "
+        "paddle_tpu_torch.observability.__main__\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m.startswith('jaxlib') or m == 'paddle_tpu' "
@@ -130,7 +136,7 @@ def test_chip_smoke_and_the_rank_helpers_import_no_jax():
              PKG.parent / "tools" / "torch_launch_worker.py"] + [
         here / ("_torch_%s.py" % n)
         for n in ("dist", "front", "pipe", "sep", "seq", "launch",
-                  "hybrid")]
+                  "hybrid", "capture", "threads")]
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]

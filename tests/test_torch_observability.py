@@ -318,6 +318,50 @@ def test_catalog_is_two_way_over_a_serving_run(monkeypatch, tmp_path):
     mgr.save(1, {"w": torch.arange(4.0)})
     assert torch.equal(mgr.restore()["w"], torch.arange(4.0))
     mgr.close()
+    # training: a TrainStep under the grad-norm opt-in inside a hapi fit,
+    # an fp16 update the scaler skips, a sentinel rewind
+    from paddle_tpu_torch import amp, hapi
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+    from paddle_tpu_torch.robustness.sentinel import DivergenceSentinel
+    monkeypatch.setenv("PADDLE_TPU_METRICS_GRAD_NORM", "1")
+    net = hapi.Model(GPTForCausalLM(GPTConfig.tiny()))
+    net.prepare(AdamW(parameters=net.parameters()),
+                GPTPretrainingCriterion(), device="cpu")
+    ids = rng.integers(0, 512, (2, 8))
+    net.fit(TensorDataset([ids, ids]), batch_size=2, shuffle=False,
+            verbose=0)
+    monkeypatch.delenv("PADDLE_TPU_METRICS_GRAD_NORM")
+    lin = torch.nn.Linear(2, 2)
+    scaler = amp.GradScaler(init_loss_scaling=2.0)
+    scaler.scale(lin(torch.ones(1, 2)).sum()).backward()
+    with fp.chaos(fp.FaultPlan().inject("amp.found_inf",
+                                        fp.ForceFoundInf())):
+        scaler.step(SGD(parameters=list(lin.parameters())))
+    sentinel = DivergenceSentinel(net._train_step, snapshot_every=1,
+                                  min_history=1)
+    sentinel.observe(1, 1.0)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sentinel.observe(2, float("nan"))
+    # the autotuner: a timed selection, then a memo hit and a miss
+    from paddle_tpu_torch.kernels import autotune as at
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE_CACHE", "")
+    key = {"n": 8, "platform": "cpu"}
+    at.register_family("catalog_fake", lambda k: [
+        {"variant": "base", "config": {"rows": r}} for r in (8, 16)],
+        lambda cand, k: (lambda: None))
+    at.tune("catalog_fake", key, persist=False)
+    at.resolve("catalog_fake", key)
+    at.resolve("catalog_fake", {"n": 16, "platform": "cpu"})
+    # the HBM ledger, a card's device standing in on the CPU (the engines
+    # above register their pools)
+    from paddle_tpu_torch.observability import hbm
+    monkeypatch.setattr(hbm, "_live_per_device", lambda: {"cuda:0": 1.0})
+    hbm.enable().sample("catalog")
+    hbm.disable()
     liveness.declare_beacon("test.catalog_stall", "test-local beacon")
     monkeypatch.setenv("PADDLE_TPU_LIVENESS_DEADLINE_TEST_CATALOG_STALL",
                        "0.0")
